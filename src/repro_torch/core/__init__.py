@@ -1,0 +1,33 @@
+"""Core RBGP library (numpy): graphs, products, RBGP4 layout.
+
+Copied from ``repro.core`` so the port imports nothing of the JAX package;
+sampling is unchanged, so the masks are the reference's.
+"""
+from .graphs import (
+    BipartiteGraph,
+    complete_bipartite,
+    generate_biregular,
+    generate_ramanujan,
+    is_ramanujan,
+    second_singular_value,
+    two_lift,
+)
+from .product import ProductStructure, graph_product, product_mask
+from .rbgp import RBGP4Layout, RBGP4Spec, design_rbgp4, pow2_sparsity_steps
+
+__all__ = [
+    "BipartiteGraph",
+    "complete_bipartite",
+    "two_lift",
+    "is_ramanujan",
+    "second_singular_value",
+    "generate_biregular",
+    "generate_ramanujan",
+    "graph_product",
+    "product_mask",
+    "ProductStructure",
+    "RBGP4Spec",
+    "RBGP4Layout",
+    "design_rbgp4",
+    "pow2_sparsity_steps",
+]

@@ -1,0 +1,215 @@
+// rbgp4mm_rhs for Hopper (sm_90a): Y = act(X . W_s^T + b) + r, token-major.
+//
+// Replaces the Pallas TPU kernel repro/kernels/rbgp4mm.py:rbgp4mm_rhs
+// (_mm_rhs_kernel, _rhs_accumulate, _rhs_writeback), forward only: no
+// int8 `scales`, no `save_preact`.
+//
+// What it computes.  W_s is in compact RBGP4 storage, w (M, d_o*d_i*C).
+// Output row m = (o, u, g) is tile-row o, inner group u, row g < G; its
+// row group is rg = m / G = o*u_i + u.  Compact slot s = (kk, ki) covers
+// the C columns w[m, s*C : (s+1)*C], which multiply the input columns
+// col0[rg, s] + c, where the host-built table holds
+//   col0[rg, s] = adj_o[o, kk]*TK + adj_i[u, ki]*C.
+// The table takes the place of the TPU kernel's scalar-prefetched adj_o
+// and its static unroll over adj_i.  Sums are f32 whatever the input type.
+//
+// What bounds it on an H100.  At decode (8 token rows) every weight is
+// read once per step and used for 8 products: about 154 launches and
+// 0.48 GB of bf16 weights per step of tinyllama-1.1b, so reading W from
+// device memory bounds it (3.35 TB/s).  At prefill (512 rows) the bound is
+// still bytes for these shapes, with the tensor cores close behind.
+//
+// This first design is simple and right, not fast: one block computes a
+// (BN tokens x G rows) tile of one row group, walks the d_o*d_i chunks,
+// stages each (BN x C) input slice and (G x C) weight slice in shared
+// memory (converted to f32, in passes of at most 64 columns) and
+// multiplies them with FMAs on the CUDA cores, each thread holding up to
+// four outputs in registers.  The epilogue (bias, activation, residual)
+// runs on those registers before the single store.  No sum crosses blocks.
+// The block's token count BN is picked per launch (block_tokens).  The
+// ragged token edge is masked here, not padded by the caller.  Any C and
+// any G up to 128 work; a G whose staging needs more than the 48 KB of
+// shared memory a launch gets by default is refused.  Tensor cores
+// (mma.sync / wgmma with tokens on the M side and the G rows on the N
+// side), TMA, a pipelined ring of stages and a fitted BN are work for a
+// later version.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kAccPerThread = 4;  // BN * G <= kThreads * kAccPerThread
+constexpr int kTileC = 64;        // columns staged per pass
+constexpr int kMaxBlockTokens = 64;
+
+enum Act { kNone = 0, kRelu = 1, kGelu = 2, kSilu = 3 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float activate(float z, int act) {
+  switch (act) {
+    case kRelu:
+      return fmaxf(z, 0.0f);
+    case kGelu: {  // tanh approximation, as jax.nn.gelu(approximate=True)
+      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+      return 0.5f * z * (1.0f + tanhf(c * (z + 0.044715f * z * z * z)));
+    }
+    case kSilu:
+      return z / (1.0f + expf(-z));
+    default:
+      return z;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rbgp4mm_rhs_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const int* __restrict__ col0,
+                       const T* __restrict__ bias,
+                       const T* __restrict__ residual, T* __restrict__ out,
+                       int n_tokens, int k, int m, int n_chunks, int G,
+                       int C, int bn, int act) {
+  extern __shared__ float smem[];
+  const int ct = C < kTileC ? C : kTileC;  // staged columns per pass
+  const int ld = ct + 1;                   // padded row stride: no conflicts
+  float* xs = smem;                        // (bn, ld)
+  float* ws = smem + bn * ld;              // (G, ld)
+
+  const int rg = blockIdx.x;  // row group: output rows rg*G .. rg*G + G-1
+  const int n0 = blockIdx.y * bn;
+  const int tid = threadIdx.x;
+  const int n_out = bn * G;
+  const long long w_row = (long long)n_chunks * C;  // compact row length
+
+  float acc[kAccPerThread];
+#pragma unroll
+  for (int a = 0; a < kAccPerThread; ++a) acc[a] = 0.0f;
+
+  const int* cols = col0 + (long long)rg * n_chunks;
+  const T* w_blk = w + (long long)rg * G * w_row;
+  for (int s = 0; s < n_chunks; ++s) {
+    const int c_base = cols[s];  // input column of slot (s, c = 0)
+    for (int c0 = 0; c0 < C; c0 += ct) {
+      const int cw = min(ct, C - c0);  // live columns in this pass
+      // x[n0 : n0+bn, c_base+c0 : +cw], zeros past the token edge
+      for (int i = tid; i < bn * ct; i += kThreads) {
+        const int r = i / ct;
+        const int c = i - r * ct;
+        const int n = n0 + r;
+        float v = 0.0f;
+        if (n < n_tokens && c < cw)
+          v = to_f32(x[(long long)n * k + c_base + c0 + c]);
+        xs[r * ld + c] = v;
+      }
+      // w[rg*G : rg*G+G, s*C+c0 : +cw]
+      for (int i = tid; i < G * ct; i += kThreads) {
+        const int g = i / ct;
+        const int c = i - g * ct;
+        float v = 0.0f;
+        if (c < cw) v = to_f32(w_blk[(long long)g * w_row + (long long)s * C + c0 + c]);
+        ws[g * ld + c] = v;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int a = 0; a < kAccPerThread; ++a) {
+        const int o = tid + a * kThreads;
+        if (o < n_out) {
+          const float* xr = xs + (o / G) * ld;
+          const float* wr = ws + (o % G) * ld;
+          float sum = acc[a];
+          for (int c = 0; c < ct; ++c) sum = fmaf(xr[c], wr[c], sum);
+          acc[a] = sum;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // epilogue on the f32 accumulators, then one store
+#pragma unroll
+  for (int a = 0; a < kAccPerThread; ++a) {
+    const int o = tid + a * kThreads;
+    const int n = n0 + o / G;
+    if (o < n_out && n < n_tokens) {
+      const int row = rg * G + o % G;
+      float z = acc[a];
+      if (bias != nullptr) z += to_f32(bias[row]);
+      float y = activate(z, act);
+      const long long idx = (long long)n * m + row;
+      if (residual != nullptr) y += to_f32(residual[idx]);
+      out[idx] = from_f32<T>(y);
+    }
+  }
+}
+
+// Token rows per block: a power of two covering n_tokens (so a decode
+// step stages no empty rows), at most kMaxBlockTokens, and few enough that
+// the block's BN x G outputs fit its threads' accumulators.  0 when G alone
+// is too large.
+int block_tokens(int n_tokens, int G) {
+  int bn = 1;
+  while (bn < n_tokens && bn < kMaxBlockTokens) bn *= 2;
+  const int cap = kThreads * kAccPerThread / G;
+  return bn < cap ? bn : cap;
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* w, const void* col0,
+                   const void* bias, const void* residual, void* out,
+                   int n_tokens, int k, int m, int n_chunks, int G, int C,
+                   int act, cudaStream_t stream) {
+  if (G < 1 || C < 1 || m % G != 0 || n_tokens < 1)
+    return cudaErrorInvalidValue;
+  const int bn = block_tokens(n_tokens, G);
+  if (bn < 1) return cudaErrorInvalidValue;
+  const int ct = C < kTileC ? C : kTileC;
+  const size_t smem = (size_t)(bn + G) * (ct + 1) * sizeof(float);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const dim3 grid(m / G, (n_tokens + bn - 1) / bn);
+  rbgp4mm_rhs_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const int*>(col0), static_cast<const T*>(bias),
+      static_cast<const T*>(residual), static_cast<T*>(out), n_tokens, k, m,
+      n_chunks, G, C, bn, act);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  act: 0 none, 1 relu, 2 gelu, 3 silu.
+// bias and residual may be null.  Returns the cudaError_t of the launch.
+extern "C" int rbgp4mm_rhs_launch(int dtype, const void* x, const void* w,
+                                  const void* col0, const void* bias,
+                                  const void* residual, void* out,
+                                  int n_tokens, int k, int m, int n_chunks,
+                                  int G, int C, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch<float>(x, w, col0, bias, residual, out, n_tokens, k,
+                              m, n_chunks, G, C, act, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(x, w, col0, bias, residual, out,
+                                      n_tokens, k, m, n_chunks, G, C, act,
+                                      s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* rbgp4mm_rhs_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,65 @@
+"""Plain PyTorch versions of the RBGP4 compact-storage products.
+
+The port of ``repro/kernels/ref.py``.  These are the kernels' plain
+versions: the CPU path runs them, and the card compares its kernels with
+them.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["unpack_dense", "pack_compact", "gather_mm_rhs",
+           "compact_gather_mm_rhs"]
+
+
+def _col_index(layout, device) -> torch.Tensor:
+    """(M, nnz_row) int64 dense-column index of each compact slot."""
+    return torch.as_tensor(layout._col_index(), dtype=torch.int64,
+                           device=device)
+
+
+def unpack_dense(layout, w_data: torch.Tensor) -> torch.Tensor:
+    """Scatter compact Wdata (M, nnz_row) to dense (M, K) with zeros off-mask."""
+    ci = _col_index(layout, w_data.device)
+    dense = torch.zeros((layout.m, layout.k), dtype=w_data.dtype,
+                        device=w_data.device)
+    return dense.scatter_(1, ci, w_data.reshape(layout.m, -1))
+
+
+def pack_compact(layout, w_dense: torch.Tensor) -> torch.Tensor:
+    """Gather the masked values of dense (M, K) into compact (M, nnz_row)."""
+    return torch.gather(w_dense, 1, _col_index(layout, w_dense.device))
+
+
+def gather_mm_rhs(adj_o, adj_i, n_o_r: int, group_rows: int,
+                  chunk_cols: int, w_data: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Y (N, M) = X (N, K) @ W_s^T from compact storage, gather + einsum.
+
+    ``adj_o`` (n_o_l, d_o) and ``adj_i`` (u_i, d_i) are the factor
+    adjacency lists (int64 tensors on the device of ``x`` cost no copy);
+    output row ``m = (o, u, g)`` contracts compact slot
+    ``(kk, ki, c)`` against input column
+    ``adj_o[o, kk] * TK + adj_i[u, ki] * C + c``.
+    """
+    adj_o = torch.as_tensor(adj_o, dtype=torch.int64, device=x.device)
+    adj_i = torch.as_tensor(adj_i, dtype=torch.int64, device=x.device)
+    n = x.shape[0]
+    n_o_l, d_o = adj_o.shape
+    u_i, d_i = adj_i.shape
+    G, C = group_rows, chunk_cols
+    v_i = x.shape[1] // (n_o_r * C)
+    xt = x.reshape(n, n_o_r, v_i, C)
+    xg = xt[:, adj_o]                 # (n, n_o_l, d_o, v_i, C)
+    xg = xg[:, :, :, adj_i]           # (n, n_o_l, d_o, u_i, d_i, C)
+    w = w_data.reshape(n_o_l, u_i, G, d_o, d_i, C)
+    out = torch.einsum("nokuic,ougkic->noug", xg, w)
+    return out.reshape(n, n_o_l * u_i * G)
+
+
+def compact_gather_mm_rhs(layout, w_data: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """Y = X @ W_s^T from compact storage; X (N, K) token-major -> (N, M)."""
+    sp = layout.spec
+    return gather_mm_rhs(layout.adj_o, layout.adj_i, sp.g_o[1],
+                         sp.group_rows, sp.chunk_cols, w_data, x)
