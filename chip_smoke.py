@@ -2,30 +2,49 @@
 
     python3 chip_smoke.py
 
-Serves full-width RBGP4-sparse tinyllama-1.1b (22 layers, d_model 2048,
-rbgp4 at 0.75) through ``repro_torch``'s continuous-batching engine, with
-every sparse projection running the hand-written ``rbgp4mm_rhs`` CUDA
-kernel.  Phases, each printing its own lines; any failure raises and the
-script exits non-zero without the result line:
+Serves and trains full-width RBGP4-sparse tinyllama-1.1b (22 layers,
+d_model 2048, rbgp4 at 0.75, all 154 projections compact) through
+``repro_torch``, with every sparse product on a hand-written CUDA kernel:
+``rbgp4mm_rhs`` (the forward, and dX on the layer's transposed layout) and
+``rbgp4_sddmm_rhs`` (dW).  Phases, each printing its own lines; any failure
+raises and the script exits non-zero without the result line:
 
   1. build the kernels from ``src/repro_torch/kernels/csrc`` (nvcc, one
      process per source, all at once); print the card's name and power
      limit;
-  2. hold the kernel against its plain PyTorch version on the card: the
-     four full-width layouts, N in {1, 8, 512}, float32 and bfloat16, three
-     epilogues (tolerance max|diff| <= 1e-5 * max|ref| in float32, reduction
-     order only; <= 2e-2 * max|ref| in bfloat16, output rounding);
-  3. time the kernel, its plain version and a dense ``F.linear`` yardstick
-     (CUDA events, median of 30 launches after warm-up, weights cycled
+  2. hold each kernel against its plain PyTorch version on the card, at the
+     four full-width layouts (tolerance max|diff| <= 1e-5 * max|ref| in
+     float32, reduction order only; <= 2e-2 * max|ref| in bfloat16, output
+     rounding): ``rbgp4mm_rhs`` at N in {1, 8, 512} x {f32, bf16} x three
+     epilogues; with ``save_preact`` (Y and Z) at N in {512, 4096} x
+     {f32, bf16} x three epilogues; on the four transposed layouts at N
+     in {512, 4096}; ``rbgp4_sddmm_rhs`` at N in {8, 512, 4096} x
+     {f32, bf16};
+  3. time each kernel, its plain version and a dense cuBLAS yardstick
+     (CUDA events, median of 30 launches after warm-up, operands cycled
      through more than the 50 MB L2 cache) beside the least time the card
-     could take;
-  4. drive the main path: 16 mixed requests (prompts 128/256/512, 8-64 new
-     tokens) through ``ContinuousEngine``, 8 slots, 16-token pages, greedy,
-     bf16 compute, f32 KV cache; the kernel's launch count must equal 154
-     (22 layers x 7 projections) per prefill call and per decode step;
-  5. float32 parity on the card: the engine's greedy streams against
+     could take: the forward at N = 8 and 512, dW and dX at N = 4096;
+  4. serve: 16 mixed requests (prompts 128/256/512, 8-64 new tokens)
+     through ``ContinuousEngine``, 8 slots, 16-token pages, greedy, bf16
+     compute, f32 KV cache; 154 (22 layers x 7 projections) ``rbgp4mm_rhs``
+     launches per prefill call and per decode step;
+  5. serve parity in float32: the engine's greedy streams against
      ``run_sequential`` on 4 requests (a flip is tolerated only at a near
-     tie: top-2 logit gap < 1e-4 * max|logit|).
+     tie: top-2 logit gap < 1e-4 * max|logit|);
+  6. train: 6 steps of ``Trainer.run`` (sgdm, lr 3e-2, cosine, clip 1.0,
+     remat on; bf16 compute over f32 master values) on
+     ``TokenStream(seed=0)`` batches of 8 x 512 tokens, the last 5 timed;
+     per step 154 ``rbgp4_sddmm_rhs`` launches and 462 ``rbgp4mm_rhs``
+     launches: 308 on forward layouts (154 forward + 154 recomputed under
+     remat) and 154 on transposed layouts (dX), each counted at its
+     launch; finite losses and gradient norms; then one more step under
+     torch.profiler;
+  7. train parity in float32: a 2-layer full-width model takes 2 steps on
+     the card (the kernels) and 2 on the CPU (the plain versions) from the
+     same weights and batch, without weight decay; losses within 1e-4
+     relative; the SGD momentum, which then holds only the clipped
+     gradients, within 1e-4 * max|ref| for every parameter; every updated
+     parameter within 1e-4 * max|ref|.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -132,6 +151,27 @@ def full_width_layouts():
             for key, (m, k) in FULL_WIDTH.items()}
 
 
+def agree(what: str, got, want, dt) -> tuple[float, float]:
+    """(max|diff|, max|diff| / max|ref|); raises past the tolerance."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not (np.isfinite(err) and err <= TOL[dt] * scale):
+        raise AssertionError(f"{what} {dt}: max|diff| {err} > {TOL[dt]} * "
+                             f"max|ref| {scale}")
+    return err, err / scale
+
+
+def launched(counter, fn, attr: str = "launches"):
+    """fn()'s result, checking that it launched its kernel exactly once
+    (``counter.<attr>`` moved by one)."""
+    before = getattr(counter, attr)
+    out = fn()
+    torch.cuda.synchronize()
+    if getattr(counter, attr) != before + 1:
+        raise AssertionError(f"launch counter {attr} did not move by one")
+    return out
+
+
 def phase_check(layouts) -> float:
     from repro_torch.kernels import (KernelTables, rbgp4mm_rhs,
                                      rbgp4mm_rhs_reference)
@@ -152,26 +192,88 @@ def phase_check(layouts) -> float:
                     x, w = rnd(n, lay.k), rnd(*lay.data_shape)
                     b = rnd(lay.m) if bias else None
                     r = rnd(n, lay.m) if res else None
-                    before = rbgp4mm_rhs.launches
-                    y = rbgp4mm_rhs(tables, x, w, bias=b, act=act,
-                                    residual=r)
-                    torch.cuda.synchronize()
-                    if rbgp4mm_rhs.launches != before + 1:
-                        raise AssertionError("launch counter did not move")
+                    y = launched(rbgp4mm_rhs, lambda: rbgp4mm_rhs(
+                        tables, x, w, bias=b, act=act, residual=r))
                     want = rbgp4mm_rhs_reference(tables, x, w, bias=b,
                                                  act=act, residual=r)
-                    err = float((y.float() - want.float()).abs().max())
-                    scale = float(want.float().abs().max())
-                    if not (np.isfinite(err) and err <= TOL[dt] * scale):
-                        raise AssertionError(
-                            f"{key} N={n} {dt} act={act}: max|diff| {err} > "
-                            f"{TOL[dt]} * max|ref| {scale}")
-                    worst = max(worst, err / scale)
+                    err, rel = agree(f"{key} N={n} act={act}", y, want, dt)
+                    worst = max(worst, rel)
                     max_abs = max(max_abs, err)
                     n_cases += 1
                 log("check", f"{key:8s} N={n:<4d} {str(dt):15s} "
                              f"max|diff|/max|ref| = {worst:.2e} (3 epilogues)")
     log("check", f"{n_cases} cases agree; max abs diff {max_abs:.3e}")
+    return max_abs
+
+
+def phase_check_train(layouts) -> dict:
+    """The training kernels against their plain versions: max abs diff per
+    record entry ('rbgp4mm_rhs' with save_preact counts with the forward)."""
+    from repro_torch.kernels import (KernelTables, TransposeTables,
+                                     rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_reference, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    max_abs = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+    n_cases = 0
+    for key, lay in layouts.items():
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        dt_ = tt.tables.dims
+        log("check", f"{key:8s} transposed layout {dt_.m} x {dt_.k}: G = "
+                     f"{dt_.group_rows}, C = {dt_.chunk_cols}, "
+                     f"{dt_.d_o * dt_.d_i} chunks a row")
+        for dt in (torch.float32, torch.bfloat16):
+            rnd = lambda *s: torch.randn(*s, device="cuda",
+                                         generator=g).to(dt)
+            worst = {"sddmm": 0.0, "save_preact": 0.0, "transposed": 0.0}
+            for n in (8, 512, 4096):
+                gy, x = rnd(n, lay.m), rnd(n, lay.k)
+                dw = launched(rbgp4_sddmm_rhs,
+                              lambda: rbgp4_sddmm_rhs(tables, gy, x))
+                err, rel = agree(f"sddmm {key} N={n}", dw,
+                                 rbgp4_sddmm_rhs_reference(tables, gy, x), dt)
+                max_abs["dw"] = max(max_abs["dw"], err)
+                worst["sddmm"] = max(worst["sddmm"], rel)
+                n_cases += 1
+            w = rnd(*lay.data_shape)
+            # the train path's forward and recompute run N = 4096
+            for n in (512, 4096):
+                x = rnd(n, lay.k)
+                for act, bias, res in ((None, False, False),
+                                       ("silu", False, False),
+                                       ("gelu", True, True)):
+                    b = rnd(lay.m) if bias else None
+                    r = rnd(n, lay.m) if res else None
+                    y, z = launched(rbgp4mm_rhs, lambda: rbgp4mm_rhs(
+                        tables, x, w, bias=b, act=act, residual=r,
+                        save_preact=True))
+                    wy, wz = rbgp4mm_rhs_reference(
+                        tables, x, w, bias=b, act=act, residual=r,
+                        save_preact=True)
+                    for name, a, b_ in (("y", y, wy), ("z", z, wz)):
+                        err, rel = agree(f"save_preact {key} N={n} "
+                                         f"act={act} {name}", a, b_, dt)
+                        max_abs["forward"] = max(max_abs["forward"], err)
+                        worst["save_preact"] = max(worst["save_preact"], rel)
+                    n_cases += 1
+            wt = tt.values(w)
+            for n in (512, 4096):
+                gy = rnd(n, lay.m)
+                dx = launched(rbgp4mm_rhs,
+                              lambda: rbgp4mm_rhs(tt.tables, gy, wt),
+                              "launches_dx")
+                err, rel = agree(f"transposed {key} N={n}", dx,
+                                 rbgp4mm_rhs_reference(tt.tables, gy, wt), dt)
+                max_abs["dx"] = max(max_abs["dx"], err)
+                worst["transposed"] = max(worst["transposed"], rel)
+                n_cases += 1
+            log("check", f"{key:8s} {str(dt):15s} max|diff|/max|ref|: "
+                         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+        torch.cuda.empty_cache()
+    log("check", f"{n_cases} training-kernel cases agree; max abs diff "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items()))
     return max_abs
 
 
@@ -213,6 +315,78 @@ def phase_times(layouts) -> dict:
     return rows
 
 
+def sddmm_bound_ms(n: int, m: int, k: int, nnz_row: int, n_chunk_cols: int,
+                   group_rows: int, elem_bytes: int) -> tuple[float, str]:
+    """Least time for compact dW (m, nnz_row) = pack(g (n, m)^T . x (n, k)):
+    g, x and the column table read once, dW written once; 2*n*m*nnz_row
+    operations against the bf16 tensor-core peak."""
+    nbytes = ((n * m + n * k + m * nnz_row) * elem_bytes
+              + (m // group_rows) * n_chunk_cols * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * n * m * nnz_row / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_train_times(layouts, n: int = 4096) -> dict:
+    """dW (rbgp4_sddmm_rhs) and dX (rbgp4mm_rhs on the transposed layout)
+    at a training step's N tokens, bf16: kernel, plain version, the dense
+    cuBLAS product (g^T @ x, and g @ W with W unpacked), bound."""
+    from repro_torch.kernels import (KernelTables, TransposeTables,
+                                     rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_reference, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_reference)
+    from repro_torch.kernels.ref import unpack_dense
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dt = torch.bfloat16
+    rows = {}
+    for key, lay in layouts.items():
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        dims, dims_t = tables.dims, tt.tables.dims
+        m, k = lay.m, lay.k
+        nnz = lay.data_shape[1]
+        copies = max(2, -(-2 * L2_BYTES // ((n * m + n * k) * 2)))
+        gs = torch.randn((copies, n, m), device="cuda", generator=g).to(dt)
+        xs = torch.randn((copies, n, k), device="cuda", generator=g).to(dt)
+        w = torch.randn((m, nnz), device="cuda", generator=g).to(dt)
+        wt = tt.values(w)
+        wd = unpack_dense(lay, w)
+        c = lambda i: i % copies
+        t = dict(
+            dw=time_cuda(lambda i: rbgp4_sddmm_rhs(tables, gs[c(i)],
+                                                   xs[c(i)])),
+            dw_plain=time_cuda(lambda i: rbgp4_sddmm_rhs_reference(
+                tables, gs[c(i)], xs[c(i)])),
+            dw_lib=time_cuda(lambda i: gs[c(i)].T @ xs[c(i)]),
+            dx=time_cuda(lambda i: rbgp4mm_rhs(tt.tables, gs[c(i)], wt)),
+            dx_plain=time_cuda(lambda i: rbgp4mm_rhs_reference(
+                tt.tables, gs[c(i)], wt)),
+            dx_lib=time_cuda(lambda i: gs[c(i)] @ wd),
+        )
+        b, by = sddmm_bound_ms(n, m, k, nnz, dims.d_o * dims.d_i,
+                               dims.group_rows, 2)
+        rows[(key, "dw")] = dict(ms=t["dw"], plain_ms=t["dw_plain"],
+                                 library_ms=t["dw_lib"], bound_ms=b,
+                                 bound_by=by)
+        log("times", f"dW {key:8s} N={n} bf16: kernel {t['dw']:.4f} ms, plain "
+                     f"{t['dw_plain']:.4f} ms, g^T @ x dense "
+                     f"{t['dw_lib']:.4f} ms, bound {b * 1e3:.2f} us ({by})")
+        b, by = bound_ms(n, dims_t.m, dims_t.k, dims_t.data_cols,
+                         dims_t.d_o * dims_t.d_i, dims_t.group_rows, 2)
+        rows[(key, "dx")] = dict(ms=t["dx"], plain_ms=t["dx_plain"],
+                                 library_ms=t["dx_lib"], bound_ms=b,
+                                 bound_by=by)
+        log("times", f"dX {key:8s} N={n} bf16 (G = {dims_t.group_rows}, "
+                     f"C = {dims_t.chunk_cols}): kernel {t['dx']:.4f} ms, "
+                     f"plain {t['dx_plain']:.4f} ms, g @ W dense "
+                     f"{t['dx_lib']:.4f} ms, bound {b * 1e3:.2f} us ({by})")
+        del gs, xs, w, wt, wd
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main_config(compute_dtype: str = "bfloat16"):
     from repro_torch.configs import apply_sparsity, get_config
 
@@ -223,7 +397,6 @@ def main_config(compute_dtype: str = "bfloat16"):
 
 def phase_serve() -> dict:
     from repro_torch.data import RequestStream
-    from repro_torch.kernels import rbgp4mm_rhs
     from repro_torch.models import LMModel
     from repro_torch.serve import ContinuousEngine
 
@@ -254,14 +427,15 @@ def phase_serve() -> dict:
     engine = ContinuousEngine(model, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rbgp4mm_rhs.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r["prompt"], r["max_new_tokens"])
     out = engine.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = rbgp4mm_rhs.launches
+    counts = launch_counts()
+    launches = counts["forward"]
     st = engine.stats
     for r in reqs:
         toks = np.asarray(out[r["rid"]])
@@ -271,9 +445,11 @@ def phase_serve() -> dict:
         if toks.min() < 0 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"request {r['rid']}: token out of range")
     passes = st["prefill_calls"] + st["decode_steps"]
-    if launches != per_pass * passes or launches == 0:
-        raise AssertionError(f"{launches} kernel launches for {passes} "
-                             f"passes; want {per_pass} per pass")
+    if launches != per_pass * passes or launches == 0 \
+            or counts["dx"] or counts["dw"]:
+        raise AssertionError(f"launches {counts} for {passes} passes; want "
+                             f"{per_pass} forward launches per pass and "
+                             f"no gradient kernel")
     n_prompt, n_gen = st["prompt_tokens"], st["generated_tokens"]
     res = dict(
         requests=len(out), prompt_tokens=n_prompt, generated_tokens=n_gen,
@@ -350,6 +526,242 @@ def phase_parity() -> None:
     torch.cuda.empty_cache()
 
 
+def profile_train_step(trainer) -> dict:
+    """One training step under torch.profiler: the card's busy share of the
+    step and the share of each of the three sparse products.  The trace
+    names the kernel, not its role: an ``rbgp4mm_rhs`` launch is taken as
+    a dX when the last sparse kernel before it was ``rbgp4_sddmm_rhs`` (the
+    backward of every projection runs dW, then dX), otherwise as a forward
+    or its recompute.  That split is held against the launch counters of
+    the same step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counted = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.run(1)
+    counted = {k: v - counted[k] for k, v in launch_counts().items()}
+    wall_ms = 1e3 * trainer.history[-1]["step_time_s"]
+    kernels = sorted((e.time_range.start, e.time_range.elapsed_us() * 1e-3,
+                      e.name) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel on the card")
+    busy = sum(ms for _, ms, _ in kernels)
+    ms = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+    count = {"forward": 0, "dx": 0, "dw": 0}
+    last = None
+    for _, dur, name in kernels:
+        if "rbgp4_sddmm_rhs_kernel" in name:
+            kind = "dw"
+        elif "rbgp4mm_rhs_kernel" in name:
+            kind = "dx" if last == "dw" else "forward"
+        else:
+            continue
+        ms[kind] += dur
+        count[kind] += 1
+        last = kind
+    if count != counted:
+        raise AssertionError(f"profiled step: trace split {count}, launch "
+                             f"counters {counted}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
+                kernel_ms=ms, kernel_launches=count,
+                kernel_share={k: v / busy for k, v in ms.items()})
+
+
+def launch_counts() -> dict:
+    """The three launch counters, by role."""
+    from repro_torch.kernels import rbgp4_sddmm_rhs, rbgp4mm_rhs
+
+    return {"forward": rbgp4mm_rhs.launches, "dx": rbgp4mm_rhs.launches_dx,
+            "dw": rbgp4_sddmm_rhs.launches}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels import rbgp4_sddmm_rhs, rbgp4mm_rhs
+
+    rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = 0
+    rbgp4_sddmm_rhs.launches = 0
+
+
+def phase_train(n_steps: int = 6, batch: int = 8, seq: int = 512) -> dict:
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.models import LMModel
+    from repro_torch.train import Trainer
+
+    cfg = main_config("bfloat16")
+    model = LMModel(cfg, device="cuda", seed=0)
+    n_compact = 7 * cfg.n_layers
+    # the defaults of launch/train.py
+    tcfg = TrainConfig(optimizer="sgdm", lr=3e-2, schedule="cosine",
+                       total_steps=n_steps,
+                       warmup_steps=min(100, n_steps // 10), grad_clip=1.0)
+    trainer = Trainer(model, tcfg, TokenStream(cfg.vocab_size, batch, seq,
+                                               seed=0), checkpoint=False)
+    counts = []
+    trainer.hooks.append(lambda step, metrics: counts.append(
+        launch_counts()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    hist = list(trainer.run(n_steps))
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # every projection: forward and its recompute under remat (rbgp4mm_rhs
+    # on the forward layout), dX (rbgp4mm_rhs on the transposed layout),
+    # dW (rbgp4_sddmm_rhs)
+    want = {"forward": 2 * n_compact, "dx": n_compact, "dw": n_compact}
+    prev = dict.fromkeys(want, 0)
+    for i, c in enumerate(counts):
+        step = {k: c[k] - prev[k] for k in want}
+        if step != want:
+            raise AssertionError(f"step {i}: launches {step}, want {want}")
+        prev = c
+    if launches != {k: v * n_steps for k, v in want.items()}:
+        raise AssertionError(f"{launches} launches in {n_steps} steps")
+    for h in hist:
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+            raise AssertionError(f"step {h['step']}: loss {h['loss']}, "
+                                 f"grad norm {h['grad_norm']}")
+    timed = [h["step_time_s"] for h in hist[1:]]
+    step_ms = 1e3 * statistics.mean(timed)
+    prof = profile_train_step(trainer)
+    if prof["kernel_launches"] != want:
+        raise AssertionError(f"profiled step launches "
+                             f"{prof['kernel_launches']}")
+    res = dict(
+        steps=n_steps, tokens_per_step=batch * seq,
+        losses=[h["loss"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist],
+        step_ms=[1e3 * t for t in timed], mean_step_ms=step_ms,
+        tokens_per_s=batch * seq / (step_ms / 1e3),
+        peak_mem_gb=peak_gb,
+        launches=launches, launches_per_step=want,
+        profile=prof,
+        busy_share_unprofiled=prof["busy_ms"] / step_ms,
+    )
+    log("train", f"{cfg.name}: {n_steps} steps of {batch} x {seq} tokens, "
+                 f"losses {', '.join(f'{x:.4f}' for x in res['losses'])}; "
+                 f"grad norms "
+                 f"{', '.join(f'{x:.3f}' for x in res['grad_norms'])}")
+    log("train", f"last {len(timed)} steps: {step_ms:.1f} ms/step "
+                 f"({', '.join(f'{x:.1f}' for x in res['step_ms'])}), "
+                 f"{res['tokens_per_s']:.0f} tokens/s; peak memory "
+                 f"{peak_gb:.2f} GB")
+    log("train", f"launches in {n_steps} steps, counted at each launch: "
+                 f"rbgp4mm_rhs {launches['forward']} on forward layouts "
+                 f"(forward + recompute) and {launches['dx']} on transposed "
+                 f"layouts (dX), rbgp4_sddmm_rhs {launches['dw']} (dW); per "
+                 f"step {want}")
+    log("train", f"profiled step: {prof['wall_ms']:.1f} ms wall, card busy "
+                 f"{prof['busy_ms']:.1f} ms ({prof['busy_share']:.1%}; "
+                 f"{res['busy_share_unprofiled']:.1%} of the unprofiled "
+                 f"step); "
+                 + ", ".join(f"{k} {prof['kernel_ms'][k]:.1f} ms "
+                             f"({prof['kernel_share'][k]:.1%} of busy, "
+                             f"{prof['kernel_launches'][k]} launches)"
+                             for k in ("forward", "dx", "dw")))
+    print("train " + json.dumps(res), flush=True)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_parity(n_layers: int = 2, seq: int = 64) -> None:
+    """float32: the same weights and batch train 2 steps on the card (the
+    kernels) and on the CPU (the plain versions).  Without weight decay
+    the SGD momentum after the steps is the sum of the clipped gradients,
+    so it holds every parameter's gradient, dW and dX included, against
+    the CPU's at 1e-4 * max|ref|.  (The parameters' own change is no
+    finer test: each update rounds to one float32 spacing of the value,
+    which is larger than 1e-4 of the change.)"""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.models import LMModel
+    from repro_torch.train import Trainer
+
+    cfg = main_config("float32").with_(n_layers=n_layers)
+    n_compact = 7 * n_layers
+    gpu = LMModel(cfg, device="cuda", seed=0)
+    cpu = LMModel(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    tcfg = TrainConfig(optimizer="sgdm", lr=3e-2, schedule="constant",
+                       grad_clip=1.0, weight_decay=0.0)
+    stream = TokenStream(cfg.vocab_size, 1, seq, seed=0)
+    runs = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        reset_launch_counts()
+        tr = Trainer(model, tcfg, stream, checkpoint=False)
+        hist = tr.run(2)
+        runs[name] = ([h["loss"] for h in hist], tr.state.params,
+                      tr.state.opt_state["m"], launch_counts())
+    want_launches = {"forward": 2 * 2 * n_compact, "dx": 2 * n_compact,
+                     "dw": 2 * n_compact}
+    if runs["cuda"][3] != want_launches \
+            or any(runs["cpu"][3].values()):
+        raise AssertionError(f"launches: card {runs['cuda'][3]}, cpu "
+                             f"{runs['cpu'][3]}")
+    worst_loss = max(abs(a - b) / abs(b)
+                     for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    if not worst_loss <= 1e-4:
+        raise AssertionError(f"losses {runs['cuda'][0]} (card) vs "
+                             f"{runs['cpu'][0]} (cpu)")
+    worst = {}
+    for what, idx in (("momentum", 2), ("params", 1)):
+        worst[what] = (-1.0, "")
+        for name, ref in runs["cpu"][idx].items():
+            got = runs["cuda"][idx][name].cpu()
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            if not (scale > 0 and err <= 1e-4 * scale):
+                raise AssertionError(f"{what} {name}: max|diff| {err} > "
+                                     f"1e-4 * max|ref| {scale}")
+            worst[what] = max(worst[what], (err / scale, name))
+    # the split of the launch count: a forward alone launches every
+    # projection once; a backward without remat adds one dX and one dW
+    batch = {"tokens": stream.batch_at(0)}
+    reset_launch_counts()
+    with torch.no_grad():
+        gpu.loss(batch)
+    fwd = launch_counts()
+    reset_launch_counts()
+    gpu.loss(batch, train=False)[0].backward()
+    no_remat = launch_counts()
+    one = {"forward": n_compact, "dx": n_compact, "dw": n_compact}
+    if fwd != {"forward": n_compact, "dx": 0, "dw": 0} or no_remat != one:
+        raise AssertionError(f"forward alone {fwd} launches, a step without "
+                             f"remat {no_remat}")
+    log("parity", f"train float32, {n_layers} full-width layers, 2 steps of "
+                  f"1 x {seq} tokens: losses card {runs['cuda'][0]} vs cpu "
+                  f"{runs['cpu'][0]} (worst {worst_loss:.2e} relative); "
+                  f"{len(runs['cpu'][1])} parameters: momentum (the "
+                  f"clipped gradients) worst max|diff|/max|ref| "
+                  f"{worst['momentum'][0]:.2e} ({worst['momentum'][1]}), "
+                  f"updated values {worst['params'][0]:.2e} "
+                  f"({worst['params'][1]})")
+    log("parity", f"launches on the card: {runs['cuda'][3]} in 2 steps with "
+                  f"remat; a forward alone {fwd}; a step without remat "
+                  f"{no_remat}: so a remat step is forward + recompute + dX")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def per_layer(rows: dict, kind) -> dict:
+    """One decoder layer's seven projections: the sums of ``rows`` (keyed
+    ``(layout, kind)``, kind a token count or 'dw'/'dx') weighted by
+    LAYER_PROJECTIONS."""
+    agg = {f: 0.0 for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by_share = {"bytes": 0.0, "operations": 0.0}
+    for key, count in LAYER_PROJECTIONS.items():
+        row = rows[(key, kind)]
+        for f in agg:
+            agg[f] += count * row[f]
+        by_share[row["bound_by"]] += count * row["bound_ms"]
+    agg["bound_by"] = max(by_share, key=by_share.get)
+    return agg
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -360,32 +772,48 @@ def main() -> int:
     smi = phase_build()
     layouts = full_width_layouts()
     max_abs = phase_check(layouts)
+    max_abs_train = phase_check_train(layouts)
     times = phase_times(layouts)
+    times.update(phase_train_times(layouts))
     serve = phase_serve()
     phase_parity()
+    train = phase_train()
+    phase_train_parity()
 
-    # the kernel record: one decoder layer's seven projections at decode
-    # (N = 8 rows, bf16), the shape the main path launches most
-    agg = {f: 0.0 for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    for key, count in LAYER_PROJECTIONS.items():
-        for f in agg:
-            agg[f] += count * times[(key, 8)][f]
-    bound_by = ("bytes" if all(times[(key, 8)]["bound_by"] == "bytes"
-                               for key in LAYER_PROJECTIONS)
-                else "operations")
-    per_layout = {f"{key} N={n}": row for (key, n), row in times.items()}
+    per_layout = {f"{key} {kind if isinstance(kind, str) else f'N={kind}'}":
+                  row for (key, kind), row in times.items()}
     print("kernel_times " + json.dumps(per_layout), flush=True)
-    record = {"kernels": [{
-        "name": "rbgp4mm_rhs", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rbgp4mm_rhs.cu",
-        "replaces": "src/repro/kernels/rbgp4mm.py:500",
-        "launches": serve["launches"], "max_abs_err": max_abs,
-        "ms": agg["ms"], "plain_ms": agg["plain_ms"],
-        "bound_ms": agg["bound_ms"], "bound_by": bound_by,
-        "library_ms": agg["library_ms"],
-        "work": "one decoder layer at decode: wq, wk, wv, wo, gate, up, "
-                "down with 8 token rows, bf16",
-    }]}
+    src = "src/repro_torch/kernels/csrc/"
+    # the forward: one decoder layer's seven projections at decode (N = 8
+    # rows, bf16), the shape the serving path launches most; dX and dW:
+    # one layer's seven at a training step (N = 4096, bf16)
+    fwd = per_layer(times, 8)
+    dx, dw = per_layer(times, "dx"), per_layer(times, "dw")
+    record = {"kernels": [
+        dict(name="rbgp4mm_rhs", route="cuda", source=src + "rbgp4mm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:500",
+             launches=serve["launches"] + train["launches"]["forward"],
+             max_abs_err=max(max_abs, max_abs_train["forward"]),
+             **fwd,
+             work="forward (serve, and train with its remat recompute); "
+                  "timed: one decoder layer at decode, wq, wk, wv, wo, "
+                  "gate, up, down with 8 token rows, bf16"),
+        dict(name="rbgp4mm_rhs (dX, transposed layouts)", route="cuda",
+             source=src + "rbgp4mm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:500",
+             launches=train["launches"]["dx"],
+             max_abs_err=max_abs_train["dx"], **dx,
+             work="dX = g @ W_s of one decoder layer's seven projections "
+                  "on their transposed layouts (G 64/128, C 16), 4096 "
+                  "tokens, bf16"),
+        dict(name="rbgp4_sddmm_rhs", route="cuda",
+             source=src + "rbgp4_sddmm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:674",
+             launches=train["launches"]["dw"],
+             max_abs_err=max_abs_train["dw"], **dw,
+             work="compact dW of one decoder layer's seven projections, "
+                  "4096 tokens, bf16"),
+    ]}
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s "
                 f"on {smi}")
     print(json.dumps(record), flush=True)

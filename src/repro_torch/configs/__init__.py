@@ -10,7 +10,7 @@ import importlib
 
 from repro_torch.sparsity import SparsityConfig
 
-from .base import ModelConfig
+from .base import ModelConfig, TrainConfig
 
 ARCHS = {
     "tinyllama-1.1b": "tinyllama_1_1b",
@@ -74,4 +74,4 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "get_config", "apply_sparsity",
-           "reduce_config", "ModelConfig"]
+           "reduce_config", "ModelConfig", "TrainConfig"]

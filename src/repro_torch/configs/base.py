@@ -1,16 +1,21 @@
-"""ModelConfig: the architecture fields the serving slice reads.
+"""ModelConfig and TrainConfig: the fields the serving and training
+slices read.
 
 The port of ``repro/configs/base.py``.  Fields that only architectures not
 yet ported read (MoE, MLA, Mamba, RWKV, frontends, tied embeddings, logit
-soft-capping) come with those architectures.
+soft-capping) come with those architectures; the training fields of the
+modules not yet ported (distillation, gradient compression) with those
+modules.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 
 from repro_torch.sparsity import SparsityConfig
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "TrainConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +38,9 @@ class ModelConfig:
     sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # training recomputes each layer's forward in the backward (the
+    # reference's per-period ``jax.checkpoint``)
+    remat: bool = True
 
     @property
     def head_dim_(self) -> int:
@@ -43,3 +51,23 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "sgdm"          # paper uses SGD momentum 0.9, wd 1e-4
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    adam_eps: float = 1e-8
+    schedule: str = "cosine"         # 'step' for the paper's VGG/WRN recipe
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    lr_step_epochs: tuple[int, ...] = (60, 120, 160)
+    lr_step_gamma: float = 0.1
+    microbatches: int = 1            # gradient accumulation
+    grad_clip: float = 1.0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")

@@ -1,3 +1,3 @@
-from .synthetic import RequestStream, TokenStream
+from .synthetic import Prefetcher, RequestStream, TokenStream
 
-__all__ = ["TokenStream", "RequestStream"]
+__all__ = ["TokenStream", "RequestStream", "Prefetcher"]

@@ -2,18 +2,24 @@
 of ``repro/data/synthetic.py``.
 
   * TokenStream: affine-recurrence sequences (t_{i+1} = a*t_i + c mod V)
-    with random restarts and noise;
+    with random restarts and noise; iterating it yields the training
+    batches ``{"tokens": (B, S)}``;
   * RequestStream: the serving workload — mixed-length requests whose
-    prompts come from the same token process, with optional arrivals.
+    prompts come from the same token process, with optional arrivals;
+  * Prefetcher: background-thread double buffering around any iterator.
 
 The same seed gives the reference's tokens and requests (multi-codebook
 streams come with the audio models).
 """
 from __future__ import annotations
 
+import queue
+import threading
+from typing import Iterator
+
 import numpy as np
 
-__all__ = ["TokenStream", "RequestStream"]
+__all__ = ["TokenStream", "RequestStream", "Prefetcher"]
 
 
 class TokenStream:
@@ -43,6 +49,12 @@ class TokenStream:
             flip = rng.random(cur.shape) < self.noise
             cur = np.where(flip, rng.integers(0, self.vocab, cur.shape), cur)
         return toks
+
+    def __iter__(self) -> Iterator[dict]:
+        step = 0
+        while True:
+            yield {"tokens": self.batch_at(step)}
+            step += 1
 
 
 class RequestStream:
@@ -79,3 +91,30 @@ class RequestStream:
             if self.arrival_rate > 0:
                 step += int(rng.geometric(min(self.arrival_rate, 1.0)))
         return out
+
+
+class Prefetcher:
+    """Background-thread double buffering around any batch iterator."""
+
+    def __init__(self, it: Iterator):
+        self._it = iter(it)
+        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._done = object()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            for item in self._it:
+                self._q.put(item)
+        finally:
+            self._q.put(self._done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._done:
+            raise StopIteration
+        return item

@@ -30,6 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: kernel name -> source file under csrc/
 SOURCES = {
     "rbgp4mm_rhs": "rbgp4mm_rhs.cu",
+    "rbgp4_sddmm_rhs": "rbgp4_sddmm_rhs.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

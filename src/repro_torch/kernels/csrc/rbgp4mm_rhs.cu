@@ -1,8 +1,12 @@
 // rbgp4mm_rhs for Hopper (sm_90a): Y = act(X . W_s^T + b) + r, token-major.
 //
 // Replaces the Pallas TPU kernel repro/kernels/rbgp4mm.py:rbgp4mm_rhs
-// (_mm_rhs_kernel, _rhs_accumulate, _rhs_writeback), forward only: no
-// int8 `scales`, no `save_preact`.
+// (_mm_rhs_kernel, _rhs_accumulate, _rhs_writeback), with `save_preact`
+// (the pre-activation Z = X . W_s^T + b as a second output) but without
+// the int8 `scales` path.  Training runs it three ways: the forward of
+// every compact projection (with Z where an activation is fused), its
+// recompute under activation checkpointing, and dX = gz . W_s as this
+// kernel on the layer's transposed layout.
 //
 // What it computes.  W_s is in compact RBGP4 storage, w (M, d_o*d_i*C).
 // Output row m = (o, u, g) is tile-row o, inner group u, row g < G; its
@@ -17,15 +21,22 @@
 // read once per step and used for 8 products: about 154 launches and
 // 0.48 GB of bf16 weights per step of tinyllama-1.1b, so reading W from
 // device memory bounds it (3.35 TB/s).  At prefill (512 rows) the bound is
-// still bytes for these shapes, with the tensor cores close behind.
+// still bytes for these shapes, with the tensor cores close behind.  At a
+// training step's 4096 rows the forward layouts (G = 16) and the dX
+// layouts (G = 64 and 128, C = 16, up to 88 chunks a row) are bound by
+// the tensor cores' operations; this design runs on the CUDA cores, two
+// shared-memory loads per FMA, so it stays far from that bound.
 //
 // This first design is simple and right, not fast: one block computes a
 // (BN tokens x G rows) tile of one row group, walks the d_o*d_i chunks,
 // stages each (BN x C) input slice and (G x C) weight slice in shared
 // memory (converted to f32, in passes of at most 64 columns) and
 // multiplies them with FMAs on the CUDA cores, each thread holding up to
-// four outputs in registers.  The epilogue (bias, activation, residual)
-// runs on those registers before the single store.  No sum crosses blocks.
+// four outputs in registers.  The epilogue (bias, Z, activation,
+// residual) runs on those registers before the single store of Y (and of
+// Z, from the same registers).  No sum crosses blocks.  At G = 128 a
+// block holds only BN = 8 tokens, so it reads its 128 weight rows once
+// for every 8 tokens: the dX launches re-read W from L2 N/8 times.
 // The block's token count BN is picked per launch (block_tokens).  The
 // ragged token edge is masked here, not padded by the caller.  Any C and
 // any G up to 128 work; a G whose staging needs more than the 48 KB of
@@ -83,8 +94,8 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ col0,
                        const T* __restrict__ bias,
                        const T* __restrict__ residual, T* __restrict__ out,
-                       int n_tokens, int k, int m, int n_chunks, int G,
-                       int C, int bn, int act) {
+                       T* __restrict__ zout, int n_tokens, int k, int m,
+                       int n_chunks, int G, int C, int bn, int act) {
   extern __shared__ float smem[];
   const int ct = C < kTileC ? C : kTileC;  // staged columns per pass
   const int ld = ct + 1;                   // padded row stride: no conflicts
@@ -150,8 +161,9 @@ __global__ void __launch_bounds__(kThreads)
       const int row = rg * G + o % G;
       float z = acc[a];
       if (bias != nullptr) z += to_f32(bias[row]);
-      float y = activate(z, act);
       const long long idx = (long long)n * m + row;
+      if (zout != nullptr) zout[idx] = from_f32<T>(z);
+      float y = activate(z, act);
       if (residual != nullptr) y += to_f32(residual[idx]);
       out[idx] = from_f32<T>(y);
     }
@@ -172,8 +184,8 @@ int block_tokens(int n_tokens, int G) {
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* col0,
                    const void* bias, const void* residual, void* out,
-                   int n_tokens, int k, int m, int n_chunks, int G, int C,
-                   int act, cudaStream_t stream) {
+                   void* zout, int n_tokens, int k, int m, int n_chunks,
+                   int G, int C, int act, cudaStream_t stream) {
   if (G < 1 || C < 1 || m % G != 0 || n_tokens < 1)
     return cudaErrorInvalidValue;
   const int bn = block_tokens(n_tokens, G);
@@ -185,28 +197,30 @@ cudaError_t launch(const void* x, const void* w, const void* col0,
   rbgp4mm_rhs_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const int*>(col0), static_cast<const T*>(bias),
-      static_cast<const T*>(residual), static_cast<T*>(out), n_tokens, k, m,
-      n_chunks, G, C, bn, act);
+      static_cast<const T*>(residual), static_cast<T*>(out),
+      static_cast<T*>(zout), n_tokens, k, m, n_chunks, G, C, bn, act);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  act: 0 none, 1 relu, 2 gelu, 3 silu.
-// bias and residual may be null.  Returns the cudaError_t of the launch.
+// bias, residual and zout (the pre-activation output) may be null.
+// Returns the cudaError_t of the launch.
 extern "C" int rbgp4mm_rhs_launch(int dtype, const void* x, const void* w,
                                   const void* col0, const void* bias,
                                   const void* residual, void* out,
-                                  int n_tokens, int k, int m, int n_chunks,
-                                  int G, int C, int act, void* stream) {
+                                  void* zout, int n_tokens, int k, int m,
+                                  int n_chunks, int G, int C, int act,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(x, w, col0, bias, residual, out, n_tokens, k,
-                              m, n_chunks, G, C, act, s);
+    return (int)launch<float>(x, w, col0, bias, residual, out, zout,
+                              n_tokens, k, m, n_chunks, G, C, act, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(x, w, col0, bias, residual, out,
-                                      n_tokens, k, m, n_chunks, G, C, act,
-                                      s);
+                                      zout, n_tokens, k, m, n_chunks, G, C,
+                                      act, s);
   return (int)cudaErrorInvalidValue;
 }
 

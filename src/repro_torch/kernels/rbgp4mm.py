@@ -1,17 +1,24 @@
-"""RBGP4 token-major sparse product ``rbgp4mm_rhs`` and its plain version.
+"""RBGP4 token-major sparse products and their plain versions.
 
-The port of the forward of ``repro/kernels/rbgp4mm.py:rbgp4mm_rhs``:
+The port of two kernels of ``repro/kernels/rbgp4mm.py``:
 
-    Y = act(X @ W_s^T + bias) + residual;  X (N, K) -> Y (N, M)
+``rbgp4mm_rhs``      Y = act(X @ W_s^T + bias) + residual, X (N, K) ->
+                     Y (N, M), with the pre-activation Z as an optional
+                     second output (``save_preact``);
+``rbgp4_sddmm_rhs``  the compact weight gradient dW = pack(g^T @ x) from
+                     token-major g (N, M) and x (N, K).
 
-with W_s in compact RBGP4 storage ``w_data`` (M, d_o*d_i*C).  On a CUDA
-tensor the wrapper launches the hand-written kernel in
-``csrc/rbgp4mm_rhs.cu`` (see its source note for the design and what bounds
-it); on a CPU tensor it runs ``rbgp4mm_rhs_reference``, the plain version.
-There is no other path: a failed build or launch raises.
+W_s is in compact RBGP4 storage ``w_data`` (M, d_o*d_i*C).  On a CUDA
+tensor each wrapper launches its hand-written kernel in ``csrc/`` (see the
+source notes for the designs and what bounds them); on a CPU tensor it
+runs its plain version (``*_reference``).  There is no other path: a failed
+build or launch raises.
 
-``rbgp4mm_rhs.launches`` counts kernel launches (plain runs never count).
-The int8 ``scales=`` path and ``save_preact`` come with later slices.
+Launch counters, each moved only where its kernel launches (plain runs
+never count): ``rbgp4mm_rhs.launches`` on forward layouts,
+``rbgp4mm_rhs.launches_dx`` on transposed ones (dX, tables built with
+``transposed=True``), ``rbgp4_sddmm_rhs.launches``.  The int8 ``scales=``
+path comes with a later slice.
 """
 from __future__ import annotations
 
@@ -24,10 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .ref import gather_mm_rhs
+from .ref import gather_mm_rhs, gather_sddmm_rhs
 
-__all__ = ["KernelDims", "KernelTables", "EPILOGUE_ACTS", "rbgp4mm_rhs",
-           "rbgp4mm_rhs_reference"]
+__all__ = ["KernelDims", "KernelTables", "TransposeTables", "EPILOGUE_ACTS",
+           "rbgp4mm_rhs", "rbgp4mm_rhs_reference", "rbgp4_sddmm_rhs",
+           "rbgp4_sddmm_rhs_reference"]
 
 # Activations fusable into the epilogue; names match ``models.mlp.ACTS``.
 EPILOGUE_ACTS = {
@@ -82,16 +90,19 @@ class KernelTables:
     ``s = kk*d_i + ki`` read input columns ``col0[rg, s] + c`` for
     ``c < C``, with ``col0[rg, s] = adj_o[o, kk]*TK + adj_i[u, ki]*C``.
     ``adj_o`` (n_o_l, d_o) and ``adj_i`` (u_i, d_i) int64 are the plain
-    version's gather indices.
+    version's gather indices.  ``transposed`` marks the tables of a
+    transposed layout (dX), whose launches count apart.
     """
 
     dims: KernelDims
     col0: torch.Tensor
     adj_o: torch.Tensor
     adj_i: torch.Tensor
+    transposed: bool = False
 
     @classmethod
-    def build(cls, layout, device) -> "KernelTables":
+    def build(cls, layout, device, transposed: bool = False
+              ) -> "KernelTables":
         dims = KernelDims.from_layout(layout)
         adj_o = np.asarray(layout.adj_o, np.int64)
         adj_i = np.asarray(layout.adj_i, np.int64)
@@ -104,7 +115,49 @@ class KernelTables:
 
         return cls(dims, on_device(col0, torch.int32),
                    on_device(adj_o, torch.int64),
-                   on_device(adj_i, torch.int64))
+                   on_device(adj_i, torch.int64), transposed)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TransposeTables:
+    """What ``dX = g @ W_s`` needs: the kernel tables of the layout of W^T
+    and ``perm`` (int32, M*nnz_row), the slot permutation with
+    ``values(w_data).flat == w_data.flat[perm]``, which packs W^T in that
+    layout (the reference's ``RBGP4Op.transpose_data``).
+
+    Built once per layer on its device, by the owning ``SparseLinear``
+    when a gradient is first asked of it.  The permutation is read off a
+    dense (M, K) map of each non-zero's compact slot, on the device.
+    """
+
+    tables: KernelTables
+    perm: torch.Tensor
+
+    @classmethod
+    def build(cls, layout, device) -> "TransposeTables":
+        lt = layout.transpose_layout()
+        m, k = layout.m, layout.k
+        ci = torch.as_tensor(layout._col_index(), dtype=torch.int64,
+                             device=device)
+        ci_t = torch.as_tensor(lt._col_index(), dtype=torch.int64,
+                               device=device)
+        # slot[r, c] = flat index into w_data of W[r, c]; -1 off the mask
+        slot = torch.full((m, k), -1, dtype=torch.int32, device=device)
+        slot.scatter_(1, ci, torch.arange(ci.numel(), dtype=torch.int32,
+                                          device=device).reshape(ci.shape))
+        # row j of W^T holds W[ci_t[j, s], j] in its slot s
+        perm = slot[ci_t, torch.arange(k, device=device)[:, None]].reshape(-1)
+        if bool((perm < 0).any()):
+            raise ValueError("the transposed layout does not cover the "
+                             "forward layout's non-zeros")
+        return cls(KernelTables.build(lt, device, transposed=True),
+                   perm.contiguous())
+
+    def values(self, w_data: torch.Tensor) -> torch.Tensor:
+        """The compact values of W^T in the transposed layout."""
+        dims = self.tables.dims
+        return w_data.reshape(-1).index_select(0, self.perm).reshape(
+            dims.m, dims.data_cols)
 
 
 def _check_args(dims, x, w_data, act):
@@ -122,8 +175,9 @@ def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           act: Optional[str] = None,
                           residual: Optional[torch.Tensor] = None,
-                          out_dtype=None) -> torch.Tensor:
-    """Plain version: gather + einsum in f32, then the epilogue in f32."""
+                          save_preact: bool = False, out_dtype=None):
+    """Plain version: gather + einsum in f32, then the epilogue in f32.
+    Returns Y, or (Y, Z) with ``save_preact``."""
     dims = tables.dims
     _check_args(dims, x, w_data, act)
     z = gather_mm_rhs(tables.adj_o, tables.adj_i, dims.n_col_tiles,
@@ -134,26 +188,59 @@ def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
     y = EPILOGUE_ACTS[act](z) if act is not None else z
     if residual is not None:
         y = y + residual.float()
-    return y.to(out_dtype or x.dtype)
+    out_dtype = out_dtype or x.dtype
+    if save_preact:
+        return y.to(out_dtype), z.to(out_dtype)
+    return y.to(out_dtype)
 
 
-_LIB: Optional[ctypes.CDLL] = None
+def _library(name: str, signature: str) -> ctypes.CDLL:
+    """Kernel ``name``'s library (built at first use) with its C signatures
+    declared: without ``argtypes`` ctypes would cut pointers to 32 bits.
+    ``signature`` spells the launch function's arguments: 'p' a pointer
+    (the stream too), 'i' an int."""
+    lib = build.load(name)
+    launch = getattr(lib, f"{name}_launch")
+    if launch.argtypes is None:
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+        launch.argtypes = [kinds[c] for c in signature]
+        launch.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return lib
 
 
-def _library() -> ctypes.CDLL:
-    """The kernel's library (built at first use) with its C signatures
-    declared: without ``argtypes`` ctypes would cut pointers to 32 bits."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load("rbgp4mm_rhs")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rbgp4mm_rhs_launch.argtypes = [i, p, p, p, p, p, p,
-                                           i, i, i, i, i, i, i, p]
-        lib.rbgp4mm_rhs_launch.restype = i
-        lib.rbgp4mm_rhs_error_string.argtypes = [i]
-        lib.rbgp4mm_rhs_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+def _launch(name: str, signature: str, *args) -> None:
+    """Call ``name``'s C launcher on the current stream of the device the
+    arguments' tensors lie on (the last argument); raise on its error."""
+    lib = _library(name, signature)
+    device = args[-1]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"{name}_launch")(*args[:-1], stream)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _check_cuda(name: str, tables: KernelTables, dt, operands: dict) -> None:
+    """Device, dtype and contiguity checks shared by both kernels."""
+    first = next(iter(operands.values()))
+    if first.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, got {first.device}")
+    if dt not in _DTYPE_CODES:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got {dt}")
+    if tables.col0.device != first.device:
+        raise ValueError(f"kernel tables are on {tables.col0.device}, "
+                         f"operands on {first.device}")
+    for name_t, t in operands.items():
+        if t.device != first.device:
+            raise ValueError(f"{name_t} is on {t.device}, not {first.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name_t} is {t.dtype}, not {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name_t} must be contiguous")
 
 
 def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
@@ -161,31 +248,24 @@ def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 act: Optional[str] = None,
                 residual: Optional[torch.Tensor] = None,
-                out_dtype=None) -> torch.Tensor:
+                save_preact: bool = False, out_dtype=None):
     """Y = act(X @ W_s^T + bias) + residual; X (N, K) token-major -> Y (N, M).
 
-    ``tables`` are the layout's kernel tables on the device of ``x``.
-    CPU tensors run the plain version; CUDA tensors launch the kernel, which
-    takes float32 or bfloat16 X with W, bias and residual of the same dtype,
-    all contiguous, and writes Y in that dtype.
+    Returns Y, or (Y, Z) with ``save_preact``: Z = X @ W_s^T + bias, the
+    pre-activation, stored from the same f32 sums.  ``tables`` are the
+    layout's kernel tables on the device of ``x``.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel, which takes float32 or
+    bfloat16 X with W, bias and residual of the same dtype, all contiguous,
+    and writes Y (and Z) in that dtype.
     """
     dims = tables.dims
     _check_args(dims, x, w_data, act)
     if x.device.type == "cpu":
         return rbgp4mm_rhs_reference(tables, x, w_data, bias=bias, act=act,
-                                     residual=residual, out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"rbgp4mm_rhs runs on cuda or cpu, got {x.device}")
+                                     residual=residual,
+                                     save_preact=save_preact,
+                                     out_dtype=out_dtype)
     dt = x.dtype
-    if dt not in _DTYPE_CODES:
-        raise TypeError(f"rbgp4mm_rhs kernel takes float32 or bfloat16, "
-                        f"got {dt}")
-    if out_dtype is not None and out_dtype != dt:
-        raise TypeError(f"rbgp4mm_rhs kernel writes Y in the dtype of X "
-                        f"({dt}), got out_dtype={out_dtype}")
-    if tables.col0.device != x.device:
-        raise ValueError(f"kernel tables are on {tables.col0.device}, x on "
-                         f"{x.device}")
     n, m = x.shape[0], dims.m
     operands = {"x": x, "w_data": w_data}
     if bias is not None:
@@ -196,33 +276,76 @@ def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
         operands["residual"] = residual
         if tuple(residual.shape) != (n, m):
             raise ValueError(f"residual {tuple(residual.shape)} != {(n, m)}")
-    for name, t in operands.items():
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != dt:
-            raise TypeError(f"{name} is {t.dtype}, x is {dt}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_cuda("rbgp4mm_rhs", tables, dt, operands)
+    if out_dtype is not None and out_dtype != dt:
+        raise TypeError(f"rbgp4mm_rhs kernel writes Y in the dtype of X "
+                        f"({dt}), got out_dtype={out_dtype}")
     out = torch.empty((n, m), dtype=dt, device=x.device)
+    z = torch.empty((n, m), dtype=dt, device=x.device) if save_preact else None
+    if n > 0:
+        _launch("rbgp4mm_rhs", "ipppppppiiiiiiip",
+                _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
+                tables.col0.data_ptr(),
+                bias.data_ptr() if bias is not None else None,
+                residual.data_ptr() if residual is not None else None,
+                out.data_ptr(), z.data_ptr() if z is not None else None,
+                n, dims.k, m, dims.d_o * dims.d_i, dims.group_rows,
+                dims.chunk_cols, _ACT_CODES[act], x.device)
+        if tables.transposed:
+            rbgp4mm_rhs.launches_dx += 1
+        else:
+            rbgp4mm_rhs.launches += 1
+    return (out, z) if save_preact else out
+
+
+rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = 0
+
+
+def _check_sddmm_args(dims, g, x):
+    n = x.shape[0]
+    if x.ndim != 2 or g.ndim != 2 or tuple(g.shape) != (n, dims.m) \
+            or x.shape[1] != dims.k:
+        raise ValueError(f"bad shapes g={tuple(g.shape)} x={tuple(x.shape)} "
+                         f"for M={dims.m}, K={dims.k}")
+
+
+def rbgp4_sddmm_rhs_reference(tables: KernelTables, g: torch.Tensor,
+                              x: torch.Tensor) -> torch.Tensor:
+    """Plain version: gather + einsum in f32, written in g's dtype."""
+    dims = tables.dims
+    _check_sddmm_args(dims, g, x)
+    dw = gather_sddmm_rhs(tables.adj_o, tables.adj_i, dims.n_col_tiles,
+                          dims.group_rows, dims.chunk_cols, g.float(),
+                          x.float())
+    return dw.to(g.dtype)
+
+
+def rbgp4_sddmm_rhs(tables: KernelTables, g: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Compact dW (M, d_o*d_i*C) = pack(g^T @ x) from token-major cotangent
+    g (N, M) and input x (N, K); written in g's dtype.
+
+    ``tables`` are the forward layout's kernel tables.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel, which takes float32 or
+    bfloat16 g and x of one dtype, both contiguous.
+    """
+    dims = tables.dims
+    _check_sddmm_args(dims, g, x)
+    if g.device.type == "cpu":
+        return rbgp4_sddmm_rhs_reference(tables, g, x)
+    dt = g.dtype
+    _check_cuda("rbgp4_sddmm_rhs", tables, dt, {"g": g, "x": x})
+    n = x.shape[0]
     if n == 0:
-        return out
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.rbgp4mm_rhs_launch(
-            _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
-            tables.col0.data_ptr(),
-            bias.data_ptr() if bias is not None else None,
-            residual.data_ptr() if residual is not None else None,
-            out.data_ptr(), n, dims.k, m, dims.d_o * dims.d_i,
-            dims.group_rows, dims.chunk_cols, _ACT_CODES[act], stream,
-        )
-    if err != 0:
-        msg = lib.rbgp4mm_rhs_error_string(err).decode()
-        raise RuntimeError(f"rbgp4mm_rhs launch failed: CUDA error {err} "
-                           f"({msg})")
-    rbgp4mm_rhs.launches += 1
-    return out
+        return torch.zeros((dims.m, dims.data_cols), dtype=dt,
+                           device=g.device)
+    dw = torch.empty((dims.m, dims.data_cols), dtype=dt, device=g.device)
+    _launch("rbgp4_sddmm_rhs", "ippppiiiiiip",
+            _DTYPE_CODES[dt], g.data_ptr(), x.data_ptr(),
+            tables.col0.data_ptr(), dw.data_ptr(), n, dims.k, dims.m,
+            dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols, g.device)
+    rbgp4_sddmm_rhs.launches += 1
+    return dw
 
 
-rbgp4mm_rhs.launches = 0
+rbgp4_sddmm_rhs.launches = 0

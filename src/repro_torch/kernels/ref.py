@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["unpack_dense", "pack_compact", "gather_mm_rhs",
-           "compact_gather_mm_rhs"]
+           "gather_sddmm_rhs", "compact_gather_mm_rhs"]
 
 
 def _col_index(layout, device) -> torch.Tensor:
@@ -31,6 +31,18 @@ def pack_compact(layout, w_dense: torch.Tensor) -> torch.Tensor:
     return torch.gather(w_dense, 1, _col_index(layout, w_dense.device))
 
 
+def _gather_x(adj_o, adj_i, n_o_r: int, chunk_cols: int,
+              x: torch.Tensor) -> torch.Tensor:
+    """(N, n_o_l, d_o, u_i, d_i, C): the input columns each compact slot
+    multiplies."""
+    adj_o = torch.as_tensor(adj_o, dtype=torch.int64, device=x.device)
+    adj_i = torch.as_tensor(adj_i, dtype=torch.int64, device=x.device)
+    n = x.shape[0]
+    v_i = x.shape[1] // (n_o_r * chunk_cols)
+    xt = x.reshape(n, n_o_r, v_i, chunk_cols)
+    return xt[:, adj_o][:, :, :, adj_i]
+
+
 def gather_mm_rhs(adj_o, adj_i, n_o_r: int, group_rows: int,
                   chunk_cols: int, w_data: torch.Tensor,
                   x: torch.Tensor) -> torch.Tensor:
@@ -42,19 +54,25 @@ def gather_mm_rhs(adj_o, adj_i, n_o_r: int, group_rows: int,
     ``(kk, ki, c)`` against input column
     ``adj_o[o, kk] * TK + adj_i[u, ki] * C + c``.
     """
-    adj_o = torch.as_tensor(adj_o, dtype=torch.int64, device=x.device)
-    adj_i = torch.as_tensor(adj_i, dtype=torch.int64, device=x.device)
-    n = x.shape[0]
-    n_o_l, d_o = adj_o.shape
-    u_i, d_i = adj_i.shape
-    G, C = group_rows, chunk_cols
-    v_i = x.shape[1] // (n_o_r * C)
-    xt = x.reshape(n, n_o_r, v_i, C)
-    xg = xt[:, adj_o]                 # (n, n_o_l, d_o, v_i, C)
-    xg = xg[:, :, :, adj_i]           # (n, n_o_l, d_o, u_i, d_i, C)
-    w = w_data.reshape(n_o_l, u_i, G, d_o, d_i, C)
+    xg = _gather_x(adj_o, adj_i, n_o_r, chunk_cols, x)
+    n, n_o_l, d_o, u_i, d_i, C = xg.shape
+    w = w_data.reshape(n_o_l, u_i, group_rows, d_o, d_i, C)
     out = torch.einsum("nokuic,ougkic->noug", xg, w)
-    return out.reshape(n, n_o_l * u_i * G)
+    return out.reshape(n, n_o_l * u_i * group_rows)
+
+
+def gather_sddmm_rhs(adj_o, adj_i, n_o_r: int, group_rows: int,
+                     chunk_cols: int, g: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    """Compact dW (M, nnz_row) = pack(g^T @ x) from token-major g (N, M)
+    and x (N, K), gather + einsum: slot ``(kk, ki, c)`` of row
+    ``m = (o, u, gi)`` sums ``g[n, m] * x[n, adj_o[o, kk] * TK +
+    adj_i[u, ki] * C + c]`` over tokens ``n``."""
+    xg = _gather_x(adj_o, adj_i, n_o_r, chunk_cols, x)
+    n, n_o_l, d_o, u_i, d_i, C = xg.shape
+    gg = g.reshape(n, n_o_l, u_i, group_rows)
+    dw = torch.einsum("nokuic,noug->ougkic", xg, gg)
+    return dw.reshape(n_o_l * u_i * group_rows, d_o * d_i * C)
 
 
 def compact_gather_mm_rhs(layout, w_data: torch.Tensor,

@@ -1,13 +1,19 @@
-"""LMModel: embedding -> decoder stack -> norm -> head, with the serving
-entry points (prefill, contiguous decode, paged decode).
+"""LMModel: embedding -> decoder stack -> norm -> head, with the training
+forward and loss and the serving entry points (prefill, contiguous decode,
+paged decode).
 
 The port of ``repro/models/lm.py``.  The model holds its weights (the
 reference passes a params pytree to every call); they are drawn from a
 ``torch.Generator`` seeded with ``seed`` on the model's device, or loaded
 from the reference with ``repro_torch.bridge.load_jax_params``.  The model
-runs on the card unless ``device="cpu"`` is asked for.
+runs on the card unless ``device="cpu"`` is asked for.  The serving entry
+points run under ``torch.no_grad``; ``forward`` and ``loss`` run under
+autograd when the caller's tensors ask for it (``repro_torch.train``
+switches ``requires_grad`` on).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -17,7 +23,25 @@ from repro_torch.device import resolve_device
 from .common import Embedding, RMSNorm
 from .transformer import Stack
 
-__all__ = ["LMModel"]
+__all__ = ["LMModel", "lm_loss"]
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy in f32; logits (..., V), labels (...) int.
+
+    logsumexp - <one_hot, logits>, as the reference; the inner product
+    with the one-hot row is taken as a gather of the label's logit (the
+    other V-1 terms are exact zeros), which spares a (..., V) f32 one-hot.
+    """
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    picked = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
+    ll = picked - lse
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 class LMModel(nn.Module):
@@ -50,6 +74,31 @@ class LMModel(nn.Module):
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.head.to(x.dtype).T
+
+    # -- training forward ------------------------------------------------------
+    def forward(self, tokens, *, train: bool = False):
+        """tokens (B, S) -> (logits (B, S, V), aux_loss).  ``train``
+        recomputes each layer in the backward when ``cfg.remat``; the aux
+        loss is 0 for this dense stack."""
+        tokens = self._tokens(tokens)
+        B, S = tokens.shape
+        x = self.embed[0](tokens).to(self.compute_dtype)
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        x, _ = self.stack(x, positions, train=train)
+        logits = self._head(self.norm_f(x))
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+
+    def loss(self, batch: dict, *, train: bool = True):
+        """Next-token loss over batch['tokens'] (+ the aux loss).  Returns
+        (loss, (ce, aux)); ``batch['loss_mask']`` (B, S) is optional."""
+        tokens = self._tokens(batch["tokens"])
+        logits, aux = self.forward(tokens, train=train)
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)[:, 1:]
+        ce = lm_loss(logits[:, :-1], tokens[:, 1:], mask)
+        return ce + aux, (ce, aux)
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,

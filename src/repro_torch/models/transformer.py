@@ -6,7 +6,10 @@ serving slice runs ('attn', 'swa').  The reference scans its layers under
 its own module, and ``jax_stack_split`` says how the reference grouped the
 layers, which the weight bridge needs to split the stacked leaves.
 Compact-storage layers keep the plan's seed, as in the reference, so all
-layers share one layout per shape.
+layers share one layout per shape.  In training (``train=True`` with
+gradients on and ``cfg.remat``) each layer runs under
+``torch.utils.checkpoint`` and its forward is recomputed in the backward,
+as the reference's ``jax.checkpoint`` of each scanned period.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from .attention import GQAttention, init_cache_gqa
@@ -101,9 +105,16 @@ class Stack(nn.Module):
             DecoderLayer(cfg, i, **kw) for i in range(cfg.n_layers))
 
     def forward(self, x, positions, *, caches=None, block_tables=None,
-                index: Optional[int] = None):
+                index: Optional[int] = None, train: bool = False):
         """Returns (x, caches); ``caches`` is one dict per layer (contiguous
-        caches, or paged pools with ``block_tables``)."""
+        caches, or paged pools with ``block_tables``).  ``train`` (no
+        caches) recomputes each layer in the backward when ``cfg.remat``."""
+        if train and caches is None and self.cfg.remat \
+                and torch.is_grad_enabled():
+            for layer in self.layers:
+                x = checkpoint(lambda h, lyr=layer: lyr(h, positions)[0], x,
+                               use_reentrant=False)
+            return x, None
         for i, layer in enumerate(self.layers):
             c = caches[i] if caches is not None else None
             x, c = layer(x, positions, cache=c, block_tables=block_tables,

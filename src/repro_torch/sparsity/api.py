@@ -9,7 +9,10 @@ path uses:
                      kernel tables: the ``rbgp4mm_rhs`` kernel on the
                      card, its plain version on the CPU, with bias,
                      activation and residual fused into the kernel's
-                     epilogue.
+                     epilogue.  Where a gradient is asked for, the call
+                     goes through ``RBGP4Linear`` (dW and dX on the
+                     kernels too); without one it calls the kernel
+                     directly, so serving stores no pre-activation.
 
 The reference's masked, chain and int8 storages and its backend registry
 come with later slices.
@@ -17,11 +20,12 @@ come with later slices.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch.kernels import EPILOGUE_ACTS, KernelTables, rbgp4mm_rhs
+from repro_torch.kernels import (EPILOGUE_ACTS, KernelTables, RBGP4Linear,
+                                 TransposeTables, rbgp4mm_rhs)
 
 __all__ = ["DenseWeight", "CompactWeight", "SparseWeight", "sparse_linear"]
 
@@ -37,11 +41,14 @@ class DenseWeight:
 @dataclasses.dataclass
 class CompactWeight:
     """Compact RBGP4 storage: ``w_data`` (M, nnz_row) + the kernel tables
-    of its layout (built once by the owning ``SparseLinear``)."""
+    of its layout, and ``tables_t``, which returns the tables of its
+    transpose (built once by the owning ``SparseLinear``); it is called
+    only when the input needs a gradient."""
 
     w_data: torch.Tensor
     tables: KernelTables
     b: Optional[torch.Tensor] = None
+    tables_t: Optional[Callable[[], TransposeTables]] = None
 
 
 SparseWeight = Union[DenseWeight, CompactWeight]
@@ -69,10 +76,17 @@ def sparse_linear(weight: SparseWeight, x: torch.Tensor, *, dtype=None,
         r2 = None
         if residual is not None:
             r2 = residual.to(dtype).reshape(-1, dims.m).contiguous()
-        y = rbgp4mm_rhs(
-            weight.tables, xc.reshape(-1, dims.k).contiguous(),
-            weight.w_data.to(dtype), bias=b, act=fuse, residual=r2,
-        )
+        x2 = xc.reshape(-1, dims.k).contiguous()
+        w = weight.w_data.to(dtype)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x2, w, b, r2)):
+            tables_t = (weight.tables_t() if x2.requires_grad
+                        and weight.tables_t is not None else None)
+            y = RBGP4Linear.apply(x2, w, b, r2, weight.tables, tables_t,
+                                  fuse)
+        else:
+            y = rbgp4mm_rhs(weight.tables, x2, w, bias=b, act=fuse,
+                            residual=r2)
         return y.reshape(*lead, dims.m)
     if not isinstance(weight, DenseWeight):
         raise TypeError(f"not a weight container: {type(weight).__name__}")

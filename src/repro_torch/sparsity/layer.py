@@ -3,9 +3,13 @@
 The port of ``repro/sparsity/layer.py``.  The storage is decided at
 construction: ``dense`` when the pattern does not apply to the shape,
 ``compact`` RBGP4 storage otherwise, with the layout's kernel tables built
-once on the layer's device.  Values are kept in the compute dtype
-(the reference casts them to the activation dtype on every call; casting
-once at load is the same arithmetic).
+once on the layer's device.  The tables of the transposed layout (for dX)
+are built once too, the first time a gradient of the layer's input is
+asked for: serving never builds them.  Values are kept in the compute dtype (the
+reference casts them to the activation dtype on every call; casting once
+at load is the same arithmetic).  Training keeps its float32 master
+values apart (``repro_torch.train``) and writes the compute-dtype copy
+back here after each update.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.kernels import KernelTables
+from repro_torch.kernels import KernelTables, TransposeTables
 
 from .api import CompactWeight, DenseWeight, sparse_linear
 from .patterns import PatternInstance, SparsityConfig, make_pattern
@@ -65,6 +69,7 @@ class SparseLinear(nn.Module):
         if self.mode == "compact":
             self.w_data = w
             self.tables = KernelTables.build(self.layout, device)
+            self._tables_t: Optional[TransposeTables] = None
         else:
             self.w = w
         self.b = (nn.Parameter(torch.zeros(m, dtype=dtype, device=device),
@@ -74,11 +79,19 @@ class SparseLinear(nn.Module):
     def layout(self):
         return self.pattern.layout if self.pattern is not None else None
 
+    def transpose_tables(self) -> TransposeTables:
+        """The transposed layout's tables on the layer's device (built at
+        the first call, then kept)."""
+        if self._tables_t is None:
+            self._tables_t = TransposeTables.build(self.layout,
+                                                   self.w_data.device)
+        return self._tables_t
+
     def weight(self):
         """The storage container handed to ``sparse_linear``."""
         if self.mode == "compact":
             return CompactWeight(w_data=self.w_data, tables=self.tables,
-                                 b=self.b)
+                                 b=self.b, tables_t=self.transpose_tables)
         return DenseWeight(w=self.w, b=self.b)
 
     def forward(self, x: torch.Tensor, *, fuse: Optional[str] = None,

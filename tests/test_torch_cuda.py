@@ -1,22 +1,32 @@
-"""The CUDA ``rbgp4mm_rhs`` kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
-Needs a CUDA card (and nvcc): the kernel has no CPU mode, so these tests
+``rbgp4mm_rhs`` (with and without ``save_preact``, on forward and
+transposed layouts), ``rbgp4_sddmm_rhs``, and ``RBGP4Linear``'s gradients
+on the card against the same function run by the plain versions.
+
+Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
 JAX is not installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances scale with max|ref|: 1e-5 in float32 (reduction order only),
-2e-2 in bfloat16 (one output rounding).
+2e-2 in bfloat16 (one output rounding).  ``RBGP4Linear``'s gradients chain
+three products and the activation's derivative at the saved
+pre-activation, which carries the forward's reduction-order difference
+into dW and dX: 1e-4 in float32 there.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import RBGP4Layout, RBGP4Spec, design_rbgp4
-from repro_torch.kernels import KernelTables, rbgp4mm_rhs, rbgp4mm_rhs_reference
+from repro_torch.kernels import (KernelTables, RBGP4Linear, TransposeTables,
+                                 rbgp4_sddmm_rhs, rbgp4_sddmm_rhs_reference,
+                                 rbgp4mm_rhs, rbgp4mm_rhs_reference)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 # tests/test_kernels.py sweep: m, k, n, sp_o, sp_i, G, C, ui, vi
 SWEEP = [
@@ -86,3 +96,144 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         rbgp4mm_rhs(tables, x.t().contiguous().t(), w)
     assert np.isfinite(rbgp4mm_rhs(tables, x, w).cpu().numpy()).all()
+
+
+def needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+def assert_close(got, want, dtype, what, tol=TOL):
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert err <= tol[dtype] * scale, (what, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_save_preact_matches_plain_version(dtype):
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dtype)
+    for lay, n in cases():
+        tables = KernelTables.build(lay, "cuda")
+        for act, bias, residual in EPILOGUES[1:]:
+            x, w = rnd(n, lay.k), rnd(*lay.data_shape)
+            b = rnd(lay.m) if bias else None
+            r = rnd(n, lay.m) if residual else None
+            y, z = rbgp4mm_rhs(tables, x, w, bias=b, act=act, residual=r,
+                               save_preact=True)
+            torch.cuda.synchronize()
+            wy, wz = rbgp4mm_rhs_reference(tables, x, w, bias=b, act=act,
+                                           residual=r, save_preact=True)
+            assert_close(y, wy, dtype, (lay.spec, n, act, "y"))
+            assert_close(z, wz, dtype, (lay.spec, n, act, "z"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sddmm_matches_plain_version(dtype):
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dtype)
+    for lay, n in cases() + [(lay, 1000) for lay, n in cases()
+                              if n == 77]:
+        tables = KernelTables.build(lay, "cuda")
+        gy, x = rnd(n, lay.m), rnd(n, lay.k)
+        before = rbgp4_sddmm_rhs.launches
+        got = rbgp4_sddmm_rhs(tables, gy, x)
+        torch.cuda.synchronize()
+        assert rbgp4_sddmm_rhs.launches == before + 1
+        assert got.dtype == dtype and tuple(got.shape) == lay.data_shape
+        want = rbgp4_sddmm_rhs_reference(tables, gy, x)
+        assert_close(got, want, dtype, (lay.spec, n))
+        # a rerun gives the same bits: no atomics, a fixed order of sums
+        assert torch.equal(got, rbgp4_sddmm_rhs(tables, gy, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_on_transposed_layouts(dtype):
+    """dX = g @ W_s through the kernel on the layout of W^T: at full width
+    G = 64 or 128 with C = 16 and up to 88 chunks a row."""
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dtype)
+    for lay, n in cases():
+        tt = TransposeTables.build(lay, "cuda")
+        w = rnd(*lay.data_shape)
+        gy = rnd(n, lay.m)
+        wt = tt.values(w)
+        before = (rbgp4mm_rhs.launches, rbgp4mm_rhs.launches_dx)
+        got = rbgp4mm_rhs(tt.tables, gy, wt)
+        torch.cuda.synchronize()
+        # a launch on transposed tables counts as a dX launch only
+        assert (rbgp4mm_rhs.launches, rbgp4mm_rhs.launches_dx) == (
+            before[0], before[1] + 1)
+        want = rbgp4mm_rhs_reference(tt.tables, gy, wt)
+        assert_close(got, want, dtype, (lay.spec, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rbgp4_linear_grads_match_plain_versions(dtype):
+    """y, dX, dW, db and dresidual on the card against the same inputs run
+    through the plain versions on the CPU."""
+    needs_card()
+    rng = np.random.default_rng(4)
+    for lay, n in cases()[::2]:
+        tables = {d: KernelTables.build(lay, d) for d in ("cuda", "cpu")}
+        tt = {d: TransposeTables.build(lay, d) for d in ("cuda", "cpu")}
+        for fuse, bias, residual in EPILOGUES:
+            arrs = [rng.standard_normal(s).astype(np.float32) for s in
+                    ((n, lay.k), lay.data_shape, (lay.m,), (n, lay.m),
+                     (n, lay.m))]
+            outs = {}
+            counters = lambda: (rbgp4mm_rhs.launches,
+                                rbgp4mm_rhs.launches_dx,
+                                rbgp4_sddmm_rhs.launches)
+            before = counters()
+            for d in ("cuda", "cpu"):
+                x, w, b, r, gy = (torch.tensor(a, device=d).to(dtype)
+                                  for a in arrs)
+                leaves = [x, w] + [t if on else None
+                                   for t, on in ((b, bias), (r, residual))]
+                for t in leaves:
+                    if t is not None:
+                        t.requires_grad_()
+                y = RBGP4Linear.apply(*leaves, tables[d], tt[d], fuse)
+                y.backward(gy)
+                outs[d] = [y.detach()] + [None if t is None else t.grad
+                                          for t in leaves]
+            # forward and dX on the kernel, dW on the sddmm kernel; the
+            # CPU run launches nothing
+            assert tuple(a - b for a, b in zip(counters(), before)) == (
+                1, 1, 1)
+            for name, a, b_ in zip(("y", "dx", "dw", "db", "dr"),
+                                   outs["cuda"], outs["cpu"]):
+                assert (a is None) == (b_ is None), name
+                if a is not None:
+                    assert a.device.type == "cuda" and a.dtype == dtype
+                    assert_close(a.cpu(), b_, dtype,
+                                 (lay.spec, n, fuse, name), GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_sddmm_rejects_what_it_does_not_take():
+    needs_card()
+    lay = RBGP4Layout(design_rbgp4(256, 2048, 0.75, seed=0))
+    tables = KernelTables.build(lay, "cuda")
+    gy = torch.randn(4, lay.m, device="cuda")
+    x = torch.randn(4, lay.k, device="cuda")
+    with pytest.raises(TypeError):
+        rbgp4_sddmm_rhs(tables, gy.half(), x.half())
+    with pytest.raises(TypeError):
+        rbgp4_sddmm_rhs(tables, gy, x.bfloat16())
+    with pytest.raises(ValueError):
+        rbgp4_sddmm_rhs(tables, gy.t().contiguous().t(), x)
+    with pytest.raises(ValueError):
+        rbgp4_sddmm_rhs(tables, gy[:3], x)
+    assert np.isfinite(rbgp4_sddmm_rhs(tables, gy, x).cpu().numpy()).all()
