@@ -2,37 +2,51 @@
 
     python3 chip_smoke.py
 
-Serves and trains full-width RBGP4-sparse tinyllama-1.1b (22 layers,
-d_model 2048, rbgp4 at 0.75, all 154 projections compact) through
-``repro_torch``, with every sparse product on a hand-written CUDA kernel:
-``rbgp4mm_rhs`` (the forward, and dX on the layer's transposed layout) and
-``rbgp4_sddmm_rhs`` (dW).  Phases, each printing its own lines; any failure
-raises and the script exits non-zero without the result line:
+Serves and trains two models through ``repro_torch``, with every sparse
+product on a hand-written CUDA kernel, RBGP4 at 0.75, ``min_dim=64``:
+
+  * full-width tinyllama-1.1b (22 layers, d_model 2048, all 154 projections
+    compact) on ``rbgp4mm_rhs`` (the forward, and dX on the layer's
+    transposed layout) and ``rbgp4_sddmm_rhs`` (dW);
+  * full-width qwen2-moe-a2.7b (24 layers, 60 routed experts of width
+    1408, top-4, a shared expert of width 5632): attention and the shared
+    expert on those two kernels, the routed experts stacked (60, M,
+    nnz_row) over one layout per side on ``rbgp4mm_rhs_stacked`` (forward
+    and dX, one launch for all experts) and ``rbgp4_sddmm_rhs_stacked``
+    (dW).
+
+Phases, each printing its own lines; any failure raises and the script
+exits non-zero without the result line:
 
   1. build the kernels from ``src/repro_torch/kernels/csrc`` (nvcc, one
      process per source, all at once); print the card's name and power
      limit;
-  2. hold each kernel against its plain PyTorch version on the card, at the
-     four full-width layouts (tolerance max|diff| <= 1e-5 * max|ref| in
-     float32, reduction order only; <= 2e-2 * max|ref| in bfloat16, output
-     rounding): ``rbgp4mm_rhs`` at N in {1, 8, 512} x {f32, bf16} x three
-     epilogues; with ``save_preact`` (Y and Z) at N in {512, 4096} x
-     {f32, bf16} x three epilogues; on the four transposed layouts at N
-     in {512, 4096}; ``rbgp4_sddmm_rhs`` at N in {8, 512, 4096} x
-     {f32, bf16};
-  3. time each kernel, its plain version and a dense cuBLAS yardstick
-     (CUDA events, median of 30 launches after warm-up, operands cycled
-     through more than the 50 MB L2 cache) beside the least time the card
-     could take: the forward at N = 8 and 512, dW and dX at N = 4096;
-  4. serve: 16 mixed requests (prompts 128/256/512, 8-64 new tokens)
-     through ``ContinuousEngine``, 8 slots, 16-token pages, greedy, bf16
-     compute, f32 KV cache; 154 (22 layers x 7 projections) ``rbgp4mm_rhs``
-     launches per prefill call and per decode step;
+  2. hold each kernel against its plain PyTorch version on the card
+     (tolerance max|diff| <= 1e-5 * max|ref| in float32, reduction order
+     only; <= 2e-2 * max|ref| in bfloat16, output rounding), each case one
+     counted launch.  tinyllama's four layouts: ``rbgp4mm_rhs`` at N in
+     {1, 8, 512} x {f32, bf16} x three epilogues; with ``save_preact`` (Y
+     and Z) at N in {512, 4096}; on the transposed layouts at N in
+     {512, 4096}; ``rbgp4_sddmm_rhs`` at N in {8, 512, 4096}.  qwen2-moe's
+     two expert layouts with 60 experts: ``rbgp4mm_rhs_stacked`` at N in
+     {8, 171, 512} rows an expert (decode, training, full-capacity prefill)
+     x {f32, bf16} x three epilogues, with ``save_preact`` at N = 171 and
+     512, on the transposed layouts at N = 171; ``rbgp4_sddmm_rhs_stacked``
+     at N in {8, 171, 512};
+  3. time each kernel, its plain version and one PyTorch call computing
+     the same function (dense ``F.linear``/matmul on the unpacked weights;
+     ``torch.bmm`` for the stacked experts) with CUDA events (median of 30
+     launches after warm-up, operands cycled through more than the 50 MB
+     L2 cache), beside the least time the card could take;
+  4. serve tinyllama: 16 mixed requests (prompts 128/256/512, 8-64 new
+     tokens) through ``ContinuousEngine``, 8 slots, 16-token pages,
+     greedy, bf16 compute, f32 KV cache; every prefill call and decode step
+     launches ``rbgp4mm_rhs`` 154 times (22 layers x 7 projections);
   5. serve parity in float32: the engine's greedy streams against
      ``run_sequential`` on 4 requests (a flip is tolerated only at a near
      tie: top-2 logit gap < 1e-4 * max|logit|);
-  6. train: 6 steps of ``Trainer.run`` (sgdm, lr 3e-2, cosine, clip 1.0,
-     remat on; bf16 compute over f32 master values) on
+  6. train tinyllama: 6 steps of ``Trainer.run`` (sgdm, lr 3e-2, cosine,
+     clip 1.0, remat on; bf16 compute over f32 master values) on
      ``TokenStream(seed=0)`` batches of 8 x 512 tokens, the last 5 timed;
      per step 154 ``rbgp4_sddmm_rhs`` launches and 462 ``rbgp4mm_rhs``
      launches: 308 on forward layouts (154 forward + 154 recomputed under
@@ -44,13 +58,26 @@ raises and the script exits non-zero without the result line:
      same weights and batch, without weight decay; losses within 1e-4
      relative; the SGD momentum, which then holds only the clipped
      gradients, within 1e-4 * max|ref| for every parameter; every updated
-     parameter within 1e-4 * max|ref|.
+     parameter within 1e-4 * max|ref|;
+  8. serve qwen2-moe as phase 4 (the same 16 requests; the experts at full
+     capacity, every token in every expert's buffer, as the reference
+     serves): every prefill call and decode step launches ``rbgp4mm_rhs``
+     168 times (24 layers x attention 4 + shared expert 3) and
+     ``rbgp4mm_rhs_stacked`` 72 times (24 x 3);
+  9. serve parity of qwen2-moe in float32 as phase 5, on those 16 requests;
+ 10. train qwen2-moe: 4 steps of 4 x 512 tokens as phase 6 (routing with
+     capacity, 171 rows an expert), the last 3 timed, ce and aux finite;
+     per step ``rbgp4mm_rhs`` 336 forward + recompute and 168 dX,
+     ``rbgp4_sddmm_rhs`` 168, ``rbgp4mm_rhs_stacked`` 144 forward +
+     recompute and 72 dX, ``rbgp4_sddmm_rhs_stacked`` 72; one profiled step;
+ 11. train parity of 2 full-width qwen2-moe layers as phase 7.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -72,6 +99,16 @@ FULL_WIDTH = {"wq/wo": (2048, 2048), "wk/wv": (256, 2048),
 LAYER_PROJECTIONS = {"wq/wo": 2, "wk/wv": 2, "gate/up": 2, "down": 1}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 L2_BYTES = 50 * 2**20
+# qwen2-moe-a2.7b's routed experts: 60 of them, stacked over one layout a side
+MOE_EXPERTS = 60
+MOE_WIDTH = {"gate/up": (1408, 2048), "down": (2048, 1408)}
+MOE_LAYER_PROJECTIONS = {"gate/up": 2, "down": 1}
+# rows an expert: decode (8 slots, full capacity), a training step
+# (ceil(4 * 512 * 4 / 60 * 1.25)), a full-capacity prefill of 512 tokens
+MOE_ROWS = {"decode": 8, "train": 171, "prefill": 512}
+# the six launch counters, by role
+COUNTERS = ("forward", "dx", "dw", "stacked_forward", "stacked_dx",
+            "stacked_dw")
 
 
 def log(phase: str, msg: str) -> None:
@@ -111,15 +148,17 @@ def time_cuda(fn, n_iter: int = 30, n_warm: int = 5) -> float:
 
 
 def bound_ms(n: int, m: int, k: int, nnz_row: int, n_chunk_cols: int,
-             group_rows: int, elem_bytes: int) -> tuple[float, str]:
-    """Least time for Y (n, m) = X (n, k) . W_s^T: every input read once
-    (X, the compact W, the int32 column table), Y written once, against the
-    data-sheet memory rate; the 2*n*m*nnz_row operations the sparse product
-    needs against the bf16 tensor-core peak.  The larger bounds it."""
-    nbytes = ((n * k + m * nnz_row + n * m) * elem_bytes
+             group_rows: int, elem_bytes: int,
+             e: int = 1) -> tuple[float, str]:
+    """Least time for Y (n, m) = X (n, k) . W_s^T, for each of ``e``
+    experts: every input read once (X, the compact W, the int32 column
+    table the experts share), Y written once, against the data-sheet memory
+    rate; the 2*e*n*m*nnz_row operations the sparse products need against
+    the bf16 tensor-core peak.  The larger bounds it."""
+    nbytes = (e * (n * k + m * nnz_row + n * m) * elem_bytes
               + (m // group_rows) * n_chunk_cols * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2.0 * n * m * nnz_row / BF16_FLOPS
+    t_ops = 2.0 * e * n * m * nnz_row / BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -316,14 +355,16 @@ def phase_times(layouts) -> dict:
 
 
 def sddmm_bound_ms(n: int, m: int, k: int, nnz_row: int, n_chunk_cols: int,
-                   group_rows: int, elem_bytes: int) -> tuple[float, str]:
-    """Least time for compact dW (m, nnz_row) = pack(g (n, m)^T . x (n, k)):
-    g, x and the column table read once, dW written once; 2*n*m*nnz_row
-    operations against the bf16 tensor-core peak."""
-    nbytes = ((n * m + n * k + m * nnz_row) * elem_bytes
+                   group_rows: int, elem_bytes: int,
+                   e: int = 1) -> tuple[float, str]:
+    """Least time for compact dW (m, nnz_row) = pack(g (n, m)^T . x (n, k)),
+    for each of ``e`` experts: g, x and the column table read once, dW
+    written once; 2*e*n*m*nnz_row operations against the bf16 tensor-core
+    peak."""
+    nbytes = (e * (n * m + n * k + m * nnz_row) * elem_bytes
               + (m // group_rows) * n_chunk_cols * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2.0 * n * m * nnz_row / BF16_FLOPS
+    t_ops = 2.0 * e * n * m * nnz_row / BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -387,35 +428,108 @@ def phase_train_times(layouts, n: int = 4096) -> dict:
     return rows
 
 
-def main_config(compute_dtype: str = "bfloat16"):
+def main_config(compute_dtype: str = "bfloat16",
+                arch: str = "tinyllama-1.1b"):
     from repro_torch.configs import apply_sparsity, get_config
 
-    cfg = apply_sparsity(get_config("tinyllama-1.1b"), pattern="rbgp4",
-                         sparsity=0.75, min_dim=64)
+    cfg = apply_sparsity(get_config(arch), pattern="rbgp4", sparsity=0.75,
+                         min_dim=64)
     return cfg.with_(compute_dtype=compute_dtype)
 
 
-def phase_serve() -> dict:
+def moe_config(compute_dtype: str = "bfloat16"):
+    return main_config(compute_dtype, "qwen2-moe-a2.7b")
+
+
+def launches_of(**kw) -> dict:
+    """A full launch-count dict: the given counters, every other one 0."""
+    return {k: kw.get(k, 0) for k in COUNTERS}
+
+
+def launch_counts() -> dict:
+    """The six launch counters, by role."""
+    from repro_torch.kernels import (rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_stacked, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_stacked)
+
+    return {"forward": rbgp4mm_rhs.launches,
+            "dx": rbgp4mm_rhs.launches_dx,
+            "dw": rbgp4_sddmm_rhs.launches,
+            "stacked_forward": rbgp4mm_rhs_stacked.launches,
+            "stacked_dx": rbgp4mm_rhs_stacked.launches_dx,
+            "stacked_dw": rbgp4_sddmm_rhs_stacked.launches}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels import (rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_stacked, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_stacked)
+
+    rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = 0
+    rbgp4_sddmm_rhs.launches = 0
+    rbgp4mm_rhs_stacked.launches = rbgp4mm_rhs_stacked.launches_dx = 0
+    rbgp4_sddmm_rhs_stacked.launches = 0
+
+
+def counts_since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in COUNTERS}
+
+
+def count_calls(model, name: str, per_call: list) -> None:
+    """Wrap ``model.<name>`` so that each call appends its own launch
+    counts to ``per_call``."""
+    fn = getattr(model, name)
+
+    def counted(*args, **kw):
+        before = launch_counts()
+        out = fn(*args, **kw)
+        per_call.append(counts_since(before))
+        return out
+
+    setattr(model, name, counted)
+
+
+def free_card() -> None:
+    """Free what the phase left on the card.  The phases wrap model
+    methods to count calls, which ties each model into a reference cycle
+    that only the collector breaks; without it the next phase's peak
+    memory would include the last phase's model."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_requests(vocab: int, n: int, seed: int) -> list:
     from repro_torch.data import RequestStream
+
+    return RequestStream(vocab, n, prompt_lens=(128, 256, 512),
+                         gen_lens=(8, 16, 32, 64), seed=seed).requests()
+
+
+def phase_serve(cfg, per_pass: dict, phase: str = "serve") -> dict:
+    """16 mixed requests through ``ContinuousEngine`` (bf16, f32 KV cache,
+    8 slots, 16-token pages, greedy); every prefill call and every decode
+    step must launch ``per_pass``."""
     from repro_torch.models import LMModel
     from repro_torch.serve import ContinuousEngine
 
-    cfg = main_config("bfloat16")
     t0 = time.perf_counter()
     model = LMModel(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     n_compact = sum(1 for mod in model.modules()
                     if getattr(mod, "mode", None) == "compact")
-    per_pass = 7 * cfg.n_layers
-    if n_compact != per_pass:
-        raise AssertionError(f"{n_compact} compact projections, want "
-                             f"{per_pass}")
-    log("serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
-                 f"{cfg.d_model}, {model.n_params():,} stored values "
-                 f"({n_compact} compact rbgp4 projections), built in "
-                 f"{time.perf_counter() - t0:.1f}s")
-    reqs = RequestStream(cfg.vocab_size, 16, prompt_lens=(128, 256, 512),
-                         gen_lens=(8, 16, 32, 64), seed=0).requests()
+    n_stacked = sum(1 for mod in model.modules()
+                    if getattr(mod, "compact", False)) * 3
+    if (n_compact, n_stacked) != (per_pass["forward"],
+                                  per_pass["stacked_forward"]):
+        raise AssertionError(f"{n_compact} compact projections and "
+                             f"{n_stacked} stacked ones, want {per_pass}")
+    log(phase, f"{cfg.name}: {cfg.n_layers} layers, d_model "
+               f"{cfg.d_model}, {model.n_params():,} stored values "
+               f"({n_compact} compact rbgp4 projections, {n_stacked} "
+               f"stacked expert projections), built in "
+               f"{time.perf_counter() - t0:.1f}s")
+    reqs = serve_requests(cfg.vocab_size, 16, seed=0)
     max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
     kw = dict(page_size=16, max_slots=8, max_request_len=max_len,
               cache_dtype=torch.float32)
@@ -425,6 +539,9 @@ def phase_serve() -> dict:
     warm.drain()
     del warm
     engine = ContinuousEngine(model, **kw)
+    per_call = {"prefill": [], "decode": []}
+    count_calls(model, "prefill", per_call["prefill"])
+    count_calls(model, "decode_step_paged", per_call["decode"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -435,7 +552,6 @@ def phase_serve() -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    launches = counts["forward"]
     st = engine.stats
     for r in reqs:
         toks = np.asarray(out[r["rid"]])
@@ -445,11 +561,20 @@ def phase_serve() -> dict:
         if toks.min() < 0 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"request {r['rid']}: token out of range")
     passes = st["prefill_calls"] + st["decode_steps"]
-    if launches != per_pass * passes or launches == 0 \
-            or counts["dx"] or counts["dw"]:
-        raise AssertionError(f"launches {counts} for {passes} passes; want "
-                             f"{per_pass} forward launches per pass and "
-                             f"no gradient kernel")
+    if (len(per_call["prefill"]), len(per_call["decode"])) != (
+            st["prefill_calls"], st["decode_steps"]):
+        raise AssertionError(f"{len(per_call['prefill'])} prefill and "
+                             f"{len(per_call['decode'])} decode calls "
+                             f"counted, engine stats {st}")
+    for kind, calls in per_call.items():
+        for i, c in enumerate(calls):
+            if c != per_pass:
+                raise AssertionError(f"{kind} call {i}: launches {c}, "
+                                     f"want {per_pass}")
+    if counts != {k: v * passes for k, v in per_pass.items()} \
+            or passes == 0:
+        raise AssertionError(f"launches {counts} for {passes} passes; "
+                             f"want {per_pass} per pass")
     n_prompt, n_gen = st["prompt_tokens"], st["generated_tokens"]
     res = dict(
         requests=len(out), prompt_tokens=n_prompt, generated_tokens=n_gen,
@@ -457,41 +582,43 @@ def phase_serve() -> dict:
         prefill_calls=st["prefill_calls"], decode_steps=st["decode_steps"],
         prefill_time_s=st["prefill_time_s"],
         decode_time_s=st["decode_time_s"],
+        decode_ms_per_step=1e3 * st["decode_time_s"] / st["decode_steps"],
         decode_tok_per_s=n_gen / st["decode_time_s"],
         peak_allocated_blocks=st["peak_allocated_blocks"],
-        launches=launches, launches_per_pass=launches / passes,
+        launches=counts, launches_per_pass=per_pass,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
-    log("serve", f"served {len(out)} requests: {n_prompt} prompt + {n_gen} "
-                 f"new tokens in {wall:.3f}s = {res['tok_per_s']:.1f} tok/s")
-    log("serve", f"prefill {st['prefill_calls']} calls in "
-                 f"{st['prefill_time_s']:.3f}s; decode {st['decode_steps']} "
-                 f"steps in {st['decode_time_s']:.3f}s "
-                 f"({res['decode_tok_per_s']:.1f} tok/s, "
-                 f"{1e3 * st['decode_time_s'] / st['decode_steps']:.2f} "
-                 f"ms/step)")
-    log("serve", f"rbgp4mm_rhs launches {launches} = {per_pass} x "
-                 f"{passes} passes; peak {st['peak_allocated_blocks']} "
-                 f"blocks; peak memory {res['peak_mem_gb']:.2f} GB")
-    print("serve " + json.dumps(res), flush=True)
+    log(phase, f"served {len(out)} requests: {n_prompt} prompt + {n_gen} "
+               f"new tokens in {wall:.3f}s = {res['tok_per_s']:.1f} tok/s")
+    log(phase, f"prefill {st['prefill_calls']} calls in "
+               f"{st['prefill_time_s']:.3f}s; decode {st['decode_steps']} "
+               f"steps in {st['decode_time_s']:.3f}s "
+               f"({res['decode_tok_per_s']:.1f} tok/s, "
+               f"{res['decode_ms_per_step']:.2f} ms/step)")
+    log(phase, f"launches per prefill call and per decode step, counted at "
+               f"each launch: "
+               + ", ".join(f"{k} {v}" for k, v in per_pass.items() if v)
+               + f"; in all {counts} over {passes} passes; peak "
+                 f"{st['peak_allocated_blocks']} blocks; peak memory "
+                 f"{res['peak_mem_gb']:.2f} GB")
+    print(f"{phase} " + json.dumps(res), flush=True)
     del model, engine
-    torch.cuda.empty_cache()
+    free_card()
     return res
 
 
-def phase_parity() -> None:
-    from repro_torch.data import RequestStream
+def phase_parity(cfg, reqs: list, phase: str = "parity") -> None:
+    """float32: the engine's greedy streams against ``run_sequential``; a
+    flip is tolerated only at a near tie of the top-2 logits."""
     from repro_torch.models import LMModel
     from repro_torch.serve import ContinuousEngine, run_sequential
 
-    cfg = main_config("float32")
     model = LMModel(cfg, device="cuda", seed=0)
-    reqs = RequestStream(cfg.vocab_size, 4, prompt_lens=(128, 256, 512),
-                         gen_lens=(8, 16, 32, 64), seed=1).requests()
     max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
     engine = ContinuousEngine(model, page_size=16, max_slots=8,
                               max_request_len=max_len,
                               cache_dtype=torch.float32)
+    t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r["prompt"], r["max_new_tokens"])
     got = engine.drain()
@@ -512,35 +639,47 @@ def phase_parity() -> None:
         pair = {int(a[t]), int(b[t])}
         if gap < 1e-4 * scale and pair <= set(top.indices.tolist()):
             flips += 1
-            log("parity", f"request {r['rid']}: near-tie flip at token {t} "
-                          f"(top-2 gap {gap:.3e} < 1e-4 x {scale:.3e})")
+            log(phase, f"request {r['rid']}: near-tie flip at token {t} "
+                       f"(top-2 gap {gap:.3e} < 1e-4 x {scale:.3e})")
             continue
         raise AssertionError(
             f"request {r['rid']}: engine and run_sequential differ at token "
             f"{t} ({a[t]} vs {b[t]}; top-2 gap {gap:.3e}, max|logit| "
             f"{scale:.3e})")
-    log("parity", f"float32 engine vs run_sequential: {len(reqs)} requests, "
-                  f"{sum(len(v) for v in got.values())} tokens, "
-                  f"{flips} near-tie flips")
+    n_tok = sum(len(v) for v in got.values())
+    log(phase, f"{cfg.name} float32 engine vs run_sequential: {len(reqs)} "
+               f"requests, {n_tok} tokens, {flips} near-tie flips "
+               f"({time.perf_counter() - t0:.1f}s)")
     del model, engine
-    torch.cuda.empty_cache()
+    free_card()
+
+
+# kernel symbol (the trace names the kernel, not its role) -> its role,
+# and for a forward kernel the role it has right after its family's dW
+# kernel (dX); the stacked names first
+TRACE_KINDS = (
+    ("rbgp4_sddmm_rhs_stacked_kernel", "stacked_dw", None),
+    ("rbgp4mm_rhs_stacked_kernel", "stacked_forward", "stacked_dx"),
+    ("rbgp4_sddmm_rhs_kernel", "dw", None),
+    ("rbgp4mm_rhs_kernel", "forward", "dx"),
+)
 
 
 def profile_train_step(trainer) -> dict:
     """One training step under torch.profiler: the card's busy share of the
-    step and the share of each of the three sparse products.  The trace
-    names the kernel, not its role: an ``rbgp4mm_rhs`` launch is taken as
-    a dX when the last sparse kernel before it was ``rbgp4_sddmm_rhs`` (the
-    backward of every projection runs dW, then dX), otherwise as a forward
-    or its recompute.  That split is held against the launch counters of
-    the same step."""
+    step and the share of each of the sparse products.  The trace names the
+    kernel, not its role: an ``rbgp4mm_rhs`` launch is taken as a dX when
+    the last sparse kernel before it was ``rbgp4_sddmm_rhs`` (the backward
+    of every projection runs dW, then dX), otherwise as a forward or its
+    recompute, and the same for the stacked pair.  That split is held
+    against the launch counters of the same step."""
     from torch.profiler import ProfilerActivity, profile
 
-    counted = launch_counts()
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         trainer.run(1)
-    counted = {k: v - counted[k] for k, v in launch_counts().items()}
+    counted = counts_since(before)
     wall_ms = 1e3 * trainer.history[-1]["step_time_s"]
     kernels = sorted((e.time_range.start, e.time_range.elapsed_us() * 1e-3,
                       e.name) for e in prof.events()
@@ -548,14 +687,17 @@ def profile_train_step(trainer) -> dict:
     if not kernels:
         raise AssertionError("the profiler recorded no kernel on the card")
     busy = sum(ms for _, ms, _ in kernels)
-    ms = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
-    count = {"forward": 0, "dx": 0, "dw": 0}
+    ms = dict.fromkeys(COUNTERS, 0.0)
+    count = dict.fromkeys(COUNTERS, 0)
     last = None
     for _, dur, name in kernels:
-        if "rbgp4_sddmm_rhs_kernel" in name:
-            kind = "dw"
-        elif "rbgp4mm_rhs_kernel" in name:
-            kind = "dx" if last == "dw" else "forward"
+        for symbol, role, dx_role in TRACE_KINDS:
+            if symbol in name:
+                kind = role
+                if dx_role is not None and last == dx_role.replace("dx",
+                                                                   "dw"):
+                    kind = dx_role
+                break
         else:
             continue
         ms[kind] += dur
@@ -569,31 +711,17 @@ def profile_train_step(trainer) -> dict:
                 kernel_share={k: v / busy for k, v in ms.items()})
 
 
-def launch_counts() -> dict:
-    """The three launch counters, by role."""
-    from repro_torch.kernels import rbgp4_sddmm_rhs, rbgp4mm_rhs
-
-    return {"forward": rbgp4mm_rhs.launches, "dx": rbgp4mm_rhs.launches_dx,
-            "dw": rbgp4_sddmm_rhs.launches}
-
-
-def reset_launch_counts() -> None:
-    from repro_torch.kernels import rbgp4_sddmm_rhs, rbgp4mm_rhs
-
-    rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = 0
-    rbgp4_sddmm_rhs.launches = 0
-
-
-def phase_train(n_steps: int = 6, batch: int = 8, seq: int = 512) -> dict:
+def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
+                phase: str = "train") -> dict:
+    """``n_steps`` of ``Trainer.run`` (the defaults of launch/train.py:
+    sgdm, lr 3e-2, cosine, clip 1.0, remat on); each step must launch
+    ``want``; the first step untimed; then one profiled step."""
     from repro_torch.configs import TrainConfig
     from repro_torch.data import TokenStream
     from repro_torch.models import LMModel
     from repro_torch.train import Trainer
 
-    cfg = main_config("bfloat16")
     model = LMModel(cfg, device="cuda", seed=0)
-    n_compact = 7 * cfg.n_layers
-    # the defaults of launch/train.py
     tcfg = TrainConfig(optimizer="sgdm", lr=3e-2, schedule="cosine",
                        total_steps=n_steps,
                        warmup_steps=min(100, n_steps // 10), grad_clip=1.0)
@@ -608,22 +736,18 @@ def phase_train(n_steps: int = 6, batch: int = 8, seq: int = 512) -> dict:
     hist = list(trainer.run(n_steps))
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # every projection: forward and its recompute under remat (rbgp4mm_rhs
-    # on the forward layout), dX (rbgp4mm_rhs on the transposed layout),
-    # dW (rbgp4_sddmm_rhs)
-    want = {"forward": 2 * n_compact, "dx": n_compact, "dw": n_compact}
-    prev = dict.fromkeys(want, 0)
+    prev = dict.fromkeys(COUNTERS, 0)
     for i, c in enumerate(counts):
-        step = {k: c[k] - prev[k] for k in want}
+        step = {k: c[k] - prev[k] for k in COUNTERS}
         if step != want:
             raise AssertionError(f"step {i}: launches {step}, want {want}")
         prev = c
     if launches != {k: v * n_steps for k, v in want.items()}:
         raise AssertionError(f"{launches} launches in {n_steps} steps")
     for h in hist:
-        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
-            raise AssertionError(f"step {h['step']}: loss {h['loss']}, "
-                                 f"grad norm {h['grad_norm']}")
+        if not all(np.isfinite(h[k]) for k in ("loss", "grad_norm", "ce",
+                                                 "aux")):
+            raise AssertionError(f"step {h['step']}: {h}")
     timed = [h["step_time_s"] for h in hist[1:]]
     step_ms = 1e3 * statistics.mean(timed)
     prof = profile_train_step(trainer)
@@ -632,7 +756,8 @@ def phase_train(n_steps: int = 6, batch: int = 8, seq: int = 512) -> dict:
                              f"{prof['kernel_launches']}")
     res = dict(
         steps=n_steps, tokens_per_step=batch * seq,
-        losses=[h["loss"] for h in hist],
+        losses=[h["loss"] for h in hist], ce=[h["ce"] for h in hist],
+        aux=[h["aux"] for h in hist],
         grad_norms=[h["grad_norm"] for h in hist],
         step_ms=[1e3 * t for t in timed], mean_step_ms=step_ms,
         tokens_per_s=batch * seq / (step_ms / 1e3),
@@ -641,36 +766,107 @@ def phase_train(n_steps: int = 6, batch: int = 8, seq: int = 512) -> dict:
         profile=prof,
         busy_share_unprofiled=prof["busy_ms"] / step_ms,
     )
-    log("train", f"{cfg.name}: {n_steps} steps of {batch} x {seq} tokens, "
-                 f"losses {', '.join(f'{x:.4f}' for x in res['losses'])}; "
-                 f"grad norms "
-                 f"{', '.join(f'{x:.3f}' for x in res['grad_norms'])}")
-    log("train", f"last {len(timed)} steps: {step_ms:.1f} ms/step "
-                 f"({', '.join(f'{x:.1f}' for x in res['step_ms'])}), "
-                 f"{res['tokens_per_s']:.0f} tokens/s; peak memory "
-                 f"{peak_gb:.2f} GB")
-    log("train", f"launches in {n_steps} steps, counted at each launch: "
-                 f"rbgp4mm_rhs {launches['forward']} on forward layouts "
-                 f"(forward + recompute) and {launches['dx']} on transposed "
-                 f"layouts (dX), rbgp4_sddmm_rhs {launches['dw']} (dW); per "
-                 f"step {want}")
-    log("train", f"profiled step: {prof['wall_ms']:.1f} ms wall, card busy "
-                 f"{prof['busy_ms']:.1f} ms ({prof['busy_share']:.1%}; "
-                 f"{res['busy_share_unprofiled']:.1%} of the unprofiled "
-                 f"step); "
-                 + ", ".join(f"{k} {prof['kernel_ms'][k]:.1f} ms "
-                             f"({prof['kernel_share'][k]:.1%} of busy, "
-                             f"{prof['kernel_launches'][k]} launches)"
-                             for k in ("forward", "dx", "dw")))
-    print("train " + json.dumps(res), flush=True)
+    fmt = lambda xs, f: ", ".join(f"{x:{f}}" for x in xs)
+    log(phase, f"{cfg.name}: {n_steps} steps of {batch} x {seq} tokens, "
+               f"losses {fmt(res['losses'], '.4f')}; ce "
+               f"{fmt(res['ce'], '.4f')}; aux {fmt(res['aux'], '.5f')}; "
+               f"grad norms {fmt(res['grad_norms'], '.3f')}")
+    log(phase, f"last {len(timed)} steps: {step_ms:.1f} ms/step "
+               f"({fmt(res['step_ms'], '.1f')}), "
+               f"{res['tokens_per_s']:.0f} tokens/s; peak memory "
+               f"{peak_gb:.2f} GB")
+    log(phase, f"launches per step, counted at each launch: "
+               + ", ".join(f"{k} {v}" for k, v in want.items() if v)
+               + f"; in {n_steps} steps {launches}")
+    log(phase, f"profiled step: {prof['wall_ms']:.1f} ms wall, card busy "
+               f"{prof['busy_ms']:.1f} ms ({prof['busy_share']:.1%}; "
+               f"{res['busy_share_unprofiled']:.1%} of the unprofiled "
+               f"step); "
+               + ", ".join(f"{k} {prof['kernel_ms'][k]:.1f} ms "
+                           f"({prof['kernel_share'][k]:.1%} of busy, "
+                           f"{prof['kernel_launches'][k]} launches)"
+                           for k in COUNTERS if want[k]))
+    print(f"{phase} " + json.dumps(res), flush=True)
     del trainer, model
-    torch.cuda.empty_cache()
+    free_card()
     return res
 
 
-def phase_train_parity(n_layers: int = 2, seq: int = 64) -> None:
+class RouterMargins:
+    """The smallest top-k margin of the router probabilities (k-th minus
+    (k+1)-th) over every MoE layer call of a model, and those probabilities
+    call by call, to tell a routing flip from a tolerance miss."""
+
+    def __init__(self, model):
+        from repro_torch.models.moe import MoELayer
+
+        self.smallest = float("inf")
+        self.probs = []
+        self.handles = [m.register_forward_pre_hook(self._hook)
+                        for m in model.modules() if isinstance(m, MoELayer)]
+
+    def _hook(self, layer, args):
+        x = args[0]
+        self.smallest = min(self.smallest, layer.topk_margin(x))
+        with torch.no_grad():
+            probs = layer.route(x.reshape(-1, x.shape[-1]))[0]
+        self.probs.append((probs.cpu(), layer.moe.top_k))
+
+    def remove(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+# The smallest top-k router margin that train parity accepts.  The card's
+# router probabilities differ from the CPU's by the hidden state's float32
+# summation order, up to 1.31e-6 at full width (PERF.md), so a
+# margin under 1e-6 is a tie within that noise.  Above it, the check that
+# decides is direct: card and CPU must choose the same top-k experts for
+# every token of every router call.
+ROUTER_MARGIN = 1e-6
+
+
+def check_router_margins(margins: dict) -> str:
+    """Assert that both runs of a MoE train parity routed every token to
+    the same experts, with top-k margins of at least ``ROUTER_MARGIN``;
+    return the text that reports them ('' for a model without MoE
+    layers)."""
+    if not margins["cpu"].handles:
+        return ""
+    card, cpu = margins["cuda"].probs, margins["cpu"].probs
+    if len(card) != len(cpu):
+        raise AssertionError(f"router calls: card {len(card)}, cpu {len(cpu)}")
+    gap = margin_change = 0.0
+    for call, ((a, k), (b, _)) in enumerate(zip(card, cpu)):
+        top_a, top_b = torch.topk(a, k + 1), torch.topk(b, k + 1)
+        ids_a = top_a.indices[:, :k].sort(-1).values
+        ids_b = top_b.indices[:, :k].sort(-1).values
+        flipped = (ids_a != ids_b).any(-1)
+        if bool(flipped.any()):
+            raise AssertionError(f"routing flip: router call {call}, tokens "
+                                 f"{flipped.nonzero().flatten().tolist()}: "
+                                 f"card and cpu chose different experts")
+        gap = max(gap, float((a - b).abs().max()))
+        m_a = top_a.values[:, k - 1] - top_a.values[:, k]
+        m_b = top_b.values[:, k - 1] - top_b.values[:, k]
+        margin_change = max(margin_change, float((m_a - m_b).abs().max()))
+    smallest = min(m.smallest for m in margins.values())
+    text = (f"; smallest top-k router margin {smallest:.3e} (card "
+            f"{margins['cuda'].smallest:.3e}, cpu {margins['cpu'].smallest:.3e},"
+            f" over {len(cpu)} router calls each) >= {ROUTER_MARGIN:.0e}, "
+            f"no token routed differently; card vs cpu: probabilities "
+            f"max|diff| {gap:.2e}, a token's margin max|diff| "
+            f"{margin_change:.2e}")
+    if not smallest >= ROUTER_MARGIN:
+        raise AssertionError("routing within noise of a tie" + text)
+    return text
+
+
+def phase_train_parity(cfg, want: dict, n_layers: int = 2, seq: int = 64,
+                       phase: str = "parity") -> None:
     """float32: the same weights and batch train 2 steps on the card (the
-    kernels) and on the CPU (the plain versions).  Without weight decay
+    kernels) and on the CPU (the plain versions); each step must launch
+    ``want`` on the card and nothing on the CPU.  Without weight decay
     the SGD momentum after the steps is the sum of the clipped gradients,
     so it holds every parameter's gradient, dW and dX included, against
     the CPU's at 1e-4 * max|ref|.  (The parameters' own change is no
@@ -681,32 +877,32 @@ def phase_train_parity(n_layers: int = 2, seq: int = 64) -> None:
     from repro_torch.models import LMModel
     from repro_torch.train import Trainer
 
-    cfg = main_config("float32").with_(n_layers=n_layers)
-    n_compact = 7 * n_layers
+    cfg = cfg.with_(compute_dtype="float32", n_layers=n_layers)
     gpu = LMModel(cfg, device="cuda", seed=0)
     cpu = LMModel(cfg, device="cpu", seed=0)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     tcfg = TrainConfig(optimizer="sgdm", lr=3e-2, schedule="constant",
                        grad_clip=1.0, weight_decay=0.0)
     stream = TokenStream(cfg.vocab_size, 1, seq, seed=0)
-    runs = {}
+    runs, margins = {}, {}
     for name, model in (("cuda", gpu), ("cpu", cpu)):
         reset_launch_counts()
+        margins[name] = RouterMargins(model)
         tr = Trainer(model, tcfg, stream, checkpoint=False)
         hist = tr.run(2)
+        margins[name].remove()
         runs[name] = ([h["loss"] for h in hist], tr.state.params,
                       tr.state.opt_state["m"], launch_counts())
-    want_launches = {"forward": 2 * 2 * n_compact, "dx": 2 * n_compact,
-                     "dw": 2 * n_compact}
-    if runs["cuda"][3] != want_launches \
-            or any(runs["cpu"][3].values()):
+    margin = check_router_margins(margins)
+    want_launches = {k: 2 * v for k, v in want.items()}
+    if runs["cuda"][3] != want_launches or any(runs["cpu"][3].values()):
         raise AssertionError(f"launches: card {runs['cuda'][3]}, cpu "
-                             f"{runs['cpu'][3]}")
+                             f"{runs['cpu'][3]}, want {want_launches}")
     worst_loss = max(abs(a - b) / abs(b)
                      for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
     if not worst_loss <= 1e-4:
         raise AssertionError(f"losses {runs['cuda'][0]} (card) vs "
-                             f"{runs['cpu'][0]} (cpu)")
+                             f"{runs['cpu'][0]} (cpu){margin}")
     worst = {}
     for what, idx in (("momentum", 2), ("params", 1)):
         worst[what] = (-1.0, "")
@@ -716,7 +912,7 @@ def phase_train_parity(n_layers: int = 2, seq: int = 64) -> None:
             scale = float(ref.abs().max())
             if not (scale > 0 and err <= 1e-4 * scale):
                 raise AssertionError(f"{what} {name}: max|diff| {err} > "
-                                     f"1e-4 * max|ref| {scale}")
+                                     f"1e-4 * max|ref| {scale}{margin}")
             worst[what] = max(worst[what], (err / scale, name))
     # the split of the launch count: a forward alone launches every
     # projection once; a backward without remat adds one dX and one dW
@@ -728,38 +924,222 @@ def phase_train_parity(n_layers: int = 2, seq: int = 64) -> None:
     reset_launch_counts()
     gpu.loss(batch, train=False)[0].backward()
     no_remat = launch_counts()
-    one = {"forward": n_compact, "dx": n_compact, "dw": n_compact}
-    if fwd != {"forward": n_compact, "dx": 0, "dw": 0} or no_remat != one:
+    one = {k: v for k, v in want.items()}
+    for role in ("forward", "stacked_forward"):
+        one[role] = want[role] // 2
+    fwd_only = {k: (v if k.endswith("forward") else 0)
+                for k, v in one.items()}
+    if fwd != fwd_only or no_remat != one:
         raise AssertionError(f"forward alone {fwd} launches, a step without "
                              f"remat {no_remat}")
-    log("parity", f"train float32, {n_layers} full-width layers, 2 steps of "
-                  f"1 x {seq} tokens: losses card {runs['cuda'][0]} vs cpu "
-                  f"{runs['cpu'][0]} (worst {worst_loss:.2e} relative); "
-                  f"{len(runs['cpu'][1])} parameters: momentum (the "
-                  f"clipped gradients) worst max|diff|/max|ref| "
-                  f"{worst['momentum'][0]:.2e} ({worst['momentum'][1]}), "
-                  f"updated values {worst['params'][0]:.2e} "
-                  f"({worst['params'][1]})")
-    log("parity", f"launches on the card: {runs['cuda'][3]} in 2 steps with "
-                  f"remat; a forward alone {fwd}; a step without remat "
-                  f"{no_remat}: so a remat step is forward + recompute + dX")
+    log(phase, f"train float32, {cfg.name} with {n_layers} full-width "
+               f"layers, 2 steps of 1 x {seq} tokens: losses card "
+               f"{runs['cuda'][0]} vs cpu {runs['cpu'][0]} (worst "
+               f"{worst_loss:.2e} relative); {len(runs['cpu'][1])} "
+               f"parameters: momentum (the clipped gradients) worst "
+               f"max|diff|/max|ref| {worst['momentum'][0]:.2e} "
+               f"({worst['momentum'][1]}), updated values "
+               f"{worst['params'][0]:.2e} ({worst['params'][1]}){margin}")
+    log(phase, f"launches on the card: {runs['cuda'][3]} in 2 steps with "
+               f"remat; a forward alone {fwd}; a step without remat "
+               f"{no_remat}: so a remat step is forward + recompute + dX")
     del gpu, cpu
-    torch.cuda.empty_cache()
+    free_card()
 
 
-def per_layer(rows: dict, kind) -> dict:
-    """One decoder layer's seven projections: the sums of ``rows`` (keyed
+def per_layer(rows: dict, kind, projections=None) -> dict:
+    """One decoder layer's projections: the sums of ``rows`` (keyed
     ``(layout, kind)``, kind a token count or 'dw'/'dx') weighted by
-    LAYER_PROJECTIONS."""
+    ``projections`` (tinyllama's seven by default)."""
+    projections = projections or LAYER_PROJECTIONS
     agg = {f: 0.0 for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
     by_share = {"bytes": 0.0, "operations": 0.0}
-    for key, count in LAYER_PROJECTIONS.items():
+    for key, count in projections.items():
         row = rows[(key, kind)]
         for f in agg:
             agg[f] += count * row[f]
         by_share[row["bound_by"]] += count * row["bound_ms"]
     agg["bound_by"] = max(by_share, key=by_share.get)
     return agg
+
+def moe_layouts():
+    from repro_torch.core import RBGP4Layout, design_rbgp4
+
+    return {key: RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0))
+            for key, (m, k) in MOE_WIDTH.items()}
+
+
+def phase_check_moe(layouts) -> dict:
+    """The stacked kernels against their plain versions at the expert
+    layouts with 60 experts: max abs diff per record entry."""
+    from repro_torch.kernels import (KernelTables, TransposeTables,
+                                     rbgp4_sddmm_rhs_stacked,
+                                     rbgp4_sddmm_rhs_stacked_reference,
+                                     rbgp4mm_rhs_stacked,
+                                     rbgp4mm_rhs_stacked_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    e = MOE_EXPERTS
+    max_abs = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+    n_cases = 0
+    for key, lay in layouts.items():
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        d, d_t = tables.dims, tt.tables.dims
+        log("check", f"experts {key:7s} {lay.m} x {lay.k}: G = "
+                     f"{d.group_rows}, C = {d.chunk_cols}, "
+                     f"{d.d_o * d.d_i} chunks a row; transposed: G = "
+                     f"{d_t.group_rows}, C = {d_t.chunk_cols}, "
+                     f"{d_t.d_o * d_t.d_i} chunks")
+        for dt in (torch.float32, torch.bfloat16):
+            rnd = lambda *s: torch.randn(*s, device="cuda",
+                                         generator=g).to(dt)
+            worst = {"forward": 0.0, "save_preact": 0.0, "transposed": 0.0,
+                     "sddmm": 0.0}
+
+            def hold(what, got, want, entry, row):
+                err, rel = agree(f"stacked {what} {key}", got, want, dt)
+                max_abs[entry] = max(max_abs[entry], err)
+                worst[row] = max(worst[row], rel)
+
+            w = rnd(e, *lay.data_shape)
+            for n in MOE_ROWS.values():
+                x = rnd(e, n, lay.k)
+                for act, bias in ((None, False), ("silu", False),
+                                  ("gelu", True)):
+                    b = rnd(e, lay.m) if bias else None
+                    y = launched(rbgp4mm_rhs_stacked,
+                                 lambda: rbgp4mm_rhs_stacked(
+                                     tables, x, w, bias=b, act=act))
+                    hold(f"N={n} act={act}", y,
+                         rbgp4mm_rhs_stacked_reference(tables, x, w, bias=b,
+                                                       act=act),
+                         "forward", "forward")
+                    n_cases += 1
+                    if n != MOE_ROWS["train"]:
+                        continue
+                    # the train path's forward and recompute save Z
+                    y, z = launched(rbgp4mm_rhs_stacked,
+                                    lambda: rbgp4mm_rhs_stacked(
+                                        tables, x, w, bias=b, act=act,
+                                        save_preact=True))
+                    wy, wz = rbgp4mm_rhs_stacked_reference(
+                        tables, x, w, bias=b, act=act, save_preact=True)
+                    hold(f"save_preact N={n} act={act} y", y, wy, "forward",
+                         "save_preact")
+                    hold(f"save_preact N={n} act={act} z", z, wz, "forward",
+                         "save_preact")
+                    n_cases += 1
+                gy = rnd(e, n, lay.m)
+                dw = launched(rbgp4_sddmm_rhs_stacked,
+                              lambda: rbgp4_sddmm_rhs_stacked(tables, gy, x))
+                hold(f"sddmm N={n}", dw,
+                     rbgp4_sddmm_rhs_stacked_reference(tables, gy, x), "dw",
+                     "sddmm")
+                n_cases += 1
+                if n == MOE_ROWS["train"]:
+                    wt = tt.values(w)
+                    dx = launched(rbgp4mm_rhs_stacked,
+                                  lambda: rbgp4mm_rhs_stacked(
+                                      tt.tables, gy, wt), "launches_dx")
+                    hold(f"transposed N={n}", dx,
+                         rbgp4mm_rhs_stacked_reference(tt.tables, gy, wt),
+                         "dx", "transposed")
+                    n_cases += 1
+                del x, gy
+                torch.cuda.empty_cache()
+            log("check", f"experts {key:7s} {str(dt):15s} "
+                         f"max|diff|/max|ref|: "
+                         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    log("check", f"{n_cases} stacked-kernel cases agree (60 experts, one "
+                 f"launch each); max abs diff "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items()))
+    return max_abs
+
+
+def phase_times_moe(layouts) -> dict:
+    """The stacked kernels at the expert layouts, 60 experts, bf16: the
+    forward at 8, 171 and 512 rows an expert, dX and dW at 171; kernel,
+    plain version, ``torch.bmm`` on the unpacked dense (E, M, K) weights,
+    bound."""
+    from repro_torch.kernels import (KernelTables, TransposeTables,
+                                     rbgp4_sddmm_rhs_stacked,
+                                     rbgp4_sddmm_rhs_stacked_reference,
+                                     rbgp4mm_rhs_stacked,
+                                     rbgp4mm_rhs_stacked_reference)
+    from repro_torch.kernels.ref import unpack_dense
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dt, e = torch.bfloat16, MOE_EXPERTS
+    rows = {}
+    for key, lay in layouts.items():
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        dims, dims_t = tables.dims, tt.tables.dims
+        m, k = lay.m, lay.k
+        nnz = lay.data_shape[1]
+        copies = max(2, -(-2 * L2_BYTES // (e * m * nnz * 2)))
+        ws = torch.randn((copies, e, m, nnz), device="cuda",
+                         generator=g).to(dt)
+        wd = unpack_dense(lay, ws)                       # (copies, E, M, K)
+        c = lambda i: i % copies
+        chunks = dims.d_o * dims.d_i
+        for role, n in MOE_ROWS.items():
+            x = torch.randn((e, n, k), device="cuda", generator=g).to(dt)
+            t_kernel = time_cuda(lambda i: rbgp4mm_rhs_stacked(
+                tables, x, ws[c(i)]))
+            t_plain = time_cuda(lambda i: rbgp4mm_rhs_stacked_reference(
+                tables, x, ws[c(i)]))
+            t_lib = time_cuda(lambda i: torch.bmm(x, wd[c(i)].transpose(1,
+                                                                        2)))
+            b, by = bound_ms(n, m, k, nnz, chunks, dims.group_rows, 2, e=e)
+            rows[(key, n)] = dict(ms=t_kernel, plain_ms=t_plain,
+                                  library_ms=t_lib, bound_ms=b, bound_by=by)
+            log("times", f"experts {key:7s} N={n:<4d} ({role}) bf16: kernel "
+                         f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+                         f"torch.bmm dense {t_lib:.4f} ms, bound "
+                         f"{b * 1e3:.2f} us ({by})")
+            if role != "train":
+                continue
+            gy = torch.randn((e, n, m), device="cuda", generator=g).to(dt)
+            wt = [tt.values(ws[i]) for i in range(copies)]
+            t = dict(
+                dw=time_cuda(lambda i: rbgp4_sddmm_rhs_stacked(tables, gy,
+                                                               x)),
+                dw_plain=time_cuda(lambda i: rbgp4_sddmm_rhs_stacked_reference(
+                    tables, gy, x)),
+                dw_lib=time_cuda(lambda i: torch.bmm(gy.transpose(1, 2), x)),
+                dx=time_cuda(lambda i: rbgp4mm_rhs_stacked(tt.tables, gy,
+                                                           wt[c(i)])),
+                dx_plain=time_cuda(lambda i: rbgp4mm_rhs_stacked_reference(
+                    tt.tables, gy, wt[c(i)])),
+                dx_lib=time_cuda(lambda i: torch.bmm(gy, wd[c(i)])),
+            )
+            b, by = sddmm_bound_ms(n, m, k, nnz, chunks, dims.group_rows, 2,
+                                   e=e)
+            rows[(key, "dw")] = dict(ms=t["dw"], plain_ms=t["dw_plain"],
+                                     library_ms=t["dw_lib"], bound_ms=b,
+                                     bound_by=by)
+            log("times", f"dW experts {key:7s} N={n} bf16: kernel "
+                         f"{t['dw']:.4f} ms, plain {t['dw_plain']:.4f} ms, "
+                         f"torch.bmm g^T @ x dense {t['dw_lib']:.4f} ms, "
+                         f"bound {b * 1e3:.2f} us ({by})")
+            b, by = bound_ms(n, dims_t.m, dims_t.k, dims_t.data_cols,
+                             dims_t.d_o * dims_t.d_i, dims_t.group_rows, 2,
+                             e=e)
+            rows[(key, "dx")] = dict(ms=t["dx"], plain_ms=t["dx_plain"],
+                                     library_ms=t["dx_lib"], bound_ms=b,
+                                     bound_by=by)
+            log("times", f"dX experts {key:7s} N={n} bf16 (G = "
+                         f"{dims_t.group_rows}, C = {dims_t.chunk_cols}): "
+                         f"kernel {t['dx']:.4f} ms, plain "
+                         f"{t['dx_plain']:.4f} ms, torch.bmm g @ W dense "
+                         f"{t['dx_lib']:.4f} ms, bound {b * 1e3:.2f} us "
+                         f"({by})")
+            del gy, wt
+        del ws, wd, x
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -770,50 +1150,115 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
     smi = phase_build()
-    layouts = full_width_layouts()
+    layouts, experts = full_width_layouts(), moe_layouts()
     max_abs = phase_check(layouts)
     max_abs_train = phase_check_train(layouts)
+    max_abs_moe = phase_check_moe(experts)
     times = phase_times(layouts)
     times.update(phase_train_times(layouts))
-    serve = phase_serve()
-    phase_parity()
-    train = phase_train()
-    phase_train_parity()
+    times_moe = phase_times_moe(experts)
+
+    # tinyllama: 7 compact projections a layer
+    tiny = main_config("bfloat16")
+    n_tiny = 7 * tiny.n_layers
+    serve = phase_serve(tiny, launches_of(forward=n_tiny))
+    phase_parity(main_config("float32"),
+                 serve_requests(tiny.vocab_size, 4, seed=1))
+    tiny_step = launches_of(forward=2 * n_tiny, dx=n_tiny, dw=n_tiny)
+    train = phase_train(tiny, tiny_step, n_steps=6, batch=8, seq=512)
+    phase_train_parity(tiny, launches_of(forward=28, dx=14, dw=14))
+
+    # qwen2-moe: attention 4 + shared expert 3 compact projections and 3
+    # stacked expert projections a layer
+    moe = moe_config("bfloat16")
+    n_c, n_s = 7 * moe.n_layers, 3 * moe.n_layers
+    serve_moe = phase_serve(moe, launches_of(forward=n_c,
+                                             stacked_forward=n_s),
+                            phase="serve-moe")
+    phase_parity(moe_config("float32"),
+                 serve_requests(moe.vocab_size, 16, seed=0),
+                 phase="parity-moe")
+    moe_step = launches_of(forward=2 * n_c, dx=n_c, dw=n_c,
+                           stacked_forward=2 * n_s, stacked_dx=n_s,
+                           stacked_dw=n_s)
+    train_moe = phase_train(moe, moe_step, n_steps=4, batch=4, seq=512,
+                            phase="train-moe")
+    phase_train_parity(moe, launches_of(forward=28, dx=14, dw=14,
+                                        stacked_forward=12, stacked_dx=6,
+                                        stacked_dw=6), phase="parity-moe")
 
     per_layout = {f"{key} {kind if isinstance(kind, str) else f'N={kind}'}":
                   row for (key, kind), row in times.items()}
+    per_layout.update({f"experts {key} {kind if isinstance(kind, str) else f'N={kind}'}":
+                       row for (key, kind), row in times_moe.items()})
     print("kernel_times " + json.dumps(per_layout), flush=True)
     src = "src/repro_torch/kernels/csrc/"
     # the forward: one decoder layer's seven projections at decode (N = 8
     # rows, bf16), the shape the serving path launches most; dX and dW:
-    # one layer's seven at a training step (N = 4096, bf16)
+    # one layer's seven at a training step (N = 4096, bf16).  The stacked
+    # kernels: one MoE layer's three expert projections, 60 experts, at
+    # decode (8 rows an expert) and at a training step (171 rows an expert)
     fwd = per_layer(times, 8)
     dx, dw = per_layer(times, "dx"), per_layer(times, "dw")
+    s_fwd = per_layer(times_moe, 8, MOE_LAYER_PROJECTIONS)
+    s_dx = per_layer(times_moe, "dx", MOE_LAYER_PROJECTIONS)
+    s_dw = per_layer(times_moe, "dw", MOE_LAYER_PROJECTIONS)
+    main_runs = (serve, train, serve_moe, train_moe)
+    total = lambda role: sum(run["launches"][role] for run in main_runs)
     record = {"kernels": [
         dict(name="rbgp4mm_rhs", route="cuda", source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:500",
-             launches=serve["launches"] + train["launches"]["forward"],
+             launches=total("forward"),
              max_abs_err=max(max_abs, max_abs_train["forward"]),
              **fwd,
-             work="forward (serve, and train with its remat recompute); "
-                  "timed: one decoder layer at decode, wq, wk, wv, wo, "
-                  "gate, up, down with 8 token rows, bf16"),
+             work="forward (serve, and train with its remat recompute; "
+                  "tinyllama and qwen2-moe attention and shared expert); "
+                  "timed: one tinyllama decoder layer at decode, wq, wk, "
+                  "wv, wo, gate, up, down with 8 token rows, bf16"),
         dict(name="rbgp4mm_rhs (dX, transposed layouts)", route="cuda",
              source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:500",
-             launches=train["launches"]["dx"],
+             launches=total("dx"),
              max_abs_err=max_abs_train["dx"], **dx,
-             work="dX = g @ W_s of one decoder layer's seven projections "
-                  "on their transposed layouts (G 64/128, C 16), 4096 "
-                  "tokens, bf16"),
+             work="dX = g @ W_s of one tinyllama decoder layer's seven "
+                  "projections on their transposed layouts (G 64/128, "
+                  "C 16), 4096 tokens, bf16"),
         dict(name="rbgp4_sddmm_rhs", route="cuda",
              source=src + "rbgp4_sddmm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:674",
-             launches=train["launches"]["dw"],
+             launches=total("dw"),
              max_abs_err=max_abs_train["dw"], **dw,
-             work="compact dW of one decoder layer's seven projections, "
-                  "4096 tokens, bf16"),
+             work="compact dW of one tinyllama decoder layer's seven "
+                  "projections, 4096 tokens, bf16"),
+        dict(name="rbgp4mm_rhs_stacked", route="cuda",
+             source=src + "rbgp4mm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:773",
+             launches=total("stacked_forward"),
+             max_abs_err=max_abs_moe["forward"], **s_fwd,
+             work="forward of qwen2-moe's routed experts (serve at full "
+                  "capacity, and train with its remat recompute); timed: "
+                  "one MoE layer's gate, up and down, 60 experts, 8 rows "
+                  "an expert (decode), bf16"),
+        dict(name="rbgp4mm_rhs_stacked (dX, transposed layouts)",
+             route="cuda", source=src + "rbgp4mm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:773",
+             launches=total("stacked_dx"),
+             max_abs_err=max_abs_moe["dx"], **s_dx,
+             work="dX of one MoE layer's gate, up and down on their "
+                  "transposed layouts, 60 experts, 171 rows an expert, "
+                  "bf16"),
+        dict(name="rbgp4_sddmm_rhs_stacked", route="cuda",
+             source=src + "rbgp4_sddmm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:899",
+             launches=total("stacked_dw"),
+             max_abs_err=max_abs_moe["dw"], **s_dw,
+             work="compact dW of one MoE layer's gate, up and down, 60 "
+                  "experts, 171 rows an expert, bf16"),
     ]}
+    for row in record["kernels"]:
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} never launched on the main "
+                                 f"path")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s "
                 f"on {smi}")
     print(json.dumps(record), flush=True)

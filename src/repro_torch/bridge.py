@@ -6,9 +6,14 @@ container given as its dict of fields (``{"w_data": ..., "b": ...}`` or
 ``{"w": ..., "b": ...}``), ``None`` for absent leaves — and loads them into
 the port's ``state_dict``.  The reference stacks the layers of its scanned
 periods into ``(T, ...)`` leaves; the bridge splits them per layer with
-``jax_stack_split``.  Every shape is checked, and a missing, unexpected or
+``jax_stack_split`` (the reference's MoE cadence included).  A MoE
+layer's leaves map by name: ``ffn.router`` (E, D), the stacked experts
+``ffn.experts.{gate,up,down}.w_data`` (E, M, nnz_row) (or the dense
+``ffn.experts.{gate,up,down}`` (E, M, K)) and the shared expert
+``ffn.shared.*``.  Every shape is checked, and a missing, unexpected or
 misshapen weight raises.  Values are cast to the dtype each port tensor
-stores (the compute dtype for projections, embedding and head).
+stores (the compute dtype for projections, embedding and head; float32 for
+the router and the norm scales).
 """
 from __future__ import annotations
 

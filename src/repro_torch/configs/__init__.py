@@ -6,22 +6,24 @@ reference raises "not yet ported".
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
+import math
 
 from repro_torch.sparsity import SparsityConfig
 
-from .base import ModelConfig, TrainConfig
+from .base import ModelConfig, MoEConfig, TrainConfig
 
 ARCHS = {
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
 }
 
 #: architectures of the reference whose port comes with a later slice
 NOT_YET_PORTED = (
     "gemma-7b", "gemma3-4b", "deepseek-7b", "pixtral-12b",
-    "deepseek-v2-236b", "qwen2-moe-a2.7b", "rwkv6-7b",
-    "jamba-1.5-large-398b", "musicgen-medium", "vgg19-cifar",
-    "wrn40-4-cifar",
+    "deepseek-v2-236b", "rwkv6-7b", "jamba-1.5-large-398b",
+    "musicgen-medium", "vgg19-cifar", "wrn40-4-cifar",
 )
 
 
@@ -48,13 +50,23 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     """Small same-family config: tiny dims, few layers, CPU-runnable.
 
     The reference's ``reduce_config`` for the ported families, with the
-    sparsity backend 'auto' (compact storage).
+    sparsity backend 'auto' (compact storage).  It keeps the MoE cadence:
+    the period is the lcm of the layer pattern and ``every_n_layers``, the
+    ``first_dense`` layers stay in front.
     """
     period = len(cfg.layer_pattern)
-    n_layers = min(cfg.n_layers, 2 * period + max(period - 1, 0))
+    if cfg.moe is not None:
+        period = math.lcm(period, cfg.moe.every_n_layers)
+    head = cfg.moe.first_dense if cfg.moe else 0
+    n_layers = min(cfg.n_layers, head + 2 * period + max(period - 1, 0))
     kv_ratio = max(cfg.n_heads // cfg.n_kv_heads, 1)
     n_heads = 4
     n_kv = max(n_heads // min(kv_ratio, 4), 1)
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(
+            moe, n_experts=min(moe.n_experts, 8), top_k=min(moe.top_k, 2),
+            n_shared=min(moe.n_shared, 1), d_expert=64)
     sp = SparsityConfig(pattern="rbgp4", sparsity=0.5, backend="auto",
                         min_dim=64)
     return cfg.with_(
@@ -68,10 +80,11 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         vocab_size=997,
         sliding_window=min(cfg.sliding_window, 16),
         max_seq_len=256,
+        moe=moe,
         sparsity=sp,
         compute_dtype="float32",
     )
 
 
 __all__ = ["ARCHS", "get_config", "apply_sparsity",
-           "reduce_config", "ModelConfig", "TrainConfig"]
+           "reduce_config", "ModelConfig", "MoEConfig", "TrainConfig"]

@@ -1,8 +1,8 @@
-"""ModelConfig and TrainConfig: the fields the serving and training
-slices read.
+"""MoEConfig, ModelConfig and TrainConfig: the fields the ported slices
+read.
 
 The port of ``repro/configs/base.py``.  Fields that only architectures not
-yet ported read (MoE, MLA, Mamba, RWKV, frontends, tied embeddings, logit
+yet ported read (MLA, Mamba, RWKV, frontends, tied embeddings, logit
 soft-capping) come with those architectures; the training fields of the
 modules not yet ported (distillation, gradient compression) with those
 modules.
@@ -12,10 +12,26 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
+from typing import Optional
 
 from repro_torch.sparsity import SparsityConfig
 
-__all__ = ["ModelConfig", "TrainConfig"]
+__all__ = ["MoEConfig", "ModelConfig", "TrainConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0
+    d_expert: int = 0            # expert hidden dim (d_ff of each expert)
+    every_n_layers: int = 1      # MoE replaces the MLP every n layers
+    first_dense: int = 0         # first k layers keep a dense MLP
+    capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.01
+    # the router runs in float32, as the reference's does; MoELayer
+    # refuses any other value
+    router_dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +43,7 @@ class ModelConfig:
     n_kv_heads: int
     d_ff: int
     vocab_size: int
+    family: str = "dense"            # dense | moe (the ported families)
     head_dim: int = 0                # 0 -> d_model // n_heads
     # layer pattern, repeated cyclically: 'attn' (full causal) or 'swa'
     layer_pattern: tuple[str, ...] = ("attn",)
@@ -35,6 +52,7 @@ class ModelConfig:
     rmsnorm_eps: float = 1e-6
     rope_theta: float = 10000.0
     max_seq_len: int = 8192
+    moe: Optional[MoEConfig] = None
     sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -48,6 +66,13 @@ class ModelConfig:
 
     def layer_kind(self, i: int) -> str:
         return self.layer_pattern[i % len(self.layer_pattern)]
+
+    def is_moe_layer(self, i: int) -> bool:
+        if self.moe is None:
+            return False
+        if i < self.moe.first_dense:
+            return False
+        return (i - self.moe.first_dense) % self.moe.every_n_layers == 0
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,12 +1,14 @@
 """Hand-written CUDA kernels for Hopper, with their plain versions.
 
-``rbgp4mm_rhs`` and ``rbgp4_sddmm_rhs`` replace the Pallas kernels of the
-same names in ``repro/kernels/rbgp4mm.py``; ``ops.RBGP4Linear`` is the
-differentiable projection built on them.  The other Pallas kernels of the
-reference come with later slices (see ROADMAP.md).
+``rbgp4mm_rhs``, ``rbgp4_sddmm_rhs``, ``rbgp4mm_rhs_stacked`` and
+``rbgp4_sddmm_rhs_stacked`` replace the Pallas kernels of the same names in
+``repro/kernels/rbgp4mm.py``; ``ops.RBGP4Linear`` and
+``ops.RBGP4LinearStacked`` are the differentiable projections built on
+them.  The other Pallas kernels of the reference come with later slices
+(see ROADMAP.md).
 """
 from . import build, ref
-from .ops import RBGP4Linear
+from .ops import RBGP4Linear, RBGP4LinearStacked
 from .rbgp4mm import (
     EPILOGUE_ACTS,
     KernelDims,
@@ -14,8 +16,12 @@ from .rbgp4mm import (
     TransposeTables,
     rbgp4_sddmm_rhs,
     rbgp4_sddmm_rhs_reference,
+    rbgp4_sddmm_rhs_stacked,
+    rbgp4_sddmm_rhs_stacked_reference,
     rbgp4mm_rhs,
     rbgp4mm_rhs_reference,
+    rbgp4mm_rhs_stacked,
+    rbgp4mm_rhs_stacked_reference,
 )
 
 __all__ = [
@@ -24,10 +30,15 @@ __all__ = [
     "KernelTables",
     "TransposeTables",
     "RBGP4Linear",
+    "RBGP4LinearStacked",
     "rbgp4mm_rhs",
     "rbgp4mm_rhs_reference",
     "rbgp4_sddmm_rhs",
     "rbgp4_sddmm_rhs_reference",
+    "rbgp4mm_rhs_stacked",
+    "rbgp4mm_rhs_stacked_reference",
+    "rbgp4_sddmm_rhs_stacked",
+    "rbgp4_sddmm_rhs_stacked_reference",
     "build",
     "ref",
 ]

@@ -1,4 +1,5 @@
-"""The differentiable compact projection: ``RBGP4Linear``.
+"""The differentiable compact projections: ``RBGP4Linear`` and, for the
+stacked experts of a MoE layer, ``RBGP4LinearStacked``.
 
 The port of ``repro/kernels/ops.py`` ``RBGP4Op._build_linear_rhs``: the
 token-major ``y = act(x @ W_s^T + b) + r`` with its transpose-free
@@ -13,9 +14,14 @@ their plain versions (on the CPU):
            dX = ``rbgp4mm_rhs`` on the transposed layout's tables, over
            the values permuted into that layout.
 
+``RBGP4LinearStacked`` is ``RBGP4Op._build_linear_stacked``: the same
+three products for all experts at once, each one launch of the stacked
+kernels (``rbgp4mm_rhs_stacked``, ``rbgp4_sddmm_rhs_stacked``), with
+db = gz.sum(1), no residual, and dX over the values permuted per expert.
+
 Unlike the reference's ``jax.custom_vjp``, a gradient is computed only
 for the inputs that need one.  The layer's tables (forward and
-transposed) are built once by its ``SparseLinear`` and passed in.
+transposed) are built once by the owning module and passed in.
 """
 from __future__ import annotations
 
@@ -24,9 +30,10 @@ from typing import Optional
 import torch
 
 from .rbgp4mm import (EPILOGUE_ACTS, KernelTables, TransposeTables,
-                      rbgp4_sddmm_rhs, rbgp4mm_rhs)
+                      rbgp4_sddmm_rhs, rbgp4_sddmm_rhs_stacked, rbgp4mm_rhs,
+                      rbgp4mm_rhs_stacked)
 
-__all__ = ["RBGP4Linear", "act_bwd"]
+__all__ = ["RBGP4Linear", "RBGP4LinearStacked", "act_bwd"]
 
 
 def act_bwd(fuse: str, z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -82,3 +89,44 @@ class RBGP4Linear(torch.autograd.Function):
             t = ctx.tables_t
             dx = rbgp4mm_rhs(t.tables, gz, t.values(w_data)).to(x2.dtype)
         return dx, dw, db, dr, None, None, None
+
+
+class RBGP4LinearStacked(torch.autograd.Function):
+    """``RBGP4LinearStacked.apply(x3, w_data, bias, tables, tables_t,
+    fuse)`` -> y (E, N, M) for x3 (E, N, K) and stacked w_data
+    (E, M, nnz_row); ``bias`` (E, M) and ``fuse`` may be None.
+    ``tables_t`` is needed only when x3 needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x3: torch.Tensor, w_data: torch.Tensor,
+                bias: Optional[torch.Tensor], tables: KernelTables,
+                tables_t: Optional[TransposeTables],
+                fuse: Optional[str]) -> torch.Tensor:
+        if tables_t is None and ctx.needs_input_grad[0]:
+            raise ValueError("dX needs the transposed layout's tables")
+        z = None
+        if fuse is None:
+            y = rbgp4mm_rhs_stacked(tables, x3, w_data, bias=bias)
+        else:
+            y, z = rbgp4mm_rhs_stacked(tables, x3, w_data, bias=bias,
+                                       act=fuse, save_preact=True)
+        ctx.save_for_backward(x3, w_data, z)
+        ctx.tables, ctx.tables_t, ctx.fuse = tables, tables_t, fuse
+        ctx.bias_dtype = bias.dtype if bias is not None else None
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x3, w_data, z = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        g = g.to(x3.dtype).contiguous()
+        gz = act_bwd(ctx.fuse, z, g) if ctx.fuse is not None else g
+        db = gz.sum(1).to(ctx.bias_dtype) if need_b else None
+        dw = (rbgp4_sddmm_rhs_stacked(ctx.tables, gz, x3).to(w_data.dtype)
+              if need_w else None)
+        dx = None
+        if need_x:
+            t = ctx.tables_t
+            dx = rbgp4mm_rhs_stacked(t.tables, gz,
+                                     t.values(w_data)).to(x3.dtype)
+        return dx, dw, db, None, None, None

@@ -1,24 +1,31 @@
 """RBGP4 token-major sparse products and their plain versions.
 
-The port of two kernels of ``repro/kernels/rbgp4mm.py``:
+The port of four kernels of ``repro/kernels/rbgp4mm.py``:
 
 ``rbgp4mm_rhs``      Y = act(X @ W_s^T + bias) + residual, X (N, K) ->
                      Y (N, M), with the pre-activation Z as an optional
                      second output (``save_preact``);
 ``rbgp4_sddmm_rhs``  the compact weight gradient dW = pack(g^T @ x) from
-                     token-major g (N, M) and x (N, K).
+                     token-major g (N, M) and x (N, K);
+``rbgp4mm_rhs_stacked``      Y[e] = act(X[e] @ W_s[e]^T + bias[e]) for all
+                     experts e of a MoE layer in one launch, X (E, N, K),
+                     with ``save_preact`` and no residual;
+``rbgp4_sddmm_rhs_stacked``  dW[e] = pack(g[e]^T @ x[e]) for all experts.
 
-W_s is in compact RBGP4 storage ``w_data`` (M, d_o*d_i*C).  On a CUDA
-tensor each wrapper launches its hand-written kernel in ``csrc/`` (see the
-source notes for the designs and what bounds them); on a CPU tensor it
-runs its plain version (``*_reference``).  There is no other path: a failed
-build or launch raises.
+W_s is in compact RBGP4 storage ``w_data`` (M, d_o*d_i*C), stacked
+(E, M, d_o*d_i*C) over one layout for the experts.  On a CUDA tensor each
+wrapper launches its hand-written kernel in ``csrc/`` (see the source notes
+for the designs and what bounds them); on a CPU tensor it runs its plain
+version (``*_reference``).  There is no other path: a failed build or
+launch raises.
 
 Launch counters, each moved only where its kernel launches (plain runs
 never count): ``rbgp4mm_rhs.launches`` on forward layouts,
 ``rbgp4mm_rhs.launches_dx`` on transposed ones (dX, tables built with
-``transposed=True``), ``rbgp4_sddmm_rhs.launches``.  The int8 ``scales=``
-path comes with a later slice.
+``transposed=True``), ``rbgp4_sddmm_rhs.launches``, and the same three
+for the stacked kernels: ``rbgp4mm_rhs_stacked.launches``,
+``rbgp4mm_rhs_stacked.launches_dx`` and ``rbgp4_sddmm_rhs_stacked.launches``.
+The int8 ``scales=`` paths come with a later slice.
 """
 from __future__ import annotations
 
@@ -31,11 +38,14 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .ref import gather_mm_rhs, gather_sddmm_rhs
+from .ref import (gather_mm_rhs, gather_mm_rhs_stacked, gather_sddmm_rhs,
+                  gather_sddmm_rhs_stacked)
 
 __all__ = ["KernelDims", "KernelTables", "TransposeTables", "EPILOGUE_ACTS",
            "rbgp4mm_rhs", "rbgp4mm_rhs_reference", "rbgp4_sddmm_rhs",
-           "rbgp4_sddmm_rhs_reference"]
+           "rbgp4_sddmm_rhs_reference", "rbgp4mm_rhs_stacked",
+           "rbgp4mm_rhs_stacked_reference", "rbgp4_sddmm_rhs_stacked",
+           "rbgp4_sddmm_rhs_stacked_reference"]
 
 # Activations fusable into the epilogue; names match ``models.mlp.ACTS``.
 EPILOGUE_ACTS = {
@@ -154,10 +164,13 @@ class TransposeTables:
                    perm.contiguous())
 
     def values(self, w_data: torch.Tensor) -> torch.Tensor:
-        """The compact values of W^T in the transposed layout."""
+        """The compact values of W^T in the transposed layout; stacked
+        values (E, M, nnz_row) are permuted per expert (the reference's
+        ``transpose_data_stacked``)."""
         dims = self.tables.dims
-        return w_data.reshape(-1).index_select(0, self.perm).reshape(
-            dims.m, dims.data_cols)
+        lead = w_data.shape[:-2]
+        return w_data.reshape(*lead, -1).index_select(-1, self.perm).reshape(
+            *lead, dims.m, dims.data_cols)
 
 
 def _check_args(dims, x, w_data, act):
@@ -175,9 +188,9 @@ def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           act: Optional[str] = None,
                           residual: Optional[torch.Tensor] = None,
-                          save_preact: bool = False, out_dtype=None):
+                          save_preact: bool = False):
     """Plain version: gather + einsum in f32, then the epilogue in f32.
-    Returns Y, or (Y, Z) with ``save_preact``."""
+    Returns Y, or (Y, Z) with ``save_preact``, in the dtype of X."""
     dims = tables.dims
     _check_args(dims, x, w_data, act)
     z = gather_mm_rhs(tables.adj_o, tables.adj_i, dims.n_col_tiles,
@@ -188,40 +201,41 @@ def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
     y = EPILOGUE_ACTS[act](z) if act is not None else z
     if residual is not None:
         y = y + residual.float()
-    out_dtype = out_dtype or x.dtype
     if save_preact:
-        return y.to(out_dtype), z.to(out_dtype)
-    return y.to(out_dtype)
+        return y.to(x.dtype), z.to(x.dtype)
+    return y.to(x.dtype)
 
 
-def _library(name: str, signature: str) -> ctypes.CDLL:
-    """Kernel ``name``'s library (built at first use) with its C signatures
-    declared: without ``argtypes`` ctypes would cut pointers to 32 bits.
-    ``signature`` spells the launch function's arguments: 'p' a pointer
-    (the stream too), 'i' an int."""
-    lib = build.load(name)
-    launch = getattr(lib, f"{name}_launch")
+def _launcher(source: str, entry: str, signature: str):
+    """The C launcher ``<entry>_launch`` of the library built from kernel
+    source ``source`` (at first use), with its C signature declared:
+    without ``argtypes`` ctypes would cut pointers to 32 bits.
+    ``signature`` spells the launcher's arguments: 'p' a pointer (the
+    stream too), 'i' an int.  Returns (launcher, error-string function)."""
+    lib = build.load(source)
+    launch = getattr(lib, f"{entry}_launch")
+    err = getattr(lib, f"{source}_error_string")
     if launch.argtypes is None:
         kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
         launch.argtypes = [kinds[c] for c in signature]
         launch.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-    return lib
+    return launch, err
 
 
-def _launch(name: str, signature: str, *args) -> None:
-    """Call ``name``'s C launcher on the current stream of the device the
-    arguments' tensors lie on (the last argument); raise on its error."""
-    lib = _library(name, signature)
+def _launch(source: str, entry: str, signature: str, *args) -> None:
+    """Call the C launcher ``<entry>_launch`` of ``source``'s library on
+    the current stream of the device the arguments' tensors lie on (the
+    last argument); raise on its error."""
+    launch, error_string = _launcher(source, entry, signature)
     device = args[-1]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"{name}_launch")(*args[:-1], stream)
+        err = launch(*args[:-1], stream)
     if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+        msg = error_string(err).decode()
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
 
 
 def _check_cuda(name: str, tables: KernelTables, dt, operands: dict) -> None:
@@ -248,7 +262,7 @@ def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 act: Optional[str] = None,
                 residual: Optional[torch.Tensor] = None,
-                save_preact: bool = False, out_dtype=None):
+                save_preact: bool = False):
     """Y = act(X @ W_s^T + bias) + residual; X (N, K) token-major -> Y (N, M).
 
     Returns Y, or (Y, Z) with ``save_preact``: Z = X @ W_s^T + bias, the
@@ -263,8 +277,7 @@ def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
     if x.device.type == "cpu":
         return rbgp4mm_rhs_reference(tables, x, w_data, bias=bias, act=act,
                                      residual=residual,
-                                     save_preact=save_preact,
-                                     out_dtype=out_dtype)
+                                     save_preact=save_preact)
     dt = x.dtype
     n, m = x.shape[0], dims.m
     operands = {"x": x, "w_data": w_data}
@@ -277,13 +290,10 @@ def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
         if tuple(residual.shape) != (n, m):
             raise ValueError(f"residual {tuple(residual.shape)} != {(n, m)}")
     _check_cuda("rbgp4mm_rhs", tables, dt, operands)
-    if out_dtype is not None and out_dtype != dt:
-        raise TypeError(f"rbgp4mm_rhs kernel writes Y in the dtype of X "
-                        f"({dt}), got out_dtype={out_dtype}")
     out = torch.empty((n, m), dtype=dt, device=x.device)
     z = torch.empty((n, m), dtype=dt, device=x.device) if save_preact else None
     if n > 0:
-        _launch("rbgp4mm_rhs", "ipppppppiiiiiiip",
+        _launch("rbgp4mm_rhs", "rbgp4mm_rhs", "ipppppppiiiiiiip",
                 _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
                 tables.col0.data_ptr(),
                 bias.data_ptr() if bias is not None else None,
@@ -340,7 +350,7 @@ def rbgp4_sddmm_rhs(tables: KernelTables, g: torch.Tensor,
         return torch.zeros((dims.m, dims.data_cols), dtype=dt,
                            device=g.device)
     dw = torch.empty((dims.m, dims.data_cols), dtype=dt, device=g.device)
-    _launch("rbgp4_sddmm_rhs", "ippppiiiiiip",
+    _launch("rbgp4_sddmm_rhs", "rbgp4_sddmm_rhs", "ippppiiiiiip",
             _DTYPE_CODES[dt], g.data_ptr(), x.data_ptr(),
             tables.col0.data_ptr(), dw.data_ptr(), n, dims.k, dims.m,
             dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols, g.device)
@@ -349,3 +359,135 @@ def rbgp4_sddmm_rhs(tables: KernelTables, g: torch.Tensor,
 
 
 rbgp4_sddmm_rhs.launches = 0
+
+
+# -- stacked experts: one layout, values and activations with a leading E --
+
+def _check_stacked_args(dims, x, w_data, act):
+    if x.ndim != 3 or x.shape[2] != dims.k:
+        raise ValueError(f"x {tuple(x.shape)} is not (E, N, K={dims.k})")
+    want = (x.shape[0], dims.m, dims.data_cols)
+    if tuple(w_data.shape) != want:
+        raise ValueError(f"w_data {tuple(w_data.shape)} != {want}")
+    if act is not None and act not in EPILOGUE_ACTS:
+        raise ValueError(f"act {act!r} not in {sorted(EPILOGUE_ACTS)}")
+
+
+def rbgp4mm_rhs_stacked_reference(tables: KernelTables, x: torch.Tensor,
+                                  w_data: torch.Tensor, *,
+                                  bias: Optional[torch.Tensor] = None,
+                                  act: Optional[str] = None,
+                                  save_preact: bool = False):
+    """Plain version: batched gather + einsum in f32, then the epilogue in
+    f32.  Returns Y, or (Y, Z) with ``save_preact``, in the dtype of X."""
+    dims = tables.dims
+    _check_stacked_args(dims, x, w_data, act)
+    z = gather_mm_rhs_stacked(tables.adj_o, tables.adj_i, dims.n_col_tiles,
+                              dims.group_rows, dims.chunk_cols,
+                              w_data.float(), x.float())
+    if bias is not None:
+        z = z + bias.float()[:, None, :]
+    y = EPILOGUE_ACTS[act](z) if act is not None else z
+    if save_preact:
+        return y.to(x.dtype), z.to(x.dtype)
+    return y.to(x.dtype)
+
+
+def rbgp4mm_rhs_stacked(tables: KernelTables, x: torch.Tensor,
+                        w_data: torch.Tensor, *,
+                        bias: Optional[torch.Tensor] = None,
+                        act: Optional[str] = None,
+                        save_preact: bool = False):
+    """Y[e] = act(X[e] @ W_s[e]^T + bias[e]) for every expert e, in one
+    launch; X (E, N, K) token-major, w_data (E, M, nnz_row) over the one
+    layout of ``tables``, bias (E, M) -> Y (E, N, M).  No residual, as
+    the reference's stacked kernel.
+
+    Returns Y, or (Y, Z) with ``save_preact``.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel, which takes float32 or
+    bfloat16 X with W and bias of the same dtype, all contiguous, and
+    writes Y (and Z) in that dtype.
+    """
+    dims = tables.dims
+    _check_stacked_args(dims, x, w_data, act)
+    if x.device.type == "cpu":
+        return rbgp4mm_rhs_stacked_reference(tables, x, w_data, bias=bias,
+                                             act=act,
+                                             save_preact=save_preact)
+    dt = x.dtype
+    e, n, m = x.shape[0], x.shape[1], dims.m
+    operands = {"x": x, "w_data": w_data}
+    if bias is not None:
+        operands["bias"] = bias
+        if tuple(bias.shape) != (e, m):
+            raise ValueError(f"bias {tuple(bias.shape)} != {(e, m)}")
+    _check_cuda("rbgp4mm_rhs_stacked", tables, dt, operands)
+    out = torch.empty((e, n, m), dtype=dt, device=x.device)
+    z = torch.empty_like(out) if save_preact else None
+    if n > 0 and e > 0:
+        _launch("rbgp4mm_rhs", "rbgp4mm_rhs_stacked", "ippppppiiiiiiiip",
+                _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
+                tables.col0.data_ptr(),
+                bias.data_ptr() if bias is not None else None,
+                out.data_ptr(), z.data_ptr() if z is not None else None,
+                e, n, dims.k, m, dims.d_o * dims.d_i, dims.group_rows,
+                dims.chunk_cols, _ACT_CODES[act], x.device)
+        if tables.transposed:
+            rbgp4mm_rhs_stacked.launches_dx += 1
+        else:
+            rbgp4mm_rhs_stacked.launches += 1
+    return (out, z) if save_preact else out
+
+
+rbgp4mm_rhs_stacked.launches = rbgp4mm_rhs_stacked.launches_dx = 0
+
+
+def _check_stacked_sddmm_args(dims, g, x):
+    if x.ndim != 3 or g.ndim != 3 or x.shape[2] != dims.k \
+            or tuple(g.shape) != (x.shape[0], x.shape[1], dims.m):
+        raise ValueError(f"bad shapes g={tuple(g.shape)} x={tuple(x.shape)} "
+                         f"for (E, N, M={dims.m}), (E, N, K={dims.k})")
+
+
+def rbgp4_sddmm_rhs_stacked_reference(tables: KernelTables, g: torch.Tensor,
+                                      x: torch.Tensor) -> torch.Tensor:
+    """Plain version: batched gather + einsum in f32, written in g's
+    dtype."""
+    dims = tables.dims
+    _check_stacked_sddmm_args(dims, g, x)
+    dw = gather_sddmm_rhs_stacked(tables.adj_o, tables.adj_i,
+                                  dims.n_col_tiles, dims.group_rows,
+                                  dims.chunk_cols, g.float(), x.float())
+    return dw.to(g.dtype)
+
+
+def rbgp4_sddmm_rhs_stacked(tables: KernelTables, g: torch.Tensor,
+                            x: torch.Tensor) -> torch.Tensor:
+    """Stacked compact dW (E, M, d_o*d_i*C), dW[e] = pack(g[e]^T @ x[e]),
+    from token-major cotangents g (E, N, M) and inputs x (E, N, K), in one
+    launch for all experts; written in g's dtype.
+
+    ``tables`` are the forward layout's kernel tables.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel, which takes float32 or
+    bfloat16 g and x of one dtype, both contiguous.
+    """
+    dims = tables.dims
+    _check_stacked_sddmm_args(dims, g, x)
+    if g.device.type == "cpu":
+        return rbgp4_sddmm_rhs_stacked_reference(tables, g, x)
+    dt = g.dtype
+    _check_cuda("rbgp4_sddmm_rhs_stacked", tables, dt, {"g": g, "x": x})
+    e, n = x.shape[0], x.shape[1]
+    if n == 0 or e == 0:
+        return torch.zeros((e, dims.m, dims.data_cols), dtype=dt,
+                           device=g.device)
+    dw = torch.empty((e, dims.m, dims.data_cols), dtype=dt, device=g.device)
+    _launch("rbgp4_sddmm_rhs", "rbgp4_sddmm_rhs_stacked", "ippppiiiiiiip",
+            _DTYPE_CODES[dt], g.data_ptr(), x.data_ptr(),
+            tables.col0.data_ptr(), dw.data_ptr(), e, n, dims.k, dims.m,
+            dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols, g.device)
+    rbgp4_sddmm_rhs_stacked.launches += 1
+    return dw
+
+
+rbgp4_sddmm_rhs_stacked.launches = 0

@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["unpack_dense", "pack_compact", "gather_mm_rhs",
-           "gather_sddmm_rhs", "compact_gather_mm_rhs"]
+           "gather_sddmm_rhs", "gather_mm_rhs_stacked",
+           "gather_sddmm_rhs_stacked", "compact_gather_mm_rhs"]
 
 
 def _col_index(layout, device) -> torch.Tensor:
@@ -19,28 +20,31 @@ def _col_index(layout, device) -> torch.Tensor:
 
 
 def unpack_dense(layout, w_data: torch.Tensor) -> torch.Tensor:
-    """Scatter compact Wdata (M, nnz_row) to dense (M, K) with zeros off-mask."""
-    ci = _col_index(layout, w_data.device)
-    dense = torch.zeros((layout.m, layout.k), dtype=w_data.dtype,
+    """Scatter compact Wdata (..., M, nnz_row) to dense (..., M, K) with
+    zeros off-mask (a leading expert dim stacks experts of one layout)."""
+    lead = w_data.shape[:-2]
+    ci = _col_index(layout, w_data.device).expand(*lead, -1, -1)
+    dense = torch.zeros((*lead, layout.m, layout.k), dtype=w_data.dtype,
                         device=w_data.device)
-    return dense.scatter_(1, ci, w_data.reshape(layout.m, -1))
+    return dense.scatter_(-1, ci, w_data.reshape(*lead, layout.m, -1))
 
 
 def pack_compact(layout, w_dense: torch.Tensor) -> torch.Tensor:
-    """Gather the masked values of dense (M, K) into compact (M, nnz_row)."""
-    return torch.gather(w_dense, 1, _col_index(layout, w_dense.device))
+    """Gather the masked values of dense (..., M, K) into compact
+    (..., M, nnz_row)."""
+    ci = _col_index(layout, w_dense.device)
+    return torch.gather(w_dense, -1, ci.expand(*w_dense.shape[:-2], -1, -1))
 
 
 def _gather_x(adj_o, adj_i, n_o_r: int, chunk_cols: int,
               x: torch.Tensor) -> torch.Tensor:
-    """(N, n_o_l, d_o, u_i, d_i, C): the input columns each compact slot
-    multiplies."""
+    """(..., N, n_o_l, d_o, u_i, d_i, C): the input columns each compact
+    slot multiplies, for x (..., N, K)."""
     adj_o = torch.as_tensor(adj_o, dtype=torch.int64, device=x.device)
     adj_i = torch.as_tensor(adj_i, dtype=torch.int64, device=x.device)
-    n = x.shape[0]
-    v_i = x.shape[1] // (n_o_r * chunk_cols)
-    xt = x.reshape(n, n_o_r, v_i, chunk_cols)
-    return xt[:, adj_o][:, :, :, adj_i]
+    v_i = x.shape[-1] // (n_o_r * chunk_cols)
+    xt = x.reshape(*x.shape[:-1], n_o_r, v_i, chunk_cols)
+    return xt[..., adj_o, :, :][..., adj_i, :]
 
 
 def gather_mm_rhs(adj_o, adj_i, n_o_r: int, group_rows: int,
@@ -73,6 +77,32 @@ def gather_sddmm_rhs(adj_o, adj_i, n_o_r: int, group_rows: int,
     gg = g.reshape(n, n_o_l, u_i, group_rows)
     dw = torch.einsum("nokuic,noug->ougkic", xg, gg)
     return dw.reshape(n_o_l * u_i * group_rows, d_o * d_i * C)
+
+
+def gather_mm_rhs_stacked(adj_o, adj_i, n_o_r: int, group_rows: int,
+                          chunk_cols: int, w_data: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """Y (E, N, M) = X[e] (N, K) @ W_s[e]^T for every expert e of stacked
+    compact values w_data (E, M, nnz_row) over one layout:
+    ``gather_mm_rhs`` with the expert as a batch dimension."""
+    xg = _gather_x(adj_o, adj_i, n_o_r, chunk_cols, x)
+    e, n, n_o_l, d_o, u_i, d_i, C = xg.shape
+    w = w_data.reshape(e, n_o_l, u_i, group_rows, d_o, d_i, C)
+    out = torch.einsum("enokuic,eougkic->enoug", xg, w)
+    return out.reshape(e, n, n_o_l * u_i * group_rows)
+
+
+def gather_sddmm_rhs_stacked(adj_o, adj_i, n_o_r: int, group_rows: int,
+                             chunk_cols: int, g: torch.Tensor,
+                             x: torch.Tensor) -> torch.Tensor:
+    """Stacked compact dW (E, M, nnz_row) = pack(g[e]^T @ x[e]) from g
+    (E, N, M) and x (E, N, K): ``gather_sddmm_rhs`` with the expert as a
+    batch dimension."""
+    xg = _gather_x(adj_o, adj_i, n_o_r, chunk_cols, x)
+    e, n, n_o_l, d_o, u_i, d_i, C = xg.shape
+    gg = g.reshape(e, n, n_o_l, u_i, group_rows)
+    dw = torch.einsum("enokuic,enoug->eougkic", xg, gg)
+    return dw.reshape(e, n_o_l * u_i * group_rows, d_o * d_i * C)
 
 
 def compact_gather_mm_rhs(layout, w_data: torch.Tensor,

@@ -65,7 +65,7 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
     per step (kernel durations from torch.profiler's CUDA activity)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import rbgp4mm_rhs
+    from repro_torch.kernels import rbgp4mm_rhs, rbgp4mm_rhs_stacked
     from repro_torch.serve import ContinuousEngine
 
     reqs = workload[:max_slots]
@@ -86,7 +86,7 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
         return time.perf_counter() - t0
 
     wall_plain = timed_steps()
-    launches0 = rbgp4mm_rhs.launches
+    launches0 = rbgp4mm_rhs.launches, rbgp4mm_rhs_stacked.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = timed_steps()
@@ -96,7 +96,10 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
             kernels[e.name] = kernels.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() * 1e-3
     busy = sum(kernels.values())
-    sparse = sum(v for k, v in kernels.items() if "rbgp4mm_rhs" in k)
+    stacked = sum(v for k, v in kernels.items()
+                  if "rbgp4mm_rhs_stacked" in k)
+    sparse = sum(v for k, v in kernels.items() if "rbgp4mm_rhs" in k) \
+        - stacked
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     return {
         "steps": n_steps, "rows": len(reqs),
@@ -108,7 +111,11 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
             (1.0 - busy / (1e3 * wall_plain)) if busy else None,
         "rbgp4mm_rhs_ms_per_step": sparse / n_steps if busy else None,
         "rbgp4mm_rhs_launches_per_step":
-            (rbgp4mm_rhs.launches - launches0) / n_steps,
+            (rbgp4mm_rhs.launches - launches0[0]) / n_steps,
+        "rbgp4mm_rhs_stacked_ms_per_step":
+            stacked / n_steps if busy else None,
+        "rbgp4mm_rhs_stacked_launches_per_step":
+            (rbgp4mm_rhs_stacked.launches - launches0[1]) / n_steps,
         "top_kernels_ms_per_step": {k: v / n_steps for k, v in top},
     }
 
@@ -201,7 +208,11 @@ def main(argv=None):
                   f"unprofiled step, {prof['device_idle_share']:.1%} of "
                   f"the profiled one; rbgp4mm_rhs "
                   f"{prof['rbgp4mm_rhs_ms_per_step']:.2f} ms/step over "
-                  f"{prof['rbgp4mm_rhs_launches_per_step']:.0f} launches")
+                  f"{prof['rbgp4mm_rhs_launches_per_step']:.0f} launches, "
+                  f"rbgp4mm_rhs_stacked "
+                  f"{prof['rbgp4mm_rhs_stacked_ms_per_step']:.2f} ms/step "
+                  f"over "
+                  f"{prof['rbgp4mm_rhs_stacked_launches_per_step']:.0f}")
             for name, ms in prof["top_kernels_ms_per_step"].items():
                 print(f"  {ms:8.3f} ms/step  {name[:100]}")
     if args.json:

@@ -104,7 +104,8 @@ def main(argv=None):
     def log_hook(step, metrics):
         if step % args.log_every == 0:
             print(f"step {step:6d} loss {metrics['loss']:.4f} "
-                  f"ce {metrics.get('ce', 0):.4f} lr {metrics['lr']:.2e} "
+                  f"ce {metrics.get('ce', 0):.4f} "
+                  f"aux {metrics.get('aux', 0):.4f} lr {metrics['lr']:.2e} "
                   f"gnorm {metrics['grad_norm']:.2f} "
                   f"dt {metrics['step_time_s'] * 1e3:.0f}ms", flush=True)
 

@@ -79,15 +79,14 @@ class LMModel(nn.Module):
     def forward(self, tokens, *, train: bool = False):
         """tokens (B, S) -> (logits (B, S, V), aux_loss).  ``train``
         recomputes each layer in the backward when ``cfg.remat``; the aux
-        loss is 0 for this dense stack."""
+        loss is the sum of the MoE layers' load-balance losses (0 for a
+        dense stack)."""
         tokens = self._tokens(tokens)
         B, S = tokens.shape
         x = self.embed[0](tokens).to(self.compute_dtype)
         positions = torch.arange(S, device=self.device).expand(B, S)
-        x, _ = self.stack(x, positions, train=train)
-        logits = self._head(self.norm_f(x))
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=self.device)
+        x, _, aux = self.stack(x, positions, train=train)
+        return self._head(self.norm_f(x)), aux
 
     def loss(self, batch: dict, *, train: bool = True):
         """Next-token loss over batch['tokens'] (+ the aux loss).  Returns
@@ -121,7 +120,7 @@ class LMModel(nn.Module):
         B, S = tokens.shape
         x = self.embed[0](tokens).to(self.compute_dtype)
         positions = torch.arange(S, device=self.device).expand(B, S)
-        x, cache = self.stack(x, positions, caches=cache, index=0)
+        x, cache, _ = self.stack(x, positions, caches=cache, index=0)
         x = self.norm_f(x[:, -1:])
         return self._head(x)[:, 0], cache
 
@@ -134,7 +133,8 @@ class LMModel(nn.Module):
         x = self.embed[0](tokens_new).to(self.compute_dtype)
         positions = torch.full((B, 1), int(index), device=self.device,
                                dtype=torch.long)
-        x, cache = self.stack(x, positions, caches=cache, index=int(index))
+        x, cache, _ = self.stack(x, positions, caches=cache,
+                                 index=int(index))
         return self._head(self.norm_f(x))[:, 0], cache
 
     @torch.no_grad()
@@ -153,5 +153,5 @@ class LMModel(nn.Module):
         pos2 = torch.as_tensor(positions, device=self.device).long().reshape(
             B, 1)
         bt = torch.as_tensor(block_tables, device=self.device)
-        x, pages = self.stack(x, pos2, caches=pages, block_tables=bt)
+        x, pages, _ = self.stack(x, pos2, caches=pages, block_tables=bt)
         return self._head(self.norm_f(x))[:, 0], pages

@@ -1,7 +1,8 @@
 """Decoder stack: one module per layer, a Python loop over layers.
 
-The port of ``repro/models/transformer.py`` for the layer kinds the
-serving slice runs ('attn', 'swa').  The reference scans its layers under
+The port of ``repro/models/transformer.py`` for the layer kinds ported so
+far ('attn', 'swa'), each with a gated MLP or, on the MoE cadence of
+``cfg.moe``, a ``MoELayer``.  The reference scans its layers under
 ``lax.scan`` with stacked ``(T, ...)`` parameters; here every layer keeps
 its own module, and ``jax_stack_split`` says how the reference grouped the
 layers, which the weight bridge needs to split the stacked leaves.
@@ -13,6 +14,7 @@ as the reference's ``jax.checkpoint`` of each scanned period.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -23,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from .attention import GQAttention, init_cache_gqa
 from .common import RMSNorm
 from .mlp import GatedMLP
+from .moe import MoELayer
 
 __all__ = ["DecoderLayer", "Stack", "jax_stack_split", "PORTED_KINDS"]
 
@@ -32,13 +35,20 @@ PORTED_KINDS = ("attn", "swa")
 def jax_stack_split(cfg: ModelConfig) -> tuple[int, int, int, int]:
     """(n_head, period, n_full, tail_start) of the reference's ``Stack``:
     layers [0, n_head) run alone, then ``n_full`` scanned periods of
-    ``period`` layers, then layers [tail_start, n_layers) alone (the
-    reference's rule without MoE cadence or per-layer plans)."""
+    ``period`` layers, then layers [tail_start, n_layers) alone.  The
+    period is the lcm of the layer pattern and the MoE cadence, and a
+    layer's scan signature is its kind and whether it is a MoE layer (the
+    reference's rule without per-layer plans, which are not ported)."""
     n = cfg.n_layers
     period = len(cfg.layer_pattern)
+    if cfg.moe is not None:
+        period = math.lcm(period, cfg.moe.every_n_layers)
+
+    def signature(i):
+        return cfg.layer_kind(i), cfg.is_moe_layer(i)
 
     def periodic_from(h):
-        return all(cfg.layer_kind(i) == cfg.layer_kind(h + (i - h) % period)
+        return all(signature(i) == signature(h + (i - h) % period)
                    for i in range(h, n))
 
     h = 0
@@ -49,7 +59,8 @@ def jax_stack_split(cfg: ModelConfig) -> tuple[int, int, int, int]:
 
 
 class DecoderLayer(nn.Module):
-    """norm -> attention -> residual; norm -> gated MLP -> residual."""
+    """norm -> attention -> residual; norm -> gated MLP or MoE ->
+    residual."""
 
     def __init__(self, cfg: ModelConfig, idx: int, **kw):
         super().__init__()
@@ -66,16 +77,26 @@ class DecoderLayer(nn.Module):
         window = cfg.sliding_window if self.kind == "swa" else 0
         self.mixer = GQAttention(cfg, window=window,
                                  name=f"l{idx}.{self.kind}", **kw)
-        self.ffn = GatedMLP(cfg.d_model, cfg.d_ff, cfg.sparsity,
-                            cfg.hidden_act, name=f"l{idx}.mlp", **kw)
+        self.is_moe = cfg.is_moe_layer(idx)
+        if self.is_moe:
+            self.ffn = MoELayer(cfg.d_model, cfg.moe, cfg.sparsity,
+                                cfg.hidden_act, name=f"l{idx}.moe", **kw)
+        else:
+            self.ffn = GatedMLP(cfg.d_model, cfg.d_ff, cfg.sparsity,
+                                cfg.hidden_act, name=f"l{idx}.mlp", **kw)
 
     def forward(self, x, positions, *, cache=None, block_tables=None,
                 index: Optional[int] = None):
-        """Returns (x, cache)."""
+        """Returns (x, cache, aux): ``aux`` is the MoE layer's load-balance
+        loss, None for a gated MLP.  With a cache (prefill and decode) the
+        MoE layer runs at full capacity, as the reference's."""
         h, cache = self.mixer(self.norm1(x), positions, cache=cache,
                               block_tables=block_tables, index=index)
         x = x + h
-        return x + self.ffn(self.norm2(x)), cache
+        if self.is_moe:
+            h2, aux = self.ffn(self.norm2(x), full_capacity=cache is not None)
+            return x + h2, cache, aux
+        return x + self.ffn(self.norm2(x)), cache, None
 
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
                    *, full_length: bool = False, device=None) -> dict:
@@ -106,22 +127,27 @@ class Stack(nn.Module):
 
     def forward(self, x, positions, *, caches=None, block_tables=None,
                 index: Optional[int] = None, train: bool = False):
-        """Returns (x, caches); ``caches`` is one dict per layer (contiguous
-        caches, or paged pools with ``block_tables``).  ``train`` (no
-        caches) recomputes each layer in the backward when ``cfg.remat``."""
-        if train and caches is None and self.cfg.remat \
-                and torch.is_grad_enabled():
-            for layer in self.layers:
-                x = checkpoint(lambda h, lyr=layer: lyr(h, positions)[0], x,
-                               use_reentrant=False)
-            return x, None
+        """Returns (x, caches, aux); ``caches`` is one dict per layer
+        (contiguous caches, or paged pools with ``block_tables``), ``aux``
+        the sum of the MoE layers' load-balance losses (float32, 0 without
+        MoE layers).  ``train`` (no caches) recomputes each layer in the
+        backward when ``cfg.remat``."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = (train and caches is None and self.cfg.remat
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
-            c = caches[i] if caches is not None else None
-            x, c = layer(x, positions, cache=c, block_tables=block_tables,
-                         index=index)
-            if caches is not None:
-                caches[i] = c
-        return x, caches
+            if remat:
+                x, a = checkpoint(lambda h, lyr=layer: lyr(h, positions)[::2],
+                                  x, use_reentrant=False)
+            else:
+                c = caches[i] if caches is not None else None
+                x, c, a = layer(x, positions, cache=c,
+                                block_tables=block_tables, index=index)
+                if caches is not None:
+                    caches[i] = c
+            if a is not None:
+                aux = aux + a
+        return x, caches, aux
 
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
                    *, full_length: bool = False, device=None) -> list:

@@ -14,6 +14,14 @@ path uses:
                      kernels too); without one it calls the kernel
                      directly, so serving stores no pre-activation.
 
+``sparse_linear_batched`` is the stacked-expert projection of a MoE layer,
+x (E, ..., K) -> (E, ..., M): a ``CompactWeight`` with stacked
+``w_data`` (E, M, nnz_row) over one layout runs one launch of the
+``rbgp4mm_rhs_stacked`` kernel for all experts (through
+``RBGP4LinearStacked`` where a gradient is asked for); a ``DenseWeight``
+with stacked ``w`` (E, M, K) is the dense path for shapes the pattern does
+not apply to.
+
 The reference's masked, chain and int8 storages and its backend registry
 come with later slices.
 """
@@ -25,14 +33,17 @@ from typing import Callable, Optional, Union
 import torch
 
 from repro_torch.kernels import (EPILOGUE_ACTS, KernelTables, RBGP4Linear,
-                                 TransposeTables, rbgp4mm_rhs)
+                                 RBGP4LinearStacked, TransposeTables,
+                                 rbgp4mm_rhs, rbgp4mm_rhs_stacked)
 
-__all__ = ["DenseWeight", "CompactWeight", "SparseWeight", "sparse_linear"]
+__all__ = ["DenseWeight", "CompactWeight", "SparseWeight", "sparse_linear",
+           "sparse_linear_batched"]
 
 
 @dataclasses.dataclass
 class DenseWeight:
-    """Plain dense values: ``w`` (M, K), optional bias ``b`` (M,)."""
+    """Plain dense values: ``w`` (M, K), optional bias ``b`` (M,); stacked
+    over experts, (E, M, K) and (E, M)."""
 
     w: torch.Tensor
     b: Optional[torch.Tensor] = None
@@ -42,8 +53,9 @@ class DenseWeight:
 class CompactWeight:
     """Compact RBGP4 storage: ``w_data`` (M, nnz_row) + the kernel tables
     of its layout, and ``tables_t``, which returns the tables of its
-    transpose (built once by the owning ``SparseLinear``); it is called
-    only when the input needs a gradient."""
+    transpose (built once by the owning module); it is called only when
+    the input needs a gradient.  Stacked experts share one layout:
+    ``w_data`` (E, M, nnz_row), ``b`` (E, M)."""
 
     w_data: torch.Tensor
     tables: KernelTables
@@ -62,6 +74,11 @@ def _check_fuse(fuse: Optional[str]) -> None:
         )
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def sparse_linear(weight: SparseWeight, x: torch.Tensor, *, dtype=None,
                   fuse: Optional[str] = None,
                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -78,8 +95,7 @@ def sparse_linear(weight: SparseWeight, x: torch.Tensor, *, dtype=None,
             r2 = residual.to(dtype).reshape(-1, dims.m).contiguous()
         x2 = xc.reshape(-1, dims.k).contiguous()
         w = weight.w_data.to(dtype)
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (x2, w, b, r2)):
+        if _needs_grad(x2, w, b, r2):
             tables_t = (weight.tables_t() if x2.requires_grad
                         and weight.tables_t is not None else None)
             y = RBGP4Linear.apply(x2, w, b, r2, weight.tables, tables_t,
@@ -98,3 +114,36 @@ def sparse_linear(weight: SparseWeight, x: torch.Tensor, *, dtype=None,
     if residual is not None:
         y = y + residual.to(dtype)
     return y
+
+
+def sparse_linear_batched(weight: SparseWeight, x: torch.Tensor, *,
+                          dtype=None,
+                          fuse: Optional[str] = None) -> torch.Tensor:
+    """Stacked-expert linear: y[e] = act(x[e] @ W_s[e]^T + b[e]);
+    x (E, ..., K) -> (E, ..., M)."""
+    _check_fuse(fuse)
+    dtype = dtype or x.dtype
+    xc = x.to(dtype)
+    e = xc.shape[0]
+    b = weight.b.to(dtype) if weight.b is not None else None
+    if isinstance(weight, CompactWeight):
+        dims = weight.tables.dims
+        x3 = xc.reshape(e, -1, dims.k).contiguous()
+        w = weight.w_data.to(dtype)
+        if _needs_grad(x3, w, b):
+            tables_t = (weight.tables_t() if x3.requires_grad
+                        and weight.tables_t is not None else None)
+            y = RBGP4LinearStacked.apply(x3, w, b, weight.tables, tables_t,
+                                         fuse)
+        else:
+            y = rbgp4mm_rhs_stacked(weight.tables, x3, w, bias=b, act=fuse)
+        return y.reshape(*xc.shape[:-1], dims.m)
+    if not isinstance(weight, DenseWeight):
+        raise TypeError(f"not a weight container: {type(weight).__name__}")
+    x3 = xc.reshape(e, -1, xc.shape[-1])
+    y = torch.einsum("enk,emk->enm", x3, weight.w.to(dtype))
+    if b is not None:
+        y = y + b[:, None, :]
+    if fuse is not None:
+        y = EPILOGUE_ACTS[fuse](y)
+    return y.reshape(*xc.shape[:-1], y.shape[-1])

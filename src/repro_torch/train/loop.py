@@ -81,9 +81,13 @@ def make_train_step(model: torch.nn.Module, tcfg: TrainConfig):
         loss, (ce, aux) = model.loss(batch, train=True)
         metrics = {"ce": ce.detach(), "aux": aux.detach()}
         loss.backward()
-        grads = {n: (p.grad.float() if p.grad is not None
-                     else torch.zeros_like(p, dtype=torch.float32))
-                 for n, p in live.items()}
+        # widen each gradient and release its compute-dtype copy at once,
+        # so the two are never held for the whole model together
+        grads = {}
+        for n, p in live.items():
+            grads[n] = (p.grad.float() if p.grad is not None
+                        else torch.zeros_like(p, dtype=torch.float32))
+            p.grad = None
         return loss.detach().float(), metrics, grads
 
     def step_fn(state: TrainState, batch: dict):
@@ -103,8 +107,6 @@ def make_train_step(model: torch.nn.Module, tcfg: TrainConfig):
             loss = loss / n
         else:
             loss, metrics, grads = grads_of(batch)
-        for p in live.values():
-            p.grad = None
 
         if tcfg.grad_clip:
             grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)

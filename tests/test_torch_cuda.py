@@ -2,7 +2,11 @@
 
 ``rbgp4mm_rhs`` (with and without ``save_preact``, on forward and
 transposed layouts), ``rbgp4_sddmm_rhs``, and ``RBGP4Linear``'s gradients
-on the card against the same function run by the plain versions.
+on the card against the same function run by the plain versions; the same
+for the stacked-expert kernels ``rbgp4mm_rhs_stacked`` and
+``rbgp4_sddmm_rhs_stacked`` and ``RBGP4LinearStacked``, whose every expert
+must also equal the unstacked kernel on that expert, bit for bit (one
+device body).
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -21,9 +25,14 @@ import pytest
 import torch
 
 from repro_torch.core import RBGP4Layout, RBGP4Spec, design_rbgp4
-from repro_torch.kernels import (KernelTables, RBGP4Linear, TransposeTables,
+from repro_torch.kernels import (KernelTables, RBGP4Linear,
+                                 RBGP4LinearStacked, TransposeTables,
                                  rbgp4_sddmm_rhs, rbgp4_sddmm_rhs_reference,
-                                 rbgp4mm_rhs, rbgp4mm_rhs_reference)
+                                 rbgp4_sddmm_rhs_stacked,
+                                 rbgp4_sddmm_rhs_stacked_reference,
+                                 rbgp4mm_rhs, rbgp4mm_rhs_reference,
+                                 rbgp4mm_rhs_stacked,
+                                 rbgp4mm_rhs_stacked_reference)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -237,3 +246,156 @@ def test_cuda_sddmm_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         rbgp4_sddmm_rhs(tables, gy[:3], x)
     assert np.isfinite(rbgp4_sddmm_rhs(tables, gy, x).cpu().numpy()).all()
+
+
+# qwen2-moe-a2.7b's expert layouts: gate/up (C = 128) and down (C = 16)
+EXPERT_WIDTH = [(1408, 2048), (2048, 1408)]
+
+
+def stacked_cases():
+    """(layout, E, N): the small sweep with 3 experts, and the full-width
+    expert layouts with 60."""
+    out = [(lay, 3, n) for lay, n in cases()[:len(SWEEP)]]
+    for m, k in EXPERT_WIDTH:
+        lay = RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0))
+        out += [(lay, 60, n) for n in (1, 8, 77)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_stacked_kernel_matches_plain_and_unstacked(dtype):
+    """Y and Z of every expert against the plain version, and bit for bit
+    against the unstacked kernel on that expert's slice."""
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dtype)
+    for lay, e, n in stacked_cases():
+        tables = KernelTables.build(lay, "cuda")
+        for act, bias, _ in EPILOGUES:
+            x, w = rnd(e, n, lay.k), rnd(e, *lay.data_shape)
+            b = rnd(e, lay.m) if bias else None
+            before = rbgp4mm_rhs_stacked.launches
+            y, z = rbgp4mm_rhs_stacked(tables, x, w, bias=b, act=act,
+                                       save_preact=True)
+            torch.cuda.synchronize()
+            assert rbgp4mm_rhs_stacked.launches == before + 1
+            wy, wz = rbgp4mm_rhs_stacked_reference(tables, x, w, bias=b,
+                                                   act=act, save_preact=True)
+            assert_close(y, wy, dtype, (lay.spec, e, n, act, "y"))
+            assert_close(z, wz, dtype, (lay.spec, e, n, act, "z"))
+            for i in (0, e - 1):
+                one = rbgp4mm_rhs(tables, x[i], w[i], act=act,
+                                  bias=None if b is None else b[i])
+                assert torch.equal(y[i], one), (lay.spec, e, n, act, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_stacked_kernel_on_transposed_layouts(dtype):
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dtype)
+    for lay, e, n in stacked_cases():
+        tt = TransposeTables.build(lay, "cuda")
+        wt = tt.values(rnd(e, *lay.data_shape))
+        gy = rnd(e, n, lay.m)
+        before = (rbgp4mm_rhs_stacked.launches,
+                  rbgp4mm_rhs_stacked.launches_dx)
+        got = rbgp4mm_rhs_stacked(tt.tables, gy, wt)
+        torch.cuda.synchronize()
+        assert (rbgp4mm_rhs_stacked.launches,
+                rbgp4mm_rhs_stacked.launches_dx) == (before[0],
+                                                     before[1] + 1)
+        want = rbgp4mm_rhs_stacked_reference(tt.tables, gy, wt)
+        assert_close(got, want, dtype, (lay.spec, e, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_stacked_sddmm_matches_plain_and_unstacked(dtype):
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dtype)
+    for lay, e, n in stacked_cases():
+        tables = KernelTables.build(lay, "cuda")
+        gy, x = rnd(e, n, lay.m), rnd(e, n, lay.k)
+        before = rbgp4_sddmm_rhs_stacked.launches
+        got = rbgp4_sddmm_rhs_stacked(tables, gy, x)
+        torch.cuda.synchronize()
+        assert rbgp4_sddmm_rhs_stacked.launches == before + 1
+        assert tuple(got.shape) == (e, *lay.data_shape)
+        want = rbgp4_sddmm_rhs_stacked_reference(tables, gy, x)
+        assert_close(got, want, dtype, (lay.spec, e, n))
+        assert torch.equal(got, rbgp4_sddmm_rhs_stacked(tables, gy, x))
+        for i in (0, e - 1):
+            assert torch.equal(got[i], rbgp4_sddmm_rhs(tables, gy[i], x[i]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_linear_stacked_grads_match_plain_versions(dtype):
+    """y, dX, dW and db of ``RBGP4LinearStacked`` on the card against the
+    same inputs through the plain versions on the CPU."""
+    needs_card()
+    rng = np.random.default_rng(8)
+    for lay, e, n in stacked_cases()[::2]:
+        tables = {d: KernelTables.build(lay, d) for d in ("cuda", "cpu")}
+        tt = {d: TransposeTables.build(lay, d) for d in ("cuda", "cpu")}
+        for fuse, bias, _ in EPILOGUES:
+            arrs = [rng.standard_normal(s).astype(np.float32) for s in
+                    ((e, n, lay.k), (e, *lay.data_shape), (e, lay.m),
+                     (e, n, lay.m))]
+            counters = lambda: (rbgp4mm_rhs_stacked.launches,
+                                rbgp4mm_rhs_stacked.launches_dx,
+                                rbgp4_sddmm_rhs_stacked.launches)
+            before = counters()
+            outs = {}
+            for d in ("cuda", "cpu"):
+                x, w, b, gy = (torch.tensor(a, device=d).to(dtype)
+                               for a in arrs)
+                leaves = [x, w, b if bias else None]
+                for t in leaves:
+                    if t is not None:
+                        t.requires_grad_()
+                y = RBGP4LinearStacked.apply(*leaves, tables[d], tt[d], fuse)
+                y.backward(gy)
+                outs[d] = [y.detach()] + [None if t is None else t.grad
+                                          for t in leaves]
+            assert tuple(a - b for a, b in zip(counters(), before)) == (
+                1, 1, 1)
+            for name, a, b_ in zip(("y", "dx", "dw", "db"), outs["cuda"],
+                                   outs["cpu"]):
+                assert (a is None) == (b_ is None), name
+                if a is not None:
+                    assert a.device.type == "cuda" and a.dtype == dtype
+                    assert_close(a.cpu(), b_, dtype,
+                                 (lay.spec, e, n, fuse, name), GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_kernels_reject_what_they_do_not_take():
+    needs_card()
+    lay = RBGP4Layout(design_rbgp4(1408, 2048, 0.75, seed=0))
+    tables = KernelTables.build(lay, "cuda")
+    x = torch.randn(4, 3, lay.k, device="cuda")
+    w = torch.randn(4, *lay.data_shape, device="cuda")
+    gy = torch.randn(4, 3, lay.m, device="cuda")
+    with pytest.raises(TypeError):
+        rbgp4mm_rhs_stacked(tables, x, w.bfloat16())
+    with pytest.raises(ValueError):
+        rbgp4mm_rhs_stacked(tables, x.transpose(0, 1).contiguous()
+                            .transpose(0, 1), w)
+    with pytest.raises(ValueError):
+        rbgp4mm_rhs_stacked(tables, x, w, bias=torch.randn(lay.m,
+                                                           device="cuda"))
+    with pytest.raises(ValueError):
+        rbgp4mm_rhs_stacked(tables, x, w[:3])
+    with pytest.raises(TypeError):
+        rbgp4_sddmm_rhs_stacked(tables, gy.half(), x.half())
+    with pytest.raises(ValueError):
+        rbgp4_sddmm_rhs_stacked(tables, gy[:, :2], x)
+    assert np.isfinite(rbgp4mm_rhs_stacked(tables, x, w).cpu().numpy()).all()

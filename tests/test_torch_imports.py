@@ -27,6 +27,7 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names), "modules")
 print("BAD", bad)
+print("NAMES", " ".join(names))
 assert not bad, bad
 """
 
@@ -37,6 +38,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr
     assert int(p.stdout.split()[0]) >= 20
+    names = p.stdout.split("NAMES", 1)[1].split()
+    for mod in ("repro_torch.models.moe", "repro_torch.kernels.ops",
+                "repro_torch.configs.qwen2_moe_a2_7b"):
+        assert mod in names, mod
 
 
 def test_chip_smoke_imports_no_jax():
