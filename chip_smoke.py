@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Serves and trains two models through ``repro_torch``, with every sparse
-product on a hand-written CUDA kernel, RBGP4 at 0.75, ``min_dim=64``:
+product on a hand-written CUDA kernel, RBGP4 at 0.75, ``min_dim=64``, and
+tinyllama again under a deep-chain plan:
 
   * full-width tinyllama-1.1b (22 layers, d_model 2048, all 154 projections
     compact) on ``rbgp4mm_rhs`` (the forward, and dX on the layer's
@@ -13,7 +14,11 @@ product on a hand-written CUDA kernel, RBGP4 at 0.75, ``min_dim=64``:
     expert on those two kernels, the routed experts stacked (60, M,
     nnz_row) over one layout per side on ``rbgp4mm_rhs_stacked`` (forward
     and dX, one launch for all experts) and ``rbgp4_sddmm_rhs_stacked``
-    (dW).
+    (dW);
+  * full-width tinyllama-1.1b under the one-rule hierarchical-block plan
+    of ``benchmarks/chain_executor.py`` (``rbgp`` at 0.875, ``min_dim``
+    256): all 154 projections in chain storage on ``chainmm_rhs`` (forward,
+    and dX on the transposed layouts) and ``chain_sddmm_rhs`` (dW).
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the result line:
@@ -52,7 +57,10 @@ exits non-zero without the result line:
      launches: 308 on forward layouts (154 forward + 154 recomputed under
      remat) and 154 on transposed layouts (dX), each counted at its
      launch; finite losses and gradient norms; then one more step under
-     torch.profiler;
+     torch.profiler, whose launches by kernel and by role must equal the
+     counters (the window opens with 2000 spin kernels, the records a
+     trace loses first; a trace that still lost a sparse launch is
+     reported and taken again, up to 3 steps);
   7. train parity in float32: a 2-layer full-width model takes 2 steps on
      the card (the kernels) and 2 on the CPU (the plain versions) from the
      same weights and batch, without weight decay; losses within 1e-4
@@ -70,7 +78,26 @@ exits non-zero without the result line:
      per step ``rbgp4mm_rhs`` 336 forward + recompute and 168 dX,
      ``rbgp4_sddmm_rhs`` 168, ``rbgp4mm_rhs_stacked`` 144 forward +
      recompute and 72 dX, ``rbgp4_sddmm_rhs_stacked`` 72; one profiled step;
- 11. train parity of 2 full-width qwen2-moe layers as phase 7.
+ 11. train parity of 2 full-width qwen2-moe layers as phase 7;
+ 12. check-chain: the deep-chain kernels against their plain versions, as
+     phase 2, at tinyllama's four shapes under the hierarchical-block plan
+     (complete 4x4, three Ramanujan factors, complete 8x8, at 0.875;
+     leaves 8x8, 16x32, 32x16): ``chainmm_rhs`` at N in {1, 8, 512, 4096}
+     x {f32, bf16}, on the transposed layouts at N in {512, 4096},
+     ``chain_sddmm_rhs`` at N in {8, 512, 4096}; and at the two smaller
+     chains of the CPU tests (G = C = 1, and a 2x2 leaf);
+ 13. times-chain: as phase 3, the forward at N = 8 and 512, dX and dW at
+     N = 4096;
+ 14. serve-chain: tinyllama under that plan (all 154 projections chains),
+     the 16 requests of phase 4: every prefill call and decode step
+     launches ``chainmm_rhs`` 154 times and no RBGP4 kernel;
+ 15. parity-chain: its float32 streams against ``run_sequential`` on 4
+     requests, as phase 5;
+ 16. train-chain: 6 steps of 8 x 512 tokens as phase 6, per step 308
+     forward + recompute and 154 dX ``chainmm_rhs`` launches and 154
+     ``chain_sddmm_rhs``; one profiled step;
+ 17. train-parity-chain: 2 full-width layers in float32, card against CPU,
+     as phase 7.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -106,9 +133,24 @@ MOE_LAYER_PROJECTIONS = {"gate/up": 2, "down": 1}
 # rows an expert: decode (8 slots, full capacity), a training step
 # (ceil(4 * 512 * 4 / 60 * 1.25)), a full-capacity prefill of 512 tokens
 MOE_ROWS = {"decode": 8, "train": 171, "prefill": 512}
-# the six launch counters, by role
+# tinyllama-1.1b under the hierarchical-block plan of
+# benchmarks/chain_executor.py: dense 4x4 outer blocking around three
+# Ramanujan factors (their sparsities allocated by the designer) and a
+# dense 8x8 leaf, at 0.875, on every projection of at least 256 a side
+HIER = (("complete", 4, 4, 0.0), ("ramanujan", 0, 0, -1.0),
+        ("ramanujan", 0, 0, -1.0), ("ramanujan", 0, 0, -1.0),
+        ("complete", 8, 8, 0.0))
+CHAIN_SPARSITY, CHAIN_MIN_DIM = 0.875, 256
+# the smaller chains of tests/test_chain_executor.py: three Ramanujan
+# factors with no complete leaf (G = C = 1), and a hierarchical chain
+T3 = (("ramanujan", 0, 0, 0.5),) * 3
+HIER_SMALL = (("complete", 4, 4, 0.0), ("ramanujan", 0, 0, 0.5),
+              ("ramanujan", 0, 0, 0.5), ("ramanujan", 0, 0, 0.5),
+              ("complete", 2, 2, 0.0))
+SMALL_CHAINS = {"3ram": (128, 128, T3), "hier": (128, 256, HIER_SMALL)}
+# the nine launch counters, by role
 COUNTERS = ("forward", "dx", "dw", "stacked_forward", "stacked_dx",
-            "stacked_dw")
+            "stacked_dw", "chain_forward", "chain_dx", "chain_dw")
 
 
 def log(phase: str, msg: str) -> None:
@@ -447,8 +489,9 @@ def launches_of(**kw) -> dict:
 
 
 def launch_counts() -> dict:
-    """The six launch counters, by role."""
-    from repro_torch.kernels import (rbgp4_sddmm_rhs,
+    """The nine launch counters, by role."""
+    from repro_torch.kernels import (chain_sddmm_rhs, chainmm_rhs,
+                                     rbgp4_sddmm_rhs,
                                      rbgp4_sddmm_rhs_stacked, rbgp4mm_rhs,
                                      rbgp4mm_rhs_stacked)
 
@@ -457,11 +500,15 @@ def launch_counts() -> dict:
             "dw": rbgp4_sddmm_rhs.launches,
             "stacked_forward": rbgp4mm_rhs_stacked.launches,
             "stacked_dx": rbgp4mm_rhs_stacked.launches_dx,
-            "stacked_dw": rbgp4_sddmm_rhs_stacked.launches}
+            "stacked_dw": rbgp4_sddmm_rhs_stacked.launches,
+            "chain_forward": chainmm_rhs.launches,
+            "chain_dx": chainmm_rhs.launches_dx,
+            "chain_dw": chain_sddmm_rhs.launches}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels import (rbgp4_sddmm_rhs,
+    from repro_torch.kernels import (chain_sddmm_rhs, chainmm_rhs,
+                                     rbgp4_sddmm_rhs,
                                      rbgp4_sddmm_rhs_stacked, rbgp4mm_rhs,
                                      rbgp4mm_rhs_stacked)
 
@@ -469,6 +516,8 @@ def reset_launch_counts() -> None:
     rbgp4_sddmm_rhs.launches = 0
     rbgp4mm_rhs_stacked.launches = rbgp4mm_rhs_stacked.launches_dx = 0
     rbgp4_sddmm_rhs_stacked.launches = 0
+    chainmm_rhs.launches = chainmm_rhs.launches_dx = 0
+    chain_sddmm_rhs.launches = 0
 
 
 def counts_since(before: dict) -> dict:
@@ -520,15 +569,19 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve") -> dict:
                     if getattr(mod, "mode", None) == "compact")
     n_stacked = sum(1 for mod in model.modules()
                     if getattr(mod, "compact", False)) * 3
-    if (n_compact, n_stacked) != (per_pass["forward"],
-                                  per_pass["stacked_forward"]):
-        raise AssertionError(f"{n_compact} compact projections and "
-                             f"{n_stacked} stacked ones, want {per_pass}")
+    n_chain = sum(1 for mod in model.modules()
+                  if getattr(mod, "mode", None) == "chain")
+    if (n_compact, n_stacked, n_chain) != (per_pass["forward"],
+                                           per_pass["stacked_forward"],
+                                           per_pass["chain_forward"]):
+        raise AssertionError(f"{n_compact} compact projections, "
+                             f"{n_stacked} stacked ones and {n_chain} "
+                             f"chains, want {per_pass}")
     log(phase, f"{cfg.name}: {cfg.n_layers} layers, d_model "
                f"{cfg.d_model}, {model.n_params():,} stored values "
                f"({n_compact} compact rbgp4 projections, {n_stacked} "
-               f"stacked expert projections), built in "
-               f"{time.perf_counter() - t0:.1f}s")
+               f"stacked expert projections, {n_chain} chain projections), "
+               f"built in {time.perf_counter() - t0:.1f}s")
     reqs = serve_requests(cfg.vocab_size, 16, seed=0)
     max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
     kw = dict(page_size=16, max_slots=8, max_request_len=max_len,
@@ -658,6 +711,8 @@ def phase_parity(cfg, reqs: list, phase: str = "parity") -> None:
 # and for a forward kernel the role it has right after its family's dW
 # kernel (dX); the stacked names first
 TRACE_KINDS = (
+    ("chain_sddmm_rhs_kernel", "chain_dw", None),
+    ("chainmm_rhs_kernel", "chain_forward", "chain_dx"),
     ("rbgp4_sddmm_rhs_stacked_kernel", "stacked_dw", None),
     ("rbgp4mm_rhs_stacked_kernel", "stacked_forward", "stacked_dx"),
     ("rbgp4_sddmm_rhs_kernel", "dw", None),
@@ -665,30 +720,23 @@ TRACE_KINDS = (
 )
 
 
-def profile_train_step(trainer) -> dict:
-    """One training step under torch.profiler: the card's busy share of the
-    step and the share of each of the sparse products.  The trace names the
-    kernel, not its role: an ``rbgp4mm_rhs`` launch is taken as a dX when
-    the last sparse kernel before it was ``rbgp4_sddmm_rhs`` (the backward
-    of every projection runs dW, then dX), otherwise as a forward or its
-    recompute, and the same for the stacked pair.  That split is held
-    against the launch counters of the same step."""
-    from torch.profiler import ProfilerActivity, profile
+# profiled steps to try before a trace that keeps losing kernel records
+# fails the phase, and the spin kernels (``torch.cuda._sleep``, symbol
+# ``spin_kernel``) launched ahead of the step in each profiled window
+PROFILE_TRIES = 3
+PROFILE_PAD = 2000
 
-    before = launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trainer.run(1)
-    counted = counts_since(before)
-    wall_ms = 1e3 * trainer.history[-1]["step_time_s"]
-    kernels = sorted((e.time_range.start, e.time_range.elapsed_us() * 1e-3,
-                      e.name) for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not kernels:
-        raise AssertionError("the profiler recorded no kernel on the card")
-    busy = sum(ms for _, ms, _ in kernels)
+
+def split_trace(kernels: list) -> tuple[dict, dict, dict]:
+    """The trace's sparse launches by role and their card time, and the
+    launches by kernel symbol.  The trace names the kernel, not its role:
+    an ``rbgp4mm_rhs`` launch is taken as a dX when the last sparse kernel
+    before it was ``rbgp4_sddmm_rhs`` (the backward of every projection
+    runs dW, then dX), otherwise as a forward or its recompute, and the
+    same for the stacked and the chain pairs."""
     ms = dict.fromkeys(COUNTERS, 0.0)
     count = dict.fromkeys(COUNTERS, 0)
+    by_symbol = {symbol: 0 for symbol, _, _ in TRACE_KINDS}
     last = None
     for _, dur, name in kernels:
         for symbol, role, dx_role in TRACE_KINDS:
@@ -702,20 +750,79 @@ def profile_train_step(trainer) -> dict:
             continue
         ms[kind] += dur
         count[kind] += 1
+        by_symbol[symbol] += 1
         last = kind
+    return count, ms, by_symbol
+
+
+def profile_train_step(trainer, phase: str) -> dict:
+    """One training step under torch.profiler: the card's busy share of the
+    step and the share of each of the sparse products, split by
+    ``split_trace`` and held against the launch counters of the same step.
+
+    A trace can come back without its first kernel records.  So each window
+    opens with ``PROFILE_PAD`` spin kernels, which are the records to go
+    first; their loss is reported and they count in no time.  A trace
+    with fewer launches of a sparse kernel than its counters is reported
+    and taken again, up to ``PROFILE_TRIES`` steps; one with more, or
+    whose split by role disagrees with the counters, fails at once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lost = []
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        before = launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            trainer.run(1)
+        counted = counts_since(before)
+        traced = sorted((e.time_range.start,
+                         e.time_range.elapsed_us() * 1e-3, e.name)
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        kernels = [k for k in traced if "spin_kernel" not in k[2]]
+        pad_lost = PROFILE_PAD - (len(traced) - len(kernels))
+        if not kernels:
+            raise AssertionError("the profiler recorded no kernel on the "
+                                 "card")
+        count, ms, by_symbol = split_trace(kernels)
+        want = {symbol: counted[role] + (counted[dx] if dx else 0)
+                for symbol, role, dx in TRACE_KINDS}
+        if any(by_symbol[k] > want[k] for k in want):
+            raise AssertionError(f"profiled step: trace holds {by_symbol} "
+                                 f"launches by kernel, counters {want}")
+        if by_symbol == want:
+            break
+        missing = {k: want[k] - by_symbol[k] for k in want
+                   if by_symbol[k] != want[k]}
+        lost.append(dict(pad=pad_lost, sparse=missing))
+        log(phase, f"profiled step {attempt}: the trace lost kernel records "
+                   f"({pad_lost} of {PROFILE_PAD} spin kernels, sparse "
+                   f"launches {missing} of {want})")
+    else:
+        raise AssertionError(f"profiled step: the trace lost kernel records "
+                             f"in {PROFILE_TRIES} steps running: {lost}")
     if count != counted:
         raise AssertionError(f"profiled step: trace split {count}, launch "
                              f"counters {counted}")
+    wall_ms = 1e3 * trainer.history[-1]["step_time_s"]
+    busy = sum(ms for _, ms, _ in kernels)
     return dict(wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
                 kernel_ms=ms, kernel_launches=count,
-                kernel_share={k: v / busy for k, v in ms.items()})
+                kernel_share={k: v / busy for k, v in ms.items()},
+                attempts=attempt, pad_records_lost=pad_lost,
+                lost_records=lost)
 
 
 def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
                 phase: str = "train") -> dict:
     """``n_steps`` of ``Trainer.run`` (the defaults of launch/train.py:
     sgdm, lr 3e-2, cosine, clip 1.0, remat on); each step must launch
-    ``want``; the first step untimed; then one profiled step."""
+    ``want``; the first step untimed; then one profiled step (more where
+    the trace lost records)."""
     from repro_torch.configs import TrainConfig
     from repro_torch.data import TokenStream
     from repro_torch.models import LMModel
@@ -750,7 +857,7 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
             raise AssertionError(f"step {h['step']}: {h}")
     timed = [h["step_time_s"] for h in hist[1:]]
     step_ms = 1e3 * statistics.mean(timed)
-    prof = profile_train_step(trainer)
+    prof = profile_train_step(trainer, phase)
     if prof["kernel_launches"] != want:
         raise AssertionError(f"profiled step launches "
                              f"{prof['kernel_launches']}")
@@ -778,7 +885,10 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
     log(phase, f"launches per step, counted at each launch: "
                + ", ".join(f"{k} {v}" for k, v in want.items() if v)
                + f"; in {n_steps} steps {launches}")
-    log(phase, f"profiled step: {prof['wall_ms']:.1f} ms wall, card busy "
+    log(phase, f"profiled step (trace {prof['attempts']} of "
+               f"{PROFILE_TRIES}, {prof['pad_records_lost']} of "
+               f"{PROFILE_PAD} leading spin records lost): "
+               f"{prof['wall_ms']:.1f} ms wall, card busy "
                f"{prof['busy_ms']:.1f} ms ({prof['busy_share']:.1%}; "
                f"{res['busy_share_unprofiled']:.1%} of the unprofiled "
                f"step); "
@@ -925,7 +1035,7 @@ def phase_train_parity(cfg, want: dict, n_layers: int = 2, seq: int = 64,
     gpu.loss(batch, train=False)[0].backward()
     no_remat = launch_counts()
     one = {k: v for k, v in want.items()}
-    for role in ("forward", "stacked_forward"):
+    for role in ("forward", "stacked_forward", "chain_forward"):
         one[role] = want[role] // 2
     fwd_only = {k: (v if k.endswith("forward") else 0)
                 for k, v in one.items()}
@@ -1142,6 +1252,182 @@ def phase_times_moe(layouts) -> dict:
     return rows
 
 
+def chain_plan():
+    """The one-rule hierarchical-block plan (benchmarks/chain_executor.py)."""
+    from repro_torch.sparsity import PatternSpec, SparsityPlan
+
+    return SparsityPlan.uniform(PatternSpec(
+        pattern="rbgp", sparsity=CHAIN_SPARSITY, backend="auto",
+        factors=HIER, min_dim=CHAIN_MIN_DIM), note="hierarchical-block chain")
+
+
+def chain_config(compute_dtype: str = "bfloat16"):
+    from repro_torch.configs import apply_sparsity, get_config
+
+    cfg = apply_sparsity(get_config("tinyllama-1.1b"), plan=chain_plan())
+    return cfg.with_(compute_dtype=compute_dtype)
+
+
+def chain_layouts() -> dict:
+    """tinyllama's four projection shapes under the plan, then the two
+    smaller chains of the CPU tests."""
+    from repro_torch.core import ChainLayout, design_rbgp
+
+    out = {key: ChainLayout(design_rbgp(m, k, CHAIN_SPARSITY, factors=HIER,
+                                        seed=0))
+           for key, (m, k) in FULL_WIDTH.items()}
+    for key, (m, k, factors) in SMALL_CHAINS.items():
+        out[key] = ChainLayout(design_rbgp(m, k, 0.875, factors=factors,
+                                           seed=0))
+    return out
+
+
+def phase_check_chain(layouts) -> dict:
+    """The chain kernels against their plain versions: ``chainmm_rhs`` at
+    N in {1, 8, 512, 4096} and on the transposed layouts at N in {512,
+    4096}, ``chain_sddmm_rhs`` at N in {8, 512, 4096}, f32 and bf16, at
+    tinyllama's four layouts; smaller N at the two test chains.  Max abs
+    diff per record entry."""
+    from repro_torch.kernels import (chain_sddmm_rhs,
+                                     chain_sddmm_rhs_reference,
+                                     chain_tables, chain_transpose_tables,
+                                     chainmm_rhs, chainmm_rhs_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    max_abs = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+    n_cases = 0
+    for key, lay in layouts.items():
+        full = key in FULL_WIDTH
+        tables = chain_tables(lay, "cuda")
+        tt = chain_transpose_tables(lay, "cuda")
+        t_ = tt.tables
+        log("check-chain", f"chain {key:8s} {lay.m} x {lay.k}: G = "
+                     f"{tables.group_rows}, C = {tables.chunk_cols}, "
+                     f"{tables.n_chunks} chunks a row; transposed: G = "
+                     f"{t_.group_rows}, C = {t_.chunk_cols}, "
+                     f"{t_.n_chunks} chunks")
+        for dt in (torch.float32, torch.bfloat16):
+            rnd = lambda *s: torch.randn(*s, device="cuda",
+                                         generator=g).to(dt)
+            worst = {"forward": 0.0, "transposed": 0.0, "sddmm": 0.0}
+
+            def hold(what, got, want, entry, row):
+                err, rel = agree(f"chain {what} {key}", got, want, dt)
+                max_abs[entry] = max(max_abs[entry], err)
+                worst[row] = max(worst[row], rel)
+
+            w = rnd(*lay.data_shape)
+            wt = tt.values(w)
+            for n in ((1, 8, 512, 4096) if full else (1, 8, 512)):
+                x = rnd(n, lay.k)
+                y = launched(chainmm_rhs, lambda: chainmm_rhs(tables, x, w))
+                hold(f"N={n}", y, chainmm_rhs_reference(tables, x, w),
+                     "forward", "forward")
+                n_cases += 1
+            for n in ((512, 4096) if full else (512,)):
+                gy = rnd(n, lay.m)
+                dx = launched(chainmm_rhs,
+                              lambda: chainmm_rhs(t_, gy, wt), "launches_dx")
+                hold(f"transposed N={n}", dx,
+                     chainmm_rhs_reference(t_, gy, wt), "dx", "transposed")
+                n_cases += 1
+            for n in ((8, 512, 4096) if full else (8, 512)):
+                gy, x = rnd(n, lay.m), rnd(n, lay.k)
+                dw = launched(chain_sddmm_rhs,
+                              lambda: chain_sddmm_rhs(tables, gy, x))
+                hold(f"sddmm N={n}", dw,
+                     chain_sddmm_rhs_reference(tables, gy, x), "dw", "sddmm")
+                n_cases += 1
+            log("check-chain", f"chain {key:8s} {str(dt):15s} max|diff|/max|ref|: "
+                         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+        torch.cuda.empty_cache()
+    log("check-chain", f"{n_cases} chain-kernel cases agree (one launch each); max "
+                 f"abs diff "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items()))
+    return max_abs
+
+
+def phase_times_chain(layouts, n_train: int = 4096) -> dict:
+    """The chain kernels at tinyllama's four layouts, bf16: the forward at
+    N = 8 and 512, dX and dW at a training step's N; kernel, plain version,
+    one PyTorch call on the unpacked dense weights (``F.linear``,
+    ``g @ W``, ``g^T @ x``), bound."""
+    from repro_torch.kernels import (chain_sddmm_rhs,
+                                     chain_sddmm_rhs_reference,
+                                     chain_tables, chain_transpose_tables,
+                                     chainmm_rhs, chainmm_rhs_reference)
+    from repro_torch.kernels.chainmm import chain_unpack_dense
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    dt = torch.bfloat16
+    rows = {}
+    for key in FULL_WIDTH:
+        lay = layouts[key]
+        tables = chain_tables(lay, "cuda")
+        tt = chain_transpose_tables(lay, "cuda")
+        t_ = tt.tables
+        m, k = lay.m, lay.k
+        nnz = lay.data_shape[1]
+        copies = max(2, -(-2 * L2_BYTES // (m * nnz * 2)))
+        ws = torch.randn((copies, m, nnz), device="cuda", generator=g).to(dt)
+        dense_copies = max(2, -(-2 * L2_BYTES // (m * k * 2)))
+        wd = torch.stack([chain_unpack_dense(lay, ws[i % copies])
+                          for i in range(dense_copies)])
+        for n in (8, 512):
+            x = torch.randn((n, k), device="cuda", generator=g).to(dt)
+            t_kernel = time_cuda(lambda i: chainmm_rhs(
+                tables, x, ws[i % copies]))
+            t_plain = time_cuda(lambda i: chainmm_rhs_reference(
+                tables, x, ws[i % copies]))
+            t_lib = time_cuda(lambda i: F.linear(x, wd[i % dense_copies]))
+            b, by = bound_ms(n, m, k, nnz, tables.n_chunks,
+                             tables.group_rows, 2)
+            rows[(key, n)] = dict(ms=t_kernel, plain_ms=t_plain,
+                                  library_ms=t_lib, bound_ms=b, bound_by=by)
+            log("times-chain", f"chain {key:8s} N={n:<4d} bf16: kernel "
+                         f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+                         f"F.linear dense {t_lib:.4f} ms, bound "
+                         f"{b * 1e3:.2f} us ({by})")
+        n = n_train
+        c_ = max(2, -(-2 * L2_BYTES // ((n * m + n * k) * 2)))
+        gs = torch.randn((c_, n, m), device="cuda", generator=g).to(dt)
+        xs = torch.randn((c_, n, k), device="cuda", generator=g).to(dt)
+        w, wdd = ws[0], wd[0]
+        wt = tt.values(w)
+        c = lambda i: i % c_
+        t = dict(
+            dw=time_cuda(lambda i: chain_sddmm_rhs(tables, gs[c(i)],
+                                                   xs[c(i)])),
+            dw_plain=time_cuda(lambda i: chain_sddmm_rhs_reference(
+                tables, gs[c(i)], xs[c(i)])),
+            dw_lib=time_cuda(lambda i: gs[c(i)].T @ xs[c(i)]),
+            dx=time_cuda(lambda i: chainmm_rhs(t_, gs[c(i)], wt)),
+            dx_plain=time_cuda(lambda i: chainmm_rhs_reference(
+                t_, gs[c(i)], wt)),
+            dx_lib=time_cuda(lambda i: gs[c(i)] @ wdd),
+        )
+        b, by = sddmm_bound_ms(n, m, k, nnz, tables.n_chunks,
+                               tables.group_rows, 2)
+        rows[(key, "dw")] = dict(ms=t["dw"], plain_ms=t["dw_plain"],
+                                 library_ms=t["dw_lib"], bound_ms=b,
+                                 bound_by=by)
+        log("times-chain", f"chain dW {key:8s} N={n} bf16: kernel {t['dw']:.4f} "
+                     f"ms, plain {t['dw_plain']:.4f} ms, g^T @ x dense "
+                     f"{t['dw_lib']:.4f} ms, bound {b * 1e3:.2f} us ({by})")
+        b, by = bound_ms(n, t_.m, t_.k, t_.data_cols, t_.n_chunks,
+                         t_.group_rows, 2)
+        rows[(key, "dx")] = dict(ms=t["dx"], plain_ms=t["dx_plain"],
+                                 library_ms=t["dx_lib"], bound_ms=b,
+                                 bound_by=by)
+        log("times-chain", f"chain dX {key:8s} N={n} bf16 (G = {t_.group_rows}, "
+                     f"C = {t_.chunk_cols}): kernel {t['dx']:.4f} ms, plain "
+                     f"{t['dx_plain']:.4f} ms, g @ W dense "
+                     f"{t['dx_lib']:.4f} ms, bound {b * 1e3:.2f} us ({by})")
+        del ws, wd, gs, xs, wt
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -1151,12 +1437,15 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_build()
     layouts, experts = full_width_layouts(), moe_layouts()
+    chains = chain_layouts()
     max_abs = phase_check(layouts)
     max_abs_train = phase_check_train(layouts)
     max_abs_moe = phase_check_moe(experts)
+    max_abs_chain = phase_check_chain(chains)
     times = phase_times(layouts)
     times.update(phase_train_times(layouts))
     times_moe = phase_times_moe(experts)
+    times_chain = phase_times_chain(chains)
 
     # tinyllama: 7 compact projections a layer
     tiny = main_config("bfloat16")
@@ -1187,10 +1476,28 @@ def main() -> int:
                                         stacked_forward=12, stacked_dx=6,
                                         stacked_dw=6), phase="parity-moe")
 
+    # tinyllama under the hierarchical-block plan: all 154 projections are
+    # chains, and no RBGP4 kernel runs
+    chain = chain_config("bfloat16")
+    serve_chain = phase_serve(chain, launches_of(chain_forward=n_tiny),
+                              phase="serve-chain")
+    phase_parity(chain_config("float32"),
+                 serve_requests(chain.vocab_size, 4, seed=1),
+                 phase="parity-chain")
+    train_chain = phase_train(
+        chain, launches_of(chain_forward=2 * n_tiny, chain_dx=n_tiny,
+                           chain_dw=n_tiny),
+        n_steps=6, batch=8, seq=512, phase="train-chain")
+    phase_train_parity(chain, launches_of(chain_forward=28, chain_dx=14,
+                                          chain_dw=14),
+                       phase="train-parity-chain")
+
     per_layout = {f"{key} {kind if isinstance(kind, str) else f'N={kind}'}":
                   row for (key, kind), row in times.items()}
     per_layout.update({f"experts {key} {kind if isinstance(kind, str) else f'N={kind}'}":
                        row for (key, kind), row in times_moe.items()})
+    per_layout.update({f"chain {key} {kind if isinstance(kind, str) else f'N={kind}'}":
+                       row for (key, kind), row in times_chain.items()})
     print("kernel_times " + json.dumps(per_layout), flush=True)
     src = "src/repro_torch/kernels/csrc/"
     # the forward: one decoder layer's seven projections at decode (N = 8
@@ -1203,7 +1510,10 @@ def main() -> int:
     s_fwd = per_layer(times_moe, 8, MOE_LAYER_PROJECTIONS)
     s_dx = per_layer(times_moe, "dx", MOE_LAYER_PROJECTIONS)
     s_dw = per_layer(times_moe, "dw", MOE_LAYER_PROJECTIONS)
-    main_runs = (serve, train, serve_moe, train_moe)
+    c_fwd = per_layer(times_chain, 8)
+    c_dx, c_dw = per_layer(times_chain, "dx"), per_layer(times_chain, "dw")
+    main_runs = (serve, train, serve_moe, train_moe, serve_chain,
+                 train_chain)
     total = lambda role: sum(run["launches"][role] for run in main_runs)
     record = {"kernels": [
         dict(name="rbgp4mm_rhs", route="cuda", source=src + "rbgp4mm_rhs.cu",
@@ -1254,6 +1564,29 @@ def main() -> int:
              max_abs_err=max_abs_moe["dw"], **s_dw,
              work="compact dW of one MoE layer's gate, up and down, 60 "
                   "experts, 171 rows an expert, bf16"),
+        dict(name="chainmm_rhs", route="cuda", source=src + "chainmm_rhs.cu",
+             replaces="src/repro/kernels/chainmm.py:309",
+             launches=total("chain_forward"),
+             max_abs_err=max_abs_chain["forward"], **c_fwd,
+             work="forward of tinyllama's chain projections under the "
+                  "hierarchical-block plan (serve, and train with its "
+                  "remat recompute); timed: one decoder layer's seven at "
+                  "decode, 8 token rows, bf16"),
+        dict(name="chainmm_rhs (dX, transposed layouts)", route="cuda",
+             source=src + "chainmm_rhs.cu",
+             replaces="src/repro/kernels/chainmm.py:309",
+             launches=total("chain_dx"),
+             max_abs_err=max_abs_chain["dx"], **c_dx,
+             work="dX = g @ W_s of one chain decoder layer's seven "
+                  "projections on their transposed layouts, 4096 tokens, "
+                  "bf16"),
+        dict(name="chain_sddmm_rhs", route="cuda",
+             source=src + "chain_sddmm_rhs.cu",
+             replaces="src/repro/kernels/chainmm.py:427",
+             launches=total("chain_dw"),
+             max_abs_err=max_abs_chain["dw"], **c_dw,
+             work="chain dW of one decoder layer's seven projections, "
+                  "4096 tokens, bf16"),
     ]}
     for row in record["kernels"]:
         if row["launches"] == 0:

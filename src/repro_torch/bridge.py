@@ -2,9 +2,12 @@
 
 ``load_jax_params(model, tree)`` takes the JAX package's ``LMModel.init``
 parameters as nested dicts and lists of numpy arrays — every weight
-container given as its dict of fields (``{"w_data": ..., "b": ...}`` or
-``{"w": ..., "b": ...}``), ``None`` for absent leaves — and loads them into
-the port's ``state_dict``.  The reference stacks the layers of its scanned
+container given as its dict of fields (``{"w_data": ..., "b": ...}`` for
+a ``CompactWeight`` or a ``ChainWeight``, ``{"w": ..., "b": ...}`` for a
+``DenseWeight``), ``None`` for absent leaves — and loads them into the
+port's ``state_dict``, where a compact or chain projection's values are
+``<path>.w_data``.  Under a plan the layers are grouped as the reference's
+``Stack`` groups them, the plan's per-layer specs included.  The reference stacks the layers of its scanned
 periods into ``(T, ...)`` leaves; the bridge splits them per layer with
 ``jax_stack_split`` (the reference's MoE cadence included).  A MoE
 layer's leaves map by name: ``ffn.router`` (E, D), the stacked experts

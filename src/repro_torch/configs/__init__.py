@@ -39,8 +39,12 @@ def get_config(name: str) -> ModelConfig:
 
 def apply_sparsity(cfg: ModelConfig, pattern: str = "rbgp4",
                    sparsity: float = 0.75, backend: str = "auto",
-                   min_dim: int = 1024) -> ModelConfig:
-    """Enable the paper's technique on a config (compact storage)."""
+                   min_dim: int = 1024, plan=None) -> ModelConfig:
+    """Enable the paper's technique on a config.  ``plan`` (a
+    ``SparsityPlan``) takes precedence over the uniform knobs and is
+    matched per module path."""
+    if plan is not None:
+        return cfg.with_(plan=plan)
     return cfg.with_(sparsity=SparsityConfig(
         pattern=pattern, sparsity=sparsity, backend=backend, min_dim=min_dim,
     ))

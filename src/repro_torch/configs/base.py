@@ -14,7 +14,7 @@ import os
 import tempfile
 from typing import Optional
 
-from repro_torch.sparsity import SparsityConfig
+from repro_torch.sparsity import SparsityConfig, SparsityPlan, lower_config
 
 __all__ = ["MoEConfig", "ModelConfig", "TrainConfig"]
 
@@ -53,12 +53,24 @@ class ModelConfig:
     rope_theta: float = 10000.0
     max_seq_len: int = 8192
     moe: Optional[MoEConfig] = None
+    # the paper's technique: ``sparsity`` is the uniform knob (a one-rule
+    # plan); ``plan`` is the per-layer SparsityPlan and wins when set.
+    # Model constructors only see the resolved plan (``sparsity_rules``)
+    # and match their module paths against it.
     sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
+    plan: Optional[SparsityPlan] = None
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # training recomputes each layer's forward in the backward (the
     # reference's per-period ``jax.checkpoint``)
     remat: bool = True
+
+    @property
+    def sparsity_rules(self) -> SparsityPlan:
+        """The plan every model constructor resolves against: ``plan`` if
+        set, else ``sparsity`` lowered to a uniform one-rule plan."""
+        return (self.plan if self.plan is not None
+                else lower_config(self.sparsity))
 
     @property
     def head_dim_(self) -> int:

@@ -1,4 +1,4 @@
-"""Core RBGP library (numpy): graphs, products, RBGP4 layout.
+"""Core RBGP library (numpy): graphs, products, RBGP4 and chain layouts.
 
 Copied from ``repro.core`` so the port imports nothing of the JAX package;
 sampling is unchanged, so the masks are the reference's.
@@ -13,7 +13,17 @@ from .graphs import (
     two_lift,
 )
 from .product import ProductStructure, graph_product, product_mask
-from .rbgp import RBGP4Layout, RBGP4Spec, design_rbgp4, pow2_sparsity_steps
+from .rbgp import (
+    ChainLayout,
+    FactorSpec,
+    RBGP4Layout,
+    RBGP4Spec,
+    RBGPSpec,
+    canonicalize_factors,
+    design_rbgp,
+    design_rbgp4,
+    pow2_sparsity_steps,
+)
 
 __all__ = [
     "BipartiteGraph",
@@ -30,4 +40,9 @@ __all__ = [
     "RBGP4Layout",
     "design_rbgp4",
     "pow2_sparsity_steps",
+    "FactorSpec",
+    "RBGPSpec",
+    "design_rbgp",
+    "canonicalize_factors",
+    "ChainLayout",
 ]

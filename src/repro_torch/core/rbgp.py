@@ -4,8 +4,9 @@ A copy of the RBGP4 part of ``repro/core/rbgp.py`` (pure numpy), kept in
 this package so the port loads nothing of the JAX package.  The graph
 sampling, the adjacency lists and the compact slot order are unchanged, so
 a layout built here has exactly the masks and ``Wdata`` order of the
-reference.  The deep-chain parts (``ChainLayout``, ``RBGPSpec``,
-``design_rbgp``) come with the deep-chain slice.
+reference.  The same holds for the deep-chain part: ``FactorSpec``,
+``RBGPSpec``, ``design_rbgp`` and ``ChainLayout``, the paper's general
+product of Ramanujan and complete factors, of which RBGP4 is one instance.
 
 RBGP4 composes four biregular bipartite graphs ``G = G_o (x) G_r (x) G_i (x) G_b``
 with ``G_o`` and ``G_i`` sparse Ramanujan graphs and ``G_r``, ``G_b`` complete,
@@ -26,13 +27,18 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 
 from .graphs import complete_bipartite, generate_ramanujan
 from .product import ProductStructure
 
-__all__ = ["RBGP4Spec", "RBGP4Layout", "design_rbgp4", "pow2_sparsity_steps"]
+__all__ = [
+    "RBGP4Spec", "RBGP4Layout", "design_rbgp4", "pow2_sparsity_steps",
+    "FactorSpec", "RBGPSpec", "design_rbgp", "canonicalize_factors",
+    "ChainLayout", "rbgp_from_rbgp4", "AUTO", "AUTO_SP",
+]
 
 
 def _v2(x: int) -> int:
@@ -397,5 +403,469 @@ def design_rbgp4(
         seed=seed,
     )
     spec.validate()
+    assert spec.m == m and spec.k == k, (spec.m, spec.k, m, k)
+    return spec
+
+
+class ChainLayout:
+    """Concrete deep product chain: sampled factors + blocked-CSR layout.
+
+    The compact executor's view of an :class:`RBGPSpec` with more than two
+    sparse factors (shallower chains canonicalize onto :class:`RBGP4Layout`
+    instead).  Storage is a generalized blocked CSR:
+
+      * **row pointers are implicit** — every product row has exactly
+        ``nnz_per_row = prod d_j`` stored blocks (d-regularity of every
+        factor), so the usual CSR indptr array is a closed form;
+      * **column indices are per factor** — only the base-graph adjacency
+        lists (``sum d_j * n_left_j`` int32s) are stored, never the product
+        adjacency (the paper's succinctness claim, extended to arbitrary
+        depth); the product column of slot ``(k_1, .., k_F)`` of row
+        ``(r_1, .., r_F)`` is ``sum_j adj_j[r_j][k_j] * stride_j``;
+      * **dense leaf blocks** — a trailing run of complete factors makes
+        every stored block a contiguous dense ``(G, C)`` tile (what the
+        kernels read as one block).
+
+    Values: ``Wdata`` of shape ``(M, nnz_per_row)``; slot order is
+    lexicographic in ``(k_1, .., k_F)`` which (factor adjacencies being
+    sorted) is ascending column order per row — exactly CSR.
+
+    Deterministic in the spec (graphs come from ``spec.sample()``), so
+    every process reconstructs the layout from the spec alone.  Equality
+    and hash by spec; a cache of anything derived from the adjacency must
+    key on its content instead (``transpose_layout`` shares the forward
+    graph sample, which a layout built from the transposed spec does not).
+    """
+
+    def __init__(self, spec: RBGPSpec):
+        self.spec = spec
+        structure = spec.sample()
+        self.structure = structure
+        self.graphs = structure.factors
+        # per-factor column indices: (n_left_j, d_j) int32 each
+        self.adjs = tuple(g.left_adjacency() for g in self.graphs)
+        self._ci: Optional[np.ndarray] = None
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, ChainLayout) and self.spec == other.spec
+
+    def __hash__(self) -> int:
+        return hash(self.spec)
+
+    # -- sizes ------------------------------------------------------------
+    @property
+    def m(self) -> int:
+        return self.spec.m
+
+    @property
+    def k(self) -> int:
+        return self.spec.k
+
+    @property
+    def nnz_per_row(self) -> int:
+        return self.spec.nnz_per_row
+
+    @property
+    def data_shape(self) -> tuple[int, int]:
+        """Compact value storage shape (M, prod d_j)."""
+        return (self.spec.m, self.spec.nnz_per_row)
+
+    # -- masks ------------------------------------------------------------
+    def mask(self) -> np.ndarray:
+        """Dense {0,1} uint8 mask, shape (M, K) — identical to the mask the
+        masked fallback samples for this spec (same graphs, chain order)."""
+        return self.structure.mask()
+
+    # -- compact <-> dense ------------------------------------------------
+    def _col_index(self) -> np.ndarray:
+        """(M, nnz_per_row) int32: dense column of each compact slot.
+
+        Built by the Kronecker mixed-radix recurrence: appending factor j
+        refines every (row, slot) cell into (n_left_j, d_j) children with
+        column ``parent * n_right_j + adj_j[r_j][k_j]`` — the same
+        enumeration order ``np.kron`` gives the mask.
+        """
+        if self._ci is None:
+            ci = np.zeros((1, 1), np.int64)
+            for g, adj in zip(self.graphs, self.adjs):
+                r, s = ci.shape
+                nl, d = adj.shape
+                ci = (ci[:, None, :, None] * g.n_right
+                      + adj.astype(np.int64)[None, :, None, :]
+                      ).reshape(r * nl, s * d)
+            assert ci.shape == self.data_shape
+            self._ci = ci.astype(np.int32)
+        return self._ci
+
+    def pack(self, w_dense: np.ndarray) -> np.ndarray:
+        """Gather the masked values of a dense (M, K) matrix into Wdata."""
+        if w_dense.shape != (self.m, self.k):
+            raise ValueError(f"expected {(self.m, self.k)}, got {w_dense.shape}")
+        return np.take_along_axis(w_dense, self._col_index(), axis=1)
+
+    def unpack(self, w_data: np.ndarray) -> np.ndarray:
+        """Scatter compact Wdata back to dense (M, K) (zeros off-mask)."""
+        if w_data.shape != self.data_shape:
+            raise ValueError(f"expected {self.data_shape}, got {w_data.shape}")
+        out = np.zeros((self.m, self.k), dtype=w_data.dtype)
+        np.put_along_axis(out, self._col_index(), w_data, axis=1)
+        return out
+
+    # -- transpose --------------------------------------------------------
+    def transpose_layout(self) -> "ChainLayout":
+        """Layout of W^T (every factor transposed). Shares graph samples."""
+        lt = ChainLayout.__new__(ChainLayout)
+        lt.spec = RBGPSpec(
+            factors=tuple(
+                FactorSpec(f.kind, f.n_right, f.n_left, sparsity=f.sparsity)
+                for f in self.spec.factors),
+            seed=self.spec.seed,
+        )
+        lt.structure = self.structure.transpose()
+        lt.graphs = lt.structure.factors
+        lt.adjs = tuple(g.left_adjacency() for g in lt.graphs)
+        lt._ci = None
+        return lt
+
+    def transpose_perm(self) -> np.ndarray:
+        """perm such that WdataT.flat = Wdata.flat[perm] (see
+        :func:`_slot_transpose_perm`)."""
+        return _slot_transpose_perm(
+            self._col_index(), self.transpose_layout()._col_index(),
+            self.m, self.k,
+        )
+
+    # -- memory accounting (paper §4, arbitrary depth) ---------------------
+    def memory_bytes(self, value_bytes: int = 4, index_bytes: int = 4) -> dict:
+        sp = self.spec
+        values = sp.nnz * value_bytes
+        succinct_index = sp.stored_index_edges * index_bytes
+        full_index = sp.nnz * index_bytes  # flat-CSR column indices
+        return {
+            "values": values,
+            "index_succinct": succinct_index,
+            "index_full": full_index,
+            "total": values + succinct_index,
+            "index_compression": full_index / max(succinct_index, 1),
+        }
+
+    def __repr__(self) -> str:  # pragma: no cover
+        sp = self.spec
+        chain = "x".join(
+            f"{f.kind[0]}{f.n_left}:{f.n_right}@{f.sparsity:g}"
+            for f in sp.factors)
+        return (f"ChainLayout({sp.m}x{sp.k} sp={sp.sparsity:.4f} "
+                f"nnz/row={sp.nnz_per_row} [{chain}])")
+
+
+# ---------------------------------------------------------------------------
+# Product algebra: arbitrary Ramanujan/complete factor chains (paper §3-4).
+#
+# RBGP4 is one point in the paper's product-of-k-graphs design space.  The
+# algebra below describes any chain G_1 (x) ... (x) G_K of 'ramanujan' and
+# 'complete' factors; RBGP2 (one sparse outer graph x one dense block),
+# RBGP4, and hierarchical-block patterns (Vooturi et al. 2018: complete
+# outer blocking around a sparse factor) are all instances.  Chains with at
+# most two sparse factors canonicalize onto RBGP4Spec (factor reordering is
+# a perfect-shuffle isomorphism), which is what unlocks the compact storage;
+# deeper chains get the blocked-CSR ChainLayout.
+# ---------------------------------------------------------------------------
+
+#: sentinel sizes/sparsities meaning "let the designer allocate this"
+AUTO = 0
+AUTO_SP = -1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorSpec:
+    """One fully-allocated factor of a product chain.
+
+    ``kind`` is 'ramanujan' or 'complete'; a 'ramanujan' factor with
+    sparsity 0 degenerates to complete (generate_ramanujan returns
+    K_{n_l, n_r} directly).
+    """
+
+    kind: str
+    n_left: int
+    n_right: int
+    sparsity: float = 0.0
+
+    @property
+    def d_left(self) -> int:
+        return round((1.0 - self.sparsity) * self.n_right)
+
+    @property
+    def d_right(self) -> int:
+        return round((1.0 - self.sparsity) * self.n_left)
+
+    @property
+    def n_edges(self) -> int:
+        return self.n_left * self.d_left
+
+    @property
+    def is_sparse(self) -> bool:
+        return self.kind == "ramanujan" and self.sparsity > 0.0
+
+
+def canonicalize_factors(factors) -> tuple[tuple[str, int, int, float], ...]:
+    """Normalize user-facing factor templates to a hashable tuple form.
+
+    Accepted per-factor spellings:
+      * ``"ramanujan"`` / ``"complete"``            (auto size, auto sparsity)
+      * ``(kind, (n_left, n_right))``               (fixed size)
+      * ``(kind, (n_left, n_right), sparsity)``     (fixed size + sparsity)
+      * ``{"kind": ..., "shape": ..., "sparsity": ...}``
+
+    Canonical entries are ``(kind, n_left, n_right, sparsity)`` with
+    ``AUTO`` (0) sizes / ``AUTO_SP`` (-1.0) sparsity for designer-allocated
+    slots — hashable (lru/config-friendly) and JSON round-trippable.
+    """
+    out = []
+    for f in factors:
+        if isinstance(f, str):
+            kind, shape, sp = f, None, None
+        elif isinstance(f, dict):
+            kind = f["kind"]
+            shape = f.get("shape")
+            sp = f.get("sparsity")
+        else:
+            seq = tuple(f)
+            if len(seq) == 4 and isinstance(seq[1], int):  # already canonical
+                kind, shape, sp = seq[0], (seq[1], seq[2]), seq[3]
+                if shape == (AUTO, AUTO):
+                    shape = None
+                if sp == AUTO_SP:
+                    sp = None
+            else:
+                kind = seq[0]
+                shape = seq[1] if len(seq) > 1 else None
+                sp = seq[2] if len(seq) > 2 else None
+        if kind not in ("ramanujan", "complete"):
+            raise ValueError(f"factor kind must be 'ramanujan' or 'complete',"
+                             f" got {kind!r}")
+        if kind == "complete" and sp not in (None, 0.0):
+            raise ValueError("complete factors cannot carry sparsity")
+        nl, nr = (AUTO, AUTO) if shape is None else (int(shape[0]), int(shape[1]))
+        out.append((kind, nl, nr,
+                    AUTO_SP if sp is None else float(sp)))
+    if not out:
+        raise ValueError("need at least one factor")
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class RBGPSpec:
+    """A fully-allocated product chain for an (M, K) weight matrix."""
+
+    factors: tuple[FactorSpec, ...]
+    seed: int = 0
+
+    @property
+    def m(self) -> int:
+        return math.prod(f.n_left for f in self.factors)
+
+    @property
+    def k(self) -> int:
+        return math.prod(f.n_right for f in self.factors)
+
+    @property
+    def sparsity(self) -> float:
+        dens = 1.0
+        for f in self.factors:
+            dens *= 1.0 - f.sparsity
+        return 1.0 - dens
+
+    @property
+    def nnz_per_row(self) -> int:
+        return math.prod(f.d_left for f in self.factors)
+
+    @property
+    def nnz(self) -> int:
+        return self.m * self.nnz_per_row
+
+    @property
+    def stored_index_edges(self) -> int:
+        """Succinct connectivity storage: Sigma |E_i| (paper §4)."""
+        return sum(f.n_edges for f in self.factors)
+
+    def sample(self) -> ProductStructure:
+        """Deterministically sample the factor graphs (chain order).
+
+        Seeds are derived per factor index from ``self.seed``, so every
+        process reconstructs the identical mask from the spec alone (the
+        same no-communication contract as RBGP4Layout).
+        """
+        graphs = []
+        for i, f in enumerate(self.factors):
+            if f.kind == "complete" or f.sparsity == 0.0:
+                graphs.append(complete_bipartite(f.n_left, f.n_right))
+            else:
+                graphs.append(generate_ramanujan(
+                    f.n_left, f.n_right, f.sparsity,
+                    seed=self.seed * 4096 + 2 * i + 1,
+                ))
+        return ProductStructure(tuple(graphs))
+
+    def to_rbgp4(self) -> Optional[RBGP4Spec]:
+        """Canonicalize onto RBGP4Spec when the chain has <= 2 sparse factors.
+
+        Factor reordering is a perfect-shuffle row/column permutation — a
+        graph isomorphism — so connectivity guarantees are preserved; the
+        complete factors collapse into G_r (their product is what matters
+        for the layout).  Returns None when the chain is not expressible
+        (then masks come from :meth:`sample`).
+        """
+        sparse = [f for f in self.factors if f.is_sparse]
+        if len(sparse) > 2:
+            return None
+        r_l = r_r = 1
+        for f in self.factors:
+            if not f.is_sparse:
+                r_l *= f.n_left
+                r_r *= f.n_right
+        g_o = (sparse[0].n_left, sparse[0].n_right) if sparse else (1, 1)
+        sp_o = sparse[0].sparsity if sparse else 0.0
+        g_i = (sparse[1].n_left, sparse[1].n_right) if len(sparse) > 1 else (1, 1)
+        sp_i = sparse[1].sparsity if len(sparse) > 1 else 0.0
+        spec = RBGP4Spec(
+            g_o=g_o, g_r=(r_l, r_r), g_i=g_i, g_b=(1, 1),
+            sp_o=sp_o, sp_i=sp_i, seed=self.seed,
+        )
+        try:
+            spec.validate()
+        except ValueError:
+            return None
+        return spec
+
+
+def rbgp_from_rbgp4(spec: RBGP4Spec) -> RBGPSpec:
+    """The paper-order (o, r, i, b) chain view of an RBGP4Spec."""
+    return RBGPSpec(
+        factors=(
+            FactorSpec("ramanujan", *spec.g_o, sparsity=spec.sp_o),
+            FactorSpec("complete", *spec.g_r),
+            FactorSpec("ramanujan", *spec.g_i, sparsity=spec.sp_i),
+            FactorSpec("complete", *spec.g_b),
+        ),
+        seed=spec.seed,
+    )
+
+
+def _split_pow2(total: int, shares: int, first_extra: bool) -> list[int]:
+    """Split a 2-adic valuation budget into ``shares`` integer parts."""
+    base = total // shares
+    rem = total - base * shares
+    out = [base] * shares
+    for j in range(rem):
+        out[j if first_extra else shares - 1 - j] += 1
+    return out
+
+
+def design_rbgp(
+    m: int,
+    k: int,
+    sparsity: float,
+    *,
+    factors=None,
+    seed: int = 0,
+) -> RBGPSpec:
+    """Allocate an arbitrary Ramanujan/complete factor chain for (m, k).
+
+    ``factors=None`` delegates to the TPU-tuned :func:`design_rbgp4` search
+    and returns its paper-order chain — the existing RBGP4 behavior is the
+    default instance of the algebra.  Otherwise ``factors`` names the chain
+    (see :func:`canonicalize_factors`): fixed sizes are divided out of
+    (m, k) first, remaining power-of-two mass is spread over the auto-sized
+    factors (odd parts and leftover valuation to the first sparse factor —
+    the outer graph carries the irregularity, as in design_rbgp4), and the
+    total sparsity budget ``1 - 2^-k_total`` lands on the sparse factors
+    earliest-first under each factor's 2-adic feasibility cap.
+    """
+    if factors is None:
+        return rbgp_from_rbgp4(design_rbgp4(m, k, sparsity, seed=seed))
+    return _design_rbgp_chain(m, k, sparsity, canonicalize_factors(factors),
+                              seed)
+
+
+@functools.lru_cache(maxsize=4096)
+def _design_rbgp_chain(
+    m: int, k: int, sparsity: float, tmpl: tuple, seed: int
+) -> RBGPSpec:
+    k_total = pow2_sparsity_steps(sparsity)
+
+    # 1. fixed shapes divide out of (m, k)
+    rem_m, rem_k = m, k
+    for kind, nl, nr, _sp in tmpl:
+        if nl != AUTO:
+            if rem_m % nl or rem_k % nr:
+                raise ValueError(
+                    f"fixed factor {kind}({nl}x{nr}) does not divide the "
+                    f"remaining {rem_m}x{rem_k} of {m}x{k}")
+            rem_m //= nl
+            rem_k //= nr
+
+    # 2. auto sizes: spread the power-of-two mass; odd parts + leftover
+    #    valuation go to the first sparse auto factor (else the first auto)
+    auto_idx = [i for i, t in enumerate(tmpl) if t[1] == AUTO]
+    sizes: dict[int, tuple[int, int]] = {}
+    if auto_idx:
+        sparse_auto = [i for i in auto_idx if tmpl[i][0] == "ramanujan"]
+        anchor = sparse_auto[0] if sparse_auto else auto_idx[0]
+        om, vm = rem_m >> _v2(rem_m), _v2(rem_m)
+        ok_, vk = rem_k >> _v2(rem_k), _v2(rem_k)
+        vms = _split_pow2(vm, len(auto_idx), first_extra=True)
+        vks = _split_pow2(vk, len(auto_idx), first_extra=True)
+        # rotate so the anchor gets the first (largest) share + odd part
+        order = sorted(auto_idx, key=lambda i: (i != anchor, i))
+        for slot, i in enumerate(order):
+            nl = 2 ** vms[slot]
+            nr = 2 ** vks[slot]
+            if i == anchor:
+                nl *= om
+                nr *= ok_
+            sizes[i] = (nl, nr)
+    elif rem_m != 1 or rem_k != 1:
+        raise ValueError(
+            f"fixed factor sizes leave {rem_m}x{rem_k} of {m}x{k} unassigned")
+
+    shapes = [(t[1], t[2]) if t[1] != AUTO else sizes[i]
+              for i, t in enumerate(tmpl)]
+
+    # 3. sparsity: explicit steps first, remaining budget earliest-first
+    steps = [0] * len(tmpl)
+    budget = k_total
+    for i, (kind, _nl, _nr, sp) in enumerate(tmpl):
+        if kind == "ramanujan" and sp not in (AUTO_SP, 0.0):
+            steps[i] = pow2_sparsity_steps(sp)
+            budget -= steps[i]
+    if budget < 0:
+        raise ValueError(
+            f"explicit factor sparsities exceed the total budget "
+            f"1-2^-{k_total}")
+    for min_deg in (2, 1):
+        for i, (kind, _nl, _nr, sp) in enumerate(tmpl):
+            if budget == 0:
+                break
+            if kind != "ramanujan" or sp != AUTO_SP:
+                continue
+            nl, nr = shapes[i]
+            cap = _cap_steps(nl, nr, min_deg)
+            take = min(budget, cap - steps[i])
+            if take > 0:
+                steps[i] += take
+                budget -= take
+    if budget > 0:
+        raise ValueError(
+            f"chain {tmpl} cannot carry sparsity {sparsity} at {m}x{k} "
+            f"(insufficient 2-adic capacity on the sparse factors)")
+
+    spec = RBGPSpec(
+        factors=tuple(
+            FactorSpec(kind, *shapes[i],
+                       sparsity=1.0 - 2.0 ** (-steps[i]) if steps[i] else 0.0)
+            for i, (kind, _nl, _nr, _sp) in enumerate(tmpl)
+        ),
+        seed=seed,
+    )
     assert spec.m == m and spec.k == k, (spec.m, spec.k, m, k)
     return spec

@@ -2,13 +2,24 @@
 
 ``rbgp4mm_rhs``, ``rbgp4_sddmm_rhs``, ``rbgp4mm_rhs_stacked`` and
 ``rbgp4_sddmm_rhs_stacked`` replace the Pallas kernels of the same names in
-``repro/kernels/rbgp4mm.py``; ``ops.RBGP4Linear`` and
-``ops.RBGP4LinearStacked`` are the differentiable projections built on
-them.  The other Pallas kernels of the reference come with later slices
+``repro/kernels/rbgp4mm.py``, ``chainmm_rhs`` and ``chain_sddmm_rhs`` those
+of ``repro/kernels/chainmm.py``; ``ops.RBGP4Linear``,
+``ops.RBGP4LinearStacked`` and ``ops.ChainLinear`` are the differentiable
+projections built on them.  The other Pallas kernels of the reference come with later slices
 (see ROADMAP.md).
 """
 from . import build, ref
-from .ops import RBGP4Linear, RBGP4LinearStacked
+from .chainmm import (
+    ChainTables,
+    ChainTransposeTables,
+    chain_sddmm_rhs,
+    chain_sddmm_rhs_reference,
+    chain_tables,
+    chain_transpose_tables,
+    chainmm_rhs,
+    chainmm_rhs_reference,
+)
+from .ops import ChainLinear, RBGP4Linear, RBGP4LinearStacked
 from .rbgp4mm import (
     EPILOGUE_ACTS,
     KernelDims,
@@ -39,6 +50,15 @@ __all__ = [
     "rbgp4mm_rhs_stacked_reference",
     "rbgp4_sddmm_rhs_stacked",
     "rbgp4_sddmm_rhs_stacked_reference",
+    "ChainTables",
+    "ChainTransposeTables",
+    "ChainLinear",
+    "chain_tables",
+    "chain_transpose_tables",
+    "chainmm_rhs",
+    "chainmm_rhs_reference",
+    "chain_sddmm_rhs",
+    "chain_sddmm_rhs_reference",
     "build",
     "ref",
 ]

@@ -31,6 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {
     "rbgp4mm_rhs": "rbgp4mm_rhs.cu",
     "rbgp4_sddmm_rhs": "rbgp4_sddmm_rhs.cu",
+    "chainmm_rhs": "chainmm_rhs.cu",
+    "chain_sddmm_rhs": "chain_sddmm_rhs.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,5 +1,6 @@
-"""The differentiable compact projections: ``RBGP4Linear`` and, for the
-stacked experts of a MoE layer, ``RBGP4LinearStacked``.
+"""The differentiable sparse projections: ``RBGP4Linear``, for the stacked
+experts of a MoE layer ``RBGP4LinearStacked``, and for deep-chain storage
+``ChainLinear``.
 
 The port of ``repro/kernels/ops.py`` ``RBGP4Op._build_linear_rhs``: the
 token-major ``y = act(x @ W_s^T + b) + r`` with its transpose-free
@@ -19,6 +20,12 @@ three products for all experts at once, each one launch of the stacked
 kernels (``rbgp4mm_rhs_stacked``, ``rbgp4_sddmm_rhs_stacked``), with
 db = gz.sum(1), no residual, and dX over the values permuted per expert.
 
+``ChainLinear`` is ``repro/kernels/chainmm.py`` ``ChainOp``'s custom VJP:
+y = ``chainmm_rhs``; dW = ``chain_sddmm_rhs(g, x)``; dX = ``chainmm_rhs``
+on the transposed layout's tables over the permuted values.  It has no
+epilogue: ``sparse_linear`` adds bias, activation and residual in torch
+after it, and autograd differentiates them.
+
 Unlike the reference's ``jax.custom_vjp``, a gradient is computed only
 for the inputs that need one.  The layer's tables (forward and
 transposed) are built once by the owning module and passed in.
@@ -29,11 +36,13 @@ from typing import Optional
 
 import torch
 
+from .chainmm import (ChainTables, ChainTransposeTables, chain_sddmm_rhs,
+                      chainmm_rhs)
 from .rbgp4mm import (EPILOGUE_ACTS, KernelTables, TransposeTables,
                       rbgp4_sddmm_rhs, rbgp4_sddmm_rhs_stacked, rbgp4mm_rhs,
                       rbgp4mm_rhs_stacked)
 
-__all__ = ["RBGP4Linear", "RBGP4LinearStacked", "act_bwd"]
+__all__ = ["RBGP4Linear", "RBGP4LinearStacked", "ChainLinear", "act_bwd"]
 
 
 def act_bwd(fuse: str, z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -130,3 +139,33 @@ class RBGP4LinearStacked(torch.autograd.Function):
             dx = rbgp4mm_rhs_stacked(t.tables, gz,
                                      t.values(w_data)).to(x3.dtype)
         return dx, dw, db, None, None, None
+
+
+class ChainLinear(torch.autograd.Function):
+    """``ChainLinear.apply(x2, w_data, tables, tables_t)`` -> y (N, M) for
+    x2 (N, K) and chain values w_data (M, nnz_row).  ``tables_t`` (the
+    transposed layout's tables and permutation) is needed only when x2
+    needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x2: torch.Tensor, w_data: torch.Tensor,
+                tables: ChainTables,
+                tables_t: Optional[ChainTransposeTables]) -> torch.Tensor:
+        if tables_t is None and ctx.needs_input_grad[0]:
+            raise ValueError("dX needs the transposed layout's tables")
+        ctx.save_for_backward(x2, w_data)
+        ctx.tables, ctx.tables_t = tables, tables_t
+        return chainmm_rhs(tables, x2, w_data)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x2, w_data = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        g = g.to(x2.dtype).contiguous()
+        dw = (chain_sddmm_rhs(ctx.tables, g, x2).to(w_data.dtype)
+              if need_w else None)
+        dx = None
+        if need_x:
+            t = ctx.tables_t
+            dx = chainmm_rhs(t.tables, g, t.values(w_data)).to(x2.dtype)
+        return dx, dw, None, None

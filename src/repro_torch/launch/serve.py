@@ -3,10 +3,15 @@
 Runs on the card unless ``--device cpu`` is given; without CUDA and without
 that flag it exits with an error naming the flag.
 
+``--plan plan.json`` (a ``SparsityPlan`` written by ``SparsityPlan.save``,
+by either package) overrides ``--pattern``/``--sparsity``.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --mixed --requests 16 --prompt-len 512 --gen 64 --page-size 16
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --plan plan.json
 """
 from __future__ import annotations
 
@@ -44,6 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "running requests (0: pool capacity)")
     ap.add_argument("--pattern", default="rbgp4")
     ap.add_argument("--sparsity", type=float, default=0.75)
+    ap.add_argument("--plan", default="",
+                    help="SparsityPlan JSON; overrides --pattern/--sparsity "
+                         "and is matched per module path")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default="",
@@ -65,7 +73,8 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
     per step (kernel durations from torch.profiler's CUDA activity)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import rbgp4mm_rhs, rbgp4mm_rhs_stacked
+    from repro_torch.kernels import (chainmm_rhs, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_stacked)
     from repro_torch.serve import ContinuousEngine
 
     reqs = workload[:max_slots]
@@ -86,7 +95,8 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
         return time.perf_counter() - t0
 
     wall_plain = timed_steps()
-    launches0 = rbgp4mm_rhs.launches, rbgp4mm_rhs_stacked.launches
+    launches0 = (rbgp4mm_rhs.launches, rbgp4mm_rhs_stacked.launches,
+                 chainmm_rhs.launches)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = timed_steps()
@@ -100,6 +110,7 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
                   if "rbgp4mm_rhs_stacked" in k)
     sparse = sum(v for k, v in kernels.items() if "rbgp4mm_rhs" in k) \
         - stacked
+    chain = sum(v for k, v in kernels.items() if "chainmm_rhs" in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     return {
         "steps": n_steps, "rows": len(reqs),
@@ -116,6 +127,9 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
             stacked / n_steps if busy else None,
         "rbgp4mm_rhs_stacked_launches_per_step":
             (rbgp4mm_rhs_stacked.launches - launches0[1]) / n_steps,
+        "chainmm_rhs_ms_per_step": chain / n_steps if busy else None,
+        "chainmm_rhs_launches_per_step":
+            (chainmm_rhs.launches - launches0[2]) / n_steps,
         "top_kernels_ms_per_step": {k: v / n_steps for k, v in top},
     }
 
@@ -127,6 +141,7 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.models import LMModel
     from repro_torch.serve import RequestError, SamplingParams, make_engine
+    from repro_torch.sparsity import SparsityPlan
 
     try:
         device = resolve_device(args.device)
@@ -136,12 +151,17 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
-    if args.sparsity > 0:
+    if args.plan:
+        cfg = apply_sparsity(cfg, plan=SparsityPlan.load(args.plan))
+    elif args.sparsity > 0:
         cfg = apply_sparsity(cfg, pattern=args.pattern,
                              sparsity=args.sparsity, min_dim=64)
     model = LMModel(cfg, device=device, seed=args.seed)
-    print(f"arch={cfg.name} params={model.n_params():,} "
-          f"pattern={cfg.sparsity.pattern}@{cfg.sparsity.sparsity} "
+    plan = cfg.sparsity_rules
+    sp_desc = (f"plan={plan.fingerprint()} ({len(plan.rules)} rules)"
+               if cfg.plan is not None else
+               f"pattern={cfg.sparsity.pattern}@{cfg.sparsity.sparsity}")
+    print(f"arch={cfg.name} params={model.n_params():,} {sp_desc} "
           f"engine={args.engine} device={device}")
 
     n_req = args.requests or args.batch
@@ -212,7 +232,10 @@ def main(argv=None):
                   f"rbgp4mm_rhs_stacked "
                   f"{prof['rbgp4mm_rhs_stacked_ms_per_step']:.2f} ms/step "
                   f"over "
-                  f"{prof['rbgp4mm_rhs_stacked_launches_per_step']:.0f}")
+                  f"{prof['rbgp4mm_rhs_stacked_launches_per_step']:.0f}, "
+                  f"chainmm_rhs {prof['chainmm_rhs_ms_per_step']:.2f} "
+                  f"ms/step over "
+                  f"{prof['chainmm_rhs_launches_per_step']:.0f}")
             for name, ms in prof["top_kernels_ms_per_step"].items():
                 print(f"  {ms:8.3f} ms/step  {name[:100]}")
     if args.json:

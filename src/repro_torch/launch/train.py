@@ -10,13 +10,18 @@ fault-tolerance contract:
   * ``--simulate-failure N`` stops the process at step N with exit code
     42 (a drill); rerunning the same command resumes and completes;
   * ``--global-batch`` keeps that global batch through gradient
-    accumulation over microbatches of ``--batch``.
+    accumulation over microbatches of ``--batch``;
+  * ``--plan plan.json`` (a ``SparsityPlan``) overrides ``--pattern``/
+    ``--sparsity``; its fingerprint is stamped into every checkpoint, and
+    a resume under another plan is refused.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
       --steps 20 --batch 4 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
       --steps 10 --batch 8 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
+      --steps 6 --batch 2 --seq 16 --plan plan.json
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch.configs import (TrainConfig, apply_sparsity, get_config,
                                  reduce_config)
 from repro_torch.data import Prefetcher, TokenStream
 from repro_torch.models import LMModel
+from repro_torch.sparsity import SparsityPlan
 from repro_torch.train import Trainer
 
 
@@ -36,7 +42,9 @@ def build(args):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
-    if args.sparsity > 0:
+    if args.plan:
+        cfg = apply_sparsity(cfg, plan=SparsityPlan.load(args.plan))
+    elif args.sparsity > 0:
         cfg = apply_sparsity(cfg, pattern=args.pattern,
                              sparsity=args.sparsity, min_dim=args.min_dim)
     model = LMModel(cfg, device=args.device, seed=args.seed)
@@ -78,6 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pattern", default="rbgp4")
     ap.add_argument("--sparsity", type=float, default=0.75)
     ap.add_argument("--min-dim", type=int, default=64)
+    ap.add_argument("--plan", default="",
+                    help="SparsityPlan JSON; overrides --pattern/--sparsity. "
+                         "Its fingerprint is stamped into checkpoints and a "
+                         "restore under another plan is refused")
     ap.add_argument("--checkpoint-every", type=int, default=25)
     ap.add_argument("--checkpoint-dir",
                     default=os.path.join(tempfile.gettempdir(),
@@ -91,12 +103,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg, model, tcfg, data = build(args)
+    plan = cfg.sparsity_rules
+    sp_desc = (f"plan={plan.fingerprint()} ({len(plan.rules)} rules)"
+               if cfg.plan is not None else
+               f"pattern={cfg.sparsity.pattern}@{cfg.sparsity.sparsity}")
     print(f"arch={cfg.name} params={model.n_params():,} "
-          f"device={model.device} micro={tcfg.microbatches} "
-          f"pattern={cfg.sparsity.pattern}@{cfg.sparsity.sparsity}",
+          f"device={model.device} micro={tcfg.microbatches} {sp_desc}",
           flush=True)
 
-    trainer = Trainer(model, tcfg, data)
+    trainer = Trainer(model, tcfg, data,
+                      plan_fingerprint=plan.fingerprint())
     resumed = trainer.try_resume()
     if resumed is not None:
         print(f"auto-resumed from checkpoint at step {resumed}", flush=True)

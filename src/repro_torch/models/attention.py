@@ -151,7 +151,7 @@ class GQAttention(nn.Module):
         self.window = window
         self.name = name
         d, hd = cfg.d_model, cfg.head_dim_
-        sp = cfg.sparsity
+        sp = cfg.sparsity_rules
         kw = dict(kw, device=device)
         self.wq = SparseLinear(d, cfg.n_heads * hd, sp, name=f"{name}.wq", **kw)
         self.wk = SparseLinear(d, cfg.n_kv_heads * hd, sp, name=f"{name}.wk",

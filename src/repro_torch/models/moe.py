@@ -22,7 +22,7 @@ row routes as one with eight).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -30,7 +30,8 @@ from torch import nn
 from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels import EPILOGUE_ACTS, KernelTables, TransposeTables
 from repro_torch.sparsity import (CompactWeight, DenseWeight, SparsityConfig,
-                                  make_pattern, sparse_linear_batched)
+                                  SparsityPlan, make_pattern,
+                                  sparse_linear_batched)
 from .mlp import ACTS, GatedMLP
 
 __all__ = ["StackedExperts", "MoELayer"]
@@ -50,13 +51,28 @@ class StackedExperts(nn.Module):
     """
 
     def __init__(self, n_experts: int, d_model: int, d_expert: int,
-                 sparsity: Optional[SparsityConfig] = None,
-                 act: str = "silu", *, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None,
+                 sparsity: Optional[Union[SparsityConfig,
+                                          SparsityPlan]] = None,
+                 act: str = "silu", *, name: str = "moe",
+                 dtype=torch.float32, param_dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.act = ACTS[act]
         self.fuse = act if act in EPILOGUE_ACTS else None
+        if isinstance(sparsity, SparsityPlan):
+            # both projections resolve at {name}.experts.in / .out and must
+            # agree: the experts share one spec, as in the reference
+            path_in, path_out = f"{name}.experts.in", f"{name}.experts.out"
+            spec_in = sparsity.resolve(path_in, d_expert, d_model)
+            spec_out = sparsity.resolve(path_out, d_model, d_expert)
+            if spec_in != spec_out and (spec_in.is_sparse
+                                        or spec_out.is_sparse):
+                raise ValueError(
+                    f"StackedExperts needs one spec for both expert "
+                    f"projections, but the plan resolves {path_in!r} -> "
+                    f"{spec_in} and {path_out!r} -> {spec_out}; write rules "
+                    f"matching both paths identically")
+            sparsity = spec_in.to_config()
         sparsity = sparsity or SparsityConfig()
         applies = (sparsity.applies_to(d_expert, d_model)
                    and sparsity.pattern != "dense")
@@ -64,7 +80,8 @@ class StackedExperts(nn.Module):
             raise NotImplementedError(
                 f"StackedExperts got sparsity pattern {sparsity.pattern!r}; "
                 f"stacked expert weights support only 'rbgp4' (one mask "
-                f"shared across the expert dim) or 'dense'")
+                f"shared across the expert dim) or 'dense'; chains have no "
+                f"stacked storage")
         if applies and sparsity.backend != "auto":
             raise NotImplementedError(
                 f"sparsity backend {sparsity.backend!r} is not yet ported; "
@@ -124,7 +141,8 @@ class MoELayer(nn.Module):
     """Routed experts (+ optional shared experts) replacing the MLP."""
 
     def __init__(self, d_model: int, moe: MoEConfig,
-                 sparsity: Optional[SparsityConfig] = None,
+                 sparsity: Optional[Union[SparsityConfig,
+                                          SparsityPlan]] = None,
                  act: str = "silu", *, name: str = "moe", dtype=torch.float32,
                  param_dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -141,7 +159,7 @@ class MoELayer(nn.Module):
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device,
                   generator=generator)
         self.experts = StackedExperts(moe.n_experts, d_model, moe.d_expert,
-                                      sparsity, act, **kw)
+                                      sparsity, act, name=name, **kw)
         self.shared: Optional[GatedMLP] = None
         if moe.n_shared:
             self.shared = GatedMLP(d_model, moe.d_expert * moe.n_shared,

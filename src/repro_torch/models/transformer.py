@@ -6,8 +6,10 @@ far ('attn', 'swa'), each with a gated MLP or, on the MoE cadence of
 ``lax.scan`` with stacked ``(T, ...)`` parameters; here every layer keeps
 its own module, and ``jax_stack_split`` says how the reference grouped the
 layers, which the weight bridge needs to split the stacked leaves.
-Compact-storage layers keep the plan's seed, as in the reference, so all
-layers share one layout per shape.  In training (``train=True`` with
+Each layer resolves its projections against the config's plan with the
+reference's per-layer seed offset (``offset_masked_seeds``): compact- and
+chain-storage rules keep their seed, as in the reference, so all layers
+share one layout per shape.  In training (``train=True`` with
 gradients on and ``cfg.remat``) each layer runs under
 ``torch.utils.checkpoint`` and its forward is recomputed in the backward,
 as the reference's ``jax.checkpoint`` of each scanned period.
@@ -22,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sparsity import SparsityPlan
 from .attention import GQAttention, init_cache_gqa
 from .common import RMSNorm
 from .mlp import GatedMLP
@@ -32,23 +35,59 @@ __all__ = ["DecoderLayer", "Stack", "jax_stack_split", "PORTED_KINDS"]
 PORTED_KINDS = ("attn", "swa")
 
 
+def _layer_rules(cfg: ModelConfig, idx: int) -> SparsityPlan:
+    """Layer ``idx``'s plan: masked-storage rules get a per-layer seed so
+    every layer samples its own graphs; compact- and chain-storage rules
+    keep their seed (the reference's rule, bit for bit)."""
+    return cfg.sparsity_rules.offset_masked_seeds(1000 * (idx + 1))
+
+
+def _layer_paths(cfg: ModelConfig, idx: int) -> list[tuple[str, int, int]]:
+    """(path, m, k) of every projection layer ``idx`` builds, sorted by
+    path: the shapes the reference records for its plan signature."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    mixer = f"l{idx}.{cfg.layer_kind(idx)}"
+    out = [(f"{mixer}.wq", cfg.n_heads * hd, d),
+           (f"{mixer}.wk", cfg.n_kv_heads * hd, d),
+           (f"{mixer}.wv", cfg.n_kv_heads * hd, d),
+           (f"{mixer}.wo", d, cfg.n_heads * hd)]
+
+    def mlp(name, width):
+        return [(f"{name}.gate", width, d), (f"{name}.up", width, d),
+                (f"{name}.down", d, width)]
+
+    if cfg.is_moe_layer(idx):
+        moe = cfg.moe
+        out += [(f"l{idx}.moe.experts.in", moe.d_expert, d),
+                (f"l{idx}.moe.experts.out", d, moe.d_expert)]
+        if moe.n_shared:
+            out += mlp(f"l{idx}.moe.shared", moe.d_expert * moe.n_shared)
+    else:
+        out += mlp(f"l{idx}.mlp", cfg.d_ff)
+    return sorted(out)
+
+
 def jax_stack_split(cfg: ModelConfig) -> tuple[int, int, int, int]:
     """(n_head, period, n_full, tail_start) of the reference's ``Stack``:
     layers [0, n_head) run alone, then ``n_full`` scanned periods of
     ``period`` layers, then layers [tail_start, n_layers) alone.  The
     period is the lcm of the layer pattern and the MoE cadence, and a
-    layer's scan signature is its kind and whether it is a MoE layer (the
-    reference's rule without per-layer plans, which are not ported)."""
+    layer's scan signature is its kind, whether it is a MoE layer and,
+    under an explicit plan, the resolved specs of its projections."""
     n = cfg.n_layers
     period = len(cfg.layer_pattern)
     if cfg.moe is not None:
         period = math.lcm(period, cfg.moe.every_n_layers)
 
     def signature(i):
-        return cfg.layer_kind(i), cfg.is_moe_layer(i)
+        plan_sig = (_layer_rules(cfg, i).signature(_layer_paths(cfg, i))
+                    if cfg.plan is not None else None)
+        return cfg.layer_kind(i), cfg.is_moe_layer(i), plan_sig
+
+    sigs = [signature(i) for i in range(n)]
 
     def periodic_from(h):
-        return all(signature(i) == signature(h + (i - h) % period)
+        return all(sigs[i] == sigs[h + (i - h) % period]
                    for i in range(h, n))
 
     h = 0
@@ -75,14 +114,15 @@ class DecoderLayer(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, cfg.rmsnorm_eps, device=device)
         self.norm2 = RMSNorm(cfg.d_model, cfg.rmsnorm_eps, device=device)
         window = cfg.sliding_window if self.kind == "swa" else 0
-        self.mixer = GQAttention(cfg, window=window,
+        lcfg = cfg.with_(plan=_layer_rules(cfg, idx))
+        self.mixer = GQAttention(lcfg, window=window,
                                  name=f"l{idx}.{self.kind}", **kw)
         self.is_moe = cfg.is_moe_layer(idx)
         if self.is_moe:
-            self.ffn = MoELayer(cfg.d_model, cfg.moe, cfg.sparsity,
+            self.ffn = MoELayer(cfg.d_model, cfg.moe, lcfg.sparsity_rules,
                                 cfg.hidden_act, name=f"l{idx}.moe", **kw)
         else:
-            self.ffn = GatedMLP(cfg.d_model, cfg.d_ff, cfg.sparsity,
+            self.ffn = GatedMLP(cfg.d_model, cfg.d_ff, lcfg.sparsity_rules,
                                 cfg.hidden_act, name=f"l{idx}.mlp", **kw)
 
     def forward(self, x, positions, *, cache=None, block_tables=None,

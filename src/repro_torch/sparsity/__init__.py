@@ -1,12 +1,18 @@
-"""Sparsity integration: pattern registry, weight containers, SparseLinear."""
-from .api import (CompactWeight, DenseWeight, SparseWeight, sparse_linear,
-                  sparse_linear_batched)
+"""Sparsity integration: patterns, plans, weight containers, SparseLinear."""
+from .api import (ChainWeight, CompactWeight, DenseWeight, SparseWeight,
+                  dense_weight, sparse_linear, sparse_linear_batched)
+from .chain import chain_storage_bytes
 from .layer import SparseLinear
 from .patterns import PATTERNS, PatternInstance, SparsityConfig, make_pattern
+from .plan import (PatternSpec, PlanRule, SparsityPlan, lower_config,
+                   storage_kind)
 
 __all__ = [
     "SparsityConfig", "PatternInstance", "make_pattern", "PATTERNS",
-    "SparseWeight", "DenseWeight", "CompactWeight", "sparse_linear",
-    "sparse_linear_batched",
+    "PatternSpec", "PlanRule", "SparsityPlan", "lower_config",
+    "storage_kind",
+    "SparseWeight", "DenseWeight", "CompactWeight", "ChainWeight",
+    "sparse_linear", "sparse_linear_batched", "dense_weight",
+    "chain_storage_bytes",
     "SparseLinear",
 ]

@@ -1,7 +1,6 @@
 """Weight containers and the one dispatch point of every projection.
 
-The port of ``repro/sparsity/api.py`` for the two storages the serving
-path uses:
+The port of ``repro/sparsity/api.py`` for the storages ported so far:
 
   ``DenseWeight``    plain (M, K) values: ``x @ w.T`` with ``torch.matmul``
                      (the reference computes it outside Pallas too).
@@ -13,6 +12,11 @@ path uses:
                      goes through ``RBGP4Linear`` (dW and dX on the
                      kernels too); without one it calls the kernel
                      directly, so serving stores no pre-activation.
+  ``ChainWeight``    deep-chain (M, nnz_row) values + their layout's table
+                     (``sparsity/chain.py``): the ``chainmm_rhs`` kernel,
+                     through ``ChainLinear`` where a gradient is asked
+                     for; no fused epilogue: bias, activation and residual
+                     follow in torch, as in the reference.
 
 ``sparse_linear_batched`` is the stacked-expert projection of a MoE layer,
 x (E, ..., K) -> (E, ..., M): a ``CompactWeight`` with stacked
@@ -22,8 +26,9 @@ x (E, ..., K) -> (E, ..., M): a ``CompactWeight`` with stacked
 with stacked ``w`` (E, M, K) is the dense path for shapes the pattern does
 not apply to.
 
-The reference's masked, chain and int8 storages and its backend registry
-come with later slices.
+``dense_weight`` materializes the dense (M, K) matrix of any of them.  The
+reference's masked and int8 storages and its backend registry come with
+later slices.
 """
 from __future__ import annotations
 
@@ -32,12 +37,15 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch.kernels import (EPILOGUE_ACTS, KernelTables, RBGP4Linear,
-                                 RBGP4LinearStacked, TransposeTables,
-                                 rbgp4mm_rhs, rbgp4mm_rhs_stacked)
+from repro_torch.kernels import (EPILOGUE_ACTS, ChainLinear, KernelTables,
+                                 RBGP4Linear, RBGP4LinearStacked,
+                                 TransposeTables, chainmm_rhs, rbgp4mm_rhs,
+                                 rbgp4mm_rhs_stacked)
 
-__all__ = ["DenseWeight", "CompactWeight", "SparseWeight", "sparse_linear",
-           "sparse_linear_batched"]
+from .chain import ChainWeight
+
+__all__ = ["DenseWeight", "CompactWeight", "ChainWeight", "SparseWeight",
+           "sparse_linear", "sparse_linear_batched", "dense_weight"]
 
 
 @dataclasses.dataclass
@@ -63,7 +71,7 @@ class CompactWeight:
     tables_t: Optional[Callable[[], TransposeTables]] = None
 
 
-SparseWeight = Union[DenseWeight, CompactWeight]
+SparseWeight = Union[DenseWeight, CompactWeight, ChainWeight]
 
 
 def _check_fuse(fuse: Optional[str]) -> None:
@@ -104,9 +112,21 @@ def sparse_linear(weight: SparseWeight, x: torch.Tensor, *, dtype=None,
             y = rbgp4mm_rhs(weight.tables, x2, w, bias=b, act=fuse,
                             residual=r2)
         return y.reshape(*lead, dims.m)
-    if not isinstance(weight, DenseWeight):
+    if isinstance(weight, ChainWeight):
+        t = weight.tables
+        x2 = xc.reshape(-1, t.k).contiguous()
+        w = weight.w_data.to(dtype)
+        if _needs_grad(x2, w):
+            tables_t = (weight.tables_t() if x2.requires_grad
+                        and weight.tables_t is not None else None)
+            y = ChainLinear.apply(x2, w, t, tables_t)
+        else:
+            y = chainmm_rhs(t, x2, w)
+        y = y.reshape(*xc.shape[:-1], t.m)
+    elif isinstance(weight, DenseWeight):
+        y = xc @ weight.w.to(dtype).T
+    else:
         raise TypeError(f"not a weight container: {type(weight).__name__}")
-    y = xc @ weight.w.to(dtype).T
     if b is not None:
         y = y + b
     if fuse is not None:
@@ -147,3 +167,36 @@ def sparse_linear_batched(weight: SparseWeight, x: torch.Tensor, *,
     if fuse is not None:
         y = EPILOGUE_ACTS[fuse](y)
     return y.reshape(*xc.shape[:-1], y.shape[-1])
+
+
+def _unpack(col0: torch.Tensor, G: int, C: int, w_data: torch.Tensor,
+            k: int) -> torch.Tensor:
+    """Scatter compact values (..., M, nnz_row) to dense (..., M, K) through
+    a ``col0`` table, whose rows ``rg*G + g`` read columns
+    ``col0[rg, s] + c`` at slot ``s*C + c`` (RBGP4 and chain tables
+    alike)."""
+    c = torch.arange(C, dtype=torch.int64, device=col0.device)
+    ci = (col0.to(torch.int64)[:, None, :, None] + c).expand(
+        -1, G, -1, -1).reshape(w_data.shape[-2:])
+    lead = w_data.shape[:-2]
+    dense = torch.zeros((*lead, w_data.shape[-2], k), dtype=w_data.dtype,
+                        device=w_data.device)
+    return dense.scatter_(-1, ci.to(w_data.device).expand(*lead, -1, -1),
+                          w_data)
+
+
+def dense_weight(weight: SparseWeight, dtype=None) -> torch.Tensor:
+    """The effective dense (M, K) matrix ((E, M, K) for stacked experts),
+    zeros off the mask (tests, export)."""
+    if isinstance(weight, DenseWeight):
+        w = weight.w
+    elif isinstance(weight, CompactWeight):
+        d = weight.tables.dims
+        w = _unpack(weight.tables.col0, d.group_rows, d.chunk_cols,
+                    weight.w_data, d.k)
+    elif isinstance(weight, ChainWeight):
+        t = weight.tables
+        w = _unpack(t.col0, t.group_rows, t.chunk_cols, weight.w_data, t.k)
+    else:
+        raise TypeError(f"not a weight container: {type(weight).__name__}")
+    return w.to(dtype) if dtype is not None else w

@@ -1,9 +1,13 @@
-"""Sparsity pattern registry: ``dense`` and ``rbgp4``.
+"""Sparsity pattern registry: ``dense``, ``rbgp4`` and ``rbgp``.
 
 The port of ``repro/sparsity/patterns.py``.  Masks are deterministic in
 (shape, sparsity, seed), as in the reference, so a layer built here has the
-reference's mask.  The other patterns of the reference (``unstructured``,
-``block``, ``rbgp`` chains) are not yet ported and raise.
+reference's mask.  ``rbgp`` is the general product chain
+(``SparsityConfig.factors`` names any sequence of Ramanujan and complete
+factors); a chain with at most two Ramanujan factors canonicalizes onto an
+RBGP4 layout (compact storage), a deeper one gets a ``ChainLayout`` (chain
+storage).  The reference's ``unstructured`` and ``block`` patterns are not
+yet ported and raise.
 """
 from __future__ import annotations
 
@@ -11,35 +15,55 @@ import dataclasses
 import functools
 from typing import Optional
 
-from repro_torch.core import RBGP4Layout, RBGP4Spec, design_rbgp4
+from repro_torch.core import (ChainLayout, RBGP4Layout, RBGP4Spec, RBGPSpec,
+                              canonicalize_factors, design_rbgp,
+                              design_rbgp4)
 
 __all__ = ["SparsityConfig", "PatternInstance", "make_pattern", "PATTERNS",
            "NOT_YET_PORTED"]
 
 #: reference patterns whose port comes with a later slice
-NOT_YET_PORTED = ("unstructured", "block", "rbgp")
+NOT_YET_PORTED = ("unstructured", "block")
 
 
 @dataclasses.dataclass(frozen=True)
 class SparsityConfig:
     """Per-model sparsity settings.
 
-    pattern:  'dense' or 'rbgp4'.
-    sparsity: target fraction of zeros (rbgp4 requires 1 - 2^-k).
-    backend:  'auto' — compact storage executed by the ``rbgp4mm_rhs``
-              kernel (on the card) or its plain version (on the CPU).  The
-              reference's masked and chain backends are not yet ported.
+    pattern:  'dense', 'rbgp4' or 'rbgp'.
+    sparsity: target fraction of zeros (1 - 2^-k).
+    backend:  'auto' — compact storage for a pattern with an RBGP4 layout,
+              chain storage for a deeper ``rbgp`` chain, each executed by
+              its hand-written kernels (on the card) or their plain
+              versions (on the CPU).  The reference's masked backends are
+              not yet ported.
+    block:    (bh, bw) of the reference's 'block' pattern (not yet ported);
+              carried so that plan JSON and fingerprints match.
     min_dim:  skip sparsification for matrices with any dim below this.
-
-    The reference's ``block``, ``factors`` and ``quant`` fields come with
-    the patterns and storages that read them.
+    factors:  'rbgp' only: the factor-chain template (see
+              ``repro_torch.core.canonicalize_factors``); None is the
+              default RBGP4 chain.
+    quant:    value storage dtype; only None (full precision) is ported.
+              Carried so that plan JSON and fingerprints match the
+              reference's; 'int8' is refused as not yet ported.
     """
 
     pattern: str = "dense"
     sparsity: float = 0.0
     backend: str = "auto"
+    block: tuple[int, int] = (4, 4)
     seed: int = 0
     min_dim: int = 256
+    factors: Optional[tuple] = None
+    quant: Optional[str] = None
+
+    def __post_init__(self):
+        if self.quant not in (None, "int8"):
+            raise ValueError(
+                f"quant={self.quant!r} (supported: None, 'int8')")
+        if self.quant is not None:
+            raise NotImplementedError(
+                f"quant={self.quant!r} storage is not yet ported")
 
     def applies_to(self, m: int, k: int) -> bool:
         if self.pattern == "dense" or self.sparsity <= 0.0:
@@ -55,8 +79,12 @@ class PatternInstance:
     m: int
     k: int
     sparsity: float
-    layout: Optional[RBGP4Layout] = None
+    layout: Optional[RBGP4Layout] = None  # rbgp4 / rbgp4-expressible chains
     nnz: int = 0
+    chain: Optional[RBGPSpec] = None      # the chain spec of an 'rbgp' pattern
+    # blocked-CSR layout of a chain with more than two Ramanujan factors
+    # (chain storage); None for every other pattern
+    chain_layout: Optional[ChainLayout] = None
 
 
 def _dense(m, k, sparsity, cfg):
@@ -79,9 +107,38 @@ def _rbgp4(m, k, sparsity, cfg):
     )
 
 
+@functools.lru_cache(maxsize=1024)
+def _chain_layout_for(spec: RBGPSpec) -> ChainLayout:
+    """Memoized chain layout construction: every layer with the same spec
+    shares one sample (and one device-side table)."""
+    return ChainLayout(spec)
+
+
+def _rbgp(m, k, sparsity, cfg):
+    """Generalized product chain.  Templates with at most two Ramanujan
+    factors canonicalize onto an RBGP4 layout; deeper chains get a
+    ``ChainLayout``.  The decision is template-level, as the reference's,
+    so a plan knows the storage kind without shapes."""
+    spec = design_rbgp(m, k, sparsity, factors=cfg.factors, seed=cfg.seed)
+    if cfg.factors is None:
+        n_ram = 2
+    else:
+        n_ram = sum(1 for t in canonicalize_factors(cfg.factors)
+                    if t[0] == "ramanujan")
+    r4 = spec.to_rbgp4() if n_ram <= 2 else None
+    if r4 is not None:
+        return PatternInstance(name="rbgp", m=m, k=k, sparsity=spec.sparsity,
+                               layout=_layout_for(r4), nnz=spec.nnz,
+                               chain=spec)
+    return PatternInstance(name="rbgp", m=m, k=k, sparsity=spec.sparsity,
+                           nnz=spec.nnz, chain=spec,
+                           chain_layout=_chain_layout_for(spec))
+
+
 PATTERNS = {
     "dense": _dense,
     "rbgp4": _rbgp4,
+    "rbgp": _rbgp,
 }
 
 

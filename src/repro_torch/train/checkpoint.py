@@ -10,10 +10,15 @@ state (nested dicts of tensors and ints, flattened to ``a/b/c`` keys):
     so the train loop does not stall on disk (the device-to-host copy
     still happens in ``save``: the snapshot is consistent);
   * ``latest_step`` / ``restore`` implement auto-resume after a restart;
-  * a retention policy keeps the newest ``keep`` checkpoints.
+  * a retention policy keeps the newest ``keep`` checkpoints;
+  * ``plan_fingerprint`` (``SparsityPlan.fingerprint()``) is stamped into
+    every snapshot's metadata, and ``restore`` refuses a snapshot stamped
+    under another plan: masks are rebuilt from the plan, so the same
+    values under another plan are another network (an RBGP4 checkpoint
+    restored into a chain model would scramble its values silently).
+    Snapshots or managers without a stamp skip the check.
 
-Stamping and checking a sparsity-plan fingerprint, and reading the
-reference's own snapshots, come with the port of ``SparsityPlan``.
+Reading the reference's own snapshots is not yet ported.
 """
 from __future__ import annotations
 
@@ -77,9 +82,11 @@ def load_tree(path: str, like: dict) -> dict[str, np.ndarray]:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3,
+                 plan_fingerprint: Optional[str] = None):
         self.dir = directory
         self.keep = keep
+        self.plan_fingerprint = plan_fingerprint
         os.makedirs(directory, exist_ok=True)
         self._q: queue.Queue = queue.Queue()
         self._worker: Optional[threading.Thread] = None
@@ -121,6 +128,8 @@ class CheckpointManager:
         # device -> host copy happens here (consistent snapshot)
         host_tree = {k: _to_host(v) for k, v in flatten_tree(tree).items()}
         extra = dict(extra or {}, step=step)
+        if self.plan_fingerprint is not None:
+            extra.setdefault("plan_fingerprint", self.plan_fingerprint)
         if blocking:
             self._write(step, host_tree, extra)
             return
@@ -162,4 +171,14 @@ class CheckpointManager:
         if os.path.exists(meta_path):
             with open(meta_path) as f:
                 meta = json.load(f)
+        saved_fp = (meta or {}).get("plan_fingerprint")
+        if (self.plan_fingerprint is not None and saved_fp is not None
+                and saved_fp != self.plan_fingerprint):
+            raise RuntimeError(
+                f"checkpoint {self.path(step)} was written under sparsity "
+                f"plan {saved_fp} but the current plan is "
+                f"{self.plan_fingerprint}: masks are rebuilt from the plan, "
+                f"so these weights do not mean the same network. Restore "
+                f"with the original plan (--plan), or point "
+                f"--checkpoint-dir at a fresh directory.")
         return load_tree(self.path(step), like), (meta or {"step": step})

@@ -129,14 +129,18 @@ class Trainer:
     """Drives the step function: data, checkpoints, resume, stragglers."""
 
     def __init__(self, model: torch.nn.Module, tcfg: TrainConfig, data_iter,
-                 *, checkpoint: bool = True):
+                 *, checkpoint: bool = True,
+                 plan_fingerprint: Optional[str] = None):
         self.model = model
         self.device = next(model.parameters()).device
         self.tcfg = tcfg
         self.data = iter(data_iter)
         self.state = init_train_state(model, tcfg)
         self.step_fn = make_train_step(model, tcfg)
-        self.ckpt = (CheckpointManager(tcfg.checkpoint_dir)
+        # the sparsity-plan stamp: saved beside the weights, checked on
+        # restore
+        self.ckpt = (CheckpointManager(tcfg.checkpoint_dir,
+                                       plan_fingerprint=plan_fingerprint)
                      if checkpoint else None)
         # hook(step, metrics) after every step
         self.hooks: list = []

@@ -6,7 +6,10 @@ on the card against the same function run by the plain versions; the same
 for the stacked-expert kernels ``rbgp4mm_rhs_stacked`` and
 ``rbgp4_sddmm_rhs_stacked`` and ``RBGP4LinearStacked``, whose every expert
 must also equal the unstacked kernel on that expert, bit for bit (one
-device body).
+device body); and the deep-chain kernels ``chainmm_rhs`` (forward and
+transposed tables) and ``chain_sddmm_rhs`` and ``ChainLinear``'s
+gradients, at the chains of the CPU tests (G = C = 1 included) and
+tinyllama's four shapes under the hierarchical-block plan.
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -24,15 +27,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import RBGP4Layout, RBGP4Spec, design_rbgp4
-from repro_torch.kernels import (KernelTables, RBGP4Linear,
+from repro_torch.core import (ChainLayout, RBGP4Layout, RBGP4Spec,
+                              design_rbgp, design_rbgp4)
+from repro_torch.kernels import (ChainLinear, KernelTables, RBGP4Linear,
                                  RBGP4LinearStacked, TransposeTables,
                                  rbgp4_sddmm_rhs, rbgp4_sddmm_rhs_reference,
                                  rbgp4_sddmm_rhs_stacked,
                                  rbgp4_sddmm_rhs_stacked_reference,
                                  rbgp4mm_rhs, rbgp4mm_rhs_reference,
                                  rbgp4mm_rhs_stacked,
-                                 rbgp4mm_rhs_stacked_reference)
+                                 rbgp4mm_rhs_stacked_reference,
+                                 chain_sddmm_rhs, chain_sddmm_rhs_reference,
+                                 chain_tables, chain_transpose_tables,
+                                 chainmm_rhs, chainmm_rhs_reference)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -399,3 +406,99 @@ def test_cuda_stacked_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError):
         rbgp4_sddmm_rhs_stacked(tables, gy[:, :2], x)
     assert np.isfinite(rbgp4mm_rhs_stacked(tables, x, w).cpu().numpy()).all()
+
+
+# deep chains: the three of tests/test_chain_executor.py (m, k, sparsity,
+# factors) and tinyllama's four shapes under the hierarchical-block plan
+_RAM = ("ramanujan", 0, 0, 0.5)
+_AUTO = ("ramanujan", 0, 0, -1.0)
+CHAINS = [
+    (128, 128, 0.875, (_RAM,) * 3),
+    (256, 256, 0.9375, (_RAM,) * 4),
+    (128, 256, 0.875, (("complete", 4, 4, 0.0), _RAM, _RAM, _RAM,
+                       ("complete", 2, 2, 0.0))),
+] + [(m, k, 0.875, (("complete", 4, 4, 0.0), _AUTO, _AUTO, _AUTO,
+                    ("complete", 8, 8, 0.0))) for m, k in FULL_WIDTH]
+
+
+def chain_cases():
+    for m, k, sp, factors in CHAINS:
+        yield ChainLayout(design_rbgp(m, k, sp, factors=factors, seed=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_chain_kernels_match_plain_versions(dtype):
+    """Each case one counted launch: the forward at N in {1, 8, 77}, on
+    the transposed tables at N = 77 (dX, counted apart), dW at N = 77."""
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dtype)
+    for lay in chain_cases():
+        t = chain_tables(lay, "cuda")
+        tt = chain_transpose_tables(lay, "cuda")
+        w = rnd(*lay.data_shape)
+        for n in (1, 8, 77):
+            x = rnd(n, lay.k)
+            before = chainmm_rhs.launches
+            got = chainmm_rhs(t, x, w)
+            torch.cuda.synchronize()
+            assert chainmm_rhs.launches == before + 1
+            assert_close(got, chainmm_rhs_reference(t, x, w), dtype,
+                         (lay, n))
+        gy, x = rnd(77, lay.m), rnd(77, lay.k)
+        wt = tt.values(w)
+        before = chainmm_rhs.launches, chainmm_rhs.launches_dx
+        got = chainmm_rhs(tt.tables, gy, wt)
+        torch.cuda.synchronize()
+        assert (chainmm_rhs.launches, chainmm_rhs.launches_dx) == (
+            before[0], before[1] + 1)
+        assert_close(got, chainmm_rhs_reference(tt.tables, gy, wt), dtype,
+                     (lay, "dx"))
+        before = chain_sddmm_rhs.launches
+        dw = chain_sddmm_rhs(t, gy, x)
+        torch.cuda.synchronize()
+        assert chain_sddmm_rhs.launches == before + 1
+        assert_close(dw, chain_sddmm_rhs_reference(t, gy, x), dtype,
+                     (lay, "dw"))
+        # no atomics: a rerun gives the same bits
+        assert torch.equal(dw, chain_sddmm_rhs(t, gy, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_chain_linear_grads_match_plain_versions(dtype):
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    for lay in chain_cases():
+        w = torch.randn(lay.data_shape, device="cuda", generator=g).to(dtype)
+        x = torch.randn(33, lay.k, device="cuda", generator=g).to(dtype)
+        gy = torch.randn(33, lay.m, device="cuda", generator=g).to(dtype)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            xa = x.detach().to(dev).clone().requires_grad_()
+            wa = w.detach().to(dev).clone().requires_grad_()
+            y = ChainLinear.apply(xa, wa, chain_tables(lay, dev),
+                                  chain_transpose_tables(lay, dev))
+            y.backward(gy.to(dev))
+            out[dev] = (y.detach(), xa.grad, wa.grad)
+        for a, b, what in zip(out["cuda"], out["cpu"], ("y", "dx", "dw")):
+            assert_close(a.cpu(), b, dtype, (lay, what))
+
+
+@pytest.mark.cuda
+def test_cuda_chain_kernels_reject_what_they_do_not_take():
+    needs_card()
+    lay = next(chain_cases())
+    t = chain_tables(lay, "cuda")
+    x = torch.randn(4, lay.k, device="cuda")
+    w = torch.randn(lay.data_shape, device="cuda")
+    with pytest.raises(TypeError):
+        chainmm_rhs(t, x.half(), w.half())
+    with pytest.raises(TypeError):
+        chain_sddmm_rhs(t, torch.randn(4, lay.m, device="cuda"), x.bfloat16())
+    with pytest.raises(ValueError):
+        chainmm_rhs(chain_tables(lay, "cpu"), x, w)
+    with pytest.raises(ValueError):
+        chainmm_rhs(t, x.t().contiguous().t(), w)

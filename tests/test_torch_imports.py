@@ -40,7 +40,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     assert int(p.stdout.split()[0]) >= 20
     names = p.stdout.split("NAMES", 1)[1].split()
     for mod in ("repro_torch.models.moe", "repro_torch.kernels.ops",
-                "repro_torch.configs.qwen2_moe_a2_7b"):
+                "repro_torch.configs.qwen2_moe_a2_7b",
+                "repro_torch.kernels.chainmm", "repro_torch.sparsity.plan",
+                "repro_torch.sparsity.chain"):
         assert mod in names, mod
 
 

@@ -16,6 +16,7 @@ from repro.configs import apply_sparsity as j_apply_sparsity
 from repro.configs import get_config as j_get_config
 from repro.configs import reduce_config as j_reduce_config
 from repro.models import LMModel as JLMModel
+from repro.sparsity import ChainWeight as JChain
 from repro.sparsity import CompactWeight as JCompact
 from repro.sparsity import DenseWeight as JDense
 from repro_torch.bridge import load_jax_params
@@ -31,7 +32,7 @@ RTOL = 1e-4
 def jax_tree_to_numpy(node):
     """JAX params -> nested dicts/lists of numpy arrays (containers become
     their field dicts), the form ``load_jax_params`` takes."""
-    if isinstance(node, JCompact):
+    if isinstance(node, (JCompact, JChain)):
         return {"w_data": np.asarray(node.w_data),
                 "b": jax_tree_to_numpy(node.b)}
     if isinstance(node, JDense):
