@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Serves and trains two models through ``repro_torch``, with every sparse
-product on a hand-written CUDA kernel, RBGP4 at 0.75, ``min_dim=64``, and
-tinyllama again under a deep-chain plan:
+product on a hand-written CUDA kernel, RBGP4 at 0.75, ``min_dim=64``,
+tinyllama again under a deep-chain plan, and runs VGG19-CIFAR's sparse
+layers through the feature-major product:
 
   * full-width tinyllama-1.1b (22 layers, d_model 2048, all 154 projections
     compact) on ``rbgp4mm_rhs`` (the forward, and dX on the layer's
@@ -18,7 +19,11 @@ tinyllama again under a deep-chain plan:
   * full-width tinyllama-1.1b under the one-rule hierarchical-block plan
     of ``benchmarks/chain_executor.py`` (``rbgp`` at 0.875, ``min_dim``
     256): all 154 projections in chain storage on ``chainmm_rhs`` (forward,
-    and dX on the transposed layouts) and ``chain_sddmm_rhs`` (dW).
+    and dX on the transposed layouts) and ``chain_sddmm_rhs`` (dW);
+  * the paper's feature-major SDMM O = W_s . I at the full width of
+    VGG19-CIFAR's 15 sparse convs (the paper's Table 1 at batch 256),
+    through ``sparse_matmul`` on ``rbgp4mm`` (O, and dI on the transposed
+    layouts) and ``rbgp4_sddmm`` (dW).
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the result line:
@@ -97,13 +102,33 @@ exits non-zero without the result line:
      forward + recompute and 154 dX ``chainmm_rhs`` launches and 154
      ``chain_sddmm_rhs``; one profiled step;
  17. train-parity-chain: 2 full-width layers in float32, card against CPU,
-     as phase 7.
+     as phase 7;
+ 18. check-fm (run after phase 13): ``rbgp4mm`` and ``rbgp4_sddmm``
+     against their plain versions, as phase 2, at VGG19-CIFAR's seven
+     distinct sparse layouts and WRN-40-4's 64 x 144 (C = 2), f32 and
+     bf16: the forward at N in {1, 1037, 4096}, dI on the transposed
+     layouts and dW at N in {1037, 4096}, each dW again and bit-equal;
+ 19. times-fm (after phase 18): as phase 3, VGG19's eight distinct layer
+     shapes (m, k, N = res^2 x 256) in bf16: the forward, dI and dW
+     kernels, their plain versions and one ``torch.matmul`` each on the
+     dense weights (``W @ I``, ``W^T @ dO``, ``dO @ I^T``); at each of
+     these shapes, the ones the main path gives the kernels, each kernel
+     is first held against its plain version on the timed inputs (bf16
+     tolerance) and dW is rerun bit-equal;
+ 20. sdmm-vgg19: the 15 sparse layers at batch 256, bf16, through
+     ``sparse_matmul`` with autograd: the fenced ms of a forward and of a
+     forward + backward (median of 3 passes after a warm-up), peak memory;
+     every pass launches ``rbgp4mm`` 15 times on forward tables and 15 on
+     transposed ones (dI), ``rbgp4_sddmm`` 15 times, and nothing else;
+ 21. parity-fm: the same 15 layers in float32 at batch 2, O, dW and dI on
+     the card against the CPU within 1e-5 * max|ref|.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import statistics
@@ -148,9 +173,28 @@ HIER_SMALL = (("complete", 4, 4, 0.0), ("ramanujan", 0, 0, 0.5),
               ("ramanujan", 0, 0, 0.5), ("ramanujan", 0, 0, 0.5),
               ("complete", 2, 2, 0.0))
 SMALL_CHAINS = {"3ram": (128, 128, T3), "hier": (128, 256, HIER_SMALL)}
-# the nine launch counters, by role
+# the twelve launch counters, by role
 COUNTERS = ("forward", "dx", "dw", "stacked_forward", "stacked_dx",
-            "stacked_dw", "chain_forward", "chain_dx", "chain_dw")
+            "stacked_dw", "chain_forward", "chain_dx", "chain_dw",
+            "fm_forward", "fm_dx", "fm_dw")
+# VGG19-CIFAR's 15 sparsifiable convs at batch 256 as the paper's Table 1
+# measures them (benchmarks/table1_models.py:36-57, the plan of
+# src/repro/models/vision.py:123-124; the first conv and the classifier
+# stay dense): (m, k, n) of O (m, n) = W_s (m, k) . I (k, n), with k =
+# C_in * 3 * 3 and n = res^2 * 256
+VGG19_SDMM = ((64, 576, 262144), (128, 576, 65536), (128, 1152, 65536),
+              (256, 1152, 16384), (256, 2304, 16384), (256, 2304, 16384),
+              (256, 2304, 16384), (512, 2304, 4096), (512, 4608, 4096),
+              (512, 4608, 4096), (512, 4608, 4096), (512, 4608, 1024),
+              (512, 4608, 1024), (512, 4608, 1024), (512, 4608, 1024))
+# WideResNet-40-4's narrowest sparse conv (benchmarks/table1_models.py:
+# 59-76), the one layout with C = 2
+WRN_SDMM = (64, 144)
+
+
+def vgg19_sdmm_layers() -> list:
+    """The (m, k, n) of VGG19-CIFAR's 15 sparse layers, in network order."""
+    return [tuple(s) for s in VGG19_SDMM]
 
 
 def log(phase: str, msg: str) -> None:
@@ -489,11 +533,11 @@ def launches_of(**kw) -> dict:
 
 
 def launch_counts() -> dict:
-    """The nine launch counters, by role."""
+    """The twelve launch counters, by role."""
     from repro_torch.kernels import (chain_sddmm_rhs, chainmm_rhs,
-                                     rbgp4_sddmm_rhs,
-                                     rbgp4_sddmm_rhs_stacked, rbgp4mm_rhs,
-                                     rbgp4mm_rhs_stacked)
+                                     rbgp4_sddmm, rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_stacked, rbgp4mm,
+                                     rbgp4mm_rhs, rbgp4mm_rhs_stacked)
 
     return {"forward": rbgp4mm_rhs.launches,
             "dx": rbgp4mm_rhs.launches_dx,
@@ -503,14 +547,17 @@ def launch_counts() -> dict:
             "stacked_dw": rbgp4_sddmm_rhs_stacked.launches,
             "chain_forward": chainmm_rhs.launches,
             "chain_dx": chainmm_rhs.launches_dx,
-            "chain_dw": chain_sddmm_rhs.launches}
+            "chain_dw": chain_sddmm_rhs.launches,
+            "fm_forward": rbgp4mm.launches,
+            "fm_dx": rbgp4mm.launches_dx,
+            "fm_dw": rbgp4_sddmm.launches}
 
 
 def reset_launch_counts() -> None:
     from repro_torch.kernels import (chain_sddmm_rhs, chainmm_rhs,
-                                     rbgp4_sddmm_rhs,
-                                     rbgp4_sddmm_rhs_stacked, rbgp4mm_rhs,
-                                     rbgp4mm_rhs_stacked)
+                                     rbgp4_sddmm, rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_stacked, rbgp4mm,
+                                     rbgp4mm_rhs, rbgp4mm_rhs_stacked)
 
     rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = 0
     rbgp4_sddmm_rhs.launches = 0
@@ -518,6 +565,8 @@ def reset_launch_counts() -> None:
     rbgp4_sddmm_rhs_stacked.launches = 0
     chainmm_rhs.launches = chainmm_rhs.launches_dx = 0
     chain_sddmm_rhs.launches = 0
+    rbgp4mm.launches = rbgp4mm.launches_dx = 0
+    rbgp4_sddmm.launches = 0
 
 
 def counts_since(before: dict) -> dict:
@@ -1058,9 +1107,9 @@ def phase_train_parity(cfg, want: dict, n_layers: int = 2, seq: int = 64,
 
 
 def per_layer(rows: dict, kind, projections=None) -> dict:
-    """One decoder layer's projections: the sums of ``rows`` (keyed
-    ``(layout, kind)``, kind a token count or 'dw'/'dx') weighted by
-    ``projections`` (tinyllama's seven by default)."""
+    """One decoder layer's projections (or one VGG19 pass's layers): the
+    sums of ``rows`` (keyed ``(layout, kind)``, kind a token count or a
+    role) weighted by ``projections`` (tinyllama's seven by default)."""
     projections = projections or LAYER_PROJECTIONS
     agg = {f: 0.0 for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
     by_share = {"bytes": 0.0, "operations": 0.0}
@@ -1428,6 +1477,307 @@ def phase_times_chain(layouts, n_train: int = 4096) -> dict:
     return rows
 
 
+# -- the feature-major path: VGG19-CIFAR's sparse convs as O = W_s . I ------
+
+def fm_layouts() -> dict:
+    """VGG19-CIFAR's seven distinct sparse layouts (in network order; 512 x
+    4608 runs at two N) and WRN-40-4's 64 x 144, each ``design_rbgp4(m, k,
+    0.75)`` with its default seed, as the reference's Table 1 designs
+    them."""
+    from repro_torch.core import RBGP4Layout, design_rbgp4
+
+    shapes = list(dict.fromkeys((m, k) for m, k, _ in VGG19_SDMM))
+    return {(m, k): RBGP4Layout(design_rbgp4(m, k, 0.75))
+            for m, k in shapes + [WRN_SDMM]}
+
+
+def phase_check_fm(layouts) -> dict:
+    """``rbgp4mm`` and ``rbgp4_sddmm`` against their plain versions at the
+    eight layouts, float32 and bfloat16: the forward at N = 1, 1037 (ragged)
+    and 4096, dI on the transposed tables at N = 1037 and 4096, dW at
+    N = 1037 and 4096 and again, bit for bit.  Max abs diff per record
+    entry."""
+    from repro_torch.kernels import (KernelTables, TransposeTables,
+                                     rbgp4_sddmm, rbgp4_sddmm_reference,
+                                     rbgp4mm, rbgp4mm_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    max_abs = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+    n_cases = 0
+    for (m, k), lay in layouts.items():
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        d, d_t = tables.dims, tt.tables.dims
+        log("check-fm", f"{m} x {k}: G = {d.group_rows}, C = "
+                        f"{d.chunk_cols}, {d.d_o * d.d_i} slots a row; "
+                        f"transposed: G = {d_t.group_rows}, C = "
+                        f"{d_t.chunk_cols}, {d_t.d_o * d_t.d_i} slots")
+        for dt in (torch.float32, torch.bfloat16):
+            rnd = lambda *sh: torch.randn(*sh, device="cuda",
+                                          generator=g).to(dt)
+            worst = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+
+            def hold(what, got, want, entry):
+                err, rel = agree(f"fm {what} {m} x {k}", got, want, dt)
+                max_abs[entry] = max(max_abs[entry], err)
+                worst[entry] = max(worst[entry], rel)
+
+            w = rnd(*lay.data_shape)
+            wt = tt.values(w)
+            for n in (1, 1037, 4096):
+                x = rnd(k, n)
+                o = launched(rbgp4mm, lambda: rbgp4mm(tables, x, w))
+                hold(f"forward N={n}", o, rbgp4mm_reference(tables, x, w),
+                     "forward")
+                n_cases += 1
+                if n == 1:
+                    continue
+                gy = rnd(m, n)
+                dx = launched(rbgp4mm, lambda: rbgp4mm(tt.tables, gy, wt),
+                              "launches_dx")
+                hold(f"dI N={n}", dx, rbgp4mm_reference(tt.tables, gy, wt),
+                     "dx")
+                dw = launched(rbgp4_sddmm,
+                              lambda: rbgp4_sddmm(tables, gy, x))
+                hold(f"dW N={n}", dw, rbgp4_sddmm_reference(tables, gy, x),
+                     "dw")
+                again = launched(rbgp4_sddmm,
+                                 lambda: rbgp4_sddmm(tables, gy, x))
+                if not torch.equal(dw, again):
+                    raise AssertionError(f"rbgp4_sddmm {m} x {k} N={n} "
+                                         f"{dt}: a rerun changed the bits")
+                n_cases += 3
+            log("check-fm", f"{m} x {k} {str(dt):15s} max|diff|/max|ref|: "
+                            + ", ".join(f"{e} {v:.2e}"
+                                        for e, v in worst.items()))
+        torch.cuda.empty_cache()
+    log("check-fm", f"{n_cases} feature-major cases agree (one launch "
+                    f"each), dW bit-equal on every rerun; max abs diff "
+                    + ", ".join(f"{e} {v:.3e}" for e, v in max_abs.items()))
+    return max_abs
+
+
+def phase_times_fm(layouts, max_abs: dict) -> dict:
+    """VGG19's eight distinct layer shapes (m, k, n), n at batch 256, bf16:
+    the forward, dI and dW kernels, their plain versions, one
+    ``torch.matmul`` each on the unpacked dense weights (``W @ I``,
+    ``W^T @ dO``, ``dO @ I^T``; timed here, never called by the port), and
+    the bounds.  Before the timing, each kernel's output is held against
+    its plain version's on the same inputs (these are the shapes the main
+    path gives the kernels), folding the max abs diff into ``max_abs``,
+    and dW is rerun bit-equal.  Rows keyed ``((m, k, n), role)``."""
+    from repro_torch.kernels import (KernelTables, TransposeTables,
+                                     rbgp4_sddmm, rbgp4_sddmm_reference,
+                                     rbgp4mm, rbgp4mm_reference)
+    from repro_torch.kernels.ref import unpack_dense
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    dt = torch.bfloat16
+    rows = {}
+    for m, k, n in dict.fromkeys(VGG19_SDMM):
+        lay = layouts[(m, k)]
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        d, d_t = tables.dims, tt.tables.dims
+        nnz = lay.data_shape[1]
+        # operands cycled through more than the 50 MB L2 cache
+        copies = max(1, -(-2 * L2_BYTES // ((k + m) * n * 2)))
+        xs = torch.randn((copies, k, n), device="cuda", generator=g).to(dt)
+        gs = torch.randn((copies, m, n), device="cuda", generator=g).to(dt)
+        w = torch.randn((m, nnz), device="cuda", generator=g).to(dt)
+        wt, wd = tt.values(w), unpack_dense(lay, w)
+        held = {
+            "forward": (lambda: rbgp4mm(tables, xs[0], w),
+                        lambda: rbgp4mm_reference(tables, xs[0], w)),
+            "dx": (lambda: rbgp4mm(tt.tables, gs[0], wt),
+                   lambda: rbgp4mm_reference(tt.tables, gs[0], wt)),
+            "dw": (lambda: rbgp4_sddmm(tables, gs[0], xs[0]),
+                   lambda: rbgp4_sddmm_reference(tables, gs[0], xs[0])),
+        }
+        rel = {}
+        for entry, (kernel, plain) in held.items():
+            got = kernel()
+            err, rel[entry] = agree(f"times-fm {entry} {m} x {k} N={n}",
+                                    got, plain(), dt)
+            max_abs[entry] = max(max_abs[entry], err)
+            if entry == "dw" and not torch.equal(got, kernel()):
+                raise AssertionError(f"rbgp4_sddmm {m} x {k} N={n}: a "
+                                     f"rerun changed the bits")
+            del got
+        log("times-fm", f"{m} x {k} N={n} bf16 held against the plain "
+                        f"versions, max|diff|/max|ref|: "
+                        + ", ".join(f"{e} {v:.2e}" for e, v in rel.items()))
+        c = lambda i: i % copies
+        t = dict(
+            fwd=time_cuda(lambda i: rbgp4mm(tables, xs[c(i)], w)),
+            fwd_plain=time_cuda(lambda i: rbgp4mm_reference(tables, xs[c(i)],
+                                                            w)),
+            fwd_lib=time_cuda(lambda i: wd @ xs[c(i)]),
+            dx=time_cuda(lambda i: rbgp4mm(tt.tables, gs[c(i)], wt)),
+            dx_plain=time_cuda(lambda i: rbgp4mm_reference(tt.tables,
+                                                           gs[c(i)], wt)),
+            dx_lib=time_cuda(lambda i: wd.T @ gs[c(i)]),
+            dw=time_cuda(lambda i: rbgp4_sddmm(tables, gs[c(i)], xs[c(i)])),
+            dw_plain=time_cuda(lambda i: rbgp4_sddmm_reference(
+                tables, gs[c(i)], xs[c(i)])),
+            dw_lib=time_cuda(lambda i: gs[c(i)] @ xs[c(i)].T),
+        )
+        chunks = d.d_o * d.d_i
+        bounds = dict(
+            fwd=bound_ms(n, m, k, nnz, chunks, d.group_rows, 2),
+            dx=bound_ms(n, d_t.m, d_t.k, d_t.data_cols, d_t.d_o * d_t.d_i,
+                        d_t.group_rows, 2),
+            dw=sddmm_bound_ms(n, m, k, nnz, chunks, d.group_rows, 2))
+        for role, (b, by) in bounds.items():
+            rows[((m, k, n), role)] = dict(ms=t[role],
+                                           plain_ms=t[f"{role}_plain"],
+                                           library_ms=t[f"{role}_lib"],
+                                           bound_ms=b, bound_by=by)
+            log("times-fm", f"{role:3s} {m} x {k} N={n} bf16: kernel "
+                            f"{t[role]:.4f} ms, plain "
+                            f"{t[role + '_plain']:.4f} ms, torch.matmul "
+                            f"dense {t[role + '_lib']:.4f} ms, bound "
+                            f"{b * 1e3:.2f} us ({by})")
+        del xs, gs, w, wt, wd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vgg19_weights(layouts, batch: int, dt, device, seed: int):
+    """Per layer: a ``CompactWeight`` over its layout's cached ``RBGP4Op``
+    (the tables, and the transposed ones built at the first dI) and the
+    input I (k, res^2 * batch), drawn on the CPU, so that every device
+    gets the same numbers."""
+    from repro_torch.kernels import get_op
+    from repro_torch.sparsity import CompactWeight
+
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for m, k, n in VGG19_SDMM:
+        lay = layouts[(m, k)]
+        op = get_op(lay, device)
+        w = (torch.randn(lay.data_shape, generator=gen)
+             * (2.0 / lay.spec.nnz_per_row) ** 0.5)
+        x = torch.randn((k, n * batch // 256), generator=gen)
+        cw = CompactWeight(w_data=w.to(device, dt).requires_grad_(),
+                           tables=op.tables, tables_t=op.transpose_tables)
+        out.append((cw, x.to(device, dt).requires_grad_()))
+    return out
+
+
+def vgg19_pass(layers, cots=None):
+    """The 15 layers' O through ``sparse_matmul``; with ``cots`` also the
+    backward (dW and dI of every layer)."""
+    from repro_torch.sparsity import sparse_matmul
+
+    outs = [sparse_matmul(cw, x) for cw, x in layers]
+    if cots is not None:
+        torch.autograd.backward(outs, cots)
+    return outs
+
+
+def phase_sdmm_vgg19(layouts, n_pass: int = 3) -> dict:
+    """The main path of the feature-major slice: one pass of VGG19-CIFAR's
+    15 sparse layers at batch 256, bf16, through ``sparse_matmul`` with
+    autograd (dW and dI); every pass launches ``rbgp4mm`` 15 times on
+    forward tables and 15 on transposed ones, ``rbgp4_sddmm`` 15 times,
+    and nothing else.  Fenced ms of the forward and of forward + backward,
+    median of ``n_pass`` passes after a warm-up pass; peak memory."""
+    layers = vgg19_weights(layouts, 256, torch.bfloat16, "cuda", seed=11)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cots = [torch.randn((cw.w_data.shape[0], x.shape[1]), device="cuda",
+                        generator=gen).to(torch.bfloat16)
+            for cw, x in layers]
+    want = launches_of(fm_forward=15, fm_dx=15, fm_dw=15)
+    vgg19_pass(layers, cots)  # warm-up: builds the transposed tables
+    for cw, x in layers:
+        cw.w_data.grad = x.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    fwd_ms, step_ms = [], []
+    for _ in range(n_pass):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        outs = vgg19_pass(layers)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.backward(outs, cots)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if counts_since(before) != want:
+            raise AssertionError(f"a VGG19 pass launched "
+                                 f"{counts_since(before)}, want {want}")
+        fwd_ms.append(1e3 * (t1 - t0))
+        step_ms.append(1e3 * (t2 - t0))
+        for (m, _, n), o, (cw, x) in zip(VGG19_SDMM, outs, layers):
+            if tuple(o.shape) != (m, n) or not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"layer {m} x {n}: bad output")
+            for grad, ref in ((cw.w_data.grad, cw.w_data), (x.grad, x)):
+                if grad is None or grad.shape != ref.shape or not bool(
+                        torch.isfinite(grad).all()):
+                    raise AssertionError(f"layer {m}: bad gradient")
+            cw.w_data.grad = x.grad = None
+        del outs
+    counts = launch_counts()
+    res = dict(
+        layers=len(VGG19_SDMM), batch=256,
+        fwd_ms=statistics.median(fwd_ms), fwd_bwd_ms=statistics.median(
+            step_ms), fwd_ms_all=fwd_ms, fwd_bwd_ms_all=step_ms,
+        launches=counts, launches_per_pass=want,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("sdmm-vgg19", f"VGG19-CIFAR, 15 sparse layers at batch 256, bf16, "
+                      f"through sparse_matmul: forward {res['fwd_ms']:.3f} "
+                      f"ms, forward + backward {res['fwd_bwd_ms']:.3f} ms "
+                      f"(median of {n_pass} passes; "
+                      + ", ".join(f"{a:.3f}/{b:.3f}"
+                                  for a, b in zip(fwd_ms, step_ms))
+                      + f"); peak memory {res['peak_mem_gb']:.2f} GB")
+    log("sdmm-vgg19", f"launches per pass, counted at each launch: "
+                      + ", ".join(f"{k_} {v}" for k_, v in want.items() if v)
+                      + f"; in {n_pass} passes {counts}")
+    print("sdmm-vgg19 " + json.dumps(res), flush=True)
+    del layers, cots
+    free_card()
+    return res
+
+
+def phase_parity_fm(layouts, batch: int = 2) -> None:
+    """The same 15 layers in float32 at batch 2 (N = res^2 * 2): O, dW and
+    dI through ``sparse_matmul`` on the card (the kernels) and on the CPU
+    (the plain versions) from the same inputs, within 1e-5 * max|ref|."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        layers = vgg19_weights(layouts, batch, torch.float32, device,
+                               seed=13)
+        gen = torch.Generator().manual_seed(14)
+        cots = [torch.randn((cw.w_data.shape[0], x.shape[1]),
+                            generator=gen).to(device) for cw, x in layers]
+        before = launch_counts()
+        outs = vgg19_pass(layers, cots)
+        runs[device] = ([o.detach().cpu() for o in outs],
+                        [cw.w_data.grad.cpu() for cw, _ in layers],
+                        [x.grad.cpu() for _, x in layers],
+                        counts_since(before))
+    want = launches_of(fm_forward=15, fm_dx=15, fm_dw=15)
+    if runs["cuda"][3] != want or any(runs["cpu"][3].values()):
+        raise AssertionError(f"launches: card {runs['cuda'][3]}, CPU "
+                             f"{runs['cpu'][3]}")
+    worst = {}
+    for i, name in enumerate(("O", "dW", "dI")):
+        for (m, k, _), a, b in zip(VGG19_SDMM, runs["cuda"][i],
+                                   runs["cpu"][i]):
+            _, rel = agree(f"parity-fm {name} {m} x {k}", a, b,
+                           torch.float32)
+            worst[name] = max(worst.get(name, 0.0), rel)
+    log("parity-fm", f"15 layers at batch {batch}, float32, card against "
+                     f"CPU: max|diff|/max|ref| "
+                     + ", ".join(f"{k_} {v:.2e}" for k_, v in worst.items())
+                     + f" (tolerance {TOL[torch.float32]:.0e}); card "
+                       f"launches {runs['cuda'][3]}")
+    free_card()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -1446,6 +1796,11 @@ def main() -> int:
     times.update(phase_train_times(layouts))
     times_moe = phase_times_moe(experts)
     times_chain = phase_times_chain(chains)
+    t_fm = time.perf_counter()
+    fm = fm_layouts()
+    max_abs_fm = phase_check_fm(fm)
+    times_fm = phase_times_fm(fm, max_abs_fm)
+    t_fm = time.perf_counter() - t_fm
 
     # tinyllama: 7 compact projections a layer
     tiny = main_config("bfloat16")
@@ -1492,12 +1847,20 @@ def main() -> int:
                                           chain_dw=14),
                        phase="train-parity-chain")
 
+    # the paper's feature-major SDMM: VGG19-CIFAR's 15 sparse layers
+    t_sdmm = time.perf_counter()
+    sdmm = phase_sdmm_vgg19(fm)
+    phase_parity_fm(fm)
+    t_fm += time.perf_counter() - t_sdmm
+
     per_layout = {f"{key} {kind if isinstance(kind, str) else f'N={kind}'}":
                   row for (key, kind), row in times.items()}
     per_layout.update({f"experts {key} {kind if isinstance(kind, str) else f'N={kind}'}":
                        row for (key, kind), row in times_moe.items()})
     per_layout.update({f"chain {key} {kind if isinstance(kind, str) else f'N={kind}'}":
                        row for (key, kind), row in times_chain.items()})
+    per_layout.update({f"fm {m}x{k} N={n} {role}": row
+                       for ((m, k, n), role), row in times_fm.items()})
     print("kernel_times " + json.dumps(per_layout), flush=True)
     src = "src/repro_torch/kernels/csrc/"
     # the forward: one decoder layer's seven projections at decode (N = 8
@@ -1512,8 +1875,12 @@ def main() -> int:
     s_dw = per_layer(times_moe, "dw", MOE_LAYER_PROJECTIONS)
     c_fwd = per_layer(times_chain, 8)
     c_dx, c_dw = per_layer(times_chain, "dx"), per_layer(times_chain, "dw")
+    # one VGG19 pass: the 15 layers' rows, keyed by their (m, k, n)
+    vgg19 = collections.Counter(VGG19_SDMM)
+    fm_pass = {role: per_layer(times_fm, role, vgg19)
+               for role in ("fwd", "dx", "dw")}
     main_runs = (serve, train, serve_moe, train_moe, serve_chain,
-                 train_chain)
+                 train_chain, sdmm)
     total = lambda role: sum(run["launches"][role] for run in main_runs)
     record = {"kernels": [
         dict(name="rbgp4mm_rhs", route="cuda", source=src + "rbgp4mm_rhs.cu",
@@ -1587,13 +1954,33 @@ def main() -> int:
              max_abs_err=max_abs_chain["dw"], **c_dw,
              work="chain dW of one decoder layer's seven projections, "
                   "4096 tokens, bf16"),
+        dict(name="rbgp4mm", route="cuda", source=src + "rbgp4mm.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:245",
+             launches=total("fm_forward"),
+             max_abs_err=max_abs_fm["forward"], **fm_pass["fwd"],
+             work="O = W_s . I of VGG19-CIFAR's 15 sparse convs, one pass "
+                  "at batch 256 (N = res^2 * 256), bf16"),
+        dict(name="rbgp4mm (dI, transposed layouts)", route="cuda",
+             source=src + "rbgp4mm.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:245",
+             launches=total("fm_dx"),
+             max_abs_err=max_abs_fm["dx"], **fm_pass["dx"],
+             work="dI = W_s^T . dO of VGG19-CIFAR's 15 sparse convs on "
+                  "their transposed layouts, batch 256, bf16"),
+        dict(name="rbgp4_sddmm", route="cuda",
+             source=src + "rbgp4_sddmm.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:336",
+             launches=total("fm_dw"),
+             max_abs_err=max_abs_fm["dw"], **fm_pass["dw"],
+             work="compact dW = pack(dO . I^T) of VGG19-CIFAR's 15 sparse "
+                  "convs, batch 256, bf16"),
     ]}
     for row in record["kernels"]:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} never launched on the main "
                                  f"path")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s "
-                f"on {smi}")
+                f"on {smi}; the four feature-major phases took {t_fm:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """Hand-written CUDA kernels for Hopper, with their plain versions.
 
-``rbgp4mm_rhs``, ``rbgp4_sddmm_rhs``, ``rbgp4mm_rhs_stacked`` and
-``rbgp4_sddmm_rhs_stacked`` replace the Pallas kernels of the same names in
-``repro/kernels/rbgp4mm.py``, ``chainmm_rhs`` and ``chain_sddmm_rhs`` those
-of ``repro/kernels/chainmm.py``; ``ops.RBGP4Linear``,
+``rbgp4mm``, ``rbgp4_sddmm``, ``rbgp4mm_rhs``, ``rbgp4_sddmm_rhs``,
+``rbgp4mm_rhs_stacked`` and ``rbgp4_sddmm_rhs_stacked`` replace the Pallas
+kernels of the same names in ``repro/kernels/rbgp4mm.py``,
+``chainmm_rhs`` and ``chain_sddmm_rhs`` those of
+``repro/kernels/chainmm.py``; ``ops.RBGP4MatMul``, ``ops.RBGP4Linear``,
 ``ops.RBGP4LinearStacked`` and ``ops.ChainLinear`` are the differentiable
-projections built on them.  The other Pallas kernels of the reference come with later slices
-(see ROADMAP.md).
+products built on them, and ``ops.RBGP4Op`` (cached by ``get_op``) the
+per-layer bundle of the reference.  The int8 ``scales=`` variants come
+with a later slice (see ROADMAP.md).
 """
 from . import build, ref
 from .chainmm import (
@@ -19,16 +21,21 @@ from .chainmm import (
     chainmm_rhs,
     chainmm_rhs_reference,
 )
-from .ops import ChainLinear, RBGP4Linear, RBGP4LinearStacked
+from .ops import (ChainLinear, RBGP4Linear, RBGP4LinearStacked, RBGP4MatMul,
+                  RBGP4Op, get_op)
 from .rbgp4mm import (
     EPILOGUE_ACTS,
     KernelDims,
     KernelTables,
     TransposeTables,
+    rbgp4_sddmm,
+    rbgp4_sddmm_reference,
     rbgp4_sddmm_rhs,
     rbgp4_sddmm_rhs_reference,
     rbgp4_sddmm_rhs_stacked,
     rbgp4_sddmm_rhs_stacked_reference,
+    rbgp4mm,
+    rbgp4mm_reference,
     rbgp4mm_rhs,
     rbgp4mm_rhs_reference,
     rbgp4mm_rhs_stacked,
@@ -42,6 +49,13 @@ __all__ = [
     "TransposeTables",
     "RBGP4Linear",
     "RBGP4LinearStacked",
+    "RBGP4MatMul",
+    "RBGP4Op",
+    "get_op",
+    "rbgp4mm",
+    "rbgp4mm_reference",
+    "rbgp4_sddmm",
+    "rbgp4_sddmm_reference",
     "rbgp4mm_rhs",
     "rbgp4mm_rhs_reference",
     "rbgp4_sddmm_rhs",

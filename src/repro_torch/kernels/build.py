@@ -33,6 +33,8 @@ SOURCES = {
     "rbgp4_sddmm_rhs": "rbgp4_sddmm_rhs.cu",
     "chainmm_rhs": "chainmm_rhs.cu",
     "chain_sddmm_rhs": "chain_sddmm_rhs.cu",
+    "rbgp4mm": "rbgp4mm.cu",
+    "rbgp4_sddmm": "rbgp4_sddmm.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,6 +1,14 @@
-"""RBGP4 token-major sparse products and their plain versions.
+"""RBGP4 sparse products and their plain versions.
 
-The port of four kernels of ``repro/kernels/rbgp4mm.py``:
+The port of the six kernels of ``repro/kernels/rbgp4mm.py``.  Feature-major,
+the paper's Algorithm 1 (``O = W_s @ I`` for the unfolded input I (K, N)):
+
+``rbgp4mm``          O (M, N) = W_s @ I, and dI = W_s^T @ dO on the
+                     transposed layout's tables;
+``rbgp4_sddmm``      the compact weight gradient dW = pack(dO @ I^T) from
+                     dO (M, N) and I (K, N).
+
+Token-major, the layout the models use:
 
 ``rbgp4mm_rhs``      Y = act(X @ W_s^T + bias) + residual, X (N, K) ->
                      Y (N, M), with the pre-activation Z as an optional
@@ -20,7 +28,9 @@ version (``*_reference``).  There is no other path: a failed build or
 launch raises.
 
 Launch counters, each moved only where its kernel launches (plain runs
-never count): ``rbgp4mm_rhs.launches`` on forward layouts,
+never count): ``rbgp4mm.launches`` on forward layouts,
+``rbgp4mm.launches_dx`` on transposed ones (dI), ``rbgp4_sddmm.launches``,
+``rbgp4mm_rhs.launches`` on forward layouts,
 ``rbgp4mm_rhs.launches_dx`` on transposed ones (dX, tables built with
 ``transposed=True``), ``rbgp4_sddmm_rhs.launches``, and the same three
 for the stacked kernels: ``rbgp4mm_rhs_stacked.launches``,
@@ -38,11 +48,12 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .ref import (gather_mm_rhs, gather_mm_rhs_stacked, gather_sddmm_rhs,
-                  gather_sddmm_rhs_stacked)
+from .ref import (gather_mm, gather_mm_rhs, gather_mm_rhs_stacked,
+                  gather_sddmm, gather_sddmm_rhs, gather_sddmm_rhs_stacked)
 
 __all__ = ["KernelDims", "KernelTables", "TransposeTables", "EPILOGUE_ACTS",
-           "rbgp4mm_rhs", "rbgp4mm_rhs_reference", "rbgp4_sddmm_rhs",
+           "rbgp4mm", "rbgp4mm_reference", "rbgp4_sddmm",
+           "rbgp4_sddmm_reference", "rbgp4mm_rhs", "rbgp4mm_rhs_reference", "rbgp4_sddmm_rhs",
            "rbgp4_sddmm_rhs_reference", "rbgp4mm_rhs_stacked",
            "rbgp4mm_rhs_stacked_reference", "rbgp4_sddmm_rhs_stacked",
            "rbgp4_sddmm_rhs_stacked_reference"]
@@ -359,6 +370,127 @@ def rbgp4_sddmm_rhs(tables: KernelTables, g: torch.Tensor,
 
 
 rbgp4_sddmm_rhs.launches = 0
+
+
+# -- feature-major: I (K, N), O (M, N), the paper's Algorithm 1 ------------
+
+def _check_fm_args(dims, x, w_data):
+    if tuple(w_data.shape) != (dims.m, dims.data_cols):
+        raise ValueError(
+            f"w_data {tuple(w_data.shape)} != {(dims.m, dims.data_cols)}")
+    if x.ndim != 2 or x.shape[0] != dims.k:
+        raise ValueError(f"x {tuple(x.shape)} is not (K={dims.k}, N)")
+
+
+def rbgp4mm_reference(tables: KernelTables, x: torch.Tensor,
+                      w_data: torch.Tensor) -> torch.Tensor:
+    """Plain version: gather + einsum in f32, written in x's dtype."""
+    dims = tables.dims
+    _check_fm_args(dims, x, w_data)
+    out = gather_mm(tables.adj_o, tables.adj_i, dims.n_col_tiles,
+                    dims.group_rows, dims.chunk_cols, w_data.float(),
+                    x.float())
+    return out.to(x.dtype)
+
+
+def rbgp4mm(tables: KernelTables, x: torch.Tensor,
+            w_data: torch.Tensor) -> torch.Tensor:
+    """O (M, N) = W_s @ I for feature-major I = x (K, N).
+
+    ``tables`` are the layout's kernel tables on the device of ``x``; on a
+    transposed layout's tables, over ``TransposeTables.values(w_data)``,
+    this is dI = W_s^T @ dO.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel, which takes float32 or bfloat16 x and
+    w_data of one dtype, both contiguous, and writes O in that dtype.
+    """
+    dims = tables.dims
+    _check_fm_args(dims, x, w_data)
+    if x.device.type == "cpu":
+        return rbgp4mm_reference(tables, x, w_data)
+    dt = x.dtype
+    _check_cuda("rbgp4mm", tables, dt, {"x": x, "w_data": w_data})
+    n = x.shape[1]
+    out = torch.empty((dims.m, n), dtype=dt, device=x.device)
+    if n > 0:
+        _launch("rbgp4mm", "rbgp4mm", "ippppiiiiip", _DTYPE_CODES[dt],
+                x.data_ptr(), w_data.data_ptr(), tables.col0.data_ptr(),
+                out.data_ptr(), n, dims.m, dims.d_o * dims.d_i,
+                dims.group_rows, dims.chunk_cols, x.device)
+        if tables.transposed:
+            rbgp4mm.launches_dx += 1
+        else:
+            rbgp4mm.launches += 1
+    return out
+
+
+rbgp4mm.launches = rbgp4mm.launches_dx = 0
+
+
+def _check_fm_sddmm_args(dims, g, x):
+    n = x.shape[-1]
+    if x.ndim != 2 or g.ndim != 2 or tuple(g.shape) != (dims.m, n) \
+            or x.shape[0] != dims.k:
+        raise ValueError(f"bad shapes dO={tuple(g.shape)} x={tuple(x.shape)} "
+                         f"for M={dims.m}, K={dims.k}")
+
+
+def rbgp4_sddmm_reference(tables: KernelTables, g: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """Plain version: gather + einsum in f32, written in g's dtype."""
+    dims = tables.dims
+    _check_fm_sddmm_args(dims, g, x)
+    dw = gather_sddmm(tables.adj_o, tables.adj_i, dims.n_col_tiles,
+                      dims.group_rows, dims.chunk_cols, g.float(), x.float())
+    return dw.to(g.dtype)
+
+
+def _sddmm_slices(n: int, dims: KernelDims, device) -> int:
+    """How many slices of N the kernel cuts the contraction into at these
+    shapes on ``device`` (its own plan, read from the library)."""
+    fn = build.load("rbgp4_sddmm").rbgp4_sddmm_slices
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        return fn(n, dims.m, dims.d_o * dims.d_i, dims.group_rows,
+                  dims.chunk_cols)
+
+
+def rbgp4_sddmm(tables: KernelTables, g: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    """Compact dW (M, d_o*d_i*C) = pack(dO @ I^T) from feature-major
+    cotangent g = dO (M, N) and input x = I (K, N); written in g's dtype.
+
+    ``tables`` are the forward layout's kernel tables.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel, which takes float32 or
+    bfloat16 g and x of one dtype, both contiguous.  Where the kernel cuts
+    N into slices, the f32 workspace of their partial sums is allocated
+    here; the slices are added in a fixed order, so a rerun gives the same
+    bits.
+    """
+    dims = tables.dims
+    _check_fm_sddmm_args(dims, g, x)
+    if g.device.type == "cpu":
+        return rbgp4_sddmm_reference(tables, g, x)
+    dt = g.dtype
+    _check_cuda("rbgp4_sddmm", tables, dt, {"g": g, "x": x})
+    n = x.shape[1]
+    if n == 0:
+        return torch.zeros((dims.m, dims.data_cols), dtype=dt,
+                           device=g.device)
+    dw = torch.empty((dims.m, dims.data_cols), dtype=dt, device=g.device)
+    slices = _sddmm_slices(n, dims, g.device)
+    part = (torch.empty((slices, dims.m, dims.data_cols), dtype=torch.float32,
+                        device=g.device) if slices > 1 else None)
+    _launch("rbgp4_sddmm", "rbgp4_sddmm", "ipppppiiiiip", _DTYPE_CODES[dt],
+            g.data_ptr(), x.data_ptr(), tables.col0.data_ptr(), dw.data_ptr(),
+            part.data_ptr() if part is not None else None, n, dims.m,
+            dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols, g.device)
+    rbgp4_sddmm.launches += 1
+    return dw
+
+
+rbgp4_sddmm.launches = 0
 
 
 # -- stacked experts: one layout, values and activations with a leading E --

@@ -10,7 +10,9 @@ import torch
 
 __all__ = ["unpack_dense", "pack_compact", "gather_mm_rhs",
            "gather_sddmm_rhs", "gather_mm_rhs_stacked",
-           "gather_sddmm_rhs_stacked", "compact_gather_mm_rhs"]
+           "gather_sddmm_rhs_stacked", "compact_gather_mm_rhs", "gather_mm",
+           "gather_sddmm", "compact_gather_mm", "ref_rbgp4mm",
+           "ref_rbgp4_sddmm"]
 
 
 def _col_index(layout, device) -> torch.Tensor:
@@ -103,6 +105,65 @@ def gather_sddmm_rhs_stacked(adj_o, adj_i, n_o_r: int, group_rows: int,
     gg = g.reshape(e, n, n_o_l, u_i, group_rows)
     dw = torch.einsum("enokuic,enoug->eougkic", xg, gg)
     return dw.reshape(e, n_o_l * u_i * group_rows, d_o * d_i * C)
+
+
+def _gather_i(adj_o, adj_i, n_o_r: int, chunk_cols: int,
+              x: torch.Tensor) -> torch.Tensor:
+    """(n_o_l, d_o, u_i, d_i, C, N): the input rows each compact slot
+    multiplies, for feature-major x (K, N)."""
+    adj_o = torch.as_tensor(adj_o, dtype=torch.int64, device=x.device)
+    adj_i = torch.as_tensor(adj_i, dtype=torch.int64, device=x.device)
+    v_i = x.shape[0] // (n_o_r * chunk_cols)
+    xt = x.reshape(n_o_r, v_i, chunk_cols, x.shape[1])
+    return xt[adj_o][:, :, adj_i]
+
+
+def gather_mm(adj_o, adj_i, n_o_r: int, group_rows: int, chunk_cols: int,
+              w_data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """O (M, N) = W_s @ I from compact storage, for feature-major I (K, N),
+    gather + einsum (the feature-major twin of ``gather_mm_rhs``): output
+    row ``m = (o, u, g)`` contracts compact slot ``(kk, ki, c)`` against
+    input row ``adj_o[o, kk] * TK + adj_i[u, ki] * C + c``."""
+    xg = _gather_i(adj_o, adj_i, n_o_r, chunk_cols, x)
+    n_o_l, d_o, u_i, d_i, C, n = xg.shape
+    w = w_data.reshape(n_o_l, u_i, group_rows, d_o, d_i, C)
+    out = torch.einsum("ougkic,okuicn->ougn", w, xg)
+    return out.reshape(n_o_l * u_i * group_rows, n)
+
+
+def gather_sddmm(adj_o, adj_i, n_o_r: int, group_rows: int,
+                 chunk_cols: int, d_out: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Compact dW (M, nnz_row) = pack(dO @ I^T) from feature-major dO
+    (M, N) and I (K, N), gather + einsum: slot ``(kk, ki, c)`` of row
+    ``m = (o, u, gi)`` sums ``dO[m, n] * I[adj_o[o, kk] * TK +
+    adj_i[u, ki] * C + c, n]`` over columns ``n``."""
+    xg = _gather_i(adj_o, adj_i, n_o_r, chunk_cols, x)
+    n_o_l, d_o, u_i, d_i, C, n = xg.shape
+    gg = d_out.reshape(n_o_l, u_i, group_rows, n)
+    dw = torch.einsum("ougn,okuicn->ougkic", gg, xg)
+    return dw.reshape(n_o_l * u_i * group_rows, d_o * d_i * C)
+
+
+def compact_gather_mm(layout, w_data: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """O = W_s @ I from compact storage via gather + einsum, with no dense
+    W (the reference's ``xla_compact`` matmul); x (K, N) -> (M, N)."""
+    sp = layout.spec
+    return gather_mm(layout.adj_o, layout.adj_i, sp.g_o[1], sp.group_rows,
+                     sp.chunk_cols, w_data, x)
+
+
+def ref_rbgp4mm(layout, w_data: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    """O = W_s @ I through the dense scatter of W (oracle)."""
+    return unpack_dense(layout, w_data) @ x
+
+
+def ref_rbgp4_sddmm(layout, d_out: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """dW = pack(dO @ I^T) (oracle; the mask is implied by pack)."""
+    return pack_compact(layout, d_out @ x.T)
 
 
 def compact_gather_mm_rhs(layout, w_data: torch.Tensor,

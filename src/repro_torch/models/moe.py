@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels import EPILOGUE_ACTS, KernelTables, TransposeTables
 from repro_torch.sparsity import (CompactWeight, DenseWeight, SparsityConfig,
                                   SparsityPlan, make_pattern,
@@ -57,6 +58,7 @@ class StackedExperts(nn.Module):
                  dtype=torch.float32, param_dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = resolve_device(device)
         self.act = ACTS[act]
         self.fuse = act if act in EPILOGUE_ACTS else None
         if isinstance(sparsity, SparsityPlan):
@@ -147,6 +149,7 @@ class MoELayer(nn.Module):
                  param_dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = resolve_device(device)
         if moe.router_dtype != "float32":
             raise ValueError(f"the router runs in float32, got router_dtype="
                              f"{moe.router_dtype!r}")

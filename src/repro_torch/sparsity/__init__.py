@@ -1,6 +1,7 @@
 """Sparsity integration: patterns, plans, weight containers, SparseLinear."""
 from .api import (ChainWeight, CompactWeight, DenseWeight, SparseWeight,
-                  dense_weight, sparse_linear, sparse_linear_batched)
+                  dense_weight, sparse_linear, sparse_linear_batched,
+                  sparse_matmul)
 from .chain import chain_storage_bytes
 from .layer import SparseLinear
 from .patterns import PATTERNS, PatternInstance, SparsityConfig, make_pattern
@@ -12,7 +13,8 @@ __all__ = [
     "PatternSpec", "PlanRule", "SparsityPlan", "lower_config",
     "storage_kind",
     "SparseWeight", "DenseWeight", "CompactWeight", "ChainWeight",
-    "sparse_linear", "sparse_linear_batched", "dense_weight",
+    "sparse_linear", "sparse_linear_batched", "sparse_matmul",
+    "dense_weight",
     "chain_storage_bytes",
     "SparseLinear",
 ]

@@ -26,6 +26,14 @@ x (E, ..., K) -> (E, ..., M): a ``CompactWeight`` with stacked
 with stacked ``w`` (E, M, K) is the dense path for shapes the pattern does
 not apply to.
 
+``sparse_matmul`` is the paper's feature-major product, O = W_s @ I (+ b
+per row) for I (K, N): a ``CompactWeight`` runs the ``rbgp4mm`` kernel
+(through ``RBGP4MatMul`` where a gradient is asked for: dW on
+``rbgp4_sddmm``, dI on ``rbgp4mm`` over the transposed layout); a
+``DenseWeight`` and a ``ChainWeight`` are one ``torch.matmul`` of the dense
+matrix, as the reference computes them outside any kernel (a chain's dW
+reaches its compact values through autograd).
+
 ``dense_weight`` materializes the dense (M, K) matrix of any of them.  The
 reference's masked and int8 storages and its backend registry come with
 later slices.
@@ -37,15 +45,15 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch.kernels import (EPILOGUE_ACTS, ChainLinear, KernelTables,
-                                 RBGP4Linear, RBGP4LinearStacked,
-                                 TransposeTables, chainmm_rhs, rbgp4mm_rhs,
-                                 rbgp4mm_rhs_stacked)
+from repro_torch.kernels import EPILOGUE_ACTS, KernelTables, TransposeTables
+from repro_torch.kernels.ops import (chain_linear, compact_linear,
+                                     compact_linear_stacked, compact_matmul)
 
 from .chain import ChainWeight
 
 __all__ = ["DenseWeight", "CompactWeight", "ChainWeight", "SparseWeight",
-           "sparse_linear", "sparse_linear_batched", "dense_weight"]
+           "sparse_linear", "sparse_linear_batched", "sparse_matmul",
+           "dense_weight"]
 
 
 @dataclasses.dataclass
@@ -82,11 +90,6 @@ def _check_fuse(fuse: Optional[str]) -> None:
         )
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
-
 def sparse_linear(weight: SparseWeight, x: torch.Tensor, *, dtype=None,
                   fuse: Optional[str] = None,
                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -96,33 +99,13 @@ def sparse_linear(weight: SparseWeight, x: torch.Tensor, *, dtype=None,
     xc = x.to(dtype)
     b = weight.b.to(dtype) if weight.b is not None else None
     if isinstance(weight, CompactWeight):
-        dims = weight.tables.dims
-        lead = xc.shape[:-1]
-        r2 = None
-        if residual is not None:
-            r2 = residual.to(dtype).reshape(-1, dims.m).contiguous()
-        x2 = xc.reshape(-1, dims.k).contiguous()
-        w = weight.w_data.to(dtype)
-        if _needs_grad(x2, w, b, r2):
-            tables_t = (weight.tables_t() if x2.requires_grad
-                        and weight.tables_t is not None else None)
-            y = RBGP4Linear.apply(x2, w, b, r2, weight.tables, tables_t,
-                                  fuse)
-        else:
-            y = rbgp4mm_rhs(weight.tables, x2, w, bias=b, act=fuse,
-                            residual=r2)
-        return y.reshape(*lead, dims.m)
+        return compact_linear(
+            weight.tables, xc, weight.w_data.to(dtype), bias=b, fuse=fuse,
+            residual=residual.to(dtype) if residual is not None else None,
+            tables_t=weight.tables_t)
     if isinstance(weight, ChainWeight):
-        t = weight.tables
-        x2 = xc.reshape(-1, t.k).contiguous()
-        w = weight.w_data.to(dtype)
-        if _needs_grad(x2, w):
-            tables_t = (weight.tables_t() if x2.requires_grad
-                        and weight.tables_t is not None else None)
-            y = ChainLinear.apply(x2, w, t, tables_t)
-        else:
-            y = chainmm_rhs(t, x2, w)
-        y = y.reshape(*xc.shape[:-1], t.m)
+        y = chain_linear(weight.tables, xc, weight.w_data.to(dtype),
+                         tables_t=weight.tables_t)
     elif isinstance(weight, DenseWeight):
         y = xc @ weight.w.to(dtype).T
     else:
@@ -147,17 +130,9 @@ def sparse_linear_batched(weight: SparseWeight, x: torch.Tensor, *,
     e = xc.shape[0]
     b = weight.b.to(dtype) if weight.b is not None else None
     if isinstance(weight, CompactWeight):
-        dims = weight.tables.dims
-        x3 = xc.reshape(e, -1, dims.k).contiguous()
-        w = weight.w_data.to(dtype)
-        if _needs_grad(x3, w, b):
-            tables_t = (weight.tables_t() if x3.requires_grad
-                        and weight.tables_t is not None else None)
-            y = RBGP4LinearStacked.apply(x3, w, b, weight.tables, tables_t,
-                                         fuse)
-        else:
-            y = rbgp4mm_rhs_stacked(weight.tables, x3, w, bias=b, act=fuse)
-        return y.reshape(*xc.shape[:-1], dims.m)
+        return compact_linear_stacked(weight.tables, xc,
+                                      weight.w_data.to(dtype), bias=b,
+                                      fuse=fuse, tables_t=weight.tables_t)
     if not isinstance(weight, DenseWeight):
         raise TypeError(f"not a weight container: {type(weight).__name__}")
     x3 = xc.reshape(e, -1, xc.shape[-1])
@@ -167,6 +142,25 @@ def sparse_linear_batched(weight: SparseWeight, x: torch.Tensor, *,
     if fuse is not None:
         y = EPILOGUE_ACTS[fuse](y)
     return y.reshape(*xc.shape[:-1], y.shape[-1])
+
+
+def sparse_matmul(weight: SparseWeight, x: torch.Tensor, *,
+                  dtype=None) -> torch.Tensor:
+    """O = W_s @ I (+ b per row); x (K, N) feature-major -> (M, N)."""
+    dtype = dtype or x.dtype
+    xc = x.to(dtype)
+    if isinstance(weight, CompactWeight):
+        out = compact_matmul(weight.tables, weight.w_data.to(dtype), xc,
+                             tables_t=weight.tables_t)
+    elif isinstance(weight, ChainWeight):
+        out = dense_weight(weight, dtype) @ xc
+    elif isinstance(weight, DenseWeight):
+        out = weight.w.to(dtype) @ xc
+    else:
+        raise TypeError(f"not a weight container: {type(weight).__name__}")
+    if weight.b is not None:
+        out = out + weight.b.to(dtype)[:, None]
+    return out
 
 
 def _unpack(col0: torch.Tensor, G: int, C: int, w_data: torch.Tensor,

@@ -24,6 +24,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import (ChainTransposeTables, KernelTables,
                                  TransposeTables, chain_tables,
                                  chain_transpose_tables)
@@ -36,7 +37,10 @@ __all__ = ["SparseLinear"]
 
 
 class SparseLinear(nn.Module):
-    """y = x @ W_s^T (+ b) with a configurable sparsity pattern."""
+    """y = x @ W_s^T (+ b) with a configurable sparsity pattern.
+
+    ``device`` defaults to the card; without CUDA that raises, naming
+    ``device="cpu"``."""
 
     def __init__(self, in_features: int, out_features: int,
                  cfg: Optional[Union[SparsityConfig, SparsityPlan]] = None,
@@ -45,6 +49,7 @@ class SparseLinear(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  name: str = "linear"):
         super().__init__()
+        device = resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
         self.use_bias = use_bias

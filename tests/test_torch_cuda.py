@@ -9,7 +9,12 @@ must also equal the unstacked kernel on that expert, bit for bit (one
 device body); and the deep-chain kernels ``chainmm_rhs`` (forward and
 transposed tables) and ``chain_sddmm_rhs`` and ``ChainLinear``'s
 gradients, at the chains of the CPU tests (G = C = 1 included) and
-tinyllama's four shapes under the hierarchical-block plan.
+tinyllama's four shapes under the hierarchical-block plan; and the
+feature-major kernels ``rbgp4mm`` (forward and transposed tables) and
+``rbgp4_sddmm`` (bit-equal on a rerun) and ``RBGP4Op.matmul``'s gradients,
+at G = C = 4, C = 2, the transposed G = 8, VGG19-CIFAR's widest layout,
+an odd G = 9 (C = 9 transposed) and G = 256 (C = 256 transposed), with a
+ragged N.
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -30,7 +35,10 @@ import torch
 from repro_torch.core import (ChainLayout, RBGP4Layout, RBGP4Spec,
                               design_rbgp, design_rbgp4)
 from repro_torch.kernels import (ChainLinear, KernelTables, RBGP4Linear,
-                                 RBGP4LinearStacked, TransposeTables,
+                                 RBGP4LinearStacked, RBGP4Op,
+                                 TransposeTables, rbgp4_sddmm,
+                                 rbgp4_sddmm_reference, rbgp4mm,
+                                 rbgp4mm_reference,
                                  rbgp4_sddmm_rhs, rbgp4_sddmm_rhs_reference,
                                  rbgp4_sddmm_rhs_stacked,
                                  rbgp4_sddmm_rhs_stacked_reference,
@@ -502,3 +510,103 @@ def test_cuda_chain_kernels_reject_what_they_do_not_take():
         chainmm_rhs(chain_tables(lay, "cpu"), x, w)
     with pytest.raises(ValueError):
         chainmm_rhs(t, x.t().contiguous().t(), w)
+
+
+# feature-major layouts: test_kernels.py's G = C = 4; design_rbgp4 at
+# WRN-40-4's 64 x 144 (C = 2; transposed G = 2), VGG19-CIFAR's 64 x 576
+# (transposed G = 8, C = 16) and 512 x 4608 (C = 64; transposed G = 64);
+# and two row groups rbgp4mm walks in more than one pass of row subsets:
+# G = 9 (odd: one row a subset; transposed C = 9) and G = 256 (transposed
+# C = 256, staged in passes of 64 columns)
+FM_LAYOUTS = [(64, 144), (64, 576), (512, 4608)]
+FM_SPECS = [((4, 4), (4, 4), (4, 4)), ((2, 4), (9, 4), (2, 4)),
+            ((2, 4), (256, 2), (2, 2))]
+
+
+def fm_layouts():
+    specs = [RBGP4Spec(g_o=g_o, g_r=g_r, g_i=g_i, g_b=(1, 1), sp_o=0.5,
+                       sp_i=0.5, seed=7) for g_o, g_r, g_i in FM_SPECS]
+    return [RBGP4Layout(spec) for spec in specs] + [
+        RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0)) for m, k in FM_LAYOUTS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_featmajor_kernels_match_plain_versions(dtype):
+    """``rbgp4mm`` on forward and transposed tables and ``rbgp4_sddmm``
+    (one slice of N, and many) against their plain versions; dW bit-equal
+    on a rerun."""
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dtype)
+    for lay in fm_layouts():
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        w = rnd(*lay.data_shape)
+        wt = tt.values(w)
+        for n in (1, 37, 300, 5000):
+            x, gy = rnd(lay.k, n), rnd(lay.m, n)
+            before = (rbgp4mm.launches, rbgp4mm.launches_dx,
+                      rbgp4_sddmm.launches)
+            o = rbgp4mm(tables, x, w)
+            dx = rbgp4mm(tt.tables, gy, wt)
+            dw = rbgp4_sddmm(tables, gy, x)
+            torch.cuda.synchronize()
+            assert (rbgp4mm.launches, rbgp4mm.launches_dx,
+                    rbgp4_sddmm.launches) == tuple(b + 1 for b in before)
+            assert o.dtype == dx.dtype == dw.dtype == dtype
+            assert_close(o, rbgp4mm_reference(tables, x, w), dtype,
+                         (lay.spec, n, "O"))
+            assert_close(dx, rbgp4mm_reference(tt.tables, gy, wt), dtype,
+                         (lay.spec, n, "dI"))
+            assert_close(dw, rbgp4_sddmm_reference(tables, gy, x), dtype,
+                         (lay.spec, n, "dW"))
+            # a rerun gives the same bits: no atomics, slices added in order
+            assert torch.equal(dw, rbgp4_sddmm(tables, gy, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_matmul_grads_match_plain_versions(dtype):
+    """O, dW and dI of ``RBGP4Op.matmul`` on the card against the same
+    inputs through the plain versions on the CPU."""
+    needs_card()
+    rng = np.random.default_rng(12)
+    for lay in fm_layouts():
+        ops = {d: RBGP4Op(lay, device=d) for d in ("cuda", "cpu")}
+        arrs = [rng.standard_normal(s).astype(np.float32) for s in
+                (lay.data_shape, (lay.k, 77), (lay.m, 77))]
+        outs = {}
+        for d, op in ops.items():
+            w, x, gy = (torch.tensor(a, device=d).to(dtype) for a in arrs)
+            w.requires_grad_()
+            x.requires_grad_()
+            o = op.matmul(w, x)
+            o.backward(gy)
+            outs[d] = (o.detach(), w.grad, x.grad)
+        for name, a, b in zip(("O", "dW", "dI"), outs["cuda"], outs["cpu"]):
+            assert a.device.type == "cuda" and a.dtype == dtype
+            assert_close(a.cpu(), b, dtype, (lay.spec, name), GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_featmajor_kernels_reject_what_they_do_not_take():
+    needs_card()
+    lay = RBGP4Layout(design_rbgp4(64, 576, 0.75, seed=0))
+    tables = KernelTables.build(lay, "cuda")
+    x = torch.randn(lay.k, 8, device="cuda")
+    w = torch.randn(lay.data_shape, device="cuda")
+    gy = torch.randn(lay.m, 8, device="cuda")
+    with pytest.raises(TypeError):
+        rbgp4mm(tables, x.half(), w.half())
+    with pytest.raises(TypeError):
+        rbgp4mm(tables, x, w.bfloat16())
+    with pytest.raises(ValueError):
+        rbgp4mm(tables, x.t().contiguous().t(), w)
+    with pytest.raises(TypeError):
+        rbgp4_sddmm(tables, gy, x.bfloat16())
+    with pytest.raises(ValueError):
+        rbgp4_sddmm(tables, gy[:, :3], x)
+    assert np.isfinite(rbgp4mm(tables, x, w).cpu().numpy()).all()
+    assert np.isfinite(rbgp4_sddmm(tables, gy, x).cpu().numpy()).all()

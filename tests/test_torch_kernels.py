@@ -177,7 +177,8 @@ def test_sparse_linear_epilogue_matches_reference(compact):
     kw = dict(pattern="rbgp4", sparsity=0.75, min_dim=64 if compact else 512)
     jmod = JSparseLinear(64, 128, JSparsityConfig(backend="auto", **kw),
                          use_bias=True)
-    tmod = SparseLinear(64, 128, SparsityConfig(**kw), use_bias=True)
+    tmod = SparseLinear(64, 128, SparsityConfig(**kw), use_bias=True,
+                        device="cpu")
     assert tmod.mode == ("compact" if compact else "dense")
     rng = np.random.default_rng(4)
     values = tmod.w_data if compact else tmod.w
