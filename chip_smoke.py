@@ -23,7 +23,12 @@ layers through the feature-major product:
   * the paper's feature-major SDMM O = W_s . I at the full width of
     VGG19-CIFAR's 15 sparse convs (the paper's Table 1 at batch 256),
     through ``sparse_matmul`` on ``rbgp4mm`` (O, and dI on the transposed
-    layouts) and ``rbgp4_sddmm`` (dW).
+    layouts) and ``rbgp4_sddmm`` (dW);
+  * weight-only int8 (post-training quantized) serving of the three
+    language models, as ``launch/serve.py --quant int8`` serves them:
+    every compact and chain projection in int8 leaf blocks with one f32
+    scale each, on the int8 (``scales=``) paths of ``rbgp4mm_rhs``,
+    ``rbgp4mm_rhs_stacked`` and ``chainmm_rhs``.
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the result line:
@@ -121,7 +126,33 @@ exits non-zero without the result line:
      every pass launches ``rbgp4mm`` 15 times on forward tables and 15 on
      transposed ones (dI), ``rbgp4_sddmm`` 15 times, and nothing else;
  21. parity-fm: the same 15 layers in float32 at batch 2, O, dW and dI on
-     the card against the CPU within 1e-5 * max|ref|.
+     the card against the CPU within 1e-5 * max|ref|;
+ 22. check-q: the int8 paths against their plain versions on the same
+     int8 values and scales (tolerances of phase 2), each rerun bit-equal:
+     ``rbgp4mm_rhs`` at tinyllama's four layouts and the CPU tests' small
+     layout (G = 4, C = 8) at N in {1, 8, 512}; ``rbgp4mm_rhs_stacked`` at
+     qwen2-moe's two expert layouts, 60 experts, 8, 128, 256 and 512 rows
+     an expert (decode and the prefill of each serve prompt length);
+     ``chainmm_rhs`` at the chain plan's four layouts and the two chains of
+     the CPU tests (G = C = 1 and a 2x2 leaf) at N in {1, 8, 512}; f32 and
+     bf16;
+ 23. times-q: as phase 3 at N = 8: each int8 kernel beside the same
+     layout's bf16 kernel, the int8 plain version, one PyTorch call on the
+     dequantized dense weights and the bound with 1-byte values and their
+     scales;
+ 24. serve-q: tinyllama under ``--quant int8`` (its plan stamped
+     ``quant='int8'``, ``quantize_weights``), phase 4's 16 requests: every
+     prefill call and decode step launches the int8 ``rbgp4mm_rhs`` 154
+     times and no full-precision sparse kernel; its numbers and stored
+     bytes beside phase 4's;
+ 25. serve-q-moe: qwen2-moe the same way, beside phase 8's: per pass 168
+     int8 ``rbgp4mm_rhs`` and 72 int8 ``rbgp4mm_rhs_stacked`` launches;
+ 26. serve-q-chain: tinyllama under the chain plan, beside phase 14's: per
+     pass 154 int8 ``chainmm_rhs`` launches and no RBGP4 kernel;
+ 27. parity-q: in float32 on 4 requests, the int8 model's greedy streams
+     against ``run_sequential`` on it and against the engine's streams
+     after ``dequantize_weights`` (near ties as phase 5): full-width
+     tinyllama, and qwen2-moe and the chain plan at 2 full-width layers.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -158,6 +189,9 @@ MOE_LAYER_PROJECTIONS = {"gate/up": 2, "down": 1}
 # rows an expert: decode (8 slots, full capacity), a training step
 # (ceil(4 * 512 * 4 / 60 * 1.25)), a full-capacity prefill of 512 tokens
 MOE_ROWS = {"decode": 8, "train": 171, "prefill": 512}
+# the serve phases' prompt lengths; the MoE engine prefills a request alone
+# at full capacity, so these are also the stacked kernels' prefill rows
+SERVE_PROMPT_LENS = (128, 256, 512)
 # tinyllama-1.1b under the hierarchical-block plan of
 # benchmarks/chain_executor.py: dense 4x4 outer blocking around three
 # Ramanujan factors (their sparsities allocated by the designer) and a
@@ -173,10 +207,15 @@ HIER_SMALL = (("complete", 4, 4, 0.0), ("ramanujan", 0, 0, 0.5),
               ("ramanujan", 0, 0, 0.5), ("ramanujan", 0, 0, 0.5),
               ("complete", 2, 2, 0.0))
 SMALL_CHAINS = {"3ram": (128, 128, T3), "hier": (128, 256, HIER_SMALL)}
-# the twelve launch counters, by role
+# the small RBGP4 layout of tests/test_torch_quant.py (G = 4, C = 8)
+SMALL_RBGP4 = dict(g_o=(4, 4), g_r=(4, 8), g_i=(4, 2), g_b=(1, 1),
+                   sp_o=0.5, sp_i=0.5, seed=3)
+# the fifteen launch counters, by role; the last three are the int8
+# (scales=) paths of rbgp4mm_rhs, rbgp4mm_rhs_stacked and chainmm_rhs
 COUNTERS = ("forward", "dx", "dw", "stacked_forward", "stacked_dx",
             "stacked_dw", "chain_forward", "chain_dx", "chain_dw",
-            "fm_forward", "fm_dx", "fm_dw")
+            "fm_forward", "fm_dx", "fm_dw", "forward_q", "stacked_forward_q",
+            "chain_forward_q")
 # VGG19-CIFAR's 15 sparsifiable convs at batch 256 as the paper's Table 1
 # measures them (benchmarks/table1_models.py:36-57, the plan of
 # src/repro/models/vision.py:123-124; the first conv and the classifier
@@ -234,15 +273,20 @@ def time_cuda(fn, n_iter: int = 30, n_warm: int = 5) -> float:
 
 
 def bound_ms(n: int, m: int, k: int, nnz_row: int, n_chunk_cols: int,
-             group_rows: int, elem_bytes: int,
-             e: int = 1) -> tuple[float, str]:
+             group_rows: int, elem_bytes: int, e: int = 1,
+             int8: bool = False) -> tuple[float, str]:
     """Least time for Y (n, m) = X (n, k) . W_s^T, for each of ``e``
     experts: every input read once (X, the compact W, the int32 column
     table the experts share), Y written once, against the data-sheet memory
     rate; the 2*e*n*m*nnz_row operations the sparse products need against
-    the bf16 tensor-core peak.  The larger bounds it."""
-    nbytes = (e * (n * k + m * nnz_row + n * m) * elem_bytes
-              + (m // group_rows) * n_chunk_cols * 4)
+    the bf16 tensor-core peak.  The larger bounds it.  ``int8``: W is int8
+    leaf blocks (1 byte a value) with one f32 scale per (row group,
+    chunk)."""
+    n_blocks = (m // group_rows) * n_chunk_cols
+    w_bytes = (m * nnz_row + 4 * n_blocks if int8
+               else m * nnz_row * elem_bytes)
+    nbytes = (e * ((n * k + n * m) * elem_bytes + w_bytes)
+              + n_blocks * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2.0 * e * n * m * nnz_row / BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
@@ -533,13 +577,16 @@ def launches_of(**kw) -> dict:
 
 
 def launch_counts() -> dict:
-    """The twelve launch counters, by role."""
+    """The fifteen launch counters, by role."""
     from repro_torch.kernels import (chain_sddmm_rhs, chainmm_rhs,
                                      rbgp4_sddmm, rbgp4_sddmm_rhs,
                                      rbgp4_sddmm_rhs_stacked, rbgp4mm,
                                      rbgp4mm_rhs, rbgp4mm_rhs_stacked)
 
     return {"forward": rbgp4mm_rhs.launches,
+            "forward_q": rbgp4mm_rhs.launches_q,
+            "stacked_forward_q": rbgp4mm_rhs_stacked.launches_q,
+            "chain_forward_q": chainmm_rhs.launches_q,
             "dx": rbgp4mm_rhs.launches_dx,
             "dw": rbgp4_sddmm_rhs.launches,
             "stacked_forward": rbgp4mm_rhs_stacked.launches,
@@ -560,6 +607,8 @@ def reset_launch_counts() -> None:
                                      rbgp4mm_rhs, rbgp4mm_rhs_stacked)
 
     rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = 0
+    rbgp4mm_rhs.launches_q = rbgp4mm_rhs_stacked.launches_q = 0
+    chainmm_rhs.launches_q = 0
     rbgp4_sddmm_rhs.launches = 0
     rbgp4mm_rhs_stacked.launches = rbgp4mm_rhs_stacked.launches_dx = 0
     rbgp4_sddmm_rhs_stacked.launches = 0
@@ -600,19 +649,43 @@ def free_card() -> None:
 def serve_requests(vocab: int, n: int, seed: int) -> list:
     from repro_torch.data import RequestStream
 
-    return RequestStream(vocab, n, prompt_lens=(128, 256, 512),
+    return RequestStream(vocab, n, prompt_lens=SERVE_PROMPT_LENS,
                          gen_lens=(8, 16, 32, 64), seed=seed).requests()
 
 
-def phase_serve(cfg, per_pass: dict, phase: str = "serve") -> dict:
+def quant_config(cfg):
+    """``cfg`` with its plan's compact and chain rules stamped
+    ``quant='int8'``, as ``launch/serve.py --quant int8`` stamps it."""
+    from repro_torch.configs import apply_sparsity
+
+    return apply_sparsity(cfg, plan=cfg.sparsity_rules.with_quant("int8"))
+
+
+def build_model(cfg, quant: bool):
+    """The model of ``cfg`` on the card, seed 0; with ``quant`` (a
+    ``quant_config``), its compact and chain projections quantized to int8
+    leaf blocks, as ``launch/serve.py --quant int8`` does."""
+    from repro_torch.models import LMModel
+    from repro_torch.sparsity import quantize_weights
+
+    model = LMModel(cfg, device="cuda", seed=0)
+    if quant:
+        quantize_weights(model)
+    return model
+
+
+def phase_serve(cfg, per_pass: dict, phase: str = "serve",
+                quant: bool = False, beside: dict = None) -> dict:
     """16 mixed requests through ``ContinuousEngine`` (bf16, f32 KV cache,
     8 slots, 16-token pages, greedy); every prefill call and every decode
-    step must launch ``per_pass``."""
-    from repro_torch.models import LMModel
+    step must launch ``per_pass``.  ``quant``: the weight-only int8 model
+    of ``cfg`` (a ``quant_config``); ``beside``: the result of the
+    full-precision run of the same model, printed beside this one."""
     from repro_torch.serve import ContinuousEngine
+    from repro_torch.sparsity import weight_bytes
 
     t0 = time.perf_counter()
-    model = LMModel(cfg, device="cuda", seed=0)
+    model = build_model(cfg, quant)
     torch.cuda.synchronize()
     n_compact = sum(1 for mod in model.modules()
                     if getattr(mod, "mode", None) == "compact")
@@ -620,17 +693,23 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve") -> dict:
                     if getattr(mod, "compact", False)) * 3
     n_chain = sum(1 for mod in model.modules()
                   if getattr(mod, "mode", None) == "chain")
-    if (n_compact, n_stacked, n_chain) != (per_pass["forward"],
-                                           per_pass["stacked_forward"],
-                                           per_pass["chain_forward"]):
+    n_quant = sum(1 for mod in model.modules()
+                  if getattr(mod, "quantized", False))
+    want = tuple(per_pass[k] + per_pass[k + "_q"]
+                 for k in ("forward", "stacked_forward", "chain_forward"))
+    if (n_compact, n_stacked, n_chain) != want:
         raise AssertionError(f"{n_compact} compact projections, "
                              f"{n_stacked} stacked ones and {n_chain} "
                              f"chains, want {per_pass}")
+    wb = weight_bytes(model)
     log(phase, f"{cfg.name}: {cfg.n_layers} layers, d_model "
                f"{cfg.d_model}, {model.n_params():,} stored values "
                f"({n_compact} compact rbgp4 projections, {n_stacked} "
-               f"stacked expert projections, {n_chain} chain projections), "
-               f"built in {time.perf_counter() - t0:.1f}s")
+               f"stacked expert projections, {n_chain} chain projections; "
+               f"{n_quant} modules in int8 storage), built in "
+               f"{time.perf_counter() - t0:.1f}s; stored bytes: sparse "
+               f"values {wb['values']:,}, scales {wb['scales']:,}, the "
+               f"rest {wb['other']:,}")
     reqs = serve_requests(cfg.vocab_size, 16, seed=0)
     max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
     kw = dict(page_size=16, max_slots=8, max_request_len=max_len,
@@ -689,6 +768,8 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve") -> dict:
         peak_allocated_blocks=st["peak_allocated_blocks"],
         launches=counts, launches_per_pass=per_pass,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        weight_bytes=wb,
+        plan_fingerprint=cfg.sparsity_rules.fingerprint(),
     )
     log(phase, f"served {len(out)} requests: {n_prompt} prompt + {n_gen} "
                f"new tokens in {wall:.3f}s = {res['tok_per_s']:.1f} tok/s")
@@ -703,28 +784,68 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve") -> dict:
                + f"; in all {counts} over {passes} passes; peak "
                  f"{st['peak_allocated_blocks']} blocks; peak memory "
                  f"{res['peak_mem_gb']:.2f} GB")
+    if beside is not None:
+        log(phase, "int8 against full precision (the same requests): "
+                   + ", ".join(
+                       f"{k} {res[k]:.4g} vs {beside[k]:.4g}"
+                       for k in ("tok_per_s", "decode_ms_per_step",
+                                 "prefill_time_s", "peak_mem_gb"))
+                   + f", sparse value + scale bytes "
+                     f"{wb['values'] + wb['scales']:,} vs "
+                     f"{beside['weight_bytes']['values']:,}")
     print(f"{phase} " + json.dumps(res), flush=True)
     del model, engine
     free_card()
     return res
 
 
-def phase_parity(cfg, reqs: list, phase: str = "parity") -> None:
-    """float32: the engine's greedy streams against ``run_sequential``; a
-    flip is tolerated only at a near tie of the top-2 logits."""
-    from repro_torch.models import LMModel
-    from repro_torch.serve import ContinuousEngine, run_sequential
+def serve_streams(model, reqs: list) -> tuple[dict, int]:
+    """The engine's greedy streams (f32 KV cache, 8 slots, 16-token
+    pages) and its gather length."""
+    from repro_torch.serve import ContinuousEngine
 
-    model = LMModel(cfg, device="cuda", seed=0)
     max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
     engine = ContinuousEngine(model, page_size=16, max_slots=8,
                               max_request_len=max_len,
                               cache_dtype=torch.float32)
-    t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r["prompt"], r["max_new_tokens"])
-    got = engine.drain()
-    want = run_sequential(model, reqs, cache_len=engine.gather_tokens)
+    return engine.drain(), engine.gather_tokens
+
+
+def phase_parity(cfg, reqs: list, phase: str = "parity",
+                 quant: bool = False) -> None:
+    """float32: the engine's greedy streams against ``run_sequential``; a
+    flip is tolerated only at a near tie of the top-2 logits.  ``quant``:
+    the weight-only int8 model of ``cfg`` (a ``quant_config``), whose
+    streams must also equal the engine's after ``dequantize_weights``."""
+    from repro_torch.serve import run_sequential
+    from repro_torch.sparsity import dequantize_weights
+
+    model = build_model(cfg, quant)
+    t0 = time.perf_counter()
+    got, gather = serve_streams(model, reqs)
+    want = run_sequential(model, reqs, cache_len=gather)
+    flips = same_streams(model, reqs, got, want, phase, "run_sequential")
+    what = "run_sequential"
+    if quant:
+        dequantize_weights(model)
+        deq, _ = serve_streams(model, reqs)
+        flips += same_streams(model, reqs, got, deq, phase,
+                              "the dequantized model's engine")
+        what += " and the dequantized model's engine"
+    n_tok = sum(len(v) for v in got.values())
+    log(phase, f"{cfg.name} ({cfg.n_layers} layers) float32 engine vs "
+               f"{what}: {len(reqs)} requests, {n_tok} tokens, {flips} "
+               f"near-tie flips ({time.perf_counter() - t0:.1f}s)")
+    del model
+    free_card()
+
+
+def same_streams(model, reqs: list, got: dict, want: dict, phase: str,
+                 what: str) -> int:
+    """Raises unless the streams are equal, a flip tolerated only at a
+    near tie of the top-2 logits; returns the number of such flips."""
     flips = 0
     for r in reqs:
         a, b = np.asarray(got[r["rid"]]), np.asarray(want[r["rid"]])
@@ -745,15 +866,10 @@ def phase_parity(cfg, reqs: list, phase: str = "parity") -> None:
                        f"(top-2 gap {gap:.3e} < 1e-4 x {scale:.3e})")
             continue
         raise AssertionError(
-            f"request {r['rid']}: engine and run_sequential differ at token "
+            f"request {r['rid']}: engine and {what} differ at token "
             f"{t} ({a[t]} vs {b[t]}; top-2 gap {gap:.3e}, max|logit| "
             f"{scale:.3e})")
-    n_tok = sum(len(v) for v in got.values())
-    log(phase, f"{cfg.name} float32 engine vs run_sequential: {len(reqs)} "
-               f"requests, {n_tok} tokens, {flips} near-tie flips "
-               f"({time.perf_counter() - t0:.1f}s)")
-    del model, engine
-    free_card()
+    return flips
 
 
 # kernel symbol (the trace names the kernel, not its role) -> its role,
@@ -1778,6 +1894,170 @@ def phase_parity_fm(layouts, batch: int = 2) -> None:
     free_card()
 
 
+# -- the int8 (scales=) paths: weight-only PTQ storage ------------------------
+
+def int8_values(shape, G: int, C: int, g) -> tuple:
+    """(q int8, scales f32) of random values, quantized per (G, C) leaf
+    block as the port's ``quantize_weights`` does."""
+    from repro_torch.sparsity.quant import quantize_block_values
+
+    return quantize_block_values(
+        torch.randn(shape, device="cuda", generator=g), G, C)
+
+
+def phase_check_q(layouts, experts, chains) -> dict:
+    """The int8 paths against their plain versions on the same int8
+    values and scales (tolerance as phase 2), each rerun bit-equal:
+    ``rbgp4mm_rhs`` at tinyllama's four layouts and the small layout of
+    the CPU tests at N in {1, 8, 512}; ``rbgp4mm_rhs_stacked`` at
+    qwen2-moe's two expert layouts, 60 experts, at the rows an expert that
+    serve-q-moe gives it (8 at decode; 128, 256 and 512 at a prefill);
+    ``chainmm_rhs`` at the hierarchical-block chain's four layouts and the
+    two chains of the CPU tests (G = C = 1 among them) at N in {1, 8,
+    512}; f32 and bf16.  Max abs diff per kernel."""
+    from repro_torch.core import RBGP4Layout, RBGP4Spec
+    from repro_torch.kernels import (KernelTables, chain_tables, chainmm_rhs,
+                                     chainmm_rhs_reference, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_reference,
+                                     rbgp4mm_rhs_stacked,
+                                     rbgp4mm_rhs_stacked_reference)
+    from repro_torch.sparsity import leaf_block_dims
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    max_abs = {"rbgp4": 0.0, "stacked": 0.0, "chain": 0.0}
+    n_cases = 0
+    rbgp4 = dict(layouts, small=RBGP4Layout(RBGP4Spec(**SMALL_RBGP4)))
+    families = (
+        ("rbgp4", rbgp4, (1, 8, 512), 1,
+         lambda lay: KernelTables.build(lay, "cuda"), rbgp4mm_rhs,
+         rbgp4mm_rhs_reference),
+        ("stacked", experts, (MOE_ROWS["decode"], *SERVE_PROMPT_LENS),
+         MOE_EXPERTS, lambda lay: KernelTables.build(lay, "cuda"),
+         rbgp4mm_rhs_stacked, rbgp4mm_rhs_stacked_reference),
+        ("chain", chains, (1, 8, 512), 1,
+         lambda lay: chain_tables(lay, "cuda"), chainmm_rhs,
+         chainmm_rhs_reference),
+    )
+    for family, lays, rows, e, tables_of, kernel, plain in families:
+        for key, lay in lays.items():
+            tables = tables_of(lay)
+            G, C = leaf_block_dims(lay)
+            lead = (e,) if family == "stacked" else ()
+            q, sc = int8_values((*lead, *lay.data_shape), G, C, g)
+            for dt in (torch.float32, torch.bfloat16):
+                worst = 0.0
+                for n in rows:
+                    x = torch.randn((*lead, n, lay.k), device="cuda",
+                                    generator=g).to(dt)
+                    run = lambda: kernel(tables, x, q, scales=sc)
+                    y = launched(kernel, run, "launches_q")
+                    what = f"int8 {family} {key} N={n}"
+                    err, rel = agree(what, y, plain(tables, x, q, scales=sc),
+                                     dt)
+                    if not torch.equal(y, run()):
+                        raise AssertionError(f"{what} {dt}: a rerun gave "
+                                             f"other bits")
+                    max_abs[family] = max(max_abs[family], err)
+                    worst = max(worst, rel)
+                    n_cases += 1
+                log("check-q", f"{family:7s} {key:8s} G = {G}, C = {C} "
+                               f"{str(dt):15s} max|diff|/max|ref| = "
+                               f"{worst:.2e} (N in {rows}), reruns "
+                               f"bit-equal")
+            del q, sc
+            torch.cuda.empty_cache()
+    log("check-q", f"{n_cases} int8 cases agree with their plain versions "
+                   f"on the same int8 values; max abs diff "
+                   + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items()))
+    return max_abs
+
+
+def phase_times_q(layouts, experts, chains, n: int = 8) -> dict:
+    """The int8 paths at a decode step's N rows, bf16 X and Y, one row per
+    (family, layout): the int8 kernel, the same layout's bf16 kernel on
+    the dequantized values, the int8 plain version, one PyTorch call on
+    the dequantized dense weights (``F.linear``; ``torch.bmm`` for the 60
+    experts), and the bound with 1-byte values and their scales; operands
+    cycled through more than the L2 cache as phase 3."""
+    from repro_torch.kernels import (KernelTables, chain_tables, chainmm_rhs,
+                                     chainmm_rhs_reference, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_reference,
+                                     rbgp4mm_rhs_stacked,
+                                     rbgp4mm_rhs_stacked_reference)
+    from repro_torch.kernels.chainmm import chain_unpack_dense
+    from repro_torch.kernels.ref import dequant_leaf_blocks, unpack_dense
+    from repro_torch.sparsity import leaf_block_dims
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    dt = torch.bfloat16
+    rows = {}
+    chain_full = {key: chains[key] for key in FULL_WIDTH}
+    families = (
+        ("rbgp4", layouts, 1, lambda lay: KernelTables.build(lay, "cuda"),
+         rbgp4mm_rhs, rbgp4mm_rhs_reference, unpack_dense),
+        ("stacked", experts, MOE_EXPERTS,
+         lambda lay: KernelTables.build(lay, "cuda"), rbgp4mm_rhs_stacked,
+         rbgp4mm_rhs_stacked_reference, unpack_dense),
+        ("chain", chain_full, 1, lambda lay: chain_tables(lay, "cuda"),
+         chainmm_rhs, chainmm_rhs_reference, chain_unpack_dense),
+    )
+    for family, lays, e, tables_of, kernel, plain, unpack in families:
+        for key, lay in lays.items():
+            tables = tables_of(lay)
+            G, C = leaf_block_dims(lay)
+            m, k = lay.m, lay.k
+            nnz = lay.data_shape[1]
+            chunks = nnz // C
+            lead = (e,) if family == "stacked" else ()
+            copies = max(2, -(-2 * L2_BYTES // (e * m * nnz)))
+            q, sc = int8_values((copies, *lead, m, nnz), G, C, g)
+            w16 = dequant_leaf_blocks(q, sc, G, C).to(dt)
+            dense_copies = max(2, -(-2 * L2_BYTES // (e * m * k * 2)))
+            wd = torch.stack([unpack(lay, w16[i % copies])
+                              for i in range(dense_copies)])
+            x = torch.randn((*lead, n, k), device="cuda", generator=g).to(dt)
+            c = lambda i: i % copies
+            d = lambda i: i % dense_copies
+            t_q = time_cuda(lambda i: kernel(tables, x, q[c(i)],
+                                             scales=sc[c(i)]))
+            t_bf16 = time_cuda(lambda i: kernel(tables, x, w16[c(i)]))
+            t_plain = time_cuda(lambda i: plain(tables, x, q[c(i)],
+                                                scales=sc[c(i)]))
+            if family == "stacked":
+                t_lib = time_cuda(lambda i: torch.bmm(
+                    x, wd[d(i)].transpose(1, 2)))
+            else:
+                t_lib = time_cuda(lambda i: F.linear(x, wd[d(i)]))
+            b, by = bound_ms(n, m, k, nnz, chunks, G, 2, e=e, int8=True)
+            b16, _ = bound_ms(n, m, k, nnz, chunks, G, 2, e=e)
+            rows[(family, key)] = dict(ms=t_q, plain_ms=t_plain,
+                                       library_ms=t_lib, bound_ms=b,
+                                       bound_by=by, bf16_ms=t_bf16,
+                                       bf16_bound_ms=b16)
+            log("times-q", f"{family:7s} {key:8s} N={n} (G = {G}, C = {C}"
+                           f"{f', {e} experts' if e > 1 else ''}): int8 "
+                           f"kernel {t_q:.4f} ms, bf16 kernel "
+                           f"{t_bf16:.4f} ms, int8 plain {t_plain:.4f} ms, "
+                           f"{'torch.bmm' if e > 1 else 'F.linear'} dense "
+                           f"{t_lib:.4f} ms, bound {b * 1e3:.2f} us ({by}; "
+                           f"bf16 {b16 * 1e3:.2f} us)")
+            del q, sc, w16, wd, x
+            torch.cuda.empty_cache()
+    return rows
+
+
+def per_layer_q(rows: dict, family: str, projections: dict) -> dict:
+    """One decoder layer's projections of an int8 path: ``per_layer``'s
+    sums, with the bf16 kernel's time and bound beside them."""
+    sub = {(key, 8): row for (fam, key), row in rows.items()
+           if fam == family}
+    agg = per_layer(sub, 8, projections)
+    for f in ("bf16_ms", "bf16_bound_ms"):
+        agg[f] = sum(count * sub[(key, 8)][f]
+                     for key, count in projections.items())
+    return agg
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -1853,6 +2133,35 @@ def main() -> int:
     phase_parity_fm(fm)
     t_fm += time.perf_counter() - t_sdmm
 
+    # weight-only int8 (PTQ) serving: the scales= paths of rbgp4mm_rhs,
+    # rbgp4mm_rhs_stacked and chainmm_rhs, and no full-precision launch of
+    # those kernels
+    t_q = time.perf_counter()
+    max_abs_q = phase_check_q(layouts, experts, chains)
+    times_q = phase_times_q(layouts, experts, chains)
+    serve_q = phase_serve(quant_config(tiny),
+                          launches_of(forward_q=n_tiny), phase="serve-q",
+                          quant=True, beside=serve)
+    serve_q_moe = phase_serve(quant_config(moe),
+                              launches_of(forward_q=n_c,
+                                          stacked_forward_q=n_s),
+                              phase="serve-q-moe", quant=True,
+                              beside=serve_moe)
+    serve_q_chain = phase_serve(quant_config(chain),
+                                launches_of(chain_forward_q=n_tiny),
+                                phase="serve-q-chain", quant=True,
+                                beside=serve_chain)
+    phase_parity(quant_config(main_config("float32")),
+                 serve_requests(tiny.vocab_size, 4, seed=1),
+                 phase="parity-q", quant=True)
+    phase_parity(quant_config(moe_config("float32").with_(n_layers=2)),
+                 serve_requests(moe.vocab_size, 4, seed=1),
+                 phase="parity-q", quant=True)
+    phase_parity(quant_config(chain_config("float32").with_(n_layers=2)),
+                 serve_requests(chain.vocab_size, 4, seed=1),
+                 phase="parity-q", quant=True)
+    t_q = time.perf_counter() - t_q
+
     per_layout = {f"{key} {kind if isinstance(kind, str) else f'N={kind}'}":
                   row for (key, kind), row in times.items()}
     per_layout.update({f"experts {key} {kind if isinstance(kind, str) else f'N={kind}'}":
@@ -1861,6 +2170,8 @@ def main() -> int:
                        row for (key, kind), row in times_chain.items()})
     per_layout.update({f"fm {m}x{k} N={n} {role}": row
                        for ((m, k, n), role), row in times_fm.items()})
+    per_layout.update({f"int8 {family} {key} N=8": row
+                       for (family, key), row in times_q.items()})
     print("kernel_times " + json.dumps(per_layout), flush=True)
     src = "src/repro_torch/kernels/csrc/"
     # the forward: one decoder layer's seven projections at decode (N = 8
@@ -1879,8 +2190,11 @@ def main() -> int:
     vgg19 = collections.Counter(VGG19_SDMM)
     fm_pass = {role: per_layer(times_fm, role, vgg19)
                for role in ("fwd", "dx", "dw")}
+    q_fwd = per_layer_q(times_q, "rbgp4", LAYER_PROJECTIONS)
+    q_s_fwd = per_layer_q(times_q, "stacked", MOE_LAYER_PROJECTIONS)
+    q_c_fwd = per_layer_q(times_q, "chain", LAYER_PROJECTIONS)
     main_runs = (serve, train, serve_moe, train_moe, serve_chain,
-                 train_chain, sdmm)
+                 train_chain, sdmm, serve_q, serve_q_moe, serve_q_chain)
     total = lambda role: sum(run["launches"][role] for run in main_runs)
     record = {"kernels": [
         dict(name="rbgp4mm_rhs", route="cuda", source=src + "rbgp4mm_rhs.cu",
@@ -1974,13 +2288,42 @@ def main() -> int:
              max_abs_err=max_abs_fm["dw"], **fm_pass["dw"],
              work="compact dW = pack(dO . I^T) of VGG19-CIFAR's 15 sparse "
                   "convs, batch 256, bf16"),
+        dict(name="rbgp4mm_rhs (int8 scales=)", route="cuda",
+             source=src + "rbgp4mm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:500",
+             launches=total("forward_q"), max_abs_err=max_abs_q["rbgp4"],
+             **q_fwd,
+             work="forward of weight-only int8 projections (serve "
+                  "tinyllama and qwen2-moe attention and shared expert "
+                  "under --quant int8); timed: one tinyllama decoder "
+                  "layer's seven at decode, 8 token rows, bf16 X; bf16_ms "
+                  "is the bf16 path on the same layer"),
+        dict(name="rbgp4mm_rhs_stacked (int8 scales=)", route="cuda",
+             source=src + "rbgp4mm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:773",
+             launches=total("stacked_forward_q"),
+             max_abs_err=max_abs_q["stacked"], **q_s_fwd,
+             work="forward of qwen2-moe's int8 routed experts (serve at "
+                  "full capacity under --quant int8); timed: one MoE "
+                  "layer's gate, up and down, 60 experts, 8 rows an "
+                  "expert, bf16 X"),
+        dict(name="chainmm_rhs (int8 scales=)", route="cuda",
+             source=src + "chainmm_rhs.cu",
+             replaces="src/repro/kernels/chainmm.py:309",
+             launches=total("chain_forward_q"),
+             max_abs_err=max_abs_q["chain"], **q_c_fwd,
+             work="forward of tinyllama's int8 chain projections under "
+                  "the hierarchical-block plan (serve under --quant "
+                  "int8); timed: one decoder layer's seven at decode, 8 "
+                  "token rows, bf16 X"),
     ]}
     for row in record["kernels"]:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} never launched on the main "
                                  f"path")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s "
-                f"on {smi}; the four feature-major phases took {t_fm:.1f}s")
+                f"on {smi}; the four feature-major phases took {t_fm:.1f}s, "
+                f"the int8 phases {t_q:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

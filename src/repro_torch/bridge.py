@@ -13,10 +13,15 @@ periods into ``(T, ...)`` leaves; the bridge splits them per layer with
 layer's leaves map by name: ``ffn.router`` (E, D), the stacked experts
 ``ffn.experts.{gate,up,down}.w_data`` (E, M, nnz_row) (or the dense
 ``ffn.experts.{gate,up,down}`` (E, M, K)) and the shared expert
-``ffn.shared.*``.  Every shape is checked, and a missing, unexpected or
-misshapen weight raises.  Values are cast to the dtype each port tensor
-stores (the compute dtype for projections, embedding and head; float32 for
-the router and the norm scales).
+``ffn.shared.*``.  A quantized reference tree (``quantize_weights``) gives
+each ``QuantizedWeight`` as ``{"q_data": ..., "scales": ..., "b": ...}``;
+it loads into a port model quantized the same way (``quantize_weights``
+first), as ``<path>.q_data`` (int8, kept int8) and ``<path>.scales``
+(float32).  Every shape is checked, and a missing, unexpected or
+misshapen weight raises, as does int8 for a full-precision tensor or the
+other way round.  Values are cast to the dtype each port tensor stores
+(the compute dtype for projections, embedding and head; float32 for the
+router, the norm scales and the int8 storage's scales).
 """
 from __future__ import annotations
 
@@ -81,6 +86,10 @@ def load_jax_params(model, tree: dict) -> None:
         if tuple(arr.shape) != tuple(want.shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
                              f"{tuple(want.shape)}")
+        if (arr.dtype == np.int8) != (want.dtype == torch.int8):
+            raise TypeError(f"{name}: {arr.dtype} values for a {want.dtype} "
+                            f"tensor (int8 leaf blocks load only into "
+                            f"int8 storage)")
         if arr.dtype.kind not in "fiub":  # e.g. bfloat16 from JAX
             arr = arr.astype(np.float32)
         state[name] = torch.tensor(arr).to(device=want.device,

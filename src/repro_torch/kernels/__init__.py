@@ -7,8 +7,9 @@ kernels of the same names in ``repro/kernels/rbgp4mm.py``,
 ``repro/kernels/chainmm.py``; ``ops.RBGP4MatMul``, ``ops.RBGP4Linear``,
 ``ops.RBGP4LinearStacked`` and ``ops.ChainLinear`` are the differentiable
 products built on them, and ``ops.RBGP4Op`` (cached by ``get_op``) the
-per-layer bundle of the reference.  The int8 ``scales=`` variants come
-with a later slice (see ROADMAP.md).
+per-layer bundle of the reference.  ``rbgp4mm_rhs``,
+``rbgp4mm_rhs_stacked`` and ``chainmm_rhs`` take ``scales=``, the int8
+leaf-block path of the weight-only PTQ storage (``sparsity/quant.py``).
 """
 from . import build, ref
 from .chainmm import (

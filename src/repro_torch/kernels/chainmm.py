@@ -27,8 +27,14 @@ On a CUDA tensor each wrapper launches its hand-written kernel in
 a CPU tensor it runs its plain version (``*_reference``).  There is no
 other path: a failed build or launch raises.  Launch counters, moved only
 where a kernel launches: ``chainmm_rhs.launches`` on forward tables,
-``chainmm_rhs.launches_dx`` on transposed ones, ``chain_sddmm_rhs.launches``.
-The int8 ``scales=`` path comes with a later slice.
+``chainmm_rhs.launches_dx`` on transposed ones, ``chainmm_rhs.launches_q``
+on the int8 path, ``chain_sddmm_rhs.launches``.
+
+``chainmm_rhs`` takes ``scales=`` (the int8 path of the reference's
+``has_scales``): ``w_data`` then holds int8 leaf blocks and ``scales``
+(M/G, n_chunks) one float32 scale per (G, C) leaf block, the table's own
+(G, C), so scale column ``s`` is chunk ``s``; each block is dequantized
+in float32 (``q * scale``) before the f32 sums.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from .rbgp4mm import _DTYPE_CODES, _check_cuda, _launch
+from .ref import dequant_leaf_blocks
 
 __all__ = ["ChainTables", "ChainTransposeTables", "chain_tables",
            "chain_transpose_tables", "chain_layout_cache_key",
@@ -265,31 +272,67 @@ def _check_args(tables: ChainTables, x, w_data):
         raise ValueError(f"x {tuple(x.shape)} is not (N, K={tables.k})")
 
 
+def _check_scales(tables: ChainTables, w_data, scales):
+    want = (tables.m // tables.group_rows, tables.n_chunks)
+    if tuple(scales.shape) != want:
+        raise ValueError(f"scales {tuple(scales.shape)} != {want}")
+    if w_data.dtype != torch.int8:
+        raise TypeError(f"with scales, w_data holds int8 leaf blocks, got "
+                        f"{w_data.dtype}")
+
+
 def chainmm_rhs_reference(tables: ChainTables, x: torch.Tensor,
-                          w_data: torch.Tensor) -> torch.Tensor:
+                          w_data: torch.Tensor, *,
+                          scales: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Plain version: gather of the chunks + einsum, f32 sums, written in
-    the dtype of X."""
+    the dtype of X.  With ``scales``, int8 ``w_data`` is dequantized in
+    f32 first."""
     _check_args(tables, x, w_data)
+    if scales is None:
+        w32 = w_data.float()
+    else:
+        _check_scales(tables, w_data, scales)
+        w32 = dequant_leaf_blocks(w_data, scales, tables.group_rows,
+                                  tables.chunk_cols)
     xg = _gather_chunks(tables, x.float())
     n, r, s, c = xg.shape
-    w = w_data.float().reshape(r, tables.group_rows, s, c)
+    w = w32.reshape(r, tables.group_rows, s, c)
     y = torch.einsum("nrsc,rgsc->nrg", xg, w)
     return y.reshape(n, tables.m).to(x.dtype)
 
 
 def chainmm_rhs(tables: ChainTables, x: torch.Tensor,
-                w_data: torch.Tensor) -> torch.Tensor:
+                w_data: torch.Tensor, *,
+                scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Y = X @ W_s^T; X (N, K) token-major -> Y (N, M), from chain storage
     ``w_data`` (M, nnz_row).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel,
     which takes float32 or bfloat16 X and W of one dtype, both contiguous,
-    sums in float32 and writes Y in that dtype.
+    sums in float32 and writes Y in that dtype.  ``scales`` (M/G,
+    n_chunks) float32 selects the int8 path (int8 ``w_data``, its own
+    kernel, counted in ``launches_q``).
     """
     _check_args(tables, x, w_data)
     if x.device.type == "cpu":
-        return chainmm_rhs_reference(tables, x, w_data)
+        return chainmm_rhs_reference(tables, x, w_data, scales=scales)
     dt = x.dtype
+    if scales is not None:
+        _check_scales(tables, w_data, scales)
+        _check_cuda("chainmm_rhs", tables, dt,
+                    {"x": x, "w_data": w_data, "scales": scales},
+                    {"w_data": torch.int8, "scales": torch.float32})
+        n = x.shape[0]
+        out = torch.empty((n, tables.m), dtype=dt, device=x.device)
+        if n > 0:
+            _launch("chainmm_rhs", "chainmm_rhs_q", "ipppppiiiiiip",
+                    _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
+                    scales.data_ptr(), tables.col0.data_ptr(),
+                    out.data_ptr(), n, tables.k, tables.m, tables.n_chunks,
+                    tables.group_rows, tables.chunk_cols, x.device)
+            chainmm_rhs.launches_q += 1
+        return out
     _check_cuda("chainmm_rhs", tables, dt, {"x": x, "w_data": w_data})
     n = x.shape[0]
     out = torch.empty((n, tables.m), dtype=dt, device=x.device)
@@ -306,7 +349,7 @@ def chainmm_rhs(tables: ChainTables, x: torch.Tensor,
     return out
 
 
-chainmm_rhs.launches = chainmm_rhs.launches_dx = 0
+chainmm_rhs.launches = chainmm_rhs.launches_dx = chainmm_rhs.launches_q = 0
 
 
 def _check_sddmm_args(tables: ChainTables, g, x):

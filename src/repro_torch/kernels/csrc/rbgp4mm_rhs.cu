@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/rbgp4mm.py:rbgp4mm_rhs
 // (_mm_rhs_kernel, _rhs_accumulate, _rhs_writeback), with `save_preact`
-// (the pre-activation Z = X . W_s^T + b as a second output) but without
-// the int8 `scales` path.  Training runs it three ways: the forward of
+// (the pre-activation Z = X . W_s^T + b as a second output) and the int8
+// `scales` path (has_scales; see the end of this note).  Training runs it
+// three ways: the forward of
 // every compact projection (with Z where an activation is fused), its
 // recompute under activation checkpointing, and dX = gz . W_s as this
 // kernel on the layer's transposed layout.
@@ -65,9 +66,30 @@
 // What the design does about it: nothing yet, it is the FMA design above;
 // tensor cores, TMA and a ring come with the later version of all the
 // kernels.
+//
+// The int8 path (rbgp4mm_rhs_q, rbgp4mm_rhs_stacked_q; the reference's
+// has_scales branch of _mm_rhs_kernel and _mm_rhs_stacked_kernel, in
+// _rhs_accumulate): weight-only PTQ storage, w int8 (same shape) and
+// scales (M/G, d_o*d_i) float32, one scale per (G x C) leaf block, i.e. per
+// (row group rg, slot s): scales[rg*(d_o*d_i) + s], and for expert e of
+// the stacked entry point at offset e*(M/G)*(d_o*d_i).  It is the same
+// device body: the W staging loop loads the int8 value and multiplies it
+// by its slot's one scale in f32 (q * scale, as the plain version
+// dequantizes) where the f32/bf16 path converts the value; sums stay f32,
+// X and Y keep their type (f32 or bf16).  The epilogue is off (the caller
+// applies bias, activation and residual in torch, as the reference's
+// dispatcher does) and there is no Z: PTQ storage has no gradient.  What
+// bounds it on an H100: bytes, at decode, as above, with a value at 1 byte
+// instead of bf16's 2 plus 4/(G*C) bytes of scale, so a little over half
+// the bf16 path's bound.  The design does nothing more for it yet: one
+// byte a thread per load (char4 / 16-byte loads, cp.async and tensor
+// cores are later work), so the time tracks the bf16 path's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -109,21 +131,24 @@ __device__ __forceinline__ float activate(float z, int act) {
   }
 }
 
-// The body of both entry kernels below: one (BN tokens x G rows) tile of
-// row group blockIdx.x, token block blockIdx.y, expert blockIdx.z.
-template <typename T>
+// The body of all four entry kernels below: one (BN tokens x G rows) tile
+// of row group blockIdx.x, token block blockIdx.y, expert blockIdx.z.  W is
+// the value type: T, or int8_t with one float scale per leaf block.
+template <typename T, typename W>
 __device__ __forceinline__ void rhs_tile(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const int* __restrict__ col0, const T* __restrict__ bias,
-    const T* __restrict__ residual, T* __restrict__ out,
-    T* __restrict__ zout, int n_tokens, int k, int m, int n_chunks, int G,
-    int C, int bn, int act) {
+    const T* __restrict__ x, const W* __restrict__ w,
+    const float* __restrict__ scales, const int* __restrict__ col0,
+    const T* __restrict__ bias, const T* __restrict__ residual,
+    T* __restrict__ out, T* __restrict__ zout, int n_tokens, int k, int m,
+    int n_chunks, int G, int C, int bn, int act) {
+  constexpr bool kInt8 = std::is_same<W, int8_t>::value;
   // expert e = blockIdx.z (0 for the unstacked entry point): its operands
   // start at e times their per-expert sizes
   const long long e = blockIdx.z;
   const long long w_row = (long long)n_chunks * C;  // compact row length
   x += e * n_tokens * k;
   w += e * m * w_row;
+  if constexpr (kInt8) scales += e * (m / G) * n_chunks;
   if (bias != nullptr) bias += e * m;
   out += e * n_tokens * m;
   if (zout != nullptr) zout += e * n_tokens * m;
@@ -145,9 +170,12 @@ __device__ __forceinline__ void rhs_tile(
   for (int a = 0; a < kAccPerThread; ++a) acc[a] = 0.0f;
 
   const int* cols = col0 + (long long)rg * n_chunks;
-  const T* w_blk = w + (long long)rg * G * w_row;
+  const W* w_blk = w + (long long)rg * G * w_row;
   for (int s = 0; s < n_chunks; ++s) {
     const int c_base = cols[s];  // input column of slot (s, c = 0)
+    // the (G x C) leaf block of slot s has one scale (int8 path only)
+    float scale = 1.0f;
+    if constexpr (kInt8) scale = scales[(long long)rg * n_chunks + s];
     for (int c0 = 0; c0 < C; c0 += ct) {
       const int cw = min(ct, C - c0);  // live columns in this pass
       // x[n0 : n0+bn, c_base+c0 : +cw], zeros past the token edge
@@ -165,7 +193,13 @@ __device__ __forceinline__ void rhs_tile(
         const int g = i / ct;
         const int c = i - g * ct;
         float v = 0.0f;
-        if (c < cw) v = to_f32(w_blk[(long long)g * w_row + (long long)s * C + c0 + c]);
+        if (c < cw) {
+          const W q = w_blk[(long long)g * w_row + (long long)s * C + c0 + c];
+          if constexpr (kInt8)
+            v = static_cast<float>(q) * scale;
+          else
+            v = to_f32(q);
+        }
         ws[g * ld + c] = v;
       }
       __syncthreads();
@@ -202,8 +236,8 @@ __device__ __forceinline__ void rhs_tile(
   }
 }
 
-// Two entry kernels with one body, so that a profile of the card tells
-// the stacked launches from the others.
+// Four entry kernels with one body, so that a profile of the card tells
+// the stacked launches and the int8 ones from the others.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     rbgp4mm_rhs_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -212,8 +246,8 @@ __global__ void __launch_bounds__(kThreads)
                        const T* __restrict__ residual, T* __restrict__ out,
                        T* __restrict__ zout, int n_tokens, int k, int m,
                        int n_chunks, int G, int C, int bn, int act) {
-  rhs_tile<T>(x, w, col0, bias, residual, out, zout, n_tokens, k, m,
-              n_chunks, G, C, bn, act);
+  rhs_tile<T, T>(x, w, nullptr, col0, bias, residual, out, zout, n_tokens,
+                 k, m, n_chunks, G, C, bn, act);
 }
 
 template <typename T>
@@ -223,8 +257,32 @@ __global__ void __launch_bounds__(kThreads) rbgp4mm_rhs_stacked_kernel(
     const T* __restrict__ residual, T* __restrict__ out,
     T* __restrict__ zout, int n_tokens, int k, int m, int n_chunks, int G,
     int C, int bn, int act) {
-  rhs_tile<T>(x, w, col0, bias, residual, out, zout, n_tokens, k, m,
-              n_chunks, G, C, bn, act);
+  rhs_tile<T, T>(x, w, nullptr, col0, bias, residual, out, zout, n_tokens,
+                 k, m, n_chunks, G, C, bn, act);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rbgp4mm_rhs_q_kernel(const T* __restrict__ x,
+                         const int8_t* __restrict__ q,
+                         const float* __restrict__ scales,
+                         const int* __restrict__ col0, T* __restrict__ out,
+                         int n_tokens, int k, int m, int n_chunks, int G,
+                         int C, int bn) {
+  rhs_tile<T, int8_t>(x, q, scales, col0, nullptr, nullptr, out, nullptr,
+                      n_tokens, k, m, n_chunks, G, C, bn, kNone);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rbgp4mm_rhs_stacked_q_kernel(const T* __restrict__ x,
+                                 const int8_t* __restrict__ q,
+                                 const float* __restrict__ scales,
+                                 const int* __restrict__ col0,
+                                 T* __restrict__ out, int n_tokens, int k,
+                                 int m, int n_chunks, int G, int C, int bn) {
+  rhs_tile<T, int8_t>(x, q, scales, col0, nullptr, nullptr, out, nullptr,
+                      n_tokens, k, m, n_chunks, G, C, bn, kNone);
 }
 
 // Token rows per block: a power of two covering n_tokens (so a decode
@@ -238,21 +296,40 @@ int block_tokens(int n_tokens, int G) {
   return bn < cap ? bn : cap;
 }
 
+// The launch shape shared by every entry point: token rows per block, grid
+// and shared memory; false when the shapes are refused.
+struct Plan {
+  int bn;
+  dim3 grid;
+  size_t smem;
+};
+
+bool plan_launch(int n_experts, int n_tokens, int m, int G, int C,
+                 Plan* p) {
+  if (G < 1 || C < 1 || m % G != 0 || n_tokens < 1 || n_experts < 1 ||
+      n_experts > 65535)
+    return false;
+  p->bn = block_tokens(n_tokens, G);
+  if (p->bn < 1) return false;
+  const int ct = C < kTileC ? C : kTileC;
+  p->smem = (size_t)(p->bn + G) * (ct + 1) * sizeof(float);
+  if (p->smem > 48 * 1024) return false;
+  p->grid = dim3(m / G, (n_tokens + p->bn - 1) / p->bn, n_experts);
+  return true;
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* col0,
                    const void* bias, const void* residual, void* out,
                    void* zout, bool stacked, int n_experts, int n_tokens,
                    int k, int m, int n_chunks, int G, int C, int act,
                    cudaStream_t stream) {
-  if (G < 1 || C < 1 || m % G != 0 || n_tokens < 1 || n_experts < 1 ||
-      n_experts > 65535)
+  Plan p;
+  if (!plan_launch(n_experts, n_tokens, m, G, C, &p))
     return cudaErrorInvalidValue;
-  const int bn = block_tokens(n_tokens, G);
-  if (bn < 1) return cudaErrorInvalidValue;
-  const int ct = C < kTileC ? C : kTileC;
-  const size_t smem = (size_t)(bn + G) * (ct + 1) * sizeof(float);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const dim3 grid(m / G, (n_tokens + bn - 1) / bn, n_experts);
+  const int bn = p.bn;
+  const dim3 grid = p.grid;
+  const size_t smem = p.smem;
   const auto kernel =
       stacked ? rbgp4mm_rhs_stacked_kernel<T> : rbgp4mm_rhs_kernel<T>;
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -260,6 +337,23 @@ cudaError_t launch(const void* x, const void* w, const void* col0,
       static_cast<const int*>(col0), static_cast<const T*>(bias),
       static_cast<const T*>(residual), static_cast<T*>(out),
       static_cast<T*>(zout), n_tokens, k, m, n_chunks, G, C, bn, act);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_q(const void* x, const void* q, const void* scales,
+                     const void* col0, void* out, bool stacked,
+                     int n_experts, int n_tokens, int k, int m, int n_chunks,
+                     int G, int C, cudaStream_t stream) {
+  Plan p;
+  if (!plan_launch(n_experts, n_tokens, m, G, C, &p))
+    return cudaErrorInvalidValue;
+  const auto kernel =
+      stacked ? rbgp4mm_rhs_stacked_q_kernel<T> : rbgp4mm_rhs_q_kernel<T>;
+  kernel<<<p.grid, kThreads, p.smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scales), static_cast<const int*>(col0),
+      static_cast<T*>(out), n_tokens, k, m, n_chunks, G, C, p.bn);
   return cudaGetLastError();
 }
 
@@ -304,6 +398,43 @@ extern "C" int rbgp4mm_rhs_stacked_launch(int dtype, const void* x,
     return (int)launch<__nv_bfloat16>(x, w, col0, bias, nullptr, out, zout,
                                       true, n_experts, n_tokens, k, m,
                                       n_chunks, G, C, act, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 entry points: x (N, K) or (E, N, K) of dtype, q int8 of the
+// compact shape (M, n_chunks*C) or (E, M, n_chunks*C), scales float32
+// (M/G, n_chunks) or (E, M/G, n_chunks), out like x's rows by M.  No
+// epilogue.  Each returns the cudaError_t of the launch.
+extern "C" int rbgp4mm_rhs_q_launch(int dtype, const void* x, const void* q,
+                                    const void* scales, const void* col0,
+                                    void* out, int n_tokens, int k, int m,
+                                    int n_chunks, int G, int C,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_q<float>(x, q, scales, col0, out, false, 1, n_tokens,
+                                k, m, n_chunks, G, C, s);
+  if (dtype == 1)
+    return (int)launch_q<__nv_bfloat16>(x, q, scales, col0, out, false, 1,
+                                        n_tokens, k, m, n_chunks, G, C, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int rbgp4mm_rhs_stacked_q_launch(int dtype, const void* x,
+                                            const void* q,
+                                            const void* scales,
+                                            const void* col0, void* out,
+                                            int n_experts, int n_tokens,
+                                            int k, int m, int n_chunks,
+                                            int G, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_q<float>(x, q, scales, col0, out, true, n_experts,
+                                n_tokens, k, m, n_chunks, G, C, s);
+  if (dtype == 1)
+    return (int)launch_q<__nv_bfloat16>(x, q, scales, col0, out, true,
+                                        n_experts, n_tokens, k, m, n_chunks,
+                                        G, C, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -20,6 +20,15 @@ Token-major, the layout the models use:
                      with ``save_preact`` and no residual;
 ``rbgp4_sddmm_rhs_stacked``  dW[e] = pack(g[e]^T @ x[e]) for all experts.
 
+``rbgp4mm_rhs`` and ``rbgp4mm_rhs_stacked`` take ``scales=`` (the int8
+path of the reference's ``has_scales``): ``w_data`` then holds int8 leaf
+blocks and ``scales`` one float32 scale per (G, C) leaf block, (M/G,
+d_o*d_i) (stacked: (E, M/G, d_o*d_i)); each block is dequantized in
+float32 (``q * scale``) before the f32 sums.  That path has no epilogue
+(bias, activation and residual follow in torch, as the reference's
+dispatcher applies them) and no ``save_preact``: PTQ storage serves and
+never trains.
+
 W_s is in compact RBGP4 storage ``w_data`` (M, d_o*d_i*C), stacked
 (E, M, d_o*d_i*C) over one layout for the experts.  On a CUDA tensor each
 wrapper launches its hand-written kernel in ``csrc/`` (see the source notes
@@ -34,8 +43,9 @@ never count): ``rbgp4mm.launches`` on forward layouts,
 ``rbgp4mm_rhs.launches_dx`` on transposed ones (dX, tables built with
 ``transposed=True``), ``rbgp4_sddmm_rhs.launches``, and the same three
 for the stacked kernels: ``rbgp4mm_rhs_stacked.launches``,
-``rbgp4mm_rhs_stacked.launches_dx`` and ``rbgp4_sddmm_rhs_stacked.launches``.
-The int8 ``scales=`` paths come with a later slice.
+``rbgp4mm_rhs_stacked.launches_dx`` and ``rbgp4_sddmm_rhs_stacked.launches``,
+and the int8 paths apart from them: ``rbgp4mm_rhs.launches_q`` and
+``rbgp4mm_rhs_stacked.launches_q``.
 """
 from __future__ import annotations
 
@@ -48,8 +58,9 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .ref import (gather_mm, gather_mm_rhs, gather_mm_rhs_stacked,
-                  gather_sddmm, gather_sddmm_rhs, gather_sddmm_rhs_stacked)
+from .ref import (dequant_leaf_blocks, gather_mm, gather_mm_rhs,
+                  gather_mm_rhs_stacked, gather_sddmm, gather_sddmm_rhs,
+                  gather_sddmm_rhs_stacked)
 
 __all__ = ["KernelDims", "KernelTables", "TransposeTables", "EPILOGUE_ACTS",
            "rbgp4mm", "rbgp4mm_reference", "rbgp4_sddmm",
@@ -194,19 +205,50 @@ def _check_args(dims, x, w_data, act):
         raise ValueError(f"act {act!r} not in {sorted(EPILOGUE_ACTS)}")
 
 
+def _check_scales(dims, w_data, scales, lead: tuple = (), **epilogue):
+    """The int8 path: one float32 scale per (G, C) leaf block, int8
+    values, and no epilogue (``epilogue`` names the arguments given)."""
+    want = (*lead, dims.m // dims.group_rows, dims.d_o * dims.d_i)
+    if tuple(scales.shape) != want:
+        raise ValueError(f"scales {tuple(scales.shape)} != {want}")
+    if w_data.dtype != torch.int8:
+        raise TypeError(f"with scales, w_data holds int8 leaf blocks, got "
+                        f"{w_data.dtype}")
+    given = sorted(k for k, v in epilogue.items()
+                   if v is not None and v is not False)
+    if given:
+        raise ValueError(f"the int8 scales= path has no epilogue ({given} "
+                         f"given): apply bias, activation and residual "
+                         f"after it")
+
+
+def _values_f32(dims, w_data, scales):
+    """The plain versions' float32 weight values: int8 leaf blocks
+    dequantized against their scales, else the values themselves."""
+    if scales is None:
+        return w_data.float()
+    return dequant_leaf_blocks(w_data, scales, dims.group_rows,
+                               dims.chunk_cols)
+
+
 def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
                           w_data: torch.Tensor, *,
+                          scales: Optional[torch.Tensor] = None,
                           bias: Optional[torch.Tensor] = None,
                           act: Optional[str] = None,
                           residual: Optional[torch.Tensor] = None,
                           save_preact: bool = False):
     """Plain version: gather + einsum in f32, then the epilogue in f32.
-    Returns Y, or (Y, Z) with ``save_preact``, in the dtype of X."""
+    Returns Y, or (Y, Z) with ``save_preact``, in the dtype of X.  With
+    ``scales``, int8 ``w_data`` is dequantized in f32 first."""
     dims = tables.dims
     _check_args(dims, x, w_data, act)
+    if scales is not None:
+        _check_scales(dims, w_data, scales, bias=bias, act=act,
+                      residual=residual, save_preact=save_preact)
     z = gather_mm_rhs(tables.adj_o, tables.adj_i, dims.n_col_tiles,
-                      dims.group_rows, dims.chunk_cols, w_data.float(),
-                      x.float())
+                      dims.group_rows, dims.chunk_cols,
+                      _values_f32(dims, w_data, scales), x.float())
     if bias is not None:
         z = z + bias.float()
     y = EPILOGUE_ACTS[act](z) if act is not None else z
@@ -249,8 +291,11 @@ def _launch(source: str, entry: str, signature: str, *args) -> None:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
 
 
-def _check_cuda(name: str, tables: KernelTables, dt, operands: dict) -> None:
-    """Device, dtype and contiguity checks shared by both kernels."""
+def _check_cuda(name: str, tables: KernelTables, dt, operands: dict,
+                dtypes: Optional[dict] = None) -> None:
+    """Device, dtype and contiguity checks shared by the kernels: every
+    operand of dtype ``dt`` unless ``dtypes`` names another for it (the
+    int8 values and float32 scales of the int8 paths)."""
     first = next(iter(operands.values()))
     if first.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, got {first.device}")
@@ -262,14 +307,16 @@ def _check_cuda(name: str, tables: KernelTables, dt, operands: dict) -> None:
     for name_t, t in operands.items():
         if t.device != first.device:
             raise ValueError(f"{name_t} is on {t.device}, not {first.device}")
-        if t.dtype != dt:
-            raise TypeError(f"{name_t} is {t.dtype}, not {dt}")
+        want = (dtypes or {}).get(name_t, dt)
+        if t.dtype != want:
+            raise TypeError(f"{name_t} is {t.dtype}, not {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name_t} must be contiguous")
 
 
 def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
                 w_data: torch.Tensor, *,
+                scales: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
                 act: Optional[str] = None,
                 residual: Optional[torch.Tensor] = None,
@@ -282,15 +329,34 @@ def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
     plain version; CUDA tensors launch the kernel, which takes float32 or
     bfloat16 X with W, bias and residual of the same dtype, all contiguous,
     and writes Y (and Z) in that dtype.
+
+    ``scales`` (M/G, d_o*d_i) float32 selects the int8 path: ``w_data``
+    holds int8 leaf blocks, each dequantized against its scale before the
+    f32 sums; Y only, no epilogue (its own kernel and ``launches_q``).
     """
     dims = tables.dims
     _check_args(dims, x, w_data, act)
     if x.device.type == "cpu":
-        return rbgp4mm_rhs_reference(tables, x, w_data, bias=bias, act=act,
-                                     residual=residual,
+        return rbgp4mm_rhs_reference(tables, x, w_data, scales=scales,
+                                     bias=bias, act=act, residual=residual,
                                      save_preact=save_preact)
     dt = x.dtype
     n, m = x.shape[0], dims.m
+    if scales is not None:
+        _check_scales(dims, w_data, scales, bias=bias, act=act,
+                      residual=residual, save_preact=save_preact)
+        _check_cuda("rbgp4mm_rhs", tables, dt,
+                    {"x": x, "w_data": w_data, "scales": scales},
+                    {"w_data": torch.int8, "scales": torch.float32})
+        out = torch.empty((n, m), dtype=dt, device=x.device)
+        if n > 0:
+            _launch("rbgp4mm_rhs", "rbgp4mm_rhs_q", "ipppppiiiiiip",
+                    _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
+                    scales.data_ptr(), tables.col0.data_ptr(),
+                    out.data_ptr(), n, dims.k, m, dims.d_o * dims.d_i,
+                    dims.group_rows, dims.chunk_cols, x.device)
+            rbgp4mm_rhs.launches_q += 1
+        return out
     operands = {"x": x, "w_data": w_data}
     if bias is not None:
         operands["bias"] = bias
@@ -319,7 +385,7 @@ def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
     return (out, z) if save_preact else out
 
 
-rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = 0
+rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = rbgp4mm_rhs.launches_q = 0
 
 
 def _check_sddmm_args(dims, g, x):
@@ -507,16 +573,21 @@ def _check_stacked_args(dims, x, w_data, act):
 
 def rbgp4mm_rhs_stacked_reference(tables: KernelTables, x: torch.Tensor,
                                   w_data: torch.Tensor, *,
+                                  scales: Optional[torch.Tensor] = None,
                                   bias: Optional[torch.Tensor] = None,
                                   act: Optional[str] = None,
                                   save_preact: bool = False):
     """Plain version: batched gather + einsum in f32, then the epilogue in
-    f32.  Returns Y, or (Y, Z) with ``save_preact``, in the dtype of X."""
+    f32.  Returns Y, or (Y, Z) with ``save_preact``, in the dtype of X.
+    With ``scales``, int8 ``w_data`` is dequantized in f32 first."""
     dims = tables.dims
     _check_stacked_args(dims, x, w_data, act)
+    if scales is not None:
+        _check_scales(dims, w_data, scales, (x.shape[0],), bias=bias,
+                      act=act, save_preact=save_preact)
     z = gather_mm_rhs_stacked(tables.adj_o, tables.adj_i, dims.n_col_tiles,
                               dims.group_rows, dims.chunk_cols,
-                              w_data.float(), x.float())
+                              _values_f32(dims, w_data, scales), x.float())
     if bias is not None:
         z = z + bias.float()[:, None, :]
     y = EPILOGUE_ACTS[act](z) if act is not None else z
@@ -527,6 +598,7 @@ def rbgp4mm_rhs_stacked_reference(tables: KernelTables, x: torch.Tensor,
 
 def rbgp4mm_rhs_stacked(tables: KernelTables, x: torch.Tensor,
                         w_data: torch.Tensor, *,
+                        scales: Optional[torch.Tensor] = None,
                         bias: Optional[torch.Tensor] = None,
                         act: Optional[str] = None,
                         save_preact: bool = False):
@@ -539,15 +611,35 @@ def rbgp4mm_rhs_stacked(tables: KernelTables, x: torch.Tensor,
     version; CUDA tensors launch the kernel, which takes float32 or
     bfloat16 X with W and bias of the same dtype, all contiguous, and
     writes Y (and Z) in that dtype.
+
+    ``scales`` (E, M/G, d_o*d_i) float32 selects the int8 path, as
+    ``rbgp4mm_rhs``'s (each expert's scales at its own offset): Y only,
+    no epilogue, counted in ``launches_q``.
     """
     dims = tables.dims
     _check_stacked_args(dims, x, w_data, act)
     if x.device.type == "cpu":
-        return rbgp4mm_rhs_stacked_reference(tables, x, w_data, bias=bias,
+        return rbgp4mm_rhs_stacked_reference(tables, x, w_data,
+                                             scales=scales, bias=bias,
                                              act=act,
                                              save_preact=save_preact)
     dt = x.dtype
     e, n, m = x.shape[0], x.shape[1], dims.m
+    if scales is not None:
+        _check_scales(dims, w_data, scales, (e,), bias=bias, act=act,
+                      save_preact=save_preact)
+        _check_cuda("rbgp4mm_rhs_stacked", tables, dt,
+                    {"x": x, "w_data": w_data, "scales": scales},
+                    {"w_data": torch.int8, "scales": torch.float32})
+        out = torch.empty((e, n, m), dtype=dt, device=x.device)
+        if n > 0 and e > 0:
+            _launch("rbgp4mm_rhs", "rbgp4mm_rhs_stacked_q", "ipppppiiiiiiip",
+                    _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
+                    scales.data_ptr(), tables.col0.data_ptr(),
+                    out.data_ptr(), e, n, dims.k, m, dims.d_o * dims.d_i,
+                    dims.group_rows, dims.chunk_cols, x.device)
+            rbgp4mm_rhs_stacked.launches_q += 1
+        return out
     operands = {"x": x, "w_data": w_data}
     if bias is not None:
         operands["bias"] = bias
@@ -572,6 +664,7 @@ def rbgp4mm_rhs_stacked(tables: KernelTables, x: torch.Tensor,
 
 
 rbgp4mm_rhs_stacked.launches = rbgp4mm_rhs_stacked.launches_dx = 0
+rbgp4mm_rhs_stacked.launches_q = 0
 
 
 def _check_stacked_sddmm_args(dims, g, x):

@@ -12,13 +12,23 @@ __all__ = ["unpack_dense", "pack_compact", "gather_mm_rhs",
            "gather_sddmm_rhs", "gather_mm_rhs_stacked",
            "gather_sddmm_rhs_stacked", "compact_gather_mm_rhs", "gather_mm",
            "gather_sddmm", "compact_gather_mm", "ref_rbgp4mm",
-           "ref_rbgp4_sddmm"]
+           "ref_rbgp4_sddmm", "dequant_leaf_blocks"]
 
 
 def _col_index(layout, device) -> torch.Tensor:
     """(M, nnz_row) int64 dense-column index of each compact slot."""
     return torch.as_tensor(layout._col_index(), dtype=torch.int64,
                            device=device)
+
+
+def dequant_leaf_blocks(q: torch.Tensor, scales: torch.Tensor, G: int,
+                        C: int) -> torch.Tensor:
+    """float32 values of int8 leaf blocks: ``q`` (..., M, S*C) times its
+    per-(G, C)-block ``scales`` (..., M/G, S), ``q.float() * scale`` in
+    float32, as the int8 kernels dequantize before their sums."""
+    *lead, m, nc = q.shape
+    qr = q.float().reshape(*lead, m // G, G, nc // C, C)
+    return (qr * scales.float()[..., :, None, :, None]).reshape(q.shape)
 
 
 def unpack_dense(layout, w_data: torch.Tensor) -> torch.Tensor:

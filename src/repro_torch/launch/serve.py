@@ -6,12 +6,21 @@ that flag it exits with an error naming the flag.
 ``--plan plan.json`` (a ``SparsityPlan`` written by ``SparsityPlan.save``,
 by either package) overrides ``--pattern``/``--sparsity``.
 
+``--quant int8`` serves weight-only int8 storage (post-training
+quantization): the plan's compact and chain rules are stamped with
+``quant='int8'`` before the model is built (so its fingerprint names the
+storage served), then every compact and chain projection is quantized to
+int8 leaf blocks with one float32 scale each, which the int8 paths of the
+kernels read on the card.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --mixed --requests 16 --prompt-len 512 --gen 64 --page-size 16
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --plan plan.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --quant int8
 """
 from __future__ import annotations
 
@@ -52,6 +61,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--plan", default="",
                     help="SparsityPlan JSON; overrides --pattern/--sparsity "
                          "and is matched per module path")
+    ap.add_argument("--quant", default="", choices=["", "int8"],
+                    help="weight-only PTQ of the served weights: compact "
+                         "and chain values as int8 leaf blocks + one f32 "
+                         "scale each; the plan's succinct rules are "
+                         "stamped quant=int8 (checkpoint fingerprints "
+                         "refuse full-precision weights)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default="",
@@ -94,12 +109,17 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    def launches():
+        # forward launches, full-precision and int8 (--quant) alike
+        return [k.launches + k.launches_q for k in
+                (rbgp4mm_rhs, rbgp4mm_rhs_stacked, chainmm_rhs)]
+
     wall_plain = timed_steps()
-    launches0 = (rbgp4mm_rhs.launches, rbgp4mm_rhs_stacked.launches,
-                 chainmm_rhs.launches)
+    launches0 = launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = timed_steps()
+    launches1 = launches()
     kernels: dict[str, float] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -122,14 +142,14 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
             (1.0 - busy / (1e3 * wall_plain)) if busy else None,
         "rbgp4mm_rhs_ms_per_step": sparse / n_steps if busy else None,
         "rbgp4mm_rhs_launches_per_step":
-            (rbgp4mm_rhs.launches - launches0[0]) / n_steps,
+            (launches1[0] - launches0[0]) / n_steps,
         "rbgp4mm_rhs_stacked_ms_per_step":
             stacked / n_steps if busy else None,
         "rbgp4mm_rhs_stacked_launches_per_step":
-            (rbgp4mm_rhs_stacked.launches - launches0[1]) / n_steps,
+            (launches1[1] - launches0[1]) / n_steps,
         "chainmm_rhs_ms_per_step": chain / n_steps if busy else None,
         "chainmm_rhs_launches_per_step":
-            (chainmm_rhs.launches - launches0[2]) / n_steps,
+            (launches1[2] - launches0[2]) / n_steps,
         "top_kernels_ms_per_step": {k: v / n_steps for k, v in top},
     }
 
@@ -141,7 +161,8 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.models import LMModel
     from repro_torch.serve import RequestError, SamplingParams, make_engine
-    from repro_torch.sparsity import SparsityPlan
+    from repro_torch.sparsity import (SparsityPlan, quantize_weights,
+                                      weight_bytes)
 
     try:
         device = resolve_device(args.device)
@@ -156,7 +177,20 @@ def main(argv=None):
     elif args.sparsity > 0:
         cfg = apply_sparsity(cfg, pattern=args.pattern,
                              sparsity=args.sparsity, min_dim=64)
+    if args.quant:
+        # stamp quant on the succinct rules before the model resolves the
+        # plan: the fingerprint must describe the storage served
+        cfg = apply_sparsity(cfg, plan=cfg.sparsity_rules.with_quant(
+            args.quant))
     model = LMModel(cfg, device=device, seed=args.seed)
+    if args.quant:
+        quantize_weights(model)
+        wb = weight_bytes(model)
+        print(f"weight-only PTQ: compact/chain values -> {args.quant} leaf "
+              f"blocks + per-leaf-block f32 scales; plan "
+              f"{cfg.sparsity_rules.fingerprint()}; stored bytes: values "
+              f"{wb['values']:,}, scales {wb['scales']:,}, other "
+              f"{wb['other']:,}")
     plan = cfg.sparsity_rules
     sp_desc = (f"plan={plan.fingerprint()} ({len(plan.rules)} rules)"
                if cfg.plan is not None else
@@ -247,6 +281,7 @@ def main(argv=None):
             "wall_s": wall, "prompt_tokens": n_prompt,
             "generated_tokens": n_gen,
             "tok_per_s": (n_prompt + n_gen) / max(wall, 1e-9),
+            "quant": args.quant or None, "weight_bytes": weight_bytes(model),
             "stats": {k: float(v) for k, v in st.items()},
             "profile": prof,
         }

@@ -13,7 +13,14 @@ fault-tolerance contract:
     accumulation over microbatches of ``--batch``;
   * ``--plan plan.json`` (a ``SparsityPlan``) overrides ``--pattern``/
     ``--sparsity``; its fingerprint is stamped into every checkpoint, and
-    a resume under another plan is refused.
+    a resume under another plan is refused;
+  * ``--quant int8``, after training, exports a weight-only PTQ snapshot
+    to ``<checkpoint-dir>/ptq_int8``: the float32 master values of every
+    compact and chain projection as int8 leaf blocks + one f32 scale each
+    (``<path>.q_data``, ``<path>.scales``), the other weights as their
+    float32 masters, stamped with the fingerprint of the plan with
+    ``quant='int8'``, so that int8 and full-precision restores refuse each
+    other.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
@@ -22,6 +29,8 @@ Examples:
       --steps 10 --batch 8 --seq 512
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
       --steps 6 --batch 2 --seq 16 --plan plan.json
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
+      --steps 6 --batch 2 --seq 16 --quant int8
 """
 from __future__ import annotations
 
@@ -34,8 +43,8 @@ from repro_torch.configs import (TrainConfig, apply_sparsity, get_config,
                                  reduce_config)
 from repro_torch.data import Prefetcher, TokenStream
 from repro_torch.models import LMModel
-from repro_torch.sparsity import SparsityPlan
-from repro_torch.train import Trainer
+from repro_torch.sparsity import SparsityPlan, quantize_weights
+from repro_torch.train import CheckpointManager, Trainer
 
 
 def build(args):
@@ -90,6 +99,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="SparsityPlan JSON; overrides --pattern/--sparsity. "
                          "Its fingerprint is stamped into checkpoints and a "
                          "restore under another plan is refused")
+    ap.add_argument("--quant", default="", choices=["", "int8"],
+                    help="after training, export a weight-only PTQ snapshot "
+                         "(compact/chain values -> int8 leaf blocks + per-"
+                         "leaf-block f32 scales) to <checkpoint-dir>/"
+                         "ptq_<quant>, stamped with the quant-marked plan "
+                         "fingerprint so f32<->int8 restores refuse")
     ap.add_argument("--checkpoint-every", type=int, default=25)
     ap.add_argument("--checkpoint-dir",
                     default=os.path.join(tempfile.gettempdir(),
@@ -145,6 +160,27 @@ def main(argv=None):
               f"slow steps: {trainer.straggler_events[:5]}")
     print(f"done: steps={trainer.state.step} "
           f"first-loss={losses[0]:.4f} last-loss={losses[-1]:.4f}")
+    if args.quant:
+        export_ptq(model, trainer, plan, args.quant, tcfg.checkpoint_dir)
+
+
+def export_ptq(model, trainer, plan, quant: str, checkpoint_dir: str) -> str:
+    """Quantize the float32 master values into ``model`` (in place) and
+    save its state, the other weights as their masters, to
+    ``<checkpoint_dir>/ptq_<quant>`` under the quant-marked plan's
+    fingerprint.  Returns the snapshot's path."""
+    qplan = plan.with_quant(quant)
+    masters = trainer.state.params
+    quantize_weights(model, values=masters)
+    tree = {name: masters.get(name, t)
+            for name, t in model.state_dict().items()}
+    mgr = CheckpointManager(os.path.join(checkpoint_dir, f"ptq_{quant}"),
+                            plan_fingerprint=qplan.fingerprint())
+    step = int(trainer.state.step)
+    mgr.save(step, tree)
+    print(f"PTQ export: {quant} leaf-block weights -> {mgr.path(step)} "
+          f"(plan {qplan.fingerprint()})", flush=True)
+    return mgr.path(step)
 
 
 if __name__ == "__main__":

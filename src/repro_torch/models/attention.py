@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.sparsity import SparseLinear
 from .common import apply_rope, rope_frequencies
 
@@ -142,11 +143,14 @@ def init_cache_gqa(batch: int, length: int, n_kv: int, head_dim: int,
 
 
 class GQAttention(nn.Module):
-    """Grouped-query attention with RoPE; window=0 means full causal."""
+    """Grouped-query attention with RoPE; window=0 means full causal.
+    ``device`` defaults to the card (projections and ``inv_freq`` alike);
+    without CUDA that raises, naming ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, *, window: int = 0,
                  name: str = "attn", device=None, **kw):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.window = window
         self.name = name

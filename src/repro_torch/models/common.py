@@ -9,18 +9,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 __all__ = ["RMSNorm", "Embedding", "rope_frequencies", "apply_rope"]
 
 
 class RMSNorm(nn.Module):
-    """Normalizes in f32 and returns the input's dtype; ``scale`` is f32."""
+    """Normalizes in f32 and returns the input's dtype; ``scale`` is f32.
+    ``device`` defaults to the card; without CUDA that raises, naming
+    ``device="cpu"``."""
 
     def __init__(self, dim: int, eps: float = 1e-6, *, device=None):
         super().__init__()
         self.dim = dim
         self.eps = eps
         self.scale = nn.Parameter(
-            torch.ones(dim, dtype=torch.float32, device=device),
+            torch.ones(dim, dtype=torch.float32,
+                       device=resolve_device(device)),
             requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -32,11 +37,13 @@ class RMSNorm(nn.Module):
 
 class Embedding(nn.Module):
     """Token table, stored in the compute dtype (the reference casts the
-    whole table to it on every lookup; casting once is the same values)."""
+    whole table to it on every lookup; casting once is the same values).
+    ``device`` defaults to the card, as ``RMSNorm``'s."""
 
     def __init__(self, vocab: int, dim: int, *, dtype=torch.float32,
                  param_dtype=torch.float32, device=None, generator=None):
         super().__init__()
+        device = resolve_device(device)
         self.vocab = vocab
         self.dim = dim
         e = torch.randn((vocab, dim), generator=generator, device=device,

@@ -30,9 +30,13 @@ from torch import nn
 from repro_torch.configs.base import MoEConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import EPILOGUE_ACTS, KernelTables, TransposeTables
-from repro_torch.sparsity import (CompactWeight, DenseWeight, SparsityConfig,
+from repro_torch.sparsity import (CompactWeight, DenseWeight,
+                                  QuantizedWeight, SparsityConfig,
                                   SparsityPlan, make_pattern,
                                   sparse_linear_batched)
+from repro_torch.sparsity.quant import (dequantize_block_values,
+                                        leaf_block_dims,
+                                        quantize_block_values)
 from .mlp import ACTS, GatedMLP
 
 __all__ = ["StackedExperts", "MoELayer"]
@@ -49,6 +53,11 @@ class StackedExperts(nn.Module):
     dense storage holds ``<proj>`` (E, M, K), drawn with the He rule over
     the dense fan-in.  The layouts' kernel tables are built once on the
     module's device; the transposed ones (dX) at the first gradient.
+
+    ``quantize_()`` stores compact values as the reference's weight-only
+    int8 storage in place: each projection holds ``q_data`` (E, M,
+    nnz_row) int8 and the ``scales`` buffer (E, M/G, S) float32 in place
+    of ``w_data`` (``dequantize_()`` inverts it).
     """
 
     def __init__(self, n_experts: int, d_model: int, d_expert: int,
@@ -59,6 +68,7 @@ class StackedExperts(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
+        self.name = name
         self.act = ACTS[act]
         self.fuse = act if act in EPILOGUE_ACTS else None
         if isinstance(sparsity, SparsityPlan):
@@ -121,11 +131,60 @@ class StackedExperts(nn.Module):
                 self.layouts[side], self.tables[side].col0.device)
         return tt
 
+    @property
+    def quantized(self) -> bool:
+        """Whether the compact values are stored as int8 leaf blocks."""
+        return self.compact and hasattr(self.gate, "q_data")
+
+    def _side(self, proj: str) -> str:
+        return "out" if proj == "down" else "in"
+
+    def quantize_(self, w_data: Optional[dict] = None) -> None:
+        """Weight-only PTQ in place, every expert's leaf blocks scaled
+        apart.  ``w_data`` ({proj: (E, M, nnz_row)} float32 masters) is
+        quantized in place of the module's own values where given.  No-op
+        when already quantized."""
+        if not self.compact:
+            raise TypeError("only compact expert storage quantizes; these "
+                            "experts are dense")
+        if self.quantized:
+            return
+        for proj in ("gate", "up", "down"):
+            own = getattr(self, proj)["w_data"]
+            src = (w_data or {}).get(proj)
+            src = own.detach() if src is None else src.to(own.device)
+            q, scales = quantize_block_values(
+                src, *leaf_block_dims(self.tables[self._side(proj)]))
+            holder = nn.Module()
+            holder.q_data = nn.Parameter(q, requires_grad=False)
+            holder.register_buffer("scales", scales)
+            setattr(self, proj, holder)
+        self.orig_dtype = own.dtype
+
+    def dequantize_(self) -> None:
+        """Invert ``quantize_`` (no-op when not quantized)."""
+        if not self.quantized:
+            return
+        for proj in ("gate", "up", "down"):
+            holder = getattr(self, proj)
+            w = dequantize_block_values(
+                holder.q_data, holder.scales,
+                *leaf_block_dims(self.tables[self._side(proj)]),
+                dtype=self.orig_dtype)
+            setattr(self, proj, nn.ParameterDict(
+                {"w_data": nn.Parameter(w, requires_grad=False)}))
+
     def weight(self, proj: str):
         """The stacked storage container of projection ``proj``."""
         if not self.compact:
             return DenseWeight(w=getattr(self, proj))
-        side = "out" if proj == "down" else "in"
+        side = self._side(proj)
+        if self.quantized:
+            holder = getattr(self, proj)
+            return QuantizedWeight(q_data=holder.q_data,
+                                   scales=holder.scales,
+                                   tables=self.tables[side],
+                                   orig_dtype=self.orig_dtype)
         return CompactWeight(
             w_data=getattr(self, proj)["w_data"], tables=self.tables[side],
             tables_t=lambda: self._transpose_tables(side))

@@ -24,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.sparsity import SparsityPlan
 from .attention import GQAttention, init_cache_gqa
 from .common import RMSNorm
@@ -99,7 +100,8 @@ def jax_stack_split(cfg: ModelConfig) -> tuple[int, int, int, int]:
 
 class DecoderLayer(nn.Module):
     """norm -> attention -> residual; norm -> gated MLP or MoE ->
-    residual."""
+    residual.  ``device`` (in ``kw``) defaults to the card; without CUDA
+    that raises, naming ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, idx: int, **kw):
         super().__init__()
@@ -110,7 +112,9 @@ class DecoderLayer(nn.Module):
             raise NotImplementedError(
                 f"layer kind {self.kind!r} is not yet ported; have "
                 f"{PORTED_KINDS}")
-        device = kw.get("device")
+        # one device for the norms, attention and FFN: the card unless
+        # the caller names another
+        device = kw["device"] = resolve_device(kw.get("device"))
         self.norm1 = RMSNorm(cfg.d_model, cfg.rmsnorm_eps, device=device)
         self.norm2 = RMSNorm(cfg.d_model, cfg.rmsnorm_eps, device=device)
         window = cfg.sliding_window if self.kind == "swa" else 0
@@ -157,11 +161,13 @@ class DecoderLayer(nn.Module):
 
 
 class Stack(nn.Module):
-    """The decoder layers, run in order."""
+    """The decoder layers, run in order, all on one device (``device`` in
+    ``kw``, the card by default)."""
 
     def __init__(self, cfg: ModelConfig, **kw):
         super().__init__()
         self.cfg = cfg
+        kw["device"] = resolve_device(kw.get("device"))
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, i, **kw) for i in range(cfg.n_layers))
 

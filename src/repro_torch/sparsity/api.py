@@ -34,9 +34,24 @@ per row) for I (K, N): a ``CompactWeight`` runs the ``rbgp4mm`` kernel
 matrix, as the reference computes them outside any kernel (a chain's dW
 reaches its compact values through autograd).
 
+``QuantizedWeight`` is the reference's weight-only int8 storage of a
+compact or chain container (``sparsity/quant.py`` makes it): int8 leaf
+blocks ``q_data`` and one float32 scale per (G, C) leaf block.  It is the
+reference's ``QuantBackend``, a branch of each dispatch: on the card
+``sparse_linear`` launches the int8 path of ``rbgp4mm_rhs`` or
+``chainmm_rhs`` and ``sparse_linear_batched`` that of
+``rbgp4mm_rhs_stacked``, with no epilogue in the kernel (bias, activation
+and residual follow in torch, as the reference's dispatcher applies
+them); on the CPU the container is dequantized and the call delegated to
+the wrapped container's own path, as the reference does off the TPU, so
+the result is bit for bit that of the dequantized weights.
+``sparse_matmul`` dequantizes and delegates everywhere, and chain storage
+has no stacked experts.  PTQ storage is inference-only: an input that
+needs a gradient raises.
+
 ``dense_weight`` materializes the dense (M, K) matrix of any of them.  The
-reference's masked and int8 storages and its backend registry come with
-later slices.
+reference's masked storage and its backend registry come with later
+slices.
 """
 from __future__ import annotations
 
@@ -45,15 +60,18 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch.kernels import EPILOGUE_ACTS, KernelTables, TransposeTables
+from repro_torch.kernels import (EPILOGUE_ACTS, ChainTables, KernelTables,
+                                 TransposeTables, chainmm_rhs, rbgp4mm_rhs,
+                                 rbgp4mm_rhs_stacked)
 from repro_torch.kernels.ops import (chain_linear, compact_linear,
-                                     compact_linear_stacked, compact_matmul)
+                                     compact_linear_stacked, compact_matmul,
+                                     needs_grad)
 
 from .chain import ChainWeight
 
-__all__ = ["DenseWeight", "CompactWeight", "ChainWeight", "SparseWeight",
-           "sparse_linear", "sparse_linear_batched", "sparse_matmul",
-           "dense_weight"]
+__all__ = ["DenseWeight", "CompactWeight", "ChainWeight", "QuantizedWeight",
+           "SparseWeight", "sparse_linear", "sparse_linear_batched",
+           "sparse_matmul", "dense_weight"]
 
 
 @dataclasses.dataclass
@@ -79,7 +97,35 @@ class CompactWeight:
     tables_t: Optional[Callable[[], TransposeTables]] = None
 
 
-SparseWeight = Union[DenseWeight, CompactWeight, ChainWeight]
+@dataclasses.dataclass
+class QuantizedWeight:
+    """int8 leaf-block storage of a compact or chain container (weight-only
+    PTQ): ``q_data`` int8 of the wrapped ``w_data``'s shape, ``scales``
+    float32 (..., M/G, S), one per (G, C) leaf block, ``b`` the bias in
+    full precision, the wrapped container's kernel ``tables`` (which give
+    (G, C)), ``kind`` ('compact' | 'chain') and ``orig_dtype``, the value
+    dtype ``dequantize`` returns by default."""
+
+    q_data: torch.Tensor
+    scales: torch.Tensor
+    tables: Union[KernelTables, ChainTables]
+    b: Optional[torch.Tensor] = None
+    kind: str = "compact"
+    orig_dtype: torch.dtype = torch.float32
+
+    def dequantize(self, dtype=None) -> Union[CompactWeight, ChainWeight]:
+        """The wrapped full-precision container."""
+        from .quant import dequantize_block_values, leaf_block_dims
+
+        G, C = leaf_block_dims(self.tables)
+        w = dequantize_block_values(self.q_data, self.scales, G, C,
+                                    dtype=dtype or self.orig_dtype)
+        cls = ChainWeight if self.kind == "chain" else CompactWeight
+        return cls(w_data=w, tables=self.tables, b=self.b)
+
+
+SparseWeight = Union[DenseWeight, CompactWeight, ChainWeight,
+                     QuantizedWeight]
 
 
 def _check_fuse(fuse: Optional[str]) -> None:
@@ -90,11 +136,35 @@ def _check_fuse(fuse: Optional[str]) -> None:
         )
 
 
+def _no_grad_through(weight: QuantizedWeight, *tensors) -> None:
+    if needs_grad(weight.b, *tensors):
+        raise RuntimeError(
+            "weight-only int8 (PTQ) storage is inference-only: it has no "
+            "gradient; run it under torch.no_grad(), or train the "
+            "full-precision container (dequantize_weights)")
+
+
+def _quant_linear(weight: QuantizedWeight, x: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ W^T from int8 storage on the card: the int8 kernel,
+    no epilogue."""
+    t = weight.tables
+    m, k = (t.dims.m, t.dims.k) if weight.kind == "compact" else (t.m, t.k)
+    x2 = x.reshape(-1, k).contiguous()
+    run = rbgp4mm_rhs if weight.kind == "compact" else chainmm_rhs
+    y = run(t, x2, weight.q_data, scales=weight.scales)
+    return y.reshape(*x.shape[:-1], m)
+
+
 def sparse_linear(weight: SparseWeight, x: torch.Tensor, *, dtype=None,
                   fuse: Optional[str] = None,
                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = act(x @ W_s^T + b) + residual; x (..., K) token-major -> (..., M)."""
     _check_fuse(fuse)
+    if isinstance(weight, QuantizedWeight):
+        _no_grad_through(weight, x, residual)
+        if x.device.type == "cpu":
+            return sparse_linear(weight.dequantize(), x, dtype=dtype,
+                                 fuse=fuse, residual=residual)
     dtype = dtype or x.dtype
     xc = x.to(dtype)
     b = weight.b.to(dtype) if weight.b is not None else None
@@ -106,6 +176,8 @@ def sparse_linear(weight: SparseWeight, x: torch.Tensor, *, dtype=None,
     if isinstance(weight, ChainWeight):
         y = chain_linear(weight.tables, xc, weight.w_data.to(dtype),
                          tables_t=weight.tables_t)
+    elif isinstance(weight, QuantizedWeight):
+        y = _quant_linear(weight, xc)
     elif isinstance(weight, DenseWeight):
         y = xc @ weight.w.to(dtype).T
     else:
@@ -125,6 +197,15 @@ def sparse_linear_batched(weight: SparseWeight, x: torch.Tensor, *,
     """Stacked-expert linear: y[e] = act(x[e] @ W_s[e]^T + b[e]);
     x (E, ..., K) -> (E, ..., M)."""
     _check_fuse(fuse)
+    if isinstance(weight, QuantizedWeight):
+        if weight.kind == "chain":
+            raise NotImplementedError(
+                "stacked-expert execution is compact-storage only (chain "
+                "layers are not expert-stacked)")
+        _no_grad_through(weight, x)
+        if x.device.type == "cpu":
+            return sparse_linear_batched(weight.dequantize(), x, dtype=dtype,
+                                         fuse=fuse)
     dtype = dtype or x.dtype
     xc = x.to(dtype)
     e = xc.shape[0]
@@ -133,10 +214,14 @@ def sparse_linear_batched(weight: SparseWeight, x: torch.Tensor, *,
         return compact_linear_stacked(weight.tables, xc,
                                       weight.w_data.to(dtype), bias=b,
                                       fuse=fuse, tables_t=weight.tables_t)
-    if not isinstance(weight, DenseWeight):
-        raise TypeError(f"not a weight container: {type(weight).__name__}")
     x3 = xc.reshape(e, -1, xc.shape[-1])
-    y = torch.einsum("enk,emk->enm", x3, weight.w.to(dtype))
+    if isinstance(weight, QuantizedWeight):
+        y = rbgp4mm_rhs_stacked(weight.tables, x3.contiguous(),
+                                weight.q_data, scales=weight.scales)
+    elif isinstance(weight, DenseWeight):
+        y = torch.einsum("enk,emk->enm", x3, weight.w.to(dtype))
+    else:
+        raise TypeError(f"not a weight container: {type(weight).__name__}")
     if b is not None:
         y = y + b[:, None, :]
     if fuse is not None:
@@ -147,6 +232,11 @@ def sparse_linear_batched(weight: SparseWeight, x: torch.Tensor, *,
 def sparse_matmul(weight: SparseWeight, x: torch.Tensor, *,
                   dtype=None) -> torch.Tensor:
     """O = W_s @ I (+ b per row); x (K, N) feature-major -> (M, N)."""
+    if isinstance(weight, QuantizedWeight):
+        # no int8 feature-major kernel: dequantize and delegate, on every
+        # device (the reference's QuantBackend.matmul)
+        _no_grad_through(weight, x)
+        return sparse_matmul(weight.dequantize(), x, dtype=dtype)
     dtype = dtype or x.dtype
     xc = x.to(dtype)
     if isinstance(weight, CompactWeight):
@@ -182,6 +272,8 @@ def _unpack(col0: torch.Tensor, G: int, C: int, w_data: torch.Tensor,
 def dense_weight(weight: SparseWeight, dtype=None) -> torch.Tensor:
     """The effective dense (M, K) matrix ((E, M, K) for stacked experts),
     zeros off the mask (tests, export)."""
+    if isinstance(weight, QuantizedWeight):
+        return dense_weight(weight.dequantize(), dtype)
     if isinstance(weight, DenseWeight):
         w = weight.w
     elif isinstance(weight, CompactWeight):

@@ -16,6 +16,14 @@ them to the activation dtype on every call; casting once at load is the
 same arithmetic).  Training keeps its float32 master values apart
 (``repro_torch.train``) and writes the compute-dtype copy back here after
 each update.
+
+``quantize_()`` turns compact or chain storage into the reference's
+weight-only int8 storage in place (``sparsity/quant.py``): ``w_data`` gives
+way to ``q_data`` (int8, a parameter that no optimizer takes) and the
+``scales`` buffer (float32, one per leaf block), so the state_dict names
+are the reference's ``QuantizedWeight`` fields; ``weight()`` then hands
+over a ``QuantizedWeight`` and the kernel tables stay as they are.
+``dequantize_()`` inverts it.
 """
 from __future__ import annotations
 
@@ -29,9 +37,12 @@ from repro_torch.kernels import (ChainTransposeTables, KernelTables,
                                  TransposeTables, chain_tables,
                                  chain_transpose_tables)
 
-from .api import ChainWeight, CompactWeight, DenseWeight, sparse_linear
+from .api import (ChainWeight, CompactWeight, DenseWeight, QuantizedWeight,
+                  sparse_linear)
 from .patterns import PatternInstance, SparsityConfig, make_pattern
 from .plan import SparsityPlan, storage_kind
+from .quant import (dequantize_block_values, leaf_block_dims,
+                    quantize_block_values)
 
 __all__ = ["SparseLinear"]
 
@@ -105,15 +116,55 @@ class SparseLinear(nn.Module):
         """The transposed layout's tables on the layer's device (built at
         the first call, then kept)."""
         if self._tables_t is None:
-            device = self.w_data.device
+            device = self.tables.col0.device
             self._tables_t = (
                 TransposeTables.build(self.layout, device)
                 if self.mode == "compact"
                 else chain_transpose_tables(self.chain_layout, device))
         return self._tables_t
 
+    @property
+    def quantized(self) -> bool:
+        """Whether the values are stored as int8 leaf blocks."""
+        return "q_data" in self._parameters
+
+    def quantize_(self, w_data: Optional[torch.Tensor] = None) -> None:
+        """Weight-only PTQ in place: ``w_data`` becomes int8 ``q_data`` and
+        float32 ``scales``, one per (G, C) leaf block.  ``w_data`` given
+        (a float32 master copy) is quantized in place of the layer's own
+        values.  No-op when already quantized."""
+        if self.mode not in ("compact", "chain"):
+            raise TypeError(f"only compact/chain storage quantizes; "
+                            f"{self.name!r} is {self.mode}")
+        if self.quantized:
+            return
+        own = self.w_data
+        src = own.detach() if w_data is None else w_data.to(own.device)
+        q, scales = quantize_block_values(src, *leaf_block_dims(self.tables))
+        self.orig_dtype = own.dtype
+        del self.w_data
+        self.q_data = nn.Parameter(q, requires_grad=False)
+        self.register_buffer("scales", scales)
+
+    def dequantize_(self) -> None:
+        """Invert ``quantize_``: ``w_data`` in the values' dtype before
+        quantization.  No-op when not quantized."""
+        if not self.quantized:
+            return
+        w = dequantize_block_values(self.q_data, self.scales,
+                                    *leaf_block_dims(self.tables),
+                                    dtype=self.orig_dtype)
+        del self.q_data
+        del self.scales
+        self.w_data = nn.Parameter(w, requires_grad=False)
+
     def weight(self):
         """The storage container handed to ``sparse_linear``."""
+        if self.quantized:
+            return QuantizedWeight(q_data=self.q_data, scales=self.scales,
+                                   tables=self.tables, b=self.b,
+                                   kind=self.mode,
+                                   orig_dtype=self.orig_dtype)
         if self.mode == "compact":
             return CompactWeight(w_data=self.w_data, tables=self.tables,
                                  b=self.b, tables_t=self.transpose_tables)

@@ -43,9 +43,12 @@ class SparsityConfig:
     factors:  'rbgp' only: the factor-chain template (see
               ``repro_torch.core.canonicalize_factors``); None is the
               default RBGP4 chain.
-    quant:    value storage dtype; only None (full precision) is ported.
-              Carried so that plan JSON and fingerprints match the
-              reference's; 'int8' is refused as not yet ported.
+    quant:    value storage dtype of the layer's sparse weights: None
+              (full precision) or 'int8' (weight-only int8 leaf blocks +
+              per-leaf-block f32 scales, ``sparsity/quant.py``).  Part of
+              the plan fingerprint, so checkpoints refuse a restore across
+              the two.  The layer is built in full precision either way;
+              ``quantize_weights`` converts it.
     """
 
     pattern: str = "dense"
@@ -61,9 +64,6 @@ class SparsityConfig:
         if self.quant not in (None, "int8"):
             raise ValueError(
                 f"quant={self.quant!r} (supported: None, 'int8')")
-        if self.quant is not None:
-            raise NotImplementedError(
-                f"quant={self.quant!r} storage is not yet ported")
 
     def applies_to(self, m: int, k: int) -> bool:
         if self.pattern == "dense" or self.sparsity <= 0.0:

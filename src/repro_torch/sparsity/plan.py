@@ -13,8 +13,8 @@ The port of the plan core of ``repro/sparsity/plan.py``:
   * :func:`lower_config` — the one-rule plan a ``SparsityConfig`` means;
     a lowered uniform plan builds exactly the layouts of the config.
 
-The reference's ``solve_budget``, ``certify``, ``with_quant`` and shape
-recording are not yet ported.
+The reference's ``solve_budget``, ``certify`` and shape recording are not
+yet ported.
 """
 from __future__ import annotations
 
@@ -300,6 +300,22 @@ class SparsityPlan:
             sort_keys=True, separators=(",", ":"),
         )
         return hashlib.sha256(canon.encode()).hexdigest()[:16]
+
+    def with_quant(self, quant: Optional[str]) -> "SparsityPlan":
+        """A copy whose compact- and chain-storage rules store values as
+        ``quant``; dense and masked-storage rules are left as they are (a
+        masked layer's dense array has no leaf blocks to scale).  This is
+        what ``--quant int8`` applies, and since ``quant`` enters the
+        fingerprint, a quantized stack refuses full-precision checkpoints
+        and the other way round."""
+        new = []
+        for r in self.rules:
+            if r.spec.is_sparse and r.spec.storage() in ("compact", "chain"):
+                new.append(dataclasses.replace(
+                    r, spec=dataclasses.replace(r.spec, quant=quant)))
+            else:
+                new.append(r)
+        return dataclasses.replace(self, rules=tuple(new))
 
     @classmethod
     def uniform(cls, spec: Union[PatternSpec, SparsityConfig],

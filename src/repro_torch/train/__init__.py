@@ -1,7 +1,9 @@
 """Training: optimizers, the train step and Trainer, checkpoints.
 
-The port of ``repro/train`` without ``compress.py`` (int8 gradient
-compression) and ``distill.py``, which come with a later slice.
+The port of ``repro/train`` without ``distill.py`` and the error-feedback
+half of ``compress.py`` (int8 gradient compression), which come with a
+later slice; ``compress.py``'s int8 Q/DQ, which the weight-only int8
+storage uses, is ported.
 """
 from .checkpoint import CheckpointManager
 from .loop import (Trainer, TrainState, init_train_state, make_train_step,

@@ -16,7 +16,10 @@ state (nested dicts of tensors and ints, flattened to ``a/b/c`` keys):
     under another plan: masks are rebuilt from the plan, so the same
     values under another plan are another network (an RBGP4 checkpoint
     restored into a chain model would scramble its values silently).
-    Snapshots or managers without a stamp skip the check.
+    Snapshots or managers without a stamp skip the check.  The plan's
+    ``quant`` enters the fingerprint, so a weight-only int8 snapshot
+    (``launch/train.py --quant int8``) and a full-precision one refuse
+    each other; int8 leaves keep their dtype through the ``.npz``.
 
 Reading the reference's own snapshots is not yet ported.
 """

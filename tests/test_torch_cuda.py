@@ -14,7 +14,10 @@ feature-major kernels ``rbgp4mm`` (forward and transposed tables) and
 ``rbgp4_sddmm`` (bit-equal on a rerun) and ``RBGP4Op.matmul``'s gradients,
 at G = C = 4, C = 2, the transposed G = 8, VGG19-CIFAR's widest layout,
 an odd G = 9 (C = 9 transposed) and G = 256 (C = 256 transposed), with a
-ragged N.
+ragged N; and the int8 ``scales=`` paths of ``rbgp4mm_rhs``,
+``rbgp4mm_rhs_stacked`` and ``chainmm_rhs`` against their plain versions
+on the same int8 values (G = 9, G = 128 and the chain leaves), bit-equal
+on a rerun, with a quantized layer launching only them.
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -610,3 +613,159 @@ def test_cuda_featmajor_kernels_reject_what_they_do_not_take():
         rbgp4_sddmm(tables, gy[:, :3], x)
     assert np.isfinite(rbgp4mm(tables, x, w).cpu().numpy()).all()
     assert np.isfinite(rbgp4_sddmm(tables, gy, x).cpu().numpy()).all()
+
+
+# the int8 (scales=) paths: an odd G = 9, G = 128 (8 tokens a block), the
+# small sweep's first layout and tinyllama's wk/wv at full width; the
+# chains of the tests above (G = C = 1, a 2 x 2 leaf, and the full-width
+# 8 x 8, 16 x 32 and 32 x 16 leaves)
+INT8_SPECS = [((2, 4), (9, 4), (2, 4)), ((2, 4), (128, 4), (2, 2)),
+              ((4, 4), (4, 4), (4, 4))]
+
+
+def int8_layouts():
+    specs = [RBGP4Spec(g_o=g_o, g_r=g_r, g_i=g_i, g_b=(1, 1), sp_o=0.5,
+                       sp_i=0.5, seed=7) for g_o, g_r, g_i in INT8_SPECS]
+    return [RBGP4Layout(spec) for spec in specs] + [
+        RBGP4Layout(design_rbgp4(256, 2048, 0.75, seed=0))]
+
+
+def int8_values(shape, G, C, g):
+    from repro_torch.sparsity.quant import quantize_block_values
+
+    return quantize_block_values(
+        torch.randn(shape, device="cuda", generator=g), G, C)
+
+
+def check_int8(fn, ref, dequant_fn, counter, dtype, what):
+    """One counted int8 launch against its plain version; a rerun gives
+    the same bits; in float32 the same bits as the f32 kernel on the
+    dequantized values (same operands, same order: a wrong scale index
+    shows here)."""
+    before = (counter.launches, counter.launches_q)
+    got = fn()
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.launches_q) == (before[0],
+                                                       before[1] + 1), what
+    assert_close(got, ref(), dtype, what)
+    assert torch.equal(got, fn()), what
+    if dtype == torch.float32:
+        assert torch.equal(got, dequant_fn()), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_kernels_match_plain_versions(dtype):
+    from repro_torch.kernels.ref import dequant_leaf_blocks
+    from repro_torch.sparsity import leaf_block_dims
+
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dtype)
+    for lay in int8_layouts():
+        tables = KernelTables.build(lay, "cuda")
+        G, C = leaf_block_dims(lay)
+        q, s = int8_values(lay.data_shape, G, C, g)
+        w = dequant_leaf_blocks(q, s, G, C)
+        for n in (1, 8, 77):
+            x = rnd(n, lay.k)
+            check_int8(lambda: rbgp4mm_rhs(tables, x, q, scales=s),
+                       lambda: rbgp4mm_rhs_reference(tables, x, q, scales=s),
+                       lambda: rbgp4mm_rhs(tables, x, w), rbgp4mm_rhs,
+                       dtype, (lay.spec, n))
+        e = 3
+        qe, se = int8_values((e, *lay.data_shape), G, C, g)
+        we = dequant_leaf_blocks(qe, se, G, C)
+        x = rnd(e, 21, lay.k)
+        check_int8(
+            lambda: rbgp4mm_rhs_stacked(tables, x, qe, scales=se),
+            lambda: rbgp4mm_rhs_stacked_reference(tables, x, qe, scales=se),
+            lambda: rbgp4mm_rhs_stacked(tables, x, we), rbgp4mm_rhs_stacked,
+            dtype, (lay.spec, "stacked"))
+    for lay in chain_cases():
+        t = chain_tables(lay, "cuda")
+        G, C = leaf_block_dims(lay)
+        q, s = int8_values(lay.data_shape, G, C, g)
+        w = dequant_leaf_blocks(q, s, G, C)
+        for n in (1, 8, 77):
+            x = rnd(n, lay.k)
+            check_int8(lambda: chainmm_rhs(t, x, q, scales=s),
+                       lambda: chainmm_rhs_reference(t, x, q, scales=s),
+                       lambda: chainmm_rhs(t, x, w), chainmm_rhs, dtype,
+                       (lay, n))
+
+
+@pytest.mark.cuda
+def test_cuda_quantized_layers_launch_only_the_int8_paths():
+    """A quantized compact or chain ``SparseLinear`` (bias, activation and
+    residual asked for) and quantized stacked experts launch the int8
+    kernels and nothing else, under no_grad; with a gradient asked for
+    they raise."""
+    from repro_torch.models.moe import StackedExperts
+    from repro_torch.sparsity import (SparseLinear, SparsityConfig,
+                                      sparse_linear)
+
+    needs_card()
+    rbgp4 = SparsityConfig(pattern="rbgp4", sparsity=0.75, min_dim=1)
+    chain = SparsityConfig(pattern="rbgp", sparsity=0.875, min_dim=1,
+                           factors=CHAINS[2][3])
+    counters = (rbgp4mm_rhs, rbgp4mm_rhs_stacked, chainmm_rhs)
+
+    def counts():
+        return [(c.launches, c.launches_dx, c.launches_q) for c in counters]
+
+    for cfg, m, k, counter in ((rbgp4, 128, 256, 0), (chain, 128, 256, 2)):
+        lin = SparseLinear(k, m, cfg, use_bias=True, device="cuda")
+        assert lin.mode == ("compact", "compact", "chain")[counter]
+        lin.b.data.normal_()
+        x = torch.randn(5, k, device="cuda")
+        r = torch.randn(5, m, device="cuda")
+        want = sparse_linear(lin.weight(), x, fuse="silu", residual=r)
+        lin.quantize_()
+        before = counts()
+        with torch.no_grad():
+            y = lin(x, fuse="silu", residual=r)
+        torch.cuda.synchronize()
+        after = counts()
+        for i, (a, b) in enumerate(zip(before, after)):
+            moved = (0, 0, 1) if i == counter else (0, 0, 0)
+            assert tuple(v - u for u, v in zip(a, b)) == moved, (cfg, i)
+        assert y.shape == want.shape and torch.isfinite(y).all()
+        with pytest.raises(RuntimeError, match="inference-only"):
+            lin(x.clone().requires_grad_())
+    experts = StackedExperts(4, 256, 128, rbgp4, device="cuda")
+    experts.quantize_()
+    before = counts()
+    with torch.no_grad():
+        out = experts(torch.randn(4, 6, 256, device="cuda"))
+    torch.cuda.synchronize()
+    assert [tuple(v - u for u, v in zip(a, b))
+            for a, b in zip(before, counts())] == [(0, 0, 0), (0, 0, 3),
+                                                   (0, 0, 0)]
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_cuda_int8_kernels_reject_what_they_do_not_take():
+    from repro_torch.sparsity import leaf_block_dims
+
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(14)
+    lay = int8_layouts()[0]
+    tables = KernelTables.build(lay, "cuda")
+    q, s = int8_values(lay.data_shape, *leaf_block_dims(lay), g)
+    x = torch.randn(4, lay.k, device="cuda")
+    with pytest.raises(ValueError, match="epilogue"):
+        rbgp4mm_rhs(tables, x, q, scales=s, act="silu")
+    with pytest.raises(TypeError):
+        rbgp4mm_rhs(tables, x, q.float(), scales=s)
+    with pytest.raises(ValueError):
+        rbgp4mm_rhs(tables, x, q, scales=s[:, :1].contiguous())
+    with pytest.raises(TypeError):
+        rbgp4mm_rhs(tables, x, q, scales=s.double())
+    with pytest.raises(TypeError):
+        rbgp4mm_rhs(tables, x.half(), q, scales=s)
+    with pytest.raises(ValueError):
+        rbgp4mm_rhs_stacked(tables, x[None], q[None], scales=s)
+    assert np.isfinite(rbgp4mm_rhs(tables, x, q, scales=s).cpu().numpy()).all()

@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     for mod in ("repro_torch.models.moe", "repro_torch.kernels.ops",
                 "repro_torch.configs.qwen2_moe_a2_7b",
                 "repro_torch.kernels.chainmm", "repro_torch.sparsity.plan",
-                "repro_torch.sparsity.chain"):
+                "repro_torch.sparsity.chain", "repro_torch.sparsity.quant",
+                "repro_torch.train.compress"):
         assert mod in names, mod
 
 
