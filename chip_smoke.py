@@ -40,9 +40,13 @@ exits non-zero without the result line:
      (tolerance max|diff| <= 1e-5 * max|ref| in float32, reduction order
      only; <= 2e-2 * max|ref| in bfloat16, output rounding), each case one
      counted launch.  tinyllama's four layouts: ``rbgp4mm_rhs`` at N in
-     {1, 8, 512} x {f32, bf16} x three epilogues; with ``save_preact`` (Y
-     and Z) at N in {512, 4096}; on the transposed layouts at N in
-     {512, 4096}; ``rbgp4_sddmm_rhs`` at N in {8, 512, 4096}.  qwen2-moe's
+     {1, 8, 16, 64, 77, 512, 1037} x {f32, bf16} x three epilogues; with
+     ``save_preact`` (Y and Z) and on the transposed layouts at N in
+     {16, 64, 77, 512, 1037, 4096}; ``rbgp4_sddmm_rhs`` at N in {8, 16, 64,
+     77, 512, 1037, 4096}, each dW again and bit-equal.  In bf16 from N =
+     16 on, ``rbgp4mm_rhs`` and ``rbgp4_sddmm_rhs`` take their tensor-core
+     bodies (``rhs_path``, ``sddmm_path``; each log line names the body),
+     so 77 and 1037 are ragged token tiles of those bodies.  qwen2-moe's
      two expert layouts with 60 experts: ``rbgp4mm_rhs_stacked`` at N in
      {8, 171, 512} rows an expert (decode, training, full-capacity prefill)
      x {f32, bf16} x three epilogues, with ``save_preact`` at N = 171 and
@@ -52,7 +56,14 @@ exits non-zero without the result line:
      the same function (dense ``F.linear``/matmul on the unpacked weights;
      ``torch.bmm`` for the stacked experts) with CUDA events (median of 30
      launches after warm-up, operands cycled through more than the 50 MB
-     L2 cache), beside the least time the card could take;
+     L2 cache), beside the least time the card could take: the forward at
+     N = 8 and 512, and a training step's calls at N = 4096 (the forward
+     with ``save_preact``, dX and dW), each also on its FMA body on the
+     same operands (``fma_ms``, the tensor-core bodies' yardstick); and
+     the body sweep: both bodies of the forward, dX and dW at tinyllama's
+     four layouts, N in {8, 16, 32, 64, 128, 256, 512}, each result held
+     against the plain version first (the measurement behind
+     ``MMA_MIN_TOKENS``);
   4. serve tinyllama: 16 mixed requests (prompts 128/256/512, 8-64 new
      tokens) through ``ContinuousEngine``, 8 slots, 16-token pages,
      greedy, bf16 compute, f32 KV cache; every prefill call and decode step
@@ -66,11 +77,14 @@ exits non-zero without the result line:
      per step 154 ``rbgp4_sddmm_rhs`` launches and 462 ``rbgp4mm_rhs``
      launches: 308 on forward layouts (154 forward + 154 recomputed under
      remat) and 154 on transposed layouts (dX), each counted at its
-     launch; finite losses and gradient norms; then one more step under
-     torch.profiler, whose launches by kernel and by role must equal the
-     counters (the window opens with 2000 spin kernels, the records a
-     trace loses first; a trace that still lost a sparse launch is
-     reported and taken again, up to 3 steps);
+     launch, and every one of them on the tensor-core bodies
+     (``launches_mma``); finite losses and gradient norms; then one more
+     step under torch.profiler, whose launches by kernel symbol (FMA and
+     ``*_mma_kernel`` apart; the dW slice sums counted as no launch, their
+     time given to dW) and by role must equal the counters (the window
+     opens with 2000 spin kernels, the records a trace loses first; a
+     trace that still lost a sparse launch is reported and taken again,
+     up to 3 steps);
   7. train parity in float32: a 2-layer full-width model takes 2 steps on
      the card (the kernels) and 2 on the CPU (the plain versions) from the
      same weights and batch, without weight decay; losses within 1e-4
@@ -162,6 +176,7 @@ from __future__ import annotations
 import collections
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -182,6 +197,14 @@ FULL_WIDTH = {"wq/wo": (2048, 2048), "wk/wv": (256, 2048),
 LAYER_PROJECTIONS = {"wq/wo": 2, "wk/wv": 2, "gate/up": 2, "down": 1}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 L2_BYTES = 50 * 2**20
+# token rows phase 2 holds rbgp4mm_rhs at: decode (1, 8, FMA body), the
+# smallest mma launch (16), a half tile (64), a ragged tile edge (77,
+# 1037) and prefill (512); phase_check_train adds a training step's 4096
+CHECK_ROWS = (1, 8, 16, 64, 77, 512, 1037)
+TRAIN_CHECK_ROWS = (16, 64, 77, 512, 1037, 4096)
+# token rows of the body sweep (phase 3): decode, the sizes between it and
+# the tensor-core bodies' threshold, and the serve prompts' prefill
+BODY_SWEEP_ROWS = (8, 16, 32, 64, 128, 256, 512)
 # qwen2-moe-a2.7b's routed experts: 60 of them, stacked over one layout a side
 MOE_EXPERTS = 60
 MOE_WIDTH = {"gate/up": (1408, 2048), "down": (2048, 1408)}
@@ -274,18 +297,18 @@ def time_cuda(fn, n_iter: int = 30, n_warm: int = 5) -> float:
 
 def bound_ms(n: int, m: int, k: int, nnz_row: int, n_chunk_cols: int,
              group_rows: int, elem_bytes: int, e: int = 1,
-             int8: bool = False) -> tuple[float, str]:
+             int8: bool = False, n_out: int = 1) -> tuple[float, str]:
     """Least time for Y (n, m) = X (n, k) . W_s^T, for each of ``e``
     experts: every input read once (X, the compact W, the int32 column
-    table the experts share), Y written once, against the data-sheet memory
-    rate; the 2*e*n*m*nnz_row operations the sparse products need against
-    the bf16 tensor-core peak.  The larger bounds it.  ``int8``: W is int8
-    leaf blocks (1 byte a value) with one f32 scale per (row group,
-    chunk)."""
+    table the experts share), Y written once (and Z, ``n_out`` = 2, with
+    ``save_preact``), against the data-sheet memory rate; the
+    2*e*n*m*nnz_row operations the sparse products need against the bf16
+    tensor-core peak.  The larger bounds it.  ``int8``: W is int8 leaf
+    blocks (1 byte a value) with one f32 scale per (row group, chunk)."""
     n_blocks = (m // group_rows) * n_chunk_cols
     w_bytes = (m * nnz_row + 4 * n_blocks if int8
                else m * nnz_row * elem_bytes)
-    nbytes = (e * ((n * k + n * m) * elem_bytes + w_bytes)
+    nbytes = (e * ((n * k + n_out * n * m) * elem_bytes + w_bytes)
               + n_blocks * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2.0 * e * n * m * nnz_row / BF16_FLOPS
@@ -303,14 +326,43 @@ def phase_build():
     log("build", f"nvcc built {sorted(built) or 'nothing (up to date)'} in "
                  f"{time.perf_counter() - t0:.1f}s (wall, all sources at once)")
     for name, (_, text) in built.items():
-        for line in text.splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line):
-                log("build", f"{name}: {line.strip()}")
+        for kernel, used, spills in ptxas_report(text):
+            log("build", f"{name}: {kernel}: {used}; {spills}")
     name = torch.cuda.get_device_name(0)
     smi = card_line()
     print(smi, flush=True)
     log("build", f"card {name!r}; nvidia-smi name, power.limit: {smi}")
     return smi
+
+
+def kernel_symbol(mangled: str) -> str:
+    """``name<arg>`` of the port's ``*_kernel`` symbol in a mangled name
+    (its length prefix ends in a digit), the first template argument an
+    integer, bf16 or f32."""
+    m = re.search(r"\d((?:rbgp4|chain)\w*?_kernel)"
+                  r"(?:ILi(\d+)E|I(13__nv_bfloat16|f)E)?", mangled)
+    if m is None:
+        return ""
+    arg = m.group(2) or {"13__nv_bfloat16": "bf16", "f": "f32"}.get(
+        m.group(3), "")
+    return m.group(1) + (f"<{arg}>" if arg else "")
+
+
+def ptxas_report(text: str) -> list:
+    """(kernel, registers and shared memory, stack and spills) for each
+    entry function in nvcc's ``-Xptxas -v`` output, the kernel named by
+    its symbol and template argument (``rbgp4mm_rhs_mma_kernel<128>``)."""
+    out, kernel, spills = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line or "Function properties for" \
+                in line:
+            kernel = kernel_symbol(line) or line.strip()
+        elif "spill" in line:
+            spills = line.strip()
+        elif "ptxas info" in line and "Used" in line and kernel:
+            out.append((kernel, line.split(":", 1)[1].strip(), spills))
+            spills = ""
+    return out
 
 
 def full_width_layouts():
@@ -343,14 +395,14 @@ def launched(counter, fn, attr: str = "launches"):
 
 def phase_check(layouts) -> float:
     from repro_torch.kernels import (KernelTables, rbgp4mm_rhs,
-                                     rbgp4mm_rhs_reference)
+                                     rbgp4mm_rhs_reference, rhs_path)
 
     g = torch.Generator(device="cuda").manual_seed(1)
     max_abs = 0.0
     n_cases = 0
     for key, lay in layouts.items():
         tables = KernelTables.build(lay, "cuda")
-        for n in (1, 8, 512):
+        for n in CHECK_ROWS:
             for dt in (torch.float32, torch.bfloat16):
                 worst = 0.0
                 for act, bias, res in ((None, False, False),
@@ -370,6 +422,7 @@ def phase_check(layouts) -> float:
                     max_abs = max(max_abs, err)
                     n_cases += 1
                 log("check", f"{key:8s} N={n:<4d} {str(dt):15s} "
+                             f"[{rhs_path(tables.dims, n, dt)} body] "
                              f"max|diff|/max|ref| = {worst:.2e} (3 epilogues)")
     log("check", f"{n_cases} cases agree; max abs diff {max_abs:.3e}")
     return max_abs
@@ -381,7 +434,8 @@ def phase_check_train(layouts) -> dict:
     from repro_torch.kernels import (KernelTables, TransposeTables,
                                      rbgp4_sddmm_rhs,
                                      rbgp4_sddmm_rhs_reference, rbgp4mm_rhs,
-                                     rbgp4mm_rhs_reference)
+                                     rbgp4mm_rhs_reference, rhs_path,
+                                     sddmm_path)
 
     g = torch.Generator(device="cuda").manual_seed(3)
     max_abs = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
@@ -397,18 +451,25 @@ def phase_check_train(layouts) -> dict:
             rnd = lambda *s: torch.randn(*s, device="cuda",
                                          generator=g).to(dt)
             worst = {"sddmm": 0.0, "save_preact": 0.0, "transposed": 0.0}
-            for n in (8, 512, 4096):
+            # the body each launch took, by N
+            bodies = {"sddmm": {}, "save_preact": {}, "transposed": {}}
+            for n in (8,) + TRAIN_CHECK_ROWS:
                 gy, x = rnd(n, lay.m), rnd(n, lay.k)
                 dw = launched(rbgp4_sddmm_rhs,
                               lambda: rbgp4_sddmm_rhs(tables, gy, x))
                 err, rel = agree(f"sddmm {key} N={n}", dw,
                                  rbgp4_sddmm_rhs_reference(tables, gy, x), dt)
+                # no atomics, a fixed order of sums: a rerun, same bits
+                if not torch.equal(dw, rbgp4_sddmm_rhs(tables, gy, x)):
+                    raise AssertionError(f"sddmm {key} N={n} {dt}: a rerun "
+                                         f"changed the bits")
                 max_abs["dw"] = max(max_abs["dw"], err)
                 worst["sddmm"] = max(worst["sddmm"], rel)
+                bodies["sddmm"][n] = sddmm_path(tables.dims, n, dt)
                 n_cases += 1
             w = rnd(*lay.data_shape)
             # the train path's forward and recompute run N = 4096
-            for n in (512, 4096):
+            for n in TRAIN_CHECK_ROWS:
                 x = rnd(n, lay.k)
                 for act, bias, res in ((None, False, False),
                                        ("silu", False, False),
@@ -427,8 +488,9 @@ def phase_check_train(layouts) -> dict:
                         max_abs["forward"] = max(max_abs["forward"], err)
                         worst["save_preact"] = max(worst["save_preact"], rel)
                     n_cases += 1
+                bodies["save_preact"][n] = rhs_path(tables.dims, n, dt)
             wt = tt.values(w)
-            for n in (512, 4096):
+            for n in TRAIN_CHECK_ROWS:
                 gy = rnd(n, lay.m)
                 dx = launched(rbgp4mm_rhs,
                               lambda: rbgp4mm_rhs(tt.tables, gy, wt),
@@ -437,11 +499,17 @@ def phase_check_train(layouts) -> dict:
                                  rbgp4mm_rhs_reference(tt.tables, gy, wt), dt)
                 max_abs["dx"] = max(max_abs["dx"], err)
                 worst["transposed"] = max(worst["transposed"], rel)
+                bodies["transposed"][n] = rhs_path(dt_, n, dt)
                 n_cases += 1
             log("check", f"{key:8s} {str(dt):15s} max|diff|/max|ref|: "
-                         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+                         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                         + "; bodies: " + "; ".join(
+                             f"{k} " + ", ".join(f"N={n} {b}"
+                                                 for n, b in v.items())
+                             for k, v in bodies.items()))
         torch.cuda.empty_cache()
-    log("check", f"{n_cases} training-kernel cases agree; max abs diff "
+    log("check", f"{n_cases} training-kernel cases agree, every dW "
+                 f"bit-equal on a rerun; max abs diff "
                  + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items()))
     return max_abs
 
@@ -499,14 +567,36 @@ def sddmm_bound_ms(n: int, m: int, k: int, nnz_row: int, n_chunk_cols: int,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def body_launchers(tables, path: str):
+    """Launchers of body ``path`` ("fma" or "mma") of ``rbgp4mm_rhs`` and
+    ``rbgp4_sddmm_rhs`` on given operands and outputs, whatever
+    ``rhs_path``/``sddmm_path`` would choose: the wrappers' own C launch
+    (``_rhs_body``, ``_sddmm_body`` of kernels/rbgp4mm.py), the yardstick
+    of one body against the other.  Their launches are comparisons and
+    move no counter."""
+    from repro_torch.kernels.rbgp4mm import _rhs_body, _sddmm_body
+
+    def rhs(x, w, out, z=None, act=None):
+        _rhs_body(path, tables, x, w, out, z, act=act)
+
+    def sddmm(g, x, dw):
+        _sddmm_body(path, tables, g, x, dw)
+
+    return rhs, sddmm
+
+
 def phase_train_times(layouts, n: int = 4096) -> dict:
-    """dW (rbgp4_sddmm_rhs) and dX (rbgp4mm_rhs on the transposed layout)
-    at a training step's N tokens, bf16: kernel, plain version, the dense
-    cuBLAS product (g^T @ x, and g @ W with W unpacked), bound."""
+    """The training calls at a training step's N tokens, bf16: the forward
+    with ``save_preact`` (and silu, the call of a fused projection and of
+    its remat recompute), dW (rbgp4_sddmm_rhs) and dX (rbgp4mm_rhs on the
+    transposed layout): kernel, its FMA body on the same operands
+    (``fma_ms``), plain version, the dense cuBLAS product (``F.linear`` on
+    W unpacked, g^T @ x, g @ W), bound."""
     from repro_torch.kernels import (KernelTables, TransposeTables,
                                      rbgp4_sddmm_rhs,
                                      rbgp4_sddmm_rhs_reference, rbgp4mm_rhs,
-                                     rbgp4mm_rhs_reference)
+                                     rbgp4mm_rhs_reference, rhs_path,
+                                     sddmm_path)
     from repro_torch.kernels.ref import unpack_dense
 
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -525,7 +615,24 @@ def phase_train_times(layouts, n: int = 4096) -> dict:
         wt = tt.values(w)
         wd = unpack_dense(lay, w)
         c = lambda i: i % copies
+        fma_rhs, fma_sddmm = body_launchers(tables, "fma")
+        fma_rhs_t, _ = body_launchers(tt.tables, "fma")
+        y_out, z_out = (torch.empty((n, m), dtype=dt, device="cuda")
+                        for _ in range(2))
+        dx_out = torch.empty((n, k), dtype=dt, device="cuda")
+        dw_out = torch.empty((m, nnz), dtype=dt, device="cuda")
         t = dict(
+            fwd_fma=time_cuda(lambda i: fma_rhs(xs[c(i)], w, y_out, z_out,
+                                                "silu")),
+            dw_fma=time_cuda(lambda i: fma_sddmm(gs[c(i)], xs[c(i)],
+                                                 dw_out)),
+            dx_fma=time_cuda(lambda i: fma_rhs_t(gs[c(i)], wt, dx_out)),
+            fwd=time_cuda(lambda i: rbgp4mm_rhs(tables, xs[c(i)], w,
+                                                act="silu",
+                                                save_preact=True)),
+            fwd_plain=time_cuda(lambda i: rbgp4mm_rhs_reference(
+                tables, xs[c(i)], w, act="silu", save_preact=True)),
+            fwd_lib=time_cuda(lambda i: F.linear(xs[c(i)], wd)),
             dw=time_cuda(lambda i: rbgp4_sddmm_rhs(tables, gs[c(i)],
                                                    xs[c(i)])),
             dw_plain=time_cuda(lambda i: rbgp4_sddmm_rhs_reference(
@@ -536,26 +643,128 @@ def phase_train_times(layouts, n: int = 4096) -> dict:
                 tt.tables, gs[c(i)], wt)),
             dx_lib=time_cuda(lambda i: gs[c(i)] @ wd),
         )
+        b, by = bound_ms(n, m, k, nnz, dims.d_o * dims.d_i,
+                         dims.group_rows, 2, n_out=2)
+        rows[(key, "fwd")] = dict(ms=t["fwd"], plain_ms=t["fwd_plain"],
+                                  library_ms=t["fwd_lib"], bound_ms=b,
+                                  bound_by=by, fma_ms=t["fwd_fma"])
+        log("times", f"forward {key:8s} N={n} bf16, save_preact, silu "
+                     f"[{rhs_path(dims, n, dt)} body]: kernel "
+                     f"{t['fwd']:.4f} ms, FMA body {t['fwd_fma']:.4f} ms, "
+                     f"plain {t['fwd_plain']:.4f} ms, "
+                     f"F.linear dense {t['fwd_lib']:.4f} ms, bound "
+                     f"{b * 1e3:.2f} us ({by})")
         b, by = sddmm_bound_ms(n, m, k, nnz, dims.d_o * dims.d_i,
                                dims.group_rows, 2)
         rows[(key, "dw")] = dict(ms=t["dw"], plain_ms=t["dw_plain"],
                                  library_ms=t["dw_lib"], bound_ms=b,
-                                 bound_by=by)
-        log("times", f"dW {key:8s} N={n} bf16: kernel {t['dw']:.4f} ms, plain "
+                                 bound_by=by, fma_ms=t["dw_fma"])
+        log("times", f"dW {key:8s} N={n} bf16 [{sddmm_path(dims, n, dt)} "
+                     f"body]: kernel {t['dw']:.4f} ms, FMA body "
+                     f"{t['dw_fma']:.4f} ms, plain "
                      f"{t['dw_plain']:.4f} ms, g^T @ x dense "
                      f"{t['dw_lib']:.4f} ms, bound {b * 1e3:.2f} us ({by})")
         b, by = bound_ms(n, dims_t.m, dims_t.k, dims_t.data_cols,
                          dims_t.d_o * dims_t.d_i, dims_t.group_rows, 2)
         rows[(key, "dx")] = dict(ms=t["dx"], plain_ms=t["dx_plain"],
                                  library_ms=t["dx_lib"], bound_ms=b,
-                                 bound_by=by)
+                                 bound_by=by, fma_ms=t["dx_fma"])
         log("times", f"dX {key:8s} N={n} bf16 (G = {dims_t.group_rows}, "
-                     f"C = {dims_t.chunk_cols}): kernel {t['dx']:.4f} ms, "
+                     f"C = {dims_t.chunk_cols}) [{rhs_path(dims_t, n, dt)} "
+                     f"body]: kernel {t['dx']:.4f} ms, FMA body "
+                     f"{t['dx_fma']:.4f} ms, "
                      f"plain {t['dx_plain']:.4f} ms, g @ W dense "
                      f"{t['dx_lib']:.4f} ms, bound {b * 1e3:.2f} us ({by})")
-        del gs, xs, w, wt, wd
+        del gs, xs, w, wt, wd, y_out, z_out, dx_out, dw_out
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_body_sweep(layouts, ns=BODY_SWEEP_ROWS) -> dict:
+    """Both bodies of ``rbgp4mm_rhs`` (the forward as a prefill calls it,
+    no epilogue; dX on the transposed layout) and ``rbgp4_sddmm_rhs`` at
+    tinyllama's four layouts from decode to the serve prompts' prefill,
+    bf16, on the same operands: each body's result first held against the
+    plain version, then both timed (CUDA events, operands cycled past the
+    L2).  Returns {(kind, n): {"mma": ms, "fma": ms}}, kind "fwd", "dx" or
+    "dw", summed over one decoder layer's seven projections: the
+    measurement ``MMA_MIN_TOKENS`` is set from."""
+    from repro_torch.kernels import (MMA_MIN_TOKENS, KernelTables,
+                                     TransposeTables,
+                                     rbgp4_sddmm_rhs_reference,
+                                     rbgp4mm_rhs_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dt = torch.bfloat16
+    paths = ("mma", "fma")
+    layer = {(kind, n): {p: 0.0 for p in paths}
+             for kind in ("fwd", "dx", "dw") for n in ns}
+    for key, lay in layouts.items():
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        m, k = lay.m, lay.k
+        launch = {p: (body_launchers(tables, p), body_launchers(tt.tables, p))
+                  for p in paths}
+        count = LAYER_PROJECTIONS[key]
+        for n in ns:
+            copies = max(2, -(-2 * L2_BYTES
+                              // ((m * lay.data_shape[1] + n * (m + k)) * 2)))
+            rnd = lambda *s: torch.randn(*s, device="cuda",
+                                         generator=g).to(dt)
+            ws, xs, gs = (rnd(copies, *lay.data_shape), rnd(copies, n, k),
+                          rnd(copies, n, m))
+            wts = torch.stack([tt.values(ws[i]) for i in range(copies)])
+            c = lambda i: i % copies
+            outs = {"fwd": torch.empty((n, m), dtype=dt, device="cuda"),
+                    "dx": torch.empty((n, k), dtype=dt, device="cuda"),
+                    "dw": torch.empty(lay.data_shape, dtype=dt,
+                                      device="cuda")}
+            calls = {
+                "fwd": (lambda p, i: launch[p][0][0](xs[c(i)], ws[c(i)],
+                                                     outs["fwd"]),
+                        lambda: rbgp4mm_rhs_reference(tables, xs[0],
+                                                      ws[0])),
+                "dx": (lambda p, i: launch[p][1][0](gs[c(i)], wts[c(i)],
+                                                    outs["dx"]),
+                       lambda: rbgp4mm_rhs_reference(tt.tables, gs[0],
+                                                     wts[0])),
+                "dw": (lambda p, i: launch[p][0][1](gs[c(i)], xs[c(i)],
+                                                    outs["dw"]),
+                       lambda: rbgp4_sddmm_rhs_reference(tables, gs[0],
+                                                         xs[0])),
+            }
+            line = []
+            for kind, (run, ref) in calls.items():
+                want = ref()
+                ms = {}
+                for p in paths:
+                    run(p, 0)
+                    torch.cuda.synchronize()
+                    agree(f"sweep {kind} {key} N={n} [{p} body]",
+                          outs[kind], want, dt)
+                    ms[p] = time_cuda(lambda i: run(p, i))
+                    layer[(kind, n)][p] += count * ms[p]
+                line.append(f"{kind} mma {ms['mma']:.4f} / fma "
+                            f"{ms['fma']:.4f}")
+            log("times", f"bodies {key:8s} N={n:<4d} bf16: "
+                         + ", ".join(line) + " ms")
+            del ws, xs, gs, wts, outs
+        torch.cuda.empty_cache()
+    for n in ns:
+        log("times", f"bodies per tinyllama layer N={n:<4d}: " + ", ".join(
+            f"{kind} mma {layer[(kind, n)]['mma']:.4f} / fma "
+            f"{layer[(kind, n)]['fma']:.4f} ms"
+            for kind in ("fwd", "dx", "dw")))
+    for kind in ("fwd", "dx", "dw"):
+        # the least swept N from which the mma body is the faster at
+        # every larger swept N (None: the FMA body wins at 512 too)
+        faster = [layer[(kind, n)]["mma"] < layer[(kind, n)]["fma"]
+                  for n in ns]
+        cross = next((n for i, n in enumerate(ns) if all(faster[i:])), None)
+        log("times", f"bodies {kind}: the tensor-core body is the faster "
+                     f"from N = {cross} on (swept {ns}); the wrappers take "
+                     f"it from N = {MMA_MIN_TOKENS}")
+    return layer
 
 
 def main_config(compute_dtype: str = "bfloat16",
@@ -607,6 +816,7 @@ def reset_launch_counts() -> None:
                                      rbgp4mm_rhs, rbgp4mm_rhs_stacked)
 
     rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = 0
+    rbgp4mm_rhs.launches_mma = rbgp4_sddmm_rhs.launches_mma = 0
     rbgp4mm_rhs.launches_q = rbgp4mm_rhs_stacked.launches_q = 0
     chainmm_rhs.launches_q = 0
     rbgp4_sddmm_rhs.launches = 0
@@ -616,6 +826,16 @@ def reset_launch_counts() -> None:
     chain_sddmm_rhs.launches = 0
     rbgp4mm.launches = rbgp4mm.launches_dx = 0
     rbgp4_sddmm.launches = 0
+
+
+def body_counts() -> dict:
+    """The launches that took the bf16 tensor-core bodies, by the role
+    whose counter they also moved: ``rbgp4mm_rhs`` (forward and dX, keyed
+    by the forward role) and ``rbgp4_sddmm_rhs``."""
+    from repro_torch.kernels import rbgp4_sddmm_rhs, rbgp4mm_rhs
+
+    return {"forward": rbgp4mm_rhs.launches_mma,
+            "dw": rbgp4_sddmm_rhs.launches_mma}
 
 
 def counts_since(before: dict) -> dict:
@@ -873,15 +1093,21 @@ def same_streams(model, reqs: list, got: dict, want: dict, phase: str,
 
 
 # kernel symbol (the trace names the kernel, not its role) -> its role,
-# and for a forward kernel the role it has right after its family's dW
-# kernel (dX); the stacked names first
+# for a forward kernel the role it has right after its family's dW kernel
+# (dX), and its body: "fma", "mma" (the bf16 tensor-core bodies, counted
+# apart by ``body_counts``) or "sum" (the dW mma body's slice sum, a
+# second kernel of a counted launch: its time goes to dW, it counts as
+# no launch); the stacked names first
 TRACE_KINDS = (
-    ("chain_sddmm_rhs_kernel", "chain_dw", None),
-    ("chainmm_rhs_kernel", "chain_forward", "chain_dx"),
-    ("rbgp4_sddmm_rhs_stacked_kernel", "stacked_dw", None),
-    ("rbgp4mm_rhs_stacked_kernel", "stacked_forward", "stacked_dx"),
-    ("rbgp4_sddmm_rhs_kernel", "dw", None),
-    ("rbgp4mm_rhs_kernel", "forward", "dx"),
+    ("chain_sddmm_rhs_kernel", "chain_dw", None, "fma"),
+    ("chainmm_rhs_kernel", "chain_forward", "chain_dx", "fma"),
+    ("rbgp4_sddmm_rhs_stacked_kernel", "stacked_dw", None, "fma"),
+    ("rbgp4mm_rhs_stacked_kernel", "stacked_forward", "stacked_dx", "fma"),
+    ("rbgp4_sddmm_rhs_mma_kernel", "dw", None, "mma"),
+    ("rbgp4_sddmm_rhs_sum_kernel", "dw", None, "sum"),
+    ("rbgp4_sddmm_rhs_kernel", "dw", None, "fma"),
+    ("rbgp4mm_rhs_mma_kernel", "forward", "dx", "mma"),
+    ("rbgp4mm_rhs_kernel", "forward", "dx", "fma"),
 )
 
 
@@ -895,16 +1121,18 @@ PROFILE_PAD = 2000
 def split_trace(kernels: list) -> tuple[dict, dict, dict]:
     """The trace's sparse launches by role and their card time, and the
     launches by kernel symbol.  The trace names the kernel, not its role:
-    an ``rbgp4mm_rhs`` launch is taken as a dX when the last sparse kernel
-    before it was ``rbgp4_sddmm_rhs`` (the backward of every projection
-    runs dW, then dX), otherwise as a forward or its recompute, and the
-    same for the stacked and the chain pairs."""
+    an ``rbgp4mm_rhs`` launch (either body) is taken as a dX when the last
+    sparse kernel before it was ``rbgp4_sddmm_rhs`` (either body, or its
+    slice sum: the backward of every projection runs dW, then dX),
+    otherwise as a forward or its recompute, and the same for the stacked
+    and the chain pairs.  A slice sum adds its time to dW and counts as
+    no launch."""
     ms = dict.fromkeys(COUNTERS, 0.0)
     count = dict.fromkeys(COUNTERS, 0)
-    by_symbol = {symbol: 0 for symbol, _, _ in TRACE_KINDS}
+    by_symbol = {symbol: 0 for symbol, _, _, _ in TRACE_KINDS}
     last = None
     for _, dur, name in kernels:
-        for symbol, role, dx_role in TRACE_KINDS:
+        for symbol, role, dx_role, body in TRACE_KINDS:
             if symbol in name:
                 kind = role
                 if dx_role is not None and last == dx_role.replace("dx",
@@ -914,10 +1142,27 @@ def split_trace(kernels: list) -> tuple[dict, dict, dict]:
         else:
             continue
         ms[kind] += dur
-        count[kind] += 1
         by_symbol[symbol] += 1
+        if body != "sum":
+            count[kind] += 1
         last = kind
     return count, ms, by_symbol
+
+
+def symbol_launches(counted: dict, mma: dict) -> dict:
+    """The launches each traced symbol should show, from the launch
+    counters of the same step (``counted``, by role) and the tensor-core
+    body counters (``mma``, by ``body_counts``'s roles): a family's mma
+    symbol takes its mma launches, its FMA symbol the rest; the slice
+    sum's launches are not counted and not held."""
+    want = {}
+    for symbol, role, dx, body in TRACE_KINDS:
+        if body == "sum":
+            continue
+        n_mma = mma.get(role, 0)
+        n = counted[role] + (counted[dx] if dx else 0)
+        want[symbol] = n_mma if body == "mma" else n - n_mma
+    return want
 
 
 def profile_train_step(trainer, phase: str) -> dict:
@@ -936,7 +1181,7 @@ def profile_train_step(trainer, phase: str) -> dict:
     lost = []
     for attempt in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-        before = launch_counts()
+        before, before_mma = launch_counts(), body_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILE_PAD):
@@ -944,6 +1189,7 @@ def profile_train_step(trainer, phase: str) -> dict:
             torch.cuda.synchronize()
             trainer.run(1)
         counted = counts_since(before)
+        mma = {k: v - before_mma[k] for k, v in body_counts().items()}
         traced = sorted((e.time_range.start,
                          e.time_range.elapsed_us() * 1e-3, e.name)
                         for e in prof.events()
@@ -954,12 +1200,11 @@ def profile_train_step(trainer, phase: str) -> dict:
             raise AssertionError("the profiler recorded no kernel on the "
                                  "card")
         count, ms, by_symbol = split_trace(kernels)
-        want = {symbol: counted[role] + (counted[dx] if dx else 0)
-                for symbol, role, dx in TRACE_KINDS}
+        want = symbol_launches(counted, mma)
         if any(by_symbol[k] > want[k] for k in want):
             raise AssertionError(f"profiled step: trace holds {by_symbol} "
                                  f"launches by kernel, counters {want}")
-        if by_symbol == want:
+        if all(by_symbol[k] == want[k] for k in want):
             break
         missing = {k: want[k] - by_symbol[k] for k in want
                    if by_symbol[k] != want[k]}
@@ -977,6 +1222,8 @@ def profile_train_step(trainer, phase: str) -> dict:
     busy = sum(ms for _, ms, _ in kernels)
     return dict(wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
                 kernel_ms=ms, kernel_launches=count,
+                launches_by_symbol={k: v for k, v in by_symbol.items() if v},
+                mma_launches=mma,
                 kernel_share={k: v / busy for k, v in ms.items()},
                 attempts=attempt, pad_records_lost=pad_lost,
                 lost_records=lost)
@@ -1007,6 +1254,16 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
     reset_launch_counts()
     hist = list(trainer.run(n_steps))
     launches = launch_counts()
+    # a step's rbgp4mm_rhs and rbgp4_sddmm_rhs launches all run bf16 at
+    # batch x seq >= 16 tokens on layouts the tensor-core bodies take, so
+    # every one of them must have taken those bodies
+    mma = body_counts()
+    want_mma = {"forward": launches["forward"] + launches["dx"],
+                "dw": launches["dw"]}
+    if mma != want_mma:
+        raise AssertionError(f"tensor-core body launches {mma}, want "
+                             f"{want_mma}: every {batch * seq}-token "
+                             f"launch takes them")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prev = dict.fromkeys(COUNTERS, 0)
     for i, c in enumerate(counts):
@@ -1026,6 +1283,10 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
     if prof["kernel_launches"] != want:
         raise AssertionError(f"profiled step launches "
                              f"{prof['kernel_launches']}")
+    want_mma = {"forward": want["forward"] + want["dx"], "dw": want["dw"]}
+    if prof["mma_launches"] != want_mma:
+        raise AssertionError(f"profiled step: tensor-core body launches "
+                             f"{prof['mma_launches']}, want {want_mma}")
     res = dict(
         steps=n_steps, tokens_per_step=batch * seq,
         losses=[h["loss"] for h in hist], ce=[h["ce"] for h in hist],
@@ -1035,6 +1296,7 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
         tokens_per_s=batch * seq / (step_ms / 1e3),
         peak_mem_gb=peak_gb,
         launches=launches, launches_per_step=want,
+        mma_launches=mma,
         profile=prof,
         busy_share_unprofiled=prof["busy_ms"] / step_ms,
     )
@@ -1061,6 +1323,12 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
                            f"({prof['kernel_share'][k]:.1%} of busy, "
                            f"{prof['kernel_launches'][k]} launches)"
                            for k in COUNTERS if want[k]))
+    log(phase, f"profiled step's launches by kernel symbol (every "
+               f"{batch * seq}-token rbgp4mm_rhs and rbgp4_sddmm_rhs launch "
+               f"on the *_mma_kernel symbols; the slice sums count as no "
+               f"launch): " + ", ".join(
+                   f"{k} {v}" for k, v in
+                   prof["launches_by_symbol"].items()))
     print(f"{phase} " + json.dumps(res), flush=True)
     del trainer, model
     free_card()
@@ -1227,7 +1495,10 @@ def per_layer(rows: dict, kind, projections=None) -> dict:
     sums of ``rows`` (keyed ``(layout, kind)``, kind a token count or a
     role) weighted by ``projections`` (tinyllama's seven by default)."""
     projections = projections or LAYER_PROJECTIONS
-    agg = {f: 0.0 for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    fields = ["ms", "plain_ms", "library_ms", "bound_ms"]
+    if all("fma_ms" in rows[(key, kind)] for key in projections):
+        fields.append("fma_ms")
+    agg = {f: 0.0 for f in fields}
     by_share = {"bytes": 0.0, "operations": 0.0}
     for key, count in projections.items():
         row = rows[(key, kind)]
@@ -2074,6 +2345,7 @@ def main() -> int:
     max_abs_chain = phase_check_chain(chains)
     times = phase_times(layouts)
     times.update(phase_train_times(layouts))
+    sweep = phase_body_sweep(layouts)
     times_moe = phase_times_moe(experts)
     times_chain = phase_times_chain(chains)
     t_fm = time.perf_counter()
@@ -2172,6 +2444,8 @@ def main() -> int:
                        for ((m, k, n), role), row in times_fm.items()})
     per_layout.update({f"int8 {family} {key} N=8": row
                        for (family, key), row in times_q.items()})
+    per_layout.update({f"layer {kind} N={n} bodies": ms
+                       for (kind, n), ms in sweep.items()})
     print("kernel_times " + json.dumps(per_layout), flush=True)
     src = "src/repro_torch/kernels/csrc/"
     # the forward: one decoder layer's seven projections at decode (N = 8
@@ -2180,6 +2454,7 @@ def main() -> int:
     # kernels: one MoE layer's three expert projections, 60 experts, at
     # decode (8 rows an expert) and at a training step (171 rows an expert)
     fwd = per_layer(times, 8)
+    fwd_train = per_layer(times, "fwd")
     dx, dw = per_layer(times, "dx"), per_layer(times, "dw")
     s_fwd = per_layer(times_moe, 8, MOE_LAYER_PROJECTIONS)
     s_dx = per_layer(times_moe, "dx", MOE_LAYER_PROJECTIONS)
@@ -2206,6 +2481,19 @@ def main() -> int:
                   "tinyllama and qwen2-moe attention and shared expert); "
                   "timed: one tinyllama decoder layer at decode, wq, wk, "
                   "wv, wo, gate, up, down with 8 token rows, bf16"),
+        dict(name="rbgp4mm_rhs (training forward, save_preact)",
+             route="cuda", source=src + "rbgp4mm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:500",
+             launches=train["launches"]["forward"]
+             + train_moe["launches"]["forward"],
+             max_abs_err=max_abs_train["forward"], **fwd_train,
+             work="the training forward and its remat recompute (phases 6 "
+                  "and 10, the bf16 tensor-core body); timed: one "
+                  "tinyllama decoder layer's seven projections at 4096 "
+                  "tokens, bf16, with save_preact and silu (Y and Z "
+                  "written); fma_ms: the FMA body on the same operands; "
+                  "launches: the forward launches of the tinyllama and "
+                  "qwen2-moe training runs"),
         dict(name="rbgp4mm_rhs (dX, transposed layouts)", route="cuda",
              source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:500",
@@ -2213,14 +2501,16 @@ def main() -> int:
              max_abs_err=max_abs_train["dx"], **dx,
              work="dX = g @ W_s of one tinyllama decoder layer's seven "
                   "projections on their transposed layouts (G 64/128, "
-                  "C 16), 4096 tokens, bf16"),
+                  "C 16), 4096 tokens, bf16; fma_ms: the FMA body on the "
+                  "same operands"),
         dict(name="rbgp4_sddmm_rhs", route="cuda",
              source=src + "rbgp4_sddmm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:674",
              launches=total("dw"),
              max_abs_err=max_abs_train["dw"], **dw,
              work="compact dW of one tinyllama decoder layer's seven "
-                  "projections, 4096 tokens, bf16"),
+                  "projections, 4096 tokens, bf16; fma_ms: the FMA body on "
+                  "the same operands"),
         dict(name="rbgp4mm_rhs_stacked", route="cuda",
              source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:773",

@@ -10,6 +10,9 @@ products built on them, and ``ops.RBGP4Op`` (cached by ``get_op``) the
 per-layer bundle of the reference.  ``rbgp4mm_rhs``,
 ``rbgp4mm_rhs_stacked`` and ``chainmm_rhs`` take ``scales=``, the int8
 leaf-block path of the weight-only PTQ storage (``sparsity/quant.py``).
+``rhs_path`` and ``sddmm_path`` say which device body (FMA, or bf16 on
+the tensor cores) a launch of ``rbgp4mm_rhs`` or ``rbgp4_sddmm_rhs``
+takes.
 """
 from . import build, ref
 from .chainmm import (
@@ -26,8 +29,10 @@ from .ops import (ChainLinear, RBGP4Linear, RBGP4LinearStacked, RBGP4MatMul,
                   RBGP4Op, get_op)
 from .rbgp4mm import (
     EPILOGUE_ACTS,
+    MMA_MIN_TOKENS,
     KernelDims,
     KernelTables,
+    SddmmPlan,
     TransposeTables,
     rbgp4_sddmm,
     rbgp4_sddmm_reference,
@@ -41,11 +46,19 @@ from .rbgp4mm import (
     rbgp4mm_rhs_reference,
     rbgp4mm_rhs_stacked,
     rbgp4mm_rhs_stacked_reference,
+    rhs_path,
+    sddmm_mma_plan,
+    sddmm_path,
 )
 
 __all__ = [
     "EPILOGUE_ACTS",
+    "MMA_MIN_TOKENS",
     "KernelDims",
+    "SddmmPlan",
+    "rhs_path",
+    "sddmm_path",
+    "sddmm_mma_plan",
     "KernelTables",
     "TransposeTables",
     "RBGP4Linear",

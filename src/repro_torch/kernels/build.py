@@ -7,8 +7,8 @@ with a plain C interface::
         -Xcompiler -fPIC -o build/repro_torch/lib<name>-<hash>.so csrc/<name>.cu
 
 The library goes into ``build/repro_torch/`` under the checkout at first
-use, and again whenever the source (or the flags) change: the file name
-carries a hash of both.  ``build`` starts one nvcc per missing library, all
+use, and again whenever the source, a shared header (``csrc/*.cuh``) or
+the flags change: the file name carries a hash of all three.  ``build`` starts one nvcc per missing library, all
 together, and waits for them.  Nothing here runs when a module is imported.
 """
 from __future__ import annotations
@@ -56,11 +56,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where kernel ``name``'s library lives: its file name hashes the
+    source, every shared header under ``csrc/`` (a source may include any
+    of them) and the flags, so an edit to any of them builds anew."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None, *,

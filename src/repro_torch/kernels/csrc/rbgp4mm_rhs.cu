@@ -18,33 +18,91 @@
 // The table takes the place of the TPU kernel's scalar-prefetched adj_o
 // and its static unroll over adj_i.  Sums are f32 whatever the input type.
 //
-// What bounds it on an H100.  At decode (8 token rows) every weight is
-// read once per step and used for 8 products: about 154 launches and
-// 0.48 GB of bf16 weights per step of tinyllama-1.1b, so reading W from
-// device memory bounds it (3.35 TB/s).  At prefill (512 rows) the bound is
-// still bytes for these shapes, with the tensor cores close behind.  At a
-// training step's 4096 rows the forward layouts (G = 16) and the dX
-// layouts (G = 64 and 128, C = 16, up to 88 chunks a row) are bound by
-// the tensor cores' operations; this design runs on the CUDA cores, two
-// shared-memory loads per FMA, so it stays far from that bound.
+// Two device bodies.  Which one a launch takes is a fixed function of
+// dtype and shape, chosen by the caller (kernels/rbgp4mm.py:rhs_path) and
+// passed as `path`; the launcher refuses a shape the chosen body cannot
+// take, and nothing falls back from one body to the other.
 //
-// This first design is simple and right, not fast: one block computes a
-// (BN tokens x G rows) tile of one row group, walks the d_o*d_i chunks,
-// stages each (BN x C) input slice and (G x C) weight slice in shared
-// memory (converted to f32, in passes of at most 64 columns) and
-// multiplies them with FMAs on the CUDA cores, each thread holding up to
-// four outputs in registers.  The epilogue (bias, Z, activation,
-// residual) runs on those registers before the single store of Y (and of
-// Z, from the same registers).  No sum crosses blocks.  At G = 128 a
-// block holds only BN = 8 tokens, so it reads its 128 weight rows once
-// for every 8 tokens: the dX launches re-read W from L2 N/8 times.
-// The block's token count BN is picked per launch (block_tokens).  The
-// ragged token edge is masked here, not padded by the caller.  Any C and
-// any G up to 128 work; a G whose staging needs more than the 48 KB of
-// shared memory a launch gets by default is refused.  Tensor cores
-// (mma.sync / wgmma with tokens on the M side and the G rows on the N
-// side), TMA, a pipelined ring of stages and a fitted BN are work for a
-// later version.
+// 1. The bf16 tensor-core body, rbgp4mm_rhs_mma_kernel<G> (path 1): the
+// unstacked, full-precision entry point in bfloat16 at N >= 16 tokens, G
+// in {16, 32, 64, 128}, C and K multiples of 8.  That is every launch of
+// a training step (the forward, its remat recompute and dX, N = 4096 for
+// tinyllama-1.1b at 8 x 512 tokens) and of a prefill.
+//
+// What bounds it on an H100.  Per tinyllama-1.1b layer at N = 4096, the
+// seven projections hold 11.01 M compact values, so each of the forward
+// and dX does 2 * 4096 * 11.01e6 = 90.2 GFLOP: 0.091 ms at the 989
+// TFLOP/s bf16 dense peak, against about 0.1 ms of device-memory bytes
+// (X, W, Y and Z once).  The limit this design meets first is neither:
+// it is L2.  A block stages, for each (row group, slot) pair, the N x C
+// input slice at col0[rg, s], and that slice feeds only the G rows of the
+// group.  On the forward layouts (G = 16; C = 128, or 64 with 22 chunks a
+// row for down) that is sum (M/G) * n_chunks * N * C * 2 bytes =
+// 2 * 537 MB (wq, wo) + 2 * 67 MB (wk, wv) + 2 * 1476 MB (gate, up) +
+// 1476 MB (down) = 5.64 GB of L2-to-SM reads a layer, plus 0.70 GB of
+// weights (re-read once for every 128 tokens), about 1 ms at the 5-6
+// TB/s an H100's L2 gives.  On the dX layouts (G = 128, or 64 for down;
+// C = 16) the input slices come to 0.89 GB and the weights to 0.70 GB:
+// 1.6 GB, about 0.3 ms.  Measured (NVIDIA H100 80GB HBM3, 700 W,
+// chip_smoke.py phase 3): the forward 1.63 ms a layer, so about 3.9 TB/s
+// of those reads (rbgp4_sddmm_rhs reads the same slices at about 6
+// TB/s); dX 0.63 ms.  Blocks that walk several token tiles each (fewer,
+// longer-lived blocks) were tried and ran slower: the grid's waves, not
+// the blocks' start-up, set the pace.
+//
+// What the design does about it.  A block owns kMmaBN = 128 tokens by the
+// G rows of one row group, so one weight slice now serves 128 tokens
+// (the FMA body's dX blocks held 8 at G = 128 and re-read W N/8 times).
+// Tokens are the mma's M side, the G rows its N side and the row group's
+// compact columns kk = s*C + c its contraction: mma.sync m16n8k16
+// (bf16 in, f32 sums), fragments by ldmatrix.  A (G x C) slot of W in
+// row-major compact storage is already the .col B operand, and X's rows
+// the .row A operand, so nothing is transposed.  The contraction runs in
+// stages of kMmaKS = 64 compact columns; a stage's X (128 x 64, gathered
+// 8 columns at a time through col0: C % 8 == 0, so a 16-byte chunk never
+// straddles a slot) and W (G x 64) slices arrive by 16-byte cp.async in a
+// ring of kMmaStages = 3, two stages in flight while the third is
+// multiplied, with one __syncthreads a stage.  Rows are 128 bytes, XOR-
+// swizzled by 16-byte chunk (mma_bf16.cuh), so ldmatrix meets no bank
+// conflict.  Columns past n_chunks*C and tokens past N are zero-filled by
+// the copy itself (src-size 0), so the ragged edges need no other code.
+// The 8 warps split the tile 8 x 1 (G = 16, 32) or 4 x 2 (G = 64, 128);
+// a warp holds 16-32 tokens by 16-64 rows of f32 sums.  The epilogue
+// (bias, Z, activation, residual) runs on those fragments as the FMA
+// body's does, then one bf16x2 store of Y (and Z) a pair of rows.  L2
+// traffic of the forward's input slices is what is left; cutting it needs
+// a block that serves several row groups from one staged slice (the row
+// groups u of one tile-row o read the same adj_o tiles), later work.
+//
+// Build (nvcc -Xptxas -v, sm_90a): G = 16, 32, 64, 128 use 64, 62, 64 and
+// 124 registers and no stack (no spills); dynamic shared memory
+// 3 * (128 + G) * 64 * 2 bytes = 55,296, 61,440, 73,728 and 98,304
+// bytes, above the 48 KB default, so each launch sets
+// cudaFuncAttributeMaxDynamicSharedMemorySize.  Refused (launcher):
+// float32, G outside those four, C or K not a multiple of 8, X or W not
+// 16-byte aligned (the wrapper checks first and raises), more than
+// 65535 * 128 tokens.
+//
+// 2. The FMA body, rhs_tile (path 0): float32 (TF32 stays off, so the
+// float32 parity runs keep this body), bf16 below 16 tokens (decode at 8
+// rows, where the step is host-bound; the tensor-core body was measured
+// faster from 8 tokens on, kernels/rbgp4mm.py:MMA_MIN_TOKENS), the
+// stacked and the int8 entry points, and any G or C.  What bounds it on an
+// H100: at decode (8 token rows) every weight is read once per step and
+// used for 8 products: about 154 launches and 0.48 GB of bf16 weights per
+// step of tinyllama-1.1b, so reading W from device memory bounds it
+// (3.35 TB/s).  One block computes a (BN tokens x G rows) tile of one row
+// group, walks the d_o*d_i chunks, stages each (BN x C) input slice and
+// (G x C) weight slice in shared memory (converted to f32, in passes of
+// at most 64 columns) and multiplies them with FMAs on the CUDA cores,
+// each thread holding up to four outputs in registers, two shared-memory
+// loads per FMA.  The epilogue (bias, Z, activation, residual) runs on
+// those registers before the single store of Y (and of Z).  No sum
+// crosses blocks.  BN (block_tokens) is a power of two covering the
+// tokens, at most 64, and at most 1024 / G: 8 tokens at G = 128.  The
+// ragged token edge is masked here.  Any C and any G up to 128 work; a G
+// whose staging needs more than the 48 KB of shared memory a launch gets
+// by default is refused.
 //
 // rbgp4mm_rhs_stacked, the second entry point, replaces the Pallas TPU
 // kernel repro/kernels/rbgp4mm.py:rbgp4mm_rhs_stacked
@@ -63,9 +121,9 @@
 // gate or up projection (the down projection the same), 25.8 us at
 // 3.35 TB/s; at a training step (171 rows an expert) X, W and Y come to
 // 157 MB (47 us) against 15 us for the 14.8 GFLOP on the tensor cores.
-// What the design does about it: nothing yet, it is the FMA design above;
-// tensor cores, TMA and a ring come with the later version of all the
-// kernels.
+// What the design does about it: nothing yet, it is the FMA body above;
+// the tensor-core body takes the unstacked bf16 launches only, and the
+// stacked entry point is the next to take it.
 //
 // The int8 path (rbgp4mm_rhs_q, rbgp4mm_rhs_stacked_q; the reference's
 // has_scales branch of _mm_rhs_kernel and _mm_rhs_stacked_kernel, in
@@ -90,6 +148,8 @@
 
 #include <cstdint>
 #include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -131,7 +191,7 @@ __device__ __forceinline__ float activate(float z, int act) {
   }
 }
 
-// The body of all four entry kernels below: one (BN tokens x G rows) tile
+// The FMA body of all four entry kernels below: one (BN tokens x G rows) tile
 // of row group blockIdx.x, token block blockIdx.y, expert blockIdx.z.  W is
 // the value type: T, or int8_t with one float scale per leaf block.
 template <typename T, typename W>
@@ -285,6 +345,223 @@ __global__ void __launch_bounds__(kThreads)
                       n_tokens, k, m, n_chunks, G, C, bn, kNone);
 }
 
+// -- the bf16 tensor-core body ---------------------------------------------
+
+constexpr int kMmaThreads = 256;  // 8 warps
+constexpr int kMmaBN = 128;       // tokens a block (the mma's M side)
+constexpr int kMmaKS = 64;        // contraction columns a stage
+constexpr int kMmaStages = 3;     // cp.async ring depth
+
+// The warp grid of a (kMmaBN tokens x G rows) block tile: WARPS_M x
+// WARPS_N warps, each MT m16 tiles of tokens by NT n8 tiles of rows.
+template <int G>
+struct RhsMma {
+  static constexpr int kWarpsN = G >= 64 ? 2 : 1;
+  static constexpr int kWarpsM = 8 / kWarpsN;
+  static constexpr int kWTM = kMmaBN / kWarpsM;  // tokens a warp
+  static constexpr int kWTN = G / kWarpsN;       // rows a warp
+  static constexpr int kMT = kWTM / 16;
+  static constexpr int kNT = kWTN / 8;
+  static constexpr size_t kSmem =
+      (size_t)kMmaStages * (kMmaBN + G) * kMmaKS * sizeof(__nv_bfloat16);
+  static_assert(kWTM % 16 == 0 && kWTN % 16 == 0, "warp tile");
+};
+
+// One (kMmaBN tokens x G rows) tile of row group blockIdx.x, token block
+// blockIdx.y, on the tensor cores.  The contraction runs over the row
+// group's compact columns kk = s*C + c, kk < n_chunks*C, in stages of
+// kMmaKS: compact column kk of W is w[row, kk] and meets input column
+// col0[rg, s] + c of X.  Each stage's X (kMmaBN x kMmaKS) and W (G x
+// kMmaKS) slices arrive by 16-byte cp.async (8 columns never straddle a
+// slot: C % 8 == 0) in a ring of kMmaStages; columns past n_chunks*C and
+// tokens past n_tokens are zero-filled.
+template <int G>
+__global__ void __launch_bounds__(kMmaThreads)
+    rbgp4mm_rhs_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           const int* __restrict__ col0,
+                           const __nv_bfloat16* __restrict__ bias,
+                           const __nv_bfloat16* __restrict__ residual,
+                           __nv_bfloat16* __restrict__ out,
+                           __nv_bfloat16* __restrict__ zout, int n_tokens,
+                           int k, int m, int n_chunks, int C, int act) {
+  using S = RhsMma<G>;
+  using mma_bf16::swz;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ws = xs + kMmaStages * kMmaBN * kMmaKS;
+
+  const int rg = blockIdx.x;
+  const int n0 = blockIdx.y * kMmaBN;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp % S::kWarpsM;
+  const int wn = warp / S::kWarpsM;
+  const long long w_row = (long long)n_chunks * C;
+  const int len = n_chunks * C;
+  const int n_steps = (len + kMmaKS - 1) / kMmaKS;
+  const int* cols = col0 + (long long)rg * n_chunks;
+  const __nv_bfloat16* w_blk = w + (long long)rg * G * w_row;
+
+  auto load_stage = [&](int step, int slot) {
+    __nv_bfloat16* xd = xs + slot * kMmaBN * kMmaKS;
+    __nv_bfloat16* wd = ws + slot * G * kMmaKS;
+#pragma unroll
+    for (int i = tid; i < kMmaBN * 8; i += kMmaThreads) {
+      const int r = i >> 3, j = i & 7;
+      const int kk = step * kMmaKS + j * 8;
+      const int n = n0 + r;
+      const bool ok = n < n_tokens && kk < len;
+      const __nv_bfloat16* src = x;
+      if (ok) {
+        const int s = kk / C;
+        src = x + (long long)n * k + cols[s] + (kk - s * C);
+      }
+      mma_bf16::cp_async16(xd + swz<8>(r, j), src, ok);
+    }
+#pragma unroll
+    for (int i = tid; i < G * 8; i += kMmaThreads) {
+      const int r = i >> 3, j = i & 7;
+      const int kk = step * kMmaKS + j * 8;
+      const bool ok = kk < len;
+      const __nv_bfloat16* src = ok ? w_blk + (long long)r * w_row + kk : w;
+      mma_bf16::cp_async16(wd + swz<8>(r, j), src, ok);
+    }
+  };
+
+  float acc[S::kMT][S::kNT][4];
+#pragma unroll
+  for (int i = 0; i < S::kMT; ++i)
+#pragma unroll
+    for (int t = 0; t < S::kNT; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][t][q] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < kMmaStages - 1; ++st) {
+    if (st < n_steps) load_stage(st, st);
+    mma_bf16::cp_async_commit();
+  }
+  for (int step = 0; step < n_steps; ++step) {
+    // stage `step` has landed, and every warp is done with the slot the
+    // next load overwrites (the one computed last iteration)
+    mma_bf16::cp_async_wait<kMmaStages - 2>();
+    __syncthreads();
+    const int next = step + kMmaStages - 1;
+    if (next < n_steps) load_stage(next, next % kMmaStages);
+    mma_bf16::cp_async_commit();
+    const int slot = step % kMmaStages;
+    const __nv_bfloat16* xt = xs + slot * kMmaBN * kMmaKS;
+    const __nv_bfloat16* wt = ws + slot * G * kMmaKS;
+#pragma unroll
+    for (int ks = 0; ks < kMmaKS / 16; ++ks) {
+      uint32_t a[S::kMT][4];
+#pragma unroll
+      for (int i = 0; i < S::kMT; ++i) {
+        const int r = wm * S::kWTM + i * 16 + (lane & 15);
+        mma_bf16::ldmatrix_x4(a[i], xt + swz<8>(r, ks * 2 + (lane >> 4)));
+      }
+#pragma unroll
+      for (int t = 0; t < S::kNT / 2; ++t) {
+        // rows t*16 .. +15 of the warp's W rows: matrices (rows 0-7,
+        // k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 0-7), (rows 8-15,
+        // k 8-15) = b0, b1 of n8 tile 2t and b0, b1 of tile 2t+1
+        uint32_t b[4];
+        const int r = wn * S::kWTN + t * 16 + (lane & 7) + ((lane >> 4) << 3);
+        mma_bf16::ldmatrix_x4(b, wt + swz<8>(r, ks * 2 + ((lane >> 3) & 1)));
+#pragma unroll
+        for (int i = 0; i < S::kMT; ++i) {
+          mma_bf16::mma_16816(acc[i][2 * t], a[i], b[0], b[1]);
+          mma_bf16::mma_16816(acc[i][2 * t + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+  mma_bf16::cp_async_wait<0>();
+
+  // epilogue on the f32 fragments: c0, c1 at (token lane/4, rows
+  // 2*(lane%4) + {0, 1}), c2, c3 eight tokens further; then one bf16x2
+  // store of Y (and of Z) per pair
+#pragma unroll
+  for (int i = 0; i < S::kMT; ++i)
+#pragma unroll
+    for (int t = 0; t < S::kNT; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + wm * S::kWTM + i * 16 + (lane >> 2) + h * 8;
+        if (n >= n_tokens) continue;
+        const int row = rg * G + wn * S::kWTN + t * 8 + (lane & 3) * 2;
+        float z0 = acc[i][t][2 * h], z1 = acc[i][t][2 * h + 1];
+        if (bias != nullptr) {
+          z0 += __bfloat162float(bias[row]);
+          z1 += __bfloat162float(bias[row + 1]);
+        }
+        const long long idx = (long long)n * m + row;
+        if (zout != nullptr)
+          *reinterpret_cast<__nv_bfloat162*>(zout + idx) =
+              __floats2bfloat162_rn(z0, z1);
+        float y0 = activate(z0, act), y1 = activate(z1, act);
+        if (residual != nullptr) {
+          y0 += __bfloat162float(residual[idx]);
+          y1 += __bfloat162float(residual[idx + 1]);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + idx) =
+            __floats2bfloat162_rn(y0, y1);
+      }
+}
+
+template <int G>
+cudaError_t launch_mma_g(const void* x, const void* w, const void* col0,
+                         const void* bias, const void* residual, void* out,
+                         void* zout, int n_tokens, int k, int m,
+                         int n_chunks, int C, int act, cudaStream_t stream) {
+  using S = RhsMma<G>;
+  const auto kernel = rbgp4mm_rhs_mma_kernel<G>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(m / G, (n_tokens + kMmaBN - 1) / kMmaBN);
+  kernel<<<grid, kMmaThreads, S::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(col0),
+      static_cast<const __nv_bfloat16*>(bias),
+      static_cast<const __nv_bfloat16*>(residual),
+      static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(zout),
+      n_tokens, k, m, n_chunks, C, act);
+  return cudaGetLastError();
+}
+
+// The mma body: bf16 only, G in {16, 32, 64, 128}, C and K multiples of
+// 8 (16-byte chunks never straddle a slot or a row), x and w 16-byte
+// aligned; anything else is refused (the caller's path choice is wrong).
+cudaError_t launch_mma(const void* x, const void* w, const void* col0,
+                       const void* bias, const void* residual, void* out,
+                       void* zout, int n_tokens, int k, int m, int n_chunks,
+                       int G, int C, int act, cudaStream_t stream) {
+  if (n_tokens < 1 || n_chunks < 1 || C < 8 || C % 8 != 0 || k % 8 != 0 ||
+      m % G != 0 || (n_tokens + kMmaBN - 1) / kMmaBN > 65535 ||
+      !mma_bf16::aligned16(x) || !mma_bf16::aligned16(w) ||
+      (long long)n_chunks * C > 2147483647LL - kMmaKS)
+    return cudaErrorInvalidValue;
+  switch (G) {
+    case 16:
+      return launch_mma_g<16>(x, w, col0, bias, residual, out, zout,
+                              n_tokens, k, m, n_chunks, C, act, stream);
+    case 32:
+      return launch_mma_g<32>(x, w, col0, bias, residual, out, zout,
+                              n_tokens, k, m, n_chunks, C, act, stream);
+    case 64:
+      return launch_mma_g<64>(x, w, col0, bias, residual, out, zout,
+                              n_tokens, k, m, n_chunks, C, act, stream);
+    case 128:
+      return launch_mma_g<128>(x, w, col0, bias, residual, out, zout,
+                               n_tokens, k, m, n_chunks, C, act, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // Token rows per block: a power of two covering n_tokens (so a decode
 // step stages no empty rows), at most kMaxBlockTokens, and few enough that
 // the block's BN x G outputs fit its threads' accumulators.  0 when G alone
@@ -361,14 +638,22 @@ cudaError_t launch_q(const void* x, const void* q, const void* scales,
 
 // dtype: 0 = float32, 1 = bfloat16.  act: 0 none, 1 relu, 2 gelu, 3 silu.
 // bias, residual and zout (the pre-activation output) may be null.
-// Returns the cudaError_t of the launch.
+// path: 0 the FMA body, 1 the bf16 tensor-core body (the caller's choice,
+// kernels/rbgp4mm.py:rhs_path; a shape or dtype the mma body cannot take
+// is refused).  Returns the cudaError_t of the launch.
 extern "C" int rbgp4mm_rhs_launch(int dtype, const void* x, const void* w,
                                   const void* col0, const void* bias,
                                   const void* residual, void* out,
                                   void* zout, int n_tokens, int k, int m,
                                   int n_chunks, int G, int C, int act,
-                                  void* stream) {
+                                  int path, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return (int)launch_mma(x, w, col0, bias, residual, out, zout, n_tokens,
+                           k, m, n_chunks, G, C, act, s);
+  }
+  if (path != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch<float>(x, w, col0, bias, residual, out, zout, false,
                               1, n_tokens, k, m, n_chunks, G, C, act, s);

@@ -34,7 +34,10 @@ W_s is in compact RBGP4 storage ``w_data`` (M, d_o*d_i*C), stacked
 wrapper launches its hand-written kernel in ``csrc/`` (see the source notes
 for the designs and what bounds them); on a CPU tensor it runs its plain
 version (``*_reference``).  There is no other path: a failed build or
-launch raises.
+launch raises.  ``rbgp4mm_rhs`` and ``rbgp4_sddmm_rhs`` each have a
+second device body for bfloat16 on the tensor cores; ``rhs_path`` and
+``sddmm_path`` say which body a launch takes, from dtype and shape alone
+(``sddmm_mma_plan`` is the dW body's token-slice plan).
 
 Launch counters, each moved only where its kernel launches (plain runs
 never count): ``rbgp4mm.launches`` on forward layouts,
@@ -45,7 +48,9 @@ never count): ``rbgp4mm.launches`` on forward layouts,
 for the stacked kernels: ``rbgp4mm_rhs_stacked.launches``,
 ``rbgp4mm_rhs_stacked.launches_dx`` and ``rbgp4_sddmm_rhs_stacked.launches``,
 and the int8 paths apart from them: ``rbgp4mm_rhs.launches_q`` and
-``rbgp4mm_rhs_stacked.launches_q``.
+``rbgp4mm_rhs_stacked.launches_q``.  The launches that took the
+tensor-core body count again in ``rbgp4mm_rhs.launches_mma`` (forward
+and dX) and ``rbgp4_sddmm_rhs.launches_mma``.
 """
 from __future__ import annotations
 
@@ -67,7 +72,8 @@ __all__ = ["KernelDims", "KernelTables", "TransposeTables", "EPILOGUE_ACTS",
            "rbgp4_sddmm_reference", "rbgp4mm_rhs", "rbgp4mm_rhs_reference", "rbgp4_sddmm_rhs",
            "rbgp4_sddmm_rhs_reference", "rbgp4mm_rhs_stacked",
            "rbgp4mm_rhs_stacked_reference", "rbgp4_sddmm_rhs_stacked",
-           "rbgp4_sddmm_rhs_stacked_reference"]
+           "rbgp4_sddmm_rhs_stacked_reference", "MMA_MIN_TOKENS",
+           "rhs_path", "sddmm_path", "SddmmPlan", "sddmm_mma_plan"]
 
 # Activations fusable into the epilogue; names match ``models.mlp.ACTS``.
 EPILOGUE_ACTS = {
@@ -259,6 +265,106 @@ def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
     return y.to(x.dtype)
 
 
+# -- which body a launch takes ------------------------------------------------
+#
+# ``rbgp4mm_rhs`` and ``rbgp4_sddmm_rhs`` have two device bodies each: the
+# FMA body (CUDA cores, f32 or bf16, any shape) and the bf16 tensor-core
+# body (``mma.sync`` from a ``cp.async`` ring; ``*_mma_kernel`` in the
+# profile).  The choice is a fixed function of dtype and shape, made here
+# and passed to the C launcher, which refuses a shape the mma body cannot
+# take; nothing falls back from one body to the other.
+
+#: fewest tokens a launch gives the mma bodies; below it (decode at 8
+#: rows, host-bound) the FMA body runs.  ``chip_smoke.phase_body_sweep``
+#: timed both bodies on an H100 at 8-512 tokens: the mma bodies were the
+#: faster at every size, so this is the least size above decode's 8 swept
+MMA_MIN_TOKENS = 16
+#: G the forward's mma body is built for (one template each)
+RHS_MMA_GROUP_ROWS = (16, 32, 64, 128)
+#: tokens a stage of the dW mma body (16 for each of its 8 warps), the
+#: unit of its token slices; and the fewest tokens a slice gets
+SDDMM_MMA_STAGE_TOKENS = 128
+SDDMM_MMA_MIN_SLICE = 256
+#: blocks the dW mma grid wants, in waves of the card's SM count
+SDDMM_MMA_WAVES = 2
+_PATH_CODES = {"fma": 0, "mma": 1}
+
+
+def rhs_path(dims: KernelDims, n_tokens: int, dtype: torch.dtype) -> str:
+    """``"mma"`` or ``"fma"``: the body a launch of ``rbgp4mm_rhs`` takes
+    for ``n_tokens`` rows of X of ``dtype`` on the layout of ``dims``.  The
+    mma body takes bfloat16 at ``n_tokens >= MMA_MIN_TOKENS``, G in
+    ``RHS_MMA_GROUP_ROWS``, and C and K multiples of 8 (16-byte loads);
+    float32 (no TF32) keeps the FMA body, and so do the stacked and int8
+    entry points, which have no other."""
+    if (dtype != torch.bfloat16 or n_tokens < MMA_MIN_TOKENS
+            or dims.group_rows not in RHS_MMA_GROUP_ROWS
+            or dims.chunk_cols % 8 or dims.k % 8):
+        return "fma"
+    return "mma"
+
+
+def sddmm_path(dims: KernelDims, n_tokens: int, dtype: torch.dtype) -> str:
+    """``"mma"`` or ``"fma"``: the body a launch of ``rbgp4_sddmm_rhs``
+    takes.  The mma body takes bfloat16 at ``n_tokens >= MMA_MIN_TOKENS``,
+    G and C multiples of 16 and K a multiple of 8; float32 keeps the FMA
+    body, and so does the stacked entry point, which has no other."""
+    if (dtype != torch.bfloat16 or n_tokens < MMA_MIN_TOKENS
+            or dims.group_rows % 16 or dims.chunk_cols % 16 or dims.k % 8):
+        return "fma"
+    return "mma"
+
+
+@dataclasses.dataclass(frozen=True)
+class SddmmPlan:
+    """The launch plan of the dW mma body: a block owns 16 rows by
+    ``block_cols`` columns of one slot over one of ``n_slices`` token
+    slices of ``slice_len`` tokens (the last one ragged)."""
+
+    block_cols: int
+    n_slices: int
+    slice_len: int
+    blocks: int
+
+    def workspace_shape(self, dims: KernelDims) -> Optional[tuple]:
+        """The float32 partial sums' shape, (n_slices, M, nnz_row), or
+        None for a single slice (the block writes dW itself)."""
+        if self.n_slices == 1:
+            return None
+        return (self.n_slices, dims.m, dims.data_cols)
+
+
+def sddmm_mma_plan(dims: KernelDims, n_tokens: int,
+                   sm_count: int) -> SddmmPlan:
+    """The dW mma body's plan on a card of ``sm_count`` SMs: the widest
+    ``block_cols`` in (128, 64, 32, 16) dividing C, and as many token
+    slices as bring the grid to ``SDDMM_MMA_WAVES`` waves of blocks, each
+    of at least ``SDDMM_MMA_MIN_SLICE`` tokens and a whole number of
+    stages."""
+    bc = next(b for b in (128, 64, 32, 16) if dims.chunk_cols % b == 0)
+    base = (dims.m // 16) * dims.d_o * dims.d_i * (dims.chunk_cols // bc)
+    want = -(-SDDMM_MMA_WAVES * sm_count // base)
+    most = -(-n_tokens // SDDMM_MMA_MIN_SLICE)
+    slices = max(1, min(want, most))
+    stage = SDDMM_MMA_STAGE_TOKENS
+    per_slice = -(-n_tokens // slices)
+    slice_len = -(-per_slice // stage) * stage  # whole stages
+    slices = -(-n_tokens // slice_len)
+    return SddmmPlan(bc, slices, slice_len, base * slices)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_aligned16(name: str, operands: dict) -> None:
+    """The mma bodies load X, W, g and x 16 bytes at a time."""
+    for name_t, t in operands.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}'s tensor-core body needs {name_t} "
+                             f"16-byte aligned (data_ptr {t.data_ptr():#x})")
+
+
 def _launcher(source: str, entry: str, signature: str):
     """The C launcher ``<entry>_launch`` of the library built from kernel
     source ``source`` (at first use), with its C signature declared:
@@ -367,25 +473,48 @@ def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
         if tuple(residual.shape) != (n, m):
             raise ValueError(f"residual {tuple(residual.shape)} != {(n, m)}")
     _check_cuda("rbgp4mm_rhs", tables, dt, operands)
+    path = rhs_path(dims, n, dt)
     out = torch.empty((n, m), dtype=dt, device=x.device)
     z = torch.empty((n, m), dtype=dt, device=x.device) if save_preact else None
     if n > 0:
-        _launch("rbgp4mm_rhs", "rbgp4mm_rhs", "ipppppppiiiiiiip",
-                _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
-                tables.col0.data_ptr(),
-                bias.data_ptr() if bias is not None else None,
-                residual.data_ptr() if residual is not None else None,
-                out.data_ptr(), z.data_ptr() if z is not None else None,
-                n, dims.k, m, dims.d_o * dims.d_i, dims.group_rows,
-                dims.chunk_cols, _ACT_CODES[act], x.device)
+        _rhs_body(path, tables, x, w_data, out, z, bias=bias,
+                  residual=residual, act=act)
         if tables.transposed:
             rbgp4mm_rhs.launches_dx += 1
         else:
             rbgp4mm_rhs.launches += 1
+        if path == "mma":
+            rbgp4mm_rhs.launches_mma += 1
     return (out, z) if save_preact else out
 
 
+def _rhs_body(path: str, tables: KernelTables, x: torch.Tensor,
+              w_data: torch.Tensor, out: torch.Tensor,
+              z: Optional[torch.Tensor] = None, *,
+              bias: Optional[torch.Tensor] = None,
+              residual: Optional[torch.Tensor] = None,
+              act: Optional[str] = None) -> None:
+    """Launch body ``path`` ("fma" or "mma") of ``rbgp4mm_rhs`` on checked
+    CUDA operands of one dtype, writing ``out`` (and ``z``): the one C
+    launch of the unstacked full-precision kernel.  It moves no counter;
+    ``rbgp4mm_rhs`` counts its own launches, and a launch of the other
+    body on the same operands (a comparison) is no launch of the model."""
+    dims = tables.dims
+    if path == "mma":
+        _check_aligned16("rbgp4mm_rhs", {"x": x, "w_data": w_data})
+    _launch("rbgp4mm_rhs", "rbgp4mm_rhs", "ipppppppiiiiiiiip",
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w_data.data_ptr(),
+            tables.col0.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            residual.data_ptr() if residual is not None else None,
+            out.data_ptr(), z.data_ptr() if z is not None else None,
+            x.shape[0], dims.k, dims.m, dims.d_o * dims.d_i,
+            dims.group_rows, dims.chunk_cols, _ACT_CODES[act],
+            _PATH_CODES[path], x.device)
+
+
 rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = rbgp4mm_rhs.launches_q = 0
+rbgp4mm_rhs.launches_mma = 0
 
 
 def _check_sddmm_args(dims, g, x):
@@ -427,15 +556,39 @@ def rbgp4_sddmm_rhs(tables: KernelTables, g: torch.Tensor,
         return torch.zeros((dims.m, dims.data_cols), dtype=dt,
                            device=g.device)
     dw = torch.empty((dims.m, dims.data_cols), dtype=dt, device=g.device)
-    _launch("rbgp4_sddmm_rhs", "rbgp4_sddmm_rhs", "ippppiiiiiip",
-            _DTYPE_CODES[dt], g.data_ptr(), x.data_ptr(),
-            tables.col0.data_ptr(), dw.data_ptr(), n, dims.k, dims.m,
-            dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols, g.device)
+    path = sddmm_path(dims, n, dt)
+    _sddmm_body(path, tables, g, x, dw)
     rbgp4_sddmm_rhs.launches += 1
+    if path == "mma":
+        rbgp4_sddmm_rhs.launches_mma += 1
     return dw
 
 
-rbgp4_sddmm_rhs.launches = 0
+def _sddmm_body(path: str, tables: KernelTables, g: torch.Tensor,
+                x: torch.Tensor, dw: torch.Tensor) -> None:
+    """Launch body ``path`` ("fma" or "mma") of ``rbgp4_sddmm_rhs`` on
+    checked CUDA operands of one dtype (N > 0), writing ``dw``; the mma
+    body's token-slice workspace is allocated here.  It moves no counter,
+    as ``_rhs_body``."""
+    dims = tables.dims
+    n = x.shape[0]
+    part, plan = None, SddmmPlan(0, 1, 0, 0)
+    if path == "mma":
+        _check_aligned16("rbgp4_sddmm_rhs", {"g": g, "x": x})
+        plan = sddmm_mma_plan(dims, n, _sm_count(g.device))
+        shape = plan.workspace_shape(dims)
+        if shape is not None:
+            part = torch.empty(shape, dtype=torch.float32, device=g.device)
+    _launch("rbgp4_sddmm_rhs", "rbgp4_sddmm_rhs", "ipppppiiiiiiiiiip",
+            _DTYPE_CODES[g.dtype], g.data_ptr(), x.data_ptr(),
+            tables.col0.data_ptr(), dw.data_ptr(),
+            part.data_ptr() if part is not None else None, n, dims.k,
+            dims.m, dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols,
+            _PATH_CODES[path], plan.block_cols, plan.n_slices,
+            plan.slice_len, g.device)
+
+
+rbgp4_sddmm_rhs.launches = rbgp4_sddmm_rhs.launches_mma = 0
 
 
 # -- feature-major: I (K, N), O (M, N), the paper's Algorithm 1 ------------

@@ -17,7 +17,15 @@ an odd G = 9 (C = 9 transposed) and G = 256 (C = 256 transposed), with a
 ragged N; and the int8 ``scales=`` paths of ``rbgp4mm_rhs``,
 ``rbgp4mm_rhs_stacked`` and ``chainmm_rhs`` against their plain versions
 on the same int8 values (G = 9, G = 128 and the chain leaves), bit-equal
-on a rerun, with a quantized layer launching only them.
+on a rerun, with a quantized layer launching only them; and the bf16
+tensor-core bodies of ``rbgp4mm_rhs`` (forward, ``save_preact``, dX) and
+``rbgp4_sddmm_rhs`` (bit-equal on a rerun) at every (G, C) of G in
+{16, 64, 128}, C in {16, 64} and tinyllama's four layouts at N in
+{16, 64, 77, 1037}, ``RBGP4Linear``'s bf16 gradients on them against dense
+autograd at N = 1037, and the FMA bodies kept at decode, in float32 and
+on the stacked and int8 entry points.  Every stacked expert stays bit-equal
+to the unstacked FMA body on that expert, and within the tolerance of the
+unstacked launch where that takes a tensor-core body.
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -50,7 +58,10 @@ from repro_torch.kernels import (ChainLinear, KernelTables, RBGP4Linear,
                                  rbgp4mm_rhs_stacked_reference,
                                  chain_sddmm_rhs, chain_sddmm_rhs_reference,
                                  chain_tables, chain_transpose_tables,
-                                 chainmm_rhs, chainmm_rhs_reference)
+                                 chainmm_rhs, chainmm_rhs_reference,
+                                 rhs_path, sddmm_path)
+from repro_torch.kernels.rbgp4mm import _rhs_body, _sddmm_body
+from repro_torch.kernels.ref import unpack_dense
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -134,6 +145,23 @@ def assert_close(got, want, dtype, what, tol=TOL):
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     assert err <= tol[dtype] * scale, (what, err, scale)
+
+
+def fma_rhs(tables, x, w, bias=None, act=None):
+    """The unstacked kernel's FMA body on (x, w), whatever ``rhs_path``
+    picks for the shape: the body the stacked kernel shares."""
+    out = torch.empty((x.shape[0], tables.dims.m), dtype=x.dtype,
+                      device=x.device)
+    _rhs_body("fma", tables, x, w, out, bias=bias, act=act)
+    return out
+
+
+def fma_sddmm(tables, gy, x):
+    """The unstacked dW kernel's FMA body, as ``fma_rhs``."""
+    dw = torch.empty((tables.dims.m, tables.dims.data_cols), dtype=x.dtype,
+                     device=x.device)
+    _sddmm_body("fma", tables, gy, x, dw)
+    return dw
 
 
 @pytest.mark.cuda
@@ -284,7 +312,9 @@ def stacked_cases():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_stacked_kernel_matches_plain_and_unstacked(dtype):
     """Y and Z of every expert against the plain version, and bit for bit
-    against the unstacked kernel on that expert's slice."""
+    against the unstacked kernel's FMA body on that expert's slice (the
+    one device body they share); where the unstacked launch takes the
+    bf16 tensor-core body, against that launch within the tolerance."""
     needs_card()
     g = torch.Generator(device="cuda").manual_seed(5)
     rnd = lambda *shape: torch.randn(*shape, device="cuda",
@@ -304,9 +334,13 @@ def test_cuda_stacked_kernel_matches_plain_and_unstacked(dtype):
             assert_close(y, wy, dtype, (lay.spec, e, n, act, "y"))
             assert_close(z, wz, dtype, (lay.spec, e, n, act, "z"))
             for i in (0, e - 1):
-                one = rbgp4mm_rhs(tables, x[i], w[i], act=act,
-                                  bias=None if b is None else b[i])
+                bi = None if b is None else b[i]
+                one = fma_rhs(tables, x[i], w[i], bias=bi, act=act)
                 assert torch.equal(y[i], one), (lay.spec, e, n, act, i)
+                if rhs_path(tables.dims, n, dtype) == "mma":
+                    assert_close(y[i], rbgp4mm_rhs(tables, x[i], w[i],
+                                                   bias=bi, act=act),
+                                 dtype, (lay.spec, e, n, act, i, "mma"))
 
 
 @pytest.mark.cuda
@@ -350,7 +384,10 @@ def test_cuda_stacked_sddmm_matches_plain_and_unstacked(dtype):
         assert_close(got, want, dtype, (lay.spec, e, n))
         assert torch.equal(got, rbgp4_sddmm_rhs_stacked(tables, gy, x))
         for i in (0, e - 1):
-            assert torch.equal(got[i], rbgp4_sddmm_rhs(tables, gy[i], x[i]))
+            assert torch.equal(got[i], fma_sddmm(tables, gy[i], x[i]))
+            if sddmm_path(tables.dims, n, dtype) == "mma":
+                assert_close(got[i], rbgp4_sddmm_rhs(tables, gy[i], x[i]),
+                             dtype, (lay.spec, e, n, i, "mma"))
 
 
 @pytest.mark.cuda
@@ -769,3 +806,194 @@ def test_cuda_int8_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError):
         rbgp4mm_rhs_stacked(tables, x[None], q[None], scales=s)
     assert np.isfinite(rbgp4mm_rhs(tables, x, q, scales=s).cpu().numpy()).all()
+
+
+# -- the bf16 tensor-core bodies of rbgp4mm_rhs and rbgp4_sddmm_rhs ---------
+
+# small layouts with every (G, C) of G in {16, 64, 128}, C in {16, 64}:
+# m, k, G, C, u_i, v_i, sp_o, sp_i (their transposed layouts add G = 16
+# with C = 128, and G = 64 with C = 128)
+MMA_SMALL = [
+    (128, 128, 16, 16, 2, 2, 0.5, 0.5),
+    (256, 512, 16, 64, 4, 2, 0.5, 0.5),
+    (256, 256, 64, 16, 2, 4, 0.0, 0.5),
+    (256, 256, 64, 64, 2, 2, 0.5, 0.0),
+    (512, 256, 128, 16, 2, 4, 0.5, 0.5),
+    (512, 128, 128, 64, 2, 1, 0.5, 0.0),
+]
+# the smallest mma launch, a half and a ragged 128-token tile, a ragged
+# 1037
+MMA_ROWS = (16, 64, 77, 1037)
+
+
+def mma_layouts():
+    out = [RBGP4Layout(RBGP4Spec(g_o=(m // (ui * G), k // (vi * C)),
+                                 g_r=(G, C), g_i=(ui, vi), g_b=(1, 1),
+                                 sp_o=sp_o, sp_i=sp_i, seed=7))
+           for m, k, G, C, ui, vi, sp_o, sp_i in MMA_SMALL]
+    return out + [RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0))
+                  for m, k in FULL_WIDTH]
+
+
+@pytest.mark.cuda
+def test_cuda_mma_bodies_match_plain_versions():
+    """bf16 from N = 16 on: the forward (three epilogues, Y and Z), dX on
+    the transposed tables and dW each take the tensor-core body, one
+    counted launch each, and agree with the plain versions; dW again is
+    bit-equal (token slices added in a fixed order, no atomics)."""
+    needs_card()
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dt)
+    for lay in mma_layouts():
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        w = rnd(*lay.data_shape)
+        wt = tt.values(w)
+        for n in MMA_ROWS:
+            assert rhs_path(tables.dims, n, dt) == "mma"
+            assert rhs_path(tt.tables.dims, n, dt) == "mma"
+            assert sddmm_path(tables.dims, n, dt) == "mma"
+            x, gy = rnd(n, lay.k), rnd(n, lay.m)
+            for act, bias, residual in EPILOGUES:
+                b = rnd(lay.m) if bias else None
+                r = rnd(n, lay.m) if residual else None
+                before = (rbgp4mm_rhs.launches, rbgp4mm_rhs.launches_mma)
+                y, z = rbgp4mm_rhs(tables, x, w, bias=b, act=act,
+                                   residual=r, save_preact=True)
+                torch.cuda.synchronize()
+                assert (rbgp4mm_rhs.launches, rbgp4mm_rhs.launches_mma) == (
+                    before[0] + 1, before[1] + 1)
+                wy, wz = rbgp4mm_rhs_reference(tables, x, w, bias=b, act=act,
+                                               residual=r, save_preact=True)
+                assert_close(y, wy, dt, (lay.spec, n, act, "y"))
+                assert_close(z, wz, dt, (lay.spec, n, act, "z"))
+            before = (rbgp4mm_rhs.launches_dx, rbgp4mm_rhs.launches_mma)
+            dx = rbgp4mm_rhs(tt.tables, gy, wt)
+            torch.cuda.synchronize()
+            assert (rbgp4mm_rhs.launches_dx, rbgp4mm_rhs.launches_mma) == (
+                before[0] + 1, before[1] + 1)
+            assert_close(dx, rbgp4mm_rhs_reference(tt.tables, gy, wt), dt,
+                         (lay.spec, n, "dx"))
+            before = (rbgp4_sddmm_rhs.launches, rbgp4_sddmm_rhs.launches_mma)
+            dw = rbgp4_sddmm_rhs(tables, gy, x)
+            torch.cuda.synchronize()
+            assert (rbgp4_sddmm_rhs.launches,
+                    rbgp4_sddmm_rhs.launches_mma) == (before[0] + 1,
+                                                      before[1] + 1)
+            assert dw.dtype == dt and tuple(dw.shape) == lay.data_shape
+            assert_close(dw, rbgp4_sddmm_rhs_reference(tables, gy, x), dt,
+                         (lay.spec, n, "dw"))
+            assert torch.equal(dw, rbgp4_sddmm_rhs(tables, gy, x))
+
+
+@pytest.mark.cuda
+def test_cuda_mma_bodies_leave_decode_float32_stacked_and_int8_to_fma():
+    """N = 8 in bf16, float32 at any N, and the stacked and int8 entry
+    points in bf16 at a training step's N take the FMA bodies: the
+    tensor-core counters do not move."""
+    from repro_torch.sparsity import leaf_block_dims
+
+    needs_card()
+    lay = RBGP4Layout(design_rbgp4(2048, 2048, 0.75, seed=0))
+    tables = KernelTables.build(lay, "cuda")
+    tt = TransposeTables.build(lay, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    mma = lambda: (rbgp4mm_rhs.launches_mma, rbgp4_sddmm_rhs.launches_mma)
+    for n, dt in ((8, torch.bfloat16), (1037, torch.float32)):
+        x = torch.randn(n, lay.k, device="cuda").to(dt)
+        w = torch.randn(lay.data_shape, device="cuda").to(dt)
+        gy = torch.randn(n, lay.m, device="cuda").to(dt)
+        before = mma()
+        rbgp4mm_rhs(tables, x, w)
+        rbgp4_sddmm_rhs(tables, gy, x)
+        torch.cuda.synchronize()
+        assert mma() == before, (n, dt)
+    dt, e, n = torch.bfloat16, 2, 1037
+    x = torch.randn(e, n, lay.k, device="cuda").to(dt)
+    w = torch.randn(e, *lay.data_shape, device="cuda").to(dt)
+    gy = torch.randn(e, n, lay.m, device="cuda").to(dt)
+    q, s = int8_values(lay.data_shape, *leaf_block_dims(lay), g)
+    before = (mma(), rbgp4mm_rhs_stacked.launches,
+              rbgp4mm_rhs_stacked.launches_dx,
+              rbgp4_sddmm_rhs_stacked.launches, rbgp4mm_rhs.launches_q)
+    rbgp4mm_rhs_stacked(tables, x, w)
+    rbgp4mm_rhs_stacked(tt.tables, gy, tt.values(w))
+    rbgp4_sddmm_rhs_stacked(tables, gy, x)
+    rbgp4mm_rhs(tables, x[0], q, scales=s)
+    torch.cuda.synchronize()
+    assert (mma(), rbgp4mm_rhs_stacked.launches,
+            rbgp4mm_rhs_stacked.launches_dx,
+            rbgp4_sddmm_rhs_stacked.launches, rbgp4mm_rhs.launches_q) == (
+        before[0], before[1] + 1, before[2] + 1, before[3] + 1,
+        before[4] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_mma_bodies_reject_misaligned_operands():
+    """The tensor-core bodies load 16 bytes at a time: an operand whose
+    data does not start on 16 bytes is refused, not run on another
+    body."""
+    needs_card()
+    lay = RBGP4Layout(design_rbgp4(256, 2048, 0.75, seed=0))
+    tables = KernelTables.build(lay, "cuda")
+    n = 77
+    flat = torch.randn(n * lay.k + 1, device="cuda").bfloat16()
+    x_off = flat[1:].view(n, lay.k)
+    assert x_off.is_contiguous() and x_off.data_ptr() % 16
+    w = torch.randn(lay.data_shape, device="cuda").bfloat16()
+    gy = torch.randn(n, lay.m, device="cuda").bfloat16()
+    with pytest.raises(ValueError):
+        rbgp4mm_rhs(tables, x_off, w)
+    with pytest.raises(ValueError):
+        rbgp4_sddmm_rhs(tables, gy, x_off)
+    x = x_off.clone()
+    assert np.isfinite(rbgp4mm_rhs(tables, x, w).float().cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_rbgp4_linear_mma_grads_match_dense_autograd():
+    """``RBGP4Linear`` in bf16 at N = 1037 (every product on a
+    tensor-core body) against float32 autograd through the dense matrix
+    ``unpack_dense`` on the same bf16 values: y, dX, dW, db, dresidual."""
+    needs_card()
+    dt = torch.bfloat16
+    n = 1037
+    rng = np.random.default_rng(12)
+    acts = {None: lambda z: z, "silu": torch.nn.functional.silu,
+            "gelu": lambda z: torch.nn.functional.gelu(z,
+                                                       approximate="tanh")}
+    for lay in mma_layouts()[::2] + mma_layouts()[-1:]:
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        for fuse, bias, residual in EPILOGUES:
+            arrs = [torch.tensor(rng.standard_normal(s).astype(np.float32))
+                    .to(dt) for s in ((n, lay.k), lay.data_shape, (lay.m,),
+                                      (n, lay.m), (n, lay.m))]
+            x, w, b, r, gy = (a.cuda().requires_grad_() for a in arrs)
+            leaves = [x, w, b if bias else None, r if residual else None]
+            before = (rbgp4mm_rhs.launches_mma, rbgp4_sddmm_rhs.launches_mma)
+            y = RBGP4Linear.apply(*leaves, tables, tt, fuse)
+            y.backward(gy.detach())
+            torch.cuda.synchronize()
+            assert (rbgp4mm_rhs.launches_mma - before[0],
+                    rbgp4_sddmm_rhs.launches_mma - before[1]) == (2, 1)
+            xd, wd, bd, rd = (a.float().cuda().requires_grad_()
+                              for a in arrs[:4])
+            zd = xd @ unpack_dense(lay, wd).T
+            if bias:
+                zd = zd + bd
+            yd = acts[fuse](zd)
+            if residual:
+                yd = yd + rd
+            yd.backward(arrs[4].float().cuda())
+            for name, a, b_ in (("y", y, yd), ("dx", x.grad, xd.grad),
+                                ("dw", w.grad, wd.grad),
+                                ("db", b.grad if bias else None, bd.grad),
+                                ("dr", r.grad if residual else None,
+                                 rd.grad)):
+                if a is None:
+                    continue
+                assert a.dtype == dt
+                assert_close(a, b_, dt, (lay.spec, fuse, name), GRAD_TOL)
