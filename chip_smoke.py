@@ -59,11 +59,17 @@ exits non-zero without the result line:
      L2 cache), beside the least time the card could take: the forward at
      N = 8 and 512, and a training step's calls at N = 4096 (the forward
      with ``save_preact``, dX and dW), each also on its FMA body on the
-     same operands (``fma_ms``, the tensor-core bodies' yardstick); and
-     the body sweep: both bodies of the forward, dX and dW at tinyllama's
-     four layouts, N in {8, 16, 32, 64, 128, 256, 512}, each result held
-     against the plain version first (the measurement behind
-     ``MMA_MIN_TOKENS``);
+     same operands (``fma_ms``, the tensor-core bodies' yardstick); the
+     stacked forward at 8, 171 (``save_preact``) and 512 rows an expert
+     and dX at 171, each tensor-core launch beside its FMA body and, at
+     171, beside each token tile (``mma64_ms``, ``mma128_ms``); the
+     stacked tile sweep: the stacked tensor-core body with 64- and
+     128-token tiles at 16-512 rows an expert, each held against the
+     plain version and the two bit-equal (the measurement behind
+     ``stacked_mma_block_tokens``); and the body sweep: both bodies of
+     the forward, dX and dW at tinyllama's four layouts, N in {8, 16, 32,
+     64, 128, 256, 512}, each result held against the plain version first
+     (the measurement behind ``MMA_MIN_TOKENS``);
   4. serve tinyllama: 16 mixed requests (prompts 128/256/512, 8-64 new
      tokens) through ``ContinuousEngine``, 8 slots, 16-token pages,
      greedy, bf16 compute, f32 KV cache; every prefill call and decode step
@@ -95,23 +101,27 @@ exits non-zero without the result line:
      capacity, every token in every expert's buffer, as the reference
      serves): every prefill call and decode step launches ``rbgp4mm_rhs``
      168 times (24 layers x attention 4 + shared expert 3) and
-     ``rbgp4mm_rhs_stacked`` 72 times (24 x 3);
+     ``rbgp4mm_rhs_stacked`` 72 times (24 x 3), a prefill's on the
+     tensor-core body, a decode step's (8 rows an expert) on the FMA body;
   9. serve parity of qwen2-moe in float32 as phase 5, on those 16 requests;
  10. train qwen2-moe: 4 steps of 4 x 512 tokens as phase 6 (routing with
      capacity, 171 rows an expert), the last 3 timed, ce and aux finite;
      per step ``rbgp4mm_rhs`` 336 forward + recompute and 168 dX,
      ``rbgp4_sddmm_rhs`` 168, ``rbgp4mm_rhs_stacked`` 144 forward +
-     recompute and 72 dX, ``rbgp4_sddmm_rhs_stacked`` 72; one profiled step;
+     recompute and 72 dX (all on ``rbgp4mm_rhs_stacked_mma_kernel``),
+     ``rbgp4_sddmm_rhs_stacked`` 72; one profiled step;
  11. train parity of 2 full-width qwen2-moe layers as phase 7;
  12. check-chain: the deep-chain kernels against their plain versions, as
      phase 2, at tinyllama's four shapes under the hierarchical-block plan
      (complete 4x4, three Ramanujan factors, complete 8x8, at 0.875;
      leaves 8x8, 16x32, 32x16): ``chainmm_rhs`` at N in {1, 8, 512, 4096}
      x {f32, bf16}, on the transposed layouts at N in {512, 4096},
-     ``chain_sddmm_rhs`` at N in {8, 512, 4096}; and at the two smaller
-     chains of the CPU tests (G = C = 1, and a 2x2 leaf);
+     ``chain_sddmm_rhs`` at N in {8, 16, 77, 512, 1037, 4096} (bf16 from
+     16 on the tensor-core body over row-group classes), each dW rerun
+     bit-equal; and at the two smaller chains of the CPU tests (G = C =
+     1, and a 2x2 leaf);
  13. times-chain: as phase 3, the forward at N = 8 and 512, dX and dW at
-     N = 4096;
+     N = 4096, dW beside its FMA body on the same operands;
  14. serve-chain: tinyllama under that plan (all 154 projections chains),
      the 16 requests of phase 4: every prefill call and decode step
      launches ``chainmm_rhs`` 154 times and no RBGP4 kernel;
@@ -119,7 +129,8 @@ exits non-zero without the result line:
      requests, as phase 5;
  16. train-chain: 6 steps of 8 x 512 tokens as phase 6, per step 308
      forward + recompute and 154 dX ``chainmm_rhs`` launches and 154
-     ``chain_sddmm_rhs``; one profiled step;
+     ``chain_sddmm_rhs`` (all on ``chain_sddmm_rhs_mma_kernel``); one
+     profiled step;
  17. train-parity-chain: 2 full-width layers in float32, card against CPU,
      as phase 7;
  18. check-fm (run after phase 13): ``rbgp4mm`` and ``rbgp4_sddmm``
@@ -160,7 +171,8 @@ exits non-zero without the result line:
      times and no full-precision sparse kernel; its numbers and stored
      bytes beside phase 4's;
  25. serve-q-moe: qwen2-moe the same way, beside phase 8's: per pass 168
-     int8 ``rbgp4mm_rhs`` and 72 int8 ``rbgp4mm_rhs_stacked`` launches;
+     int8 ``rbgp4mm_rhs`` and 72 int8 ``rbgp4mm_rhs_stacked`` launches
+     (none on a tensor-core body);
  26. serve-q-chain: tinyllama under the chain plan, beside phase 14's: per
      pass 154 int8 ``chainmm_rhs`` launches and no RBGP4 kernel;
  27. parity-q: in float32 on 4 requests, the int8 model's greedy streams
@@ -212,6 +224,18 @@ MOE_LAYER_PROJECTIONS = {"gate/up": 2, "down": 1}
 # rows an expert: decode (8 slots, full capacity), a training step
 # (ceil(4 * 512 * 4 / 60 * 1.25)), a full-capacity prefill of 512 tokens
 MOE_ROWS = {"decode": 8, "train": 171, "prefill": 512}
+# rows an expert the stacked forward and dX are checked at: decode, the
+# least rows the tensor-core body takes, a ragged 128-token tile, training
+# and prefill
+MOE_CHECK_ROWS = (8, 16, 77, 171, 512)
+# rows an expert the stacked tensor-core body's two token tiles are timed
+# at: the least it takes, a tile edge that ties, whole tiles, a training
+# step's 171 and another last tile under half full (300)
+STACKED_TILE_ROWS = (16, 77, 128, 171, 256, 300, 512)
+# chain dW token counts of the check phase at full width: decode-size,
+# the least the tensor-core body takes, ragged stages and slices, prefill,
+# a training step
+CHAIN_CHECK_ROWS = (8, 16, 77, 512, 1037, 4096)
 # the serve phases' prompt lengths; the MoE engine prefills a request alone
 # at full capacity, so these are also the stacked kernels' prefill rows
 SERVE_PROMPT_LENS = (128, 256, 512)
@@ -336,15 +360,16 @@ def phase_build():
 
 
 def kernel_symbol(mangled: str) -> str:
-    """``name<arg>`` of the port's ``*_kernel`` symbol in a mangled name
-    (its length prefix ends in a digit), the first template argument an
-    integer, bf16 or f32."""
+    """``name<args>`` of the port's ``*_kernel`` symbol in a mangled name
+    (its length prefix ends in a digit), the template arguments one or two
+    integers, bf16 or f32."""
     m = re.search(r"\d((?:rbgp4|chain)\w*?_kernel)"
-                  r"(?:ILi(\d+)E|I(13__nv_bfloat16|f)E)?", mangled)
+                  r"(?:ILi(\d+)E(?:Li(\d+)E)?|I(13__nv_bfloat16|f)E)?",
+                  mangled)
     if m is None:
         return ""
-    arg = m.group(2) or {"13__nv_bfloat16": "bf16", "f": "f32"}.get(
-        m.group(3), "")
+    arg = ",".join(a for a in m.group(2, 3) if a) or {
+        "13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(4), "")
     return m.group(1) + (f"<{arg}>" if arg else "")
 
 
@@ -576,13 +601,39 @@ def body_launchers(tables, path: str):
     move no counter."""
     from repro_torch.kernels.rbgp4mm import _rhs_body, _sddmm_body
 
-    def rhs(x, w, out, z=None, act=None):
-        _rhs_body(path, tables, x, w, out, z, act=act)
+    def rhs(x, w, out, z=None, act=None, bias=None):
+        _rhs_body(path, tables, x, w, out, z, act=act, bias=bias)
 
     def sddmm(g, x, dw):
         _sddmm_body(path, tables, g, x, dw)
 
     return rhs, sddmm
+
+
+def stacked_body_launcher(tables, path: str, block_tokens: int = None):
+    """``body_launchers``' twin for ``rbgp4mm_rhs_stacked``: body ``path``
+    on stacked operands (the mma body with ``block_tokens`` tokens a
+    block, the wrapper's own choice unless given), through the wrapper's
+    own C launch (``_rhs_stacked_body``); no counter moves."""
+    from repro_torch.kernels.rbgp4mm import _rhs_stacked_body
+
+    def rhs(x, w, out, z=None, act=None, bias=None):
+        _rhs_stacked_body(path, tables, x, w, out, z, act=act, bias=bias,
+                          block_tokens=block_tokens)
+
+    return rhs
+
+
+def chain_body_launcher(tables, path: str):
+    """``body_launchers``' twin for ``chain_sddmm_rhs``: body ``path`` on
+    given operands, through the wrapper's own C launch
+    (``_chain_sddmm_body`` of kernels/chainmm.py); no counter moves."""
+    from repro_torch.kernels.chainmm import _chain_sddmm_body
+
+    def sddmm(g, x, dw):
+        _chain_sddmm_body(path, tables, g, x, dw)
+
+    return sddmm
 
 
 def phase_train_times(layouts, n: int = 4096) -> dict:
@@ -817,6 +868,7 @@ def reset_launch_counts() -> None:
 
     rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = 0
     rbgp4mm_rhs.launches_mma = rbgp4_sddmm_rhs.launches_mma = 0
+    rbgp4mm_rhs_stacked.launches_mma = chain_sddmm_rhs.launches_mma = 0
     rbgp4mm_rhs.launches_q = rbgp4mm_rhs_stacked.launches_q = 0
     chainmm_rhs.launches_q = 0
     rbgp4_sddmm_rhs.launches = 0
@@ -830,12 +882,28 @@ def reset_launch_counts() -> None:
 
 def body_counts() -> dict:
     """The launches that took the bf16 tensor-core bodies, by the role
-    whose counter they also moved: ``rbgp4mm_rhs`` (forward and dX, keyed
-    by the forward role) and ``rbgp4_sddmm_rhs``."""
-    from repro_torch.kernels import rbgp4_sddmm_rhs, rbgp4mm_rhs
+    whose counter they also moved: ``rbgp4mm_rhs`` and
+    ``rbgp4mm_rhs_stacked`` (forward and dX, keyed by the forward role),
+    ``rbgp4_sddmm_rhs`` and ``chain_sddmm_rhs``."""
+    from repro_torch.kernels import (chain_sddmm_rhs, rbgp4_sddmm_rhs,
+                                     rbgp4mm_rhs, rbgp4mm_rhs_stacked)
 
     return {"forward": rbgp4mm_rhs.launches_mma,
-            "dw": rbgp4_sddmm_rhs.launches_mma}
+            "dw": rbgp4_sddmm_rhs.launches_mma,
+            "stacked_forward": rbgp4mm_rhs_stacked.launches_mma,
+            "chain_dw": chain_sddmm_rhs.launches_mma}
+
+
+def train_mma_counts(launches: dict) -> dict:
+    """The tensor-core launches a training step's ``launches`` (by role)
+    must show: every bf16 ``rbgp4mm_rhs``, ``rbgp4mm_rhs_stacked`` (16 rows
+    an expert and more), ``rbgp4_sddmm_rhs`` and ``chain_sddmm_rhs``
+    launch of a step runs enough tokens on layouts those bodies take."""
+    return {"forward": launches["forward"] + launches["dx"],
+            "dw": launches["dw"],
+            "stacked_forward": (launches["stacked_forward"]
+                                + launches["stacked_dx"]),
+            "chain_dw": launches["chain_dw"]}
 
 
 def counts_since(before: dict) -> dict:
@@ -953,6 +1021,7 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve",
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    mma = body_counts()
     st = engine.stats
     for r in reqs:
         toks = np.asarray(out[r["rid"]])
@@ -976,6 +1045,14 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve",
             or passes == 0:
         raise AssertionError(f"launches {counts} for {passes} passes; "
                              f"want {per_pass} per pass")
+    # a full-capacity prefill puts every prompt token (128 and more) in
+    # every expert: its bf16 stacked launches take the tensor-core body;
+    # a decode step's 8 rows an expert keep the FMA body
+    want_s = 0 if quant else st["prefill_calls"] * per_pass["stacked_forward"]
+    if mma["stacked_forward"] != want_s:
+        raise AssertionError(f"{mma['stacked_forward']} stacked launches on "
+                             f"the tensor cores, want {want_s} (every "
+                             f"prefill's, no decode step's)")
     n_prompt, n_gen = st["prompt_tokens"], st["generated_tokens"]
     res = dict(
         requests=len(out), prompt_tokens=n_prompt, generated_tokens=n_gen,
@@ -986,7 +1063,7 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve",
         decode_ms_per_step=1e3 * st["decode_time_s"] / st["decode_steps"],
         decode_tok_per_s=n_gen / st["decode_time_s"],
         peak_allocated_blocks=st["peak_allocated_blocks"],
-        launches=counts, launches_per_pass=per_pass,
+        launches=counts, launches_per_pass=per_pass, mma_launches=mma,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         weight_bytes=wb,
         plan_fingerprint=cfg.sparsity_rules.fingerprint(),
@@ -1095,13 +1172,17 @@ def same_streams(model, reqs: list, got: dict, want: dict, phase: str,
 # kernel symbol (the trace names the kernel, not its role) -> its role,
 # for a forward kernel the role it has right after its family's dW kernel
 # (dX), and its body: "fma", "mma" (the bf16 tensor-core bodies, counted
-# apart by ``body_counts``) or "sum" (the dW mma body's slice sum, a
-# second kernel of a counted launch: its time goes to dW, it counts as
-# no launch); the stacked names first
+# apart by ``body_counts``) or "sum" (a dW mma body's slice sum, a second
+# kernel of a counted launch: its time goes to dW, it counts as no
+# launch); the stacked names first
 TRACE_KINDS = (
+    ("chain_sddmm_rhs_mma_kernel", "chain_dw", None, "mma"),
+    ("chain_sddmm_rhs_sum_kernel", "chain_dw", None, "sum"),
     ("chain_sddmm_rhs_kernel", "chain_dw", None, "fma"),
     ("chainmm_rhs_kernel", "chain_forward", "chain_dx", "fma"),
     ("rbgp4_sddmm_rhs_stacked_kernel", "stacked_dw", None, "fma"),
+    ("rbgp4mm_rhs_stacked_mma_kernel", "stacked_forward", "stacked_dx",
+     "mma"),
     ("rbgp4mm_rhs_stacked_kernel", "stacked_forward", "stacked_dx", "fma"),
     ("rbgp4_sddmm_rhs_mma_kernel", "dw", None, "mma"),
     ("rbgp4_sddmm_rhs_sum_kernel", "dw", None, "sum"),
@@ -1254,16 +1335,16 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
     reset_launch_counts()
     hist = list(trainer.run(n_steps))
     launches = launch_counts()
-    # a step's rbgp4mm_rhs and rbgp4_sddmm_rhs launches all run bf16 at
-    # batch x seq >= 16 tokens on layouts the tensor-core bodies take, so
-    # every one of them must have taken those bodies
+    # a step's rbgp4mm_rhs, rbgp4mm_rhs_stacked, rbgp4_sddmm_rhs and
+    # chain_sddmm_rhs launches all run bf16 at >= 16 tokens (rows an
+    # expert) on layouts the tensor-core bodies take, so every one of them
+    # must have taken those bodies
     mma = body_counts()
-    want_mma = {"forward": launches["forward"] + launches["dx"],
-                "dw": launches["dw"]}
+    want_mma = train_mma_counts(launches)
     if mma != want_mma:
         raise AssertionError(f"tensor-core body launches {mma}, want "
-                             f"{want_mma}: every {batch * seq}-token "
-                             f"launch takes them")
+                             f"{want_mma}: every launch of a "
+                             f"{batch * seq}-token step takes them")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prev = dict.fromkeys(COUNTERS, 0)
     for i, c in enumerate(counts):
@@ -1283,7 +1364,7 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
     if prof["kernel_launches"] != want:
         raise AssertionError(f"profiled step launches "
                              f"{prof['kernel_launches']}")
-    want_mma = {"forward": want["forward"] + want["dx"], "dw": want["dw"]}
+    want_mma = train_mma_counts(want)
     if prof["mma_launches"] != want_mma:
         raise AssertionError(f"profiled step: tensor-core body launches "
                              f"{prof['mma_launches']}, want {want_mma}")
@@ -1324,8 +1405,9 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
                            f"{prof['kernel_launches'][k]} launches)"
                            for k in COUNTERS if want[k]))
     log(phase, f"profiled step's launches by kernel symbol (every "
-               f"{batch * seq}-token rbgp4mm_rhs and rbgp4_sddmm_rhs launch "
-               f"on the *_mma_kernel symbols; the slice sums count as no "
+               f"rbgp4mm_rhs, rbgp4mm_rhs_stacked, rbgp4_sddmm_rhs and "
+               f"chain_sddmm_rhs launch of the {batch * seq}-token step on "
+               f"the *_mma_kernel symbols; the slice sums count as no "
                f"launch): " + ", ".join(
                    f"{k} {v}" for k, v in
                    prof["launches_by_symbol"].items()))
@@ -1496,8 +1578,8 @@ def per_layer(rows: dict, kind, projections=None) -> dict:
     role) weighted by ``projections`` (tinyllama's seven by default)."""
     projections = projections or LAYER_PROJECTIONS
     fields = ["ms", "plain_ms", "library_ms", "bound_ms"]
-    if all("fma_ms" in rows[(key, kind)] for key in projections):
-        fields.append("fma_ms")
+    fields += [f for f in ("fma_ms", "mma64_ms", "mma128_ms")
+               if all(f in rows[(key, kind)] for key in projections)]
     agg = {f: 0.0 for f in fields}
     by_share = {"bytes": 0.0, "operations": 0.0}
     for key, count in projections.items():
@@ -1517,17 +1599,24 @@ def moe_layouts():
 
 def phase_check_moe(layouts) -> dict:
     """The stacked kernels against their plain versions at the expert
-    layouts with 60 experts: max abs diff per record entry."""
-    from repro_torch.kernels import (KernelTables, TransposeTables,
+    layouts with 60 experts: max abs diff per record entry.  The forward
+    at ``MOE_CHECK_ROWS`` rows an expert (three epilogues), with
+    ``save_preact`` and on the transposed layouts (dX) from 16 rows on,
+    where bf16 takes the tensor-core body; dW at ``MOE_ROWS``.  In bf16
+    the forward with ``save_preact`` (at decode, without) and dX are rerun
+    (the same bits), and each expert's Y, Z and dX must be the bits of the
+    unstacked launch of the same body on that expert's slice."""
+    from repro_torch.kernels import (MMA_MIN_TOKENS, KernelTables,
+                                     TransposeTables,
                                      rbgp4_sddmm_rhs_stacked,
                                      rbgp4_sddmm_rhs_stacked_reference,
                                      rbgp4mm_rhs_stacked,
-                                     rbgp4mm_rhs_stacked_reference)
+                                     rbgp4mm_rhs_stacked_reference, rhs_path)
 
     g = torch.Generator(device="cuda").manual_seed(5)
     e = MOE_EXPERTS
     max_abs = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
-    n_cases = 0
+    n_cases = n_bits = 0
     for key, lay in layouts.items():
         tables = KernelTables.build(lay, "cuda")
         tt = TransposeTables.build(lay, "cuda")
@@ -1542,82 +1631,147 @@ def phase_check_moe(layouts) -> dict:
                                          generator=g).to(dt)
             worst = {"forward": 0.0, "save_preact": 0.0, "transposed": 0.0,
                      "sddmm": 0.0}
+            bodies = {}
 
             def hold(what, got, want, entry, row):
                 err, rel = agree(f"stacked {what} {key}", got, want, dt)
                 max_abs[entry] = max(max_abs[entry], err)
                 worst[row] = max(worst[row], rel)
 
+            def same_bits(what, tab, call, outs, x, w, b=None, act=None):
+                """A rerun of ``call`` gives ``outs`` again, and so does the
+                unstacked launch of the body rhs_path picks, expert by
+                expert (Y, and Z where given)."""
+                nonlocal n_bits
+                again = call()
+                again = again if isinstance(again, tuple) else (again,)
+                for a, o in zip(again, outs):
+                    if not torch.equal(a, o):
+                        raise AssertionError(f"stacked {what} {key}: a rerun "
+                                             f"changed the bits")
+                rhs, _ = body_launchers(tab, rhs_path(tab.dims, x.shape[1],
+                                                      dt))
+                y1 = torch.empty_like(outs[0][0])
+                z1 = torch.empty_like(y1) if len(outs) > 1 else None
+                for i in range(e):
+                    rhs(x[i], w[i], y1, z1, act=act,
+                        bias=None if b is None else b[i])
+                    for one, o in zip((y1, z1), outs):
+                        if not torch.equal(one, o[i]):
+                            raise AssertionError(
+                                f"stacked {what} {key} expert {i}: not the "
+                                f"bits of the unstacked launch")
+                n_bits += 1
+
             w = rnd(e, *lay.data_shape)
-            for n in MOE_ROWS.values():
+            wt = tt.values(w)
+            for n in MOE_CHECK_ROWS:
                 x = rnd(e, n, lay.k)
+                bodies[n] = rhs_path(d, n, dt)
                 for act, bias in ((None, False), ("silu", False),
                                   ("gelu", True)):
                     b = rnd(e, lay.m) if bias else None
-                    y = launched(rbgp4mm_rhs_stacked,
-                                 lambda: rbgp4mm_rhs_stacked(
-                                     tables, x, w, bias=b, act=act))
+                    call = lambda: rbgp4mm_rhs_stacked(tables, x, w, bias=b,
+                                                       act=act)
+                    y = launched(rbgp4mm_rhs_stacked, call)
                     hold(f"N={n} act={act}", y,
                          rbgp4mm_rhs_stacked_reference(tables, x, w, bias=b,
                                                        act=act),
                          "forward", "forward")
                     n_cases += 1
-                    if n != MOE_ROWS["train"]:
+                    if n < MMA_MIN_TOKENS:
+                        if dt == torch.bfloat16:
+                            same_bits(f"N={n} act={act}", tables, call, (y,),
+                                      x, w, b, act)
                         continue
                     # the train path's forward and recompute save Z
-                    y, z = launched(rbgp4mm_rhs_stacked,
-                                    lambda: rbgp4mm_rhs_stacked(
-                                        tables, x, w, bias=b, act=act,
-                                        save_preact=True))
+                    call = lambda: rbgp4mm_rhs_stacked(
+                        tables, x, w, bias=b, act=act, save_preact=True)
+                    y, z = launched(rbgp4mm_rhs_stacked, call)
                     wy, wz = rbgp4mm_rhs_stacked_reference(
                         tables, x, w, bias=b, act=act, save_preact=True)
                     hold(f"save_preact N={n} act={act} y", y, wy, "forward",
                          "save_preact")
                     hold(f"save_preact N={n} act={act} z", z, wz, "forward",
                          "save_preact")
+                    if dt == torch.bfloat16:
+                        same_bits(f"save_preact N={n} act={act}", tables,
+                                  call, (y, z), x, w, b, act)
                     n_cases += 1
                 gy = rnd(e, n, lay.m)
-                dw = launched(rbgp4_sddmm_rhs_stacked,
-                              lambda: rbgp4_sddmm_rhs_stacked(tables, gy, x))
-                hold(f"sddmm N={n}", dw,
-                     rbgp4_sddmm_rhs_stacked_reference(tables, gy, x), "dw",
-                     "sddmm")
-                n_cases += 1
-                if n == MOE_ROWS["train"]:
-                    wt = tt.values(w)
-                    dx = launched(rbgp4mm_rhs_stacked,
-                                  lambda: rbgp4mm_rhs_stacked(
-                                      tt.tables, gy, wt), "launches_dx")
+                if n in MOE_ROWS.values():
+                    dw = launched(rbgp4_sddmm_rhs_stacked,
+                                  lambda: rbgp4_sddmm_rhs_stacked(tables, gy,
+                                                                  x))
+                    hold(f"sddmm N={n}", dw,
+                         rbgp4_sddmm_rhs_stacked_reference(tables, gy, x),
+                         "dw", "sddmm")
+                    n_cases += 1
+                if n >= MMA_MIN_TOKENS:
+                    call = lambda: rbgp4mm_rhs_stacked(tt.tables, gy, wt)
+                    dx = launched(rbgp4mm_rhs_stacked, call, "launches_dx")
                     hold(f"transposed N={n}", dx,
                          rbgp4mm_rhs_stacked_reference(tt.tables, gy, wt),
                          "dx", "transposed")
+                    if dt == torch.bfloat16:
+                        same_bits(f"transposed N={n}", tt.tables, call,
+                                  (dx,), gy, wt)
                     n_cases += 1
                 del x, gy
                 torch.cuda.empty_cache()
             log("check", f"experts {key:7s} {str(dt):15s} "
                          f"max|diff|/max|ref|: "
-                         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+                         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                         + "; forward and dX bodies: " + ", ".join(
+                             f"N={n} {b_}" for n, b_ in bodies.items()))
     log("check", f"{n_cases} stacked-kernel cases agree (60 experts, one "
-                 f"launch each); max abs diff "
+                 f"launch each); {n_bits} bf16 forward and dX launches "
+                 f"rerun bit-equal and bit-equal, expert by expert, to the "
+                 f"unstacked launch of the same body; max abs diff "
                  + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items()))
     return max_abs
 
 
 def phase_times_moe(layouts) -> dict:
     """The stacked kernels at the expert layouts, 60 experts, bf16: the
-    forward at 8, 171 and 512 rows an expert, dX and dW at 171; kernel,
-    plain version, ``torch.bmm`` on the unpacked dense (E, M, K) weights,
-    bound."""
+    forward at decode (8 rows an expert, no epilogue), at a training step
+    (171 rows, ``save_preact`` and silu: Y and Z written) and at a
+    full-capacity prefill (512 rows, no epilogue), dX and dW at 171;
+    kernel, plain version, ``torch.bmm`` on the unpacked dense (E, M, K)
+    weights, bound.  Where the kernel takes the tensor-core body, the FMA
+    body on the same operands (``fma_ms``) and, at 171 rows, the
+    tensor-core body with each token tile (``mma64_ms``, ``mma128_ms``;
+    the wrapper takes ``stacked_mma_block_tokens``')."""
     from repro_torch.kernels import (KernelTables, TransposeTables,
                                      rbgp4_sddmm_rhs_stacked,
                                      rbgp4_sddmm_rhs_stacked_reference,
                                      rbgp4mm_rhs_stacked,
-                                     rbgp4mm_rhs_stacked_reference)
+                                     rbgp4mm_rhs_stacked_reference, rhs_path)
     from repro_torch.kernels.ref import unpack_dense
 
     g = torch.Generator(device="cuda").manual_seed(6)
     dt, e = torch.bfloat16, MOE_EXPERTS
     rows = {}
+
+    def yardsticks(tab, n, xin, w, out, z=None, act=None):
+        """fma_ms (and, at a training step, mma64_ms) of the other bodies
+        on the kernel's operands, where the kernel takes the mma body."""
+        if rhs_path(tab.dims, n, dt) != "mma":
+            return {}
+        fma = stacked_body_launcher(tab, "fma")
+        got = {"fma_ms": time_cuda(lambda i: fma(xin, w(i), out, z, act))}
+        if n == MOE_ROWS["train"]:
+            for bn in (64, 128):
+                mma = stacked_body_launcher(tab, "mma", block_tokens=bn)
+                got[f"mma{bn}_ms"] = time_cuda(
+                    lambda i: mma(xin, w(i), out, z, act))
+        return got
+
+    def show(t):
+        return "".join(f", {name} {t[k]:.4f} ms" for k, name in (
+            ("fma_ms", "FMA body"), ("mma64_ms", "64-token tile"),
+            ("mma128_ms", "128-token tile")) if k in t)
+
     for key, lay in layouts.items():
         tables = KernelTables.build(lay, "cuda")
         tt = TransposeTables.build(lay, "cuda")
@@ -1632,60 +1786,137 @@ def phase_times_moe(layouts) -> dict:
         chunks = dims.d_o * dims.d_i
         for role, n in MOE_ROWS.items():
             x = torch.randn((e, n, k), device="cuda", generator=g).to(dt)
-            t_kernel = time_cuda(lambda i: rbgp4mm_rhs_stacked(
-                tables, x, ws[c(i)]))
-            t_plain = time_cuda(lambda i: rbgp4mm_rhs_stacked_reference(
-                tables, x, ws[c(i)]))
-            t_lib = time_cuda(lambda i: torch.bmm(x, wd[c(i)].transpose(1,
-                                                                        2)))
-            b, by = bound_ms(n, m, k, nnz, chunks, dims.group_rows, 2, e=e)
-            rows[(key, n)] = dict(ms=t_kernel, plain_ms=t_plain,
-                                  library_ms=t_lib, bound_ms=b, bound_by=by)
-            log("times", f"experts {key:7s} N={n:<4d} ({role}) bf16: kernel "
-                         f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
-                         f"torch.bmm dense {t_lib:.4f} ms, bound "
-                         f"{b * 1e3:.2f} us ({by})")
-            if role != "train":
+            train = role == "train"
+            act, n_out = ("silu", 2) if train else (None, 1)
+            out = torch.empty((e, n, m), dtype=dt, device="cuda")
+            z = torch.empty_like(out) if train else None
+            t = yardsticks(tables, n, x, lambda i: ws[c(i)], out, z, act)
+            t["ms"] = time_cuda(lambda i: rbgp4mm_rhs_stacked(
+                tables, x, ws[c(i)], act=act, save_preact=train))
+            t["plain_ms"] = time_cuda(lambda i: rbgp4mm_rhs_stacked_reference(
+                tables, x, ws[c(i)], act=act, save_preact=train))
+            t["library_ms"] = time_cuda(lambda i: torch.bmm(
+                x, wd[c(i)].transpose(1, 2)))
+            b, by = bound_ms(n, m, k, nnz, chunks, dims.group_rows, 2, e=e,
+                             n_out=n_out)
+            rows[(key, n)] = dict(t, bound_ms=b, bound_by=by)
+            log("times", f"experts {key:7s} N={n:<4d} ({role}"
+                         f"{', save_preact, silu' if train else ''}) bf16 "
+                         f"[{rhs_path(dims, n, dt)} body]: kernel "
+                         f"{t['ms']:.4f} ms{show(t)}, plain "
+                         f"{t['plain_ms']:.4f} ms, torch.bmm dense "
+                         f"{t['library_ms']:.4f} ms, bound {b * 1e3:.2f} us "
+                         f"({by})")
+            del out, z
+            if not train:
+                del x
                 continue
             gy = torch.randn((e, n, m), device="cuda", generator=g).to(dt)
             wt = [tt.values(ws[i]) for i in range(copies)]
+            dx_out = torch.empty((e, n, k), dtype=dt, device="cuda")
             t = dict(
                 dw=time_cuda(lambda i: rbgp4_sddmm_rhs_stacked(tables, gy,
                                                                x)),
                 dw_plain=time_cuda(lambda i: rbgp4_sddmm_rhs_stacked_reference(
                     tables, gy, x)),
                 dw_lib=time_cuda(lambda i: torch.bmm(gy.transpose(1, 2), x)),
-                dx=time_cuda(lambda i: rbgp4mm_rhs_stacked(tt.tables, gy,
-                                                           wt[c(i)])),
-                dx_plain=time_cuda(lambda i: rbgp4mm_rhs_stacked_reference(
-                    tt.tables, gy, wt[c(i)])),
-                dx_lib=time_cuda(lambda i: torch.bmm(gy, wd[c(i)])),
             )
             b, by = sddmm_bound_ms(n, m, k, nnz, chunks, dims.group_rows, 2,
                                    e=e)
             rows[(key, "dw")] = dict(ms=t["dw"], plain_ms=t["dw_plain"],
                                      library_ms=t["dw_lib"], bound_ms=b,
                                      bound_by=by)
-            log("times", f"dW experts {key:7s} N={n} bf16: kernel "
+            log("times", f"dW experts {key:7s} N={n} bf16 [fma body]: kernel "
                          f"{t['dw']:.4f} ms, plain {t['dw_plain']:.4f} ms, "
                          f"torch.bmm g^T @ x dense {t['dw_lib']:.4f} ms, "
                          f"bound {b * 1e3:.2f} us ({by})")
+            t = yardsticks(tt.tables, n, gy, lambda i: wt[c(i)], dx_out)
+            t["ms"] = time_cuda(lambda i: rbgp4mm_rhs_stacked(
+                tt.tables, gy, wt[c(i)]))
+            t["plain_ms"] = time_cuda(lambda i: rbgp4mm_rhs_stacked_reference(
+                tt.tables, gy, wt[c(i)]))
+            t["library_ms"] = time_cuda(lambda i: torch.bmm(gy, wd[c(i)]))
             b, by = bound_ms(n, dims_t.m, dims_t.k, dims_t.data_cols,
                              dims_t.d_o * dims_t.d_i, dims_t.group_rows, 2,
                              e=e)
-            rows[(key, "dx")] = dict(ms=t["dx"], plain_ms=t["dx_plain"],
-                                     library_ms=t["dx_lib"], bound_ms=b,
-                                     bound_by=by)
+            rows[(key, "dx")] = dict(t, bound_ms=b, bound_by=by)
             log("times", f"dX experts {key:7s} N={n} bf16 (G = "
-                         f"{dims_t.group_rows}, C = {dims_t.chunk_cols}): "
-                         f"kernel {t['dx']:.4f} ms, plain "
-                         f"{t['dx_plain']:.4f} ms, torch.bmm g @ W dense "
-                         f"{t['dx_lib']:.4f} ms, bound {b * 1e3:.2f} us "
+                         f"{dims_t.group_rows}, C = {dims_t.chunk_cols}) "
+                         f"[{rhs_path(dims_t, n, dt)} body]: kernel "
+                         f"{t['ms']:.4f} ms{show(t)}, plain "
+                         f"{t['plain_ms']:.4f} ms, torch.bmm g @ W dense "
+                         f"{t['library_ms']:.4f} ms, bound {b * 1e3:.2f} us "
                          f"({by})")
-            del gy, wt
-        del ws, wd, x
+            del gy, wt, dx_out, x
+        del ws, wd
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_stacked_tiles(layouts, ns=STACKED_TILE_ROWS) -> dict:
+    """``rbgp4mm_rhs_stacked``'s tensor-core body with 64- and 128-token
+    tiles on the same operands: the forward (no epilogue) and dX at the
+    expert layouts, 60 experts, bf16, ``ns`` rows an expert; each tile's
+    result held against the plain version and the two bit-equal, then
+    both timed (CUDA events, weights cycled past the L2).  Returns
+    {(kind, n): {64: ms, 128: ms}} summed over one MoE layer's three
+    projections: the measurement ``stacked_mma_block_tokens`` is set
+    from."""
+    from repro_torch.kernels import (KernelTables, TransposeTables,
+                                     rbgp4mm_rhs_stacked_reference,
+                                     stacked_mma_block_tokens)
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dt, e = torch.bfloat16, MOE_EXPERTS
+    tiles = (64, 128)
+    layer = {(kind, n): dict.fromkeys(tiles, 0.0)
+             for kind in ("fwd", "dx") for n in ns}
+    for key, lay in layouts.items():
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        count = MOE_LAYER_PROJECTIONS[key]
+        copies = max(2, -(-2 * L2_BYTES // (e * lay.m * lay.data_shape[1]
+                                            * 2)))
+        ws = torch.randn((copies, e, *lay.data_shape), device="cuda",
+                         generator=g).to(dt)
+        wts = torch.stack([tt.values(ws[i]) for i in range(copies)])
+        for n in ns:
+            x = torch.randn((e, n, lay.k), device="cuda", generator=g).to(dt)
+            gy = torch.randn((e, n, lay.m), device="cuda",
+                             generator=g).to(dt)
+            calls = {"fwd": (tables, x, ws, lay.m), "dx": (tt.tables, gy, wts,
+                                                           lay.k)}
+            line = []
+            for kind, (tab, xin, w, width) in calls.items():
+                want = rbgp4mm_rhs_stacked_reference(tab, xin, w[0])
+                outs = {}
+                for bn in tiles:
+                    run = stacked_body_launcher(tab, "mma", block_tokens=bn)
+                    outs[bn] = torch.empty((e, n, width), dtype=dt,
+                                           device="cuda")
+                    run(xin, w[0], outs[bn])
+                    torch.cuda.synchronize()
+                    agree(f"stacked tile {bn} {kind} {key} N={n}", outs[bn],
+                          want, dt)
+                    ms = time_cuda(lambda i: run(xin, w[i % copies],
+                                                 outs[bn]))
+                    layer[(kind, n)][bn] += count * ms
+                if not torch.equal(outs[64], outs[128]):
+                    raise AssertionError(f"stacked {kind} {key} N={n}: the "
+                                         f"token tile changed the bits")
+                line.append(f"{kind} 64 {layer[(kind, n)][64]:.4f} / 128 "
+                            f"{layer[(kind, n)][128]:.4f}")
+            del x, gy
+        del ws, wts
+        torch.cuda.empty_cache()
+    for n in ns:
+        log("times", f"stacked tiles per MoE layer N={n:<4d}: " + ", ".join(
+            f"{kind} 64-token {layer[(kind, n)][64]:.4f} / 128-token "
+            f"{layer[(kind, n)][128]:.4f} ms (faster "
+            f"{min(tiles, key=layer[(kind, n)].get)}, the wrapper takes "
+            f"{stacked_mma_block_tokens(n, kind == 'dx')})"
+            for kind in ("fwd", "dx")))
+    return layer
 
 
 def chain_plan():
@@ -1721,13 +1952,15 @@ def chain_layouts() -> dict:
 def phase_check_chain(layouts) -> dict:
     """The chain kernels against their plain versions: ``chainmm_rhs`` at
     N in {1, 8, 512, 4096} and on the transposed layouts at N in {512,
-    4096}, ``chain_sddmm_rhs`` at N in {8, 512, 4096}, f32 and bf16, at
-    tinyllama's four layouts; smaller N at the two test chains.  Max abs
-    diff per record entry."""
+    4096}, ``chain_sddmm_rhs`` at ``CHAIN_CHECK_ROWS`` (bf16 from 16
+    tokens on the tensor-core body), f32 and bf16, at tinyllama's four
+    layouts; smaller N at the two test chains.  Every dW is rerun and must
+    give the same bits.  Max abs diff per record entry."""
     from repro_torch.kernels import (chain_sddmm_rhs,
                                      chain_sddmm_rhs_reference,
                                      chain_tables, chain_transpose_tables,
                                      chainmm_rhs, chainmm_rhs_reference)
+    from repro_torch.kernels.chainmm import chain_sddmm_path
 
     g = torch.Generator(device="cuda").manual_seed(7)
     max_abs = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
@@ -1737,9 +1970,12 @@ def phase_check_chain(layouts) -> dict:
         tables = chain_tables(lay, "cuda")
         tt = chain_transpose_tables(lay, "cuda")
         t_ = tt.tables
+        cl = tables.classes
         log("check-chain", f"chain {key:8s} {lay.m} x {lay.k}: G = "
                      f"{tables.group_rows}, C = {tables.chunk_cols}, "
-                     f"{tables.n_chunks} chunks a row; transposed: G = "
+                     f"{tables.n_chunks} chunks a row, {cl.n_classes} "
+                     f"row-group classes of up to {cl.max_groups} row "
+                     f"groups; transposed: G = "
                      f"{t_.group_rows}, C = {t_.chunk_cols}, "
                      f"{t_.n_chunks} chunks")
         for dt in (torch.float32, torch.bfloat16):
@@ -1767,18 +2003,26 @@ def phase_check_chain(layouts) -> dict:
                 hold(f"transposed N={n}", dx,
                      chainmm_rhs_reference(t_, gy, wt), "dx", "transposed")
                 n_cases += 1
-            for n in ((8, 512, 4096) if full else (8, 512)):
+            bodies = {}
+            for n in (CHAIN_CHECK_ROWS if full else (8, 512)):
                 gy, x = rnd(n, lay.m), rnd(n, lay.k)
                 dw = launched(chain_sddmm_rhs,
                               lambda: chain_sddmm_rhs(tables, gy, x))
                 hold(f"sddmm N={n}", dw,
                      chain_sddmm_rhs_reference(tables, gy, x), "dw", "sddmm")
+                # no atomics, a fixed order of sums: a rerun, same bits
+                if not torch.equal(dw, chain_sddmm_rhs(tables, gy, x)):
+                    raise AssertionError(f"chain sddmm {key} N={n} {dt}: a "
+                                         f"rerun changed the bits")
+                bodies[n] = chain_sddmm_path(tables, n, dt)
                 n_cases += 1
             log("check-chain", f"chain {key:8s} {str(dt):15s} max|diff|/max|ref|: "
-                         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+                         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                         + "; dW bodies: " + ", ".join(
+                             f"N={n} {b}" for n, b in bodies.items()))
         torch.cuda.empty_cache()
-    log("check-chain", f"{n_cases} chain-kernel cases agree (one launch each); max "
-                 f"abs diff "
+    log("check-chain", f"{n_cases} chain-kernel cases agree (one launch "
+                 f"each), every dW bit-equal on a rerun; max abs diff "
                  + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items()))
     return max_abs
 
@@ -1787,12 +2031,14 @@ def phase_times_chain(layouts, n_train: int = 4096) -> dict:
     """The chain kernels at tinyllama's four layouts, bf16: the forward at
     N = 8 and 512, dX and dW at a training step's N; kernel, plain version,
     one PyTorch call on the unpacked dense weights (``F.linear``,
-    ``g @ W``, ``g^T @ x``), bound."""
+    ``g @ W``, ``g^T @ x``), bound; dW also on its FMA body on the same
+    operands (``fma_ms``), the tensor-core body's yardstick."""
     from repro_torch.kernels import (chain_sddmm_rhs,
                                      chain_sddmm_rhs_reference,
                                      chain_tables, chain_transpose_tables,
                                      chainmm_rhs, chainmm_rhs_reference)
-    from repro_torch.kernels.chainmm import chain_unpack_dense
+    from repro_torch.kernels.chainmm import (chain_sddmm_path,
+                                             chain_unpack_dense)
 
     g = torch.Generator(device="cuda").manual_seed(8)
     dt = torch.bfloat16
@@ -1831,7 +2077,11 @@ def phase_times_chain(layouts, n_train: int = 4096) -> dict:
         w, wdd = ws[0], wd[0]
         wt = tt.values(w)
         c = lambda i: i % c_
+        fma_sddmm = chain_body_launcher(tables, "fma")
+        dw_out = torch.empty((m, nnz), dtype=dt, device="cuda")
         t = dict(
+            dw_fma=time_cuda(lambda i: fma_sddmm(gs[c(i)], xs[c(i)],
+                                                 dw_out)),
             dw=time_cuda(lambda i: chain_sddmm_rhs(tables, gs[c(i)],
                                                    xs[c(i)])),
             dw_plain=time_cuda(lambda i: chain_sddmm_rhs_reference(
@@ -1846,9 +2096,11 @@ def phase_times_chain(layouts, n_train: int = 4096) -> dict:
                                tables.group_rows, 2)
         rows[(key, "dw")] = dict(ms=t["dw"], plain_ms=t["dw_plain"],
                                  library_ms=t["dw_lib"], bound_ms=b,
-                                 bound_by=by)
-        log("times-chain", f"chain dW {key:8s} N={n} bf16: kernel {t['dw']:.4f} "
-                     f"ms, plain {t['dw_plain']:.4f} ms, g^T @ x dense "
+                                 bound_by=by, fma_ms=t["dw_fma"])
+        log("times-chain", f"chain dW {key:8s} N={n} bf16 "
+                     f"[{chain_sddmm_path(tables, n, dt)} body]: kernel "
+                     f"{t['dw']:.4f} ms, FMA body {t['dw_fma']:.4f} ms, "
+                     f"plain {t['dw_plain']:.4f} ms, g^T @ x dense "
                      f"{t['dw_lib']:.4f} ms, bound {b * 1e3:.2f} us ({by})")
         b, by = bound_ms(n, t_.m, t_.k, t_.data_cols, t_.n_chunks,
                          t_.group_rows, 2)
@@ -1859,7 +2111,7 @@ def phase_times_chain(layouts, n_train: int = 4096) -> dict:
                      f"C = {t_.chunk_cols}): kernel {t['dx']:.4f} ms, plain "
                      f"{t['dx_plain']:.4f} ms, g @ W dense "
                      f"{t['dx_lib']:.4f} ms, bound {b * 1e3:.2f} us ({by})")
-        del ws, wd, gs, xs, wt
+        del ws, wd, gs, xs, wt, dw_out
         torch.cuda.empty_cache()
     return rows
 
@@ -2347,6 +2599,7 @@ def main() -> int:
     times.update(phase_train_times(layouts))
     sweep = phase_body_sweep(layouts)
     times_moe = phase_times_moe(experts)
+    tiles = phase_stacked_tiles(experts)
     times_chain = phase_times_chain(chains)
     t_fm = time.perf_counter()
     fm = fm_layouts()
@@ -2446,6 +2699,8 @@ def main() -> int:
                        for (family, key), row in times_q.items()})
     per_layout.update({f"layer {kind} N={n} bodies": ms
                        for (kind, n), ms in sweep.items()})
+    per_layout.update({f"moe layer {kind} N={n} stacked tiles": ms
+                       for (kind, n), ms in tiles.items()})
     print("kernel_times " + json.dumps(per_layout), flush=True)
     src = "src/repro_torch/kernels/csrc/"
     # the forward: one decoder layer's seven projections at decode (N = 8
@@ -2457,6 +2712,10 @@ def main() -> int:
     fwd_train = per_layer(times, "fwd")
     dx, dw = per_layer(times, "dx"), per_layer(times, "dw")
     s_fwd = per_layer(times_moe, 8, MOE_LAYER_PROJECTIONS)
+    s_fwd_train = per_layer(times_moe, MOE_ROWS["train"],
+                            MOE_LAYER_PROJECTIONS)
+    s_prefill = per_layer(times_moe, MOE_ROWS["prefill"],
+                          MOE_LAYER_PROJECTIONS)
     s_dx = per_layer(times_moe, "dx", MOE_LAYER_PROJECTIONS)
     s_dw = per_layer(times_moe, "dw", MOE_LAYER_PROJECTIONS)
     c_fwd = per_layer(times_chain, 8)
@@ -2520,14 +2779,42 @@ def main() -> int:
                   "capacity, and train with its remat recompute); timed: "
                   "one MoE layer's gate, up and down, 60 experts, 8 rows "
                   "an expert (decode), bf16"),
+        dict(name="rbgp4mm_rhs_stacked (training forward, save_preact)",
+             route="cuda", source=src + "rbgp4mm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:773",
+             launches=train_moe["launches"]["stacked_forward"],
+             launches_mma=train_moe["mma_launches"]["stacked_forward"]
+             - train_moe["launches"]["stacked_dx"],
+             max_abs_err=max_abs_moe["forward"], **s_fwd_train,
+             work="the stacked training forward and its remat recompute "
+                  "(phase 10, the bf16 tensor-core body "
+                  "rbgp4mm_rhs_stacked_mma_kernel); timed: one MoE layer's "
+                  "gate, up and down, 60 experts, 171 rows an expert, bf16, "
+                  "save_preact and silu (Y and Z written); fma_ms: the FMA "
+                  "body on the same operands; mma64_ms: the tensor-core "
+                  "body with a 64-token tile"),
+        dict(name="rbgp4mm_rhs_stacked (prefill, 512 rows)", route="cuda",
+             source=src + "rbgp4mm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:773",
+             launches=serve_moe["mma_launches"]["stacked_forward"],
+             launches_mma=serve_moe["mma_launches"]["stacked_forward"],
+             max_abs_err=max_abs_moe["forward"], **s_prefill,
+             work="the stacked forward of a full-capacity prefill (phase "
+                  "8's prefill calls, 128-512 rows an expert, the bf16 "
+                  "tensor-core body); timed: one MoE layer's gate, up and "
+                  "down, 60 experts, 512 rows an expert, bf16; fma_ms: the "
+                  "FMA body on the same operands"),
         dict(name="rbgp4mm_rhs_stacked (dX, transposed layouts)",
              route="cuda", source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:773",
              launches=total("stacked_dx"),
+             launches_mma=train_moe["launches"]["stacked_dx"],
              max_abs_err=max_abs_moe["dx"], **s_dx,
              work="dX of one MoE layer's gate, up and down on their "
                   "transposed layouts, 60 experts, 171 rows an expert, "
-                  "bf16"),
+                  "bf16 (the tensor-core body in training); fma_ms: the "
+                  "FMA body on the same operands; mma64_ms: the "
+                  "tensor-core body with a 64-token tile"),
         dict(name="rbgp4_sddmm_rhs_stacked", route="cuda",
              source=src + "rbgp4_sddmm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:899",
@@ -2555,9 +2842,13 @@ def main() -> int:
              source=src + "chain_sddmm_rhs.cu",
              replaces="src/repro/kernels/chainmm.py:427",
              launches=total("chain_dw"),
+             launches_mma=train_chain["mma_launches"]["chain_dw"],
              max_abs_err=max_abs_chain["dw"], **c_dw,
              work="chain dW of one decoder layer's seven projections, "
-                  "4096 tokens, bf16"),
+                  "4096 tokens, bf16, on the tensor-core body over "
+                  "row-group classes (chain_sddmm_rhs_mma_kernel, every "
+                  "launch of phase 16); fma_ms: the FMA body on the same "
+                  "operands"),
         dict(name="rbgp4mm", route="cuda", source=src + "rbgp4mm.cu",
              replaces="src/repro/kernels/rbgp4mm.py:245",
              launches=total("fm_forward"),

@@ -10,14 +10,16 @@ products built on them, and ``ops.RBGP4Op`` (cached by ``get_op``) the
 per-layer bundle of the reference.  ``rbgp4mm_rhs``,
 ``rbgp4mm_rhs_stacked`` and ``chainmm_rhs`` take ``scales=``, the int8
 leaf-block path of the weight-only PTQ storage (``sparsity/quant.py``).
-``rhs_path`` and ``sddmm_path`` say which device body (FMA, or bf16 on
-the tensor cores) a launch of ``rbgp4mm_rhs`` or ``rbgp4_sddmm_rhs``
+``rhs_path``, ``sddmm_path`` and ``chain_sddmm_path`` say which device
+body (FMA, or bf16 on the tensor cores) a launch of ``rbgp4mm_rhs`` or
+``rbgp4mm_rhs_stacked``, ``rbgp4_sddmm_rhs`` or ``chain_sddmm_rhs``
 takes.
 """
 from . import build, ref
 from .chainmm import (
     ChainTables,
     ChainTransposeTables,
+    chain_sddmm_path,
     chain_sddmm_rhs,
     chain_sddmm_rhs_reference,
     chain_tables,
@@ -49,6 +51,7 @@ from .rbgp4mm import (
     rhs_path,
     sddmm_mma_plan,
     sddmm_path,
+    stacked_mma_block_tokens,
 )
 
 __all__ = [
@@ -59,6 +62,8 @@ __all__ = [
     "rhs_path",
     "sddmm_path",
     "sddmm_mma_plan",
+    "stacked_mma_block_tokens",
+    "chain_sddmm_path",
     "KernelTables",
     "TransposeTables",
     "RBGP4Linear",

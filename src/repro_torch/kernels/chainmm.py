@@ -22,13 +22,25 @@ of chunk starts: row ``rg*G + g`` multiplies its compact columns
 a layout where it fails.  The table takes the place of the TPU kernel's
 scalar-prefetched head adjacency and its static unroll of the mid factors.
 
+Row-group classes.  Whole sets of row groups share one ``col0`` row
+(the complete head factor and the complete leaf give them the same column
+set): tinyllama-1.1b's hierarchical-block layouts have 32, 8, 8 and 8
+distinct rows among 256, 32, 352 and 64 row groups.  ``ChainTables``
+keeps them as ``ChainClasses``: the row groups of a class together are
+one dense product, dW[their rows] = g[:, their rows]^T @ x[:, the class's
+gathered columns], which ``chain_sddmm_rhs``'s tensor-core body runs.
+
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/`` (see the source notes for the designs and what bounds them); on
 a CPU tensor it runs its plain version (``*_reference``).  There is no
-other path: a failed build or launch raises.  Launch counters, moved only
-where a kernel launches: ``chainmm_rhs.launches`` on forward tables,
-``chainmm_rhs.launches_dx`` on transposed ones, ``chainmm_rhs.launches_q``
-on the int8 path, ``chain_sddmm_rhs.launches``.
+other path: a failed build or launch raises.  ``chain_sddmm_rhs`` has two
+device bodies, the FMA body and a bf16 tensor-core body over the classes;
+``chain_sddmm_path`` says which one a launch takes, from dtype and shape
+alone.  Launch counters, moved only where a kernel launches:
+``chainmm_rhs.launches`` on forward tables, ``chainmm_rhs.launches_dx`` on
+transposed ones, ``chainmm_rhs.launches_q`` on the int8 path,
+``chain_sddmm_rhs.launches``, and again in
+``chain_sddmm_rhs.launches_mma`` where it took the tensor-core body.
 
 ``chainmm_rhs`` takes ``scales=`` (the int8 path of the reference's
 ``has_scales``): ``w_data`` then holds int8 leaf blocks and ``scales``
@@ -45,15 +57,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .rbgp4mm import _DTYPE_CODES, _check_cuda, _launch
+from .rbgp4mm import (_DTYPE_CODES, _PATH_CODES, MMA_MIN_TOKENS, SddmmPlan,
+                      _check_aligned16, _check_cuda, _launch, _sm_count,
+                      token_slices)
 from .ref import dequant_leaf_blocks
 
-__all__ = ["ChainTables", "ChainTransposeTables", "chain_tables",
-           "chain_transpose_tables", "chain_layout_cache_key",
-           "chain_unpack_dense", "chain_pack_compact", "chain_ref_linear",
-           "chain_gather_mm_rhs", "chain_init", "chainmm_rhs",
-           "chainmm_rhs_reference", "chain_sddmm_rhs",
-           "chain_sddmm_rhs_reference"]
+__all__ = ["ChainTables", "ChainClasses", "ChainTransposeTables",
+           "chain_tables", "chain_transpose_tables",
+           "chain_layout_cache_key", "chain_unpack_dense",
+           "chain_pack_compact", "chain_ref_linear", "chain_gather_mm_rhs",
+           "chain_init", "chainmm_rhs", "chainmm_rhs_reference",
+           "chain_sddmm_rhs", "chain_sddmm_rhs_reference",
+           "chain_sddmm_path", "chain_sddmm_mma_plan",
+           "CHAIN_SDDMM_MMA_TILE"]
 
 
 def chain_layout_cache_key(layout) -> tuple:
@@ -79,12 +95,47 @@ def _leaf(layout) -> tuple[int, int]:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class ChainClasses:
+    """The row-group classes of a chain table: the row groups whose
+    ``col0`` rows are equal, each class one dense product.  ``col0``
+    (n_classes, n_chunks) int32 is each class's one ``col0`` row;
+    ``groups`` (M/G,) int32 lists the row groups class by class, in
+    increasing order within a class; class ``c`` owns
+    ``groups[start[c] : start[c+1]]`` (``start`` (n_classes + 1,) int32).
+    ``max_groups`` is the largest class's count of row groups."""
+
+    col0: torch.Tensor
+    groups: torch.Tensor
+    start: torch.Tensor
+    max_groups: int
+
+    @property
+    def n_classes(self) -> int:
+        return self.col0.shape[0]
+
+    @classmethod
+    def build(cls, col0: np.ndarray, device) -> "ChainClasses":
+        rows, inv = np.unique(col0, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        counts = np.bincount(inv, minlength=len(rows))
+        start = np.concatenate([[0], np.cumsum(counts)])
+
+        def on_device(a):
+            return torch.as_tensor(np.ascontiguousarray(a),
+                                   dtype=torch.int32, device=device)
+
+        return cls(on_device(rows), on_device(np.argsort(inv, kind="stable")),
+                   on_device(start), int(counts.max()))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class ChainTables:
     """A chain layout's kernel table on one device: ``col0 (M/G, n_chunks)``
     int32, the input column of every (row group, chunk)'s first column,
     with the dimensions M, K, G (rows of a leaf block) and C (its
-    columns).  ``transposed`` marks the tables of a transposed layout
-    (dX), whose launches count apart.  Built once per layout and device
+    columns), and the row-group classes (``ChainClasses``) of ``col0``.
+    ``transposed`` marks the tables of a transposed layout (dX), whose
+    launches count apart.  Built once per layout and device
     (``chain_tables``) and passed to every call."""
 
     m: int
@@ -92,6 +143,7 @@ class ChainTables:
     group_rows: int
     chunk_cols: int
     col0: torch.Tensor
+    classes: ChainClasses
     transposed: bool = False
 
     @property
@@ -123,7 +175,8 @@ class ChainTables:
                 f"the chain kernels cannot run it")
         return cls(m, layout.k, G, C,
                    torch.as_tensor(col0, dtype=torch.int32,
-                                   device=device).contiguous(), transposed)
+                                   device=device).contiguous(),
+                   ChainClasses.build(col0, device), transposed)
 
     def col_index(self) -> torch.Tensor:
         """(M, nnz_row) int64 input column of each compact slot, on the
@@ -372,6 +425,44 @@ def chain_sddmm_rhs_reference(tables: ChainTables, g: torch.Tensor,
     return dw.reshape(tables.m, tables.data_cols).to(g.dtype)
 
 
+# -- which body a dW launch takes ---------------------------------------------
+
+#: rows and columns of a block tile of the dW tensor-core body
+CHAIN_SDDMM_MMA_TILE = 64
+#: tokens a stage of that body, the unit of its token slices
+CHAIN_SDDMM_MMA_STAGE_TOKENS = 32
+
+
+def chain_sddmm_path(tables: ChainTables, n_tokens: int,
+                     dtype: torch.dtype) -> str:
+    """``"mma"`` or ``"fma"``: the body a launch of ``chain_sddmm_rhs``
+    takes for ``n_tokens`` tokens of ``dtype`` on ``tables``.  The
+    tensor-core body takes bfloat16 at ``n_tokens >= MMA_MIN_TOKENS`` with
+    G, C and K multiples of 8 (so M too), every gather then a 16-byte
+    copy; float32 (no TF32) and the small leaves (G = C = 1, 2) keep the
+    FMA body."""
+    if (dtype != torch.bfloat16 or n_tokens < MMA_MIN_TOKENS
+            or tables.group_rows % 8 or tables.chunk_cols % 8
+            or tables.k % 8):
+        return "fma"
+    return "mma"
+
+
+def chain_sddmm_mma_plan(tables: ChainTables, n_tokens: int,
+                         sm_count: int) -> SddmmPlan:
+    """The tensor-core body's plan on a card of ``sm_count`` SMs: a
+    ``CHAIN_SDDMM_MMA_TILE``-square tile of a class's rows by its stored
+    columns a block, every class given the row tiles of the largest, cut
+    into token slices as ``token_slices`` says (wk/wv and wq/wo of
+    tinyllama-1.1b at 4096 tokens: 32 and 128 blocks a slice)."""
+    t = CHAIN_SDDMM_MMA_TILE
+    cl = tables.classes
+    base = (cl.n_classes * -(-cl.max_groups * tables.group_rows // t)
+            * -(-tables.data_cols // t))
+    return token_slices(t, base, n_tokens, sm_count,
+                        CHAIN_SDDMM_MMA_STAGE_TOKENS)
+
+
 def chain_sddmm_rhs(tables: ChainTables, g: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """Compact dW (M, nnz_row) = pack(g^T @ x) from token-major cotangent
@@ -379,7 +470,9 @@ def chain_sddmm_rhs(tables: ChainTables, g: torch.Tensor,
 
     ``tables`` are the forward layout's.  CPU tensors run the plain
     version; CUDA tensors launch the kernel, which takes float32 or
-    bfloat16 g and x of one dtype, both contiguous.
+    bfloat16 g and x of one dtype, both contiguous, on the body
+    ``chain_sddmm_path`` names (the tensor-core one counted again in
+    ``launches_mma``).
     """
     _check_sddmm_args(tables, g, x)
     if g.device.type == "cpu":
@@ -391,12 +484,37 @@ def chain_sddmm_rhs(tables: ChainTables, g: torch.Tensor,
         return torch.zeros((tables.m, tables.data_cols), dtype=dt,
                            device=g.device)
     dw = torch.empty((tables.m, tables.data_cols), dtype=dt, device=g.device)
-    _launch("chain_sddmm_rhs", "chain_sddmm_rhs", "ippppiiiiiip",
-            _DTYPE_CODES[dt], g.data_ptr(), x.data_ptr(),
-            tables.col0.data_ptr(), dw.data_ptr(), n, tables.k, tables.m,
-            tables.n_chunks, tables.group_rows, tables.chunk_cols, g.device)
+    path = chain_sddmm_path(tables, n, dt)
+    _chain_sddmm_body(path, tables, g, x, dw)
     chain_sddmm_rhs.launches += 1
+    if path == "mma":
+        chain_sddmm_rhs.launches_mma += 1
     return dw
 
 
-chain_sddmm_rhs.launches = 0
+def _chain_sddmm_body(path: str, tables: ChainTables, g: torch.Tensor,
+                      x: torch.Tensor, dw: torch.Tensor) -> None:
+    """Launch body ``path`` ("fma" or "mma") of ``chain_sddmm_rhs`` on
+    checked CUDA operands of one dtype (N > 0), writing ``dw``; the mma
+    body's token-slice workspace is allocated here.  It moves no counter:
+    a launch of the other body on the same operands is a comparison."""
+    n = x.shape[0]
+    cl = tables.classes
+    part, plan = None, SddmmPlan(0, 1, 0, 0)
+    if path == "mma":
+        _check_aligned16("chain_sddmm_rhs", {"g": g, "x": x})
+        plan = chain_sddmm_mma_plan(tables, n, _sm_count(g.device))
+        shape = plan.workspace_shape(tables)
+        if shape is not None:
+            part = torch.empty(shape, dtype=torch.float32, device=g.device)
+    _launch("chain_sddmm_rhs", "chain_sddmm_rhs", "ippppppppiiiiiiiiiiip",
+            _DTYPE_CODES[g.dtype], g.data_ptr(), x.data_ptr(),
+            tables.col0.data_ptr(), cl.col0.data_ptr(), cl.groups.data_ptr(),
+            cl.start.data_ptr(), dw.data_ptr(),
+            part.data_ptr() if part is not None else None, n, tables.k,
+            tables.m, tables.n_chunks, tables.group_rows, tables.chunk_cols,
+            cl.n_classes, cl.max_groups, _PATH_CODES[path], plan.n_slices,
+            plan.slice_len, g.device)
+
+
+chain_sddmm_rhs.launches = chain_sddmm_rhs.launches_mma = 0

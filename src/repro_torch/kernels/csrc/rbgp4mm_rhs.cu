@@ -23,11 +23,13 @@
 // passed as `path`; the launcher refuses a shape the chosen body cannot
 // take, and nothing falls back from one body to the other.
 //
-// 1. The bf16 tensor-core body, rbgp4mm_rhs_mma_kernel<G> (path 1): the
-// unstacked, full-precision entry point in bfloat16 at N >= 16 tokens, G
-// in {16, 32, 64, 128}, C and K multiples of 8.  That is every launch of
-// a training step (the forward, its remat recompute and dX, N = 4096 for
-// tinyllama-1.1b at 8 x 512 tokens) and of a prefill.
+// 1. The bf16 tensor-core body, rbgp4mm_rhs_mma_kernel<G> and, for the
+// stacked entry point, rbgp4mm_rhs_stacked_mma_kernel<G, BN> (path 1):
+// full precision in bfloat16 at N >= 16 tokens (rows an expert, stacked),
+// G in {16, 32, 64, 128}, C and K multiples of 8.  That is every launch
+// of a training step (the forward, its remat recompute and dX, N = 4096
+// for tinyllama-1.1b at 8 x 512 tokens, 171 rows an expert for
+// qwen2-moe-a2.7b at 4 x 512) and of a prefill.
 //
 // What bounds it on an H100.  Per tinyllama-1.1b layer at N = 4096, the
 // seven projections hold 11.01 M compact values, so each of the forward
@@ -76,18 +78,19 @@
 //
 // Build (nvcc -Xptxas -v, sm_90a): G = 16, 32, 64, 128 use 64, 62, 64 and
 // 124 registers and no stack (no spills); dynamic shared memory
-// 3 * (128 + G) * 64 * 2 bytes = 55,296, 61,440, 73,728 and 98,304
-// bytes, above the 48 KB default, so each launch sets
+// 3 * (BN + G) * 64 * 2 bytes = 55,296, 61,440, 73,728 and 98,304
+// bytes at BN = 128, above the 48 KB default, so each launch sets
 // cudaFuncAttributeMaxDynamicSharedMemorySize.  Refused (launcher):
 // float32, G outside those four, C or K not a multiple of 8, X or W not
 // 16-byte aligned (the wrapper checks first and raises), more than
-// 65535 * 128 tokens.
+// 65535 token tiles, a 64-token tile or a residual on the unstacked or
+// stacked entry point respectively.
 //
 // 2. The FMA body, rhs_tile (path 0): float32 (TF32 stays off, so the
 // float32 parity runs keep this body), bf16 below 16 tokens (decode at 8
 // rows, where the step is host-bound; the tensor-core body was measured
-// faster from 8 tokens on, kernels/rbgp4mm.py:MMA_MIN_TOKENS), the
-// stacked and the int8 entry points, and any G or C.  What bounds it on an
+// faster from 8 tokens on, kernels/rbgp4mm.py:MMA_MIN_TOKENS), the int8
+// entry points, and any G or C, stacked or not.  What bounds it on an
 // H100: at decode (8 token rows) every weight is read once per step and
 // used for 8 products: about 154 launches and 0.48 GB of bf16 weights per
 // step of tinyllama-1.1b, so reading W from device memory bounds it
@@ -109,21 +112,35 @@
 // (_mm_rhs_stacked_kernel): Y[e] = act(X[e] . W_s[e]^T + b[e]) for every
 // expert e of a MoE layer in one launch, X (E, N, K), w (E, M, d_o*d_i*C),
 // bias (E, M), with Z as above and no residual.  All experts share one
-// layout, so every expert reads the same col0 table.  It is the same
-// device body (rhs_tile) with the expert on blockIdx.z: each block offsets
+// layout, so every expert reads the same col0 table.  It runs the same
+// two device bodies, with the expert on blockIdx.z: each block offsets
 // its pointers by its expert's stride (x + e*N*K, w + e*M*nnz_row,
-// bias + e*M, Y and Z + e*N*M); the unstacked entry point is its E = 1
-// case.  Each entry point launches its own __global__ symbol
-// (rbgp4mm_rhs_kernel, rbgp4mm_rhs_stacked_kernel), so that a profile
-// tells them apart.  What bounds it on an H100: bytes, at every shape a
-// qwen2-moe-a2.7b expert projection runs.  At decode (8 token rows an
-// expert) reading the weights, 60*1408*512*2 B = 86.5 MB per launch of a
-// gate or up projection (the down projection the same), 25.8 us at
-// 3.35 TB/s; at a training step (171 rows an expert) X, W and Y come to
-// 157 MB (47 us) against 15 us for the 14.8 GFLOP on the tensor cores.
-// What the design does about it: nothing yet, it is the FMA body above;
-// the tensor-core body takes the unstacked bf16 launches only, and the
-// stacked entry point is the next to take it.
+// bias + e*M, Y and Z + e*N*M), so an expert's outputs are the bits the
+// unstacked launch of the same body gives on that expert's slice.  Each
+// entry point launches its own __global__ symbol (rbgp4mm_rhs_kernel and
+// rbgp4mm_rhs_mma_kernel, rbgp4mm_rhs_stacked_kernel and
+// rbgp4mm_rhs_stacked_mma_kernel), so that a profile tells them apart;
+// the same rhs_path chooses the body, from the rows an expert.
+//
+// What bounds it on an H100.  At decode (8 token rows an expert, the FMA
+// body) reading the weights, 60*1408*512*2 B = 86.5 MB per launch of a
+// gate or up projection (the down projection the same), 25.8 us at 3.35
+// TB/s.  At a training step (171 rows an expert) X, W and Y come to 157
+// MB (47 us) against 15 us for the 14.8 GFLOP on the tensor cores; the
+// tensor-core body meets L2 first, as the unstacked one does: a gate or
+// up block (G = 16, C = 128) gathers BN x nnz_row of X for 16 rows.  At
+// 171 rows the second 128-token tile is 43/128 full, so the stacked entry
+// point also builds a 64-token tile (BN = 64: the same warp tiles, four
+// warps, block_tokens).  The wrapper takes it (kernels/rbgp4mm.py:
+// stacked_mma_block_tokens) for dX, and for the forward where the last
+// 128-token tile would be at most half full (171 rows then compute 192
+// instead of 256), else 128: the faster tile at every size
+// chip_smoke.py's stacked tile sweep timed (NVIDIA H100 80GB HBM3, 700
+// W; per MoE layer at 16-512 rows an expert).  At 171 rows the forward
+// took 0.946 ms at BN = 64 against 1.059 at 128, dX 0.659 against 0.885;
+// at 512 the forward 2.568 against 2.400, dX 1.714 against 2.018.  The
+// tile changes no bit (the sweep holds the two bit-equal): each output's
+// sums run the same mma sequence over the contraction.
 //
 // The int8 path (rbgp4mm_rhs_q, rbgp4mm_rhs_stacked_q; the reference's
 // has_scales branch of _mm_rhs_kernel and _mm_rhs_stacked_kernel, in
@@ -347,52 +364,53 @@ __global__ void __launch_bounds__(kThreads)
 
 // -- the bf16 tensor-core body ---------------------------------------------
 
-constexpr int kMmaThreads = 256;  // 8 warps
 constexpr int kMmaBN = 128;       // tokens a block (the mma's M side)
 constexpr int kMmaKS = 64;        // contraction columns a stage
 constexpr int kMmaStages = 3;     // cp.async ring depth
 
-// The warp grid of a (kMmaBN tokens x G rows) block tile: WARPS_M x
-// WARPS_N warps, each MT m16 tiles of tokens by NT n8 tiles of rows.
-template <int G>
+// The warp grid of a (BN tokens x G rows) block tile: WARPS_M x WARPS_N
+// warps, each MT m16 tiles of tokens by NT n8 tiles of rows.  BN = 128
+// (kMmaBN, every unstacked launch) runs 8 warps; BN = 64, which only the
+// stacked entry point takes, runs the same warp tiles with half the warps.
+template <int G, int BN>
 struct RhsMma {
   static constexpr int kWarpsN = G >= 64 ? 2 : 1;
-  static constexpr int kWarpsM = 8 / kWarpsN;
-  static constexpr int kWTM = kMmaBN / kWarpsM;  // tokens a warp
+  static constexpr int kWarpsM = (BN / 16) / (G >= 64 ? 2 : 1);
+  static constexpr int kThreads = kWarpsM * kWarpsN * 32;
+  static constexpr int kWTM = BN / kWarpsM;      // tokens a warp
   static constexpr int kWTN = G / kWarpsN;       // rows a warp
   static constexpr int kMT = kWTM / 16;
   static constexpr int kNT = kWTN / 8;
   static constexpr size_t kSmem =
-      (size_t)kMmaStages * (kMmaBN + G) * kMmaKS * sizeof(__nv_bfloat16);
+      (size_t)kMmaStages * (BN + G) * kMmaKS * sizeof(__nv_bfloat16);
+  static_assert(BN == 64 || BN == 128, "block tokens");
   static_assert(kWTM % 16 == 0 && kWTN % 16 == 0, "warp tile");
 };
 
-// One (kMmaBN tokens x G rows) tile of row group blockIdx.x, token block
-// blockIdx.y, on the tensor cores.  The contraction runs over the row
-// group's compact columns kk = s*C + c, kk < n_chunks*C, in stages of
-// kMmaKS: compact column kk of W is w[row, kk] and meets input column
-// col0[rg, s] + c of X.  Each stage's X (kMmaBN x kMmaKS) and W (G x
+// The tensor-core body of both mma entry kernels below: one (BN tokens x
+// G rows) tile of row group blockIdx.x, token block blockIdx.y, on
+// operands already offset to the block's expert.  The contraction runs
+// over the row group's compact columns kk = s*C + c, kk < n_chunks*C, in
+// stages of kMmaKS: compact column kk of W is w[row, kk] and meets input
+// column col0[rg, s] + c of X.  Each stage's X (BN x kMmaKS) and W (G x
 // kMmaKS) slices arrive by 16-byte cp.async (8 columns never straddle a
 // slot: C % 8 == 0) in a ring of kMmaStages; columns past n_chunks*C and
 // tokens past n_tokens are zero-filled.
-template <int G>
-__global__ void __launch_bounds__(kMmaThreads)
-    rbgp4mm_rhs_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                           const __nv_bfloat16* __restrict__ w,
-                           const int* __restrict__ col0,
-                           const __nv_bfloat16* __restrict__ bias,
-                           const __nv_bfloat16* __restrict__ residual,
-                           __nv_bfloat16* __restrict__ out,
-                           __nv_bfloat16* __restrict__ zout, int n_tokens,
-                           int k, int m, int n_chunks, int C, int act) {
-  using S = RhsMma<G>;
+template <int G, int BN>
+__device__ __forceinline__ void rhs_mma_tile(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const int* __restrict__ col0, const __nv_bfloat16* __restrict__ bias,
+    const __nv_bfloat16* __restrict__ residual,
+    __nv_bfloat16* __restrict__ out, __nv_bfloat16* __restrict__ zout,
+    int n_tokens, int k, int m, int n_chunks, int C, int act) {
+  using S = RhsMma<G, BN>;
   using mma_bf16::swz;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ws = xs + kMmaStages * kMmaBN * kMmaKS;
+  __nv_bfloat16* ws = xs + kMmaStages * BN * kMmaKS;
 
   const int rg = blockIdx.x;
-  const int n0 = blockIdx.y * kMmaBN;
+  const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -405,10 +423,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   const __nv_bfloat16* w_blk = w + (long long)rg * G * w_row;
 
   auto load_stage = [&](int step, int slot) {
-    __nv_bfloat16* xd = xs + slot * kMmaBN * kMmaKS;
+    __nv_bfloat16* xd = xs + slot * BN * kMmaKS;
     __nv_bfloat16* wd = ws + slot * G * kMmaKS;
 #pragma unroll
-    for (int i = tid; i < kMmaBN * 8; i += kMmaThreads) {
+    for (int i = tid; i < BN * 8; i += S::kThreads) {
       const int r = i >> 3, j = i & 7;
       const int kk = step * kMmaKS + j * 8;
       const int n = n0 + r;
@@ -421,7 +439,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       mma_bf16::cp_async16(xd + swz<8>(r, j), src, ok);
     }
 #pragma unroll
-    for (int i = tid; i < G * 8; i += kMmaThreads) {
+    for (int i = tid; i < G * 8; i += S::kThreads) {
       const int r = i >> 3, j = i & 7;
       const int kk = step * kMmaKS + j * 8;
       const bool ok = kk < len;
@@ -452,7 +470,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (next < n_steps) load_stage(next, next % kMmaStages);
     mma_bf16::cp_async_commit();
     const int slot = step % kMmaStages;
-    const __nv_bfloat16* xt = xs + slot * kMmaBN * kMmaKS;
+    const __nv_bfloat16* xt = xs + slot * BN * kMmaKS;
     const __nv_bfloat16* wt = ws + slot * G * kMmaKS;
 #pragma unroll
     for (int ks = 0; ks < kMmaKS / 16; ++ks) {
@@ -511,52 +529,134 @@ __global__ void __launch_bounds__(kMmaThreads)
       }
 }
 
+// Two entry kernels with one tensor-core body, so that a profile of the
+// card tells the stacked launches from the others.
 template <int G>
+__global__ void __launch_bounds__(RhsMma<G, kMmaBN>::kThreads)
+    rbgp4mm_rhs_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           const int* __restrict__ col0,
+                           const __nv_bfloat16* __restrict__ bias,
+                           const __nv_bfloat16* __restrict__ residual,
+                           __nv_bfloat16* __restrict__ out,
+                           __nv_bfloat16* __restrict__ zout, int n_tokens,
+                           int k, int m, int n_chunks, int C, int act) {
+  rhs_mma_tile<G, kMmaBN>(x, w, col0, bias, residual, out, zout, n_tokens,
+                          k, m, n_chunks, C, act);
+}
+
+// Expert e = blockIdx.z: x, w, bias, Y and Z offset by its strides (x +
+// e*N*K, w + e*M*nnz_row, bias + e*M, Y and Z + e*N*M), no residual.
+template <int G, int BN>
+__global__ void __launch_bounds__(RhsMma<G, BN>::kThreads)
+    rbgp4mm_rhs_stacked_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                                   const __nv_bfloat16* __restrict__ w,
+                                   const int* __restrict__ col0,
+                                   const __nv_bfloat16* __restrict__ bias,
+                                   __nv_bfloat16* __restrict__ out,
+                                   __nv_bfloat16* __restrict__ zout,
+                                   int n_tokens, int k, int m, int n_chunks,
+                                   int C, int act) {
+  const long long e = blockIdx.z;
+  const long long w_row = (long long)n_chunks * C;
+  x += e * n_tokens * k;
+  w += e * m * w_row;
+  if (bias != nullptr) bias += e * m;
+  out += e * n_tokens * m;
+  if (zout != nullptr) zout += e * n_tokens * m;
+  rhs_mma_tile<G, BN>(x, w, col0, bias, nullptr, out, zout, n_tokens, k, m,
+                      n_chunks, C, act);
+}
+
+template <int G, int BN>
 cudaError_t launch_mma_g(const void* x, const void* w, const void* col0,
                          const void* bias, const void* residual, void* out,
-                         void* zout, int n_tokens, int k, int m,
-                         int n_chunks, int C, int act, cudaStream_t stream) {
-  using S = RhsMma<G>;
-  const auto kernel = rbgp4mm_rhs_mma_kernel<G>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(m / G, (n_tokens + kMmaBN - 1) / kMmaBN);
-  kernel<<<grid, kMmaThreads, S::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(col0),
-      static_cast<const __nv_bfloat16*>(bias),
-      static_cast<const __nv_bfloat16*>(residual),
-      static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(zout),
-      n_tokens, k, m, n_chunks, C, act);
+                         void* zout, int n_experts, int n_tokens, int k,
+                         int m, int n_chunks, int C, int act, bool stacked,
+                         cudaStream_t stream) {
+  using S = RhsMma<G, BN>;
+  const dim3 grid(m / G, (n_tokens + BN - 1) / BN, n_experts);
+  const auto xp = static_cast<const __nv_bfloat16*>(x);
+  const auto wp = static_cast<const __nv_bfloat16*>(w);
+  const auto cp = static_cast<const int*>(col0);
+  const auto bp = static_cast<const __nv_bfloat16*>(bias);
+  const auto op = static_cast<__nv_bfloat16*>(out);
+  const auto zp = static_cast<__nv_bfloat16*>(zout);
+  cudaError_t err;
+  if (stacked) {
+    const auto kernel = rbgp4mm_rhs_stacked_mma_kernel<G, BN>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, S::kThreads, S::kSmem, stream>>>(
+        xp, wp, cp, bp, op, zp, n_tokens, k, m, n_chunks, C, act);
+  } else {
+    if constexpr (BN == kMmaBN) {
+      const auto kernel = rbgp4mm_rhs_mma_kernel<G>;
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, S::kThreads, S::kSmem, stream>>>(
+          xp, wp, cp, bp, static_cast<const __nv_bfloat16*>(residual), op,
+          zp, n_tokens, k, m, n_chunks, C, act);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
   return cudaGetLastError();
+}
+
+template <int G>
+cudaError_t launch_mma_bn(const void* x, const void* w, const void* col0,
+                          const void* bias, const void* residual, void* out,
+                          void* zout, int n_experts, int n_tokens, int k,
+                          int m, int n_chunks, int C, int act, bool stacked,
+                          int block_tokens, cudaStream_t stream) {
+  if (block_tokens == 128)
+    return launch_mma_g<G, 128>(x, w, col0, bias, residual, out, zout,
+                                n_experts, n_tokens, k, m, n_chunks, C, act,
+                                stacked, stream);
+  if (block_tokens == 64 && stacked)
+    return launch_mma_g<G, 64>(x, w, col0, bias, residual, out, zout,
+                               n_experts, n_tokens, k, m, n_chunks, C, act,
+                               stacked, stream);
+  return cudaErrorInvalidValue;
 }
 
 // The mma body: bf16 only, G in {16, 32, 64, 128}, C and K multiples of
 // 8 (16-byte chunks never straddle a slot or a row), x and w 16-byte
-// aligned; anything else is refused (the caller's path choice is wrong).
+// aligned, block_tokens 128 (or 64, stacked only); anything else is
+// refused (the caller's path choice is wrong).  The stacked entry point
+// has no residual.
 cudaError_t launch_mma(const void* x, const void* w, const void* col0,
                        const void* bias, const void* residual, void* out,
-                       void* zout, int n_tokens, int k, int m, int n_chunks,
-                       int G, int C, int act, cudaStream_t stream) {
+                       void* zout, int n_experts, int n_tokens, int k, int m,
+                       int n_chunks, int G, int C, int act, bool stacked,
+                       int block_tokens, cudaStream_t stream) {
   if (n_tokens < 1 || n_chunks < 1 || C < 8 || C % 8 != 0 || k % 8 != 0 ||
-      m % G != 0 || (n_tokens + kMmaBN - 1) / kMmaBN > 65535 ||
+      n_experts < 1 || n_experts > 65535 || (stacked && residual != nullptr) ||
+      block_tokens < 1 ||
+      m % G != 0 || (n_tokens + block_tokens - 1) / block_tokens > 65535 ||
       !mma_bf16::aligned16(x) || !mma_bf16::aligned16(w) ||
       (long long)n_chunks * C > 2147483647LL - kMmaKS)
     return cudaErrorInvalidValue;
   switch (G) {
     case 16:
-      return launch_mma_g<16>(x, w, col0, bias, residual, out, zout,
-                              n_tokens, k, m, n_chunks, C, act, stream);
+      return launch_mma_bn<16>(x, w, col0, bias, residual, out, zout,
+                               n_experts, n_tokens, k, m, n_chunks, C, act,
+                               stacked, block_tokens, stream);
     case 32:
-      return launch_mma_g<32>(x, w, col0, bias, residual, out, zout,
-                              n_tokens, k, m, n_chunks, C, act, stream);
+      return launch_mma_bn<32>(x, w, col0, bias, residual, out, zout,
+                               n_experts, n_tokens, k, m, n_chunks, C, act,
+                               stacked, block_tokens, stream);
     case 64:
-      return launch_mma_g<64>(x, w, col0, bias, residual, out, zout,
-                              n_tokens, k, m, n_chunks, C, act, stream);
+      return launch_mma_bn<64>(x, w, col0, bias, residual, out, zout,
+                               n_experts, n_tokens, k, m, n_chunks, C, act,
+                               stacked, block_tokens, stream);
     case 128:
-      return launch_mma_g<128>(x, w, col0, bias, residual, out, zout,
-                               n_tokens, k, m, n_chunks, C, act, stream);
+      return launch_mma_bn<128>(x, w, col0, bias, residual, out, zout,
+                                n_experts, n_tokens, k, m, n_chunks, C, act,
+                                stacked, block_tokens, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -650,8 +750,9 @@ extern "C" int rbgp4mm_rhs_launch(int dtype, const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    return (int)launch_mma(x, w, col0, bias, residual, out, zout, n_tokens,
-                           k, m, n_chunks, G, C, act, s);
+    return (int)launch_mma(x, w, col0, bias, residual, out, zout, 1,
+                           n_tokens, k, m, n_chunks, G, C, act, false,
+                           kMmaBN, s);
   }
   if (path != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
@@ -666,15 +767,26 @@ extern "C" int rbgp4mm_rhs_launch(int dtype, const void* x, const void* w,
 
 // The stacked entry point: x (E, N, K), w (E, M, n_chunks*C), bias (E, M)
 // or null, out and zout (E, N, M), zout may be null; one launch for all E
-// experts over the one col0 table.  Returns the cudaError_t of the launch.
+// experts over the one col0 table.  path as rbgp4mm_rhs_launch's; the
+// tensor-core body takes block_tokens tokens a block (128 or 64; the
+// caller's kernels/rbgp4mm.py:RHS_MMA_BLOCK_TOKENS), the FMA body ignores
+// it.  Returns the cudaError_t of the launch.
 extern "C" int rbgp4mm_rhs_stacked_launch(int dtype, const void* x,
                                           const void* w, const void* col0,
                                           const void* bias, void* out,
                                           void* zout, int n_experts,
                                           int n_tokens, int k, int m,
                                           int n_chunks, int G, int C,
-                                          int act, void* stream) {
+                                          int act, int path,
+                                          int block_tokens, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return (int)launch_mma(x, w, col0, bias, nullptr, out, zout, n_experts,
+                           n_tokens, k, m, n_chunks, G, C, act, true,
+                           block_tokens, s);
+  }
+  if (path != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch<float>(x, w, col0, bias, nullptr, out, zout, true,
                               n_experts, n_tokens, k, m, n_chunks, G, C, act,

@@ -34,8 +34,9 @@ W_s is in compact RBGP4 storage ``w_data`` (M, d_o*d_i*C), stacked
 wrapper launches its hand-written kernel in ``csrc/`` (see the source notes
 for the designs and what bounds them); on a CPU tensor it runs its plain
 version (``*_reference``).  There is no other path: a failed build or
-launch raises.  ``rbgp4mm_rhs`` and ``rbgp4_sddmm_rhs`` each have a
-second device body for bfloat16 on the tensor cores; ``rhs_path`` and
+launch raises.  ``rbgp4mm_rhs``, ``rbgp4mm_rhs_stacked`` and
+``rbgp4_sddmm_rhs`` each have a second device body for bfloat16 on the
+tensor cores; ``rhs_path`` (both forward entry points) and
 ``sddmm_path`` say which body a launch takes, from dtype and shape alone
 (``sddmm_mma_plan`` is the dW body's token-slice plan).
 
@@ -50,7 +51,8 @@ for the stacked kernels: ``rbgp4mm_rhs_stacked.launches``,
 and the int8 paths apart from them: ``rbgp4mm_rhs.launches_q`` and
 ``rbgp4mm_rhs_stacked.launches_q``.  The launches that took the
 tensor-core body count again in ``rbgp4mm_rhs.launches_mma`` (forward
-and dX) and ``rbgp4_sddmm_rhs.launches_mma``.
+and dX), ``rbgp4mm_rhs_stacked.launches_mma`` (forward and dX) and
+``rbgp4_sddmm_rhs.launches_mma``.
 """
 from __future__ import annotations
 
@@ -73,7 +75,8 @@ __all__ = ["KernelDims", "KernelTables", "TransposeTables", "EPILOGUE_ACTS",
            "rbgp4_sddmm_rhs_reference", "rbgp4mm_rhs_stacked",
            "rbgp4mm_rhs_stacked_reference", "rbgp4_sddmm_rhs_stacked",
            "rbgp4_sddmm_rhs_stacked_reference", "MMA_MIN_TOKENS",
-           "rhs_path", "sddmm_path", "SddmmPlan", "sddmm_mma_plan"]
+           "rhs_path", "sddmm_path", "SddmmPlan", "sddmm_mma_plan",
+           "stacked_mma_block_tokens"]
 
 # Activations fusable into the epilogue; names match ``models.mlp.ACTS``.
 EPILOGUE_ACTS = {
@@ -267,12 +270,13 @@ def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
 
 # -- which body a launch takes ------------------------------------------------
 #
-# ``rbgp4mm_rhs`` and ``rbgp4_sddmm_rhs`` have two device bodies each: the
-# FMA body (CUDA cores, f32 or bf16, any shape) and the bf16 tensor-core
-# body (``mma.sync`` from a ``cp.async`` ring; ``*_mma_kernel`` in the
-# profile).  The choice is a fixed function of dtype and shape, made here
-# and passed to the C launcher, which refuses a shape the mma body cannot
-# take; nothing falls back from one body to the other.
+# ``rbgp4mm_rhs`` (and ``rbgp4mm_rhs_stacked``) and ``rbgp4_sddmm_rhs``
+# have two device bodies each: the FMA body (CUDA cores, f32 or bf16, any
+# shape) and the bf16 tensor-core body (``mma.sync`` from a ``cp.async``
+# ring; ``*_mma_kernel`` in the profile).  The choice is a fixed function
+# of dtype and shape, made here and passed to the C launcher, which
+# refuses a shape the mma body cannot take; nothing falls back from one
+# body to the other.
 
 #: fewest tokens a launch gives the mma bodies; below it (decode at 8
 #: rows, host-bound) the FMA body runs.  ``chip_smoke.phase_body_sweep``
@@ -281,6 +285,8 @@ def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
 MMA_MIN_TOKENS = 16
 #: G the forward's mma body is built for (one template each)
 RHS_MMA_GROUP_ROWS = (16, 32, 64, 128)
+#: tokens a block of the forward's mma body on the unstacked entry point
+RHS_MMA_BLOCK_TOKENS = 128
 #: tokens a stage of the dW mma body (16 for each of its 8 warps), the
 #: unit of its token slices; and the fewest tokens a slice gets
 SDDMM_MMA_STAGE_TOKENS = 128
@@ -292,16 +298,31 @@ _PATH_CODES = {"fma": 0, "mma": 1}
 
 def rhs_path(dims: KernelDims, n_tokens: int, dtype: torch.dtype) -> str:
     """``"mma"`` or ``"fma"``: the body a launch of ``rbgp4mm_rhs`` takes
-    for ``n_tokens`` rows of X of ``dtype`` on the layout of ``dims``.  The
-    mma body takes bfloat16 at ``n_tokens >= MMA_MIN_TOKENS``, G in
+    for ``n_tokens`` rows of X of ``dtype`` on the layout of ``dims``, and
+    a launch of ``rbgp4mm_rhs_stacked`` for ``n_tokens`` rows an expert.
+    The mma body takes bfloat16 at ``n_tokens >= MMA_MIN_TOKENS``, G in
     ``RHS_MMA_GROUP_ROWS``, and C and K multiples of 8 (16-byte loads);
-    float32 (no TF32) keeps the FMA body, and so do the stacked and int8
-    entry points, which have no other."""
+    float32 (no TF32) keeps the FMA body, and so do the int8 entry points
+    (both), which have no other."""
     if (dtype != torch.bfloat16 or n_tokens < MMA_MIN_TOKENS
             or dims.group_rows not in RHS_MMA_GROUP_ROWS
             or dims.chunk_cols % 8 or dims.k % 8):
         return "fma"
     return "mma"
+
+
+def stacked_mma_block_tokens(n_tokens: int, transposed: bool) -> int:
+    """Token tile of ``rbgp4mm_rhs_stacked``'s tensor-core body for
+    ``n_tokens`` rows an expert, on forward or ``transposed`` (dX) tables:
+    64 for dX, and for the forward where the last 128-token tile would be
+    at most half full (a training step's 171 rows then compute 192 rows
+    instead of 256), else 128.  ``chip_smoke.phase_stacked_tiles`` timed
+    both tiles at qwen2-moe-a2.7b's expert layouts on an H100 from 16 to
+    512 rows an expert: this picks the faster one at every size swept."""
+    rest = n_tokens % RHS_MMA_BLOCK_TOKENS
+    if transposed or 0 < rest <= 64:
+        return 64
+    return RHS_MMA_BLOCK_TOKENS
 
 
 def sddmm_path(dims: KernelDims, n_tokens: int, dtype: torch.dtype) -> str:
@@ -317,18 +338,20 @@ def sddmm_path(dims: KernelDims, n_tokens: int, dtype: torch.dtype) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class SddmmPlan:
-    """The launch plan of the dW mma body: a block owns 16 rows by
-    ``block_cols`` columns of one slot over one of ``n_slices`` token
-    slices of ``slice_len`` tokens (the last one ragged)."""
+    """The launch plan of a dW mma body: a block owns ``block_cols``
+    columns (``rbgp4_sddmm_rhs``: of one slot, by 16 rows) over one of
+    ``n_slices`` token slices of ``slice_len`` tokens (the last one
+    ragged), ``blocks`` blocks in all."""
 
     block_cols: int
     n_slices: int
     slice_len: int
     blocks: int
 
-    def workspace_shape(self, dims: KernelDims) -> Optional[tuple]:
-        """The float32 partial sums' shape, (n_slices, M, nnz_row), or
-        None for a single slice (the block writes dW itself)."""
+    def workspace_shape(self, dims) -> Optional[tuple]:
+        """The float32 partial sums' shape, (n_slices, M, nnz_row) of
+        ``dims`` (``KernelDims`` or ``ChainTables``), or None for a single
+        slice (the block writes dW itself)."""
         if self.n_slices == 1:
             return None
         return (self.n_slices, dims.m, dims.data_cols)
@@ -343,14 +366,23 @@ def sddmm_mma_plan(dims: KernelDims, n_tokens: int,
     stages."""
     bc = next(b for b in (128, 64, 32, 16) if dims.chunk_cols % b == 0)
     base = (dims.m // 16) * dims.d_o * dims.d_i * (dims.chunk_cols // bc)
+    return token_slices(bc, base, n_tokens, sm_count,
+                        SDDMM_MMA_STAGE_TOKENS)
+
+
+def token_slices(block_cols: int, base: int, n_tokens: int, sm_count: int,
+                 stage: int) -> SddmmPlan:
+    """The token-slice plan of a dW mma body whose grid has ``base``
+    blocks a slice: as many slices as bring it to ``SDDMM_MMA_WAVES``
+    waves on ``sm_count`` SMs, each of at least ``SDDMM_MMA_MIN_SLICE``
+    tokens and a whole number of ``stage``-token stages."""
     want = -(-SDDMM_MMA_WAVES * sm_count // base)
     most = -(-n_tokens // SDDMM_MMA_MIN_SLICE)
     slices = max(1, min(want, most))
-    stage = SDDMM_MMA_STAGE_TOKENS
     per_slice = -(-n_tokens // slices)
     slice_len = -(-per_slice // stage) * stage  # whole stages
     slices = -(-n_tokens // slice_len)
-    return SddmmPlan(bc, slices, slice_len, base * slices)
+    return SddmmPlan(block_cols, slices, slice_len, base * slices)
 
 
 def _sm_count(device) -> int:
@@ -765,6 +797,11 @@ def rbgp4mm_rhs_stacked(tables: KernelTables, x: torch.Tensor,
     bfloat16 X with W and bias of the same dtype, all contiguous, and
     writes Y (and Z) in that dtype.
 
+    The body is ``rhs_path``'s for ``N`` rows an expert: bfloat16 from
+    ``MMA_MIN_TOKENS`` rows on the layouts it names runs on the tensor
+    cores (counted again in ``launches_mma``), each expert's outputs the
+    bits of the unstacked launch of that body on the expert's slice.
+
     ``scales`` (E, M/G, d_o*d_i) float32 selects the int8 path, as
     ``rbgp4mm_rhs``'s (each expert's scales at its own offset): Y only,
     no epilogue, counted in ``launches_q``.
@@ -799,25 +836,49 @@ def rbgp4mm_rhs_stacked(tables: KernelTables, x: torch.Tensor,
         if tuple(bias.shape) != (e, m):
             raise ValueError(f"bias {tuple(bias.shape)} != {(e, m)}")
     _check_cuda("rbgp4mm_rhs_stacked", tables, dt, operands)
+    path = rhs_path(dims, n, dt)
     out = torch.empty((e, n, m), dtype=dt, device=x.device)
     z = torch.empty_like(out) if save_preact else None
     if n > 0 and e > 0:
-        _launch("rbgp4mm_rhs", "rbgp4mm_rhs_stacked", "ippppppiiiiiiiip",
-                _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
-                tables.col0.data_ptr(),
-                bias.data_ptr() if bias is not None else None,
-                out.data_ptr(), z.data_ptr() if z is not None else None,
-                e, n, dims.k, m, dims.d_o * dims.d_i, dims.group_rows,
-                dims.chunk_cols, _ACT_CODES[act], x.device)
+        _rhs_stacked_body(path, tables, x, w_data, out, z, bias=bias,
+                          act=act)
         if tables.transposed:
             rbgp4mm_rhs_stacked.launches_dx += 1
         else:
             rbgp4mm_rhs_stacked.launches += 1
+        if path == "mma":
+            rbgp4mm_rhs_stacked.launches_mma += 1
     return (out, z) if save_preact else out
 
 
+def _rhs_stacked_body(path: str, tables: KernelTables, x: torch.Tensor,
+                      w_data: torch.Tensor, out: torch.Tensor,
+                      z: Optional[torch.Tensor] = None, *,
+                      bias: Optional[torch.Tensor] = None,
+                      act: Optional[str] = None,
+                      block_tokens: Optional[int] = None) -> None:
+    """Launch body ``path`` of ``rbgp4mm_rhs_stacked`` on checked CUDA
+    operands (E, N > 0), writing ``out`` (and ``z``); ``block_tokens`` is
+    the mma body's token tile (``stacked_mma_block_tokens``' unless given,
+    to time the other).  It moves no counter, as ``_rhs_body``."""
+    dims = tables.dims
+    if path == "mma":
+        _check_aligned16("rbgp4mm_rhs_stacked", {"x": x, "w_data": w_data})
+    e, n = x.shape[0], x.shape[1]
+    if block_tokens is None:
+        block_tokens = stacked_mma_block_tokens(n, tables.transposed)
+    _launch("rbgp4mm_rhs", "rbgp4mm_rhs_stacked", "ippppppiiiiiiiiiip",
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w_data.data_ptr(),
+            tables.col0.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            out.data_ptr(), z.data_ptr() if z is not None else None,
+            e, n, dims.k, dims.m, dims.d_o * dims.d_i, dims.group_rows,
+            dims.chunk_cols, _ACT_CODES[act], _PATH_CODES[path],
+            block_tokens, x.device)
+
+
 rbgp4mm_rhs_stacked.launches = rbgp4mm_rhs_stacked.launches_dx = 0
-rbgp4mm_rhs_stacked.launches_q = 0
+rbgp4mm_rhs_stacked.launches_q = rbgp4mm_rhs_stacked.launches_mma = 0
 
 
 def _check_stacked_sddmm_args(dims, g, x):

@@ -22,16 +22,23 @@ tensor-core bodies of ``rbgp4mm_rhs`` (forward, ``save_preact``, dX) and
 ``rbgp4_sddmm_rhs`` (bit-equal on a rerun) at every (G, C) of G in
 {16, 64, 128}, C in {16, 64} and tinyllama's four layouts at N in
 {16, 64, 77, 1037}, ``RBGP4Linear``'s bf16 gradients on them against dense
-autograd at N = 1037, and the FMA bodies kept at decode, in float32 and
-on the stacked and int8 entry points.  Every stacked expert stays bit-equal
-to the unstacked FMA body on that expert, and within the tolerance of the
-unstacked launch where that takes a tensor-core body.
+autograd at N = 1037, and the FMA bodies kept at decode, in float32, on
+the int8 entry points and on the stacked dW.  Every stacked expert stays
+bit-equal to the unstacked launch of the body ``rhs_path`` picks on that
+expert (the bf16 tensor-core body from 16 rows an expert on).  And the
+bf16 tensor-core body of ``chain_sddmm_rhs`` over row-group classes
+(small chains with leaves 8 x 16, 16 x 8, 8 x 8 and 128 x 64, classes of
+unequal sizes among them, and tinyllama's four chain shapes) against its
+plain version, bit-equal on a rerun, and ``ChainLinear``'s bf16
+gradients on it against dense autograd at N = 1037.
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
 JAX is not installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py \
+        -k "chain or stacked"
 
 Tolerances scale with max|ref|: 1e-5 in float32 (reduction order only),
 2e-2 in bfloat16 (one output rounding).  ``RBGP4Linear``'s gradients chain
@@ -60,6 +67,8 @@ from repro_torch.kernels import (ChainLinear, KernelTables, RBGP4Linear,
                                  chain_tables, chain_transpose_tables,
                                  chainmm_rhs, chainmm_rhs_reference,
                                  rhs_path, sddmm_path)
+from repro_torch.kernels.chainmm import (_chain_sddmm_body, chain_sddmm_path,
+                                         chain_unpack_dense)
 from repro_torch.kernels.rbgp4mm import _rhs_body, _sddmm_body
 from repro_torch.kernels.ref import unpack_dense
 
@@ -147,13 +156,18 @@ def assert_close(got, want, dtype, what, tol=TOL):
     assert err <= tol[dtype] * scale, (what, err, scale)
 
 
-def fma_rhs(tables, x, w, bias=None, act=None):
-    """The unstacked kernel's FMA body on (x, w), whatever ``rhs_path``
-    picks for the shape: the body the stacked kernel shares."""
+def body_rhs(path, tables, x, w, bias=None, act=None):
+    """The unstacked kernel's body ``path`` on (x, w), whatever
+    ``rhs_path`` picks for the shape."""
     out = torch.empty((x.shape[0], tables.dims.m), dtype=x.dtype,
                       device=x.device)
-    _rhs_body("fma", tables, x, w, out, bias=bias, act=act)
+    _rhs_body(path, tables, x, w, out, bias=bias, act=act)
     return out
+
+
+def fma_rhs(tables, x, w, bias=None, act=None):
+    """The unstacked kernel's FMA body on (x, w)."""
+    return body_rhs("fma", tables, x, w, bias=bias, act=act)
 
 
 def fma_sddmm(tables, gy, x):
@@ -300,11 +314,12 @@ EXPERT_WIDTH = [(1408, 2048), (2048, 1408)]
 
 def stacked_cases():
     """(layout, E, N): the small sweep with 3 experts, and the full-width
-    expert layouts with 60."""
+    expert layouts with 60 (bf16 at 77 and 171 rows an expert on the
+    tensor-core body, with 128- and 64-token tiles)."""
     out = [(lay, 3, n) for lay, n in cases()[:len(SWEEP)]]
     for m, k in EXPERT_WIDTH:
         lay = RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0))
-        out += [(lay, 60, n) for n in (1, 8, 77)]
+        out += [(lay, 60, n) for n in (1, 8, 77, 171)]
     return out
 
 
@@ -312,35 +327,35 @@ def stacked_cases():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_stacked_kernel_matches_plain_and_unstacked(dtype):
     """Y and Z of every expert against the plain version, and bit for bit
-    against the unstacked kernel's FMA body on that expert's slice (the
-    one device body they share); where the unstacked launch takes the
-    bf16 tensor-core body, against that launch within the tolerance."""
+    against the unstacked launch of the body ``rhs_path`` picks on that
+    expert's slice (the one device body they share: the bf16 tensor-core
+    body from 16 rows an expert on, the FMA body otherwise)."""
     needs_card()
     g = torch.Generator(device="cuda").manual_seed(5)
     rnd = lambda *shape: torch.randn(*shape, device="cuda",
                                      generator=g).to(dtype)
     for lay, e, n in stacked_cases():
         tables = KernelTables.build(lay, "cuda")
+        path = rhs_path(tables.dims, n, dtype)
         for act, bias, _ in EPILOGUES:
             x, w = rnd(e, n, lay.k), rnd(e, *lay.data_shape)
             b = rnd(e, lay.m) if bias else None
-            before = rbgp4mm_rhs_stacked.launches
+            before = (rbgp4mm_rhs_stacked.launches,
+                      rbgp4mm_rhs_stacked.launches_mma)
             y, z = rbgp4mm_rhs_stacked(tables, x, w, bias=b, act=act,
                                        save_preact=True)
             torch.cuda.synchronize()
-            assert rbgp4mm_rhs_stacked.launches == before + 1
+            assert (rbgp4mm_rhs_stacked.launches,
+                    rbgp4mm_rhs_stacked.launches_mma) == (
+                before[0] + 1, before[1] + (path == "mma"))
             wy, wz = rbgp4mm_rhs_stacked_reference(tables, x, w, bias=b,
                                                    act=act, save_preact=True)
             assert_close(y, wy, dtype, (lay.spec, e, n, act, "y"))
             assert_close(z, wz, dtype, (lay.spec, e, n, act, "z"))
             for i in (0, e - 1):
                 bi = None if b is None else b[i]
-                one = fma_rhs(tables, x[i], w[i], bias=bi, act=act)
-                assert torch.equal(y[i], one), (lay.spec, e, n, act, i)
-                if rhs_path(tables.dims, n, dtype) == "mma":
-                    assert_close(y[i], rbgp4mm_rhs(tables, x[i], w[i],
-                                                   bias=bi, act=act),
-                                 dtype, (lay.spec, e, n, act, i, "mma"))
+                one = body_rhs(path, tables, x[i], w[i], bias=bi, act=act)
+                assert torch.equal(y[i], one), (lay.spec, e, n, act, i, path)
 
 
 @pytest.mark.cuda
@@ -363,6 +378,10 @@ def test_cuda_stacked_kernel_on_transposed_layouts(dtype):
                                                      before[1] + 1)
         want = rbgp4mm_rhs_stacked_reference(tt.tables, gy, wt)
         assert_close(got, want, dtype, (lay.spec, e, n))
+        path = rhs_path(tt.tables.dims, n, dtype)
+        for i in (0, e - 1):
+            assert torch.equal(got[i], body_rhs(path, tt.tables, gy[i],
+                                                wt[i])), (lay.spec, e, n, i)
 
 
 @pytest.mark.cuda
@@ -889,18 +908,24 @@ def test_cuda_mma_bodies_match_plain_versions():
 
 
 @pytest.mark.cuda
-def test_cuda_mma_bodies_leave_decode_float32_stacked_and_int8_to_fma():
-    """N = 8 in bf16, float32 at any N, and the stacked and int8 entry
-    points in bf16 at a training step's N take the FMA bodies: the
-    tensor-core counters do not move."""
+def test_cuda_mma_bodies_leave_decode_float32_int8_and_stacked_dw_to_fma():
+    """N = 8 in bf16 and float32 at any N take the FMA bodies, unstacked,
+    stacked and chain; so do the int8 entry points and the stacked dW in
+    bf16 at a training step's N, where the stacked forward and dX take
+    the tensor-core body: only ``rbgp4mm_rhs_stacked.launches_mma`` moves,
+    by two."""
     from repro_torch.sparsity import leaf_block_dims
 
     needs_card()
     lay = RBGP4Layout(design_rbgp4(2048, 2048, 0.75, seed=0))
     tables = KernelTables.build(lay, "cuda")
     tt = TransposeTables.build(lay, "cuda")
+    chain = next(iter(mma_chain_cases()))
+    ct = chain_tables(chain, "cuda")
     g = torch.Generator(device="cuda").manual_seed(15)
-    mma = lambda: (rbgp4mm_rhs.launches_mma, rbgp4_sddmm_rhs.launches_mma)
+    mma = lambda: (rbgp4mm_rhs.launches_mma, rbgp4_sddmm_rhs.launches_mma,
+                   rbgp4mm_rhs_stacked.launches_mma,
+                   chain_sddmm_rhs.launches_mma)
     for n, dt in ((8, torch.bfloat16), (1037, torch.float32)):
         x = torch.randn(n, lay.k, device="cuda").to(dt)
         w = torch.randn(lay.data_shape, device="cuda").to(dt)
@@ -908,6 +933,10 @@ def test_cuda_mma_bodies_leave_decode_float32_stacked_and_int8_to_fma():
         before = mma()
         rbgp4mm_rhs(tables, x, w)
         rbgp4_sddmm_rhs(tables, gy, x)
+        rbgp4mm_rhs_stacked(tables, x[None].expand(2, -1, -1).contiguous(),
+                            w[None].expand(2, -1, -1).contiguous())
+        chain_sddmm_rhs(ct, torch.randn(n, chain.m, device="cuda").to(dt),
+                        torch.randn(n, chain.k, device="cuda").to(dt))
         torch.cuda.synchronize()
         assert mma() == before, (n, dt)
     dt, e, n = torch.bfloat16, 2, 1037
@@ -923,10 +952,11 @@ def test_cuda_mma_bodies_leave_decode_float32_stacked_and_int8_to_fma():
     rbgp4_sddmm_rhs_stacked(tables, gy, x)
     rbgp4mm_rhs(tables, x[0], q, scales=s)
     torch.cuda.synchronize()
+    want_mma = (before[0][0], before[0][1], before[0][2] + 2, before[0][3])
     assert (mma(), rbgp4mm_rhs_stacked.launches,
             rbgp4mm_rhs_stacked.launches_dx,
             rbgp4_sddmm_rhs_stacked.launches, rbgp4mm_rhs.launches_q) == (
-        before[0], before[1] + 1, before[2] + 1, before[3] + 1,
+        want_mma, before[1] + 1, before[2] + 1, before[3] + 1,
         before[4] + 1)
 
 
@@ -997,3 +1027,105 @@ def test_cuda_rbgp4_linear_mma_grads_match_dense_autograd():
                     continue
                 assert a.dtype == dt
                 assert_close(a, b_, dt, (lay.spec, fuse, name), GRAD_TOL)
+
+
+# -- the bf16 tensor-core body of chain_sddmm_rhs over row-group classes ------
+
+# chains whose leaves take the tensor-core body (G, C multiples of 8):
+# leaves 8 x 16 (classes of 1 and 3 row groups; transposed 16 x 8), 16 x 8
+# (transposed classes of 4 and 12), 128 x 64 (one 128-row group spans two
+# 64-row tiles) and 8 x 8
+MMA_CHAINS = [
+    (256, 256, 0.75, (_RAM, _RAM, ("complete", 8, 16, 0.0))),
+    (512, 1024, 0.875, (("complete", 2, 2, 0.0), _AUTO, _AUTO,
+                        ("complete", 16, 8, 0.0))),
+    (1024, 512, 0.75, (_AUTO, _AUTO, ("complete", 32, 16, 0.0))),
+    (256, 512, 0.75, (("complete", 2, 2, 0.0), _AUTO, _AUTO,
+                      ("complete", 8, 8, 0.0))),
+]
+
+
+def mma_chain_cases():
+    """The small chains above and tinyllama's four under the
+    hierarchical-block plan (the last entries of ``CHAINS``)."""
+    for m, k, sp, factors in MMA_CHAINS + CHAINS[3:]:
+        yield ChainLayout(design_rbgp(m, k, sp, factors=factors, seed=0))
+
+
+@pytest.mark.cuda
+def test_cuda_chain_mma_body_matches_plain_version():
+    """bf16 from N = 16 on: dW on the forward and the transposed tables
+    takes the tensor-core body, one counted launch (and one tensor-core
+    launch) each, and agrees with the plain version; the FMA body on the
+    same operands agrees too."""
+    needs_card()
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dt)
+    for lay in mma_chain_cases():
+        for t in (chain_tables(lay, "cuda"),
+                  chain_transpose_tables(lay, "cuda").tables):
+            for n in MMA_ROWS:
+                assert chain_sddmm_path(t, n, dt) == "mma"
+                gy, x = rnd(n, t.m), rnd(n, t.k)
+                before = (chain_sddmm_rhs.launches,
+                          chain_sddmm_rhs.launches_mma)
+                dw = chain_sddmm_rhs(t, gy, x)
+                torch.cuda.synchronize()
+                assert (chain_sddmm_rhs.launches,
+                        chain_sddmm_rhs.launches_mma) == (before[0] + 1,
+                                                          before[1] + 1)
+                assert dw.dtype == dt and tuple(dw.shape) == (t.m,
+                                                              t.data_cols)
+                want = chain_sddmm_rhs_reference(t, gy, x)
+                assert_close(dw, want, dt, (t.m, t.k, n, "mma"))
+                fma = torch.empty_like(dw)
+                _chain_sddmm_body("fma", t, gy, x, fma)
+                assert_close(fma, want, dt, (t.m, t.k, n, "fma"))
+
+
+@pytest.mark.cuda
+def test_cuda_chain_mma_body_reruns_bit_equal():
+    """No atomics, token slices added in a fixed order: a rerun of the
+    tensor-core body gives the same bits, sliced (wq/wo, wk/wv at 4096
+    tokens) or not."""
+    needs_card()
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for lay in mma_chain_cases():
+        t = chain_tables(lay, "cuda")
+        for n in (77, 4096):
+            gy = torch.randn(n, t.m, device="cuda", generator=g).to(dt)
+            x = torch.randn(n, t.k, device="cuda", generator=g).to(dt)
+            dw = chain_sddmm_rhs(t, gy, x)
+            assert torch.equal(dw, chain_sddmm_rhs(t, gy, x)), (t.m, t.k, n)
+
+
+@pytest.mark.cuda
+def test_cuda_chain_linear_mma_grads_match_dense_autograd():
+    """``ChainLinear`` in bf16 at N = 1037 (dW on the tensor-core body)
+    against float32 autograd through the dense matrix
+    ``chain_unpack_dense`` on the same bf16 values: y, dX and dW."""
+    needs_card()
+    dt = torch.bfloat16
+    n = 1037
+    rng = np.random.default_rng(18)
+    for lay in mma_chain_cases():
+        arrs = [torch.tensor(rng.standard_normal(s).astype(np.float32))
+                .to(dt).cuda() for s in ((n, lay.k), lay.data_shape,
+                                         (n, lay.m))]
+        x, w = (a.clone().requires_grad_() for a in arrs[:2])
+        before = chain_sddmm_rhs.launches_mma
+        y = ChainLinear.apply(x, w, chain_tables(lay, "cuda"),
+                              chain_transpose_tables(lay, "cuda"))
+        y.backward(arrs[2])
+        torch.cuda.synchronize()
+        assert chain_sddmm_rhs.launches_mma == before + 1
+        xd, wd = (a.float().requires_grad_() for a in arrs[:2])
+        yd = xd @ chain_unpack_dense(lay, wd).T
+        yd.backward(arrs[2].float())
+        for name, a, b_ in (("y", y, yd), ("dx", x.grad, xd.grad),
+                            ("dw", w.grad, wd.grad)):
+            assert a.dtype == dt
+            assert_close(a, b_, dt, (lay.m, lay.k, name), GRAD_TOL)

@@ -1,19 +1,32 @@
-"""Which device body a launch of ``rbgp4mm_rhs`` and ``rbgp4_sddmm_rhs``
-takes, the dW tensor-core body's token-slice plan, and the build's
-rebuild on a header edit: pure functions of dtype and shape, checked on
-the CPU (the kernels themselves run in ``tests/test_torch_cuda.py``).
+"""Which device body a launch of ``rbgp4mm_rhs``, ``rbgp4mm_rhs_stacked``,
+``rbgp4_sddmm_rhs`` and ``chain_sddmm_rhs`` takes, the dW tensor-core
+bodies' token-slice plans, and the build's rebuild on a header edit: pure
+functions of dtype and shape, checked on the CPU (the kernels themselves
+run in ``tests/test_torch_cuda.py``).
 
 The layouts are tinyllama-1.1b's four and qwen2-moe-a2.7b's (attention
 and the shared expert share tinyllama's widths; the routed experts are
 1408 x 2048 and 2048 x 1408), each forward and transposed, from
-``design_rbgp4(m, k, 0.75, seed=0)`` as the models build them.
+``design_rbgp4(m, k, 0.75, seed=0)`` as the models build them; and
+tinyllama's four shapes under the hierarchical-block chain plan with the
+two small chains of the CPU tests (``chip_smoke.chain_layouts``).
 """
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
 from repro_torch.core import RBGP4Layout, design_rbgp4
 from repro_torch.kernels import (MMA_MIN_TOKENS, KernelDims, build,
-                                 rhs_path, sddmm_mma_plan, sddmm_path)
+                                 chain_tables, rhs_path, sddmm_mma_plan,
+                                 sddmm_path, stacked_mma_block_tokens)
+from repro_torch.kernels.chainmm import (CHAIN_SDDMM_MMA_TILE,
+                                         chain_sddmm_mma_plan,
+                                         chain_sddmm_path)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -50,15 +63,95 @@ def test_paths_of_the_unstacked_layouts(all_dims, mk, n):
     assert sddmm_path(fwd, n, torch.bfloat16) == want
 
 
+@pytest.mark.parametrize("mk", EXPERTS)
+@pytest.mark.parametrize("n", [8, 16, 171, 512])
+def test_paths_of_the_stacked_expert_layouts(all_dims, mk, n):
+    """``rbgp4mm_rhs_stacked`` takes ``rhs_path``'s body for its rows an
+    expert: decode (8 rows) on the FMA body; 16 rows, a training step's
+    171 and a full-capacity prefill's 512 on the tensor cores, forward
+    (G = 16, C = 128 or 16) and transposed (G = 128 or 16, C = 16)."""
+    fwd, tr = all_dims[mk]
+    want = "fma" if n < MMA_MIN_TOKENS else "mma"
+    for d in (fwd, tr):
+        assert d.group_rows in (16, 128) and d.chunk_cols in (16, 128)
+        assert rhs_path(d, n, torch.bfloat16) == want
+
+
+@pytest.mark.parametrize("n,forward", [(16, 64), (77, 128), (128, 128),
+                                       (171, 64), (256, 128), (300, 64),
+                                       (342, 128), (512, 128)])
+def test_stacked_token_tile(n, forward):
+    """The stacked tensor-core body's token tile: 64 for dX at every size;
+    for the forward 64 only where the last 128-token tile would be at most
+    half full (the faster tile at each size the card's sweep timed)."""
+    assert stacked_mma_block_tokens(n, transposed=False) == forward
+    assert stacked_mma_block_tokens(n, transposed=True) == 64
+
+
 @pytest.mark.parametrize("mk", TINYLLAMA + EXPERTS)
 @pytest.mark.parametrize("n", [8, 512, 4096])
 def test_float32_keeps_the_fma_bodies(all_dims, mk, n):
-    """No TF32: float32 takes the FMA bodies at every layout and N.  (The
-    stacked and int8 entry points have no other body; the CUDA tests
-    check that their launches leave the tensor-core counters alone.)"""
+    """No TF32: float32 takes the FMA bodies at every layout and N,
+    stacked or not.  (The int8 entry points have no other body; the CUDA
+    tests check that their launches leave the tensor-core counters
+    alone.)"""
     for d in all_dims[mk]:
         assert rhs_path(d, n, torch.float32) == "fma"
         assert sddmm_path(d, n, torch.float32) == "fma"
+
+
+@pytest.fixture(scope="module")
+def chain_tabs():
+    return {key: chain_tables(lay, "cpu")
+            for key, lay in chip_smoke.chain_layouts().items()}
+
+
+@pytest.mark.parametrize("key", list(chip_smoke.FULL_WIDTH)
+                         + list(chip_smoke.SMALL_CHAINS))
+@pytest.mark.parametrize("n", [8, 16, 4096])
+def test_chain_sddmm_paths(chain_tabs, key, n):
+    """bf16 dW of tinyllama's four chain layouts (leaves 8 x 8, 16 x 32,
+    32 x 16) takes the tensor-core body from 16 tokens on; the small test
+    chains (G = C = 1, a 2 x 2 leaf) keep the FMA body at every N, and
+    float32 keeps it everywhere."""
+    t = chain_tabs[key]
+    full = key in chip_smoke.FULL_WIDTH
+    want = "mma" if full and n >= MMA_MIN_TOKENS else "fma"
+    assert chain_sddmm_path(t, n, torch.bfloat16) == want
+    assert chain_sddmm_path(t, n, torch.float32) == "fma"
+
+
+@pytest.mark.parametrize("key", list(chip_smoke.FULL_WIDTH))
+@pytest.mark.parametrize("n", [16, 77, 1037, 4096])
+def test_chain_sddmm_plan_covers_the_tokens_and_fills_the_card(chain_tabs,
+                                                               key, n):
+    t = chain_tabs[key]
+    cl = t.classes
+    plan = chain_sddmm_mma_plan(t, n, H100_SMS)
+    assert plan.block_cols == CHAIN_SDDMM_MMA_TILE
+    assert plan.slice_len % 32 == 0
+    assert (plan.n_slices - 1) * plan.slice_len < n
+    assert plan.n_slices * plan.slice_len >= n
+    tiles = (cl.n_classes * -(-cl.max_groups * t.group_rows // 64)
+             * -(-t.data_cols // 64))
+    assert plan.blocks == tiles * plan.n_slices
+    if n == 4096:
+        assert plan.blocks >= 2 * H100_SMS
+    shape = plan.workspace_shape(t)
+    assert shape == (None if plan.n_slices == 1
+                     else (plan.n_slices, t.m, t.data_cols))
+
+
+def test_chain_sddmm_plan_at_a_training_step(chain_tabs):
+    """4096 tokens: wq/wo's 32 classes of 64 x 256 give 128 tiles, cut
+    into 3 slices; wk/wv's 8 classes of 32 x 256 give 32, cut into 9;
+    gate/up (8 of 704 x 256) and down (8 of 256 x 704) run 352 uncut."""
+    got = {key: chain_sddmm_mma_plan(chain_tabs[key], 4096, H100_SMS)
+           for key in chip_smoke.FULL_WIDTH}
+    assert {k: (p.n_slices, p.slice_len, p.blocks)
+            for k, p in got.items()} == {
+        "wq/wo": (3, 1376, 384), "wk/wv": (9, 480, 288),
+        "gate/up": (1, 4096, 352), "down": (1, 4096, 352)}
 
 
 def test_the_mma_bodies_refuse_shapes_they_cannot_take():
