@@ -51,7 +51,9 @@ exits non-zero without the result line:
      {8, 171, 512} rows an expert (decode, training, full-capacity prefill)
      x {f32, bf16} x three epilogues, with ``save_preact`` at N = 171 and
      512, on the transposed layouts at N = 171; ``rbgp4_sddmm_rhs_stacked``
-     at N in {8, 171, 512};
+     at N in {8, 16, 77, 171, 512} (bf16 from 16 rows on the tensor-core
+     body, rerun bit-equal and, expert by expert, bit-equal to the
+     unstacked launch of the stacked plan);
   3. time each kernel, its plain version and one PyTorch call computing
      the same function (dense ``F.linear``/matmul on the unpacked weights;
      ``torch.bmm`` for the stacked experts) with CUDA events (median of 30
@@ -61,12 +63,16 @@ exits non-zero without the result line:
      with ``save_preact``, dX and dW), each also on its FMA body on the
      same operands (``fma_ms``, the tensor-core bodies' yardstick); the
      stacked forward at 8, 171 (``save_preact``) and 512 rows an expert
-     and dX at 171, each tensor-core launch beside its FMA body and, at
-     171, beside each token tile (``mma64_ms``, ``mma128_ms``); the
-     stacked tile sweep: the stacked tensor-core body with 64- and
+     and dX and dW at 171, each tensor-core launch beside its FMA body
+     and, at 171, beside each token tile (``mma64_ms``, ``mma128_ms``);
+     the stacked tile sweep: the stacked tensor-core body with 64- and
      128-token tiles at 16-512 rows an expert, each held against the
      plain version and the two bit-equal (the measurement behind
-     ``stacked_mma_block_tokens``); and the body sweep: both bodies of
+     ``stacked_mma_block_tokens``); the stacked dW sweep: its tensor-core
+     body with each (block columns, stage tokens) of
+     ``STACKED_SDDMM_TILES`` at 16-512 rows an expert, each held against
+     the plain version (the measurement behind ``stacked_sddmm_tile``);
+     and the body sweep: both bodies of
      the forward, dX and dW at tinyllama's four layouts, N in {8, 16, 32,
      64, 128, 256, 512}, each result held against the plain version first
      (the measurement behind ``MMA_MIN_TOKENS``);
@@ -109,28 +115,32 @@ exits non-zero without the result line:
      per step ``rbgp4mm_rhs`` 336 forward + recompute and 168 dX,
      ``rbgp4_sddmm_rhs`` 168, ``rbgp4mm_rhs_stacked`` 144 forward +
      recompute and 72 dX (all on ``rbgp4mm_rhs_stacked_mma_kernel``),
-     ``rbgp4_sddmm_rhs_stacked`` 72; one profiled step;
+     ``rbgp4_sddmm_rhs_stacked`` 72 (all on
+     ``rbgp4_sddmm_rhs_stacked_mma_kernel``); one profiled step;
  11. train parity of 2 full-width qwen2-moe layers as phase 7;
  12. check-chain: the deep-chain kernels against their plain versions, as
      phase 2, at tinyllama's four shapes under the hierarchical-block plan
      (complete 4x4, three Ramanujan factors, complete 8x8, at 0.875;
-     leaves 8x8, 16x32, 32x16): ``chainmm_rhs`` at N in {1, 8, 512, 4096}
-     x {f32, bf16}, on the transposed layouts at N in {512, 4096},
-     ``chain_sddmm_rhs`` at N in {8, 16, 77, 512, 1037, 4096} (bf16 from
-     16 on the tensor-core body over row-group classes), each dW rerun
-     bit-equal; and at the two smaller chains of the CPU tests (G = C =
-     1, and a 2x2 leaf);
- 13. times-chain: as phase 3, the forward at N = 8 and 512, dX and dW at
-     N = 4096, dW beside its FMA body on the same operands;
+     leaves 8x8, 16x32, 32x16): ``chainmm_rhs`` at N in {1, 8, 16, 77,
+     512, 1037, 4096} x {f32, bf16}, on the transposed layouts at N in
+     {16, 77, 512, 1037, 4096}, ``chain_sddmm_rhs`` at N in {8, 16, 77,
+     512, 1037, 4096} (bf16 from 16 on the tensor-core bodies over
+     row-group classes), each dW and each bf16 forward and dX on the
+     tensor-core body rerun bit-equal; and at the two smaller chains of
+     the CPU tests (G = C = 1, and a 2x2 leaf);
+ 13. times-chain: as phase 3, the forward at N = 8 and 512, the forward,
+     dX and dW at N = 4096, each of those three beside its FMA body on
+     the same operands;
  14. serve-chain: tinyllama under that plan (all 154 projections chains),
      the 16 requests of phase 4: every prefill call and decode step
-     launches ``chainmm_rhs`` 154 times and no RBGP4 kernel;
+     launches ``chainmm_rhs`` 154 times and no RBGP4 kernel, a prefill's
+     on the tensor-core body, a decode step's on the FMA body;
  15. parity-chain: its float32 streams against ``run_sequential`` on 4
      requests, as phase 5;
  16. train-chain: 6 steps of 8 x 512 tokens as phase 6, per step 308
-     forward + recompute and 154 dX ``chainmm_rhs`` launches and 154
-     ``chain_sddmm_rhs`` (all on ``chain_sddmm_rhs_mma_kernel``); one
-     profiled step;
+     forward + recompute and 154 dX ``chainmm_rhs`` launches (all on
+     ``chainmm_rhs_mma_kernel``) and 154 ``chain_sddmm_rhs`` (all on
+     ``chain_sddmm_rhs_mma_kernel``); one profiled step;
  17. train-parity-chain: 2 full-width layers in float32, card against CPU,
      as phase 7;
  18. check-fm (run after phase 13): ``rbgp4mm`` and ``rbgp4_sddmm``
@@ -234,7 +244,7 @@ MOE_CHECK_ROWS = (8, 16, 77, 171, 512)
 STACKED_TILE_ROWS = (16, 77, 128, 171, 256, 300, 512)
 # chain dW token counts of the check phase at full width: decode-size,
 # the least the tensor-core body takes, ragged stages and slices, prefill,
-# a training step
+# a training step; the forward and dX there from 16 on (and at 1 and 8)
 CHAIN_CHECK_ROWS = (8, 16, 77, 512, 1037, 4096)
 # the serve phases' prompt lengths; the MoE engine prefills a request alone
 # at full capacity, so these are also the stacked kernels' prefill rows
@@ -624,16 +634,33 @@ def stacked_body_launcher(tables, path: str, block_tokens: int = None):
     return rhs
 
 
-def chain_body_launcher(tables, path: str):
-    """``body_launchers``' twin for ``chain_sddmm_rhs``: body ``path`` on
-    given operands, through the wrapper's own C launch
-    (``_chain_sddmm_body`` of kernels/chainmm.py); no counter moves."""
-    from repro_torch.kernels.chainmm import _chain_sddmm_body
+def stacked_sddmm_launcher(tables, path: str, plan=None):
+    """``body_launchers``' twin for ``rbgp4_sddmm_rhs_stacked``: body
+    ``path`` on stacked operands (the mma body with ``plan``,
+    ``stacked_sddmm_mma_plan``'s unless given), through the wrapper's own
+    C launch (``_sddmm_stacked_body``); no counter moves."""
+    from repro_torch.kernels.rbgp4mm import _sddmm_stacked_body
+
+    def sddmm(g, x, dw):
+        _sddmm_stacked_body(path, tables, g, x, dw, plan=plan)
+
+    return sddmm
+
+
+def chain_body_launchers(tables, path: str):
+    """``body_launchers``' twin for ``chainmm_rhs`` and
+    ``chain_sddmm_rhs``: body ``path`` on given operands, through the
+    wrappers' own C launch (``_chain_rhs_body``, ``_chain_sddmm_body`` of
+    kernels/chainmm.py); no counter moves."""
+    from repro_torch.kernels.chainmm import _chain_rhs_body, _chain_sddmm_body
+
+    def rhs(x, w, out):
+        _chain_rhs_body(path, tables, x, w, out)
 
     def sddmm(g, x, dw):
         _chain_sddmm_body(path, tables, g, x, dw)
 
-    return sddmm
+    return rhs, sddmm
 
 
 def phase_train_times(layouts, n: int = 4096) -> dict:
@@ -869,6 +896,7 @@ def reset_launch_counts() -> None:
     rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = 0
     rbgp4mm_rhs.launches_mma = rbgp4_sddmm_rhs.launches_mma = 0
     rbgp4mm_rhs_stacked.launches_mma = chain_sddmm_rhs.launches_mma = 0
+    rbgp4_sddmm_rhs_stacked.launches_mma = chainmm_rhs.launches_mma = 0
     rbgp4mm_rhs.launches_q = rbgp4mm_rhs_stacked.launches_q = 0
     chainmm_rhs.launches_q = 0
     rbgp4_sddmm_rhs.launches = 0
@@ -882,27 +910,33 @@ def reset_launch_counts() -> None:
 
 def body_counts() -> dict:
     """The launches that took the bf16 tensor-core bodies, by the role
-    whose counter they also moved: ``rbgp4mm_rhs`` and
-    ``rbgp4mm_rhs_stacked`` (forward and dX, keyed by the forward role),
-    ``rbgp4_sddmm_rhs`` and ``chain_sddmm_rhs``."""
-    from repro_torch.kernels import (chain_sddmm_rhs, rbgp4_sddmm_rhs,
-                                     rbgp4mm_rhs, rbgp4mm_rhs_stacked)
+    whose counter they also moved: ``rbgp4mm_rhs``,
+    ``rbgp4mm_rhs_stacked`` and ``chainmm_rhs`` (forward and dX, keyed by
+    the forward role), ``rbgp4_sddmm_rhs``, ``rbgp4_sddmm_rhs_stacked``
+    and ``chain_sddmm_rhs``."""
+    from repro_torch.kernels import (chain_sddmm_rhs, chainmm_rhs,
+                                     rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_stacked, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_stacked)
 
     return {"forward": rbgp4mm_rhs.launches_mma,
             "dw": rbgp4_sddmm_rhs.launches_mma,
             "stacked_forward": rbgp4mm_rhs_stacked.launches_mma,
+            "stacked_dw": rbgp4_sddmm_rhs_stacked.launches_mma,
+            "chain_forward": chainmm_rhs.launches_mma,
             "chain_dw": chain_sddmm_rhs.launches_mma}
 
 
 def train_mma_counts(launches: dict) -> dict:
     """The tensor-core launches a training step's ``launches`` (by role)
-    must show: every bf16 ``rbgp4mm_rhs``, ``rbgp4mm_rhs_stacked`` (16 rows
-    an expert and more), ``rbgp4_sddmm_rhs`` and ``chain_sddmm_rhs``
-    launch of a step runs enough tokens on layouts those bodies take."""
+    must show: every bf16 launch of a step (16 rows an expert and more)
+    runs enough tokens on layouts those bodies take, so every one."""
     return {"forward": launches["forward"] + launches["dx"],
             "dw": launches["dw"],
             "stacked_forward": (launches["stacked_forward"]
                                 + launches["stacked_dx"]),
+            "stacked_dw": launches["stacked_dw"],
+            "chain_forward": launches["chain_forward"] + launches["chain_dx"],
             "chain_dw": launches["chain_dw"]}
 
 
@@ -1053,6 +1087,13 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve",
         raise AssertionError(f"{mma['stacked_forward']} stacked launches on "
                              f"the tensor cores, want {want_s} (every "
                              f"prefill's, no decode step's)")
+    # a prefill's bf16 chain launches (every prompt token, 128 and more)
+    # take the tensor-core body too, a decode step's 8 rows the FMA body
+    want_c = 0 if quant else st["prefill_calls"] * per_pass["chain_forward"]
+    if mma["chain_forward"] != want_c:
+        raise AssertionError(f"{mma['chain_forward']} chain launches on the "
+                             f"tensor cores, want {want_c} (every "
+                             f"prefill's, no decode step's)")
     n_prompt, n_gen = st["prompt_tokens"], st["generated_tokens"]
     res = dict(
         requests=len(out), prompt_tokens=n_prompt, generated_tokens=n_gen,
@@ -1179,7 +1220,10 @@ TRACE_KINDS = (
     ("chain_sddmm_rhs_mma_kernel", "chain_dw", None, "mma"),
     ("chain_sddmm_rhs_sum_kernel", "chain_dw", None, "sum"),
     ("chain_sddmm_rhs_kernel", "chain_dw", None, "fma"),
+    ("chainmm_rhs_mma_kernel", "chain_forward", "chain_dx", "mma"),
     ("chainmm_rhs_kernel", "chain_forward", "chain_dx", "fma"),
+    ("rbgp4_sddmm_rhs_stacked_mma_kernel", "stacked_dw", None, "mma"),
+    ("rbgp4_sddmm_rhs_stacked_sum_kernel", "stacked_dw", None, "sum"),
     ("rbgp4_sddmm_rhs_stacked_kernel", "stacked_dw", None, "fma"),
     ("rbgp4mm_rhs_stacked_mma_kernel", "stacked_forward", "stacked_dx",
      "mma"),
@@ -1335,8 +1379,7 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
     reset_launch_counts()
     hist = list(trainer.run(n_steps))
     launches = launch_counts()
-    # a step's rbgp4mm_rhs, rbgp4mm_rhs_stacked, rbgp4_sddmm_rhs and
-    # chain_sddmm_rhs launches all run bf16 at >= 16 tokens (rows an
+    # a step's sparse launches all run bf16 at >= 16 tokens (rows an
     # expert) on layouts the tensor-core bodies take, so every one of them
     # must have taken those bodies
     mma = body_counts()
@@ -1404,10 +1447,9 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
                            f"({prof['kernel_share'][k]:.1%} of busy, "
                            f"{prof['kernel_launches'][k]} launches)"
                            for k in COUNTERS if want[k]))
-    log(phase, f"profiled step's launches by kernel symbol (every "
-               f"rbgp4mm_rhs, rbgp4mm_rhs_stacked, rbgp4_sddmm_rhs and "
-               f"chain_sddmm_rhs launch of the {batch * seq}-token step on "
-               f"the *_mma_kernel symbols; the slice sums count as no "
+    log(phase, f"profiled step's launches by kernel symbol (every sparse "
+               f"launch of the {batch * seq}-token step on the "
+               f"*_mma_kernel symbols; the slice sums count as no "
                f"launch): " + ", ".join(
                    f"{k} {v}" for k, v in
                    prof["launches_by_symbol"].items()))
@@ -1602,16 +1644,20 @@ def phase_check_moe(layouts) -> dict:
     layouts with 60 experts: max abs diff per record entry.  The forward
     at ``MOE_CHECK_ROWS`` rows an expert (three epilogues), with
     ``save_preact`` and on the transposed layouts (dX) from 16 rows on,
-    where bf16 takes the tensor-core body; dW at ``MOE_ROWS``.  In bf16
-    the forward with ``save_preact`` (at decode, without) and dX are rerun
-    (the same bits), and each expert's Y, Z and dX must be the bits of the
-    unstacked launch of the same body on that expert's slice."""
+    where bf16 takes the tensor-core body; dW at ``MOE_CHECK_ROWS``
+    (bf16 from 16 rows on the tensor-core body).  In bf16 the forward with
+    ``save_preact`` (at decode, without), dX and dW are rerun (the same
+    bits), and each expert's Y, Z, dX and dW must be the bits of the
+    unstacked launch of the same body (and, for dW, the same plan) on that
+    expert's slice."""
     from repro_torch.kernels import (MMA_MIN_TOKENS, KernelTables,
                                      TransposeTables,
                                      rbgp4_sddmm_rhs_stacked,
                                      rbgp4_sddmm_rhs_stacked_reference,
                                      rbgp4mm_rhs_stacked,
-                                     rbgp4mm_rhs_stacked_reference, rhs_path)
+                                     rbgp4mm_rhs_stacked_reference, rhs_path,
+                                     sddmm_path, stacked_sddmm_mma_plan)
+    from repro_torch.kernels.rbgp4mm import _sddmm_body, _sm_count
 
     g = torch.Generator(device="cuda").manual_seed(5)
     e = MOE_EXPERTS
@@ -1631,7 +1677,7 @@ def phase_check_moe(layouts) -> dict:
                                          generator=g).to(dt)
             worst = {"forward": 0.0, "save_preact": 0.0, "transposed": 0.0,
                      "sddmm": 0.0}
-            bodies = {}
+            bodies, bodies_dw = {}, {}
 
             def hold(what, got, want, entry, row):
                 err, rel = agree(f"stacked {what} {key}", got, want, dt)
@@ -1661,6 +1707,25 @@ def phase_check_moe(layouts) -> dict:
                             raise AssertionError(
                                 f"stacked {what} {key} expert {i}: not the "
                                 f"bits of the unstacked launch")
+                n_bits += 1
+
+            def same_dw_bits(n, gy, x, dw):
+                """A rerun of the stacked dW gives ``dw`` again, and so
+                does the unstacked mma launch of the stacked plan on each
+                expert's slice."""
+                nonlocal n_bits
+                if not torch.equal(rbgp4_sddmm_rhs_stacked(tables, gy, x),
+                                   dw):
+                    raise AssertionError(f"stacked sddmm {key} N={n}: a "
+                                         f"rerun changed the bits")
+                plan = stacked_sddmm_mma_plan(d, e, n, _sm_count("cuda"))
+                one = torch.empty_like(dw[0])
+                for i in range(e):
+                    _sddmm_body("mma", tables, gy[i], x[i], one, plan=plan)
+                    if not torch.equal(one, dw[i]):
+                        raise AssertionError(
+                            f"stacked sddmm {key} N={n} expert {i}: not the "
+                            f"bits of the unstacked launch")
                 n_bits += 1
 
             w = rnd(e, *lay.data_shape)
@@ -1699,14 +1764,21 @@ def phase_check_moe(layouts) -> dict:
                                   call, (y, z), x, w, b, act)
                     n_cases += 1
                 gy = rnd(e, n, lay.m)
-                if n in MOE_ROWS.values():
-                    dw = launched(rbgp4_sddmm_rhs_stacked,
-                                  lambda: rbgp4_sddmm_rhs_stacked(tables, gy,
-                                                                  x))
-                    hold(f"sddmm N={n}", dw,
-                         rbgp4_sddmm_rhs_stacked_reference(tables, gy, x),
-                         "dw", "sddmm")
-                    n_cases += 1
+                bodies_dw[n] = sddmm_path(d, n, dt)
+                mma_before = rbgp4_sddmm_rhs_stacked.launches_mma
+                dw = launched(rbgp4_sddmm_rhs_stacked,
+                              lambda: rbgp4_sddmm_rhs_stacked(tables, gy, x))
+                if (rbgp4_sddmm_rhs_stacked.launches_mma - mma_before
+                        != (bodies_dw[n] == "mma")):
+                    raise AssertionError(f"stacked sddmm {key} N={n}: the "
+                                         f"tensor-core counter disagrees "
+                                         f"with sddmm_path")
+                hold(f"sddmm N={n}", dw,
+                     rbgp4_sddmm_rhs_stacked_reference(tables, gy, x),
+                     "dw", "sddmm")
+                if bodies_dw[n] == "mma":
+                    same_dw_bits(n, gy, x, dw)
+                n_cases += 1
                 if n >= MMA_MIN_TOKENS:
                     call = lambda: rbgp4mm_rhs_stacked(tt.tables, gy, wt)
                     dx = launched(rbgp4mm_rhs_stacked, call, "launches_dx")
@@ -1723,9 +1795,11 @@ def phase_check_moe(layouts) -> dict:
                          f"max|diff|/max|ref|: "
                          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
                          + "; forward and dX bodies: " + ", ".join(
-                             f"N={n} {b_}" for n, b_ in bodies.items()))
+                             f"N={n} {b_}" for n, b_ in bodies.items())
+                         + "; dW bodies: " + ", ".join(
+                             f"N={n} {b_}" for n, b_ in bodies_dw.items()))
     log("check", f"{n_cases} stacked-kernel cases agree (60 experts, one "
-                 f"launch each); {n_bits} bf16 forward and dX launches "
+                 f"launch each); {n_bits} bf16 forward, dX and dW launches "
                  f"rerun bit-equal and bit-equal, expert by expert, to the "
                  f"unstacked launch of the same body; max abs diff "
                  + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items()))
@@ -1741,12 +1815,14 @@ def phase_times_moe(layouts) -> dict:
     weights, bound.  Where the kernel takes the tensor-core body, the FMA
     body on the same operands (``fma_ms``) and, at 171 rows, the
     tensor-core body with each token tile (``mma64_ms``, ``mma128_ms``;
-    the wrapper takes ``stacked_mma_block_tokens``')."""
+    the wrapper takes ``stacked_mma_block_tokens``'); dW beside its FMA
+    body."""
     from repro_torch.kernels import (KernelTables, TransposeTables,
                                      rbgp4_sddmm_rhs_stacked,
                                      rbgp4_sddmm_rhs_stacked_reference,
                                      rbgp4mm_rhs_stacked,
-                                     rbgp4mm_rhs_stacked_reference, rhs_path)
+                                     rbgp4mm_rhs_stacked_reference, rhs_path,
+                                     sddmm_path, stacked_sddmm_tile)
     from repro_torch.kernels.ref import unpack_dense
 
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -1814,7 +1890,10 @@ def phase_times_moe(layouts) -> dict:
             gy = torch.randn((e, n, m), device="cuda", generator=g).to(dt)
             wt = [tt.values(ws[i]) for i in range(copies)]
             dx_out = torch.empty((e, n, k), dtype=dt, device="cuda")
+            dw_out = torch.empty((e, m, nnz), dtype=dt, device="cuda")
+            fma_dw = stacked_sddmm_launcher(tables, "fma")
             t = dict(
+                dw_fma=time_cuda(lambda i: fma_dw(gy, x, dw_out)),
                 dw=time_cuda(lambda i: rbgp4_sddmm_rhs_stacked(tables, gy,
                                                                x)),
                 dw_plain=time_cuda(lambda i: rbgp4_sddmm_rhs_stacked_reference(
@@ -1825,11 +1904,14 @@ def phase_times_moe(layouts) -> dict:
                                    e=e)
             rows[(key, "dw")] = dict(ms=t["dw"], plain_ms=t["dw_plain"],
                                      library_ms=t["dw_lib"], bound_ms=b,
-                                     bound_by=by)
-            log("times", f"dW experts {key:7s} N={n} bf16 [fma body]: kernel "
-                         f"{t['dw']:.4f} ms, plain {t['dw_plain']:.4f} ms, "
-                         f"torch.bmm g^T @ x dense {t['dw_lib']:.4f} ms, "
-                         f"bound {b * 1e3:.2f} us ({by})")
+                                     bound_by=by, fma_ms=t["dw_fma"])
+            log("times", f"dW experts {key:7s} N={n} bf16 "
+                         f"[{sddmm_path(dims, n, dt)} body, tile "
+                         f"{stacked_sddmm_tile(dims, n)}]: kernel "
+                         f"{t['dw']:.4f} ms, FMA body {t['dw_fma']:.4f} ms, "
+                         f"plain {t['dw_plain']:.4f} ms, torch.bmm g^T @ x "
+                         f"dense {t['dw_lib']:.4f} ms, bound "
+                         f"{b * 1e3:.2f} us ({by})")
             t = yardsticks(tt.tables, n, gy, lambda i: wt[c(i)], dx_out)
             t["ms"] = time_cuda(lambda i: rbgp4mm_rhs_stacked(
                 tt.tables, gy, wt[c(i)]))
@@ -1847,7 +1929,7 @@ def phase_times_moe(layouts) -> dict:
                          f"{t['plain_ms']:.4f} ms, torch.bmm g @ W dense "
                          f"{t['library_ms']:.4f} ms, bound {b * 1e3:.2f} us "
                          f"({by})")
-            del gy, wt, dx_out, x
+            del gy, wt, dx_out, dw_out, x
         del ws, wd
         torch.cuda.empty_cache()
     return rows
@@ -1919,6 +2001,71 @@ def phase_stacked_tiles(layouts, ns=STACKED_TILE_ROWS) -> dict:
     return layer
 
 
+def phase_stacked_dw_tiles(layouts, ns=STACKED_TILE_ROWS) -> dict:
+    """``rbgp4_sddmm_rhs_stacked``'s tensor-core body with each (block
+    columns, stage tokens) of ``STACKED_SDDMM_TILES`` on the same operands
+    at the expert layouts, 60 experts, bf16, ``ns`` rows an expert: each
+    tile's dW held against the plain version, the tiles of one stage size
+    bit-equal (the columns a block owns change no sum), then each timed
+    (CUDA events).  Returns {(layout, n, tile): ms}, the measurement
+    ``stacked_sddmm_tile`` is set from; logs each layout's fastest tile
+    and, per MoE layer (three projections), the wrapper's tiles against
+    the fastest ones."""
+    from repro_torch.kernels import (KernelTables,
+                                     rbgp4_sddmm_rhs_stacked_reference,
+                                     sddmm_mma_plan, stacked_sddmm_tile)
+    from repro_torch.kernels.rbgp4mm import STACKED_SDDMM_TILES, _sm_count
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    dt, e = torch.bfloat16, MOE_EXPERTS
+    sms = _sm_count("cuda")
+    times, chosen = {}, {}
+    for key, lay in layouts.items():
+        tables = KernelTables.build(lay, "cuda")
+        d = tables.dims
+        for n in ns:
+            x = torch.randn((e, n, lay.k), device="cuda", generator=g).to(dt)
+            gy = torch.randn((e, n, lay.m), device="cuda",
+                             generator=g).to(dt)
+            want = rbgp4_sddmm_rhs_stacked_reference(tables, gy, x)
+            by_stage = {}
+            line = []
+            for tile in STACKED_SDDMM_TILES:
+                plan = sddmm_mma_plan(d, n, sms, e, tile)
+                run = stacked_sddmm_launcher(tables, "mma", plan)
+                out = torch.empty((e, *lay.data_shape), dtype=dt,
+                                  device="cuda")
+                run(gy, x, out)
+                torch.cuda.synchronize()
+                agree(f"stacked dW tile {tile} {key} N={n}", out, want, dt)
+                first = by_stage.setdefault(tile[1], out)
+                if not torch.equal(first, out):
+                    raise AssertionError(f"stacked dW {key} N={n}: the block "
+                                         f"columns changed the bits")
+                ms = time_cuda(lambda i: run(gy, x, out))
+                times[(key, n, tile)] = ms
+                line.append(f"{tile[0]}x{tile[1]} {ms:.4f}")
+            chosen[(key, n)] = stacked_sddmm_tile(d, n)
+            best = min(STACKED_SDDMM_TILES, key=lambda t: times[(key, n, t)])
+            log("times", f"stacked dW tiles {key:7s} N={n:<4d} (block "
+                         f"columns x stage tokens, ms): " + ", ".join(line)
+                         + f"; fastest {best}, the wrapper takes "
+                           f"{chosen[(key, n)]}")
+            del x, gy, want, by_stage, out
+        torch.cuda.empty_cache()
+    for n in ns:
+        took = sum(MOE_LAYER_PROJECTIONS[key] * times[(key, n, chosen[(key,
+                                                                        n)])]
+                   for key in layouts)
+        best = sum(MOE_LAYER_PROJECTIONS[key]
+                   * min(times[(key, n, t)] for t in STACKED_SDDMM_TILES)
+                   for key in layouts)
+        log("times", f"stacked dW per MoE layer N={n:<4d}: the wrapper's "
+                     f"tiles {took:.4f} ms, the fastest tiles "
+                     f"{best:.4f} ms")
+    return times
+
+
 def chain_plan():
     """The one-rule hierarchical-block plan (benchmarks/chain_executor.py)."""
     from repro_torch.sparsity import PatternSpec, SparsityPlan
@@ -1951,12 +2098,14 @@ def chain_layouts() -> dict:
 
 def phase_check_chain(layouts) -> dict:
     """The chain kernels against their plain versions: ``chainmm_rhs`` at
-    N in {1, 8, 512, 4096} and on the transposed layouts at N in {512,
-    4096}, ``chain_sddmm_rhs`` at ``CHAIN_CHECK_ROWS`` (bf16 from 16
-    tokens on the tensor-core body), f32 and bf16, at tinyllama's four
-    layouts; smaller N at the two test chains.  Every dW is rerun and must
+    N in {1, 8, 16, 77, 512, 1037, 4096} and on the transposed layouts at
+    N in {16, 77, 512, 1037, 4096}, ``chain_sddmm_rhs`` at
+    ``CHAIN_CHECK_ROWS`` (bf16 from 16 tokens on the tensor-core bodies
+    over row-group classes), f32 and bf16, at tinyllama's four layouts;
+    smaller N at the two test chains (the FMA bodies).  Every dW, and in
+    bf16 every forward and dX on the tensor-core body, is rerun and must
     give the same bits.  Max abs diff per record entry."""
-    from repro_torch.kernels import (chain_sddmm_rhs,
+    from repro_torch.kernels import (chain_rhs_path, chain_sddmm_rhs,
                                      chain_sddmm_rhs_reference,
                                      chain_tables, chain_transpose_tables,
                                      chainmm_rhs, chainmm_rhs_reference)
@@ -1990,20 +2139,33 @@ def phase_check_chain(layouts) -> dict:
 
             w = rnd(*lay.data_shape)
             wt = tt.values(w)
-            for n in ((1, 8, 512, 4096) if full else (1, 8, 512)):
-                x = rnd(n, lay.k)
-                y = launched(chainmm_rhs, lambda: chainmm_rhs(tables, x, w))
-                hold(f"N={n}", y, chainmm_rhs_reference(tables, x, w),
-                     "forward", "forward")
+            bodies = {"forward": {}, "transposed": {}, "sddmm": {}}
+
+            def rhs_case(tab, what, n, xin, win, attr):
+                """One counted launch on ``tab``, held against the plain
+                version; on the tensor-core body, counted in
+                ``launches_mma`` and rerun bit-equal."""
+                path = bodies[what][n] = chain_rhs_path(tab, n, dt)
+                before = chainmm_rhs.launches_mma
+                call = lambda: chainmm_rhs(tab, xin, win)
+                y = launched(chainmm_rhs, call, attr)
+                if chainmm_rhs.launches_mma - before != (path == "mma"):
+                    raise AssertionError(f"chain {what} {key} N={n}: the "
+                                         f"tensor-core counter disagrees "
+                                         f"with chain_rhs_path")
+                hold(f"{what} N={n}", y, chainmm_rhs_reference(tab, xin, win),
+                     "forward" if what == "forward" else "dx", what)
+                if path == "mma" and not torch.equal(y, call()):
+                    raise AssertionError(f"chain {what} {key} N={n}: a rerun "
+                                         f"changed the bits")
+
+            for n in ((1, 8) + CHAIN_CHECK_ROWS[1:] if full else (1, 8, 512)):
+                rhs_case(tables, "forward", n, rnd(n, lay.k), w, "launches")
                 n_cases += 1
-            for n in ((512, 4096) if full else (512,)):
-                gy = rnd(n, lay.m)
-                dx = launched(chainmm_rhs,
-                              lambda: chainmm_rhs(t_, gy, wt), "launches_dx")
-                hold(f"transposed N={n}", dx,
-                     chainmm_rhs_reference(t_, gy, wt), "dx", "transposed")
+            for n in (CHAIN_CHECK_ROWS[1:] if full else (512,)):
+                rhs_case(t_, "transposed", n, rnd(n, lay.m), wt,
+                         "launches_dx")
                 n_cases += 1
-            bodies = {}
             for n in (CHAIN_CHECK_ROWS if full else (8, 512)):
                 gy, x = rnd(n, lay.m), rnd(n, lay.k)
                 dw = launched(chain_sddmm_rhs,
@@ -2014,26 +2176,30 @@ def phase_check_chain(layouts) -> dict:
                 if not torch.equal(dw, chain_sddmm_rhs(tables, gy, x)):
                     raise AssertionError(f"chain sddmm {key} N={n} {dt}: a "
                                          f"rerun changed the bits")
-                bodies[n] = chain_sddmm_path(tables, n, dt)
+                bodies["sddmm"][n] = chain_sddmm_path(tables, n, dt)
                 n_cases += 1
             log("check-chain", f"chain {key:8s} {str(dt):15s} max|diff|/max|ref|: "
                          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-                         + "; dW bodies: " + ", ".join(
-                             f"N={n} {b}" for n, b in bodies.items()))
+                         + "; bodies: " + "; ".join(
+                             f"{k} " + ", ".join(f"N={n} {b}"
+                                                 for n, b in v.items())
+                             for k, v in bodies.items()))
         torch.cuda.empty_cache()
     log("check-chain", f"{n_cases} chain-kernel cases agree (one launch "
-                 f"each), every dW bit-equal on a rerun; max abs diff "
+                 f"each), every dW and every bf16 forward and dX on the "
+                 f"tensor-core body bit-equal on a rerun; max abs diff "
                  + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items()))
     return max_abs
 
 
 def phase_times_chain(layouts, n_train: int = 4096) -> dict:
     """The chain kernels at tinyllama's four layouts, bf16: the forward at
-    N = 8 and 512, dX and dW at a training step's N; kernel, plain version,
-    one PyTorch call on the unpacked dense weights (``F.linear``,
-    ``g @ W``, ``g^T @ x``), bound; dW also on its FMA body on the same
-    operands (``fma_ms``), the tensor-core body's yardstick."""
-    from repro_torch.kernels import (chain_sddmm_rhs,
+    N = 8 and 512, and at a training step's N (the forward and its remat
+    recompute) with dX and dW; kernel, plain version, one PyTorch call on
+    the unpacked dense weights (``F.linear``, ``g @ W``, ``g^T @ x``),
+    bound; at the training step each also on its FMA body on the same
+    operands (``fma_ms``), the tensor-core bodies' yardstick."""
+    from repro_torch.kernels import (chain_rhs_path, chain_sddmm_rhs,
                                      chain_sddmm_rhs_reference,
                                      chain_tables, chain_transpose_tables,
                                      chainmm_rhs, chainmm_rhs_reference)
@@ -2066,7 +2232,8 @@ def phase_times_chain(layouts, n_train: int = 4096) -> dict:
                              tables.group_rows, 2)
             rows[(key, n)] = dict(ms=t_kernel, plain_ms=t_plain,
                                   library_ms=t_lib, bound_ms=b, bound_by=by)
-            log("times-chain", f"chain {key:8s} N={n:<4d} bf16: kernel "
+            log("times-chain", f"chain {key:8s} N={n:<4d} bf16 "
+                         f"[{chain_rhs_path(tables, n, dt)} body]: kernel "
                          f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
                          f"F.linear dense {t_lib:.4f} ms, bound "
                          f"{b * 1e3:.2f} us ({by})")
@@ -2077,9 +2244,18 @@ def phase_times_chain(layouts, n_train: int = 4096) -> dict:
         w, wdd = ws[0], wd[0]
         wt = tt.values(w)
         c = lambda i: i % c_
-        fma_sddmm = chain_body_launcher(tables, "fma")
+        fma_rhs, fma_sddmm = chain_body_launchers(tables, "fma")
+        fma_rhs_t, _ = chain_body_launchers(t_, "fma")
         dw_out = torch.empty((m, nnz), dtype=dt, device="cuda")
+        y_out = torch.empty((n, m), dtype=dt, device="cuda")
+        dx_out = torch.empty((n, k), dtype=dt, device="cuda")
         t = dict(
+            fwd_fma=time_cuda(lambda i: fma_rhs(xs[c(i)], w, y_out)),
+            fwd=time_cuda(lambda i: chainmm_rhs(tables, xs[c(i)], w)),
+            fwd_plain=time_cuda(lambda i: chainmm_rhs_reference(
+                tables, xs[c(i)], w)),
+            fwd_lib=time_cuda(lambda i: F.linear(xs[c(i)], wdd)),
+            dx_fma=time_cuda(lambda i: fma_rhs_t(gs[c(i)], wt, dx_out)),
             dw_fma=time_cuda(lambda i: fma_sddmm(gs[c(i)], xs[c(i)],
                                                  dw_out)),
             dw=time_cuda(lambda i: chain_sddmm_rhs(tables, gs[c(i)],
@@ -2092,6 +2268,16 @@ def phase_times_chain(layouts, n_train: int = 4096) -> dict:
                 t_, gs[c(i)], wt)),
             dx_lib=time_cuda(lambda i: gs[c(i)] @ wdd),
         )
+        b, by = bound_ms(n, m, k, nnz, tables.n_chunks, tables.group_rows, 2)
+        rows[(key, "fwd")] = dict(ms=t["fwd"], plain_ms=t["fwd_plain"],
+                                  library_ms=t["fwd_lib"], bound_ms=b,
+                                  bound_by=by, fma_ms=t["fwd_fma"])
+        log("times-chain", f"chain forward {key:8s} N={n} bf16 "
+                     f"[{chain_rhs_path(tables, n, dt)} body, "
+                     f"{tables.classes.n_classes} classes]: kernel "
+                     f"{t['fwd']:.4f} ms, FMA body {t['fwd_fma']:.4f} ms, "
+                     f"plain {t['fwd_plain']:.4f} ms, F.linear dense "
+                     f"{t['fwd_lib']:.4f} ms, bound {b * 1e3:.2f} us ({by})")
         b, by = sddmm_bound_ms(n, m, k, nnz, tables.n_chunks,
                                tables.group_rows, 2)
         rows[(key, "dw")] = dict(ms=t["dw"], plain_ms=t["dw_plain"],
@@ -2106,12 +2292,14 @@ def phase_times_chain(layouts, n_train: int = 4096) -> dict:
                          t_.group_rows, 2)
         rows[(key, "dx")] = dict(ms=t["dx"], plain_ms=t["dx_plain"],
                                  library_ms=t["dx_lib"], bound_ms=b,
-                                 bound_by=by)
+                                 bound_by=by, fma_ms=t["dx_fma"])
         log("times-chain", f"chain dX {key:8s} N={n} bf16 (G = {t_.group_rows}, "
-                     f"C = {t_.chunk_cols}): kernel {t['dx']:.4f} ms, plain "
+                     f"C = {t_.chunk_cols}) [{chain_rhs_path(t_, n, dt)} "
+                     f"body]: kernel {t['dx']:.4f} ms, FMA body "
+                     f"{t['dx_fma']:.4f} ms, plain "
                      f"{t['dx_plain']:.4f} ms, g @ W dense "
                      f"{t['dx_lib']:.4f} ms, bound {b * 1e3:.2f} us ({by})")
-        del ws, wd, gs, xs, wt, dw_out
+        del ws, wd, gs, xs, wt, dw_out, y_out, dx_out
         torch.cuda.empty_cache()
     return rows
 
@@ -2600,6 +2788,7 @@ def main() -> int:
     sweep = phase_body_sweep(layouts)
     times_moe = phase_times_moe(experts)
     tiles = phase_stacked_tiles(experts)
+    dw_tiles = phase_stacked_dw_tiles(experts)
     times_chain = phase_times_chain(chains)
     t_fm = time.perf_counter()
     fm = fm_layouts()
@@ -2701,6 +2890,8 @@ def main() -> int:
                        for (kind, n), ms in sweep.items()})
     per_layout.update({f"moe layer {kind} N={n} stacked tiles": ms
                        for (kind, n), ms in tiles.items()})
+    per_layout.update({f"experts {key} N={n} stacked dW tile {bc}x{st}": ms
+                       for (key, n, (bc, st)), ms in dw_tiles.items()})
     print("kernel_times " + json.dumps(per_layout), flush=True)
     src = "src/repro_torch/kernels/csrc/"
     # the forward: one decoder layer's seven projections at decode (N = 8
@@ -2719,6 +2910,7 @@ def main() -> int:
     s_dx = per_layer(times_moe, "dx", MOE_LAYER_PROJECTIONS)
     s_dw = per_layer(times_moe, "dw", MOE_LAYER_PROJECTIONS)
     c_fwd = per_layer(times_chain, 8)
+    c_fwd_train = per_layer(times_chain, "fwd")
     c_dx, c_dw = per_layer(times_chain, "dx"), per_layer(times_chain, "dw")
     # one VGG19 pass: the 15 layers' rows, keyed by their (m, k, n)
     vgg19 = collections.Counter(VGG19_SDMM)
@@ -2819,9 +3011,13 @@ def main() -> int:
              source=src + "rbgp4_sddmm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:899",
              launches=total("stacked_dw"),
+             launches_mma=train_moe["mma_launches"]["stacked_dw"],
              max_abs_err=max_abs_moe["dw"], **s_dw,
              work="compact dW of one MoE layer's gate, up and down, 60 "
-                  "experts, 171 rows an expert, bf16"),
+                  "experts, 171 rows an expert, bf16, on the tensor-core "
+                  "body (rbgp4_sddmm_rhs_stacked_mma_kernel, every launch "
+                  "of phase 10); fma_ms: the FMA body on the same "
+                  "operands"),
         dict(name="chainmm_rhs", route="cuda", source=src + "chainmm_rhs.cu",
              replaces="src/repro/kernels/chainmm.py:309",
              launches=total("chain_forward"),
@@ -2829,15 +3025,30 @@ def main() -> int:
              work="forward of tinyllama's chain projections under the "
                   "hierarchical-block plan (serve, and train with its "
                   "remat recompute); timed: one decoder layer's seven at "
-                  "decode, 8 token rows, bf16"),
+                  "decode, 8 token rows, bf16 (the FMA body)"),
+        dict(name="chainmm_rhs (training forward, N = 4096)", route="cuda",
+             source=src + "chainmm_rhs.cu",
+             replaces="src/repro/kernels/chainmm.py:309",
+             launches=train_chain["launches"]["chain_forward"],
+             launches_mma=train_chain["mma_launches"]["chain_forward"]
+             - train_chain["launches"]["chain_dx"],
+             max_abs_err=max_abs_chain["forward"], **c_fwd_train,
+             work="the chain training forward and its remat recompute "
+                  "(phase 16, the bf16 tensor-core body over row-group "
+                  "classes, chainmm_rhs_mma_kernel); timed: one decoder "
+                  "layer's seven at 4096 tokens, bf16; fma_ms: the FMA "
+                  "body on the same operands; launches: the forward "
+                  "launches of the chain training run"),
         dict(name="chainmm_rhs (dX, transposed layouts)", route="cuda",
              source=src + "chainmm_rhs.cu",
              replaces="src/repro/kernels/chainmm.py:309",
              launches=total("chain_dx"),
+             launches_mma=train_chain["launches"]["chain_dx"],
              max_abs_err=max_abs_chain["dx"], **c_dx,
              work="dX = g @ W_s of one chain decoder layer's seven "
                   "projections on their transposed layouts, 4096 tokens, "
-                  "bf16"),
+                  "bf16, on the tensor-core body over row-group classes; "
+                  "fma_ms: the FMA body on the same operands"),
         dict(name="chain_sddmm_rhs", route="cuda",
              source=src + "chain_sddmm_rhs.cu",
              replaces="src/repro/kernels/chainmm.py:427",

@@ -10,15 +10,18 @@ products built on them, and ``ops.RBGP4Op`` (cached by ``get_op``) the
 per-layer bundle of the reference.  ``rbgp4mm_rhs``,
 ``rbgp4mm_rhs_stacked`` and ``chainmm_rhs`` take ``scales=``, the int8
 leaf-block path of the weight-only PTQ storage (``sparsity/quant.py``).
-``rhs_path``, ``sddmm_path`` and ``chain_sddmm_path`` say which device
-body (FMA, or bf16 on the tensor cores) a launch of ``rbgp4mm_rhs`` or
-``rbgp4mm_rhs_stacked``, ``rbgp4_sddmm_rhs`` or ``chain_sddmm_rhs``
+``rhs_path``, ``sddmm_path``, ``chain_rhs_path`` and ``chain_sddmm_path``
+say which device body (FMA, or bf16 on the tensor cores) a launch of
+``rbgp4mm_rhs`` or ``rbgp4mm_rhs_stacked``, ``rbgp4_sddmm_rhs`` or
+``rbgp4_sddmm_rhs_stacked``, ``chainmm_rhs`` or ``chain_sddmm_rhs``
 takes.
 """
 from . import build, ref
 from .chainmm import (
     ChainTables,
     ChainTransposeTables,
+    chain_rhs_path,
+    chain_rhs_tile_rows,
     chain_sddmm_path,
     chain_sddmm_rhs,
     chain_sddmm_rhs_reference,
@@ -52,6 +55,8 @@ from .rbgp4mm import (
     sddmm_mma_plan,
     sddmm_path,
     stacked_mma_block_tokens,
+    stacked_sddmm_mma_plan,
+    stacked_sddmm_tile,
 )
 
 __all__ = [
@@ -63,6 +68,10 @@ __all__ = [
     "sddmm_path",
     "sddmm_mma_plan",
     "stacked_mma_block_tokens",
+    "stacked_sddmm_tile",
+    "stacked_sddmm_mma_plan",
+    "chain_rhs_path",
+    "chain_rhs_tile_rows",
     "chain_sddmm_path",
     "KernelTables",
     "TransposeTables",

@@ -27,19 +27,23 @@ Row-group classes.  Whole sets of row groups share one ``col0`` row
 set): tinyllama-1.1b's hierarchical-block layouts have 32, 8, 8 and 8
 distinct rows among 256, 32, 352 and 64 row groups.  ``ChainTables``
 keeps them as ``ChainClasses``: the row groups of a class together are
-one dense product, dW[their rows] = g[:, their rows]^T @ x[:, the class's
-gathered columns], which ``chain_sddmm_rhs``'s tensor-core body runs.
+one dense product, Y[:, their rows] = X[:, the class's gathered columns]
+@ W[their rows]^T and dW[their rows] = g[:, their rows]^T @ x[:, the
+class's gathered columns], which the tensor-core bodies of
+``chainmm_rhs`` and ``chain_sddmm_rhs`` run.
 
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/`` (see the source notes for the designs and what bounds them); on
 a CPU tensor it runs its plain version (``*_reference``).  There is no
-other path: a failed build or launch raises.  ``chain_sddmm_rhs`` has two
+other path: a failed build or launch raises.  Both kernels have two
 device bodies, the FMA body and a bf16 tensor-core body over the classes;
-``chain_sddmm_path`` says which one a launch takes, from dtype and shape
-alone.  Launch counters, moved only where a kernel launches:
+``chain_rhs_path`` and ``chain_sddmm_path`` say which one a launch takes,
+from dtype and shape alone (``chain_rhs_tile_rows`` the class rows of the
+forward's block).  Launch counters, moved only where a kernel launches:
 ``chainmm_rhs.launches`` on forward tables, ``chainmm_rhs.launches_dx`` on
-transposed ones, ``chainmm_rhs.launches_q`` on the int8 path,
-``chain_sddmm_rhs.launches``, and again in
+transposed ones, ``chainmm_rhs.launches_q`` on the int8 path, and again
+in ``chainmm_rhs.launches_mma`` where the forward or dX took the
+tensor-core body; ``chain_sddmm_rhs.launches``, and again in
 ``chain_sddmm_rhs.launches_mma`` where it took the tensor-core body.
 
 ``chainmm_rhs`` takes ``scales=`` (the int8 path of the reference's
@@ -57,9 +61,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .rbgp4mm import (_DTYPE_CODES, _PATH_CODES, MMA_MIN_TOKENS, SddmmPlan,
-                      _check_aligned16, _check_cuda, _launch, _sm_count,
-                      token_slices)
+from .rbgp4mm import (_DTYPE_CODES, _NO_PLAN, _PATH_CODES, MMA_MIN_TOKENS,
+                      SddmmPlan, _check_aligned16, _check_cuda, _launch,
+                      _sm_count, token_slices)
 from .ref import dequant_leaf_blocks
 
 __all__ = ["ChainTables", "ChainClasses", "ChainTransposeTables",
@@ -355,6 +359,38 @@ def chainmm_rhs_reference(tables: ChainTables, x: torch.Tensor,
     return y.reshape(n, tables.m).to(x.dtype)
 
 
+# -- which body a forward or dX launch takes ---------------------------------
+
+#: tokens a block of the forward's tensor-core body
+CHAIN_RHS_MMA_BLOCK_TOKENS = 128
+
+
+def chain_rhs_path(tables: ChainTables, n_tokens: int,
+                   dtype: torch.dtype) -> str:
+    """``"mma"`` or ``"fma"``: the body a launch of ``chainmm_rhs`` (the
+    forward, or dX on transposed tables) takes for ``n_tokens`` rows of X
+    of ``dtype`` on ``tables``.  The tensor-core body takes bfloat16 at
+    ``n_tokens >= MMA_MIN_TOKENS`` with G, C and K multiples of 8 (every
+    gather a 16-byte copy, every eight class rows one row group's);
+    float32 (no TF32), decode (8 rows) and the small leaves (G = C = 1, 2)
+    keep the FMA body, and so does the int8 path, which has no other."""
+    if (dtype != torch.bfloat16 or n_tokens < MMA_MIN_TOKENS
+            or tables.group_rows % 8 or tables.chunk_cols % 8
+            or tables.k % 8):
+        return "fma"
+    return "mma"
+
+
+def chain_rhs_tile_rows(tables: ChainTables) -> int:
+    """Class rows a block of the forward's tensor-core body: 32 where the
+    largest class has no more (tinyllama-1.1b's wk/wv forward table, 8
+    classes of 32 rows, which a 64-row tile would leave half empty), else
+    64 (the other tables' classes of 64, 256 and 704 rows)."""
+    if tables.classes.max_groups * tables.group_rows <= 32:
+        return 32
+    return 64
+
+
 def chainmm_rhs(tables: ChainTables, x: torch.Tensor,
                 w_data: torch.Tensor, *,
                 scales: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -363,9 +399,11 @@ def chainmm_rhs(tables: ChainTables, x: torch.Tensor,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel,
     which takes float32 or bfloat16 X and W of one dtype, both contiguous,
-    sums in float32 and writes Y in that dtype.  ``scales`` (M/G,
-    n_chunks) float32 selects the int8 path (int8 ``w_data``, its own
-    kernel, counted in ``launches_q``).
+    sums in float32 and writes Y in that dtype, on the body
+    ``chain_rhs_path`` names (the tensor-core one counted again in
+    ``launches_mma``).  ``scales`` (M/G, n_chunks) float32 selects the
+    int8 path (int8 ``w_data``, its own kernel, counted in
+    ``launches_q``).
     """
     _check_args(tables, x, w_data)
     if x.device.type == "cpu":
@@ -390,19 +428,37 @@ def chainmm_rhs(tables: ChainTables, x: torch.Tensor,
     n = x.shape[0]
     out = torch.empty((n, tables.m), dtype=dt, device=x.device)
     if n > 0:
-        _launch("chainmm_rhs", "chainmm_rhs", "ippppiiiiiip",
-                _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
-                tables.col0.data_ptr(), out.data_ptr(), n, tables.k,
-                tables.m, tables.n_chunks, tables.group_rows,
-                tables.chunk_cols, x.device)
+        path = chain_rhs_path(tables, n, dt)
+        _chain_rhs_body(path, tables, x, w_data, out)
         if tables.transposed:
             chainmm_rhs.launches_dx += 1
         else:
             chainmm_rhs.launches += 1
+        if path == "mma":
+            chainmm_rhs.launches_mma += 1
     return out
 
 
+def _chain_rhs_body(path: str, tables: ChainTables, x: torch.Tensor,
+                    w_data: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch body ``path`` ("fma" or "mma") of ``chainmm_rhs`` on checked
+    CUDA operands of one dtype (N > 0), writing ``out``.  It moves no
+    counter: a launch of the other body on the same operands is a
+    comparison."""
+    cl = tables.classes
+    if path == "mma":
+        _check_aligned16("chainmm_rhs", {"x": x, "w_data": w_data})
+    _launch("chainmm_rhs", "chainmm_rhs", "ipppppppiiiiiiiiiip",
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w_data.data_ptr(),
+            tables.col0.data_ptr(), cl.col0.data_ptr(), cl.groups.data_ptr(),
+            cl.start.data_ptr(), out.data_ptr(), x.shape[0], tables.k,
+            tables.m, tables.n_chunks, tables.group_rows, tables.chunk_cols,
+            cl.n_classes, cl.max_groups, _PATH_CODES[path],
+            chain_rhs_tile_rows(tables), x.device)
+
+
 chainmm_rhs.launches = chainmm_rhs.launches_dx = chainmm_rhs.launches_q = 0
+chainmm_rhs.launches_mma = 0
 
 
 def _check_sddmm_args(tables: ChainTables, g, x):
@@ -500,7 +556,7 @@ def _chain_sddmm_body(path: str, tables: ChainTables, g: torch.Tensor,
     a launch of the other body on the same operands is a comparison."""
     n = x.shape[0]
     cl = tables.classes
-    part, plan = None, SddmmPlan(0, 1, 0, 0)
+    part, plan = None, _NO_PLAN
     if path == "mma":
         _check_aligned16("chain_sddmm_rhs", {"g": g, "x": x})
         plan = chain_sddmm_mma_plan(tables, n, _sm_count(g.device))

@@ -20,32 +20,85 @@
 // tiles) and its static unroll of the mid factors.  Sums are f32 whatever
 // the input type.
 //
-// What bounds it on an H100.  tinyllama-1.1b under the hierarchical-block
-// plan (0.875, leaf G x C = 8 x 8 for wq/wo/wk/wv, 16 x 32 for gate/up,
-// 32 x 16 for down) stores an eighth of each matrix: at decode (8 token
-// rows) reading W bounds every launch (2 bytes a value, 8 products each);
-// at a training step's 4096 rows the products' operations do, on the
-// tensor cores' rate.  This design runs on the CUDA cores, two
-// shared-memory loads per FMA, so it stays far from either bound.
+// Two device bodies.  Which one a launch takes is a fixed function of
+// dtype and shape, chosen by the caller (kernels/chainmm.py:
+// chain_rhs_path) and passed as `path`, with the class rows of the
+// tensor-core body's block (kernels/chainmm.py:chain_rhs_tile_rows); the
+// launcher refuses a shape the chosen body cannot take, and nothing falls
+// back from one body to the other.
 //
-// The design: one block computes a (BN tokens x G rows) tile of one row
-// group.  Where the RBGP4 kernel stages one chunk of C columns per pass,
-// this one walks the row's stored columns in passes of kTileK = 64,
-// gathering the input column of each through col0 (a pass spans
-// 64 / C chunks: at C = 8, eight), so a small leaf still gives 64 FMAs
-// an output between two barriers.  Each pass stages the (BN x 64) gathered
-// inputs and the (G x 64) weights in shared memory (converted to f32);
-// each thread holds up to four outputs in registers; no sum crosses
-// blocks, so the order of every sum is fixed.  BN is a power of two
-// covering the tokens, at most 128 and at most 1024 / G.  The ragged token
-// edge and the row's last pass are masked with zeros.  Any C works, and
-// any G up to 128 (a larger G is refused: its staging would pass the 48 KB
-// of shared memory a launch gets by default).  G = C = 1 (a chain with no
-// trailing complete factor) is right and slow: a block then holds one row
-// for 128 tokens, and each stored value is one gathered input column.
-// Tensor cores need a padded tile (a leaf of 8 x 8 is below wgmma's
-// 16-wide minimum): this version stays on FMAs; TMA, a ring of stages and
-// register tiles come later.
+// 1. The bf16 tensor-core body, chainmm_rhs_mma_kernel<BR> (path 1):
+// bfloat16 at N >= 16 tokens with G, C and K multiples of 8: every
+// forward, recompute and dX launch of a training step and every prefill.
+// It works over row-group classes (kernels/chainmm.py:ChainClasses): the
+// row groups whose col0 rows are equal.  The complete 4x4 head factor and
+// the complete leaf give whole sets of row groups one column set, so a
+// class's rows together are one dense product, Y[:, class rows] =
+// X[:, the class's gathered columns] . W[class rows]^T.  tinyllama-1.1b
+// under the hierarchical-block plan (classes x rows, R = stored columns a
+// row, the contraction): wq/wo 32 x 64, R 256 (forward and transposed);
+// wk/wv 8 x 32, R 256 (forward) and 8 x 256, R 32 (transposed); gate/up
+// 8 x 704, R 256 (forward) and 8 x 256, R 704 (transposed); down the
+// other way round.
+//
+// What bounds it on an H100.  tinyllama-1.1b under that plan (0.875, leaf
+// G x C = 8 x 8 for wq/wo/wk/wv, 16 x 32 for gate/up, 32 x 16 for down)
+// stores an eighth of each matrix: at a training step's 4096 rows a
+// layer's seven forward launches do 2 * 4096 * 5.51e6 = 45.1 GFLOP, 46 us
+// at the 989 TFLOP/s bf16 dense peak, and read X and W and write Y, 0.305
+// GB, 91 us at 3.35 TB/s: bytes bound it, and dX the same.  The FMA body
+// below re-gathers X for every row group (G = 8 rows) and runs two
+// shared-memory loads per FMA.
+//
+// What the design does about it.  A block owns 128 tokens by BR class
+// rows of one class (BR = 64, or 32 where the largest class has 32 rows:
+// wk/wv's forward table), rows past the class zero-filled, so one
+// gathered X tile serves 32-64 rows instead of G.  Tokens are the mma's M
+// side, the class rows its N side and the stored columns j = s*C + c its
+// contraction: mma.sync m16n8k16 (bf16 in, f32 sums), fragments by
+// ldmatrix.  A class row's R stored values are contiguous, so W's rows
+// are the .col B operand as they lie, gathered row group by row group
+// through the class table (a thread's rows computed once a block), and
+// X's gathered rows the .row A operand.  The contraction runs in stages
+// of 64 stored columns (wk/wv's transposed R = 32: one stage, half of it
+// zero-filled), each stage's X (128 x 64, gathered 8 columns at a time
+// through the class's col0 row: C % 8 == 0, so a 16-byte chunk never
+// straddles a leaf chunk) and W (BR x 64) by 16-byte cp.async into a ring
+// of 3 stages, rows XOR-swizzled by 16-byte chunk (mma_bf16.cuh).  The 8
+// warps split the tile 4 x 2 (BR = 64) or 8 x 1 (BR = 32), 32 or 16
+// tokens by 32 rows a warp.  Y is written as the fragments lie: an n8
+// tile's eight class rows are eight consecutive rows of one row group (G
+// % 8 == 0), so the four lanes of a token write 16 contiguous bytes, one
+// bf16x2 store each.  No atomics and no sum crosses blocks: each output's
+// sum runs over R in one fixed order, so a rerun gives the same bits.
+// Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 13, N =
+// 4096): the forward 0.461 ms a layer (FMA body 8.95), dX 0.455 (8.70),
+// a little under F.linear and g @ W on the dense matrices (0.481 and
+// 0.474 ms), 5x the bytes bound.  Build (nvcc -Xptxas -v, sm_90a): BR =
+// 32 and 64 use 60 and 95 registers, no stack, no spills.  Refusals: see
+// the launcher; dynamic shared memory 3 * (128 + BR) * 64
+// * 2 = 61,440 (BR = 32) and 73,728 (BR = 64) bytes, above the 48 KB
+// default, so each launch sets cudaFuncAttributeMaxDynamicSharedMemorySize.
+//
+// 2. The FMA body, chain_tile (path 0): float32 (TF32 stays off), bf16
+// below 16 tokens (decode), the small leaves (G = C = 1 or 2) and the int8
+// path.  What bounds it on an H100: at decode (8 token rows) reading W
+// bounds every launch (2 bytes a value, 8 products each).  One block
+// computes a (BN tokens x G rows) tile of one row group.  Where the RBGP4
+// kernel stages one chunk of C columns per pass, this one walks the row's
+// stored columns in passes of kTileK = 64, gathering the input column of
+// each through col0 (a pass spans 64 / C chunks: at C = 8, eight), so a
+// small leaf still gives 64 FMAs an output between two barriers.  Each
+// pass stages the (BN x 64) gathered inputs and the (G x 64) weights in
+// shared memory (converted to f32); each thread holds up to four outputs
+// in registers; no sum crosses blocks, so the order of every sum is fixed.
+// BN is a power of two covering the tokens, at most 128 and at most 1024 /
+// G.  The ragged token edge and the row's last pass are masked with zeros.
+// Any C works, and any G up to 128 (a larger G is refused: its staging
+// would pass the 48 KB of shared memory a launch gets by default).  G = C
+// = 1 (a chain with no trailing complete factor) is right and slow: a
+// block then holds one row for 128 tokens, and each stored value is one
+// gathered input column.
 //
 // The int8 path (chainmm_rhs_q, its own __global__ symbol; the reference's
 // has_scales branch in _chain_rhs_accumulate): weight-only PTQ storage, w
@@ -68,6 +121,8 @@
 
 #include <cstdint>
 #include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -238,16 +293,261 @@ cudaError_t launch(const void* x, const void* w, const void* scales,
   return cudaGetLastError();
 }
 
+// -- the bf16 tensor-core body ---------------------------------------------
+
+constexpr int kMmaBM = 128;       // tokens a block (the mma's M side)
+constexpr int kMmaKS = 64;        // stored columns a stage (the contraction)
+constexpr int kMmaStages = 3;     // cp.async ring depth
+constexpr int kMmaThreads = 256;  // 8 warps
+
+// The warp grid of a (kMmaBM tokens x BR class rows) block tile: WARPS_M x
+// WARPS_N warps, each MT m16 tiles of tokens by NT n8 tiles of rows.
+template <int BR>
+struct ChainMma {
+  static constexpr int kWarpsN = BR >= 64 ? 2 : 1;
+  static constexpr int kWarpsM = (kMmaThreads / 32) / kWarpsN;
+  static constexpr int kWTM = kMmaBM / kWarpsM;  // tokens a warp
+  static constexpr int kWTN = BR / kWarpsN;      // class rows a warp
+  static constexpr int kMT = kWTM / 16;
+  static constexpr int kNT = kWTN / 8;
+  static constexpr int kWRows = BR * 8 / kMmaThreads;  // W rows a thread
+  static constexpr size_t kSmem =
+      (size_t)kMmaStages * (kMmaBM + BR) * kMmaKS * sizeof(__nv_bfloat16);
+  static_assert(BR == 32 || BR == 64, "class rows a block");
+  static_assert(kWTN % 16 == 0 && kWRows >= 1, "warp tile");
+};
+
+// Y[n0 : n0+128, class rows i0 .. i0+BR-1] of class blockIdx.z (n0 =
+// 128*blockIdx.x, i0 = BR*blockIdx.y): class row i is row (i % G) of row
+// group cls_groups[cls_start[c] + i / G], and every row of the class meets
+// stored column j = s*C + c with input column cls_col0[c, s] + c, so the
+// tile is one dense product, X gathered at the class's col0 row (N x R,
+// R = n_chunks*C) times the class rows' stored values (R contiguous a
+// row: the col-major B operand as they lie).  The contraction runs over R
+// in stages of kMmaKS: each stage's X (128 x 64, gathered 8 columns at a
+// time: C % 8 == 0, so a 16-byte chunk never straddles a chunk of the
+// leaf) and W (BR x 64, a fixed row a thread, gathered once) arrive by
+// 16-byte cp.async in a ring of kMmaStages; columns past R, tokens past
+// N and rows past the class are zero-filled by the copy itself.  Each
+// output's sum runs over R in one fixed order.  A block past its class's
+// rows returns at once.
+template <int BR>
+__global__ void __launch_bounds__(kMmaThreads)
+    chainmm_rhs_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           const int* __restrict__ cls_col0,
+                           const int* __restrict__ cls_groups,
+                           const int* __restrict__ cls_start,
+                           __nv_bfloat16* __restrict__ out, int n_tokens,
+                           int k, int m, int n_chunks, int G, int C) {
+  using S = ChainMma<BR>;
+  using mma_bf16::swz;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ws = xs + kMmaStages * kMmaBM * kMmaKS;
+
+  const int cls = blockIdx.z;
+  const int first = cls_start[cls];
+  const int rows = (cls_start[cls + 1] - first) * G;  // the class's rows
+  const int i0 = blockIdx.y * BR;
+  if (i0 >= rows) return;  // the whole block: a smaller class
+  const int n0 = blockIdx.x * kMmaBM;
+  const int len = n_chunks * C;  // R, stored columns of a row
+  const int n_steps = (len + kMmaKS - 1) / kMmaKS;
+  const int* cols = cls_col0 + (long long)cls * n_chunks;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp % S::kWarpsM;
+  const int wn = warp / S::kWarpsM;
+
+  // this thread's 16-byte chunk jc of every staged row (X and W alike), and
+  // its W rows: class rows i0 + tid/8 + 32*it, gathered once
+  const int jc = tid & 7;
+  const __nv_bfloat16* w_src[S::kWRows];
+  bool w_ok[S::kWRows];
+#pragma unroll
+  for (int it = 0; it < S::kWRows; ++it) {
+    const int ci = i0 + (tid >> 3) + it * (kMmaThreads / 8);
+    w_ok[it] = ci < rows;
+    const long long row =
+        w_ok[it] ? (long long)cls_groups[first + ci / G] * G + ci % G : 0;
+    w_src[it] = w + row * len + jc * 8;
+  }
+
+  auto load_stage = [&](int step, int slot) {
+    __nv_bfloat16* xd = xs + slot * kMmaBM * kMmaKS;
+    __nv_bfloat16* wd = ws + slot * BR * kMmaKS;
+    const int kk = step * kMmaKS + jc * 8;
+    const bool k_in = kk < len;
+    int x_col = 0;
+    if (k_in) {
+      const int s = kk / C;
+      x_col = cols[s] + (kk - s * C);
+    }
+#pragma unroll
+    for (int r = tid >> 3; r < kMmaBM; r += kMmaThreads / 8) {
+      const int n = n0 + r;
+      const bool ok = k_in && n < n_tokens;
+      const __nv_bfloat16* src = ok ? x + (long long)n * k + x_col : x;
+      mma_bf16::cp_async16(xd + swz<8>(r, jc), src, ok);
+    }
+#pragma unroll
+    for (int it = 0; it < S::kWRows; ++it) {
+      const int r = (tid >> 3) + it * (kMmaThreads / 8);
+      const bool ok = k_in && w_ok[it];
+      const __nv_bfloat16* src = ok ? w_src[it] + step * kMmaKS : w;
+      mma_bf16::cp_async16(wd + swz<8>(r, jc), src, ok);
+    }
+  };
+
+  float acc[S::kMT][S::kNT][4];
+#pragma unroll
+  for (int i = 0; i < S::kMT; ++i)
+#pragma unroll
+    for (int t = 0; t < S::kNT; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][t][q] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < kMmaStages - 1; ++st) {
+    if (st < n_steps) load_stage(st, st);
+    mma_bf16::cp_async_commit();
+  }
+  for (int step = 0; step < n_steps; ++step) {
+    // stage `step` has landed, and every warp is done with the slot the
+    // next load overwrites (the one computed last iteration)
+    mma_bf16::cp_async_wait<kMmaStages - 2>();
+    __syncthreads();
+    const int next = step + kMmaStages - 1;
+    if (next < n_steps) load_stage(next, next % kMmaStages);
+    mma_bf16::cp_async_commit();
+    const int slot = step % kMmaStages;
+    const __nv_bfloat16* xt = xs + slot * kMmaBM * kMmaKS;
+    const __nv_bfloat16* wt = ws + slot * BR * kMmaKS;
+#pragma unroll
+    for (int ks = 0; ks < kMmaKS / 16; ++ks) {
+      uint32_t a[S::kMT][4];
+#pragma unroll
+      for (int i = 0; i < S::kMT; ++i) {
+        const int r = wm * S::kWTM + i * 16 + (lane & 15);
+        mma_bf16::ldmatrix_x4(a[i], xt + swz<8>(r, ks * 2 + (lane >> 4)));
+      }
+#pragma unroll
+      for (int t = 0; t < S::kNT / 2; ++t) {
+        // class rows t*16 .. +15 of the warp's: matrices (rows 0-7, k
+        // 0-7), (rows 0-7, k 8-15), (rows 8-15, k 0-7), (rows 8-15, k
+        // 8-15) = b0, b1 of n8 tile 2t and b0, b1 of tile 2t+1
+        uint32_t b[4];
+        const int r = wn * S::kWTN + t * 16 + (lane & 7) + ((lane >> 4) << 3);
+        mma_bf16::ldmatrix_x4(b, wt + swz<8>(r, ks * 2 + ((lane >> 3) & 1)));
+#pragma unroll
+        for (int i = 0; i < S::kMT; ++i) {
+          mma_bf16::mma_16816(acc[i][2 * t], a[i], b[0], b[1]);
+          mma_bf16::mma_16816(acc[i][2 * t + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+  mma_bf16::cp_async_wait<0>();
+
+  // c0, c1 at (token lane/4, class rows 2*(lane%4) + {0, 1}), c2, c3 eight
+  // tokens further: an n8 tile's eight class rows are eight consecutive
+  // rows of one row group (G % 8 == 0), so the four lanes of a token write
+  // 16 contiguous bytes of Y, one bf16x2 store each
+#pragma unroll
+  for (int t = 0; t < S::kNT; ++t) {
+    const int ci = i0 + wn * S::kWTN + t * 8 + (lane & 3) * 2;
+    if (ci >= rows) continue;
+    const int row = cls_groups[first + ci / G] * G + ci % G;
+#pragma unroll
+    for (int i = 0; i < S::kMT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + wm * S::kWTM + i * 16 + (lane >> 2) + h * 8;
+        if (n >= n_tokens) continue;
+        *reinterpret_cast<uint32_t*>(out + (long long)n * m + row) =
+            mma_bf16::pack_bf16x2(acc[i][t][2 * h], acc[i][t][2 * h + 1]);
+      }
+  }
+}
+
+template <int BR>
+cudaError_t launch_mma_rows(const void* x, const void* w,
+                            const void* cls_col0, const void* cls_groups,
+                            const void* cls_start, void* out, int n_tokens,
+                            int k, int m, int n_chunks, int G, int C,
+                            int n_classes, int max_groups,
+                            cudaStream_t stream) {
+  using S = ChainMma<BR>;
+  const auto kernel = chainmm_rhs_mma_kernel<BR>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_tokens + kMmaBM - 1) / kMmaBM,
+                  (max_groups * G + BR - 1) / BR, n_classes);
+  kernel<<<grid, kMmaThreads, S::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(cls_col0),
+      static_cast<const int*>(cls_groups), static_cast<const int*>(cls_start),
+      static_cast<__nv_bfloat16*>(out), n_tokens, k, m, n_chunks, G, C);
+  return cudaGetLastError();
+}
+
+// The mma body: bf16 only, G, C and K multiples of 8, x and w 16-byte
+// aligned, tile_rows 32 or 64 (kernels/chainmm.py:chain_rhs_tile_rows),
+// at most 65535 classes and tiles a side; anything else is refused.
+cudaError_t launch_mma(const void* x, const void* w, const void* cls_col0,
+                       const void* cls_groups, const void* cls_start,
+                       void* out, int n_tokens, int k, int m, int n_chunks,
+                       int G, int C, int n_classes, int max_groups,
+                       int tile_rows, cudaStream_t stream) {
+  if (n_tokens < 1 || n_chunks < 1 || G < 8 || G % 8 != 0 || m % G != 0 ||
+      C < 8 || C % 8 != 0 || k % 8 != 0 || n_classes < 1 ||
+      n_classes > 65535 || max_groups < 1 || !mma_bf16::aligned16(x) ||
+      !mma_bf16::aligned16(w) ||
+      ((long long)n_tokens + kMmaBM - 1) / kMmaBM > 2147483647LL ||
+      ((long long)max_groups * G + tile_rows - 1) / tile_rows > 65535 ||
+      (long long)n_chunks * C > 2147483647LL - kMmaKS)
+    return cudaErrorInvalidValue;
+  if (tile_rows == 32)
+    return launch_mma_rows<32>(x, w, cls_col0, cls_groups, cls_start, out,
+                               n_tokens, k, m, n_chunks, G, C, n_classes,
+                               max_groups, stream);
+  if (tile_rows == 64)
+    return launch_mma_rows<64>(x, w, cls_col0, cls_groups, cls_start, out,
+                               n_tokens, k, m, n_chunks, G, C, n_classes,
+                               max_groups, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and out all of it).  x (N, K),
-// w (M, n_chunks*C), col0 (M/G, n_chunks) int32, out (N, M).  Returns the
+// w (M, n_chunks*C), col0 (M/G, n_chunks) int32, out (N, M).  path: 0 the
+// FMA body (reads col0), 1 the bf16 tensor-core body (the caller's choice,
+// kernels/chainmm.py:chain_rhs_path), which reads the row-group classes
+// instead (cls_col0 (n_classes, n_chunks), cls_groups (M/G,), cls_start
+// (n_classes + 1,), int32; max_groups the largest class's row groups) and
+// takes tile_rows class rows a block (kernels/chainmm.py:
+// chain_rhs_tile_rows).  The FMA body ignores the classes.  Returns the
 // cudaError_t of the launch.
 extern "C" int chainmm_rhs_launch(int dtype, const void* x, const void* w,
-                                  const void* col0, void* out, int n_tokens,
-                                  int k, int m, int n_chunks, int G, int C,
+                                  const void* col0, const void* cls_col0,
+                                  const void* cls_groups,
+                                  const void* cls_start, void* out,
+                                  int n_tokens, int k, int m, int n_chunks,
+                                  int G, int C, int n_classes,
+                                  int max_groups, int path, int tile_rows,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return (int)launch_mma(x, w, cls_col0, cls_groups, cls_start, out,
+                           n_tokens, k, m, n_chunks, G, C, n_classes,
+                           max_groups, tile_rows, s);
+  }
+  if (path != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch<float>(x, w, nullptr, col0, out, n_tokens, k, m,
                               n_chunks, G, C, s);

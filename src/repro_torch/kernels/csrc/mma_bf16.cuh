@@ -1,8 +1,9 @@
-// Tensor-core helpers for the bf16 bodies of rbgp4mm_rhs.cu and
-// rbgp4_sddmm_rhs.cu (sm_90a): 16-byte cp.async into shared memory,
-// ldmatrix (plain and .trans), mma.sync m16n8k16 with f32 sums, the XOR
-// swizzle that keeps ldmatrix free of bank conflicts, and the launchers'
-// 16-byte alignment check.
+// Tensor-core helpers for the bf16 bodies of rbgp4mm_rhs.cu,
+// rbgp4_sddmm_rhs.cu, chainmm_rhs.cu and chain_sddmm_rhs.cu (sm_90a):
+// 16-byte cp.async into shared memory, ldmatrix (plain and .trans),
+// mma.sync m16n8k16 with f32 sums, bf16x2 packing, the XOR swizzle that
+// keeps ldmatrix free of bank conflicts, and the launchers' 16-byte
+// alignment check.
 //
 // A shared-memory tile here is rows of W 16-byte chunks (8 bf16 each).
 // ldmatrix reads eight rows of one chunk column at a time; the eight
@@ -79,6 +80,13 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 and packed, lo in the low half (the lower
+// address once stored)
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // element offset of chunk j of row r in a swizzled tile of W chunks a row

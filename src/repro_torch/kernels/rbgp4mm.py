@@ -327,47 +327,90 @@ def stacked_mma_block_tokens(n_tokens: int, transposed: bool) -> int:
 
 def sddmm_path(dims: KernelDims, n_tokens: int, dtype: torch.dtype) -> str:
     """``"mma"`` or ``"fma"``: the body a launch of ``rbgp4_sddmm_rhs``
-    takes.  The mma body takes bfloat16 at ``n_tokens >= MMA_MIN_TOKENS``,
-    G and C multiples of 16 and K a multiple of 8; float32 keeps the FMA
-    body, and so does the stacked entry point, which has no other."""
+    takes for ``n_tokens`` tokens, and a launch of
+    ``rbgp4_sddmm_rhs_stacked`` for ``n_tokens`` rows an expert.  The mma
+    body takes bfloat16 at ``n_tokens >= MMA_MIN_TOKENS``, G and C
+    multiples of 16 and K a multiple of 8; float32 (no TF32) keeps the FMA
+    body."""
     if (dtype != torch.bfloat16 or n_tokens < MMA_MIN_TOKENS
             or dims.group_rows % 16 or dims.chunk_cols % 16 or dims.k % 8):
         return "fma"
     return "mma"
 
 
+#: (block_cols, stage_tokens) of the dW mma body that
+#: ``chip_smoke.phase_stacked_dw_tiles`` times for the stacked entry point
+STACKED_SDDMM_TILES = ((16, 128), (32, 128), (64, 128), (128, 128),
+                       (16, 64), (32, 64), (64, 64), (128, 64))
+
+
+def stacked_sddmm_tile(dims: KernelDims, n_tokens: int) -> tuple[int, int]:
+    """(block_cols, stage_tokens) of ``rbgp4_sddmm_rhs_stacked``'s
+    tensor-core body for ``n_tokens`` rows an expert: a block owns the
+    widest of 128, 64, 32, 16 compact columns that the row's columns
+    fill at least half of (several slots of one 16-row sub-tile where C is
+    smaller, so one staged g tile serves them all), with 64-token stages
+    on 4 warps."""
+    bc = 128
+    while bc > 16 and 2 * dims.data_cols <= bc:
+        bc //= 2
+    return bc, 64
+
+
 @dataclasses.dataclass(frozen=True)
 class SddmmPlan:
     """The launch plan of a dW mma body: a block owns ``block_cols``
-    columns (``rbgp4_sddmm_rhs``: of one slot, by 16 rows) over one of
-    ``n_slices`` token slices of ``slice_len`` tokens (the last one
-    ragged), ``blocks`` blocks in all."""
+    columns (``rbgp4_sddmm_rhs``: of one row's compact columns, by 16
+    rows) over one of ``n_slices`` token slices of ``slice_len`` tokens
+    (the last one ragged), in stages of ``stage_tokens``; ``blocks``
+    blocks in all."""
 
     block_cols: int
     n_slices: int
     slice_len: int
     blocks: int
+    stage_tokens: int
 
-    def workspace_shape(self, dims) -> Optional[tuple]:
-        """The float32 partial sums' shape, (n_slices, M, nnz_row) of
-        ``dims`` (``KernelDims`` or ``ChainTables``), or None for a single
-        slice (the block writes dW itself)."""
+    def workspace_shape(self, dims, n_experts: int = 1) -> Optional[tuple]:
+        """The float32 partial sums' shape, (n_experts * n_slices, M,
+        nnz_row) of ``dims`` (``KernelDims`` or ``ChainTables``), or None
+        for a single slice (the block writes dW itself)."""
         if self.n_slices == 1:
             return None
-        return (self.n_slices, dims.m, dims.data_cols)
+        return (n_experts * self.n_slices, dims.m, dims.data_cols)
 
 
-def sddmm_mma_plan(dims: KernelDims, n_tokens: int,
-                   sm_count: int) -> SddmmPlan:
-    """The dW mma body's plan on a card of ``sm_count`` SMs: the widest
-    ``block_cols`` in (128, 64, 32, 16) dividing C, and as many token
-    slices as bring the grid to ``SDDMM_MMA_WAVES`` waves of blocks, each
-    of at least ``SDDMM_MMA_MIN_SLICE`` tokens and a whole number of
-    stages."""
-    bc = next(b for b in (128, 64, 32, 16) if dims.chunk_cols % b == 0)
-    base = (dims.m // 16) * dims.d_o * dims.d_i * (dims.chunk_cols // bc)
-    return token_slices(bc, base, n_tokens, sm_count,
-                        SDDMM_MMA_STAGE_TOKENS)
+#: the plan of an FMA launch, which takes none
+_NO_PLAN = SddmmPlan(0, 1, 0, 0, 0)
+
+
+def sddmm_mma_plan(dims: KernelDims, n_tokens: int, sm_count: int,
+                   n_experts: int = 1,
+                   tile: Optional[tuple[int, int]] = None) -> SddmmPlan:
+    """The dW mma body's plan on a card of ``sm_count`` SMs for
+    ``n_experts`` experts (1: the unstacked entry point) of ``n_tokens``
+    tokens each: ``tile`` (block_cols, stage_tokens), by default the
+    widest ``block_cols`` in (128, 64, 32, 16) dividing C with
+    ``SDDMM_MMA_STAGE_TOKENS``-token stages, and as many token slices as
+    bring the grid to ``SDDMM_MMA_WAVES`` waves of blocks, each of at
+    least ``SDDMM_MMA_MIN_SLICE`` tokens and a whole number of stages."""
+    if tile is None:
+        tile = (next(b for b in (128, 64, 32, 16) if dims.chunk_cols % b == 0),
+                SDDMM_MMA_STAGE_TOKENS)
+    bc, stage = tile
+    base = n_experts * (dims.m // 16) * -(-dims.data_cols // bc)
+    return token_slices(bc, base, n_tokens, sm_count, stage)
+
+
+def stacked_sddmm_mma_plan(dims: KernelDims, n_experts: int, n_tokens: int,
+                           sm_count: int) -> SddmmPlan:
+    """The plan of ``rbgp4_sddmm_rhs_stacked``'s tensor-core body:
+    ``sddmm_mma_plan`` with the tile ``stacked_sddmm_tile`` names.  At a
+    qwen2-moe-a2.7b training step (60 experts, 171 rows an expert) the
+    grid has tens of thousands of blocks, so one slice and no
+    workspace."""
+    return sddmm_mma_plan(dims, n_tokens, sm_count, n_experts,
+                          stacked_sddmm_tile(dims, n_tokens))
 
 
 def token_slices(block_cols: int, base: int, n_tokens: int, sm_count: int,
@@ -382,7 +425,7 @@ def token_slices(block_cols: int, base: int, n_tokens: int, sm_count: int,
     per_slice = -(-n_tokens // slices)
     slice_len = -(-per_slice // stage) * stage  # whole stages
     slices = -(-n_tokens // slice_len)
-    return SddmmPlan(block_cols, slices, slice_len, base * slices)
+    return SddmmPlan(block_cols, slices, slice_len, base * slices, stage)
 
 
 def _sm_count(device) -> int:
@@ -597,27 +640,33 @@ def rbgp4_sddmm_rhs(tables: KernelTables, g: torch.Tensor,
 
 
 def _sddmm_body(path: str, tables: KernelTables, g: torch.Tensor,
-                x: torch.Tensor, dw: torch.Tensor) -> None:
+                x: torch.Tensor, dw: torch.Tensor,
+                plan: Optional[SddmmPlan] = None) -> None:
     """Launch body ``path`` ("fma" or "mma") of ``rbgp4_sddmm_rhs`` on
     checked CUDA operands of one dtype (N > 0), writing ``dw``; the mma
-    body's token-slice workspace is allocated here.  It moves no counter,
-    as ``_rhs_body``."""
+    body's token-slice workspace is allocated here.  ``plan`` is the mma
+    body's (``sddmm_mma_plan``'s unless given: the stacked entry point's
+    plan gives an expert's bits).  It moves no counter, as
+    ``_rhs_body``."""
     dims = tables.dims
     n = x.shape[0]
-    part, plan = None, SddmmPlan(0, 1, 0, 0)
+    part = None
     if path == "mma":
         _check_aligned16("rbgp4_sddmm_rhs", {"g": g, "x": x})
-        plan = sddmm_mma_plan(dims, n, _sm_count(g.device))
+        if plan is None:
+            plan = sddmm_mma_plan(dims, n, _sm_count(g.device))
         shape = plan.workspace_shape(dims)
         if shape is not None:
             part = torch.empty(shape, dtype=torch.float32, device=g.device)
-    _launch("rbgp4_sddmm_rhs", "rbgp4_sddmm_rhs", "ipppppiiiiiiiiiip",
+    else:
+        plan = _NO_PLAN
+    _launch("rbgp4_sddmm_rhs", "rbgp4_sddmm_rhs", "ipppppiiiiiiiiiiip",
             _DTYPE_CODES[g.dtype], g.data_ptr(), x.data_ptr(),
             tables.col0.data_ptr(), dw.data_ptr(),
             part.data_ptr() if part is not None else None, n, dims.k,
             dims.m, dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols,
-            _PATH_CODES[path], plan.block_cols, plan.n_slices,
-            plan.slice_len, g.device)
+            _PATH_CODES[path], plan.block_cols, plan.stage_tokens,
+            plan.n_slices, plan.slice_len, g.device)
 
 
 rbgp4_sddmm_rhs.launches = rbgp4_sddmm_rhs.launches_mma = 0
@@ -908,7 +957,12 @@ def rbgp4_sddmm_rhs_stacked(tables: KernelTables, g: torch.Tensor,
 
     ``tables`` are the forward layout's kernel tables.  CPU tensors run the
     plain version; CUDA tensors launch the kernel, which takes float32 or
-    bfloat16 g and x of one dtype, both contiguous.
+    bfloat16 g and x of one dtype, both contiguous.  The body is
+    ``sddmm_path``'s for ``N`` rows an expert: bfloat16 from
+    ``MMA_MIN_TOKENS`` rows on runs on the tensor cores with the plan
+    ``stacked_sddmm_mma_plan`` names (counted again in ``launches_mma``),
+    each expert's dW the bits of the unstacked launch of that body and
+    plan on the expert's slice.
     """
     dims = tables.dims
     _check_stacked_sddmm_args(dims, g, x)
@@ -921,12 +975,40 @@ def rbgp4_sddmm_rhs_stacked(tables: KernelTables, g: torch.Tensor,
         return torch.zeros((e, dims.m, dims.data_cols), dtype=dt,
                            device=g.device)
     dw = torch.empty((e, dims.m, dims.data_cols), dtype=dt, device=g.device)
-    _launch("rbgp4_sddmm_rhs", "rbgp4_sddmm_rhs_stacked", "ippppiiiiiiip",
-            _DTYPE_CODES[dt], g.data_ptr(), x.data_ptr(),
-            tables.col0.data_ptr(), dw.data_ptr(), e, n, dims.k, dims.m,
-            dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols, g.device)
+    path = sddmm_path(dims, n, dt)
+    _sddmm_stacked_body(path, tables, g, x, dw)
     rbgp4_sddmm_rhs_stacked.launches += 1
+    if path == "mma":
+        rbgp4_sddmm_rhs_stacked.launches_mma += 1
     return dw
 
 
-rbgp4_sddmm_rhs_stacked.launches = 0
+def _sddmm_stacked_body(path: str, tables: KernelTables, g: torch.Tensor,
+                        x: torch.Tensor, dw: torch.Tensor,
+                        plan: Optional[SddmmPlan] = None) -> None:
+    """Launch body ``path`` of ``rbgp4_sddmm_rhs_stacked`` on checked CUDA
+    operands (E, N > 0), writing ``dw``; ``plan`` is the mma body's
+    (``stacked_sddmm_mma_plan``'s unless given, to time another tile).
+    It moves no counter, as ``_rhs_body``."""
+    dims = tables.dims
+    e, n = x.shape[0], x.shape[1]
+    part = None
+    if path == "mma":
+        _check_aligned16("rbgp4_sddmm_rhs_stacked", {"g": g, "x": x})
+        if plan is None:
+            plan = stacked_sddmm_mma_plan(dims, e, n, _sm_count(g.device))
+        shape = plan.workspace_shape(dims, e)
+        if shape is not None:
+            part = torch.empty(shape, dtype=torch.float32, device=g.device)
+    else:
+        plan = _NO_PLAN
+    _launch("rbgp4_sddmm_rhs", "rbgp4_sddmm_rhs_stacked",
+            "ipppppiiiiiiiiiiiip", _DTYPE_CODES[g.dtype], g.data_ptr(),
+            x.data_ptr(), tables.col0.data_ptr(), dw.data_ptr(),
+            part.data_ptr() if part is not None else None, e, n, dims.k,
+            dims.m, dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols,
+            _PATH_CODES[path], plan.block_cols, plan.stage_tokens,
+            plan.n_slices, plan.slice_len, g.device)
+
+
+rbgp4_sddmm_rhs_stacked.launches = rbgp4_sddmm_rhs_stacked.launches_mma = 0

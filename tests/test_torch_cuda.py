@@ -22,15 +22,17 @@ tensor-core bodies of ``rbgp4mm_rhs`` (forward, ``save_preact``, dX) and
 ``rbgp4_sddmm_rhs`` (bit-equal on a rerun) at every (G, C) of G in
 {16, 64, 128}, C in {16, 64} and tinyllama's four layouts at N in
 {16, 64, 77, 1037}, ``RBGP4Linear``'s bf16 gradients on them against dense
-autograd at N = 1037, and the FMA bodies kept at decode, in float32, on
-the int8 entry points and on the stacked dW.  Every stacked expert stays
-bit-equal to the unstacked launch of the body ``rhs_path`` picks on that
-expert (the bf16 tensor-core body from 16 rows an expert on).  And the
-bf16 tensor-core body of ``chain_sddmm_rhs`` over row-group classes
-(small chains with leaves 8 x 16, 16 x 8, 8 x 8 and 128 x 64, classes of
-unequal sizes among them, and tinyllama's four chain shapes) against its
-plain version, bit-equal on a rerun, and ``ChainLinear``'s bf16
-gradients on it against dense autograd at N = 1037.
+autograd at N = 1037, and the FMA bodies kept at decode, in float32 and
+on the int8 entry points.  Every stacked expert stays bit-equal to the
+unstacked launch of the body ``rhs_path`` (``sddmm_path`` and the
+stacked plan, for dW) picks on that expert (the bf16 tensor-core bodies
+from 16 rows an expert on).  And the bf16 tensor-core bodies of
+``chain_sddmm_rhs`` and ``chainmm_rhs`` (forward and transposed tables)
+over row-group classes (small chains with leaves 8 x 16, 16 x 8, 8 x 8
+and 128 x 64, classes of unequal sizes among them, and tinyllama's four
+chain shapes) against their plain versions, bit-equal on a rerun, and
+``ChainLinear``'s bf16 gradients on them against dense autograd at N =
+1037.
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -66,10 +68,13 @@ from repro_torch.kernels import (ChainLinear, KernelTables, RBGP4Linear,
                                  chain_sddmm_rhs, chain_sddmm_rhs_reference,
                                  chain_tables, chain_transpose_tables,
                                  chainmm_rhs, chainmm_rhs_reference,
-                                 rhs_path, sddmm_path)
-from repro_torch.kernels.chainmm import (_chain_sddmm_body, chain_sddmm_path,
+                                 rhs_path, sddmm_path,
+                                 stacked_sddmm_mma_plan)
+from repro_torch.kernels.chainmm import (_chain_rhs_body, _chain_sddmm_body,
+                                         chain_rhs_path, chain_sddmm_path,
                                          chain_unpack_dense)
-from repro_torch.kernels.rbgp4mm import _rhs_body, _sddmm_body
+from repro_torch.kernels.rbgp4mm import (_rhs_body, _sddmm_body,
+                                         _sddmm_stacked_body, _sm_count)
 from repro_torch.kernels.ref import unpack_dense
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -172,9 +177,15 @@ def fma_rhs(tables, x, w, bias=None, act=None):
 
 def fma_sddmm(tables, gy, x):
     """The unstacked dW kernel's FMA body, as ``fma_rhs``."""
+    return body_sddmm("fma", tables, gy, x)
+
+
+def body_sddmm(path, tables, gy, x, plan=None):
+    """The unstacked dW kernel's body ``path`` on (gy, x), the mma body
+    with ``plan`` (its own unless given)."""
     dw = torch.empty((tables.dims.m, tables.dims.data_cols), dtype=x.dtype,
                      device=x.device)
-    _sddmm_body("fma", tables, gy, x, dw)
+    _sddmm_body(path, tables, gy, x, dw, plan=plan)
     return dw
 
 
@@ -402,9 +413,13 @@ def test_cuda_stacked_sddmm_matches_plain_and_unstacked(dtype):
         want = rbgp4_sddmm_rhs_stacked_reference(tables, gy, x)
         assert_close(got, want, dtype, (lay.spec, e, n))
         assert torch.equal(got, rbgp4_sddmm_rhs_stacked(tables, gy, x))
+        path = sddmm_path(tables.dims, n, dtype)
+        plan = (stacked_sddmm_mma_plan(tables.dims, e, n, _sm_count("cuda"))
+                if path == "mma" else None)
         for i in (0, e - 1):
-            assert torch.equal(got[i], fma_sddmm(tables, gy[i], x[i]))
-            if sddmm_path(tables.dims, n, dtype) == "mma":
+            assert torch.equal(got[i], body_sddmm(path, tables, gy[i], x[i],
+                                                  plan)), (lay.spec, e, n, i)
+            if path == "mma":
                 assert_close(got[i], rbgp4_sddmm_rhs(tables, gy[i], x[i]),
                              dtype, (lay.spec, e, n, i, "mma"))
 
@@ -908,12 +923,13 @@ def test_cuda_mma_bodies_match_plain_versions():
 
 
 @pytest.mark.cuda
-def test_cuda_mma_bodies_leave_decode_float32_int8_and_stacked_dw_to_fma():
+def test_cuda_mma_bodies_leave_decode_float32_and_int8_to_fma():
     """N = 8 in bf16 and float32 at any N take the FMA bodies, unstacked,
-    stacked and chain; so do the int8 entry points and the stacked dW in
-    bf16 at a training step's N, where the stacked forward and dX take
-    the tensor-core body: only ``rbgp4mm_rhs_stacked.launches_mma`` moves,
-    by two."""
+    stacked and chain, forward and dW; so do the int8 entry points in
+    bf16 at a training step's N, where the stacked forward, dX and dW
+    take the tensor-core bodies: ``rbgp4mm_rhs_stacked.launches_mma``
+    moves by two, ``rbgp4_sddmm_rhs_stacked.launches_mma`` by one, and
+    nothing else."""
     from repro_torch.sparsity import leaf_block_dims
 
     needs_card()
@@ -925,18 +941,23 @@ def test_cuda_mma_bodies_leave_decode_float32_int8_and_stacked_dw_to_fma():
     g = torch.Generator(device="cuda").manual_seed(15)
     mma = lambda: (rbgp4mm_rhs.launches_mma, rbgp4_sddmm_rhs.launches_mma,
                    rbgp4mm_rhs_stacked.launches_mma,
-                   chain_sddmm_rhs.launches_mma)
+                   rbgp4_sddmm_rhs_stacked.launches_mma,
+                   chainmm_rhs.launches_mma, chain_sddmm_rhs.launches_mma)
     for n, dt in ((8, torch.bfloat16), (1037, torch.float32)):
         x = torch.randn(n, lay.k, device="cuda").to(dt)
         w = torch.randn(lay.data_shape, device="cuda").to(dt)
         gy = torch.randn(n, lay.m, device="cuda").to(dt)
+        stack = lambda t: t[None].expand(2, -1, -1).contiguous()
         before = mma()
         rbgp4mm_rhs(tables, x, w)
         rbgp4_sddmm_rhs(tables, gy, x)
-        rbgp4mm_rhs_stacked(tables, x[None].expand(2, -1, -1).contiguous(),
-                            w[None].expand(2, -1, -1).contiguous())
+        rbgp4mm_rhs_stacked(tables, stack(x), stack(w))
+        rbgp4_sddmm_rhs_stacked(tables, stack(gy), stack(x))
+        cx = torch.randn(n, chain.k, device="cuda").to(dt)
+        chainmm_rhs(ct, cx, torch.randn(chain.data_shape,
+                                        device="cuda").to(dt))
         chain_sddmm_rhs(ct, torch.randn(n, chain.m, device="cuda").to(dt),
-                        torch.randn(n, chain.k, device="cuda").to(dt))
+                        cx)
         torch.cuda.synchronize()
         assert mma() == before, (n, dt)
     dt, e, n = torch.bfloat16, 2, 1037
@@ -944,20 +965,26 @@ def test_cuda_mma_bodies_leave_decode_float32_int8_and_stacked_dw_to_fma():
     w = torch.randn(e, *lay.data_shape, device="cuda").to(dt)
     gy = torch.randn(e, n, lay.m, device="cuda").to(dt)
     q, s = int8_values(lay.data_shape, *leaf_block_dims(lay), g)
+    cq, cs = int8_values(chain.data_shape, ct.group_rows, ct.chunk_cols, g)
     before = (mma(), rbgp4mm_rhs_stacked.launches,
               rbgp4mm_rhs_stacked.launches_dx,
-              rbgp4_sddmm_rhs_stacked.launches, rbgp4mm_rhs.launches_q)
+              rbgp4_sddmm_rhs_stacked.launches, rbgp4mm_rhs.launches_q,
+              chainmm_rhs.launches_q)
     rbgp4mm_rhs_stacked(tables, x, w)
     rbgp4mm_rhs_stacked(tt.tables, gy, tt.values(w))
     rbgp4_sddmm_rhs_stacked(tables, gy, x)
     rbgp4mm_rhs(tables, x[0], q, scales=s)
+    chainmm_rhs(ct, torch.randn(n, chain.k, device="cuda").to(dt), cq,
+                scales=cs)
     torch.cuda.synchronize()
-    want_mma = (before[0][0], before[0][1], before[0][2] + 2, before[0][3])
+    b = before[0]
+    want_mma = (b[0], b[1], b[2] + 2, b[3] + 1, b[4], b[5])
     assert (mma(), rbgp4mm_rhs_stacked.launches,
             rbgp4mm_rhs_stacked.launches_dx,
-            rbgp4_sddmm_rhs_stacked.launches, rbgp4mm_rhs.launches_q) == (
+            rbgp4_sddmm_rhs_stacked.launches, rbgp4mm_rhs.launches_q,
+            chainmm_rhs.launches_q) == (
         want_mma, before[1] + 1, before[2] + 1, before[3] + 1,
-        before[4] + 1)
+        before[4] + 1, before[5] + 1)
 
 
 @pytest.mark.cuda
@@ -1104,8 +1131,8 @@ def test_cuda_chain_mma_body_reruns_bit_equal():
 
 @pytest.mark.cuda
 def test_cuda_chain_linear_mma_grads_match_dense_autograd():
-    """``ChainLinear`` in bf16 at N = 1037 (dW on the tensor-core body)
-    against float32 autograd through the dense matrix
+    """``ChainLinear`` in bf16 at N = 1037 (the forward, dX and dW on the
+    tensor-core bodies) against float32 autograd through the dense matrix
     ``chain_unpack_dense`` on the same bf16 values: y, dX and dW."""
     needs_card()
     dt = torch.bfloat16
@@ -1116,12 +1143,15 @@ def test_cuda_chain_linear_mma_grads_match_dense_autograd():
                 .to(dt).cuda() for s in ((n, lay.k), lay.data_shape,
                                          (n, lay.m))]
         x, w = (a.clone().requires_grad_() for a in arrs[:2])
-        before = chain_sddmm_rhs.launches_mma
+        before = (chainmm_rhs.launches_mma, chain_sddmm_rhs.launches_mma)
         y = ChainLinear.apply(x, w, chain_tables(lay, "cuda"),
                               chain_transpose_tables(lay, "cuda"))
         y.backward(arrs[2])
         torch.cuda.synchronize()
-        assert chain_sddmm_rhs.launches_mma == before + 1
+        # the forward and dX on chainmm_rhs's tensor-core body, dW on
+        # chain_sddmm_rhs's
+        assert (chainmm_rhs.launches_mma - before[0],
+                chain_sddmm_rhs.launches_mma - before[1]) == (2, 1)
         xd, wd = (a.float().requires_grad_() for a in arrs[:2])
         yd = xd @ chain_unpack_dense(lay, wd).T
         yd.backward(arrs[2].float())
@@ -1129,3 +1159,148 @@ def test_cuda_chain_linear_mma_grads_match_dense_autograd():
                             ("dw", w.grad, wd.grad)):
             assert a.dtype == dt
             assert_close(a, b_, dt, (lay.m, lay.k, name), GRAD_TOL)
+
+
+# -- the bf16 tensor-core body of chainmm_rhs over row-group classes ---------
+
+@pytest.mark.cuda
+def test_cuda_chain_rhs_mma_body_matches_plain_version():
+    """bf16 from N = 16 on: the forward on forward tables and dX on
+    transposed ones take the tensor-core body, one counted launch (and
+    one tensor-core launch) each, agree with the plain version and give
+    the same bits on a rerun (no atomics, one order of sums); the FMA body
+    on the same operands agrees too."""
+    needs_card()
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(19)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dt)
+    for lay in mma_chain_cases():
+        tt = chain_transpose_tables(lay, "cuda")
+        w = rnd(*lay.data_shape)
+        for t, wv, attr in ((chain_tables(lay, "cuda"), w, "launches"),
+                            (tt.tables, tt.values(w), "launches_dx")):
+            for n in MMA_ROWS:
+                assert chain_rhs_path(t, n, dt) == "mma"
+                x = rnd(n, t.k)
+                before = (getattr(chainmm_rhs, attr),
+                          chainmm_rhs.launches_mma)
+                y = chainmm_rhs(t, x, wv)
+                torch.cuda.synchronize()
+                assert (getattr(chainmm_rhs, attr),
+                        chainmm_rhs.launches_mma) == (before[0] + 1,
+                                                      before[1] + 1)
+                assert y.dtype == dt and tuple(y.shape) == (n, t.m)
+                want = chainmm_rhs_reference(t, x, wv)
+                assert_close(y, want, dt, (t.m, t.k, n, attr, "mma"))
+                assert torch.equal(y, chainmm_rhs(t, x, wv)), (t.m, n)
+                fma = torch.empty_like(y)
+                _chain_rhs_body("fma", t, x, wv, fma)
+                assert_close(fma, want, dt, (t.m, t.k, n, attr, "fma"))
+
+
+@pytest.mark.cuda
+def test_cuda_chain_rhs_mma_body_rejects_misaligned_operands():
+    """The tensor-core body loads 16 bytes at a time: an X whose data
+    does not start on 16 bytes is refused, not run on the FMA body; a
+    leaf it cannot take (G = C = 1) runs the FMA body."""
+    needs_card()
+    lay = next(iter(mma_chain_cases()))
+    t = chain_tables(lay, "cuda")
+    n = 77
+    flat = torch.randn(n * lay.k + 1, device="cuda").bfloat16()
+    x_off = flat[1:].view(n, lay.k)
+    assert x_off.is_contiguous() and x_off.data_ptr() % 16
+    w = torch.randn(lay.data_shape, device="cuda").bfloat16()
+    with pytest.raises(ValueError):
+        chainmm_rhs(t, x_off, w)
+    assert torch.isfinite(chainmm_rhs(t, x_off.clone(), w).float()).all()
+    small = next(chain_cases())  # G = C = 1
+    ts = chain_tables(small, "cuda")
+    assert chain_rhs_path(ts, n, torch.bfloat16) == "fma"
+    before = chainmm_rhs.launches_mma
+    xs = torch.randn(n, small.k, device="cuda").bfloat16()
+    ws = torch.randn(small.data_shape, device="cuda").bfloat16()
+    assert_close(chainmm_rhs(ts, xs, ws), chainmm_rhs_reference(ts, xs, ws),
+                 torch.bfloat16, "small chain")
+    assert chainmm_rhs.launches_mma == before
+
+
+# -- the stacked dW on the tensor-core body -----------------------------------
+
+@pytest.mark.cuda
+def test_cuda_stacked_sddmm_mma_body_is_the_unstacked_one():
+    """bf16 from 16 rows an expert on, at qwen2-moe's expert layouts (60
+    experts) and at few experts of many rows (token slices and their
+    workspace): the stacked dW takes the tensor-core body (one counted
+    launch, one tensor-core launch), agrees with the plain version, gives
+    the same bits on a rerun, and each expert's dW is the bits of the
+    unstacked mma launch of the stacked plan on that expert's slice."""
+    needs_card()
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(20)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dt)
+    cases = [(m, k, 60, n) for m, k in EXPERT_WIDTH for n in (16, 77, 171)]
+    cases += [(2048, 1408, 2, 1037), (1408, 2048, 1, 4096)]
+    for m, k, e, n in cases:
+        tables = KernelTables.build(
+            RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0)), "cuda")
+        d = tables.dims
+        assert sddmm_path(d, n, dt) == "mma"
+        gy, x = rnd(e, n, m), rnd(e, n, k)
+        before = (rbgp4_sddmm_rhs_stacked.launches,
+                  rbgp4_sddmm_rhs_stacked.launches_mma)
+        dw = rbgp4_sddmm_rhs_stacked(tables, gy, x)
+        torch.cuda.synchronize()
+        assert (rbgp4_sddmm_rhs_stacked.launches,
+                rbgp4_sddmm_rhs_stacked.launches_mma) == (before[0] + 1,
+                                                          before[1] + 1)
+        assert_close(dw, rbgp4_sddmm_rhs_stacked_reference(tables, gy, x),
+                     dt, (m, k, e, n))
+        assert torch.equal(dw, rbgp4_sddmm_rhs_stacked(tables, gy, x))
+        plan = stacked_sddmm_mma_plan(d, e, n, _sm_count("cuda"))
+        for i in sorted({0, e // 2, e - 1}):
+            assert torch.equal(dw[i], body_sddmm("mma", tables, gy[i], x[i],
+                                                 plan)), (m, k, e, n, i)
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_sddmm_mma_body_refuses_what_it_cannot_take():
+    """Misaligned g or x is refused (ValueError), not run on the FMA
+    body; a layout the body cannot take (G = 8) or a plan whose slices
+    do not cover the tokens is refused by the launcher (RuntimeError)."""
+    needs_card()
+    dt = torch.bfloat16
+    lay = RBGP4Layout(design_rbgp4(2048, 1408, 0.75, seed=0))
+    tables = KernelTables.build(lay, "cuda")
+    e, n = 4, 77
+    flat = torch.randn(e * n * lay.k + 1, device="cuda").to(dt)
+    x_off = flat[1:].view(e, n, lay.k)
+    assert x_off.is_contiguous() and x_off.data_ptr() % 16
+    gy = torch.randn(e, n, lay.m, device="cuda").to(dt)
+    with pytest.raises(ValueError):
+        rbgp4_sddmm_rhs_stacked(tables, gy, x_off)
+    x = x_off.clone()
+    dw = torch.empty((e, *lay.data_shape), dtype=dt, device="cuda")
+    plan = stacked_sddmm_mma_plan(tables.dims, e, n, _sm_count("cuda"))
+    import dataclasses
+
+    with pytest.raises(RuntimeError):
+        _sddmm_stacked_body("mma", tables, gy, x, dw,
+                            plan=dataclasses.replace(plan, slice_len=16))
+    with pytest.raises(RuntimeError):
+        _sddmm_stacked_body("mma", tables, gy, x, dw,
+                            plan=dataclasses.replace(plan, stage_tokens=32))
+    odd = RBGP4Layout(RBGP4Spec(g_o=(4, 4), g_r=(8, 16), g_i=(2, 2),
+                                g_b=(1, 1), sp_o=0.5, sp_i=0.5, seed=7))
+    to = KernelTables.build(odd, "cuda")
+    assert sddmm_path(to.dims, n, dt) == "fma"
+    go, xo = (torch.randn(e, n, s_, device="cuda").to(dt)
+              for s_ in (odd.m, odd.k))
+    with pytest.raises(RuntimeError):
+        _sddmm_stacked_body("mma", to, go, xo,
+                            torch.empty((e, *odd.data_shape), dtype=dt,
+                                        device="cuda"), plan=plan)
+    assert_close(rbgp4_sddmm_rhs_stacked(to, go, xo),
+                 rbgp4_sddmm_rhs_stacked_reference(to, go, xo), dt, "odd")

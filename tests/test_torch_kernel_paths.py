@@ -1,8 +1,9 @@
 """Which device body a launch of ``rbgp4mm_rhs``, ``rbgp4mm_rhs_stacked``,
-``rbgp4_sddmm_rhs`` and ``chain_sddmm_rhs`` takes, the dW tensor-core
-bodies' token-slice plans, and the build's rebuild on a header edit: pure
-functions of dtype and shape, checked on the CPU (the kernels themselves
-run in ``tests/test_torch_cuda.py``).
+``rbgp4_sddmm_rhs``, ``rbgp4_sddmm_rhs_stacked``, ``chainmm_rhs`` and
+``chain_sddmm_rhs`` takes, the dW tensor-core bodies' blocks and
+token-slice plans, the chain forward's tile rows, and the build's rebuild
+on a header edit: pure functions of dtype and shape, checked on the CPU
+(the kernels themselves run in ``tests/test_torch_cuda.py``).
 
 The layouts are tinyllama-1.1b's four and qwen2-moe-a2.7b's (attention
 and the shared expert share tinyllama's widths; the routed experts are
@@ -19,11 +20,15 @@ import torch
 
 from repro_torch.core import RBGP4Layout, design_rbgp4
 from repro_torch.kernels import (MMA_MIN_TOKENS, KernelDims, build,
-                                 chain_tables, rhs_path, sddmm_mma_plan,
-                                 sddmm_path, stacked_mma_block_tokens)
+                                 chain_rhs_path, chain_rhs_tile_rows,
+                                 chain_tables, chain_transpose_tables,
+                                 rhs_path, sddmm_mma_plan, sddmm_path,
+                                 stacked_mma_block_tokens,
+                                 stacked_sddmm_mma_plan, stacked_sddmm_tile)
 from repro_torch.kernels.chainmm import (CHAIN_SDDMM_MMA_TILE,
                                          chain_sddmm_mma_plan,
                                          chain_sddmm_path)
+from repro_torch.kernels.rbgp4mm import STACKED_SDDMM_TILES
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -100,10 +105,122 @@ def test_float32_keeps_the_fma_bodies(all_dims, mk, n):
         assert sddmm_path(d, n, torch.float32) == "fma"
 
 
+@pytest.mark.parametrize("mk", EXPERTS)
+@pytest.mark.parametrize("n", [8, 16, 77, 171, 512])
+def test_stacked_sddmm_path_and_tile(all_dims, mk, n):
+    """The stacked dW takes ``sddmm_path``'s body for its rows an expert:
+    the FMA body at decode's 8 rows, the tensor cores from 16 on, in
+    bf16 at both expert layouts (G = 16, C = 128 and C = 16); float32
+    keeps the FMA body.  Its block is one of the swept tiles, with columns
+    the compact row fills at least half of: gate/up's one 128-column slot,
+    down's 352 columns in blocks of 128 (eight slots of 16 a block)."""
+    fwd, _ = all_dims[mk]
+    want = "fma" if n < MMA_MIN_TOKENS else "mma"
+    assert sddmm_path(fwd, n, torch.bfloat16) == want
+    assert sddmm_path(fwd, n, torch.float32) == "fma"
+    tile = stacked_sddmm_tile(fwd, n)
+    assert tile in STACKED_SDDMM_TILES
+    bc, stage = tile
+    assert 2 * fwd.data_cols > bc or bc == 16
+    assert fwd.data_cols == {(1408, 2048): 512, (2048, 1408): 352}[mk]
+
+
+@pytest.mark.parametrize("mk", EXPERTS)
+def test_stacked_sddmm_plan_at_a_training_step(all_dims, mk):
+    """60 experts of 171 rows: tens of thousands of blocks, one slice, no
+    f32 workspace; every expert's tokens covered in whole stages."""
+    fwd, _ = all_dims[mk]
+    plan = stacked_sddmm_mma_plan(fwd, 60, 171, H100_SMS)
+    bc, stage = stacked_sddmm_tile(fwd, 171)
+    assert (plan.block_cols, plan.stage_tokens) == (bc, stage)
+    assert plan.n_slices == 1 and plan.workspace_shape(fwd, 60) is None
+    assert plan.slice_len >= 171 and plan.slice_len % stage == 0
+    assert plan.blocks == 60 * (fwd.m // 16) * -(-fwd.data_cols // bc)
+    assert plan.blocks >= 20000
+
+
+@pytest.mark.parametrize("e,n", [(1, 4096), (2, 1037), (4, 300)])
+def test_stacked_sddmm_plan_slices_few_experts(all_dims, e, n):
+    """Few experts of many rows: the grid is cut into token slices as the
+    unstacked plan's, and the workspace holds each expert's slices."""
+    fwd, _ = all_dims[(2048, 1408)]
+    plan = stacked_sddmm_mma_plan(fwd, e, n, H100_SMS)
+    assert plan.slice_len % plan.stage_tokens == 0
+    assert (plan.n_slices - 1) * plan.slice_len < n
+    assert plan.n_slices * plan.slice_len >= n
+    shape = plan.workspace_shape(fwd, e)
+    assert shape == (None if plan.n_slices == 1
+                     else (e * plan.n_slices, fwd.m, fwd.data_cols))
+
+
+def test_unstacked_sddmm_plan_keeps_one_slot_a_block(all_dims):
+    """The unstacked dW's default plan: the widest block of columns that
+    divides C (one slot a block), 128-token stages; given a tile, the
+    same plan as the stacked entry point's for one expert."""
+    for mk in TINYLLAMA + EXPERTS:
+        fwd, tr = all_dims[mk]
+        for d in (fwd, tr):
+            if sddmm_path(d, 4096, torch.bfloat16) != "mma":
+                continue
+            plan = sddmm_mma_plan(d, 4096, H100_SMS)
+            assert d.chunk_cols % plan.block_cols == 0
+            assert plan.stage_tokens == 128
+    fwd, _ = all_dims[(2048, 1408)]
+    tile = stacked_sddmm_tile(fwd, 171)
+    assert sddmm_mma_plan(fwd, 171, H100_SMS, 1, tile) == \
+        stacked_sddmm_mma_plan(fwd, 1, 171, H100_SMS)
+
+
 @pytest.fixture(scope="module")
 def chain_tabs():
     return {key: chain_tables(lay, "cpu")
             for key, lay in chip_smoke.chain_layouts().items()}
+
+
+@pytest.fixture(scope="module")
+def chain_tabs_t():
+    return {key: chain_transpose_tables(lay, "cpu").tables
+            for key, lay in chip_smoke.chain_layouts().items()}
+
+
+@pytest.mark.parametrize("key", list(chip_smoke.FULL_WIDTH)
+                         + list(chip_smoke.SMALL_CHAINS))
+@pytest.mark.parametrize("n", [8, 16, 4096])
+def test_chain_rhs_paths(chain_tabs, chain_tabs_t, key, n):
+    """bf16 forward (and its recompute) and dX of tinyllama's four chain
+    layouts take the tensor-core body from 16 tokens on, on the forward
+    and the transposed tables alike; decode's 8 rows, float32 and the
+    small test chains (G = C = 1, a 2 x 2 leaf) keep the FMA body."""
+    full = key in chip_smoke.FULL_WIDTH
+    want = "mma" if full and n >= MMA_MIN_TOKENS else "fma"
+    for t in (chain_tabs[key], chain_tabs_t[key]):
+        assert chain_rhs_path(t, n, torch.bfloat16) == want
+        assert chain_rhs_path(t, n, torch.float32) == "fma"
+
+
+def test_chain_rhs_tile_rows(chain_tabs, chain_tabs_t):
+    """32 class rows a block where the largest class has 32 (wk/wv's
+    forward table), 64 elsewhere (classes of 64, 256 and 704 rows)."""
+    got = {(key, side): chain_rhs_tile_rows(t[key])
+           for side, t in (("fwd", chain_tabs), ("tr", chain_tabs_t))
+           for key in chip_smoke.FULL_WIDTH}
+    assert got == {(key, side): 32 if (key, side) == ("wk/wv", "fwd")
+                   else 64 for key, side in got}
+    for key in chip_smoke.FULL_WIDTH:
+        for t in (chain_tabs[key], chain_tabs_t[key]):
+            rows = t.classes.max_groups * t.group_rows
+            assert rows % chain_rhs_tile_rows(t) == 0
+
+
+def test_chain_rhs_path_refuses_shapes_it_cannot_take(chain_tabs):
+    import dataclasses
+
+    t = chain_tabs["wq/wo"]
+    for bad in (dict(group_rows=4), dict(chunk_cols=12), dict(k=2044)):
+        assert chain_rhs_path(dataclasses.replace(t, **bad), 4096,
+                              torch.bfloat16) == "fma", bad
+    assert chain_rhs_path(t, MMA_MIN_TOKENS - 1, torch.bfloat16) == "fma"
+    assert chain_rhs_path(t, MMA_MIN_TOKENS, torch.bfloat16) == "mma"
 
 
 @pytest.mark.parametrize("key", list(chip_smoke.FULL_WIDTH)

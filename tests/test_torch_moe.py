@@ -42,6 +42,7 @@ from repro_torch.configs import MoEConfig
 from repro_torch.core import RBGP4Layout, RBGP4Spec
 from repro_torch.kernels import (KernelTables, RBGP4LinearStacked,
                                  TransposeTables, rbgp4_sddmm_rhs_stacked,
+                                 stacked_sddmm_tile,
                                  rbgp4mm_rhs_stacked)
 from repro_torch.kernels.ref import pack_compact, unpack_dense
 from repro_torch.models.moe import MoELayer, StackedExperts
@@ -163,6 +164,75 @@ def test_plain_stacked_sddmm_matches_reference_kernel(shape):
     # and against the dense products, packed per expert
     dense = torch.tensor(g).transpose(1, 2) @ torch.tensor(x)
     assert_close(got.numpy(), pack_compact(tl, dense).numpy(), RTOL_PRODUCT)
+
+
+# layouts with G and C multiples of 16, the stacked dW tensor-core body's:
+# C = 16 with 2 slots a row (a block of 32 columns spans both) and C = 32
+# with 4 (a block of 128 columns spans all)
+MMA_SWEEP = [
+    (128, 128, 0, 0.5, 0.5, 16, 16, 2, 2),
+    (128, 256, 0, 0.0, 0.5, 16, 32, 2, 2),
+]
+
+
+def walk_stacked_sddmm_blocks(tables, g, x, tile):
+    """dW as ``rbgp4_sddmm_rhs_stacked``'s tensor-core body computes it
+    with block ``tile`` = (block_cols, stage_tokens), in float32: for each
+    expert, 16-row sub-tile and block of ``block_cols`` compact columns
+    (several slots where C is smaller; columns past the row left out),
+    the tokens in stages of ``stage_tokens``, warp w of a stage summing
+    its tokens 16w .. 16w+15 into its own sums, the warps' sums added in
+    warp order at the end."""
+    dims = tables.dims
+    bc, stage = tile
+    warps = stage // 16
+    row_len, C = dims.data_cols, dims.chunk_cols
+    e, n, m = g.shape
+    j = torch.arange(row_len)
+    dw = torch.full((e, m, row_len), float("nan"))
+    for ex in range(e):
+        for r0 in range(0, m, 16):
+            cols = tables.col0[r0 // dims.group_rows].long()[j // C] + j % C
+            for j0 in range(0, row_len, bc):
+                cc = cols[j0:j0 + bc]
+                sums = torch.zeros((warps, 16, len(cc)))
+                for t0 in range(0, n, stage):
+                    for w in range(warps):
+                        a, b = t0 + 16 * w, min(t0 + 16 * w + 16, n)
+                        if a < b:
+                            sums[w] += g[ex, a:b, r0:r0 + 16].T @ \
+                                x[ex, a:b][:, cc]
+                out = torch.zeros((16, len(cc)))
+                for w in range(warps):
+                    out += sums[w]
+                dw[ex, r0:r0 + 16, j0:j0 + len(cc)] = out
+    return dw
+
+
+@pytest.mark.parametrize("n", [13, 77])
+@pytest.mark.parametrize("shape", MMA_SWEEP)
+def test_stacked_sddmm_block_walk_matches_reference_kernel(shape, n):
+    """The blocking ``stacked_sddmm_tile`` picks (slots spanned by one
+    block, ragged stages), walked in float32, gives the plain version's
+    dW, which gives the reference kernel's."""
+    m, k, _, sp_o, sp_i, G, C, ui, vi = shape
+    jl, tl = layouts(m, k, sp_o, sp_i, G, C, ui, vi)
+    rng = np.random.default_rng(m + k + n)
+    g, x = randn(rng, E, n, m), randn(rng, E, n, k)
+    tables = KernelTables.build(tl, "cpu")
+    tile = stacked_sddmm_tile(tables.dims, n)
+    want = j_sddmm_stacked(JDims.from_layout(jl), jnp.asarray(jl.adj_o),
+                           jnp.asarray(g), jnp.asarray(x), interpret=True,
+                           block_n=8)
+    plain = rbgp4_sddmm_rhs_stacked(tables, torch.tensor(g),
+                                    torch.tensor(x))
+    assert_close(plain.numpy(), want, RTOL_PRODUCT)
+    got = walk_stacked_sddmm_blocks(tables, torch.tensor(g), torch.tensor(x),
+                                    tile)
+    assert not torch.isnan(got).any(), "an output no block wrote"
+    assert_close(got.numpy(), plain.numpy(), RTOL_PRODUCT, tile)
+    if tile[0] > C:
+        assert tables.dims.data_cols > C, "the block spans slots"
 
 
 def linear_stacked_both(shape, fuse, bias, seed=0):
