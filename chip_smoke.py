@@ -146,22 +146,41 @@ exits non-zero without the result line:
  18. check-fm (run after phase 13): ``rbgp4mm`` and ``rbgp4_sddmm``
      against their plain versions, as phase 2, at VGG19-CIFAR's seven
      distinct sparse layouts and WRN-40-4's 64 x 144 (C = 2), f32 and
-     bf16: the forward at N in {1, 1037, 4096}, dI on the transposed
-     layouts and dW at N in {1037, 4096}, each dW again and bit-equal;
+     bf16: the forward at N in {1, 16, 1000, 1037, 4096, 4104}, dI on the
+     transposed layouts and dW at each N but 1, each dW again and
+     bit-equal.  In bf16 at N = 16 (the least they take), 1000, 4096 and
+     4104 (ragged 128-token tiles), O, dI and dW take their tensor-core
+     bodies (``fm_path``, ``fm_sddmm_path``; each log line names the
+     bodies) at the seven VGG19 layouts; N = 1 and 1037 (not a multiple
+     of 8), float32 and WRN's C = 2 and transposed G = 2 keep the FMA
+     bodies; every launch moves its tensor-core counter exactly then;
+     then, in bf16 at N in {16, 1000, 4104}, the same at Table 1's other
+     sparsities (0.5, 0.875, 0.9375), whose other G, C and class sizes
+     take other tiles of ``fm_mma_tile``;
  19. times-fm (after phase 18): as phase 3, VGG19's eight distinct layer
      shapes (m, k, N = res^2 x 256) in bf16: the forward, dI and dW
-     kernels, their plain versions and one ``torch.matmul`` each on the
-     dense weights (``W @ I``, ``W^T @ dO``, ``dO @ I^T``); at each of
-     these shapes, the ones the main path gives the kernels, each kernel
-     is first held against its plain version on the timed inputs (bf16
-     tolerance) and dW is rerun bit-equal;
+     kernels, their FMA bodies on the same operands (``fma_ms``), their
+     plain versions and one ``torch.matmul`` each on the dense weights
+     (``W @ I``, ``W^T @ dO``, ``dO @ I^T``); at each of these shapes,
+     the ones the main path gives the kernels, each kernel is first held
+     against its plain version on the timed inputs (bf16 tolerance) and
+     dW is rerun bit-equal; then fm-sweep: both bodies of O, dI and dW
+     at those shapes, the tensor-core body at each built tile
+     (``FM_MMA_TILES``: class rows, tokens, warps) and dW block
+     (``FM_SDDMM_TILES``), each held against the plain version first (the
+     measurement behind ``fm_mma_tile`` and ``fm_sddmm_tile``);
  20. sdmm-vgg19: the 15 sparse layers at batch 256, bf16, through
      ``sparse_matmul`` with autograd: the fenced ms of a forward and of a
      forward + backward (median of 3 passes after a warm-up), peak memory;
      every pass launches ``rbgp4mm`` 15 times on forward tables and 15 on
-     transposed ones (dI), ``rbgp4_sddmm`` 15 times, and nothing else;
+     transposed ones (dI), ``rbgp4_sddmm`` 15 times, and nothing else,
+     all 45 on the tensor-core bodies (``launches_mma``, O and dI apart);
+     then one pass under torch.profiler: the card's busy ms by kernel and
+     its idle share of that same pass's fenced window (and, apart, of the
+     median unprofiled pass);
  21. parity-fm: the same 15 layers in float32 at batch 2, O, dW and dI on
-     the card against the CPU within 1e-5 * max|ref|;
+     the card (the FMA bodies: no tensor-core counter moves) against the
+     CPU within 1e-5 * max|ref|;
  22. check-q: the int8 paths against their plain versions on the same
      int8 values and scales (tolerances of phase 2), each rerun bit-equal:
      ``rbgp4mm_rhs`` at tinyllama's four layouts and the CPU tests' small
@@ -286,6 +305,14 @@ VGG19_SDMM = ((64, 576, 262144), (128, 576, 65536), (128, 1152, 65536),
 # WideResNet-40-4's narrowest sparse conv (benchmarks/table1_models.py:
 # 59-76), the one layout with C = 2
 WRN_SDMM = (64, 144)
+# N of check-fm: 1, the least N of the feature-major tensor-core bodies,
+# ragged token tiles of them (1000, 4104), and 1037 (not a multiple of 8:
+# the FMA bodies in bf16 too)
+FM_CHECK_N = (1, 16, 1000, 1037, 4096, 4104)
+# the paper's other Table 1 sparsities, checked in bf16 at the least N of
+# the tensor-core bodies and at ragged token tiles of them
+FM_CHECK_SPARSITIES = (0.5, 0.875, 0.9375)
+FM_MMA_CHECK_N = (16, 1000, 4104)
 
 
 def vgg19_sdmm_layers() -> list:
@@ -371,15 +398,14 @@ def phase_build():
 
 def kernel_symbol(mangled: str) -> str:
     """``name<args>`` of the port's ``*_kernel`` symbol in a mangled name
-    (its length prefix ends in a digit), the template arguments one or two
-    integers, bf16 or f32."""
+    (its length prefix ends in a digit), the template arguments integers
+    (``rbgp4mm_mma_kernel<16,128,4,2>``), bf16 or f32."""
     m = re.search(r"\d((?:rbgp4|chain)\w*?_kernel)"
-                  r"(?:ILi(\d+)E(?:Li(\d+)E)?|I(13__nv_bfloat16|f)E)?",
-                  mangled)
+                  r"(?:I((?:Li\d+E)+)|I(13__nv_bfloat16|f)E)?", mangled)
     if m is None:
         return ""
-    arg = ",".join(a for a in m.group(2, 3) if a) or {
-        "13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(4), "")
+    arg = (",".join(re.findall(r"Li(\d+)E", m.group(2))) if m.group(2)
+           else {"13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(3), ""))
     return m.group(1) + (f"<{arg}>" if arg else "")
 
 
@@ -904,8 +930,8 @@ def reset_launch_counts() -> None:
     rbgp4_sddmm_rhs_stacked.launches = 0
     chainmm_rhs.launches = chainmm_rhs.launches_dx = 0
     chain_sddmm_rhs.launches = 0
-    rbgp4mm.launches = rbgp4mm.launches_dx = 0
-    rbgp4_sddmm.launches = 0
+    rbgp4mm.launches = rbgp4mm.launches_dx = rbgp4mm.launches_mma = 0
+    rbgp4_sddmm.launches = rbgp4_sddmm.launches_mma = 0
 
 
 def body_counts() -> dict:
@@ -2306,66 +2332,88 @@ def phase_times_chain(layouts, n_train: int = 4096) -> dict:
 
 # -- the feature-major path: VGG19-CIFAR's sparse convs as O = W_s . I ------
 
-def fm_layouts() -> dict:
+def fm_layouts(sparsity: float = 0.75) -> dict:
     """VGG19-CIFAR's seven distinct sparse layouts (in network order; 512 x
     4608 runs at two N) and WRN-40-4's 64 x 144, each ``design_rbgp4(m, k,
-    0.75)`` with its default seed, as the reference's Table 1 designs
+    sparsity)`` with its default seed, as the reference's Table 1 designs
     them."""
     from repro_torch.core import RBGP4Layout, design_rbgp4
 
     shapes = list(dict.fromkeys((m, k) for m, k, _ in VGG19_SDMM))
-    return {(m, k): RBGP4Layout(design_rbgp4(m, k, 0.75))
+    return {(m, k): RBGP4Layout(design_rbgp4(m, k, sparsity))
             for m, k in shapes + [WRN_SDMM]}
 
 
-def phase_check_fm(layouts) -> dict:
+def phase_check_fm(layouts, dtypes=(torch.float32, torch.bfloat16),
+                   ns=FM_CHECK_N, label="") -> dict:
     """``rbgp4mm`` and ``rbgp4_sddmm`` against their plain versions at the
-    eight layouts, float32 and bfloat16: the forward at N = 1, 1037 (ragged)
-    and 4096, dI on the transposed tables at N = 1037 and 4096, dW at
-    N = 1037 and 4096 and again, bit for bit.  Max abs diff per record
+    ``layouts``, in each of ``dtypes``: the forward at N in ``ns`` (by
+    default ``FM_CHECK_N``: 1, the least N of the tensor-core bodies,
+    ragged token tiles of them and N not a multiple of 8, which keeps bf16
+    on the FMA bodies), dI on the transposed tables and dW at each N but
+    1, each dW again and bit for bit.  Each launch moves its counter by
+    one, and its tensor-core counter by one exactly where
+    ``fm_path``/``fm_sddmm_path`` name that body.  Max abs diff per record
     entry."""
-    from repro_torch.kernels import (KernelTables, TransposeTables,
-                                     rbgp4_sddmm, rbgp4_sddmm_reference,
-                                     rbgp4mm, rbgp4mm_reference)
+    from repro_torch.kernels import (KernelTables, TransposeTables, fm_path,
+                                     fm_sddmm_path, rbgp4_sddmm,
+                                     rbgp4_sddmm_reference, rbgp4mm,
+                                     rbgp4mm_reference)
 
     g = torch.Generator(device="cuda").manual_seed(9)
     max_abs = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
-    n_cases = 0
+    n_cases = n_mma = 0
     for (m, k), lay in layouts.items():
         tables = KernelTables.build(lay, "cuda")
         tt = TransposeTables.build(lay, "cuda")
         d, d_t = tables.dims, tt.tables.dims
-        log("check-fm", f"{m} x {k}: G = {d.group_rows}, C = "
+        log("check-fm", f"{label}{m} x {k}: G = {d.group_rows}, C = "
                         f"{d.chunk_cols}, {d.d_o * d.d_i} slots a row; "
                         f"transposed: G = {d_t.group_rows}, C = "
                         f"{d_t.chunk_cols}, {d_t.d_o * d_t.d_i} slots")
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes:
             rnd = lambda *sh: torch.randn(*sh, device="cuda",
                                           generator=g).to(dt)
             worst = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+            bodies = []
 
             def hold(what, got, want, entry):
                 err, rel = agree(f"fm {what} {m} x {k}", got, want, dt)
                 max_abs[entry] = max(max_abs[entry], err)
                 worst[entry] = max(worst[entry], rel)
 
+            def counted(counter, fn, attr, mma):
+                before = counter.launches_mma
+                out = launched(counter, fn, attr)
+                if counter.launches_mma != before + int(mma):
+                    raise AssertionError(f"{m} x {k} {dt}: {attr} took "
+                                         f"the wrong body")
+                return out
+
             w = rnd(*lay.data_shape)
             wt = tt.values(w)
-            for n in (1, 1037, 4096):
+            for n in ns:
                 x = rnd(k, n)
-                o = launched(rbgp4mm, lambda: rbgp4mm(tables, x, w))
+                mma = (fm_path(d, n, dt) == "mma",
+                       fm_path(d_t, n, dt) == "mma",
+                       fm_sddmm_path(d, n, dt) == "mma")
+                o = counted(rbgp4mm, lambda: rbgp4mm(tables, x, w),
+                            "launches", mma[0])
                 hold(f"forward N={n}", o, rbgp4mm_reference(tables, x, w),
                      "forward")
                 n_cases += 1
+                n_mma += mma[0]
                 if n == 1:
+                    bodies.append(f"N={n} {'fma' if not mma[0] else 'mma'}")
                     continue
                 gy = rnd(m, n)
-                dx = launched(rbgp4mm, lambda: rbgp4mm(tt.tables, gy, wt),
-                              "launches_dx")
+                dx = counted(rbgp4mm, lambda: rbgp4mm(tt.tables, gy, wt),
+                             "launches_dx", mma[1])
                 hold(f"dI N={n}", dx, rbgp4mm_reference(tt.tables, gy, wt),
                      "dx")
-                dw = launched(rbgp4_sddmm,
-                              lambda: rbgp4_sddmm(tables, gy, x))
+                dw = counted(rbgp4_sddmm,
+                             lambda: rbgp4_sddmm(tables, gy, x),
+                             "launches", mma[2])
                 hold(f"dW N={n}", dw, rbgp4_sddmm_reference(tables, gy, x),
                      "dw")
                 again = launched(rbgp4_sddmm,
@@ -2374,12 +2422,18 @@ def phase_check_fm(layouts) -> dict:
                     raise AssertionError(f"rbgp4_sddmm {m} x {k} N={n} "
                                          f"{dt}: a rerun changed the bits")
                 n_cases += 3
-            log("check-fm", f"{m} x {k} {str(dt):15s} max|diff|/max|ref|: "
+                n_mma += sum(mma)
+                bodies.append(f"N={n} " + "/".join(
+                    "mma" if b else "fma" for b in mma))
+            log("check-fm", f"{label}{m} x {k} {str(dt):15s} "
+                            f"max|diff|/max|ref|: "
                             + ", ".join(f"{e} {v:.2e}"
-                                        for e, v in worst.items()))
+                                        for e, v in worst.items())
+                            + f"; bodies (O/dI/dW) " + ", ".join(bodies))
         torch.cuda.empty_cache()
-    log("check-fm", f"{n_cases} feature-major cases agree (one launch "
-                    f"each), dW bit-equal on every rerun; max abs diff "
+    log("check-fm", f"{label}{n_cases} feature-major cases agree (one launch "
+                    f"each, {n_mma} on the tensor-core bodies), dW "
+                    f"bit-equal on every rerun; max abs diff "
                     + ", ".join(f"{e} {v:.3e}" for e, v in max_abs.items()))
     return max_abs
 
@@ -2393,9 +2447,11 @@ def phase_times_fm(layouts, max_abs: dict) -> dict:
     its plain version's on the same inputs (these are the shapes the main
     path gives the kernels), folding the max abs diff into ``max_abs``,
     and dW is rerun bit-equal.  Rows keyed ``((m, k, n), role)``."""
-    from repro_torch.kernels import (KernelTables, TransposeTables,
-                                     rbgp4_sddmm, rbgp4_sddmm_reference,
-                                     rbgp4mm, rbgp4mm_reference)
+    from repro_torch.kernels import (KernelTables, TransposeTables, fm_path,
+                                     fm_sddmm_path, rbgp4_sddmm,
+                                     rbgp4_sddmm_reference, rbgp4mm,
+                                     rbgp4mm_reference)
+    from repro_torch.kernels.rbgp4mm import _fm_body, _fm_sddmm_body
     from repro_torch.kernels.ref import unpack_dense
 
     g = torch.Generator(device="cuda").manual_seed(10)
@@ -2407,6 +2463,8 @@ def phase_times_fm(layouts, max_abs: dict) -> dict:
         tt = TransposeTables.build(lay, "cuda")
         d, d_t = tables.dims, tt.tables.dims
         nnz = lay.data_shape[1]
+        bodies = {"fwd": fm_path(d, n, dt), "dx": fm_path(d_t, n, dt),
+                  "dw": fm_sddmm_path(d, n, dt)}
         # operands cycled through more than the 50 MB L2 cache
         copies = max(1, -(-2 * L2_BYTES // ((k + m) * n * 2)))
         xs = torch.randn((copies, k, n), device="cuda", generator=g).to(dt)
@@ -2435,7 +2493,16 @@ def phase_times_fm(layouts, max_abs: dict) -> dict:
                         f"versions, max|diff|/max|ref|: "
                         + ", ".join(f"{e} {v:.2e}" for e, v in rel.items()))
         c = lambda i: i % copies
+        outs = {"fwd": torch.empty((m, n), dtype=dt, device="cuda"),
+                "dx": torch.empty((k, n), dtype=dt, device="cuda"),
+                "dw": torch.empty((m, nnz), dtype=dt, device="cuda")}
         t = dict(
+            fwd_fma=time_cuda(lambda i: _fm_body("fma", tables, xs[c(i)], w,
+                                                 outs["fwd"])),
+            dx_fma=time_cuda(lambda i: _fm_body("fma", tt.tables, gs[c(i)],
+                                                wt, outs["dx"])),
+            dw_fma=time_cuda(lambda i: _fm_sddmm_body(
+                "fma", tables, gs[c(i)], xs[c(i)], outs["dw"])),
             fwd=time_cuda(lambda i: rbgp4mm(tables, xs[c(i)], w)),
             fwd_plain=time_cuda(lambda i: rbgp4mm_reference(tables, xs[c(i)],
                                                             w)),
@@ -2457,17 +2524,105 @@ def phase_times_fm(layouts, max_abs: dict) -> dict:
             dw=sddmm_bound_ms(n, m, k, nnz, chunks, d.group_rows, 2))
         for role, (b, by) in bounds.items():
             rows[((m, k, n), role)] = dict(ms=t[role],
+                                           fma_ms=t[f"{role}_fma"],
                                            plain_ms=t[f"{role}_plain"],
                                            library_ms=t[f"{role}_lib"],
                                            bound_ms=b, bound_by=by)
             log("times-fm", f"{role:3s} {m} x {k} N={n} bf16: kernel "
-                            f"{t[role]:.4f} ms, plain "
+                            f"{t[role]:.4f} ms ({bodies[role]} body), FMA "
+                            f"body {t[role + '_fma']:.4f} ms, plain "
                             f"{t[role + '_plain']:.4f} ms, torch.matmul "
                             f"dense {t[role + '_lib']:.4f} ms, bound "
                             f"{b * 1e3:.2f} us ({by})")
-        del xs, gs, w, wt, wd
+        del xs, gs, w, wt, wd, outs
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_fm_body_sweep(layouts) -> dict:
+    """Both bodies of ``rbgp4mm`` (O on the forward tables, dI on the
+    transposed ones) and of ``rbgp4_sddmm`` at VGG19's eight distinct
+    layer shapes, bf16, on the same operands: the FMA body and the
+    tensor-core body at each tile of ``FM_MMA_TILES`` (O, dI) and each
+    block of ``FM_SDDMM_TILES`` (dW, with ``fm_sddmm_plan``'s slices for
+    it), each result first held against the plain version, then timed
+    (CUDA events, operands cycled past the L2).  Returns {((m, k, n),
+    role): {candidate: ms}}, role "fwd", "dx" or "dw", candidate "fma" or
+    the tile: the measurement ``fm_path``, ``fm_mma_tile`` and
+    ``fm_sddmm_tile`` are set from."""
+    from repro_torch.kernels import (FM_MMA_TILES, FM_SDDMM_TILES,
+                                     KernelTables, TransposeTables, fm_path,
+                                     fm_mma_tile, fm_sddmm_path,
+                                     fm_sddmm_plan, fm_sddmm_tile,
+                                     rbgp4_sddmm_reference,
+                                     rbgp4mm_reference)
+    from repro_torch.kernels.rbgp4mm import (_fm_body, _fm_sddmm_body,
+                                             _sm_count)
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    dt = torch.bfloat16
+    sms = _sm_count("cuda")
+    out = {}
+    picked = {"fwd": [0.0, 0.0], "dx": [0.0, 0.0], "dw": [0.0, 0.0]}
+    for m, k, n in dict.fromkeys(VGG19_SDMM):
+        lay = layouts[(m, k)]
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        d, d_t = tables.dims, tt.tables.dims
+        copies = max(1, -(-2 * L2_BYTES // ((k + m) * n * 2)))
+        xs = torch.randn((copies, k, n), device="cuda", generator=g).to(dt)
+        gs = torch.randn((copies, m, n), device="cuda", generator=g).to(dt)
+        w = torch.randn(lay.data_shape, device="cuda", generator=g).to(dt)
+        wt = tt.values(w)
+        c = lambda i: i % copies
+
+        roles = {
+            "fwd": (torch.empty((m, n), dtype=dt, device="cuda"),
+                    lambda: rbgp4mm_reference(tables, xs[0], w),
+                    [("fma", None)] + [("mma", t) for t in FM_MMA_TILES],
+                    lambda p, t, o, i: _fm_body(p, tables, xs[c(i)], w, o,
+                                                tile=t),
+                    (fm_path(d, n, dt), fm_mma_tile(tables, n))),
+            "dx": (torch.empty((k, n), dtype=dt, device="cuda"),
+                   lambda: rbgp4mm_reference(tt.tables, gs[0], wt),
+                   [("fma", None)] + [("mma", t) for t in FM_MMA_TILES],
+                   lambda p, t, o, i: _fm_body(p, tt.tables, gs[c(i)], wt,
+                                               o, tile=t),
+                   (fm_path(d_t, n, dt), fm_mma_tile(tt.tables, n))),
+            "dw": (torch.empty(lay.data_shape, dtype=dt, device="cuda"),
+                   lambda: rbgp4_sddmm_reference(tables, gs[0], xs[0]),
+                   [("fma", None)] + [("mma", b) for b in FM_SDDMM_TILES],
+                   lambda p, t, o, i: _fm_sddmm_body(
+                       p, tables, gs[c(i)], xs[c(i)], o,
+                       plan=fm_sddmm_plan(d, n, sms, t) if t else None),
+                   (fm_sddmm_path(d, n, dt), fm_sddmm_tile(d, n))),
+        }
+        for role, (o, ref, cands, run, choice) in roles.items():
+            want = ref()
+            ms = {}
+            for path, tile in cands:
+                run(path, tile, o, 0)
+                torch.cuda.synchronize()
+                name = "fma" if path == "fma" else str(tile)
+                agree(f"fm sweep {role} {m} x {k} N={n} [{name}]", o, want,
+                      dt)
+                ms[name] = time_cuda(lambda i: run(path, tile, o, i))
+            del want
+            best = min(ms, key=ms.get)
+            chosen = "fma" if choice[0] == "fma" else str(choice[1])
+            picked[role][0] += VGG19_SDMM.count((m, k, n)) * ms[chosen]
+            picked[role][1] += VGG19_SDMM.count((m, k, n)) * ms[best]
+            out[((m, k, n), role)] = ms
+            log("fm-sweep", f"{role:3s} {m} x {k} N={n} bf16: "
+                            + ", ".join(f"{a} {b:.4f}" for a, b in ms.items())
+                            + f" ms; fastest {best}, the wrappers take "
+                              f"{chosen}")
+        del xs, gs, w, wt
+        torch.cuda.empty_cache()
+    for role, (chosen, best) in picked.items():
+        log("fm-sweep", f"{role:3s} a VGG19 pass: the wrappers' choice "
+                        f"{chosen:.4f} ms, the fastest swept {best:.4f} ms")
+    return out
 
 
 def vgg19_weights(layouts, batch: int, dt, device, seed: int):
@@ -2503,6 +2658,44 @@ def vgg19_pass(layers, cots=None):
     return outs
 
 
+def profile_vgg19_pass(layers, cots) -> dict:
+    """One forward + backward pass under torch.profiler (the window opens
+    with ``PROFILE_PAD`` spin kernels, which count in no time): the pass's
+    own fenced wall ms, the card's busy ms, every kernel's time summed,
+    and its split between the
+    feature-major kernels (``rbgp4mm*``: O and dI; ``rbgp4_sddmm*``: dW and
+    its slice sum) and the rest (the transposed values' gather, casts,
+    autograd's own kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vgg19_pass(layers, cots)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    for cw, x in layers:
+        cw.w_data.grad = x.grad = None
+    ms = {"rbgp4mm": 0.0, "rbgp4_sddmm": 0.0, "other": 0.0}
+    n_kernels = 0
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or "spin_kernel" in e.name):
+            continue
+        key = ("rbgp4_sddmm" if "rbgp4_sddmm" in e.name else
+               "rbgp4mm" if "rbgp4mm" in e.name else "other")
+        ms[key] += e.time_range.elapsed_us() * 1e-3
+        n_kernels += 1
+    if not n_kernels:
+        raise AssertionError("the profiler recorded no kernel on the card")
+    return dict(busy_ms=sum(ms.values()), wall_ms=wall_ms, kernel_ms=ms,
+                kernels=n_kernels)
+
+
 def phase_sdmm_vgg19(layouts, n_pass: int = 3) -> dict:
     """The main path of the feature-major slice: one pass of VGG19-CIFAR's
     15 sparse layers at batch 256, bf16, through ``sparse_matmul`` with
@@ -2522,19 +2715,34 @@ def phase_sdmm_vgg19(layouts, n_pass: int = 3) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    from repro_torch.kernels import rbgp4_sddmm, rbgp4mm
+
     fwd_ms, step_ms = [], []
+    # the tensor-core launches by role: the forward pass launches only O,
+    # the backward dI (rbgp4mm's counter again) and dW
+    mma = {"fm_forward": 0, "fm_dx": 0, "fm_dw": 0}
+    want_mma = {"fm_forward": 15, "fm_dx": 15, "fm_dw": 15}
     for _ in range(n_pass):
         before = launch_counts()
+        fm0, dw0 = rbgp4mm.launches_mma, rbgp4_sddmm.launches_mma
         t0 = time.perf_counter()
         outs = vgg19_pass(layers)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        fm1 = rbgp4mm.launches_mma
         torch.autograd.backward(outs, cots)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if counts_since(before) != want:
             raise AssertionError(f"a VGG19 pass launched "
                                  f"{counts_since(before)}, want {want}")
+        got = {"fm_forward": fm1 - fm0, "fm_dx": rbgp4mm.launches_mma - fm1,
+               "fm_dw": rbgp4_sddmm.launches_mma - dw0}
+        if got != want_mma:
+            raise AssertionError(f"a VGG19 pass launched {got} on the "
+                                 f"tensor-core bodies, want {want_mma}")
+        for role, v in got.items():
+            mma[role] += v
         fwd_ms.append(1e3 * (t1 - t0))
         step_ms.append(1e3 * (t2 - t0))
         for (m, _, n), o, (cw, x) in zip(VGG19_SDMM, outs, layers):
@@ -2547,12 +2755,18 @@ def phase_sdmm_vgg19(layouts, n_pass: int = 3) -> dict:
             cw.w_data.grad = x.grad = None
         del outs
     counts = launch_counts()
+    prof = profile_vgg19_pass(layers, cots)
     res = dict(
         layers=len(VGG19_SDMM), batch=256,
         fwd_ms=statistics.median(fwd_ms), fwd_bwd_ms=statistics.median(
             step_ms), fwd_ms_all=fwd_ms, fwd_bwd_ms_all=step_ms,
-        launches=counts, launches_per_pass=want,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        launches=counts, launches_per_pass=want, mma_launches=mma,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        card_busy_ms=prof["busy_ms"], card_kernel_ms=prof["kernel_ms"],
+        profiled_pass_ms=prof["wall_ms"],
+        card_idle_share=1.0 - prof["busy_ms"] / prof["wall_ms"],
+        card_idle_share_of_median=1.0 - prof["busy_ms"] / statistics.median(
+            step_ms))
     log("sdmm-vgg19", f"VGG19-CIFAR, 15 sparse layers at batch 256, bf16, "
                       f"through sparse_matmul: forward {res['fwd_ms']:.3f} "
                       f"ms, forward + backward {res['fwd_bwd_ms']:.3f} ms "
@@ -2562,7 +2776,19 @@ def phase_sdmm_vgg19(layouts, n_pass: int = 3) -> dict:
                       + f"); peak memory {res['peak_mem_gb']:.2f} GB")
     log("sdmm-vgg19", f"launches per pass, counted at each launch: "
                       + ", ".join(f"{k_} {v}" for k_, v in want.items() if v)
-                      + f"; in {n_pass} passes {counts}")
+                      + f"; in {n_pass} passes {counts}; on the "
+                        f"tensor-core bodies (rbgp4mm_mma_kernel, "
+                        f"rbgp4_sddmm_mma_kernel) " + ", ".join(
+                            f"{k_} {v}" for k_, v in mma.items()))
+    log("sdmm-vgg19", f"one profiled forward + backward pass: card busy "
+                      f"{prof['busy_ms']:.3f} ms ("
+                      + ", ".join(f"{k_} {v:.3f}"
+                                  for k_, v in prof["kernel_ms"].items())
+                      + f" ms; {prof['kernels']} kernels) in a fenced "
+                        f"{prof['wall_ms']:.3f} ms, so the card is idle "
+                        f"{100 * res['card_idle_share']:.1f}% of that pass "
+                        f"(and {100 * res['card_idle_share_of_median']:.1f}%"
+                        f" of the median unprofiled pass, {n_pass} others)")
     print("sdmm-vgg19 " + json.dumps(res), flush=True)
     del layers, cots
     free_card()
@@ -2573,7 +2799,10 @@ def phase_parity_fm(layouts, batch: int = 2) -> None:
     """The same 15 layers in float32 at batch 2 (N = res^2 * 2): O, dW and
     dI through ``sparse_matmul`` on the card (the kernels) and on the CPU
     (the plain versions) from the same inputs, within 1e-5 * max|ref|."""
+    from repro_torch.kernels import rbgp4_sddmm, rbgp4mm
+
     runs = {}
+    mma0 = (rbgp4mm.launches_mma, rbgp4_sddmm.launches_mma)
     for device in ("cuda", "cpu"):
         layers = vgg19_weights(layouts, batch, torch.float32, device,
                                seed=13)
@@ -2590,6 +2819,8 @@ def phase_parity_fm(layouts, batch: int = 2) -> None:
     if runs["cuda"][3] != want or any(runs["cpu"][3].values()):
         raise AssertionError(f"launches: card {runs['cuda'][3]}, CPU "
                              f"{runs['cpu'][3]}")
+    if (rbgp4mm.launches_mma, rbgp4_sddmm.launches_mma) != mma0:
+        raise AssertionError("float32 launches took a tensor-core body")
     worst = {}
     for i, name in enumerate(("O", "dW", "dI")):
         for (m, k, _), a, b in zip(VGG19_SDMM, runs["cuda"][i],
@@ -2793,7 +3024,11 @@ def main() -> int:
     t_fm = time.perf_counter()
     fm = fm_layouts()
     max_abs_fm = phase_check_fm(fm)
+    for sp in FM_CHECK_SPARSITIES:  # other G, C and class sizes: other tiles
+        phase_check_fm(fm_layouts(sp), dtypes=(torch.bfloat16,),
+                       ns=FM_MMA_CHECK_N, label=f"sparsity {sp}: ")
     times_fm = phase_times_fm(fm, max_abs_fm)
+    fm_sweep = phase_fm_body_sweep(fm)
     t_fm = time.perf_counter() - t_fm
 
     # tinyllama: 7 compact projections a layer
@@ -2892,6 +3127,8 @@ def main() -> int:
                        for (kind, n), ms in tiles.items()})
     per_layout.update({f"experts {key} N={n} stacked dW tile {bc}x{st}": ms
                        for (key, n, (bc, st)), ms in dw_tiles.items()})
+    per_layout.update({f"fm {m}x{k} N={n} {role} bodies": ms
+                       for ((m, k, n), role), ms in fm_sweep.items()})
     print("kernel_times " + json.dumps(per_layout), flush=True)
     src = "src/repro_torch/kernels/csrc/"
     # the forward: one decoder layer's seven projections at decode (N = 8
@@ -3063,23 +3300,32 @@ def main() -> int:
         dict(name="rbgp4mm", route="cuda", source=src + "rbgp4mm.cu",
              replaces="src/repro/kernels/rbgp4mm.py:245",
              launches=total("fm_forward"),
+             launches_mma=sdmm["mma_launches"]["fm_forward"],
              max_abs_err=max_abs_fm["forward"], **fm_pass["fwd"],
              work="O = W_s . I of VGG19-CIFAR's 15 sparse convs, one pass "
-                  "at batch 256 (N = res^2 * 256), bf16"),
+                  "at batch 256 (N = res^2 * 256), bf16, on the "
+                  "tensor-core body (rbgp4mm_mma_kernel, every launch of "
+                  "phase 20); fma_ms: the FMA body on the same operands"),
         dict(name="rbgp4mm (dI, transposed layouts)", route="cuda",
              source=src + "rbgp4mm.cu",
              replaces="src/repro/kernels/rbgp4mm.py:245",
              launches=total("fm_dx"),
+             launches_mma=sdmm["mma_launches"]["fm_dx"],
              max_abs_err=max_abs_fm["dx"], **fm_pass["dx"],
              work="dI = W_s^T . dO of VGG19-CIFAR's 15 sparse convs on "
-                  "their transposed layouts, batch 256, bf16"),
+                  "their transposed layouts (G 8-64, C 16), batch 256, "
+                  "bf16, on the tensor-core body; fma_ms: the FMA body on "
+                  "the same operands"),
         dict(name="rbgp4_sddmm", route="cuda",
              source=src + "rbgp4_sddmm.cu",
              replaces="src/repro/kernels/rbgp4mm.py:336",
              launches=total("fm_dw"),
+             launches_mma=sdmm["mma_launches"]["fm_dw"],
              max_abs_err=max_abs_fm["dw"], **fm_pass["dw"],
              work="compact dW = pack(dO . I^T) of VGG19-CIFAR's 15 sparse "
-                  "convs, batch 256, bf16"),
+                  "convs, batch 256, bf16, on the tensor-core body "
+                  "(rbgp4_sddmm_mma_kernel, every launch of phase 20); "
+                  "fma_ms: the FMA body on the same operands"),
         dict(name="rbgp4mm_rhs (int8 scales=)", route="cuda",
              source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:500",

@@ -26,7 +26,7 @@ Row-group classes.  Whole sets of row groups share one ``col0`` row
 (the complete head factor and the complete leaf give them the same column
 set): tinyllama-1.1b's hierarchical-block layouts have 32, 8, 8 and 8
 distinct rows among 256, 32, 352 and 64 row groups.  ``ChainTables``
-keeps them as ``ChainClasses``: the row groups of a class together are
+keeps them as ``RowGroupClasses``: the row groups of a class together are
 one dense product, Y[:, their rows] = X[:, the class's gathered columns]
 @ W[their rows]^T and dW[their rows] = g[:, their rows]^T @ x[:, the
 class's gathered columns], which the tensor-core bodies of
@@ -62,11 +62,11 @@ import numpy as np
 import torch
 
 from .rbgp4mm import (_DTYPE_CODES, _NO_PLAN, _PATH_CODES, MMA_MIN_TOKENS,
-                      SddmmPlan, _check_aligned16, _check_cuda, _launch,
-                      _sm_count, token_slices)
+                      RowGroupClasses, SddmmPlan, _check_aligned16,
+                      _check_cuda, _launch, _sm_count, token_slices)
 from .ref import dequant_leaf_blocks
 
-__all__ = ["ChainTables", "ChainClasses", "ChainTransposeTables",
+__all__ = ["ChainTables", "ChainTransposeTables",
            "chain_tables", "chain_transpose_tables",
            "chain_layout_cache_key", "chain_unpack_dense",
            "chain_pack_compact", "chain_ref_linear", "chain_gather_mm_rhs",
@@ -99,45 +99,11 @@ def _leaf(layout) -> tuple[int, int]:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class ChainClasses:
-    """The row-group classes of a chain table: the row groups whose
-    ``col0`` rows are equal, each class one dense product.  ``col0``
-    (n_classes, n_chunks) int32 is each class's one ``col0`` row;
-    ``groups`` (M/G,) int32 lists the row groups class by class, in
-    increasing order within a class; class ``c`` owns
-    ``groups[start[c] : start[c+1]]`` (``start`` (n_classes + 1,) int32).
-    ``max_groups`` is the largest class's count of row groups."""
-
-    col0: torch.Tensor
-    groups: torch.Tensor
-    start: torch.Tensor
-    max_groups: int
-
-    @property
-    def n_classes(self) -> int:
-        return self.col0.shape[0]
-
-    @classmethod
-    def build(cls, col0: np.ndarray, device) -> "ChainClasses":
-        rows, inv = np.unique(col0, axis=0, return_inverse=True)
-        inv = inv.reshape(-1)
-        counts = np.bincount(inv, minlength=len(rows))
-        start = np.concatenate([[0], np.cumsum(counts)])
-
-        def on_device(a):
-            return torch.as_tensor(np.ascontiguousarray(a),
-                                   dtype=torch.int32, device=device)
-
-        return cls(on_device(rows), on_device(np.argsort(inv, kind="stable")),
-                   on_device(start), int(counts.max()))
-
-
-@dataclasses.dataclass(frozen=True, eq=False)
 class ChainTables:
     """A chain layout's kernel table on one device: ``col0 (M/G, n_chunks)``
     int32, the input column of every (row group, chunk)'s first column,
     with the dimensions M, K, G (rows of a leaf block) and C (its
-    columns), and the row-group classes (``ChainClasses``) of ``col0``.
+    columns), and the row-group classes (``RowGroupClasses``) of ``col0``.
     ``transposed`` marks the tables of a transposed layout (dX), whose
     launches count apart.  Built once per layout and device
     (``chain_tables``) and passed to every call."""
@@ -147,7 +113,7 @@ class ChainTables:
     group_rows: int
     chunk_cols: int
     col0: torch.Tensor
-    classes: ChainClasses
+    classes: RowGroupClasses
     transposed: bool = False
 
     @property
@@ -180,7 +146,7 @@ class ChainTables:
         return cls(m, layout.k, G, C,
                    torch.as_tensor(col0, dtype=torch.int32,
                                    device=device).contiguous(),
-                   ChainClasses.build(col0, device), transposed)
+                   RowGroupClasses.build(col0, device), transposed)
 
     def col_index(self) -> torch.Tensor:
         """(M, nnz_row) int64 input column of each compact slot, on the

@@ -23,7 +23,7 @@
 // 1. The bf16 tensor-core body, chain_sddmm_rhs_mma_kernel and
 // chain_sddmm_rhs_sum_kernel (path 1): bfloat16 at N >= 16 tokens with G,
 // C and K multiples of 8, every dW launch of a training step.  It works
-// over row-group classes (kernels/chainmm.py:ChainClasses): the row
+// over row-group classes (kernels/rbgp4mm.py:RowGroupClasses): the row
 // groups whose col0 rows are equal.  The complete 4x4 head factor and the
 // complete leaf give whole sets of row groups one column set, so a
 // class's rows together are one dense product, dW[class rows] =

@@ -30,8 +30,8 @@
 // 1. The bf16 tensor-core body, chainmm_rhs_mma_kernel<BR> (path 1):
 // bfloat16 at N >= 16 tokens with G, C and K multiples of 8: every
 // forward, recompute and dX launch of a training step and every prefill.
-// It works over row-group classes (kernels/chainmm.py:ChainClasses): the
-// row groups whose col0 rows are equal.  The complete 4x4 head factor and
+// It works over row-group classes (kernels/rbgp4mm.py:RowGroupClasses):
+// the row groups whose col0 rows are equal.  The complete 4x4 head factor and
 // the complete leaf give whole sets of row groups one column set, so a
 // class's rows together are one dense product, Y[:, class rows] =
 // X[:, the class's gathered columns] . W[class rows]^T.  tinyllama-1.1b

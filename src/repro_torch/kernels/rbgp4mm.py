@@ -34,11 +34,13 @@ W_s is in compact RBGP4 storage ``w_data`` (M, d_o*d_i*C), stacked
 wrapper launches its hand-written kernel in ``csrc/`` (see the source notes
 for the designs and what bounds them); on a CPU tensor it runs its plain
 version (``*_reference``).  There is no other path: a failed build or
-launch raises.  ``rbgp4mm_rhs``, ``rbgp4mm_rhs_stacked`` and
-``rbgp4_sddmm_rhs`` each have a second device body for bfloat16 on the
-tensor cores; ``rhs_path`` (both forward entry points) and
-``sddmm_path`` say which body a launch takes, from dtype and shape alone
-(``sddmm_mma_plan`` is the dW body's token-slice plan).
+launch raises.  Every kernel but the int8 paths has a second device
+body for bfloat16 on the tensor cores; ``rhs_path`` (both token-major
+forward entry points), ``sddmm_path`` (both token-major dW entry points),
+``fm_path`` (``rbgp4mm``) and ``fm_sddmm_path`` (``rbgp4_sddmm``) say
+which body a launch takes, from dtype and shape alone
+(``sddmm_mma_plan`` and ``fm_sddmm_plan`` are the dW bodies' token-slice
+plans, ``fm_mma_tile`` the feature-major forward's tile).
 
 Launch counters, each moved only where its kernel launches (plain runs
 never count): ``rbgp4mm.launches`` on forward layouts,
@@ -51,8 +53,9 @@ for the stacked kernels: ``rbgp4mm_rhs_stacked.launches``,
 and the int8 paths apart from them: ``rbgp4mm_rhs.launches_q`` and
 ``rbgp4mm_rhs_stacked.launches_q``.  The launches that took the
 tensor-core body count again in ``rbgp4mm_rhs.launches_mma`` (forward
-and dX), ``rbgp4mm_rhs_stacked.launches_mma`` (forward and dX) and
-``rbgp4_sddmm_rhs.launches_mma``.
+and dX), ``rbgp4mm_rhs_stacked.launches_mma`` (forward and dX),
+``rbgp4_sddmm_rhs.launches_mma``, ``rbgp4_sddmm_rhs_stacked.launches_mma``,
+``rbgp4mm.launches_mma`` (O and dI) and ``rbgp4_sddmm.launches_mma``.
 """
 from __future__ import annotations
 
@@ -69,14 +72,17 @@ from .ref import (dequant_leaf_blocks, gather_mm, gather_mm_rhs,
                   gather_mm_rhs_stacked, gather_sddmm, gather_sddmm_rhs,
                   gather_sddmm_rhs_stacked)
 
-__all__ = ["KernelDims", "KernelTables", "TransposeTables", "EPILOGUE_ACTS",
+__all__ = ["KernelDims", "KernelTables", "RowGroupClasses", "TransposeTables",
+           "EPILOGUE_ACTS",
            "rbgp4mm", "rbgp4mm_reference", "rbgp4_sddmm",
            "rbgp4_sddmm_reference", "rbgp4mm_rhs", "rbgp4mm_rhs_reference", "rbgp4_sddmm_rhs",
            "rbgp4_sddmm_rhs_reference", "rbgp4mm_rhs_stacked",
            "rbgp4mm_rhs_stacked_reference", "rbgp4_sddmm_rhs_stacked",
            "rbgp4_sddmm_rhs_stacked_reference", "MMA_MIN_TOKENS",
            "rhs_path", "sddmm_path", "SddmmPlan", "sddmm_mma_plan",
-           "stacked_mma_block_tokens"]
+           "stacked_mma_block_tokens", "fm_path", "fm_sddmm_path",
+           "FM_MMA_TILES", "FM_SDDMM_TILES",
+           "fm_mma_tile", "fm_sddmm_tile", "fm_sddmm_plan"]
 
 # Activations fusable into the epilogue; names match ``models.mlp.ACTS``.
 EPILOGUE_ACTS = {
@@ -122,6 +128,45 @@ class KernelDims:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class RowGroupClasses:
+    """The row-group classes of a ``col0`` table: the row groups whose
+    ``col0`` rows are equal, each class one dense product (its rows read
+    the same input columns).  ``col0`` (n_classes, n_chunks) int32 is each
+    class's one ``col0`` row; ``groups`` (M/G,) int32 lists the row groups
+    class by class, in increasing order within a class; class ``c`` owns
+    ``groups[start[c] : start[c+1]]`` (``start`` (n_classes + 1,) int32).
+    ``sizes`` holds each class's count of row groups on the host, and
+    ``max_groups`` the largest."""
+
+    col0: torch.Tensor
+    groups: torch.Tensor
+    start: torch.Tensor
+    sizes: tuple[int, ...]
+
+    @property
+    def max_groups(self) -> int:
+        return max(self.sizes)
+
+    @property
+    def n_classes(self) -> int:
+        return self.col0.shape[0]
+
+    @classmethod
+    def build(cls, col0: np.ndarray, device) -> "RowGroupClasses":
+        rows, inv = np.unique(col0, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        counts = np.bincount(inv, minlength=len(rows))
+        start = np.concatenate([[0], np.cumsum(counts)])
+
+        def on_device(a):
+            return torch.as_tensor(np.ascontiguousarray(a),
+                                   dtype=torch.int32, device=device)
+
+        return cls(on_device(rows), on_device(np.argsort(inv, kind="stable")),
+                   on_device(start), tuple(int(c) for c in counts))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class KernelTables:
     """A layout's kernel dimensions and index tables on one device.
 
@@ -132,13 +177,17 @@ class KernelTables:
     ``c < C``, with ``col0[rg, s] = adj_o[o, kk]*TK + adj_i[u, ki]*C``.
     ``adj_o`` (n_o_l, d_o) and ``adj_i`` (u_i, d_i) int64 are the plain
     version's gather indices.  ``transposed`` marks the tables of a
-    transposed layout (dX), whose launches count apart.
+    transposed layout (dX), whose launches count apart.  ``classes`` are
+    ``col0``'s row-group classes, which ``rbgp4mm``'s tensor-core body
+    walks (on a transposed layout whole tile-columns of row groups read
+    one ``col0`` row).
     """
 
     dims: KernelDims
     col0: torch.Tensor
     adj_o: torch.Tensor
     adj_i: torch.Tensor
+    classes: RowGroupClasses
     transposed: bool = False
 
     @classmethod
@@ -156,7 +205,8 @@ class KernelTables:
 
         return cls(dims, on_device(col0, torch.int32),
                    on_device(adj_o, torch.int64),
-                   on_device(adj_i, torch.int64), transposed)
+                   on_device(adj_i, torch.int64),
+                   RowGroupClasses.build(col0, device), transposed)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -426,6 +476,121 @@ def token_slices(block_cols: int, base: int, n_tokens: int, sm_count: int,
     slice_len = -(-per_slice // stage) * stage  # whole stages
     slices = -(-n_tokens // slice_len)
     return SddmmPlan(block_cols, slices, slice_len, base * slices, stage)
+
+
+#: G the feature-major tensor-core body (``rbgp4mm``, O and dI) takes:
+#: VGG19-CIFAR's, forward and transposed, the ones its tiles were swept at
+FM_MMA_GROUP_ROWS = (8, 16, 32, 64)
+#: (rows, warps_m, warps_k) tiles ``rbgp4mm``'s tensor-core body is built
+#: for: a block owns ``rows`` rows of one row-group class
+#: (``KernelTables.classes``) by 128 tokens on warps_m x warps_k warps,
+#: warps_k of them splitting the contraction; exactly the tiles
+#: ``fm_mma_tile`` can name
+FM_MMA_TILES = ((16, 4, 1), (16, 8, 1), (16, 2, 4), (32, 4, 1), (32, 8, 1),
+                (32, 2, 4), (64, 4, 1))
+#: block columns ``rbgp4_sddmm``'s tensor-core body is built for (32
+#: columns a warp), and the tokens of its stages
+FM_SDDMM_TILES = (64, 128, 256)
+FM_SDDMM_STAGE_TOKENS = 64
+
+
+def fm_path(dims: KernelDims, n: int, dtype: torch.dtype) -> str:
+    """``"mma"`` or ``"fma"``: the body a launch of ``rbgp4mm`` (O on a
+    forward layout's tables, dI on a transposed one's) takes for I of ``n``
+    columns of ``dtype``.  The mma body takes bfloat16 at ``n >=
+    MMA_MIN_TOKENS`` with ``n`` a multiple of 8 (every row of I and O then
+    starts 16-byte aligned), G in ``FM_MMA_GROUP_ROWS`` and C a multiple
+    of 8; float32 (no TF32) keeps the FMA body, and so do the other
+    shapes (WRN-40-4's C = 2 and transposed G = 2, odd G)."""
+    if (dtype != torch.bfloat16 or n < MMA_MIN_TOKENS or n % 8
+            or dims.group_rows not in FM_MMA_GROUP_ROWS
+            or dims.chunk_cols % 8):
+        return "fma"
+    return "mma"
+
+
+def fm_sddmm_path(dims: KernelDims, n: int, dtype: torch.dtype) -> str:
+    """``"mma"`` or ``"fma"``: the body a launch of ``rbgp4_sddmm`` takes
+    for ``n`` columns of dO and I of ``dtype``: the mma body at bfloat16,
+    ``n >= MMA_MIN_TOKENS`` a multiple of 8, G a multiple of 16 and C of
+    8; float32 and the other shapes keep the FMA body."""
+    if (dtype != torch.bfloat16 or n < MMA_MIN_TOKENS or n % 8
+            or dims.group_rows % 16 or dims.chunk_cols % 8):
+        return "fma"
+    return "mma"
+
+
+#: blocks (2 on each SM of an H100 SXM) below which ``rbgp4mm``'s
+#: tensor-core body splits a long row's contraction over 4 warps
+FM_MMA_SMALL_GRID = 264
+
+
+def fm_mma_tile(tables: KernelTables, n: int) -> tuple[int, int, int]:
+    """(rows, warps_m, warps_k) of ``rbgp4mm``'s tensor-core body for I of
+    ``n`` columns on ``tables``.  Class rows a block: 16 where every class
+    is one row group (nothing to share), else 32, and 64 at G >= 32 for
+    rows of up to 128 compact columns, so one staged I slice serves 2 to
+    8 row groups (the transposed tables' classes of 9 or 18).  Warps, for
+    128 tokens a block: 4 along the tokens for rows of up to 128 compact
+    columns (every dI at VGG19-CIFAR's 0.75); for longer rows 8 along the
+    tokens, or 2 x 4 (four along the contraction) where the grid has fewer
+    than ``FM_MMA_SMALL_GRID`` blocks (512 x 4608 at N = 1024).  The rule
+    names every tile of ``FM_MMA_TILES`` and no other.
+    ``chip_smoke.phase_fm_body_sweep`` timed every tile of
+    ``FM_MMA_TILES`` (and two more, nowhere the fastest) on both tables
+    at VGG19-CIFAR's eight layer shapes on an H100: this names the fastest
+    at each but O at 128 x 1152, where 4 warps along the tokens were
+    1.3-1.8% faster."""
+    dims = tables.dims
+    cl = tables.classes
+    G = dims.group_rows
+    rows = 16 if cl.max_groups == 1 else min(64, max(32, 2 * G))
+    if dims.data_cols <= 128:
+        return rows, 4, 1
+    # 64 rows are built on 4 x 1 warps only: on 8 x 1 they were nowhere
+    # the fastest (the sweep), and longer rows take 8 x 1 or 2 x 4
+    rows = min(rows, 32)
+    blocks = sum(-(-s * G // rows) for s in cl.sizes) * -(-n // 128)
+    if blocks < FM_MMA_SMALL_GRID:
+        return rows, 2, 4
+    return rows, 8, 1
+
+
+def _fm_k_steps(dims: KernelDims, warps_k: int) -> list[list[int]]:
+    """The k16 steps (16 compact columns each, the row's last one
+    zero-filled past ``data_cols``) each of the ``warps_k`` contraction
+    warps of ``rbgp4mm``'s tensor-core body walks, in its order: warp wk
+    takes steps wk, wk + warps_k, ... (of every 64-column stage, 4 % warps_k
+    == 0); the warps' sums are added in warp order."""
+    n16 = -(-dims.data_cols // 16)
+    return [list(range(wk, n16, warps_k)) for wk in range(warps_k)]
+
+
+def fm_sddmm_tile(dims: KernelDims, n: int) -> int:
+    """Block columns of ``rbgp4_sddmm``'s tensor-core body for ``n``
+    tokens on the layout of ``dims``, by the length of the row: 256 where
+    one block holds the whole row (C = 8: 144 columns, one staged g tile
+    for all 18 slots), 128 up to 576 columns, 64 beyond (512 x 4608:
+    1152).  ``chip_smoke.phase_fm_body_sweep`` timed each block of
+    ``FM_SDDMM_TILES`` at VGG19-CIFAR's eight layer shapes on an H100: this
+    names the fastest at each."""
+    if dims.data_cols <= 256:
+        return 256
+    if dims.data_cols <= 576:
+        return 128
+    return 64
+
+
+def fm_sddmm_plan(dims: KernelDims, n: int, sm_count: int,
+                  block_cols: Optional[int] = None) -> SddmmPlan:
+    """The plan of ``rbgp4_sddmm``'s tensor-core body on a card of
+    ``sm_count`` SMs: ``block_cols`` (``fm_sddmm_tile``'s unless given)
+    compact columns of 16 rows a block, ``FM_SDDMM_STAGE_TOKENS``-token
+    stages, and as many token slices as bring the grid to
+    ``SDDMM_MMA_WAVES`` waves (``token_slices``)."""
+    bc = fm_sddmm_tile(dims, n) if block_cols is None else block_cols
+    base = (dims.m // 16) * -(-dims.data_cols // bc)
+    return token_slices(bc, base, n, sm_count, FM_SDDMM_STAGE_TOKENS)
 
 
 def _sm_count(device) -> int:
@@ -701,7 +866,9 @@ def rbgp4mm(tables: KernelTables, x: torch.Tensor,
     transposed layout's tables, over ``TransposeTables.values(w_data)``,
     this is dI = W_s^T @ dO.  CPU tensors run the plain version; CUDA
     tensors launch the kernel, which takes float32 or bfloat16 x and
-    w_data of one dtype, both contiguous, and writes O in that dtype.
+    w_data of one dtype, both contiguous, and writes O in that dtype.  The
+    body is ``fm_path``'s (bfloat16 on the tensor cores, counted again in
+    ``launches_mma``, with the tile ``fm_mma_tile`` names).
     """
     dims = tables.dims
     _check_fm_args(dims, x, w_data)
@@ -712,18 +879,42 @@ def rbgp4mm(tables: KernelTables, x: torch.Tensor,
     n = x.shape[1]
     out = torch.empty((dims.m, n), dtype=dt, device=x.device)
     if n > 0:
-        _launch("rbgp4mm", "rbgp4mm", "ippppiiiiip", _DTYPE_CODES[dt],
-                x.data_ptr(), w_data.data_ptr(), tables.col0.data_ptr(),
-                out.data_ptr(), n, dims.m, dims.d_o * dims.d_i,
-                dims.group_rows, dims.chunk_cols, x.device)
+        path = fm_path(dims, n, dt)
+        _fm_body(path, tables, x, w_data, out)
         if tables.transposed:
             rbgp4mm.launches_dx += 1
         else:
             rbgp4mm.launches += 1
+        if path == "mma":
+            rbgp4mm.launches_mma += 1
     return out
 
 
-rbgp4mm.launches = rbgp4mm.launches_dx = 0
+def _fm_body(path: str, tables: KernelTables, x: torch.Tensor,
+             w_data: torch.Tensor, out: torch.Tensor,
+             tile: Optional[tuple[int, int, int]] = None) -> None:
+    """Launch body ``path`` ("fma" or "mma") of ``rbgp4mm`` on checked CUDA
+    operands of one dtype (N > 0), writing ``out``; ``tile`` is the mma
+    body's (``fm_mma_tile``'s unless given, to time another).  It moves no
+    counter, as ``_rhs_body``."""
+    dims = tables.dims
+    cl = tables.classes
+    n = x.shape[1]
+    if path == "mma":
+        _check_aligned16("rbgp4mm", {"x": x, "w_data": w_data})
+        if tile is None:
+            tile = fm_mma_tile(tables, n)
+    else:
+        tile = (0, 0, 0)
+    _launch("rbgp4mm", "rbgp4mm", "ippppppp" + "i" * 11 + "p",
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w_data.data_ptr(),
+            tables.col0.data_ptr(), cl.col0.data_ptr(),
+            cl.groups.data_ptr(), cl.start.data_ptr(), out.data_ptr(), n,
+            dims.m, dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols,
+            cl.n_classes, cl.max_groups, _PATH_CODES[path], *tile, x.device)
+
+
+rbgp4mm.launches = rbgp4mm.launches_dx = rbgp4mm.launches_mma = 0
 
 
 def _check_fm_sddmm_args(dims, g, x):
@@ -745,8 +936,8 @@ def rbgp4_sddmm_reference(tables: KernelTables, g: torch.Tensor,
 
 
 def _sddmm_slices(n: int, dims: KernelDims, device) -> int:
-    """How many slices of N the kernel cuts the contraction into at these
-    shapes on ``device`` (its own plan, read from the library)."""
+    """How many slices of N the FMA body cuts the contraction into at
+    these shapes on ``device`` (its own plan, read from the library)."""
     fn = build.load("rbgp4_sddmm").rbgp4_sddmm_slices
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 5
@@ -763,10 +954,12 @@ def rbgp4_sddmm(tables: KernelTables, g: torch.Tensor,
 
     ``tables`` are the forward layout's kernel tables.  CPU tensors run the
     plain version; CUDA tensors launch the kernel, which takes float32 or
-    bfloat16 g and x of one dtype, both contiguous.  Where the kernel cuts
-    N into slices, the f32 workspace of their partial sums is allocated
-    here; the slices are added in a fixed order, so a rerun gives the same
-    bits.
+    bfloat16 g and x of one dtype, both contiguous.  The body is
+    ``fm_sddmm_path``'s (bfloat16 on the tensor cores with the plan
+    ``fm_sddmm_plan`` names, counted again in ``launches_mma``).  Where a
+    body cuts N into slices, the f32 workspace of their partial sums is
+    allocated here; the slices are added in a fixed order, so a rerun
+    gives the same bits.
     """
     dims = tables.dims
     _check_fm_sddmm_args(dims, g, x)
@@ -779,18 +972,45 @@ def rbgp4_sddmm(tables: KernelTables, g: torch.Tensor,
         return torch.zeros((dims.m, dims.data_cols), dtype=dt,
                            device=g.device)
     dw = torch.empty((dims.m, dims.data_cols), dtype=dt, device=g.device)
-    slices = _sddmm_slices(n, dims, g.device)
-    part = (torch.empty((slices, dims.m, dims.data_cols), dtype=torch.float32,
-                        device=g.device) if slices > 1 else None)
-    _launch("rbgp4_sddmm", "rbgp4_sddmm", "ipppppiiiiip", _DTYPE_CODES[dt],
-            g.data_ptr(), x.data_ptr(), tables.col0.data_ptr(), dw.data_ptr(),
-            part.data_ptr() if part is not None else None, n, dims.m,
-            dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols, g.device)
+    path = fm_sddmm_path(dims, n, dt)
+    _fm_sddmm_body(path, tables, g, x, dw)
     rbgp4_sddmm.launches += 1
+    if path == "mma":
+        rbgp4_sddmm.launches_mma += 1
     return dw
 
 
-rbgp4_sddmm.launches = 0
+def _fm_sddmm_body(path: str, tables: KernelTables, g: torch.Tensor,
+                   x: torch.Tensor, dw: torch.Tensor,
+                   plan: Optional[SddmmPlan] = None) -> None:
+    """Launch body ``path`` ("fma" or "mma") of ``rbgp4_sddmm`` on checked
+    CUDA operands of one dtype (N > 0), writing ``dw``; the slices'
+    workspace is allocated here.  ``plan`` is the mma body's
+    (``fm_sddmm_plan``'s unless given, to time another).  It moves no
+    counter, as ``_rhs_body``."""
+    dims = tables.dims
+    n = x.shape[1]
+    if path == "mma":
+        _check_aligned16("rbgp4_sddmm", {"g": g, "x": x})
+        if plan is None:
+            plan = fm_sddmm_plan(dims, n, _sm_count(g.device))
+        shape = plan.workspace_shape(dims)
+    else:
+        plan = _NO_PLAN
+        slices = _sddmm_slices(n, dims, g.device)
+        shape = (slices, dims.m, dims.data_cols) if slices > 1 else None
+    part = (torch.empty(shape, dtype=torch.float32, device=g.device)
+            if shape is not None else None)
+    _launch("rbgp4_sddmm", "rbgp4_sddmm", "ippppp" + "i" * 10 + "p",
+            _DTYPE_CODES[g.dtype], g.data_ptr(), x.data_ptr(),
+            tables.col0.data_ptr(), dw.data_ptr(),
+            part.data_ptr() if part is not None else None, n, dims.m,
+            dims.d_o * dims.d_i, dims.group_rows, dims.chunk_cols,
+            _PATH_CODES[path], plan.block_cols, plan.stage_tokens,
+            plan.n_slices, plan.slice_len, g.device)
+
+
+rbgp4_sddmm.launches = rbgp4_sddmm.launches_mma = 0
 
 
 # -- stacked experts: one layout, values and activations with a leading E --

@@ -32,7 +32,13 @@ over row-group classes (small chains with leaves 8 x 16, 16 x 8, 8 x 8
 and 128 x 64, classes of unequal sizes among them, and tinyllama's four
 chain shapes) against their plain versions, bit-equal on a rerun, and
 ``ChainLinear``'s bf16 gradients on them against dense autograd at N =
-1037.
+1037.  And the bf16 tensor-core bodies of ``rbgp4mm`` (forward and
+transposed tables, over row-group class tiles, G = 8 included) and
+``rbgp4_sddmm`` (bit-equal on a rerun) at VGG19's 64 x 576, 128 x 576
+and 512 x 4608 at N in {16, 1000, 4104}, every built tile and block of
+columns against the plain versions, and the launchers refusing float32,
+N not a multiple of 8, WRN's C = 2 and transposed G = 2, tiles and plans
+they have no template or slices for, and misaligned operands.
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -41,6 +47,8 @@ JAX is not installed:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py \
         -k "chain or stacked"
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py \
+        -k "fm_mma or featmajor"
 
 Tolerances scale with max|ref|: 1e-5 in float32 (reduction order only),
 2e-2 in bfloat16 (one output rounding).  ``RBGP4Linear``'s gradients chain
@@ -1304,3 +1312,240 @@ def test_cuda_stacked_sddmm_mma_body_refuses_what_it_cannot_take():
                                         device="cuda"), plan=plan)
     assert_close(rbgp4_sddmm_rhs_stacked(to, go, xo),
                  rbgp4_sddmm_rhs_stacked_reference(to, go, xo), dt, "odd")
+
+
+# the feature-major tensor-core bodies: FM_LAYOUTS and 128 x 576, whose
+# transposed tables have G = 8 (two slots, as 64 x 576's have one); N at
+# the least N they take, and ragged 128-token tiles (1000, 4104)
+FM_MMA_LAYOUTS = FM_LAYOUTS + [(128, 576)]
+FM_MMA_N = (16, 1000, 4104)
+
+
+def fm_mma_layouts():
+    return [RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0))
+            for m, k in FM_MMA_LAYOUTS]
+
+
+@pytest.mark.cuda
+def test_cuda_fm_mma_bodies_match_plain_versions():
+    """bf16 ``rbgp4mm`` (forward and transposed tables) and
+    ``rbgp4_sddmm`` take the tensor-core bodies where ``fm_path`` /
+    ``fm_sddmm_path`` say (every layout here but WRN's C = 2 and its
+    transposed G = 2), each launch counted once and once more in
+    ``launches_mma``, agree with the plain versions and, for dW, give the
+    same bits on a rerun."""
+    needs_card()
+    from repro_torch.kernels import fm_path, fm_sddmm_path
+
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dt)
+    n_mma = 0
+    for (m, k), lay in zip(FM_MMA_LAYOUTS, fm_mma_layouts()):
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        d, d_t = tables.dims, tt.tables.dims
+        w = rnd(*lay.data_shape)
+        wt = tt.values(w)
+        for n in FM_MMA_N:
+            x, gy = rnd(k, n), rnd(m, n)
+            mma = (fm_path(d, n, dt) == "mma", fm_path(d_t, n, dt) == "mma",
+                   fm_sddmm_path(d, n, dt) == "mma")
+            assert mma == (((m, k) != (64, 144)),) * 3, (m, k, n)
+            before = (rbgp4mm.launches, rbgp4mm.launches_dx,
+                      rbgp4mm.launches_mma, rbgp4_sddmm.launches,
+                      rbgp4_sddmm.launches_mma)
+            o = rbgp4mm(tables, x, w)
+            dx = rbgp4mm(tt.tables, gy, wt)
+            dw = rbgp4_sddmm(tables, gy, x)
+            torch.cuda.synchronize()
+            assert (rbgp4mm.launches, rbgp4mm.launches_dx,
+                    rbgp4mm.launches_mma, rbgp4_sddmm.launches,
+                    rbgp4_sddmm.launches_mma) == (
+                before[0] + 1, before[1] + 1, before[2] + mma[0] + mma[1],
+                before[3] + 1, before[4] + mma[2]), (m, k, n)
+            n_mma += sum(mma)
+            assert_close(o, rbgp4mm_reference(tables, x, w), dt,
+                         (m, k, n, "O"))
+            assert_close(dx, rbgp4mm_reference(tt.tables, gy, wt), dt,
+                         (m, k, n, "dI"))
+            assert_close(dw, rbgp4_sddmm_reference(tables, gy, x), dt,
+                         (m, k, n, "dW"))
+            assert torch.equal(dw, rbgp4_sddmm(tables, gy, x)), (m, k, n)
+    assert n_mma == 3 * 3 * len(FM_MMA_N)
+
+
+# VGG19-CIFAR's seven sparse layouts, at the paper's other Table 1
+# sparsities: other G, C and class sizes, so other tiles of fm_mma_tile
+FM_VGG19_LAYOUTS = [(64, 576), (128, 576), (128, 1152), (256, 1152),
+                    (256, 2304), (512, 2304), (512, 4608)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp", [0.5, 0.875, 0.9375])
+def test_cuda_fm_mma_bodies_at_table1_sparsities(sp):
+    """bf16 ``rbgp4mm`` (O and dI) and ``rbgp4_sddmm`` on VGG19's seven
+    layouts at sparsity ``sp``: each launch takes the body ``fm_path`` /
+    ``fm_sddmm_path`` name (counted once, and once more in
+    ``launches_mma`` on the tensor-core body), with the tile
+    ``fm_mma_tile`` names, and agrees with the plain version; dW gives
+    the same bits on a rerun.  At 0.5, 512 x 2304's dI runs 32-row tiles
+    of G = 64 row groups over 256 compact columns."""
+    needs_card()
+    from repro_torch.kernels import fm_path, fm_sddmm_path
+
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dt)
+    for m, k in FM_VGG19_LAYOUTS:
+        lay = RBGP4Layout(design_rbgp4(m, k, sp, seed=0))
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        d, d_t = tables.dims, tt.tables.dims
+        w = rnd(*lay.data_shape)
+        wt = tt.values(w)
+        for n in FM_MMA_N:
+            x, gy = rnd(k, n), rnd(m, n)
+            mma = (fm_path(d, n, dt) == "mma", fm_path(d_t, n, dt) == "mma",
+                   fm_sddmm_path(d, n, dt) == "mma")
+            before = (rbgp4mm.launches_mma, rbgp4_sddmm.launches_mma)
+            o = rbgp4mm(tables, x, w)
+            dx = rbgp4mm(tt.tables, gy, wt)
+            dw = rbgp4_sddmm(tables, gy, x)
+            torch.cuda.synchronize()
+            assert (rbgp4mm.launches_mma, rbgp4_sddmm.launches_mma) == (
+                before[0] + mma[0] + mma[1], before[1] + mma[2]), (m, k, n)
+            assert_close(o, rbgp4mm_reference(tables, x, w), dt,
+                         (sp, m, k, n, "O"))
+            assert_close(dx, rbgp4mm_reference(tt.tables, gy, wt), dt,
+                         (sp, m, k, n, "dI"))
+            assert_close(dw, rbgp4_sddmm_reference(tables, gy, x), dt,
+                         (sp, m, k, n, "dW"))
+            assert torch.equal(dw, rbgp4_sddmm(tables, gy, x)), (m, k, n)
+
+
+@pytest.mark.cuda
+def test_cuda_fm_mma_tiles_match_plain_versions():
+    """Every tile of ``FM_MMA_TILES`` (O at G = 16, dI at G = 8 and 64)
+    and every block of ``FM_SDDMM_TILES`` (with its own slice plan) agrees
+    with the plain version at a ragged N, and each dW reruns bit-equal:
+    the sweep that picks among them times only right answers."""
+    needs_card()
+    from repro_torch.kernels import (FM_MMA_TILES, FM_SDDMM_TILES,
+                                     fm_sddmm_plan)
+    from repro_torch.kernels.rbgp4mm import _fm_body, _fm_sddmm_body
+
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(22)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dt)
+    n = 1000
+    for m, k in ((64, 576), (512, 4608)):
+        lay = RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0))
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        w = rnd(*lay.data_shape)
+        wt = tt.values(w)
+        x, gy = rnd(k, n), rnd(m, n)
+        want = (rbgp4mm_reference(tables, x, w),
+                rbgp4mm_reference(tt.tables, gy, wt))
+        for tile in FM_MMA_TILES:
+            o = torch.empty((m, n), dtype=dt, device="cuda")
+            dx = torch.empty((k, n), dtype=dt, device="cuda")
+            _fm_body("mma", tables, x, w, o, tile=tile)
+            _fm_body("mma", tt.tables, gy, wt, dx, tile=tile)
+            assert_close(o, want[0], dt, (m, k, tile, "O"))
+            assert_close(dx, want[1], dt, (m, k, tile, "dI"))
+        ref = rbgp4_sddmm_reference(tables, gy, x)
+        for bc in FM_SDDMM_TILES:
+            plan = fm_sddmm_plan(tables.dims, n, _sm_count("cuda"), bc)
+            dws = []
+            for _ in range(2):
+                dw = torch.empty(lay.data_shape, dtype=dt, device="cuda")
+                _fm_sddmm_body("mma", tables, gy, x, dw, plan=plan)
+                dws.append(dw)
+            assert_close(dws[0], ref, dt, (m, k, bc, "dW"))
+            assert torch.equal(dws[0], dws[1]), (m, k, bc)
+
+
+@pytest.mark.cuda
+def test_cuda_fm_mma_bodies_refuse_what_they_cannot_take():
+    """float32, N not a multiple of 8, C = 2 (WRN-40-4's forward tables)
+    and its transposed G = 2, a tile or plan the body has no template or
+    slices for: the launcher refuses (RuntimeError), nothing runs on the
+    other body; a misaligned operand is refused by the wrapper
+    (ValueError)."""
+    needs_card()
+    import dataclasses
+
+    from repro_torch.kernels import fm_sddmm_plan
+    from repro_torch.kernels.rbgp4mm import _fm_body, _fm_sddmm_body
+
+    def fm(tables, x, w, n, tile=(16, 4, 1)):
+        o = torch.empty((tables.dims.m, n), dtype=x.dtype, device="cuda")
+        _fm_body("mma", tables, x, w, o, tile=tile)
+        return o
+
+    def sddmm(tables, gy, x, plan):
+        dw = torch.empty((tables.dims.m, tables.dims.data_cols),
+                         dtype=x.dtype, device="cuda")
+        _fm_sddmm_body("mma", tables, gy, x, dw, plan=plan)
+        return dw
+
+    lay = RBGP4Layout(design_rbgp4(64, 576, 0.75, seed=0))
+    tables = KernelTables.build(lay, "cuda")
+    tt = TransposeTables.build(lay, "cuda")
+    sms = _sm_count("cuda")
+    n = 1000
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(lay.k, n, device="cuda").to(dt)
+        w = torch.randn(lay.data_shape, device="cuda").to(dt)
+        gy = torch.randn(lay.m, n, device="cuda").to(dt)
+        plan = fm_sddmm_plan(tables.dims, n, sms)
+        if dt == torch.float32:
+            with pytest.raises(RuntimeError):
+                fm(tables, x, w, n)
+            with pytest.raises(RuntimeError):
+                sddmm(tables, gy, x, plan)
+            continue
+        for bad in ((16, 3, 1), (16, 4, 3), (24, 4, 1), (128, 8, 1),
+                    (64, 2, 4)):
+            with pytest.raises(RuntimeError):
+                fm(tables, x, w, n, tile=bad)
+        for bad in (dict(block_cols=32), dict(stage_tokens=128),
+                    dict(slice_len=plan.slice_len // 2 or 32)):
+            with pytest.raises(RuntimeError):
+                sddmm(tables, gy, x, dataclasses.replace(plan, **bad))
+        # N not a multiple of 8
+        x9, g9 = x[:, :999].contiguous(), gy[:, :999].contiguous()
+        with pytest.raises(RuntimeError):
+            fm(tables, x9, w, 999)
+        with pytest.raises(RuntimeError):
+            sddmm(tables, g9, x9, fm_sddmm_plan(tables.dims, 999, sms))
+        # a misaligned operand
+        flat = torch.randn(lay.k * n + 1, device="cuda").to(dt)
+        x_off = flat[1:].view(lay.k, n)
+        assert x_off.is_contiguous() and x_off.data_ptr() % 16
+        with pytest.raises(ValueError):
+            rbgp4mm(tables, x_off, w)
+        with pytest.raises(ValueError):
+            rbgp4_sddmm(tables, gy, x_off)
+        # the transposed tables take it, G = 8
+        assert_close(fm(tt.tables, gy, tt.values(w), n),
+                     rbgp4mm_reference(tt.tables, gy, tt.values(w)), dt,
+                     "G = 8")
+    wrn = RBGP4Layout(design_rbgp4(64, 144, 0.75, seed=0))
+    tw = KernelTables.build(wrn, "cuda")
+    ttw = TransposeTables.build(wrn, "cuda")
+    dt = torch.bfloat16
+    x = torch.randn(wrn.k, n, device="cuda").to(dt)
+    w = torch.randn(wrn.data_shape, device="cuda").to(dt)
+    gy = torch.randn(wrn.m, n, device="cuda").to(dt)
+    with pytest.raises(RuntimeError):
+        fm(tw, x, w, n)
+    with pytest.raises(RuntimeError):
+        fm(ttw.tables, gy, ttw.values(w), n)
+    with pytest.raises(RuntimeError):
+        sddmm(tw, gy, x, fm_sddmm_plan(tw.dims, n, sms))

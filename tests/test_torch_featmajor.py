@@ -9,7 +9,11 @@ Layouts: ``tests/test_kernels.py``'s G = C = 4 layout, and
 ``design_rbgp4(64, 576, 0.75)`` and ``design_rbgp4(64, 144, 0.75)`` (C = 2),
 the narrowest of VGG19-CIFAR's and WideResNet-40-4's sparse convs, with a
 ragged N.  Tolerance 1e-5 * max|ref| in float32 (summation order only).
-The CUDA kernels run only on the card (``tests/test_torch_cuda.py``).
+The CUDA kernels run only on the card (``tests/test_torch_cuda.py``); a
+plain-torch walk of their tensor-core bodies' decomposition (the k16
+steps that pair two C = 8 slots, the contraction warps summed in warp
+order, transposed G = 8 on the n8 side, dW's column blocks and token
+slices) is held here against the plain versions and the JAX kernels.
 """
 import dataclasses
 
@@ -28,11 +32,14 @@ from repro.kernels import rbgp4_sddmm as j_rbgp4_sddmm
 from repro.kernels import rbgp4mm as j_rbgp4mm
 from repro.kernels import ref as jref
 from repro_torch.core import RBGP4Layout, RBGP4Spec, design_rbgp4
-from repro_torch.kernels import (KernelTables, RBGP4MatMul, RBGP4Op,
-                                 TransposeTables, get_op, rbgp4_sddmm,
-                                 rbgp4_sddmm_reference, rbgp4mm,
+from repro_torch.kernels import (FM_MMA_TILES, FM_SDDMM_TILES,
+                                 KernelTables, RBGP4MatMul, RBGP4Op,
+                                 TransposeTables, fm_path,
+                                 fm_sddmm_path, fm_sddmm_plan, get_op,
+                                 rbgp4_sddmm, rbgp4_sddmm_reference, rbgp4mm,
                                  rbgp4mm_reference)
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.rbgp4mm import _fm_k_steps
 
 torch.set_num_threads(1)
 RTOL = 1e-5
@@ -49,7 +56,7 @@ N_RAGGED = 37
 
 def pair(name, seed=0):
     """(reference layout, port layout) of the same spec."""
-    shape = LAYOUTS[name]
+    shape = LAYOUTS[name] if name in LAYOUTS else MMA_LAYOUTS[name]
     if len(shape) == 2:
         return (JLayout(j_design(*shape, 0.75, seed=seed)),
                 RBGP4Layout(design_rbgp4(*shape, 0.75, seed=seed)))
@@ -440,3 +447,184 @@ def test_moe_modules_default_to_the_card():
         MoELayer(64, moe, cfg, "silu")
     assert MoELayer(64, moe, cfg, "silu", device="cpu").router.device.type \
         == "cpu"
+
+
+# -- the tensor-core bodies' decomposition, walked on the CPU ------------------
+
+# a small layout with VGG19's forward shape (G = 16, C = 8; transposed
+# G = 8, C = 16) beside VGG19's narrowest layer
+MMA_LAYOUTS = {
+    "g16c8": (64, 32, 0.5, 0.5, 16, 8, 2, 2),
+    "vgg 64x576": (64, 576),
+}
+
+
+def walk_fm(tables, x, w, tile):
+    """O = W_s @ I as ``rbgp4mm``'s tensor-core body computes it, in
+    float32: per row-group class (``tables.classes``) and tile of
+    ``tile[0]`` class rows by 128 tokens, the class rows gathered
+    through ``groups`` (rows past the class left out) and the input rows
+    through the class's one ``col0`` row, one compact column at a time
+    (zero past the row, up to a whole k16 step); each contraction warp of
+    ``_fm_k_steps`` sums its k16 steps in order, the warps' sums added in
+    warp order; written into the rows' own places."""
+    d = tables.dims
+    cl = tables.classes
+    G, C, length = d.group_rows, d.chunk_cols, d.data_cols
+    klen = -(-length // 16) * 16
+    n = x.shape[1]
+    out = torch.full((d.m, n), float("nan"))
+    kk = torch.arange(length)
+    steps = _fm_k_steps(d, tile[2])
+    groups, start = cl.groups.long(), cl.start.long()
+    for c in range(cl.n_classes):
+        members = groups[start[c]:start[c + 1]]
+        rows = (members[:, None] * G + torch.arange(G)).reshape(-1)
+        xi = torch.zeros((klen, n))
+        xi[:length] = x[cl.col0[c].long()[kk // C] + kk % C]
+        for i0 in range(0, len(rows), tile[0]):
+            r = rows[i0:i0 + tile[0]]
+            wr = torch.zeros((len(r), klen))
+            wr[:, :length] = w[r]
+            for n0 in range(0, n, 128):
+                tok = slice(n0, min(n0 + 128, n))
+                total = None
+                for own in steps:
+                    acc = torch.zeros((len(r), tok.stop - n0))
+                    for s_ in own:
+                        k16 = slice(16 * s_, 16 * s_ + 16)
+                        acc = acc + wr[:, k16] @ xi[k16, tok]
+                    total = acc if total is None else total + acc
+                out[r, tok] = total
+    return out
+
+
+def walk_fm_sddmm(tables, g, x, plan):
+    """Compact dW as ``rbgp4_sddmm``'s tensor-core body computes it, in
+    float32: blocks of 16 rows by ``plan.block_cols`` compact columns
+    (several slots a block where C is smaller), the input rows gathered
+    through ``col0``, each slice's tokens in stages of
+    ``plan.stage_tokens``, the slices' partial sums added in slice
+    order."""
+    d = tables.dims
+    G, C, length = d.group_rows, d.chunk_cols, d.data_cols
+    col0 = tables.col0.long()
+    n = x.shape[1]
+    dw = torch.full((d.m, length), float("nan"))
+    for r0 in range(0, d.m, 16):
+        rg = r0 // G
+        for j0 in range(0, length, plan.block_cols):
+            cols = torch.arange(j0, min(j0 + plan.block_cols, length))
+            xr = x[col0[rg, cols // C] + cols % C]
+            total = None
+            for sl in range(plan.n_slices):
+                t0 = sl * plan.slice_len
+                t1 = min(n, t0 + plan.slice_len)
+                assert t1 > t0, "an empty slice"
+                acc = torch.zeros((16, len(cols)))
+                for s0 in range(t0, t1, plan.stage_tokens):
+                    st = slice(s0, min(s0 + plan.stage_tokens, t1))
+                    acc = acc + g[r0:r0 + 16, st] @ xr[:, st].T
+                total = acc if total is None else total + acc
+            dw[r0:r0 + 16, cols] = total
+    return dw
+
+
+def _assert_walked(got, want, what):
+    assert not torch.isnan(got).any(), (what, "an output no block wrote")
+    assert_close(got.numpy(), want, what)
+
+
+@pytest.mark.parametrize("name", list(MMA_LAYOUTS))
+def test_k16_steps_pair_two_slots_at_c8(name):
+    """At C = 8 every k16 step of the forward tables holds two adjacent
+    slots (compact columns 16s .. 16s+15 are slots 2s and 2s+1), and the
+    gathered rows of a step are those two slots' input rows."""
+    _, tl = pair(name)
+    tables = KernelTables.build(tl, "cpu")
+    d = tables.dims
+    assert d.chunk_cols == 8 and d.group_rows == 16
+    col0 = tables.col0.long()
+    kk = torch.arange(d.data_cols)
+    for rg in range(d.m // d.group_rows):
+        rows = col0[rg, kk // 8] + kk % 8
+        for s_ in range(d.data_cols // 16):
+            step = rows[16 * s_:16 * s_ + 16]
+            assert torch.equal(step[:8], col0[rg, 2 * s_] + torch.arange(8))
+            assert torch.equal(step[8:],
+                               col0[rg, 2 * s_ + 1] + torch.arange(8))
+
+
+@pytest.mark.parametrize("name", list(MMA_LAYOUTS))
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("tile", FM_MMA_TILES)
+def test_fm_mma_walk_matches_plain_version(name, transposed, tile):
+    """The forward body's walk at every built tile, on the forward tables
+    (C = 8) and the transposed ones (G = 8, classes of 2 and 18 row
+    groups, so some class tiles are ragged) from ``transpose_layout()``,
+    against ``rbgp4mm_reference`` at a whole and a ragged token tile."""
+    _, tl = pair(name)
+    rng = np.random.default_rng(10)
+    n = 152
+    if transposed:
+        tt = TransposeTables.build(tl, "cpu")
+        tables = tt.tables
+        w = tt.values(t(randn(rng, *tl.data_shape)))
+        x = t(randn(rng, tl.m, n))
+    else:
+        tables = KernelTables.build(tl, "cpu")
+        w, x = t(randn(rng, *tl.data_shape)), t(randn(rng, tl.k, n))
+    assert fm_path(tables.dims, n, torch.bfloat16) == "mma"
+    got = walk_fm(tables, x, w, tile)
+    _assert_walked(got, rbgp4mm_reference(tables, x, w).numpy(),
+                   (name, transposed, tile))
+
+
+@pytest.mark.parametrize("name", list(MMA_LAYOUTS))
+def test_fm_mma_walk_matches_reference_kernels(name):
+    """The walk (the wrappers' own tiles) on the forward and transposed
+    tables against the JAX kernels in interpret mode: O and dI."""
+    from repro_torch.kernels import fm_mma_tile
+
+    jl, tl = pair(name)
+    rng = np.random.default_rng(11)
+    n = 136
+    w, x, g = (randn(rng, *tl.data_shape), randn(rng, tl.k, n),
+               randn(rng, tl.m, n))
+    tables = KernelTables.build(tl, "cpu")
+    want = j_rbgp4mm(JDims.from_layout(jl), jnp.asarray(jl.adj_o),
+                     jnp.asarray(w), jnp.asarray(x), interpret=True,
+                     block_n=128)
+    _assert_walked(walk_fm(tables, t(x), t(w),
+                           fm_mma_tile(tables, n)), want, "O")
+    jop = JOp(jl, interpret=True, block_n=128)
+    jlt = jl.transpose_layout()
+    want = j_rbgp4mm(JDims.from_layout(jlt), jnp.asarray(jlt.adj_o),
+                     jop.transpose_data(jnp.asarray(w)), jnp.asarray(g),
+                     interpret=True, block_n=128)
+    tt = TransposeTables.build(tl, "cpu")
+    _assert_walked(walk_fm(tt.tables, t(g), tt.values(t(w)),
+                           fm_mma_tile(tt.tables, n)), want, "dI")
+
+
+@pytest.mark.parametrize("name", list(MMA_LAYOUTS))
+@pytest.mark.parametrize("bc", FM_SDDMM_TILES)
+def test_fm_sddmm_walk_matches_plain_version_and_reference(name, bc):
+    """The dW body's walk with each built block of columns and its token
+    slices (520 tokens on 132 SMs: three slices, the last ragged) against
+    ``rbgp4_sddmm_reference`` and the JAX kernel in interpret mode."""
+    jl, tl = pair(name)
+    tables = KernelTables.build(tl, "cpu")
+    rng = np.random.default_rng(12)
+    n = 520
+    g, x = randn(rng, tl.m, n), randn(rng, tl.k, n)
+    assert fm_sddmm_path(tables.dims, n, torch.bfloat16) == "mma"
+    plan = fm_sddmm_plan(tables.dims, n, 132, bc)
+    assert plan.n_slices == 3 and plan.slice_len % plan.stage_tokens == 0
+    got = walk_fm_sddmm(tables, t(g), t(x), plan)
+    _assert_walked(got, rbgp4_sddmm_reference(tables, t(g), t(x)).numpy(),
+                   (name, bc))
+    want = j_rbgp4_sddmm(JDims.from_layout(jl), jnp.asarray(jl.adj_o),
+                         jnp.asarray(g), jnp.asarray(x), interpret=True,
+                         block_n=128)
+    _assert_walked(got, np.asarray(want), (name, bc, "reference kernel"))

@@ -1,34 +1,44 @@
 """Which device body a launch of ``rbgp4mm_rhs``, ``rbgp4mm_rhs_stacked``,
-``rbgp4_sddmm_rhs``, ``rbgp4_sddmm_rhs_stacked``, ``chainmm_rhs`` and
-``chain_sddmm_rhs`` takes, the dW tensor-core bodies' blocks and
-token-slice plans, the chain forward's tile rows, and the build's rebuild
-on a header edit: pure functions of dtype and shape, checked on the CPU
-(the kernels themselves run in ``tests/test_torch_cuda.py``).
+``rbgp4_sddmm_rhs``, ``rbgp4_sddmm_rhs_stacked``, ``chainmm_rhs``,
+``chain_sddmm_rhs``, ``rbgp4mm`` and ``rbgp4_sddmm`` takes, the dW
+tensor-core bodies' blocks and token-slice plans, the chain forward's
+tile rows, the feature-major forward's tiles and contraction split, and
+the build's rebuild on a header edit: pure functions of dtype and shape,
+checked on the CPU (the kernels themselves run in
+``tests/test_torch_cuda.py``).
 
 The layouts are tinyllama-1.1b's four and qwen2-moe-a2.7b's (attention
 and the shared expert share tinyllama's widths; the routed experts are
 1408 x 2048 and 2048 x 1408), each forward and transposed, from
 ``design_rbgp4(m, k, 0.75, seed=0)`` as the models build them; and
 tinyllama's four shapes under the hierarchical-block chain plan with the
-two small chains of the CPU tests (``chip_smoke.chain_layouts``).
+two small chains of the CPU tests (``chip_smoke.chain_layouts``); and
+VGG19-CIFAR's seven feature-major layouts with WRN-40-4's 64 x 144
+(``chip_smoke.fm_layouts``), forward and transposed.
 """
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import RBGP4Layout, design_rbgp4
-from repro_torch.kernels import (MMA_MIN_TOKENS, KernelDims, build,
+from repro_torch.core import RBGP4Layout, RBGP4Spec, design_rbgp4
+from repro_torch.kernels import (FM_MMA_TILES, FM_SDDMM_TILES,
+                                 MMA_MIN_TOKENS, KernelDims, KernelTables,
+                                 build,
                                  chain_rhs_path, chain_rhs_tile_rows,
                                  chain_tables, chain_transpose_tables,
-                                 rhs_path, sddmm_mma_plan, sddmm_path,
+                                 fm_mma_tile, fm_path,
+                                 fm_sddmm_path, fm_sddmm_plan,
+                                 fm_sddmm_tile, rhs_path, sddmm_mma_plan,
+                                 sddmm_path,
                                  stacked_mma_block_tokens,
                                  stacked_sddmm_mma_plan, stacked_sddmm_tile)
 from repro_torch.kernels.chainmm import (CHAIN_SDDMM_MMA_TILE,
                                          chain_sddmm_mma_plan,
                                          chain_sddmm_path)
-from repro_torch.kernels.rbgp4mm import STACKED_SDDMM_TILES
+from repro_torch.kernels.rbgp4mm import STACKED_SDDMM_TILES, _fm_k_steps
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -349,3 +359,229 @@ def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
     src = csrc / build.SOURCES["rbgp4mm_rhs"]
     src.write_bytes(src.read_bytes() + b"\n")
     assert build.library_path("rbgp4mm_rhs") not in (first, second)
+
+
+# -- the feature-major kernels: rbgp4mm (O, dI) and rbgp4_sddmm (dW) ----------
+
+VGG19_FM = [(64, 576), (128, 576), (128, 1152), (256, 1152), (256, 2304),
+            (512, 2304), (512, 4608)]
+WRN_FM = (64, 144)
+# N of VGG19-CIFAR's layers at batch 256 (res^2 * 256) and the least N
+VGG19_N = [16, 1024, 4096, 16384, 65536, 262144]
+
+
+@pytest.fixture(scope="module")
+def fm_tables():
+    return {mk: (KernelTables.build(lay, "cpu"),
+                 KernelTables.build(lay.transpose_layout(), "cpu"))
+            for mk, lay in chip_smoke.fm_layouts().items()}
+
+
+@pytest.fixture(scope="module")
+def fm_dims(fm_tables):
+    return {mk: (f.dims, t.dims) for mk, (f, t) in fm_tables.items()}
+
+
+def test_fm_layouts_are_the_ones_the_bodies_were_built_for(fm_dims):
+    """Forward: G = 16, 18 slots of C = 8, 8, 16, 16, 32, 32, 64;
+    transposed: C = 16, G = 8, 8, 16, 16, 32, 32, 64 with 1, 2, 2, 4, 4,
+    8, 8 slots; WRN-40-4: C = 2 forward, G = 2 transposed."""
+    got = [(f.group_rows, f.d_o * f.d_i, f.chunk_cols, t.group_rows,
+            t.d_o * t.d_i, t.chunk_cols)
+           for f, t in (fm_dims[mk] for mk in VGG19_FM + [WRN_FM])]
+    assert got == [(16, 18, c, gt, s, 16) for c, gt, s in (
+        (8, 8, 1), (8, 8, 2), (16, 16, 2), (16, 16, 4), (32, 32, 4),
+        (32, 32, 8), (64, 64, 8))] + [(16, 18, 2, 2, 1, 16)]
+
+
+@pytest.mark.parametrize("mk", VGG19_FM + [WRN_FM])
+@pytest.mark.parametrize("n", VGG19_N)
+def test_fm_paths_of_the_vgg19_layouts(fm_dims, mk, n):
+    """bf16 from the least N (16) through every VGG19 layer's N: O on the
+    forward tables, dI on the transposed ones (G = 8 included) and dW take
+    the tensor-core bodies at VGG19's seven layouts; WRN-40-4's C = 2 and
+    transposed G = 2 keep the FMA bodies."""
+    fwd, tr = fm_dims[mk]
+    want = "fma" if mk == WRN_FM else "mma"
+    assert fm_path(fwd, n, torch.bfloat16) == want
+    assert fm_path(tr, n, torch.bfloat16) == want
+    assert fm_sddmm_path(fwd, n, torch.bfloat16) == want
+
+
+@pytest.mark.parametrize("mk", VGG19_FM + [WRN_FM])
+@pytest.mark.parametrize("n", [1, 8, 1037, 4095, 4097])
+def test_fm_float32_few_and_odd_n_keep_the_fma_bodies(fm_dims, mk, n):
+    """float32 (no TF32) at every N, and bf16 below 16 columns or at N not
+    a multiple of 8 (a row of I would not start 16-byte aligned) take the
+    FMA bodies."""
+    for d in fm_dims[mk]:
+        for dt in (torch.float32, torch.bfloat16):
+            assert fm_path(d, n, dt) == "fma"
+            assert fm_sddmm_path(d, n, dt) == "fma"
+        assert fm_path(d, 4096, torch.float32) == "fma"
+        assert fm_sddmm_path(d, 4096, torch.float32) == "fma"
+
+
+@pytest.mark.parametrize("g_o,g_r,g_i", [((4, 4), (4, 4), (4, 4)),
+                                         ((2, 4), (9, 4), (2, 4)),
+                                         ((2, 4), (256, 2), (2, 2))])
+def test_fm_paths_of_the_cpu_test_layouts(g_o, g_r, g_i):
+    """The CUDA tests' small feature-major layouts (G = C = 4, an odd G =
+    9 and G = 256 with C = 2; transposed C = 4, 9 and 256) keep the FMA
+    bodies in bf16 too."""
+    lay = RBGP4Layout(RBGP4Spec(g_o=g_o, g_r=g_r, g_i=g_i, g_b=(1, 1),
+                                sp_o=0.5, sp_i=0.5, seed=7))
+    for d in (KernelDims.from_layout(lay),
+              KernelDims.from_layout(lay.transpose_layout())):
+        assert fm_path(d, 4096, torch.bfloat16) == "fma"
+        assert fm_sddmm_path(d, 4096, torch.bfloat16) == "fma"
+
+
+def test_fm_paths_refuse_shapes_they_cannot_take(fm_dims):
+    import dataclasses
+
+    fwd, tr = fm_dims[(512, 4608)]
+    for bad in (dict(group_rows=48, m=48 * 32), dict(group_rows=128),
+                dict(group_rows=4), dict(chunk_cols=12)):
+        assert fm_path(dataclasses.replace(fwd, **bad), 4096,
+                       torch.bfloat16) == "fma", bad
+    for bad in (dict(group_rows=8), dict(group_rows=24),
+                dict(chunk_cols=4)):
+        assert fm_sddmm_path(dataclasses.replace(fwd, **bad), 4096,
+                             torch.bfloat16) == "fma", bad
+    # G = 48 is no template of the forward, but a multiple of 16 for dW
+    d48 = dataclasses.replace(fwd, group_rows=48, m=48 * 32)
+    assert fm_sddmm_path(d48, 4096, torch.bfloat16) == "mma"
+    assert fm_path(tr, MMA_MIN_TOKENS - 8, torch.bfloat16) == "fma"
+    assert fm_path(tr, MMA_MIN_TOKENS, torch.bfloat16) == "mma"
+
+
+@pytest.mark.parametrize("mk", VGG19_FM)
+@pytest.mark.parametrize("n", VGG19_N)
+def test_fm_tiles_are_built_tiles(fm_tables, mk, n):
+    fwd, tr = fm_tables[mk]
+    assert fm_mma_tile(fwd, n) in FM_MMA_TILES
+    assert fm_mma_tile(tr, n) in FM_MMA_TILES
+    assert fm_sddmm_tile(fwd.dims, n) in FM_SDDMM_TILES
+
+
+# the sparsities of the paper's Table 1 (benchmarks/table1_models.py)
+TABLE1_SPARSITIES = (0.5, 0.75, 0.875, 0.9375)
+
+
+@pytest.mark.parametrize("sp", TABLE1_SPARSITIES)
+@pytest.mark.parametrize("mk", VGG19_FM + [WRN_FM])
+def test_fm_tiles_are_built_tiles_at_table1_sparsities(sp, mk):
+    """At every sparsity of Table 1, on VGG19-CIFAR's seven layouts and
+    WRN-40-4's 64 x 144 (its other layouts are VGG19's), forward and
+    transposed: wherever ``fm_path`` takes the tensor-core body,
+    ``fm_mma_tile`` names a tile that is built (at 0.5, 512 x 2304's
+    transposed tables have G = 64, classes of 9 and 256 compact
+    columns a row)."""
+    lay = RBGP4Layout(design_rbgp4(*mk, sp))
+    for side in (lay, lay.transpose_layout()):
+        t = KernelTables.build(side, "cpu")
+        for n in VGG19_N + [1000, 4104]:
+            if fm_path(t.dims, n, torch.bfloat16) == "mma":
+                assert fm_mma_tile(t, n) in FM_MMA_TILES, (t.dims, n)
+                assert fm_sddmm_tile(t.dims, n) in FM_SDDMM_TILES
+
+
+def test_fm_tile_rule_names_exactly_the_built_tiles():
+    """Over class sizes, G, row lengths and N, ``fm_mma_tile`` names every
+    tile of ``FM_MMA_TILES`` and no other: none it names lacks a
+    template, and none is built that it never names."""
+    from types import SimpleNamespace
+
+    named = set()
+    for sizes in ((1,) * 4, (1,) * 64, (2,) * 16, (9,) * 8, (18,) * 4):
+        for g in (8, 16, 32, 64):
+            for cols in (16, 128, 144, 256, 1152):
+                for n in (16, 1024, 262144):
+                    t = SimpleNamespace(
+                        dims=SimpleNamespace(group_rows=g, data_cols=cols),
+                        classes=SimpleNamespace(sizes=sizes,
+                                                max_groups=max(sizes)))
+                    named.add(fm_mma_tile(t, n))
+    assert named == set(FM_MMA_TILES)
+
+
+@pytest.mark.parametrize("mk", VGG19_FM + [WRN_FM])
+@pytest.mark.parametrize("side", [0, 1])
+def test_fm_classes_partition_the_row_groups_by_col0_row(fm_tables, mk,
+                                                        side):
+    """``rbgp4mm``'s tensor-core body walks ``KernelTables.classes``: every
+    row group in exactly one class, increasing within it, each member's
+    ``col0`` row the class's, no two classes alike.  The transposed tables
+    have classes of 9 row groups (18 at C = 8 forward: 64 x 576 and WRN's
+    64 x 144), one a tile-row of the complete outer graph; the forward
+    tables classes of 1 to 5."""
+    t = fm_tables[mk][side]
+    cl = t.classes
+    col0 = t.col0.numpy()
+    groups, start = cl.groups.numpy(), cl.start.numpy()
+    n_groups = t.dims.m // t.dims.group_rows
+    assert start[0] == 0 and start[-1] == n_groups
+    assert np.array_equal(np.sort(groups), np.arange(n_groups))
+    sizes = np.diff(start)
+    assert sizes.min() >= 1 and cl.max_groups == sizes.max()
+    for c in range(cl.n_classes):
+        members = groups[start[c]:start[c + 1]]
+        assert np.all(np.diff(members) > 0)
+        assert (col0[members] == cl.col0.numpy()[c]).all()
+    assert len(np.unique(cl.col0.numpy(), axis=0)) == cl.n_classes
+    if side == 1:
+        assert set(sizes) == ({18} if mk in ((64, 576), WRN_FM) else {9})
+    else:
+        assert cl.max_groups <= 5
+
+
+@pytest.mark.parametrize("mk", VGG19_FM + [WRN_FM])
+@pytest.mark.parametrize("side", [0, 1])
+@pytest.mark.parametrize("wk", sorted({t[2] for t in FM_MMA_TILES}))
+def test_fm_k_steps_cover_every_slot_once(fm_dims, mk, side, wk):
+    """The contraction warps of ``rbgp4mm``'s tensor-core body walk every
+    k16 step of the row once, each its steps in increasing order, so
+    every compact column, and so every slot's C columns, is contracted
+    exactly once (C = 8: one step holds two slots)."""
+    d = fm_dims[mk][side]
+    steps = _fm_k_steps(d, wk)
+    assert len(steps) == wk
+    for own in steps:
+        assert own == sorted(own)
+    flat = sorted(s_ for own in steps for s_ in own)
+    assert flat == list(range(-(-d.data_cols // 16)))
+    seen = np.zeros(d.data_cols, np.int64)
+    for own in steps:
+        for s_ in own:
+            seen[16 * s_:16 * s_ + 16] += 1
+    assert (seen == 1).all()
+    per_slot = seen.reshape(d.d_o * d.d_i, d.chunk_cols).sum(1)
+    assert (per_slot == d.chunk_cols).all()
+
+
+@pytest.mark.parametrize("mk", VGG19_FM)
+@pytest.mark.parametrize("n", VGG19_N[1:] + [1000, 4104])
+@pytest.mark.parametrize("bc", FM_SDDMM_TILES)
+def test_fm_sddmm_plan_covers_the_tokens_and_fills_the_card(fm_dims, mk, n,
+                                                            bc):
+    """The dW body's slices cover N in whole 64-token stages, none empty,
+    and bring the grid to about two waves of an H100 SXM's 132 SMs (fewer
+    only where the slices already have the least 256 tokens each)."""
+    d = fm_dims[mk][0]
+    plan = fm_sddmm_plan(d, n, H100_SMS, bc)
+    assert plan.block_cols == bc and plan.stage_tokens == 64
+    assert plan.slice_len % 64 == 0
+    assert (plan.n_slices - 1) * plan.slice_len < n
+    assert plan.n_slices * plan.slice_len >= n
+    base = (d.m // 16) * -(-d.data_cols // bc)
+    assert plan.blocks == base * plan.n_slices
+    # whole stages may cost a slice of the two waves' worth
+    assert plan.blocks >= 0.9 * 2 * H100_SMS or plan.n_slices * 256 >= n
+    assert plan.blocks < 2 * H100_SMS + base
+    shape = plan.workspace_shape(d)
+    assert shape == (None if plan.n_slices == 1
+                     else (plan.n_slices, d.m, d.data_cols))
+    assert fm_sddmm_plan(d, n, H100_SMS) == fm_sddmm_plan(
+        d, n, H100_SMS, fm_sddmm_tile(d, n))
+
