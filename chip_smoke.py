@@ -4,8 +4,9 @@
 
 Serves and trains two models through ``repro_torch``, with every sparse
 product on a hand-written CUDA kernel, RBGP4 at 0.75, ``min_dim=64``,
-tinyllama again under a deep-chain plan, and runs VGG19-CIFAR's sparse
-layers through the feature-major product:
+tinyllama again under a deep-chain plan, runs VGG19-CIFAR's sparse layers
+through the feature-major product, and trains the paper's two vision
+models:
 
   * full-width tinyllama-1.1b (22 layers, d_model 2048, all 154 projections
     compact) on ``rbgp4mm_rhs`` (the forward, and dX on the layer's
@@ -28,7 +29,12 @@ layers through the feature-major product:
     language models, as ``launch/serve.py --quant int8`` serves them:
     every compact and chain projection in int8 leaf blocks with one f32
     scale each, on the int8 (``scales=``) paths of ``rbgp4mm_rhs``,
-    ``rbgp4mm_rhs_stacked`` and ``chainmm_rhs``.
+    ``rbgp4mm_rhs_stacked`` and ``chainmm_rhs``;
+  * the paper's own models, VGG19-CIFAR and WRN-40-4 at full width,
+    trained at batch 256 through ``Trainer``: dense, unstructured and
+    block (4 x 4) at 0.75 in masked storage, and RBGP4 at 0.75 in compact
+    storage, whose sparse convs (unfolded patches, token-major) run on
+    ``rbgp4mm_rhs`` (forward, dX) and ``rbgp4_sddmm_rhs`` (dW).
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the result line:
@@ -207,7 +213,41 @@ exits non-zero without the result line:
  27. parity-q: in float32 on 4 requests, the int8 model's greedy streams
      against ``run_sequential`` on it and against the engine's streams
      after ``dequantize_weights`` (near ties as phase 5): full-width
-     tinyllama, and qwen2-moe and the chain plan at 2 full-width layers.
+     tinyllama, and qwen2-moe and the chain plan at 2 full-width layers;
+ 28. check-conv: ``rbgp4mm_rhs`` (forward, and dX on the transposed
+     layouts) and ``rbgp4_sddmm_rhs`` against their plain versions (phase
+     2's tolerances) at the 9 distinct (m, k, N) of VGG19-CIFAR's and
+     WRN-40-4's sparse convs at 0.75 (``conv_shapes``), f32 and bf16, at N
+     in {16, 1037, 4096} and each layer's own N at batch 256 (up to
+     262144): every launch moves ``launches_mma`` exactly when ``rhs_path``
+     / ``sddmm_path`` name the tensor-core body (C 8 and 2, transposed G 8
+     and 2 keep the FMA bodies), every dW reruns bit-equal;
+ 29. times-conv: as phase 3 at those layouts and batch-256 N, bf16: the
+     forward, dX and dW kernels, their FMA bodies, plain versions, one
+     dense PyTorch product each, the bound; for the forward also the
+     masked product (the unstructured baseline's ``sparse_linear``) and
+     torch's own CSR and BSR (4 x 4) products on the unstructured and
+     block masks (``torch.sparse.mm``, library calls the port never makes;
+     float32 where torch refuses bf16, said so);
+ 30. train-vision: VGG19-CIFAR and WRN-40-4 at full width, 6 steps of 256
+     ``GaussianClassImages(10, 256, seed=0)`` images (``Trainer`` with
+     ``classifier_loss``, sgdm 0.9, wd 1e-4, the step schedule, clip 1.0;
+     bf16 over f32 masters), the last 5 timed, for dense, unstructured,
+     block and RBGP4 storage: ms/step, images/s, peak memory, layout copies,
+     launches per step counted at each launch (RBGP4: each sparse conv's
+     forward, dX and dW, 15 / 36 of each; on the tensor-core bodies
+     ``VISION_MMA``, (15, 13, 13) and (35, 23, 23)), finite losses and
+     gradient norms; one profiled step (card busy and idle share);
+ 31. parity-vision: float32 VGG19-CIFAR at batch 8, RBGP4 compact and the
+     unstructured baseline: the first forward's logits within 1e-4 *
+     max|ref| and 2 steps' losses within 1e-4 relative, card against CPU,
+     and each sparse conv's dW and dX of the card's first backward
+     against the CPU's product on the card's own recorded tensors within
+     1e-4 * max|ref| (``ConvRecorder``);
+ 32. kd-protocol: ``examples/cifar_vgg_rbgp4.py``'s protocol at WRN-40-4's
+     full width, batch 64, bf16: a dense teacher, then unstructured
+     (masked) and RBGP4 (compact) students at 0.75 with KD alpha 0.5, 80
+     steps each; held-out accuracies printed, finite losses held.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -305,6 +345,28 @@ VGG19_SDMM = ((64, 576, 262144), (128, 576, 65536), (128, 1152, 65536),
 # WideResNet-40-4's narrowest sparse conv (benchmarks/table1_models.py:
 # 59-76), the one layout with C = 2
 WRN_SDMM = (64, 144)
+# WideResNet-40-4's 36 sparse convs (every conv but the stem and the three
+# shortcut projections) at batch 256, (m, k, n) in network order as
+# VGG19_SDMM: group g's first conv, then 11 more at its width
+WRN40_4_CONV = (((64, 144, 262144),) + ((64, 576, 262144),) * 11
+                + ((128, 576, 65536),) + ((128, 1152, 65536),) * 11
+                + ((256, 1152, 16384),) + ((256, 2304, 16384),) * 11)
+# the vision phases: the paper's sparsity, its batch, and its models' sparse
+# convs (VGG19: every conv but the first; WRN-40-4: all but the stem and
+# the projections, vision_plan's keep-dense rule)
+VISION_SPARSITY = 0.75
+VISION_BATCH = 256
+VISION_ARCHS = ("vgg19-cifar", "wrn40-4-cifar")
+VISION_PATTERNS = ("dense", "unstructured", "block", "rbgp4")
+VISION_SPARSE = {"vgg19-cifar": 15, "wrn40-4-cifar": 36}
+# the tensor-core launches (forward, dX, dW) a bf16 RBGP4 training step at
+# batch 256 makes: rhs_path takes G in 16-128 and C % 8, sddmm_path C % 16,
+# so 64 x 576 and 128 x 576 (C 8, transposed G 8) run dX and dW on the
+# FMA bodies, and 64 x 144 (C 2, transposed G 2) all three
+VISION_MMA = {"vgg19-cifar": (15, 13, 13), "wrn40-4-cifar": (35, 23, 23)}
+# N of check-conv besides each layer's own: the least N of the tensor-core
+# bodies, a ragged tile edge, a training step of the LM phases
+CONV_CHECK_N = (16, 1037, 4096)
 # N of check-fm: 1, the least N of the feature-major tensor-core bodies,
 # ragged token tiles of them (1000, 4104), and 1037 (not a multiple of 8:
 # the FMA bodies in bf16 too)
@@ -1646,7 +1708,7 @@ def per_layer(rows: dict, kind, projections=None) -> dict:
     role) weighted by ``projections`` (tinyllama's seven by default)."""
     projections = projections or LAYER_PROJECTIONS
     fields = ["ms", "plain_ms", "library_ms", "bound_ms"]
-    fields += [f for f in ("fma_ms", "mma64_ms", "mma128_ms")
+    fields += [f for f in ("fma_ms", "mma64_ms", "mma128_ms", "masked_ms")
                if all(f in rows[(key, kind)] for key in projections)]
     agg = {f: 0.0 for f in fields}
     by_share = {"bytes": 0.0, "operations": 0.0}
@@ -3000,6 +3062,633 @@ def per_layer_q(rows: dict, family: str, projections: dict) -> dict:
     return agg
 
 
+# -- the paper's vision models: VGG19-CIFAR and WRN-40-4 trained end to end ---
+
+def conv_layers(arch: str) -> list:
+    """(m, k, n) of each sparse conv of ``arch`` at 0.75 (``min_dim`` 64), in
+    network order, at batch 256: the token-major product Y (n, m) = P (n,
+    k) . W_s^T of the unfolded patches P, n = H' * W' * 256."""
+    return list(VGG19_SDMM if arch == "vgg19-cifar" else WRN40_4_CONV)
+
+
+def conv_shapes() -> list:
+    """The distinct (m, k, n) of both models' sparse convs at batch 256."""
+    return sorted(set(conv_layers("vgg19-cifar"))
+                  | set(conv_layers("wrn40-4-cifar")))
+
+
+def conv_layouts() -> dict:
+    from repro_torch.core import RBGP4Layout, design_rbgp4
+
+    return {(m, k): RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0))
+            for m, k, _ in conv_shapes()}
+
+
+def vision_model(arch: str, pattern: str, device, dtype,
+                 min_dim: int = 64, seed: int = 0):
+    """The full-width ``arch`` (``get_config``) with ``pattern`` at 0.75
+    (``backend="auto"``: compact storage for RBGP4, masked storage for the
+    unstructured and block patterns), the paper's keep-dense rule, weights
+    drawn from ``seed`` on ``device``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.vision import VGG19, WideResNet
+    from repro_torch.sparsity import SparsityConfig
+
+    sp = (SparsityConfig() if pattern == "dense" else
+          SparsityConfig(pattern=pattern, sparsity=VISION_SPARSITY,
+                         backend="auto", min_dim=min_dim))
+    cfg = dataclasses.replace(get_config(arch), sparsity=sp)
+    cls = VGG19 if arch == "vgg19-cifar" else WideResNet
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cls(cfg, device=device, dtype=dtype, generator=gen)
+
+
+def sparse_convs(model) -> list:
+    """The model's sparse convs (compact or masked storage), in order."""
+    from repro_torch.models.vision import SparseConv2D
+
+    return [mod for mod in model.modules()
+            if isinstance(mod, SparseConv2D) and mod.mode != "dense"]
+
+
+def conv_geometry(model, batch: int) -> list:
+    """(m, k, n) of each sparse conv of ``model`` at ``batch`` images, from
+    the output sizes of one image's forward."""
+    tokens = {}
+    convs = sparse_convs(model)
+    hooks = [mod.register_forward_hook(
+        lambda mod, args, out: tokens.__setitem__(
+            mod.name, out.shape[1] * out.shape[2])) for mod in convs]
+    with torch.no_grad():
+        model(torch.zeros((1, 32, 32, 3), device=model.device))
+    for h in hooks:
+        h.remove()
+    return [(mod.out_features, mod.in_features, tokens[mod.name] * batch)
+            for mod in convs]
+
+
+def conv_mma_counts(model, batch: int,
+                    dt: torch.dtype = torch.bfloat16) -> dict:
+    """The tensor-core launches one training step of ``model`` at ``batch``
+    images must make, by role, as ``rhs_path`` and ``sddmm_path`` name
+    them: the forward on each compact conv's layout, dX on its transposed
+    layout and dW."""
+    from repro_torch.kernels import rhs_path, sddmm_path
+
+    out = {"forward": 0, "dx": 0, "dw": 0}
+    convs = [mod for mod in sparse_convs(model) if mod.mode == "compact"]
+    for mod, (_, _, n) in zip(convs, conv_geometry(model, batch)):
+        dims, dims_t = mod.tables.dims, mod.transpose_tables().tables.dims
+        out["forward"] += rhs_path(dims, n, dt) == "mma"
+        out["dx"] += rhs_path(dims_t, n, dt) == "mma"
+        out["dw"] += sddmm_path(dims, n, dt) == "mma"
+    return out
+
+
+def phase_check_conv(layouts) -> dict:
+    """``rbgp4mm_rhs`` (forward, and dX on ``TransposeTables``) and
+    ``rbgp4_sddmm_rhs`` against their plain versions at the two models'
+    conv layouts, f32 and bf16, at N in ``CONV_CHECK_N`` and each layer's
+    own N at batch 256: each launch moves ``launches_mma`` exactly when the
+    path function names the tensor-core body, and each dW is rerun
+    bit-equal."""
+    from repro_torch.kernels import (KernelTables, TransposeTables,
+                                     rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_reference, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_reference, rhs_path,
+                                     sddmm_path)
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    max_abs = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+    n_cases = 0
+    for m, k, n_own in conv_shapes():
+        lay = layouts[(m, k)]
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        dims, dims_t = tables.dims, tt.tables.dims
+        for dt in (torch.float32, torch.bfloat16):
+            rnd = lambda *s: torch.randn(*s, device="cuda",
+                                         generator=g).to(dt)
+            worst = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+            bodies = []
+            w = rnd(*lay.data_shape)
+            wt = tt.values(w)
+            for n in CONV_CHECK_N + (n_own,):
+                x, gy = rnd(n, k), rnd(n, m)
+                paths = (rhs_path(dims, n, dt), rhs_path(dims_t, n, dt),
+                         sddmm_path(dims, n, dt))
+                cases = (
+                    ("forward", rbgp4mm_rhs, "launches", paths[0],
+                     lambda: rbgp4mm_rhs(tables, x, w),
+                     lambda: rbgp4mm_rhs_reference(tables, x, w)),
+                    ("dx", rbgp4mm_rhs, "launches_dx", paths[1],
+                     lambda: rbgp4mm_rhs(tt.tables, gy, wt),
+                     lambda: rbgp4mm_rhs_reference(tt.tables, gy, wt)),
+                    ("dw", rbgp4_sddmm_rhs, "launches", paths[2],
+                     lambda: rbgp4_sddmm_rhs(tables, gy, x),
+                     lambda: rbgp4_sddmm_rhs_reference(tables, gy, x)))
+                for role, fn, attr, path, run, plain in cases:
+                    mma0 = fn.launches_mma
+                    got = launched(fn, run, attr)
+                    if fn.launches_mma - mma0 != (path == "mma"):
+                        raise AssertionError(
+                            f"conv {m} x {k} N={n} {dt} {role}: "
+                            f"launches_mma moved by "
+                            f"{fn.launches_mma - mma0}, the path is {path}")
+                    err, rel = agree(f"conv {m} x {k} N={n} {role}", got,
+                                     plain(), dt)
+                    if role == "dw" and not torch.equal(got, run()):
+                        raise AssertionError(f"conv dW {m} x {k} N={n} {dt}:"
+                                             f" a rerun changed the bits")
+                    max_abs[role] = max(max_abs[role], err)
+                    worst[role] = max(worst[role], rel)
+                    n_cases += 1
+                bodies.append(f"N={n} " + "/".join(paths))
+            log("check-conv", f"{m:3d} x {k:4d} (G {dims.group_rows}, C "
+                              f"{dims.chunk_cols}; transposed G "
+                              f"{dims_t.group_rows}, C {dims_t.chunk_cols}) "
+                              f"{str(dt):14s} max|diff|/max|ref|: "
+                              + ", ".join(f"{r} {v:.2e}"
+                                          for r, v in worst.items())
+                              + "; bodies fwd/dX/dW: " + "; ".join(bodies))
+        del tables, tt
+        torch.cuda.empty_cache()
+    log("check-conv", f"{n_cases} cases agree at {len(conv_shapes())} conv "
+                      f"layouts, every dW bit-equal on a rerun, every "
+                      f"launches_mma as the path functions name it; max abs "
+                      f"diff " + ", ".join(f"{k_} {v:.3e}"
+                                           for k_, v in max_abs.items()))
+    return max_abs
+
+
+def _library_sparse(w_masked: torch.Tensor, fmt: str, xt: torch.Tensor):
+    """torch's own sparse product W (m, k) @ xt (k, n) in ``fmt`` ('csr' or
+    'bsr' with 4 x 4 blocks): (timed call, dtype it ran in).  Where torch
+    refuses bf16 for it, float32 (said so by the dtype); (None, None) where
+    it refuses both (logged)."""
+    for dt in (torch.bfloat16, torch.float32):
+        w = w_masked.to(dt)
+        sw = w.to_sparse_csr() if fmt == "csr" else w.to_sparse_bsr((4, 4))
+        x = xt.to(dt)
+        try:
+            torch.sparse.mm(sw, x)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:
+            log("times-conv", f"torch {fmt} product refuses {dt}: "
+                              f"{str(e).splitlines()[0][:120]}")
+            continue
+        return (lambda i: torch.sparse.mm(sw, x)), str(dt).split(".")[-1]
+    return None, None
+
+
+def phase_times_conv(layouts) -> dict:
+    """The conv layouts at their batch-256 N, bf16: the forward, dX and dW
+    kernels, their FMA bodies on the same operands, their plain versions,
+    one dense product each on the unpacked weights (``F.linear``, ``g @
+    W``, ``g^T @ x``), the bound; for the forward also the masked
+    product (``sparse_linear`` on a ``MaskedWeight``, mask multiply
+    included) and torch's own CSR and BSR products (``torch.sparse.mm``)
+    on the unstructured and block (4 x 4) masks of the same shape at 0.75,
+    feature-major (W @ X^T): library calls, which the port never makes."""
+    from repro_torch.kernels import (KernelTables, TransposeTables,
+                                     rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_reference, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_reference, rhs_path,
+                                     sddmm_path)
+    from repro_torch.kernels.ref import unpack_dense
+    from repro_torch.sparsity import (MaskedWeight, SparsityConfig,
+                                      make_pattern, sparse_linear)
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    dt = torch.bfloat16
+    rows = {}
+    timed = lambda fn: time_cuda(fn, n_iter=10, n_warm=2)
+    for m, k, n in conv_shapes():
+        lay = layouts[(m, k)]
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        dims, dims_t = tables.dims, tt.tables.dims
+        nnz = lay.data_shape[1]
+        copies = max(1, -(-2 * L2_BYTES // ((n * m + n * k) * 2)))
+        xs = torch.randn((copies, n, k), device="cuda", generator=g).to(dt)
+        gs = torch.randn((copies, n, m), device="cuda", generator=g).to(dt)
+        c = lambda i: i % copies
+        w = torch.randn((m, nnz), device="cuda", generator=g).to(dt)
+        wt, wd = tt.values(w), unpack_dense(lay, w)
+        fma_rhs, fma_sddmm = body_launchers(tables, "fma")
+        fma_rhs_t, _ = body_launchers(tt.tables, "fma")
+        y_out = torch.empty((n, m), dtype=dt, device="cuda")
+        dx_out = torch.empty((n, k), dtype=dt, device="cuda")
+        dw_out = torch.empty((m, nnz), dtype=dt, device="cuda")
+        masks = {p: torch.as_tensor(make_pattern(SparsityConfig(
+            pattern=p, sparsity=VISION_SPARSITY, min_dim=64), m, k).mask(),
+            device="cuda") for p in ("unstructured", "block")}
+        w_full = torch.randn((m, k), device="cuda", generator=g).to(dt)
+        masked = MaskedWeight(w=w_full, mask=masks["unstructured"])
+        xt = xs[0].T.contiguous()
+        csr, csr_dt = _library_sparse(w_full * masks["unstructured"], "csr",
+                                      xt)
+        bsr, bsr_dt = _library_sparse(w_full * masks["block"], "bsr", xt)
+        t = dict(
+            fwd=timed(lambda i: rbgp4mm_rhs(tables, xs[c(i)], w)),
+            fwd_fma=timed(lambda i: fma_rhs(xs[c(i)], w, y_out)),
+            fwd_plain=timed(lambda i: rbgp4mm_rhs_reference(
+                tables, xs[c(i)], w)),
+            fwd_lib=timed(lambda i: F.linear(xs[c(i)], wd)),
+            fwd_masked=timed(lambda i: sparse_linear(masked, xs[c(i)])),
+            fwd_csr=timed(csr) if csr else None,
+            fwd_bsr=timed(bsr) if bsr else None,
+            dx=timed(lambda i: rbgp4mm_rhs(tt.tables, gs[c(i)], wt)),
+            dx_fma=timed(lambda i: fma_rhs_t(gs[c(i)], wt, dx_out)),
+            dx_plain=timed(lambda i: rbgp4mm_rhs_reference(
+                tt.tables, gs[c(i)], wt)),
+            dx_lib=timed(lambda i: gs[c(i)] @ wd),
+            dw=timed(lambda i: rbgp4_sddmm_rhs(tables, gs[c(i)], xs[c(i)])),
+            dw_fma=timed(lambda i: fma_sddmm(gs[c(i)], xs[c(i)], dw_out)),
+            dw_plain=timed(lambda i: rbgp4_sddmm_rhs_reference(
+                tables, gs[c(i)], xs[c(i)])),
+            dw_lib=timed(lambda i: gs[c(i)].T @ xs[c(i)]),
+        )
+        key = (m, k, n)
+        b, by = bound_ms(n, m, k, nnz, dims.d_o * dims.d_i,
+                         dims.group_rows, 2)
+        rows[(key, "fwd")] = dict(
+            ms=t["fwd"], plain_ms=t["fwd_plain"], library_ms=t["fwd_lib"],
+            bound_ms=b, bound_by=by, fma_ms=t["fwd_fma"],
+            masked_ms=t["fwd_masked"], csr_ms=t["fwd_csr"],
+            csr_dtype=csr_dt, bsr_ms=t["fwd_bsr"], bsr_dtype=bsr_dt)
+        b, by = bound_ms(n, dims_t.m, dims_t.k, dims_t.data_cols,
+                         dims_t.d_o * dims_t.d_i, dims_t.group_rows, 2)
+        rows[(key, "dx")] = dict(ms=t["dx"], plain_ms=t["dx_plain"],
+                                 library_ms=t["dx_lib"], bound_ms=b,
+                                 bound_by=by, fma_ms=t["dx_fma"])
+        b, by = sddmm_bound_ms(n, m, k, nnz, dims.d_o * dims.d_i,
+                               dims.group_rows, 2)
+        rows[(key, "dw")] = dict(ms=t["dw"], plain_ms=t["dw_plain"],
+                                 library_ms=t["dw_lib"], bound_ms=b,
+                                 bound_by=by, fma_ms=t["dw_fma"])
+        paths = (rhs_path(dims, n, dt), rhs_path(dims_t, n, dt),
+                 sddmm_path(dims, n, dt))
+        log("times-conv", f"{m:3d} x {k:4d} N={n:<6d} bf16 (G "
+                          f"{dims.group_rows}, C {dims.chunk_cols}; dX G "
+                          f"{dims_t.group_rows}, "
+                          f"C {dims_t.chunk_cols}) bodies "
+                          f"{'/'.join(paths)}: forward kernel "
+                          f"{t['fwd']:.4f} ms, FMA body {t['fwd_fma']:.4f}, "
+                          f"plain {t['fwd_plain']:.4f}, F.linear dense "
+                          f"{t['fwd_lib']:.4f}, masked {t['fwd_masked']:.4f},"
+                          f" torch CSR ({csr_dt}) {t['fwd_csr']}, torch "
+                          f"BSR 4x4 ({bsr_dt}) {t['fwd_bsr']}, bound "
+                          f"{rows[(key, 'fwd')]['bound_ms']:.4f}; dX kernel "
+                          f"{t['dx']:.4f}, FMA {t['dx_fma']:.4f}, g @ W "
+                          f"{t['dx_lib']:.4f}, bound "
+                          f"{rows[(key, 'dx')]['bound_ms']:.4f}; dW kernel "
+                          f"{t['dw']:.4f}, FMA {t['dw_fma']:.4f}, g^T @ x "
+                          f"{t['dw_lib']:.4f}, bound "
+                          f"{rows[(key, 'dw')]['bound_ms']:.4f}")
+        del xs, gs, w, wt, wd, w_full, masked, csr, bsr, tables, tt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vision_train_config(n_steps: int, lr: float = 0.1):
+    """The paper's recipe: SGD momentum 0.9, weight decay 1e-4, the step
+    schedule (x0.2 at half and three quarters of the run), clip 1.0."""
+    from repro_torch.configs import TrainConfig
+
+    return TrainConfig(optimizer="sgdm", lr=lr, momentum=0.9,
+                       weight_decay=1e-4, schedule="step",
+                       lr_step_epochs=(n_steps // 2, 3 * n_steps // 4),
+                       lr_step_gamma=0.2, grad_clip=1.0)
+
+
+def phase_train_vision(arch: str, pattern: str, n_steps: int = 6,
+                       batch: int = VISION_BATCH) -> dict:
+    """``n_steps`` of ``Trainer.run`` on the full-width ``arch`` with
+    ``pattern`` storage, bf16 compute over f32 master values, on
+    ``GaussianClassImages(10, batch, seed=0)``: every step's sparse
+    launches, counted at each launch (RBGP4: each sparse conv's forward,
+    dX and dW), the tensor-core launches by role equal to what the path
+    functions name (``VISION_MMA`` for RBGP4), finite losses and gradient
+    norms; the mean of the last ``n_steps - 1`` steps, images/s, peak
+    memory, the layout copies a step; then one profiled step (card busy
+    and idle share)."""
+    from repro_torch.data import GaussianClassImages
+    from repro_torch.kernels import rbgp4_sddmm_rhs, rbgp4mm_rhs
+    from repro_torch.models.vision import SparseConv2D
+    from repro_torch.train import Trainer, classifier_loss
+
+    phase = "train-vision"
+    model = vision_model(arch, pattern, "cuda", torch.bfloat16)
+    convs = sparse_convs(model)
+    modes = {mod.mode for mod in convs}
+    n_sparse = len(convs)
+    if pattern == "dense":
+        want_modes, want = set(), launches_of()
+    else:
+        want_modes = {"compact" if pattern == "rbgp4" else "masked"}
+        if n_sparse != VISION_SPARSE[arch]:
+            raise AssertionError(f"{arch}: {n_sparse} sparse convs")
+        want = (launches_of(forward=n_sparse, dx=n_sparse, dw=n_sparse)
+                if pattern == "rbgp4" else launches_of())
+    if modes != want_modes:
+        raise AssertionError(f"{arch} {pattern}: storage {modes}")
+    want_mma = {"forward": 0, "dx": 0, "dw": 0}
+    if pattern == "rbgp4":
+        if conv_geometry(model, batch) != conv_layers(arch):
+            raise AssertionError(f"{arch}: conv geometry "
+                                 f"{conv_geometry(model, batch)}")
+        want_mma = conv_mma_counts(model, batch)
+        if tuple(want_mma.values()) != VISION_MMA[arch]:
+            raise AssertionError(f"{arch}: the path functions name "
+                                 f"{want_mma} tensor-core launches a step, "
+                                 f"want {VISION_MMA[arch]}")
+    trainer = Trainer(model, vision_train_config(n_steps),
+                      GaussianClassImages(10, batch, seed=0),
+                      checkpoint=False, loss_fn=classifier_loss())
+    counts = []
+    trainer.hooks.append(lambda step, metrics: counts.append(
+        (launch_counts(), rbgp4mm_rhs.launches_mma,
+         rbgp4_sddmm_rhs.launches_mma, SparseConv2D.layout_copies)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    copies0 = SparseConv2D.layout_copies
+    hist = list(trainer.run(n_steps))
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {k: v * n_steps for k, v in want.items()}:
+        raise AssertionError(f"{launches} launches in {n_steps} steps")
+    prev = (dict.fromkeys(COUNTERS, 0), 0, 0, copies0)
+    for i, (c, rhs_mma, dw_mma, copies) in enumerate(counts):
+        step = {k: c[k] - prev[0][k] for k in COUNTERS}
+        mma = (rhs_mma - prev[1], dw_mma - prev[2])
+        if step != want or mma != (want_mma["forward"] + want_mma["dx"],
+                                   want_mma["dw"]):
+            raise AssertionError(f"step {i}: launches {step}, tensor-core "
+                                 f"(rbgp4mm_rhs, rbgp4_sddmm_rhs) {mma}; "
+                                 f"want {want}, {want_mma}")
+        copies_per_step = copies - prev[3]
+        prev = (c, rhs_mma, dw_mma, copies)
+    # the forward alone: its tensor-core launches are the forward's share
+    before = rbgp4mm_rhs.launches_mma
+    with torch.no_grad():
+        model(torch.as_tensor(GaussianClassImages(10, batch, seed=0)
+                              .batch_at(0)["images"], device="cuda"))
+    fwd_mma = rbgp4mm_rhs.launches_mma - before
+    if fwd_mma != want_mma["forward"]:
+        raise AssertionError(f"a forward took {fwd_mma} tensor-core "
+                             f"launches, want {want_mma['forward']}")
+    for h in hist:
+        if not all(np.isfinite(h[k]) for k in ("loss", "grad_norm", "acc")):
+            raise AssertionError(f"step {h['step']}: {h}")
+    timed = [h["step_time_s"] for h in hist[1:]]
+    step_ms = 1e3 * statistics.mean(timed)
+    prof = profile_train_step(trainer, phase)
+    if prof["kernel_launches"] != want:
+        raise AssertionError(f"profiled step launches "
+                             f"{prof['kernel_launches']}")
+    res = dict(
+        arch=arch, storage=pattern, modes=sorted(modes), batch=batch,
+        steps=n_steps, losses=[h["loss"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist],
+        step_ms=[1e3 * t for t in timed], mean_step_ms=step_ms,
+        images_per_s=batch / (step_ms / 1e3), peak_mem_gb=peak_gb,
+        launches=launches, launches_per_step=want,
+        mma_per_step=want_mma, layout_copies_per_step=copies_per_step,
+        profile=prof, busy_ms=prof["busy_ms"],
+        idle_share=1.0 - prof["busy_share"],
+        idle_share_unprofiled=1.0 - prof["busy_ms"] / step_ms)
+    fmt = lambda xs, f: ", ".join(f"{x:{f}}" for x in xs)
+    log(phase, f"{arch} {pattern} ({'/'.join(sorted(modes)) or 'dense'} "
+               f"storage), batch {batch}, bf16 over f32 masters: losses "
+               f"{fmt(res['losses'], '.4f')}; grad norms "
+               f"{fmt(res['grad_norms'], '.3f')}")
+    log(phase, f"{arch} {pattern}: last {len(timed)} steps "
+               f"{step_ms:.1f} ms/step ({fmt(res['step_ms'], '.1f')}), "
+               f"{res['images_per_s']:.0f} images/s; peak memory "
+               f"{peak_gb:.2f} GB; {copies_per_step} layout copies a step")
+    log(phase, f"{arch} {pattern}: launches per step, counted at each "
+               f"launch: rbgp4mm_rhs {want['forward']} forward + "
+               f"{want['dx']} dX, rbgp4_sddmm_rhs {want['dw']}; on the "
+               f"tensor-core bodies (forward, dX, dW) "
+               f"{tuple(want_mma.values())} (a forward alone {fwd_mma})")
+    log(phase, f"{arch} {pattern}: profiled step {prof['wall_ms']:.1f} ms "
+               f"wall, card busy {prof['busy_ms']:.1f} ms "
+               f"({prof['busy_share']:.1%}; idle {res['idle_share']:.1%}; "
+               f"idle {res['idle_share_unprofiled']:.1%} of the unprofiled "
+               f"step); sparse kernels "
+               + ", ".join(f"{k} {prof['kernel_ms'][k]:.1f} ms"
+                           for k in ("forward", "dx", "dw")))
+    print(f"{phase} " + json.dumps(res), flush=True)
+    del trainer, model
+    free_card()
+    return res
+
+
+class ConvRecorder:
+    """For each sparse conv of a model whose values take gradients: its
+    unfolded input (the product's X), X's gradient, the output's gradient
+    and the values' gradient of the model's first backward (the layer's own
+    dX and dW)."""
+
+    def __init__(self, model):
+        self.rec = {}
+        self.handles = []
+        for mod in sparse_convs(model):
+            r = self.rec[mod.name] = {}
+            value = mod.w if mod.mode == "masked" else mod.w_data
+            self.handles.append(value.register_hook(
+                lambda gr, r=r: self._keep(r, "dw", gr)))
+            self.handles.append(mod.register_forward_hook(
+                lambda mod, args, out, r=r: self._out(r, out)))
+            patches = mod.patches
+
+            def rec_patches(x, patches=patches, r=r):
+                p = patches(x)
+                if "x" not in r and p.requires_grad:
+                    p.retain_grad()
+                    r["x_t"] = p
+                    r["x"] = p.detach().cpu()
+                return p
+
+            mod.patches = rec_patches
+            self.handles.append(mod)
+
+    @staticmethod
+    def _keep(r, key, grad) -> None:
+        """Keep the first gradient under ``key``; a tensor hook returning
+        None leaves the gradient as it is."""
+        if key not in r:
+            r[key] = grad.detach().to("cpu", copy=True)
+
+    def _out(self, r, out):
+        if "g" not in r and out.requires_grad:
+            out.register_hook(lambda g: self._keep(r, "g", g))
+
+    def remove(self):
+        for h in self.handles:
+            if isinstance(h, torch.nn.Module):
+                del h.patches
+            else:
+                h.remove()
+
+
+def phase_parity_vision(pattern: str, batch: int = 8) -> None:
+    """float32, VGG19-CIFAR at full width: the same weights and batches
+    train 2 steps on the card (the kernels; for masked storage the dense
+    products) and on the CPU (the plain versions); the card's first step
+    launches each sparse conv's forward, dX and dW (RBGP4) and the CPU
+    nothing.  Held: the first forward's logits within 1e-4 * max|ref|,
+    each step's loss within 1e-4 relative, and every sparse conv's dW and
+    dX of the card's first backward against the CPU's product on the
+    card's own unfolded input and output gradient, within 1e-4 *
+    max|ref|.  (The model-level gradients are not held: the two devices
+    sum in different orders, so a pre-ReLU value near 0 can pass the ReLU
+    on one device only, and that one kink moves a 2 x 2 layer's
+    batch-norm bias gradient by percents; the CPU tests measured the drift
+    between the port and the reference at up to 1e-4 at VGG19's last
+    convs.)"""
+    from repro_torch.data import GaussianClassImages
+    from repro_torch.train import Trainer, classifier_loss
+
+    phase = "parity-vision"
+    arch = "vgg19-cifar"
+    gpu = vision_model(arch, pattern, "cuda", torch.float32)
+    cpu = vision_model(arch, pattern, "cpu", torch.float32)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    data = GaussianClassImages(10, batch, seed=0)
+    images = data.batch_at(0)["images"]
+    with torch.no_grad():
+        logits = [m(torch.as_tensor(images, device=m.device)).cpu()
+                  for m in (gpu, cpu)]
+    err = float((logits[0] - logits[1]).abs().max())
+    scale = float(logits[1].abs().max())
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"{phase} {pattern}: logits max|diff| {err} > "
+                             f"1e-4 * {scale}")
+    runs = {}
+    recorder = None
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        reset_launch_counts()
+        tr = Trainer(model, vision_train_config(2, lr=0.05), data,
+                     checkpoint=False, loss_fn=classifier_loss())
+        if name == "cuda":
+            recorder = ConvRecorder(model)
+        else:
+            # the CPU's products on the card's recorded tensors, from the
+            # initial values (before the CPU model trains)
+            layer_worst = layer_parity(cpu, recorder.rec, phase, pattern)
+        hist = tr.run(2)
+        if name == "cuda":
+            recorder.remove()
+        runs[name] = ([h["loss"] for h in hist], launch_counts())
+    n = VISION_SPARSE[arch]
+    want = (launches_of(forward=2 * n, dx=2 * n, dw=2 * n)
+            if pattern == "rbgp4" else launches_of())
+    if runs["cuda"][1] != want or any(runs["cpu"][1].values()):
+        raise AssertionError(f"launches: card {runs['cuda'][1]}, cpu "
+                             f"{runs['cpu'][1]}, want {want}")
+    worst_loss = max(abs(a - b) / abs(b)
+                     for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    if not worst_loss <= 1e-4:
+        raise AssertionError(f"{phase} {pattern}: losses {runs['cuda'][0]} "
+                             f"(card) vs {runs['cpu'][0]} (cpu)")
+    log(phase, f"{arch} {pattern}, float32, batch {batch}: logits "
+               f"max|diff|/max|ref| {err / scale:.2e}; losses card "
+               f"{runs['cuda'][0]} vs cpu {runs['cpu'][0]} (worst "
+               f"{worst_loss:.2e} relative); {n} sparse convs' dW and dX "
+               f"on the card's own tensors: worst max|diff|/max|ref| "
+               + ", ".join(f"{k} {v:.2e}" for k, v in layer_worst.items())
+               + f"; card launches {runs['cuda'][1]}")
+    del gpu, cpu, recorder
+    free_card()
+
+
+def layer_parity(cpu, rec: dict, phase: str, pattern: str) -> dict:
+    """Each sparse conv of the CPU model against the card's recorded first
+    backward: dW and dX of ``sparse_linear`` on the card's unfolded input
+    and output gradient, within 1e-4 * max|ref|."""
+    from repro_torch.sparsity import sparse_linear
+
+    worst = {"dw": 0.0, "dx": 0.0}
+    for mod in sparse_convs(cpu):
+        r = rec[mod.name]
+        value = mod.w if mod.mode == "masked" else mod.w_data
+        w0 = value.detach().clone().requires_grad_()
+        weight = mod.weight()
+        if mod.mode == "masked":
+            weight.w = w0
+        else:
+            weight.w_data = w0
+        x = r["x"].clone().requires_grad_()
+        sparse_linear(weight, x).backward(r["g"])
+        for role, got, ref in (("dw", r["dw"], w0.grad),
+                               ("dx", r["x_t"].grad.cpu(), x.grad)):
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            if not (scale > 0 and err <= 1e-4 * scale):
+                raise AssertionError(f"{phase} {pattern} {mod.name} {role}: "
+                                     f"max|diff| {err} > 1e-4 * {scale}")
+            worst[role] = max(worst[role], err / scale)
+    return worst
+
+
+def phase_kd_protocol(n_steps: int = 80, batch: int = 64) -> dict:
+    """``examples/cifar_vgg_rbgp4.py``'s protocol at WRN-40-4's full width,
+    batch ``batch``, bf16 compute: a dense teacher, then an unstructured
+    (masked) and an RBGP4 (compact) student at 0.75 (``min_dim`` 32, as the
+    example) with KD alpha 0.5 from the teacher, ``n_steps`` each on
+    ``GaussianClassImages(10, batch, seed=3)``, the paper's recipe at lr
+    0.05; each model's accuracy on 512 held-out images (the same
+    prototypes, unseen noise).  The data is synthetic, so only finite
+    losses are held."""
+    from repro_torch.data import GaussianClassImages
+    from repro_torch.train import Trainer, classifier_loss
+
+    phase = "kd-protocol"
+    arch = "wrn40-4-cifar"
+    held_out = GaussianClassImages(10, 512, seed=3).batch_at(10_000)
+    labels = torch.as_tensor(held_out["labels"], device="cuda").long()
+    res, teacher = {}, None
+    for pattern in ("dense", "unstructured", "rbgp4"):
+        t0 = time.perf_counter()
+        model = vision_model(arch, pattern, "cuda", torch.bfloat16,
+                             min_dim=32)
+        loss_fn = (classifier_loss() if teacher is None
+                   else classifier_loss(teacher, alpha=0.5))
+        tr = Trainer(model, vision_train_config(n_steps, lr=0.05),
+                     GaussianClassImages(10, batch, seed=3),
+                     checkpoint=False, loss_fn=loss_fn)
+        hist = tr.run(n_steps)
+        losses = [h["loss"] for h in hist]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{phase} {pattern}: losses {losses}")
+        with torch.no_grad():
+            logits = model(torch.as_tensor(held_out["images"],
+                                           device="cuda"))
+        acc = float((logits.argmax(-1) == labels).float().mean())
+        res[pattern] = dict(acc=acc, first_loss=losses[0],
+                            last_loss=losses[-1],
+                            seconds=time.perf_counter() - t0)
+        role = " student, KD alpha 0.5" if teacher else " teacher"
+        log(phase, f"{arch} {pattern}{role}: "
+                   f"{n_steps} steps of {batch}, loss {losses[0]:.4f} -> "
+                   f"{losses[-1]:.4f}; held-out accuracy {acc:.3f} "
+                   f"({res[pattern]['seconds']:.1f} s)")
+        if teacher is None:
+            teacher = model
+        else:
+            del model
+        del tr
+    print(f"{phase} " + json.dumps(res), flush=True)
+    del teacher
+    free_card()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -3111,6 +3800,20 @@ def main() -> int:
                  phase="parity-q", quant=True)
     t_q = time.perf_counter() - t_q
 
+    # the paper's own models, VGG19-CIFAR and WRN-40-4, trained end to end:
+    # their sparse convs on rbgp4mm_rhs and rbgp4_sddmm_rhs at the conv
+    # layouts, the unstructured and block baselines in masked storage
+    t_vis = time.perf_counter()
+    convs = conv_layouts()
+    max_abs_conv = phase_check_conv(convs)
+    times_conv = phase_times_conv(convs)
+    vision = {(arch, pattern): phase_train_vision(arch, pattern)
+              for arch in VISION_ARCHS for pattern in VISION_PATTERNS}
+    for pattern in ("rbgp4", "unstructured"):
+        phase_parity_vision(pattern)
+    phase_kd_protocol()
+    t_vis = time.perf_counter() - t_vis
+
     per_layout = {f"{key} {kind if isinstance(kind, str) else f'N={kind}'}":
                   row for (key, kind), row in times.items()}
     per_layout.update({f"experts {key} {kind if isinstance(kind, str) else f'N={kind}'}":
@@ -3129,6 +3832,8 @@ def main() -> int:
                        for (key, n, (bc, st)), ms in dw_tiles.items()})
     per_layout.update({f"fm {m}x{k} N={n} {role} bodies": ms
                        for ((m, k, n), role), ms in fm_sweep.items()})
+    per_layout.update({f"conv {m}x{k} N={n} {role}": row
+                       for ((m, k, n), role), row in times_conv.items()})
     print("kernel_times " + json.dumps(per_layout), flush=True)
     src = "src/repro_torch/kernels/csrc/"
     # the forward: one decoder layer's seven projections at decode (N = 8
@@ -3156,8 +3861,16 @@ def main() -> int:
     q_fwd = per_layer_q(times_q, "rbgp4", LAYER_PROJECTIONS)
     q_s_fwd = per_layer_q(times_q, "stacked", MOE_LAYER_PROJECTIONS)
     q_c_fwd = per_layer_q(times_q, "chain", LAYER_PROJECTIONS)
+    # one VGG19-CIFAR training step's 15 sparse convs at batch 256
+    conv_pass = {role: per_layer(times_conv, role, vgg19)
+                 for role in ("fwd", "dx", "dw")}
+    vision_mma = lambda role: sum(r["mma_per_step"][role] * r["steps"]
+                                  for r in vision.values())
     main_runs = (serve, train, serve_moe, train_moe, serve_chain,
-                 train_chain, sdmm, serve_q, serve_q_moe, serve_q_chain)
+                 train_chain, sdmm, serve_q, serve_q_moe,
+                 serve_q_chain) + tuple(vision.values())
+    vision_launches = lambda role: sum(r["launches"][role]
+                                       for r in vision.values())
     total = lambda role: sum(run["launches"][role] for run in main_runs)
     record = {"kernels": [
         dict(name="rbgp4mm_rhs", route="cuda", source=src + "rbgp4mm_rhs.cu",
@@ -3354,6 +4067,38 @@ def main() -> int:
                   "the hierarchical-block plan (serve under --quant "
                   "int8); timed: one decoder layer's seven at decode, 8 "
                   "token rows, bf16 X"),
+        dict(name="rbgp4mm_rhs (conv layouts, training forward)",
+             route="cuda", source=src + "rbgp4mm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:500",
+             launches=vision_launches("forward"),
+             launches_mma=vision_mma("forward"),
+             max_abs_err=max_abs_conv["forward"], **conv_pass["fwd"],
+             work="the forward of VGG19-CIFAR's and WRN-40-4's sparse convs "
+                  "on their unfolded patches (train-vision, RBGP4 0.75, "
+                  "batch 256, bf16); timed: one VGG19-CIFAR step's 15 at "
+                  "N = res^2 x 256; fma_ms: the FMA body on the same "
+                  "operands; masked_ms: the masked product (mask multiply "
+                  "and F.linear) on the unstructured mask; library_ms: "
+                  "F.linear on the unpacked weights"),
+        dict(name="rbgp4mm_rhs (conv layouts, dX)", route="cuda",
+             source=src + "rbgp4mm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:500",
+             launches=vision_launches("dx"), launches_mma=vision_mma("dx"),
+             max_abs_err=max_abs_conv["dx"], **conv_pass["dx"],
+             work="dX of the vision models' sparse convs on their "
+                  "transposed layouts (G 8-64, C 16; 64 x 576 and 128 x "
+                  "576 on the FMA body at transposed G 8); timed: one "
+                  "VGG19-CIFAR step's 15, bf16; fma_ms: the FMA body on "
+                  "the same operands; library_ms: g @ W dense"),
+        dict(name="rbgp4_sddmm_rhs (conv layouts)", route="cuda",
+             source=src + "rbgp4_sddmm_rhs.cu",
+             replaces="src/repro/kernels/rbgp4mm.py:674",
+             launches=vision_launches("dw"), launches_mma=vision_mma("dw"),
+             max_abs_err=max_abs_conv["dw"], **conv_pass["dw"],
+             work="compact dW of the vision models' sparse convs (C 8 "
+                  "and 2 on the FMA body); timed: one VGG19-CIFAR step's "
+                  "15 at batch 256, bf16; fma_ms: the FMA body on the same "
+                  "operands; library_ms: g^T @ x dense"),
     ]}
     for row in record["kernels"]:
         if row["launches"] == 0:
@@ -3361,7 +4106,8 @@ def main() -> int:
                                  f"path")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s "
                 f"on {smi}; the four feature-major phases took {t_fm:.1f}s, "
-                f"the int8 phases {t_q:.1f}s")
+                f"the int8 phases {t_q:.1f}s, the vision phases "
+                f"{t_vis:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

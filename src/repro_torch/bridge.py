@@ -22,6 +22,16 @@ misshapen weight raises, as does int8 for a full-precision tensor or the
 other way round.  Values are cast to the dtype each port tensor stores
 (the compute dtype for projections, embedding and head; float32 for the
 router, the norm scales and the int8 storage's scales).
+
+A ``MaskedWeight`` comes as ``{"w", "ba_o", "ba_i", "mask", "b"}`` (absent
+fields ``None``): ``w`` and ``b`` are loaded, and the mask's leaves
+(``ba_o``/``ba_i``, or ``mask``) are held equal to the port's own, which
+the port derived from the same pattern, and never loaded.
+
+``load_jax_vision_params(model, tree)`` does the same for the vision
+models: the reference's ``VGG19.init`` tree ``{"convs", "bns", "fc"}`` and
+``WideResNet.init`` tree ``{"stem", "blocks", "bn_f", "fc"}`` map by name
+onto the port's modules of the same names.
 """
 from __future__ import annotations
 
@@ -30,7 +40,12 @@ import torch
 
 from repro_torch.models.transformer import jax_stack_split
 
-__all__ = ["load_jax_params", "flatten_jax_tree"]
+__all__ = ["load_jax_params", "load_jax_vision_params",
+           "flatten_jax_tree"]
+
+# the leaves of a MaskedWeight's mask: derived by the port, checked, not
+# loaded
+MASK_LEAVES = ("ba_o", "ba_i", "mask")
 
 
 def _walk(node, prefix: str, out: dict) -> None:
@@ -73,7 +88,20 @@ def flatten_jax_tree(cfg, tree: dict) -> dict[str, np.ndarray]:
 
 def load_jax_params(model, tree: dict) -> None:
     """Load the reference's parameter tree into ``model`` (in place)."""
-    flat = flatten_jax_tree(model.cfg, tree)
+    _load_flat(model, flatten_jax_tree(model.cfg, tree))
+
+
+def load_jax_vision_params(model, tree: dict) -> None:
+    """Load the reference's ``VGG19``/``WideResNet`` parameter tree into the
+    port's model of the same config (in place)."""
+    flat: dict[str, np.ndarray] = {}
+    _walk(tree, "", flat)
+    _load_flat(model, flat)
+
+
+def _load_flat(model, flat: dict) -> None:
+    """Load {state_dict name: array} into ``model``: names and shapes must
+    match; a mask leaf must equal the port's own and is not loaded."""
     target = model.state_dict()
     missing = sorted(set(target) - set(flat))
     unexpected = sorted(set(flat) - set(target))
@@ -90,6 +118,12 @@ def load_jax_params(model, tree: dict) -> None:
             raise TypeError(f"{name}: {arr.dtype} values for a {want.dtype} "
                             f"tensor (int8 leaf blocks load only into "
                             f"int8 storage)")
+        if name.rpartition(".")[2] in MASK_LEAVES:
+            if not np.array_equal(arr, want.cpu().numpy()):
+                raise ValueError(f"{name}: the reference's mask differs "
+                                 f"from the port's")
+            state[name] = want
+            continue
         if arr.dtype.kind not in "fiub":  # e.g. bfloat16 from JAX
             arr = arr.astype(np.float32)
         state[name] = torch.tensor(arr).to(device=want.device,

@@ -2,7 +2,9 @@
 ``apply_sparsity`` (the port of ``repro/configs/__init__.py``).
 
 Only the ported architectures are listed; every other architecture of the
-reference raises "not yet ported".
+reference raises "not yet ported".  ``vgg19-cifar`` and ``wrn40-4-cifar``
+give a ``VisionConfig`` (``repro_torch.models.vision``), the language
+models a ``ModelConfig``.
 """
 from __future__ import annotations
 
@@ -17,17 +19,19 @@ from .base import ModelConfig, MoEConfig, TrainConfig
 ARCHS = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "vgg19-cifar": "vgg19_cifar",
+    "wrn40-4-cifar": "wrn40_4_cifar",
 }
 
 #: architectures of the reference whose port comes with a later slice
 NOT_YET_PORTED = (
     "gemma-7b", "gemma3-4b", "deepseek-7b", "pixtral-12b",
     "deepseek-v2-236b", "rwkv6-7b", "jamba-1.5-large-398b",
-    "musicgen-medium", "vgg19-cifar", "wrn40-4-cifar",
+    "musicgen-medium",
 )
 
 
-def get_config(name: str) -> ModelConfig:
+def get_config(name: str):
     if name in NOT_YET_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not yet ported; have {sorted(ARCHS)}")

@@ -1,3 +1,5 @@
-from .synthetic import Prefetcher, RequestStream, TokenStream
+from .synthetic import (GaussianClassImages, Prefetcher, RequestStream,
+                        TokenStream)
 
-__all__ = ["TokenStream", "RequestStream", "Prefetcher"]
+__all__ = ["TokenStream", "RequestStream", "GaussianClassImages",
+           "Prefetcher"]

@@ -6,10 +6,12 @@ of ``repro/data/synthetic.py``.
     batches ``{"tokens": (B, S)}``;
   * RequestStream: the serving workload — mixed-length requests whose
     prompts come from the same token process, with optional arrivals;
+  * GaussianClassImages: CIFAR-shaped (B, 32, 32, 3) NHWC images around
+    fixed class prototypes, for the vision models;
   * Prefetcher: background-thread double buffering around any iterator.
 
-The same seed gives the reference's tokens and requests (multi-codebook
-streams come with the audio models).
+The same seed gives the reference's tokens, requests and images (the same
+numpy RNG calls; multi-codebook streams come with the audio models).
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["TokenStream", "RequestStream", "Prefetcher"]
+__all__ = ["TokenStream", "RequestStream", "GaussianClassImages",
+           "Prefetcher"]
 
 
 class TokenStream:
@@ -91,6 +94,36 @@ class RequestStream:
             if self.arrival_rate > 0:
                 step += int(rng.geometric(min(self.arrival_rate, 1.0)))
         return out
+
+
+class GaussianClassImages:
+    """CIFAR-shaped (B, 32, 32, 3) images from fixed class prototypes:
+    ``batch_at(step)`` gives ``{"images": float32, "labels": int32}``."""
+
+    def __init__(self, n_classes: int, batch: int, seed: int = 0,
+                 noise: float = 0.6, size: int = 32):
+        self.n = n_classes
+        self.batch = batch
+        self.noise = noise
+        self.size = size
+        rng = np.random.default_rng(seed)
+        self.protos = rng.standard_normal(
+            (n_classes, size, size, 3)).astype(np.float32)
+        self.seed = seed
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed + 1, step))
+        labels = rng.integers(0, self.n, self.batch)
+        imgs = self.protos[labels] + self.noise * rng.standard_normal(
+            (self.batch, self.size, self.size, 3)).astype(np.float32)
+        return {"images": imgs.astype(np.float32),
+                "labels": labels.astype(np.int32)}
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 class Prefetcher:

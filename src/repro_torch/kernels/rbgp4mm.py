@@ -281,11 +281,19 @@ def _check_scales(dims, w_data, scales, lead: tuple = (), **epilogue):
                          f"after it")
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the sum dtype of the unstacked plain versions: float32, or
+    float64 for float64 operands (CPU parity checks in double precision,
+    which no kernel takes)."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
 def _values_f32(dims, w_data, scales):
     """The plain versions' float32 weight values: int8 leaf blocks
-    dequantized against their scales, else the values themselves."""
+    dequantized against their scales, else the values themselves (kept
+    float64 where they are)."""
     if scales is None:
-        return w_data.float()
+        return _wide(w_data)
     return dequant_leaf_blocks(w_data, scales, dims.group_rows,
                                dims.chunk_cols)
 
@@ -297,9 +305,10 @@ def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
                           act: Optional[str] = None,
                           residual: Optional[torch.Tensor] = None,
                           save_preact: bool = False):
-    """Plain version: gather + einsum in f32, then the epilogue in f32.
-    Returns Y, or (Y, Z) with ``save_preact``, in the dtype of X.  With
-    ``scales``, int8 ``w_data`` is dequantized in f32 first."""
+    """Plain version: gather + einsum in f32 (f64 for f64 X), then the
+    epilogue in that dtype.  Returns Y, or (Y, Z) with ``save_preact``, in
+    the dtype of X.  With ``scales``, int8 ``w_data`` is dequantized in f32
+    first."""
     dims = tables.dims
     _check_args(dims, x, w_data, act)
     if scales is not None:
@@ -307,12 +316,12 @@ def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
                       residual=residual, save_preact=save_preact)
     z = gather_mm_rhs(tables.adj_o, tables.adj_i, dims.n_col_tiles,
                       dims.group_rows, dims.chunk_cols,
-                      _values_f32(dims, w_data, scales), x.float())
+                      _values_f32(dims, w_data, scales), _wide(x))
     if bias is not None:
-        z = z + bias.float()
+        z = z + _wide(bias)
     y = EPILOGUE_ACTS[act](z) if act is not None else z
     if residual is not None:
-        y = y + residual.float()
+        y = y + _wide(residual)
     if save_preact:
         return y.to(x.dtype), z.to(x.dtype)
     return y.to(x.dtype)
@@ -767,12 +776,13 @@ def _check_sddmm_args(dims, g, x):
 
 def rbgp4_sddmm_rhs_reference(tables: KernelTables, g: torch.Tensor,
                               x: torch.Tensor) -> torch.Tensor:
-    """Plain version: gather + einsum in f32, written in g's dtype."""
+    """Plain version: gather + einsum in f32 (f64 for f64 g), written in
+    g's dtype."""
     dims = tables.dims
     _check_sddmm_args(dims, g, x)
     dw = gather_sddmm_rhs(tables.adj_o, tables.adj_i, dims.n_col_tiles,
-                          dims.group_rows, dims.chunk_cols, g.float(),
-                          x.float())
+                          dims.group_rows, dims.chunk_cols, _wide(g),
+                          _wide(x))
     return dw.to(g.dtype)
 
 
@@ -1041,7 +1051,8 @@ def rbgp4mm_rhs_stacked_reference(tables: KernelTables, x: torch.Tensor,
                       act=act, save_preact=save_preact)
     z = gather_mm_rhs_stacked(tables.adj_o, tables.adj_i, dims.n_col_tiles,
                               dims.group_rows, dims.chunk_cols,
-                              _values_f32(dims, w_data, scales), x.float())
+                              _values_f32(dims, w_data, scales).float(),
+                              x.float())
     if bias is not None:
         z = z + bias.float()[:, None, :]
     y = EPILOGUE_ACTS[act](z) if act is not None else z

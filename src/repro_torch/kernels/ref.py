@@ -2,7 +2,8 @@
 
 The port of ``repro/kernels/ref.py``.  These are the kernels' plain
 versions: the CPU path runs them, and the card compares its kernels with
-them.
+them.  ``ref_masked_mm`` is the dense-masked product of masked storage,
+which runs no kernel of its own on any device.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ __all__ = ["unpack_dense", "pack_compact", "gather_mm_rhs",
            "gather_sddmm_rhs", "gather_mm_rhs_stacked",
            "gather_sddmm_rhs_stacked", "compact_gather_mm_rhs", "gather_mm",
            "gather_sddmm", "compact_gather_mm", "ref_rbgp4mm",
-           "ref_rbgp4_sddmm", "dequant_leaf_blocks"]
+           "ref_rbgp4_sddmm", "ref_masked_mm", "dequant_leaf_blocks"]
 
 
 def _col_index(layout, device) -> torch.Tensor:
@@ -174,6 +175,13 @@ def ref_rbgp4_sddmm(layout, d_out: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """dW = pack(dO @ I^T) (oracle; the mask is implied by pack)."""
     return pack_compact(layout, d_out @ x.T)
+
+
+def ref_masked_mm(w_dense: torch.Tensor, mask: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """The dense-masked SDMM (W * mask) @ I, the paper's predefined-sparsity
+    training path; x (K, N) -> (M, N)."""
+    return (w_dense * mask.to(w_dense.dtype)) @ x
 
 
 def compact_gather_mm_rhs(layout, w_data: torch.Tensor,

@@ -6,10 +6,13 @@ takes that path whenever no mesh is installed).  The manual ``shard_map``
 expert-parallel path comes with the distribution slice.
 
 Expert weights are stacked over the experts and share one RBGP4 layout
-per projection shape (cloned-mask EP): ``StackedExperts`` keeps compact
-(E, M, nnz_row) values and runs each projection as ONE launch of the
-stacked kernel for all experts (``sparse_linear_batched``), with the gate
-activation fused into the kernel's epilogue.  Where the pattern does not
+per projection shape (cloned-mask EP), in one of two storages:
+``StackedExperts`` keeps compact (E, M, nnz_row) values (backend
+``auto``) and runs each projection as ONE launch of the stacked kernel for
+all experts (``sparse_linear_batched``), with the gate activation fused
+into the kernel's epilogue; or, under a masked backend (``xla_masked``,
+``ref``), dense (E, M, K) values under the one broadcast mask, E dense
+masked products (the reference's default).  Where the pattern does not
 apply to the expert shapes, the values are dense (E, M, K).
 
 Routing is discrete: a near tie between the k-th and (k+1)-th router
@@ -30,10 +33,10 @@ from torch import nn
 from repro_torch.configs.base import MoEConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import EPILOGUE_ACTS, KernelTables, TransposeTables
-from repro_torch.sparsity import (CompactWeight, DenseWeight,
+from repro_torch.sparsity import (CompactWeight, DenseWeight, MaskedWeight,
                                   QuantizedWeight, SparsityConfig,
                                   SparsityPlan, make_pattern,
-                                  sparse_linear_batched)
+                                  sparse_linear_batched, storage_kind)
 from repro_torch.sparsity.quant import (dequantize_block_values,
                                         leaf_block_dims,
                                         quantize_block_values)
@@ -50,9 +53,13 @@ class StackedExperts(nn.Module):
     Compact storage holds each projection's values as ``<proj>.w_data``
     (E, M, nnz_row) over one layout per side, drawn as the reference's
     ``compact_init(..., lead=(E,))`` (normal times sqrt(2 / nnz_per_row));
-    dense storage holds ``<proj>`` (E, M, K), drawn with the He rule over
-    the dense fan-in.  The layouts' kernel tables are built once on the
-    module's device; the transposed ones (dX) at the first gradient.
+    masked storage holds ``<proj>.w`` (E, M, K) and the side's base-graph
+    factors ``<proj>.ba_o``/``<proj>.ba_i`` (uint8 buffers, the
+    reference's ``MaskedWeight`` fields), drawn with the He rule over the
+    kept fan-in; dense storage holds ``<proj>`` (E, M, K), drawn with the
+    He rule over the dense fan-in.  The layouts' kernel tables are built
+    once on the module's device; the transposed ones (dX) at the first
+    gradient.
 
     ``quantize_()`` stores compact values as the reference's weight-only
     int8 storage in place: each projection holds ``q_data`` (E, M,
@@ -94,11 +101,11 @@ class StackedExperts(nn.Module):
                 f"stacked expert weights support only 'rbgp4' (one mask "
                 f"shared across the expert dim) or 'dense'; chains have no "
                 f"stacked storage")
-        if applies and sparsity.backend != "auto":
-            raise NotImplementedError(
-                f"sparsity backend {sparsity.backend!r} is not yet ported; "
-                f"the port runs compact storage ('auto')")
-        self.compact = applies
+        # the storage follows the backend, as in SparseLinear
+        self.storage = (storage_kind(sparsity.backend, has_layout=True)
+                        if applies else "dense")
+        self.compact = self.storage == "compact"
+        self.masked = self.storage == "masked"
 
         def draw(shape, scale):
             w = torch.randn((n_experts, *shape), generator=generator,
@@ -106,7 +113,22 @@ class StackedExperts(nn.Module):
             return nn.Parameter(w.to(param_dtype).to(dtype),
                                 requires_grad=False)
 
-        if self.compact:
+        if self.masked:
+            dens = 1.0 - sparsity.sparsity
+            for proj, (m, k) in (("gate", (d_expert, d_model)),
+                                 ("up", (d_expert, d_model)),
+                                 ("down", (d_model, d_expert))):
+                lay = make_pattern(sparsity, m, k).layout
+                holder = nn.Module()
+                holder.w = draw((m, k), (2.0 / (k * dens)) ** 0.5)
+                for name, graph in (("ba_o", lay.graph_o),
+                                    ("ba_i", lay.graph_i)):
+                    holder.register_buffer(name, torch.as_tensor(
+                        graph.biadjacency, device=device))
+                holder.group_rows = lay.spec.group_rows
+                holder.chunk_cols = lay.spec.chunk_cols
+                setattr(self, proj, holder)
+        elif self.compact:
             lay_in = make_pattern(sparsity, d_expert, d_model).layout
             lay_out = make_pattern(sparsity, d_model, d_expert).layout
             self.layouts = {"in": lay_in, "out": lay_out}
@@ -176,6 +198,11 @@ class StackedExperts(nn.Module):
 
     def weight(self, proj: str):
         """The stacked storage container of projection ``proj``."""
+        if self.masked:
+            h = getattr(self, proj)
+            return MaskedWeight(w=h.w, ba_o=h.ba_o, ba_i=h.ba_i,
+                                group_rows=h.group_rows,
+                                chunk_cols=h.chunk_cols)
         if not self.compact:
             return DenseWeight(w=getattr(self, proj))
         side = self._side(proj)

@@ -1,9 +1,18 @@
 """Weight containers and the one dispatch point of every projection.
 
-The port of ``repro/sparsity/api.py`` for the storages ported so far:
+The port of ``repro/sparsity/api.py``:
 
   ``DenseWeight``    plain (M, K) values: ``x @ w.T`` with ``torch.matmul``
                      (the reference computes it outside Pallas too).
+  ``MaskedWeight``   dense (M, K) trainable values under a fixed {0, 1}
+                     mask: the reference's ``xla_masked`` backend, x @ (w
+                     * mask)^T, one dense product on every device (the
+                     reference runs no kernel for it either).  RBGP4
+                     masks are carried as the base graphs' biadjacency
+                     factors ``ba_o``/``ba_i`` and expanded at each call
+                     (``expand_rbgp4_mask``); the unstructured and block
+                     patterns carry the full ``mask``.  ``w`` may carry a
+                     leading expert dim (E, M, K); the mask broadcasts.
   ``CompactWeight``  compact RBGP4 (M, nnz_row) values + their layout's
                      kernel tables: the ``rbgp4mm_rhs`` kernel on the
                      card, its plain version on the CPU, with bias,
@@ -24,15 +33,16 @@ x (E, ..., K) -> (E, ..., M): a ``CompactWeight`` with stacked
 ``rbgp4mm_rhs_stacked`` kernel for all experts (through
 ``RBGP4LinearStacked`` where a gradient is asked for); a ``DenseWeight``
 with stacked ``w`` (E, M, K) is the dense path for shapes the pattern does
-not apply to.
+not apply to, and a ``MaskedWeight`` the same einsum on the masked values.
 
 ``sparse_matmul`` is the paper's feature-major product, O = W_s @ I (+ b
 per row) for I (K, N): a ``CompactWeight`` runs the ``rbgp4mm`` kernel
 (through ``RBGP4MatMul`` where a gradient is asked for: dW on
 ``rbgp4_sddmm``, dI on ``rbgp4mm`` over the transposed layout); a
-``DenseWeight`` and a ``ChainWeight`` are one ``torch.matmul`` of the dense
-matrix, as the reference computes them outside any kernel (a chain's dW
-reaches its compact values through autograd).
+``DenseWeight``, a ``MaskedWeight`` and a ``ChainWeight`` are one
+``torch.matmul`` of the dense matrix, as the reference computes them
+outside any kernel (a chain's dW reaches its compact values through
+autograd).
 
 ``QuantizedWeight`` is the reference's weight-only int8 storage of a
 compact or chain container (``sparsity/quant.py`` makes it): int8 leaf
@@ -50,8 +60,8 @@ has no stacked experts.  PTQ storage is inference-only: an input that
 needs a gradient raises.
 
 ``dense_weight`` materializes the dense (M, K) matrix of any of them.  The
-reference's masked storage and its backend registry come with later
-slices.
+reference's backend registry is not ported: the container's type picks
+the path.
 """
 from __future__ import annotations
 
@@ -69,9 +79,20 @@ from repro_torch.kernels.ops import (chain_linear, compact_linear,
 
 from .chain import ChainWeight
 
-__all__ = ["DenseWeight", "CompactWeight", "ChainWeight", "QuantizedWeight",
-           "SparseWeight", "sparse_linear", "sparse_linear_batched",
-           "sparse_matmul", "dense_weight"]
+__all__ = ["DenseWeight", "MaskedWeight", "CompactWeight", "ChainWeight",
+           "QuantizedWeight", "SparseWeight", "sparse_linear",
+           "sparse_linear_batched", "sparse_matmul", "dense_weight",
+           "expand_rbgp4_mask"]
+
+
+def expand_rbgp4_mask(ba_o: torch.Tensor, ba_i: torch.Tensor, G: int,
+                      C: int) -> torch.Tensor:
+    """mask = kron(ba_o, kron(ba_i, ones(G, C))) without the krons:
+    ba_o (n_o_l, n_o_r), ba_i (u_i, v_i) -> (n_o_l*u_i*G, n_o_r*v_i*C)."""
+    inner = ba_o[:, None, :, None] * ba_i[None, :, None, :]  # (ol,ui,or,vi)
+    ol, ui, onr, vi = inner.shape
+    mask = inner[:, :, None, :, :, None].expand(ol, ui, G, onr, vi, C)
+    return mask.reshape(ol * ui * G, onr * vi * C)
 
 
 @dataclasses.dataclass
@@ -81,6 +102,40 @@ class DenseWeight:
 
     w: torch.Tensor
     b: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class MaskedWeight:
+    """Dense trainable values ``w`` (..., M, K) under a fixed {0, 1} mask.
+
+    Exactly one mask source is set: the (``ba_o``, ``ba_i``) biadjacency
+    factors with the (``group_rows``, ``chunk_cols``) repetition sizes
+    (rbgp4: the mask is expanded at each call, never stored), or the full
+    ``mask`` (unstructured and block patterns).  The mask sources are
+    integer tensors, never trained."""
+
+    w: torch.Tensor
+    ba_o: Optional[torch.Tensor] = None
+    ba_i: Optional[torch.Tensor] = None
+    mask: Optional[torch.Tensor] = None
+    b: Optional[torch.Tensor] = None
+    group_rows: Optional[int] = None
+    chunk_cols: Optional[int] = None
+
+    def mask_array(self, dtype=None) -> torch.Tensor:
+        """The (M, K) {0, 1} mask (expanded from the factors if
+        succinct)."""
+        if self.mask is not None:
+            m = self.mask
+        else:
+            m = expand_rbgp4_mask(self.ba_o, self.ba_i, self.group_rows,
+                                  self.chunk_cols)
+        return m.to(dtype) if dtype is not None else m
+
+    def materialize(self, dtype=None) -> torch.Tensor:
+        """w * mask: the effective dense weight."""
+        dtype = dtype or self.w.dtype
+        return self.w.to(dtype) * self.mask_array(dtype)
 
 
 @dataclasses.dataclass
@@ -124,7 +179,7 @@ class QuantizedWeight:
         return cls(w_data=w, tables=self.tables, b=self.b)
 
 
-SparseWeight = Union[DenseWeight, CompactWeight, ChainWeight,
+SparseWeight = Union[DenseWeight, MaskedWeight, CompactWeight, ChainWeight,
                      QuantizedWeight]
 
 
@@ -180,6 +235,8 @@ def sparse_linear(weight: SparseWeight, x: torch.Tensor, *, dtype=None,
         y = _quant_linear(weight, xc)
     elif isinstance(weight, DenseWeight):
         y = xc @ weight.w.to(dtype).T
+    elif isinstance(weight, MaskedWeight):
+        y = xc @ weight.materialize(dtype).T
     else:
         raise TypeError(f"not a weight container: {type(weight).__name__}")
     if b is not None:
@@ -220,6 +277,9 @@ def sparse_linear_batched(weight: SparseWeight, x: torch.Tensor, *,
                                 weight.q_data, scales=weight.scales)
     elif isinstance(weight, DenseWeight):
         y = torch.einsum("enk,emk->enm", x3, weight.w.to(dtype))
+    elif isinstance(weight, MaskedWeight):
+        # w (E, M, K); the (M, K) mask broadcasts over the experts
+        y = torch.einsum("enk,emk->enm", x3, weight.materialize(dtype))
     else:
         raise TypeError(f"not a weight container: {type(weight).__name__}")
     if b is not None:
@@ -242,7 +302,7 @@ def sparse_matmul(weight: SparseWeight, x: torch.Tensor, *,
     if isinstance(weight, CompactWeight):
         out = compact_matmul(weight.tables, weight.w_data.to(dtype), xc,
                              tables_t=weight.tables_t)
-    elif isinstance(weight, ChainWeight):
+    elif isinstance(weight, (ChainWeight, MaskedWeight)):
         out = dense_weight(weight, dtype) @ xc
     elif isinstance(weight, DenseWeight):
         out = weight.w.to(dtype) @ xc
@@ -276,6 +336,8 @@ def dense_weight(weight: SparseWeight, dtype=None) -> torch.Tensor:
         return dense_weight(weight.dequantize(), dtype)
     if isinstance(weight, DenseWeight):
         w = weight.w
+    elif isinstance(weight, MaskedWeight):
+        return weight.materialize(dtype)
     elif isinstance(weight, CompactWeight):
         d = weight.tables.dims
         w = _unpack(weight.tables.col0, d.group_rows, d.chunk_cols,

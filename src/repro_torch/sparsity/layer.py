@@ -5,9 +5,14 @@ The port of ``repro/sparsity/layer.py``.  ``cfg`` is a ``SparsityConfig``
 its pattern by module path: ``name`` is matched against the plan's
 ordered rules.  The storage is decided at construction
 (``storage_kind``): ``dense`` when the pattern does not apply to the
-shape, ``compact`` RBGP4 storage, or ``chain`` storage for a product chain
-of more than two Ramanujan factors; the reference's masked storage is not
-yet ported and raises.  The layout's kernel tables are built once on the
+shape, ``compact`` RBGP4 storage, ``chain`` storage for a product chain
+of more than two Ramanujan factors, or ``masked`` storage: dense values
+``w`` under a fixed mask, held as the integer buffers ``ba_o``/``ba_i``
+(an RBGP4 layout's base-graph factors, expanded at each call) or ``mask``
+(unstructured, block and deep chains), which no optimizer takes.  Masked
+values are drawn Kaiming over the fan-in each row keeps, as the
+reference's; weight decay still moves their off-mask entries, as it does
+there.  The layout's kernel tables are built once on the
 layer's device (chain tables are shared by every layer of one layout).
 The tables of the transposed layout (for dX) are built once too, the
 first time a gradient of the layer's input is asked for: serving never
@@ -37,8 +42,8 @@ from repro_torch.kernels import (ChainTransposeTables, KernelTables,
                                  TransposeTables, chain_tables,
                                  chain_transpose_tables)
 
-from .api import (ChainWeight, CompactWeight, DenseWeight, QuantizedWeight,
-                  sparse_linear)
+from .api import (ChainWeight, CompactWeight, DenseWeight, MaskedWeight,
+                  QuantizedWeight, sparse_linear)
 from .patterns import PatternInstance, SparsityConfig, make_pattern
 from .plan import SparsityPlan, storage_kind
 from .quant import (dequantize_block_values, leaf_block_dims,
@@ -76,22 +81,22 @@ class SparseLinear(nn.Module):
             self.mode = storage_kind(
                 self.cfg.backend, has_layout=self.pattern.layout is not None,
                 chain=self.pattern.chain_layout is not None)
-            if self.mode == "masked":
-                raise NotImplementedError(
-                    f"masked storage (pattern {self.pattern.name!r}, backend "
-                    f"{self.cfg.backend!r}) is not yet ported; the port runs "
-                    f"compact and chain storage")
         # Kaiming init over the fan-in each row actually has (layer.py:139)
         if self.mode == "dense":
             shape, fan_in = (m, k), k
+        elif self.mode == "masked":
+            shape = (m, k)
+            fan_in = max(round((1 - self.pattern.sparsity) * k), 1)
         else:
             lay = self.layout if self.mode == "compact" else self.chain_layout
             shape, fan_in = lay.data_shape, lay.spec.nnz_per_row
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32) * (2.0 / fan_in) ** 0.5
         w = nn.Parameter(w.to(param_dtype).to(dtype), requires_grad=False)
-        if self.mode == "dense":
+        if self.mode in ("dense", "masked"):
             self.w = w
+            if self.mode == "masked":
+                self._init_mask(device)
         else:
             self.w_data = w
             self.tables = (KernelTables.build(self.layout, device)
@@ -100,6 +105,33 @@ class SparseLinear(nn.Module):
             self._tables_t = None
         self.b = (nn.Parameter(torch.zeros(m, dtype=dtype, device=device),
                                requires_grad=False) if use_bias else None)
+
+    def _init_mask(self, device) -> None:
+        lay = self.layout
+        if lay is not None:
+            ba = lambda g: torch.as_tensor(g.biadjacency, device=device)
+            self.register_buffer("ba_o", ba(lay.graph_o))
+            self.register_buffer("ba_i", ba(lay.graph_i))
+            self.group_rows = lay.spec.group_rows
+            self.chunk_cols = lay.spec.chunk_cols
+        else:
+            self.register_buffer("mask", torch.as_tensor(
+                self.pattern.mask(), device=device))
+
+    def n_params(self) -> int:
+        """Stored values (masked storage stores all M x K), bias included."""
+        if self.mode in ("dense", "masked"):
+            n = self.in_features * self.out_features
+        else:
+            n = self.pattern.nnz
+        return n + (self.out_features if self.use_bias else 0)
+
+    def n_effective_params(self) -> int:
+        """Values that are trained and used (masked storage counts only its
+        on-mask entries), bias included."""
+        n = (self.pattern.nnz if self.pattern is not None
+             else self.in_features * self.out_features)
+        return n + (self.out_features if self.use_bias else 0)
 
     @property
     def layout(self):
@@ -171,6 +203,12 @@ class SparseLinear(nn.Module):
         if self.mode == "chain":
             return ChainWeight(w_data=self.w_data, tables=self.tables,
                                b=self.b, tables_t=self.transpose_tables)
+        if self.mode == "masked":
+            if self.layout is not None:
+                return MaskedWeight(w=self.w, ba_o=self.ba_o, ba_i=self.ba_i,
+                                    b=self.b, group_rows=self.group_rows,
+                                    chunk_cols=self.chunk_cols)
+            return MaskedWeight(w=self.w, mask=self.mask, b=self.b)
         return DenseWeight(w=self.w, b=self.b)
 
     def forward(self, x: torch.Tensor, *, fuse: Optional[str] = None,

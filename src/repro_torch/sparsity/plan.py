@@ -34,8 +34,9 @@ __all__ = ["PatternSpec", "PlanRule", "SparsityPlan", "DENSE",
 
 # storage capability of every backend name of the reference's registry
 # (``repro/sparsity/api.py``): what a spec naming it stores.  None is
-# masked storage.  The port runs compact and chain storage on its kernels
-# whatever the name; masked storage is not yet ported.
+# masked storage (dense values under a fixed mask, one dense product).
+# The port runs compact and chain storage on its kernels whatever the
+# name.
 _BACKEND_STORAGE = {
     "ref": None,
     "xla_masked": None,

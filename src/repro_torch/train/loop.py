@@ -2,7 +2,10 @@
 
 The port of ``repro/train/loop.py``.  ``make_train_step`` builds one step
 over a ``TrainState``; ``Trainer`` wraps it with data, checkpointing,
-auto-resume and step-time straggler monitoring.
+auto-resume and step-time straggler monitoring.  The loss is the language
+model's own (``model.loss``) unless a ``loss_fn(model, batch) -> (loss,
+metrics)`` is given, the reference's interface, which drives the vision
+models (with knowledge distillation where the loss asks for it).
 
 Parameters and precision.  The reference keeps float32 parameters and
 casts them to the compute dtype at every call, so its gradient is the
@@ -18,14 +21,15 @@ are the bfloat16-rounded draw: that differs from the reference's float32
 init only in the low bits of a random draw.
 
 Trainable are all floating-point parameters of the model (embedding,
-head, norm scales, compact ``w_data``, dense ``w``, biases), as the
-reference's ``split_trainable``; weight decay applies to all of them.
+head, norm scales, compact ``w_data``, dense and masked ``w``, biases), as
+the reference's ``split_trainable``; weight decay applies to all of them.
+The masks of masked storage are integer buffers, never trained.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -36,7 +40,7 @@ from .checkpoint import CheckpointManager
 from .optim import clip_by_global_norm, make_optimizer, make_schedule
 
 __all__ = ["TrainState", "trainable", "init_train_state", "make_train_step",
-           "Trainer"]
+           "lm_loss_fn", "Trainer"]
 
 
 @dataclasses.dataclass
@@ -64,8 +68,19 @@ def init_train_state(model: torch.nn.Module, tcfg: TrainConfig) -> TrainState:
                       opt_state=make_optimizer(tcfg).init(params))
 
 
-def make_train_step(model: torch.nn.Module, tcfg: TrainConfig):
-    """step(state, batch) -> (state, metrics) on the model's LM loss.
+LossFn = Callable[[torch.nn.Module, dict], tuple]
+
+
+def lm_loss_fn(model: torch.nn.Module, batch: dict) -> tuple:
+    """The language model's training loss and its ``ce``/``aux`` metrics."""
+    loss, (ce, aux) = model.loss(batch, train=True)
+    return loss, {"ce": ce, "aux": aux}
+
+
+def make_train_step(model: torch.nn.Module, tcfg: TrainConfig,
+                    loss_fn: Optional[LossFn] = None):
+    """step(state, batch) -> (state, metrics) on ``loss_fn(model, batch)
+    -> (loss, metrics)``, by default the model's LM loss.
 
     With ``tcfg.microbatches > 1`` the batch carries a leading microbatch
     axis (n_micro, per_micro, ...); the float32 gradients are summed over
@@ -74,12 +89,13 @@ def make_train_step(model: torch.nn.Module, tcfg: TrainConfig):
     opt = make_optimizer(tcfg)
     sched = make_schedule(tcfg)
     live = trainable(model)
+    loss_fn = loss_fn or lm_loss_fn
 
     def grads_of(batch):
         for p in live.values():
             p.grad = None
-        loss, (ce, aux) = model.loss(batch, train=True)
-        metrics = {"ce": ce.detach(), "aux": aux.detach()}
+        loss, metrics = loss_fn(model, batch)
+        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
         loss.backward()
         # widen each gradient and release its compute-dtype copy at once,
         # so the two are never held for the whole model together
@@ -130,13 +146,14 @@ class Trainer:
 
     def __init__(self, model: torch.nn.Module, tcfg: TrainConfig, data_iter,
                  *, checkpoint: bool = True,
-                 plan_fingerprint: Optional[str] = None):
+                 plan_fingerprint: Optional[str] = None,
+                 loss_fn: Optional[LossFn] = None):
         self.model = model
         self.device = next(model.parameters()).device
         self.tcfg = tcfg
         self.data = iter(data_iter)
         self.state = init_train_state(model, tcfg)
-        self.step_fn = make_train_step(model, tcfg)
+        self.step_fn = make_train_step(model, tcfg, loss_fn)
         # the sparsity-plan stamp: saved beside the weights, checked on
         # restore
         self.ckpt = (CheckpointManager(tcfg.checkpoint_dir,

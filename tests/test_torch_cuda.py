@@ -38,7 +38,11 @@ transposed tables, over row-group class tiles, G = 8 included) and
 and 512 x 4608 at N in {16, 1000, 4104}, every built tile and block of
 columns against the plain versions, and the launchers refusing float32,
 N not a multiple of 8, WRN's C = 2 and transposed G = 2, tiles and plans
-they have no template or slices for, and misaligned operands.
+they have no template or slices for, and misaligned operands.  And
+``rbgp4mm_rhs`` (forward and transposed tables) and ``rbgp4_sddmm_rhs`` at
+the vision models' conv layouts (C 2 and 8 on the FMA bodies) up to 262144
+tokens, and one VGG19-CIFAR training step on the card against the CPU,
+layer by layer (``-k vision``).
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -49,6 +53,7 @@ JAX is not installed:
         -k "chain or stacked"
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py \
         -k "fm_mma or featmajor"
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -k vision
 
 Tolerances scale with max|ref|: 1e-5 in float32 (reduction order only),
 2e-2 in bfloat16 (one output rounding).  ``RBGP4Linear``'s gradients chain
@@ -1549,3 +1554,89 @@ def test_cuda_fm_mma_bodies_refuse_what_they_cannot_take():
         fm(ttw.tables, gy, ttw.values(w), n)
     with pytest.raises(RuntimeError):
         sddmm(tw, gy, x, fm_sddmm_plan(tw.dims, n, sms))
+
+
+# -- the vision models' conv layouts (token-major, batch 256) -----------------
+
+# (m, k) of VGG19-CIFAR's and WRN-40-4's sparse convs at 0.75: C 8 (64 x
+# 576, 128 x 576; transposed G 8) and C 2 (64 x 144; transposed G 2) run
+# dX and dW (and at C 2 the forward) on the FMA bodies
+CONV_LAYOUTS = [(64, 144), (64, 576), (128, 576), (128, 1152), (256, 1152),
+                (256, 2304), (512, 2304), (512, 4608)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_vision_conv_layouts_match_plain_versions(dtype):
+    """``rbgp4mm_rhs`` (forward and transposed tables) and
+    ``rbgp4_sddmm_rhs`` at the vision models' conv layouts, at a ragged N
+    and at 64 x 144's and 64 x 576's own N at batch 256 (262144 tokens):
+    each agrees with its plain version, moves ``launches_mma`` exactly when
+    the path function names the tensor-core body, and dW reruns
+    bit-equal."""
+    needs_card()
+    g = torch.Generator(device="cuda").manual_seed(31)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dtype)
+    for m, k in CONV_LAYOUTS:
+        lay = RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0))
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        d, d_t = tables.dims, tt.tables.dims
+        w = rnd(*lay.data_shape)
+        wt = tt.values(w)
+        for n in (1037,) + ((262144,) if m == 64 else ()):
+            x, gy = rnd(n, k), rnd(n, m)
+            mma = (rhs_path(d, n, dtype) == "mma",
+                   rhs_path(d_t, n, dtype) == "mma",
+                   sddmm_path(d, n, dtype) == "mma")
+            fma_k = (m, k) in ((64, 144), (64, 576), (128, 576))
+            if dtype == torch.bfloat16:
+                assert mma == ((m, k) != (64, 144), not fma_k, not fma_k)
+            before = (rbgp4mm_rhs.launches_mma, rbgp4_sddmm_rhs.launches_mma)
+            y = rbgp4mm_rhs(tables, x, w)
+            dx = rbgp4mm_rhs(tt.tables, gy, wt)
+            dw = rbgp4_sddmm_rhs(tables, gy, x)
+            torch.cuda.synchronize()
+            assert (rbgp4mm_rhs.launches_mma, rbgp4_sddmm_rhs.launches_mma) \
+                == (before[0] + mma[0] + mma[1], before[1] + mma[2])
+            assert_close(y, rbgp4mm_rhs_reference(tables, x, w), dtype,
+                         (m, k, n, "Y"))
+            assert_close(dx, rbgp4mm_rhs_reference(tt.tables, gy, wt), dtype,
+                         (m, k, n, "dX"))
+            assert_close(dw, rbgp4_sddmm_rhs_reference(tables, gy, x), dtype,
+                         (m, k, n, "dW"))
+            assert torch.equal(dw, rbgp4_sddmm_rhs(tables, gy, x)), (m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["rbgp4", "unstructured"])
+def test_cuda_vision_vgg19_step_matches_the_cpu(pattern):
+    """One training step of full-width VGG19-CIFAR (RBGP4 compact, or the
+    unstructured baseline in masked storage) at batch 4 in float32 on the
+    card and on the CPU from the same weights: the loss within 1e-4
+    relative, and every sparse conv's dW and dX of the card's backward
+    within 1e-4 * max|ref| of the CPU's product on the card's own unfolded
+    input and output gradient (``chip_smoke.ConvRecorder``)."""
+    needs_card()
+    import chip_smoke
+    from repro_torch.data import GaussianClassImages
+    from repro_torch.train import Trainer, classifier_loss
+
+    models = {dev: chip_smoke.vision_model("vgg19-cifar", pattern, dev,
+                                           torch.float32)
+              for dev in ("cuda", "cpu")}
+    models["cpu"].load_state_dict({k: v.cpu() for k, v in
+                                   models["cuda"].state_dict().items()})
+    data = GaussianClassImages(10, 4, seed=0)
+    trainers = {dev: Trainer(m, chip_smoke.vision_train_config(1, lr=0.05),
+                             data, checkpoint=False,
+                             loss_fn=classifier_loss())
+                for dev, m in models.items()}
+    rec = chip_smoke.ConvRecorder(models["cuda"])
+    card = trainers["cuda"].run(1)[0]["loss"]
+    rec.remove()
+    worst = chip_smoke.layer_parity(models["cpu"], rec.rec, "test", pattern)
+    assert max(worst.values()) <= 1e-4
+    cpu = trainers["cpu"].run(1)[0]["loss"]
+    assert abs(card - cpu) <= 1e-4 * abs(cpu), (card, cpu)

@@ -98,12 +98,17 @@ def test_unported_names_raise():
     cfg = reduce_config(get_config("tinyllama-1.1b"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         LMModel(cfg.with_(layer_pattern=("mamba",)), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        LMModel(apply_sparsity(cfg, pattern="block", min_dim=64),
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        LMModel(apply_sparsity(cfg, backend="xla_masked", min_dim=64),
-                device="cpu")
+    # the block pattern and the masked backend are ported: both build
+    # masked storage
+    from repro_torch.sparsity import SparseLinear
+
+    for model in (LMModel(apply_sparsity(cfg, pattern="block", min_dim=64),
+                          device="cpu"),
+                  LMModel(apply_sparsity(cfg, backend="xla_masked",
+                                         min_dim=64), device="cpu")):
+        modes = {m.mode for m in model.modules()
+                 if isinstance(m, SparseLinear)}
+        assert "masked" in modes
 
 
 def test_launch_counter_stays_zero_on_cpu_tensors():

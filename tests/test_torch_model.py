@@ -19,6 +19,7 @@ from repro.models import LMModel as JLMModel
 from repro.sparsity import ChainWeight as JChain
 from repro.sparsity import CompactWeight as JCompact
 from repro.sparsity import DenseWeight as JDense
+from repro.sparsity import MaskedWeight as JMasked
 from repro_torch.bridge import load_jax_params
 from repro_torch.configs import apply_sparsity, get_config, reduce_config
 from repro_torch.models import LMModel
@@ -37,6 +38,9 @@ def jax_tree_to_numpy(node):
                 "b": jax_tree_to_numpy(node.b)}
     if isinstance(node, JDense):
         return {"w": np.asarray(node.w), "b": jax_tree_to_numpy(node.b)}
+    if isinstance(node, JMasked):
+        return {f: jax_tree_to_numpy(getattr(node, f))
+                for f in ("w", "ba_o", "ba_i", "mask", "b")}
     if isinstance(node, dict):
         return {k: jax_tree_to_numpy(v) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
