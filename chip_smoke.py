@@ -5,8 +5,8 @@
 Serves and trains two models through ``repro_torch``, with every sparse
 product on a hand-written CUDA kernel, RBGP4 at 0.75, ``min_dim=64``,
 tinyllama again under a deep-chain plan, runs VGG19-CIFAR's sparse layers
-through the feature-major product, and trains the paper's two vision
-models:
+through the feature-major product, trains the paper's two vision models,
+and trains and serves budget-solved plans:
 
   * full-width tinyllama-1.1b (22 layers, d_model 2048, all 154 projections
     compact) on ``rbgp4mm_rhs`` (the forward, and dX on the layer's
@@ -34,7 +34,11 @@ models:
     trained at batch 256 through ``Trainer``: dense, unstructured and
     block (4 x 4) at 0.75 in masked storage, and RBGP4 at 0.75 in compact
     storage, whose sparse convs (unfolded patches, token-major) run on
-    ``rbgp4mm_rhs`` (forward, dX) and ``rbgp4_sddmm_rhs`` (dW).
+    ``rbgp4mm_rhs`` (forward, dX) and ``rbgp4_sddmm_rhs`` (dW);
+  * budget-solved plans (the plan compiler, ``sparsity.solve_budget``):
+    mixed sparsities per layer at a global density of 0.25, certified,
+    checked at their new layouts, trained (tinyllama, VGG19-CIFAR,
+    WRN-40-4) and served (tinyllama, with plan-aware admission).
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the result line:
@@ -247,7 +251,41 @@ exits non-zero without the result line:
  32. kd-protocol: ``examples/cifar_vgg_rbgp4.py``'s protocol at WRN-40-4's
      full width, batch 64, bf16: a dense teacher, then unstructured
      (masked) and RBGP4 (compact) students at 0.75 with KD alpha 0.5, 80
-     steps each; held-out accuracies printed, finite losses held.
+     steps each; held-out accuracies printed, finite losses held;
+ 33. plan: the plan compiler at full width, on the host: shape recording
+     (``model_matmul_shapes``, built on ``meta``), ``solve_budget`` at
+     ``target_density=0.25, min_dim=64`` and ``certify`` for
+     tinyllama-1.1b, qwen2-moe-a2.7b, VGG19-CIFAR and WRN-40-4; the
+     fingerprints, the rules, each sparse layout's (m, k, sparsity, G, C,
+     d_o, d_i) and the bodies ``rhs_path`` / ``sddmm_path`` name for its
+     forward, dX (``transpose_layout()``) and dW at the training N (rows
+     an expert for the experts); fails unless every proper factor is
+     within its bound;
+ 34. check-plan: at the 10 layouts of those plans no earlier phase holds,
+     ``rbgp4mm_rhs`` (forward, dX) and ``rbgp4_sddmm_rhs``, or for
+     qwen2-moe's experts the stacked pair with 60 experts, against their
+     plain versions at phase 2's tolerances, f32 and bf16, at N in {16,
+     1037, 4096} (16 and 171 rows an expert): ``launches_mma`` moves
+     exactly as the path functions name, every dW reruns bit-equal; then
+     each timed in bf16 at its training N on its body, beside its FMA
+     body, plain version, one dense PyTorch product and the bound
+     (times-plan; qwen2-moe's ``experts.out`` at 0.875, C 8 and
+     transposed G 8, keeps the FMA bodies for dX and dW);
+ 35. train-plan: full-width tinyllama under its plan (110 compact
+     projections, wk/wv dense), 6 steps of 8 x 512 tokens as phase 6, and
+     VGG19-CIFAR (9 sparse convs) and WRN-40-4 (23) under theirs, 6 steps
+     at batch 256 as phase 30: every sparse launch counted at the launch
+     and on the tensor cores, finite losses, ms/step, peak memory, card
+     busy and idle share, beside phases 6 and 30;
+ 36. serve-plan: tinyllama under its plan through
+     ``ContinuousEngine(plan=..., max_live_tokens=600)``, phase 4's 16
+     requests: the admission budget equal to ``plan_aware_live_tokens``
+     recomputed from ``model_matmul_shapes``, capped by the pool, the
+     peak live tokens past 600 (the plan's credit admitted them), the
+     bytes the storage holds beside the bytes credited, throughput and
+     decode ms/step beside phase 4;
+ 37. parity-plan: its float32 greedy streams through the plan-aware
+     engine against ``run_sequential`` on 4 requests, as phase 5.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -269,9 +307,13 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-BF16_FLOPS = 989e12           # dense bf16 tensor-core peak, data sheet
+# the H100 SXM data sheet's memory rate and dense bf16 tensor-core peak,
+# from the one place the port keeps them (the plan compiler's cost model)
+from repro_torch.kernels.perf_model import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.kernels.perf_model import PEAK_FLOPS as BF16_FLOPS  # noqa: E402
+
 FULL_WIDTH = {"wq/wo": (2048, 2048), "wk/wv": (256, 2048),
               "gate/up": (5632, 2048), "down": (2048, 5632)}
 # the seven projections of one decoder layer, by layout
@@ -375,6 +417,21 @@ FM_CHECK_N = (1, 16, 1000, 1037, 4096, 4104)
 # the tensor-core bodies and at ragged token tiles of them
 FM_CHECK_SPARSITIES = (0.5, 0.875, 0.9375)
 FM_MMA_CHECK_N = (16, 1000, 4104)
+# the plan phases (33-37): the budget plans the plan compiler solves for
+# the four models at full width, solve_budget(model_matmul_shapes(cfg),
+# target_density=0.25, min_dim=64), certified, checked, trained and served
+PLAN_ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "vgg19-cifar",
+              "wrn40-4-cifar")
+PLAN_TARGET_DENSITY, PLAN_MIN_DIM = 0.25, 64
+# check-plan's N: the least N of the tensor-core bodies, a ragged tile
+# edge, a training step; rows an expert for the stacked pair: the least
+# the tensor-core bodies take and a training step's
+PLAN_CHECK_N = (16, 1037, 4096)
+PLAN_EXPERT_ROWS = (16, MOE_ROWS["train"])
+# serve-plan's admission budget B, in live tokens: one 576-token request
+# (phase 4's longest) fits, two do not; what admits more is the plan's
+# credit of freed weight bytes
+PLAN_SERVE_BUDGET = 600
 
 
 def vgg19_sdmm_layers() -> list:
@@ -1085,12 +1142,16 @@ def build_model(cfg, quant: bool):
 
 
 def phase_serve(cfg, per_pass: dict, phase: str = "serve",
-                quant: bool = False, beside: dict = None) -> dict:
+                quant: bool = False, beside: dict = None,
+                engine_kw: dict = None) -> dict:
     """16 mixed requests through ``ContinuousEngine`` (bf16, f32 KV cache,
     8 slots, 16-token pages, greedy); every prefill call and every decode
     step must launch ``per_pass``.  ``quant``: the weight-only int8 model
     of ``cfg`` (a ``quant_config``); ``beside``: the result of the
-    full-precision run of the same model, printed beside this one."""
+    full-precision run of the same model, printed beside this one;
+    ``engine_kw``: more arguments of the engine (``plan`` and
+    ``max_live_tokens``: plan-aware admission), whose budget, pool and
+    peak live tokens and requests the result then carries."""
     from repro_torch.serve import ContinuousEngine
     from repro_torch.sparsity import weight_bytes
 
@@ -1129,7 +1190,18 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve",
     warm.submit(reqs[0]["prompt"][:32], 2)
     warm.drain()
     del warm
-    engine = ContinuousEngine(model, **kw)
+    engine = ContinuousEngine(model, **kw, **(engine_kw or {}))
+    peak = {"live_tokens": 0, "running": 0}
+    admit = engine.scheduler.admit
+
+    def admit_and_track():
+        got = admit()
+        peak["live_tokens"] = max(peak["live_tokens"],
+                                  engine.scheduler.live_tokens)
+        peak["running"] = max(peak["running"], len(engine.scheduler.running))
+        return got
+
+    engine.scheduler.admit = admit_and_track
     per_call = {"prefill": [], "decode": []}
     count_calls(model, "prefill", per_call["prefill"])
     count_calls(model, "decode_step_paged", per_call["decode"])
@@ -1196,6 +1268,14 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve",
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         weight_bytes=wb,
         plan_fingerprint=cfg.sparsity_rules.fingerprint(),
+        peak_live_tokens=peak["live_tokens"],
+        peak_live_requests=peak["running"],
+        base_live_tokens=engine.base_live_tokens,
+        plan_live_tokens=engine.plan_live_tokens,
+        admission_tokens=engine.scheduler.max_live_tokens,
+        pool_tokens=engine.kv.allocator.n_total * engine.page,
+        kv_bytes_per_token=engine.kv_bytes_per_token(),
+        projection_bytes=projection_bytes(model),
     )
     log(phase, f"served {len(out)} requests: {n_prompt} prompt + {n_gen} "
                f"new tokens in {wall:.3f}s = {res['tok_per_s']:.1f} tok/s")
@@ -1225,32 +1305,35 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve",
     return res
 
 
-def serve_streams(model, reqs: list) -> tuple[dict, int]:
+def serve_streams(model, reqs: list,
+                  engine_kw: dict = None) -> tuple[dict, int]:
     """The engine's greedy streams (f32 KV cache, 8 slots, 16-token
-    pages) and its gather length."""
+    pages; ``engine_kw`` more engine arguments) and its gather length."""
     from repro_torch.serve import ContinuousEngine
 
     max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
     engine = ContinuousEngine(model, page_size=16, max_slots=8,
                               max_request_len=max_len,
-                              cache_dtype=torch.float32)
+                              cache_dtype=torch.float32,
+                              **(engine_kw or {}))
     for r in reqs:
         engine.submit(r["prompt"], r["max_new_tokens"])
     return engine.drain(), engine.gather_tokens
 
 
 def phase_parity(cfg, reqs: list, phase: str = "parity",
-                 quant: bool = False) -> None:
+                 quant: bool = False, engine_kw: dict = None) -> None:
     """float32: the engine's greedy streams against ``run_sequential``; a
     flip is tolerated only at a near tie of the top-2 logits.  ``quant``:
     the weight-only int8 model of ``cfg`` (a ``quant_config``), whose
-    streams must also equal the engine's after ``dequantize_weights``."""
+    streams must also equal the engine's after ``dequantize_weights``;
+    ``engine_kw``: more engine arguments (plan-aware admission)."""
     from repro_torch.serve import run_sequential
     from repro_torch.sparsity import dequantize_weights
 
     model = build_model(cfg, quant)
     t0 = time.perf_counter()
-    got, gather = serve_streams(model, reqs)
+    got, gather = serve_streams(model, reqs, engine_kw)
     want = run_sequential(model, reqs, cache_len=gather)
     flips = same_streams(model, reqs, got, want, phase, "run_sequential")
     what = "run_sequential"
@@ -3085,11 +3168,12 @@ def conv_layouts() -> dict:
 
 
 def vision_model(arch: str, pattern: str, device, dtype,
-                 min_dim: int = 64, seed: int = 0):
+                 min_dim: int = 64, seed: int = 0, plan=None):
     """The full-width ``arch`` (``get_config``) with ``pattern`` at 0.75
     (``backend="auto"``: compact storage for RBGP4, masked storage for the
     unstructured and block patterns), the paper's keep-dense rule, weights
-    drawn from ``seed`` on ``device``."""
+    drawn from ``seed`` on ``device``; or, given ``plan``, under that
+    plan (``VisionConfig.plan``, every rule its own)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3099,7 +3183,9 @@ def vision_model(arch: str, pattern: str, device, dtype,
     sp = (SparsityConfig() if pattern == "dense" else
           SparsityConfig(pattern=pattern, sparsity=VISION_SPARSITY,
                          backend="auto", min_dim=min_dim))
-    cfg = dataclasses.replace(get_config(arch), sparsity=sp)
+    if plan is not None:
+        sp = SparsityConfig()
+    cfg = dataclasses.replace(get_config(arch), sparsity=sp, plan=plan)
     cls = VGG19 if arch == "vgg19-cifar" else WideResNet
     gen = torch.Generator(device=device).manual_seed(seed)
     return cls(cfg, device=device, dtype=dtype, generator=gen)
@@ -3365,37 +3451,41 @@ def vision_train_config(n_steps: int, lr: float = 0.1):
 
 
 def phase_train_vision(arch: str, pattern: str, n_steps: int = 6,
-                       batch: int = VISION_BATCH) -> dict:
+                       batch: int = VISION_BATCH, plan=None,
+                       phase: str = "train-vision") -> dict:
     """``n_steps`` of ``Trainer.run`` on the full-width ``arch`` with
-    ``pattern`` storage, bf16 compute over f32 master values, on
+    ``pattern`` storage (or, given ``plan``, under that plan: its sparse
+    convs compact), bf16 compute over f32 master values, on
     ``GaussianClassImages(10, batch, seed=0)``: every step's sparse
     launches, counted at each launch (RBGP4: each sparse conv's forward,
     dX and dW), the tensor-core launches by role equal to what the path
-    functions name (``VISION_MMA`` for RBGP4), finite losses and gradient
-    norms; the mean of the last ``n_steps - 1`` steps, images/s, peak
-    memory, the layout copies a step; then one profiled step (card busy
-    and idle share)."""
+    functions name (``VISION_MMA`` for RBGP4 at 0.75), finite losses and
+    gradient norms; the mean of the last ``n_steps - 1`` steps, images/s,
+    peak memory, the layout copies a step; then one profiled step (card
+    busy and idle share)."""
     from repro_torch.data import GaussianClassImages
     from repro_torch.kernels import rbgp4_sddmm_rhs, rbgp4mm_rhs
     from repro_torch.models.vision import SparseConv2D
     from repro_torch.train import Trainer, classifier_loss
 
-    phase = "train-vision"
-    model = vision_model(arch, pattern, "cuda", torch.bfloat16)
+    model = vision_model(arch, pattern, "cuda", torch.bfloat16, plan=plan)
     convs = sparse_convs(model)
     modes = {mod.mode for mod in convs}
     n_sparse = len(convs)
     if pattern == "dense":
         want_modes, want = set(), launches_of()
     else:
-        want_modes = {"compact" if pattern == "rbgp4" else "masked"}
-        if n_sparse != VISION_SPARSE[arch]:
+        want_modes = {"compact" if pattern in ("rbgp4", "plan")
+                      else "masked"}
+        if plan is None and n_sparse != VISION_SPARSE[arch]:
             raise AssertionError(f"{arch}: {n_sparse} sparse convs")
         want = (launches_of(forward=n_sparse, dx=n_sparse, dw=n_sparse)
-                if pattern == "rbgp4" else launches_of())
+                if pattern in ("rbgp4", "plan") else launches_of())
     if modes != want_modes:
         raise AssertionError(f"{arch} {pattern}: storage {modes}")
     want_mma = {"forward": 0, "dx": 0, "dw": 0}
+    if pattern == "plan":
+        want_mma = conv_mma_counts(model, batch)
     if pattern == "rbgp4":
         if conv_geometry(model, batch) != conv_layers(arch):
             raise AssertionError(f"{arch}: conv geometry "
@@ -3689,12 +3779,516 @@ def phase_kd_protocol(n_steps: int = 80, batch: int = 64) -> dict:
     return res
 
 
+# -- the plan compiler: budget-solved plans, certified, trained and served ----
+
+def budget_plan(arch: str):
+    """(config, shape table, plan) of ``arch`` at full width: the plan
+    compiler's ``solve_budget`` at ``PLAN_TARGET_DENSITY`` and
+    ``PLAN_MIN_DIM`` over the shapes ``model_matmul_shapes`` records."""
+    from repro_torch.configs import get_config
+    from repro_torch.sparsity import model_matmul_shapes, solve_budget
+
+    cfg = get_config(arch)
+    shapes = model_matmul_shapes(cfg)
+    plan = solve_budget(shapes, target_density=PLAN_TARGET_DENSITY,
+                        min_dim=PLAN_MIN_DIM)
+    return cfg, shapes, plan
+
+
+def plan_train_tokens(arch: str, shapes: dict) -> dict:
+    """path -> the tokens its product runs at a training step of the
+    phases: 8 x 512 (tinyllama, phase 6), 4 x 512 (qwen2-moe, phase 10;
+    its experts ``MOE_ROWS['train']`` rows an expert), each conv's own N
+    at batch 256 (the vision models, ``conv_layers``)."""
+    if arch == "tinyllama-1.1b":
+        return dict.fromkeys(shapes, 8 * 512)
+    if arch == "qwen2-moe-a2.7b":
+        return {p: MOE_ROWS["train"] if ".experts." in p else 4 * 512
+                for p in shapes}
+    convs = [p for p in shapes
+             if p not in ("stem", "conv0", "fc") and not p.endswith(".proj")]
+    layers = conv_layers(arch)
+    if [shapes[p][:2] for p in convs] != [(m, k) for m, k, _ in layers]:
+        raise AssertionError(f"{arch}: recorded convs {convs} are not "
+                             f"conv_layers' {layers}")
+    return {p: n for p, (_, _, n) in zip(convs, layers)}
+
+
+def plan_layouts(arch: str, shapes: dict, plan) -> list:
+    """The distinct sparse layouts of ``plan`` over ``shapes``, each a
+    dict: (m, k, sparsity), the layout, the paths on it, whether they are
+    stacked experts, the largest training N (rows an expert) among them,
+    the kernel dims of the layout and of its transpose
+    (``transpose_layout()``), and the bodies ``rhs_path`` / ``sddmm_path``
+    name for its forward, dX and dW in bf16 at that N."""
+    from repro_torch.kernels import KernelDims, rhs_path, sddmm_path
+
+    tokens = plan_train_tokens(arch, shapes)
+    out = {}
+    for path, (m, k, _) in shapes.items():
+        inst = plan.pattern_for(path, m, k)
+        if inst.layout is None:
+            continue
+        e = out.setdefault((m, k, inst.sparsity), dict(
+            arch=arch, m=m, k=k, sparsity=inst.sparsity,
+            layout=inst.layout, paths=[], n=0,
+            stacked=".experts." in path))
+        e["paths"].append(path)
+        e["n"] = max(e["n"], tokens[path])
+    bf16 = torch.bfloat16
+    for e in out.values():
+        d = KernelDims.from_layout(e["layout"])
+        d_t = KernelDims.from_layout(e["layout"].transpose_layout())
+        e.update(dims=d, dims_t=d_t, bodies=(
+            rhs_path(d, e["n"], bf16), rhs_path(d_t, e["n"], bf16),
+            sddmm_path(d, e["n"], bf16)))
+    return list(out.values())
+
+
+def held_layouts() -> set:
+    """(m, k, sparsity) of the layouts phases 2 (tinyllama's four and
+    qwen2-moe's two expert layouts) and 28 (the conv layouts) hold."""
+    return {(m, k, 0.75) for m, k in (list(FULL_WIDTH.values())
+                                      + list(MOE_WIDTH.values()))} | {
+        (m, k, 0.75) for m, k, _ in conv_shapes()}
+
+
+def fma_layouts(plans: dict) -> list:
+    """(arch, m, k, sparsity, role, G, C) of every plan layout whose
+    forward, dX or dW takes an FMA body at the training N."""
+    out = []
+    for arch, p in plans.items():
+        for e in p["layouts"]:
+            for role, body, d in zip(("forward", "dX", "dW"), e["bodies"],
+                                     (e["dims"], e["dims_t"], e["dims"])):
+                if body == "fma":
+                    out.append((arch, e["m"], e["k"], e["sparsity"], role,
+                                d.group_rows, d.chunk_cols))
+    return out
+
+
+def phase_plan() -> dict:
+    """Solve and certify the budget plans of ``PLAN_ARCHS`` at full width:
+    the fingerprints, the rules, each sparse layout's (m, k, sparsity, G,
+    C, d_o, d_i) and the bodies of its forward, dX and dW at the training
+    N; fails unless ``certify`` finds every proper factor within its
+    bound."""
+    from repro_torch.sparsity import certify
+
+    plans = {}
+    for arch in PLAN_ARCHS:
+        t0 = time.perf_counter()
+        cfg, shapes, plan = budget_plan(arch)
+        t_solve = time.perf_counter() - t0
+        report = certify(plan, shapes)
+        s = report["summary"]
+        if not s["all_ok"]:
+            bad = [(p, f["factor"]) for p, e in report["layers"].items()
+                   for f in e["factors"] if not f["within_bound"]]
+            raise AssertionError(f"{arch}: factors over their bound {bad}")
+        layouts = plan_layouts(arch, shapes, plan)
+        log("plan", f"{arch}: {len(shapes)} projection paths, plan "
+                    f"{plan.fingerprint()} ({len(plan.rules)} rules), "
+                    f"density {s['density']:.6f}; certify: "
+                    f"{s['n_factors']} factors, {s['n_proper_ramanujan']} "
+                    f"proper Ramanujan, {s['n_within_bound']} within bound; "
+                    f"solved in {t_solve:.2f}s, certified in "
+                    f"{time.perf_counter() - t0 - t_solve:.2f}s")
+        for r in plan.rules:
+            n_paths = r.match.count("|") + 1 if r.match != ".*" else "rest"
+            log("plan", f"  [{n_paths:>4}] sp={r.spec.sparsity:<7.4f} "
+                        f"pattern={r.spec.pattern:<6} {r.note}")
+        for e in layouts:
+            d, d_t = e["dims"], e["dims_t"]
+            log("plan", f"  {e['m']} x {e['k']} at {e['sparsity']} "
+                        f"({len(e['paths'])} paths"
+                        f"{', stacked experts' if e['stacked'] else ''}): "
+                        f"G {d.group_rows}, C {d.chunk_cols}, d_o {d.d_o}, "
+                        f"d_i {d.d_i}; transposed G {d_t.group_rows}, C "
+                        f"{d_t.chunk_cols}; bodies at N={e['n']} "
+                        f"forward/dX/dW: {'/'.join(e['bodies'])}")
+        plans[arch] = dict(cfg=cfg, shapes=shapes, plan=plan, report=report,
+                           layouts=layouts)
+    fma = fma_layouts(plans)
+    log("plan", f"plan layouts on an FMA body at the training N: "
+                + ("; ".join(f"{a} {m} x {k} at {sp} {role} (G {g}, C {c})"
+                             for a, m, k, sp, role, g, c in fma) or "none"))
+    print("plan " + json.dumps({
+        arch: dict(fingerprint=p["plan"].fingerprint(),
+                   summary=p["report"]["summary"],
+                   layouts=[dict(m=e["m"], k=e["k"], sparsity=e["sparsity"],
+                                 G=e["dims"].group_rows,
+                                 C=e["dims"].chunk_cols, d_o=e["dims"].d_o,
+                                 d_i=e["dims"].d_i, n=e["n"],
+                                 paths=len(e["paths"]),
+                                 stacked=e["stacked"], bodies=e["bodies"])
+                            for e in p["layouts"]])
+        for arch, p in plans.items()}), flush=True)
+    return plans
+
+
+def phase_check_plan(plans: dict) -> tuple[dict, dict]:
+    """At every layout of the budget plans that phases 2 and 28 do not
+    hold: ``rbgp4mm_rhs`` (forward, and dX on ``TransposeTables``) and
+    ``rbgp4_sddmm_rhs``, or for stacked experts (60 of them)
+    ``rbgp4mm_rhs_stacked`` and ``rbgp4_sddmm_rhs_stacked``, against their
+    plain versions at phase 2's tolerances, f32 and bf16, at N in
+    ``PLAN_CHECK_N`` (rows an expert: ``PLAN_EXPERT_ROWS``); each launch
+    moves ``launches_mma`` exactly when the path function names the
+    tensor-core body, each dW reruns bit-equal.  Then, in bf16 at the
+    layout's training N, each of the three timed on its body, beside its
+    FMA body, its plain version, one PyTorch product on the unpacked
+    weights and the bound.  Returns (max abs diff by role, timed rows)."""
+    from repro_torch.kernels import (KernelTables, TransposeTables,
+                                     rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_reference,
+                                     rbgp4_sddmm_rhs_stacked,
+                                     rbgp4_sddmm_rhs_stacked_reference,
+                                     rbgp4mm_rhs, rbgp4mm_rhs_reference,
+                                     rbgp4mm_rhs_stacked,
+                                     rbgp4mm_rhs_stacked_reference, rhs_path,
+                                     sddmm_path)
+
+    g = torch.Generator(device="cuda").manual_seed(33)
+    held = held_layouts()
+    todo = [e for p in plans.values() for e in p["layouts"]
+            if (e["m"], e["k"], e["sparsity"]) not in held]
+    max_abs = dict.fromkeys(("forward", "dx", "dw", "stacked_forward",
+                             "stacked_dx", "stacked_dw"), 0.0)
+    rows = {}
+    n_cases = 0
+    for e in todo:
+        lay, m, k = e["layout"], e["m"], e["k"]
+        stacked = e["stacked"]
+        lead = (MOE_EXPERTS,) if stacked else ()
+        tables = KernelTables.build(lay, "cuda")
+        tt = TransposeTables.build(lay, "cuda")
+        d, d_t = tables.dims, tt.tables.dims
+        fwd, dw_fn = ((rbgp4mm_rhs_stacked, rbgp4_sddmm_rhs_stacked)
+                      if stacked else (rbgp4mm_rhs, rbgp4_sddmm_rhs))
+        fwd_ref, dw_ref = ((rbgp4mm_rhs_stacked_reference,
+                            rbgp4_sddmm_rhs_stacked_reference) if stacked
+                           else (rbgp4mm_rhs_reference,
+                                 rbgp4_sddmm_rhs_reference))
+        label = (f"{e['arch']} {m} x {k} at {e['sparsity']}"
+                 f"{' (60 experts)' if stacked else ''}")
+        for dt in (torch.float32, torch.bfloat16):
+            rnd = lambda *s: torch.randn(*s, device="cuda",
+                                         generator=g).to(dt)
+            worst = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+            bodies = []
+            w = rnd(*lead, *lay.data_shape)
+            wt = tt.values(w)
+            for n in (PLAN_EXPERT_ROWS if stacked else PLAN_CHECK_N):
+                x, gy = rnd(*lead, n, k), rnd(*lead, n, m)
+                paths = (rhs_path(d, n, dt), rhs_path(d_t, n, dt),
+                         sddmm_path(d, n, dt))
+                cases = (
+                    ("forward", fwd, "launches", paths[0],
+                     lambda: fwd(tables, x, w),
+                     lambda: fwd_ref(tables, x, w)),
+                    ("dx", fwd, "launches_dx", paths[1],
+                     lambda: fwd(tt.tables, gy, wt),
+                     lambda: fwd_ref(tt.tables, gy, wt)),
+                    ("dw", dw_fn, "launches", paths[2],
+                     lambda: dw_fn(tables, gy, x),
+                     lambda: dw_ref(tables, gy, x)))
+                for role, fn, attr, path, run, plain in cases:
+                    mma0 = fn.launches_mma
+                    got = launched(fn, run, attr)
+                    if fn.launches_mma - mma0 != (path == "mma"):
+                        raise AssertionError(
+                            f"{label} N={n} {dt} {role}: launches_mma moved "
+                            f"by {fn.launches_mma - mma0}, the path is "
+                            f"{path}")
+                    err, rel = agree(f"{label} N={n} {role}", got, plain(),
+                                     dt)
+                    if role == "dw" and not torch.equal(got, run()):
+                        raise AssertionError(f"{label} dW N={n} {dt}: a "
+                                             f"rerun changed the bits")
+                    entry = ("stacked_" if stacked else "") + role
+                    max_abs[entry] = max(max_abs[entry], err)
+                    worst[role] = max(worst[role], rel)
+                    n_cases += 1
+                bodies.append(f"N={n} " + "/".join(paths))
+                del x, gy
+            log("check-plan", f"{label} (G {d.group_rows}, C "
+                              f"{d.chunk_cols}; transposed G "
+                              f"{d_t.group_rows}, C {d_t.chunk_cols}) "
+                              f"{str(dt):14s} max|diff|/max|ref|: "
+                              + ", ".join(f"{r} {v:.2e}"
+                                          for r, v in worst.items())
+                              + "; bodies fwd/dX/dW: " + "; ".join(bodies))
+            del w, wt
+        rows.update(time_plan_layout(e, tables, tt, g))
+        del tables, tt
+        torch.cuda.empty_cache()
+    log("check-plan", f"{n_cases} cases agree at {len(todo)} budget-plan "
+                      f"layouts no earlier phase holds, every dW bit-equal "
+                      f"on a rerun, every launches_mma as the path "
+                      f"functions name it; max abs diff "
+                      + ", ".join(f"{k_} {v:.3e}"
+                                  for k_, v in max_abs.items()))
+    return max_abs, rows
+
+
+def time_plan_layout(e: dict, tables, tt, g) -> dict:
+    """check-plan's timings of one layout, bf16 at its training N (rows an
+    expert): the forward, dX and dW kernels, their FMA bodies on the same
+    operands, their plain versions, one dense PyTorch product each on the
+    unpacked weights (``F.linear``, ``g @ W``, ``g^T @ x``; ``torch.bmm``
+    for the experts) and the bound."""
+    from repro_torch.kernels import (rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_reference,
+                                     rbgp4_sddmm_rhs_stacked,
+                                     rbgp4_sddmm_rhs_stacked_reference,
+                                     rbgp4mm_rhs, rbgp4mm_rhs_reference,
+                                     rbgp4mm_rhs_stacked,
+                                     rbgp4mm_rhs_stacked_reference)
+    from repro_torch.kernels.ref import unpack_dense
+
+    dt, lay, m, k, n = torch.bfloat16, e["layout"], e["m"], e["k"], e["n"]
+    d, d_t = tables.dims, tt.tables.dims
+    nnz = lay.data_shape[1]
+    stacked = e["stacked"]
+    ne = MOE_EXPERTS if stacked else 1
+    lead = (ne,) if stacked else ()
+    timed = lambda fn: time_cuda(fn, n_iter=10, n_warm=2)
+    copies = max(1, -(-2 * L2_BYTES // (ne * (n * m + n * k) * 2)))
+    xs = torch.randn((copies, *lead, n, k), device="cuda",
+                     generator=g).to(dt)
+    gs = torch.randn((copies, *lead, n, m), device="cuda",
+                     generator=g).to(dt)
+    c = lambda i: i % copies
+    w = torch.randn((*lead, m, nnz), device="cuda", generator=g).to(dt)
+    wt, wd = tt.values(w), unpack_dense(lay, w)
+    y_out = torch.empty((*lead, n, m), dtype=dt, device="cuda")
+    dx_out = torch.empty((*lead, n, k), dtype=dt, device="cuda")
+    dw_out = torch.empty((*lead, m, nnz), dtype=dt, device="cuda")
+    if stacked:
+        fwd, dw_fn = rbgp4mm_rhs_stacked, rbgp4_sddmm_rhs_stacked
+        fwd_ref, dw_ref = (rbgp4mm_rhs_stacked_reference,
+                           rbgp4_sddmm_rhs_stacked_reference)
+        fma_rhs = stacked_body_launcher(tables, "fma")
+        fma_rhs_t = stacked_body_launcher(tt.tables, "fma")
+        fma_sddmm = stacked_sddmm_launcher(tables, "fma")
+        lib = (lambda x: torch.bmm(x, wd.transpose(1, 2)),
+               lambda gy: torch.bmm(gy, wd),
+               lambda gy, x: torch.bmm(gy.transpose(1, 2), x))
+    else:
+        fwd, dw_fn = rbgp4mm_rhs, rbgp4_sddmm_rhs
+        fwd_ref, dw_ref = rbgp4mm_rhs_reference, rbgp4_sddmm_rhs_reference
+        fma_rhs, fma_sddmm = body_launchers(tables, "fma")
+        fma_rhs_t, _ = body_launchers(tt.tables, "fma")
+        lib = (lambda x: F.linear(x, wd), lambda gy: gy @ wd,
+               lambda gy, x: gy.T @ x)
+    t = dict(
+        fwd=timed(lambda i: fwd(tables, xs[c(i)], w)),
+        fwd_fma=timed(lambda i: fma_rhs(xs[c(i)], w, y_out)),
+        fwd_plain=timed(lambda i: fwd_ref(tables, xs[c(i)], w)),
+        fwd_lib=timed(lambda i: lib[0](xs[c(i)])),
+        dx=timed(lambda i: fwd(tt.tables, gs[c(i)], wt)),
+        dx_fma=timed(lambda i: fma_rhs_t(gs[c(i)], wt, dx_out)),
+        dx_plain=timed(lambda i: fwd_ref(tt.tables, gs[c(i)], wt)),
+        dx_lib=timed(lambda i: lib[1](gs[c(i)])),
+        dw=timed(lambda i: dw_fn(tables, gs[c(i)], xs[c(i)])),
+        dw_fma=timed(lambda i: fma_sddmm(gs[c(i)], xs[c(i)], dw_out)),
+        dw_plain=timed(lambda i: dw_ref(tables, gs[c(i)], xs[c(i)])),
+        dw_lib=timed(lambda i: lib[2](gs[c(i)], xs[c(i)])),
+    )
+    key = (e["arch"], m, k, e["sparsity"], n)
+    rows = {}
+    for role, (bnd, by) in (
+            ("fwd", bound_ms(n, m, k, nnz, d.d_o * d.d_i, d.group_rows, 2,
+                             e=ne)),
+            ("dx", bound_ms(n, d_t.m, d_t.k, d_t.data_cols,
+                            d_t.d_o * d_t.d_i, d_t.group_rows, 2, e=ne)),
+            ("dw", sddmm_bound_ms(n, m, k, nnz, d.d_o * d.d_i,
+                                  d.group_rows, 2, e=ne))):
+        rows[(key, role)] = dict(
+            ms=t[role], fma_ms=t[role + "_fma"], plain_ms=t[role + "_plain"],
+            library_ms=t[role + "_lib"], bound_ms=bnd, bound_by=by,
+            body=e["bodies"][("fwd", "dx", "dw").index(role)])
+    log("times-plan", f"{e['arch']} {m} x {k} at {e['sparsity']} N={n}"
+                      f"{' rows an expert, 60 experts' if stacked else ''} "
+                      f"bf16, bodies {'/'.join(e['bodies'])}: " + "; ".join(
+                          f"{role} {r['ms']:.4f} ms (FMA body "
+                          f"{r['fma_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+                          f"dense {r['library_ms']:.4f}, bound "
+                          f"{r['bound_ms']:.4f} {r['bound_by']})"
+                          for (_, role), r in rows.items()))
+    del xs, gs, w, wt, wd, y_out, dx_out, dw_out
+    return rows
+
+
+def plan_lm_config(plans: dict, compute_dtype: str = "bfloat16"):
+    """Full-width tinyllama under its budget plan."""
+    from repro_torch.configs import apply_sparsity
+
+    p = plans["tinyllama-1.1b"]
+    return apply_sparsity(p["cfg"], plan=p["plan"]).with_(
+        compute_dtype=compute_dtype)
+
+
+def n_plan_compact(plans: dict, arch: str) -> int:
+    """The compact projections (unstacked) of ``arch`` under its plan."""
+    return sum(len(e["paths"]) for e in plans[arch]["layouts"]
+               if not e["stacked"])
+
+
+def phase_train_plan(plans: dict, train: dict, vision: dict) -> dict:
+    """Full-width tinyllama under its budget plan, 6 steps of 8 x 512
+    tokens as phase 6 (every sparse launch counted at the launch, all on
+    the tensor cores), and VGG19-CIFAR and WRN-40-4 under theirs, 6 steps
+    at batch 256 as phase 30; each beside the uniform-0.75 run of phase 6
+    and phase 30's uniform RBGP4 and dense runs."""
+    out = {}
+    n_c = n_plan_compact(plans, "tinyllama-1.1b")
+    out["tinyllama-1.1b"] = res = phase_train(
+        plan_lm_config(plans), launches_of(forward=2 * n_c, dx=n_c, dw=n_c),
+        n_steps=6, batch=8, seq=512, phase="train-plan")
+    log("train-plan", f"tinyllama-1.1b: budget plan "
+                      f"{res['mean_step_ms']:.1f} ms/step, "
+                      f"{res['tokens_per_s']:.0f} tokens/s, peak "
+                      f"{res['peak_mem_gb']:.2f} GB, card busy "
+                      f"{res['profile']['busy_ms']:.1f} ms (idle "
+                      f"{1 - res['busy_share_unprofiled']:.1%} unprofiled), "
+                      f"{n_c} compact projections ({3 * n_c} sparse "
+                      f"launches a step, all on the tensor cores); uniform "
+                      f"0.75 (phase 6) {train['mean_step_ms']:.1f} ms/step, "
+                      f"peak {train['peak_mem_gb']:.2f} GB, busy "
+                      f"{train['profile']['busy_ms']:.1f} ms")
+    for arch in VISION_ARCHS:
+        out[arch] = r = phase_train_vision(arch, "plan",
+                                           plan=plans[arch]["plan"],
+                                           phase="train-plan")
+        n_mma = sum(r["mma_per_step"].values())
+        n_all = sum(r["launches_per_step"].values())
+        beside = "".join(
+            f"; uniform {pat} {vision[(arch, pat)]['mean_step_ms']:.1f} "
+            f"ms/step (peak {vision[(arch, pat)]['peak_mem_gb']:.2f} GB, "
+            f"busy {vision[(arch, pat)]['busy_ms']:.1f} ms)"
+            for pat in ("rbgp4", "dense"))
+        log("train-plan", f"{arch}: budget plan {r['mean_step_ms']:.1f} "
+                          f"ms/step, {r['images_per_s']:.0f} images/s, peak "
+                          f"{r['peak_mem_gb']:.2f} GB, busy "
+                          f"{r['busy_ms']:.1f} ms (idle "
+                          f"{r['idle_share_unprofiled']:.1%} unprofiled), "
+                          f"{n_all} sparse launches a step, {n_mma} on the "
+                          f"tensor cores{beside}")
+    return out
+
+
+def table_bytes(obj, seen: set) -> int:
+    """Bytes of the card tensors held by a tables object (``KernelTables``,
+    its ``RowGroupClasses``, ``TransposeTables``), each counted once
+    (``seen`` holds the data pointers already counted)."""
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        if obj.data_ptr() in seen:
+            return 0
+        seen.add(obj.data_ptr())
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(table_bytes(getattr(obj, f.name), seen)
+                   for f in dataclasses.fields(obj))
+    if isinstance(obj, dict):
+        return sum(table_bytes(v, seen) for v in obj.values())
+    return 0
+
+
+def projection_bytes(model) -> dict:
+    """What the model's projections hold on the card: ``values`` (compact,
+    chain and stacked values, dense and masked projection weights, biases;
+    int8 values and their scales) and ``tables`` (kernel index tables,
+    forward and any built transposed ones)."""
+    from repro_torch.models.moe import StackedExperts
+    from repro_torch.sparsity import SparseLinear
+
+    values = tables = 0
+    seen: set = set()
+    for mod in model.modules():
+        if not isinstance(mod, (SparseLinear, StackedExperts)):
+            continue
+        values += sum(t.numel() * t.element_size()
+                      for name, t in mod.state_dict().items()
+                      if name.rsplit(".", 1)[-1] not in ("ba_o", "ba_i",
+                                                         "mask"))
+        tables += table_bytes(getattr(mod, "tables", None), seen)
+        tables += table_bytes(getattr(mod, "_tables_t", None), seen)
+    return {"values": values, "tables": tables}
+
+
+def phase_serve_plan(plans: dict, serve: dict) -> dict:
+    """Full-width tinyllama under its budget plan through
+    ``ContinuousEngine(plan=..., max_live_tokens=PLAN_SERVE_BUDGET)``,
+    phase 4's 16 requests: the admission budget the plan's freed weight
+    bytes grow it to, held equal to ``plan_aware_live_tokens`` recomputed
+    from ``model_matmul_shapes``; the peak live tokens must pass the
+    budget alone (the credit admits more); the bytes the storage holds
+    beside the bytes credited (reported: the reference's formula defines
+    admission); throughput and decode ms/step beside phase 4's."""
+    from repro_torch.serve import plan_aware_live_tokens
+    from repro_torch.sparsity import model_matmul_shapes
+
+    cfg = plan_lm_config(plans)
+    n_c = n_plan_compact(plans, "tinyllama-1.1b")
+    res = phase_serve(cfg, launches_of(forward=n_c), phase="serve-plan",
+                      engine_kw=dict(plan=cfg.plan,
+                                     max_live_tokens=PLAN_SERVE_BUDGET))
+    shapes = model_matmul_shapes(cfg)
+    want = plan_aware_live_tokens(
+        PLAN_SERVE_BUDGET, plan=cfg.plan, shapes=shapes,
+        kv_bytes_per_token=res["kv_bytes_per_token"], value_bytes=2)
+    # the formula's resident bytes: nnz bf16 values a layer, no tables
+    dense = sum(2.0 * m * k * c for m, k, c in shapes.values())
+    resident = sum(2.0 * cfg.plan.pattern_for(p, m, k).nnz * c
+                   for p, (m, k, c) in shapes.items())
+    if res["plan_live_tokens"] != want:
+        raise AssertionError(f"engine admits {res['plan_live_tokens']} live "
+                             f"tokens, plan_aware_live_tokens gives {want}")
+    if res["base_live_tokens"] != PLAN_SERVE_BUDGET \
+            or res["admission_tokens"] != min(want, res["pool_tokens"]):
+        raise AssertionError(f"admission: {res}")
+    if res["peak_live_tokens"] <= PLAN_SERVE_BUDGET:
+        raise AssertionError(f"peak live tokens {res['peak_live_tokens']}: "
+                             f"the plan's credit admitted no more than B = "
+                             f"{PLAN_SERVE_BUDGET}")
+    held = res["projection_bytes"]
+    res.update(credited_freed_bytes=dense - resident,
+               dense_projection_bytes=dense)
+    log("serve-plan", f"B = {PLAN_SERVE_BUDGET} live tokens; "
+                      f"plan_live_tokens {res['plan_live_tokens']} "
+                      f"(plan_aware_live_tokens from model_matmul_shapes: "
+                      f"{want}, equal); pool {res['pool_tokens']} tokens, "
+                      f"so admission is bounded at "
+                      f"{res['admission_tokens']}; "
+                      f"{res['kv_bytes_per_token']:.0f} KV bytes a token; "
+                      f"peak live tokens {res['peak_live_tokens']}, peak "
+                      f"live requests {res['peak_live_requests']}")
+    log("serve-plan", f"projection bytes: dense {dense:,.0f}; the plan's "
+                      f"formula keeps {resident:,.0f} (values only) and "
+                      f"credits {dense - resident:,.0f} freed; the "
+                      f"storage holds values {held['values']:,} + index "
+                      f"tables {held['tables']:,} = "
+                      f"{held['values'] + held['tables']:,}")
+    log("serve-plan", f"against phase 4 (uniform 0.75, no budget): "
+                      f"{res['tok_per_s']:.1f} vs {serve['tok_per_s']:.1f} "
+                      f"tok/s, decode {res['decode_ms_per_step']:.2f} vs "
+                      f"{serve['decode_ms_per_step']:.2f} ms/step, prefill "
+                      f"{res['prefill_time_s']:.3f} vs "
+                      f"{serve['prefill_time_s']:.3f} s, peak "
+                      f"{res['peak_mem_gb']:.2f} vs {serve['peak_mem_gb']:.2f} "
+                      f"GB")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
               "card only", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
     smi = phase_build()
     layouts, experts = full_width_layouts(), moe_layouts()
@@ -3814,6 +4408,20 @@ def main() -> int:
     phase_kd_protocol()
     t_vis = time.perf_counter() - t_vis
 
+    # the plan compiler: budget-solved plans of the four models, certified,
+    # their new layouts held and timed, trained and served
+    t_plan = time.perf_counter()
+    plans = phase_plan()
+    max_abs_plan, times_plan = phase_check_plan(plans)
+    train_plan = phase_train_plan(plans, train, vision)
+    serve_plan = phase_serve_plan(plans, serve)
+    phase_parity(plan_lm_config(plans, "float32"),
+                 serve_requests(tiny.vocab_size, 4, seed=1),
+                 phase="parity-plan",
+                 engine_kw=dict(plan=plan_lm_config(plans).plan,
+                                max_live_tokens=PLAN_SERVE_BUDGET))
+    t_plan = time.perf_counter() - t_plan
+
     per_layout = {f"{key} {kind if isinstance(kind, str) else f'N={kind}'}":
                   row for (key, kind), row in times.items()}
     per_layout.update({f"experts {key} {kind if isinstance(kind, str) else f'N={kind}'}":
@@ -3834,6 +4442,9 @@ def main() -> int:
                        for ((m, k, n), role), ms in fm_sweep.items()})
     per_layout.update({f"conv {m}x{k} N={n} {role}": row
                        for ((m, k, n), role), row in times_conv.items()})
+    per_layout.update({f"plan {arch} {m}x{k} sp={sp} N={n} {role}": row
+                       for ((arch, m, k, sp, n), role), row
+                       in times_plan.items()})
     print("kernel_times " + json.dumps(per_layout), flush=True)
     src = "src/repro_torch/kernels/csrc/"
     # the forward: one decoder layer's seven projections at decode (N = 8
@@ -3868,7 +4479,8 @@ def main() -> int:
                                   for r in vision.values())
     main_runs = (serve, train, serve_moe, train_moe, serve_chain,
                  train_chain, sdmm, serve_q, serve_q_moe,
-                 serve_q_chain) + tuple(vision.values())
+                 serve_q_chain, serve_plan) + tuple(vision.values()) \
+        + tuple(train_plan.values())
     vision_launches = lambda role: sum(r["launches"][role]
                                        for r in vision.values())
     total = lambda role: sum(run["launches"][role] for run in main_runs)
@@ -3876,7 +4488,8 @@ def main() -> int:
         dict(name="rbgp4mm_rhs", route="cuda", source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:500",
              launches=total("forward"),
-             max_abs_err=max(max_abs, max_abs_train["forward"]),
+             max_abs_err=max(max_abs, max_abs_train["forward"],
+                             max_abs_plan["forward"]),
              **fwd,
              work="forward (serve, and train with its remat recompute; "
                   "tinyllama and qwen2-moe attention and shared expert); "
@@ -3899,7 +4512,8 @@ def main() -> int:
              source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:500",
              launches=total("dx"),
-             max_abs_err=max_abs_train["dx"], **dx,
+             max_abs_err=max(max_abs_train["dx"], max_abs_plan["dx"]),
+             **dx,
              work="dX = g @ W_s of one tinyllama decoder layer's seven "
                   "projections on their transposed layouts (G 64/128, "
                   "C 16), 4096 tokens, bf16; fma_ms: the FMA body on the "
@@ -3908,7 +4522,8 @@ def main() -> int:
              source=src + "rbgp4_sddmm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:674",
              launches=total("dw"),
-             max_abs_err=max_abs_train["dw"], **dw,
+             max_abs_err=max(max_abs_train["dw"], max_abs_plan["dw"]),
+             **dw,
              work="compact dW of one tinyllama decoder layer's seven "
                   "projections, 4096 tokens, bf16; fma_ms: the FMA body on "
                   "the same operands"),
@@ -3916,7 +4531,8 @@ def main() -> int:
              source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:773",
              launches=total("stacked_forward"),
-             max_abs_err=max_abs_moe["forward"], **s_fwd,
+             max_abs_err=max(max_abs_moe["forward"],
+                             max_abs_plan["stacked_forward"]), **s_fwd,
              work="forward of qwen2-moe's routed experts (serve at full "
                   "capacity, and train with its remat recompute); timed: "
                   "one MoE layer's gate, up and down, 60 experts, 8 rows "
@@ -3951,7 +4567,8 @@ def main() -> int:
              replaces="src/repro/kernels/rbgp4mm.py:773",
              launches=total("stacked_dx"),
              launches_mma=train_moe["launches"]["stacked_dx"],
-             max_abs_err=max_abs_moe["dx"], **s_dx,
+             max_abs_err=max(max_abs_moe["dx"],
+                             max_abs_plan["stacked_dx"]), **s_dx,
              work="dX of one MoE layer's gate, up and down on their "
                   "transposed layouts, 60 experts, 171 rows an expert, "
                   "bf16 (the tensor-core body in training); fma_ms: the "
@@ -3962,7 +4579,8 @@ def main() -> int:
              replaces="src/repro/kernels/rbgp4mm.py:899",
              launches=total("stacked_dw"),
              launches_mma=train_moe["mma_launches"]["stacked_dw"],
-             max_abs_err=max_abs_moe["dw"], **s_dw,
+             max_abs_err=max(max_abs_moe["dw"],
+                             max_abs_plan["stacked_dw"]), **s_dw,
              work="compact dW of one MoE layer's gate, up and down, 60 "
                   "experts, 171 rows an expert, bf16, on the tensor-core "
                   "body (rbgp4_sddmm_rhs_stacked_mma_kernel, every launch "
@@ -4107,7 +4725,7 @@ def main() -> int:
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s "
                 f"on {smi}; the four feature-major phases took {t_fm:.1f}s, "
                 f"the int8 phases {t_q:.1f}s, the vision phases "
-                f"{t_vis:.1f}s")
+                f"{t_vis:.1f}s, the plan phases {t_plan:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

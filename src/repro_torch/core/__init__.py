@@ -1,4 +1,5 @@
-"""Core RBGP library (numpy): graphs, products, RBGP4 and chain layouts.
+"""Core RBGP library (numpy): graphs, products, spectra, RBGP4 and chain
+layouts.
 
 Copied from ``repro.core`` so the port imports nothing of the JAX package;
 sampling is unchanged, so the masks are the reference's.
@@ -24,6 +25,13 @@ from .rbgp import (
     design_rbgp4,
     pow2_sparsity_steps,
 )
+from .spectral import (
+    ideal_spectral_gap,
+    product_second_eigenvalue,
+    singular_values,
+    spectral_gap,
+    theorem1_ratio,
+)
 
 __all__ = [
     "BipartiteGraph",
@@ -45,4 +53,9 @@ __all__ = [
     "design_rbgp",
     "canonicalize_factors",
     "ChainLayout",
+    "singular_values",
+    "spectral_gap",
+    "ideal_spectral_gap",
+    "product_second_eigenvalue",
+    "theorem1_ratio",
 ]

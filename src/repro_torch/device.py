@@ -3,7 +3,9 @@
 Entry points run on the card unless the caller asks for the CPU: there is
 no silent fallback.  ``resolve_device`` also pins float32 matrix products
 to full float32 (no TF32), so float32 runs compare against the reference
-at float32 precision.
+at float32 precision.  ``meta`` is accepted when asked for by name: shape
+recording (``sparsity.model_matmul_shapes``) builds a model there, which
+allocates nothing and touches no card.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "CUDA is not available: pass device='cpu' (--device cpu on the "
             "command line) to run on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 

@@ -4,7 +4,10 @@ Runs on the card unless ``--device cpu`` is given; without CUDA and without
 that flag it exits with an error naming the flag.
 
 ``--plan plan.json`` (a ``SparsityPlan`` written by ``SparsityPlan.save``,
-by either package) overrides ``--pattern``/``--sparsity``.
+by either package, or by ``repro_torch.launch.plan``) overrides
+``--pattern``/``--sparsity``; the engine is given the plan, so with
+``--max-live-tokens`` its admission budget grows by the weight bytes the
+plan frees (plan-aware admission).
 
 ``--quant int8`` serves weight-only int8 storage (post-training
 quantization): the plan's compact and chain rules are stamped with
@@ -18,7 +21,7 @@ Examples:
       --mixed --requests 16 --prompt-len 512 --gen 64 --page-size 16
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
-      --plan plan.json
+      --plan plan.json --max-live-tokens 64
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --quant int8
 """
@@ -211,7 +214,12 @@ def main(argv=None):
     engine = make_engine(
         "continuous", model, page_size=args.page_size, max_slots=args.batch,
         max_live_tokens=args.max_live_tokens, max_request_len=max_len,
+        plan=cfg.plan,  # plan-aware admission (None: uniform budget)
     )
+    if args.max_live_tokens and cfg.plan is not None:
+        print(f"plan-aware admission: max_live_tokens "
+              f"{engine.base_live_tokens} -> {engine.plan_live_tokens} "
+              f"(weight residency freed by the plan)")
     sampling = SamplingParams(temperature=args.temperature,
                               seed=args.seed + 1)
 

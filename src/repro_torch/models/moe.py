@@ -35,8 +35,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import EPILOGUE_ACTS, KernelTables, TransposeTables
 from repro_torch.sparsity import (CompactWeight, DenseWeight, MaskedWeight,
                                   QuantizedWeight, SparsityConfig,
-                                  SparsityPlan, make_pattern,
-                                  sparse_linear_batched, storage_kind)
+                                  SparsityPlan, make_pattern, record_shape,
+                                  recording_active, sparse_linear_batched,
+                                  storage_kind)
 from repro_torch.sparsity.quant import (dequantize_block_values,
                                         leaf_block_dims,
                                         quantize_block_values)
@@ -74,14 +75,22 @@ class StackedExperts(nn.Module):
                  dtype=torch.float32, param_dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        device = resolve_device(device)
         self.name = name
         self.act = ACTS[act]
         self.fuse = act if act in EPILOGUE_ACTS else None
+        path_in, path_out = f"{name}.experts.in", f"{name}.experts.out"
+        # gate + up share the in-projection shape; counts feed the planner
+        record_shape(path_in, d_expert, d_model, count=2 * n_experts)
+        record_shape(path_out, d_model, d_expert, count=n_experts)
+        if recording_active():
+            # shape-recording pass: no pattern, storage or device
+            self.storage = "dense"
+            self.compact = self.masked = False
+            return
+        device = resolve_device(device)
         if isinstance(sparsity, SparsityPlan):
             # both projections resolve at {name}.experts.in / .out and must
             # agree: the experts share one spec, as in the reference
-            path_in, path_out = f"{name}.experts.in", f"{name}.experts.out"
             spec_in = sparsity.resolve(path_in, d_expert, d_model)
             spec_out = sparsity.resolve(path_out, d_model, d_expert)
             if spec_in != spec_out and (spec_in.is_sparse

@@ -78,7 +78,8 @@ def vision_plan(cfg: VisionConfig) -> SparsityPlan:
 
 def _module_kw(device, dtype, generator) -> dict:
     device = resolve_device(device)
-    if generator is None:
+    # a model built on meta (shape recording) draws nothing
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     return dict(device=device, dtype=dtype, generator=generator)
 

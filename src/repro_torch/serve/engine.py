@@ -14,9 +14,11 @@ The port of ``repro/serve/engine.py`` for the main serving path:
 Every projection of both goes through ``rbgp4mm_rhs`` (the CUDA kernel on
 the card).  ``stats["prefill_time_s"]`` and ``stats["decode_time_s"]`` are
 fenced with ``torch.cuda.synchronize()`` on the card, so they measure the
-work and not its dispatch.  The static engine, chunked prefill,
-preemption, prefix sharing, faults, snapshots and the observability
-recorder come with later slices.
+work and not its dispatch.  Given ``plan=``, the engine grows its
+admission budget by the weight bytes the plan frees (plan-aware
+admission, ``scheduler.plan_aware_live_tokens``).  The static engine,
+chunked prefill, preemption, prefix sharing, faults, snapshots and the
+observability recorder come with later slices.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from .cache import PagedKVCache, blocks_for_tokens
 from .lifecycle import (DECODING, FINISHED, PREFILLING, QUEUED,
                         RequestError, transition)
 from .sampling import SamplingParams, sample_token
-from .scheduler import FCFSScheduler
+from .scheduler import FCFSScheduler, plan_aware_live_tokens
 
 __all__ = ["Request", "ServingEngine", "ContinuousEngine", "run_sequential",
            "make_engine"]
@@ -180,13 +182,20 @@ class ContinuousEngine(ServingEngine):
     max_request_len:  longest admissible prompt + max_new (sets the block
                       table width, and with it the slots a decode row
                       attends over).
+    plan:             optional ``SparsityPlan`` of the served weights.  With
+                      a non-zero ``max_live_tokens`` the admission budget
+                      grows by the weight bytes the plan frees
+                      (``scheduler.plan_aware_live_tokens``, the bytes
+                      sized by the served values' floating dtype); the
+                      pool's capacity still caps admission.
     """
 
     kind = "continuous"
 
     def __init__(self, model, *, page_size: int = 8, max_slots: int = 8,
                  n_blocks: int = 0, max_live_tokens: int = 0,
-                 max_request_len: int = 0, cache_dtype=torch.float32):
+                 max_request_len: int = 0, cache_dtype=torch.float32,
+                 plan=None):
         super().__init__(model, cache_dtype=cache_dtype)
         self.page = page_size
         self.max_slots = max_slots
@@ -195,6 +204,23 @@ class ContinuousEngine(ServingEngine):
         if n_blocks <= 0:
             n_blocks = 1 + max_slots * self.max_blocks
         self.kv = PagedKVCache(model, n_blocks, page_size, cache_dtype)
+        self.base_live_tokens = max_live_tokens
+        self.plan = plan
+        self.plan_fingerprint = (plan.fingerprint() if plan is not None
+                                 else None)
+        if plan is not None and max_live_tokens > 0:
+            from repro_torch.sparsity import model_matmul_shapes
+
+            # the freed bytes are weight residency: size them by the
+            # served values' dtype, not the KV cache's
+            wdt = next((p.dtype for p in model.parameters()
+                        if p.is_floating_point()), torch.float32)
+            max_live_tokens = plan_aware_live_tokens(
+                max_live_tokens, plan=plan,
+                shapes=model_matmul_shapes(self.cfg),
+                kv_bytes_per_token=self.kv_bytes_per_token(),
+                value_bytes=wdt.itemsize)
+        self.plan_live_tokens = max_live_tokens
         self.scheduler = FCFSScheduler(
             page_size=page_size, max_slots=max_slots,
             max_live_tokens=max_live_tokens,
@@ -203,6 +229,12 @@ class ContinuousEngine(ServingEngine):
         self.stats.update(block_steps=0, allocated_block_steps=0,
                           live_token_steps=0, peak_allocated_blocks=0,
                           decode_row_steps=0)
+
+    def kv_bytes_per_token(self) -> float:
+        """Cache bytes of one token over every layer's page pools."""
+        total = sum(t.numel() * t.element_size()
+                    for pool in self.kv.pools for t in pool.values())
+        return total / max(self.kv.allocator.n_total * self.page, 1)
 
     @property
     def gather_tokens(self) -> int:

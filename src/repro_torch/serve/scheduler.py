@@ -7,6 +7,10 @@ a request is admitted only if a batch slot is free, the live-token budget
 blocks can be reserved — so lazy block allocation during decode never
 fails and nothing is ever preempted.  The reference's ``reserve="prompt"``
 (preemption) and its prefix-sharing hooks come with later slices.
+
+``plan_aware_live_tokens`` grows an admission budget by the weight bytes a
+sparsity plan frees, the reference's formula (the engine applies it when
+given ``plan=``).
 """
 from __future__ import annotations
 
@@ -15,7 +19,54 @@ from collections import deque
 from .cache import blocks_for_tokens as _blocks_for
 from .lifecycle import RequestError
 
-__all__ = ["FCFSScheduler"]
+__all__ = ["FCFSScheduler", "plan_aware_live_tokens"]
+
+
+def plan_aware_live_tokens(base_tokens: int, *, plan, shapes: dict,
+                           kv_bytes_per_token: float,
+                           value_bytes: int = 2) -> int:
+    """Grow a live-token budget by the weight bytes a sparsity plan frees.
+
+    ``max_live_tokens`` is sized for one card's memory split between
+    resident weights and KV pages, which assumes dense weights.  Under a
+    :class:`SparsityPlan` the resident weights shrink, and the freed bytes
+    are KV room the admission control may spend on more live tokens:
+
+        budget = base + (dense_weight_bytes - resident_bytes) / kv_per_token
+
+    ``resident_bytes`` prices each layer by what the plan keeps:
+    ``nnz * value_bytes`` for full-precision layers (with no quantization
+    this is ``(1 - density) * dense_bytes`` freed), and for compact or
+    chain rules stamped ``quant='int8'`` one byte a value plus the f32
+    per-leaf-block scales (``4 / (G*C)`` bytes a value).  Index tables are
+    not priced.
+
+    ``shapes`` is the model's projection table (``model_matmul_shapes``),
+    ``kv_bytes_per_token`` the cache bytes of one token over every layer's
+    pools (``ContinuousEngine.kv_bytes_per_token``).  The scheduler still
+    clamps any budget to the block pool, so this never over-admits.
+    """
+    dense_bytes = 0.0
+    resident = 0.0
+    for path, shp in shapes.items():
+        m, k = int(shp[0]), int(shp[1])
+        c = int(shp[2]) if len(shp) > 2 else 1
+        dense_bytes += float(m) * k * c * value_bytes
+        spec = plan.resolve(path, m, k)
+        inst = plan.pattern_for(path, m, k)
+        nnz = float(inst.nnz) * c
+        lay = inst.layout if inst.layout is not None else inst.chain_layout
+        if (lay is not None and spec.is_sparse
+                and getattr(spec, "quant", None) == "int8"
+                and spec.storage() in ("compact", "chain")):
+            from repro_torch.sparsity.quant import leaf_block_dims
+
+            g_rows, c_cols = leaf_block_dims(lay)
+            resident += nnz * (1.0 + 4.0 / (g_rows * c_cols))
+        else:
+            resident += nnz * value_bytes
+    freed = dense_bytes - resident
+    return int(base_tokens + freed // max(kv_bytes_per_token, 1.0))
 
 
 class FCFSScheduler:

@@ -29,6 +29,10 @@ way to ``q_data`` (int8, a parameter that no optimizer takes) and the
 are the reference's ``QuantizedWeight`` fields; ``weight()`` then hands
 over a ``QuantizedWeight`` and the kernel tables stay as they are.
 ``dequantize_()`` inverts it.
+
+Under ``plan.recording_shapes()`` the constructor records its
+``(name, m, k)`` and returns before any pattern, storage or device is
+made (``model_matmul_shapes``).
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ from repro_torch.kernels import (ChainTransposeTables, KernelTables,
 from .api import (ChainWeight, CompactWeight, DenseWeight, MaskedWeight,
                   QuantizedWeight, sparse_linear)
 from .patterns import PatternInstance, SparsityConfig, make_pattern
-from .plan import SparsityPlan, storage_kind
+from .plan import (SparsityPlan, record_shape, recording_active,
+                   storage_kind)
 from .quant import (dequantize_block_values, leaf_block_dims,
                     quantize_block_values)
 
@@ -65,12 +70,19 @@ class SparseLinear(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  name: str = "linear"):
         super().__init__()
-        device = resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
         self.use_bias = use_bias
         self.name = name
         m, k = out_features, in_features
+        record_shape(name, m, k)
+        if recording_active():
+            # shape-recording pass: no pattern, storage or device
+            self.cfg = SparsityConfig()
+            self.pattern = None
+            self.mode = "dense"
+            return
+        device = resolve_device(device)
         if isinstance(cfg, SparsityPlan):
             cfg = cfg.resolve(name, m, k).to_config()
         self.cfg = cfg or SparsityConfig()

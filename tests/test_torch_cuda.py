@@ -42,7 +42,10 @@ they have no template or slices for, and misaligned operands.  And
 ``rbgp4mm_rhs`` (forward and transposed tables) and ``rbgp4_sddmm_rhs`` at
 the vision models' conv layouts (C 2 and 8 on the FMA bodies) up to 262144
 tokens, and one VGG19-CIFAR training step on the card against the CPU,
-layer by layer (``-k vision``).
+layer by layer (``-k vision``).  And the forward, dX and dW at one layout
+of each budget plan the plan compiler solves (tinyllama's wq/wo at 0.5;
+qwen2-moe's stacked ``experts.out`` at 0.875, C 8, whose dX and dW keep
+the FMA bodies) against their plain versions (``-k plan``).
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -54,6 +57,7 @@ JAX is not installed:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py \
         -k "fm_mma or featmajor"
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -k vision
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -k plan
 
 Tolerances scale with max|ref|: 1e-5 in float32 (reduction order only),
 2e-2 in bfloat16 (one output rounding).  ``RBGP4Linear``'s gradients chain
@@ -1640,3 +1644,59 @@ def test_cuda_vision_vgg19_step_matches_the_cpu(pattern):
     assert max(worst.values()) <= 1e-4
     cpu = trainers["cpu"].run(1)[0]["loss"]
     assert abs(card - cpu) <= 1e-4 * abs(cpu), (card, cpu)
+
+
+# one layout per model of the budget plans the plan compiler solves at full
+# width (solve_budget(model_matmul_shapes(cfg), target_density=0.25,
+# min_dim=64)): tinyllama's wq/wo at 0.5 (G 16, C 128) on every tensor-core
+# body, and qwen2-moe's experts.out at 0.875 (C 8; transposed G 8), whose
+# stacked dX and dW keep the FMA bodies
+PLAN_LAYOUTS = {"tinyllama-wq": (2048, 2048, 0.5, False),
+                "qwen2-moe-experts-out": (2048, 1408, 0.875, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(PLAN_LAYOUTS))
+def test_cuda_plan_layouts_match_plain_versions(name, dtype):
+    """The forward, dX (``TransposeTables``) and dW at a budget-plan
+    layout against their plain versions (4 experts stacked for the MoE
+    layout, 171 rows each; N = 1037 otherwise): ``launches_mma`` moves
+    exactly as the path functions name the bodies (in bf16: all three on
+    the tensor cores for tinyllama's, the forward alone for the experts'),
+    and dW reruns bit-equal."""
+    needs_card()
+    m, k, sp, stacked = PLAN_LAYOUTS[name]
+    lay = RBGP4Layout(design_rbgp4(m, k, sp, seed=0))
+    tables = KernelTables.build(lay, "cuda")
+    tt = TransposeTables.build(lay, "cuda")
+    lead, n = ((4,), 171) if stacked else ((), 1037)
+    fwd, dw_fn = ((rbgp4mm_rhs_stacked, rbgp4_sddmm_rhs_stacked) if stacked
+                  else (rbgp4mm_rhs, rbgp4_sddmm_rhs))
+    fwd_ref, dw_ref = ((rbgp4mm_rhs_stacked_reference,
+                        rbgp4_sddmm_rhs_stacked_reference) if stacked
+                       else (rbgp4mm_rhs_reference, rbgp4_sddmm_rhs_reference))
+    g = torch.Generator(device="cuda").manual_seed(41)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     generator=g).to(dtype)
+    w = rnd(*lead, *lay.data_shape)
+    wt = tt.values(w)
+    x, gy = rnd(*lead, n, k), rnd(*lead, n, m)
+    mma = (rhs_path(tables.dims, n, dtype) == "mma",
+           rhs_path(tt.tables.dims, n, dtype) == "mma",
+           sddmm_path(tables.dims, n, dtype) == "mma")
+    if dtype == torch.bfloat16:
+        assert mma == ((True, False, False) if stacked else (True,) * 3)
+    else:
+        assert mma == (False,) * 3
+    before = (fwd.launches_mma, dw_fn.launches_mma)
+    y = fwd(tables, x, w)
+    dx = fwd(tt.tables, gy, wt)
+    dw = dw_fn(tables, gy, x)
+    torch.cuda.synchronize()
+    assert (fwd.launches_mma, dw_fn.launches_mma) == \
+        (before[0] + mma[0] + mma[1], before[1] + mma[2])
+    assert_close(y, fwd_ref(tables, x, w), dtype, (name, "Y"))
+    assert_close(dx, fwd_ref(tt.tables, gy, wt), dtype, (name, "dX"))
+    assert_close(dw, dw_ref(tables, gy, x), dtype, (name, "dW"))
+    assert torch.equal(dw, dw_fn(tables, gy, x)), name

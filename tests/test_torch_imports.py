@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                 "repro_torch.configs.qwen2_moe_a2_7b",
                 "repro_torch.kernels.chainmm", "repro_torch.sparsity.plan",
                 "repro_torch.sparsity.chain", "repro_torch.sparsity.quant",
-                "repro_torch.train.compress"):
+                "repro_torch.train.compress", "repro_torch.core.spectral",
+                "repro_torch.kernels.perf_model",
+                "repro_torch.launch.plan"):
         assert mod in names, mod
 
 
