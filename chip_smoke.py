@@ -38,7 +38,12 @@ and trains and serves budget-solved plans:
   * budget-solved plans (the plan compiler, ``sparsity.solve_budget``):
     mixed sparsities per layer at a global density of 0.25, certified,
     checked at their new layouts, trained (tinyllama, VGG19-CIFAR,
-    WRN-40-4) and served (tinyllama, with plan-aware admission).
+    WRN-40-4) and served (tinyllama, with plan-aware admission);
+  * the rest of serving: chunked prefill (every chunk at N = 128 on the
+    tensor-core bodies of ``rbgp4mm_rhs``, ``rbgp4mm_rhs_stacked`` and
+    ``chainmm_rhs``), preemption and faults under an oversubscribed pool,
+    prefix sharing, snapshots, the static engine and the observability
+    recorder.
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the result line:
@@ -285,7 +290,43 @@ exits non-zero without the result line:
      bytes the storage holds beside the bytes credited, throughput and
      decode ms/step beside phase 4;
  37. parity-plan: its float32 greedy streams through the plan-aware
-     engine against ``run_sequential`` on 4 requests, as phase 5.
+     engine against ``run_sequential`` on 4 requests, as phase 5;
+ 38. serve-chunked: phase 4's 16 requests through ``ContinuousEngine(
+     prefill_chunk=128)`` (bf16, f32 KV cache, 8 slots, 16-token pages):
+     every chunk launches ``rbgp4mm_rhs`` 154 times, all on the
+     tensor-core body (``launches_mma``), at most one chunk a step
+     (``step_trace``), every decode step 154 on the FMA body; then the
+     same requests single-shot on the same model, each step fenced and
+     timed alike: TTFT, decode ms/step, longest and median step wall of
+     both, beside phase 4; serve-chunked-chain: the same under the chain
+     plan (154 ``chainmm_rhs`` a chunk, all on the tensor-core body);
+ 39. serve-chunked-moe: qwen2-moe the same way, every chunk launching
+     ``rbgp4mm_rhs`` 168 times and ``rbgp4mm_rhs_stacked`` 72 times (128
+     rows an expert at full capacity), all on the tensor-core bodies;
+ 40. parity-chunked: float32 tinyllama, 4 requests: the chunked engine's
+     streams against ``run_sequential`` and the single-shot engine (near
+     ties only, as phase 5);
+ 41. serve-pressure: float32 tinyllama, 6 requests of 128-256 prompt
+     tokens and 32 new tokens (``PRESSURE``), ``reserve="prompt"`` over 60%
+     of their worst-case blocks, ``FaultSchedule.random(0)``, one request
+     with a deadline, one cancelled; every request terminal, the allocator
+     whole (``REPRO_SERVE_CHECKS=1``), at least 2 preemptions and resumed
+     prefills, the watchdog silent, the finished streams equal the
+     unpressured run's (near ties only);
+ 42. serve-prefix: bf16, 16 requests sharing a 256-token head: prefix
+     sharing on and off (hits, hit tokens, recomputed prompt tokens,
+     prefill s, throughput); then float32 on 4: the streams with sharing
+     on equal those with it off, the shared pages' bytes unchanged after
+     the sharers decoded;
+ 43. snapshot: float32, 4 requests: 5 steps, ``save_engine``,
+     ``restore_engine``, drain; the streams equal the uninterrupted run's;
+     static: ``StaticEngine(batch=8)`` in bf16 on phase 4's requests, 154
+     launches a prefill (tensor cores) and a decode step (FMA), beside
+     phase 4's continuous engine;
+ 44. serve-obs: phase 4's workload under a ``Recorder``: tokens equal the
+     null recorder's, the trace validates, ``audit_engine`` passes; TTFT
+     and TPOT p50/p99; each decode-only step's wall at 8 live rows split
+     into the fenced decode section and the rest of the step.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1194,8 +1235,8 @@ def phase_serve(cfg, per_pass: dict, phase: str = "serve",
     peak = {"live_tokens": 0, "running": 0}
     admit = engine.scheduler.admit
 
-    def admit_and_track():
-        got = admit()
+    def admit_and_track(*args):
+        got = admit(*args)
         peak["live_tokens"] = max(peak["live_tokens"],
                                   engine.scheduler.live_tokens)
         peak["running"] = max(peak["running"], len(engine.scheduler.running))
@@ -4284,6 +4325,587 @@ def phase_serve_plan(plans: dict, serve: dict) -> dict:
     return res
 
 
+# -- the rest of serving (phases 38-44) ----------------------------------------
+
+# chunked prefill's chunk (phases 38-40): every chunk runs the projections
+# at N = 128, on the tensor-core bodies in bf16
+SERVE_CHUNK = 128
+# serve-pressure (phase 41): 6 requests of 128-256 prompt tokens and 32
+# new tokens, reserve="prompt" over a pool of 60% of their worst case, the
+# seeded fault schedule of FaultSchedule.random(seed=0); request 5 has a
+# deadline of 12 steps, request 1 is cancelled after step 20.  With this
+# workload (RequestStream seed 3) the pool forces 2 preemptions, each
+# resumed by a re-prefill (host-side scheduling: the same on any device)
+PRESSURE = dict(n=6, prompt_lens=(128, 192, 256), gen=32, seed=3,
+                pool_share=0.6, fault_seed=0, deadline_rid=5,
+                deadline_steps=12, cancel_rid=1, cancel_after=20)
+# serve-prefix (phase 42): one 256-token head shared by 16 requests, each
+# with a tail of its own (32-128 tokens) and 32 new tokens; request 0
+# arrives first, the other 15 a step later (a warmed system prompt)
+PREFIX_HEAD, PREFIX_TAILS, PREFIX_GEN = 256, (32, 64, 96, 128), 32
+
+
+def count_calls_bodies(model, name: str, per_call: list) -> None:
+    """As ``count_calls``, each call appending (launch counts, tensor-core
+    launch counts) of its own."""
+    fn = getattr(model, name)
+
+    def counted(*args, **kw):
+        before, mma0 = launch_counts(), body_counts()
+        out = fn(*args, **kw)
+        mma1 = body_counts()
+        per_call.append((counts_since(before),
+                         {k: mma1[k] - mma0[k] for k in mma1}))
+        return out
+
+    setattr(model, name, counted)
+
+
+def drive(engine, reqs: list, submit_kw=None, at_step=None,
+          arrivals: bool = False) -> dict:
+    """Submit ``reqs`` (at their ``arrival_step`` when ``arrivals``) and
+    step ``engine`` until idle, each step fenced and timed.  Returns the
+    step walls, each request's time to first token (from the run's start:
+    every request is waiting from then on), the streams and the wall.
+    ``at_step(i)`` runs after step i."""
+    pending = sorted(reqs, key=lambda r: r["arrival_step"]) if arrivals \
+        else list(reqs)
+    walls, first = [], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = 0
+    while pending or not engine.idle:
+        while pending and (not arrivals
+                           or pending[0]["arrival_step"] <= step):
+            r = pending.pop(0)
+            engine.submit(r["prompt"], r["max_new_tokens"],
+                          **(submit_kw(r) if submit_kw else {}))
+        ts = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append(now - ts)
+        for rid, req in engine.requests.items():
+            if rid not in first and req.generated:
+                first[rid] = now - t0
+        step += 1
+        if at_step is not None:
+            at_step(step)
+    wall = time.perf_counter() - t0
+    out = {rid: req.tokens for rid, req in sorted(engine.requests.items())}
+    return dict(walls=walls, ttft=first, out=out, wall=wall)
+
+
+def run_summary(engine, run: dict) -> dict:
+    st = engine.stats
+    ttft = sorted(run["ttft"].values())
+    walls = run["walls"]
+    n_tok = st["prompt_tokens"] + st["generated_tokens"]
+    return dict(
+        requests=len(run["out"]), prompt_tokens=st["prompt_tokens"],
+        generated_tokens=st["generated_tokens"], wall_s=run["wall"],
+        tok_per_s=n_tok / run["wall"], steps=len(walls),
+        prefill_calls=st["prefill_calls"],
+        prefill_chunks=st.get("prefill_chunks", 0),
+        decode_steps=st["decode_steps"],
+        prefill_time_s=st["prefill_time_s"],
+        decode_time_s=st["decode_time_s"],
+        decode_ms_per_step=1e3 * st["decode_time_s"]
+        / max(st["decode_steps"], 1),
+        ttft_p50_s=statistics.median(ttft) if ttft else None,
+        ttft_max_s=max(ttft) if ttft else None,
+        step_max_ms=1e3 * max(walls), step_median_ms=1e3
+        * statistics.median(walls))
+
+
+def check_per_call(calls: list, per_pass: dict, mma: dict, what: str):
+    """Every call launched ``per_pass`` and, on the tensor-core bodies,
+    ``mma`` (by ``body_counts`` role)."""
+    for i, (c, b) in enumerate(calls):
+        if c != per_pass:
+            raise AssertionError(f"{what} call {i}: launches {c}, want "
+                                 f"{per_pass}")
+        want = {k: mma.get(k, 0) for k in b}
+        if b != want:
+            raise AssertionError(f"{what} call {i}: tensor-core launches "
+                                 f"{b}, want {want}")
+
+
+def phase_serve_chunked(cfg, per_pass: dict, chunk_mma: dict, beside: dict,
+                        smi: str, phase: str = "serve-chunked") -> dict:
+    """Phase 4's 16 requests through ``ContinuousEngine(prefill_chunk=
+    SERVE_CHUNK)`` (bf16, f32 KV cache, 8 slots, 16-token pages, greedy):
+    every chunk launches ``per_pass``, all on the tensor-core bodies
+    (``chunk_mma``), every decode step ``per_pass`` on the FMA bodies; at
+    most one chunk a step (``step_trace``).  Then the same requests
+    single-shot on the same model (phase 4's path), each step timed the
+    same way: TTFT, decode ms/step, and the longest and median step wall
+    of both, beside phase 4's numbers (``beside``)."""
+    from repro_torch.serve import ContinuousEngine
+
+    model = build_model(cfg, False)
+    reqs = serve_requests(cfg.vocab_size, 16, seed=0)
+    max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
+    kw = dict(page_size=16, max_slots=8, max_request_len=max_len,
+              cache_dtype=torch.float32)
+    warm = ContinuousEngine(model, prefill_chunk=SERVE_CHUNK, **kw)
+    warm.submit(reqs[0]["prompt"][:200], 2)
+    warm.drain()
+    del warm
+    calls = {"chunk": [], "prefill": [], "decode": []}
+    count_calls_bodies(model, "prefill_chunk", calls["chunk"])
+    count_calls_bodies(model, "prefill", calls["prefill"])
+    count_calls_bodies(model, "decode_step_paged", calls["decode"])
+    engine = ContinuousEngine(model, prefill_chunk=SERVE_CHUNK, **kw)
+    reset_launch_counts()
+    run = drive(engine, reqs)
+    counts = launch_counts()
+    st = engine.stats
+    for r in reqs:
+        if np.asarray(run["out"][r["rid"]]).shape != (r["max_new_tokens"],):
+            raise AssertionError(f"request {r['rid']}: "
+                                 f"{run['out'][r['rid']]}")
+    if calls["prefill"] or len(calls["chunk"]) != st["prefill_chunks"] \
+            or len(calls["decode"]) != st["decode_steps"]:
+        raise AssertionError(f"calls {[len(v) for v in calls.values()]}, "
+                             f"stats {dict(st)}")
+    want_chunks = sum(-(-r["prompt"].shape[0] // SERVE_CHUNK) for r in reqs)
+    if st["prefill_chunks"] != want_chunks:
+        raise AssertionError(f"{st['prefill_chunks']} chunks, want "
+                             f"{want_chunks}")
+    if max(t["prefill_chunks"] for t in engine.step_trace) != 1:
+        raise AssertionError("more than one chunk in a step")
+    check_per_call(calls["chunk"], per_pass, chunk_mma, "chunk")
+    check_per_call(calls["decode"], per_pass, {}, "decode")
+    passes = st["prefill_chunks"] + st["decode_steps"]
+    if counts != {k: v * passes for k, v in per_pass.items()}:
+        raise AssertionError(f"launches {counts} over {passes} passes")
+    res = run_summary(engine, run)
+    res.update(launches=counts, launches_per_pass=per_pass,
+               mma_launches=body_counts(), launches_per_chunk=per_pass,
+               chunk=SERVE_CHUNK)
+    # the same requests prefilled in one shot, timed the same way
+    single = ContinuousEngine(model, **kw)
+    base = run_summary(single, drive(single, reqs))
+    res["single_shot"] = base
+    log(phase, f"{cfg.name}, prefill_chunk={SERVE_CHUNK}: "
+               f"{st['prefill_chunks']} chunks (at most 1 a step), each "
+               f"launching " + ", ".join(f"{k} {v}" for k, v in
+                                         per_pass.items() if v)
+               + f" all on the tensor-core bodies; {st['decode_steps']} "
+                 f"decode steps on the FMA bodies; launches {counts}; "
+                 f"{smi}")
+    for name, r in (("chunked", res), ("single-shot", base)):
+        log(phase, f"{name}: {r['tok_per_s']:.1f} tok/s, TTFT p50 "
+                   f"{r['ttft_p50_s']:.3f} s max {r['ttft_max_s']:.3f} s, "
+                   f"decode {r['decode_ms_per_step']:.2f} ms/step, step "
+                   f"wall max {r['step_max_ms']:.1f} ms median "
+                   f"{r['step_median_ms']:.1f} ms over {r['steps']} steps, "
+                   f"prefill {r['prefill_time_s']:.3f} s; {smi}")
+    log(phase, f"phase 4 (single-shot, same requests): "
+               f"{beside['tok_per_s']:.1f} tok/s, decode "
+               f"{beside['decode_ms_per_step']:.2f} ms/step, prefill "
+               f"{beside['prefill_time_s']:.3f} s; {smi}")
+    print(f"{phase} " + json.dumps(res), flush=True)
+    del model, engine, single
+    free_card()
+    return res
+
+
+def phase_parity_chunked(cfg, reqs: list, smi: str) -> None:
+    """float32: the chunked engine's greedy streams against
+    ``run_sequential`` and against the single-shot engine (near-tie flips
+    only, as phase 5)."""
+    from repro_torch.serve import run_sequential
+
+    model = build_model(cfg, False)
+    t0 = time.perf_counter()
+    got, gather = serve_streams(model, reqs,
+                                dict(prefill_chunk=SERVE_CHUNK))
+    single, _ = serve_streams(model, reqs)
+    want = run_sequential(model, reqs, cache_len=gather)
+    flips = same_streams(model, reqs, got, want, "parity-chunked",
+                         "run_sequential")
+    flips += same_streams(model, reqs, got, single, "parity-chunked",
+                          "the single-shot engine")
+    log("parity-chunked", f"{cfg.name} float32 chunked engine "
+                          f"(prefill_chunk={SERVE_CHUNK}) vs run_sequential "
+                          f"and the single-shot engine: {len(reqs)} "
+                          f"requests, {sum(len(v) for v in got.values())} "
+                          f"tokens, {flips} near-tie flips "
+                          f"({time.perf_counter() - t0:.1f}s); {smi}")
+    del model
+    free_card()
+
+
+def phase_serve_pressure(cfg, smi: str) -> dict:
+    """float32 tinyllama under pool pressure and faults (``PRESSURE``):
+    every request ends terminal, the allocator is whole after the drain
+    (``check_invariants`` at every mutation, ``n_allocated == 0``), at
+    least 2 resumed prefills, the watchdog never fires, and the finished
+    requests' streams equal the unpressured run's (near-tie flips
+    only)."""
+    import os
+
+    from repro_torch.data import RequestStream
+    from repro_torch.serve import (CANCELLED, EXPIRED, FINISHED,
+                                   TERMINAL_STATES, ContinuousEngine,
+                                   FaultSchedule)
+
+    p = PRESSURE
+    model = build_model(cfg, False)
+    reqs = RequestStream(cfg.vocab_size, p["n"], prompt_lens=p["prompt_lens"],
+                         gen_lens=(p["gen"],), seed=p["seed"]).requests()
+    max_len = max(r["prompt"].shape[0] for r in reqs) + p["gen"]
+    worst = sum(-(-(r["prompt"].shape[0] + p["gen"]) // 16) for r in reqs)
+    n_blocks = 1 + round(p["pool_share"] * worst)
+    kw = dict(page_size=16, max_slots=8, max_request_len=max_len,
+              cache_dtype=torch.float32)
+    base, _ = serve_streams(model, reqs)
+    faults = FaultSchedule.random(p["fault_seed"])
+    engine = ContinuousEngine(model, reserve="prompt", n_blocks=n_blocks,
+                              faults=faults, **kw)
+
+    def deadline(r):
+        return dict(deadline_steps=p["deadline_steps"]
+                    if r["rid"] == p["deadline_rid"] else None)
+
+    cancelled = []
+
+    def cancel_at(step):
+        if step == p["cancel_after"]:
+            cancelled.append(engine.cancel(p["cancel_rid"]))
+
+    reset_launch_counts()
+    os.environ["REPRO_SERVE_CHECKS"] = "1"
+    try:
+        run = drive(engine, reqs, submit_kw=deadline, at_step=cancel_at)
+    finally:
+        os.environ.pop("REPRO_SERVE_CHECKS", None)
+    counts = launch_counts()
+    st = engine.stats
+    alloc = engine.kv.allocator
+    states = {r.rid: r.state for r in engine.requests.values()}
+    if not all(s in TERMINAL_STATES for s in states.values()):
+        raise AssertionError(f"states {states}")
+    if cancelled != [True] or states[p["cancel_rid"]] != CANCELLED \
+            or states[p["deadline_rid"]] != EXPIRED:
+        raise AssertionError(f"cancel {cancelled}, states {states}")
+    alloc.check_invariants()
+    if alloc.n_allocated != 0 or alloc.n_quarantined != 0:
+        raise AssertionError(f"allocator after drain: {alloc.n_allocated} "
+                             f"allocated, {alloc.n_quarantined} "
+                             f"quarantined")
+    if st["resumed_prefills"] < 2 or st["preemptions"] < 2:
+        raise AssertionError(f"stats {dict(st)}")
+    if engine._idle_streak >= engine.max_idle_steps:
+        raise AssertionError("the watchdog's streak reached its fuse")
+    survivors = [r for r in reqs if states[r["rid"]] == FINISHED]
+    flips = same_streams(model, survivors, run["out"], base,
+                         "serve-pressure", "the unpressured run")
+    res = run_summary(engine, run)
+    res.update(launches=counts, states=states, pool_blocks=n_blocks - 1,
+               worst_case_blocks=worst, flips=flips,
+               preempt_log=engine.preempt_log,
+               faults=[list(e) for e in engine._injector.log],
+               **{k: st[k] for k in ("preemptions", "resumed_prefills",
+                                     "fault_kills", "fault_events",
+                                     "fault_paused_steps", "expired",
+                                     "cancelled", "failed", "finished")})
+    log("serve-pressure", f"{cfg.name} float32, {len(reqs)} requests, "
+                          f"reserve=prompt over {n_blocks - 1} of the "
+                          f"{worst} worst-case blocks, "
+                          f"{len(faults)} faults: states {states}; "
+                          f"preemptions {st['preemptions']}, resumed "
+                          f"prefills {st['resumed_prefills']}, fault kills "
+                          f"{st['fault_kills']}, paused steps "
+                          f"{st['fault_paused_steps']}; log "
+                          f"{engine.preempt_log}; allocator whole; "
+                          f"{len(survivors)} survivors equal the unpressured "
+                          f"run ({flips} near-tie flips); {smi}")
+    print("serve-pressure " + json.dumps(res), flush=True)
+    del model, engine
+    free_card()
+    return res
+
+
+def prefix_requests(vocab: int, n: int, seed: int) -> list:
+    """``n`` requests sharing one ``PREFIX_HEAD``-token head, each with a
+    tail of its own; request 0 arrives at step 0, the rest at step 1."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, PREFIX_HEAD).astype(np.int32)
+    return [{"rid": i, "max_new_tokens": PREFIX_GEN,
+             "arrival_step": 0 if i == 0 else 1,
+             "prompt": np.concatenate([head, rng.integers(
+                 0, vocab, PREFIX_TAILS[i % len(PREFIX_TAILS)]).astype(
+                     np.int32)])} for i in range(n)]
+
+
+def pool_checksum(engine, blocks: list) -> list:
+    """Copies of ``blocks``' bytes in every pool of the engine."""
+    idx = torch.as_tensor(blocks, device=engine.kv.pools[0]["pos"].device)
+    return [t[idx].clone() for pool in engine.kv.pools for t in pool.values()]
+
+
+def phase_serve_prefix(cfg, cfg32, per_pass: dict, smi: str) -> dict:
+    """16 requests sharing a 256-token head (bf16): with ``prefix_cache``
+    on and off, hits, hit tokens, recomputed prompt tokens, prefill s and
+    throughput.  Then float32 on 4 of them: the streams with sharing on
+    equal those with it off (near-tie flips only), and the shared pages'
+    bytes are unchanged after the sharers decoded."""
+    from repro_torch.serve import ContinuousEngine
+
+    model = build_model(cfg, False)
+    reqs = prefix_requests(cfg.vocab_size, 16, seed=42)
+    max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
+    kw = dict(page_size=16, max_slots=8, max_request_len=max_len,
+              cache_dtype=torch.float32)
+    runs = {}
+    for on in (False, True):
+        calls = {"prefill": [], "chunk": [], "decode": []}
+        for name, key in (("prefill", "prefill"), ("prefill_chunk", "chunk"),
+                          ("decode_step_paged", "decode")):
+            count_calls_bodies(model, name, calls[key])
+        engine = ContinuousEngine(model, prefix_cache=on, **kw)
+        reset_launch_counts()
+        run = drive(engine, reqs, arrivals=True)
+        for name in ("prefill", "prefill_chunk", "decode_step_paged"):
+            delattr(model, name)   # drop the counting wrapper
+        st = engine.stats
+        for key, cl in calls.items():
+            check_per_call(cl, per_pass, {"forward": per_pass["forward"]}
+                           if key != "decode" else {}, key)
+        r = run_summary(engine, run)
+        # throughput over the tokens served, shared prompt tokens included
+        served = sum(q["prompt"].shape[0] for q in reqs) \
+            + st["generated_tokens"]
+        r.update(served_tok_per_s=served / run["wall"],
+                 launches=launch_counts(), **{k: st[k] for k in (
+            "prefix_hits", "prefix_hit_tokens", "prefix_misses",
+            "prefix_cow_copies", "shared_prefills", "prefix_evictions")},
+            suffix_calls=len(calls["chunk"]))
+        runs["on" if on else "off"] = r
+        for q in reqs:
+            if len(run["out"][q["rid"]]) != q["max_new_tokens"]:
+                raise AssertionError(f"request {q['rid']}")
+        del engine
+    on, off = runs["on"], runs["off"]
+    if on["prefix_hits"] == 0 or on["prompt_tokens"] >= off["prompt_tokens"]:
+        raise AssertionError(f"sharing: {on}")
+    for name, r in (("on", on), ("off", off)):
+        log("serve-prefix", f"prefix_cache {name}: {r['prefix_hits']} hit "
+                            f"pages, {r['prefix_hit_tokens']} hit tokens, "
+                            f"{r['prompt_tokens']} prompt tokens "
+                            f"recomputed, prefill {r['prefill_time_s']:.3f} "
+                            f"s, {r['served_tok_per_s']:.1f} tok/s served "
+                            f"({r['wall_s']:.3f} s), TTFT p50 "
+                            f"{r['ttft_p50_s']:.3f} s; {smi}")
+    del model
+    free_card()
+    # float32: sharing on against off, and the shared pages untouched
+    model = build_model(cfg32, False)
+    small = prefix_requests(cfg.vocab_size, 4, seed=43)
+    outs = {}
+    for share in (False, True):
+        engine = ContinuousEngine(model, prefix_cache=share, **kw)
+        engine.submit(small[0]["prompt"], small[0]["max_new_tokens"])
+        engine.step()
+        if share:
+            shared = engine.prefix.blocks()
+            before = pool_checksum(engine, shared)
+        for r in small[1:]:
+            engine.submit(r["prompt"], r["max_new_tokens"])
+        engine.drain()
+        outs[share] = {rid: q.tokens for rid, q in engine.requests.items()}
+        if share:
+            if engine.stats["prefix_hits"] == 0:
+                raise AssertionError("the float32 run shared nothing")
+            after = pool_checksum(engine, shared)
+            if not all(torch.equal(a, b) for a, b in zip(after, before)):
+                raise AssertionError("a shared page changed")
+            on["f32_hits"] = engine.stats["prefix_hits"]
+    flips = same_streams(model, small, outs[True], outs[False],
+                         "serve-prefix", "sharing off")
+    log("serve-prefix", f"float32, {len(small)} requests: sharing on equals "
+                        f"sharing off ({flips} near-tie flips), "
+                        f"{on['f32_hits']} hit pages, the {len(shared)} "
+                        f"shared pages' bytes unchanged after the sharers "
+                        f"decoded; {smi}")
+    res = dict(on=on, off=off, f32_flips=flips, shared_pages=len(shared))
+    print("serve-prefix " + json.dumps(res), flush=True)
+    del model
+    free_card()
+    return res
+
+
+def phase_snapshot_static(cfg, cfg32, per_pass: dict, beside: dict,
+                          smi: str) -> dict:
+    """float32, 4 requests: k steps, ``save_engine``, ``restore_engine``,
+    drain; the streams equal the uninterrupted run's (near-tie flips
+    only).  Then ``StaticEngine(batch=8)`` in bf16 on phase 4's requests:
+    every prefill and every decode step launches ``per_pass`` (prefills on
+    the tensor cores, decode on the FMA bodies); throughput beside phase 4's
+    ``ContinuousEngine`` (``beside``)."""
+    import tempfile
+
+    from repro_torch.serve import (ContinuousEngine, StaticEngine,
+                                   restore_engine, save_engine)
+
+    model = build_model(cfg32, False)
+    reqs = serve_requests(cfg.vocab_size, 4, seed=1)
+    want, _ = serve_streams(model, reqs)
+    max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
+    engine = ContinuousEngine(model, page_size=16, max_slots=8,
+                              max_request_len=max_len,
+                              cache_dtype=torch.float32)
+    for r in reqs:
+        engine.submit(r["prompt"], r["max_new_tokens"])
+    k = 5
+    for _ in range(k):
+        engine.step()
+    live = sum(1 for r in engine.requests.values() if r.generated
+               and not r.done)
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "engine.npz")
+        meta = save_engine(engine, path)
+        del engine
+        restored = restore_engine(path, model)
+        got = restored.drain()
+    flips = same_streams(model, reqs, got, want, "snapshot",
+                         "the uninterrupted run")
+    if restored.stats["resumed_prefills"] < live:
+        raise AssertionError(f"{live} live requests, "
+                             f"{restored.stats['resumed_prefills']} resumed")
+    log("snapshot", f"float32, {len(reqs)} requests: snapshot after {k} "
+                    f"steps ({len(meta['requests'])} requests, {live} mid-"
+                    f"decode), restored and drained: streams equal the "
+                    f"uninterrupted run ({flips} near-tie flips); {smi}")
+    del model, restored
+    free_card()
+    model = build_model(cfg, False)
+    reqs = serve_requests(cfg.vocab_size, 16, seed=0)
+    warm = StaticEngine(model, batch=8)
+    warm.submit(reqs[0]["prompt"][:32], 2)
+    warm.drain()
+    calls = {"prefill": [], "decode": []}
+    count_calls_bodies(model, "prefill", calls["prefill"])
+    count_calls_bodies(model, "decode_step", calls["decode"])
+    engine = StaticEngine(model, batch=8)
+    reset_launch_counts()
+    run = drive(engine, reqs)
+    st = engine.stats
+    check_per_call(calls["prefill"], per_pass,
+                   {"forward": per_pass["forward"]}, "static prefill")
+    check_per_call(calls["decode"], per_pass, {}, "static decode")
+    if (len(calls["prefill"]), len(calls["decode"])) != (
+            st["prefill_calls"], st["decode_steps"]):
+        raise AssertionError(f"static calls vs stats {dict(st)}")
+    for r in reqs:
+        if len(run["out"][r["rid"]]) != r["max_new_tokens"]:
+            raise AssertionError(f"static request {r['rid']}")
+    res = run_summary(engine, run)
+    res.update(launches=launch_counts(), mma_launches=body_counts(),
+               wasted_row_steps=st["wasted_row_steps"],
+               snapshot_flips=flips, batch=8)
+    log("static", f"StaticEngine(batch=8) bf16, phase 4's 16 requests: "
+                  f"{res['tok_per_s']:.1f} tok/s ({st['prefill_calls']} "
+                  f"prefills, {st['decode_steps']} decode steps, "
+                  f"{st['wasted_row_steps']} wasted row-steps, decode "
+                  f"{res['decode_ms_per_step']:.2f} ms/step); launches per "
+                  f"prefill and per decode step {per_pass['forward']} "
+                  f"(prefills on the tensor cores); ContinuousEngine "
+                  f"(phase 4) {beside['tok_per_s']:.1f} tok/s, decode "
+                  f"{beside['decode_ms_per_step']:.2f} ms/step; {smi}")
+    print("static " + json.dumps(res), flush=True)
+    del model, engine
+    free_card()
+    return res
+
+
+def phase_serve_obs(cfg, smi: str) -> dict:
+    """Phase 4's workload under a ``Recorder``: tokens equal a
+    null-recorder run's, the trace validates, ``audit_engine`` passes;
+    TTFT and TPOT p50/p99; and each decode-only step's wall at 8 live rows
+    split into the fenced decode section and the rest of the step (host:
+    admission, block tables, sampling, bookkeeping), from the trace's
+    step and decode slices."""
+    from repro_torch.obs import Recorder, audit_engine, validate_trace
+    from repro_torch.serve import ContinuousEngine
+
+    model = build_model(cfg, False)
+    reqs = serve_requests(cfg.vocab_size, 16, seed=0)
+    max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
+    kw = dict(page_size=16, max_slots=8, max_request_len=max_len,
+              cache_dtype=torch.float32)
+    warm = ContinuousEngine(model, **kw)
+    warm.submit(reqs[0]["prompt"][:32], 2)
+    warm.drain()
+    plain = ContinuousEngine(model, **kw)
+    null_run = drive(plain, reqs)
+    rec = Recorder()
+    engine = ContinuousEngine(model, recorder=rec, **kw)
+    reset_launch_counts()
+    run = drive(engine, reqs)
+    counts = launch_counts()
+    for rid, toks in null_run["out"].items():
+        if not np.array_equal(toks, run["out"][rid]):
+            raise AssertionError(f"request {rid}: the recorder changed "
+                                 f"its tokens")
+    doc = rec.trace.to_json()
+    tstats = validate_trace(doc)
+    audit = audit_engine(engine, spans=rec.spans)
+    if not audit["ok"]:
+        raise AssertionError(f"audit: {audit['mismatches']}")
+    agg = rec.spans.aggregate()
+    steps = {e["args"]["step"]: e for e in doc["traceEvents"]
+             if e["ph"] == "X" and e["name"] == "step"}
+    decode = {e["args"]["step"]: e for e in doc["traceEvents"]
+              if e["ph"] == "X" and e["name"] == "decode"}
+    rows = [(steps[s]["dur"] * 1e-3, decode[s]["dur"] * 1e-3)
+            for s in steps if s in decode and steps[s]["args"]["decoded"]
+            == 8 and steps[s]["args"]["admitted"] == 0
+            and steps[s]["args"]["chunks"] == 0]
+    if not rows:
+        raise AssertionError("no decode-only step at 8 rows")
+    step_ms = [a for a, _ in rows]
+    dec_ms = [b for _, b in rows]
+    rest_ms = [a - b for a, b in rows]
+    res = dict(
+        launches=counts, trace=tstats, audit=audit["derived"],
+        ttft_s=agg["ttft_s"], tpot_s=agg["tpot_s"], n_steps=len(rows),
+        step_ms_median=statistics.median(step_ms),
+        decode_ms_median=statistics.median(dec_ms),
+        rest_ms_median=statistics.median(rest_ms),
+        step_ms_mean=statistics.mean(step_ms),
+        decode_ms_mean=statistics.mean(dec_ms),
+        rest_ms_mean=statistics.mean(rest_ms),
+        null_tok_per_s=(plain.stats["prompt_tokens"]
+                        + plain.stats["generated_tokens"]) / null_run["wall"],
+        tok_per_s=(engine.stats["prompt_tokens"]
+                   + engine.stats["generated_tokens"]) / run["wall"])
+    log("serve-obs", f"{cfg.name} bf16 under a Recorder: tokens equal the "
+                     f"null recorder's; trace {tstats['slices']} slices, "
+                     f"{tstats['instants']} instants on {tstats['tracks']} "
+                     f"tracks, valid; audit ok; {res['tok_per_s']:.1f} vs "
+                     f"{res['null_tok_per_s']:.1f} tok/s (null); {smi}")
+    log("serve-obs", f"TTFT p50 {agg['ttft_s']['p50']:.3f} s p99 "
+                     f"{agg['ttft_s']['p99']:.3f} s; TPOT p50 "
+                     f"{1e3 * agg['tpot_s']['p50']:.2f} ms p99 "
+                     f"{1e3 * agg['tpot_s']['p99']:.2f} ms; {smi}")
+    log("serve-obs", f"{len(rows)} decode-only steps at 8 live rows: step "
+                     f"wall median {res['step_ms_median']:.2f} ms (mean "
+                     f"{res['step_ms_mean']:.2f}) = fenced decode section "
+                     f"{res['decode_ms_median']:.2f} ms (mean "
+                     f"{res['decode_ms_mean']:.2f}) + the rest of the step "
+                     f"{res['rest_ms_median']:.2f} ms (mean "
+                     f"{res['rest_ms_mean']:.2f}; admission, block tables, "
+                     f"sampling, bookkeeping); {smi}")
+    print("serve-obs " + json.dumps(res), flush=True)
+    del model, engine, plain
+    free_card()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -4422,6 +5044,29 @@ def main() -> int:
                                 max_live_tokens=PLAN_SERVE_BUDGET))
     t_plan = time.perf_counter() - t_plan
 
+    # the rest of serving: chunked prefill (tinyllama, qwen2-moe, the
+    # chain plan), preemption and faults, prefix sharing, snapshots, the
+    # static engine and the observability recorder
+    t_serve = time.perf_counter()
+    chunked = phase_serve_chunked(tiny, launches_of(forward=n_tiny),
+                                  {"forward": n_tiny}, serve, smi)
+    chunked_moe = phase_serve_chunked(
+        moe, launches_of(forward=n_c, stacked_forward=n_s),
+        {"forward": n_c, "stacked_forward": n_s}, serve_moe, smi,
+        phase="serve-chunked-moe")
+    chunked_chain = phase_serve_chunked(
+        chain, launches_of(chain_forward=n_tiny), {"chain_forward": n_tiny},
+        serve_chain, smi, phase="serve-chunked-chain")
+    phase_parity_chunked(main_config("float32"),
+                         serve_requests(tiny.vocab_size, 4, seed=1), smi)
+    pressure = phase_serve_pressure(main_config("float32"), smi)
+    prefix = phase_serve_prefix(tiny, main_config("float32"),
+                                launches_of(forward=n_tiny), smi)
+    static = phase_snapshot_static(tiny, main_config("float32"),
+                                   launches_of(forward=n_tiny), serve, smi)
+    obs = phase_serve_obs(tiny, smi)
+    t_serve = time.perf_counter() - t_serve
+
     per_layout = {f"{key} {kind if isinstance(kind, str) else f'N={kind}'}":
                   row for (key, kind), row in times.items()}
     per_layout.update({f"experts {key} {kind if isinstance(kind, str) else f'N={kind}'}":
@@ -4479,7 +5124,9 @@ def main() -> int:
                                   for r in vision.values())
     main_runs = (serve, train, serve_moe, train_moe, serve_chain,
                  train_chain, sdmm, serve_q, serve_q_moe,
-                 serve_q_chain, serve_plan) + tuple(vision.values()) \
+                 serve_q_chain, serve_plan, chunked, chunked_moe,
+                 chunked_chain, pressure, prefix["on"], prefix["off"],
+                 static, obs) + tuple(vision.values()) \
         + tuple(train_plan.values())
     vision_launches = lambda role: sum(r["launches"][role]
                                        for r in vision.values())
@@ -4725,7 +5372,8 @@ def main() -> int:
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s "
                 f"on {smi}; the four feature-major phases took {t_fm:.1f}s, "
                 f"the int8 phases {t_q:.1f}s, the vision phases "
-                f"{t_vis:.1f}s, the plan phases {t_plan:.1f}s")
+                f"{t_vis:.1f}s, the plan phases {t_plan:.1f}s, the serving "
+                f"phases 38-44 {t_serve:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

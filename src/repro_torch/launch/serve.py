@@ -1,7 +1,19 @@
-"""Serving driver of the port: a thin CLI over the continuous engine.
+"""Serving driver of the port: a thin CLI over the serving engines.
 
 Runs on the card unless ``--device cpu`` is given; without CUDA and without
 that flag it exits with an error naming the flag.
+
+``--engine continuous`` (default) is continuous batching over a paged KV
+cache; ``--engine static`` the fixed-batch baseline.  ``--prefill-chunk N``
+feeds prompts in N-token chunks, one per step.  ``--arrival-rate`` submits
+each request when its arrival step comes.  The robustness flags are the
+reference's: ``--reserve prompt`` (oversubscribe the pool; preempt under
+pressure), ``--deadline-steps``, ``--max-retries``, ``--max-idle-steps``,
+and a seeded random fault schedule (``--fault-seed``, ``--fault-events``,
+``--fault-horizon``).  ``--trace FILE`` writes a Perfetto trace of the
+step timeline (check it with ``python -m repro_torch.obs.trace FILE``),
+``--prom FILE`` the metrics in Prometheus text, ``--json FILE`` the run's
+numbers with the lifecycle counters.
 
 ``--plan plan.json`` (a ``SparsityPlan`` written by ``SparsityPlan.save``,
 by either package, or by ``repro_torch.launch.plan``) overrides
@@ -24,6 +36,10 @@ Examples:
       --plan plan.json --max-live-tokens 64
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --quant int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --prefill-chunk 4 --reserve prompt --fault-seed 0 --trace /tmp/t.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --engine static
 """
 from __future__ import annotations
 
@@ -41,17 +57,29 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--engine", default="continuous", choices=["continuous"],
-                    help="continuous batching with a paged KV cache (the "
-                         "only engine ported so far)")
+    ap.add_argument("--engine", default="continuous",
+                    choices=["static", "continuous"],
+                    help="continuous batching with a paged KV cache, or "
+                         "the fixed-batch baseline (equal-prompt groups, "
+                         "lockstep decode)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: feed admitted prompts in chunks "
+                         "of this many tokens, at most one chunk per step "
+                         "(0: single-shot prefill)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
-    ap.add_argument("--batch", type=int, default=4, help="decode slots")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="decode slots (continuous) / batch size (static)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--mixed", action="store_true",
                     help="mixed-length request workload (RequestStream) "
                          "instead of --batch identical requests")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="mean requests per engine step (geometric inter-"
+                         "arrival gaps); 0 = all requests arrive up front. "
+                         "Continuous engine only: requests are submitted "
+                         "as their arrival step is reached")
     ap.add_argument("--requests", type=int, default=0,
                     help="number of requests (0: --batch)")
     ap.add_argument("--page-size", type=int, default=8,
@@ -72,9 +100,41 @@ def build_parser() -> argparse.ArgumentParser:
                          "refuse full-precision weights)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reserve", default="worst_case",
+                    choices=["worst_case", "prompt"],
+                    help="admission block reservation: worst_case never "
+                         "preempts; prompt oversubscribes the pool and "
+                         "preempts lowest-priority requests under pressure "
+                         "(resumed by re-prefill)")
+    ap.add_argument("--deadline-steps", type=int, default=0,
+                    help="per-request deadline in engine steps; requests "
+                         "EXPIRE (freeing their pages) past it (0: none)")
+    ap.add_argument("--max-retries", type=int, default=32,
+                    help="preemptions + fault restarts a request survives "
+                         "before FAILED")
+    ap.add_argument("--max-idle-steps", type=int, default=1000,
+                    help="watchdog: consecutive no-progress steps with "
+                         "work pending before EngineStallError")
+    ap.add_argument("--fault-seed", type=int, default=-1,
+                    help="seeded FaultSchedule.random applied to the engine "
+                         "(capacity drops, alloc failures, delays, request "
+                         "kills); -1 = no faults")
+    ap.add_argument("--fault-events", type=int, default=6,
+                    help="events in the random fault schedule")
+    ap.add_argument("--fault-horizon", type=int, default=48,
+                    help="last engine step a random fault can land on")
     ap.add_argument("--json", default="",
-                    help="write run stats (throughput, engine counters) to "
-                         "this path as JSON")
+                    help="write run stats (throughput, engine counters, "
+                         "lifecycle counters) to this path as JSON")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome/Perfetto trace_event JSON of the "
+                         "engine step timeline (step/prefill/decode slices, "
+                         "preemption/fault/COW instants) to this path; "
+                         "check it with 'python -m repro_torch.obs.trace "
+                         "FILE'")
+    ap.add_argument("--prom", default="",
+                    help="write the metrics registry in Prometheus text "
+                         "exposition format to this path after the run")
     ap.add_argument("--profile-steps", type=int, default=0,
                     help="after the run, time this many decode steps with "
                          "every slot busy, then profile as many more "
@@ -161,9 +221,11 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     from repro_torch.data import RequestStream
-    from repro_torch.device import resolve_device
+    from repro_torch.device import resolve_device, synchronize
     from repro_torch.models import LMModel
-    from repro_torch.serve import RequestError, SamplingParams, make_engine
+    from repro_torch.obs import SCHEMA_VERSION, Recorder
+    from repro_torch.serve import (TERMINAL_STATES, FaultSchedule,
+                                   RequestError, SamplingParams, make_engine)
     from repro_torch.sparsity import (SparsityPlan, quantize_weights,
                                       weight_bytes)
 
@@ -207,30 +269,65 @@ def main(argv=None):
         gl = tuple(sorted({max(2, args.gen // d) for d in (8, 4, 2, 1)}))
     else:
         pl, gl = (args.prompt_len,), (args.gen,)
-    workload = RequestStream(cfg.vocab_size, n_req, prompt_lens=pl,
-                             gen_lens=gl, seed=args.seed).requests()
+    workload = RequestStream(
+        cfg.vocab_size, n_req, prompt_lens=pl, gen_lens=gl, seed=args.seed,
+        arrival_rate=args.arrival_rate if args.engine != "static" else 0.0,
+    ).requests()
     max_len = max(r["prompt"].shape[0] + r["max_new_tokens"]
                   for r in workload)
-    engine = make_engine(
-        "continuous", model, page_size=args.page_size, max_slots=args.batch,
-        max_live_tokens=args.max_live_tokens, max_request_len=max_len,
-        plan=cfg.plan,  # plan-aware admission (None: uniform budget)
-    )
-    if args.max_live_tokens and cfg.plan is not None:
-        print(f"plan-aware admission: max_live_tokens "
-              f"{engine.base_live_tokens} -> {engine.plan_live_tokens} "
-              f"(weight residency freed by the plan)")
+
+    faults = None
+    if args.fault_seed >= 0:
+        faults = FaultSchedule.random(args.fault_seed,
+                                      horizon=args.fault_horizon,
+                                      n_events=args.fault_events)
+        print(f"fault schedule: seed={args.fault_seed} "
+              f"{len(faults)} events over {faults.horizon} steps")
+
+    # a Recorder is attached whenever an observability output is asked
+    # for; otherwise the engine keeps the null recorder
+    recorder = None
+    if args.trace or args.prom or args.json:
+        recorder = Recorder()
+
+    if args.engine == "static":
+        engine = make_engine("static", model, batch=args.batch,
+                             recorder=recorder)
+    else:
+        engine = make_engine(
+            "continuous", model, page_size=args.page_size,
+            max_slots=args.batch, max_live_tokens=args.max_live_tokens,
+            max_request_len=max_len, prefill_chunk=args.prefill_chunk,
+            plan=cfg.plan,  # plan-aware admission (None: uniform budget)
+            reserve=args.reserve, max_retries=args.max_retries,
+            max_idle_steps=args.max_idle_steps, faults=faults,
+            recorder=recorder,
+        )
+        if args.max_live_tokens and cfg.plan is not None:
+            print(f"plan-aware admission: max_live_tokens "
+                  f"{engine.base_live_tokens} -> {engine.plan_live_tokens} "
+                  f"(weight residency freed by the plan)")
     sampling = SamplingParams(temperature=args.temperature,
                               seed=args.seed + 1)
+    pending = sorted(workload, key=lambda r: r["arrival_step"])
+    deadline = args.deadline_steps or None
 
     t0 = time.perf_counter()
-    for r in workload:
-        try:
-            engine.submit(r["prompt"], r["max_new_tokens"],
-                          sampling=sampling, arrival_step=r["arrival_step"])
-        except RequestError as e:
-            print(f"rejected request ({e.reason}): {e}")
-    out = engine.drain()
+    step = 0
+    while pending or not engine.idle:
+        while pending and pending[0]["arrival_step"] <= step:
+            r = pending.pop(0)
+            try:
+                engine.submit(r["prompt"], r["max_new_tokens"],
+                              sampling=sampling,
+                              arrival_step=r["arrival_step"],
+                              deadline_steps=deadline)
+            except RequestError as e:
+                print(f"rejected request ({e.reason}): {e}")
+        engine.step()
+        step += 1
+    synchronize(device)
+    out = {rid: req.tokens for rid, req in sorted(engine.finished.items())}
     wall = time.perf_counter() - t0
 
     st = engine.stats
@@ -244,13 +341,43 @@ def main(argv=None):
           f"in {st['prefill_time_s']*1e3:.0f}ms")
     print(f"decode : {n_gen} tokens, {int(st['decode_steps'])} steps in "
           f"{st['decode_time_s']*1e3:.0f}ms "
-          f"({n_gen/max(st['decode_time_s'], 1e-9):.0f} tok/s)")
-    occ = st["allocated_block_steps"] / max(st["block_steps"], 1)
-    print(f"paged KV: page={args.page_size} "
-          f"peak {int(st['peak_allocated_blocks'])} blocks, "
-          f"mean pool occupancy {occ:.1%}")
+          f"({n_gen/max(st['decode_time_s'], 1e-9):.0f} tok/s, "
+          f"{int(st['wasted_row_steps'])} wasted row-steps)")
+    if args.engine != "static":
+        occ = st["allocated_block_steps"] / max(st["block_steps"], 1)
+        print(f"paged KV: page={args.page_size} "
+              f"peak {int(st['peak_allocated_blocks'])} blocks, "
+              f"mean pool occupancy {occ:.1%}")
+        if args.prefill_chunk:
+            print(f"chunked prefill: {int(st['prefill_chunks'])} chunks "
+                  f"of {args.prefill_chunk} tokens")
+    lifecycle = {k: int(st.get(k, 0)) for k in (
+        "rejected", "expired", "cancelled", "failed", "preemptions",
+        "fault_kills", "resumed_prefills", "fault_events",
+        "fault_paused_steps")}
+    if any(lifecycle.values()):
+        print("lifecycle: " + " ".join(f"{k}={v}"
+                                       for k, v in lifecycle.items() if v))
+    spans_agg = None
+    if recorder is not None and recorder.spans is not None:
+        spans_agg = recorder.spans.aggregate()
+        ttft, tpot = spans_agg["ttft_s"], spans_agg["tpot_s"]
+        qs = spans_agg["queue_steps"]
+        if ttft and tpot:
+            print(f"spans: {spans_agg['requests']} requests, "
+                  f"TTFT p50={ttft['p50']*1e3:.1f}ms "
+                  f"p99={ttft['p99']*1e3:.1f}ms, "
+                  f"TPOT p50={tpot['p50']*1e3:.2f}ms "
+                  f"p99={tpot['p99']*1e3:.2f}ms, "
+                  f"queue-steps p50={qs.get('p50', 0):.0f}")
+        if spans_agg["preemptions"]:
+            print(f"spans: {spans_agg['preemptions']} preemptions lost "
+                  f"{spans_agg['lost_steps']} request-steps")
     prof = None
     if args.profile_steps:
+        if args.engine != "continuous":
+            raise SystemExit("error: --profile-steps profiles the "
+                             "continuous engine")
         if device.type != "cuda":
             raise SystemExit("error: --profile-steps profiles the card; "
                              "run with --device cuda")
@@ -281,7 +408,11 @@ def main(argv=None):
             for name, ms in prof["top_kernels_ms_per_step"].items():
                 print(f"  {ms:8.3f} ms/step  {name[:100]}")
     if args.json:
+        states: dict = {}
+        for req in engine.requests.values():
+            states[req.state] = states.get(req.state, 0) + 1
         payload = {
+            "schema_version": SCHEMA_VERSION,
             "arch": cfg.name, "engine": args.engine, "device": str(device),
             "device_name": (torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "cpu"),
@@ -290,12 +421,26 @@ def main(argv=None):
             "generated_tokens": n_gen,
             "tok_per_s": (n_prompt + n_gen) / max(wall, 1e-9),
             "quant": args.quant or None, "weight_bytes": weight_bytes(model),
+            "reserve": args.reserve, "states": states,
+            "all_terminal": all(r.state in TERMINAL_STATES
+                                for r in engine.requests.values()),
+            **lifecycle,
             "stats": {k: float(v) for k, v in st.items()},
+            "metrics": recorder.registry.snapshot(),
+            "spans": spans_agg,
             "profile": prof,
         }
         with open(args.json, "w") as f:
             json.dump(payload, f, indent=2)
         print(f"wrote {args.json}")
+    if args.trace:
+        recorder.trace.save(args.trace)
+        print(f"wrote {args.trace} "
+              f"(open in ui.perfetto.dev or chrome://tracing)")
+    if args.prom:
+        with open(args.prom, "w") as f:
+            f.write(recorder.registry.render_prometheus())
+        print(f"wrote {args.prom}")
     if out:
         rid0 = min(out)
         print(f"sample continuation (req {rid0}): "

@@ -1,6 +1,6 @@
 """LMModel: embedding -> decoder stack -> norm -> head, with the training
-forward and loss and the serving entry points (prefill, contiguous decode,
-paged decode).
+forward and loss and the serving entry points (prefill, chunked prefill,
+contiguous decode, paged decode).
 
 The port of ``repro/models/lm.py``.  The model holds its weights (the
 reference passes a params pytree to every call); they are drawn from a
@@ -122,6 +122,30 @@ class LMModel(nn.Module):
         positions = torch.arange(S, device=self.device).expand(B, S)
         x, cache, _ = self.stack(x, positions, caches=cache, index=0)
         x = self.norm_f(x[:, -1:])
+        return self._head(x)[:, 0], cache
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens, cache: list, index: int, n_valid: int):
+        """One fixed-size prefill chunk (B, C) written at offset ``index``.
+
+        The serving engine feeds long prompts in equal chunks; the last one
+        is ragged, and its rows from ``n_valid`` on are pad tokens with
+        position ``-1``, which the position-mask attention (and later the
+        page scatter) treats as empty slots.  ``index`` and ``n_valid`` are
+        host ints, handed down to the stack, so no layer reads a position
+        back from the card.  Returns (logits at the last valid row (B, V),
+        cache), the cache written in place.
+        """
+        tokens = self._tokens(tokens)
+        B, C = tokens.shape
+        index, n_valid = int(index), int(n_valid)
+        x = self.embed[0](tokens).to(self.compute_dtype)
+        offs = torch.arange(C, device=self.device)
+        row = torch.where(offs < n_valid, offs + index,
+                          torch.full_like(offs, -1))
+        positions = row.expand(B, C)
+        x, cache, _ = self.stack(x, positions, caches=cache, index=index)
+        x = self.norm_f(x[:, n_valid - 1:n_valid])
         return self._head(x)[:, 0], cache
 
     @torch.no_grad()

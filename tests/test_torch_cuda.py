@@ -45,7 +45,10 @@ tokens, and one VGG19-CIFAR training step on the card against the CPU,
 layer by layer (``-k vision``).  And the forward, dX and dW at one layout
 of each budget plan the plan compiler solves (tinyllama's wq/wo at 0.5;
 qwen2-moe's stacked ``experts.out`` at 0.875, C 8, whose dX and dW keep
-the FMA bodies) against their plain versions (``-k plan``).
+the FMA bodies) against their plain versions (``-k plan``).  And the
+serving engines at the reduced tinyllama and qwen2-moe in float32: the
+chunked, the preempting and the chunked preempting prefix-sharing engine
+give the CPU's greedy streams (``-k serving``).
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -58,6 +61,8 @@ JAX is not installed:
         -k "fm_mma or featmajor"
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -k vision
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -k plan
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py \
+        -k serving
 
 Tolerances scale with max|ref|: 1e-5 in float32 (reduction order only),
 2e-2 in bfloat16 (one output rounding).  ``RBGP4Linear``'s gradients chain
@@ -1700,3 +1705,71 @@ def test_cuda_plan_layouts_match_plain_versions(name, dtype):
     assert_close(dx, fwd_ref(tt.tables, gy, wt), dtype, (name, "dX"))
     assert_close(dw, dw_ref(tables, gy, x), dtype, (name, "dW"))
     assert torch.equal(dw, dw_fn(tables, gy, x)), name
+
+
+# the serving engines' shapes of tests/test_torch_serve_lifecycle.py: at
+# page 4, n_blocks=11 and prompt reservation force preemptions
+SERVE_SHAPES = [(4, 8), (12, 10), (8, 9), (16, 6), (6, 10)]
+SERVE_ENGINES = {
+    "chunked": dict(prefill_chunk=5),
+    "preempting": dict(reserve="prompt", n_blocks=11),
+    "chunked-preempting-prefix": dict(reserve="prompt", n_blocks=11,
+                                      prefill_chunk=4, prefix_cache=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("kind", list(SERVE_ENGINES))
+def test_cuda_serving_engines_give_the_cpu_streams(arch, kind):
+    """The reduced model in float32 on the card (the kernels' FMA bodies,
+    TF32 off) and on the CPU from the same weights: the chunked engine,
+    the preempting engine and the chunked, preempting, prefix-sharing one
+    give the CPU's greedy streams, preemption log and step trace, and the
+    card's run launched the kernels."""
+    needs_card()
+    from repro_torch.configs import apply_sparsity, get_config, reduce_config
+    from repro_torch.models import LMModel
+    from repro_torch.serve import ContinuousEngine
+
+    cfg = apply_sparsity(reduce_config(get_config(arch)), pattern="rbgp4",
+                         sparsity=0.75, min_dim=64)
+    card = LMModel(cfg, device="cuda", seed=0)
+    cpu = LMModel(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(0)
+    wl = [(rng.integers(0, cfg.vocab_size, s).astype(np.int32), g)
+          for s, g in SERVE_SHAPES]
+    if SERVE_ENGINES[kind].get("prefix_cache"):
+        # a shared 8-token head: two full pages to share
+        head = rng.integers(0, cfg.vocab_size, 8).astype(np.int32)
+        wl = [(np.concatenate([head[:min(8, len(p) - 1)],
+                               p[min(8, len(p) - 1):]]), g) for p, g in wl]
+    engines, outs = {}, {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        before = rbgp4mm_rhs.launches + rbgp4mm_rhs_stacked.launches
+        eng = engines[dev] = ContinuousEngine(
+            model, page_size=4, max_slots=4, max_request_len=40,
+            cache_dtype=torch.float32, **SERVE_ENGINES[kind])
+        for prompt, gen in wl:
+            eng.submit(prompt, gen)
+        outs[dev] = eng.drain()
+        launched = rbgp4mm_rhs.launches + rbgp4mm_rhs_stacked.launches \
+            - before
+        assert (launched > 0) == (dev == "cuda"), (dev, launched)
+    for rid in outs["cpu"]:
+        np.testing.assert_array_equal(outs["cuda"][rid], outs["cpu"][rid],
+                                      err_msg=f"{arch} {kind} rid {rid}")
+    assert engines["cuda"].preempt_log == engines["cpu"].preempt_log
+    assert engines["cuda"].step_trace == engines["cpu"].step_trace
+    if kind != "chunked":
+        assert engines["cuda"].stats["preemptions"] >= 2
+    if SERVE_ENGINES[kind].get("prefix_cache"):
+        assert engines["cuda"].stats["prefix_hits"] > 0
+        for k in ("prefix_hits", "prefix_hit_tokens", "prefix_cow_copies",
+                  "prefix_evictions"):
+            assert engines["cuda"].stats[k] == engines["cpu"].stats[k], k
+    alloc = engines["cuda"].kv.allocator
+    alloc.check_invariants()
+    if kind != "chunked-preempting-prefix":
+        assert alloc.n_allocated == 0

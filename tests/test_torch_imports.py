@@ -45,7 +45,12 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                 "repro_torch.sparsity.chain", "repro_torch.sparsity.quant",
                 "repro_torch.train.compress", "repro_torch.core.spectral",
                 "repro_torch.kernels.perf_model",
-                "repro_torch.launch.plan"):
+                "repro_torch.launch.plan",
+                "repro_torch.serve.chunked", "repro_torch.serve.prefix",
+                "repro_torch.serve.faults", "repro_torch.serve.snapshot",
+                "repro_torch.obs", "repro_torch.obs.metrics",
+                "repro_torch.obs.spans", "repro_torch.obs.trace",
+                "repro_torch.obs.record", "repro_torch.obs.audit"):
         assert mod in names, mod
 
 
@@ -127,3 +132,22 @@ def test_launch_counter_stays_zero_on_cpu_tensors():
     out = eng.drain()
     assert len(out[0]) == 3
     assert rbgp4mm_rhs.launches == 0
+
+
+def test_chunked_and_static_engines_launch_nothing_on_cpu_tensors():
+    from repro_torch.models import LMModel
+    from repro_torch.serve import ContinuousEngine, StaticEngine
+
+    rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_mma = 0
+    cfg = apply_sparsity(reduce_config(get_config("tinyllama-1.1b")),
+                         sparsity=0.75, min_dim=64)
+    model = LMModel(cfg, device="cpu")
+    for eng in (ContinuousEngine(model, page_size=4, max_slots=2,
+                                 max_request_len=16, prefill_chunk=3,
+                                 reserve="prompt", prefix_cache=True),
+                StaticEngine(model, batch=2)):
+        eng.submit([1, 2, 3, 4, 5], 3)
+        eng.submit([1, 2, 3, 4, 5], 2)
+        out = eng.drain()
+        assert [len(out[r]) for r in (0, 1)] == [3, 2]
+    assert rbgp4mm_rhs.launches == rbgp4mm_rhs.launches_mma == 0
