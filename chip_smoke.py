@@ -326,7 +326,34 @@ exits non-zero without the result line:
  44. serve-obs: phase 4's workload under a ``Recorder``: tokens equal the
      null recorder's, the trace validates, ``audit_engine`` passes; TTFT
      and TPOT p50/p99; each decode-only step's wall at 8 live rows split
-     into the fenced decode section and the rest of the step.
+     into the fenced decode section and the rest of the step;
+ 45. autotune: the autotuner's measured mode (``REPRO_AUTOTUNE_MODE=
+     measure``) against a temporary cache at the main paths' full-width
+     layouts (``tune_cases``: tinyllama's four layouts at N = 4096,
+     forward, dX and dW; qwen2-moe's two expert layouts at 171 rows an
+     expert, 60 experts; the chain plan's four at 4096; VGG19-CIFAR's
+     eight feature-major shapes at batch 256, O, dI and dW; the budget
+     plans' layouts at 0.5 and 0.875): each candidate tile timed on the
+     launch's own tables (CUDA events), the rule's tile and time printed
+     beside the tuned one; every tuned tile a built tile, every tuned
+     launch held against its plain version and rerun bit-equal (dW
+     included); after ``clear_memory_cache()`` every shape resolved from
+     disk with no timed search; entries keyed ``cuda-sm<cc>``;
+ 46. tuned-steps: under that cache and beside the rules, tinyllama
+     trained 3 steps of 8 x 512 tokens each way (no timed search: phase 45
+     covered every launch) and one VGG19-CIFAR pass each way, fenced; the
+     host µs of a memoized resolution; phase 4's decode cell with
+     ``obs.kernelstats`` off and on, three runs each in turns, whose mean
+     ms/step stays within the host's spread (the range of the off runs
+     and phase 4's, at least 5% of their mean);
+ 47. kernelstats: ``measure_op`` (CUDA events) on one layout of each of
+     the eight autotuner kinds under phase 45's tiles, and the serve
+     driver with ``--kernel-stats --autotune-cache`` at full width on
+     tinyllama in measured mode: every row has its model and measured
+     µs, and an efficiency (model / measured) above 1.05 fails the phase.
+
+``python3 chip_smoke.py --autotune-only`` runs phases 1, 4, 33 and 45-47
+alone (a quicker check of the autotuner; no result line).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -336,6 +363,7 @@ from __future__ import annotations
 import collections
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -4906,6 +4934,445 @@ def phase_serve_obs(cfg, smi: str) -> dict:
     return res
 
 
+# -- the autotuner (phases 45-47) ---------------------------------------------
+
+#: training steps of phase 46 under each of the rule and the tuned tiles
+TUNE_TRAIN_STEPS = 3
+#: decode runs of phase 46 with kernelstats off and on, in turns (phase 4's
+#: run counts as one more off): the host's spread between two runs of one
+#: cell in one process reaches 20% on an H100's host, so a few of each
+TUNE_DECODE_RUNS = ("on", "off", "off", "on", "on", "off")
+#: least host spread of decode ms/step phase 46 allows, a share of the mean
+TUNE_DECODE_SPREAD_FLOOR = 0.05
+#: a roofline efficiency (model / measured) above this fails phase 47: the
+#: model is a floor on the card's time, so above 1 the timer or the model
+#: is wrong
+EFFICIENCY_MAX = 1.05
+
+
+def tune_cases(layouts, experts, chains, fm, plans) -> list:
+    """Phase 45's launches, (label, kind, tables, N, experts): tinyllama's
+    four layouts (its seven projections) at N = 4096, forward, dX and dW;
+    qwen2-moe's two expert layouts (its three stacked projections) at 171
+    rows an expert, 60 experts; the chain plan's four at 4096; VGG19-CIFAR's
+    eight feature-major shapes at batch 256, O, dI and dW; the budget
+    plans' layouts at 0.5 and 0.875 at their training N."""
+    from repro_torch.kernels import KernelTables
+    from repro_torch.kernels.chainmm import ChainTables
+
+    out = []
+
+    def token_major(label, lay, n, stacked):
+        fwd = KernelTables.build(lay, "cuda")
+        dx = KernelTables.build(lay.transpose_layout(), "cuda",
+                                transposed=True)
+        if stacked:
+            e = MOE_EXPERTS
+            out.extend([(label, "rhs_stacked", fwd, n, e),
+                        (label, "rhs_stacked", dx, n, e),
+                        (label, "sddmm_stacked", fwd, n, e)])
+        else:
+            out.extend([(label, "rhs", fwd, n, 1), (label, "rhs", dx, n, 1),
+                        (label, "sddmm", fwd, n, 1)])
+
+    for key, lay in layouts.items():
+        token_major(f"tinyllama {key}", lay, 4096, False)
+    for key, lay in experts.items():
+        token_major(f"qwen2-moe experts {key}", lay, MOE_ROWS["train"], True)
+    for key in FULL_WIDTH:
+        fwd = ChainTables.build(chains[key], "cuda")
+        dx = ChainTables.build(chains[key].transpose_layout(), "cuda",
+                               transposed=True)
+        out.extend([(f"chain {key}", "chain_rhs", fwd, 4096, 1),
+                    (f"chain {key}", "chain_rhs", dx, 4096, 1),
+                    (f"chain {key}", "chain_sddmm", fwd, 4096, 1)])
+    tables = {}
+    for m, k, n in sorted(set(VGG19_SDMM)):
+        if (m, k) not in tables:
+            tables[(m, k)] = (KernelTables.build(fm[(m, k)], "cuda"),
+                              KernelTables.build(
+                                  fm[(m, k)].transpose_layout(), "cuda",
+                                  transposed=True))
+        fwd, dx = tables[(m, k)]
+        out.extend([(f"vgg19 {m}x{k}", "lhs", fwd, n, 1),
+                    (f"vgg19 {m}x{k}", "lhs", dx, n, 1),
+                    (f"vgg19 {m}x{k}", "sddmm_lhs", fwd, n, 1)])
+    for arch, p in plans.items():
+        for e in p["layouts"]:
+            if e["sparsity"] in (0.5, 0.875):
+                token_major(f"plan {arch} {e['m']}x{e['k']} "
+                            f"sp={e['sparsity']}", e["layout"], e["n"],
+                            e["stacked"])
+    return out
+
+
+def tune_operands(kind: str, t, n: int, e: int, gen) -> tuple:
+    """(launch, plain): the kernel wrapper of ``kind`` on seeded bf16
+    operands of N = ``n`` (rows an expert, ``e`` experts), and its plain
+    version on the same operands."""
+    from repro_torch.kernels import (chain_sddmm_rhs, chain_sddmm_rhs_reference,
+                                     chainmm_rhs, chainmm_rhs_reference,
+                                     rbgp4_sddmm, rbgp4_sddmm_reference,
+                                     rbgp4_sddmm_rhs, rbgp4_sddmm_rhs_reference,
+                                     rbgp4_sddmm_rhs_stacked,
+                                     rbgp4_sddmm_rhs_stacked_reference,
+                                     rbgp4mm, rbgp4mm_reference, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_reference,
+                                     rbgp4mm_rhs_stacked,
+                                     rbgp4mm_rhs_stacked_reference)
+
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+
+    d = t.dims
+    pairs = {
+        "rhs": (rbgp4mm_rhs, rbgp4mm_rhs_reference, "xw"),
+        "rhs_stacked": (rbgp4mm_rhs_stacked, rbgp4mm_rhs_stacked_reference,
+                        "xw"),
+        "chain_rhs": (chainmm_rhs, chainmm_rhs_reference, "xw"),
+        "lhs": (rbgp4mm, rbgp4mm_reference, "fm"),
+        "sddmm": (rbgp4_sddmm_rhs, rbgp4_sddmm_rhs_reference, "gx"),
+        "sddmm_stacked": (rbgp4_sddmm_rhs_stacked,
+                          rbgp4_sddmm_rhs_stacked_reference, "gx"),
+        "chain_sddmm": (chain_sddmm_rhs, chain_sddmm_rhs_reference, "gx"),
+        "sddmm_lhs": (rbgp4_sddmm, rbgp4_sddmm_reference, "fmgx"),
+    }
+    fn, ref, form = pairs[kind]
+    lead = (e,) if kind.endswith("_stacked") else ()
+    if form == "xw":
+        args = (rnd(*lead, n, d.k), rnd(*lead, d.m, d.data_cols))
+    elif form == "fm":
+        args = (rnd(d.k, n), rnd(d.m, d.data_cols))
+    elif form == "gx":
+        args = (rnd(*lead, n, d.m), rnd(*lead, n, d.k))
+    else:
+        args = (rnd(d.m, n), rnd(d.k, n))
+    return (lambda: fn(t, *args)), (lambda: ref(t, *args))
+
+
+def _search_of(autotune, mark: str, dims, n: int, e: int) -> dict:
+    """The measured search behind the entry of (kind mark, dims, N's
+    bucket, experts): the last one made (this launch's, or the one whose
+    entry it hit)."""
+    for rec in reversed(autotune.measured_searches):
+        if (rec["kind"], rec["dims"], rec["experts"]) == (mark, dims, e) \
+                and autotune._n_bucket(rec["n"]) == autotune._n_bucket(n):
+            return rec
+    raise AssertionError(f"no measured search of {mark} {dims} at N={n}")
+
+
+def set_tuning(autotune, mode: str, cache: str = None) -> None:
+    """Switch the autotuner: ``measure`` on ``cache``, else the rules (the
+    default); either way every memoized resolution is dropped."""
+    if mode == "measure":
+        os.environ["REPRO_AUTOTUNE_MODE"] = "measure"
+        autotune.set_cache_path(cache)
+    else:
+        os.environ.pop("REPRO_AUTOTUNE_MODE", None)
+        autotune.clear_memory_cache()
+
+
+def phase_autotune(cases: list, cache: str) -> dict:
+    """Measured mode against a temporary cache at the main paths'
+    full-width layouts: every shape resolved by timing each candidate tile
+    on its own tables (CUDA events), its rule's tile and time beside the
+    tuned one; every tuned tile a built tile, every tuned launch held
+    against its plain version (phase 2's tolerance), rerun bit-equal (dW
+    included); then, after ``clear_memory_cache()``, every shape resolved
+    from disk with no timed search."""
+    from repro_torch.kernels import autotune
+
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    set_tuning(autotune, "measure", cache)
+    start = len(autotune.measured_searches)
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    rows = []
+    for label, kind, t, n, e in cases:
+        fn, plain = tune_operands(kind, t, n, e, gen)
+        got = fn()
+        res = autotune.launch_tile(t, kind, n, bf, None, e)
+        cands = autotune.candidate_tiles(kind, t, n, bf)
+        mark = kind + (".t" if t.transposed else "")
+        if res.source != "measured" or res.tile not in cands:
+            raise AssertionError(f"{label} {mark} N={n}: {res} is not a "
+                                 f"measured built tile of {cands}")
+        search = _search_of(autotune, mark, t.dims, n, e)
+        _, rel = agree(f"{label} {mark} N={n} tile {res.tile}", got,
+                       plain(), bf)
+        if not torch.equal(fn(), got):
+            raise AssertionError(f"{label} {mark} N={n}: a rerun of tile "
+                                 f"{res.tile} changed bits")
+        rule = cands[0]
+        row = dict(label=label, kind=mark, n=n, experts=e,
+                   body=search["body"], candidates=len(cands),
+                   rule_tile=rule, rule_us=search["timings"].get(rule),
+                   tile=res.tile, us=res.us_estimate,
+                   timings={"x".join(map(str, k)) or "fma": v
+                            for k, v in search["timings"].items()},
+                   rel_err=rel)
+        rows.append(row)
+        log("autotune", f"{label} {mark} N={n}"
+                        + (f" x {e} experts" if e > 1 else "")
+                        + f" ({search['body']}, {len(cands)} tiles): rule "
+                          f"{rule} {row['rule_us']:.2f} us, tuned "
+                          f"{res.tile} {res.us_estimate:.2f} us"
+                        + (" (differs)" if res.tile != rule else "")
+                        + f"; vs plain {rel:.2e} of max|ref|, rerun "
+                          f"bit-equal")
+        del fn, plain, got
+    n_searches = len(autotune.measured_searches) - start
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    autotune.clear_memory_cache()
+    before = len(autotune.measured_searches)
+    for (label, kind, t, n, e), row in zip(cases, rows):
+        res = autotune.launch_tile(t, kind, n, bf, None, e)
+        if res.tile != row["tile"] or res.source != "measured":
+            raise AssertionError(f"{label} {row['kind']} N={n}: re-read "
+                                 f"{res}, stored {row['tile']}")
+    if len(autotune.measured_searches) != before:
+        raise AssertionError(f"{len(autotune.measured_searches) - before} "
+                             f"timed searches after clear_memory_cache()")
+    with open(cache) as f:
+        entries = json.load(f)["entries"]
+    if not all("|cuda-sm" in k for k in entries):
+        raise AssertionError(f"entries not keyed on the card: {entries}")
+    set_tuning(autotune, "rule")
+    differ = [r for r in rows if r["tile"] != r["rule_tile"]]
+    res = dict(shapes=len(rows), searches=n_searches, entries=len(entries),
+               differ=len(differ), seconds=time.perf_counter() - t0,
+               search_seconds=t_search, rows=rows)
+    log("autotune", f"{len(rows)} shapes, {n_searches} measured searches, "
+                    f"{len(entries)} entries keyed "
+                    f"{sorted({k.split('|')[1] for k in entries})}; tuned "
+                    f"tile differs from the rule at {len(differ)}: "
+                    + "; ".join(f"{r['label']} {r['kind']} {r['rule_tile']} "
+                                f"{r['rule_us']:.2f} -> {r['tile']} "
+                                f"{r['us']:.2f} us" for r in differ)
+                    + f"; re-read from disk with no timing; "
+                      f"{res['seconds']:.1f}s")
+    print("autotune " + json.dumps(res, default=str), flush=True)
+    return res
+
+
+def decode_run(model, reqs: list) -> float:
+    """Phase 4's cell on ``model``: decode ms/step of the 16 requests
+    through ``ContinuousEngine`` (8 slots, 16-token pages, f32 KV cache)."""
+    from repro_torch.serve import ContinuousEngine
+
+    max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
+    engine = ContinuousEngine(model, page_size=16, max_slots=8,
+                              max_request_len=max_len,
+                              cache_dtype=torch.float32)
+    for r in reqs:
+        engine.submit(r["prompt"], r["max_new_tokens"])
+    out = engine.drain()
+    if len(out) != len(reqs):
+        raise AssertionError(f"{len(out)} of {len(reqs)} requests served")
+    st = engine.stats
+    return 1e3 * st["decode_time_s"] / st["decode_steps"]
+
+
+def phase_tuned_steps(tiny, fm, serve: dict, cache: str) -> dict:
+    """Under phase 45's cache and beside the rules: tinyllama trained
+    ``TUNE_TRAIN_STEPS`` steps of 8 x 512 tokens each way (fenced ms/step;
+    no timed search: phase 45 covered every launch), one VGG19-CIFAR pass
+    at batch 256 each way (fenced ms, median of 3); the host µs of a
+    memoized resolution; and phase 4's decode cell with kernelstats off
+    and on, whose ms/step must stay within the host's spread."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import autotune
+    from repro_torch.models import LMModel
+    from repro_torch.obs import kernelstats
+    from repro_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    res = {}
+    model = LMModel(tiny, device="cuda", seed=0)
+    tcfg = TrainConfig(optimizer="sgdm", lr=3e-2, schedule="cosine",
+                       total_steps=2 * TUNE_TRAIN_STEPS + 1, warmup_steps=0,
+                       grad_clip=1.0)
+    trainer = Trainer(model, tcfg, TokenStream(tiny.vocab_size, 8, 512,
+                                               seed=0), checkpoint=False)
+    trainer.run(1)   # warm-up under the rules
+    steps = {}
+    for mode in ("rule", "tuned"):
+        set_tuning(autotune, "measure" if mode == "tuned" else "rule", cache)
+        before = len(autotune.measured_searches)
+        hist = trainer.run(TUNE_TRAIN_STEPS)[-TUNE_TRAIN_STEPS:]
+        if len(autotune.measured_searches) != before:
+            raise AssertionError("a tuned training step timed a search: "
+                                 "phase 45 missed one of its shapes")
+        if not all(np.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"{mode}: loss not finite {hist}")
+        steps[mode] = [1e3 * h["step_time_s"] for h in hist]
+    log("tuned-steps", f"tinyllama 8 x 512 ms/step: {steps}")
+    set_tuning(autotune, "rule")
+    res["train_step_ms"] = steps
+    del trainer, model
+    free_card()
+
+    layers = vgg19_weights(fm, 256, torch.bfloat16, "cuda", seed=11)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cots = [torch.randn((cw.w_data.shape[0], x.shape[1]), device="cuda",
+                        generator=gen).to(torch.bfloat16)
+            for cw, x in layers]
+    passes = {}
+    for mode in ("rule", "tuned"):
+        set_tuning(autotune, "measure" if mode == "tuned" else "rule", cache)
+        ms = []
+        for _ in range(4):   # the first warms up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            vgg19_pass(layers, cots)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            for cw, x in layers:
+                cw.w_data.grad = x.grad = None
+        passes[mode] = statistics.median(ms[1:])
+    set_tuning(autotune, "rule")
+    res["vgg19_pass_ms"] = passes
+    t = layers[0][0].tables
+    del layers, cots
+    free_card()
+
+    autotune.launch_tile(t, "lhs", 262144, torch.bfloat16)
+    reps = 100_000
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        autotune.launch_tile(t, "lhs", 262144, torch.bfloat16)
+    res["memo_hit_us"] = 1e6 * (time.perf_counter() - t1) / reps
+
+    model = build_model(tiny, False)
+    reqs = serve_requests(tiny.vocab_size, 16, seed=0)
+    decode = {"off": [serve["decode_ms_per_step"]], "on": []}
+    for stats in TUNE_DECODE_RUNS:
+        kernelstats.reset()
+        if stats == "on":
+            kernelstats.enable()
+        autotune.clear_memory_cache()   # every shape resolves again
+        gc.collect()
+        decode[stats].append(decode_run(model, reqs))
+        if stats == "on":
+            n_rec = len(kernelstats.records())
+            kernelstats.disable()
+            if n_rec == 0:
+                raise AssertionError("kernelstats on recorded nothing")
+    del model
+    free_card()
+    off = statistics.mean(decode["off"])
+    spread = max(max(decode["off"]) - min(decode["off"]),
+                 TUNE_DECODE_SPREAD_FLOOR * off)
+    on = statistics.mean(decode["on"])
+    log("tuned-steps", f"decode ms/step with kernelstats off "
+                       f"{decode['off']} (phase 4 first), on "
+                       f"{decode['on']}; the off runs' spread {spread:.2f}")
+    if abs(on - off) > spread:
+        raise AssertionError(f"decode {on:.2f} ms/step with kernelstats on, "
+                             f"{off:.2f} off: outside the host's spread "
+                             f"{spread:.2f}")
+    res.update(decode_ms_per_step=decode, decode_spread_ms=spread,
+               seconds=time.perf_counter() - t0)
+    fmt = lambda xs: ", ".join(f"{x:.1f}" for x in xs)
+    log("tuned-steps", f"tinyllama 8 x 512: rule {fmt(steps['rule'])} "
+                       f"ms/step, tuned {fmt(steps['tuned'])}; VGG19 pass "
+                       f"(batch 256, fwd + bwd) rule {passes['rule']:.2f} "
+                       f"ms, tuned {passes['tuned']:.2f}; memo hit "
+                       f"{res['memo_hit_us']:.3f} us; decode ms/step "
+                       f"kernelstats off {fmt(decode['off'])} (phase 4 "
+                       f"first), on {fmt(decode['on'])}, spread "
+                       f"{spread:.2f}; {res['seconds']:.1f}s")
+    print("tuned-steps " + json.dumps(res), flush=True)
+    return res
+
+
+def phase_kernelstats(layouts, experts, chains, fm, cache: str,
+                      smi: str) -> dict:
+    """``measure_op`` (CUDA events) on one layout of each of the eight
+    kinds under phase 45's tiles, then the serve driver with
+    ``--kernel-stats --autotune-cache`` at full width on tinyllama in
+    measured mode: every row has its model and measured µs, and no
+    efficiency (model / measured) is above ``EFFICIENCY_MAX``."""
+    from repro_torch.kernels import ChainOp, RBGP4Op, autotune
+    from repro_torch.launch import serve as serve_driver
+    from repro_torch.obs import kernelstats
+
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    set_tuning(autotune, "measure", cache)
+    kernelstats.reset()
+    ops = [(RBGP4Op(layouts["gate/up"], "cuda"), ("rhs", "sddmm"), 4096),
+           (RBGP4Op(experts["gate/up"], "cuda"),
+            ("rhs_stacked", "sddmm_stacked"), MOE_ROWS["train"]),
+           (RBGP4Op(fm[(256, 2304)], "cuda"), ("lhs", "sddmm_lhs"), 16384),
+           (ChainOp(chains["wq/wo"], "cuda"), ("chain_rhs", "chain_sddmm"),
+            4096)]
+    direct = []
+    for op, kinds, n in ops:
+        for kind in kinds:
+            row = op.measure(n, dtype=bf, reps=5, kind=kind,
+                             **({} if kind.startswith("chain")
+                                else dict(n_experts=MOE_EXPERTS)))
+            direct.append(row)
+    out_json = str(Path(cache).with_name("serve.json"))
+    serve_driver.main(["--arch", "tinyllama-1.1b", "--mixed",
+                       "--requests", "8", "--prompt-len", "512", "--gen",
+                       "16", "--page-size", "16", "--batch", "8",
+                       "--kernel-stats", "--autotune-cache", cache,
+                       "--json", out_json])
+    with open(out_json) as f:
+        served = json.load(f)["kernel_stats"]["records"]
+    kernelstats.disable()
+    set_tuning(autotune, "rule")
+    autotune.set_cache_path(None)
+    bad = []
+    for row in direct + served:
+        if row["measured_us"] is None or row["model_us"] is None:
+            bad.append(f"{row['kind']} {row['dims']} N={row['n']}: no "
+                       f"measured or model time")
+        elif row["efficiency"] > EFFICIENCY_MAX:
+            bad.append(f"{row['kind']} {row['dims']} N={row['n']}: "
+                       f"efficiency {row['efficiency']:.3f}")
+    for row in direct:
+        log("kernelstats", f"{row['kind']} {row['dims']} N={row['n']} tile "
+                           f"{row['tile']}: measured "
+                           f"{row['measured_us']:.2f} us, model "
+                           f"{row['model_us']:.2f} us, efficiency "
+                           f"{row['efficiency']:.3f}")
+    effs = [r["efficiency"] for r in served if r["efficiency"] is not None]
+    res = dict(direct=direct, served_rows=len(served),
+               served_efficiency=[min(effs, default=0.0),
+                                  max(effs, default=0.0)],
+               seconds=time.perf_counter() - t0, card=smi)
+    log("kernelstats", f"serve driver: {len(served)} rows (kind, shape, N), "
+                       f"efficiency {res['served_efficiency'][0]:.3f}-"
+                       f"{res['served_efficiency'][1]:.3f}; "
+                       f"{res['seconds']:.1f}s")
+    print("kernelstats " + json.dumps(dict(res, served=served), default=str),
+          flush=True)
+    if bad:
+        raise AssertionError("kernelstats rows out of bounds: "
+                             + "; ".join(bad))
+    return res
+
+
+def autotune_phases(layouts, experts, chains, fm, plans, tiny, serve,
+                    smi: str) -> dict:
+    """Phases 45-47 against one temporary cache (removed after)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "autotune.json")
+        tuned = phase_autotune(tune_cases(layouts, experts, chains, fm,
+                                          plans), cache)
+        steps = phase_tuned_steps(tiny, fm, serve, cache)
+        stats = phase_kernelstats(layouts, experts, chains, fm, cache, smi)
+    return dict(autotune=tuned, tuned_steps=steps, kernelstats=stats)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -4915,6 +5382,16 @@ def main() -> int:
     smi = phase_build()
     layouts, experts = full_width_layouts(), moe_layouts()
     chains = chain_layouts()
+    if "--autotune-only" in sys.argv[1:]:
+        # the quick check of the autotuner: phase 4 (phase 46's decode
+        # baseline), phase 33 (the budget layouts), then phases 45-47
+        tiny = main_config("bfloat16")
+        serve = phase_serve(tiny, launches_of(forward=7 * tiny.n_layers))
+        autotune_phases(layouts, experts, chains, fm_layouts(),
+                        phase_plan(), tiny, serve, smi)
+        log("done", f"phases 1, 4, 33 and 45-47 passed in "
+                    f"{time.perf_counter() - t_start:.1f}s on {smi}")
+        return 0
     max_abs = phase_check(layouts)
     max_abs_train = phase_check_train(layouts)
     max_abs_moe = phase_check_moe(experts)
@@ -5066,6 +5543,12 @@ def main() -> int:
                                    launches_of(forward=n_tiny), serve, smi)
     obs = phase_serve_obs(tiny, smi)
     t_serve = time.perf_counter() - t_serve
+
+    # the autotuner: measured tiles at the main paths' layouts, tuned
+    # training steps and passes beside the rules, the roofline table
+    t_tune = time.perf_counter()
+    autotune_phases(layouts, experts, chains, fm, plans, tiny, serve, smi)
+    t_tune = time.perf_counter() - t_tune
 
     per_layout = {f"{key} {kind if isinstance(kind, str) else f'N={kind}'}":
                   row for (key, kind), row in times.items()}
@@ -5373,7 +5856,8 @@ def main() -> int:
                 f"on {smi}; the four feature-major phases took {t_fm:.1f}s, "
                 f"the int8 phases {t_q:.1f}s, the vision phases "
                 f"{t_vis:.1f}s, the plan phases {t_plan:.1f}s, the serving "
-                f"phases 38-44 {t_serve:.1f}s")
+                f"phases 38-44 {t_serve:.1f}s, the autotuner phases 45-47 "
+                f"{t_tune:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

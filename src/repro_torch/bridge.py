@@ -41,7 +41,7 @@ import torch
 from repro_torch.models.transformer import jax_stack_split
 
 __all__ = ["load_jax_params", "load_jax_vision_params",
-           "flatten_jax_tree"]
+           "flatten_jax_tree", "flatten_reference_tree"]
 
 # the leaves of a MaskedWeight's mask: derived by the port, checked, not
 # loaded
@@ -83,6 +83,18 @@ def flatten_jax_tree(cfg, tree: dict) -> dict[str, np.ndarray]:
                     f"a leading dim of {n_full} periods")
             for t in range(n_full):
                 flat[f"stack.layers.{n_head + t * period + j}.{name}"] = arr[t]
+    return flat
+
+
+def flatten_reference_tree(model, tree: dict) -> dict[str, np.ndarray]:
+    """{port name: array} of a reference tree shaped like ``model``'s
+    parameters (or a subtree of them, such as a snapshot's trainable
+    leaves or an optimizer's moments): a language model's through
+    ``flatten_jax_tree``, a vision model's names as they stand."""
+    if "stack" in tree:
+        return flatten_jax_tree(model.cfg, tree)
+    flat: dict[str, np.ndarray] = {}
+    _walk(tree, "", flat)
     return flat
 
 

@@ -3,9 +3,9 @@ read.
 
 The port of ``repro/configs/base.py``.  Fields that only architectures not
 yet ported read (MLA, Mamba, RWKV, frontends, tied embeddings, logit
-soft-capping) come with those architectures; the training fields of the
-modules not yet ported (distillation, gradient compression) with those
-modules.
+soft-capping) come with those architectures.  The reference's
+``distill_alpha`` / ``distill_temp`` are not fields here: distillation is
+a ``loss_fn`` (``train/distill.py``).
 """
 from __future__ import annotations
 
@@ -106,5 +106,6 @@ class TrainConfig:
     lr_step_gamma: float = 0.1
     microbatches: int = 1            # gradient accumulation
     grad_clip: float = 1.0
+    grad_compression: str = "none"   # 'int8': error-feedback Q/DQ of grads
     checkpoint_every: int = 100
     checkpoint_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")

@@ -61,12 +61,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import autotune
 from .rbgp4mm import (_DTYPE_CODES, _NO_PLAN, _PATH_CODES, MMA_MIN_TOKENS,
-                      RowGroupClasses, SddmmPlan, _check_aligned16,
-                      _check_cuda, _launch, _sm_count, token_slices)
+                      SDDMM_MMA_WAVES, RowGroupClasses, SddmmPlan,
+                      _check_aligned16, _check_cuda, _launch, _pow2_tokens,
+                      _randn, _sm_count, _values, token_slices)
 from .ref import dequant_leaf_blocks
 
-__all__ = ["ChainTables", "ChainTransposeTables",
+__all__ = ["ChainDims", "ChainTables", "ChainTransposeTables",
            "chain_tables", "chain_transpose_tables",
            "chain_layout_cache_key", "chain_unpack_dense",
            "chain_pack_compact", "chain_ref_linear", "chain_gather_mm_rhs",
@@ -98,6 +100,54 @@ def _leaf(layout) -> tuple[int, int]:
     return g, c
 
 
+@dataclasses.dataclass(frozen=True)
+class ChainDims:
+    """The reference's ``ChainDims`` fields that the autotuner's key and the
+    perf model read (not its unrolled row groups): M, K, the head factor's
+    tile (``tile_m`` x ``tile_k``) and degree ``d_head``, the stored
+    columns a head slot (``inner``) and the leaf block (``leaf_rows`` x
+    ``leaf_cols``), with the ``KernelDims`` aliases ``group_rows``,
+    ``chunk_cols``, ``d_o`` and ``d_i``."""
+
+    m: int
+    k: int
+    tile_m: int
+    tile_k: int
+    d_head: int
+    inner: int
+    leaf_rows: int
+    leaf_cols: int
+
+    @property
+    def group_rows(self) -> int:
+        return self.leaf_rows
+
+    @property
+    def chunk_cols(self) -> int:
+        return self.leaf_cols
+
+    @property
+    def d_o(self) -> int:
+        return self.d_head
+
+    @property
+    def d_i(self) -> int:
+        return self.inner // self.leaf_cols
+
+    @property
+    def data_cols(self) -> int:
+        return self.d_head * self.inner
+
+    @classmethod
+    def from_layout(cls, layout) -> "ChainDims":
+        head = layout.graphs[0]
+        d_head = int(np.asarray(layout.adjs[0]).shape[1])
+        g, c = _leaf(layout)
+        return cls(layout.m, layout.k, layout.m // head.n_left,
+                   layout.k // head.n_right, d_head,
+                   layout.nnz_per_row // d_head, g, c)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ChainTables:
     """A chain layout's kernel table on one device: ``col0 (M/G, n_chunks)``
@@ -105,7 +155,8 @@ class ChainTables:
     with the dimensions M, K, G (rows of a leaf block) and C (its
     columns), and the row-group classes (``RowGroupClasses``) of ``col0``.
     ``transposed`` marks the tables of a transposed layout (dX), whose
-    launches count apart.  Built once per layout and device
+    launches count apart; ``dims`` are the layout's ``ChainDims`` (the
+    autotuner's key).  Built once per layout and device
     (``chain_tables``) and passed to every call."""
 
     m: int
@@ -115,6 +166,7 @@ class ChainTables:
     col0: torch.Tensor
     classes: RowGroupClasses
     transposed: bool = False
+    dims: Optional[ChainDims] = None
 
     @property
     def n_chunks(self) -> int:
@@ -146,7 +198,8 @@ class ChainTables:
         return cls(m, layout.k, G, C,
                    torch.as_tensor(col0, dtype=torch.int32,
                                    device=device).contiguous(),
-                   RowGroupClasses.build(col0, device), transposed)
+                   RowGroupClasses.build(col0, device), transposed,
+                   ChainDims.from_layout(layout))
 
     def col_index(self) -> torch.Tensor:
         """(M, nnz_row) int64 input column of each compact slot, on the
@@ -369,10 +422,16 @@ def chainmm_rhs(tables: ChainTables, x: torch.Tensor,
     ``chain_rhs_path`` names (the tensor-core one counted again in
     ``launches_mma``).  ``scales`` (M/G, n_chunks) float32 selects the
     int8 path (int8 ``w_data``, its own kernel, counted in
-    ``launches_q``).
+    ``launches_q``).  The tensor-core body's class rows are the tile
+    ``autotune.launch_tile`` resolves (kind ``chain_rhs``; by default
+    ``chain_rhs_tile_rows``').
     """
     _check_args(tables, x, w_data)
+    n = x.shape[0]
+    vdt = torch.int8 if scales is not None else None
     if x.device.type == "cpu":
+        if n:
+            autotune.launch_tile(tables, "chain_rhs", n, x.dtype, vdt)
         return chainmm_rhs_reference(tables, x, w_data, scales=scales)
     dt = x.dtype
     if scales is not None:
@@ -380,22 +439,18 @@ def chainmm_rhs(tables: ChainTables, x: torch.Tensor,
         _check_cuda("chainmm_rhs", tables, dt,
                     {"x": x, "w_data": w_data, "scales": scales},
                     {"w_data": torch.int8, "scales": torch.float32})
-        n = x.shape[0]
         out = torch.empty((n, tables.m), dtype=dt, device=x.device)
         if n > 0:
-            _launch("chainmm_rhs", "chainmm_rhs_q", "ipppppiiiiiip",
-                    _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
-                    scales.data_ptr(), tables.col0.data_ptr(),
-                    out.data_ptr(), n, tables.k, tables.m, tables.n_chunks,
-                    tables.group_rows, tables.chunk_cols, x.device)
+            autotune.launch_tile(tables, "chain_rhs", n, dt, vdt)
+            _chain_rhs_q_body(tables, x, w_data, scales, out)
             chainmm_rhs.launches_q += 1
         return out
     _check_cuda("chainmm_rhs", tables, dt, {"x": x, "w_data": w_data})
-    n = x.shape[0]
     out = torch.empty((n, tables.m), dtype=dt, device=x.device)
     if n > 0:
         path = chain_rhs_path(tables, n, dt)
-        _chain_rhs_body(path, tables, x, w_data, out)
+        tile = autotune.launch_tile(tables, "chain_rhs", n, dt).tile
+        _chain_rhs_body(path, tables, x, w_data, out, (tile or (None,))[0])
         if tables.transposed:
             chainmm_rhs.launches_dx += 1
         else:
@@ -406,12 +461,16 @@ def chainmm_rhs(tables: ChainTables, x: torch.Tensor,
 
 
 def _chain_rhs_body(path: str, tables: ChainTables, x: torch.Tensor,
-                    w_data: torch.Tensor, out: torch.Tensor) -> None:
+                    w_data: torch.Tensor, out: torch.Tensor,
+                    tile_rows: Optional[int] = None) -> None:
     """Launch body ``path`` ("fma" or "mma") of ``chainmm_rhs`` on checked
-    CUDA operands of one dtype (N > 0), writing ``out``.  It moves no
-    counter: a launch of the other body on the same operands is a
+    CUDA operands of one dtype (N > 0), writing ``out``; ``tile_rows`` are
+    the mma body's class rows (``chain_rhs_tile_rows``' unless given).  It
+    moves no counter: a launch of the other body on the same operands is a
     comparison."""
     cl = tables.classes
+    if tile_rows is None:
+        tile_rows = chain_rhs_tile_rows(tables)
     if path == "mma":
         _check_aligned16("chainmm_rhs", {"x": x, "w_data": w_data})
     _launch("chainmm_rhs", "chainmm_rhs", "ipppppppiiiiiiiiiip",
@@ -419,8 +478,20 @@ def _chain_rhs_body(path: str, tables: ChainTables, x: torch.Tensor,
             tables.col0.data_ptr(), cl.col0.data_ptr(), cl.groups.data_ptr(),
             cl.start.data_ptr(), out.data_ptr(), x.shape[0], tables.k,
             tables.m, tables.n_chunks, tables.group_rows, tables.chunk_cols,
-            cl.n_classes, cl.max_groups, _PATH_CODES[path],
-            chain_rhs_tile_rows(tables), x.device)
+            cl.n_classes, cl.max_groups, _PATH_CODES[path], tile_rows,
+            x.device)
+
+
+def _chain_rhs_q_body(tables: ChainTables, x: torch.Tensor,
+                      w_data: torch.Tensor, scales: torch.Tensor,
+                      out: torch.Tensor) -> None:
+    """Launch the int8 path of ``chainmm_rhs`` on checked CUDA operands
+    (N > 0), writing ``out``.  It moves no counter."""
+    _launch("chainmm_rhs", "chainmm_rhs_q", "ipppppiiiiiip",
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w_data.data_ptr(),
+            scales.data_ptr(), tables.col0.data_ptr(), out.data_ptr(),
+            x.shape[0], tables.k, tables.m, tables.n_chunks,
+            tables.group_rows, tables.chunk_cols, x.device)
 
 
 chainmm_rhs.launches = chainmm_rhs.launches_dx = chainmm_rhs.launches_q = 0
@@ -470,19 +541,27 @@ def chain_sddmm_path(tables: ChainTables, n_tokens: int,
     return "mma"
 
 
+#: waves of blocks the token slices of the dW tensor-core body may bring
+#: its grid to (the autotuner's candidates; the rule's is
+#: ``SDDMM_MMA_WAVES``)
+CHAIN_SDDMM_WAVES = (1, 2, 4)
+
+
 def chain_sddmm_mma_plan(tables: ChainTables, n_tokens: int,
-                         sm_count: int) -> SddmmPlan:
+                         sm_count: int,
+                         waves: int = SDDMM_MMA_WAVES) -> SddmmPlan:
     """The tensor-core body's plan on a card of ``sm_count`` SMs: a
     ``CHAIN_SDDMM_MMA_TILE``-square tile of a class's rows by its stored
     columns a block, every class given the row tiles of the largest, cut
-    into token slices as ``token_slices`` says (wk/wv and wq/wo of
-    tinyllama-1.1b at 4096 tokens: 32 and 128 blocks a slice)."""
+    into token slices as ``token_slices`` says for ``waves`` waves
+    (wk/wv and wq/wo of tinyllama-1.1b at 4096 tokens: 32 and 128 blocks a
+    slice)."""
     t = CHAIN_SDDMM_MMA_TILE
     cl = tables.classes
     base = (cl.n_classes * -(-cl.max_groups * tables.group_rows // t)
             * -(-tables.data_cols // t))
     return token_slices(t, base, n_tokens, sm_count,
-                        CHAIN_SDDMM_MMA_STAGE_TOKENS)
+                        CHAIN_SDDMM_MMA_STAGE_TOKENS, waves)
 
 
 def chain_sddmm_rhs(tables: ChainTables, g: torch.Tensor,
@@ -494,20 +573,27 @@ def chain_sddmm_rhs(tables: ChainTables, g: torch.Tensor,
     version; CUDA tensors launch the kernel, which takes float32 or
     bfloat16 g and x of one dtype, both contiguous, on the body
     ``chain_sddmm_path`` names (the tensor-core one counted again in
-    ``launches_mma``).
+    ``launches_mma``, with the token slices of the tile
+    ``autotune.launch_tile`` resolves, kind ``chain_sddmm``: by default
+    ``SDDMM_MMA_WAVES`` waves).
     """
     _check_sddmm_args(tables, g, x)
+    n = x.shape[0]
     if g.device.type == "cpu":
+        if n:
+            autotune.launch_tile(tables, "chain_sddmm", n, g.dtype)
         return chain_sddmm_rhs_reference(tables, g, x)
     dt = g.dtype
     _check_cuda("chain_sddmm_rhs", tables, dt, {"g": g, "x": x})
-    n = x.shape[0]
     if n == 0:
         return torch.zeros((tables.m, tables.data_cols), dtype=dt,
                            device=g.device)
     dw = torch.empty((tables.m, tables.data_cols), dtype=dt, device=g.device)
     path = chain_sddmm_path(tables, n, dt)
-    _chain_sddmm_body(path, tables, g, x, dw)
+    tune = autotune.launch_tile(tables, "chain_sddmm", n, dt)
+    plan = (chain_sddmm_mma_plan(tables, n, _sm_count(g.device),
+                                 tune.tile[1]) if path == "mma" else None)
+    _chain_sddmm_body(path, tables, g, x, dw, plan)
     chain_sddmm_rhs.launches += 1
     if path == "mma":
         chain_sddmm_rhs.launches_mma += 1
@@ -515,20 +601,25 @@ def chain_sddmm_rhs(tables: ChainTables, g: torch.Tensor,
 
 
 def _chain_sddmm_body(path: str, tables: ChainTables, g: torch.Tensor,
-                      x: torch.Tensor, dw: torch.Tensor) -> None:
+                      x: torch.Tensor, dw: torch.Tensor,
+                      plan: Optional[SddmmPlan] = None) -> None:
     """Launch body ``path`` ("fma" or "mma") of ``chain_sddmm_rhs`` on
     checked CUDA operands of one dtype (N > 0), writing ``dw``; the mma
-    body's token-slice workspace is allocated here.  It moves no counter:
-    a launch of the other body on the same operands is a comparison."""
+    body's token-slice workspace is allocated here, for ``plan``
+    (``chain_sddmm_mma_plan``'s unless given).  It moves no counter: a
+    launch of the other body on the same operands is a comparison."""
     n = x.shape[0]
     cl = tables.classes
-    part, plan = None, _NO_PLAN
+    part = None
     if path == "mma":
         _check_aligned16("chain_sddmm_rhs", {"g": g, "x": x})
-        plan = chain_sddmm_mma_plan(tables, n, _sm_count(g.device))
+        if plan is None:
+            plan = chain_sddmm_mma_plan(tables, n, _sm_count(g.device))
         shape = plan.workspace_shape(tables)
         if shape is not None:
             part = torch.empty(shape, dtype=torch.float32, device=g.device)
+    else:
+        plan = _NO_PLAN
     _launch("chain_sddmm_rhs", "chain_sddmm_rhs", "ippppppppiiiiiiiiiiip",
             _DTYPE_CODES[g.dtype], g.data_ptr(), x.data_ptr(),
             tables.col0.data_ptr(), cl.col0.data_ptr(), cl.groups.data_ptr(),
@@ -540,3 +631,60 @@ def _chain_sddmm_body(path: str, tables: ChainTables, g: torch.Tensor,
 
 
 chain_sddmm_rhs.launches = chain_sddmm_rhs.launches_mma = 0
+
+
+# -- the autotuner's kinds (``kernels/autotune.py``) ----------------------------
+
+def _chain_operands(tables, n, e, dtype, value_dtype, gen) -> dict:
+    dev = tables.col0.device
+    ops = _values(tables.dims, (), dtype, value_dtype, gen, dev)
+    ops["x"] = _randn(gen, (n, tables.k), dtype, dev)
+    ops["out"] = torch.empty((n, tables.m), dtype=dtype, device=dev)
+    return ops
+
+
+def _chain_dw_operands(tables, n, e, dtype, value_dtype, gen) -> dict:
+    dev = tables.col0.device
+    return {"g": _randn(gen, (n, tables.m), dtype, dev),
+            "x": _randn(gen, (n, tables.k), dtype, dev),
+            "dw": torch.empty((tables.m, tables.data_cols), dtype=dtype,
+                              device=dev)}
+
+
+def _launch_chain_rhs(tables, body, tile, ops) -> None:
+    if body == "q":
+        _chain_rhs_q_body(tables, ops["x"], ops["w"], ops["scales"],
+                          ops["out"])
+    else:
+        _chain_rhs_body(body, tables, ops["x"], ops["w"], ops["out"],
+                        (tile or (None,))[0])
+
+
+def _launch_chain_sddmm(tables, body, tile, ops) -> None:
+    n = ops["x"].shape[0]
+    plan = (chain_sddmm_mma_plan(tables, n, _sm_count(ops["x"].device),
+                                 tile[1]) if body == "mma" else None)
+    _chain_sddmm_body(body, tables, ops["g"], ops["x"], ops["dw"], plan)
+
+
+def _chain_dw_block_n(tables, tile, n, e) -> int:
+    if not tile:
+        return n
+    return chain_sddmm_mma_plan(tables, n, _sm_count(tables.col0.device),
+                                tile[1]).slice_len
+
+
+autotune.register_kind(autotune.KindSpec(
+    name="chain_rhs", path=chain_rhs_path,
+    rule=lambda tables, n: (chain_rhs_tile_rows(tables),),
+    tiles=lambda tables: ((32,), (64,)),
+    block_n=lambda tables, tile, n, e: (CHAIN_RHS_MMA_BLOCK_TOKENS if tile
+                                        else _pow2_tokens(n)),
+    operands=_chain_operands, launch=_launch_chain_rhs))
+autotune.register_kind(autotune.KindSpec(
+    name="chain_sddmm", path=chain_sddmm_path,
+    rule=lambda tables, n: (CHAIN_SDDMM_MMA_TILE, SDDMM_MMA_WAVES),
+    tiles=lambda tables: tuple((CHAIN_SDDMM_MMA_TILE, w)
+                               for w in CHAIN_SDDMM_WAVES),
+    block_n=_chain_dw_block_n,
+    operands=_chain_dw_operands, launch=_launch_chain_sddmm))

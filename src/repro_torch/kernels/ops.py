@@ -52,14 +52,15 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from .chainmm import (ChainTables, ChainTransposeTables, chain_sddmm_rhs,
+from .chainmm import (ChainTables, ChainTransposeTables, chain_init,
+                      chain_sddmm_rhs, chain_tables, chain_transpose_tables,
                       chainmm_rhs)
 from .rbgp4mm import (EPILOGUE_ACTS, KernelTables, TransposeTables,
                       rbgp4_sddmm, rbgp4_sddmm_rhs, rbgp4_sddmm_rhs_stacked,
                       rbgp4mm, rbgp4mm_rhs, rbgp4mm_rhs_stacked)
 
 __all__ = ["RBGP4Linear", "RBGP4LinearStacked", "ChainLinear",
-           "RBGP4MatMul", "RBGP4Op", "get_op", "compact_linear",
+           "RBGP4MatMul", "RBGP4Op", "ChainOp", "get_op", "compact_linear",
            "compact_linear_stacked", "compact_matmul", "chain_linear",
            "layout_cache_key",
            "needs_grad", "act_bwd"]
@@ -388,6 +389,59 @@ class RBGP4Op:
         w = torch.randn(self.layout.data_shape, generator=generator,
                         device=self.device, dtype=torch.float32) * scale
         return w.to(dtype)
+
+    def measure(self, n: int = 512, *, dtype=torch.float32, reps: int = 3,
+                seed: int = 0, kind: str = "rhs", n_experts: int = 4) -> dict:
+        """Fenced time of one of this op's products against the roofline
+        model: ``obs.kernelstats.measure_op`` (imported here, so the
+        kernels depend on obs only when asked).  ``kind`` is ``rhs`` (the
+        reference's ``linear``), ``sddmm``, ``rhs_stacked``,
+        ``sddmm_stacked``, ``lhs`` or ``sddmm_lhs``.  Returns the record
+        row (``measured_us`` / ``model_us`` / ``efficiency``)."""
+        from repro_torch.obs import kernelstats
+
+        return kernelstats.measure_op(self, n, dtype=dtype, reps=reps,
+                                      seed=seed, kind=kind,
+                                      n_experts=n_experts)
+
+
+class ChainOp:
+    """One chain layout's kernels on one device (the reference's
+    ``ChainOp``): ``linear`` is the token-major product with its VJP
+    (``chain_linear``); the transposed tables are built at their first
+    use.  ``device`` defaults to the card."""
+
+    chain = True
+
+    def __init__(self, layout, device=None):
+        self.layout = layout
+        self.device = resolve_device(device)
+        self.tables = chain_tables(layout, self.device)
+        self.dims = self.tables.dims
+
+    def transpose_tables(self) -> ChainTransposeTables:
+        return chain_transpose_tables(self.layout, self.device)
+
+    def linear(self, x: torch.Tensor, w_data: torch.Tensor) -> torch.Tensor:
+        """y = x @ W_s^T; x (..., K) -> (..., M)."""
+        return chain_linear(self.tables, x, w_data,
+                            tables_t=self.transpose_tables)
+
+    def init_data(self, generator: Optional[torch.Generator] = None,
+                  dtype=torch.float32,
+                  scale: Optional[float] = None) -> torch.Tensor:
+        """He init over the present connections, on the op's device."""
+        return chain_init(self.layout, generator=generator,
+                          device=self.device, dtype=dtype, scale=scale)
+
+    def measure(self, n: int = 512, *, dtype=torch.float32, reps: int = 3,
+                seed: int = 0, kind: str = "chain_rhs") -> dict:
+        """``RBGP4Op.measure`` for the chain products: ``kind``
+        ``chain_rhs`` (``linear``) or ``chain_sddmm``."""
+        from repro_torch.obs import kernelstats
+
+        return kernelstats.measure_op(self, n, dtype=dtype, reps=reps,
+                                      seed=seed, kind=kind)
 
 
 _OP_CACHE: dict[tuple, RBGP4Op] = {}

@@ -2,10 +2,12 @@
 
 The port of ``repro/kernels/perf_model.py``, with the reference's formulas
 and the H100's machine constants in place of the TPU's.  It is a model
-from the data sheet, not a measurement, and nothing on a kernel's launch
-path reads it: ``sparsity.solve_budget(cost_model="perf_model")`` weighs
-modeled kernel time with it, and ``chip_smoke.py`` takes its memory rate
-and bf16 peak for every bound it prints.
+from the data sheet, not a measurement, and no launch's tile depends on
+it: ``sparsity.solve_budget(cost_model="perf_model")`` weighs modeled
+kernel time with it, the autotuner records its estimate beside each
+resolution (``kernels/autotune.py``, ``obs/kernelstats.py``), and
+``chip_smoke.py`` takes its memory rate and bf16 peak for every bound it
+prints.
 
   memory time   = (W reads + I reads + O writes) / HBM_BW
     W: nnz * bytes, read once per N-tile pass (``block_n`` divides the

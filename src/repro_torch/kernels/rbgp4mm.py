@@ -67,7 +67,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import autotune, build
 from .ref import (dequant_leaf_blocks, gather_mm, gather_mm_rhs,
                   gather_mm_rhs_stacked, gather_sddmm, gather_sddmm_rhs,
                   gather_sddmm_rhs_stacked)
@@ -473,12 +473,12 @@ def stacked_sddmm_mma_plan(dims: KernelDims, n_experts: int, n_tokens: int,
 
 
 def token_slices(block_cols: int, base: int, n_tokens: int, sm_count: int,
-                 stage: int) -> SddmmPlan:
+                 stage: int, waves: int = SDDMM_MMA_WAVES) -> SddmmPlan:
     """The token-slice plan of a dW mma body whose grid has ``base``
-    blocks a slice: as many slices as bring it to ``SDDMM_MMA_WAVES``
-    waves on ``sm_count`` SMs, each of at least ``SDDMM_MMA_MIN_SLICE``
-    tokens and a whole number of ``stage``-token stages."""
-    want = -(-SDDMM_MMA_WAVES * sm_count // base)
+    blocks a slice: as many slices as bring it to ``waves`` waves on
+    ``sm_count`` SMs, each of at least ``SDDMM_MMA_MIN_SLICE`` tokens and
+    a whole number of ``stage``-token stages."""
+    want = -(-waves * sm_count // base)
     most = -(-n_tokens // SDDMM_MMA_MIN_SLICE)
     slices = max(1, min(want, most))
     per_slice = -(-n_tokens // slices)
@@ -688,15 +688,22 @@ def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
     ``scales`` (M/G, d_o*d_i) float32 selects the int8 path: ``w_data``
     holds int8 leaf blocks, each dequantized against its scale before the
     f32 sums; Y only, no epilogue (its own kernel and ``launches_q``).
+
+    Every launch resolves through ``autotune.launch_tile`` (kind ``rhs``,
+    ``rhs.t`` on transposed tables), on the CPU too; the tensor-core body
+    has one tile, 128 tokens a block.
     """
     dims = tables.dims
     _check_args(dims, x, w_data, act)
+    n, m = x.shape[0], dims.m
+    vdt = torch.int8 if scales is not None else None
     if x.device.type == "cpu":
+        if n > 0:
+            autotune.launch_tile(tables, "rhs", n, x.dtype, vdt)
         return rbgp4mm_rhs_reference(tables, x, w_data, scales=scales,
                                      bias=bias, act=act, residual=residual,
                                      save_preact=save_preact)
     dt = x.dtype
-    n, m = x.shape[0], dims.m
     if scales is not None:
         _check_scales(dims, w_data, scales, bias=bias, act=act,
                       residual=residual, save_preact=save_preact)
@@ -705,11 +712,8 @@ def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
                     {"w_data": torch.int8, "scales": torch.float32})
         out = torch.empty((n, m), dtype=dt, device=x.device)
         if n > 0:
-            _launch("rbgp4mm_rhs", "rbgp4mm_rhs_q", "ipppppiiiiiip",
-                    _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
-                    scales.data_ptr(), tables.col0.data_ptr(),
-                    out.data_ptr(), n, dims.k, m, dims.d_o * dims.d_i,
-                    dims.group_rows, dims.chunk_cols, x.device)
+            autotune.launch_tile(tables, "rhs", n, dt, vdt)
+            _rhs_q_body(tables, x, w_data, scales, out)
             rbgp4mm_rhs.launches_q += 1
         return out
     operands = {"x": x, "w_data": w_data}
@@ -726,6 +730,7 @@ def rbgp4mm_rhs(tables: KernelTables, x: torch.Tensor,
     out = torch.empty((n, m), dtype=dt, device=x.device)
     z = torch.empty((n, m), dtype=dt, device=x.device) if save_preact else None
     if n > 0:
+        autotune.launch_tile(tables, "rhs", n, dt)
         _rhs_body(path, tables, x, w_data, out, z, bias=bias,
                   residual=residual, act=act)
         if tables.transposed:
@@ -762,6 +767,26 @@ def _rhs_body(path: str, tables: KernelTables, x: torch.Tensor,
             _PATH_CODES[path], x.device)
 
 
+def _rhs_q_body(tables: KernelTables, x: torch.Tensor, w_data: torch.Tensor,
+                scales: torch.Tensor, out: torch.Tensor,
+                n_experts: int = 0) -> None:
+    """Launch the int8 path of ``rbgp4mm_rhs`` (``n_experts`` 0), or of
+    ``rbgp4mm_rhs_stacked`` for ``n_experts`` experts, on checked CUDA
+    operands (N > 0), writing ``out``.  It moves no counter."""
+    dims = tables.dims
+    n = x.shape[-2]
+    common = (_DTYPE_CODES[x.dtype], x.data_ptr(), w_data.data_ptr(),
+              scales.data_ptr(), tables.col0.data_ptr(), out.data_ptr())
+    shape = (n, dims.k, dims.m, dims.d_o * dims.d_i, dims.group_rows,
+             dims.chunk_cols, x.device)
+    if n_experts:
+        _launch("rbgp4mm_rhs", "rbgp4mm_rhs_stacked_q", "ipppppiiiiiiip",
+                *common, n_experts, *shape)
+    else:
+        _launch("rbgp4mm_rhs", "rbgp4mm_rhs_q", "ipppppiiiiiip", *common,
+                *shape)
+
+
 rbgp4mm_rhs.launches = rbgp4mm_rhs.launches_dx = rbgp4mm_rhs.launches_q = 0
 rbgp4mm_rhs.launches_mma = 0
 
@@ -793,21 +818,28 @@ def rbgp4_sddmm_rhs(tables: KernelTables, g: torch.Tensor,
 
     ``tables`` are the forward layout's kernel tables.  CPU tensors run the
     plain version; CUDA tensors launch the kernel, which takes float32 or
-    bfloat16 g and x of one dtype, both contiguous.
+    bfloat16 g and x of one dtype, both contiguous.  The tensor-core
+    body's tile (block columns, stage tokens) is the one
+    ``autotune.launch_tile`` resolves (kind ``sddmm``).
     """
     dims = tables.dims
     _check_sddmm_args(dims, g, x)
+    n = x.shape[0]
     if g.device.type == "cpu":
+        if n:
+            autotune.launch_tile(tables, "sddmm", n, g.dtype)
         return rbgp4_sddmm_rhs_reference(tables, g, x)
     dt = g.dtype
     _check_cuda("rbgp4_sddmm_rhs", tables, dt, {"g": g, "x": x})
-    n = x.shape[0]
     if n == 0:
         return torch.zeros((dims.m, dims.data_cols), dtype=dt,
                            device=g.device)
     dw = torch.empty((dims.m, dims.data_cols), dtype=dt, device=g.device)
     path = sddmm_path(dims, n, dt)
-    _sddmm_body(path, tables, g, x, dw)
+    tune = autotune.launch_tile(tables, "sddmm", n, dt)
+    plan = (sddmm_mma_plan(dims, n, _sm_count(g.device), tile=tune.tile)
+            if path == "mma" else None)
+    _sddmm_body(path, tables, g, x, dw, plan)
     rbgp4_sddmm_rhs.launches += 1
     if path == "mma":
         rbgp4_sddmm_rhs.launches_mma += 1
@@ -878,19 +910,23 @@ def rbgp4mm(tables: KernelTables, x: torch.Tensor,
     tensors launch the kernel, which takes float32 or bfloat16 x and
     w_data of one dtype, both contiguous, and writes O in that dtype.  The
     body is ``fm_path``'s (bfloat16 on the tensor cores, counted again in
-    ``launches_mma``, with the tile ``fm_mma_tile`` names).
+    ``launches_mma``, with the tile ``autotune.launch_tile`` resolves,
+    kind ``lhs``: by default ``fm_mma_tile``'s).
     """
     dims = tables.dims
     _check_fm_args(dims, x, w_data)
+    n = x.shape[1]
     if x.device.type == "cpu":
+        if n:
+            autotune.launch_tile(tables, "lhs", n, x.dtype)
         return rbgp4mm_reference(tables, x, w_data)
     dt = x.dtype
     _check_cuda("rbgp4mm", tables, dt, {"x": x, "w_data": w_data})
-    n = x.shape[1]
     out = torch.empty((dims.m, n), dtype=dt, device=x.device)
     if n > 0:
         path = fm_path(dims, n, dt)
-        _fm_body(path, tables, x, w_data, out)
+        tile = autotune.launch_tile(tables, "lhs", n, dt).tile
+        _fm_body(path, tables, x, w_data, out, tile or None)
         if tables.transposed:
             rbgp4mm.launches_dx += 1
         else:
@@ -973,17 +1009,23 @@ def rbgp4_sddmm(tables: KernelTables, g: torch.Tensor,
     """
     dims = tables.dims
     _check_fm_sddmm_args(dims, g, x)
+    n = x.shape[1]
     if g.device.type == "cpu":
+        if n:
+            autotune.launch_tile(tables, "sddmm_lhs", n, g.dtype)
         return rbgp4_sddmm_reference(tables, g, x)
     dt = g.dtype
     _check_cuda("rbgp4_sddmm", tables, dt, {"g": g, "x": x})
-    n = x.shape[1]
     if n == 0:
         return torch.zeros((dims.m, dims.data_cols), dtype=dt,
                            device=g.device)
     dw = torch.empty((dims.m, dims.data_cols), dtype=dt, device=g.device)
     path = fm_sddmm_path(dims, n, dt)
-    _fm_sddmm_body(path, tables, g, x, dw)
+    tune = autotune.launch_tile(tables, "sddmm_lhs", n, dt)
+    plan = (fm_sddmm_plan(dims, n, _sm_count(g.device),
+                          block_cols=tune.tile[0])
+            if path == "mma" else None)
+    _fm_sddmm_body(path, tables, g, x, dw, plan)
     rbgp4_sddmm.launches += 1
     if path == "mma":
         rbgp4_sddmm.launches_mma += 1
@@ -1080,7 +1122,9 @@ def rbgp4mm_rhs_stacked(tables: KernelTables, x: torch.Tensor,
     The body is ``rhs_path``'s for ``N`` rows an expert: bfloat16 from
     ``MMA_MIN_TOKENS`` rows on the layouts it names runs on the tensor
     cores (counted again in ``launches_mma``), each expert's outputs the
-    bits of the unstacked launch of that body on the expert's slice.
+    bits of the unstacked launch of that body on the expert's slice, with
+    the token tile ``autotune.launch_tile`` resolves (kind
+    ``rhs_stacked``; by default ``stacked_mma_block_tokens``').
 
     ``scales`` (E, M/G, d_o*d_i) float32 selects the int8 path, as
     ``rbgp4mm_rhs``'s (each expert's scales at its own offset): Y only,
@@ -1088,13 +1132,16 @@ def rbgp4mm_rhs_stacked(tables: KernelTables, x: torch.Tensor,
     """
     dims = tables.dims
     _check_stacked_args(dims, x, w_data, act)
+    e, n, m = x.shape[0], x.shape[1], dims.m
+    vdt = torch.int8 if scales is not None else None
     if x.device.type == "cpu":
+        if n > 0 and e > 0:
+            autotune.launch_tile(tables, "rhs_stacked", n, x.dtype, vdt, e)
         return rbgp4mm_rhs_stacked_reference(tables, x, w_data,
                                              scales=scales, bias=bias,
                                              act=act,
                                              save_preact=save_preact)
     dt = x.dtype
-    e, n, m = x.shape[0], x.shape[1], dims.m
     if scales is not None:
         _check_scales(dims, w_data, scales, (e,), bias=bias, act=act,
                       save_preact=save_preact)
@@ -1103,11 +1150,8 @@ def rbgp4mm_rhs_stacked(tables: KernelTables, x: torch.Tensor,
                     {"w_data": torch.int8, "scales": torch.float32})
         out = torch.empty((e, n, m), dtype=dt, device=x.device)
         if n > 0 and e > 0:
-            _launch("rbgp4mm_rhs", "rbgp4mm_rhs_stacked_q", "ipppppiiiiiiip",
-                    _DTYPE_CODES[dt], x.data_ptr(), w_data.data_ptr(),
-                    scales.data_ptr(), tables.col0.data_ptr(),
-                    out.data_ptr(), e, n, dims.k, m, dims.d_o * dims.d_i,
-                    dims.group_rows, dims.chunk_cols, x.device)
+            autotune.launch_tile(tables, "rhs_stacked", n, dt, vdt, e)
+            _rhs_q_body(tables, x, w_data, scales, out, e)
             rbgp4mm_rhs_stacked.launches_q += 1
         return out
     operands = {"x": x, "w_data": w_data}
@@ -1120,8 +1164,10 @@ def rbgp4mm_rhs_stacked(tables: KernelTables, x: torch.Tensor,
     out = torch.empty((e, n, m), dtype=dt, device=x.device)
     z = torch.empty_like(out) if save_preact else None
     if n > 0 and e > 0:
+        tile = autotune.launch_tile(tables, "rhs_stacked", n, dt,
+                                    n_experts=e).tile
         _rhs_stacked_body(path, tables, x, w_data, out, z, bias=bias,
-                          act=act)
+                          act=act, block_tokens=(tile or (None,))[0])
         if tables.transposed:
             rbgp4mm_rhs_stacked.launches_dx += 1
         else:
@@ -1190,24 +1236,32 @@ def rbgp4_sddmm_rhs_stacked(tables: KernelTables, g: torch.Tensor,
     plain version; CUDA tensors launch the kernel, which takes float32 or
     bfloat16 g and x of one dtype, both contiguous.  The body is
     ``sddmm_path``'s for ``N`` rows an expert: bfloat16 from
-    ``MMA_MIN_TOKENS`` rows on runs on the tensor cores with the plan
-    ``stacked_sddmm_mma_plan`` names (counted again in ``launches_mma``),
+    ``MMA_MIN_TOKENS`` rows on runs on the tensor cores with the plan of
+    the tile ``autotune.launch_tile`` resolves (kind ``sddmm_stacked``; by
+    default ``stacked_sddmm_mma_plan``'s; counted again in
+    ``launches_mma``),
     each expert's dW the bits of the unstacked launch of that body and
     plan on the expert's slice.
     """
     dims = tables.dims
     _check_stacked_sddmm_args(dims, g, x)
+    e, n = x.shape[0], x.shape[1]
     if g.device.type == "cpu":
+        if n and e:
+            autotune.launch_tile(tables, "sddmm_stacked", n, g.dtype,
+                                 n_experts=e)
         return rbgp4_sddmm_rhs_stacked_reference(tables, g, x)
     dt = g.dtype
     _check_cuda("rbgp4_sddmm_rhs_stacked", tables, dt, {"g": g, "x": x})
-    e, n = x.shape[0], x.shape[1]
     if n == 0 or e == 0:
         return torch.zeros((e, dims.m, dims.data_cols), dtype=dt,
                            device=g.device)
     dw = torch.empty((e, dims.m, dims.data_cols), dtype=dt, device=g.device)
     path = sddmm_path(dims, n, dt)
-    _sddmm_stacked_body(path, tables, g, x, dw)
+    tune = autotune.launch_tile(tables, "sddmm_stacked", n, dt, n_experts=e)
+    plan = (sddmm_mma_plan(dims, n, _sm_count(g.device), e, tune.tile)
+            if path == "mma" else None)
+    _sddmm_stacked_body(path, tables, g, x, dw, plan)
     rbgp4_sddmm_rhs_stacked.launches += 1
     if path == "mma":
         rbgp4_sddmm_rhs_stacked.launches_mma += 1
@@ -1243,3 +1297,193 @@ def _sddmm_stacked_body(path: str, tables: KernelTables, g: torch.Tensor,
 
 
 rbgp4_sddmm_rhs_stacked.launches = rbgp4_sddmm_rhs_stacked.launches_mma = 0
+
+
+# -- the autotuner's kinds (``kernels/autotune.py``) ----------------------------
+#
+# Each kind names its body, today's rule's tile and the tiles its launcher
+# builds, and launches one candidate on seeded operands through the bodies
+# above, which move no counter (a timed launch is no launch of the model).
+
+def _randn(gen, shape, dtype, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32).to(dtype)
+
+
+def _values(dims, lead: tuple, dtype, value_dtype, gen, device) -> dict:
+    """Seeded compact values of ``lead + (M, nnz_row)``: int8 leaf blocks
+    with unit scales for an int8 launch (the bytes, not the values, are
+    what is timed), else normal values of ``dtype``."""
+    shape = (*lead, dims.m, dims.data_cols)
+    if value_dtype == torch.int8:
+        q = torch.randint(-127, 128, shape, generator=gen, device=device,
+                          dtype=torch.int64).to(torch.int8)
+        scales = torch.ones((*lead, dims.m // dims.group_rows,
+                             dims.data_cols // dims.chunk_cols),
+                            dtype=torch.float32, device=device)
+        return {"w": q, "scales": scales}
+    return {"w": _randn(gen, shape, dtype, device)}
+
+
+def _pow2_tokens(n: int, most: int = 128) -> int:
+    """Tokens a block of an FMA body covers, for the model: a power of two
+    covering ``n``, at most ``most``."""
+    b = 1
+    while b < n and b < most:
+        b *= 2
+    return b
+
+
+def _token_major(tables, n, e, dtype, value_dtype, gen) -> dict:
+    """x (N, K), its values and Y (N, M); with a leading E when ``e`` > 1
+    or for a stacked kind (``e`` given as a count, 0 for unstacked)."""
+    dims, dev = tables.dims, tables.col0.device
+    lead = (e,) if e else ()
+    ops = _values(dims, lead, dtype, value_dtype, gen, dev)
+    ops["x"] = _randn(gen, (*lead, n, dims.k), dtype, dev)
+    ops["out"] = torch.empty((*lead, n, dims.m), dtype=dtype, device=dev)
+    return ops
+
+
+def _token_major_dw(tables, n, e, dtype, gen) -> dict:
+    dims, dev = tables.dims, tables.col0.device
+    lead = (e,) if e else ()
+    return {"g": _randn(gen, (*lead, n, dims.m), dtype, dev),
+            "x": _randn(gen, (*lead, n, dims.k), dtype, dev),
+            "dw": torch.empty((*lead, dims.m, dims.data_cols), dtype=dtype,
+                              device=dev)}
+
+
+def _launch_rhs(tables, body, tile, ops) -> None:
+    if body == "q":
+        _rhs_q_body(tables, ops["x"], ops["w"], ops["scales"], ops["out"])
+    else:
+        _rhs_body(body, tables, ops["x"], ops["w"], ops["out"])
+
+
+def _launch_rhs_stacked(tables, body, tile, ops) -> None:
+    e = ops["x"].shape[0]
+    if body == "q":
+        _rhs_q_body(tables, ops["x"], ops["w"], ops["scales"], ops["out"], e)
+    else:
+        _rhs_stacked_body(body, tables, ops["x"], ops["w"], ops["out"],
+                          block_tokens=(tile or (None,))[0])
+
+
+def _launch_sddmm(tables, body, tile, ops) -> None:
+    n = ops["x"].shape[0]
+    plan = (sddmm_mma_plan(tables.dims, n, _sm_count(ops["x"].device),
+                           tile=tile) if body == "mma" else None)
+    _sddmm_body(body, tables, ops["g"], ops["x"], ops["dw"], plan)
+
+
+def _launch_sddmm_stacked(tables, body, tile, ops) -> None:
+    e, n = ops["x"].shape[0], ops["x"].shape[1]
+    plan = (sddmm_mma_plan(tables.dims, n, _sm_count(ops["x"].device), e,
+                           tile) if body == "mma" else None)
+    _sddmm_stacked_body(body, tables, ops["g"], ops["x"], ops["dw"], plan)
+
+
+def _launch_lhs(tables, body, tile, ops) -> None:
+    _fm_body(body, tables, ops["x"], ops["w"], ops["out"], tile or None)
+
+
+def _launch_sddmm_lhs(tables, body, tile, ops) -> None:
+    n = ops["x"].shape[1]
+    plan = (fm_sddmm_plan(tables.dims, n, _sm_count(ops["x"].device),
+                          block_cols=tile[0]) if body == "mma" else None)
+    _fm_sddmm_body(body, tables, ops["g"], ops["x"], ops["dw"], plan)
+
+
+def _sddmm_tiles(tables) -> tuple:
+    """(block_cols, stage tokens) of ``rbgp4_sddmm_rhs``'s tensor-core body:
+    the block columns in (128, 64, 32, 16) that divide C."""
+    c = tables.dims.chunk_cols
+    return tuple((bc, SDDMM_MMA_STAGE_TOKENS) for bc in (128, 64, 32, 16)
+                 if c % bc == 0)
+
+
+def _dw_block_n(plan_of):
+    """block_n of a dW kind: the tokens a block walks (its slice), or all
+    N on an FMA body."""
+    def block_n(tables, tile, n, e):
+        if not tile:
+            return n
+        return plan_of(tables, tile, n, e).slice_len
+    return block_n
+
+
+def _fwd_block_n(tables, tile, n, e) -> int:
+    return tile[0] if tile else _pow2_tokens(n, 64)
+
+
+def _sm(tables) -> int:
+    return _sm_count(tables.col0.device)
+
+
+autotune.register_kind(autotune.KindSpec(
+    name="rhs", path=rhs_path,
+    rule=lambda tables, n: (RHS_MMA_BLOCK_TOKENS,),
+    tiles=lambda tables: ((RHS_MMA_BLOCK_TOKENS,),),
+    block_n=_fwd_block_n,
+    operands=lambda tables, n, e, dt, vdt, gen: _token_major(
+        tables, n, 0, dt, vdt, gen),
+    launch=_launch_rhs))
+autotune.register_kind(autotune.KindSpec(
+    name="rhs_stacked", path=rhs_path,
+    rule=lambda tables, n: (stacked_mma_block_tokens(n, tables.transposed),),
+    tiles=lambda tables: ((64,), (RHS_MMA_BLOCK_TOKENS,)),
+    block_n=_fwd_block_n,
+    operands=lambda tables, n, e, dt, vdt, gen: _token_major(
+        tables, n, e, dt, vdt, gen),
+    launch=_launch_rhs_stacked))
+autotune.register_kind(autotune.KindSpec(
+    name="sddmm", path=sddmm_path,
+    rule=lambda tables, n: _sddmm_tiles(tables)[0],
+    tiles=_sddmm_tiles,
+    block_n=_dw_block_n(lambda tables, tile, n, e: sddmm_mma_plan(
+        tables.dims, n, _sm(tables), tile=tile)),
+    operands=lambda tables, n, e, dt, vdt, gen: _token_major_dw(
+        tables, n, 0, dt, gen),
+    launch=_launch_sddmm))
+autotune.register_kind(autotune.KindSpec(
+    name="sddmm_stacked", path=sddmm_path,
+    rule=lambda tables, n: stacked_sddmm_tile(tables.dims, n),
+    tiles=lambda tables: STACKED_SDDMM_TILES,
+    block_n=_dw_block_n(lambda tables, tile, n, e: sddmm_mma_plan(
+        tables.dims, n, _sm(tables), e, tile)),
+    operands=lambda tables, n, e, dt, vdt, gen: _token_major_dw(
+        tables, n, e, dt, gen),
+    launch=_launch_sddmm_stacked))
+
+
+def _feature_major(tables, n, e, dtype, value_dtype, gen) -> dict:
+    dims, dev = tables.dims, tables.col0.device
+    ops = _values(dims, (), dtype, value_dtype, gen, dev)
+    ops["x"] = _randn(gen, (dims.k, n), dtype, dev)
+    ops["out"] = torch.empty((dims.m, n), dtype=dtype, device=dev)
+    return ops
+
+
+def _feature_major_dw(tables, n, e, dtype, value_dtype, gen) -> dict:
+    dims, dev = tables.dims, tables.col0.device
+    return {"g": _randn(gen, (dims.m, n), dtype, dev),
+            "x": _randn(gen, (dims.k, n), dtype, dev),
+            "dw": torch.empty((dims.m, dims.data_cols), dtype=dtype,
+                              device=dev)}
+
+
+autotune.register_kind(autotune.KindSpec(
+    name="lhs", path=fm_path, rule=fm_mma_tile,
+    tiles=lambda tables: FM_MMA_TILES,
+    block_n=lambda tables, tile, n, e: 128 if tile else _pow2_tokens(n),
+    operands=_feature_major, launch=_launch_lhs))
+autotune.register_kind(autotune.KindSpec(
+    name="sddmm_lhs", path=fm_sddmm_path,
+    rule=lambda tables, n: (fm_sddmm_tile(tables.dims, n),
+                            FM_SDDMM_STAGE_TOKENS),
+    tiles=lambda tables: tuple((bc, FM_SDDMM_STAGE_TOKENS)
+                               for bc in FM_SDDMM_TILES),
+    block_n=_dw_block_n(lambda tables, tile, n, e: fm_sddmm_plan(
+        tables.dims, n, _sm(tables), block_cols=tile[0])),
+    operands=_feature_major_dw, launch=_launch_sddmm_lhs))

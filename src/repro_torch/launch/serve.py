@@ -13,13 +13,18 @@ and a seeded random fault schedule (``--fault-seed``, ``--fault-events``,
 ``--fault-horizon``).  ``--trace FILE`` writes a Perfetto trace of the
 step timeline (check it with ``python -m repro_torch.obs.trace FILE``),
 ``--prom FILE`` the metrics in Prometheus text, ``--json FILE`` the run's
-numbers with the lifecycle counters.
+numbers with the lifecycle counters.  ``--autotune-cache FILE`` points the
+kernel autotuner's cache at FILE (measured tiles under
+``REPRO_AUTOTUNE_MODE=measure``, on the card); ``--kernel-stats`` prints
+every launch shape's tile and roofline estimate (``obs.kernelstats``),
+with its measured time in measured mode.
 
 ``--plan plan.json`` (a ``SparsityPlan`` written by ``SparsityPlan.save``,
 by either package, or by ``repro_torch.launch.plan``) overrides
 ``--pattern``/``--sparsity``; the engine is given the plan, so with
 ``--max-live-tokens`` its admission budget grows by the weight bytes the
-plan frees (plan-aware admission).
+plan frees (plan-aware admission), and the autotuner's entries are scoped
+to the plan's fingerprint.
 
 ``--quant int8`` serves weight-only int8 storage (post-training
 quantization): the plan's compact and chain rules are stamped with
@@ -140,6 +145,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "every slot busy, then profile as many more "
                          "(torch.profiler, card only): wall time per step "
                          "against the card's kernel time")
+    ap.add_argument("--autotune-cache", default="",
+                    help="persistent kernel-autotune cache path (default "
+                         "$REPRO_AUTOTUNE_CACHE, else ~/.cache/"
+                         "repro-rbgp4-torch/autotune.json); tiles are "
+                         "measured into it under REPRO_AUTOTUNE_MODE="
+                         "measure, on the card")
+    ap.add_argument("--kernel-stats", action="store_true",
+                    help="record every kernel launch's resolved tile and "
+                         "roofline estimate (repro_torch.obs.kernelstats) "
+                         "and print the table after the run (measured "
+                         "times under REPRO_AUTOTUNE_MODE=measure); with "
+                         "--json, the report goes into the JSON too")
     return ap
 
 
@@ -229,16 +246,26 @@ def main(argv=None):
     from repro_torch.sparsity import (SparsityPlan, quantize_weights,
                                       weight_bytes)
 
+    from repro_torch.kernels import autotune
+    from repro_torch.obs import kernelstats
+
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"error: {e}") from None
+    if args.autotune_cache:
+        autotune.set_cache_path(args.autotune_cache)
+    if args.kernel_stats:
+        kernelstats.enable()
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
     if args.plan:
         cfg = apply_sparsity(cfg, plan=SparsityPlan.load(args.plan))
+        # scope the autotuner's entries to this plan: plans of equal dims
+        # but other adjacency keep their own measured tiles
+        autotune.set_plan_fingerprint(cfg.plan.fingerprint())
     elif args.sparsity > 0:
         cfg = apply_sparsity(cfg, pattern=args.pattern,
                              sparsity=args.sparsity, min_dim=64)
@@ -429,6 +456,8 @@ def main(argv=None):
             "metrics": recorder.registry.snapshot(),
             "spans": spans_agg,
             "profile": prof,
+            "kernel_stats": (kernelstats.report() if args.kernel_stats
+                             else None),
         }
         with open(args.json, "w") as f:
             json.dump(payload, f, indent=2)
@@ -441,6 +470,15 @@ def main(argv=None):
         with open(args.prom, "w") as f:
             f.write(recorder.registry.render_prometheus())
         print(f"wrote {args.prom}")
+    if args.kernel_stats:
+        rows = kernelstats.efficiency_table()
+        if rows:
+            print("kernel roofline (model µs / measured µs):")
+            for line in kernelstats.format_table(rows):
+                print(line)
+        else:
+            print("kernel roofline: no kernel launch was resolved (dense "
+                  "or masked storage only?)")
     if out:
         rid0 = min(out)
         print(f"sample continuation (req {rid0}): "

@@ -13,7 +13,15 @@ fault-tolerance contract:
     accumulation over microbatches of ``--batch``;
   * ``--plan plan.json`` (a ``SparsityPlan``) overrides ``--pattern``/
     ``--sparsity``; its fingerprint is stamped into every checkpoint, and
-    a resume under another plan is refused;
+    a resume under another plan is refused; the autotuner's entries are
+    scoped to it;
+  * ``--grad-compression int8`` runs every gradient through the int8
+    quantize / dequantize round trip with error feedback (the residual is
+    carried in the trainer state and its checkpoints);
+  * ``--autotune-cache FILE`` points the kernel autotuner's cache at FILE
+    (measured tiles under ``REPRO_AUTOTUNE_MODE=measure``, on the card);
+    ``--kernel-stats`` prints every launch shape's tile and roofline
+    estimate after training (``obs.kernelstats``);
   * ``--quant int8``, after training, exports a weight-only PTQ snapshot
     to ``<checkpoint-dir>/ptq_int8``: the float32 master values of every
     compact and chain projection as int8 leaf blocks + one f32 scale each
@@ -42,7 +50,9 @@ import tempfile
 from repro_torch.configs import (TrainConfig, apply_sparsity, get_config,
                                  reduce_config)
 from repro_torch.data import Prefetcher, TokenStream
+from repro_torch.kernels import autotune
 from repro_torch.models import LMModel
+from repro_torch.obs import kernelstats
 from repro_torch.sparsity import SparsityPlan, quantize_weights
 from repro_torch.train import CheckpointManager, Trainer
 
@@ -53,6 +63,9 @@ def build(args):
         cfg = reduce_config(cfg)
     if args.plan:
         cfg = apply_sparsity(cfg, plan=SparsityPlan.load(args.plan))
+        # plan-scoped autotuner entries: plans of equal dims but other
+        # adjacency keep their own measured tiles
+        autotune.set_plan_fingerprint(cfg.plan.fingerprint())
     elif args.sparsity > 0:
         cfg = apply_sparsity(cfg, pattern=args.pattern,
                              sparsity=args.sparsity, min_dim=args.min_dim)
@@ -66,6 +79,7 @@ def build(args):
         total_steps=args.steps,
         warmup_steps=min(100, args.steps // 10),
         microbatches=micro if args.global_batch else 1,
+        grad_compression=args.grad_compression,
         checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir,
     )
@@ -112,11 +126,29 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--simulate-failure", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "int8"],
+                    help="int8: quantize / dequantize every gradient with "
+                         "error feedback before clipping and the update")
+    ap.add_argument("--autotune-cache", default="",
+                    help="persistent kernel-autotune cache path (default "
+                         "$REPRO_AUTOTUNE_CACHE, else ~/.cache/"
+                         "repro-rbgp4-torch/autotune.json); tiles are "
+                         "measured into it under REPRO_AUTOTUNE_MODE="
+                         "measure, on the card")
+    ap.add_argument("--kernel-stats", action="store_true",
+                    help="record every kernel launch's resolved tile and "
+                         "roofline estimate (repro_torch.obs.kernelstats) "
+                         "and print the per-shape table after training")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.autotune_cache:
+        autotune.set_cache_path(args.autotune_cache)
+    if args.kernel_stats:
+        kernelstats.enable()
     cfg, model, tcfg, data = build(args)
     plan = cfg.sparsity_rules
     sp_desc = (f"plan={plan.fingerprint()} ({len(plan.rules)} rules)"
@@ -160,6 +192,12 @@ def main(argv=None):
               f"slow steps: {trainer.straggler_events[:5]}")
     print(f"done: steps={trainer.state.step} "
           f"first-loss={losses[0]:.4f} last-loss={losses[-1]:.4f}")
+    if args.kernel_stats:
+        rep = kernelstats.report()
+        print(f"kernelstats: {rep['n_records']} kernel shapes resolved, "
+              f"{rep['n_measured']} with measured time")
+        for line in kernelstats.format_table(rep["records"]):
+            print(line)
     if args.quant:
         export_ptq(model, trainer, plan, args.quant, tcfg.checkpoint_dir)
 

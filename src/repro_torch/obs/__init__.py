@@ -1,9 +1,8 @@
 """Observability layer: metrics, request spans, step traces, counter audit.
 
-The port of ``repro/obs`` (without ``kernelstats``, which hooks an
-autotuner the port does not have yet).  The package sits below
-``repro_torch.serve`` in the import graph: the engines construct a
-recorder (or keep the no-op default) and call its hooks.
+The port of ``repro/obs``.  The package sits below ``repro_torch.serve``
+in the import graph: the engines construct a recorder (or keep the no-op
+default) and call its hooks.
 
 Entry points:
 
@@ -17,8 +16,12 @@ Entry points:
     ``trace_event`` export (``trace.py``; also a command:
     ``python -m repro_torch.obs.trace out.json``);
   * :func:`audit_engine` — lifecycle-counter cross-check against the
-    request log (``audit.py``).
+    request log (``audit.py``);
+  * ``kernelstats`` — the autotuner's resolutions and direct kernel
+    timings against the roofline model (``kernelstats.py``; ``enable``,
+    ``measure_op``, ``efficiency_table``, ``report``).
 """
+from . import kernelstats
 from .audit import audit_engine, derive_counts
 from .metrics import (SCHEMA_VERSION, Counter, Gauge, Histogram,
                       MetricsRegistry, EngineStats, bench_payload,
@@ -34,5 +37,5 @@ __all__ = [
     "Recorder", "NullRecorder", "NULL_RECORDER", "fence",
     "SpanLog", "RequestSpan", "Segment", "percentile", "percentile_table",
     "TraceBuffer", "validate_trace", "validate_trace_file",
-    "audit_engine", "derive_counts",
+    "audit_engine", "derive_counts", "kernelstats",
 ]

@@ -21,7 +21,13 @@ state (nested dicts of tensors and ints, flattened to ``a/b/c`` keys):
     (``launch/train.py --quant int8``) and a full-precision one refuse
     each other; int8 leaves keep their dtype through the ``.npz``.
 
-Reading the reference's own snapshots is not yet ported.
+``read_reference_snapshot`` reads a snapshot that the reference's
+``save_pytree`` wrote (its ``Trainer``'s ``{"params", "opt_state"}``):
+the keys are ``path_str`` over the pytree, dict keys, attribute names and
+sequence indices joined by ``/``, with ``__none__/`` leaves for the
+absent ones.  It rebuilds the nested tree (numpy only, no JAX), which
+``Trainer.load_reference_snapshot`` maps through the bridge's
+``flatten_reference_tree`` onto the port's names.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-__all__ = ["CheckpointManager", "save_tree", "load_tree", "flatten_tree"]
+__all__ = ["CheckpointManager", "save_tree", "load_tree", "flatten_tree",
+           "read_reference_snapshot"]
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, Any]:
@@ -82,6 +89,41 @@ def load_tree(path: str, like: dict) -> dict[str, np.ndarray]:
                 raise ValueError(f"{key}: shape {arr.shape} != {want}")
             out[key] = arr
     return out
+
+
+def _lists(node):
+    """Dicts keyed '0', '1', ... back to lists (sequence indices in a
+    ``path_str`` key), recursively."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node) and \
+            sorted(int(k) for k in node) == list(range(len(node))):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def read_reference_snapshot(path: str) -> tuple[dict, Optional[dict]]:
+    """(tree, meta) of a snapshot written by the reference's
+    ``repro.train.checkpoint.save_pytree``: the nested tree rebuilt from
+    its ``/``-joined keys (absent ``__none__/`` leaves left out, sequence
+    indices as lists) and the json ``.meta`` beside it (None without
+    one)."""
+    tree: dict = {}
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            if key.startswith("__none__/"):
+                continue
+            parts = key.split("/")
+            node = tree
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = data[key]
+    meta = None
+    if os.path.exists(path + ".meta"):
+        with open(path + ".meta") as f:
+            meta = json.load(f)
+    return _lists(tree), meta
 
 
 class CheckpointManager:

@@ -1,15 +1,21 @@
-"""Symmetric int8 quantization with a max-abs scale.
+"""Symmetric int8 quantization with a max-abs scale, and gradient
+compression with error feedback.
 
-The port of ``quantize_int8`` / ``dequantize_int8`` of
-``repro/train/compress.py``, the Q/DQ pair that the weight-only int8
-storage of ``repro_torch.sparsity.quant`` is built on.  The arithmetic is
-the reference's, step for step in float32, so the same input gives the
-same int8 values and the same scales, bit for bit: scale = max|x| / 127 +
+The port of ``repro/train/compress.py``.  ``quantize_int8`` /
+``dequantize_int8`` are the Q/DQ pair that the weight-only int8 storage of
+``repro_torch.sparsity.quant`` is built on.  The arithmetic is the
+reference's, step for step in float32, so the same input gives the same
+int8 values and the same scales, bit for bit: scale = max|x| / 127 +
 1e-12; q = clip(round(x / scale), -127, 127), rounding half to even
 (``torch.round``, as ``jnp.round``).
 
-The error-feedback half of the reference module (gradient compression)
-is not yet ported.
+``init_error_feedback`` / ``compress_decompress`` are the gradient
+transform ``TrainConfig.grad_compression == "int8"`` applies: each
+gradient, plus the residual carried from the step before, goes through
+the per-tensor Q/DQ round trip, and the new residual is what the round
+trip lost (e_{t+1} = g_t + e_t - Q(g_t + e_t)).  One card: the
+reference's ``axis_name`` path (the psum of the int8 payload across
+devices) waits for the port's distribution.
 """
 from __future__ import annotations
 
@@ -17,7 +23,8 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-__all__ = ["quantize_int8", "dequantize_int8"]
+__all__ = ["quantize_int8", "dequantize_int8", "init_error_feedback",
+           "compress_decompress"]
 
 Axis = Union[int, Sequence[int], None]
 
@@ -69,3 +76,48 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, axis: Axis = None,
            else _expand(scale, axes, q.ndim))
     out = q.float() * s_b
     return out.to(dtype) if dtype is not None else out
+
+
+def _tmap(f, *trees):
+    """``f`` over the tensors of nested dicts of tensors (None kept)."""
+    head = trees[0]
+    if head is None:
+        return None
+    if isinstance(head, dict):
+        return {k: _tmap(f, *(t[k] if t is not None else None
+                              for t in trees)) for k in head}
+    return f(*trees)
+
+
+def init_error_feedback(grads_like):
+    """Zero float32 residuals shaped like every tensor of ``grads_like`` (a
+    tensor, or nested dicts of them)."""
+    return _tmap(lambda g: torch.zeros_like(g, dtype=torch.float32),
+                 grads_like)
+
+
+def compress_decompress(grads, error=None):
+    """Quantize (with error feedback) -> dequantize, tensor by tensor.
+
+    ``grads`` is a tensor or nested dicts of them, ``error`` the residuals
+    of the step before (None: no feedback).  Returns (new_grads, new_error):
+    each gradient dequantized in its own dtype, and the float32 residual
+    g32 + e - Q(g32 + e), the reference's arithmetic bit for bit."""
+    def one(g, e):
+        g32 = g.float()
+        if e is not None:
+            g32 = g32 + e
+        deq = dequantize_int8(*quantize_int8(g32))
+        return deq.to(g.dtype), g32 - deq
+
+    pairs = _tmap(one, grads, error) if error is not None else \
+        _tmap(lambda g: one(g, None), grads)
+
+    def unzip(i, node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: unzip(i, v) for k, v in node.items()}
+        return node[i]
+
+    return unzip(0, pairs), unzip(1, pairs)

@@ -36,7 +36,8 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.device import synchronize
-from .checkpoint import CheckpointManager
+from .checkpoint import CheckpointManager, read_reference_snapshot
+from .compress import compress_decompress, init_error_feedback
 from .optim import clip_by_global_norm, make_optimizer, make_schedule
 
 __all__ = ["TrainState", "trainable", "init_train_state", "make_train_step",
@@ -48,6 +49,7 @@ class TrainState:
     params: dict        # name -> float32 master value
     opt_state: dict     # optimizer state (float32 tensors, ints)
     step: int = 0
+    ef_error: Optional[dict] = None  # int8 compression's error feedback
 
 
 def trainable(model: torch.nn.Module) -> dict[str, torch.nn.Parameter]:
@@ -59,13 +61,19 @@ def trainable(model: torch.nn.Module) -> dict[str, torch.nn.Parameter]:
 def init_train_state(model: torch.nn.Module, tcfg: TrainConfig) -> TrainState:
     """Switches gradients on for every trainable tensor and takes the
     float32 master values (the tensor itself when it is float32)."""
+    if tcfg.grad_compression not in ("none", "int8"):
+        raise ValueError(f"grad_compression {tcfg.grad_compression!r} not "
+                         f"in ('none', 'int8')")
     params = {}
     for name, p in trainable(model).items():
         p.requires_grad_(True)
         params[name] = (p.detach() if p.dtype == torch.float32
                         else p.detach().float())
-    return TrainState(params=params,
-                      opt_state=make_optimizer(tcfg).init(params))
+    state = TrainState(params=params,
+                       opt_state=make_optimizer(tcfg).init(params))
+    if tcfg.grad_compression == "int8":
+        state.ef_error = init_error_feedback(params)
+    return state
 
 
 LossFn = Callable[[torch.nn.Module, dict], tuple]
@@ -85,6 +93,10 @@ def make_train_step(model: torch.nn.Module, tcfg: TrainConfig,
     With ``tcfg.microbatches > 1`` the batch carries a leading microbatch
     axis (n_micro, per_micro, ...); the float32 gradients are summed over
     the microbatches and divided by their number, as the reference's scan.
+    With ``tcfg.grad_compression == "int8"`` the gradients then take the
+    error-feedback Q/DQ round trip (``compress_decompress``, the residual
+    in ``state.ef_error``) before clipping, where the reference's step
+    applies it.
     """
     opt = make_optimizer(tcfg)
     sched = make_schedule(tcfg)
@@ -124,6 +136,9 @@ def make_train_step(model: torch.nn.Module, tcfg: TrainConfig,
         else:
             loss, metrics, grads = grads_of(batch)
 
+        if tcfg.grad_compression == "int8":
+            grads, state.ef_error = compress_decompress(grads,
+                                                        state.ef_error)
         if tcfg.grad_clip:
             grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         else:
@@ -167,8 +182,11 @@ class Trainer:
         self.straggler_events: list[tuple[int, float]] = []
 
     def _tree(self) -> dict:
-        return {"params": self.state.params,
+        tree = {"params": self.state.params,
                 "opt_state": self.state.opt_state}
+        if self.state.ef_error is not None:
+            tree["ef_error"] = self.state.ef_error
+        return tree
 
     # -- resume ------------------------------------------------------------
     def try_resume(self) -> Optional[int]:
@@ -183,16 +201,73 @@ class Trainer:
                 head, _, name = key.partition("/")
                 if head == "params":
                     self.state.params[name].copy_(torch.from_numpy(arr))
+                elif head == "ef_error":
+                    self.state.ef_error[name].copy_(torch.from_numpy(arr))
                 elif name in opt and not isinstance(opt[name], dict):
                     opt[name] = int(arr)  # a step count
                 else:
                     group, _, leaf = name.partition("/")
                     opt[group][leaf].copy_(torch.from_numpy(arr))
+            self._write_back()
+        self.state.step = int(meta["step"])
+        return self.state.step
+
+    def _write_back(self) -> None:
+        """The master values into the model's tensors."""
+        with torch.no_grad():
             for name, p in trainable(self.model).items():
                 master = self.state.params[name]
                 if master.data_ptr() != p.data_ptr():
                     p.copy_(master)
-        self.state.step = int(meta["step"])
+
+    def load_reference_snapshot(self, path: str) -> int:
+        """Resume from a snapshot the reference's ``Trainer`` wrote
+        (``save_pytree`` of its ``{"params", "opt_state"}``): the master
+        values, the optimizer's moments (and adamw's step count) and the
+        step of its ``.meta``.  Names are mapped through the bridge
+        (``flatten_reference_tree``); a missing, unexpected or misshapen
+        leaf raises, and so does a snapshot stamped under another plan
+        than this trainer's.  The reference does not save the
+        error-feedback residual, so it restarts at zero, as the
+        reference's own resume does.  Returns the step."""
+        from repro_torch.bridge import flatten_reference_tree
+
+        tree, meta = read_reference_snapshot(path)
+        meta = meta or {}
+        saved_fp = meta.get("plan_fingerprint")
+        fp = self.ckpt.plan_fingerprint if self.ckpt is not None else None
+        if fp is not None and saved_fp is not None and saved_fp != fp:
+            raise RuntimeError(f"snapshot {path} was written under sparsity "
+                               f"plan {saved_fp}, this trainer's is {fp}")
+
+        def load(into: dict, flat: dict, what: str) -> None:
+            missing = sorted(set(into) - set(flat))
+            unexpected = sorted(set(flat) - set(into))
+            if missing or unexpected:
+                raise ValueError(f"{what}: names differ from the port's: "
+                                 f"missing {missing}, unexpected "
+                                 f"{unexpected}")
+            for name, arr in flat.items():
+                if tuple(arr.shape) != tuple(into[name].shape):
+                    raise ValueError(f"{what} {name}: shape {arr.shape} != "
+                                     f"{tuple(into[name].shape)}")
+                into[name].copy_(torch.from_numpy(
+                    np.asarray(arr, np.float32)))
+
+        opt, saved = self.state.opt_state, tree.get("opt_state", {})
+        with torch.no_grad():
+            load(self.state.params,
+                 flatten_reference_tree(self.model, tree["params"]),
+                 "params")
+            for group, moments in opt.items():
+                if isinstance(moments, dict):
+                    load(moments,
+                         flatten_reference_tree(self.model, saved[group]),
+                         f"opt_state/{group}")
+                else:
+                    opt[group] = int(np.asarray(saved[group]))
+        self._write_back()
+        self.state.step = int(meta.get("step", 0))
         return self.state.step
 
     # -- main loop -----------------------------------------------------------

@@ -48,7 +48,11 @@ qwen2-moe's stacked ``experts.out`` at 0.875, C 8, whose dX and dW keep
 the FMA bodies) against their plain versions (``-k plan``).  And the
 serving engines at the reduced tinyllama and qwen2-moe in float32: the
 chunked, the preempting and the chunked preempting prefix-sharing engine
-give the CPU's greedy streams (``-k serving``).
+give the CPU's greedy streams (``-k serving``).  And the autotuner's
+measured mode at one small bf16 layout of each of its eight kinds: a
+built tile, timed on the launch's own tables, that matches the plain
+version and gives equal bits on a rerun and after a re-read from disk
+(``-k measured``).
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -70,6 +74,8 @@ three products and the activation's derivative at the saved
 pre-activation, which carries the forward's reduction-order difference
 into dW and dX: 1e-4 in float32 there.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1773,3 +1779,106 @@ def test_cuda_serving_engines_give_the_cpu_streams(arch, kind):
     alloc.check_invariants()
     if kind != "chunked-preempting-prefix":
         assert alloc.n_allocated == 0
+
+
+# -- the autotuner's measured mode (REPRO_AUTOTUNE_MODE=measure) -------------
+
+def _measure_layout():
+    m, k, G, C, ui, vi, sp_o, sp_i = MMA_SMALL[1]   # G 16, C 64
+    return RBGP4Layout(RBGP4Spec(g_o=(m // (ui * G), k // (vi * C)),
+                                 g_r=(G, C), g_i=(ui, vi), g_b=(1, 1),
+                                 sp_o=sp_o, sp_i=sp_i, seed=7))
+
+
+def _measured_launch(kind, g):
+    """(launch closure, plain closure, tables, N, experts) of one small
+    bf16 launch of ``kind`` on the card."""
+    from repro_torch.kernels.chainmm import chain_sddmm_rhs_reference
+
+    bf = torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g).to(bf)
+    if kind.startswith("chain"):
+        m, k, sp, factors = MMA_CHAINS[0]
+        lay = ChainLayout(design_rbgp(m, k, sp, factors=factors, seed=0))
+        t = chain_tables(lay, "cuda")
+        n, w = 77, rnd(t.m, t.data_cols)
+        if kind == "chain_rhs":
+            x = rnd(n, t.k)
+            return (lambda: chainmm_rhs(t, x, w),
+                    lambda: chainmm_rhs_reference(t, x, w), t, n, 1)
+        gy, x = rnd(n, t.m), rnd(n, t.k)
+        return (lambda: chain_sddmm_rhs(t, gy, x),
+                lambda: chain_sddmm_rhs_reference(t, gy, x), t, n, 1)
+    t = KernelTables.build(_measure_layout(), "cuda")
+    d, e = t.dims, 4
+    if kind == "rhs":
+        n = 77
+        x, w = rnd(n, d.k), rnd(d.m, d.data_cols)
+        return (lambda: rbgp4mm_rhs(t, x, w),
+                lambda: rbgp4mm_rhs_reference(t, x, w), t, n, 1)
+    if kind == "sddmm":
+        n = 1037
+        gy, x = rnd(n, d.m), rnd(n, d.k)
+        return (lambda: rbgp4_sddmm_rhs(t, gy, x),
+                lambda: rbgp4_sddmm_rhs_reference(t, gy, x), t, n, 1)
+    if kind == "rhs_stacked":
+        n = 77
+        x, w = rnd(e, n, d.k), rnd(e, d.m, d.data_cols)
+        return (lambda: rbgp4mm_rhs_stacked(t, x, w),
+                lambda: rbgp4mm_rhs_stacked_reference(t, x, w), t, n, e)
+    if kind == "sddmm_stacked":
+        n = 171
+        gy, x = rnd(e, n, d.m), rnd(e, n, d.k)
+        return (lambda: rbgp4_sddmm_rhs_stacked(t, gy, x),
+                lambda: rbgp4_sddmm_rhs_stacked_reference(t, gy, x), t, n, e)
+    n = 1000
+    if kind == "lhs":
+        x, w = rnd(d.k, n), rnd(d.m, d.data_cols)
+        return (lambda: rbgp4mm(t, x, w),
+                lambda: rbgp4mm_reference(t, x, w), t, n, 1)
+    gy, x = rnd(d.m, n), rnd(d.k, n)
+    return (lambda: rbgp4_sddmm(t, gy, x),
+            lambda: rbgp4_sddmm_reference(t, gy, x), t, n, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rhs", "sddmm", "rhs_stacked",
+                                  "sddmm_stacked", "lhs", "sddmm_lhs",
+                                  "chain_rhs", "chain_sddmm"])
+def test_cuda_measured_tiles_are_built_and_match_plain(kind, tmp_path,
+                                                       monkeypatch):
+    """Measured mode times every candidate on the launch's own tables and
+    keeps a built tile under ``cuda-sm<cc>``; the tuned launch matches the
+    plain version and gives equal bits on a rerun and after a re-read of
+    the entry from disk (no timing then)."""
+    from repro_torch.kernels import autotune
+
+    needs_card()
+    monkeypatch.setenv("REPRO_AUTOTUNE_MODE", "measure")
+    autotune.set_cache_path(str(tmp_path / "tune.json"))
+    try:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        fn, plain, t, n, e = _measured_launch(kind, g)
+        first = fn()
+        res = autotune.launch_tile(t, kind, n, torch.bfloat16, None, e)
+        assert res.source == "measured" and res.us_estimate > 0
+        assert res.tile in autotune.candidate_tiles(kind, t, n,
+                                                    torch.bfloat16)
+        assert len(autotune.candidate_tiles(kind, t, n, torch.bfloat16)) \
+            >= (1 if kind == "rhs" else 2)
+        assert_close(first, plain(), torch.bfloat16, kind)
+        assert torch.equal(fn(), first)
+        keys = list(json.loads((tmp_path / "tune.json").read_text())
+                    ["entries"])
+        assert keys and all("|cuda-sm" in k for k in keys)
+        autotune.clear_memory_cache()
+
+        def no_timing(*a, **kw):
+            raise AssertionError("timed again after a re-read from disk")
+
+        monkeypatch.setattr(autotune, "_search_measured", no_timing)
+        assert torch.equal(fn(), first)
+        assert autotune.launch_tile(t, kind, n, torch.bfloat16, None,
+                                    e).tile == res.tile
+    finally:
+        autotune.set_cache_path(None)

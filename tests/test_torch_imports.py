@@ -50,7 +50,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                 "repro_torch.serve.faults", "repro_torch.serve.snapshot",
                 "repro_torch.obs", "repro_torch.obs.metrics",
                 "repro_torch.obs.spans", "repro_torch.obs.trace",
-                "repro_torch.obs.record", "repro_torch.obs.audit"):
+                "repro_torch.obs.record", "repro_torch.obs.audit",
+                "repro_torch.kernels.autotune",
+                "repro_torch.obs.kernelstats"):
         assert mod in names, mod
 
 
