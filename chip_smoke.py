@@ -43,7 +43,12 @@ and trains and serves budget-solved plans:
     tensor-core bodies of ``rbgp4mm_rhs``, ``rbgp4mm_rhs_stacked`` and
     ``chainmm_rhs``), preemption and faults under an oversubscribed pool,
     prefix sharing, snapshots, the static engine and the observability
-    recorder.
+    recorder;
+  * the reference's eight other language models (GeGLU with tied
+    embeddings, sliding-window layers, a patch frontend, codebooks, MLA
+    with 160 routed experts, RWKV-6, the Mamba hybrid with 16) served at
+    full width, deepseek-v2 and jamba cut in depth, every projection on
+    ``rbgp4mm_rhs`` and every routed expert on ``rbgp4mm_rhs_stacked``.
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the result line:
@@ -352,8 +357,38 @@ exits non-zero without the result line:
      tinyllama in measured mode: every row has its model and measured
      µs, and an efficiency (model / measured) above 1.05 fails the phase.
 
+ 48. arch-parity: the eight other language models of the reference
+     (gemma-7b, gemma3-4b, deepseek-7b, pixtral-12b, musicgen-medium,
+     rwkv6-7b, deepseek-v2-236b, jamba-1.5-large-398b), each reduced
+     (``reduce_config``) in float32, the same weights on the card and the
+     CPU: a prefill and 4 decode steps on the card's greedy tokens, each
+     call's logits within 1e-4 * max|ref|, every compact and stacked
+     projection launched once a call on the card (none on the CPU), the
+     routed models' experts the same on both; deepseek-v2's paged decode
+     equal to its contiguous decode;
+ 49. serve-archs: each of them at full width in bf16 under rbgp4 0.75
+     (deepseek-v2 cut to 4 layers, dense layer 0 and three MoE layers;
+     jamba to 8, one period), 8 ``RequestStream(seed=0)`` requests of
+     128-512 prompt and 8-32 new tokens (4 codebooks for musicgen): the
+     continuous engine (8 slots, 16-token pages) or, for rwkv6-7b and
+     jamba, the static engine (batch 4); every request finished, finite
+     logits, every prefill call and decode step launching each compact
+     projection once (``rbgp4mm_rhs``) and each MoE layer's three stacked
+     expert projections (``rbgp4mm_rhs_stacked``); stored values and
+     bytes, tok/s, prefill s, decode ms/step, peak memory, one decode
+     step profiled (sparse launches, card busy and idle share); then
+     times-archs: each distinct layout held against its plain version at
+     8 and 16 rows (an expert's), bit-equal on a rerun, timed at the
+     engine's decode and widest prefill rows with the body it takes, the
+     bound, and one dense PyTorch product where it is on the FMA body,
+     and held against its plain version at the widest prefill's rows
+     (over row slices; a stacked layout's first and last expert); for
+     rwkv6-7b and jamba one layer's scan at 4 x 512 steps, chunked (the
+     model's form) against every step's own: ms, peak memory, outputs.
+
 ``python3 chip_smoke.py --autotune-only`` runs phases 1, 4, 33 and 45-47
-alone (a quicker check of the autotuner; no result line).
+alone (a quicker check of the autotuner; no result line);
+``python3 chip_smoke.py --archs-only`` runs phases 1, 48 and 49 alone.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -5373,6 +5408,631 @@ def autotune_phases(layouts, experts, chains, fm, plans, tiny, serve,
     return dict(autotune=tuned, tuned_steps=steps, kernelstats=stats)
 
 
+# -- the other language models (phases 48-49) --------------------------------
+
+#: arch -> (engine, layers on the card or None for all): the eight language
+#: models the earlier phases do not serve, at full width; deepseek-v2 and
+#: jamba cut in depth to fit one 80 GB card (their full stacks hold about
+#: 125 and 220 GB of values at 0.75)
+ARCH_SERVE = {
+    "gemma-7b": ("continuous", None),
+    "gemma3-4b": ("continuous", None),
+    "deepseek-7b": ("continuous", None),
+    "pixtral-12b": ("continuous", None),
+    "musicgen-medium": ("continuous", None),
+    "rwkv6-7b": ("static", None),
+    "deepseek-v2-236b": ("continuous", 4),
+    "jamba-1.5-large-398b": ("static", 8),
+}
+#: served first by phase 49, beside the others (earlier phases' model)
+ARCH_BASELINE = "tinyllama-1.1b"
+ARCH_REQUESTS = 8
+ARCH_GEN_LENS = (8, 16, 32)
+#: the static engine's batch (equal prompt lengths, lockstep decode)
+ARCH_STATIC_BATCH = 4
+#: rows a decode launch takes (the continuous engine's 8 slots; the static
+#: engine's batch) and rows the widest prefill takes (one 512-token prompt;
+#: a static batch of four), an expert's rows alike at full capacity
+ARCH_N = {"continuous": {"decode": 8, "prefill": 512},
+          "static": {"decode": ARCH_STATIC_BATCH,
+                     "prefill": ARCH_STATIC_BATCH * 512}}
+#: rows of the plain-version check at each layout: the FMA and the
+#: tensor-core bodies (then the widest prefill, over row slices)
+ARCH_CHECK_N = (8, 16)
+#: float32 bytes one slice of the widest-prefill check may gather: the
+#: plain version gathers (rows, M / G, nnz_row), which at a full-width
+#: prefill does not fit the card at once
+ARCH_CHECK_GATHER = 1 << 30
+ARCH_DECODE_STEPS = 4
+ARCH_PARITY_RTOL = 1e-4
+
+
+def arch_serve_config(arch: str, compute_dtype: str = "bfloat16"):
+    """``arch`` at full width under rbgp4 0.75 (``min_dim=64``), cut to the
+    depth of ``ARCH_SERVE``."""
+    cfg = main_config(compute_dtype, arch)
+    depth = ARCH_SERVE.get(arch, ("continuous", None))[1]
+    return cfg.with_(n_layers=depth) if depth else cfg
+
+
+def sparse_per_pass(model) -> dict:
+    """The launches one prefill call or decode step must make: one
+    ``rbgp4mm_rhs`` a compact projection, three ``rbgp4mm_rhs_stacked`` a
+    MoE layer's compact experts."""
+    n_compact = sum(1 for mod in model.modules()
+                    if getattr(mod, "mode", None) == "compact")
+    n_stacked = 3 * sum(1 for mod in model.modules()
+                        if getattr(mod, "compact", False))
+    return launches_of(forward=n_compact, stacked_forward=n_stacked)
+
+
+def phase_arch_parity(arch: str) -> dict:
+    """Phase 48: the reduced ``arch`` in float32 (FMA bodies, TF32 off),
+    the same weights on the card and on the CPU: a prefill of 2 x 12
+    tokens (patch embeddings for a vision model, 4 codebooks for an audio
+    one) and ``ARCH_DECODE_STEPS`` decode steps on the card's greedy
+    tokens, each call's logits within 1e-4 * max|ref|; the card launches
+    every compact projection and stacked expert projection once a call,
+    the CPU none; routed models choose the same experts on both, with
+    top-k margins of at least ``ROUTER_MARGIN``.  deepseek-v2 also decodes
+    through the page pools, from the same prefill, and must give the
+    contiguous decode's logits (within 1e-5 * max|ref|: one gather of the
+    same slots)."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import LMModel
+
+    t0 = time.perf_counter()
+    cfg = reduce_config(get_config(arch))
+    card = LMModel(cfg, device="cuda", seed=0)
+    cpu = LMModel(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    per_pass = sparse_per_pass(card)
+    rng = np.random.default_rng(0)
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    prompt = rng.integers(0, cfg.vocab_size, (2, 12) + cb).astype(np.int32)
+    patches = (rng.standard_normal((2, cfg.n_patches, cfg.d_model)).astype(
+        np.float32) if cfg.frontend == "vision" else None)
+    cache_len = 12 + ARCH_DECODE_STEPS
+    runs, margins, toks = {}, {}, []
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        margins[dev] = RouterMargins(model)
+        reset_launch_counts()
+        logits, cache = model.prefill(prompt, model.init_cache(
+            2, cache_len, torch.float32), patch_embeds=patches)
+        out = [logits.float().cpu()]
+        for i in range(ARCH_DECODE_STEPS):
+            if dev == "cuda":
+                toks.append(out[-1].argmax(-1).numpy().astype(
+                    np.int32).reshape((2, 1) + cb))
+            logits, cache = model.decode_step(toks[i], cache, 12 + i)
+            out.append(logits.float().cpu())
+        torch.cuda.synchronize()
+        margins[dev].remove()
+        runs[dev] = (out, launch_counts(), cache)
+    margin = check_router_margins(margins)
+    calls = 1 + ARCH_DECODE_STEPS
+    want = {k: v * calls for k, v in per_pass.items()}
+    if (runs["cuda"][1] != want or not any(per_pass.values())
+            or any(runs["cpu"][1].values())):
+        raise AssertionError(f"{arch}: launches card {runs['cuda'][1]}, cpu "
+                             f"{runs['cpu'][1]}, want {want}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if not (np.isfinite(err) and err <= ARCH_PARITY_RTOL * scale):
+            raise AssertionError(f"{arch} call {i}: logits max|diff| {err} "
+                                 f"> {ARCH_PARITY_RTOL} * {scale}{margin}")
+        worst = max(worst, err / scale)
+    paged = ""
+    if any(l.kind == "mla" for l in card.stack.layers):
+        paged = phase_mla_paged(card, prompt, toks, runs["cuda"][0])
+    res = dict(arch=arch, layers=cfg.n_layers, per_pass=per_pass,
+               launches=runs["cuda"][1], worst_rel=worst,
+               seconds=time.perf_counter() - t0)
+    kinds = sorted({layer.kind for layer in card.stack.layers})
+    log("arch-parity", f"{arch} reduced ({cfg.n_layers} layers, d_model "
+                       f"{cfg.d_model}, kinds {kinds}) "
+                       f"float32: prefill + {ARCH_DECODE_STEPS} greedy "
+                       f"decode steps, card vs cpu logits worst "
+                       f"max|diff|/max|ref| {worst:.2e} <= "
+                       f"{ARCH_PARITY_RTOL}; launches on the card "
+                       f"{ {k: v for k, v in runs['cuda'][1].items() if v} } "
+                       f"({ {k: v for k, v in per_pass.items() if v} } a "
+                       f"call), none on the cpu{margin}{paged} "
+                       f"({res['seconds']:.1f}s)")
+    del card, cpu
+    free_card()
+    return res
+
+
+def phase_mla_paged(model, prompt, toks, contiguous) -> str:
+    """deepseek-v2's paged decode on the card: the prefill's cache copied
+    into 4-token pages (row 0 in blocks 1-4, row 1 in 5-8), then the same
+    decode inputs through ``decode_step_paged``; its logits against the
+    contiguous decode's (``contiguous``: prefill, then each step)."""
+    page, n_rows, slots = 4, prompt.shape[0], 12 + len(toks)
+    per_row = slots // page
+    _, cache = model.prefill(prompt, model.init_cache(n_rows, slots,
+                                                      torch.float32))
+    pages = model.init_pages(1 + n_rows * per_row, page, torch.float32)
+    for pool, c in zip(pages, cache):
+        for name, t in c.items():
+            pool[name][1:] = t.reshape((n_rows * per_row, page)
+                                       + t.shape[2:])
+    bt = np.arange(1, 1 + n_rows * per_row, dtype=np.int32).reshape(
+        n_rows, per_row)
+    worst = 0.0
+    for i, tok in enumerate(toks):
+        logits, pages = model.decode_step_paged(
+            tok, pages, bt, np.full(n_rows, 12 + i, np.int32))
+        want = contiguous[1 + i]
+        err = float((logits.float().cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"paged decode step {i}: max|diff| {err} > "
+                                 f"1e-5 * {scale} against the contiguous "
+                                 f"decode")
+        worst = max(worst, err / scale)
+    return (f"; paged decode (4-token pages) vs contiguous on the card: "
+            f"{len(toks)} steps, worst {worst:.2e} <= 1e-5")
+
+
+def arch_layouts(model, engine: str) -> list:
+    """The distinct sparse layouts of ``model``'s projections: (m, k),
+    the expert count of a stacked one (1 otherwise), the projections on
+    it, its kernel tables, and the body ``rhs_path`` names at the
+    engine's decode and widest prefill rows (an expert's, stacked)."""
+    from repro_torch.kernels import rhs_path
+    from repro_torch.models.moe import StackedExperts
+    from repro_torch.sparsity import SparseLinear
+
+    found = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, SparseLinear) and mod.mode == "compact":
+            key = (mod.out_features, mod.in_features, 1)
+            entry = found.setdefault(key, dict(tables=mod.tables, names=set(),
+                                               layout=mod.layout))
+            entry["names"].add(mod.name.split(".", 1)[1])
+        elif isinstance(mod, StackedExperts) and mod.compact:
+            for proj in ("gate", "up", "down"):
+                side = "out" if proj == "down" else "in"
+                lay = mod.layouts[side]
+                key = (lay.m, lay.k, mod.weight(proj).w_data.shape[0])
+                entry = found.setdefault(key, dict(tables=mod.tables[side],
+                                                   names=set(), layout=lay))
+                entry["names"].add(f"experts.{proj}")
+    rows = ARCH_N[engine]
+    out = []
+    for (m, k, e), entry in sorted(found.items()):
+        d = entry["tables"].dims
+        out.append(dict(m=m, k=k, experts=e, names=sorted(entry["names"]),
+                        tables=entry["tables"], layout=entry["layout"],
+                        G=d.group_rows, C=d.chunk_cols,
+                        bodies={kind: rhs_path(d, n, torch.bfloat16)
+                                for kind, n in rows.items()}))
+    return out
+
+
+def check_rows_sliced(what: str, fwd, ref, tables, x, w) -> float:
+    """One launch of ``fwd`` over all of ``x`` against the plain version,
+    run over row slices whose gather fits ``ARCH_CHECK_GATHER`` (for
+    stacked experts, x (E, N, K), the first and the last expert).
+    Returns the worst slice's max|diff| / max|ref|."""
+    y = fwd(tables, x, w)
+    torch.cuda.synchronize()
+    m, nnz = w.shape[-2:]
+    step = max(1, ARCH_CHECK_GATHER // (4 * (m // tables.dims.group_rows)
+                                        * nnz))
+    experts = (0, x.shape[0] - 1) if x.dim() == 3 else (None,)
+    worst = 0.0
+    for e in experts:
+        xe, we, ye = ((x, w, y) if e is None
+                      else (x[e:e + 1], w[e:e + 1], y[e:e + 1]))
+        for a in range(0, x.shape[-2], step):
+            got = ye[..., a:a + step, :]
+            want = ref(tables, xe[..., a:a + step, :], we)
+            where = f" expert {e}" if e is not None else ""
+            worst = max(worst, agree(f"{what}{where} rows {a}-{a + step}",
+                                     got, want, x.dtype)[1])
+            del want
+    return worst
+
+
+def check_time_arch_layout(entry: dict, engine: str, g) -> dict:
+    """One new layout in bf16: ``rbgp4mm_rhs`` (``rbgp4mm_rhs_stacked`` for
+    experts) against its plain version at ``ARCH_CHECK_N`` rows (FMA and
+    tensor-core bodies; the rerun bit-equal), then timed (CUDA events) at
+    the engine's decode and widest prefill rows, beside the bound, and
+    held against its plain version at the widest prefill's rows too
+    (``check_rows_sliced``); where a launch is on the FMA body, one dense
+    PyTorch product on the unpacked weights (``F.linear``, ``torch.bmm``
+    for experts) beside it."""
+    from repro_torch.kernels import (rbgp4mm_rhs, rbgp4mm_rhs_reference,
+                                     rbgp4mm_rhs_stacked,
+                                     rbgp4mm_rhs_stacked_reference,
+                                     rhs_path)
+    from repro_torch.kernels.ref import unpack_dense
+
+    dt, m, k, e = torch.bfloat16, entry["m"], entry["k"], entry["experts"]
+    tables, lay = entry["tables"], entry["layout"]
+    d = tables.dims
+    stacked = e > 1
+    lead = (e,) if stacked else ()
+    fwd = rbgp4mm_rhs_stacked if stacked else rbgp4mm_rhs
+    ref = rbgp4mm_rhs_stacked_reference if stacked else rbgp4mm_rhs_reference
+    nnz = lay.data_shape[1]
+    w = (torch.randn((*lead, m, nnz), device="cuda", generator=g)
+         * nnz ** -0.5).to(dt)
+    checked = {}
+    for n in ARCH_CHECK_N:
+        x = torch.randn((*lead, n, k), device="cuda", generator=g).to(dt)
+        before = (fwd.launches, fwd.launches_mma)
+        y = fwd(tables, x, w)
+        torch.cuda.synchronize()
+        mma = rhs_path(d, n, dt) == "mma"
+        if (fwd.launches, fwd.launches_mma) != (before[0] + 1,
+                                                before[1] + mma):
+            raise AssertionError(f"{m} x {k}: counters did not move as "
+                                 f"rhs_path names ({n} rows)")
+        checked[n] = agree(f"{m} x {k} x{e} N={n}", y, ref(tables, x, w),
+                           dt)[1]
+        if not torch.equal(y, fwd(tables, x, w)):
+            raise AssertionError(f"{m} x {k}: rerun differs at N={n}")
+    wd = None
+    times = {}
+    for kind, n in ARCH_N[engine].items():
+        x = torch.randn((*lead, n, k), device="cuda", generator=g).to(dt)
+        body = rhs_path(d, n, dt)
+        ms = time_cuda(lambda i: fwd(tables, x, w), n_iter=10, n_warm=2)
+        bnd, by = bound_ms(n, m, k, nnz, d.d_o * d.d_i, d.group_rows, 2,
+                           e=e)
+        row = dict(n=n, body=body, ms=ms, bound_ms=bnd, bound_by=by,
+                   library_ms=None)
+        if kind == "prefill":
+            checked[n] = check_rows_sliced(f"{m} x {k} x{e} N={n}", fwd,
+                                           ref, tables, x, w)
+        if body == "fma":
+            if wd is None:
+                wd = unpack_dense(lay, w)
+            lib = ((lambda i: torch.bmm(x, wd.transpose(1, 2))) if stacked
+                   else (lambda i: F.linear(x, wd)))
+            row["library_ms"] = time_cuda(lib, n_iter=10, n_warm=2)
+        times[kind] = row
+        del x
+    del w, wd
+    return dict(checked=checked, times=times)
+
+
+def time_scan(cfg) -> dict:
+    """A recurrent arch's scan of one layer (``wkv_scan`` for RWKV,
+    ``selective_scan`` for Mamba; float32, random inputs of the model's
+    ranges) at the static engine's widest prefill (4 prompts of 512
+    tokens), its per-step products formed ``SCAN_CHUNK`` steps at a time
+    (the model's form) against every step's own (chunk 1): the fenced
+    wall ms of a call (median of 3), its CUDA-event ms (launch-bound as
+    well: the host queues a step's launches slower than the card runs
+    them), the card memory it peaks at above its inputs, and the two
+    forms' outputs within 1e-6 of max|ref|."""
+    from repro_torch.models.common import SCAN_CHUNK
+    from repro_torch.models.rwkv import wkv_scan
+    from repro_torch.models.ssm import selective_scan, softplus
+
+    g = torch.Generator(device="cuda").manual_seed(49)
+    B = ARCH_STATIC_BATCH
+    S = ARCH_N["static"]["prefill"] // B
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=g)
+
+    if cfg.rwkv is not None:
+        hs = cfg.rwkv.head_size
+        H = cfg.d_model // hs
+        name, scan = "wkv_scan", wkv_scan
+        args = (randn(B, S, H, hs), randn(B, S, H, hs) * 0.1,
+                randn(B, S, H, hs) * 0.1,
+                torch.exp(-torch.exp(randn(B, S, H, hs) - 3)),
+                randn(H, hs) * 0.1,
+                torch.zeros((B, H, hs, hs), device="cuda"))
+    else:
+        mc = cfg.mamba
+        di, ds = mc.expand * cfg.d_model, mc.d_state
+        name, scan = "selective_scan", selective_scan
+        args = (softplus(randn(B, S, di) - 4),
+                -torch.arange(1, ds + 1, dtype=torch.float32,
+                              device="cuda").expand(di, ds).contiguous(),
+                randn(B, S, di), randn(B, S, ds), randn(B, S, ds),
+                torch.zeros((B, di, ds), device="cuda"))
+    forms = {}
+    for chunk in (SCAN_CHUNK, 1):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y, _ = scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        forms[chunk] = dict(
+            wall_ms=statistics.median(walls),
+            event_ms=time_cuda(lambda i: scan(*args, chunk=chunk), n_iter=3,
+                              n_warm=0),
+            peak_gb=peak / 1e9, y=y)
+    a, b = forms[SCAN_CHUNK].pop("y"), forms[1].pop("y")
+    err = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    if not (np.isfinite(err) and err <= 1e-6 * scale):
+        raise AssertionError(f"{name}: chunk {SCAN_CHUNK} against chunk 1 "
+                             f"max|diff| {err} > 1e-6 * {scale}")
+    return dict(scan=name, batch=B, steps=S, chunk=SCAN_CHUNK,
+                chunked=forms[SCAN_CHUNK], per_step=forms[1],
+                rel_err=err / scale)
+
+
+def profile_call(fn, *args, **kw):
+    """``fn(*args, **kw)`` under torch.profiler, the window opened by
+    ``PROFILE_PAD`` spin kernels (dropped, as ``profile_train_step``
+    drops them): (its result, the fenced wall ms of the call, the card's
+    busy ms in its kernels, their count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernels = [e.time_range.elapsed_us() * 1e-3 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.name]
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel on the card")
+    return out, wall, sum(kernels), len(kernels)
+
+
+def phase_serve_arch(arch: str, smi: str) -> dict:
+    """Phase 49: ``arch`` at full width in bf16 (``arch_serve_config``)
+    serves ``ARCH_REQUESTS`` ``RequestStream(seed=0)`` requests (prompts
+    of 128-512 tokens, 8-32 new; an audio model's with 4 codebooks) on its
+    engine: the continuous engine (8 slots, 16-token pages, f32 KV
+    cache), or the static engine (batch 4) for the recurrent archs.
+    Every request must finish with in-range tokens, every call's logits
+    be finite, and every prefill call and decode step launch each compact
+    projection and stacked expert projection once.  Prints the stored
+    values and bytes, each distinct layout with the body it takes at
+    decode and at the widest prefill (then checked and timed there,
+    ``check_time_arch_layout``), tok/s, prefill s, decode ms/step, peak
+    memory, each decode call's fenced ms, and one decode step profiled
+    after the timed run (the last one again, on the state it left): its
+    sparse launches and the card's busy against idle share."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import RequestStream
+    from repro_torch.serve import ContinuousEngine, StaticEngine
+    from repro_torch.sparsity import weight_bytes
+
+    engine_kind, _ = ARCH_SERVE.get(arch, ("continuous", None))
+    cfg = arch_serve_config(arch)
+    free_card()   # nothing of the phase before counts in this peak
+    t0 = time.perf_counter()
+    model = build_model(cfg, False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    per_pass = sparse_per_pass(model)
+    wb = weight_bytes(model)
+    layouts = arch_layouts(model, engine_kind)
+    log("serve-archs", f"{arch}: {cfg.n_layers} of "
+                       f"{get_config(arch).n_layers} "
+                       f"layers, d_model {cfg.d_model}, "
+                       f"{model.n_params():,} stored values, bytes: sparse "
+                       f"values {wb['values']:,}, the rest {wb['other']:,}; "
+                       f"{per_pass['forward']} compact projections, "
+                       f"{per_pass['stacked_forward']} stacked expert "
+                       f"projections; built in {build_s:.1f}s; {smi}")
+    for lay in layouts:
+        log("serve-archs", f"{arch} layout {lay['m']} x {lay['k']}"
+                           f"{experts_note(lay)} "
+                           f"(G {lay['G']}, C {lay['C']}; "
+                           f"{', '.join(lay['names'])}): decode "
+                           f"{ARCH_N[engine_kind]['decode']} rows "
+                           f"{lay['bodies']['decode']} body, prefill "
+                           f"{ARCH_N[engine_kind]['prefill']} rows "
+                           f"{lay['bodies']['prefill']} body")
+    reqs = RequestStream(cfg.vocab_size, ARCH_REQUESTS,
+                         prompt_lens=SERVE_PROMPT_LENS,
+                         gen_lens=ARCH_GEN_LENS,
+                         n_codebooks=cfg.n_codebooks, seed=0).requests()
+    max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
+    if engine_kind == "continuous":
+        make = lambda: ContinuousEngine(
+            model, page_size=16, max_slots=8, max_request_len=max_len,
+            cache_dtype=torch.float32)
+        decode_name = "decode_step_paged"
+    else:
+        make = lambda: StaticEngine(model, batch=ARCH_STATIC_BATCH,
+                                    cache_dtype=torch.float32)
+        decode_name = "decode_step"
+    # warm-up (allocator, cuBLAS handles), not counted
+    warm = make()
+    warm.submit(reqs[0]["prompt"][:32], 2)
+    warm.drain()
+    del warm
+    engine = make()
+    per_call = {"prefill": [], "decode": []}
+    profiled = {}
+
+    step_ms = []
+    decode_fn = getattr(model, decode_name)
+    last_decode = []
+
+    def counted(kind, fn):
+        def call(*args, **kw):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t_call = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            if kind == "decode":
+                step_ms.append(1e3 * (time.perf_counter() - t_call))
+                last_decode[:] = [args, kw]
+            if not bool(torch.isfinite(out[0]).all()):
+                raise AssertionError(f"{arch}: a {kind} call's logits are "
+                                     f"not finite")
+            per_call[kind].append(counts_since(before))
+            return out
+        return call
+
+    model.prefill = counted("prefill", model.prefill)
+    setattr(model, decode_name, counted("decode", decode_fn))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r["prompt"], r["max_new_tokens"])
+    out = engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, mma = launch_counts(), body_counts()
+    st = engine.stats
+    for r in reqs:
+        toks = np.asarray(out.get(r["rid"], np.zeros(0)))
+        want_shape = (r["max_new_tokens"],) + r["prompt"].shape[1:]
+        if toks.shape != want_shape:
+            raise AssertionError(f"{arch} request {r['rid']}: tokens "
+                                 f"{toks.shape}, want {want_shape}")
+        if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{arch} request {r['rid']}: token out of "
+                                 f"range")
+    passes = st["prefill_calls"] + st["decode_steps"]
+    for kind, calls in per_call.items():
+        for i, c in enumerate(calls):
+            if c != per_pass:
+                raise AssertionError(f"{arch} {kind} call {i}: launches "
+                                     f"{c}, want {per_pass}")
+    if passes == 0 or not any(per_pass.values()) or counts != {
+            k: v * passes for k, v in per_pass.items()}:
+        raise AssertionError(f"{arch}: launches {counts} over {passes} "
+                             f"passes, want {per_pass} a pass")
+    # one decode step under the profiler, after the timed run (a trace
+    # slows the launches that follow it): the last decode call again, on
+    # the state it left (the same shapes and work)
+    before = launch_counts()
+    _, p_wall, p_busy, p_kernels = profile_call(decode_fn, *last_decode[0],
+                                                **last_decode[1])
+    profiled.update(wall_ms=p_wall, busy_ms=p_busy, kernels=p_kernels,
+                    launches=counts_since(before))
+    del decode_fn, last_decode[:]
+    if profiled["launches"] != per_pass:
+        raise AssertionError(f"{arch}: the profiled decode step launched "
+                             f"{profiled['launches']}, want {per_pass}")
+    n_prompt, n_gen = st["prompt_tokens"], st["generated_tokens"]
+    res = dict(
+        arch=arch, engine=engine_kind, layers=cfg.n_layers,
+        stored_values=model.n_params(), weight_bytes=wb,
+        requests=len(out), prompt_tokens=n_prompt, generated_tokens=n_gen,
+        wall_s=wall, tok_per_s=(n_prompt + n_gen) / wall,
+        prefill_calls=st["prefill_calls"], decode_steps=st["decode_steps"],
+        prefill_time_s=st["prefill_time_s"],
+        decode_time_s=st["decode_time_s"],
+        decode_ms_per_step=1e3 * st["decode_time_s"] / st["decode_steps"],
+        decode_call_ms=dict(min=min(step_ms),
+                            median=statistics.median(step_ms),
+                            max=max(step_ms),
+                            argmax=int(np.argmax(step_ms))),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts, launches_per_pass=per_pass, mma_launches=mma,
+        profiled_decode=dict(
+            profiled, idle_share=1.0 - profiled["busy_ms"]
+            / profiled["wall_ms"]),
+        build_s=build_s)
+    prof = res["profiled_decode"]
+    log("serve-archs", f"{arch} ({engine_kind} engine): {len(out)} requests, "
+                       f"{n_prompt} prompt + {n_gen} new tokens in "
+                       f"{wall:.3f}s = {res['tok_per_s']:.1f} tok/s; prefill "
+                       f"{st['prefill_calls']} calls in "
+                       f"{st['prefill_time_s']:.3f}s; decode "
+                       f"{st['decode_steps']} steps, "
+                       f"{res['decode_ms_per_step']:.2f} ms/step (a "
+                       f"model call min / median / max "
+                       f"{res['decode_call_ms']['min']:.2f} / "
+                       f"{res['decode_call_ms']['median']:.2f} / "
+                       f"{res['decode_call_ms']['max']:.2f} ms, the slowest "
+                       f"call {res['decode_call_ms']['argmax']}); peak "
+                       f"memory {res['peak_mem_gb']:.2f} GB; {smi}")
+    log("serve-archs", f"{arch}: launches a pass "
+                       f"{ {k: v for k, v in per_pass.items() if v} }, in "
+                       f"all {sum(counts.values())} over {passes} passes "
+                       f"(tensor-core {sum(mma.values())}); the last "
+                       f"decode step again, profiled: "
+                       f"{sum(prof['launches'].values())} sparse launches, "
+                       f"{prof['kernels']} kernels, card busy "
+                       f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+                       f"(idle {100 * prof['idle_share']:.1f}%)")
+    del engine, model
+    free_card()
+    g = torch.Generator(device="cuda").manual_seed(25)
+    res["layouts"] = []
+    for lay in layouts:
+        got = check_time_arch_layout(lay, engine_kind, g)
+        row = {k: v for k, v in lay.items() if k not in ("tables", "layout")}
+        row.update(got)
+        res["layouts"].append(row)
+        log("times-archs", f"{arch} {lay['m']} x {lay['k']}"
+                           f"{experts_note(lay)} bf16: vs plain "
+                           + ", ".join(f"N={n} {r:.1e}" for n, r in
+                                       got["checked"].items())
+                           + "; " + "; ".join(
+                               f"{kind} N={t['n']} {t['body']} "
+                               f"{t['ms']:.4g} ms (bound {t['bound_ms']:.4g} "
+                               f"{t['bound_by']}"
+                               + (f", dense {t['library_ms']:.4g}"
+                                  if t["library_ms"] is not None else "")
+                               + ")"
+                               for kind, t in got["times"].items()))
+    if cfg.rwkv is not None or cfg.mamba is not None:
+        sc = res["scan"] = time_scan(cfg)
+        log("times-archs", f"{arch} {sc['scan']} of one layer, float32, "
+                           f"{sc['batch']} x {sc['steps']} steps: "
+                           + "; ".join(
+                               f"{label} {f['wall_ms']:.2f} ms (events "
+                               f"{f['event_ms']:.2f}), peak "
+                               f"{f['peak_gb']:.3f} GB"
+                               for label, f in (
+                                   (f"chunks of {sc['chunk']}",
+                                    sc["chunked"]),
+                                   ("every step its own", sc["per_step"])))
+                           + f"; outputs within {sc['rel_err']:.1e}; {smi}")
+    free_card()
+    print("serve-archs " + json.dumps(
+        {k: v for k, v in res.items() if k != "layouts"}), flush=True)
+    print("times-archs " + json.dumps({"arch": arch, "layouts": [
+        {k: v for k, v in r.items()} for r in res["layouts"]]}), flush=True)
+    return res
+
+
+def experts_note(lay: dict) -> str:
+    return f" x {lay['experts']} experts" if lay["experts"] > 1 else ""
+
+
+def arch_phases(smi: str) -> tuple[dict, dict]:
+    """Phases 48 and 49 over the eight archs of ``ARCH_SERVE``; phase 49
+    serves ``ARCH_BASELINE`` first, the same workload through the same
+    engine in the same call, as the measure the others' decode steps are
+    read against."""
+    parity = {arch: phase_arch_parity(arch) for arch in ARCH_SERVE}
+    serve = {arch: phase_serve_arch(arch, smi)
+             for arch in [ARCH_BASELINE, *ARCH_SERVE]}
+    return parity, serve
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -5380,6 +6040,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     smi = phase_build()
+    if "--archs-only" in sys.argv[1:]:
+        # the quick check of the other language models: phases 48-49
+        arch_phases(smi)
+        log("done", f"phases 1, 48 and 49 passed in "
+                    f"{time.perf_counter() - t_start:.1f}s on {smi}")
+        return 0
     layouts, experts = full_width_layouts(), moe_layouts()
     chains = chain_layouts()
     if "--autotune-only" in sys.argv[1:]:
@@ -5550,6 +6216,12 @@ def main() -> int:
     autotune_phases(layouts, experts, chains, fm, plans, tiny, serve, smi)
     t_tune = time.perf_counter() - t_tune
 
+    # the other eight language models: reduced, card against CPU; then
+    # served at full width through rbgp4mm_rhs and rbgp4mm_rhs_stacked
+    t_arch = time.perf_counter()
+    _, serve_archs = arch_phases(smi)
+    t_arch = time.perf_counter() - t_arch
+
     per_layout = {f"{key} {kind if isinstance(kind, str) else f'N={kind}'}":
                   row for (key, kind), row in times.items()}
     per_layout.update({f"experts {key} {kind if isinstance(kind, str) else f'N={kind}'}":
@@ -5610,7 +6282,7 @@ def main() -> int:
                  serve_q_chain, serve_plan, chunked, chunked_moe,
                  chunked_chain, pressure, prefix["on"], prefix["off"],
                  static, obs) + tuple(vision.values()) \
-        + tuple(train_plan.values())
+        + tuple(train_plan.values()) + tuple(serve_archs.values())
     vision_launches = lambda role: sum(r["launches"][role]
                                        for r in vision.values())
     total = lambda role: sum(run["launches"][role] for run in main_runs)
@@ -5857,7 +6529,8 @@ def main() -> int:
                 f"the int8 phases {t_q:.1f}s, the vision phases "
                 f"{t_vis:.1f}s, the plan phases {t_plan:.1f}s, the serving "
                 f"phases 38-44 {t_serve:.1f}s, the autotuner phases 45-47 "
-                f"{t_tune:.1f}s")
+                f"{t_tune:.1f}s, the other archs' phases 48-49 "
+                f"{t_arch:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,18 @@ port's ``state_dict``, where a compact or chain projection's values are
 ``<path>.w_data``.  Under a plan the layers are grouped as the reference's
 ``Stack`` groups them, the plan's per-layer specs included.  The reference stacks the layers of its scanned
 periods into ``(T, ...)`` leaves; the bridge splits them per layer with
-``jax_stack_split`` (the reference's MoE cadence included).  A MoE
+``jax_stack_split`` (the reference's MoE cadence included: jamba's period
+of 8, gemma3's of 6, DeepSeek-V2's dense layer 0 in front).  A MoE
 layer's leaves map by name: ``ffn.router`` (E, D), the stacked experts
 ``ffn.experts.{gate,up,down}.w_data`` (E, M, nnz_row) (or the dense
 ``ffn.experts.{gate,up,down}`` (E, M, K)) and the shared expert
-``ffn.shared.*``.  A quantized reference tree (``quantize_weights``) gives
+``ffn.shared.*``.  The other layer kinds' leaves map by name too: an
+RWKV layer's ``{"rwkv": {...}}`` subtree (its norms, ``mix_w2`` (5, r,
+d) and the rest, and its projections ``r``, ``k``, ... ``cmr``), MLA's
+dense ``wk_b`` / ``wv_b`` (H, r, d), Mamba's ``conv_w``, ``dt_w``,
+``dt_bias``, ``a_log`` and ``d`` beside its ``in``/``x``/``out``
+projections; a codebook model's list of embeddings is ``embed.<i>``, and
+a tied model has no ``head``.  A quantized reference tree (``quantize_weights``) gives
 each ``QuantizedWeight`` as ``{"q_data": ..., "scales": ..., "b": ...}``;
 it loads into a port model quantized the same way (``quantize_weights``
 first), as ``<path>.q_data`` (int8, kept int8) and ``<path>.scales``

@@ -1,10 +1,12 @@
-"""Config registry of the port: ``get_config``, ``reduce_config``,
-``apply_sparsity`` (the port of ``repro/configs/__init__.py``).
+"""Config registry of the port: ``get_config``, ``list_archs``,
+``reduce_config``, ``apply_sparsity`` (the port of
+``repro/configs/__init__.py``).
 
-Only the ported architectures are listed; every other architecture of the
-reference raises "not yet ported".  ``vgg19-cifar`` and ``wrn40-4-cifar``
-give a ``VisionConfig`` (``repro_torch.models.vision``), the language
-models a ``ModelConfig``.
+All twelve architectures of the reference: ten language models
+(``ModelConfig``) and the paper's ``vgg19-cifar`` and ``wrn40-4-cifar``
+(``VisionConfig``, ``repro_torch.models.vision``).  The reference's shape
+cells (``shape_cells``, ``input_specs``, ``LONG_CONTEXT_ARCHS``) describe
+JAX's abstract dry-run cells and are not ported.
 """
 from __future__ import annotations
 
@@ -14,31 +16,37 @@ import math
 
 from repro_torch.sparsity import SparsityConfig
 
-from .base import ModelConfig, MoEConfig, TrainConfig
+from .base import (MambaConfig, MLAConfig, ModelConfig, MoEConfig,
+                   RWKVConfig, TrainConfig)
 
 ARCHS = {
+    "gemma-7b": "gemma_7b",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "gemma3-4b": "gemma3_4b",
+    "deepseek-7b": "deepseek_7b",
+    "pixtral-12b": "pixtral_12b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "rwkv6-7b": "rwkv6_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "musicgen-medium": "musicgen_medium",
     "vgg19-cifar": "vgg19_cifar",
     "wrn40-4-cifar": "wrn40_4_cifar",
 }
 
-#: architectures of the reference whose port comes with a later slice
-NOT_YET_PORTED = (
-    "gemma-7b", "gemma3-4b", "deepseek-7b", "pixtral-12b",
-    "deepseek-v2-236b", "rwkv6-7b", "jamba-1.5-large-398b",
-    "musicgen-medium",
-)
-
 
 def get_config(name: str):
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not yet ported; have {sorted(ARCHS)}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")
     return mod.CONFIG
+
+
+def list_archs(lm_only: bool = False) -> list[str]:
+    names = list(ARCHS)
+    if lm_only:
+        names = [n for n in names if not n.endswith("-cifar")]
+    return names
 
 
 def apply_sparsity(cfg: ModelConfig, pattern: str = "rbgp4",
@@ -57,10 +65,12 @@ def apply_sparsity(cfg: ModelConfig, pattern: str = "rbgp4",
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
     """Small same-family config: tiny dims, few layers, CPU-runnable.
 
-    The reference's ``reduce_config`` for the ported families, with the
-    sparsity backend 'auto' (compact storage).  It keeps the MoE cadence:
-    the period is the lcm of the layer pattern and ``every_n_layers``, the
-    ``first_dense`` layers stay in front.
+    The reference's ``reduce_config``, with the sparsity backend 'auto'
+    (compact storage).  It keeps the layer pattern, the MoE cadence (the
+    period is the lcm of the pattern and ``every_n_layers``, the
+    ``first_dense`` layers stay in front) and the mixer kinds: MLA, Mamba
+    and RWKV keep their sub-configs at small ranks, a vision frontend 4
+    patches, a codebook model a vocabulary of 128.
     """
     period = len(cfg.layer_pattern)
     if cfg.moe is not None:
@@ -70,29 +80,45 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     kv_ratio = max(cfg.n_heads // cfg.n_kv_heads, 1)
     n_heads = 4
     n_kv = max(n_heads // min(kv_ratio, 4), 1)
+    rwkv = cfg.rwkv
+    d_model = 64
+    if rwkv is not None:
+        rwkv = dataclasses.replace(rwkv, head_size=16, decay_lora=8,
+                                   mix_lora=8)
+        n_heads = n_kv = d_model // 16
     moe = cfg.moe
     if moe is not None:
         moe = dataclasses.replace(
             moe, n_experts=min(moe.n_experts, 8), top_k=min(moe.top_k, 2),
             n_shared=min(moe.n_shared, 1), d_expert=64)
+    mla = cfg.mla
+    if mla is not None:
+        mla = dataclasses.replace(
+            mla, kv_lora_rank=32, q_lora_rank=32 if mla.q_lora_rank else 0,
+            rope_head_dim=8, nope_head_dim=16, v_head_dim=16)
+    mamba = cfg.mamba
+    if mamba is not None:
+        mamba = dataclasses.replace(mamba, d_state=4)
     sp = SparsityConfig(pattern="rbgp4", sparsity=0.5, backend="auto",
                         min_dim=64)
     return cfg.with_(
         name=cfg.name + "-smoke",
         n_layers=n_layers,
-        d_model=64,
+        d_model=d_model,
         n_heads=n_heads,
         n_kv_heads=n_kv,
         head_dim=16,
         d_ff=128,
-        vocab_size=997,
+        vocab_size=128 if cfg.n_codebooks > 1 else 997,
         sliding_window=min(cfg.sliding_window, 16),
         max_seq_len=256,
-        moe=moe,
+        n_patches=4 if cfg.frontend == "vision" else 0,
+        moe=moe, mla=mla, mamba=mamba, rwkv=rwkv,
         sparsity=sp,
         compute_dtype="float32",
     )
 
 
-__all__ = ["ARCHS", "get_config", "apply_sparsity",
-           "reduce_config", "ModelConfig", "MoEConfig", "TrainConfig"]
+__all__ = ["ARCHS", "get_config", "list_archs", "apply_sparsity",
+           "reduce_config", "ModelConfig", "MoEConfig", "MLAConfig",
+           "MambaConfig", "RWKVConfig", "TrainConfig"]

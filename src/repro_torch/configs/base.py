@@ -1,11 +1,12 @@
-"""MoEConfig, ModelConfig and TrainConfig: the fields the ported slices
-read.
+"""MoEConfig, MLAConfig, MambaConfig, RWKVConfig, ModelConfig and
+TrainConfig.
 
-The port of ``repro/configs/base.py``.  Fields that only architectures not
-yet ported read (MLA, Mamba, RWKV, frontends, tied embeddings, logit
-soft-capping) come with those architectures.  The reference's
-``distill_alpha`` / ``distill_temp`` are not fields here: distillation is
-a ``loss_fn`` (``train/distill.py``).
+The port of ``repro/configs/base.py``, the language models' fields all
+ported.  Left out: ``ssm_unroll`` (the reference's unroll factor of its
+``lax.scan`` over time, a TPU compile knob; the port's scans are Python
+loops), the shape cells (``ShapeConfig``, ``LM_SHAPES``: JAX's dry-run
+cells) and the reference's ``distill_alpha`` / ``distill_temp``:
+distillation is a ``loss_fn`` here (``train/distill.py``).
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import Optional
 
 from repro_torch.sparsity import SparsityConfig, SparsityPlan, lower_config
 
-__all__ = ["MoEConfig", "ModelConfig", "TrainConfig"]
+__all__ = ["MoEConfig", "MLAConfig", "MambaConfig", "RWKVConfig",
+           "ModelConfig", "TrainConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +37,30 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_size: int = 64
+    decay_lora: int = 64
+    mix_lora: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     n_layers: int
@@ -43,16 +69,28 @@ class ModelConfig:
     n_kv_heads: int
     d_ff: int
     vocab_size: int
-    family: str = "dense"            # dense | moe (the ported families)
+    family: str = "dense"            # dense | moe | ssm | hybrid | vlm | audio
     head_dim: int = 0                # 0 -> d_model // n_heads
-    # layer pattern, repeated cyclically: 'attn' (full causal) or 'swa'
+    # layer pattern, repeated cyclically over layers: 'attn' (full
+    # causal), 'swa' (sliding window), 'mla', 'mamba', 'rwkv'
     layer_pattern: tuple[str, ...] = ("attn",)
     sliding_window: int = 1024
     hidden_act: str = "silu"         # 'gelu' -> GeGLU MLP
     rmsnorm_eps: float = 1e-6
     rope_theta: float = 10000.0
     max_seq_len: int = 8192
+    tie_embeddings: bool = False     # the head is the embedding's transpose
+    logit_softcap: float = 0.0       # > 0: logits -> tanh(z / c) * c
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    mamba: Optional[MambaConfig] = None
+    rwkv: Optional[RWKVConfig] = None
+    # modality frontend stub: 'vision' (the first n_patches positions take
+    # given patch embeddings) or 'audio' (n_codebooks ids a step, their
+    # embeddings summed, one head of n_codebooks * vocab rows)
+    frontend: Optional[str] = None
+    n_codebooks: int = 1
+    n_patches: int = 0
     # the paper's technique: ``sparsity`` is the uniform knob (a one-rule
     # plan); ``plan`` is the per-layer SparsityPlan and wins when set.
     # Model constructors only see the resolved plan (``sparsity_rules``)

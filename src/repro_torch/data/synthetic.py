@@ -3,15 +3,16 @@ of ``repro/data/synthetic.py``.
 
   * TokenStream: affine-recurrence sequences (t_{i+1} = a*t_i + c mod V)
     with random restarts and noise; iterating it yields the training
-    batches ``{"tokens": (B, S)}``;
+    batches ``{"tokens": (B, S)}``, or (B, S, n_codebooks) for an audio
+    model's codebooks;
   * RequestStream: the serving workload — mixed-length requests whose
     prompts come from the same token process, with optional arrivals;
   * GaussianClassImages: CIFAR-shaped (B, 32, 32, 3) NHWC images around
     fixed class prototypes, for the vision models;
   * Prefetcher: background-thread double buffering around any iterator.
 
-The same seed gives the reference's tokens, requests and images (the same
-numpy RNG calls; multi-codebook streams come with the audio models).
+The same seed gives the reference's tokens, requests and images, codebook
+streams included (the same numpy RNG calls).
 """
 from __future__ import annotations
 
@@ -26,13 +27,16 @@ __all__ = ["TokenStream", "RequestStream", "GaussianClassImages",
 
 
 class TokenStream:
-    """Deterministic learnable token batches (B, S)."""
+    """Deterministic learnable token batches: (B, S) or (B, S,
+    n_codebooks)."""
 
-    def __init__(self, vocab: int, batch: int, seq_len: int, seed: int = 0,
-                 noise: float = 0.05, restart_p: float = 0.02):
+    def __init__(self, vocab: int, batch: int, seq_len: int,
+                 n_codebooks: int = 1, seed: int = 0, noise: float = 0.05,
+                 restart_p: float = 0.02):
         self.vocab = vocab
         self.batch = batch
         self.seq = seq_len
+        self.ncb = n_codebooks
         self.seed = seed
         self.noise = noise
         self.restart_p = restart_p
@@ -42,8 +46,10 @@ class TokenStream:
 
     def batch_at(self, step: int) -> np.ndarray:
         rng = np.random.default_rng((self.seed, step))
-        toks = np.zeros((self.batch, self.seq), np.int32)
-        cur = rng.integers(0, self.vocab, size=(self.batch,))
+        shape = ((self.batch, self.seq, self.ncb) if self.ncb > 1
+                 else (self.batch, self.seq))
+        toks = np.zeros(shape, np.int32)
+        cur = rng.integers(0, self.vocab, size=shape[:1] + shape[2:])
         for s in range(self.seq):
             toks[:, s] = cur
             cur = (self.a * cur + self.c) % self.vocab
@@ -71,19 +77,22 @@ class RequestStream:
     def __init__(self, vocab: int, n_requests: int,
                  prompt_lens: tuple[int, ...] = (8, 16, 24, 32),
                  gen_lens: tuple[int, ...] = (4, 8, 16, 32),
-                 seed: int = 0, arrival_rate: float = 0.0):
+                 n_codebooks: int = 1, seed: int = 0,
+                 arrival_rate: float = 0.0):
         self.vocab = vocab
         self.n = n_requests
         self.prompt_lens = tuple(prompt_lens)
         self.gen_lens = tuple(gen_lens)
+        self.ncb = n_codebooks
         self.seed = seed
         self.arrival_rate = arrival_rate
 
     def requests(self) -> list[dict]:
-        """[{'rid', 'prompt' (S,) int32, 'max_new_tokens', 'arrival_step'}],
-        sorted by arrival."""
+        """[{'rid', 'prompt' (S[, n_cb]) int32, 'max_new_tokens',
+        'arrival_step'}], sorted by arrival."""
         rng = np.random.default_rng((self.seed, 7))
-        ts = TokenStream(self.vocab, 1, max(self.prompt_lens), seed=self.seed)
+        ts = TokenStream(self.vocab, 1, max(self.prompt_lens),
+                         n_codebooks=self.ncb, seed=self.seed)
         out, step = [], 0
         for i in range(self.n):
             S = int(rng.choice(self.prompt_lens))

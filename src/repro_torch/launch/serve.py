@@ -3,8 +3,12 @@
 Runs on the card unless ``--device cpu`` is given; without CUDA and without
 that flag it exits with an error naming the flag.
 
-``--engine continuous`` (default) is continuous batching over a paged KV
-cache; ``--engine static`` the fixed-batch baseline.  ``--prefill-chunk N``
+``--arch`` takes every language model of the registry (a codebook model's
+requests carry ``n_codebooks`` ids a step).  ``--engine continuous``
+(default) is continuous batching over a paged KV cache; ``--engine
+static`` the fixed-batch baseline, the only one a recurrent architecture
+(rwkv6-7b, jamba-1.5-large-398b) runs: with ``--engine continuous`` it
+exits with the reference's message.  ``--prefill-chunk N``
 feeds prompts in N-token chunks, one per step.  ``--arrival-rate`` submits
 each request when its arrival step comes.  The robustness flags are the
 reference's: ``--reserve prompt`` (oversubscribe the pool; preempt under
@@ -45,6 +49,8 @@ Examples:
       --prefill-chunk 4 --reserve prompt --fault-seed 0 --trace /tmp/t.json
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --engine static
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --reduced --device cpu --engine static
 """
 from __future__ import annotations
 
@@ -297,7 +303,8 @@ def main(argv=None):
     else:
         pl, gl = (args.prompt_len,), (args.gen,)
     workload = RequestStream(
-        cfg.vocab_size, n_req, prompt_lens=pl, gen_lens=gl, seed=args.seed,
+        cfg.vocab_size, n_req, prompt_lens=pl, gen_lens=gl,
+        n_codebooks=cfg.n_codebooks, seed=args.seed,
         arrival_rate=args.arrival_rate if args.engine != "static" else 0.0,
     ).requests()
     max_len = max(r["prompt"].shape[0] + r["max_new_tokens"]
@@ -321,15 +328,20 @@ def main(argv=None):
         engine = make_engine("static", model, batch=args.batch,
                              recorder=recorder)
     else:
-        engine = make_engine(
-            "continuous", model, page_size=args.page_size,
-            max_slots=args.batch, max_live_tokens=args.max_live_tokens,
-            max_request_len=max_len, prefill_chunk=args.prefill_chunk,
-            plan=cfg.plan,  # plan-aware admission (None: uniform budget)
-            reserve=args.reserve, max_retries=args.max_retries,
-            max_idle_steps=args.max_idle_steps, faults=faults,
-            recorder=recorder,
-        )
+        try:
+            engine = make_engine(
+                "continuous", model, page_size=args.page_size,
+                max_slots=args.batch, max_live_tokens=args.max_live_tokens,
+                max_request_len=max_len, prefill_chunk=args.prefill_chunk,
+                plan=cfg.plan,  # plan-aware admission (None: uniform budget)
+                reserve=args.reserve, max_retries=args.max_retries,
+                max_idle_steps=args.max_idle_steps, faults=faults,
+                recorder=recorder,
+            )
+        except NotImplementedError as e:
+            # a recurrent layer (mamba, rwkv) has no paged cache: the
+            # reference's message, and no fallback to the static engine
+            raise SystemExit(f"error: {e}") from None
         if args.max_live_tokens and cfg.plan is not None:
             print(f"plan-aware admission: max_live_tokens "
                   f"{engine.base_live_tokens} -> {engine.plan_live_tokens} "

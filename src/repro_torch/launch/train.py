@@ -85,6 +85,7 @@ def build(args):
     )
     per_step_batch = args.batch * tcfg.microbatches
     data = Prefetcher(TokenStream(cfg.vocab_size, per_step_batch, args.seq,
+                                  n_codebooks=cfg.n_codebooks,
                                   seed=args.seed))
     return cfg, model, tcfg, data
 

@@ -1,13 +1,16 @@
-"""Grouped-query attention (full or sliding window) over contiguous and
-paged KV caches.
+"""Attention mixers over contiguous and paged caches: grouped-query
+attention (full or sliding window) and DeepSeek-V2's multi-head latent
+attention (MLA).
 
-The port of the GQA part of ``repro/models/attention.py``.  Attention is
-plain tensor code in the reference too, so it is plain PyTorch here; only
-the projections reach the ``rbgp4mm_rhs`` kernel (through SparseLinear).
+The port of ``repro/models/attention.py``.  Attention is plain tensor code
+in the reference too, so it is plain PyTorch here; only the projections
+reach the ``rbgp4mm_rhs`` kernel (through SparseLinear).
 
 Caches are dicts of tensors:
-  contiguous: {"k": (B, L, Hkv, hd), "v": (B, L, Hkv, hd), "pos": (B, L) int32}
-  paged pools: {"k": (N, P, Hkv, hd), "v": ..., "pos": (N, P) int32}
+  GQA contiguous: {"k": (B, L, Hkv, hd), "v": (B, L, Hkv, hd),
+                   "pos": (B, L) int32}
+  MLA contiguous: {"ckv": (B, L, r_kv), "krope": (B, L, d_r), "pos": ...}
+  paged pools: the same leaves with (N, P) in place of (B, L)
 ``pos`` holds each slot's absolute position (-1 = empty), so the attention
 mask is computed from slot positions for full and rolling caches alike.
 Unlike the reference, which is functional, caches are updated in place
@@ -21,13 +24,13 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.sparsity import SparseLinear
 from .common import apply_rope, rope_frequencies
 
-__all__ = ["GQAttention", "init_cache_gqa", "paged_cache_update",
-           "NEG_INF", "CHUNK_THRESHOLD", "KV_CHUNK"]
+__all__ = ["GQAttention", "MLAttention", "init_cache_gqa", "init_cache_mla",
+           "paged_cache_update", "NEG_INF", "CHUNK_THRESHOLD", "KV_CHUNK"]
 
 NEG_INF = -1e30
 
@@ -142,6 +145,30 @@ def init_cache_gqa(batch: int, length: int, n_kv: int, head_dim: int,
     }
 
 
+def init_cache_mla(batch: int, length: int, mla: MLAConfig,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    return {
+        "ckv": torch.zeros((batch, length, mla.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, length, mla.rope_head_dim), dtype=dtype,
+                             device=device),
+        "pos": torch.full((batch, length), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def _attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                    window: int = 0) -> torch.Tensor:
+    """(B, Sq, Sk) True where a causal query may see a key slot (within
+    ``window`` positions when it is not 0)."""
+    qp = q_pos[:, :, None]
+    kp = k_pos[:, None, :]
+    ok = (kp >= 0) & (kp <= qp)
+    if window > 0:
+        ok &= (qp - kp) < window
+    return ok
+
+
 class GQAttention(nn.Module):
     """Grouped-query attention with RoPE; window=0 means full causal.
     ``device`` defaults to the card (projections and ``inv_freq`` alike);
@@ -225,15 +252,6 @@ class GQAttention(nn.Module):
         y = self._attend(q, k_all, v_all, positions, k_pos)
         return self.wo(y.reshape(B, S, H * hd)), cache
 
-    def _mask(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-        """(B, Sq, Sk) True where attention is allowed."""
-        qp = q_pos[:, :, None]
-        kp = k_pos[:, None, :]
-        ok = (kp >= 0) & (kp <= qp)
-        if self.window > 0:
-            ok &= (qp - kp) < self.window
-        return ok
-
     def _expand_kv(self, t: torch.Tensor) -> torch.Tensor:
         """(B, L, Hkv, hd) -> (B, L, H, hd) (GQA repeat)."""
         B, L, g, hd = t.shape
@@ -254,7 +272,7 @@ class GQAttention(nn.Module):
         # preferred_element_type=f32 contraction)
         scores = torch.einsum("bshd,blhd->bhsl", q.float(),
                               k.float()) / math.sqrt(hd)
-        ok = self._mask(q_pos, k_pos)[:, None]
+        ok = _attention_mask(q_pos, k_pos, self.window)[:, None]
         scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         return torch.einsum("bhsl,blhd->bshd", probs, v)
@@ -265,7 +283,7 @@ class GQAttention(nn.Module):
         qg = q.reshape(B, S, Hkv, H // Hkv, hd)
         scores = torch.einsum("bsgrh,blgh->bgrsl", qg.float(),
                               k.float()) / math.sqrt(hd)
-        ok = self._mask(q_pos, k_pos)[:, None, None]
+        ok = _attention_mask(q_pos, k_pos, self.window)[:, None, None]
         scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         out = torch.einsum("bgrsl,blgh->bsgrh", probs, v)
@@ -287,7 +305,7 @@ class GQAttention(nn.Module):
             k_c = k[:, start:start + size]
             p_c = k_pos[:, start:start + size]
             s = torch.einsum("bshd,blhd->bhsl", qf, k_c.float()) * scale
-            ok = self._mask(q_pos, p_c)[:, None]
+            ok = _attention_mask(q_pos, p_c, self.window)[:, None]
             return torch.where(ok, s, torch.full_like(s, NEG_INF))
 
         def value_fn(p, start, size):
@@ -297,3 +315,174 @@ class GQAttention(nn.Module):
         out = _online_attend(score_fn, value_fn, L + pad, (B, H, S), hd,
                              q.device)
         return out.transpose(1, 2).to(q.dtype)
+
+
+class MLAttention(nn.Module):
+    """Multi-head latent attention (DeepSeek-V2).
+
+    The cache holds the compressed ``ckv`` (r_kv a token) and the shared
+    rotary key ``krope``; the per-head up-projections ``wk_b`` (H, r_kv,
+    d_nope) and ``wv_b`` (H, r_kv, d_v) are dense parameters, the other
+    projections SparseLinear.  As the reference, the formulation follows
+    the query length: a decode step (S == 1) takes the absorbed form (the
+    query through ``wk_b``, the context through ``wv_b``, the cache never
+    decompressed); a prefill decompresses per-head keys and values, in
+    one pass, or over key chunks through ``_online_attend`` past
+    ``CHUNK_THRESHOLD`` keys.  The three sum in different orders, so each
+    call takes the reference's branch.  ``device`` defaults to the card.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, name: str = "mla", device=None,
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.mla is None:
+            raise ValueError(f"layer kind 'mla' needs cfg.mla ({cfg.name})")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.mla = m = cfg.mla
+        d, H = cfg.d_model, cfg.n_heads
+        sp = cfg.sparsity_rules
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype,
+                  generator=generator)
+        self.q_head = m.nope_head_dim + m.rope_head_dim
+        if m.q_lora_rank:
+            self.wq_a = SparseLinear(d, m.q_lora_rank, sp,
+                                     name=f"{name}.wq_a", **kw)
+            self.wq_b = SparseLinear(m.q_lora_rank, H * self.q_head, sp,
+                                     name=f"{name}.wq_b", **kw)
+            self.q_norm_scale = nn.Parameter(
+                torch.ones(m.q_lora_rank, device=device), requires_grad=False)
+        else:
+            self.wq = SparseLinear(d, H * self.q_head, sp, name=f"{name}.wq",
+                                   **kw)
+        self.wkv_a = SparseLinear(d, m.kv_lora_rank + m.rope_head_dim, sp,
+                                  name=f"{name}.wkv_a", **kw)
+        self.kv_norm_scale = nn.Parameter(
+            torch.ones(m.kv_lora_rank, device=device), requires_grad=False)
+
+        def up(width):
+            w = torch.randn((H, m.kv_lora_rank, width), generator=generator,
+                            device=device) * m.kv_lora_rank ** -0.5
+            return nn.Parameter(w.to(param_dtype).to(dtype),
+                                requires_grad=False)
+
+        self.wk_b = up(m.nope_head_dim)
+        self.wv_b = up(m.v_head_dim)
+        self.wo = SparseLinear(H * m.v_head_dim, d, sp, name=f"{name}.wo",
+                               **kw)
+        self.register_buffer(
+            "inv_freq",
+            rope_frequencies(m.rope_head_dim, cfg.rope_theta, device=device),
+            persistent=False)
+
+    @staticmethod
+    def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+        x32 = x.float()
+        v = torch.mean(x32 ** 2, dim=-1, keepdim=True)
+        return (x32 * torch.rsqrt(v + eps) * scale).to(x.dtype)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+                cache: Optional[dict] = None,
+                block_tables: Optional[torch.Tensor] = None,
+                index: Optional[int] = None):
+        """x: (B, S, D); positions: (B, S).  Returns (y, cache), the cache
+        written in place; ``index`` and ``block_tables`` as
+        ``GQAttention``'s."""
+        m = self.mla
+        B, S, _ = x.shape
+        H = self.cfg.n_heads
+        dn, dr, dv, r = (m.nope_head_dim, m.rope_head_dim, m.v_head_dim,
+                         m.kv_lora_rank)
+        if m.q_lora_rank:
+            q = self.wq_b(self._rms(self.wq_a(x), self.q_norm_scale))
+        else:
+            q = self.wq(x)
+        q = q.reshape(B, S, H, self.q_head)
+        q_nope = q[..., :dn]
+        q_rope = apply_rope(q[..., dn:], self.inv_freq, positions)
+        kv = self.wkv_a(x)
+        ckv = self._rms(kv[..., :r], self.kv_norm_scale)
+        k_rope = apply_rope(kv[..., r:][:, :, None, :], self.inv_freq,
+                            positions)[:, :, 0]
+
+        if block_tables is not None:
+            if S != 1:
+                raise ValueError("paged attention is decode-only (S == 1); "
+                                 "prefill goes through the contiguous path")
+            cache, got, k_pos = paged_cache_update(
+                cache, {"ckv": ckv, "krope": k_rope}, positions, block_tables)
+            ckv_all, krope_all = got["ckv"], got["krope"]
+        elif cache is not None:
+            if index is None:
+                index = int(positions[0, 0])  # decode/prefill in lockstep
+            # the reference attends over the written cache, prefill too
+            for name, val in (("ckv", ckv), ("krope", k_rope)):
+                _write_cache(cache[name], val, index, False)
+            _write_cache(cache["pos"][..., None], positions[..., None],
+                         index, False)
+            ckv_all, krope_all, k_pos = cache["ckv"], cache["krope"], \
+                cache["pos"]
+        else:
+            ckv_all, krope_all, k_pos = ckv, k_rope, positions
+        ckv_all = ckv_all.to(x.dtype)
+        krope_all = krope_all.to(x.dtype)
+        wk_b = self.wk_b.to(x.dtype)
+        wv_b = self.wv_b.to(x.dtype)
+        scale = 1.0 / math.sqrt(dn + dr)
+        L = ckv_all.shape[1]
+        qr = q_rope.float()
+
+        if S == 1:
+            # absorbed: scores against the compressed cache, O(L * r)
+            q_abs = torch.einsum("bshn,hrn->bshr", q_nope, wk_b)
+            scores = torch.einsum("bshr,blr->bhsl", q_abs.float(),
+                                  ckv_all.float())
+            scores = scores + torch.einsum("bshr,blr->bhsl", qr,
+                                           krope_all.float())
+            scores = scores * scale
+            ok = _attention_mask(positions, k_pos)[:, None]
+            scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            ctx = torch.einsum("bhsl,blr->bshr", probs, ckv_all)
+            y = torch.einsum("bshr,hrv->bshv", ctx, wv_b)
+        elif L > CHUNK_THRESHOLD:
+            pad = (-L) % KV_CHUNK
+            ckv_p = torch.nn.functional.pad(ckv_all, (0, 0, 0, pad))
+            krope_p = torch.nn.functional.pad(krope_all, (0, 0, 0, pad))
+            kpos_p = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
+            qn = q_nope.float()
+
+            def score_fn(start, size):
+                c_c = ckv_p[:, start:start + size]
+                k_nope = torch.einsum("blr,hrn->blhn", c_c, wk_b)
+                s = torch.einsum("bshn,blhn->bhsl", qn, k_nope.float())
+                s = s + torch.einsum("bshr,blr->bhsl", qr,
+                                     krope_p[:, start:start + size].float())
+                s = s * scale
+                ok = _attention_mask(positions,
+                                     kpos_p[:, start:start + size])[:, None]
+                return torch.where(ok, s, torch.full_like(s, NEG_INF))
+
+            def value_fn(p, start, size):
+                v_c = torch.einsum("blr,hrv->blhv",
+                                   ckv_p[:, start:start + size], wv_b)
+                return torch.einsum("bhsl,blhv->bhsv", p, v_c.float())
+
+            y = _online_attend(score_fn, value_fn, L + pad, (B, H, S), dv,
+                               x.device)
+            y = y.transpose(1, 2).to(x.dtype)   # (B, S, H, dv)
+        else:
+            # naive: decompressed per-head keys and values
+            k_nope = torch.einsum("blr,hrn->blhn", ckv_all, wk_b)
+            v_full = torch.einsum("blr,hrv->blhv", ckv_all, wv_b)
+            scores = torch.einsum("bshn,blhn->bhsl", q_nope.float(),
+                                  k_nope.float())
+            scores = scores + torch.einsum("bshr,blr->bhsl", qr,
+                                           krope_all.float())
+            scores = scores * scale
+            ok = _attention_mask(positions, k_pos)[:, None]
+            scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            y = torch.einsum("bhsl,blhv->bshv", probs, v_full)
+        return self.wo(y.reshape(B, S, H * dv)), cache

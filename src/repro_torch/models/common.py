@@ -11,7 +11,13 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 
-__all__ = ["RMSNorm", "Embedding", "rope_frequencies", "apply_rope"]
+__all__ = ["RMSNorm", "Embedding", "rope_frequencies", "apply_rope",
+           "SCAN_CHUNK"]
+
+#: time steps whose per-step products the recurrent scans form at once
+#: (``rwkv.wkv_scan``, ``ssm.selective_scan``): a prefill's memory for
+#: them is bounded by this many steps, not by the prompt's length
+SCAN_CHUNK = 64
 
 
 class RMSNorm(nn.Module):
@@ -53,6 +59,10 @@ class Embedding(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return F.embedding(tokens, self.embedding)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding logits: x @ E^T."""
+        return x @ self.embedding.to(x.dtype).T
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0,

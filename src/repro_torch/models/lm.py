@@ -2,7 +2,15 @@
 forward and loss and the serving entry points (prefill, chunked prefill,
 contiguous decode, paged decode).
 
-The port of ``repro/models/lm.py``.  The model holds its weights (the
+The port of ``repro/models/lm.py``, its frontends and heads included:
+an audio model (``n_codebooks > 1``) takes (B, S, n_codebooks) tokens,
+sums one embedding a codebook and emits (..., n_codebooks, V) logits from
+one head of ``n_codebooks * V`` rows; a tied model has no ``head`` and
+takes its logits as ``x @ Eᵀ`` (``Embedding.attend``); ``logit_softcap``
+caps them as ``tanh(z / c) * c``; a vision model takes precomputed
+``patch_embeds`` (B, n_patches, D) in place of its first token
+embeddings (``forward``, ``loss`` through ``batch['patch_embeds']``,
+``prefill``).  The model holds its weights (the
 reference passes a params pytree to every call); they are drawn from a
 ``torch.Generator`` seeded with ``seed`` on the model's device, or loaded
 from the reference with ``repro_torch.bridge.load_jax_params``.  The model
@@ -51,52 +59,94 @@ class LMModel(nn.Module):
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         param_dtype = getattr(torch, cfg.param_dtype)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        # ``meta`` (shape recording, n_params) draws nothing: no generator
+        generator = (None if self.device.type == "meta" else
+                     torch.Generator(device=self.device).manual_seed(seed))
         kw = dict(device=self.device, generator=generator,
                   dtype=self.compute_dtype, param_dtype=param_dtype)
         self.embed = nn.ModuleList(
-            [Embedding(cfg.vocab_size, cfg.d_model, **kw)])
+            [Embedding(cfg.vocab_size, cfg.d_model, **kw)
+             for _ in range(cfg.n_codebooks)])
         self.stack = Stack(cfg, **kw)
         self.norm_f = RMSNorm(cfg.d_model, cfg.rmsnorm_eps,
                               device=self.device)
-        head = torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
-                           device=self.device,
-                           dtype=torch.float32) * (cfg.d_model ** -0.5)
-        self.head = nn.Parameter(head.to(param_dtype).to(self.compute_dtype),
-                                 requires_grad=False)
+        self.head = None
+        if not cfg.tie_embeddings:
+            head = torch.randn((cfg.n_codebooks * cfg.vocab_size,
+                                cfg.d_model), generator=generator,
+                               device=self.device, dtype=torch.float32)
+            self.head = nn.Parameter(
+                (head * cfg.d_model ** -0.5).to(param_dtype).to(
+                    self.compute_dtype), requires_grad=False)
 
     def n_params(self) -> int:
+        """Stored values (a model built on ``meta`` counts the same)."""
         return sum(p.numel() for p in self.parameters())
 
     # -- embedding / head ----------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _embed(self, tokens: torch.Tensor,
+               patch_embeds=None) -> torch.Tensor:
+        """(B, S[, n_cb]) tokens -> (B, S, D) in the compute dtype; the
+        codebooks' embeddings summed; ``patch_embeds`` (vision) in place
+        of the first positions."""
+        if self.cfg.n_codebooks > 1:
+            x = 0
+            for i, e in enumerate(self.embed):
+                x = x + e(tokens[..., i]).to(self.compute_dtype)
+        else:
+            x = self.embed[0](tokens).to(self.compute_dtype)
+        if self.cfg.frontend == "vision" and patch_embeds is not None:
+            pe = torch.as_tensor(patch_embeds, device=self.device)
+            x = torch.cat([pe.to(self.compute_dtype), x[:, pe.shape[1]:]],
+                          dim=1)
+        return x
+
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.head.to(x.dtype).T
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            logits = self.embed[0].attend(x)
+        else:
+            logits = x @ self.head.to(x.dtype).T
+        if cfg.n_codebooks > 1:
+            logits = logits.reshape(*x.shape[:-1], cfg.n_codebooks,
+                                    cfg.vocab_size)
+        if cfg.logit_softcap:
+            c = cfg.logit_softcap
+            logits = torch.tanh(logits / c) * c
+        return logits
 
     # -- training forward ------------------------------------------------------
-    def forward(self, tokens, *, train: bool = False):
-        """tokens (B, S) -> (logits (B, S, V), aux_loss).  ``train``
-        recomputes each layer in the backward when ``cfg.remat``; the aux
-        loss is the sum of the MoE layers' load-balance losses (0 for a
-        dense stack)."""
+    def forward(self, tokens, *, train: bool = False, patch_embeds=None):
+        """tokens (B, S[, n_cb]) -> (logits (B, S[, n_cb], V), aux_loss).
+        ``train`` recomputes each layer in the backward when ``cfg.remat``;
+        the aux loss is the sum of the MoE layers' load-balance losses (0
+        without MoE layers)."""
         tokens = self._tokens(tokens)
-        B, S = tokens.shape
-        x = self.embed[0](tokens).to(self.compute_dtype)
+        B, S = tokens.shape[:2]
+        x = self._embed(tokens, patch_embeds)
         positions = torch.arange(S, device=self.device).expand(B, S)
         x, _, aux = self.stack(x, positions, train=train)
         return self._head(self.norm_f(x)), aux
 
     def loss(self, batch: dict, *, train: bool = True):
-        """Next-token loss over batch['tokens'] (+ the aux loss).  Returns
-        (loss, (ce, aux)); ``batch['loss_mask']`` (B, S) is optional."""
+        """Next-token loss over batch['tokens'] (+ the aux loss), over
+        every codebook.  Returns (loss, (ce, aux)); ``batch['loss_mask']``
+        (B, S) and ``batch['patch_embeds']`` are optional."""
         tokens = self._tokens(batch["tokens"])
-        logits, aux = self.forward(tokens, train=train)
+        logits, aux = self.forward(tokens, train=train,
+                                   patch_embeds=batch.get("patch_embeds"))
+        lg = logits[:, :-1]
         mask = batch.get("loss_mask")
         if mask is not None:
             mask = torch.as_tensor(mask, device=self.device)[:, 1:]
-        ce = lm_loss(logits[:, :-1], tokens[:, 1:], mask)
+            if self.cfg.n_codebooks > 1:
+                mask = mask[..., None] * torch.ones(lg.shape[:-1],
+                                                    dtype=mask.dtype,
+                                                    device=self.device)
+        ce = lm_loss(lg, tokens[:, 1:], mask)
         return ce + aux, (ce, aux)
 
     # -- serving -------------------------------------------------------------
@@ -113,12 +163,13 @@ class LMModel(nn.Module):
                                      device=self.device)
 
     @torch.no_grad()
-    def prefill(self, tokens, cache: list):
-        """Run the prompt (B, S) through the stack, filling ``cache`` in
-        place.  Returns (last-position logits (B, V), cache)."""
+    def prefill(self, tokens, cache: list, patch_embeds=None):
+        """Run the prompt (B, S[, n_cb]) through the stack, filling
+        ``cache`` in place.  Returns (last-position logits (B[, n_cb], V),
+        cache)."""
         tokens = self._tokens(tokens)
-        B, S = tokens.shape
-        x = self.embed[0](tokens).to(self.compute_dtype)
+        B, S = tokens.shape[:2]
+        x = self._embed(tokens, patch_embeds)
         positions = torch.arange(S, device=self.device).expand(B, S)
         x, cache, _ = self.stack(x, positions, caches=cache, index=0)
         x = self.norm_f(x[:, -1:])
@@ -137,9 +188,9 @@ class LMModel(nn.Module):
         cache), the cache written in place.
         """
         tokens = self._tokens(tokens)
-        B, C = tokens.shape
+        B, C = tokens.shape[:2]
         index, n_valid = int(index), int(n_valid)
-        x = self.embed[0](tokens).to(self.compute_dtype)
+        x = self._embed(tokens)
         offs = torch.arange(C, device=self.device)
         row = torch.where(offs < n_valid, offs + index,
                           torch.full_like(offs, -1))
@@ -150,11 +201,11 @@ class LMModel(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, tokens_new, cache: list, index: int):
-        """One decode step; tokens_new (B, 1), all rows at position
-        ``index``.  Returns (logits (B, V), cache)."""
+        """One decode step; tokens_new (B, 1[, n_cb]), all rows at position
+        ``index``.  Returns (logits (B[, n_cb], V), cache)."""
         tokens_new = self._tokens(tokens_new)
         B = tokens_new.shape[0]
-        x = self.embed[0](tokens_new).to(self.compute_dtype)
+        x = self._embed(tokens_new)
         positions = torch.full((B, 1), int(index), device=self.device,
                                dtype=torch.long)
         x, cache, _ = self.stack(x, positions, caches=cache,
@@ -166,14 +217,15 @@ class LMModel(nn.Module):
                           positions):
         """One continuous-batching decode step through the paged pools.
 
-        tokens_new (B, 1); positions (B,) per-request absolute positions;
-        block_tables (B, max_blocks), -1 = unallocated (rows whose current
-        block is -1 are inactive and write to the trash block).  Returns
-        (logits (B, V), pages), the pools updated in place.
+        tokens_new (B, 1[, n_cb]); positions (B,) per-request absolute
+        positions; block_tables (B, max_blocks), -1 = unallocated (rows
+        whose current block is -1 are inactive and write to the trash
+        block).  Returns (logits (B[, n_cb], V), pages), the pools updated
+        in place.
         """
         tokens_new = self._tokens(tokens_new)
         B = tokens_new.shape[0]
-        x = self.embed[0](tokens_new).to(self.compute_dtype)
+        x = self._embed(tokens_new)
         pos2 = torch.as_tensor(positions, device=self.device).long().reshape(
             B, 1)
         bt = torch.as_tensor(block_tables, device=self.device)

@@ -1,0 +1,200 @@
+"""RWKV-6 "Finch" block: data-dependent decay time-mix + channel-mix.
+
+The port of ``repro/models/rwkv.py`` (arXiv:2404.05892): token shift with
+data-dependent linear interpolation (ddlerp, LoRA-style), the per-channel
+data-dependent decay ``w = exp(-exp(w_base + lora(x)))``, the per-head WKV
+recurrence with bonus ``u`` in float32, a per-head group norm of the
+read-out and the squared-ReLU channel mix.  The large projections
+(r/k/v/g/o and the channel mix) are SparseLinear; the LoRA and mix vectors
+are small and dense, kept in float32 and cast where the reference casts
+them.  Both norms use the biased variance, as ``jnp.var`` does
+(``torch.var`` defaults to the unbiased one).
+
+The WKV recurrence (``wkv_scan``) is a Python loop over time in plain
+torch, as the reference's is a ``lax.scan`` in plain JAX (no Pallas
+kernel).  Its outer products ``k v^T`` are formed ``SCAN_CHUNK`` steps at
+a time, so a prefill holds O(B * SCAN_CHUNK * H * hs^2) of them whatever
+the prompt's length, as the reference's scan holds O(B * H * hs^2).
+Decode carries ``x_tm`` / ``x_cm`` (the last normed input of each mix)
+and ``state`` (B, H, hs, hs) in float32; each call replaces them with
+new tensors.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.sparsity import SparseLinear
+from .common import SCAN_CHUNK
+
+__all__ = ["RWKVBlock", "init_cache_rwkv", "wkv_scan"]
+
+
+def init_cache_rwkv(batch: int, d_model: int, n_heads: int, head_size: int,
+                    dtype=torch.bfloat16, device=None) -> dict:
+    return {
+        "x_tm": torch.zeros((batch, 1, d_model), dtype=dtype, device=device),
+        "x_cm": torch.zeros((batch, 1, d_model), dtype=dtype, device=device),
+        "state": torch.zeros((batch, n_heads, head_size, head_size),
+                             dtype=torch.float32, device=device),
+    }
+
+
+def wkv_scan(r, k, v, wdec, u, s, chunk: int = SCAN_CHUNK):
+    """The WKV recurrence: y_t = r_t (s + u k_t v_t^T), then
+    s = w_t s + k_t v_t^T.  r, k, v, wdec (B, S, H, hs) and s (B, H, hs,
+    hs) in float32, u (H, hs); returns (y (B, S, H, hs), the last s).
+    ``chunk`` steps' outer products are formed at once (1: every step
+    its own; the products are the same either way)."""
+    u = u[None, :, :, None]
+    ys = []
+    for t0 in range(0, k.shape[1], chunk):
+        kv = k[:, t0:t0 + chunk, :, :, None] * v[:, t0:t0 + chunk, :, None, :]
+        ukv = u * kv
+        for t in range(kv.shape[1]):
+            ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t0 + t],
+                                   s + ukv[:, t]))
+            s = wdec[:, t0 + t, :, :, None] * s + kv[:, t]
+    return torch.stack(ys, dim=1), s
+
+
+def _shift(x: torch.Tensor, last: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token shift: y_t = x_{t-1}; position 0 comes from ``last`` (or 0)."""
+    if last is None:
+        return F.pad(x[:, :-1], (0, 0, 1, 0))
+    return torch.cat([last.to(x.dtype), x[:, :-1]], dim=1)
+
+
+class RWKVBlock(nn.Module):
+    """A whole RWKV layer (time mix + channel mix, its own layer norms).
+    The parameter names are the reference's.  ``device`` defaults to the
+    card."""
+
+    MIX = ("r", "k", "v", "w", "g")
+
+    def __init__(self, cfg: ModelConfig, *, name: str = "rwkv", device=None,
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.rwkv is None:
+            raise ValueError(f"layer kind 'rwkv' needs cfg.rwkv ({cfg.name})")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.rc = rc = cfg.rwkv
+        d = cfg.d_model
+        self.h = d // rc.head_size
+        self.hs = rc.head_size
+        sp = cfg.sparsity_rules
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype,
+                  generator=generator)
+        for nm in ("r", "k", "v", "g", "o"):
+            self.add_module(nm, SparseLinear(d, d, sp, name=f"{name}.{nm}",
+                                             **kw))
+        self.cmk = SparseLinear(d, cfg.d_ff, sp, name=f"{name}.cmk", **kw)
+        self.cmv = SparseLinear(cfg.d_ff, d, sp, name=f"{name}.cmv", **kw)
+        self.cmr = SparseLinear(d, d, sp, name=f"{name}.cmr", **kw)
+
+        def param(t):
+            return nn.Parameter(t.float(), requires_grad=False)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=generator, device=device)
+
+        def rand(*shape):
+            return torch.rand(shape, generator=generator, device=device)
+
+        ones = lambda: torch.ones(d, device=device)
+        zeros = lambda: torch.zeros(d, device=device)
+        self.ln1_scale, self.ln1_bias = param(ones()), param(zeros())
+        self.ln2_scale, self.ln2_bias = param(ones()), param(zeros())
+        # ddlerp: base mixes + low-rank data-dependent adjustment
+        self.mu_x = param(rand(d))
+        self.mix_w1 = param(randn(d, 5 * rc.mix_lora) * 1e-2)
+        self.mix_w2 = param(randn(5, rc.mix_lora, d) * 1e-2)
+        # decay: per-channel base + LoRA
+        self.w_base = param(torch.linspace(-6.0, -1.0, d, device=device))
+        self.decay_w1 = param(randn(d, rc.decay_lora) * 1e-2)
+        self.decay_w2 = param(randn(rc.decay_lora, d) * 1e-2)
+        self.u = param(randn(d) * 0.1)
+        self.gn_scale, self.gn_bias = param(ones()), param(zeros())
+        self.mu_cm_k = param(rand(d))
+        self.mu_cm_r = param(rand(d))
+        for i, nm in enumerate(self.MIX):
+            setattr(self, f"mu_{nm}",
+                    param(torch.full((d,), (i + 1) / 6.0, device=device)))
+
+    @staticmethod
+    def _ln(x, scale, bias):
+        x32 = x.float()
+        m = torch.mean(x32, dim=-1, keepdim=True)
+        v = torch.var(x32, dim=-1, keepdim=True, correction=0)
+        y = (x32 - m) * torch.rsqrt(v + 1e-5)
+        return (y * scale + bias).to(x.dtype)
+
+    def _group_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-head normalization of the WKV read-out; x: (B, S, H, hs)."""
+        m = torch.mean(x, dim=-1, keepdim=True)
+        v = torch.var(x, dim=-1, keepdim=True, correction=0)
+        y = (x - m) * torch.rsqrt(v + 64e-5)
+        B, S = x.shape[:2]
+        return y.reshape(B, S, -1) * self.gn_scale + self.gn_bias
+
+    def _time_mix(self, x, cache):
+        B, S, D = x.shape
+        H, hs = self.h, self.hs
+        dt_ = x.dtype
+        xs = _shift(x, cache["x_tm"] if cache is not None else None)
+        dx = xs - x
+        # ddlerp: the token-shift amount is itself data-dependent (Finch)
+        xxx = x + dx * self.mu_x.to(dt_)
+        z = torch.tanh(xxx @ self.mix_w1.to(dt_)).reshape(B, S, 5, -1)
+        adj = torch.einsum("bsfl,fld->bsfd", z, self.mix_w2.to(dt_))
+        feeds = {nm: x + dx * (getattr(self, f"mu_{nm}").to(dt_)
+                               + adj[:, :, i])
+                 for i, nm in enumerate(self.MIX)}
+        r = self.r(feeds["r"]).reshape(B, S, H, hs).float()
+        k = self.k(feeds["k"]).reshape(B, S, H, hs).float()
+        v = self.v(feeds["v"]).reshape(B, S, H, hs).float()
+        g = F.silu(self.g(feeds["g"]))
+        # data-dependent decay in (0, 1)
+        wdec = self.w_base + (torch.tanh(feeds["w"].float() @ self.decay_w1)
+                              @ self.decay_w2)
+        wdec = torch.exp(-torch.exp(wdec)).reshape(B, S, H, hs)
+        s = (cache["state"] if cache is not None else
+             torch.zeros((B, H, hs, hs), dtype=torch.float32,
+                         device=x.device))
+        y, s = wkv_scan(r, k, v, wdec, self.u.reshape(H, hs), s)
+        y = self._group_norm(y).to(dt_) * g
+        return self.o(y), x[:, -1:], s
+
+    def _channel_mix(self, x, cache):
+        dt_ = x.dtype
+        xs = _shift(x, cache["x_cm"] if cache is not None else None)
+        dx = xs - x
+        xk = x + dx * self.mu_cm_k.to(dt_)
+        xr = x + dx * self.mu_cm_r.to(dt_)
+        k = torch.relu(self.cmk(xk)) ** 2
+        v = self.cmv(k)
+        r = torch.sigmoid(self.cmr(xr))
+        return r * v, x[:, -1:]
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+                cache: Optional[dict] = None):
+        """The whole layer, residuals included; returns (y, cache), the
+        cache's entries replaced by new tensors."""
+        h, last_tm, state = self._time_mix(
+            self._ln(x, self.ln1_scale, self.ln1_bias), cache)
+        x = x + h
+        h2, last_cm = self._channel_mix(
+            self._ln(x, self.ln2_scale, self.ln2_bias), cache)
+        x = x + h2
+        if cache is not None:
+            cache["x_tm"] = last_tm.to(cache["x_tm"].dtype, copy=True)
+            cache["x_cm"] = last_cm.to(cache["x_cm"].dtype, copy=True)
+            cache["state"] = state
+        return x, cache

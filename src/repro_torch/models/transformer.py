@@ -1,15 +1,20 @@
 """Decoder stack: one module per layer, a Python loop over layers.
 
-The port of ``repro/models/transformer.py`` for the layer kinds ported so
-far ('attn', 'swa'), each with a gated MLP or, on the MoE cadence of
-``cfg.moe``, a ``MoELayer``.  The reference scans its layers under
-``lax.scan`` with stacked ``(T, ...)`` parameters; here every layer keeps
-its own module, and ``jax_stack_split`` says how the reference grouped the
-layers, which the weight bridge needs to split the stacked leaves.
-Each layer resolves its projections against the config's plan with the
-reference's per-layer seed offset (``offset_masked_seeds``): compact- and
-chain-storage rules keep their seed, as in the reference, so all layers
-share one layout per shape.  In training (``train=True`` with
+The port of ``repro/models/transformer.py``, every layer kind of the
+reference: 'attn' and 'swa' (``GQAttention``), 'mla' (``MLAttention``)
+and 'mamba' (``MambaMixer``), each between two RMSNorms with a gated MLP
+or, on the MoE cadence of ``cfg.moe``, a ``MoELayer``; and 'rwkv'
+(``RWKVBlock``), a whole layer with its own norms and channel mix.  The
+recurrent kinds ('mamba', 'rwkv') have no paged form: their O(1) state
+has nothing to page, and ``init_pages`` and a paged call raise, naming
+the static engine, as the reference's do.  The reference scans its layers
+under ``lax.scan`` with stacked ``(T, ...)`` parameters; here every layer
+keeps its own module, and ``jax_stack_split`` says how the reference
+grouped the layers, which the weight bridge needs to split the stacked
+leaves.  Each layer resolves its projections against the config's plan
+with the reference's per-layer seed offset (``offset_masked_seeds``):
+compact- and chain-storage rules keep their seed, as in the reference, so
+all layers share one layout per shape.  In training (``train=True`` with
 gradients on and ``cfg.remat``) each layer runs under
 ``torch.utils.checkpoint`` and its forward is recomputed in the backward,
 as the reference's ``jax.checkpoint`` of each scanned period.
@@ -26,14 +31,20 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.sparsity import SparsityPlan
-from .attention import GQAttention, init_cache_gqa
+from .attention import GQAttention, MLAttention, init_cache_gqa, \
+    init_cache_mla
 from .common import RMSNorm
 from .mlp import GatedMLP
 from .moe import MoELayer
+from .rwkv import RWKVBlock, init_cache_rwkv
+from .ssm import MambaMixer, init_cache_mamba
 
-__all__ = ["DecoderLayer", "Stack", "jax_stack_split", "PORTED_KINDS"]
+__all__ = ["DecoderLayer", "Stack", "jax_stack_split", "LAYER_KINDS",
+           "PAGED_KINDS"]
 
-PORTED_KINDS = ("attn", "swa")
+LAYER_KINDS = ("attn", "swa", "mla", "mamba", "rwkv")
+#: the kinds with a paged cache (the continuous engine's)
+PAGED_KINDS = ("attn", "swa", "mla")
 
 
 def _layer_rules(cfg: ModelConfig, idx: int) -> SparsityPlan:
@@ -45,27 +56,13 @@ def _layer_rules(cfg: ModelConfig, idx: int) -> SparsityPlan:
 
 def _layer_paths(cfg: ModelConfig, idx: int) -> list[tuple[str, int, int]]:
     """(path, m, k) of every projection layer ``idx`` builds, sorted by
-    path: the shapes the reference records for its plan signature."""
-    d, hd = cfg.d_model, cfg.head_dim_
-    mixer = f"l{idx}.{cfg.layer_kind(idx)}"
-    out = [(f"{mixer}.wq", cfg.n_heads * hd, d),
-           (f"{mixer}.wk", cfg.n_kv_heads * hd, d),
-           (f"{mixer}.wv", cfg.n_kv_heads * hd, d),
-           (f"{mixer}.wo", d, cfg.n_heads * hd)]
+    path: the reference's plan signature, recorded as the reference
+    records it (the layer built on ``meta`` under ``recording_shapes``)."""
+    from repro_torch.sparsity import recording_shapes
 
-    def mlp(name, width):
-        return [(f"{name}.gate", width, d), (f"{name}.up", width, d),
-                (f"{name}.down", d, width)]
-
-    if cfg.is_moe_layer(idx):
-        moe = cfg.moe
-        out += [(f"l{idx}.moe.experts.in", moe.d_expert, d),
-                (f"l{idx}.moe.experts.out", d, moe.d_expert)]
-        if moe.n_shared:
-            out += mlp(f"l{idx}.moe.shared", moe.d_expert * moe.n_shared)
-    else:
-        out += mlp(f"l{idx}.mlp", cfg.d_ff)
-    return sorted(out)
+    with recording_shapes() as shapes:
+        DecoderLayer(cfg, idx, device="meta")
+    return [(path, m, k) for path, (m, k, _c) in sorted(shapes.items())]
 
 
 def jax_stack_split(cfg: ModelConfig) -> tuple[int, int, int, int]:
@@ -99,29 +96,36 @@ def jax_stack_split(cfg: ModelConfig) -> tuple[int, int, int, int]:
 
 
 class DecoderLayer(nn.Module):
-    """norm -> attention -> residual; norm -> gated MLP or MoE ->
-    residual.  ``device`` (in ``kw``) defaults to the card; without CUDA
-    that raises, naming ``device="cpu"``."""
+    """norm -> mixer -> residual; norm -> gated MLP or MoE -> residual; or
+    a whole RWKV layer.  ``device`` (in ``kw``) defaults to the card;
+    without CUDA that raises, naming ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, idx: int, **kw):
         super().__init__()
         self.cfg = cfg
         self.idx = idx
         self.kind = cfg.layer_kind(idx)
-        if self.kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"layer kind {self.kind!r} is not yet ported; have "
-                f"{PORTED_KINDS}")
-        # one device for the norms, attention and FFN: the card unless
-        # the caller names another
+        if self.kind not in LAYER_KINDS:
+            raise ValueError(f"unknown layer kind {self.kind!r}; have "
+                             f"{LAYER_KINDS}")
+        # one device for every tensor of the layer: the card unless the
+        # caller names another
         device = kw["device"] = resolve_device(kw.get("device"))
+        lcfg = cfg.with_(plan=_layer_rules(cfg, idx))
+        self.is_moe = cfg.is_moe_layer(idx)
+        if self.kind == "rwkv":
+            self.rwkv = RWKVBlock(lcfg, name=f"l{idx}", **kw)
+            return
         self.norm1 = RMSNorm(cfg.d_model, cfg.rmsnorm_eps, device=device)
         self.norm2 = RMSNorm(cfg.d_model, cfg.rmsnorm_eps, device=device)
-        window = cfg.sliding_window if self.kind == "swa" else 0
-        lcfg = cfg.with_(plan=_layer_rules(cfg, idx))
-        self.mixer = GQAttention(lcfg, window=window,
-                                 name=f"l{idx}.{self.kind}", **kw)
-        self.is_moe = cfg.is_moe_layer(idx)
+        name = f"l{idx}.{self.kind}"
+        if self.kind == "mla":
+            self.mixer = MLAttention(lcfg, name=name, **kw)
+        elif self.kind == "mamba":
+            self.mixer = MambaMixer(lcfg, name=name, **kw)
+        else:
+            window = cfg.sliding_window if self.kind == "swa" else 0
+            self.mixer = GQAttention(lcfg, window=window, name=name, **kw)
         if self.is_moe:
             self.ffn = MoELayer(cfg.d_model, cfg.moe, lcfg.sparsity_rules,
                                 cfg.hidden_act, name=f"l{idx}.moe", **kw)
@@ -129,13 +133,27 @@ class DecoderLayer(nn.Module):
             self.ffn = GatedMLP(cfg.d_model, cfg.d_ff, lcfg.sparsity_rules,
                                 cfg.hidden_act, name=f"l{idx}.mlp", **kw)
 
+    def _no_paged(self) -> str:
+        return (f"paged decode supports attention layer kinds ('attn', "
+                f"'swa', 'mla'); layer {self.idx} is {self.kind!r}, whose "
+                f"O(1) recurrent state has nothing to page — serve this "
+                f"architecture with the static engine (--engine static)")
+
     def forward(self, x, positions, *, cache=None, block_tables=None,
                 index: Optional[int] = None):
         """Returns (x, cache, aux): ``aux`` is the MoE layer's load-balance
-        loss, None for a gated MLP.  With a cache (prefill and decode) the
-        MoE layer runs at full capacity, as the reference's."""
-        h, cache = self.mixer(self.norm1(x), positions, cache=cache,
-                              block_tables=block_tables, index=index)
+        loss, None otherwise.  With a cache (prefill and decode) the MoE
+        layer runs at full capacity, as the reference's."""
+        if self.kind in ("mamba", "rwkv") and block_tables is not None:
+            raise NotImplementedError(self._no_paged())
+        if self.kind == "rwkv":
+            x, cache = self.rwkv(x, positions, cache=cache)
+            return x, cache, None
+        if self.kind == "mamba":
+            h, cache = self.mixer(self.norm1(x), positions, cache=cache)
+        else:
+            h, cache = self.mixer(self.norm1(x), positions, cache=cache,
+                                  block_tables=block_tables, index=index)
         x = x + h
         if self.is_moe:
             h2, aux = self.ffn(self.norm2(x), full_capacity=cache is not None)
@@ -146,16 +164,32 @@ class DecoderLayer(nn.Module):
                    *, full_length: bool = False, device=None) -> dict:
         """``full_length`` skips the sliding-window cap on 'swa' caches (the
         paged prefill's temp cache slots are absolute positions)."""
+        cfg = self.cfg
+        if self.kind == "mamba":
+            mc = cfg.mamba
+            return init_cache_mamba(batch, mc.expand * cfg.d_model,
+                                    mc.d_conv, mc.d_state, dtype,
+                                    device=device)
+        if self.kind == "rwkv":
+            rc = cfg.rwkv
+            return init_cache_rwkv(batch, cfg.d_model,
+                                   cfg.d_model // rc.head_size, rc.head_size,
+                                   dtype, device=device)
         L = cache_len
         if self.kind == "swa" and not full_length:
-            L = min(cache_len, self.cfg.sliding_window)
-        return init_cache_gqa(batch, L, self.cfg.n_kv_heads,
-                              self.cfg.head_dim_, dtype, device=device)
+            L = min(cache_len, cfg.sliding_window)
+        if self.kind == "mla":
+            return init_cache_mla(batch, L, cfg.mla, dtype, device=device)
+        return init_cache_gqa(batch, L, cfg.n_kv_heads, cfg.head_dim_, dtype,
+                              device=device)
 
     def init_pages(self, n_blocks: int, page_size: int, dtype=torch.bfloat16,
                    device=None) -> dict:
         """(n_blocks, page_size, ...) pools; sliding-window layers get
-        full-size pools too (the window is a mask in paged mode)."""
+        full-size pools too (the window is a mask in paged mode).  The
+        recurrent kinds raise."""
+        if self.kind not in PAGED_KINDS:
+            raise NotImplementedError(self._no_paged())
         return self.init_cache(n_blocks, page_size, dtype, full_length=True,
                                device=device)
 
@@ -202,5 +236,14 @@ class Stack(nn.Module):
 
     def init_pages(self, n_blocks: int, page_size: int, dtype=torch.bfloat16,
                    device=None) -> list:
-        return [l.init_pages(n_blocks, page_size, dtype, device=device)
-                for l in self.layers]
+        """Every layer's pools; a recurrent layer raises.  They are built
+        in the reference's order (the head layers, the tail, then the
+        scanned periods), so the first recurrent layer in that order names
+        the refusal."""
+        n = self.cfg.n_layers
+        n_head, _, _, tail_start = jax_stack_split(self.cfg)
+        pools = {i: self.layers[i].init_pages(n_blocks, page_size, dtype,
+                                              device=device)
+                 for i in (*range(n_head), *range(tail_start, n),
+                           *range(n_head, tail_start))}
+        return [pools[i] for i in range(n)]

@@ -14,8 +14,13 @@ The port of ``repro/serve/engine.py``:
     ``decode_step`` with a contiguous cache: the semantic oracle both
     engines must reproduce token for token under greedy sampling.
 
-Every projection goes through the kernels (``rbgp4mm_rhs`` and its stacked
-and chain siblings on the card).  ``stats["prefill_time_s"]`` and
+Prompts are (S,) token ids, or (S, n_codebooks) for a codebook model,
+whose decode inputs are (B, 1, n_codebooks) and whose sampling draws one
+id a codebook.  A model with recurrent layers (Mamba, RWKV) has no paged
+cache: ``ContinuousEngine`` raises the reference's message (from
+``init_pages``) and the static engine serves it.  Every projection goes
+through the kernels (``rbgp4mm_rhs`` and its stacked and chain siblings
+on the card).  ``stats["prefill_time_s"]`` and
 ``stats["decode_time_s"]`` are fenced with ``torch.cuda.synchronize()`` on
 the card under any recorder, the null one included (``repro_torch.obs``),
 so they measure the work and not its launch.
@@ -60,7 +65,7 @@ __all__ = ["Request", "ServingEngine", "ContinuousEngine", "StaticEngine",
 @dataclasses.dataclass(eq=False)   # identity equality: ndarray fields
 class Request:
     rid: int
-    prompt: np.ndarray               # (S,) int32
+    prompt: np.ndarray               # (S,) or (S, n_codebooks) int32
     max_new_tokens: int
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     arrival_step: int = 0
@@ -100,7 +105,7 @@ class Request:
 
     @property
     def prefill_tokens(self) -> np.ndarray:
-        """(prefill_len,) prompt ++ generated prefix, the resume
+        """(prefill_len[, n_cb]) prompt ++ generated prefix, the resume
         re-prefill's input: it puts the cache in the state the
         uninterrupted run had after ``len(generated)`` tokens, so the next
         sample (keyed per (request, step)) continues the stream."""
@@ -165,7 +170,7 @@ class ServingEngine:
         :class:`RequestError` with a ``reason`` code.
         """
         prompt = np.asarray(prompt, np.int32)
-        if prompt.ndim != 1 or prompt.shape[0] < 1:
+        if prompt.ndim not in (1, 2) or prompt.shape[0] < 1:
             self.stats["rejected"] += 1
             raise RequestError("bad_prompt", f"prompt shape {prompt.shape}")
         if max_new_tokens < 1:
@@ -237,7 +242,7 @@ class ServingEngine:
         return self._obs.timed(name, self.stats, key, **args)
 
     def _next_input(self, req: Request) -> np.ndarray:
-        """(1,) last sampled token, as the next decode input."""
+        """(1[, n_cb]) last sampled token, as the next decode input."""
         return np.asarray(req.generated[-1], np.int32).reshape(
             (1,) + req.prompt.shape[1:])
 
@@ -860,7 +865,7 @@ class ContinuousEngine(ServingEngine):
         if not active:
             return 0
         B = self.max_slots
-        tokens = np.zeros((B, 1), np.int32)
+        tokens = np.zeros((B, 1) + active[0].prompt.shape[1:], np.int32)
         positions = np.zeros((B,), np.int32)
         bt_rows: list[Optional[list[int]]] = [None] * B
         for r in active:
@@ -998,7 +1003,8 @@ def run_sequential(model, requests, *, cache_len: Optional[int] = None,
         toks = [sample_token(_host_logits(logits)[0], sp, request_salt=rid,
                              step=0)]
         for step_i in range(1, gen):
-            nxt = np.asarray(toks[-1], np.int32).reshape(1, 1)
+            nxt = np.asarray(toks[-1], np.int32).reshape(
+                (1, 1) + prompt.shape[1:])
             logits, cache = model.decode_step(nxt, cache, S + step_i - 1)
             toks.append(sample_token(_host_logits(logits)[0], sp,
                                      request_salt=rid, step=step_i))

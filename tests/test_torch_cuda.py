@@ -52,7 +52,9 @@ give the CPU's greedy streams (``-k serving``).  And the autotuner's
 measured mode at one small bf16 layout of each of its eight kinds: a
 built tile, timed on the launch's own tables, that matches the plain
 version and gives equal bits on a rerun and after a re-read from disk
-(``-k measured``).
+(``-k measured``).  And the other language models' mixers in float32,
+card against CPU: MLA's paged decode (deepseek-v2), a Mamba step (jamba)
+and an RWKV-6 step (``-k arch_mixer``).
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -1882,3 +1884,70 @@ def test_cuda_measured_tiles_are_built_and_match_plain(kind, tmp_path,
                                     e).tile == res.tile
     finally:
         autotune.set_cache_path(None)
+
+
+# -- the other language models' mixers: MLA, Mamba, RWKV-6 --------------------
+
+# reduced archs cut so that no token is routed (MoE off or not reached):
+# the mixers are under test, and routing is discrete
+ARCH_MIXERS = {"mla": ("deepseek-v2-236b", dict(n_layers=1)),
+               "mamba": ("jamba-1.5-large-398b", dict(n_layers=4, moe=None)),
+               "rwkv": ("rwkv6-7b", {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ARCH_MIXERS))
+def test_cuda_arch_mixer_steps_match_the_cpu(kind):
+    """The reduced model in float32 on the card (FMA bodies, TF32 off) and
+    on the CPU from the same weights: a prefill, then three decode steps
+    (MLA's absorbed form through the page pools, the Mamba and RWKV
+    recurrences through their contiguous state), logits and every cache
+    leaf within 1e-4 * max|ref| (a whole model's chain of products), and
+    the card's run launched the kernels."""
+    needs_card()
+    from repro_torch.configs import apply_sparsity, get_config, reduce_config
+    from repro_torch.models import LMModel
+
+    arch, kw = ARCH_MIXERS[kind]
+    cfg = apply_sparsity(reduce_config(get_config(arch)).with_(**kw),
+                         pattern="rbgp4", sparsity=0.75, min_dim=64)
+    card = LMModel(cfg, device="cuda", seed=0)
+    cpu = LMModel(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    assert any(l.kind == kind for l in cpu.stack.layers)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, (1, 9)).astype(np.int32)
+    steps = rng.integers(0, cfg.vocab_size, (3, 1, 1)).astype(np.int32)
+    out = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        before = rbgp4mm_rhs.launches
+        logits, cache = model.prefill(prompt, model.init_cache(
+            1, 12, torch.float32))
+        got = [logits]
+        if kind == "mla":
+            # the prompt's cache written into blocks 1-3 of 4-token pages
+            pages = model.init_pages(4, 4, torch.float32)
+            for pool, c in zip(pages, cache):
+                for name, t in c.items():
+                    pool[name][1:] = t[0].reshape((3, 4) + t.shape[2:])
+            bt = np.array([[1, 2, 3]], np.int32)
+            for i, tok in enumerate(steps):
+                logits, pages = model.decode_step_paged(
+                    tok, pages, bt, np.array([9 + i], np.int32))
+                got.append(logits)
+            cache = pages
+        else:
+            for i, tok in enumerate(steps):
+                logits, cache = model.decode_step(tok, cache, 9 + i)
+                got.append(logits)
+        torch.cuda.synchronize()
+        assert (rbgp4mm_rhs.launches > before) == (dev == "cuda"), dev
+        out[dev] = ([t.float().cpu() for t in got],
+                    [{k: v.float().cpu() for k, v in c.items()}
+                     for c in cache])
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert_close(a, b, torch.float32, (kind, "logits"), tol=GRAD_TOL)
+    for ca, cb in zip(out["cuda"][1], out["cpu"][1]):
+        for name in cb:
+            assert_close(ca[name], cb[name], torch.float32, (kind, name),
+                         tol=GRAD_TOL)

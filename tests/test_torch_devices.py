@@ -6,24 +6,32 @@ router and the experts.  There is no card here, so a second device stands
 in for it: ``resolve_device`` is patched, in every module that calls it,
 to give ``meta`` for ``None``, and every parameter and buffer of a bare
 ``GQAttention``, ``GatedMLP``, ``DecoderLayer``, ``Stack`` and ``MoELayer``
-must then lie on ``meta``.  Without the patch, and without CUDA, each
-bare constructor raises, naming ``device='cpu'``.
+must then lie on ``meta``; so for ``MLAttention``, ``MambaMixer`` and
+``RWKVBlock``.  Without the patch, and without CUDA, each bare
+constructor raises, naming ``device='cpu'``.
 """
 import pytest
 import torch
 
 from repro_torch import device as device_mod
 from repro_torch.configs import apply_sparsity, get_config, reduce_config
-from repro_torch.models import attention, common, moe, transformer
-from repro_torch.models.attention import GQAttention
+from repro_torch.models import (attention, common, moe, rwkv, ssm,
+                                transformer)
+from repro_torch.models.attention import GQAttention, MLAttention
 from repro_torch.models.mlp import GatedMLP
 from repro_torch.models.moe import MoELayer
+from repro_torch.models.rwkv import RWKVBlock
+from repro_torch.models.ssm import MambaMixer
 from repro_torch.models.transformer import DecoderLayer, Stack
 from repro_torch.sparsity import layer as layer_mod
 
 torch.set_num_threads(1)
 
-PATCHED = (device_mod, common, attention, transformer, moe, layer_mod)
+PATCHED = (device_mod, common, attention, transformer, moe, ssm, rwkv,
+           layer_mod)
+MIXERS = {"MLAttention": (MLAttention, "deepseek-v2-236b"),
+          "MambaMixer": (MambaMixer, "jamba-1.5-large-398b"),
+          "RWKVBlock": (RWKVBlock, "rwkv6-7b")}
 
 
 def _config(arch):
@@ -44,6 +52,8 @@ def _constructors():
         "Stack-moe": lambda: Stack(qmoe),
         "MoELayer": lambda: MoELayer(qmoe.d_model, qmoe.moe,
                                      qmoe.sparsity_rules, qmoe.hidden_act),
+        **{name: (lambda c=cls, a=arch: c(_config(a)))
+           for name, (cls, arch) in MIXERS.items()},
     }
 
 
@@ -97,5 +107,7 @@ def test_explicit_cpu_builds_on_cpu(name):
         "MoELayer": lambda: MoELayer(qmoe.d_model, qmoe.moe,
                                      qmoe.sparsity_rules, qmoe.hidden_act,
                                      device="cpu"),
+        **{n: (lambda c=cls, a=arch: c(_config(a), device="cpu"))
+           for n, (cls, arch) in MIXERS.items()},
     }[name]
     assert _devices(build()) == {"cpu"}, name

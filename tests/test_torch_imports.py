@@ -52,7 +52,12 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                 "repro_torch.obs.spans", "repro_torch.obs.trace",
                 "repro_torch.obs.record", "repro_torch.obs.audit",
                 "repro_torch.kernels.autotune",
-                "repro_torch.obs.kernelstats"):
+                "repro_torch.obs.kernelstats",
+                "repro_torch.models.ssm", "repro_torch.models.rwkv",
+                *(f"repro_torch.configs.{m}" for m in (
+                    "gemma_7b", "gemma3_4b", "deepseek_7b", "pixtral_12b",
+                    "deepseek_v2_236b", "rwkv6_7b", "jamba_1_5_large_398b",
+                    "musicgen_medium"))):
         assert mod in names, mod
 
 
@@ -98,15 +103,20 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_names_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("gemma3-4b")
+    """Every architecture and layer kind of the reference is ported: an
+    unknown name raises, and so does a mixer kind without its
+    sub-config."""
+    assert get_config("gemma3-4b").name == "gemma3-4b"
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     from repro_torch.models import LMModel
 
     cfg = reduce_config(get_config("tinyllama-1.1b"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        LMModel(cfg.with_(layer_pattern=("mamba",)), device="cpu")
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        LMModel(cfg.with_(layer_pattern=("conv",)), device="cpu")
+    for kind in ("mla", "mamba", "rwkv"):
+        with pytest.raises(ValueError, match=f"needs cfg.{kind}"):
+            LMModel(cfg.with_(layer_pattern=(kind,)), device="cpu")
     # the block pattern and the masked backend are ported: both build
     # masked storage
     from repro_torch.sparsity import SparseLinear
