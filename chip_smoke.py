@@ -46,9 +46,11 @@ and trains and serves budget-solved plans:
     recorder;
   * the reference's eight other language models (GeGLU with tied
     embeddings, sliding-window layers, a patch frontend, codebooks, MLA
-    with 160 routed experts, RWKV-6, the Mamba hybrid with 16) served at
-    full width, deepseek-v2 and jamba cut in depth, every projection on
-    ``rbgp4mm_rhs`` and every routed expert on ``rbgp4mm_rhs_stacked``.
+    with 160 routed experts, RWKV-6, the Mamba hybrid with 16) served and
+    trained at full width, deepseek-v2 and jamba cut in depth, every
+    projection on ``rbgp4mm_rhs`` (forward, dX) and ``rbgp4_sddmm_rhs``
+    (dW), every routed expert on ``rbgp4mm_rhs_stacked`` and
+    ``rbgp4_sddmm_rhs_stacked``.
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the result line:
@@ -384,11 +386,34 @@ exits non-zero without the result line:
      and held against its plain version at the widest prefill's rows
      (over row slices; a stacked layout's first and last expert); for
      rwkv6-7b and jamba one layer's scan at 4 x 512 steps, chunked (the
-     model's form) against every step's own: ms, peak memory, outputs.
+     model's form) against every step's own: ms, peak memory, outputs;
+ 50. train-archs: each of them trained at full width in bf16
+     (``ARCH_TRAIN``: deepseek-v2 cut to 4 layers, jamba to 3, Mamba,
+     Mamba + MoE, Mamba; the others at full depth), 4 steps of 4 x 512
+     ``TokenStream(seed=0)`` tokens (4 codebooks for musicgen, text only
+     for pixtral) as phase 10, the first untimed: the trainer's state
+     reckoned on ``meta`` first (14 bytes a trainable value), for rwkv6-7b
+     and jamba one layer's scan under autograd at 4 x 512 (forward and
+     backward ms, peak memory); every step launching each compact
+     projection's forward twice (remat), dX and dW, and each MoE layer's
+     three stacked projections the same way, each launch on the body its
+     path function names for its tables and rows (``train_step_launches``:
+     all on the tensor cores but jamba's Mamba ``x`` projection, 544 x
+     16384 at G 8, whose forward and dW take the FMA bodies); finite
+     losses, gradient norms, CE and aux; ms/step, tokens/s, peak memory
+     split into the state resident after step 0 at rest and the step's
+     transient part; one profiled step (card busy and idle share, its
+     launches by symbol against the counters); each FMA launch kind held
+     against its plain version and timed beside one dense product;
+ 51. train-parity-archs: each reduced (``reduce_config``) in float32 as
+     phase 7, 2 steps of 1 x 64 tokens on the card and on the CPU: losses,
+     every parameter's gradient (through the momentum) within 1e-4 *
+     max|ref|, the routed ones routing alike with top-k margins of at
+     least ``ROUTER_MARGIN``.
 
 ``python3 chip_smoke.py --autotune-only`` runs phases 1, 4, 33 and 45-47
 alone (a quicker check of the autotuner; no result line);
-``python3 chip_smoke.py --archs-only`` runs phases 1, 48 and 49 alone.
+``python3 chip_smoke.py --archs-only`` runs phases 1 and 48-51 alone.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1176,17 +1201,80 @@ def body_counts() -> dict:
             "chain_dw": chain_sddmm_rhs.launches_mma}
 
 
-def train_mma_counts(launches: dict) -> dict:
-    """The tensor-core launches a training step's ``launches`` (by role)
-    must show: every bf16 launch of a step (16 rows an expert and more)
-    runs enough tokens on layouts those bodies take, so every one."""
-    return {"forward": launches["forward"] + launches["dx"],
-            "dw": launches["dw"],
-            "stacked_forward": (launches["stacked_forward"]
-                                + launches["stacked_dx"]),
-            "stacked_dw": launches["stacked_dw"],
-            "chain_forward": launches["chain_forward"] + launches["chain_dx"],
-            "chain_dw": launches["chain_dw"]}
+def train_step_launches(model, n_tokens: int,
+                        dt: torch.dtype = torch.bfloat16) -> tuple:
+    """What one remat training step of ``model`` on ``n_tokens`` tokens in
+    ``dt`` must launch: (the launches by role, the tensor-core launches
+    among them by ``body_counts``'s roles, the FMA launches).
+
+    Each compact or chain projection launches its forward twice (the
+    step's forward and its remat recompute), dX on its transposed
+    layout's tables and dW, each at ``n_tokens`` rows; each compact MoE
+    layer launches its three stacked expert projections the same way at
+    its capacity rows an expert.  A launch's body is the one its path
+    function (``rhs_path``, ``sddmm_path``, ``chain_rhs_path``,
+    ``chain_sddmm_path``) names for that launch's tables and rows.  The
+    FMA launches are listed by (role, m, k, experts, rows) with their
+    projections, their count a step and a module holding their tables
+    (``fma_tables``).  Host only: it runs on a model built on ``meta``."""
+    from repro_torch.kernels import (KernelDims, chain_rhs_path,
+                                     chain_sddmm_path, rhs_path, sddmm_path)
+    from repro_torch.models.moe import MoELayer
+    from repro_torch.sparsity import SparseLinear
+
+    want = launches_of()
+    mma = dict.fromkeys(("forward", "dw", "stacked_forward", "stacked_dw",
+                         "chain_forward", "chain_dw"), 0)
+    fma = {}
+
+    def transposed(layout):
+        return KernelDims.from_layout(layout.transpose_layout())
+
+    def add(family, owner, name, e, rows, fwd, t, fwd_path, dw_path):
+        for kind, dims, path, count in (("forward", fwd, fwd_path, 2),
+                                        ("dx", t, fwd_path, 1),
+                                        ("dw", fwd, dw_path, 1)):
+            role = family + kind
+            want[role] += count
+            if path(dims, rows, dt) == "mma":
+                mma[family + ("dw" if kind == "dw" else "forward")] += count
+                continue
+            m, k = (fwd.m, fwd.k) if kind != "dx" else (dims.m, dims.k)
+            entry = fma.setdefault((role, m, k, e, rows), dict(
+                role=role, m=m, k=k, experts=e, rows=rows, names=set(),
+                launches=0, owner=owner))
+            entry["names"].add(name)
+            entry["launches"] += count
+
+    for mod in model.modules():
+        if isinstance(mod, SparseLinear) and mod.mode == "compact":
+            add("", (mod, None), mod.name.split(".", 1)[-1], 1, n_tokens,
+                mod.tables.dims, transposed(mod.layout), rhs_path,
+                sddmm_path)
+        elif isinstance(mod, SparseLinear) and mod.mode == "chain":
+            add("chain_", (mod, None), mod.name.split(".", 1)[-1], 1,
+                n_tokens, mod.tables, mod.transpose_tables().tables,
+                chain_rhs_path, chain_sddmm_path)
+        elif isinstance(mod, MoELayer) and mod.experts.compact:
+            ex = mod.experts
+            rows = mod.capacity(n_tokens, False)
+            for proj in ("gate", "up", "down"):
+                side = ex._side(proj)
+                add("stacked_", (ex, side), f"experts.{proj}",
+                    mod.moe.n_experts, rows, ex.tables[side].dims,
+                    transposed(ex.layouts[side]), rhs_path, sddmm_path)
+    return want, mma, sorted(fma.values(), key=lambda f: (
+        f["role"], f["m"], f["k"]))
+
+
+def fma_tables(entry: dict):
+    """The kernel tables an FMA launch of ``train_step_launches`` runs
+    on: its module's forward tables, or for dX the transposed ones."""
+    mod, side = entry["owner"]
+    dx = entry["role"].endswith("dx")
+    if side is None:
+        return mod.transpose_tables().tables if dx else mod.tables
+    return mod._transpose_tables(side).tables if dx else mod.tables[side]
 
 
 def counts_since(before: dict) -> dict:
@@ -1212,7 +1300,14 @@ def free_card() -> None:
     """Free what the phase left on the card.  The phases wrap model
     methods to count calls, which ties each model into a reference cycle
     that only the collector breaks; without it the next phase's peak
-    memory would include the last phase's model."""
+    memory would include the last phase's model.  The kernel-table caches
+    (``get_op``'s ops, the chain tables), which share a layout's tables
+    among the layers of a model, would keep every earlier model's tables
+    on the card for the process's life: they are emptied too."""
+    from repro_torch.kernels import chainmm, ops
+
+    ops._OP_CACHE.clear()
+    chainmm._TABLES.clear()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1565,7 +1660,8 @@ def symbol_launches(counted: dict, mma: dict) -> dict:
     return want
 
 
-def profile_train_step(trainer, phase: str) -> dict:
+def profile_train_step(trainer, phase: str,
+                       compare_readers: bool = False) -> dict:
     """One training step under torch.profiler: the card's busy share of the
     step and the share of each of the sparse products, split by
     ``split_trace`` and held against the launch counters of the same step.
@@ -1575,8 +1671,14 @@ def profile_train_step(trainer, phase: str) -> dict:
     first; their loss is reported and they count in no time.  A trace
     with fewer launches of a sparse kernel than its counters is reported
     and taken again, up to ``PROFILE_TRIES`` steps; one with more, or
-    whose split by role disagrees with the counters, fails at once."""
+    whose split by role disagrees with the counters, fails at once.
+
+    With ``compare_readers`` the trace is also read through the
+    profiler's event tree (``prof.events()``): it must hold the same
+    kernels, their busy ms equal within its microsecond unit a kernel."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.kernelstats import device_kernels
 
     lost = []
     for attempt in range(1, PROFILE_TRIES + 1):
@@ -1590,10 +1692,9 @@ def profile_train_step(trainer, phase: str) -> dict:
             trainer.run(1)
         counted = counts_since(before)
         mma = {k: v - before_mma[k] for k, v in body_counts().items()}
-        traced = sorted((e.time_range.start,
-                         e.time_range.elapsed_us() * 1e-3, e.name)
-                        for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        t_read = time.perf_counter()
+        traced = device_kernels(prof)
+        t_read = time.perf_counter() - t_read
         kernels = [k for k in traced if "spin_kernel" not in k[2]]
         pad_lost = PROFILE_PAD - (len(traced) - len(kernels))
         if not kernels:
@@ -1620,50 +1721,79 @@ def profile_train_step(trainer, phase: str) -> dict:
                              f"counters {counted}")
     wall_ms = 1e3 * trainer.history[-1]["step_time_s"]
     busy = sum(ms for _, ms, _ in kernels)
+    tree = None
+    if compare_readers:
+        t_tree = time.perf_counter()
+        cuda = torch.autograd.DeviceType.CUDA
+        tree_ms = [e.time_range.elapsed_us() * 1e-3 for e in prof.events()
+                   if e.device_type == cuda and "spin_kernel" not in e.name]
+        tree = dict(kernels=len(tree_ms), busy_ms=sum(tree_ms),
+                    read_s=time.perf_counter() - t_tree)
+        if tree["kernels"] != len(kernels) \
+                or abs(tree["busy_ms"] - busy) > 1e-3 * len(kernels):
+            raise AssertionError(f"profiled step: the event tree holds "
+                                 f"{tree}, the raw records {len(kernels)} "
+                                 f"kernels, {busy} ms busy")
+        log(phase, f"profiled step read twice: raw records {len(kernels)} "
+                   f"kernels, {busy:.4f} ms busy, in {t_read:.2f}s; event "
+                   f"tree {tree['kernels']} kernels, {tree['busy_ms']:.4f} "
+                   f"ms busy, in {tree['read_s']:.2f}s")
     return dict(wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
-                kernel_ms=ms, kernel_launches=count,
+                kernels=len(kernels), kernel_ms=ms, kernel_launches=count,
                 launches_by_symbol={k: v for k, v in by_symbol.items() if v},
                 mma_launches=mma,
                 kernel_share={k: v / busy for k, v in ms.items()},
                 attempts=attempt, pad_records_lost=pad_lost,
-                lost_records=lost)
+                lost_records=lost, trace_read_s=t_read, event_tree=tree)
 
 
 def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
-                phase: str = "train") -> dict:
+                phase: str = "train", compare_readers: bool = False) -> dict:
     """``n_steps`` of ``Trainer.run`` (the defaults of launch/train.py:
-    sgdm, lr 3e-2, cosine, clip 1.0, remat on); each step must launch
-    ``want``; the first step untimed; then one profiled step (more where
-    the trace lost records)."""
+    sgdm, lr 3e-2, cosine, clip 1.0, remat on) on ``TokenStream`` batches
+    (with the config's codebooks); each step must launch what
+    ``train_step_launches`` derives from the model's layers (``want``,
+    where given, must equal it), each on the body its path function names;
+    the first step untimed; then one profiled step (more where the trace
+    lost records).  The peak memory is split into the state resident
+    after step 0 at rest and the step's transient part; each FMA launch
+    kind is then held against its plain version and timed
+    (``time_fma_launch``)."""
     from repro_torch.configs import TrainConfig
     from repro_torch.data import TokenStream
     from repro_torch.models import LMModel
     from repro_torch.train import Trainer
 
     model = LMModel(cfg, device="cuda", seed=0)
+    n_tokens = batch * seq
+    derived, want_mma, fma = train_step_launches(model, n_tokens)
+    if want is not None and derived != want:
+        raise AssertionError(f"the model's layers imply {derived} launches "
+                             f"a step, want {want}")
+    want = derived
     tcfg = TrainConfig(optimizer="sgdm", lr=3e-2, schedule="cosine",
                        total_steps=n_steps,
                        warmup_steps=min(100, n_steps // 10), grad_clip=1.0)
-    trainer = Trainer(model, tcfg, TokenStream(cfg.vocab_size, batch, seq,
-                                               seed=0), checkpoint=False)
-    counts = []
-    trainer.hooks.append(lambda step, metrics: counts.append(
-        launch_counts()))
+    trainer = Trainer(model, tcfg, TokenStream(
+        cfg.vocab_size, batch, seq, n_codebooks=cfg.n_codebooks, seed=0),
+        checkpoint=False)
+    counts, resident = [], []
+    trainer.hooks.append(lambda step, metrics: (
+        counts.append(launch_counts()),
+        resident.append(torch.cuda.memory_allocated())))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     hist = list(trainer.run(n_steps))
     launches = launch_counts()
-    # a step's sparse launches all run bf16 at >= 16 tokens (rows an
-    # expert) on layouts the tensor-core bodies take, so every one of them
-    # must have taken those bodies
     mma = body_counts()
-    want_mma = train_mma_counts(launches)
-    if mma != want_mma:
+    all_mma = {k: v * n_steps for k, v in want_mma.items()}
+    if mma != all_mma:
         raise AssertionError(f"tensor-core body launches {mma}, want "
-                             f"{want_mma}: every launch of a "
-                             f"{batch * seq}-token step takes them")
+                             f"{all_mma}: the path functions' bodies at "
+                             f"each launch's tables and rows")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    resident_gb = resident[0] / 1e9
     prev = dict.fromkeys(COUNTERS, 0)
     for i, c in enumerate(counts):
         step = {k: c[k] - prev[k] for k in COUNTERS}
@@ -1678,24 +1808,24 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
             raise AssertionError(f"step {h['step']}: {h}")
     timed = [h["step_time_s"] for h in hist[1:]]
     step_ms = 1e3 * statistics.mean(timed)
-    prof = profile_train_step(trainer, phase)
+    prof = profile_train_step(trainer, phase, compare_readers)
     if prof["kernel_launches"] != want:
         raise AssertionError(f"profiled step launches "
                              f"{prof['kernel_launches']}")
-    want_mma = train_mma_counts(want)
     if prof["mma_launches"] != want_mma:
         raise AssertionError(f"profiled step: tensor-core body launches "
                              f"{prof['mma_launches']}, want {want_mma}")
     res = dict(
-        steps=n_steps, tokens_per_step=batch * seq,
+        steps=n_steps, tokens_per_step=n_tokens,
         losses=[h["loss"] for h in hist], ce=[h["ce"] for h in hist],
         aux=[h["aux"] for h in hist],
         grad_norms=[h["grad_norm"] for h in hist],
         step_ms=[1e3 * t for t in timed], mean_step_ms=step_ms,
-        tokens_per_s=batch * seq / (step_ms / 1e3),
-        peak_mem_gb=peak_gb,
+        tokens_per_s=n_tokens / (step_ms / 1e3),
+        peak_mem_gb=peak_gb, resident_gb=resident_gb,
+        transient_gb=peak_gb - resident_gb,
         launches=launches, launches_per_step=want,
-        mma_launches=mma,
+        mma_launches=mma, mma_per_step=want_mma,
         profile=prof,
         busy_share_unprofiled=prof["busy_ms"] / step_ms,
     )
@@ -1707,13 +1837,18 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
     log(phase, f"last {len(timed)} steps: {step_ms:.1f} ms/step "
                f"({fmt(res['step_ms'], '.1f')}), "
                f"{res['tokens_per_s']:.0f} tokens/s; peak memory "
-               f"{peak_gb:.2f} GB")
+               f"{peak_gb:.2f} GB = {resident_gb:.2f} resident after step 0 "
+               f"at rest + {peak_gb - resident_gb:.2f} transient")
     log(phase, f"launches per step, counted at each launch: "
                + ", ".join(f"{k} {v}" for k, v in want.items() if v)
-               + f"; in {n_steps} steps {launches}")
+               + f"; in {n_steps} steps {launches}; on the tensor cores "
+               + ", ".join(f"{k} {v}" for k, v in want_mma.items() if v)
+               + " a step, as the path functions name them")
     log(phase, f"profiled step (trace {prof['attempts']} of "
                f"{PROFILE_TRIES}, {prof['pad_records_lost']} of "
-               f"{PROFILE_PAD} leading spin records lost): "
+               f"{PROFILE_PAD} leading spin records lost, "
+               f"{prof['kernels']} kernels read in "
+               f"{prof['trace_read_s']:.1f}s): "
                f"{prof['wall_ms']:.1f} ms wall, card busy "
                f"{prof['busy_ms']:.1f} ms ({prof['busy_share']:.1%}; "
                f"{res['busy_share_unprofiled']:.1%} of the unprofiled "
@@ -1722,16 +1857,69 @@ def phase_train(cfg, want: dict, n_steps: int, batch: int, seq: int,
                            f"({prof['kernel_share'][k]:.1%} of busy, "
                            f"{prof['kernel_launches'][k]} launches)"
                            for k in COUNTERS if want[k]))
-    log(phase, f"profiled step's launches by kernel symbol (every sparse "
-               f"launch of the {batch * seq}-token step on the "
-               f"*_mma_kernel symbols; the slice sums count as no "
-               f"launch): " + ", ".join(
+    log(phase, f"profiled step's launches by kernel symbol (the slice "
+               f"sums count as no launch): " + ", ".join(
                    f"{k} {v}" for k, v in
                    prof["launches_by_symbol"].items()))
+    if fma:
+        g = torch.Generator(device="cuda").manual_seed(26)
+        res["fma"] = [dict({k: v for k, v in f.items() if k != "owner"},
+                           names=sorted(f["names"]),
+                           **time_fma_launch(f, fma_tables(f), g))
+                      for f in fma]
+        for f in res["fma"]:
+            log(phase, f"FMA launch {f['role']} {f['m']} x {f['k']}"
+                       f"{experts_note(f)} "
+                       f"({', '.join(f['names'])}), {f['rows']} rows, "
+                       f"{f['launches']} a step: {f['ms']:.4g} ms (dense "
+                       f"{f['library_ms']:.4g}); vs plain "
+                       f"{f['rel_err']:.1e}")
     print(f"{phase} " + json.dumps(res), flush=True)
     del trainer, model
     free_card()
     return res
+
+
+def time_fma_launch(entry: dict, tables, g) -> dict:
+    """One FMA launch kind of a training step (an entry of
+    ``train_step_launches``) on random bf16 operands at its rows: held
+    against its plain version (bf16 tolerance), then timed with CUDA
+    events beside one dense PyTorch product of the same dense shapes
+    (``F.linear`` or ``torch.bmm``; dW: ``g^T @ x``)."""
+    from repro_torch.kernels import (rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_reference,
+                                     rbgp4_sddmm_rhs_stacked,
+                                     rbgp4_sddmm_rhs_stacked_reference,
+                                     rbgp4mm_rhs, rbgp4mm_rhs_reference,
+                                     rbgp4mm_rhs_stacked,
+                                     rbgp4mm_rhs_stacked_reference)
+
+    dt, d, n, e = torch.bfloat16, tables.dims, entry["rows"], entry["experts"]
+    lead = (e,) if e > 1 else ()
+    x = torch.randn((*lead, n, d.k), device="cuda", generator=g).to(dt)
+    if entry["role"].endswith("dw"):
+        fn = rbgp4_sddmm_rhs_stacked if e > 1 else rbgp4_sddmm_rhs
+        ref = (rbgp4_sddmm_rhs_stacked_reference if e > 1
+               else rbgp4_sddmm_rhs_reference)
+        gy = torch.randn((*lead, n, d.m), device="cuda", generator=g).to(dt)
+        args = (tables, gy, x)
+        lib = lambda i: gy.transpose(-1, -2) @ x
+    else:
+        fn = rbgp4mm_rhs_stacked if e > 1 else rbgp4mm_rhs
+        ref = (rbgp4mm_rhs_stacked_reference if e > 1
+               else rbgp4mm_rhs_reference)
+        w = (torch.randn((*lead, d.m, d.data_cols), device="cuda",
+                         generator=g) * d.data_cols ** -0.5).to(dt)
+        wd = torch.randn((*lead, d.m, d.k), device="cuda",
+                         generator=g).to(dt)
+        args = (tables, x, w)
+        lib = ((lambda i: torch.bmm(x, wd.transpose(1, 2))) if e > 1
+               else (lambda i: F.linear(x, wd)))
+    rel = agree(f"FMA {entry['role']} {entry['m']} x {entry['k']} N={n}",
+                fn(*args), ref(*args), dt)[1]
+    return dict(rel_err=rel, ms=time_cuda(lambda i: fn(*args), n_iter=10,
+                                          n_warm=2),
+                library_ms=time_cuda(lib, n_iter=10, n_warm=2))
 
 
 class RouterMargins:
@@ -1804,11 +1992,13 @@ def check_router_margins(margins: dict) -> str:
     return text
 
 
-def phase_train_parity(cfg, want: dict, n_layers: int = 2, seq: int = 64,
-                       phase: str = "parity") -> None:
+def phase_train_parity(cfg, want: dict = None, n_layers: int = 2,
+                       seq: int = 64, phase: str = "parity") -> None:
     """float32: the same weights and batch train 2 steps on the card (the
     kernels) and on the CPU (the plain versions); each step must launch
-    ``want`` on the card and nothing on the CPU.  Without weight decay
+    ``want`` on the card (by default what ``train_step_launches`` derives
+    from the model's layers) and nothing on the CPU.  ``n_layers`` cuts
+    the model (None: the config's depth).  Without weight decay
     the SGD momentum after the steps is the sum of the clipped gradients,
     so it holds every parameter's gradient, dW and dX included, against
     the CPU's at 1e-4 * max|ref|.  (The parameters' own change is no
@@ -1819,13 +2009,20 @@ def phase_train_parity(cfg, want: dict, n_layers: int = 2, seq: int = 64,
     from repro_torch.models import LMModel
     from repro_torch.train import Trainer
 
-    cfg = cfg.with_(compute_dtype="float32", n_layers=n_layers)
+    cfg = cfg.with_(compute_dtype="float32",
+                    n_layers=n_layers or cfg.n_layers)
     gpu = LMModel(cfg, device="cuda", seed=0)
     cpu = LMModel(cfg, device="cpu", seed=0)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    if want is None:
+        want, mma, _ = train_step_launches(gpu, seq, torch.float32)
+        if any(mma.values()):
+            raise AssertionError(f"float32 launches on the tensor cores: "
+                                 f"{mma}")
     tcfg = TrainConfig(optimizer="sgdm", lr=3e-2, schedule="constant",
                        grad_clip=1.0, weight_decay=0.0)
-    stream = TokenStream(cfg.vocab_size, 1, seq, seed=0)
+    stream = TokenStream(cfg.vocab_size, 1, seq,
+                         n_codebooks=cfg.n_codebooks, seed=0)
     runs, margins = {}, {}
     for name, model in (("cuda", gpu), ("cpu", cpu)):
         reset_launch_counts()
@@ -1874,8 +2071,9 @@ def phase_train_parity(cfg, want: dict, n_layers: int = 2, seq: int = 64,
     if fwd != fwd_only or no_remat != one:
         raise AssertionError(f"forward alone {fwd} launches, a step without "
                              f"remat {no_remat}")
-    log(phase, f"train float32, {cfg.name} with {n_layers} full-width "
-               f"layers, 2 steps of 1 x {seq} tokens: losses card "
+    log(phase, f"train float32, {cfg.name} with {cfg.n_layers} layers "
+               f"(d_model {cfg.d_model}), 2 steps of 1 x {seq} tokens: "
+               f"losses card "
                f"{runs['cuda'][0]} vs cpu {runs['cpu'][0]} (worst "
                f"{worst_loss:.2e} relative); {len(runs['cpu'][1])} "
                f"parameters: momentum (the clipped gradients) worst "
@@ -2917,6 +3115,8 @@ def profile_vgg19_pass(layers, cots) -> dict:
     autograd's own kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.obs.kernelstats import device_kernels
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2931,13 +3131,12 @@ def profile_vgg19_pass(layers, cots) -> dict:
         cw.w_data.grad = x.grad = None
     ms = {"rbgp4mm": 0.0, "rbgp4_sddmm": 0.0, "other": 0.0}
     n_kernels = 0
-    for e in prof.events():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or "spin_kernel" in e.name):
+    for _, dur, name in device_kernels(prof):
+        if "spin_kernel" in name:
             continue
-        key = ("rbgp4_sddmm" if "rbgp4_sddmm" in e.name else
-               "rbgp4mm" if "rbgp4mm" in e.name else "other")
-        ms[key] += e.time_range.elapsed_us() * 1e-3
+        key = ("rbgp4_sddmm" if "rbgp4_sddmm" in name else
+               "rbgp4mm" if "rbgp4mm" in name else "other")
+        ms[key] += dur
         n_kernels += 1
     if not n_kernels:
         raise AssertionError("the profiler recorded no kernel on the card")
@@ -5424,6 +5623,34 @@ ARCH_SERVE = {
     "deepseek-v2-236b": ("continuous", 4),
     "jamba-1.5-large-398b": ("static", 8),
 }
+#: phase 50's depths: width is never cut, depth only where one card
+#: cannot hold the trainer's state (``train_state_gb``): deepseek-v2 keeps
+#: 4 layers (dense layer 0, three MoE layers of 160 experts), jamba 3
+#: (Mamba, Mamba + MoE of 16 experts, Mamba; its fourth layer adds a
+#: second MoE layer, so no attention layer trains here)
+ARCH_TRAIN = {
+    "gemma-7b": None,
+    "gemma3-4b": None,
+    "deepseek-7b": None,
+    "pixtral-12b": None,
+    "musicgen-medium": None,
+    "rwkv6-7b": None,
+    "deepseek-v2-236b": 4,
+    "jamba-1.5-large-398b": 3,
+}
+#: phase 50's batch (4 x 512 tokens, as qwen2-moe's training phase) and
+#: steps (the first untimed)
+ARCH_TRAIN_BATCH, ARCH_TRAIN_SEQ, ARCH_TRAIN_STEPS = 4, 512, 4
+#: bytes the trainer holds for each trainable value during a bf16 step:
+#: the model's bf16 tensor, the float32 master value, the float32
+#: gradient and the sgdm momentum (train/loop.py); 10 of them stay
+#: between steps (no gradient)
+TRAIN_STATE_BYTES, TRAIN_REST_BYTES = 14, 10
+#: the card's memory a depth may plan on (its data sheet's 80 GB), and
+#: what a depth's state must leave free of it for the step's activations
+#: under remat, the logits, the widened gradients and the update's
+#: temporaries
+TRAIN_CARD_GB, TRAIN_HEADROOM_GB = 80.0, 12.0
 #: served first by phase 49, beside the others (earlier phases' model)
 ARCH_BASELINE = "tinyllama-1.1b"
 ARCH_REQUESTS = 8
@@ -5453,6 +5680,23 @@ def arch_serve_config(arch: str, compute_dtype: str = "bfloat16"):
     cfg = main_config(compute_dtype, arch)
     depth = ARCH_SERVE.get(arch, ("continuous", None))[1]
     return cfg.with_(n_layers=depth) if depth else cfg
+
+
+def arch_train_config(arch: str, n_layers: int = None):
+    """``arch`` at full width under rbgp4 0.75 in bf16, at ``n_layers``
+    or the depth of ``ARCH_TRAIN``."""
+    cfg = main_config("bfloat16", arch)
+    depth = n_layers or ARCH_TRAIN.get(arch)
+    return cfg.with_(n_layers=depth) if depth else cfg
+
+
+def train_state_gb(cfg) -> tuple[int, float]:
+    """(trainable values, GB of trainer state during a step) of ``cfg``,
+    reckoned on ``meta`` at ``TRAIN_STATE_BYTES`` a value."""
+    from repro_torch.models import LMModel
+
+    n = LMModel(cfg, device="meta").n_params()
+    return n, n * TRAIN_STATE_BYTES / 1e9
 
 
 def sparse_per_pass(model) -> dict:
@@ -5704,17 +5948,162 @@ def check_time_arch_layout(entry: dict, engine: str, g) -> dict:
     return dict(checked=checked, times=times)
 
 
-def time_scan(cfg) -> dict:
+def plain_slices(n_experts: int, n: int, row_bytes: int) -> list:
+    """(expert slice, row slice) pairs that cover ``n`` rows of
+    ``n_experts`` experts (0: unstacked, the expert slice None) in pieces
+    whose plain-version gather, ``row_bytes`` an expert's row, stays
+    within ``ARCH_CHECK_GATHER``."""
+    rows = max(1, ARCH_CHECK_GATHER // row_bytes)
+    if not n_experts:
+        return [(None, slice(a, a + rows)) for a in range(0, n, rows)]
+    if rows >= n:
+        step = rows // n
+        return [(slice(a, a + step), slice(0, n))
+                for a in range(0, n_experts, step)]
+    return [(slice(a, a + 1), slice(b, b + rows))
+            for a in range(n_experts) for b in range(0, n, rows)]
+
+
+def train_layouts(model, n_tokens: int) -> list:
+    """The distinct layouts a training step of ``model`` on ``n_tokens``
+    tokens launches its kernels on: (m, k), the expert count (1 for a
+    compact projection), the rows a launch takes (``n_tokens``, or an
+    expert's capacity rows), the layout and the projections on it."""
+    from repro_torch.models.moe import MoELayer
+    from repro_torch.sparsity import SparseLinear
+
+    found = {}
+
+    def add(lay, e, rows, name):
+        entry = found.setdefault((lay.m, lay.k, e, rows), dict(
+            m=lay.m, k=lay.k, experts=e, rows=rows, layout=lay,
+            names=set()))
+        entry["names"].add(name)
+
+    for mod in model.modules():
+        if isinstance(mod, SparseLinear) and mod.mode == "compact":
+            add(mod.layout, 1, n_tokens, mod.name.split(".", 1)[-1])
+        elif isinstance(mod, MoELayer) and mod.experts.compact:
+            for proj in ("gate", "up", "down"):
+                add(mod.experts.layouts[mod.experts._side(proj)],
+                    mod.moe.n_experts, mod.capacity(n_tokens, False),
+                    f"experts.{proj}")
+    return [dict(e, names=sorted(e["names"]))
+            for _, e in sorted(found.items())]
+
+
+def check_train_layouts(cfg, n_tokens: int, phase: str) -> dict:
+    """Every distinct layout of a training step of ``cfg`` on ``n_tokens``
+    tokens (``train_layouts``, found on ``meta``), in bf16 at the rows
+    its launches take, on the tables the model's layers share
+    (``get_op``): the forward, dX on the transposed layout's tables
+    (``TransposeTables``) and dW, ``rbgp4mm_rhs`` and ``rbgp4_sddmm_rhs``
+    or for experts their stacked forms, each against its plain version
+    (row and expert slices, ``plain_slices``; dW's float32 slices
+    summed) within bf16's tolerance of max|ref|; each launch moves its
+    counter by one and ``launches_mma`` exactly when its path function
+    names the tensor-core body.  Returns the rows (bodies, errors) and
+    the max abs diff by role."""
+    from repro_torch.kernels import (get_op, rbgp4_sddmm_rhs,
+                                     rbgp4_sddmm_rhs_reference,
+                                     rbgp4_sddmm_rhs_stacked,
+                                     rbgp4_sddmm_rhs_stacked_reference,
+                                     rbgp4mm_rhs, rbgp4mm_rhs_reference,
+                                     rbgp4mm_rhs_stacked,
+                                     rbgp4mm_rhs_stacked_reference, rhs_path,
+                                     sddmm_path)
+    from repro_torch.models import LMModel
+
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(50)
+    max_abs = dict.fromkeys(("forward", "dx", "dw", "stacked_forward",
+                             "stacked_dx", "stacked_dw"), 0.0)
+    rows = []
+    t0 = time.perf_counter()
+    for e in train_layouts(LMModel(cfg, device="meta"), n_tokens):
+        m, k, n, lay = e["m"], e["k"], e["rows"], e["layout"]
+        stacked = e["experts"] > 1
+        ne = e["experts"] if stacked else 0
+        lead = (ne,) if stacked else ()
+        op = get_op(lay, "cuda")
+        tables, tt = op.tables, op.transpose_tables()
+        d, d_t = tables.dims, tt.tables.dims
+        fwd, dw_fn = ((rbgp4mm_rhs_stacked, rbgp4_sddmm_rhs_stacked)
+                      if stacked else (rbgp4mm_rhs, rbgp4_sddmm_rhs))
+        fwd_ref, dw_ref = ((rbgp4mm_rhs_stacked_reference,
+                            rbgp4_sddmm_rhs_stacked_reference) if stacked
+                           else (rbgp4mm_rhs_reference,
+                                 rbgp4_sddmm_rhs_reference))
+        nnz = lay.data_shape[1]
+        w = (torch.randn((*lead, m, nnz), device="cuda", generator=g)
+             * nnz ** -0.5).to(dt)
+        wt = tt.values(w)
+        x = torch.randn((*lead, n, k), device="cuda", generator=g).to(dt)
+        gy = torch.randn((*lead, n, m), device="cuda", generator=g).to(dt)
+        label = (f"{cfg.name} {m} x {k}"
+                 f"{f' x {ne} experts' if stacked else ''} N={n}")
+        paths = dict(forward=rhs_path(d, n, dt), dx=rhs_path(d_t, n, dt),
+                     dw=sddmm_path(d, n, dt))
+        out = {}
+        for role, fn, attr, run in (
+                ("forward", fwd, "launches", lambda: fwd(tables, x, w)),
+                ("dx", fwd, "launches_dx", lambda: fwd(tt.tables, gy, wt)),
+                ("dw", dw_fn, "launches", lambda: dw_fn(tables, gy, x))):
+            mma0 = fn.launches_mma
+            out[role] = launched(fn, run, attr)
+            if fn.launches_mma - mma0 != (paths[role] == "mma"):
+                raise AssertionError(f"{label} {role}: launches_mma moved by "
+                                     f"{fn.launches_mma - mma0}, the path "
+                                     f"is {paths[role]}")
+        sel = lambda t, es, rs: (t[rs] if es is None else t[es, rs])
+        wsel = lambda t, es: t if es is None else t[es]
+        worst = dict.fromkeys(paths, 0.0)
+        for role, tab, vals, inp, gd in (
+                ("forward", tables, w, x, d), ("dx", tt.tables, wt, gy, d_t)):
+            for es, rs in plain_slices(ne, n, 4 * (gd.m // gd.group_rows)
+                                       * gd.data_cols):
+                want = fwd_ref(tab, sel(inp, es, rs).contiguous(),
+                               wsel(vals, es).contiguous())
+                err, rel = agree(f"{label} {role} rows {rs.start}-"
+                                 f"{rs.stop}", sel(out[role], es, rs), want,
+                                 dt)
+                key = ("stacked_" if stacked else "") + role
+                max_abs[key] = max(max_abs[key], err)
+                worst[role] = max(worst[role], rel)
+                del want
+        want, parts = None, []
+        for es, rs in plain_slices(ne, n, 4 * (m // d.group_rows) * nnz):
+            part = dw_ref(tables, sel(gy, es, rs).float().contiguous(),
+                          sel(x, es, rs).float().contiguous())
+            if parts and parts[-1][0] == es:
+                parts[-1] = (es, parts[-1][1] + part)
+            else:
+                parts.append((es, part))
+        for es, want in parts:
+            err, rel = agree(f"{label} dw", wsel(out["dw"], es), want, dt)
+            key = "stacked_dw" if stacked else "dw"
+            max_abs[key] = max(max_abs[key], err)
+            worst["dw"] = max(worst["dw"], rel)
+        del parts, want, out, w, wt, x, gy
+        rows.append(dict({k_: v for k_, v in e.items() if k_ != "layout"},
+                         G=d.group_rows, C=d.chunk_cols, G_t=d_t.group_rows,
+                         C_t=d_t.chunk_cols, bodies=paths, rel_err=worst))
+        log(phase, f"{label} ({', '.join(e['names'])}; G {d.group_rows}, "
+                   f"C {d.chunk_cols}; transposed G {d_t.group_rows}, C "
+                   f"{d_t.chunk_cols}) bf16, bodies fwd/dX/dW "
+                   f"{'/'.join(paths.values())}, max|diff|/max|ref| "
+                   + ", ".join(f"{r} {v:.2e}" for r, v in worst.items()))
+    torch.cuda.empty_cache()
+    return dict(rows=rows, max_abs=max_abs,
+                seconds=time.perf_counter() - t0)
+
+
+def scan_case(cfg) -> tuple:
     """A recurrent arch's scan of one layer (``wkv_scan`` for RWKV,
-    ``selective_scan`` for Mamba; float32, random inputs of the model's
-    ranges) at the static engine's widest prefill (4 prompts of 512
-    tokens), its per-step products formed ``SCAN_CHUNK`` steps at a time
-    (the model's form) against every step's own (chunk 1): the fenced
-    wall ms of a call (median of 3), its CUDA-event ms (launch-bound as
-    well: the host queues a step's launches slower than the card runs
-    them), the card memory it peaks at above its inputs, and the two
-    forms' outputs within 1e-6 of max|ref|."""
-    from repro_torch.models.common import SCAN_CHUNK
+    ``selective_scan`` for Mamba) on random float32 inputs of the model's
+    ranges, at the static engine's widest prefill (4 prompts of 512
+    tokens, the training phases' batch too): (its name, the function, its
+    arguments)."""
     from repro_torch.models.rwkv import wkv_scan
     from repro_torch.models.ssm import selective_scan, softplus
 
@@ -5728,21 +6117,33 @@ def time_scan(cfg) -> dict:
     if cfg.rwkv is not None:
         hs = cfg.rwkv.head_size
         H = cfg.d_model // hs
-        name, scan = "wkv_scan", wkv_scan
-        args = (randn(B, S, H, hs), randn(B, S, H, hs) * 0.1,
-                randn(B, S, H, hs) * 0.1,
-                torch.exp(-torch.exp(randn(B, S, H, hs) - 3)),
-                randn(H, hs) * 0.1,
-                torch.zeros((B, H, hs, hs), device="cuda"))
-    else:
-        mc = cfg.mamba
-        di, ds = mc.expand * cfg.d_model, mc.d_state
-        name, scan = "selective_scan", selective_scan
-        args = (softplus(randn(B, S, di) - 4),
-                -torch.arange(1, ds + 1, dtype=torch.float32,
-                              device="cuda").expand(di, ds).contiguous(),
-                randn(B, S, di), randn(B, S, ds), randn(B, S, ds),
-                torch.zeros((B, di, ds), device="cuda"))
+        return "wkv_scan", wkv_scan, (
+            randn(B, S, H, hs), randn(B, S, H, hs) * 0.1,
+            randn(B, S, H, hs) * 0.1,
+            torch.exp(-torch.exp(randn(B, S, H, hs) - 3)),
+            randn(H, hs) * 0.1, torch.zeros((B, H, hs, hs), device="cuda"))
+    mc = cfg.mamba
+    di, ds = mc.expand * cfg.d_model, mc.d_state
+    return "selective_scan", selective_scan, (
+        softplus(randn(B, S, di) - 4),
+        -torch.arange(1, ds + 1, dtype=torch.float32,
+                      device="cuda").expand(di, ds).contiguous(),
+        randn(B, S, di), randn(B, S, ds), randn(B, S, ds),
+        torch.zeros((B, di, ds), device="cuda"))
+
+
+def time_scan(cfg) -> dict:
+    """A recurrent arch's scan of one layer (``scan_case``), its per-step
+    products formed ``SCAN_CHUNK`` steps at a time (the model's form)
+    against every step's own (chunk 1): the fenced wall ms of a call
+    (median of 3), its CUDA-event ms (launch-bound as well: the host
+    queues a step's launches slower than the card runs them), the card
+    memory it peaks at above its inputs, and the two forms' outputs within
+    1e-6 of max|ref|."""
+    from repro_torch.models.common import SCAN_CHUNK
+
+    name, scan, args = scan_case(cfg)
+    B, S = args[0].shape[:2]
     forms = {}
     for chunk in (SCAN_CHUNK, 1):
         torch.cuda.synchronize()
@@ -5773,12 +6174,49 @@ def time_scan(cfg) -> dict:
                 rel_err=err / scale)
 
 
+def time_scan_backward(cfg) -> dict:
+    """One layer's scan (``scan_case``, chunked as the model runs it)
+    under autograd, as a training step runs it: every input but the zero
+    initial state asks for a gradient (each is a trained value's
+    function in the model), the forward, then the backward of a random
+    cotangent.  The fenced wall ms of the forward and of the backward
+    (median of 3), the card memory the pair peaks at above its inputs (the
+    graph's saved per-step states), and finite gradients."""
+    name, scan, args = scan_case(cfg)
+    args = tuple(a.requires_grad_() for a in args[:-1]) + args[-1:]
+    g = torch.Generator(device="cuda").manual_seed(50)
+    fwd, bwd = [], []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        y, _ = scan(*args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y.backward(torch.randn(y.shape, device="cuda", generator=g))
+        torch.cuda.synchronize()
+        fwd.append(1e3 * (t1 - t0))
+        bwd.append(1e3 * (time.perf_counter() - t1))
+        if not all(bool(torch.isfinite(a.grad).all()) for a in args[:-1]):
+            raise AssertionError(f"{name}: a gradient is not finite")
+        for a in args[:-1]:
+            a.grad = None
+        del y
+    peak = torch.cuda.max_memory_allocated() - base
+    return dict(scan=name, batch=args[0].shape[0], steps=args[0].shape[1],
+                forward_ms=statistics.median(fwd),
+                backward_ms=statistics.median(bwd), peak_gb=peak / 1e9)
+
+
 def profile_call(fn, *args, **kw):
     """``fn(*args, **kw)`` under torch.profiler, the window opened by
     ``PROFILE_PAD`` spin kernels (dropped, as ``profile_train_step``
     drops them): (its result, the fenced wall ms of the call, the card's
     busy ms in its kernels, their count)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.kernelstats import device_kernels
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -5790,9 +6228,8 @@ def profile_call(fn, *args, **kw):
         out = fn(*args, **kw)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    kernels = [e.time_range.elapsed_us() * 1e-3 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "spin_kernel" not in e.name]
+    kernels = [dur for _, dur, name in device_kernels(prof)
+               if "spin_kernel" not in name]
     if not kernels:
         raise AssertionError("the profiler recorded no kernel on the card")
     return out, wall, sum(kernels), len(kernels)
@@ -6022,15 +6459,85 @@ def experts_note(lay: dict) -> str:
     return f" x {lay['experts']} experts" if lay["experts"] > 1 else ""
 
 
-def arch_phases(smi: str) -> tuple[dict, dict]:
-    """Phases 48 and 49 over the eight archs of ``ARCH_SERVE``; phase 49
+def phase_train_arch(arch: str, smi: str) -> dict:
+    """Phase 50: ``arch`` trained at full width in bf16
+    (``arch_train_config``: cut in depth only where ``ARCH_TRAIN`` says)
+    through ``phase_train``: ``ARCH_TRAIN_STEPS`` steps of
+    ``ARCH_TRAIN_BATCH`` x ``ARCH_TRAIN_SEQ`` tokens (text only for a
+    vision model, 4 codebooks for an audio one).  Before it, the state
+    reckoned on ``meta`` (``train_state_gb``), for a recurrent arch one
+    layer's scan under autograd at that batch (``time_scan_backward``),
+    then every layout of the step against the plain versions
+    (``check_train_layouts``, on the tables the model then shares); after
+    it, the measured peak and resident state beside the reckoning."""
+    from repro_torch.configs import get_config
+
+    cfg = arch_train_config(arch)
+    n_values, state_gb = train_state_gb(cfg)
+    log("train-archs", f"{arch}: {cfg.n_layers} of "
+                       f"{get_config(arch).n_layers} layers, d_model "
+                       f"{cfg.d_model}; {n_values:,} trainable values, "
+                       f"reckoned {state_gb:.2f} GB of trainer state during "
+                       f"a step ({TRAIN_STATE_BYTES} B a value), "
+                       f"{n_values * TRAIN_REST_BYTES / 1e9:.2f} GB at rest "
+                       f"({TRAIN_REST_BYTES} B); the card holds "
+                       f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
+    scan = None
+    if cfg.rwkv is not None or cfg.mamba is not None:
+        scan = time_scan_backward(cfg)
+        log("train-archs", f"{arch} {scan['scan']} of one layer under "
+                           f"autograd, float32, {scan['batch']} x "
+                           f"{scan['steps']} steps: forward "
+                           f"{scan['forward_ms']:.2f} ms, backward "
+                           f"{scan['backward_ms']:.2f} ms, peak "
+                           f"{scan['peak_gb']:.3f} GB above its inputs")
+        free_card()
+    check = check_train_layouts(cfg, ARCH_TRAIN_BATCH * ARCH_TRAIN_SEQ,
+                                "train-archs")
+    log("train-archs", f"{arch}: {len(check['rows'])} layouts' forward, dX "
+                       f"and dW agree with their plain versions at the "
+                       f"step's rows ({check['seconds']:.1f}s); max abs "
+                       f"diff " + ", ".join(
+                           f"{k_} {v:.3e}" for k_, v in
+                           check["max_abs"].items() if v))
+    t0 = time.perf_counter()
+    res = phase_train(cfg, None, n_steps=ARCH_TRAIN_STEPS,
+                      batch=ARCH_TRAIN_BATCH, seq=ARCH_TRAIN_SEQ,
+                      phase="train-archs")
+    res.update(arch=arch, layers=cfg.n_layers, values=n_values,
+               reckoned_gb=state_gb, scan_backward=scan,
+               layout_checks=check,
+               seconds=time.perf_counter() - t0)
+    n_fma = sum(f["launches"] for f in res.get("fma", []))
+    log("train-archs", f"{arch}: {res['mean_step_ms']:.1f} ms/step, "
+                       f"{res['tokens_per_s']:.0f} tokens/s, peak "
+                       f"{res['peak_mem_gb']:.2f} GB (reckoned state "
+                       f"{state_gb:.2f}), resident "
+                       f"{res['resident_gb']:.2f} GB (reckoned "
+                       f"{n_values * TRAIN_REST_BYTES / 1e9:.2f}), card "
+                       f"idle {1 - res['busy_share_unprofiled']:.1%} of the "
+                       f"unprofiled step; {n_fma} FMA launches a step; "
+                       f"{res['seconds']:.1f}s; {smi}")
+    return res
+
+
+def arch_phases(smi: str) -> tuple[dict, dict, dict]:
+    """Phases 48-51 over the eight archs of ``ARCH_SERVE``; phase 49
     serves ``ARCH_BASELINE`` first, the same workload through the same
     engine in the same call, as the measure the others' decode steps are
-    read against."""
+    read against; phase 50 trains each at full width (``ARCH_TRAIN``),
+    phase 51 holds each reduced model's float32 training step on the card
+    against the CPU."""
+    from repro_torch.configs import get_config, reduce_config
+
     parity = {arch: phase_arch_parity(arch) for arch in ARCH_SERVE}
     serve = {arch: phase_serve_arch(arch, smi)
              for arch in [ARCH_BASELINE, *ARCH_SERVE]}
-    return parity, serve
+    train = {arch: phase_train_arch(arch, smi) for arch in ARCH_TRAIN}
+    for arch in ARCH_TRAIN:
+        phase_train_parity(reduce_config(get_config(arch)), n_layers=None,
+                           phase="train-parity-archs")
+    return parity, serve, train
 
 
 def main() -> int:
@@ -6041,9 +6548,9 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_build()
     if "--archs-only" in sys.argv[1:]:
-        # the quick check of the other language models: phases 48-49
+        # the quick check of the other language models: phases 48-51
         arch_phases(smi)
-        log("done", f"phases 1, 48 and 49 passed in "
+        log("done", f"phases 1 and 48-51 passed in "
                     f"{time.perf_counter() - t_start:.1f}s on {smi}")
         return 0
     layouts, experts = full_width_layouts(), moe_layouts()
@@ -6086,7 +6593,8 @@ def main() -> int:
     phase_parity(main_config("float32"),
                  serve_requests(tiny.vocab_size, 4, seed=1))
     tiny_step = launches_of(forward=2 * n_tiny, dx=n_tiny, dw=n_tiny)
-    train = phase_train(tiny, tiny_step, n_steps=6, batch=8, seq=512)
+    train = phase_train(tiny, tiny_step, n_steps=6, batch=8, seq=512,
+                        compare_readers=True)
     phase_train_parity(tiny, launches_of(forward=28, dx=14, dw=14))
 
     # qwen2-moe: attention 4 + shared expert 3 compact projections and 3
@@ -6216,11 +6724,17 @@ def main() -> int:
     autotune_phases(layouts, experts, chains, fm, plans, tiny, serve, smi)
     t_tune = time.perf_counter() - t_tune
 
-    # the other eight language models: reduced, card against CPU; then
-    # served at full width through rbgp4mm_rhs and rbgp4mm_rhs_stacked
+    # the other eight language models: reduced, card against CPU; served
+    # at full width through rbgp4mm_rhs and rbgp4mm_rhs_stacked; trained
+    # at full width through those and the dW kernels; reduced, float32
+    # training card against CPU
     t_arch = time.perf_counter()
-    _, serve_archs = arch_phases(smi)
+    _, serve_archs, train_archs = arch_phases(smi)
     t_arch = time.perf_counter() - t_arch
+    # phase 50's checks of each training layout against its plain version
+    max_abs_archs = {role: max(r["layout_checks"]["max_abs"][role]
+                               for r in train_archs.values())
+                     for role in max_abs_plan}
 
     per_layout = {f"{key} {kind if isinstance(kind, str) else f'N={kind}'}":
                   row for (key, kind), row in times.items()}
@@ -6282,7 +6796,9 @@ def main() -> int:
                  serve_q_chain, serve_plan, chunked, chunked_moe,
                  chunked_chain, pressure, prefix["on"], prefix["off"],
                  static, obs) + tuple(vision.values()) \
-        + tuple(train_plan.values()) + tuple(serve_archs.values())
+        + tuple(train_plan.values()) + tuple(serve_archs.values()) \
+        + tuple(train_archs.values())
+    train_runs = (train, train_moe, *train_archs.values())
     vision_launches = lambda role: sum(r["launches"][role]
                                        for r in vision.values())
     total = lambda role: sum(run["launches"][role] for run in main_runs)
@@ -6291,7 +6807,8 @@ def main() -> int:
              replaces="src/repro/kernels/rbgp4mm.py:500",
              launches=total("forward"),
              max_abs_err=max(max_abs, max_abs_train["forward"],
-                             max_abs_plan["forward"]),
+                             max_abs_plan["forward"],
+                             max_abs_archs["forward"]),
              **fwd,
              work="forward (serve, and train with its remat recompute; "
                   "tinyllama and qwen2-moe attention and shared expert); "
@@ -6300,21 +6817,23 @@ def main() -> int:
         dict(name="rbgp4mm_rhs (training forward, save_preact)",
              route="cuda", source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:500",
-             launches=train["launches"]["forward"]
-             + train_moe["launches"]["forward"],
-             max_abs_err=max_abs_train["forward"], **fwd_train,
-             work="the training forward and its remat recompute (phases 6 "
-                  "and 10, the bf16 tensor-core body); timed: one "
+             launches=sum(r["launches"]["forward"] for r in train_runs),
+             max_abs_err=max(max_abs_train["forward"],
+                             max_abs_archs["forward"]), **fwd_train,
+             work="the training forward and its remat recompute (phases 6, "
+                  "10 and 50, the bf16 tensor-core body but jamba's x "
+                  "projection, G 8, on the FMA body); timed: one "
                   "tinyllama decoder layer's seven projections at 4096 "
                   "tokens, bf16, with save_preact and silu (Y and Z "
                   "written); fma_ms: the FMA body on the same operands; "
-                  "launches: the forward launches of the tinyllama and "
-                  "qwen2-moe training runs"),
+                  "launches: the forward launches of the tinyllama, "
+                  "qwen2-moe and phase 50 training runs"),
         dict(name="rbgp4mm_rhs (dX, transposed layouts)", route="cuda",
              source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:500",
              launches=total("dx"),
-             max_abs_err=max(max_abs_train["dx"], max_abs_plan["dx"]),
+             max_abs_err=max(max_abs_train["dx"], max_abs_plan["dx"],
+                             max_abs_archs["dx"]),
              **dx,
              work="dX = g @ W_s of one tinyllama decoder layer's seven "
                   "projections on their transposed layouts (G 64/128, "
@@ -6324,7 +6843,8 @@ def main() -> int:
              source=src + "rbgp4_sddmm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:674",
              launches=total("dw"),
-             max_abs_err=max(max_abs_train["dw"], max_abs_plan["dw"]),
+             max_abs_err=max(max_abs_train["dw"], max_abs_plan["dw"],
+                             max_abs_archs["dw"]),
              **dw,
              work="compact dW of one tinyllama decoder layer's seven "
                   "projections, 4096 tokens, bf16; fma_ms: the FMA body on "
@@ -6334,7 +6854,8 @@ def main() -> int:
              replaces="src/repro/kernels/rbgp4mm.py:773",
              launches=total("stacked_forward"),
              max_abs_err=max(max_abs_moe["forward"],
-                             max_abs_plan["stacked_forward"]), **s_fwd,
+                             max_abs_plan["stacked_forward"],
+                             max_abs_archs["stacked_forward"]), **s_fwd,
              work="forward of qwen2-moe's routed experts (serve at full "
                   "capacity, and train with its remat recompute); timed: "
                   "one MoE layer's gate, up and down, 60 experts, 8 rows "
@@ -6342,12 +6863,16 @@ def main() -> int:
         dict(name="rbgp4mm_rhs_stacked (training forward, save_preact)",
              route="cuda", source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:773",
-             launches=train_moe["launches"]["stacked_forward"],
-             launches_mma=train_moe["mma_launches"]["stacked_forward"]
-             - train_moe["launches"]["stacked_dx"],
-             max_abs_err=max_abs_moe["forward"], **s_fwd_train,
+             launches=sum(r["launches"]["stacked_forward"]
+                          for r in train_runs),
+             launches_mma=sum(r["mma_launches"]["stacked_forward"]
+                              - r["launches"]["stacked_dx"]
+                              for r in train_runs),
+             max_abs_err=max(max_abs_moe["forward"],
+                             max_abs_archs["stacked_forward"]),
+             **s_fwd_train,
              work="the stacked training forward and its remat recompute "
-                  "(phase 10, the bf16 tensor-core body "
+                  "(phases 10 and 50, the bf16 tensor-core body "
                   "rbgp4mm_rhs_stacked_mma_kernel); timed: one MoE layer's "
                   "gate, up and down, 60 experts, 171 rows an expert, bf16, "
                   "save_preact and silu (Y and Z written); fma_ms: the FMA "
@@ -6368,9 +6893,11 @@ def main() -> int:
              route="cuda", source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:773",
              launches=total("stacked_dx"),
-             launches_mma=train_moe["launches"]["stacked_dx"],
+             launches_mma=sum(r["launches"]["stacked_dx"]
+                              for r in train_runs),
              max_abs_err=max(max_abs_moe["dx"],
-                             max_abs_plan["stacked_dx"]), **s_dx,
+                             max_abs_plan["stacked_dx"],
+                             max_abs_archs["stacked_dx"]), **s_dx,
              work="dX of one MoE layer's gate, up and down on their "
                   "transposed layouts, 60 experts, 171 rows an expert, "
                   "bf16 (the tensor-core body in training); fma_ms: the "
@@ -6380,13 +6907,15 @@ def main() -> int:
              source=src + "rbgp4_sddmm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:899",
              launches=total("stacked_dw"),
-             launches_mma=train_moe["mma_launches"]["stacked_dw"],
+             launches_mma=sum(r["mma_launches"]["stacked_dw"]
+                              for r in train_runs),
              max_abs_err=max(max_abs_moe["dw"],
-                             max_abs_plan["stacked_dw"]), **s_dw,
+                             max_abs_plan["stacked_dw"],
+                             max_abs_archs["stacked_dw"]), **s_dw,
              work="compact dW of one MoE layer's gate, up and down, 60 "
                   "experts, 171 rows an expert, bf16, on the tensor-core "
                   "body (rbgp4_sddmm_rhs_stacked_mma_kernel, every launch "
-                  "of phase 10); fma_ms: the FMA body on the same "
+                  "of phases 10 and 50); fma_ms: the FMA body on the same "
                   "operands"),
         dict(name="chainmm_rhs", route="cuda", source=src + "chainmm_rhs.cu",
              replaces="src/repro/kernels/chainmm.py:309",
@@ -6529,7 +7058,7 @@ def main() -> int:
                 f"the int8 phases {t_q:.1f}s, the vision phases "
                 f"{t_vis:.1f}s, the plan phases {t_plan:.1f}s, the serving "
                 f"phases 38-44 {t_serve:.1f}s, the autotuner phases 45-47 "
-                f"{t_tune:.1f}s, the other archs' phases 48-49 "
+                f"{t_tune:.1f}s, the other archs' phases 48-51 "
                 f"{t_arch:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

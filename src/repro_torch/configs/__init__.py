@@ -62,15 +62,17 @@ def apply_sparsity(cfg: ModelConfig, pattern: str = "rbgp4",
     ))
 
 
-def reduce_config(cfg: ModelConfig) -> ModelConfig:
+def reduce_config(cfg: ModelConfig, *,
+                  sparsity_backend: str = "auto") -> ModelConfig:
     """Small same-family config: tiny dims, few layers, CPU-runnable.
 
-    The reference's ``reduce_config``, with the sparsity backend 'auto'
-    (compact storage).  It keeps the layer pattern, the MoE cadence (the
-    period is the lcm of the pattern and ``every_n_layers``, the
-    ``first_dense`` layers stay in front) and the mixer kinds: MLA, Mamba
-    and RWKV keep their sub-configs at small ranks, a vision frontend 4
-    patches, a codebook model a vocabulary of 128.
+    The reference's ``reduce_config``; its ``sparsity_backend`` defaults to
+    'auto' (compact storage), the port's default backend, where the
+    reference's defaults to 'xla_masked'.  It keeps the layer pattern, the
+    MoE cadence (the period is the lcm of the pattern and
+    ``every_n_layers``, the ``first_dense`` layers stay in front) and the
+    mixer kinds: MLA, Mamba and RWKV keep their sub-configs at small ranks,
+    a vision frontend 4 patches, a codebook model a vocabulary of 128.
     """
     period = len(cfg.layer_pattern)
     if cfg.moe is not None:
@@ -99,8 +101,8 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     mamba = cfg.mamba
     if mamba is not None:
         mamba = dataclasses.replace(mamba, d_state=4)
-    sp = SparsityConfig(pattern="rbgp4", sparsity=0.5, backend="auto",
-                        min_dim=64)
+    sp = SparsityConfig(pattern="rbgp4", sparsity=0.5,
+                        backend=sparsity_backend, min_dim=64)
     return cfg.with_(
         name=cfg.name + "-smoke",
         n_layers=n_layers,
@@ -115,6 +117,7 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         n_patches=4 if cfg.frontend == "vision" else 0,
         moe=moe, mla=mla, mamba=mamba, rwkv=rwkv,
         sparsity=sp,
+        plan=None,  # plans are shape-specific, as in the reference
         compute_dtype="float32",
     )
 

@@ -216,9 +216,10 @@ class TransposeTables:
     ``values(w_data).flat == w_data.flat[perm]``, which packs W^T in that
     layout (the reference's ``RBGP4Op.transpose_data``).
 
-    Built once per layer on its device, by the owning ``SparseLinear``
-    when a gradient is first asked of it.  The permutation is read off a
-    dense (M, K) map of each non-zero's compact slot, on the device.
+    Built once per layout and device, by its ``RBGP4Op`` (``get_op``),
+    when a layer of it is first asked for an input gradient.  The permutation
+    is read off a dense (M, K) map of each non-zero's compact slot, on the
+    device.
     """
 
     tables: KernelTables

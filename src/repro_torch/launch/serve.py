@@ -171,11 +171,13 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
     """Time ``n_steps`` decode steps of a fresh engine whose slots all hold
     a request, then profile ``n_steps`` more at the same load: host wall
     time per step, unprofiled and profiled, against the card's kernel time
-    per step (kernel durations from torch.profiler's CUDA activity)."""
+    per step (kernel durations from torch.profiler's CUDA activity,
+    ``obs.kernelstats.device_kernels``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import (chainmm_rhs, rbgp4mm_rhs,
                                      rbgp4mm_rhs_stacked)
+    from repro_torch.obs.kernelstats import device_kernels
     from repro_torch.serve import ContinuousEngine
 
     reqs = workload[:max_slots]
@@ -207,10 +209,8 @@ def profile_decode(model, workload, n_steps: int, *, page_size: int,
         wall = timed_steps()
     launches1 = launches()
     kernels: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.name] = kernels.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() * 1e-3
+    for _, ms, name in device_kernels(prof):
+        kernels[name] = kernels.get(name, 0.0) + ms
     busy = sum(kernels.values())
     stacked = sum(v for k, v in kernels.items()
                   if "rbgp4mm_rhs_stacked" in k)

@@ -32,7 +32,7 @@ from torch import nn
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels import EPILOGUE_ACTS, KernelTables, TransposeTables
+from repro_torch.kernels import EPILOGUE_ACTS, TransposeTables, get_op
 from repro_torch.sparsity import (CompactWeight, DenseWeight, MaskedWeight,
                                   QuantizedWeight, SparsityConfig,
                                   SparsityPlan, make_pattern, record_shape,
@@ -58,9 +58,10 @@ class StackedExperts(nn.Module):
     factors ``<proj>.ba_o``/``<proj>.ba_i`` (uint8 buffers, the
     reference's ``MaskedWeight`` fields), drawn with the He rule over the
     kept fan-in; dense storage holds ``<proj>`` (E, M, K), drawn with the
-    He rule over the dense fan-in.  The layouts' kernel tables are built
-    once on the module's device; the transposed ones (dX) at the first
-    gradient.
+    He rule over the dense fan-in.  The layouts' kernel tables are those
+    of their ``RBGP4Op`` (``get_op``) on the module's device, shared with
+    every layer of the same layout; the transposed ones (dX) are built at
+    the first gradient.
 
     ``quantize_()`` stores compact values as the reference's weight-only
     int8 storage in place: each projection holds ``q_data`` (E, M,
@@ -141,7 +142,7 @@ class StackedExperts(nn.Module):
             lay_in = make_pattern(sparsity, d_expert, d_model).layout
             lay_out = make_pattern(sparsity, d_model, d_expert).layout
             self.layouts = {"in": lay_in, "out": lay_out}
-            self.tables = {side: KernelTables.build(lay, device)
+            self.tables = {side: get_op(lay, device).tables
                            for side, lay in self.layouts.items()}
             self._tables_t: dict[str, TransposeTables] = {}
             for proj, lay in (("gate", lay_in), ("up", lay_in),
@@ -158,8 +159,9 @@ class StackedExperts(nn.Module):
     def _transpose_tables(self, side: str) -> TransposeTables:
         tt = self._tables_t.get(side)
         if tt is None:
-            tt = self._tables_t[side] = TransposeTables.build(
-                self.layouts[side], self.tables[side].col0.device)
+            tt = self._tables_t[side] = get_op(
+                self.layouts[side],
+                self.tables[side].col0.device).transpose_tables()
         return tt
 
     @property

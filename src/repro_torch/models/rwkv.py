@@ -50,16 +50,21 @@ def wkv_scan(r, k, v, wdec, u, s, chunk: int = SCAN_CHUNK):
     s = w_t s + k_t v_t^T.  r, k, v, wdec (B, S, H, hs) and s (B, H, hs,
     hs) in float32, u (H, hs); returns (y (B, S, H, hs), the last s).
     ``chunk`` steps' outer products are formed at once (1: every step
-    its own; the products are the same either way)."""
+    its own; the products are the same either way).  Steps are taken
+    with ``unbind``, not by indexing: under autograd an index's backward
+    writes a zero-filled gradient the size of the whole indexed tensor
+    (a chunk's outer products, the whole prompt's r and w) every step,
+    where ``unbind``'s stacks the steps' gradients once, the same
+    values."""
     u = u[None, :, :, None]
+    r_t, w_t = r.unbind(1), wdec.unbind(1)
     ys = []
     for t0 in range(0, k.shape[1], chunk):
         kv = k[:, t0:t0 + chunk, :, :, None] * v[:, t0:t0 + chunk, :, None, :]
-        ukv = u * kv
-        for t in range(kv.shape[1]):
-            ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t0 + t],
-                                   s + ukv[:, t]))
-            s = wdec[:, t0 + t, :, :, None] * s + kv[:, t]
+        for i, (kv_i, ukv_i) in enumerate(zip(kv.unbind(1),
+                                              (u * kv).unbind(1))):
+            ys.append(torch.einsum("bhk,bhkv->bhv", r_t[t0 + i], s + ukv_i))
+            s = w_t[t0 + i][..., None] * s + kv_i
     return torch.stack(ys, dim=1), s
 
 

@@ -56,15 +56,18 @@ def selective_scan(delta, a, xb, b, c, h, chunk: int = SCAN_CHUNK):
     d_state), all float32, a (d_inner, d_state); returns (y (B, S,
     d_inner), the last h).  ``chunk`` steps' decays and inputs are formed
     at once (1: every step its own; the products are the same either
-    way)."""
+    way).  Steps are taken with ``unbind``, not by indexing, whose
+    backward would write a zero-filled gradient of the whole indexed
+    tensor every step (``wkv_scan``)."""
     ys = []
+    c_t = c.unbind(1)
     for t0 in range(0, delta.shape[1], chunk):
         sl = slice(t0, t0 + chunk)
         da = torch.exp(delta[:, sl, :, None] * a)     # (B, chunk, di, ds)
         dbx = (delta[:, sl] * xb[:, sl])[..., None] * b[:, sl, None, :]
-        for t in range(da.shape[1]):
-            h = da[:, t] * h + dbx[:, t]
-            ys.append(torch.einsum("bds,bs->bd", h, c[:, t0 + t]))
+        for i, (da_i, dbx_i) in enumerate(zip(da.unbind(1), dbx.unbind(1))):
+            h = da_i * h + dbx_i
+            ys.append(torch.einsum("bds,bs->bd", h, c_t[t0 + i]))
     return torch.stack(ys, dim=1), h
 
 

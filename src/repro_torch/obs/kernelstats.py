@@ -21,6 +21,9 @@ records keyed by ``(kind, dims, n, dtype, value_dtype, platform)``:
     shape through ``kernels.perf_model``, giving the roofline efficiency
     ``model_us / measured_us`` (1.0: at the model's bound).
 
+:func:`device_kernels` reads the kernels a ``torch.profiler`` window
+recorded on the card, for the drivers' and the card check's profiles.
+
 ``model_us`` is ``kernels.autotune.model_us``: the data-sheet roofline of
 ``kernels/perf_model.py`` (``estimate_chainmm`` for chain kinds), times
 the expert count for stacked ones.
@@ -41,7 +44,8 @@ from .metrics import SCHEMA_VERSION
 
 __all__ = ["enable", "disable", "enabled", "reset",
            "records", "efficiency_table", "report",
-           "measure_op", "format_table", "KernelRecord", "MEASURE_KINDS"]
+           "measure_op", "format_table", "device_kernels", "KernelRecord",
+           "MEASURE_KINDS"]
 
 _lock = threading.Lock()
 _enabled = False
@@ -323,3 +327,18 @@ def format_table(rows: Optional[list] = None) -> list[str]:
                    f" tile={tile:<9s} model={model}us measured={meas}us "
                    f"eff={eff} ({row['source']})")
     return out
+
+
+def device_kernels(prof) -> list:
+    """The kernels a ``torch.profiler.profile`` window recorded on the
+    card, as (start ns, ms, name) in start order, read from the
+    profiler's raw records.  Its event tree (``prof.events()``) holds the
+    same kernels, but first parses every record, the CPU operators' too,
+    into Python objects: minutes for a window of hundreds of thousands of
+    launches, as an RWKV training step is."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return sorted((e.start_ns(), e.duration_ns() * 1e-6, e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda)

@@ -12,12 +12,12 @@ of more than two Ramanujan factors, or ``masked`` storage: dense values
 (unstructured, block and deep chains), which no optimizer takes.  Masked
 values are drawn Kaiming over the fan-in each row keeps, as the
 reference's; weight decay still moves their off-mask entries, as it does
-there.  The layout's kernel tables are built once on the
-layer's device (chain tables are shared by every layer of one layout).
-The tables of the transposed layout (for dX) are built once too, the
-first time a gradient of the layer's input is asked for: serving never
-builds them.  Values are kept in the compute dtype (the reference casts
-them to the activation dtype on every call; casting once at load is the
+there.  The layout's kernel tables are built once on the layer's device
+and shared by every layer of one layout (``get_op``'s ``RBGP4Op`` for
+compact storage, ``chain_tables`` for chains).  The tables of the
+transposed layout (for dX) are built the first time a gradient of the
+layer's input is asked for, shared alike: serving never builds them.
+Values are kept in the compute dtype (the reference casts them to the activation dtype on every call; casting once at load is the
 same arithmetic).  Training keeps its float32 master values apart
 (``repro_torch.train``) and writes the compute-dtype copy back here after
 each update.
@@ -42,9 +42,9 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import (ChainTransposeTables, KernelTables,
-                                 TransposeTables, chain_tables,
-                                 chain_transpose_tables)
+from repro_torch.kernels import (ChainTransposeTables, TransposeTables,
+                                 chain_tables, chain_transpose_tables,
+                                 get_op)
 
 from .api import (ChainWeight, CompactWeight, DenseWeight, MaskedWeight,
                   QuantizedWeight, sparse_linear)
@@ -111,7 +111,7 @@ class SparseLinear(nn.Module):
                 self._init_mask(device)
         else:
             self.w_data = w
-            self.tables = (KernelTables.build(self.layout, device)
+            self.tables = (get_op(self.layout, device).tables
                            if self.mode == "compact"
                            else chain_tables(self.chain_layout, device))
             self._tables_t = None
@@ -162,7 +162,7 @@ class SparseLinear(nn.Module):
         if self._tables_t is None:
             device = self.tables.col0.device
             self._tables_t = (
-                TransposeTables.build(self.layout, device)
+                get_op(self.layout, device).transpose_tables()
                 if self.mode == "compact"
                 else chain_transpose_tables(self.chain_layout, device))
         return self._tables_t

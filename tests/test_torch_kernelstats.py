@@ -184,3 +184,15 @@ def test_train_driver_stats_compression_and_plan_scope(tmp_path, capsys):
     # forward, dX (transposed) and dW each resolved
     kinds = {k.split("|")[1] for k in keys}
     assert {"rhs", "rhs.t", "sddmm"} <= kinds
+
+
+def test_device_kernels_reads_a_profiler_window():
+    """``device_kernels`` reads the raw records of a profiler window: a
+    window of CPU operators only holds records, and no kernel on the
+    card among them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(8, 8) @ torch.ones(8, 8)
+    assert prof.events()
+    assert kernelstats.device_kernels(prof) == []

@@ -102,6 +102,42 @@ def test_wkv_scan_chunks_give_every_steps_own_products(chunk):
         assert torch.equal(a, b)
 
 
+def indexed_wkv_scan(r, k, v, wdec, u, s, chunk):
+    """``wkv_scan`` with its steps taken by indexing: the loop it
+    replaced."""
+    u = u[None, :, :, None]
+    ys = []
+    for t0 in range(0, k.shape[1], chunk):
+        kv = k[:, t0:t0 + chunk, :, :, None] * v[:, t0:t0 + chunk, :, None, :]
+        ukv = u * kv
+        for t in range(kv.shape[1]):
+            ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t0 + t],
+                                   s + ukv[:, t]))
+            s = wdec[:, t0 + t, :, :, None] * s + kv[:, t]
+    return torch.stack(ys, dim=1), s
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_wkv_scan_gradients_equal_the_indexed_loops(chunk):
+    """``wkv_scan`` takes its steps with ``unbind``: outputs and every
+    input's gradient equal the indexing loop's, bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    B, S, H, hs = 2, 9, 3, 4
+    args = [torch.randn((B, S, H, hs), generator=g) for _ in range(3)]
+    args += [torch.rand((B, S, H, hs), generator=g),
+             torch.randn((H, hs), generator=g),
+             torch.randn((B, H, hs, hs), generator=g)]
+    cot = torch.randn((B, S, H, hs), generator=g)
+    runs = []
+    for scan in (wkv_scan, indexed_wkv_scan):
+        xs = [a.clone().requires_grad_() for a in args]
+        y, last = scan(*xs, chunk=chunk)
+        ((y * cot).sum() + last.sum()).backward()
+        runs.append([y, last] + [x.grad for x in xs])
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
+
+
 def test_forward_loss_and_gradients_of_two_sgd_steps_match_reference(pair):
     jm, jp, tm, _ = pair
     check_forward_and_two_sgd_steps(jm, jp, tm, arch_batch(tm.cfg, seed=2))

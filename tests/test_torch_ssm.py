@@ -107,6 +107,43 @@ def test_selective_scan_chunks_give_every_steps_own_products(chunk):
         assert torch.equal(x, y)
 
 
+def indexed_selective_scan(delta, a, xb, b, c, h, chunk):
+    """``selective_scan`` with its steps taken by indexing: the loop it
+    replaced."""
+    ys = []
+    for t0 in range(0, delta.shape[1], chunk):
+        sl = slice(t0, t0 + chunk)
+        da = torch.exp(delta[:, sl, :, None] * a)
+        dbx = (delta[:, sl] * xb[:, sl])[..., None] * b[:, sl, None, :]
+        for t in range(da.shape[1]):
+            h = da[:, t] * h + dbx[:, t]
+            ys.append(torch.einsum("bds,bs->bd", h, c[:, t0 + t]))
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_selective_scan_gradients_equal_the_indexed_loops(chunk):
+    """``selective_scan`` takes its steps with ``unbind``: outputs and
+    every input's gradient equal the indexing loop's, bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    B, S, di, ds = 2, 9, 6, 4
+    args = [softplus(torch.randn((B, S, di), generator=g)),
+            -torch.rand((di, ds), generator=g) * 4,
+            torch.randn((B, S, di), generator=g),
+            torch.randn((B, S, ds), generator=g),
+            torch.randn((B, S, ds), generator=g),
+            torch.randn((B, di, ds), generator=g)]
+    cot = torch.randn((B, S, di), generator=g)
+    runs = []
+    for scan in (selective_scan, indexed_selective_scan):
+        xs = [x.clone().requires_grad_() for x in args]
+        y, last = scan(*xs, chunk=chunk)
+        ((y * cot).sum() + last.sum()).backward()
+        runs.append([y, last] + [x.grad for x in xs])
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
+
+
 def test_forward_loss_and_gradients_of_two_sgd_steps_match_reference(pair):
     jm, jp, tm, _ = pair
     with topk_margins(tm):

@@ -253,3 +253,30 @@ def test_transposed_tables_are_built_only_for_an_input_gradient():
     tt = layer._tables_t
     layer(xg).sum().backward()
     assert layer._tables_t is tt
+
+
+def test_layers_of_one_layout_share_their_transposed_tables():
+    """Every compact layer of one layout (and a MoE layer's experts of
+    that layout) holds the tables of that layout's ``RBGP4Op``
+    (``get_op``), forward and transposed: the transposed permutation is 4
+    bytes a compact value, which a table a layer would hold again for
+    each layer.  A layer of another layout gets its own."""
+    from repro_torch.kernels import get_op
+    from repro_torch.models.moe import StackedExperts
+
+    sp = SparsityConfig(pattern="rbgp4", sparsity=0.75, min_dim=64)
+    a, b = (SparseLinear(64, 128, sp, device="cpu") for _ in range(2))
+    other = SparseLinear(128, 64, sp, device="cpu")
+    experts = StackedExperts(2, 64, 128, sp, device="cpu")
+    assert a.layout is b.layout is experts.layouts["in"]
+    op = get_op(a.layout, "cpu")
+    assert a.tables is b.tables is experts.tables["in"] is op.tables
+    tt = a.transpose_tables()
+    assert b.transpose_tables() is tt is op.transpose_tables()
+    assert experts._transpose_tables("in") is tt
+    assert other.tables is not a.tables
+    assert other.transpose_tables() is not tt
+    # the shared table is the one each layer would build on its own
+    own = TransposeTables.build(a.layout, "cpu")
+    assert torch.equal(tt.perm, own.perm)
+    assert torch.equal(tt.tables.col0, own.tables.col0)
