@@ -6540,6 +6540,302 @@ def arch_phases(smi: str) -> tuple[dict, dict, dict]:
     return parity, serve, train
 
 
+# -- phases 52-53: distribution ------------------------------------------------
+
+# tensor-parallel sizes phase 52 cuts the layouts for, and the rows of its
+# bf16 launches (decode, and the widest serve prompt's prefill)
+SHARD_MODELS = (2, 4)
+SHARD_ROWS = (8, 512)
+# phase 53: 8 requests at SERVE_PROMPT_LENS, 32 new tokens each
+SHARD_REQUESTS, SHARD_GEN = 8, 32
+
+
+def shard_cases() -> list:
+    """(name, layout, kind) of every share phase 52 holds: tinyllama's
+    column-parallel rows (wq, wk/wv, gate/up; qwen2-moe's wq, wk, wv and
+    shared gate/up are the same layouts) and row-parallel slots (wo,
+    down; qwen2-moe's wo and shared down), and qwen2-moe's 60 experts a
+    side cut by expert."""
+    tiny, moe = full_width_layouts(), moe_layouts()
+    return [("wq/wo rows", tiny["wq/wo"], "rows"),
+            ("wk/wv rows", tiny["wk/wv"], "rows"),
+            ("gate/up rows", tiny["gate/up"], "rows"),
+            ("wq/wo slots", tiny["wq/wo"], "slots"),
+            ("down slots", tiny["down"], "slots"),
+            ("experts in", moe["gate/up"], "experts"),
+            ("experts out", moe["down"], "experts")]
+
+
+def phase_check_shard() -> dict:
+    """Phase 52: every rank's share of the full-width layouts at model = 2
+    and 4 (``KernelTables.rank_slice``: rows, slots; experts by expert),
+    launched in bf16 at ``SHARD_ROWS`` rows (an expert), in float32 and in
+    int8 (bf16 X) at 8, each held against its plain version on the same
+    share, each launch moving ``launches`` (``launches_q``) by one and
+    ``launches_mma`` as ``rhs_path`` names; the row shares' outputs, and
+    the rank-ordered sum of the slot shares' partials, against the
+    unsharded launch on the same X, within bf16's tolerance of max|ref|.
+    Times each share at model = 2 (bf16) beside the whole layout.
+    Returns the max abs diffs by launch role, and the times."""
+    from repro_torch.kernels import (KernelTables, rbgp4mm_rhs,
+                                     rbgp4mm_rhs_reference,
+                                     rbgp4mm_rhs_stacked,
+                                     rbgp4mm_rhs_stacked_reference, rhs_path)
+    from repro_torch.sparsity.quant import (leaf_block_dims,
+                                            quantize_block_values)
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(52)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    bf16 = torch.bfloat16
+    max_abs = {"forward": 0.0, "stacked_forward": 0.0, "forward_q": 0.0,
+               "stacked_forward_q": 0.0}
+    times, n_launch = {}, 0
+
+    def held(role, what, fn, plain, dims, n, dt, counter, attr):
+        nonlocal n_launch
+        mma0 = counter.launches_mma
+        y = launched(counter, fn, attr)
+        want = int(attr == "launches" and rhs_path(dims, n, dt) == "mma")
+        if counter.launches_mma - mma0 != want:
+            raise AssertionError(f"{what}: launches_mma moved by "
+                                 f"{counter.launches_mma - mma0}, want "
+                                 f"{want}")
+        err, _ = agree(what, y, plain(), dt)
+        max_abs[role] = max(max_abs[role], err)
+        n_launch += 1
+
+    for name, lay, kind in shard_cases():
+        tables = KernelTables.build(lay, "cuda")
+        experts = kind == "experts"
+        e = MOE_EXPERTS if experts else 1
+        w32 = rnd(e, lay.m, tables.dims.data_cols)
+        q, sc = quantize_block_values(w32, *leaf_block_dims(tables))
+        if experts:
+            role, fn, ref = ("stacked_forward", rbgp4mm_rhs_stacked,
+                             rbgp4mm_rhs_stacked_reference)
+        else:
+            role, fn, ref = "forward", rbgp4mm_rhs, rbgp4mm_rhs_reference
+        for n_model in SHARD_MODELS:
+            for r in range(n_model):
+                if experts:
+                    lo, hi = r * e // n_model, (r + 1) * e // n_model
+                    tab, lead = tables, (hi - lo,)
+                    vals = lambda t: t[lo:hi].contiguous()
+                    scales = vals
+                else:
+                    share = tables.rank_slice(kind, r, n_model)
+                    if share is None:
+                        raise AssertionError(f"{name}: no share at model="
+                                             f"{n_model}")
+                    tab, lead = share.tables, ()
+                    vals = lambda t: share.values(t[0])
+                    scales = lambda t: share.scales(t[0])
+                for dt, rows in ((bf16, SHARD_ROWS), (torch.float32, (8,))):
+                    w = vals(w32.to(dt))
+                    for n in rows:
+                        x = rnd(*lead, n, lay.k).to(dt)
+                        held(role, f"{name} model={n_model} rank {r} N={n}",
+                             lambda: fn(tab, x, w), lambda: ref(tab, x, w),
+                             tab.dims, n, dt, fn, "launches")
+                        if dt == bf16 and n_model == 2 and r == 0:
+                            times[(name, n)] = (
+                                time_cuda(lambda i: fn(tab, x, w)),
+                                None if experts else time_cuda(
+                                    lambda i: fn(tables, x, w32[0].to(dt))))
+                x = rnd(*lead, 8, lay.k).to(bf16)
+                qs, ss = vals(q), scales(sc)
+                held(role + "_q", f"{name} int8 model={n_model} rank {r}",
+                     lambda: fn(tab, x, qs, scales=ss),
+                     lambda: ref(tab, x, qs, scales=ss), tab.dims, 8, bf16,
+                     fn, "launches_q")
+            if experts:
+                continue
+            # the ranks' shares against the unsharded launch on one X
+            for n in SHARD_ROWS:
+                x = rnd(n, lay.k).to(bf16)
+                want = fn(tables, x, w32[0].to(bf16))
+                shares = [tables.rank_slice(kind, r, n_model)
+                          for r in range(n_model)]
+                outs = [fn(s.tables, x, s.values(w32[0].to(bf16)))
+                        for s in shares]
+                if kind == "rows":
+                    got = torch.cat(outs, dim=-1)
+                else:
+                    got = outs[0].float()
+                    for p in outs[1:]:
+                        got = got + p.float()
+                agree(f"{name} model={n_model} N={n}: the ranks against "
+                      f"the unsharded launch", got, want, bf16)
+        log("check-shard", f"{name}: every share at model 2 and 4 held "
+                           f"(bf16 at {SHARD_ROWS} rows, f32 and int8 at 8)"
+            + "".join(f"; N={n} share {a:.4f} ms"
+                      + (f" (whole {b:.4f} ms)" if b is not None else "")
+                      for (nm, n), (a, b) in times.items() if nm == name))
+        del w32, q, sc
+    log("check-shard", f"{n_launch} launches held against their plain "
+                       f"versions; max abs diff {max_abs}; "
+                       f"{time.perf_counter() - t0:.1f}s")
+    return {"max_abs": max_abs, "times": times}
+
+
+def phase_serve_sharded(smi: str) -> list:
+    """Phase 53: an NCCL process group of world size 1
+    (``make_serve_mesh(1, 1, 1)``); full-width tinyllama-1.1b and
+    qwen2-moe-a2.7b (bf16 weights, f32 KV cache, 8 slots, 16-token pages,
+    greedy) each serve ``SHARD_REQUESTS`` requests of ``SHARD_GEN`` new
+    tokens through ``ContinuousEngine``, then ``ShardedContinuousEngine``
+    (the model sharded in place over the mesh) and
+    ``DisaggregatedEngine`` (both roles on the one rank).  The sharded
+    engines' streams must equal the continuous engine's token for token,
+    every prefill call and decode step launch each compact and stacked
+    projection once, the collective counters move and the disaggregated
+    engine hand off once a request.  Returns the runs (launch counts
+    from 0 just before each drive, read just after)."""
+    import torch.distributed as dist
+
+    from repro_torch.data import RequestStream
+    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+    from repro_torch.parallel import COLLECTIVES, reset_collectives
+    from repro_torch.serve import ContinuousEngine
+    from repro_torch.serve.distributed import (DisaggregatedEngine,
+                                               ShardedContinuousEngine)
+
+    t_phase = time.perf_counter()
+    init_distributed("cuda")
+    decode_mesh, prefill_mesh = make_serve_mesh(1, 1, 1), \
+        make_serve_mesh(1, 1, 1)
+    runs = []
+    for cfg in (main_config("bfloat16"), moe_config("bfloat16")):
+        free_card()
+        t0 = time.perf_counter()
+        model = build_model(cfg, False)
+        per_pass = sparse_per_pass(model)
+        reqs = RequestStream(cfg.vocab_size, SHARD_REQUESTS,
+                             prompt_lens=SERVE_PROMPT_LENS,
+                             gen_lens=(SHARD_GEN,), seed=0).requests()
+        max_len = max(r["prompt"].shape[0] + r["max_new_tokens"]
+                      for r in reqs)
+        kw = dict(page_size=16, max_slots=8, max_request_len=max_len,
+                  cache_dtype=torch.float32)
+        log("serve-sharded", f"{cfg.name}: built in "
+                             f"{time.perf_counter() - t0:.1f}s")
+        make = {"continuous": lambda: ContinuousEngine(model, **kw),
+                "sharded": lambda: ShardedContinuousEngine(
+                    model, decode_mesh, **kw),
+                "disagg": lambda: DisaggregatedEngine(
+                    model, decode_mesh, prefill_mesh, **kw)}
+        got = {}
+        for kind, build in make.items():
+            # warm-up (cuBLAS handles, the allocator, each NCCL
+            # communicator's set-up at its first collective), not counted
+            warm = build()
+            warm.submit(reqs[0]["prompt"][:32], 2)
+            warm.drain()
+            del warm
+            engine = build()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_collectives()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for r in reqs:
+                engine.submit(r["prompt"], r["max_new_tokens"])
+            got[kind] = engine.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, mma = launch_counts(), body_counts()
+            coll = dict(COLLECTIVES)
+            st = engine.stats
+            passes = st["prefill_calls"] + st["decode_steps"]
+            if counts != {k: v * passes for k, v in per_pass.items()}:
+                raise AssertionError(f"{kind}: launches {counts} for "
+                                     f"{passes} passes, want {per_pass} "
+                                     f"each")
+            for r in reqs:
+                toks = np.asarray(got[kind][r["rid"]])
+                if toks.shape != (SHARD_GEN,) or toks.min() < 0 \
+                        or toks.max() >= cfg.vocab_size:
+                    raise AssertionError(f"{kind} request {r['rid']}: "
+                                         f"tokens {toks}")
+                if kind != "continuous" and not np.array_equal(
+                        toks, got["continuous"][r["rid"]]):
+                    raise AssertionError(
+                        f"{cfg.name} {kind} request {r['rid']}: stream "
+                        f"{toks.tolist()} != the continuous engine's "
+                        f"{np.asarray(got['continuous'][r['rid']]).tolist()}")
+            if kind != "continuous" and coll["all_gather"] == 0:
+                raise AssertionError(f"{kind}: no collective ran: {coll}")
+            handoffs = st.get("handoffs")
+            if kind == "disagg" and handoffs != len(reqs):
+                raise AssertionError(f"{handoffs} handoffs, want "
+                                     f"{len(reqs)}")
+            run = dict(arch=cfg.name, engine=kind, launches=counts,
+                       mma_launches=mma, collectives=coll, wall_s=wall,
+                       prefill_calls=st["prefill_calls"],
+                       decode_steps=st["decode_steps"],
+                       prefill_time_s=st["prefill_time_s"],
+                       decode_ms_per_step=1e3 * st["decode_time_s"]
+                       / max(st["decode_steps"], 1),
+                       handoffs=handoffs,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            runs.append(run)
+            log("serve-sharded",
+                f"{cfg.name} {kind}: {len(reqs)} requests in {wall:.3f}s; "
+                f"decode {st['decode_steps']} steps at "
+                f"{run['decode_ms_per_step']:.2f} ms/step; prefill "
+                f"{st['prefill_calls']} calls in "
+                f"{st['prefill_time_s']:.3f}s; collectives {coll}; "
+                f"handoffs {handoffs}; peak {run['peak_mem_gb']:.2f} GB; "
+                f"{smi}")
+            print("serve-sharded " + json.dumps(run), flush=True)
+            del engine
+        log("serve-sharded", f"{cfg.name}: the sharded and disaggregated "
+                             f"streams equal the continuous engine's, "
+                             f"token for token")
+        runs[-1]["collective_us"] = time_collectives(decode_mesh, cfg)
+        log("serve-sharded", f"{cfg.name}: one collective at world size 1, "
+                             f"host wall a call: {runs[-1]['collective_us']}")
+        del model, make
+        free_card()
+    dist.destroy_process_group()
+    log("serve-sharded", f"phase 53 in {time.perf_counter() - t_phase:.1f}s")
+    return runs
+
+
+def time_collectives(mesh, cfg, n_iter: int = 200) -> dict:
+    """Host microseconds a call (fenced once after ``n_iter`` calls) of
+    each collective a decode step issues, at its decode shape (8 rows,
+    bf16): ``gather_sum`` of a row-parallel output (8, d_model),
+    ``gather_cat`` of its input (8, d_model) and a ``broadcast`` of the
+    logits (8, vocab)."""
+    from repro_torch.parallel import MeshAxis, broadcast, gather_cat, \
+        gather_sum
+
+    axis = MeshAxis.of(mesh, "model")
+    x = torch.randn(8, cfg.d_model, device="cuda").to(torch.bfloat16)
+    logits = torch.randn(8, cfg.vocab_size, device="cuda").to(
+        torch.bfloat16)
+    calls = {"gather_sum": lambda: gather_sum(x, axis),
+             "gather_cat": lambda: gather_cat(x, axis),
+             "broadcast": lambda: broadcast(logits, 0)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = 1e6 * (time.perf_counter() - t0) / n_iter
+    return out
+
+
+def shard_phases(smi: str) -> tuple[dict, list]:
+    """Phases 52-53 (``--shard-only`` runs phases 1 and 52-53 alone)."""
+    return phase_check_shard(), phase_serve_sharded(smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -6547,6 +6843,12 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     smi = phase_build()
+    if "--shard-only" in sys.argv[1:]:
+        # the quick check of the distribution: phases 52-53
+        shard_phases(smi)
+        log("done", f"phases 1 and 52-53 passed in "
+                    f"{time.perf_counter() - t_start:.1f}s on {smi}")
+        return 0
     if "--archs-only" in sys.argv[1:]:
         # the quick check of the other language models: phases 48-51
         arch_phases(smi)
@@ -6731,6 +7033,13 @@ def main() -> int:
     t_arch = time.perf_counter()
     _, serve_archs, train_archs = arch_phases(smi)
     t_arch = time.perf_counter() - t_arch
+
+    # distribution: every rank's share of the layouts at model = 2 and 4
+    # against the plain versions; the sharded and disaggregated engines at
+    # world size 1 (NCCL) against the continuous engine
+    t_shard = time.perf_counter()
+    shard_check, shard_runs = shard_phases(smi)
+    t_shard = time.perf_counter() - t_shard
     # phase 50's checks of each training layout against its plain version
     max_abs_archs = {role: max(r["layout_checks"]["max_abs"][role]
                                for r in train_archs.values())
@@ -6797,7 +7106,7 @@ def main() -> int:
                  chunked_chain, pressure, prefix["on"], prefix["off"],
                  static, obs) + tuple(vision.values()) \
         + tuple(train_plan.values()) + tuple(serve_archs.values()) \
-        + tuple(train_archs.values())
+        + tuple(train_archs.values()) + tuple(shard_runs)
     train_runs = (train, train_moe, *train_archs.values())
     vision_launches = lambda role: sum(r["launches"][role]
                                        for r in vision.values())
@@ -6808,7 +7117,8 @@ def main() -> int:
              launches=total("forward"),
              max_abs_err=max(max_abs, max_abs_train["forward"],
                              max_abs_plan["forward"],
-                             max_abs_archs["forward"]),
+                             max_abs_archs["forward"],
+                             shard_check["max_abs"]["forward"]),
              **fwd,
              work="forward (serve, and train with its remat recompute; "
                   "tinyllama and qwen2-moe attention and shared expert); "
@@ -6855,7 +7165,9 @@ def main() -> int:
              launches=total("stacked_forward"),
              max_abs_err=max(max_abs_moe["forward"],
                              max_abs_plan["stacked_forward"],
-                             max_abs_archs["stacked_forward"]), **s_fwd,
+                             max_abs_archs["stacked_forward"],
+                             shard_check["max_abs"]["stacked_forward"]),
+             **s_fwd,
              work="forward of qwen2-moe's routed experts (serve at full "
                   "capacity, and train with its remat recompute); timed: "
                   "one MoE layer's gate, up and down, 60 experts, 8 rows "
@@ -6991,7 +7303,9 @@ def main() -> int:
         dict(name="rbgp4mm_rhs (int8 scales=)", route="cuda",
              source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:500",
-             launches=total("forward_q"), max_abs_err=max_abs_q["rbgp4"],
+             launches=total("forward_q"),
+             max_abs_err=max(max_abs_q["rbgp4"],
+                             shard_check["max_abs"]["forward_q"]),
              **q_fwd,
              work="forward of weight-only int8 projections (serve "
                   "tinyllama and qwen2-moe attention and shared expert "
@@ -7002,7 +7316,9 @@ def main() -> int:
              source=src + "rbgp4mm_rhs.cu",
              replaces="src/repro/kernels/rbgp4mm.py:773",
              launches=total("stacked_forward_q"),
-             max_abs_err=max_abs_q["stacked"], **q_s_fwd,
+             max_abs_err=max(max_abs_q["stacked"],
+                             shard_check["max_abs"]["stacked_forward_q"]),
+             **q_s_fwd,
              work="forward of qwen2-moe's int8 routed experts (serve at "
                   "full capacity under --quant int8); timed: one MoE "
                   "layer's gate, up and down, 60 experts, 8 rows an "
@@ -7059,7 +7375,8 @@ def main() -> int:
                 f"{t_vis:.1f}s, the plan phases {t_plan:.1f}s, the serving "
                 f"phases 38-44 {t_serve:.1f}s, the autotuner phases 45-47 "
                 f"{t_tune:.1f}s, the other archs' phases 48-51 "
-                f"{t_arch:.1f}s")
+                f"{t_arch:.1f}s, the distribution phases 52-53 "
+                f"{t_shard:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

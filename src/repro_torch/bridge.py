@@ -28,7 +28,9 @@ first), as ``<path>.q_data`` (int8, kept int8) and ``<path>.scales``
 misshapen weight raises, as does int8 for a full-precision tensor or the
 other way round.  Values are cast to the dtype each port tensor stores
 (the compute dtype for projections, embedding and head; float32 for the
-router, the norm scales and the int8 storage's scales).
+router, the norm scales and the int8 storage's scales).  A model that
+``parallel.shard_module`` sharded loads each rank's share of every tensor
+from the full tree.
 
 A ``MaskedWeight`` comes as ``{"w", "ba_o", "ba_i", "mask", "b"}`` (absent
 fields ``None``): ``w`` and ``b`` are loaded, and the mask's leaves
@@ -120,8 +122,15 @@ def load_jax_vision_params(model, tree: dict) -> None:
 
 def _load_flat(model, flat: dict) -> None:
     """Load {state_dict name: array} into ``model``: names and shapes must
-    match; a mask leaf must equal the port's own and is not loaded."""
+    match; a mask leaf must equal the port's own and is not loaded.  On a
+    model ``parallel.shard_module`` sharded, each array is first cut to
+    the rank's share (``model.rank_slices``), and the shape is checked
+    against the share."""
     target = model.state_dict()
+    cuts = getattr(model, "rank_slices", None) or {}
+    for name, (dim, index) in cuts.items():
+        if name in flat:
+            flat[name] = np.take(flat[name], index, axis=dim)
     missing = sorted(set(target) - set(flat))
     unexpected = sorted(set(flat) - set(target))
     if missing or unexpected:

@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -69,10 +70,12 @@ import torch.nn.functional as F
 
 from . import autotune, build
 from .ref import (dequant_leaf_blocks, gather_mm, gather_mm_rhs,
-                  gather_mm_rhs_stacked, gather_sddmm, gather_sddmm_rhs,
+                  gather_mm_rhs_col0, gather_mm_rhs_stacked, gather_sddmm,
+                  gather_sddmm_rhs,
                   gather_sddmm_rhs_stacked)
 
 __all__ = ["KernelDims", "KernelTables", "RowGroupClasses", "TransposeTables",
+           "RankSlice",
            "EPILOGUE_ACTS",
            "rbgp4mm", "rbgp4mm_reference", "rbgp4_sddmm",
            "rbgp4_sddmm_reference", "rbgp4mm_rhs", "rbgp4mm_rhs_reference", "rbgp4_sddmm_rhs",
@@ -176,7 +179,9 @@ class KernelTables:
     ``s = kk*d_i + ki`` read input columns ``col0[rg, s] + c`` for
     ``c < C``, with ``col0[rg, s] = adj_o[o, kk]*TK + adj_i[u, ki]*C``.
     ``adj_o`` (n_o_l, d_o) and ``adj_i`` (u_i, d_i) int64 are the plain
-    version's gather indices.  ``transposed`` marks the tables of a
+    version's gather indices; a rank's slice (``rank_slice``) has none,
+    and its plain version reads ``col0`` (``gather_mm_rhs_col0``).
+    ``transposed`` marks the tables of a
     transposed layout (dX), whose launches count apart.  ``classes`` are
     ``col0``'s row-group classes, which ``rbgp4mm``'s tensor-core body
     walks (on a transposed layout whole tile-columns of row groups read
@@ -185,8 +190,8 @@ class KernelTables:
 
     dims: KernelDims
     col0: torch.Tensor
-    adj_o: torch.Tensor
-    adj_i: torch.Tensor
+    adj_o: Optional[torch.Tensor]
+    adj_i: Optional[torch.Tensor]
     classes: RowGroupClasses
     transposed: bool = False
 
@@ -207,6 +212,96 @@ class KernelTables:
                    on_device(adj_o, torch.int64),
                    on_device(adj_i, torch.int64),
                    RowGroupClasses.build(col0, device), transposed)
+
+
+    def rank_slice(self, kind: str, rank: int, n: int
+                   ) -> Optional["RankSlice"]:
+        """Rank ``rank`` of ``n``'s share of this layout under tensor
+        parallelism, or None where ``n`` does not divide the dim.
+
+        ``kind="rows"`` (column-parallel: W's output rows over the ranks)
+        keeps rows [rank*M/n, (rank+1)*M/n); ``kind="slots"`` (row-parallel:
+        the compact columns over the ranks) keeps compact columns
+        [rank*S*C/n, ...), whose product is a partial Y from the whole X.
+        A share's row groups are G' = gcd(G, M/n) rows (a part of a row
+        group reads that group's ``col0`` row) and its slots C' = gcd(C,
+        S*C/n) columns (a part of a slot reads from an offset into its
+        chunk), so every share is whole sub-groups and sub-slots, and runs
+        the unchanged kernels: they read only ``col0``, G, C and the
+        sizes.  Each sub-group or sub-slot keeps its leaf block's int8
+        scale."""
+        dims = self.dims
+        G, C = dims.group_rows, dims.chunk_cols
+        col0 = self.col0.cpu().numpy().astype(np.int64)
+        if kind == "rows":
+            if dims.m % n:
+                return None
+            width = dims.m // n
+            G2 = math.gcd(G, width)
+            sub = np.arange(rank * width // G2, (rank + 1) * width // G2)
+            parent = sub // (G // G2)
+            c0 = col0[parent]
+            tile_m = min(dims.tile_m, width)
+            dims2 = dataclasses.replace(dims, m=width, group_rows=G2,
+                                        tile_m=tile_m,
+                                        u_i=max(tile_m // G2, 1))
+        elif kind == "slots":
+            total = dims.data_cols
+            if total % n:
+                return None
+            width = total // n
+            C2 = math.gcd(C, width)
+            sub = np.arange(rank * width // C2, (rank + 1) * width // C2)
+            parent = sub // (C // C2)
+            c0 = col0[:, parent] + (sub % (C // C2)) * C2
+            n_slots = len(sub)
+            d_o, d_i = ((n_slots // dims.d_i, dims.d_i)
+                        if n_slots % dims.d_i == 0 else (1, n_slots))
+            dims2 = dataclasses.replace(dims, d_o=d_o, d_i=d_i,
+                                        chunk_cols=C2)
+        else:
+            raise ValueError(f"kind {kind!r} is neither 'rows' nor 'slots'")
+        device = self.col0.device
+        c0 = np.ascontiguousarray(c0)
+        tables = KernelTables(
+            dims2, torch.as_tensor(c0, dtype=torch.int32, device=device),
+            None, None, RowGroupClasses.build(c0, device), self.transposed)
+        return RankSlice(kind, rank * width, (rank + 1) * width,
+                         tuple(int(i) for i in parent), tables)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RankSlice:
+    """A rank's share of a compact layout (``KernelTables.rank_slice``):
+    ``kind`` ('rows' or 'slots'), the rows or compact columns [lo, hi) it
+    keeps, ``scale_index``, the leaf block (row group or slot) of the
+    full layout each of its sub-groups or sub-slots lies in, and the
+    share's kernel tables.  ``values`` and ``scales`` cut a full tensor (a
+    leading expert dim allowed) to the share."""
+
+    kind: str
+    lo: int
+    hi: int
+    scale_index: tuple[int, ...]
+    tables: KernelTables
+
+    @property
+    def scale_dim(self) -> int:
+        return -2 if self.kind == "rows" else -1
+
+    def values(self, w: torch.Tensor) -> torch.Tensor:
+        """(..., M, S*C) compact values (or int8 leaf blocks) -> the
+        share's, contiguous."""
+        if self.kind == "rows":
+            return w[..., self.lo:self.hi, :].contiguous()
+        return w[..., self.lo:self.hi].contiguous()
+
+    def scales(self, s: torch.Tensor) -> torch.Tensor:
+        """(..., M/G, S) leaf-block scales -> the share's (..., M'/G',
+        S'): each sub-group or sub-slot keeps its block's scale."""
+        idx = torch.as_tensor(self.scale_index, dtype=torch.long,
+                              device=s.device)
+        return s.index_select(s.ndim + self.scale_dim, idx).contiguous()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -299,6 +394,19 @@ def _values_f32(dims, w_data, scales):
                                dims.chunk_cols)
 
 
+def _plain_rhs(tables: KernelTables, w: torch.Tensor, x: torch.Tensor,
+               stacked: bool = False) -> torch.Tensor:
+    """The forward's gather + einsum: through the factor adjacencies, or
+    through ``col0`` on a rank's slice (which has none)."""
+    dims = tables.dims
+    if tables.adj_o is None:
+        return gather_mm_rhs_col0(tables.col0, dims.group_rows,
+                                  dims.chunk_cols, w, x)
+    run = gather_mm_rhs_stacked if stacked else gather_mm_rhs
+    return run(tables.adj_o, tables.adj_i, dims.n_col_tiles,
+               dims.group_rows, dims.chunk_cols, w, x)
+
+
 def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
                           w_data: torch.Tensor, *,
                           scales: Optional[torch.Tensor] = None,
@@ -315,9 +423,7 @@ def rbgp4mm_rhs_reference(tables: KernelTables, x: torch.Tensor,
     if scales is not None:
         _check_scales(dims, w_data, scales, bias=bias, act=act,
                       residual=residual, save_preact=save_preact)
-    z = gather_mm_rhs(tables.adj_o, tables.adj_i, dims.n_col_tiles,
-                      dims.group_rows, dims.chunk_cols,
-                      _values_f32(dims, w_data, scales), _wide(x))
+    z = _plain_rhs(tables, _values_f32(dims, w_data, scales), _wide(x))
     if bias is not None:
         z = z + _wide(bias)
     y = EPILOGUE_ACTS[act](z) if act is not None else z
@@ -1092,10 +1198,8 @@ def rbgp4mm_rhs_stacked_reference(tables: KernelTables, x: torch.Tensor,
     if scales is not None:
         _check_scales(dims, w_data, scales, (x.shape[0],), bias=bias,
                       act=act, save_preact=save_preact)
-    z = gather_mm_rhs_stacked(tables.adj_o, tables.adj_i, dims.n_col_tiles,
-                              dims.group_rows, dims.chunk_cols,
-                              _values_f32(dims, w_data, scales).float(),
-                              x.float())
+    z = _plain_rhs(tables, _values_f32(dims, w_data, scales).float(),
+                   x.float(), stacked=True)
     if bias is not None:
         z = z + bias.float()[:, None, :]
     y = EPILOGUE_ACTS[act](z) if act is not None else z

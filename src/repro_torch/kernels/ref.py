@@ -11,7 +11,8 @@ import torch
 
 __all__ = ["unpack_dense", "pack_compact", "gather_mm_rhs",
            "gather_sddmm_rhs", "gather_mm_rhs_stacked",
-           "gather_sddmm_rhs_stacked", "compact_gather_mm_rhs", "gather_mm",
+           "gather_sddmm_rhs_stacked", "compact_gather_mm_rhs",
+           "gather_mm_rhs_col0", "gather_mm",
            "gather_sddmm", "compact_gather_mm", "ref_rbgp4mm",
            "ref_rbgp4_sddmm", "ref_masked_mm", "dequant_leaf_blocks"]
 
@@ -76,6 +77,25 @@ def gather_mm_rhs(adj_o, adj_i, n_o_r: int, group_rows: int,
     w = w_data.reshape(n_o_l, u_i, group_rows, d_o, d_i, C)
     out = torch.einsum("nokuic,ougkic->noug", xg, w)
     return out.reshape(n, n_o_l * u_i * group_rows)
+
+
+def gather_mm_rhs_col0(col0: torch.Tensor, group_rows: int,
+                       chunk_cols: int, w_data: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """Y (..., N, M) = X (..., N, K) @ W_s^T read through a ``col0`` table
+    alone, as the kernels read it: row ``rg*G + g`` contracts compact slot
+    ``s*C + c`` against input column ``col0[rg, s] + c``.  It takes a
+    rank's slice of a layout's tables (``KernelTables.rank_slice``), whose
+    rows or slots need not form an RBGP4 layout of their own; a leading
+    dim of ``w_data`` and ``x`` stacks experts of one table."""
+    c = torch.arange(chunk_cols, dtype=torch.int64, device=x.device)
+    cols = (col0.to(device=x.device, dtype=torch.int64)[..., None]
+            + c).reshape(col0.shape[0], -1)               # (M/G, S*C)
+    xg = x[..., cols]                                     # (..., N, M/G, S*C)
+    w = w_data.reshape(*w_data.shape[:-2], col0.shape[0], group_rows,
+                       cols.shape[1])
+    out = torch.einsum("...nrs,...rgs->...nrg", xg, w)
+    return out.reshape(*out.shape[:-2], -1)
 
 
 def gather_sddmm_rhs(adj_o, adj_i, n_o_r: int, group_rows: int,

@@ -8,7 +8,13 @@ requests carry ``n_codebooks`` ids a step).  ``--engine continuous``
 (default) is continuous batching over a paged KV cache; ``--engine
 static`` the fixed-batch baseline, the only one a recurrent architecture
 (rwkv6-7b, jamba-1.5-large-398b) runs: with ``--engine continuous`` it
-exits with the reference's message.  ``--prefill-chunk N``
+exits with the reference's message.  ``--engine sharded`` serves over a
+``--mesh dp,tp[,ep]`` of ranks (TP and EP share the "model" axis), and
+``--engine disagg`` splits the ranks into two such meshes, the first half
+the prefill role, the second the decode role; start them with
+``torchrun`` (``python -m torch.distributed.run --nproc-per-node N``) on
+the card (NCCL), or with ``--device cpu`` under gloo.  Rank 0 prints and
+writes the outputs; every rank serves.  ``--prefill-chunk N``
 feeds prompts in N-token chunks, one per step.  ``--arrival-rate`` submits
 each request when its arrival step comes.  The robustness flags are the
 reference's: ``--reserve prompt`` (oversubscribe the pool; preempt under
@@ -51,10 +57,14 @@ Examples:
       --engine static
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --reduced --device cpu --engine static
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --reduced --device cpu --engine sharded \
+      --mesh 2,2
 """
 from __future__ import annotations
 
 import argparse
+import builtins
 import json
 import time
 
@@ -69,10 +79,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--engine", default="continuous",
-                    choices=["static", "continuous"],
-                    help="continuous batching with a paged KV cache, or "
-                         "the fixed-batch baseline (equal-prompt groups, "
-                         "lockstep decode)")
+                    choices=["static", "continuous", "sharded", "disagg"],
+                    help="continuous batching with a paged KV cache, the "
+                         "fixed-batch baseline (equal-prompt groups, "
+                         "lockstep decode), mesh-sharded continuous "
+                         "(--mesh), or prefill/decode disaggregation "
+                         "(--mesh, the ranks split between the two roles)")
+    ap.add_argument("--mesh", default="",
+                    help="dp,tp[,ep] serving mesh dims (sharded/disagg "
+                         "engines), e.g. '1,2' or '1,2,2'.  TP and EP "
+                         "share the 'model' axis.  For --engine disagg "
+                         "the ranks are split in half: first half prefill "
+                         "role, second half decode role, each a dp x tp x "
+                         "ep mesh")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill: feed admitted prompts in chunks "
                          "of this many tokens, at most one chunk per step "
@@ -255,10 +274,21 @@ def main(argv=None):
     from repro_torch.kernels import autotune
     from repro_torch.obs import kernelstats
 
+    print = builtins.print
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"error: {e}") from None
+    rank = 0
+    if args.engine in ("sharded", "disagg"):
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import init_distributed
+
+        device = init_distributed(device)
+        rank = dist.get_rank()
+        if rank:
+            print = lambda *a, **k: None  # noqa: E731  rank 0 prints
     if args.autotune_cache:
         autotune.set_cache_path(args.autotune_cache)
     if args.kernel_stats:
@@ -328,19 +358,24 @@ def main(argv=None):
         engine = make_engine("static", model, batch=args.batch,
                              recorder=recorder)
     else:
+        eng_kw = dict(
+            page_size=args.page_size, max_slots=args.batch,
+            max_live_tokens=args.max_live_tokens, max_request_len=max_len,
+            prefill_chunk=args.prefill_chunk,
+            plan=cfg.plan,  # plan-aware admission (None: uniform budget)
+            reserve=args.reserve, max_retries=args.max_retries,
+            max_idle_steps=args.max_idle_steps, faults=faults,
+            recorder=recorder)
         try:
-            engine = make_engine(
-                "continuous", model, page_size=args.page_size,
-                max_slots=args.batch, max_live_tokens=args.max_live_tokens,
-                max_request_len=max_len, prefill_chunk=args.prefill_chunk,
-                plan=cfg.plan,  # plan-aware admission (None: uniform budget)
-                reserve=args.reserve, max_retries=args.max_retries,
-                max_idle_steps=args.max_idle_steps, faults=faults,
-                recorder=recorder,
-            )
+            if args.engine == "continuous":
+                engine = make_engine("continuous", model, **eng_kw)
+            else:
+                engine = make_engine(args.engine, model,
+                                     **mesh_kw(args, print), **eng_kw)
         except NotImplementedError as e:
             # a recurrent layer (mamba, rwkv) has no paged cache: the
-            # reference's message, and no fallback to the static engine
+            # reference's message, and no fallback to the static engine;
+            # so for what the sharded engines do not serve yet
             raise SystemExit(f"error: {e}") from None
         if args.max_live_tokens and cfg.plan is not None:
             print(f"plan-aware admission: max_live_tokens "
@@ -446,7 +481,7 @@ def main(argv=None):
                   f"{prof['chainmm_rhs_launches_per_step']:.0f}")
             for name, ms in prof["top_kernels_ms_per_step"].items():
                 print(f"  {ms:8.3f} ms/step  {name[:100]}")
-    if args.json:
+    if args.json and rank == 0:
         states: dict = {}
         for req in engine.requests.values():
             states[req.state] = states.get(req.state, 0) + 1
@@ -474,11 +509,11 @@ def main(argv=None):
         with open(args.json, "w") as f:
             json.dump(payload, f, indent=2)
         print(f"wrote {args.json}")
-    if args.trace:
+    if args.trace and rank == 0:
         recorder.trace.save(args.trace)
         print(f"wrote {args.trace} "
               f"(open in ui.perfetto.dev or chrome://tracing)")
-    if args.prom:
+    if args.prom and rank == 0:
         with open(args.prom, "w") as f:
             f.write(recorder.registry.render_prometheus())
         print(f"wrote {args.prom}")
@@ -495,6 +530,44 @@ def main(argv=None):
         rid0 = min(out)
         print(f"sample continuation (req {rid0}): "
               f"{np.asarray(out[rid0]).ravel()[:8].tolist()}")
+    if args.engine in ("sharded", "disagg"):
+        from repro_torch.parallel import COLLECTIVES
+
+        print("collectives: " + " ".join(f"{k}={v}"
+                                         for k, v in COLLECTIVES.items()))
+        if args.engine == "disagg":
+            print(f"handoffs: {int(st['handoffs'])}")
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def mesh_kw(args, print=builtins.print) -> dict:
+    """The sharded engines' mesh arguments from ``--mesh``: ``mesh`` over
+    every rank, or the disaggregated engine's two role meshes (the first
+    half of the ranks prefill, the second decode), refused where the
+    ranks are too few for two."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    dims = [int(x) for x in args.mesh.split(",")] if args.mesh else [1, 1]
+    dims += [1] * (3 - len(dims))
+    dp, tp, ep = dims[:3]
+    world = dist.get_world_size()
+    print(f"mesh: dp={dp} tp={tp} ep={ep} over {world} ranks "
+          f"(engine={args.engine})")
+    if args.engine == "sharded":
+        return {"mesh": make_serve_mesh(dp, tp, ep)}
+    need = dp * tp * ep
+    if world < 2 * need:
+        raise SystemExit(
+            f"--engine disagg needs two {dp}x{tp}x{ep} role meshes = "
+            f"{2 * need} devices; have {world}")
+    ranks = list(range(world))
+    return {"prefill_mesh": make_serve_mesh(dp, tp, ep, ranks=ranks[:need]),
+            "decode_mesh": make_serve_mesh(dp, tp, ep,
+                                           ranks=ranks[need:2 * need])}
 
 
 if __name__ == "__main__":

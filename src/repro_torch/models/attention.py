@@ -172,7 +172,16 @@ def _attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 class GQAttention(nn.Module):
     """Grouped-query attention with RoPE; window=0 means full causal.
     ``device`` defaults to the card (projections and ``inv_freq`` alike);
-    without CUDA that raises, naming ``device="cpu"``."""
+    without CUDA that raises, naming ``device="cpu"``.
+
+    ``tp`` (a ``parallel.HeadShard``, set by ``parallel.shard_module``)
+    runs this rank's q heads: wq gives their rows, the cache holds the kv
+    heads ``tp.cache`` (the k/v projections' rows gathered to whole where
+    the "model" axis splits them below a whole head), each q head reads
+    its own kv head from it, and wo (row-parallel) sums the heads' share
+    over the ranks."""
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig, *, window: int = 0,
                  name: str = "attn", device=None, **kw):
@@ -207,9 +216,18 @@ class GQAttention(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-        q = self.wq(x).reshape(B, S, H, hd)
-        k = self.wk(x).reshape(B, S, Hkv, hd)
-        v = self.wv(x).reshape(B, S, Hkv, hd)
+        q, k, v = self.wq(x), self.wk(x), self.wv(x)
+        tp = self.tp
+        if tp is not None:
+            if tp.kv_gather:
+                from repro_torch.parallel.comm import gather_cat
+
+                k, v = gather_cat(k, tp.axis), gather_cat(v, tp.axis)
+            H = tp.q[1] - tp.q[0]
+            Hkv = tp.cache[1] - tp.cache[0]
+        q = q.reshape(B, S, H, hd)
+        k = k.reshape(B, S, Hkv, hd)
+        v = v.reshape(B, S, Hkv, hd)
         q = apply_rope(q, self.inv_freq, positions)
         k = apply_rope(k, self.inv_freq, positions)
 
@@ -249,13 +267,28 @@ class GQAttention(nn.Module):
         else:
             k_all, v_all, k_pos = k, v, positions
 
+        if tp is not None:
+            # the kv heads this rank's q heads read, out of the cache's
+            rep = cfg.n_heads // cfg.n_kv_heads
+            a = tp.q[0] // rep - tp.cache[0]
+            b = (tp.q[1] - 1) // rep + 1 - tp.cache[0]
+            k_all, v_all = k_all[:, :, a:b], v_all[:, :, a:b]
         y = self._attend(q, k_all, v_all, positions, k_pos)
         return self.wo(y.reshape(B, S, H * hd)), cache
 
-    def _expand_kv(self, t: torch.Tensor) -> torch.Tensor:
-        """(B, L, Hkv, hd) -> (B, L, H, hd) (GQA repeat)."""
+    @property
+    def cache_kv_heads(self) -> int:
+        """KV heads a cache of this layer holds (a rank's share under
+        ``tp``)."""
+        if self.tp is None:
+            return self.cfg.n_kv_heads
+        return self.tp.cache[1] - self.tp.cache[0]
+
+    @staticmethod
+    def _expand_kv(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+        """(B, L, Hkv, hd) -> (B, L, n_heads, hd) (GQA repeat)."""
         B, L, g, hd = t.shape
-        rep = self.cfg.n_heads // g
+        rep = n_heads // g
         return t[:, :, :, None, :].expand(B, L, g, rep, hd).reshape(
             B, L, g * rep, hd)
 
@@ -263,8 +296,8 @@ class GQAttention(nn.Module):
         S = q.shape[1]
         if S == 1:
             return self._attend_decode_grouped(q, k, v, q_pos, k_pos)
-        k = self._expand_kv(k)
-        v = self._expand_kv(v)
+        k = self._expand_kv(k, q.shape[2])
+        v = self._expand_kv(v, q.shape[2])
         if k.shape[1] > CHUNK_THRESHOLD:
             return self._attend_chunked(q, k, v, q_pos, k_pos)
         hd = q.shape[-1]

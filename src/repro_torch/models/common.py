@@ -44,7 +44,13 @@ class RMSNorm(nn.Module):
 class Embedding(nn.Module):
     """Token table, stored in the compute dtype (the reference casts the
     whole table to it on every lookup; casting once is the same values).
-    ``device`` defaults to the card, as ``RMSNorm``'s."""
+    ``device`` defaults to the card, as ``RMSNorm``'s.  ``tp`` (a
+    ``parallel.VocabShard``, set by ``parallel.shard_module``) keeps rows
+    [lo, hi) of the table: a lookup outside them gives zeros, summed over
+    the ranks in rank order (one rank's row and zeros: exact), and
+    ``attend``'s logits are gathered."""
+
+    tp = None
 
     def __init__(self, vocab: int, dim: int, *, dtype=torch.float32,
                  param_dtype=torch.float32, device=None, generator=None):
@@ -58,11 +64,24 @@ class Embedding(nn.Module):
                                       requires_grad=False)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embedding)
+        if self.tp is None:
+            return F.embedding(tokens, self.embedding)
+        from repro_torch.parallel.comm import gather_sum
+
+        lo, hi = self.tp.lo, self.tp.hi
+        local = tokens - lo
+        inside = (local >= 0) & (local < hi - lo)
+        e = F.embedding(torch.where(inside, local, 0), self.embedding)
+        return gather_sum(e * inside[..., None].to(e.dtype), self.tp.axis)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-embedding logits: x @ E^T."""
-        return x @ self.embedding.to(x.dtype).T
+        logits = x @ self.embedding.to(x.dtype).T
+        if self.tp is None:
+            return logits
+        from repro_torch.parallel.comm import gather_cat
+
+        return gather_cat(logits, self.tp.axis)
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0,

@@ -53,6 +53,16 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 class LMModel(nn.Module):
+    """``parallel.shard_module(model, mesh)`` cuts the model to a rank's
+    share in place: ``head_tp`` (a ``parallel.VocabShard``) keeps the
+    head's vocabulary rows, whose logits are gathered, and ``dp`` (the
+    mesh's data axis) splits a paged decode step's rows over the data
+    ranks, whose logits are gathered, so every rank's host loop sees the
+    same logits."""
+
+    head_tp = None
+    dp = None
+
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
         self.cfg = cfg
@@ -110,6 +120,10 @@ class LMModel(nn.Module):
             logits = self.embed[0].attend(x)
         else:
             logits = x @ self.head.to(x.dtype).T
+            if self.head_tp is not None:
+                from repro_torch.parallel.comm import gather_cat
+
+                logits = gather_cat(logits, self.head_tp.axis)
         if cfg.n_codebooks > 1:
             logits = logits.reshape(*x.shape[:-1], cfg.n_codebooks,
                                     cfg.vocab_size)
@@ -225,9 +239,19 @@ class LMModel(nn.Module):
         """
         tokens_new = self._tokens(tokens_new)
         B = tokens_new.shape[0]
-        x = self._embed(tokens_new)
         pos2 = torch.as_tensor(positions, device=self.device).long().reshape(
             B, 1)
         bt = torch.as_tensor(block_tables, device=self.device)
+        dp = self.dp
+        split = dp is not None and B % dp.size == 0
+        if split:
+            lo, hi = dp.range(B)
+            tokens_new, pos2, bt = tokens_new[lo:hi], pos2[lo:hi], bt[lo:hi]
+        x = self._embed(tokens_new)
         x, pages, _ = self.stack(x, pos2, caches=pages, block_tables=bt)
-        return self._head(self.norm_f(x))[:, 0], pages
+        logits = self._head(self.norm_f(x))[:, 0]
+        if split:
+            from repro_torch.parallel.comm import gather_cat
+
+            logits = gather_cat(logits, dp, dim=0)
+        return logits, pages

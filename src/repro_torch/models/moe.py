@@ -1,9 +1,10 @@
 """Mixture-of-Experts FFN: token-choice top-k routing with capacity.
 
-The port of ``repro/models/moe.py`` for one device: ``MoELayer`` routes
-as the reference's ``_route_pjit`` with one routing group (the reference
-takes that path whenever no mesh is installed).  The manual ``shard_map``
-expert-parallel path comes with the distribution slice.
+The port of ``repro/models/moe.py``: ``MoELayer`` routes as the
+reference's ``_route_pjit`` on one device (one routing group, or the data
+axes' where ``parallel.activation_mesh`` installs a mesh), and as its
+manual expert-parallel path when ``parallel.shard_module`` gave it a
+rank's experts.
 
 Expert weights are stacked over the experts and share one RBGP4 layout
 per projection shape (cloned-mask EP), in one of two storages:
@@ -237,7 +238,20 @@ class StackedExperts(nn.Module):
 
 
 class MoELayer(nn.Module):
-    """Routed experts (+ optional shared experts) replacing the MLP."""
+    """Routed experts (+ optional shared experts) replacing the MLP.
+
+    ``tp`` (a ``parallel.ExpertShard``, set by ``parallel.shard_module``)
+    runs the reference's manual expert-parallel formulation
+    (``repro/models/moe.py:295-418``): the tokens are whole on every rank
+    of the "model" axis, every rank routes them all with the float32
+    router, fills only its own experts' buffers and runs them, and the
+    combine sums the ranks' outputs in rank order.  A rank's tokens are
+    its data-parallel share, so the routing groups are the data axis's.
+    Without ``tp``, the routing group count is the data axes' size of the
+    installed ``parallel.activation_mesh`` where it divides the batch, as
+    the reference's ``_n_groups``, else 1."""
+
+    tp = None
 
     def __init__(self, d_model: int, moe: MoEConfig,
                  sparsity: Optional[Union[SparsityConfig,
@@ -292,6 +306,16 @@ class MoELayer(nn.Module):
         top = torch.topk(probs, self.moe.top_k + 1, dim=-1).values
         return float((top[:, -2] - top[:, -1]).min())
 
+    def _n_groups(self, batch_dim: int) -> int:
+        from repro_torch.parallel.constrain import current_mesh
+        from repro_torch.parallel.sharding import dp_size
+
+        mesh = current_mesh()
+        if mesh is None:
+            return 1
+        n = dp_size(mesh)
+        return n if n > 0 and batch_dim % n == 0 else 1
+
     def forward(self, x: torch.Tensor, *, full_capacity: bool = False):
         """x (B, S, D) -> (y, aux_loss).
 
@@ -305,24 +329,42 @@ class MoELayer(nn.Module):
         E, K = moe.n_experts, moe.top_k
         x2 = x.reshape(T, D)
         probs, gates, idx = self.route(x2)
-        C = self.capacity(T, full_capacity)
+        tp = self.tp
+        G = 1 if tp is not None else self._n_groups(B)
+        TL = T // G
+        C = self.capacity(TL, full_capacity)
+        lo, hi = (tp.lo, tp.hi) if tp is not None else (0, E)
 
-        # position in expert: a cumsum over the flattened (token, k) order;
-        # (token, k) pairs at or past the capacity are dropped
-        e_flat = idx.reshape(T * K)
-        onehot = (e_flat[:, None] == torch.arange(E, device=x.device)).long()
-        pos = torch.cumsum(onehot, dim=0) - 1
-        pos_in_e = torch.gather(pos, 1, e_flat[:, None])[:, 0]
+        # position in expert: a cumsum over each group's flattened (token,
+        # k) order; (token, k) pairs at or past the capacity are dropped,
+        # and under ``tp`` those of other ranks' experts are not this
+        # rank's to run
+        e_flat = idx.reshape(G, TL * K)
+        onehot = (e_flat[..., None]
+                  == torch.arange(E, device=x.device)).long()
+        pos = torch.cumsum(onehot, dim=1) - 1
+        pos_in_e = torch.gather(pos, 2, e_flat[..., None])[..., 0]
         keep = pos_in_e < C
-        slot = torch.where(keep, e_flat * C + pos_in_e, 0)   # into (E*C)
+        if tp is not None:
+            keep = keep & (e_flat >= lo) & (e_flat < hi)
+        grp = torch.arange(G, device=x.device)[:, None]
+        # into (E_local, G, C): each expert's buffer holds its groups' rows
+        slot = torch.where(keep, ((e_flat - lo) * G + grp) * C + pos_in_e,
+                           0).reshape(T * K)
+        keep = keep.reshape(T * K)
         tok = torch.arange(T, device=x.device).repeat_interleave(K)
         contrib = torch.where(keep[:, None], x2[tok], 0).to(x.dtype)
-        buf = torch.zeros((E * C, D), dtype=x.dtype, device=x.device)
-        buf = buf.index_add(0, slot, contrib).reshape(E, C, D)
+        n_rows = (hi - lo) * G * C
+        buf = torch.zeros((n_rows, D), dtype=x.dtype, device=x.device)
+        buf = buf.index_add(0, slot, contrib).reshape(hi - lo, G * C, D)
 
-        out = self.experts(buf).reshape(E * C, D)
+        out = self.experts(buf).reshape(n_rows, D)
         got = torch.where(keep[:, None], out[slot], 0)
         y = (got.reshape(T, K, D) * gates[..., None].to(x.dtype)).sum(1)
+        if tp is not None:
+            from repro_torch.parallel.comm import gather_sum
+
+            y = gather_sum(y, tp.axis)
         y = y.reshape(B, S, D)
 
         # Switch-style load-balance loss

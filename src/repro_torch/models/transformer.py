@@ -180,8 +180,8 @@ class DecoderLayer(nn.Module):
             L = min(cache_len, cfg.sliding_window)
         if self.kind == "mla":
             return init_cache_mla(batch, L, cfg.mla, dtype, device=device)
-        return init_cache_gqa(batch, L, cfg.n_kv_heads, cfg.head_dim_, dtype,
-                              device=device)
+        return init_cache_gqa(batch, L, self.mixer.cache_kv_heads,
+                              cfg.head_dim_, dtype, device=device)
 
     def init_pages(self, n_blocks: int, page_size: int, dtype=torch.bfloat16,
                    device=None) -> dict:

@@ -1,0 +1,112 @@
+"""The collectives of the port's distribution, each counted by kind.
+
+Tensor parallelism here is explicit (Megatron-style) on plain local
+tensors, so every cross-rank step is one of the calls below, on the
+process group of one mesh axis (``MeshAxis``).  ``COLLECTIVES`` counts
+them by kind; a call moves its count whatever the group's size, and no
+caller skips a call for a group of one, so a world-size-1 run issues
+every collective a larger run issues.
+
+Summation order.  A sum over ranks is taken in rank order after an
+``all_gather`` (``gather_sum``), never by ``all_reduce``: a ring
+all-reduce splits its buffer by length, so the order a row's partials
+are added in would depend on how many rows share the call, and a decode
+step at 8 rows would differ in the last bit from a sequential run at 1.
+The partials are added in float32 and the sum is cast back once.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["COLLECTIVES", "reset_collectives", "MeshAxis", "gather_cat",
+           "gather_sum", "broadcast", "all_reduce_sum"]
+
+#: calls by kind, moved on every call (a group of one included)
+COLLECTIVES = {"all_gather": 0, "broadcast": 0, "all_reduce": 0}
+
+
+def reset_collectives() -> None:
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshAxis:
+    """One mesh axis as this rank sees it: the process group of its row
+    along the axis, this rank's index in it and the axis's size."""
+
+    group: Optional[dist.ProcessGroup]
+    rank: int
+    size: int
+
+    @classmethod
+    def of(cls, mesh, name: str) -> "MeshAxis":
+        return cls(mesh.get_group(name), mesh.get_local_rank(name),
+                   mesh.size(mesh.mesh_dim_names.index(name)))
+
+    def range(self, n: int) -> tuple[int, int]:
+        """This rank's contiguous share [lo, hi) of ``n`` items (the whole
+        where the axis does not divide ``n``)."""
+        if n % self.size:
+            return 0, n
+        w = n // self.size
+        return self.rank * w, (self.rank + 1) * w
+
+
+# one output tensor for all ranks (the list form allocates and copies a
+# tensor a rank); ``all_gather_single`` is its name from torch 2.13 on
+_GATHER_ONE = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+def _all_gather(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """(axis.size, *t.shape): every rank's ``t``, in rank order."""
+    t = t.contiguous()
+    out = torch.empty((axis.size * t.shape[0], *t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    _GATHER_ONE(out, t, group=axis.group)
+    COLLECTIVES["all_gather"] += 1
+    return out.view(axis.size, *t.shape)
+
+
+def gather_cat(t: torch.Tensor, axis: MeshAxis, dim: int = -1
+               ) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order."""
+    dim %= t.ndim
+    shape = list(t.shape)
+    shape[dim] *= axis.size
+    return _all_gather(t, axis).movedim(0, dim).reshape(shape)
+
+
+def gather_sum(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """The sum over the axis's ranks of ``t``, added in rank order in
+    float32 (a reduction whose order does not depend on ``t``'s length),
+    in ``t``'s dtype."""
+    parts = _all_gather(t, axis)
+    acc = parts[0].float()
+    for i in range(1, axis.size):
+        acc = acc + parts[i]
+    return acc.to(t.dtype)
+
+
+def broadcast(t: torch.Tensor, src: int,
+              group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """``t`` from global rank ``src`` to every rank of ``group`` (the
+    world by default), in place."""
+    dist.broadcast(t, src=src, group=group)
+    COLLECTIVES["broadcast"] += 1
+    return t
+
+
+def all_reduce_sum(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """In-place sum over the axis; for integer payloads, whose sum is exact
+    in any order (``train.compress``)."""
+    if t.is_floating_point():
+        raise TypeError("float sums go through gather_sum (rank order)")
+    dist.all_reduce(t, group=axis.group)
+    COLLECTIVES["all_reduce"] += 1
+    return t

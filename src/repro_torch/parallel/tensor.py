@@ -1,0 +1,108 @@
+"""What a sharded module keeps and how its forward crosses ranks.
+
+``shard_module`` (``parallel/sharding.py``) cuts a model's tensors to each
+rank's share and sets one descriptor on each module it cut; the modules'
+forwards read them.  Tensor parallelism is explicit, Megatron-style, on
+plain local tensors (the kernels take raw pointers, so no DTensor):
+
+  * ``LinearShard`` on a ``SparseLinear``.  Column-parallel ("col", the
+    output rows over "model": wq, wk, wv, gate, up): a rank's product gives
+    its rows' outputs.  Row-parallel ("row", the input over "model": wo,
+    down): the activation arrives as this rank's columns; dense and masked
+    storage keep those columns of W, and their product is a partial Y;
+    compact and int8 storage keep a range of compact slots, whose product
+    needs the whole X (``gather_cat`` first) and gives a partial Y over
+    the slots.  The partials are summed in rank order (``gather_sum``);
+    the bias, the activation and the residual follow the sum, once.
+  * ``HeadShard`` on a ``GQAttention``: this rank's q heads, and the kv
+    heads its cache holds (its own where the "model" axis divides the kv
+    heads, else all of them, gathered from the k/v projections' rows).
+  * ``ExpertShard`` on a ``MoELayer``: this rank's experts [lo, hi).
+  * ``VocabShard`` on an ``Embedding`` and on the LM head: this rank's
+    vocabulary rows [lo, hi); lookups outside them give zeros, summed over
+    the ranks, and the head's logits are gathered.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .comm import MeshAxis, gather_cat, gather_sum
+
+__all__ = ["LinearShard", "HeadShard", "ExpertShard", "VocabShard",
+           "linear_forward"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LinearShard:
+    """``role`` 'col' or 'row'; ``lo``/``hi`` the output rows ('col') or
+    input columns ('row') of ``full`` this rank's activation holds;
+    ``sliced`` whether the weight was cut to them (else the spec keeps it
+    whole on every rank); ``whole_input`` for a row-parallel weight kept
+    as compact slots, whose product reads the whole X."""
+
+    role: str
+    axis: MeshAxis
+    lo: int
+    hi: int
+    full: int
+    sliced: bool
+    whole_input: bool = False
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class HeadShard:
+    axis: MeshAxis
+    q: tuple[int, int]          # q heads [lo, hi)
+    cache: tuple[int, int]      # kv heads the cache holds [lo, hi)
+    kv_gather: bool             # k/v projections' rows gathered to whole
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ExpertShard:
+    axis: MeshAxis
+    lo: int
+    hi: int
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VocabShard:
+    axis: MeshAxis
+    lo: int
+    hi: int
+
+
+def linear_forward(layer, x: torch.Tensor, *, fuse: Optional[str] = None,
+                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A ``SparseLinear``'s forward under its ``LinearShard``."""
+    from repro_torch.sparsity.api import EPILOGUE_ACTS, sparse_linear
+
+    tp: LinearShard = layer.tp
+    w = layer.weight()
+    if tp.role == "col":
+        y = sparse_linear(w, x, fuse=fuse)
+        if not tp.sliced and (tp.lo, tp.hi) != (0, tp.full):
+            y = y[..., tp.lo:tp.hi]
+        if residual is not None:
+            y = y + residual[..., tp.lo:tp.hi].to(y.dtype)
+        return y
+    # the activation arrives as this rank's columns where the axis divides
+    # them (a group of one included), else whole
+    split_input = tp.full % tp.axis.size == 0
+    if not tp.sliced:
+        if split_input:
+            x = gather_cat(x, tp.axis)
+        return sparse_linear(w, x, fuse=fuse, residual=residual)
+    if tp.whole_input and split_input:
+        x = gather_cat(x, tp.axis)
+    y = gather_sum(sparse_linear(dataclasses.replace(w, b=None), x),
+                   tp.axis)
+    if w.b is not None:
+        y = y + w.b.to(y.dtype)
+    if fuse is not None:
+        y = EPILOGUE_ACTS[fuse](y)
+    if residual is not None:
+        y = y + residual.to(y.dtype)
+    return y

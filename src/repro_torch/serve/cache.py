@@ -283,17 +283,54 @@ def pack_prefill_pages(cache: list, n_blocks: int, page_size: int) -> list:
 
 
 class PagedKVCache:
-    """Device page pools + allocator for one model's serving caches."""
+    """Device page pools + allocator for one model's serving caches.
+
+    With ``mesh`` (the model sharded over it by ``parallel.shard_module``)
+    the pools are laid out by ``parallel.page_pool_specs``: the kv heads
+    over "model" where the axis divides them, every block on every rank
+    (any decode row may read any block).  The sharded model's
+    ``init_pages`` makes each rank's share directly; ``specs`` holds the
+    full pools' specs, one dict a layer.  ``model=None`` keeps the
+    allocator alone, with no pools: a rank outside the disaggregated
+    engine's decode role does the host bookkeeping and holds no pages.
+    """
 
     def __init__(self, model, n_blocks: int, page_size: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, *, mesh=None):
         if page_size < 1:
             raise ValueError(f"page_size={page_size}")
         self.model = model
         self.page = page_size
         self.dtype = dtype
-        self.pools = model.init_pages(n_blocks, page_size, dtype)
+        self.mesh = mesh
+        self.device = model.device if model is not None else \
+            torch.device("cpu")
+        self.pools = (model.init_pages(n_blocks, page_size, dtype)
+                      if model is not None else [])
+        self.specs = None
+        if mesh is not None and model is not None:
+            self.specs = self._check_layout(mesh)
         self.allocator = PageAllocator(n_blocks)
+
+    def _check_layout(self, mesh) -> list:
+        """The full pools' specs; each rank's pools hold 1/n of every dim
+        they split over "model"."""
+        from repro_torch.parallel import mesh_axes, page_pool_specs
+
+        n = mesh_axes(mesh)["model"]
+        hkv = self.model.cfg.n_kv_heads
+        full = [{name: (leaf.shape[:2] + (hkv,) + leaf.shape[3:]
+                        if leaf.ndim == 4 else tuple(leaf.shape))
+                 for name, leaf in pool.items()} for pool in self.pools]
+        specs = page_pool_specs(full, mesh)
+        for pool, shapes, spec in zip(self.pools, full, specs):
+            for name, leaf in pool.items():
+                want = tuple(d // n if ax == "model" else d
+                             for d, ax in zip(shapes[name], spec[name]))
+                if tuple(leaf.shape) != want:
+                    raise ValueError(f"pool {name} {tuple(leaf.shape)} is "
+                                     f"not the rank's share {want}")
+        return specs
 
     def blocks_for(self, n_tokens: int) -> int:
         return blocks_for_tokens(n_tokens, self.page)
@@ -325,8 +362,7 @@ class PagedKVCache:
     def write_pages(self, paged: list, blocks: list[int]) -> None:
         """Scatter per-request pages (``pack_prefill_pages`` shapes) into
         ``blocks`` of every layer's pools, in place."""
-        idx = torch.as_tensor(blocks, dtype=torch.long,
-                              device=self.pools[0]["pos"].device)
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
         for pool, layer in zip(self.pools, paged):
             for name, leaf in layer.items():
                 pool[name][idx] = leaf.to(pool[name].dtype)
@@ -346,8 +382,7 @@ class PagedKVCache:
         """
         if not blocks:
             return cache
-        idx = torch.as_tensor(blocks, dtype=torch.long,
-                              device=self.pools[0]["pos"].device)
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
         span = len(blocks) * self.page
         for layer, pool in zip(cache, self.pools):
             for name, leaf in layer.items():
@@ -360,7 +395,6 @@ class PagedKVCache:
         a recycled block carries no stale position into the attention mask."""
         if not blocks:
             return
-        idx = torch.as_tensor(blocks, dtype=torch.long,
-                              device=self.pools[0]["pos"].device)
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
         for pool in self.pools:
             pool["pos"][idx] = -1

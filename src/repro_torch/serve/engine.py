@@ -339,7 +339,7 @@ class ContinuousEngine(ServingEngine):
         self.step_trace: list[dict] = []
         # (clock, rid, "preempt"|"restart"): the deterministic eviction log
         self.preempt_log: list[tuple[int, int, str]] = []
-        self.kv = PagedKVCache(model, n_blocks, page_size, cache_dtype)
+        self.kv = self._make_kv(n_blocks)
         self.base_live_tokens = max_live_tokens
         self.plan = plan
         self.plan_fingerprint = (plan.fingerprint() if plan is not None
@@ -383,6 +383,40 @@ class ContinuousEngine(ServingEngine):
                           prefix_hits=0, prefix_hit_tokens=0,
                           prefix_misses=0, prefix_evictions=0,
                           prefix_cow_copies=0, shared_prefills=0)
+
+    # -- hooks the sharded engines override ------------------------------------------
+    def _make_kv(self, n_blocks: int) -> PagedKVCache:
+        return PagedKVCache(self.model, n_blocks, self.page, self.cache_dtype)
+
+    # the prefill, chunk and decode calls: the model's entry points here
+    # (looked up at each call); the disaggregated engine runs the first
+    # two on its prefill role
+    def _prefill(self, tokens, cache):
+        return self.model.prefill(tokens, cache)
+
+    def _chunk(self, tokens, cache, index: int, n_valid: int):
+        return self.model.prefill_chunk(tokens, cache, index, n_valid)
+
+    def _decode(self, tokens, pools, block_tables, positions):
+        return self.model.decode_step_paged(tokens, pools, block_tables,
+                                            positions)
+
+    def _temp_cache(self, length: int) -> list:
+        """A batch-1 contiguous prefill cache of ``length`` slots."""
+        return self.model.init_cache(1, length, self.cache_dtype,
+                                     full_length=True)
+
+    def _handoff(self, paged: list) -> list:
+        """Identity in the single-role engines; the disaggregated engine
+        moves the packed pages from its prefill role to its decode
+        role's pools (the one transfer between the roles)."""
+        return paged
+
+    def _localize(self, cache: list, blocks: list) -> list:
+        """Fill ``cache``'s first slots from the pools' ``blocks`` (the
+        prefix gather); the disaggregated engine reads them from its
+        decode role onto its prefill role."""
+        return self.kv.read_pages(cache, blocks)
 
     # -- prefix sharing ----------------------------------------------------------------
     def _release_blocks(self, blocks: list) -> None:
@@ -473,7 +507,7 @@ class ContinuousEngine(ServingEngine):
             suffix_start = req.n_shared * self.page
             gather = req.blocks[:req.n_shared]
         span = len(gather) * self.page
-        cache = self.kv.read_pages(cache, gather)
+        cache = self._localize(cache, gather)
         if req.cow_src is not None:
             self._release_blocks([req.cow_src])
             req.cow_src = None
@@ -741,19 +775,18 @@ class ContinuousEngine(ServingEngine):
         req.blocks = req.blocks + got
         fed = L
         if req.n_shared == 0 and req.cow_src is None:
-            cache = self.model.init_cache(1, L, self.cache_dtype,
-                                          full_length=True)
+            cache = self._temp_cache(L)
             with self._timed("prefill", "prefill_time_s", rid=req.rid,
                              tokens=L, step=self._clock) as tm:
-                logits, cache = self.model.prefill(
-                    req.prefill_tokens[None], cache)
+                logits, cache = self._prefill(req.prefill_tokens[None],
+                                              cache)
                 logits = _host_logits(logits)
                 tm.fence(cache)
-            self.kv.write_pages(pack_prefill_pages(cache, nb, self.page),
-                                req.blocks)
+            self.kv.write_pages(
+                self._handoff(pack_prefill_pages(cache, nb, self.page)),
+                req.blocks)
         else:
-            cache = self.model.init_cache(1, nb * self.page,
-                                          self.cache_dtype, full_length=True)
+            cache = self._temp_cache(nb * self.page)
             cache, start, span = self._gather_prefix(req, cache)
             cache = mask_cache_rows(cache, start, span)
             suffix = np.asarray(req.prefill_tokens)[start:]
@@ -761,15 +794,14 @@ class ContinuousEngine(ServingEngine):
             with self._timed("prefill", "prefill_time_s", rid=req.rid,
                              tokens=fed, shared=True,
                              step=self._clock) as tm:
-                logits, cache = self.model.prefill_chunk(
-                    suffix[None], cache, start, fed)
+                logits, cache = self._chunk(suffix[None], cache, start, fed)
                 logits = _host_logits(logits)
                 tm.fence(cache)
             self.kv.write_pages(
-                pack_prefill_pages(
+                self._handoff(pack_prefill_pages(
                     slice_cache(cache, req.n_shared * self.page,
                                 nb * self.page),
-                    nb - req.n_shared, self.page),
+                    nb - req.n_shared, self.page)),
                 req.blocks[req.n_shared:])
         if self.prefix is not None:
             self._insert_prefix(req)
@@ -790,8 +822,7 @@ class ContinuousEngine(ServingEngine):
         if got is None:
             return   # req itself was preempted under pool pressure
         req.blocks = req.blocks + got
-        cache = self.model.init_cache(1, self.chunk_cache, self.cache_dtype,
-                                      full_length=True)
+        cache = self._temp_cache(self.chunk_cache)
         pos0 = 0
         if req.n_shared > 0 or req.cow_src is not None:
             cache, start, span = self._gather_prefix(req, cache)
@@ -817,8 +848,7 @@ class ContinuousEngine(ServingEngine):
         state = self._prefilling[rid]
         with self._timed("prefill_chunk", "prefill_time_s", rid=rid,
                          pos=state.pos, step=self._clock) as tm:
-            fed = run_one_chunk(state, self.model.prefill_chunk,
-                                fence=tm.fence)
+            fed = run_one_chunk(state, self._chunk, fence=tm.fence)
         self.stats["prefill_chunks"] += 1
         self.stats["prompt_tokens"] += fed
         if state.done:
@@ -827,10 +857,10 @@ class ContinuousEngine(ServingEngine):
             nb = len(req.blocks)
             n_sh = req.n_shared
             self.kv.write_pages(
-                pack_prefill_pages(
+                self._handoff(pack_prefill_pages(
                     slice_cache(state.cache, n_sh * self.page,
                                 nb * self.page),
-                    nb - n_sh, self.page),
+                    nb - n_sh, self.page)),
                 req.blocks[n_sh:])
             if self.prefix is not None:
                 self._insert_prefix(req)
@@ -875,8 +905,8 @@ class ContinuousEngine(ServingEngine):
         bt = self.kv.block_table(bt_rows, self.max_blocks)
         with self._timed("decode", "decode_time_s", rows=len(active),
                          step=self._clock) as tm:
-            logits, self.kv.pools = self.model.decode_step_paged(
-                tokens, self.kv.pools, bt, positions)
+            logits, self.kv.pools = self._decode(tokens, self.kv.pools, bt,
+                                                 positions)
             logits = _host_logits(logits)
             tm.fence(self.kv.pools)
         self.stats["decode_steps"] += 1
@@ -1018,8 +1048,10 @@ def make_engine(kind: str, model, **kw) -> ServingEngine:
     if kind == "static":
         return StaticEngine(model, **kw)
     if kind in ("sharded", "disagg"):
-        raise NotImplementedError(
-            f"engine {kind!r} is not yet ported (it needs torch.distributed "
-            f"serving, ROADMAP A.8)")
+        from .distributed import DisaggregatedEngine, ShardedContinuousEngine
+
+        cls = ShardedContinuousEngine if kind == "sharded" \
+            else DisaggregatedEngine
+        return cls(model, **kw)
     raise ValueError(
         f"unknown engine kind {kind!r}; have continuous|static|sharded|disagg")

@@ -121,15 +121,21 @@ class MaskedWeight:
     b: Optional[torch.Tensor] = None
     group_rows: Optional[int] = None
     chunk_cols: Optional[int] = None
+    window: Optional[tuple[int, int, int, int]] = None
 
     def mask_array(self, dtype=None) -> torch.Tensor:
         """The (M, K) {0, 1} mask (expanded from the factors if
-        succinct)."""
+        succinct); with ``window`` (row_lo, row_hi, col_lo, col_hi), the
+        part of it a rank's share of ``w`` stands under (tensor
+        parallelism keeps the whole mask and cuts ``w``)."""
         if self.mask is not None:
             m = self.mask
         else:
             m = expand_rbgp4_mask(self.ba_o, self.ba_i, self.group_rows,
                                   self.chunk_cols)
+        if self.window is not None:
+            r0, r1, c0, c1 = self.window
+            m = m[r0:r1, c0:c1]
         return m.to(dtype) if dtype is not None else m
 
     def materialize(self, dtype=None) -> torch.Tensor:

@@ -61,7 +61,13 @@ class SparseLinear(nn.Module):
     """y = x @ W_s^T (+ b) with a configurable sparsity pattern.
 
     ``device`` defaults to the card; without CUDA that raises, naming
-    ``device="cpu"``."""
+    ``device="cpu"``.  ``tp`` is the layer's ``parallel.LinearShard``
+    once ``parallel.shard_module`` cut it to a rank's share (None
+    otherwise), and ``mask_window`` the part of a masked layer's mask its
+    share stands under."""
+
+    tp = None
+    mask_window = None
 
     def __init__(self, in_features: int, out_features: int,
                  cfg: Optional[Union[SparsityConfig, SparsityPlan]] = None,
@@ -159,6 +165,10 @@ class SparseLinear(nn.Module):
                                         ChainTransposeTables]:
         """The transposed layout's tables on the layer's device (built at
         the first call, then kept)."""
+        if self.tp is not None:
+            raise NotImplementedError(
+                f"{self.name!r} holds a rank's share of its layout; sharded "
+                f"models serve only (train on one device)")
         if self._tables_t is None:
             device = self.tables.col0.device
             self._tables_t = (
@@ -219,13 +229,21 @@ class SparseLinear(nn.Module):
             if self.layout is not None:
                 return MaskedWeight(w=self.w, ba_o=self.ba_o, ba_i=self.ba_i,
                                     b=self.b, group_rows=self.group_rows,
-                                    chunk_cols=self.chunk_cols)
-            return MaskedWeight(w=self.w, mask=self.mask, b=self.b)
+                                    chunk_cols=self.chunk_cols,
+                                    window=self.mask_window)
+            return MaskedWeight(w=self.w, mask=self.mask, b=self.b,
+                                window=self.mask_window)
         return DenseWeight(w=self.w, b=self.b)
 
     def forward(self, x: torch.Tensor, *, fuse: Optional[str] = None,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (..., in_features) -> (..., out_features); ``fuse``/``residual``
         request ``y = act(x W^T + b) + residual`` (in the kernel's epilogue
-        for compact storage, in torch after it otherwise)."""
+        for compact storage, in torch after it otherwise).  A sharded layer
+        runs ``parallel.tensor.linear_forward``: its input and output are
+        its rank's share of the activation."""
+        if self.tp is not None:
+            from repro_torch.parallel.tensor import linear_forward
+
+            return linear_forward(self, x, fuse=fuse, residual=residual)
         return sparse_linear(self.weight(), x, fuse=fuse, residual=residual)

@@ -13,9 +13,10 @@ int8 values and the same scales, bit for bit: scale = max|x| / 127 +
 transform ``TrainConfig.grad_compression == "int8"`` applies: each
 gradient, plus the residual carried from the step before, goes through
 the per-tensor Q/DQ round trip, and the new residual is what the round
-trip lost (e_{t+1} = g_t + e_t - Q(g_t + e_t)).  One card: the
-reference's ``axis_name`` path (the psum of the int8 payload across
-devices) waits for the port's distribution.
+trip lost (e_{t+1} = g_t + e_t - Q(g_t + e_t)).  ``group`` is the
+reference's ``axis_name``: the int8 payload is summed as int32 over the
+group's ranks (exact in any order), the scales averaged over them (added
+in rank order) and the sum divided by the group's size.
 """
 from __future__ import annotations
 
@@ -96,19 +97,46 @@ def init_error_feedback(grads_like):
                  grads_like)
 
 
-def compress_decompress(grads, error=None):
-    """Quantize (with error feedback) -> dequantize, tensor by tensor.
+def _axis(group):
+    """A ``parallel.MeshAxis`` of ``group`` (a process group, or a
+    MeshAxis already)."""
+    from repro_torch.parallel import MeshAxis
+
+    if isinstance(group, MeshAxis):
+        return group
+    import torch.distributed as dist
+
+    return MeshAxis(group, dist.get_rank(group), dist.get_world_size(group))
+
+
+def compress_decompress(grads, error=None, group=None):
+    """Quantize (with error feedback) -> [sum over ``group``] ->
+    dequantize, tensor by tensor.
 
     ``grads`` is a tensor or nested dicts of them, ``error`` the residuals
     of the step before (None: no feedback).  Returns (new_grads, new_error):
     each gradient dequantized in its own dtype, and the float32 residual
-    g32 + e - Q(g32 + e), the reference's arithmetic bit for bit."""
+    g32 + e - Q(g32 + e), the reference's arithmetic bit for bit.  With
+    ``group`` (a process group or a ``parallel.MeshAxis``, the counterpart
+    of the reference's ``axis_name``) each rank's int8 payload is summed
+    over the group as int32, the scales are averaged, and the result is
+    divided by the group's size: the mean of the ranks' round trips."""
+    axis = _axis(group) if group is not None else None
+
     def one(g, e):
         g32 = g.float()
         if e is not None:
             g32 = g32 + e
-        deq = dequantize_int8(*quantize_int8(g32))
-        return deq.to(g.dtype), g32 - deq
+        q, scale = quantize_int8(g32)
+        local = dequantize_int8(q, scale)
+        if axis is None:
+            return local.to(g.dtype), g32 - local
+        from repro_torch.parallel.comm import all_reduce_sum, gather_sum
+
+        q_sum = all_reduce_sum(q.to(torch.int32), axis)
+        mean_scale = gather_sum(scale.reshape(1), axis)[0] / axis.size
+        deq = q_sum.float() * mean_scale / axis.size
+        return deq.to(g.dtype), g32 - local
 
     pairs = _tmap(one, grads, error) if error is not None else \
         _tmap(lambda g: one(g, None), grads)

@@ -54,7 +54,9 @@ built tile, timed on the launch's own tables, that matches the plain
 version and gives equal bits on a rerun and after a re-read from disk
 (``-k measured``).  And the other language models' mixers in float32,
 card against CPU: MLA's paged decode (deepseek-v2), a Mamba step (jamba)
-and an RWKV-6 step (``-k arch_mixer``).
+and an RWKV-6 step (``-k arch_mixer``).  And every rank's share of a
+full-width layout at 2 and 4 ranks (rows, slots, experts, int8) against
+its plain version and the unsharded launch (``-k rank_shares``).
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -1951,3 +1953,80 @@ def test_cuda_arch_mixer_steps_match_the_cpu(kind):
         for name in cb:
             assert_close(ca[name], cb[name], torch.float32, (kind, name),
                          tol=GRAD_TOL)
+
+
+# one layout of each share kind: tinyllama's down at full width (11 slots
+# of 64 columns a row: its slot shares at 4 ranks cut a slot, C' 32) and
+# qwen2-moe's stacked expert in-projection
+SHARD_LAYOUT = (2048, 5632)
+SHARD_EXPERTS = (8, 1408, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["rows", "slots", "experts", "int8-rows",
+                                  "int8-slots"])
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_cuda_rank_shares_match_plain_versions(kind, n_model, dtype):
+    """Every rank's share (``KernelTables.rank_slice``; experts by
+    expert) launched on the card against its plain version on the same
+    share, at decode (8 rows) and prefill (512; bf16 on the tensor-core
+    body where ``rhs_path`` names it), int8 at 8 rows with bf16 X; and the
+    row shares, or the rank-ordered sum of the slot shares, against the
+    unsharded launch."""
+    from repro_torch.sparsity.quant import (leaf_block_dims,
+                                            quantize_block_values)
+
+    needs_card()
+    int8 = kind.startswith("int8")
+    if int8 and dtype == torch.float32:
+        pytest.skip("the int8 path takes its X in bf16 here")
+    g = torch.Generator(device="cuda").manual_seed(53)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    if kind == "experts":
+        e, m, k = SHARD_EXPERTS
+        tables = KernelTables.build(
+            RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0)), "cuda")
+        w = rnd(e, m, tables.dims.data_cols).to(dtype)
+        for n in (8, 512):
+            x = rnd(e, n, k).to(dtype)
+            want = rbgp4mm_rhs_stacked(tables, x, w)
+            for r in range(n_model):
+                lo, hi = r * e // n_model, (r + 1) * e // n_model
+                got = rbgp4mm_rhs_stacked(tables, x[lo:hi].contiguous(),
+                                          w[lo:hi].contiguous())
+                assert_close(got, rbgp4mm_rhs_stacked_reference(
+                    tables, x[lo:hi], w[lo:hi]), dtype, (kind, r, n))
+                assert torch.equal(got, want[lo:hi]), (kind, r, n)
+        return
+    m, k = SHARD_LAYOUT
+    tables = KernelTables.build(
+        RBGP4Layout(design_rbgp4(m, k, 0.75, seed=0)), "cuda")
+    share_kind = kind.split("-")[-1]
+    w32 = rnd(m, tables.dims.data_cols)
+    q, sc = quantize_block_values(w32, *leaf_block_dims(tables))
+    for n in ((8,) if int8 else (8, 512)):
+        x = rnd(n, k).to(torch.bfloat16 if int8 else dtype)
+        w = q if int8 else w32.to(dtype)
+        kw = lambda s: {"scales": s.scales(sc)} if int8 else {}
+        want = rbgp4mm_rhs(tables, x, w, **({"scales": sc} if int8 else {}))
+        outs = []
+        for r in range(n_model):
+            s = tables.rank_slice(share_kind, r, n_model)
+            mma0 = rbgp4mm_rhs.launches_mma
+            got = rbgp4mm_rhs(s.tables, x, s.values(w), **kw(s))
+            torch.cuda.synchronize()
+            want_mma = not int8 and rhs_path(s.tables.dims, n,
+                                             x.dtype) == "mma"
+            assert rbgp4mm_rhs.launches_mma - mma0 == want_mma
+            assert_close(got, rbgp4mm_rhs_reference(s.tables, x,
+                                                    s.values(w), **kw(s)),
+                         x.dtype, (kind, r, n))
+            outs.append(got)
+        if share_kind == "rows":
+            assert_close(torch.cat(outs, -1), want, x.dtype, (kind, n))
+        else:
+            acc = outs[0].float()
+            for p in outs[1:]:
+                acc = acc + p.float()
+            assert_close(acc, want, x.dtype, (kind, n))

@@ -54,6 +54,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                 "repro_torch.kernels.autotune",
                 "repro_torch.obs.kernelstats",
                 "repro_torch.models.ssm", "repro_torch.models.rwkv",
+                "repro_torch.parallel", "repro_torch.parallel.sharding",
+                "repro_torch.parallel.constrain",
+                "repro_torch.parallel.comm", "repro_torch.parallel.tensor",
+                "repro_torch.launch.mesh", "repro_torch.serve.distributed",
                 *(f"repro_torch.configs.{m}" for m in (
                     "gemma_7b", "gemma3_4b", "deepseek_7b", "pixtral_12b",
                     "deepseek_v2_236b", "rwkv6_7b", "jamba_1_5_large_398b",

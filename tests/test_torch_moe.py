@@ -418,3 +418,34 @@ def test_moe_layer_refuses_a_router_dtype_other_than_float32():
                     router_dtype="bfloat16")
     with pytest.raises(ValueError, match="router_dtype"):
         MoELayer(64, moe, None, "silu", device="cpu")
+
+
+def test_moe_layer_routes_in_the_installed_meshs_data_groups(monkeypatch):
+    """Under ``parallel.activation_mesh`` a MoE layer routes in as many
+    groups as the mesh's data axes (the reference's ``_n_groups``), each
+    group with its own capacity and cumsum; the reference's
+    ``_route_pjit`` at G = 2 (its mesh stood in by the axis sizes it
+    reads) gives the same output and aux loss."""
+    import repro.models.moe as jmoe
+
+    from repro_torch.parallel import activation_mesh
+
+    class TwoDataRanks:
+        axis_names = ("data",)
+        shape = {"data": 2}
+
+    monkeypatch.setattr(jmoe, "current_mesh", lambda: TwoDataRanks)
+    jl, jp, tl = moe_pair(seed=2)
+    x = randn(np.random.default_rng(9), 2, 12, 64)
+    jy, jaux = jax.jit(lambda p, x: jl.apply(p, x, full_capacity=False))(
+        jp, jnp.asarray(x))
+    assert jl._n_groups(2) == 2
+    with activation_mesh({"data": 2, "model": 1}):
+        assert tl._n_groups(2) == 2 and tl._n_groups(3) == 1
+        with topk_margins(tl):
+            y, aux = tl(torch.tensor(x))
+    assert_close(y.detach().numpy(), jy)
+    assert abs(aux.item() - float(jaux)) <= RTOL * abs(float(jaux))
+    # in one group the capacity binds elsewhere: another output
+    y1, _ = tl(torch.tensor(x))
+    assert not torch.allclose(y1, y)

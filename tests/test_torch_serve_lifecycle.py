@@ -460,6 +460,29 @@ def test_static_engine_matches_reference(pair):
     for r in wl:
         np.testing.assert_array_equal(eng.requests[r["rid"]].tokens,
                                       seq[r["rid"]])
-    for kind in ("sharded", "disagg"):
-        with pytest.raises(NotImplementedError):
-            make_engine(kind, tm)
+    # the mesh engines build at world size 1 (gloo) and serve the
+    # sequential streams; sharding cuts a model in place, so each takes
+    # its own copy
+    import copy
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+
+    init_distributed("cpu")
+    try:
+        for kind, kw in (("sharded", dict(mesh=make_serve_mesh())),
+                         ("disagg", dict(decode_mesh=make_serve_mesh(),
+                                         prefill_mesh=make_serve_mesh()))):
+            model = copy.deepcopy(tm)
+            eng = make_engine(kind, model, page_size=4, max_slots=2,
+                              max_request_len=16, **kw)
+            assert eng.kind == kind
+            for r in wl:
+                eng.submit(r["prompt"], r["max_new_tokens"])
+            got = eng.drain()
+            want = run_sequential(model, wl, cache_len=eng.gather_tokens)
+            for r in wl:
+                np.testing.assert_array_equal(got[r["rid"]], want[r["rid"]])
+    finally:
+        dist.destroy_process_group()

@@ -1,0 +1,491 @@
+"""Sharded and disaggregated serving on four gloo processes (CPU).
+
+One child run spawns four ranks on a ``file://`` store and serves every
+case below; each rank writes what it saw, and the tests read it.  The
+reference's five cases of ``tests/test_serve_sharded.py``, and int8:
+
+  * tinyllama at dp 2 x tp 2, compact and masked, single-shot and chunked
+    (chunk counts; never more than one chunk a step);
+  * qwen2-moe at tp 2 x ep 2: pools split on the heads dim only, 2 of 8
+    experts a rank;
+  * preemption under pool pressure, with ``preempt_log`` equal across
+    (2, 2), (1, 4) and (4, 1);
+  * disaggregation, prefill on ranks 0-1 and decode on 2-3: one handoff a
+    request, single-shot and chunked;
+  * prefix sharing on both engines;
+  * seeded faults, and a snapshot restored into a new sharded engine;
+  * int8 storage (tinyllama, qwen2-moe).
+
+Every engine's greedy streams equal ``run_sequential`` over the same
+sharded model, token for token.  And for five archs in the four storages
+(dense, masked, compact, int8), the sharded model's first prefill and 4
+decode logits are within 1e-5 * max|ref| of the reference's single-device
+``LMModel`` on the same bridged parameters (``load_jax_params`` loading
+each rank's share), and every rank holds 1/n of the elements of each
+tensor the spec splits over "model".  The reference runs here, in the
+test process; the ranks import only torch and the port.
+"""
+import json
+import os
+import pickle
+import signal
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import apply_sparsity as j_apply_sparsity
+from repro.configs import get_config as j_get_config
+from repro.configs import reduce_config as j_reduce_config
+from repro.models import LMModel as JLMModel
+from repro.sparsity import quantize_weights as j_quantize_weights
+
+from test_torch_quant_model import quant_tree_to_numpy
+
+ROOT = Path(__file__).resolve().parents[1]
+RTOL = 1e-5
+N_PROMPT, N_DECODE = 7, 4
+# (name, arch, storage, mesh dims, config fields replaced on both sides):
+# a vocabulary of 1024 splits over "model" (the reduced 997 does not), so
+# the vocabulary-parallel embedding and (tied) head run; gemma3 keeps one
+# period of its 5 swa : 1 attn pattern, its 2 kv heads gathered over 4
+LOGIT_CASES = [
+    ("tinyllama-dense", "tinyllama-1.1b", "dense", (2, 2),
+     {"vocab_size": 1024}),
+    ("tinyllama-masked", "tinyllama-1.1b", "xla_masked", (2, 2), {}),
+    ("tinyllama-compact", "tinyllama-1.1b", "auto", (2, 2), {}),
+    ("tinyllama-int8", "tinyllama-1.1b", "int8", (2, 2), {}),
+    ("qwen2-moe-masked", "qwen2-moe-a2.7b", "xla_masked", (1, 2, 2), {}),
+    ("qwen2-moe-compact", "qwen2-moe-a2.7b", "auto", (1, 2, 2), {}),
+    ("qwen2-moe-int8", "qwen2-moe-a2.7b", "int8", (1, 2, 2), {}),
+    ("gemma-7b-compact", "gemma-7b", "auto", (2, 2), {"vocab_size": 1024}),
+    ("gemma3-4b-compact", "gemma3-4b", "auto", (1, 4), {"n_layers": 6}),
+    ("deepseek-7b-dense", "deepseek-7b", "dense", (1, 4),
+     {"vocab_size": 1024}),
+]
+ENGINE_CASES = ["tp-compact", "tp-masked", "moe-ep", "preempt", "disagg",
+                "prefix", "faults-snapshot", "int8"]
+
+CHILD = r'''
+import json, os, pickle, sys
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def config(arch, storage, fields):
+    from repro_torch.configs import apply_sparsity, get_config, reduce_config
+    cfg = reduce_config(get_config(arch))
+    if storage == "dense":
+        cfg = apply_sparsity(cfg, pattern="dense")
+    else:
+        cfg = apply_sparsity(cfg, pattern="rbgp4", sparsity=0.5,
+                             backend="auto" if storage == "int8" else storage,
+                             min_dim=64)
+    return cfg.with_(**fields)
+
+
+def workload(shapes, vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"rid": i, "prompt": rng.integers(0, vocab, s).astype(np.int32),
+             "max_new_tokens": g, "sampling": None}
+            for i, (s, g) in enumerate(shapes)]
+
+
+def rank_main(rank, world, store, work):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    from repro_torch.bridge import flatten_jax_tree, load_jax_params
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import LMModel
+    from repro_torch.parallel import COLLECTIVES, reset_collectives
+    from repro_torch.serve import run_sequential
+    from repro_torch.serve.distributed import (DisaggregatedEngine,
+                                               ShardedContinuousEngine)
+    from repro_torch.sparsity import quantize_weights
+
+    with open(os.path.join(work, "cases.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    res = {}
+
+    def build(name, dims):
+        c = cases[name]
+        cfg = config(c["arch"], c["storage"], c["fields"])
+        model = LMModel(cfg, device="cpu", seed=0)
+        if c["storage"] == "int8":
+            quantize_weights(model)
+        from repro_torch.parallel import shard_module
+        shard_module(model, make_serve_mesh(*dims))
+        load_jax_params(model, c["tree"])
+        return model, c
+
+    def streams(eng, wl, model):
+        for r in wl:
+            eng.submit(r["prompt"], r["max_new_tokens"])
+        out = eng.drain()
+        ref = run_sequential(model, wl, cache_len=eng.gather_tokens)
+        return (sorted(out) == sorted(r["rid"] for r in wl) and all(
+            np.array_equal(out[r["rid"]], ref[r["rid"]]) for r in wl))
+
+    def logits_case(name):
+        c = cases[name]
+        model, _ = build(name, tuple(c["dims"]))
+        reset_collectives()
+        toks = c["tokens"]
+        cache = model.init_cache(1, 16, torch.float32)
+        got = [model.prefill(toks[:, :N_PROMPT], cache)[0]]
+        for i in range(N_DECODE):
+            p = N_PROMPT + i
+            got.append(model.decode_step(toks[:, p:p + 1], cache, p)[0])
+        got = torch.cat(got).numpy()
+        want = c["logits"]
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        full = flatten_jax_tree(model.cfg, c["tree"])
+        n = model.mesh.size(1)
+        state = model.state_dict()
+        split = {k: p for k, p in model.placements.items() if p.model_split}
+        share = {k: [state[k].numel(), int(np.prod(full[k].shape))]
+                 for k in split}
+        return {"err": err, "collectives": dict(COLLECTIVES),
+                "n_model": n, "share": share,
+                "kept_whole": [k for k, p in split.items() if p.cut is None],
+                "cut": sum(p.cut is not None for p in split.values())}
+
+    def engine_case(name):
+        out = {}
+        if name in ("tp-compact", "tp-masked"):
+            model, _ = build("tinyllama-" + name[3:], (2, 2))
+            wl = workload([(4, 3), (12, 6), (8, 2), (16, 4)],
+                          model.cfg.vocab_size)
+            mesh = model.mesh
+            eng = ShardedContinuousEngine(model, mesh, page_size=4,
+                                          max_slots=3, max_request_len=40)
+            out["single"] = streams(eng, wl, model)
+            eng = ShardedContinuousEngine(model, mesh, page_size=4,
+                                          max_slots=3, max_request_len=40,
+                                          prefill_chunk=5)
+            out["chunked"] = streams(eng, wl, model)
+            out["chunks"] = eng.stats["prefill_chunks"]
+            out["want_chunks"] = sum(-(-r["prompt"].shape[0] // 5)
+                                     for r in wl)
+            out["max_chunks_a_step"] = max(t["prefill_chunks"]
+                                           for t in eng.step_trace)
+            out["chunk_beside_decode"] = any(
+                t["prefill_chunks"] == 1 and t["decode_rows"] > 0
+                for t in eng.step_trace)
+        elif name == "moe-ep":
+            model, _ = build("qwen2-moe-compact", (1, 2, 2))
+            eng = ShardedContinuousEngine(model, model.mesh, page_size=4,
+                                          max_slots=2, max_request_len=32)
+            out["pool_specs"] = [[list(s) for s in layer.values()]
+                                 for layer in eng.kv.specs]
+            out["pool_heads"] = [tuple(p["k"].shape)
+                                 for p in eng.kv.pools][:1]
+            ffn = model.stack.layers[0].ffn
+            out["experts"] = [ffn.tp.lo, ffn.tp.hi,
+                              ffn.experts.gate["w_data"].shape[0]]
+            out["streams"] = streams(eng, workload(
+                [(4, 3), (8, 4), (6, 2)], model.cfg.vocab_size, seed=2),
+                model)
+        elif name == "preempt":
+            traces = {}
+            for dims in ((2, 2), (1, 4), (4, 1)):
+                model, _ = build("tinyllama-compact", dims)
+                wl = workload([(4, 8), (12, 10), (8, 9), (16, 6), (6, 10)],
+                              model.cfg.vocab_size)
+                eng = ShardedContinuousEngine(
+                    model, model.mesh, page_size=4, max_slots=4,
+                    max_request_len=40, reserve="prompt", n_blocks=11)
+                tag = "x".join(map(str, dims))
+                out[tag] = {"streams": streams(eng, wl, model),
+                            "preemptions": eng.stats["preemptions"],
+                            "resumed": eng.stats["resumed_prefills"],
+                            "whole": eng.kv.allocator.n_free
+                            == eng.kv.allocator.n_total}
+                traces[tag] = [list(t) for t in eng.preempt_log]
+            out["traces"] = traces
+        elif name == "disagg":
+            c = cases["tinyllama-compact"]
+            cfg = config(c["arch"], c["storage"], c["fields"])
+            wl = workload([(4, 3), (12, 6), (8, 2), (16, 4)],
+                          cfg.vocab_size, seed=1)
+            for chunk in (0, 5):
+                m2 = LMModel(cfg, device="cpu", seed=0)
+                pm = make_serve_mesh(1, 2, ranks=[0, 1])
+                dm = make_serve_mesh(1, 2, ranks=[2, 3])
+                eng = DisaggregatedEngine(m2, dm, pm, page_size=4,
+                                          max_slots=3, max_request_len=40,
+                                          prefill_chunk=chunk)
+                load_jax_params(m2, c["tree"])
+                ok = streams(eng, wl, m2)
+                out[f"chunk{chunk}"] = {
+                    "streams": ok, "handoffs": eng.stats["handoffs"],
+                    "max_chunks_a_step": max(t["prefill_chunks"]
+                                             for t in eng.step_trace),
+                    "role": [eng.in_prefill, eng.in_decode],
+                    "pools": len(eng.kv.pools)}
+        elif name == "prefix":
+            os.environ["REPRO_SERVE_CHECKS"] = "1"
+            model, c = build("tinyllama-compact", (2, 2))
+            rng = np.random.default_rng(0)
+            V = model.cfg.vocab_size
+            base = rng.integers(1, V, size=16).astype(np.int32)
+            tail = rng.integers(1, V, size=9).astype(np.int32)
+            wl = [{"rid": 0, "prompt": base.copy(), "max_new_tokens": 4},
+                  {"rid": 1, "prompt": base.copy(), "max_new_tokens": 4},
+                  {"rid": 2, "prompt": base[:8].copy(), "max_new_tokens": 4},
+                  {"rid": 3, "prompt": np.concatenate([base[:12], tail]),
+                   "max_new_tokens": 4}]
+            for chunk in (0, 5):
+                eng = ShardedContinuousEngine(
+                    model, model.mesh, page_size=4, max_slots=1,
+                    max_request_len=32, prefill_chunk=chunk,
+                    prefix_cache=True)
+                ok = streams(eng, wl, model)
+                eng.kv.allocator.check_invariants()
+                out[f"sharded{chunk}"] = [ok, eng.stats["prefix_hits"],
+                                          eng.stats["prefix_cow_copies"]]
+                m2 = LMModel(model.cfg, device="cpu", seed=0)
+                eng = DisaggregatedEngine(
+                    m2, make_serve_mesh(1, 2, ranks=[2, 3]),
+                    make_serve_mesh(1, 2, ranks=[0, 1]), page_size=4,
+                    max_slots=1, max_request_len=32, prefill_chunk=chunk,
+                    prefix_cache=True)
+                load_jax_params(m2, c["tree"])
+                ok = streams(eng, wl, m2)
+                eng.kv.allocator.check_invariants()
+                out[f"disagg{chunk}"] = [ok, eng.stats["prefix_hits"],
+                                         eng.stats["shared_prefills"]]
+            os.environ.pop("REPRO_SERVE_CHECKS")
+        elif name == "faults-snapshot":
+            from repro_torch.serve import FaultSchedule, restore_engine
+            model, _ = build("tinyllama-compact", (2, 2))
+            wl = workload([(4, 8), (12, 10), (8, 9), (16, 6), (6, 10)],
+                          model.cfg.vocab_size, seed=4)
+            kw = dict(page_size=4, max_slots=3, max_request_len=40)
+            eng = ShardedContinuousEngine(
+                model, model.mesh, faults=FaultSchedule.random(
+                    0, horizon=16, n_events=6), **kw)
+            out["faults"] = [streams(eng, wl, model),
+                             eng.stats["fault_events"]]
+            # a snapshot after 4 steps (each rank its own file), restored
+            # into a new sharded engine over the same sharded model
+            eng = ShardedContinuousEngine(model, model.mesh, **kw)
+            for r in wl:
+                eng.submit(r["prompt"], r["max_new_tokens"])
+            for _ in range(4):
+                eng.step()
+            path = os.path.join(work, f"snap{rank}.npz")
+            eng.snapshot(path)
+            eng = restore_engine(path, model, mesh=model.mesh)
+            got = eng.drain()
+            ref = run_sequential(model, wl, cache_len=eng.gather_tokens)
+            out["snapshot"] = [eng.kind, all(np.array_equal(
+                got[r["rid"]], ref[r["rid"]]) for r in wl)]
+        elif name == "int8":
+            for case, dims in (("tinyllama-int8", (2, 2)),
+                               ("qwen2-moe-int8", (1, 2, 2))):
+                model, _ = build(case, dims)
+                eng = ShardedContinuousEngine(model, model.mesh, page_size=4,
+                                              max_slots=3,
+                                              max_request_len=40)
+                out[case] = streams(eng, workload(
+                    [(4, 3), (12, 6), (8, 2), (16, 4)],
+                    model.cfg.vocab_size, seed=3), model)
+        return out
+
+    N_PROMPT, N_DECODE = cases["__n__"]
+    # an exception ends this rank, and mp.spawn then ends the others: no
+    # rank waits in a collective its peers never reach
+    for name in cases["__logits__"]:
+        res[name] = logits_case(name)
+    for name in cases["__engines__"]:
+        res[name] = engine_case(name)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    work = sys.argv[1]
+    mp.spawn(rank_main, args=(4, os.path.join(work, "store"), work),
+             nprocs=4)
+'''
+
+
+def reference_case(arch, storage, fields, seed=0):
+    """The reference's tree (numpy, as ``load_jax_params`` takes it), the
+    tokens and the logits at the prefill's last position and the 4 decode
+    positions (one causal forward over all of them; a MoE model's
+    prefill and decode steps, which route at full capacity)."""
+    cfg = j_reduce_config(j_get_config(arch))
+    if storage == "dense":
+        cfg = j_apply_sparsity(cfg, pattern="dense")
+    else:
+        cfg = j_apply_sparsity(
+            cfg, pattern="rbgp4", sparsity=0.5,
+            backend="auto" if storage == "int8" else storage, min_dim=64)
+    cfg = cfg.with_(**fields)
+    jm = JLMModel(cfg)
+    params = jm.init(jax.random.PRNGKey(seed))
+    if storage == "int8":
+        params = j_quantize_weights(params)
+    toks = np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (1, N_PROMPT + N_DECODE)).astype(np.int32)
+    if cfg.moe is None:
+        logits = jm.forward(params, {"tokens": jnp.asarray(toks)})[0]
+        return (quant_tree_to_numpy(params), toks,
+                np.asarray(logits)[0, N_PROMPT - 1:])
+    # the training forward routes at a capacity and may drop tokens;
+    # serving routes at full capacity: the prefill and decode steps
+    cache = jm.init_cache(1, 16, jnp.float32)
+    out, cache = jax.jit(jm.prefill)(
+        params, {"tokens": jnp.asarray(toks[:, :N_PROMPT])}, cache)
+    logits = [np.asarray(out)]
+    decode = jax.jit(jm.decode_step)
+    for i in range(N_DECODE):
+        p = N_PROMPT + i
+        out, cache = decode(params, jnp.asarray(toks[:, p:p + 1]), cache, p)
+        logits.append(np.asarray(out))
+    return quant_tree_to_numpy(params), toks, np.concatenate(logits)
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    work = tmp_path_factory.mktemp("sharded")
+    cases = {"__n__": (N_PROMPT, N_DECODE),
+             "__logits__": [c[0] for c in LOGIT_CASES],
+             "__engines__": ENGINE_CASES}
+    for name, arch, storage, dims, fields in LOGIT_CASES:
+        tree, toks, logits = reference_case(arch, storage, fields)
+        cases[name] = dict(arch=arch, storage=storage, dims=dims,
+                           fields=fields, tree=tree, tokens=toks,
+                           logits=logits)
+    with open(work / "cases.pkl", "wb") as f:
+        pickle.dump(cases, f)
+    (work / "child.py").write_text(CHILD)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    out, err, rc = run_ranks([sys.executable, str(work / "child.py"),
+                              str(work)], env)
+    assert rc == 0, out[-3000:] + err[-6000:]
+    out = []
+    for r in range(4):
+        with open(work / f"rank{r}.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def run_ranks(cmd, env, timeout=300):
+    """Run ``cmd`` (which spawns the ranks) in a session of its own, and on
+    a timeout end the whole session, the ranks included."""
+    p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        return out, err + f"\ntimed out after {timeout} s", -1
+    return out, err, p.returncode
+
+
+def case(ranks, name):
+    return [res[name] for res in ranks]
+
+
+@pytest.mark.parametrize("name", [c[0] for c in LOGIT_CASES])
+def test_sharded_logits_match_the_reference_single_device_model(ranks,
+                                                                 name):
+    for r, res in enumerate(case(ranks, name)):
+        assert res["err"] <= RTOL, (r, res["err"])
+        assert res["collectives"]["all_gather"] > 0
+
+
+@pytest.mark.parametrize("name", [c[0] for c in LOGIT_CASES])
+def test_every_rank_holds_its_share_of_each_split_tensor(ranks, name):
+    """1/n of the elements of every tensor the spec splits over "model":
+    the sharding is real, and nothing it splits stays whole."""
+    for r, res in enumerate(case(ranks, name)):
+        n = res["n_model"]
+        assert res["cut"] > 0 and not res["kept_whole"], (r,
+                                                         res["kept_whole"])
+        for k, (local, full) in res["share"].items():
+            assert local * n == full, (r, k, local, full)
+
+
+def test_tp_engine_streams_compact_and_masked_single_and_chunked(ranks):
+    for name in ("tp-compact", "tp-masked"):
+        for r, res in enumerate(case(ranks, name)):
+            assert res["single"] and res["chunked"], (name, r)
+            assert res["chunks"] == res["want_chunks"]
+            assert res["max_chunks_a_step"] <= 1
+            assert res["chunk_beside_decode"]
+
+
+def test_tp_ep_moe_pools_split_on_heads_and_experts_over_ranks(ranks):
+    for r, res in enumerate(case(ranks, "moe-ep")):
+        assert res["streams"], r
+        found = False
+        for layer in res["pool_specs"]:
+            for spec in layer:
+                assert all(a in (None, "model") for a in spec), spec
+                if "model" in spec:
+                    found = True
+                    assert spec[0] is None and spec.index("model") == 2
+        assert found
+        assert res["pool_heads"][0][2] == 1      # 4 kv heads over 4
+        assert res["experts"] == [2 * r, 2 * r + 2, 2]
+
+
+def test_preemption_streams_and_victims_equal_across_meshes(ranks):
+    for r, res in enumerate(case(ranks, "preempt")):
+        for tag in ("2x2", "1x4", "4x1"):
+            assert res[tag]["streams"], (r, tag)
+            assert res[tag]["preemptions"] >= 2 and res[tag]["resumed"] >= 2
+            assert res[tag]["whole"]
+        t = res["traces"]
+        assert t["2x2"] == t["1x4"] == t["4x1"] and t["2x2"], t
+
+
+def test_disaggregated_engine_hands_off_once_a_request(ranks):
+    for r, res in enumerate(case(ranks, "disagg")):
+        for chunk in ("chunk0", "chunk5"):
+            got = res[chunk]
+            assert got["streams"], (r, chunk)
+            assert got["handoffs"] == 4
+            assert got["max_chunks_a_step"] <= 1
+            assert got["role"] == [r < 2, r >= 2]
+            assert got["pools"] == (0 if r < 2 else 2)
+
+
+def test_prefix_sharing_on_both_engines(ranks):
+    for r, res in enumerate(case(ranks, "prefix")):
+        for chunk in (0, 5):
+            ok, hits, cow = res[f"sharded{chunk}"]
+            assert ok and hits > 0 and cow >= 2, (r, chunk)
+            ok, hits, shared = res[f"disagg{chunk}"]
+            assert ok and hits > 0 and shared > 0, (r, chunk)
+
+
+def test_faults_and_a_restored_snapshot_keep_the_sequential_streams(
+        ranks):
+    for r, res in enumerate(case(ranks, "faults-snapshot")):
+        ok, events = res["faults"]
+        assert ok and events > 0, (r, events)
+        assert res["snapshot"] == ["sharded", True], r
+
+
+def test_int8_sharded_streams_equal_the_sequential_path(ranks):
+    for r, res in enumerate(case(ranks, "int8")):
+        assert res["tinyllama-int8"] and res["qwen2-moe-int8"], r
