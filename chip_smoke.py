@@ -389,7 +389,8 @@ exits non-zero without the result line:
      model's form) against every step's own: ms, peak memory, outputs;
  50. train-archs: each of them trained at full width in bf16
      (``ARCH_TRAIN``: deepseek-v2 cut to 4 layers, jamba to 3, Mamba,
-     Mamba + MoE, Mamba; the others at full depth), 4 steps of 4 x 512
+     Mamba + MoE, Mamba; ``ARCH_TRAIN_TIME_CUT``: rwkv6-7b to 8 of 32 for
+     the script's time; the others at full depth), 4 steps of 4 x 512
      ``TokenStream(seed=0)`` tokens (4 codebooks for musicgen, text only
      for pixtral) as phase 10, the first untimed: the trainer's state
      reckoned on ``meta`` first (14 bytes a trainable value), for rwkv6-7b
@@ -411,9 +412,30 @@ exits non-zero without the result line:
      max|ref|, the routed ones routing alike with top-k margins of at
      least ``ROUTER_MARGIN``.
 
+ 52. check-shard: every rank's share at model 2 and 4 of tinyllama's four
+     layouts (rows and slots, ``KernelTables.rank_slice``), qwen2-moe's 60
+     experts a side (cut by expert), deepseek-v2's four MLA projections
+     (wq_a, wq_b, wkv_a by rows; wo by slots) and tinyllama's four chain
+     layouts under the hierarchical-block plan (rows and stored chunks,
+     ``ChainTables.rank_slice``): bf16 at 8 and 512 rows, f32 and int8 at
+     8, each against its plain version (worst absolute and relative diff
+     printed), the row shares and the rank-ordered sum of the slot shares
+     against the unsharded launch; the body each share takes is printed;
+ 53. serve-sharded: an NCCL group of world size 1; full-width tinyllama
+     and qwen2-moe each serve 8 requests (prompts 128-512, 32 new tokens,
+     bf16, f32 KV cache) through ``ContinuousEngine``, then
+     ``ShardedContinuousEngine`` and ``DisaggregatedEngine`` on the same
+     model: the streams equal token for token, each pass launching every
+     sparse projection once; collectives a pass, host us a collective,
+     decode ms/step and peak GB of each engine;
+ 54. serve-sharded-archs: the same for deepseek-v2 (MLA, 4 of 60 layers),
+     pixtral-12b (40 layers; text prompts), musicgen-medium (48 layers, 4
+     codebooks) and tinyllama under the chain plan (22 layers).
+
 ``python3 chip_smoke.py --autotune-only`` runs phases 1, 4, 33 and 45-47
 alone (a quicker check of the autotuner; no result line);
-``python3 chip_smoke.py --archs-only`` runs phases 1 and 48-51 alone.
+``python3 chip_smoke.py --archs-only`` runs phases 1 and 48-51 alone;
+``python3 chip_smoke.py --shard-only`` phases 1 and 52-54.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -5638,6 +5660,10 @@ ARCH_TRAIN = {
     "deepseek-v2-236b": 4,
     "jamba-1.5-large-398b": 3,
 }
+#: phase 50's depths where the script's time limit, not the card, cuts
+#: one: rwkv6-7b's sequential scans take about 16 s a step at its 32
+#: layers on an H100, a quarter of that at 8
+ARCH_TRAIN_TIME_CUT = {"rwkv6-7b": 8}
 #: phase 50's batch (4 x 512 tokens, as qwen2-moe's training phase) and
 #: steps (the first untimed)
 ARCH_TRAIN_BATCH, ARCH_TRAIN_SEQ, ARCH_TRAIN_STEPS = 4, 512, 4
@@ -5702,12 +5728,14 @@ def train_state_gb(cfg) -> tuple[int, float]:
 def sparse_per_pass(model) -> dict:
     """The launches one prefill call or decode step must make: one
     ``rbgp4mm_rhs`` a compact projection, three ``rbgp4mm_rhs_stacked`` a
-    MoE layer's compact experts."""
-    n_compact = sum(1 for mod in model.modules()
-                    if getattr(mod, "mode", None) == "compact")
+    MoE layer's compact experts, one ``chainmm_rhs`` a chain
+    projection."""
+    modes = collections.Counter(getattr(mod, "mode", None)
+                                for mod in model.modules())
     n_stacked = 3 * sum(1 for mod in model.modules()
                         if getattr(mod, "compact", False))
-    return launches_of(forward=n_compact, stacked_forward=n_stacked)
+    return launches_of(forward=modes["compact"], stacked_forward=n_stacked,
+                       chain_forward=modes["chain"])
 
 
 def phase_arch_parity(arch: str) -> dict:
@@ -6461,8 +6489,8 @@ def experts_note(lay: dict) -> str:
 
 def phase_train_arch(arch: str, smi: str) -> dict:
     """Phase 50: ``arch`` trained at full width in bf16
-    (``arch_train_config``: cut in depth only where ``ARCH_TRAIN`` says)
-    through ``phase_train``: ``ARCH_TRAIN_STEPS`` steps of
+    (``arch_train_config``: cut in depth where ``ARCH_TRAIN`` says, and
+    where ``ARCH_TRAIN_TIME_CUT`` says for time) through ``phase_train``: ``ARCH_TRAIN_STEPS`` steps of
     ``ARCH_TRAIN_BATCH`` x ``ARCH_TRAIN_SEQ`` tokens (text only for a
     vision model, 4 codebooks for an audio one).  Before it, the state
     reckoned on ``meta`` (``train_state_gb``), for a recurrent arch one
@@ -6472,7 +6500,7 @@ def phase_train_arch(arch: str, smi: str) -> dict:
     it, the measured peak and resident state beside the reckoning."""
     from repro_torch.configs import get_config
 
-    cfg = arch_train_config(arch)
+    cfg = arch_train_config(arch, ARCH_TRAIN_TIME_CUT.get(arch))
     n_values, state_gb = train_state_gb(cfg)
     log("train-archs", f"{arch}: {cfg.n_layers} of "
                        f"{get_config(arch).n_layers} layers, d_model "
@@ -6540,44 +6568,88 @@ def arch_phases(smi: str) -> tuple[dict, dict, dict]:
     return parity, serve, train
 
 
-# -- phases 52-53: distribution ------------------------------------------------
+# -- phases 52-54: distribution ------------------------------------------------
 
 # tensor-parallel sizes phase 52 cuts the layouts for, and the rows of its
 # bf16 launches (decode, and the widest serve prompt's prefill)
 SHARD_MODELS = (2, 4)
 SHARD_ROWS = (8, 512)
-# phase 53: 8 requests at SERVE_PROMPT_LENS, 32 new tokens each
+# phases 53-54: 8 requests at SERVE_PROMPT_LENS, 32 new tokens each
 SHARD_REQUESTS, SHARD_GEN = 8, 32
+# phase 54's models: MLA with 160 routed experts (deepseek-v2, 4 of 60
+# layers, as phase 49 serves it), the patch frontend (pixtral-12b; text
+# prompts), codebooks (musicgen-medium) and chain storage (tinyllama under
+# the hierarchical-block plan), all at full width
+SHARD_ARCHS = ("deepseek-v2-236b", "pixtral-12b", "musicgen-medium",
+               "tinyllama-1.1b (chain)")
+
+
+def mla_layouts() -> dict:
+    """deepseek-v2's four MLA projections at full width, under the
+    configuration phase 49 serves (rbgp4 0.75, ``min_dim=64``): wq_a,
+    wq_b and wkv_a column-parallel, wo row-parallel."""
+    from repro_torch.sparsity.patterns import make_pattern
+
+    cfg = main_config("bfloat16", "deepseek-v2-236b")
+    m, H, d = cfg.mla, cfg.n_heads, cfg.d_model
+    shapes = {"wq_a": (m.q_lora_rank, d),
+              "wq_b": (H * (m.nope_head_dim + m.rope_head_dim),
+                       m.q_lora_rank),
+              "wkv_a": (m.kv_lora_rank + m.rope_head_dim, d),
+              "wo": (d, H * m.v_head_dim)}
+    return {name: make_pattern(cfg.sparsity_rules.resolve(
+                f"l0.mla.{name}", rows, cols).to_config(), rows, cols).layout
+            for name, (rows, cols) in shapes.items()}
 
 
 def shard_cases() -> list:
-    """(name, layout, kind) of every share phase 52 holds: tinyllama's
-    column-parallel rows (wq, wk/wv, gate/up; qwen2-moe's wq, wk, wv and
-    shared gate/up are the same layouts) and row-parallel slots (wo,
-    down; qwen2-moe's wo and shared down), and qwen2-moe's 60 experts a
-    side cut by expert."""
-    tiny, moe = full_width_layouts(), moe_layouts()
-    return [("wq/wo rows", tiny["wq/wo"], "rows"),
-            ("wk/wv rows", tiny["wk/wv"], "rows"),
-            ("gate/up rows", tiny["gate/up"], "rows"),
-            ("wq/wo slots", tiny["wq/wo"], "slots"),
-            ("down slots", tiny["down"], "slots"),
-            ("experts in", moe["gate/up"], "experts"),
-            ("experts out", moe["down"], "experts")]
+    """(name, layout, kind, family) of every share phase 52 holds:
+    tinyllama's column-parallel rows (wq, wk/wv, gate/up; qwen2-moe's wq,
+    wk, wv and shared gate/up are the same layouts) and row-parallel slots
+    (wo, down; qwen2-moe's wo and shared down), qwen2-moe's 60 experts a
+    side cut by expert, deepseek-v2's MLA projections (wq_a, wq_b and
+    wkv_a by rows, wo by slots) and tinyllama's chain layouts under the
+    hierarchical-block plan (rows and stored chunks)."""
+    from repro_torch.core import ChainLayout, design_rbgp
+
+    tiny, moe, mla = full_width_layouts(), moe_layouts(), mla_layouts()
+    chain = {key: ChainLayout(design_rbgp(m, k, CHAIN_SPARSITY, factors=HIER,
+                                          seed=0))
+             for key, (m, k) in FULL_WIDTH.items()}
+    return [("wq/wo rows", tiny["wq/wo"], "rows", "rbgp4"),
+            ("wk/wv rows", tiny["wk/wv"], "rows", "rbgp4"),
+            ("gate/up rows", tiny["gate/up"], "rows", "rbgp4"),
+            ("wq/wo slots", tiny["wq/wo"], "slots", "rbgp4"),
+            ("down slots", tiny["down"], "slots", "rbgp4"),
+            ("experts in", moe["gate/up"], "experts", "rbgp4"),
+            ("experts out", moe["down"], "experts", "rbgp4"),
+            ("mla wq_a rows", mla["wq_a"], "rows", "rbgp4"),
+            ("mla wq_b rows", mla["wq_b"], "rows", "rbgp4"),
+            ("mla wkv_a rows", mla["wkv_a"], "rows", "rbgp4"),
+            ("mla wo slots", mla["wo"], "slots", "rbgp4"),
+            ("chain wq/wo rows", chain["wq/wo"], "rows", "chain"),
+            ("chain wk/wv rows", chain["wk/wv"], "rows", "chain"),
+            ("chain gate/up rows", chain["gate/up"], "rows", "chain"),
+            ("chain wq/wo slots", chain["wq/wo"], "slots", "chain"),
+            ("chain down slots", chain["down"], "slots", "chain")]
 
 
 def phase_check_shard() -> dict:
     """Phase 52: every rank's share of the full-width layouts at model = 2
-    and 4 (``KernelTables.rank_slice``: rows, slots; experts by expert),
-    launched in bf16 at ``SHARD_ROWS`` rows (an expert), in float32 and in
-    int8 (bf16 X) at 8, each held against its plain version on the same
-    share, each launch moving ``launches`` (``launches_q``) by one and
-    ``launches_mma`` as ``rhs_path`` names; the row shares' outputs, and
+    and 4 (``KernelTables.rank_slice`` and ``ChainTables.rank_slice``:
+    rows, slots; experts by expert), launched in bf16 at ``SHARD_ROWS``
+    rows (an expert), in float32 and in int8 (bf16 X) at 8, each held
+    against its plain version on the same share, each launch moving
+    ``launches`` (``launches_q``) by one and ``launches_mma`` as
+    ``rhs_path`` / ``chain_rhs_path`` names; the row shares' outputs, and
     the rank-ordered sum of the slot shares' partials, against the
     unsharded launch on the same X, within bf16's tolerance of max|ref|.
     Times each share at model = 2 (bf16) beside the whole layout.
-    Returns the max abs diffs by launch role, and the times."""
-    from repro_torch.kernels import (KernelTables, rbgp4mm_rhs,
+    Returns the worst absolute and relative (to max|ref|) diffs by launch
+    role, the bodies each share kind took, and the times."""
+    from repro_torch.kernels import (KernelTables, chain_rhs_path,
+                                     chain_tables, chainmm_rhs,
+                                     chainmm_rhs_reference, rbgp4mm_rhs,
                                      rbgp4mm_rhs_reference,
                                      rbgp4mm_rhs_stacked,
                                      rbgp4mm_rhs_stacked_reference, rhs_path)
@@ -6588,34 +6660,45 @@ def phase_check_shard() -> dict:
     g = torch.Generator(device="cuda").manual_seed(52)
     rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
     bf16 = torch.bfloat16
-    max_abs = {"forward": 0.0, "stacked_forward": 0.0, "forward_q": 0.0,
-               "stacked_forward_q": 0.0}
-    times, n_launch = {}, 0
+    roles = ("forward", "stacked_forward", "chain_forward", "forward_q",
+             "stacked_forward_q", "chain_forward_q")
+    max_abs, max_rel = dict.fromkeys(roles, 0.0), dict.fromkeys(roles, 0.0)
+    times, bodies, n_launch = {}, {}, 0
 
-    def held(role, what, fn, plain, dims, n, dt, counter, attr):
+    def held(role, what, fn, call, plain, path, dt, attr):
+        """``call()`` (one launch of ``fn``, on body ``path``) against
+        ``plain()``."""
         nonlocal n_launch
-        mma0 = counter.launches_mma
-        y = launched(counter, fn, attr)
-        want = int(attr == "launches" and rhs_path(dims, n, dt) == "mma")
-        if counter.launches_mma - mma0 != want:
+        mma0 = fn.launches_mma
+        y = launched(fn, call, attr)
+        want = int(attr == "launches" and path == "mma")
+        if fn.launches_mma - mma0 != want:
             raise AssertionError(f"{what}: launches_mma moved by "
-                                 f"{counter.launches_mma - mma0}, want "
-                                 f"{want}")
-        err, _ = agree(what, y, plain(), dt)
+                                 f"{fn.launches_mma - mma0}, want {want}")
+        err, rel = agree(what, y, plain(), dt)
         max_abs[role] = max(max_abs[role], err)
+        max_rel[role] = max(max_rel[role], rel)
         n_launch += 1
 
-    for name, lay, kind in shard_cases():
-        tables = KernelTables.build(lay, "cuda")
+    for name, lay, kind, family in shard_cases():
+        chain = family == "chain"
+        tables = (chain_tables(lay, "cuda") if chain
+                  else KernelTables.build(lay, "cuda"))
         experts = kind == "experts"
         e = MOE_EXPERTS if experts else 1
-        w32 = rnd(e, lay.m, tables.dims.data_cols)
+        data_cols = tables.data_cols if chain else tables.dims.data_cols
+        w32 = rnd(e, lay.m, data_cols)
         q, sc = quantize_block_values(w32, *leaf_block_dims(tables))
         if experts:
             role, fn, ref = ("stacked_forward", rbgp4mm_rhs_stacked,
                              rbgp4mm_rhs_stacked_reference)
+        elif chain:
+            role, fn, ref = ("chain_forward", chainmm_rhs,
+                             chainmm_rhs_reference)
         else:
             role, fn, ref = "forward", rbgp4mm_rhs, rbgp4mm_rhs_reference
+        path_of = ((lambda t, n, dt: chain_rhs_path(t, n, dt)) if chain
+                   else (lambda t, n, dt: rhs_path(t.dims, n, dt)))
         for n_model in SHARD_MODELS:
             for r in range(n_model):
                 if experts:
@@ -6635,9 +6718,12 @@ def phase_check_shard() -> dict:
                     w = vals(w32.to(dt))
                     for n in rows:
                         x = rnd(*lead, n, lay.k).to(dt)
+                        path = path_of(tab, n, dt)
+                        bodies.setdefault(name, set()).add(
+                            f"{str(dt)[6:]} N={n} {path}")
                         held(role, f"{name} model={n_model} rank {r} N={n}",
-                             lambda: fn(tab, x, w), lambda: ref(tab, x, w),
-                             tab.dims, n, dt, fn, "launches")
+                             fn, lambda: fn(tab, x, w),
+                             lambda: ref(tab, x, w), path, dt, "launches")
                         if dt == bf16 and n_model == 2 and r == 0:
                             times[(name, n)] = (
                                 time_cuda(lambda i: fn(tab, x, w)),
@@ -6646,9 +6732,9 @@ def phase_check_shard() -> dict:
                 x = rnd(*lead, 8, lay.k).to(bf16)
                 qs, ss = vals(q), scales(sc)
                 held(role + "_q", f"{name} int8 model={n_model} rank {r}",
-                     lambda: fn(tab, x, qs, scales=ss),
-                     lambda: ref(tab, x, qs, scales=ss), tab.dims, 8, bf16,
-                     fn, "launches_q")
+                     fn, lambda: fn(tab, x, qs, scales=ss),
+                     lambda: ref(tab, x, qs, scales=ss), "fma", bf16,
+                     "launches_q")
             if experts:
                 continue
             # the ranks' shares against the unsharded launch on one X
@@ -6668,138 +6754,160 @@ def phase_check_shard() -> dict:
                 agree(f"{name} model={n_model} N={n}: the ranks against "
                       f"the unsharded launch", got, want, bf16)
         log("check-shard", f"{name}: every share at model 2 and 4 held "
-                           f"(bf16 at {SHARD_ROWS} rows, f32 and int8 at 8)"
+                           f"(bf16 at {SHARD_ROWS} rows, f32 and int8 at 8; "
+                           f"bodies {sorted(bodies.get(name, ()))})"
             + "".join(f"; N={n} share {a:.4f} ms"
                       + (f" (whole {b:.4f} ms)" if b is not None else "")
                       for (nm, n), (a, b) in times.items() if nm == name))
         del w32, q, sc
+    worst = {k: f"{max_abs[k]:.4g} ({max_rel[k]:.3g} of max|ref|)"
+             for k in roles}
     log("check-shard", f"{n_launch} launches held against their plain "
-                       f"versions; max abs diff {max_abs}; "
-                       f"{time.perf_counter() - t0:.1f}s")
-    return {"max_abs": max_abs, "times": times}
+                       f"versions; worst diff by role, absolute (relative) "
+                       f"{worst}; {time.perf_counter() - t0:.1f}s")
+    return {"max_abs": max_abs, "max_rel": max_rel, "times": times,
+            "launches": n_launch}
 
 
-def phase_serve_sharded(smi: str) -> list:
-    """Phase 53: an NCCL process group of world size 1
-    (``make_serve_mesh(1, 1, 1)``); full-width tinyllama-1.1b and
-    qwen2-moe-a2.7b (bf16 weights, f32 KV cache, 8 slots, 16-token pages,
-    greedy) each serve ``SHARD_REQUESTS`` requests of ``SHARD_GEN`` new
-    tokens through ``ContinuousEngine``, then ``ShardedContinuousEngine``
-    (the model sharded in place over the mesh) and
+def serve_sharded(cfg, label: str, decode_mesh, prefill_mesh, smi: str,
+                  phase: str) -> list:
+    """``cfg`` (bf16 weights, f32 KV cache, 8 slots, 16-token pages,
+    greedy) serves ``SHARD_REQUESTS`` requests of ``SHARD_GEN`` new tokens
+    through ``ContinuousEngine``, then ``ShardedContinuousEngine`` (the
+    model sharded in place over ``decode_mesh``) and
     ``DisaggregatedEngine`` (both roles on the one rank).  The sharded
     engines' streams must equal the continuous engine's token for token,
-    every prefill call and decode step launch each compact and stacked
-    projection once, the collective counters move and the disaggregated
-    engine hand off once a request.  Returns the runs (launch counts
-    from 0 just before each drive, read just after)."""
-    import torch.distributed as dist
-
+    every prefill call and decode step launch each sparse projection once
+    (``sparse_per_pass``), the collective counters move and the
+    disaggregated engine hand off once a request.  Returns the runs
+    (launch counts from 0 just before each drive, read just after)."""
     from repro_torch.data import RequestStream
-    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
     from repro_torch.parallel import COLLECTIVES, reset_collectives
     from repro_torch.serve import ContinuousEngine
     from repro_torch.serve.distributed import (DisaggregatedEngine,
                                                ShardedContinuousEngine)
 
+    free_card()
+    t0 = time.perf_counter()
+    model = build_model(cfg, False)
+    per_pass = sparse_per_pass(model)
+    reqs = RequestStream(cfg.vocab_size, SHARD_REQUESTS,
+                         prompt_lens=SERVE_PROMPT_LENS, gen_lens=(SHARD_GEN,),
+                         n_codebooks=cfg.n_codebooks, seed=0).requests()
+    max_len = max(r["prompt"].shape[0] + r["max_new_tokens"] for r in reqs)
+    kw = dict(page_size=16, max_slots=8, max_request_len=max_len,
+              cache_dtype=torch.float32)
+    log(phase, f"{label}: {cfg.n_layers} layers built in "
+               f"{time.perf_counter() - t0:.1f}s; launches a pass "
+               f"{ {k: v for k, v in per_pass.items() if v} }")
+    make = {"continuous": lambda: ContinuousEngine(model, **kw),
+            "sharded": lambda: ShardedContinuousEngine(model, decode_mesh,
+                                                       **kw),
+            "disagg": lambda: DisaggregatedEngine(model, decode_mesh,
+                                                  prefill_mesh, **kw)}
+    got, runs = {}, []
+    for kind, build in make.items():
+        # warm-up (cuBLAS handles, the allocator, each NCCL communicator's
+        # set-up at its first collective), not counted
+        warm = build()
+        warm.submit(reqs[0]["prompt"][:32], 2)
+        warm.drain()
+        del warm
+        engine = build()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_collectives()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r["prompt"], r["max_new_tokens"])
+        got[kind] = engine.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts, mma = launch_counts(), body_counts()
+        coll = dict(COLLECTIVES)
+        st = engine.stats
+        passes = st["prefill_calls"] + st["decode_steps"]
+        if counts != {k: v * passes for k, v in per_pass.items()}:
+            raise AssertionError(f"{label} {kind}: launches {counts} for "
+                                 f"{passes} passes, want {per_pass} each")
+        for r in reqs:
+            toks = np.asarray(got[kind][r["rid"]])
+            if toks.shape[0] != SHARD_GEN or toks.min() < 0 \
+                    or toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"{label} {kind} request {r['rid']}: "
+                                     f"tokens {toks}")
+            if kind != "continuous" and not np.array_equal(
+                    toks, got["continuous"][r["rid"]]):
+                raise AssertionError(
+                    f"{label} {kind} request {r['rid']}: stream "
+                    f"{toks.tolist()} != the continuous engine's "
+                    f"{np.asarray(got['continuous'][r['rid']]).tolist()}")
+        if kind != "continuous" and coll["all_gather"] == 0:
+            raise AssertionError(f"{label} {kind}: no collective ran: "
+                                 f"{coll}")
+        handoffs = st.get("handoffs")
+        if kind == "disagg" and handoffs != len(reqs):
+            raise AssertionError(f"{handoffs} handoffs, want {len(reqs)}")
+        run = dict(arch=label, engine=kind, launches=counts,
+                   mma_launches=mma, collectives=coll,
+                   collectives_a_pass=sum(coll.values()) / max(passes, 1),
+                   wall_s=wall, prefill_calls=st["prefill_calls"],
+                   decode_steps=st["decode_steps"],
+                   prefill_time_s=st["prefill_time_s"],
+                   decode_ms_per_step=1e3 * st["decode_time_s"]
+                   / max(st["decode_steps"], 1),
+                   handoffs=handoffs,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        runs.append(run)
+        log(phase,
+            f"{label} {kind}: {len(reqs)} requests in {wall:.3f}s; decode "
+            f"{st['decode_steps']} steps at {run['decode_ms_per_step']:.2f} "
+            f"ms/step; prefill {st['prefill_calls']} calls in "
+            f"{st['prefill_time_s']:.3f}s; collectives {coll} "
+            f"({run['collectives_a_pass']:.1f} a pass); handoffs "
+            f"{handoffs}; peak {run['peak_mem_gb']:.2f} GB; {smi}")
+        print(f"{phase} " + json.dumps(run), flush=True)
+        del engine
+    log(phase, f"{label}: the sharded and disaggregated streams equal the "
+               f"continuous engine's, token for token")
+    runs[-1]["collective_us"] = time_collectives(decode_mesh, cfg)
+    log(phase, f"{label}: one collective at world size 1, host wall a "
+               f"call: {runs[-1]['collective_us']}")
+    del model, make
+    free_card()
+    return runs
+
+
+def phase_serve_sharded(smi: str, decode_mesh, prefill_mesh) -> list:
+    """Phase 53: full-width tinyllama-1.1b and qwen2-moe-a2.7b through the
+    three engines (``serve_sharded``) on an NCCL process group of world
+    size 1 (``make_serve_mesh(1, 1, 1)``)."""
     t_phase = time.perf_counter()
-    init_distributed("cuda")
-    decode_mesh, prefill_mesh = make_serve_mesh(1, 1, 1), \
-        make_serve_mesh(1, 1, 1)
     runs = []
     for cfg in (main_config("bfloat16"), moe_config("bfloat16")):
-        free_card()
-        t0 = time.perf_counter()
-        model = build_model(cfg, False)
-        per_pass = sparse_per_pass(model)
-        reqs = RequestStream(cfg.vocab_size, SHARD_REQUESTS,
-                             prompt_lens=SERVE_PROMPT_LENS,
-                             gen_lens=(SHARD_GEN,), seed=0).requests()
-        max_len = max(r["prompt"].shape[0] + r["max_new_tokens"]
-                      for r in reqs)
-        kw = dict(page_size=16, max_slots=8, max_request_len=max_len,
-                  cache_dtype=torch.float32)
-        log("serve-sharded", f"{cfg.name}: built in "
-                             f"{time.perf_counter() - t0:.1f}s")
-        make = {"continuous": lambda: ContinuousEngine(model, **kw),
-                "sharded": lambda: ShardedContinuousEngine(
-                    model, decode_mesh, **kw),
-                "disagg": lambda: DisaggregatedEngine(
-                    model, decode_mesh, prefill_mesh, **kw)}
-        got = {}
-        for kind, build in make.items():
-            # warm-up (cuBLAS handles, the allocator, each NCCL
-            # communicator's set-up at its first collective), not counted
-            warm = build()
-            warm.submit(reqs[0]["prompt"][:32], 2)
-            warm.drain()
-            del warm
-            engine = build()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_collectives()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            for r in reqs:
-                engine.submit(r["prompt"], r["max_new_tokens"])
-            got[kind] = engine.drain()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts, mma = launch_counts(), body_counts()
-            coll = dict(COLLECTIVES)
-            st = engine.stats
-            passes = st["prefill_calls"] + st["decode_steps"]
-            if counts != {k: v * passes for k, v in per_pass.items()}:
-                raise AssertionError(f"{kind}: launches {counts} for "
-                                     f"{passes} passes, want {per_pass} "
-                                     f"each")
-            for r in reqs:
-                toks = np.asarray(got[kind][r["rid"]])
-                if toks.shape != (SHARD_GEN,) or toks.min() < 0 \
-                        or toks.max() >= cfg.vocab_size:
-                    raise AssertionError(f"{kind} request {r['rid']}: "
-                                         f"tokens {toks}")
-                if kind != "continuous" and not np.array_equal(
-                        toks, got["continuous"][r["rid"]]):
-                    raise AssertionError(
-                        f"{cfg.name} {kind} request {r['rid']}: stream "
-                        f"{toks.tolist()} != the continuous engine's "
-                        f"{np.asarray(got['continuous'][r['rid']]).tolist()}")
-            if kind != "continuous" and coll["all_gather"] == 0:
-                raise AssertionError(f"{kind}: no collective ran: {coll}")
-            handoffs = st.get("handoffs")
-            if kind == "disagg" and handoffs != len(reqs):
-                raise AssertionError(f"{handoffs} handoffs, want "
-                                     f"{len(reqs)}")
-            run = dict(arch=cfg.name, engine=kind, launches=counts,
-                       mma_launches=mma, collectives=coll, wall_s=wall,
-                       prefill_calls=st["prefill_calls"],
-                       decode_steps=st["decode_steps"],
-                       prefill_time_s=st["prefill_time_s"],
-                       decode_ms_per_step=1e3 * st["decode_time_s"]
-                       / max(st["decode_steps"], 1),
-                       handoffs=handoffs,
-                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-            runs.append(run)
-            log("serve-sharded",
-                f"{cfg.name} {kind}: {len(reqs)} requests in {wall:.3f}s; "
-                f"decode {st['decode_steps']} steps at "
-                f"{run['decode_ms_per_step']:.2f} ms/step; prefill "
-                f"{st['prefill_calls']} calls in "
-                f"{st['prefill_time_s']:.3f}s; collectives {coll}; "
-                f"handoffs {handoffs}; peak {run['peak_mem_gb']:.2f} GB; "
-                f"{smi}")
-            print("serve-sharded " + json.dumps(run), flush=True)
-            del engine
-        log("serve-sharded", f"{cfg.name}: the sharded and disaggregated "
-                             f"streams equal the continuous engine's, "
-                             f"token for token")
-        runs[-1]["collective_us"] = time_collectives(decode_mesh, cfg)
-        log("serve-sharded", f"{cfg.name}: one collective at world size 1, "
-                             f"host wall a call: {runs[-1]['collective_us']}")
-        del model, make
-        free_card()
-    dist.destroy_process_group()
+        runs += serve_sharded(cfg, cfg.name, decode_mesh, prefill_mesh, smi,
+                              "serve-sharded")
     log("serve-sharded", f"phase 53 in {time.perf_counter() - t_phase:.1f}s")
+    return runs
+
+
+def phase_serve_sharded_archs(smi: str, decode_mesh, prefill_mesh) -> list:
+    """Phase 54: ``SHARD_ARCHS`` through the three engines
+    (``serve_sharded``), as phase 53: deepseek-v2 (MLA, its compressed
+    pools whole on every rank, the routed experts cut by expert) at the
+    depth phase 49 serves, pixtral-12b (text prompts), musicgen-medium
+    (prompts and streams of 4 codebooks) and tinyllama-1.1b under the
+    hierarchical-block plan (every projection on ``chainmm_rhs``)."""
+    t_phase = time.perf_counter()
+    runs = []
+    for label in SHARD_ARCHS:
+        cfg = (chain_config("bfloat16") if label.endswith("(chain)")
+               else arch_serve_config(label))
+        runs += serve_sharded(cfg, label, decode_mesh, prefill_mesh, smi,
+                              "serve-sharded-archs")
+    log("serve-sharded-archs", f"phase 54 in "
+                               f"{time.perf_counter() - t_phase:.1f}s")
     return runs
 
 
@@ -6832,8 +6940,20 @@ def time_collectives(mesh, cfg, n_iter: int = 200) -> dict:
 
 
 def shard_phases(smi: str) -> tuple[dict, list]:
-    """Phases 52-53 (``--shard-only`` runs phases 1 and 52-53 alone)."""
-    return phase_check_shard(), phase_serve_sharded(smi)
+    """Phases 52-54 (``--shard-only`` runs phases 1 and 52-54 alone):
+    the shares, then the engines on one NCCL group of world size 1."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+
+    check = phase_check_shard()
+    init_distributed("cuda")
+    decode_mesh, prefill_mesh = make_serve_mesh(1, 1, 1), \
+        make_serve_mesh(1, 1, 1)
+    runs = phase_serve_sharded(smi, decode_mesh, prefill_mesh)
+    runs += phase_serve_sharded_archs(smi, decode_mesh, prefill_mesh)
+    dist.destroy_process_group()
+    return check, runs
 
 
 def main() -> int:
@@ -6844,9 +6964,9 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_build()
     if "--shard-only" in sys.argv[1:]:
-        # the quick check of the distribution: phases 52-53
+        # the quick check of the distribution: phases 52-54
         shard_phases(smi)
-        log("done", f"phases 1 and 52-53 passed in "
+        log("done", f"phases 1 and 52-54 passed in "
                     f"{time.perf_counter() - t_start:.1f}s on {smi}")
         return 0
     if "--archs-only" in sys.argv[1:]:
@@ -7036,7 +7156,9 @@ def main() -> int:
 
     # distribution: every rank's share of the layouts at model = 2 and 4
     # against the plain versions; the sharded and disaggregated engines at
-    # world size 1 (NCCL) against the continuous engine
+    # world size 1 (NCCL) against the continuous engine, on tinyllama and
+    # qwen2-moe (phase 53) and on MLA, the patch frontend, codebooks and
+    # chain storage (phase 54)
     t_shard = time.perf_counter()
     shard_check, shard_runs = shard_phases(smi)
     t_shard = time.perf_counter() - t_shard
@@ -7232,7 +7354,9 @@ def main() -> int:
         dict(name="chainmm_rhs", route="cuda", source=src + "chainmm_rhs.cu",
              replaces="src/repro/kernels/chainmm.py:309",
              launches=total("chain_forward"),
-             max_abs_err=max_abs_chain["forward"], **c_fwd,
+             max_abs_err=max(max_abs_chain["forward"],
+                             shard_check["max_abs"]["chain_forward"]),
+             **c_fwd,
              work="forward of tinyllama's chain projections under the "
                   "hierarchical-block plan (serve, and train with its "
                   "remat recompute); timed: one decoder layer's seven at "
@@ -7327,7 +7451,9 @@ def main() -> int:
              source=src + "chainmm_rhs.cu",
              replaces="src/repro/kernels/chainmm.py:309",
              launches=total("chain_forward_q"),
-             max_abs_err=max_abs_q["chain"], **q_c_fwd,
+             max_abs_err=max(max_abs_q["chain"],
+                             shard_check["max_abs"]["chain_forward_q"]),
+             **q_c_fwd,
              work="forward of tinyllama's int8 chain projections under "
                   "the hierarchical-block plan (serve under --quant "
                   "int8); timed: one decoder layer's seven at decode, 8 "
@@ -7375,7 +7501,7 @@ def main() -> int:
                 f"{t_vis:.1f}s, the plan phases {t_plan:.1f}s, the serving "
                 f"phases 38-44 {t_serve:.1f}s, the autotuner phases 45-47 "
                 f"{t_tune:.1f}s, the other archs' phases 48-51 "
-                f"{t_arch:.1f}s, the distribution phases 52-53 "
+                f"{t_arch:.1f}s, the distribution phases 52-54 "
                 f"{t_shard:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

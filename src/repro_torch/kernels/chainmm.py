@@ -63,7 +63,8 @@ import torch
 
 from . import autotune
 from .rbgp4mm import (_DTYPE_CODES, _NO_PLAN, _PATH_CODES, MMA_MIN_TOKENS,
-                      SDDMM_MMA_WAVES, RowGroupClasses, SddmmPlan,
+                      SDDMM_MMA_WAVES, RankSlice, RowGroupClasses, SddmmPlan,
+                      cut_col0,
                       _check_aligned16, _check_cuda, _launch, _pow2_tokens,
                       _randn, _sm_count, _values, token_slices)
 from .ref import dequant_leaf_blocks
@@ -200,6 +201,49 @@ class ChainTables:
                                    device=device).contiguous(),
                    RowGroupClasses.build(col0, device), transposed,
                    ChainDims.from_layout(layout))
+
+    def rank_slice(self, kind: str, rank: int, n: int
+                   ) -> Optional[RankSlice]:
+        """Rank ``rank`` of ``n``'s share of this chain layout under tensor
+        parallelism, or None where ``n`` does not divide the dim, as
+        ``KernelTables.rank_slice``: ``kind="rows"`` keeps rows [rank*M/n,
+        (rank+1)*M/n) in row groups of G' = gcd(G, M/n) rows,
+        ``kind="slots"`` stored columns [rank*S*C/n, ...) in chunks of C' =
+        gcd(C, S*C/n) columns (a part of a chunk starts at an offset into
+        it), whose product is a partial Y from the whole X.  The share's
+        row-group classes are those of its own ``col0``; each sub-group or
+        sub-chunk keeps its leaf block's int8 scale (``scale_index``).  The
+        unchanged ``chainmm_rhs`` runs it: it reads only ``col0``, the
+        classes, G, C and the sizes."""
+        cut = cut_col0(self.col0, self.group_rows, self.chunk_cols, kind,
+                       rank, n)
+        if cut is None:
+            return None
+        lo, hi, side, parent, c0 = cut
+        width = hi - lo
+        m, G, C = self.m, self.group_rows, self.chunk_cols
+        dims = self.dims
+        if kind == "rows":
+            m, G = width, side
+            if dims is not None:
+                dims = dataclasses.replace(dims, m=width,
+                                           tile_m=min(dims.tile_m, width),
+                                           leaf_rows=side)
+        else:
+            C = side
+            if dims is not None:
+                chunks, d_i = width // side, dims.d_i
+                d_head, inner = ((chunks // d_i, dims.inner)
+                                 if side == dims.leaf_cols
+                                 and chunks % d_i == 0 else (1, width))
+                dims = dataclasses.replace(dims, d_head=d_head, inner=inner,
+                                           leaf_cols=side)
+        device = self.col0.device
+        tables = ChainTables(
+            m, self.k, G, C,
+            torch.as_tensor(c0, dtype=torch.int32, device=device),
+            RowGroupClasses.build(c0, device), self.transposed, dims)
+        return RankSlice(kind, lo, hi, parent, tables)
 
     def col_index(self) -> torch.Tensor:
         """(M, nnz_row) int64 input column of each compact slot, on the

@@ -169,6 +169,37 @@ class RowGroupClasses:
                    on_device(start), tuple(int(c) for c in counts))
 
 
+def cut_col0(col0: torch.Tensor, G: int, C: int, kind: str, rank: int,
+             n: int) -> Optional[tuple]:
+    """Rank ``rank`` of ``n``'s share of a chunk-start table ``col0``
+    (M/G, n_chunks) of G-row groups and C-column chunks: (lo, hi, side,
+    parent, c0), the rows (``kind="rows"``) or stored columns
+    (``"slots"``) [lo, hi) it keeps, the share's G' = gcd(G, M/n) or C' =
+    gcd(C, n_chunks*C/n), the full table's row group or chunk each of its
+    sub-groups or sub-chunks lies in, and its own table (a part of a
+    chunk reads from an offset into it); None where ``n`` does not divide
+    the dim."""
+    col0 = col0.cpu().numpy().astype(np.int64)
+    if kind == "rows":
+        total, leaf = col0.shape[0] * G, G
+    elif kind == "slots":
+        total, leaf = col0.shape[1] * C, C
+    else:
+        raise ValueError(f"kind {kind!r} is neither 'rows' nor 'slots'")
+    if total % n:
+        return None
+    width = total // n
+    side = math.gcd(leaf, width)
+    sub = np.arange(rank * width // side, (rank + 1) * width // side)
+    parent = sub // (leaf // side)
+    if kind == "rows":
+        c0 = col0[parent]
+    else:
+        c0 = col0[:, parent] + (sub % (leaf // side)) * side
+    return (rank * width, (rank + 1) * width, side,
+            tuple(int(i) for i in parent), np.ascontiguousarray(c0))
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class KernelTables:
     """A layout's kernel dimensions and index tables on one device.
@@ -231,59 +262,45 @@ class KernelTables:
         sizes.  Each sub-group or sub-slot keeps its leaf block's int8
         scale."""
         dims = self.dims
-        G, C = dims.group_rows, dims.chunk_cols
-        col0 = self.col0.cpu().numpy().astype(np.int64)
+        cut = cut_col0(self.col0, dims.group_rows, dims.chunk_cols, kind,
+                       rank, n)
+        if cut is None:
+            return None
+        lo, hi, side, parent, c0 = cut
+        width = hi - lo
         if kind == "rows":
-            if dims.m % n:
-                return None
-            width = dims.m // n
-            G2 = math.gcd(G, width)
-            sub = np.arange(rank * width // G2, (rank + 1) * width // G2)
-            parent = sub // (G // G2)
-            c0 = col0[parent]
             tile_m = min(dims.tile_m, width)
-            dims2 = dataclasses.replace(dims, m=width, group_rows=G2,
+            dims2 = dataclasses.replace(dims, m=width, group_rows=side,
                                         tile_m=tile_m,
-                                        u_i=max(tile_m // G2, 1))
-        elif kind == "slots":
-            total = dims.data_cols
-            if total % n:
-                return None
-            width = total // n
-            C2 = math.gcd(C, width)
-            sub = np.arange(rank * width // C2, (rank + 1) * width // C2)
-            parent = sub // (C // C2)
-            c0 = col0[:, parent] + (sub % (C // C2)) * C2
-            n_slots = len(sub)
+                                        u_i=max(tile_m // side, 1))
+        else:
+            n_slots = width // side
             d_o, d_i = ((n_slots // dims.d_i, dims.d_i)
                         if n_slots % dims.d_i == 0 else (1, n_slots))
             dims2 = dataclasses.replace(dims, d_o=d_o, d_i=d_i,
-                                        chunk_cols=C2)
-        else:
-            raise ValueError(f"kind {kind!r} is neither 'rows' nor 'slots'")
+                                        chunk_cols=side)
         device = self.col0.device
-        c0 = np.ascontiguousarray(c0)
         tables = KernelTables(
             dims2, torch.as_tensor(c0, dtype=torch.int32, device=device),
             None, None, RowGroupClasses.build(c0, device), self.transposed)
-        return RankSlice(kind, rank * width, (rank + 1) * width,
-                         tuple(int(i) for i in parent), tables)
+        return RankSlice(kind, lo, hi, parent, tables)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class RankSlice:
-    """A rank's share of a compact layout (``KernelTables.rank_slice``):
-    ``kind`` ('rows' or 'slots'), the rows or compact columns [lo, hi) it
-    keeps, ``scale_index``, the leaf block (row group or slot) of the
-    full layout each of its sub-groups or sub-slots lies in, and the
-    share's kernel tables.  ``values`` and ``scales`` cut a full tensor (a
+    """A rank's share of a compact or chain layout
+    (``KernelTables.rank_slice``, ``ChainTables.rank_slice``): ``kind``
+    ('rows' or 'slots'), the rows or compact columns [lo, hi) it keeps,
+    ``scale_index``, the leaf block (row group or slot) of the full layout
+    each of its sub-groups or sub-slots lies in, and the share's kernel
+    tables (``KernelTables`` or ``ChainTables``).  ``values`` and ``scales`` cut a full tensor (a
     leading expert dim allowed) to the share."""
 
     kind: str
     lo: int
     hi: int
     scale_index: tuple[int, ...]
-    tables: KernelTables
+    tables: object
 
     @property
     def scale_dim(self) -> int:

@@ -26,6 +26,7 @@ from torch import nn
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.parallel.tensor import whole_output
 from repro_torch.sparsity import SparseLinear
 from .common import apply_rope, rope_frequencies
 
@@ -363,7 +364,16 @@ class MLAttention(nn.Module):
     one pass, or over key chunks through ``_online_attend`` past
     ``CHUNK_THRESHOLD`` keys.  The three sum in different orders, so each
     call takes the reference's branch.  ``device`` defaults to the card.
+
+    ``tp`` (a ``parallel.LatentShard``, set by ``parallel.shard_module``)
+    runs this rank's heads: ``wq_b`` gives their rows, ``wk_b`` and
+    ``wv_b`` hold them, and ``wo`` (row-parallel) sums their share over
+    the ranks; the latent stays whole on every rank (``wq_a``'s and
+    ``wkv_a``'s outputs gathered, every rank writing the whole ``ckv`` and
+    ``krope``).  A head's branch and order of summation do not change.
     """
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig, *, name: str = "mla", device=None,
                  dtype=torch.float32, param_dtype=torch.float32,
@@ -427,14 +437,17 @@ class MLAttention(nn.Module):
         H = self.cfg.n_heads
         dn, dr, dv, r = (m.nope_head_dim, m.rope_head_dim, m.v_head_dim,
                          m.kv_lora_rank)
+        if self.tp is not None:
+            H = self.tp.heads[1] - self.tp.heads[0]
         if m.q_lora_rank:
-            q = self.wq_b(self._rms(self.wq_a(x), self.q_norm_scale))
+            q_a = whole_output(self.wq_a, self.wq_a(x))
+            q = self.wq_b(self._rms(q_a, self.q_norm_scale))
         else:
             q = self.wq(x)
         q = q.reshape(B, S, H, self.q_head)
         q_nope = q[..., :dn]
         q_rope = apply_rope(q[..., dn:], self.inv_freq, positions)
-        kv = self.wkv_a(x)
+        kv = whole_output(self.wkv_a, self.wkv_a(x))
         ckv = self._rms(kv[..., :r], self.kv_norm_scale)
         k_rope = apply_rope(kv[..., r:][:, :, None, :], self.inv_freq,
                             positions)[:, :, 0]

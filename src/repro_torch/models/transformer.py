@@ -240,10 +240,15 @@ class Stack(nn.Module):
         in the reference's order (the head layers, the tail, then the
         scanned periods), so the first recurrent layer in that order names
         the refusal."""
-        n = self.cfg.n_layers
-        n_head, _, _, tail_start = jax_stack_split(self.cfg)
         pools = {i: self.layers[i].init_pages(n_blocks, page_size, dtype,
                                               device=device)
-                 for i in (*range(n_head), *range(tail_start, n),
-                           *range(n_head, tail_start))}
-        return [pools[i] for i in range(n)]
+                 for i in self.reference_order()}
+        return [pools[i] for i in range(self.cfg.n_layers)]
+
+    def reference_order(self) -> tuple[int, ...]:
+        """The layer indices in the order the reference builds their
+        caches: the head layers, the tail, then the scanned periods."""
+        n = self.cfg.n_layers
+        n_head, _, _, tail_start = jax_stack_split(self.cfg)
+        return (*range(n_head), *range(tail_start, n),
+                *range(n_head, tail_start))

@@ -28,14 +28,21 @@ share follows the spec but for:
     (row-parallel) that the kernels take as they are
     (``KernelTables.rank_slice``, in sub-groups and sub-slots where the
     share cuts a row group or a slot);
+  * chain storage, cut as compact storage is (``ChainTables.rank_slice``:
+    rows, or stored chunks);
   * int8 storage, which the reference's rules replicate (no rule names
     ``q_data``): it is cut as the ``w_data`` it stands for, its scales
     with it.
 
-``shard_module`` refuses, naming ROADMAP A.8, what has no sharded form
-yet: MLA, the patch frontend, codebooks and chain storage; the recurrent
-layer kinds raise the reference's message (they have no paged cache).
-Sharded models serve; they do not train.
+MLA splits by head as the reference's rules do (``wq_b``'s rows, ``wk_b``
+and ``wv_b``, ``wo``'s columns), with the latent whole on every rank:
+``wq_a``'s and ``wkv_a``'s outputs are gathered (their norms run over the
+whole rank dimension) and the compressed pools replicate.  Every
+codebook's embedding is vocabulary-parallel, and so is the one head of
+``n_codebooks * V`` rows over its flat rows.  The patch frontend has no
+parameters of its own.  The recurrent layer kinds raise the reference's
+message (they have no paged cache).  Sharded models serve; they do not
+train.
 """
 from __future__ import annotations
 
@@ -48,7 +55,8 @@ import torch
 from torch import nn
 
 from .comm import MeshAxis
-from .tensor import ExpertShard, HeadShard, LinearShard, VocabShard
+from .tensor import (ExpertShard, HeadShard, LatentShard, LinearShard,
+                     VocabShard)
 
 __all__ = ["dp_axes", "dp_size", "mesh_axes", "param_spec",
            "batch_specs", "cache_specs", "page_pool_specs",
@@ -273,28 +281,13 @@ class Placement:
                    for ax in self.spec)
 
 
-def _refuse(what: str):
-    return NotImplementedError(
-        f"sharded serving of {what} is not ported yet (ROADMAP A.8); "
-        f"serve it on one device")
-
-
 def _check_supported(model) -> None:
-    from repro_torch.sparsity import SparseLinear
-
-    cfg = model.cfg
-    if cfg.n_codebooks > 1:
-        raise _refuse("codebook models (n_codebooks > 1)")
-    if cfg.frontend == "vision":
-        raise _refuse("the patch frontend")
-    for layer in model.stack.layers:
+    """The recurrent kinds have no paged cache: the first of them in the
+    reference's order names the refusal, as its engine's does."""
+    for i in model.stack.reference_order():
+        layer = model.stack.layers[i]
         if layer.kind in ("mamba", "rwkv"):
             raise NotImplementedError(layer._no_paged())
-        if layer.kind == "mla":
-            raise _refuse("multi-head latent attention (MLA)")
-    for mod in model.modules():
-        if isinstance(mod, SparseLinear) and mod.mode == "chain":
-            raise _refuse(f"chain storage ({mod.name!r})")
 
 
 def _cut(t: torch.Tensor, dim: int, index) -> torch.Tensor:
@@ -348,7 +341,7 @@ class _Sharder:
     # -- modules ---------------------------------------------------------
     def linear(self, name: str, lin) -> None:
         ax, n, r = self.m_ax, self.m_ax.size, self.m_ax.rank
-        compact = lin.mode == "compact"
+        compact = lin.mode in ("compact", "chain")
         quant = compact and lin.quantized
         wkey = "w_data" if compact else "w"
         path, _ = reference_path(self.cfg, f"{name}.{wkey}", self.split)
@@ -367,7 +360,8 @@ class _Sharder:
                 self.whole(f"{name}.scales",
                            self.spec(f"{name}.scales", lin.scales.shape))
         elif compact:
-            # the spec split the values' dim, so n divides it
+            # the spec split the values' dim, so n divides it (compact or
+            # chain tables alike)
             rs = lin.tables.rank_slice("rows" if role == "col" else "slots",
                                        r, n)
             vdim = -2 if role == "col" else -1
@@ -439,6 +433,22 @@ class _Sharder:
                             kv_gather=Hkv % ax.size != 0
                             and (Hkv * hd) % ax.size == 0)
 
+    def mla(self, name: str, attn) -> None:
+        """This rank's heads of ``wk_b`` and ``wv_b`` (the spec splits
+        their heads dim, which the axis divides); the projections are cut
+        by ``linear`` (wq_b's rows and wo's columns by head)."""
+        ax = self.m_ax
+        H = self.cfg.n_heads
+        if H % ax.size:
+            raise NotImplementedError(
+                f"{H} heads do not split over model={ax.size}")
+        lo, hi = ax.range(H)
+        for attr in ("wk_b", "wv_b"):
+            leaf = f"{name}.{attr}"
+            self.keep(attn, attr, leaf, 0, range(lo, hi),
+                      self.spec(leaf, getattr(attn, attr).shape))
+        attn.tp = LatentShard(ax, (lo, hi))
+
     def vocab(self, owner, attr: str, name: str):
         t = getattr(owner, attr)
         spec = self.spec(name, t.shape)
@@ -458,7 +468,7 @@ def shard_module(model, mesh):
     the share holds, which ``bridge.load_jax_params`` applies to the
     reference's full tree.  Every rank of the mesh calls
     it on the same model (the same seed or the same loaded weights)."""
-    from repro_torch.models.attention import GQAttention
+    from repro_torch.models.attention import GQAttention, MLAttention
     from repro_torch.models.moe import MoELayer
     from repro_torch.sparsity import SparseLinear
 
@@ -473,10 +483,12 @@ def shard_module(model, mesh):
             s.linear(name, mod)
         elif isinstance(mod, GQAttention):
             s.attention(mod)
+        elif isinstance(mod, MLAttention):
+            s.mla(name, mod)
         elif isinstance(mod, MoELayer):
             s.experts(name, mod)
-    tp = s.vocab(model.embed[0], "embedding", "embed.0.embedding")
-    model.embed[0].tp = tp
+    for i, emb in enumerate(model.embed):
+        emb.tp = s.vocab(emb, "embedding", f"embed.{i}.embedding")
     if model.head is not None:
         model.head_tp = s.vocab(model, "head", "head")
     for name, t in model.state_dict().items():

@@ -17,6 +17,9 @@ plain local tensors (the kernels take raw pointers, so no DTensor):
   * ``HeadShard`` on a ``GQAttention``: this rank's q heads, and the kv
     heads its cache holds (its own where the "model" axis divides the kv
     heads, else all of them, gathered from the k/v projections' rows).
+  * ``LatentShard`` on an ``MLAttention``: this rank's heads (wq_b's rows,
+    wk_b, wv_b, wo's columns); the latent is whole on every rank, wq_a's
+    and wkv_a's outputs gathered (``whole_output``).
   * ``ExpertShard`` on a ``MoELayer``: this rank's experts [lo, hi).
   * ``VocabShard`` on an ``Embedding`` and on the LM head: this rank's
     vocabulary rows [lo, hi); lookups outside them give zeros, summed over
@@ -31,8 +34,8 @@ import torch
 
 from .comm import MeshAxis, gather_cat, gather_sum
 
-__all__ = ["LinearShard", "HeadShard", "ExpertShard", "VocabShard",
-           "linear_forward"]
+__all__ = ["LinearShard", "HeadShard", "LatentShard", "ExpertShard",
+           "VocabShard", "linear_forward", "whole_output"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -58,6 +61,12 @@ class HeadShard:
     q: tuple[int, int]          # q heads [lo, hi)
     cache: tuple[int, int]      # kv heads the cache holds [lo, hi)
     kv_gather: bool             # k/v projections' rows gathered to whole
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LatentShard:
+    axis: MeshAxis
+    heads: tuple[int, int]      # heads [lo, hi)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -106,3 +115,13 @@ def linear_forward(layer, x: torch.Tensor, *, fuse: Optional[str] = None,
     if residual is not None:
         y = y + residual.to(y.dtype)
     return y
+
+
+def whole_output(layer, y: torch.Tensor) -> torch.Tensor:
+    """A column-parallel ``SparseLinear``'s output ``y`` whole on every
+    rank: its rows gathered in rank order where the axis splits them (a
+    group of one included); an unsharded layer's as it is."""
+    tp: Optional[LinearShard] = layer.tp
+    if tp is None or tp.full % tp.axis.size:
+        return y
+    return gather_cat(y, tp.axis)

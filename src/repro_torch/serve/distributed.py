@@ -77,6 +77,24 @@ class ShardedContinuousEngine(ContinuousEngine):
                             self.cache_dtype, mesh=self.mesh)
 
 
+def _page_leaves(cfg, lyr) -> dict:
+    """{name: the trailing dims of its whole pool} of a paged layer: GQA's
+    kv heads, MLA's compressed latent and shared rotary key."""
+    if lyr.kind == "mla":
+        return {"ckv": (cfg.mla.kv_lora_rank,),
+                "krope": (cfg.mla.rope_head_dim,)}
+    return {"k": (cfg.n_kv_heads, cfg.head_dim_),
+            "v": (cfg.n_kv_heads, cfg.head_dim_)}
+
+
+def _heads_split(lyr) -> bool:
+    """Whether a layer's pools hold a rank's share of the kv heads (the
+    "model" axis divides them; never MLA's latent)."""
+    if lyr.kind == "mla":
+        return False
+    return lyr.mixer.cfg.n_kv_heads % lyr.mixer.tp.axis.size == 0
+
+
 def _root(mesh) -> int:
     """The global rank of a mesh's first device."""
     return int(mesh.mesh.flatten()[0])
@@ -132,10 +150,13 @@ class DisaggregatedEngine(ShardedContinuousEngine):
                             mesh=self.mesh if self.in_decode else None)
 
     def _logits_from(self, logits, root: int, rows: int) -> torch.Tensor:
-        """The role's logits (rows, V) on every rank, from ``root``."""
+        """The role's logits (rows[, n_codebooks], V) on every rank, from
+        ``root``."""
         if logits is None:
-            logits = torch.empty((rows, self.cfg.vocab_size),
-                                 dtype=self.model.compute_dtype,
+            cfg = self.cfg
+            shape = ((rows, cfg.n_codebooks, cfg.vocab_size)
+                     if cfg.n_codebooks > 1 else (rows, cfg.vocab_size))
+            logits = torch.empty(shape, dtype=self.model.compute_dtype,
                                  device=self.device)
         return broadcast(logits.contiguous(), root)
 
@@ -163,20 +184,21 @@ class DisaggregatedEngine(ShardedContinuousEngine):
                                  len(tokens)), pools
 
     def _temp_cache(self, length: int) -> list:
-        """The prefill role's temp cache; elsewhere a stand-in with no kv
-        heads (only its slot positions), which packs to the block count
-        the handoff receives."""
+        """The prefill role's temp cache; elsewhere a stand-in with no
+        cached values (only its slot positions), which packs to the block
+        count the handoff receives."""
         if self.in_prefill:
             return self.prefill_model.init_cache(1, length, self.cache_dtype,
                                                  full_length=True)
-        hd = self.cfg.head_dim_
-        return [{"k": torch.zeros((1, length, 0, hd), dtype=self.cache_dtype,
-                                  device=self.device),
-                 "v": torch.zeros((1, length, 0, hd), dtype=self.cache_dtype,
-                                  device=self.device),
-                 "pos": torch.full((1, length), -1, dtype=torch.int32,
-                                   device=self.device)}
-                for _ in range(self.cfg.n_layers)]
+        out = []
+        for lyr in self.model.stack.layers:
+            layer = {name: torch.zeros((1, length, 0), dtype=self.cache_dtype,
+                                       device=self.device)
+                     for name in _page_leaves(self.cfg, lyr)}
+            layer["pos"] = torch.full((1, length), -1, dtype=torch.int32,
+                                      device=self.device)
+            out.append(layer)
+        return out
 
     def kv_bytes_per_token(self) -> float:
         """The decode role's, on every rank."""
@@ -187,41 +209,56 @@ class DisaggregatedEngine(ShardedContinuousEngine):
     # -- the transfers -----------------------------------------------------------
     def _move_pages(self, pages, model, root: int, n_blocks: int) -> list:
         """Pages (``pack_prefill_pages`` leaves, each rank its share of
-        the kv heads) of ``model``'s role, whole on every rank: each
-        layer's heads gathered over the role's "model" axis, then all of
-        it broadcast from ``root`` in two flat buffers (the kv values and
-        the slot positions).  ``pages`` is None off the role."""
+        the kv heads, an MLA layer's latent whole) of ``model``'s role,
+        whole on every rank: each GQA layer's heads gathered over the
+        role's "model" axis, then all of it broadcast from ``root`` in two
+        flat buffers (the cached values and the slot positions).
+        ``pages`` is None off the role."""
         cfg = self.cfg
-        shape = (n_blocks, self.page, cfg.n_kv_heads, cfg.head_dim_)
+        shapes = [{name: (n_blocks, self.page) + tail
+                   for name, tail in _page_leaves(cfg, lyr).items()}
+                  for lyr in self.model.stack.layers]
         if pages is not None:
             whole = []
             for layer, lyr in zip(pages, model.stack.layers):
-                tp = lyr.mixer.tp
-                split = cfg.n_kv_heads % tp.axis.size == 0
-                whole.append({name: (gather_cat(leaf, tp.axis, dim=2)
+                split = _heads_split(lyr)
+                whole.append({name: (gather_cat(leaf, lyr.mixer.tp.axis,
+                                                dim=2)
                                      if split and name != "pos" else leaf)
                               for name, leaf in layer.items()})
-            vals = torch.cat([l[n].reshape(-1) for l in whole
-                              for n in ("k", "v")]).to(self.cache_dtype)
+            vals = torch.cat([l[n].reshape(-1) for l, sh in zip(whole, shapes)
+                              for n in sh]).to(self.cache_dtype)
             pos = torch.cat([l["pos"].reshape(-1) for l in whole]).to(
                 torch.int32)
         else:
-            n = cfg.n_layers
-            vals = torch.empty(2 * n * int(torch.Size(shape).numel()),
-                               dtype=self.cache_dtype, device=self.device)
-            pos = torch.empty(n * n_blocks * self.page, dtype=torch.int32,
-                              device=self.device)
+            n_vals = sum(int(torch.Size(t).numel()) for sh in shapes
+                         for t in sh.values())
+            vals = torch.empty(n_vals, dtype=self.cache_dtype,
+                               device=self.device)
+            pos = torch.empty(cfg.n_layers * n_blocks * self.page,
+                              dtype=torch.int32, device=self.device)
         broadcast(vals, root)
         broadcast(pos, root)
-        vals = vals.reshape(cfg.n_layers, 2, *shape)
         pos = pos.reshape(cfg.n_layers, n_blocks, self.page)
-        return [{"k": vals[i, 0], "v": vals[i, 1], "pos": pos[i]}
-                for i in range(cfg.n_layers)]
+        out, at = [], 0
+        for i, sh in enumerate(shapes):
+            layer = {}
+            for name, shape in sh.items():
+                size = int(torch.Size(shape).numel())
+                layer[name] = vals[at:at + size].view(shape)
+                at += size
+            layer["pos"] = pos[i]
+            out.append(layer)
+        return out
 
     def _heads_of(self, model, whole: list) -> list:
-        """Each layer's leaves cut to ``model``'s rank's cache heads."""
+        """Each GQA layer's leaves cut to ``model``'s rank's cache heads
+        (an MLA layer's latent is whole on every rank)."""
         out = []
         for layer, lyr in zip(whole, model.stack.layers):
+            if lyr.kind == "mla":
+                out.append(layer)
+                continue
             a, b = lyr.mixer.tp.cache
             out.append({name: leaf if name == "pos"
                         else leaf[:, :, a:b].contiguous()

@@ -56,7 +56,8 @@ version and gives equal bits on a rerun and after a re-read from disk
 card against CPU: MLA's paged decode (deepseek-v2), a Mamba step (jamba)
 and an RWKV-6 step (``-k arch_mixer``).  And every rank's share of a
 full-width layout at 2 and 4 ranks (rows, slots, experts, int8) against
-its plain version and the unsharded launch (``-k rank_shares``).
+its plain version and the unsharded launch, and of a full-width chain
+layout (``ChainTables.rank_slice``) alike (``-k rank_shares``).
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -2020,6 +2021,67 @@ def test_cuda_rank_shares_match_plain_versions(kind, n_model, dtype):
                                              x.dtype) == "mma"
             assert rbgp4mm_rhs.launches_mma - mma0 == want_mma
             assert_close(got, rbgp4mm_rhs_reference(s.tables, x,
+                                                    s.values(w), **kw(s)),
+                         x.dtype, (kind, r, n))
+            outs.append(got)
+        if share_kind == "rows":
+            assert_close(torch.cat(outs, -1), want, x.dtype, (kind, n))
+        else:
+            acc = outs[0].float()
+            for p in outs[1:]:
+                acc = acc + p.float()
+            assert_close(acc, want, x.dtype, (kind, n))
+
+
+# tinyllama's down under the hierarchical-block plan (G 32, C 16; 44
+# chunks a row: 11 a share at 4 ranks)
+CHAIN_SHARD_LAYOUT = (2048, 5632)
+CHAIN_HIER = (("complete", 4, 4, 0.0), ("ramanujan", 0, 0, -1.0),
+              ("ramanujan", 0, 0, -1.0), ("ramanujan", 0, 0, -1.0),
+              ("complete", 8, 8, 0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["rows", "slots", "int8-rows",
+                                  "int8-slots"])
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_cuda_chain_rank_shares_match_plain_versions(kind, n_model, dtype):
+    """Every rank's share of a full-width chain layout launched on the
+    card against its plain version on the same share (8 and 512 rows; the
+    tensor-core body where ``chain_rhs_path`` names it), int8 at 8 rows
+    with bf16 X; the row shares, or the rank-ordered sum of the slot
+    shares, against the unsharded launch."""
+    from repro_torch.sparsity.quant import (leaf_block_dims,
+                                            quantize_block_values)
+
+    needs_card()
+    int8 = kind.startswith("int8")
+    if int8 and dtype == torch.float32:
+        pytest.skip("the int8 path takes its X in bf16 here")
+    g = torch.Generator(device="cuda").manual_seed(54)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    m, k = CHAIN_SHARD_LAYOUT
+    tables = chain_tables(ChainLayout(design_rbgp(
+        m, k, 0.875, factors=CHAIN_HIER, seed=0)), "cuda")
+    share_kind = kind.split("-")[-1]
+    w32 = rnd(m, tables.data_cols)
+    q, sc = quantize_block_values(w32, *leaf_block_dims(tables))
+    for n in ((8,) if int8 else (8, 512)):
+        x = rnd(n, k).to(torch.bfloat16 if int8 else dtype)
+        w = q if int8 else w32.to(dtype)
+        kw = lambda s: {"scales": s.scales(sc)} if int8 else {}
+        want = chainmm_rhs(tables, x, w, **({"scales": sc} if int8 else {}))
+        outs = []
+        for r in range(n_model):
+            s = tables.rank_slice(share_kind, r, n_model)
+            mma0 = chainmm_rhs.launches_mma
+            got = chainmm_rhs(s.tables, x, s.values(w), **kw(s))
+            torch.cuda.synchronize()
+            want_mma = not int8 and chain_rhs_path(s.tables, n,
+                                                   x.dtype) == "mma"
+            assert chainmm_rhs.launches_mma - mma0 == want_mma
+            assert_close(got, chainmm_rhs_reference(s.tables, x,
                                                     s.values(w), **kw(s)),
                          x.dtype, (kind, r, n))
             outs.append(got)

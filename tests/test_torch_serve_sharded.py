@@ -14,16 +14,24 @@ reference's five cases of ``tests/test_serve_sharded.py``, and int8:
     request, single-shot and chunked;
   * prefix sharing on both engines;
   * seeded faults, and a snapshot restored into a new sharded engine;
-  * int8 storage (tinyllama, qwen2-moe).
+  * int8 storage (tinyllama, qwen2-moe);
+  * MLA (deepseek-v2 at tp 2 x ep 2, its latent pools whole on every
+    rank), codebooks (musicgen-medium, 3 codebooks over 4 ranks, so a
+    rank's head rows cross a codebook boundary) and chain storage
+    (tinyllama under the deep-chain plan at tp 4, sub-chunks of its
+    slots), on the sharded and the disaggregated engine;
+  * the recurrent kinds (rwkv6-7b, jamba), refused with the reference's
+    message.
 
 Every engine's greedy streams equal ``run_sequential`` over the same
-sharded model, token for token.  And for five archs in the four storages
-(dense, masked, compact, int8), the sharded model's first prefill and 4
-decode logits are within 1e-5 * max|ref| of the reference's single-device
-``LMModel`` on the same bridged parameters (``load_jax_params`` loading
-each rank's share), and every rank holds 1/n of the elements of each
-tensor the spec splits over "model".  The reference runs here, in the
-test process; the ranks import only torch and the port.
+sharded model, token for token.  And for nine archs in the storages
+(dense, masked, compact, chain, int8), the sharded model's first prefill
+(pixtral-12b's with patch embeddings) and 4 decode logits are within
+1e-5 * max|ref| of the reference's single-device ``LMModel`` on the same
+bridged parameters (``load_jax_params`` loading each rank's share), and
+every rank holds 1/n of the elements of each tensor the spec splits over
+"model".  The reference runs here, in the test process; the ranks import
+only torch and the port.
 """
 import json
 import os
@@ -42,6 +50,10 @@ from repro.configs import apply_sparsity as j_apply_sparsity
 from repro.configs import get_config as j_get_config
 from repro.configs import reduce_config as j_reduce_config
 from repro.models import LMModel as JLMModel
+from repro.serve import ShardedContinuousEngine as JShardedEngine
+from repro.sparsity import PatternSpec as JPatternSpec
+from repro.sparsity import PlanRule as JPlanRule
+from repro.sparsity import SparsityPlan as JSparsityPlan
 from repro.sparsity import quantize_weights as j_quantize_weights
 
 from test_torch_quant_model import quant_tree_to_numpy
@@ -66,9 +78,28 @@ LOGIT_CASES = [
     ("gemma3-4b-compact", "gemma3-4b", "auto", (1, 4), {"n_layers": 6}),
     ("deepseek-7b-dense", "deepseek-7b", "dense", (1, 4),
      {"vocab_size": 1024}),
+    # MLA (a head a rank), codebooks (a head share of 96 rows over
+    # codebooks of 128), the patch frontend and chain storage
+    ("deepseek-v2-compact", "deepseek-v2-236b", "auto", (1, 2, 2), {}),
+    ("deepseek-v2-masked", "deepseek-v2-236b", "xla_masked", (1, 2, 2), {}),
+    ("deepseek-v2-int8", "deepseek-v2-236b", "int8", (1, 2, 2), {}),
+    ("musicgen-compact", "musicgen-medium", "auto", (1, 4),
+     {"n_codebooks": 3}),
+    ("musicgen-int8", "musicgen-medium", "int8", (1, 4), {"n_codebooks": 3}),
+    ("pixtral-compact", "pixtral-12b", "auto", (2, 2), {"vocab_size": 1024}),
+    ("pixtral-int8", "pixtral-12b", "int8", (2, 2), {"vocab_size": 1024}),
+    ("tinyllama-chain", "tinyllama-1.1b", "chain", (1, 4), {}),
+    ("tinyllama-chain-int8", "tinyllama-1.1b", "chain-int8", (1, 4), {}),
 ]
 ENGINE_CASES = ["tp-compact", "tp-masked", "moe-ep", "preempt", "disagg",
-                "prefix", "faults-snapshot", "int8"]
+                "prefix", "faults-snapshot", "int8", "mla", "codebooks",
+                "chain", "recurrent"]
+# the deep-chain plan of tests/test_torch_chain_model.py (a 4 x 4 leaf)
+CHAIN = dict(pattern="rbgp", sparsity=0.875, backend="auto",
+             factors=(("complete", 2, 2, 0.0), ("ramanujan", 0, 0, -1.0),
+                      ("ramanujan", 0, 0, -1.0), ("ramanujan", 0, 0, -1.0),
+                      ("complete", 2, 2, 0.0)), min_dim=64)
+RECURRENT = ["rwkv6-7b", "jamba-1.5-large-398b"]
 
 CHILD = r'''
 import json, os, pickle, sys
@@ -80,11 +111,15 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def config(arch, storage, fields):
+def config(arch, storage, fields, chain=None):
     from repro_torch.configs import apply_sparsity, get_config, reduce_config
+    from repro_torch.sparsity import PatternSpec, PlanRule, SparsityPlan
     cfg = reduce_config(get_config(arch))
     if storage == "dense":
         cfg = apply_sparsity(cfg, pattern="dense")
+    elif storage.startswith("chain"):
+        cfg = apply_sparsity(cfg, plan=SparsityPlan(
+            rules=(PlanRule(".*", PatternSpec(**chain)),)))
     else:
         cfg = apply_sparsity(cfg, pattern="rbgp4", sparsity=0.5,
                              backend="auto" if storage == "int8" else storage,
@@ -92,9 +127,11 @@ def config(arch, storage, fields):
     return cfg.with_(**fields)
 
 
-def workload(shapes, vocab, seed=0):
+def workload(shapes, vocab, seed=0, n_codebooks=1):
     rng = np.random.default_rng(seed)
-    return [{"rid": i, "prompt": rng.integers(0, vocab, s).astype(np.int32),
+    tail = (n_codebooks,) if n_codebooks > 1 else ()
+    return [{"rid": i,
+             "prompt": rng.integers(0, vocab, (s,) + tail).astype(np.int32),
              "max_new_tokens": g, "sampling": None}
             for i, (s, g) in enumerate(shapes)]
 
@@ -119,9 +156,9 @@ def rank_main(rank, world, store, work):
 
     def build(name, dims):
         c = cases[name]
-        cfg = config(c["arch"], c["storage"], c["fields"])
+        cfg = config(c["arch"], c["storage"], c["fields"], cases["__chain__"])
         model = LMModel(cfg, device="cpu", seed=0)
-        if c["storage"] == "int8":
+        if c["storage"].endswith("int8"):
             quantize_weights(model)
         from repro_torch.parallel import shard_module
         shard_module(model, make_serve_mesh(*dims))
@@ -142,7 +179,8 @@ def rank_main(rank, world, store, work):
         reset_collectives()
         toks = c["tokens"]
         cache = model.init_cache(1, 16, torch.float32)
-        got = [model.prefill(toks[:, :N_PROMPT], cache)[0]]
+        got = [model.prefill(toks[:, :N_PROMPT], cache,
+                             patch_embeds=c["patch_embeds"])[0]]
         for i in range(N_DECODE):
             p = N_PROMPT + i
             got.append(model.decode_step(toks[:, p:p + 1], cache, p)[0])
@@ -301,6 +339,47 @@ def rank_main(rank, world, store, work):
                 out[case] = streams(eng, workload(
                     [(4, 3), (12, 6), (8, 2), (16, 4)],
                     model.cfg.vocab_size, seed=3), model)
+        elif name in ("mla", "codebooks", "chain"):
+            case = {"mla": "deepseek-v2-compact",
+                    "codebooks": "musicgen-compact",
+                    "chain": "tinyllama-chain"}[name]
+            model, c = build(case, tuple(cases[case]["dims"]))
+            wl = workload([(4, 3), (12, 6), (8, 2), (16, 4)],
+                          model.cfg.vocab_size, seed=5,
+                          n_codebooks=model.cfg.n_codebooks)
+            for chunk in (0, 5):
+                eng = ShardedContinuousEngine(
+                    model, model.mesh, page_size=4, max_slots=3,
+                    max_request_len=40, prefill_chunk=chunk)
+                out[f"sharded{chunk}"] = streams(eng, wl, model)
+                m2 = LMModel(model.cfg, device="cpu", seed=0)
+                if c["storage"].endswith("int8"):
+                    quantize_weights(m2)
+                eng = DisaggregatedEngine(
+                    m2, make_serve_mesh(1, 2, ranks=[2, 3]),
+                    make_serve_mesh(1, 2, ranks=[0, 1]), page_size=4,
+                    max_slots=3, max_request_len=40, prefill_chunk=chunk)
+                load_jax_params(m2, c["tree"])
+                out[f"disagg{chunk}"] = [streams(eng, wl, m2),
+                                         eng.stats["handoffs"]]
+            out["pools"] = {k: list(v.shape)
+                            for k, v in eng.kv.pools[0].items()} \
+                if eng.kv.pools else None
+        elif name == "recurrent":
+            from repro_torch.parallel import shard_module
+            for arch in cases["__recurrent__"]:
+                cfg = config(arch, "auto", {})
+                got = []
+                for make in (lambda m: shard_module(m, make_serve_mesh(2, 2)),
+                             lambda m: ShardedContinuousEngine(
+                                 m, make_serve_mesh(2, 2), page_size=4,
+                                 max_slots=2, max_request_len=16)):
+                    try:
+                        make(LMModel(cfg, device="cpu", seed=0))
+                        got.append(None)
+                    except NotImplementedError as e:
+                        got.append(str(e))
+                out[arch] = got
         return out
 
     N_PROMPT, N_DECODE = cases["__n__"]
@@ -322,28 +401,44 @@ if __name__ == "__main__":
 '''
 
 
-def reference_case(arch, storage, fields, seed=0):
-    """The reference's tree (numpy, as ``load_jax_params`` takes it), the
-    tokens and the logits at the prefill's last position and the 4 decode
-    positions (one causal forward over all of them; a MoE model's
-    prefill and decode steps, which route at full capacity)."""
+def reference_config(arch, storage, fields):
     cfg = j_reduce_config(j_get_config(arch))
     if storage == "dense":
         cfg = j_apply_sparsity(cfg, pattern="dense")
+    elif storage.startswith("chain"):
+        cfg = j_apply_sparsity(cfg, plan=JSparsityPlan(
+            rules=(JPlanRule(".*", JPatternSpec(**CHAIN)),)))
     else:
         cfg = j_apply_sparsity(
             cfg, pattern="rbgp4", sparsity=0.5,
             backend="auto" if storage == "int8" else storage, min_dim=64)
-    cfg = cfg.with_(**fields)
+    return cfg.with_(**fields)
+
+
+def reference_case(arch, storage, fields, seed=0):
+    """The reference's tree (numpy, as ``load_jax_params`` takes it), the
+    tokens, the patch embeddings of a vision model (else None) and the
+    logits at the prefill's last position and the 4 decode positions (one
+    causal forward over all of them; a MoE model's prefill and decode
+    steps, which route at full capacity)."""
+    cfg = reference_config(arch, storage, fields)
     jm = JLMModel(cfg)
     params = jm.init(jax.random.PRNGKey(seed))
-    if storage == "int8":
+    if storage.endswith("int8"):
         params = j_quantize_weights(params)
-    toks = np.random.default_rng(seed + 1).integers(
-        0, cfg.vocab_size, (1, N_PROMPT + N_DECODE)).astype(np.int32)
+    rng = np.random.default_rng(seed + 1)
+    tail = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    toks = rng.integers(0, cfg.vocab_size,
+                        (1, N_PROMPT + N_DECODE) + tail).astype(np.int32)
+    patches = None
+    batch = {"tokens": jnp.asarray(toks)}
+    if cfg.frontend == "vision":
+        patches = rng.standard_normal(
+            (1, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        batch["patch_embeds"] = jnp.asarray(patches)
     if cfg.moe is None:
-        logits = jm.forward(params, {"tokens": jnp.asarray(toks)})[0]
-        return (quant_tree_to_numpy(params), toks,
+        logits = jm.forward(params, batch)[0]
+        return (quant_tree_to_numpy(params), toks, patches,
                 np.asarray(logits)[0, N_PROMPT - 1:])
     # the training forward routes at a capacity and may drop tokens;
     # serving routes at full capacity: the prefill and decode steps
@@ -356,7 +451,18 @@ def reference_case(arch, storage, fields, seed=0):
         p = N_PROMPT + i
         out, cache = decode(params, jnp.asarray(toks[:, p:p + 1]), cache, p)
         logits.append(np.asarray(out))
-    return quant_tree_to_numpy(params), toks, np.concatenate(logits)
+    return quant_tree_to_numpy(params), toks, patches, np.concatenate(logits)
+
+
+def reference_refusal(arch):
+    """The reference's sharded engine's message for a recurrent arch."""
+    cfg = reference_config(arch, "auto", {})
+    jm = JLMModel(cfg)
+    mesh = jax.make_mesh((1, 1), ("data", "model"), devices=jax.devices()[:1])
+    with pytest.raises(NotImplementedError) as err:
+        JShardedEngine(jm, jm.init(jax.random.PRNGKey(0)), mesh, page_size=4,
+                       max_slots=2, max_request_len=16)
+    return str(err.value)
 
 
 @pytest.fixture(scope="module")
@@ -364,19 +470,20 @@ def ranks(tmp_path_factory):
     work = tmp_path_factory.mktemp("sharded")
     cases = {"__n__": (N_PROMPT, N_DECODE),
              "__logits__": [c[0] for c in LOGIT_CASES],
-             "__engines__": ENGINE_CASES}
+             "__engines__": ENGINE_CASES, "__chain__": CHAIN,
+             "__recurrent__": RECURRENT}
     for name, arch, storage, dims, fields in LOGIT_CASES:
-        tree, toks, logits = reference_case(arch, storage, fields)
+        tree, toks, patches, logits = reference_case(arch, storage, fields)
         cases[name] = dict(arch=arch, storage=storage, dims=dims,
                            fields=fields, tree=tree, tokens=toks,
-                           logits=logits)
+                           patch_embeds=patches, logits=logits)
     with open(work / "cases.pkl", "wb") as f:
         pickle.dump(cases, f)
     (work / "child.py").write_text(CHILD)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
     out, err, rc = run_ranks([sys.executable, str(work / "child.py"),
-                              str(work)], env)
+                              str(work)], env, timeout=480)
     assert rc == 0, out[-3000:] + err[-6000:]
     out = []
     for r in range(4):
@@ -489,3 +596,32 @@ def test_faults_and_a_restored_snapshot_keep_the_sequential_streams(
 def test_int8_sharded_streams_equal_the_sequential_path(ranks):
     for r, res in enumerate(case(ranks, "int8")):
         assert res["tinyllama-int8"] and res["qwen2-moe-int8"], r
+
+
+@pytest.mark.parametrize("name", ["mla", "codebooks", "chain"])
+def test_mla_codebook_and_chain_streams_on_both_engines(ranks, name):
+    """The sharded engine (single-shot and chunked) and the disaggregated
+    engine (prefill on ranks 0-1, decode on 2-3) keep the sequential
+    streams over the same sharded model; an MLA layer's pools hold the
+    whole latent on each decode rank."""
+    for r, res in enumerate(case(ranks, name)):
+        for chunk in (0, 5):
+            assert res[f"sharded{chunk}"], (name, r, chunk)
+            ok, handoffs = res[f"disagg{chunk}"]
+            assert ok and handoffs == 4, (name, r, chunk, handoffs)
+        assert (res["pools"] is None) == (r < 2), (r, res["pools"])
+        if name == "mla" and r >= 2:
+            # deepseek-v2 reduced: kv_lora_rank 32, rope_head_dim 8, pages
+            # of 4 slots
+            p = res["pools"]
+            n_blocks = p["pos"][0]
+            assert p == {"ckv": [n_blocks, 4, 32], "krope": [n_blocks, 4, 8],
+                         "pos": [n_blocks, 4]}, p
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_kinds_keep_the_reference_refusal(ranks, arch):
+    want = reference_refusal(arch)
+    assert "static engine" in want
+    for r, res in enumerate(case(ranks, "recurrent")):
+        assert res[arch] == [want, want], (r, res[arch], want)

@@ -5,7 +5,8 @@ The reference's specs come from a subprocess on 8 forced host devices
 first import, as ``tests/test_sharding.py`` does), over three meshes:
 (2, 2, 2) ``pod/data/model``, (1, 4) and (2, 2) ``data/model``.  For
 every parameter of every reduced language model (and tinyllama's and
-qwen2-moe's masked and int8 trees), the port's ``param_spec`` equals the
+qwen2-moe's masked and int8 trees, and tinyllama's under a deep-chain
+plan, in chain and int8 storage), the port's ``param_spec`` equals the
 reference's ``PartitionSpec``; so do ``dp_axes``, ``batch_specs``,
 ``cache_specs`` (the scan offset), ``page_pool_specs`` and the
 activation-constraint resolution of ``parallel.shard`` (the constraint the
@@ -33,11 +34,19 @@ ROOT = Path(__file__).resolve().parents[1]
 MESHES = {"pod2-data2-model2": {"pod": 2, "data": 2, "model": 2},
           "data1-model4": {"data": 1, "model": 4},
           "data2-model2": {"data": 2, "model": 2}}
-# (arch, storage): every reduced LM in compact storage, and two in the
-# masked and int8 storages
+# (arch, storage): every reduced LM in compact storage, two in the masked
+# and int8 storages, and tinyllama under the deep-chain plan (chain storage
+# and its int8 form)
 TREES = ([(a, "auto") for a in list_archs(lm_only=True)]
          + [(a, s) for a in ("tinyllama-1.1b", "qwen2-moe-a2.7b")
-            for s in ("xla_masked", "int8")])
+            for s in ("xla_masked", "int8")]
+         + [("tinyllama-1.1b", s) for s in ("chain", "chain-int8")])
+CHAIN_TREES = [f"{a}|{s}" for a, s in TREES if s.startswith("chain")]
+# the deep-chain plan of tests/test_torch_chain_model.py
+CHAIN = dict(pattern="rbgp", sparsity=0.875, backend="auto",
+             factors=[["complete", 2, 2, 0.0], ["ramanujan", 0, 0, -1.0],
+                      ["ramanujan", 0, 0, -1.0], ["ramanujan", 0, 0, -1.0],
+                      ["complete", 2, 2, 0.0]], min_dim=64)
 CONSTRAINTS = [((8, 4, 16), ("dp", None, "tp")),
                ((8, 3, 4), ("dp", "tp", None)),
                ((6, 8, 8), ("dp", "tp", "tp")),
@@ -54,6 +63,7 @@ from repro.models import LMModel
 from repro.parallel.constrain import activation_mesh, shard
 from repro.parallel.sharding import (batch_specs, cache_specs, dp_axes,
                                      page_pool_specs, param_spec)
+from repro.sparsity import PatternSpec, PlanRule, SparsityPlan
 from repro.sparsity import quantize_weights
 from repro.utils import path_str
 
@@ -72,15 +82,20 @@ def specs(tree):
 meshes = {k: mesh(v) for k, v in req["meshes"].items()}
 out = {"trees": {}, "dp_axes": {}, "pools": {}, "caches": {}, "batch": {},
        "constraints": {}}
+chain = dict(req["chain"], factors=tuple(map(tuple,
+                                              req["chain"]["factors"])))
 for arch, storage in req["trees"]:
     cfg = reduce_config(get_config(arch), sparsity_backend="auto")
-    if storage != "auto":
+    if storage.startswith("chain"):
+        cfg = apply_sparsity(cfg, plan=SparsityPlan(
+            rules=(PlanRule(".*", PatternSpec(**chain)),)))
+    elif storage != "auto":
         cfg = apply_sparsity(cfg, pattern="rbgp4", sparsity=0.5,
                              backend="auto" if storage == "int8" else storage,
                              min_dim=64)
     m = LMModel(cfg)
     init = m.init
-    if storage == "int8":
+    if storage.endswith("int8"):
         init = lambda k: quantize_weights(m.init(k))
     shapes = flat(jax.eval_shape(init, jax.random.PRNGKey(0)))
     out["trees"][f"{arch}|{storage}"] = {
@@ -159,7 +174,7 @@ def flat_specs(tree, path=""):
 
 @pytest.fixture(scope="module")
 def ref():
-    req = {"meshes": MESHES, "trees": TREES,
+    req = {"meshes": MESHES, "trees": TREES, "chain": CHAIN,
            "constraints": [[list(s), list(sp)] for s, sp in CONSTRAINTS]}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                JAX_PLATFORMS="cpu")
@@ -197,6 +212,40 @@ def test_port_names_map_onto_the_reference_paths_and_specs(ref, arch):
         seen.add(path)
         ref_shape = tuple(got["shapes"][path])
         assert (ref_shape[1:] if scanned else ref_shape) == shape, name
+        for mesh_name, sizes in MESHES.items():
+            want = got["specs"][mesh_name][path]
+            assert canon(port_spec(model.cfg, name, shape, sizes)) == \
+                (want[1:] if scanned else want), (mesh_name, name)
+    assert seen == set(got["shapes"])
+
+
+@pytest.mark.parametrize("tree", CHAIN_TREES)
+def test_chain_tree_names_map_onto_the_reference_paths_and_specs(ref, tree):
+    """The chain model's port names (``w_data``, or ``q_data`` and
+    ``scales``) name the reference's chain leaves, and ``port_spec`` is
+    their spec: wq, gate and up split their rows, wo and down their stored
+    columns."""
+    from repro_torch.configs import apply_sparsity
+    from repro_torch.sparsity import (PatternSpec, PlanRule, SparsityPlan,
+                                      quantize_weights)
+
+    arch, storage = tree.split("|")
+    got = ref["trees"][tree]
+    spec = dict(CHAIN, factors=tuple(map(tuple, CHAIN["factors"])))
+    cfg = apply_sparsity(reduce_config(get_config(arch)), plan=SparsityPlan(
+        rules=(PlanRule(".*", PatternSpec(**spec)),)))
+    model = LMModel(cfg, device="cpu")
+    if storage.endswith("int8"):
+        quantize_weights(model)
+    names = {n: tuple(t.shape) for n, t in model.state_dict().items()}
+    assert any(n.endswith(".mixer.wq.q_data" if storage.endswith("int8")
+                          else ".mixer.wq.w_data") for n in names)
+    seen = set()
+    for name, shape in names.items():
+        path, scanned = reference_path(model.cfg, name)
+        seen.add(path)
+        assert (tuple(got["shapes"][path])[1:] if scanned
+                else tuple(got["shapes"][path])) == shape, name
         for mesh_name, sizes in MESHES.items():
             want = got["specs"][mesh_name][path]
             assert canon(port_spec(model.cfg, name, shape, sizes)) == \
