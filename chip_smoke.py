@@ -78,7 +78,7 @@ exits non-zero without the result line:
      unstacked launch of the stacked plan);
   3. time each kernel, its plain version and one PyTorch call computing
      the same function (dense ``F.linear``/matmul on the unpacked weights;
-     ``torch.bmm`` for the stacked experts) with CUDA events (median of 30
+     ``torch.bmm`` for the stacked experts) with CUDA events (median of 15
      launches after warm-up, operands cycled through more than the 50 MB
      L2 cache), beside the least time the card could take: the forward at
      N = 8 and 512, and a training step's calls at N = 4096 (the forward
@@ -98,7 +98,7 @@ exits non-zero without the result line:
      the forward, dX and dW at tinyllama's four layouts, N in {8, 16, 32,
      64, 128, 256, 512}, each result held against the plain version first
      (the measurement behind ``MMA_MIN_TOKENS``);
-  4. serve tinyllama: 16 mixed requests (prompts 128/256/512, 8-64 new
+  4. serve tinyllama: 16 mixed requests (prompts 128/256/512, 8-24 new
      tokens) through ``ContinuousEngine``, 8 slots, 16-token pages,
      greedy, bf16 compute, f32 KV cache; every prefill call and decode step
      launches ``rbgp4mm_rhs`` 154 times (22 layers x 7 projections);
@@ -131,7 +131,8 @@ exits non-zero without the result line:
      168 times (24 layers x attention 4 + shared expert 3) and
      ``rbgp4mm_rhs_stacked`` 72 times (24 x 3), a prefill's on the
      tensor-core body, a decode step's (8 rows an expert) on the FMA body;
-  9. serve parity of qwen2-moe in float32 as phase 5, on those 16 requests;
+  9. serve parity of qwen2-moe in float32 as phase 5, on 4 of phase 4's
+     kind of requests, 4 of its 24 layers;
  10. train qwen2-moe: 4 steps of 4 x 512 tokens as phase 6 (routing with
      capacity, 171 rows an expert), the last 3 timed, ce and aux finite;
      per step ``rbgp4mm_rhs`` 336 forward + recompute and 168 dX,
@@ -139,7 +140,7 @@ exits non-zero without the result line:
      recompute and 72 dX (all on ``rbgp4mm_rhs_stacked_mma_kernel``),
      ``rbgp4_sddmm_rhs_stacked`` 72 (all on
      ``rbgp4_sddmm_rhs_stacked_mma_kernel``); one profiled step;
- 11. train parity of 2 full-width qwen2-moe layers as phase 7;
+ 11. train parity of 1 full-width qwen2-moe layer as phase 7;
  12. check-chain: the deep-chain kernels against their plain versions, as
      phase 2, at tinyllama's four shapes under the hierarchical-block plan
      (complete 4x4, three Ramanujan factors, complete 8x8, at 0.875;
@@ -262,7 +263,7 @@ exits non-zero without the result line:
      1e-4 * max|ref| (``ConvRecorder``);
  32. kd-protocol: ``examples/cifar_vgg_rbgp4.py``'s protocol at WRN-40-4's
      full width, batch 64, bf16: a dense teacher, then unstructured
-     (masked) and RBGP4 (compact) students at 0.75 with KD alpha 0.5, 80
+     (masked) and RBGP4 (compact) students at 0.75 with KD alpha 0.5, 20
      steps each; held-out accuracies printed, finite losses held;
  33. plan: the plan compiler at full width, on the host: shape recording
      (``model_matmul_shapes``, built on ``meta``), ``solve_budget`` at
@@ -371,7 +372,7 @@ exits non-zero without the result line:
  49. serve-archs: each of them at full width in bf16 under rbgp4 0.75
      (deepseek-v2 cut to 4 layers, dense layer 0 and three MoE layers;
      jamba to 8, one period), 8 ``RequestStream(seed=0)`` requests of
-     128-512 prompt and 8-32 new tokens (4 codebooks for musicgen): the
+     128-512 prompt and 4-16 new tokens (4 codebooks for musicgen): the
      continuous engine (8 slots, 16-token pages) or, for rwkv6-7b and
      jamba, the static engine (batch 4); every request finished, finite
      logits, every prefill call and decode step launching each compact
@@ -389,8 +390,8 @@ exits non-zero without the result line:
      model's form) against every step's own: ms, peak memory, outputs;
  50. train-archs: each of them trained at full width in bf16
      (``ARCH_TRAIN``: deepseek-v2 cut to 4 layers, jamba to 3, Mamba,
-     Mamba + MoE, Mamba; ``ARCH_TRAIN_TIME_CUT``: rwkv6-7b to 8 of 32 for
-     the script's time; the others at full depth), 4 steps of 4 x 512
+     Mamba + MoE, Mamba; ``ARCH_TRAIN_TIME_CUT``: rwkv6-7b to 4 of 32 for
+     the script's time; the others at full depth), 2 steps of 4 x 512
      ``TokenStream(seed=0)`` tokens (4 codebooks for musicgen, text only
      for pixtral) as phase 10, the first untimed: the trainer's state
      reckoned on ``meta`` first (14 bytes a trainable value), for rwkv6-7b
@@ -422,7 +423,7 @@ exits non-zero without the result line:
      printed), the row shares and the rank-ordered sum of the slot shares
      against the unsharded launch; the body each share takes is printed;
  53. serve-sharded: an NCCL group of world size 1; full-width tinyllama
-     and qwen2-moe each serve 8 requests (prompts 128-512, 32 new tokens,
+     and qwen2-moe each serve 4 requests (prompts 128-512, 8 new tokens,
      bf16, f32 KV cache) through ``ContinuousEngine``, then
      ``ShardedContinuousEngine`` and ``DisaggregatedEngine`` on the same
      model: the streams equal token for token, each pass launching every
@@ -432,16 +433,45 @@ exits non-zero without the result line:
      pixtral-12b (40 layers; text prompts), musicgen-medium (48 layers, 4
      codebooks) and tinyllama under the chain plan (22 layers).
 
+ 55. dryrun-vs-card: the dry-run (``repro_torch.launch.dryrun``, its own
+     config: tinyllama-1.1b, rbgp4 0.75 masked, min_dim 1024, bf16)
+     reckons three programs at a 1 x 1 mesh on ``meta`` in a process of
+     its own, beside phase 1's build and ended before phase 2, so no
+     timed phase shares the host with it (``DRYRUN_CELLS``: decode of 8 rows
+     against a 32768-token cache, prefill of 2 x 4096 -- prefill_32k's
+     sequences a device, cut because the plain attention holds an S x S
+     score a head --, one training step of 4 x 512); the same programs
+     run on the card at a 1 x 1 mesh of an NCCL group of world size 1:
+     the reckoned argument GB against the card's allocated bytes the
+     program adds (within 1%), the reckoned peak against the card's
+     (printed, within ``DRYRUN_PEAK_BAND``), the fenced ms of a second
+     call beside max(compute_s, memory_s);
+ 56. train-sharded: the same group; full-width tinyllama-1.1b (compact,
+     rbgp4 0.75, min_dim 64, bf16) and qwen2-moe-a2.7b, 3 steps of 4 x 512
+     through ``make_train_step``, once unsharded and once after
+     ``shard_module`` at model 1, from the same weights; the sharded
+     model runs the code of any model axis (the row-parallel epilogue
+     after the sum, the vocabulary-parallel loss): each loss and every
+     first-step gradient (a strided sample, relative L2) within one bf16
+     rounding a row-parallel site (``sharded_tolerance``), the same
+     launches of ``rbgp4mm_rhs`` (forward, dX), ``rbgp4_sddmm_rhs``,
+     ``rbgp4mm_rhs_stacked`` and ``rbgp4_sddmm_rhs_stacked``, ms/step of
+     both.
+
 ``python3 chip_smoke.py --autotune-only`` runs phases 1, 4, 33 and 45-47
 alone (a quicker check of the autotuner; no result line);
 ``python3 chip_smoke.py --archs-only`` runs phases 1 and 48-51 alone;
-``python3 chip_smoke.py --shard-only`` phases 1 and 52-54.
+``python3 chip_smoke.py --shard-only`` phases 1 and 52-54;
+``python3 chip_smoke.py --dryrun-only`` phases 1, 55 and 56, and first
+times tinyllama's decode step alone, beside a second run of the
+reckoning and alone again (``reckoning_beside_decode``).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import gc
 import json
@@ -501,6 +531,9 @@ CHAIN_CHECK_ROWS = (8, 16, 77, 512, 1037, 4096)
 # the serve phases' prompt lengths; the MoE engine prefills a request alone
 # at full capacity, so these are also the stacked kernels' prefill rows
 SERVE_PROMPT_LENS = (128, 256, 512)
+# new tokens of those requests, short for the script's time limit; the
+# least, 8, outlasts phase 43's 5-step snapshot
+SERVE_GEN_LENS = (8, 12, 16, 24)
 # tinyllama-1.1b under the hierarchical-block plan of
 # benchmarks/chain_executor.py: dense 4x4 outer blocking around three
 # Ramanujan factors (their sparsities allocated by the designer) and a
@@ -579,7 +612,7 @@ PLAN_TARGET_DENSITY, PLAN_MIN_DIM = 0.25, 64
 # the tensor-core bodies take and a training step's
 PLAN_CHECK_N = (16, 1037, 4096)
 PLAN_EXPERT_ROWS = (16, MOE_ROWS["train"])
-# serve-plan's admission budget B, in live tokens: one 576-token request
+# serve-plan's admission budget B, in live tokens: one 536-token request
 # (phase 4's longest) fits, two do not; what admits more is the plan's
 # credit of freed weight bytes
 PLAN_SERVE_BUDGET = 600
@@ -590,8 +623,23 @@ def vgg19_sdmm_layers() -> list:
     return [tuple(s) for s in VGG19_SDMM]
 
 
+#: host seconds by log tag: the time since the previous log line, given to
+#: the tag of the line it produced; printed when every phase has passed
+TAG_SECONDS = collections.defaultdict(float)
+_LAST_LOG = [time.perf_counter()]
+
+
 def log(phase: str, msg: str) -> None:
+    now = time.perf_counter()
+    TAG_SECONDS[phase] += now - _LAST_LOG[0]
+    _LAST_LOG[0] = now
     print(f"[{phase}] {msg}", flush=True)
+
+
+def seconds_by_tag() -> str:
+    """``TAG_SECONDS``, the longest first, as one line."""
+    return ", ".join(f"{tag} {sec:.1f}" for tag, sec in sorted(
+        TAG_SECONDS.items(), key=lambda kv: -kv[1]))
 
 
 def card_line() -> str:
@@ -610,7 +658,7 @@ def _hold_queue() -> None:
     torch.cuda._sleep(200_000_000)
 
 
-def time_cuda(fn, n_iter: int = 30, n_warm: int = 5) -> float:
+def time_cuda(fn, n_iter: int = 15, n_warm: int = 3) -> float:
     """Median milliseconds per call of ``fn(i)`` (CUDA events)."""
     for i in range(n_warm):
         fn(i)
@@ -1327,9 +1375,11 @@ def free_card() -> None:
     among the layers of a model, would keep every earlier model's tables
     on the card for the process's life: they are emptied too."""
     from repro_torch.kernels import chainmm, ops
+    from repro_torch.kernels.rbgp4mm import _SHARE_T
 
     ops._OP_CACHE.clear()
     chainmm._TABLES.clear()
+    _SHARE_T.clear()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1338,7 +1388,7 @@ def serve_requests(vocab: int, n: int, seed: int) -> list:
     from repro_torch.data import RequestStream
 
     return RequestStream(vocab, n, prompt_lens=SERVE_PROMPT_LENS,
-                         gen_lens=(8, 16, 32, 64), seed=seed).requests()
+                         gen_lens=SERVE_GEN_LENS, seed=seed).requests()
 
 
 def quant_config(cfg):
@@ -4051,7 +4101,7 @@ def layer_parity(cpu, rec: dict, phase: str, pattern: str) -> dict:
     return worst
 
 
-def phase_kd_protocol(n_steps: int = 80, batch: int = 64) -> dict:
+def phase_kd_protocol(n_steps: int = 20, batch: int = 64) -> dict:
     """``examples/cifar_vgg_rbgp4.py``'s protocol at WRN-40-4's full width,
     batch ``batch``, bf16 compute: a dense teacher, then an unstructured
     (masked) and an RBGP4 (compact) student at 0.75 (``min_dim`` 32, as the
@@ -4624,9 +4674,9 @@ PRESSURE = dict(n=6, prompt_lens=(128, 192, 256), gen=32, seed=3,
                 pool_share=0.6, fault_seed=0, deadline_rid=5,
                 deadline_steps=12, cancel_rid=1, cancel_after=20)
 # serve-prefix (phase 42): one 256-token head shared by 16 requests, each
-# with a tail of its own (32-128 tokens) and 32 new tokens; request 0
+# with a tail of its own (32-128 tokens) and 16 new tokens; request 0
 # arrives first, the other 15 a step later (a warmed system prompt)
-PREFIX_HEAD, PREFIX_TAILS, PREFIX_GEN = 256, (32, 64, 96, 128), 32
+PREFIX_HEAD, PREFIX_TAILS, PREFIX_GEN = 256, (32, 64, 96, 128), 16
 
 
 def count_calls_bodies(model, name: str, per_call: list) -> None:
@@ -5662,11 +5712,11 @@ ARCH_TRAIN = {
 }
 #: phase 50's depths where the script's time limit, not the card, cuts
 #: one: rwkv6-7b's sequential scans take about 16 s a step at its 32
-#: layers on an H100, a quarter of that at 8
-ARCH_TRAIN_TIME_CUT = {"rwkv6-7b": 8}
+#: layers on an H100, an eighth of that at 4
+ARCH_TRAIN_TIME_CUT = {"rwkv6-7b": 4}
 #: phase 50's batch (4 x 512 tokens, as qwen2-moe's training phase) and
-#: steps (the first untimed)
-ARCH_TRAIN_BATCH, ARCH_TRAIN_SEQ, ARCH_TRAIN_STEPS = 4, 512, 4
+#: steps (the first untimed; 2 for the script's time limit)
+ARCH_TRAIN_BATCH, ARCH_TRAIN_SEQ, ARCH_TRAIN_STEPS = 4, 512, 2
 #: bytes the trainer holds for each trainable value during a bf16 step:
 #: the model's bf16 tensor, the float32 master value, the float32
 #: gradient and the sgdm momentum (train/loop.py); 10 of them stay
@@ -5680,7 +5730,7 @@ TRAIN_CARD_GB, TRAIN_HEADROOM_GB = 80.0, 12.0
 #: served first by phase 49, beside the others (earlier phases' model)
 ARCH_BASELINE = "tinyllama-1.1b"
 ARCH_REQUESTS = 8
-ARCH_GEN_LENS = (8, 16, 32)
+ARCH_GEN_LENS = (4, 8, 16)
 #: the static engine's batch (equal prompt lengths, lockstep decode)
 ARCH_STATIC_BATCH = 4
 #: rows a decode launch takes (the continuous engine's 8 slots; the static
@@ -6266,7 +6316,7 @@ def profile_call(fn, *args, **kw):
 def phase_serve_arch(arch: str, smi: str) -> dict:
     """Phase 49: ``arch`` at full width in bf16 (``arch_serve_config``)
     serves ``ARCH_REQUESTS`` ``RequestStream(seed=0)`` requests (prompts
-    of 128-512 tokens, 8-32 new; an audio model's with 4 codebooks) on its
+    of 128-512 tokens, 4-16 new; an audio model's with 4 codebooks) on its
     engine: the continuous engine (8 slots, 16-token pages, f32 KV
     cache), or the static engine (batch 4) for the recurrent archs.
     Every request must finish with in-range tokens, every call's logits
@@ -6574,8 +6624,8 @@ def arch_phases(smi: str) -> tuple[dict, dict, dict]:
 # bf16 launches (decode, and the widest serve prompt's prefill)
 SHARD_MODELS = (2, 4)
 SHARD_ROWS = (8, 512)
-# phases 53-54: 8 requests at SERVE_PROMPT_LENS, 32 new tokens each
-SHARD_REQUESTS, SHARD_GEN = 8, 32
+# phases 53-54: 4 requests at SERVE_PROMPT_LENS, 8 new tokens each
+SHARD_REQUESTS, SHARD_GEN = 4, 8
 # phase 54's models: MLA with 160 routed experts (deepseek-v2, 4 of 60
 # layers, as phase 49 serves it), the patch frontend (pixtral-12b; text
 # prompts), codebooks (musicgen-medium) and chain storage (tinyllama under
@@ -6956,13 +7006,359 @@ def shard_phases(smi: str) -> tuple[dict, list]:
     return check, runs
 
 
+# phase 55: the dry-run's programs at a 1 x 1 mesh, (kind, rows, seq):
+# decode_32k's 8 rows a device at 16 x 16 against its 32768-token cache,
+# prefill_32k's 2 sequences a device cut to 4096 tokens (the plain
+# attention holds an S x S score a head: 2 x 32 x 32768^2 f32 is 275 GB),
+# one training step of 4 x 512
+DRYRUN_CELLS = (("decode", 8, 32768), ("prefill", 2, 4096),
+                ("train", 4, 512))
+# the reckoned peak against the card's, the band phase 55 holds it in
+DRYRUN_PEAK_BAND = (0.5, 2.0)
+# phase 56: steps, rows and tokens a row of each sharded training run
+SHARDED_STEPS, SHARDED_BATCH, SHARDED_SEQ = 3, 4, 512
+# entries of each gradient phase 56 compares (``grad_sample``)
+SHARDED_SAMPLE = 1 << 16
+# the launch counters phase 56 holds equal between its two runs
+SHARDED_COUNTERS = ("forward", "dx", "dw", "stacked_forward", "stacked_dx",
+                    "stacked_dw")
+
+
+def start_dryrun_reckoning(out: Path) -> subprocess.Popen:
+    """The dry-run's reckoning of ``DRYRUN_CELLS`` for tinyllama-1.1b at a
+    1 x 1 mesh, in a process of its own (a fake group of one rank, every
+    tensor on ``meta``; its output in ``out`` and ``out``.log)."""
+    cells = [a for kind, b, sq in DRYRUN_CELLS
+             for a in ("--cell", f"{kind},{b},{sq}")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    out.unlink(missing_ok=True)
+    with open(out.with_suffix(".log"), "w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "tinyllama-1.1b", "--mesh", "1x1", *cells, "--out", str(out)],
+            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+
+
+def finish_dryrun_reckoning(proc: subprocess.Popen, out: Path) -> dict:
+    """Waits for the reckoning; its records by shape name."""
+    rc = proc.wait(timeout=600)
+    if rc != 0:
+        raise AssertionError(f"the dry-run's reckoning failed: "
+                             f"{out.with_suffix('.log').read_text()[-4000:]}")
+    return {r["shape"]: r for r in map(json.loads,
+                                       out.read_text().splitlines())}
+
+
+def reckoning_beside_decode(smi: str) -> dict:
+    """``--dryrun-only``: what the reckoning costs a timed phase that runs
+    beside it.  tinyllama-1.1b's decode step (bf16, 8 rows, a 1024-token
+    f32 cache, every step at position 512; host-bound) in ms/step: alone,
+    beside a second run of the reckoning (every step until it ends), and
+    alone again."""
+    from repro_torch.models import LMModel
+
+    model = LMModel(main_config("bfloat16"), device="cuda", seed=0)
+    cache = model.init_cache(8, 1024, torch.float32)
+    tok = torch.zeros((8, 1), dtype=torch.long, device="cuda")
+
+    def steps(n: int = 0, proc=None) -> float:
+        torch.cuda.synchronize()
+        t0, k = time.perf_counter(), 0
+        while (proc.poll() is None) if proc is not None else k < n:
+            model.decode_step(tok, cache, 512)
+            k += 1
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / k
+
+    steps(8)
+    alone = steps(64)
+    out = Path(os.environ.get("TMPDIR", "/tmp")) / \
+        f"chip_smoke_beside_{os.getpid()}.jsonl"
+    proc = start_dryrun_reckoning(out)
+    beside = steps(proc=proc)
+    finish_dryrun_reckoning(proc, out)
+    again = steps(64)
+    row = {"alone_ms": alone, "beside_ms": beside, "again_ms": again}
+    log("dryrun-vs-card",
+        f"tinyllama decode step (8 rows, bf16) alone {alone:.2f} ms, beside "
+        f"the reckoning {beside:.2f} ms ({beside / alone:.3f}x), alone "
+        f"again {again:.2f} ms; on {smi}")
+    del model, cache
+    free_card()
+    return row
+
+
+def phase_dryrun_vs_card(smi: str, recs: dict) -> dict:
+    """Phase 55: each of the dry-run's programs (``DRYRUN_CELLS``, its own
+    config: rbgp4 0.75 masked, min_dim 1024, bf16) run on the card at a
+    1 x 1 mesh of the NCCL group, against the dry-run's reckoning of the
+    same program (``recs``, reckoned beside the kernels' build): the
+    argument bytes (the card's allocated bytes the program's tensors add,
+    before the call) within 1%, the peak (the card's most allocated over
+    the call, less the same base) within ``DRYRUN_PEAK_BAND``, the fenced
+    ms of the second call beside max(compute_s, memory_s)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    t_phase = time.perf_counter()
+    cfg = dryrun.cell_config("tinyllama-1.1b", "rbgp4", 0.75)
+    mesh = make_serve_mesh(1, 1)
+    rows = {}
+    for kind, b, sq in DRYRUN_CELLS:
+        shape = ShapeConfig(f"{kind}_{b}x{sq}", sq, b, kind)
+        rec = recs[shape.name]
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run {shape.name}: {rec}")
+        if kind == "prefill":
+            log("dryrun-vs-card", f"prefill cut to {sq} tokens a sequence "
+                                  f"(prefill_32k's 32768 would hold an S x "
+                                  f"S f32 score a head)")
+        free_card()
+        base = torch.cuda.memory_allocated()
+        program = dryrun.build_program(cfg, shape, mesh, "cuda")[0]
+        torch.cuda.synchronize()
+        arg_gb = (torch.cuda.memory_allocated() - base) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        program()
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        t0 = time.perf_counter()
+        program()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        mem = rec["memory"]
+        bound_s = max(rec["roofline"]["compute_s"],
+                      rec["roofline"]["memory_s"])
+        row = {"argument_gb": [mem["argument_gb"], arg_gb],
+               "peak_gb": [mem["peak_per_device_gb"], peak_gb],
+               "peak_ratio": mem["peak_per_device_gb"] / peak_gb,
+               "ms": ms, "bound_ms": 1e3 * bound_s,
+               "collectives": rec["collectives"]["counts"]}
+        log("dryrun-vs-card",
+            f"{shape.name}: argument GB reckoned {mem['argument_gb']:.4f} "
+            f"card {arg_gb:.4f}; peak GB reckoned "
+            f"{mem['peak_per_device_gb']:.4f} card {peak_gb:.4f} (ratio "
+            f"{row['peak_ratio']:.3f}); {ms:.2f} ms fenced against "
+            f"max(compute, memory) {row['bound_ms']:.3f} ms "
+            f"({rec['bottleneck']}); on {smi}")
+        if abs(mem["argument_gb"] - arg_gb) > 0.01 * arg_gb:
+            raise AssertionError(f"{shape.name}: reckoned arguments "
+                                 f"{mem['argument_gb']} GB, card {arg_gb}")
+        lo, hi = DRYRUN_PEAK_BAND
+        if not lo <= row["peak_ratio"] <= hi:
+            raise AssertionError(f"{shape.name}: reckoned peak over the "
+                                 f"card's {row['peak_ratio']}")
+        rows[shape.name] = row
+        del program
+    free_card()
+    log("dryrun-vs-card", f"phase 55 in {time.perf_counter() - t_phase:.1f}s")
+    return rows
+
+
+def grad_sample(g: torch.Tensor) -> torch.Tensor:
+    """Up to ``SHARDED_SAMPLE`` entries of ``g`` at a fixed stride, in
+    float32, on g's device (no host sync)."""
+    flat = g.detach().reshape(-1)
+    stride = max(1, flat.numel() // SHARDED_SAMPLE)
+    return flat[::stride][:SHARDED_SAMPLE].float().clone()
+
+
+def row_parallel_sites(model) -> int:
+    """The row-parallel ``SparseLinear`` layers of a sharded model: where
+    the sharded forward rounds the product to the compute dtype before
+    its bias, activation and residual, which the unsharded kernel adds in
+    its float32 epilogue."""
+    from repro_torch.sparsity import SparseLinear
+
+    return sum(1 for m in model.modules() if isinstance(m, SparseLinear)
+               and m.tp is not None and m.tp.role == "row")
+
+
+def sharded_train_run(cfg, mesh, device, n_steps: int, batch: int,
+                      seq: int) -> dict:
+    """``n_steps`` of ``make_train_step`` (sgdm, lr 3e-2, clip 1.0) on
+    ``TokenStream(seed=0)`` batches, the model cut by ``shard_module``
+    over ``mesh`` first where one is given: each step's loss, a sample of
+    every gradient of the first step as autograd leaves it
+    (``grad_sample``), the kernels' launches, the fenced ms of each step
+    but the first and the row-parallel sites."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.models import LMModel
+    from repro_torch.parallel import shard_module
+    from repro_torch.train import init_train_state, make_train_step
+
+    model = LMModel(cfg, device=device, seed=0)
+    if mesh is not None:
+        shard_module(model, mesh)
+    tcfg = TrainConfig(optimizer="sgdm", lr=3e-2, schedule="constant",
+                       grad_clip=1.0)
+    state = init_train_state(model, tcfg)
+    step = make_train_step(model, tcfg)
+    first: dict = {}
+
+    def keep(name):
+        def hook(p):
+            first[name] = grad_sample(p.grad)
+        return hook
+
+    hooks = [p.register_post_accumulate_grad_hook(keep(name))
+             for name, p in model.named_parameters() if p.requires_grad]
+    data = iter(TokenStream(cfg.vocab_size, batch, seq,
+                            n_codebooks=cfg.n_codebooks, seed=0))
+    losses, ms = [], []
+    before = launch_counts()
+    for i in range(n_steps):
+        b = {k: torch.as_tensor(v, device=device)
+             for k, v in next(data).items()}
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+        if i:
+            ms.append(1e3 * (time.perf_counter() - t0))
+        else:
+            for h in hooks:
+                h.remove()
+    launches = counts_since(before)
+    sites = row_parallel_sites(model)
+    del model, state, step
+    return {"losses": losses, "grads": {n: g.cpu() for n, g in first.items()},
+            "launches": launches, "sites": sites,
+            "ms": statistics.mean(ms) if ms else None}
+
+
+def sharded_tolerance(sites: int) -> float:
+    """Phase 56's bound on the sharded step's relative difference from the
+    unsharded one (each loss; each first-step gradient's sample in L2):
+    one bf16 rounding (2^-9 relative) at each of ``sites`` row-parallel
+    sites, added up (PERF.md §6)."""
+    return sites * 2.0 ** -9
+
+
+def compare_sharded_runs(a: dict, b: dict) -> dict:
+    """The sharded run ``b`` against the unsharded ``a``: the worst
+    relative loss difference over the steps, each first-step gradient's
+    relative L2 difference on its sample (and the worst entry's over
+    the sample's max), the tolerance, the launches held equal.  Raises
+    where a reading passes the tolerance, a gradient is missing or the
+    launches differ."""
+    tol = sharded_tolerance(b["sites"])
+    loss = max(abs(x - y) / abs(x) for x, y in zip(a["losses"],
+                                                   b["losses"]))
+    if sorted(a["grads"]) != sorted(b["grads"]) or not a["grads"]:
+        raise AssertionError(f"gradients of {sorted(a['grads'])[:4]}... "
+                             f"against {sorted(b['grads'])[:4]}...")
+    l2, elem = {}, {}
+    for n, g in a["grads"].items():
+        d = b["grads"][n] - g
+        ref = float(g.norm())
+        l2[n] = float(d.norm()) / ref if ref else float(d.norm())
+        top = float(g.abs().max())
+        elem[n] = float(d.abs().max()) / top if top else float(d.abs().max())
+    worst = max(l2, key=l2.get)
+    la = {k: a["launches"][k] for k in SHARDED_COUNTERS}
+    lb = {k: b["launches"][k] for k in SHARDED_COUNTERS}
+    out = {"tol": tol, "sites": b["sites"], "loss_rel": loss,
+           "grad_l2_rel": l2[worst], "grad_l2_worst": worst,
+           "grad_l2_median": statistics.median(l2.values()),
+           "grad_elem_rel": max(elem.values()), "n_grads": len(l2),
+           "launches": la}
+    if loss > tol or l2[worst] > tol:
+        raise AssertionError(f"sharded against unsharded: {out}")
+    if la != lb or not la["forward"] or not la["dw"]:
+        raise AssertionError(f"launches {la}, sharded {lb}")
+    return out
+
+
+def phase_train_sharded(smi: str, mesh) -> dict:
+    """Phase 56: full-width tinyllama-1.1b (compact, rbgp4 0.75, min_dim
+    64, bf16) and qwen2-moe-a2.7b, ``SHARDED_STEPS`` steps of 4 x 512
+    tokens through ``make_train_step``, once unsharded and once after
+    ``shard_module`` at model 1 (world size 1, NCCL), from the same
+    weights: the losses and the first step's gradients within
+    ``sharded_tolerance`` (``compare_sharded_runs``), the same launches
+    of ``rbgp4mm_rhs`` (forward, dX), ``rbgp4_sddmm_rhs`` and the stacked
+    pair, ms/step of both."""
+    t_phase = time.perf_counter()
+    out = {}
+    for cfg in (main_config("bfloat16"), moe_config("bfloat16")):
+        runs = {}
+        for label, m in (("unsharded", None), ("sharded", mesh)):
+            free_card()
+            runs[label] = sharded_train_run(cfg, m, "cuda", SHARDED_STEPS,
+                                            SHARDED_BATCH, SHARDED_SEQ)
+        a, b = runs["unsharded"], runs["sharded"]
+        got = compare_sharded_runs(a, b)
+        log("train-sharded",
+            f"{cfg.name}: {SHARDED_STEPS} steps of {SHARDED_BATCH} x "
+            f"{SHARDED_SEQ}: losses {a['losses']} unsharded, {b['losses']} "
+            f"sharded (worst relative {got['loss_rel']:.3e}); "
+            f"{got['n_grads']} first-step gradients, relative L2 worst "
+            f"{got['grad_l2_rel']:.3e} ({got['grad_l2_worst']}) median "
+            f"{got['grad_l2_median']:.3e}, worst entry over max "
+            f"{got['grad_elem_rel']:.3e}; tolerance {got['tol']:.4f} "
+            f"({got['sites']} row-parallel sites x 2^-9); launches "
+            f"{got['launches']} equal; ms/step unsharded {a['ms']:.1f} "
+            f"sharded {b['ms']:.1f}; on {smi}")
+        # both runs' launches (the kernels' record counts them)
+        out[cfg.name] = {"launches": {k: a["launches"][k]
+                                      + b["launches"][k] for k in COUNTERS},
+                         "ms": [a["ms"], b["ms"]], "losses": a["losses"],
+                         "readings": got}
+    free_card()
+    log("train-sharded", f"phase 56 in {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def dryrun_phases(smi: str, recs: dict) -> tuple:
+    """Phases 55-56 (``--dryrun-only`` runs phases 1, 55 and 56 alone),
+    on one NCCL group of world size 1."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+
+    init_distributed("cuda")
+    card = phase_dryrun_vs_card(smi, recs)
+    train = phase_train_sharded(smi, make_serve_mesh(1, 1))
+    dist.destroy_process_group()
+    return card, train
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
               "card only", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    quick = {"--shard-only", "--archs-only", "--autotune-only"}
+    dry_recs = None
+    if not quick & set(sys.argv[1:]):
+        # phase 55's reckoning runs beside the kernels' build, and beside
+        # no timed phase: phase 2 starts after it ends
+        dry_out = Path(os.environ.get("TMPDIR", "/tmp")) / \
+            f"chip_smoke_dryrun_{os.getpid()}.jsonl"
+        dry_proc = start_dryrun_reckoning(dry_out)
+        # a failed build exits with the reckoning still running: end it
+        atexit.register(lambda: dry_proc.poll() is None and dry_proc.kill())
     smi = phase_build()
+    if not quick & set(sys.argv[1:]):
+        t0 = time.perf_counter()
+        dry_recs = finish_dryrun_reckoning(dry_proc, dry_out)
+        log("build", f"the dry-run's reckoning ended "
+                     f"{time.perf_counter() - t0:.1f}s after the build")
+    if "--dryrun-only" in sys.argv[1:]:
+        # the quick check of the dry-run against the card and the sharded
+        # training step: phases 55-56, and what the reckoning costs a
+        # host-bound phase beside it
+        reckoning_beside_decode(smi)
+        dryrun_phases(smi, dry_recs)
+        log("done", f"phases 1, 55 and 56 passed in "
+                    f"{time.perf_counter() - t_start:.1f}s on {smi}")
+        return 0
     if "--shard-only" in sys.argv[1:]:
         # the quick check of the distribution: phases 52-54
         shard_phases(smi)
@@ -7026,17 +7422,18 @@ def main() -> int:
     serve_moe = phase_serve(moe, launches_of(forward=n_c,
                                              stacked_forward=n_s),
                             phase="serve-moe")
-    phase_parity(moe_config("float32"),
-                 serve_requests(moe.vocab_size, 16, seed=0),
+    phase_parity(moe_config("float32").with_(n_layers=4),
+                 serve_requests(moe.vocab_size, 4, seed=0),
                  phase="parity-moe")
     moe_step = launches_of(forward=2 * n_c, dx=n_c, dw=n_c,
                            stacked_forward=2 * n_s, stacked_dx=n_s,
                            stacked_dw=n_s)
     train_moe = phase_train(moe, moe_step, n_steps=4, batch=4, seq=512,
                             phase="train-moe")
-    phase_train_parity(moe, launches_of(forward=28, dx=14, dw=14,
-                                        stacked_forward=12, stacked_dx=6,
-                                        stacked_dw=6), phase="parity-moe")
+    phase_train_parity(moe, launches_of(forward=14, dx=7, dw=7,
+                                        stacked_forward=6, stacked_dx=3,
+                                        stacked_dw=3), n_layers=1,
+                       phase="parity-moe")
 
     # tinyllama under the hierarchical-block plan: all 154 projections are
     # chains, and no RBGP4 kernel runs
@@ -7162,6 +7559,12 @@ def main() -> int:
     t_shard = time.perf_counter()
     shard_check, shard_runs = shard_phases(smi)
     t_shard = time.perf_counter() - t_shard
+
+    # the dry-run's reckoning against the card at 1 x 1 (phase 55), and
+    # the sharded training step against the unsharded one (phase 56)
+    t_dry = time.perf_counter()
+    dry_card, dry_train = dryrun_phases(smi, dry_recs)
+    t_dry = time.perf_counter() - t_dry
     # phase 50's checks of each training layout against its plain version
     max_abs_archs = {role: max(r["layout_checks"]["max_abs"][role]
                                for r in train_archs.values())
@@ -7228,7 +7631,8 @@ def main() -> int:
                  chunked_chain, pressure, prefix["on"], prefix["off"],
                  static, obs) + tuple(vision.values()) \
         + tuple(train_plan.values()) + tuple(serve_archs.values()) \
-        + tuple(train_archs.values()) + tuple(shard_runs)
+        + tuple(train_archs.values()) + tuple(shard_runs) \
+        + tuple(dry_train.values())
     train_runs = (train, train_moe, *train_archs.values())
     vision_launches = lambda role: sum(r["launches"][role]
                                        for r in vision.values())
@@ -7495,6 +7899,7 @@ def main() -> int:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} never launched on the main "
                                  f"path")
+    log("done", f"host seconds by log tag: {seconds_by_tag()}")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s "
                 f"on {smi}; the four feature-major phases took {t_fm:.1f}s, "
                 f"the int8 phases {t_q:.1f}s, the vision phases "
@@ -7502,7 +7907,8 @@ def main() -> int:
                 f"phases 38-44 {t_serve:.1f}s, the autotuner phases 45-47 "
                 f"{t_tune:.1f}s, the other archs' phases 48-51 "
                 f"{t_arch:.1f}s, the distribution phases 52-54 "
-                f"{t_shard:.1f}s")
+                f"{t_shard:.1f}s, the dry-run and sharded-training phases "
+                f"55-56 {t_dry:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,23 +1,28 @@
 """Config registry of the port: ``get_config``, ``list_archs``,
-``reduce_config``, ``apply_sparsity`` (the port of
+``reduce_config``, ``apply_sparsity`` and the shape cells (the port of
 ``repro/configs/__init__.py``).
 
 All twelve architectures of the reference: ten language models
 (``ModelConfig``) and the paper's ``vgg19-cifar`` and ``wrn40-4-cifar``
-(``VisionConfig``, ``repro_torch.models.vision``).  The reference's shape
-cells (``shape_cells``, ``input_specs``, ``LONG_CONTEXT_ARCHS``) describe
-JAX's abstract dry-run cells and are not ported.
+(``VisionConfig``, ``repro_torch.models.vision``).  The shape cells
+(``LM_SHAPES``, ``shape_cells``, ``LONG_CONTEXT_ARCHS``) are the dry-run's
+(``repro_torch.launch.dryrun``); ``input_specs`` gives a cell's inputs as
+``meta`` tensors, the counterpart of the reference's
+``ShapeDtypeStruct``s: shapes and dtypes, no storage.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 import math
+from typing import Optional
+
+import torch
 
 from repro_torch.sparsity import SparsityConfig
 
-from .base import (MambaConfig, MLAConfig, ModelConfig, MoEConfig,
-                   RWKVConfig, TrainConfig)
+from .base import (LM_SHAPES, MambaConfig, MLAConfig, ModelConfig,
+                   MoEConfig, RWKVConfig, ShapeConfig, TrainConfig)
 
 ARCHS = {
     "gemma-7b": "gemma_7b",
@@ -33,6 +38,10 @@ ARCHS = {
     "vgg19-cifar": "vgg19_cifar",
     "wrn40-4-cifar": "wrn40_4_cifar",
 }
+
+# archs with sub-quadratic sequence mixing: the only ones running long_500k
+# (see DESIGN.md §5 "Shape-cell skips")
+LONG_CONTEXT_ARCHS = {"rwkv6-7b", "jamba-1.5-large-398b", "gemma3-4b"}
 
 
 def get_config(name: str):
@@ -122,6 +131,58 @@ def reduce_config(cfg: ModelConfig, *,
     )
 
 
-__all__ = ["ARCHS", "get_config", "list_archs", "apply_sparsity",
-           "reduce_config", "ModelConfig", "MoEConfig", "MLAConfig",
+# ---------------------------------------------------------------------------
+# shape cells
+# ---------------------------------------------------------------------------
+
+def shape_cells(cfg: ModelConfig) -> list[tuple[ShapeConfig, Optional[str]]]:
+    """All 4 assigned cells as (shape, skip_reason_or_None)."""
+    out = []
+    for shp in LM_SHAPES:
+        skip = None
+        if shp.name == "long_500k" and cfg.name not in LONG_CONTEXT_ARCHS:
+            skip = (
+                "pure full-attention arch: 500k-token full-attention decode "
+                "is quadratic-history; run only for SSM/hybrid/local-global "
+                "archs (DESIGN.md §5)"
+            )
+        out.append((shp, skip))
+    return out
+
+
+def _token_spec(cfg: ModelConfig, batch: int, seq: int) -> torch.Tensor:
+    tail = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    return torch.empty((batch, seq, *tail), dtype=torch.int32, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                cache_dtype=torch.bfloat16) -> dict:
+    """The (arch x shape) cell's inputs as ``meta`` tensors.
+
+    train/prefill: {'batch': {'tokens', ['patch_embeds']}}
+    decode:        {'tokens_new', 'cache', 'index'}, the cache the port's
+                   per-layer list (``LMModel.init_cache``)
+    """
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": _token_spec(cfg, B, S)}
+        if cfg.frontend == "vision":
+            batch["patch_embeds"] = torch.empty(
+                (B, cfg.n_patches, cfg.d_model), dtype=torch.bfloat16,
+                device="meta")
+        return {"batch": batch}
+    # decode: one new token against a cache of S past tokens
+    from repro_torch.models import LMModel
+
+    model = LMModel(cfg, device="meta")
+    return {
+        "tokens_new": _token_spec(cfg, B, 1),
+        "cache": model.init_cache(B, S, cache_dtype),
+        "index": torch.empty((), dtype=torch.int32, device="meta"),
+    }
+
+
+__all__ = ["ARCHS", "LONG_CONTEXT_ARCHS", "LM_SHAPES", "ShapeConfig",
+           "get_config", "list_archs", "apply_sparsity", "reduce_config",
+           "shape_cells", "input_specs", "ModelConfig", "MoEConfig", "MLAConfig",
            "MambaConfig", "RWKVConfig", "TrainConfig"]

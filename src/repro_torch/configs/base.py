@@ -17,7 +17,8 @@ from typing import Optional
 
 from repro_torch.sparsity import SparsityConfig, SparsityPlan, lower_config
 
-__all__ = ["MoEConfig", "MLAConfig", "MambaConfig", "RWKVConfig",
+__all__ = ["ShapeConfig", "LM_SHAPES", "MoEConfig", "MLAConfig",
+           "MambaConfig", "RWKVConfig",
            "ModelConfig", "TrainConfig"]
 
 
@@ -126,6 +127,24 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+LM_SHAPES = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
 
 
 @dataclasses.dataclass(frozen=True)

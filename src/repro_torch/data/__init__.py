@@ -1,5 +1,5 @@
 from .synthetic import (GaussianClassImages, Prefetcher, RequestStream,
-                        TokenStream)
+                        TokenStream, host_shard)
 
 __all__ = ["TokenStream", "RequestStream", "GaussianClassImages",
-           "Prefetcher"]
+           "Prefetcher", "host_shard"]

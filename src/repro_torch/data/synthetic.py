@@ -9,7 +9,8 @@ of ``repro/data/synthetic.py``.
     prompts come from the same token process, with optional arrivals;
   * GaussianClassImages: CIFAR-shaped (B, 32, 32, 3) NHWC images around
     fixed class prototypes, for the vision models;
-  * Prefetcher: background-thread double buffering around any iterator.
+  * Prefetcher: background-thread double buffering around any iterator;
+  * host_shard: this process's slice of the global batch.
 
 The same seed gives the reference's tokens, requests and images, codebook
 streams included (the same numpy RNG calls).
@@ -18,12 +19,30 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
 __all__ = ["TokenStream", "RequestStream", "GaussianClassImages",
-           "Prefetcher"]
+           "Prefetcher", "host_shard"]
+
+
+def host_shard(global_batch: int, process_index: Optional[int] = None,
+               process_count: Optional[int] = None) -> tuple[int, int]:
+    """(start, size) of this process's slice of the global batch; the
+    index and count default to the default process group's rank and world
+    size where one is up, else 0 and 1."""
+    import torch.distributed as dist
+
+    up = dist.is_available() and dist.is_initialized()
+    pi = (dist.get_rank() if up else 0) if process_index is None \
+        else process_index
+    pc = (dist.get_world_size() if up else 1) if process_count is None \
+        else process_count
+    if global_batch % pc:
+        raise ValueError(f"global batch {global_batch} not divisible by {pc} hosts")
+    size = global_batch // pc
+    return pi * size, size
 
 
 class TokenStream:

@@ -65,7 +65,8 @@ from . import autotune
 from .rbgp4mm import (_DTYPE_CODES, _NO_PLAN, _PATH_CODES, MMA_MIN_TOKENS,
                       SDDMM_MMA_WAVES, RankSlice, RowGroupClasses, SddmmPlan,
                       cut_col0,
-                      _check_aligned16, _check_cuda, _launch, _pow2_tokens,
+                      _check_aligned16, _check_cuda, _launch, _pad_values,
+                      _pow2_tokens,
                       _randn, _sm_count, _values, token_slices)
 from .ref import dequant_leaf_blocks
 
@@ -264,6 +265,7 @@ class ChainTransposeTables:
 
     tables: ChainTables
     perm: torch.Tensor
+    pad: bool = False
 
     @classmethod
     def build(cls, layout, device) -> "ChainTransposeTables":
@@ -276,8 +278,8 @@ class ChainTransposeTables:
     def values(self, w_data: torch.Tensor) -> torch.Tensor:
         """The compact values of W^T in the transposed layout."""
         t = self.tables
-        return w_data.reshape(-1).index_select(0, self.perm).reshape(
-            t.m, t.data_cols)
+        return _pad_values(w_data.reshape(-1), self.pad).index_select(
+            0, self.perm).reshape(t.m, t.data_cols)
 
 
 _TABLES: dict[tuple, object] = {}

@@ -71,7 +71,7 @@ import torch.nn.functional as F
 from . import autotune, build
 from .ref import (dequant_leaf_blocks, gather_mm, gather_mm_rhs,
                   gather_mm_rhs_col0, gather_mm_rhs_stacked, gather_sddmm,
-                  gather_sddmm_rhs,
+                  gather_sddmm_rhs, gather_sddmm_rhs_col0,
                   gather_sddmm_rhs_stacked)
 
 __all__ = ["KernelDims", "KernelTables", "RowGroupClasses", "TransposeTables",
@@ -280,7 +280,9 @@ class KernelTables:
             dims2 = dataclasses.replace(dims, d_o=d_o, d_i=d_i,
                                         chunk_cols=side)
         device = self.col0.device
-        tables = KernelTables(
+        # a share of one is the whole layout: its own tables, whose plain
+        # version reads the adjacencies as the unsharded layer's does
+        tables = self if n == 1 else KernelTables(
             dims2, torch.as_tensor(c0, dtype=torch.int32, device=device),
             None, None, RowGroupClasses.build(c0, device), self.transposed)
         return RankSlice(kind, lo, hi, parent, tables)
@@ -320,6 +322,92 @@ class RankSlice:
                               device=s.device)
         return s.index_select(s.ndim + self.scale_dim, idx).contiguous()
 
+    def transpose(self, full_t):
+        """The transposed tables of this share (dX of its product), from
+        ``full_t``, the full layout's ``TransposeTables`` or
+        ``ChainTransposeTables``: ``full_t`` itself for a share of the
+        whole, else the transposed rows' slots that read the share, in
+        their order, sub-chunked to the share's G' (rows) or sub-grouped
+        to its C' (slots).  A row that keeps fewer slots than the most is
+        padded with slots reading column 0 against a zero value
+        (``pad``): a share of an expander's rows does not meet every
+        column equally often."""
+        key = (id(full_t), self.kind, self.lo, self.hi)
+        got = _SHARE_T.get(key)
+        if got is None:
+            got = _SHARE_T[key] = (_transpose_share(self, full_t), full_t)
+        return got[0]
+
+
+#: shares' transposed tables, by (full tables, kind, lo, hi)
+_SHARE_T: dict[tuple, tuple] = {}
+
+
+def _transpose_share(rs: RankSlice, full_t):
+    t = full_t.tables
+    chain = not isinstance(t, KernelTables)
+    d = t if chain else t.dims
+    gt, ct, n_rows, m = d.group_rows, d.chunk_cols, d.m, d.k
+    perm = full_t.perm.cpu().numpy().astype(np.int64)
+    cols = perm.size // m
+    whole = m if rs.kind == "rows" else cols
+    if (rs.lo, rs.hi) == (0, whole):
+        return full_t
+    lo, hi = rs.lo, rs.hi
+    side = (rs.tables.group_rows if chain else rs.tables.dims.group_rows) \
+        if rs.kind == "rows" else \
+        (rs.tables.chunk_cols if chain else rs.tables.dims.chunk_cols)
+    row, col = perm // cols, perm % cols
+    if rs.kind == "rows":
+        g2, c2, base, k2 = gt, side, -lo, hi - lo
+        keep = (row >= lo) & (row < hi)
+        new = (row - lo) * cols + col
+    else:
+        g2, c2, base, k2 = side, ct, 0, m
+        keep = (col >= lo) & (col < hi)
+        new = row * (hi - lo) + (col - lo)
+    col0 = t.col0.cpu().numpy().astype(np.int64)
+    n_slots, n_sub, n_grp = col0.shape[1], ct // c2, n_rows // g2
+    # units: (sub-group of g2 rows, slot, sub-chunk of c2 columns)
+    shape = (n_grp, g2, n_slots, n_sub, c2)
+    unit_keep = keep.reshape(shape).all(axis=(1, 4))
+    if not np.array_equal(keep.reshape(shape).any(axis=(1, 4)), unit_keep):
+        raise ValueError("the share cuts a transposed leaf block")
+    units = n_slots * n_sub
+    unit_keep = unit_keep.reshape(n_grp, units)
+    c0 = (col0[np.arange(n_grp) * g2 // gt][:, :, None]
+          + np.arange(n_sub)[None, None, :] * c2 + base).reshape(n_grp,
+                                                                 units)
+    counts = unit_keep.sum(1)
+    width = int(counts.max())
+    idx = np.argsort(~unit_keep, axis=1, kind="stable")[:, :width]
+    valid = np.arange(width)[None, :] < counts[:, None]
+    c0 = np.where(valid, np.take_along_axis(c0, idx, 1), 0)
+    vals = new.reshape(shape).transpose(0, 2, 3, 1, 4).reshape(
+        n_grp, units, g2, c2)
+    vals = np.take_along_axis(vals, idx[:, :, None, None], 1)
+    n_share = (hi - lo) * cols if rs.kind == "rows" else m * (hi - lo)
+    vals = np.where(valid[:, :, None, None], vals, n_share)
+    perm2 = np.ascontiguousarray(vals.transpose(0, 2, 1, 3).reshape(-1))
+    c0 = np.ascontiguousarray(c0)
+    device = t.col0.device
+    classes = RowGroupClasses.build(c0, device)
+    col0_t = torch.as_tensor(c0, dtype=torch.int32, device=device)
+    if chain:
+        dims = (dataclasses.replace(t.dims, k=k2, d_head=1,
+                                    inner=width * c2, leaf_rows=g2,
+                                    leaf_cols=c2)
+                if t.dims is not None else None)
+        tables = type(t)(n_rows, k2, g2, c2, col0_t, classes, True, dims)
+    else:
+        dims = dataclasses.replace(d, k=k2, group_rows=g2, chunk_cols=c2,
+                                   d_o=1, d_i=width,
+                                   u_i=max(d.tile_m // g2, 1))
+        tables = KernelTables(dims, col0_t, None, None, classes, True)
+    return type(full_t)(tables, torch.as_tensor(
+        perm2, dtype=full_t.perm.dtype, device=device),
+        pad=bool((~valid).any()))
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class TransposeTables:
@@ -336,6 +424,7 @@ class TransposeTables:
 
     tables: KernelTables
     perm: torch.Tensor
+    pad: bool = False
 
     @classmethod
     def build(cls, layout, device) -> "TransposeTables":
@@ -363,8 +452,16 @@ class TransposeTables:
         ``transpose_data_stacked``)."""
         dims = self.tables.dims
         lead = w_data.shape[:-2]
-        return w_data.reshape(*lead, -1).index_select(-1, self.perm).reshape(
-            *lead, dims.m, dims.data_cols)
+        return _pad_values(w_data.reshape(*lead, -1), self.pad).index_select(
+            -1, self.perm).reshape(*lead, dims.m, dims.data_cols)
+
+
+def _pad_values(flat: torch.Tensor, pad: bool) -> torch.Tensor:
+    """``flat`` (..., n) with a zero appended where ``pad`` (a share's
+    transposed tables read index n as zero)."""
+    if not pad:
+        return flat
+    return torch.cat([flat, flat.new_zeros((*flat.shape[:-1], 1))], -1)
 
 
 def _check_args(dims, x, w_data, act):
@@ -929,9 +1026,13 @@ def rbgp4_sddmm_rhs_reference(tables: KernelTables, g: torch.Tensor,
     g's dtype."""
     dims = tables.dims
     _check_sddmm_args(dims, g, x)
-    dw = gather_sddmm_rhs(tables.adj_o, tables.adj_i, dims.n_col_tiles,
-                          dims.group_rows, dims.chunk_cols, _wide(g),
-                          _wide(x))
+    if tables.adj_o is None:   # a rank's slice: through col0
+        dw = gather_sddmm_rhs_col0(tables.col0, dims.group_rows,
+                                   dims.chunk_cols, _wide(g), _wide(x))
+    else:
+        dw = gather_sddmm_rhs(tables.adj_o, tables.adj_i, dims.n_col_tiles,
+                              dims.group_rows, dims.chunk_cols, _wide(g),
+                              _wide(x))
     return dw.to(g.dtype)
 
 

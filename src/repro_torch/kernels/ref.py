@@ -12,7 +12,7 @@ import torch
 __all__ = ["unpack_dense", "pack_compact", "gather_mm_rhs",
            "gather_sddmm_rhs", "gather_mm_rhs_stacked",
            "gather_sddmm_rhs_stacked", "compact_gather_mm_rhs",
-           "gather_mm_rhs_col0", "gather_mm",
+           "gather_mm_rhs_col0", "gather_sddmm_rhs_col0", "gather_mm",
            "gather_sddmm", "compact_gather_mm", "ref_rbgp4mm",
            "ref_rbgp4_sddmm", "ref_masked_mm", "dequant_leaf_blocks"]
 
@@ -110,6 +110,21 @@ def gather_sddmm_rhs(adj_o, adj_i, n_o_r: int, group_rows: int,
     gg = g.reshape(n, n_o_l, u_i, group_rows)
     dw = torch.einsum("nokuic,noug->ougkic", xg, gg)
     return dw.reshape(n_o_l * u_i * group_rows, d_o * d_i * C)
+
+
+def gather_sddmm_rhs_col0(col0: torch.Tensor, group_rows: int,
+                          chunk_cols: int, g: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """Compact dW (M, S*C) = pack(g^T @ x) read through a ``col0`` table
+    alone (``gather_mm_rhs_col0``'s layout): slot ``s*C + c`` of row
+    ``rg*G + gi`` sums ``g[n, rg*G + gi] * x[n, col0[rg, s] + c]``."""
+    c = torch.arange(chunk_cols, dtype=torch.int64, device=x.device)
+    cols = (col0.to(device=x.device, dtype=torch.int64)[..., None]
+            + c).reshape(col0.shape[0], -1)               # (M/G, S*C)
+    xg = x[:, cols]                                       # (N, M/G, S*C)
+    gg = g.reshape(g.shape[0], col0.shape[0], group_rows)
+    dw = torch.einsum("nrs,nrg->rgs", xg, gg)
+    return dw.reshape(col0.shape[0] * group_rows, cols.shape[1])
 
 
 def gather_mm_rhs_stacked(adj_o, adj_i, n_o_r: int, group_rows: int,

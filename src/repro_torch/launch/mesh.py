@@ -12,8 +12,12 @@ a rank outside a mesh included; ``mesh.get_coordinate()`` is None there.
 ``WORLD_SIZE`` / ``LOCAL_RANK`` where ``torchrun`` (``python -m
 torch.distributed.run``) set them, else at world size 1 on a ``file://``
 store in a temporary directory.  NCCL for the card, gloo for
-``device="cpu"``; rank r takes ``cuda:LOCAL_RANK``.  The production
-meshes (``make_production_mesh``) come with the dry-run tools.
+``device="cpu"``; rank r takes ``cuda:LOCAL_RANK``.
+
+``make_production_mesh`` builds the dry-run's meshes, 16 x 16 and
+2 x 16 x 16, over a default group of that world size (the dry-run's is a
+``fake`` group, ``repro_torch.launch.dryrun``).  A function, not a
+module-level constant: importing this module starts nothing.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["init_distributed", "make_local_mesh", "make_serve_mesh"]
+__all__ = ["init_distributed", "make_production_mesh", "make_local_mesh",
+           "make_serve_mesh"]
 
 
 def init_distributed(device=None) -> torch.device:
@@ -51,6 +56,28 @@ def init_distributed(device=None) -> torch.device:
 
 def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """``("data", "model")`` 16 x 16, or ``("pod", "data", "model")``
+    2 x 16 x 16, over the default group's ranks, which must number
+    exactly as many."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 1
+    for n in shape:
+        need *= n
+    if not dist.is_initialized():
+        raise RuntimeError(f"the production mesh needs a default process "
+                           f"group of {need} ranks; none is up")
+    have = dist.get_world_size()
+    if have != need:
+        raise ValueError(f"the {'x'.join(map(str, shape))} production mesh "
+                         f"needs a world of {need} ranks, have {have}")
+    arr = torch.arange(need, dtype=torch.int64).reshape(shape)
+    return DeviceMesh(_device_type(), arr, mesh_dim_names=axes)
 
 
 def make_local_mesh(model_parallel: int = 1):

@@ -26,6 +26,7 @@ from torch import nn
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.parallel.comm import to_ranks
 from repro_torch.parallel.tensor import whole_output
 from repro_torch.sparsity import SparseLinear
 from .common import apply_rope, rope_frequencies
@@ -219,11 +220,15 @@ class GQAttention(nn.Module):
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         q, k, v = self.wq(x), self.wk(x), self.wv(x)
         tp = self.tp
+        # every rank runs every q head where the axis does not divide them
+        q_whole = tp is not None and tp.q == (0, H)
         if tp is not None:
-            if tp.kv_gather:
-                from repro_torch.parallel.comm import gather_cat
+            from repro_torch.parallel.comm import gather_cat
 
+            if tp.kv_gather:
                 k, v = gather_cat(k, tp.axis), gather_cat(v, tp.axis)
+            if tp.q_gather:
+                q = gather_cat(q, tp.axis)
             H = tp.q[1] - tp.q[0]
             Hkv = tp.cache[1] - tp.cache[0]
         q = q.reshape(B, S, H, hd)
@@ -269,13 +274,21 @@ class GQAttention(nn.Module):
             k_all, v_all, k_pos = k, v, positions
 
         if tp is not None:
-            # the kv heads this rank's q heads read, out of the cache's
+            # the kv heads this rank's q heads read, out of the cache's; a
+            # cache of every kv head is whole on every rank (to_ranks)
             rep = cfg.n_heads // cfg.n_kv_heads
             a = tp.q[0] // rep - tp.cache[0]
             b = (tp.q[1] - 1) // rep + 1 - tp.cache[0]
+            if tp.cache == (0, cfg.n_kv_heads) and not q_whole:
+                k_all = to_ranks(k_all, tp.axis)
+                v_all = to_ranks(v_all, tp.axis)
             k_all, v_all = k_all[:, :, a:b], v_all[:, :, a:b]
-        y = self._attend(q, k_all, v_all, positions, k_pos)
-        return self.wo(y.reshape(B, S, H * hd)), cache
+        y = self._attend(q, k_all, v_all, positions, k_pos).reshape(
+            B, S, H * hd)
+        if q_whole and self.wo.tp.full % tp.axis.size == 0:
+            # wo takes this rank's columns of the whole output
+            y = to_ranks(y, tp.axis)[..., self.wo.tp.lo:self.wo.tp.hi]
+        return self.wo(y), cache
 
     @property
     def cache_kv_heads(self) -> int:
@@ -471,6 +484,10 @@ class MLAttention(nn.Module):
                 cache["pos"]
         else:
             ckv_all, krope_all, k_pos = ckv, k_rope, positions
+        if self.tp is not None:
+            # the latent is whole on every rank; this rank's heads read it
+            ckv_all = to_ranks(ckv_all, self.tp.axis)
+            krope_all = to_ranks(krope_all, self.tp.axis)
         ckv_all = ckv_all.to(x.dtype)
         krope_all = krope_all.to(x.dtype)
         wk_b = self.wk_b.to(x.dtype)

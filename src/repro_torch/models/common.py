@@ -21,17 +21,18 @@ SCAN_CHUNK = 64
 
 
 class RMSNorm(nn.Module):
-    """Normalizes in f32 and returns the input's dtype; ``scale`` is f32.
-    ``device`` defaults to the card; without CUDA that raises, naming
-    ``device="cpu"``."""
+    """Normalizes in f32 and returns the input's dtype; ``scale`` is stored
+    in ``dtype`` (the parameter dtype, as the reference's) and multiplies
+    in f32.  ``device`` defaults to the card; without CUDA that raises,
+    naming ``device="cpu"``."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, *, device=None):
+    def __init__(self, dim: int, eps: float = 1e-6, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.dim = dim
         self.eps = eps
         self.scale = nn.Parameter(
-            torch.ones(dim, dtype=torch.float32,
-                       device=resolve_device(device)),
+            torch.ones(dim, dtype=dtype, device=resolve_device(device)),
             requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -47,8 +48,8 @@ class Embedding(nn.Module):
     ``device`` defaults to the card, as ``RMSNorm``'s.  ``tp`` (a
     ``parallel.VocabShard``, set by ``parallel.shard_module``) keeps rows
     [lo, hi) of the table: a lookup outside them gives zeros, summed over
-    the ranks in rank order (one rank's row and zeros: exact), and
-    ``attend``'s logits are gathered."""
+    the ranks in rank order (one rank's row and zeros: exact); a tied
+    head reads the same rows (``LMModel._logits``)."""
 
     tp = None
 
@@ -73,15 +74,6 @@ class Embedding(nn.Module):
         inside = (local >= 0) & (local < hi - lo)
         e = F.embedding(torch.where(inside, local, 0), self.embedding)
         return gather_sum(e * inside[..., None].to(e.dtype), self.tp.axis)
-
-    def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """Tied-embedding logits: x @ E^T."""
-        logits = x @ self.embedding.to(x.dtype).T
-        if self.tp is None:
-            return logits
-        from repro_torch.parallel.comm import gather_cat
-
-        return gather_cat(logits, self.tp.axis)
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0,

@@ -6,7 +6,7 @@ The port of ``repro/models/lm.py``, its frontends and heads included:
 an audio model (``n_codebooks > 1``) takes (B, S, n_codebooks) tokens,
 sums one embedding a codebook and emits (..., n_codebooks, V) logits from
 one head of ``n_codebooks * V`` rows; a tied model has no ``head`` and
-takes its logits as ``x @ Eᵀ`` (``Embedding.attend``); ``logit_softcap``
+takes its logits as ``x @ Eᵀ`` (``LMModel._logits``); ``logit_softcap``
 caps them as ``tanh(z / c) * c``; a vision model takes precomputed
 ``patch_embeds`` (B, n_patches, D) in place of its first token
 embeddings (``forward``, ``loss`` through ``batch['patch_embeds']``,
@@ -31,7 +31,16 @@ from repro_torch.device import resolve_device
 from .common import Embedding, RMSNorm
 from .transformer import Stack
 
-__all__ = ["LMModel", "lm_loss"]
+__all__ = ["LMModel", "lm_loss", "mean_nll", "vocab_parallel_ll"]
+
+
+def mean_nll(ll: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mean of -ll (over ``mask``'s ones where given)."""
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -45,11 +54,40 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     logits32 = logits.float()
     lse = torch.logsumexp(logits32, dim=-1)
     picked = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
-    ll = picked - lse
-    if mask is None:
-        return -ll.mean()
-    mask = mask.float()
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return mean_nll(picked - lse, mask)
+
+
+def vocab_parallel_ll(share: torch.Tensor, labels: torch.Tensor, tp,
+                      vocab: int) -> torch.Tensor:
+    """Log-likelihoods (labels' shape) of ``labels`` (..., [n_cb]) under
+    logits of which this rank holds the flat rows [tp.lo, tp.hi) of
+    n_cb * vocab (``share`` (..., tp.hi - tp.lo)), in f32, Megatron's
+    vocabulary-parallel cross-entropy: each codebook's max over the
+    ranks (a gather), its sum of exponentials and the labels' logits
+    summed over the ranks in rank order (``gather_sum``).  A share may
+    cross a codebook's boundary."""
+    from repro_torch.parallel.comm import gather_cat, gather_sum
+
+    axis = tp.axis
+    lab = labels.long()
+    if lab.ndim == share.ndim - 1:
+        lab = lab[..., None]
+    n_cb = lab.shape[-1]
+    z = share.float()
+    cb = (torch.arange(tp.lo, tp.hi, device=z.device) // vocab).expand(
+        z.shape)
+    lead = z.shape[:-1]
+    m = torch.full((*lead, n_cb), float("-inf"), device=z.device)
+    m = m.scatter_reduce(-1, cb, z.detach(), "amax")
+    m = gather_cat(m[None], axis, dim=0).amax(0)
+    e = torch.exp(z - torch.gather(m, -1, cb))
+    sumexp = gather_sum(torch.zeros((*lead, n_cb), device=z.device)
+                        .scatter_add(-1, cb, e), axis)
+    flat = lab + torch.arange(n_cb, device=z.device) * vocab - tp.lo
+    inside = (flat >= 0) & (flat < tp.hi - tp.lo)
+    picked = torch.gather(z, -1, flat.clamp(0, tp.hi - tp.lo - 1))
+    picked = gather_sum(torch.where(inside, picked, 0.0), axis)
+    return (picked - (torch.log(sumexp) + m)).reshape(labels.shape)
 
 
 class LMModel(nn.Module):
@@ -79,7 +117,7 @@ class LMModel(nn.Module):
              for _ in range(cfg.n_codebooks)])
         self.stack = Stack(cfg, **kw)
         self.norm_f = RMSNorm(cfg.d_model, cfg.rmsnorm_eps,
-                              device=self.device)
+                              device=self.device, dtype=param_dtype)
         self.head = None
         if not cfg.tie_embeddings:
             head = torch.randn((cfg.n_codebooks * cfg.vocab_size,
@@ -114,53 +152,81 @@ class LMModel(nn.Module):
                           dim=1)
         return x
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        if cfg.tie_embeddings:
-            logits = self.embed[0].attend(x)
-        else:
-            logits = x @ self.head.to(x.dtype).T
-            if self.head_tp is not None:
-                from repro_torch.parallel.comm import gather_cat
+    def _head_shard(self):
+        """The head's ``VocabShard`` (a tied head's is the embedding's), or
+        None for a head kept whole."""
+        return self.embed[0].tp if self.cfg.tie_embeddings else self.head_tp
 
-                logits = gather_cat(logits, self.head_tp.axis)
-        if cfg.n_codebooks > 1:
-            logits = logits.reshape(*x.shape[:-1], cfg.n_codebooks,
-                                    cfg.vocab_size)
-        if cfg.logit_softcap:
-            c = cfg.logit_softcap
+    def _logits(self, x: torch.Tensor, tp) -> torch.Tensor:
+        """x @ W^T, softcapped: the flat (n_cb * V) logits, or under a
+        ``VocabShard`` ``tp`` this rank's rows [tp.lo, tp.hi) of them, not
+        gathered."""
+        from repro_torch.parallel.comm import to_ranks
+
+        w = self.embed[0].embedding if self.cfg.tie_embeddings else self.head
+        if tp is not None:
+            x = to_ranks(x, tp.axis)
+        logits = x @ w.to(x.dtype).T
+        if self.cfg.logit_softcap:
+            c = self.cfg.logit_softcap
             logits = torch.tanh(logits / c) * c
         return logits
 
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        tp = self._head_shard()
+        logits = self._logits(x, tp)
+        if tp is not None:
+            from repro_torch.parallel.comm import gather_cat
+
+            logits = gather_cat(logits, tp.axis)
+        if cfg.n_codebooks > 1:
+            logits = logits.reshape(*x.shape[:-1], cfg.n_codebooks,
+                                    cfg.vocab_size)
+        return logits
+
     # -- training forward ------------------------------------------------------
+    def _trunk(self, tokens: torch.Tensor, train: bool, patch_embeds):
+        B, S = tokens.shape[:2]
+        x = self._embed(tokens, patch_embeds)
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        x, _, aux = self.stack(x, positions, train=train)
+        return self.norm_f(x), aux
+
     def forward(self, tokens, *, train: bool = False, patch_embeds=None):
         """tokens (B, S[, n_cb]) -> (logits (B, S[, n_cb], V), aux_loss).
         ``train`` recomputes each layer in the backward when ``cfg.remat``;
         the aux loss is the sum of the MoE layers' load-balance losses (0
         without MoE layers)."""
-        tokens = self._tokens(tokens)
-        B, S = tokens.shape[:2]
-        x = self._embed(tokens, patch_embeds)
-        positions = torch.arange(S, device=self.device).expand(B, S)
-        x, _, aux = self.stack(x, positions, train=train)
-        return self._head(self.norm_f(x)), aux
+        x, aux = self._trunk(self._tokens(tokens), train, patch_embeds)
+        return self._head(x), aux
 
     def loss(self, batch: dict, *, train: bool = True):
         """Next-token loss over batch['tokens'] (+ the aux loss), over
         every codebook.  Returns (loss, (ce, aux)); ``batch['loss_mask']``
-        (B, S) and ``batch['patch_embeds']`` are optional."""
+        (B, S) and ``batch['patch_embeds']`` are optional.  A head that
+        splits the vocabulary over ranks keeps its logits split: the
+        log-likelihoods are taken from each rank's share
+        (``vocab_parallel_ll``), never gathered whole."""
         tokens = self._tokens(batch["tokens"])
-        logits, aux = self.forward(tokens, train=train,
-                                   patch_embeds=batch.get("patch_embeds"))
-        lg = logits[:, :-1]
+        labels = tokens[:, 1:]
+        tp = self._head_shard()
+        if tp is None:
+            logits, aux = self.forward(tokens, train=train,
+                                       patch_embeds=batch.get("patch_embeds"))
+            lg = logits[:, :-1]
+        else:
+            x, aux = self._trunk(tokens, train, batch.get("patch_embeds"))
+            ll = vocab_parallel_ll(self._logits(x[:, :-1], tp), labels, tp,
+                                   self.cfg.vocab_size)
         mask = batch.get("loss_mask")
         if mask is not None:
             mask = torch.as_tensor(mask, device=self.device)[:, 1:]
             if self.cfg.n_codebooks > 1:
-                mask = mask[..., None] * torch.ones(lg.shape[:-1],
+                mask = mask[..., None] * torch.ones(labels.shape,
                                                     dtype=mask.dtype,
                                                     device=self.device)
-        ce = lm_loss(lg, tokens[:, 1:], mask)
+        ce = lm_loss(lg, labels, mask) if tp is None else mean_nll(ll, mask)
         return ce + aux, (ce, aux)
 
     # -- serving -------------------------------------------------------------

@@ -18,10 +18,11 @@ apply to the expert shapes, the values are dense (E, M, K).
 
 Routing is discrete: a near tie between the k-th and (k+1)-th router
 probability decides which expert a token goes to.  The router weight is
-therefore kept in float32 whatever the compute dtype, and its logits are
-summed in float64 and rounded to float32, so that a token's logits do not
-depend on how many other tokens share the call (a decode step with one
-row routes as one with eight).
+therefore read in float32 whatever the compute dtype (stored in the
+parameter dtype, as the reference's), and its logits are summed in
+float64 and rounded to float32, so that a token's logits do not depend on
+how many other tokens share the call (a decode step with one row routes
+as one with eight).
 """
 from __future__ import annotations
 
@@ -267,8 +268,9 @@ class MoELayer(nn.Module):
         self.moe = moe
         router = torch.randn((moe.n_experts, d_model), generator=generator,
                              device=device, dtype=torch.float32)
-        # float32 whatever the compute dtype (see the module docstring)
-        self.router = nn.Parameter(router * d_model ** -0.5,
+        # read in float32 whatever the compute dtype (see the module
+        # docstring), stored in the parameter dtype
+        self.router = nn.Parameter((router * d_model ** -0.5).to(param_dtype),
                                    requires_grad=False)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device,
                   generator=generator)
@@ -353,6 +355,13 @@ class MoELayer(nn.Module):
                            0).reshape(T * K)
         keep = keep.reshape(T * K)
         tok = torch.arange(T, device=x.device).repeat_interleave(K)
+        if tp is not None:
+            # the tokens and gates are whole on every rank; this rank's
+            # experts take their share of them
+            from repro_torch.parallel.comm import to_ranks
+
+            x2 = to_ranks(x2, tp.axis)
+            gates = to_ranks(gates, tp.axis)
         contrib = torch.where(keep[:, None], x2[tok], 0).to(x.dtype)
         n_rows = (hi - lo) * G * C
         buf = torch.zeros((n_rows, D), dtype=x.dtype, device=x.device)

@@ -116,8 +116,10 @@ class DecoderLayer(nn.Module):
         if self.kind == "rwkv":
             self.rwkv = RWKVBlock(lcfg, name=f"l{idx}", **kw)
             return
-        self.norm1 = RMSNorm(cfg.d_model, cfg.rmsnorm_eps, device=device)
-        self.norm2 = RMSNorm(cfg.d_model, cfg.rmsnorm_eps, device=device)
+        nkw = dict(device=device,
+                   dtype=kw.get("param_dtype", torch.float32))
+        self.norm1 = RMSNorm(cfg.d_model, cfg.rmsnorm_eps, **nkw)
+        self.norm2 = RMSNorm(cfg.d_model, cfg.rmsnorm_eps, **nkw)
         name = f"l{idx}.{self.kind}"
         if self.kind == "mla":
             self.mixer = MLAttention(lcfg, name=name, **kw)

@@ -13,6 +13,24 @@ all-reduce splits its buffer by length, so the order a row's partials
 are added in would depend on how many rows share the call, and a decode
 step at 8 rows would differ in the last bit from a sequential run at 1.
 The partials are added in float32 and the sum is cast back once.
+
+Gradients.  Between layers every model rank holds the activations whole
+(replicated), Megatron-style, so each collective has the backward that
+gives every rank the gradient of its own share that the unsharded model
+gives:
+
+  * ``gather_cat``: the whole output feeds replicated compute, whose
+    gradient is the same on every rank; the backward takes this rank's
+    slice of it;
+  * ``gather_sum``: the backward gives the partial the whole gradient;
+  * ``to_ranks``: the identity, put where a whole, replicated tensor
+    enters a rank's share of the work; its backward sums the ranks'
+    partial gradients, in rank order (``gather_sum``).
+
+Every call goes through its ``torch.autograd.Function``, with or without
+autograd recording (under ``no_grad`` the function records nothing); the
+forwards are the collectives above, and the backward's own collectives
+count in ``COLLECTIVES`` as the forward's do.
 """
 from __future__ import annotations
 
@@ -23,7 +41,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["COLLECTIVES", "reset_collectives", "MeshAxis", "gather_cat",
-           "gather_sum", "broadcast", "all_reduce_sum"]
+           "gather_sum", "to_ranks", "broadcast", "all_reduce_sum"]
 
 #: calls by kind, moved on every call (a group of one included)
 COLLECTIVES = {"all_gather": 0, "broadcast": 0, "all_reduce": 0}
@@ -73,24 +91,73 @@ def _all_gather(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     return out.view(axis.size, *t.shape)
 
 
-def gather_cat(t: torch.Tensor, axis: MeshAxis, dim: int = -1
-               ) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along ``dim`` in rank order."""
-    dim %= t.ndim
+def _gather_cat(t: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
     shape = list(t.shape)
     shape[dim] *= axis.size
     return _all_gather(t, axis).movedim(0, dim).reshape(shape)
 
 
-def gather_sum(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
-    """The sum over the axis's ranks of ``t``, added in rank order in
-    float32 (a reduction whose order does not depend on ``t``'s length),
-    in ``t``'s dtype."""
+def _gather_sum(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     parts = _all_gather(t, axis)
     acc = parts[0].float()
     for i in range(1, axis.size):
         acc = acc + parts[i]
     return acc.to(t.dtype)
+
+
+class _GatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim, ctx.width = axis, dim, t.shape[dim]
+        return _gather_cat(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.axis.rank * ctx.width, ctx.width),
+                None, None)
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.dtype = t.dtype
+        return _gather_sum(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+class _ToRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_sum(g.contiguous(), ctx.axis), None
+
+
+def gather_cat(t: torch.Tensor, axis: MeshAxis, dim: int = -1
+               ) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order; the
+    backward keeps this rank's slice of the gradient."""
+    return _GatherCat.apply(t, axis, dim % t.ndim)
+
+
+def gather_sum(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """The sum over the axis's ranks of ``t``, added in rank order in
+    float32 (a reduction whose order does not depend on ``t``'s length),
+    in ``t``'s dtype; the backward passes the whole gradient to ``t``."""
+    return _GatherSum.apply(t, axis)
+
+
+def to_ranks(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """``t`` (whole and the same on every rank of the axis) as the input of
+    this rank's share of the work: the identity, whose backward sums the
+    ranks' partial gradients in rank order."""
+    return _ToRanks.apply(t, axis)
 
 
 def broadcast(t: torch.Tensor, src: int,

@@ -41,8 +41,9 @@ whole rank dimension) and the compressed pools replicate.  Every
 codebook's embedding is vocabulary-parallel, and so is the one head of
 ``n_codebooks * V`` rows over its flat rows.  The patch frontend has no
 parameters of its own.  The recurrent layer kinds raise the reference's
-message (they have no paged cache).  Sharded models serve; they do not
-train.
+message (they have no paged cache).  Sharded models serve and train
+(``train.make_train_step``; a compact or chain share's dX runs on
+``RankSlice.transpose``); int8 storage serves only, as unsharded.
 """
 from __future__ import annotations
 
@@ -58,8 +59,8 @@ from .comm import MeshAxis
 from .tensor import (ExpertShard, HeadShard, LatentShard, LinearShard,
                      VocabShard)
 
-__all__ = ["dp_axes", "dp_size", "mesh_axes", "param_spec",
-           "batch_specs", "cache_specs", "page_pool_specs",
+__all__ = ["dp_axes", "dp_size", "data_axis", "mesh_axes", "param_spec",
+           "batch_specs", "cache_specs", "port_cache_specs", "page_pool_specs",
            "reference_path", "port_spec", "Placement", "shard_module"]
 
 
@@ -74,6 +75,16 @@ def dp_axes(mesh):
     """The data-parallel (batch/FSDP) axes of the mesh."""
     axes = tuple(a for a in mesh_axes(mesh) if a in ("pod", "data"))
     return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+
+def data_axis(mesh) -> MeshAxis:
+    """The data-parallel axes of a ``DeviceMesh`` as one ``MeshAxis``:
+    "data", or "pod" and "data" flattened (rank order: pod-major)."""
+    names = [a for a in mesh.mesh_dim_names if a in ("pod", "data")]
+    if len(names) == 1:
+        return MeshAxis.of(mesh, names[0])
+    flat = mesh[tuple(names)]._flatten()
+    return MeshAxis(flat.get_group(), flat.get_local_rank(), flat.size())
 
 
 def dp_size(mesh) -> int:
@@ -265,6 +276,29 @@ def port_spec(cfg, name: str, shape: tuple, mesh,
     return param_spec(path, tuple(shape), mesh)
 
 
+def port_cache_specs(cfg, cache: list, mesh, *, long_context: bool) -> list:
+    """``cache_specs`` over the port's per-layer cache (a list of dicts,
+    ``LMModel.init_cache``): each leaf named by the reference's cache path
+    (``head/<i>/k``, ``scan/j<j>/k``, ``tail/<i>/k``), a scanned layer's
+    leading period dim dropped from its spec."""
+    from repro_torch.models.transformer import jax_stack_split
+
+    split = jax_stack_split(cfg)
+    out = []
+    for i, layer in enumerate(cache):
+        specs = {}
+        for name, t in layer.items():
+            path, scanned = reference_path(cfg, f"stack.layers.{i}.{name}",
+                                           split)
+            path = path[len("stack/"):]
+            shape = (1, *t.shape) if scanned else tuple(t.shape)
+            spec = cache_specs({path: shape}, mesh,
+                               long_context=long_context)[path]
+            specs[name] = spec[1:] if scanned else spec
+        out.append(specs)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """Where a rank's share of a tensor lies: ``spec`` (the reference's,
@@ -328,7 +362,8 @@ class _Sharder:
         dim = dim % t.ndim
         new = _cut(t.data if isinstance(t, nn.Parameter) else t, dim, index)
         if isinstance(t, nn.Parameter):
-            setattr(owner, attr, nn.Parameter(new, requires_grad=False))
+            setattr(owner, attr, nn.Parameter(new,
+                                              requires_grad=t.requires_grad))
         else:
             setattr(owner, attr, new)
         self.cuts[name] = (dim, index)
@@ -375,6 +410,8 @@ class _Sharder:
                           rs.scale_index,
                           self.spec(f"{name}.scales", lin.scales.shape))
             lin.tables = rs.tables
+            lin.share = rs
+            lin._tables_t = None
         else:
             self.keep(lin, "w", f"{name}.w", dim, range(lo, hi), spec)
             if lin.mode == "masked":
@@ -424,14 +461,13 @@ class _Sharder:
     def attention(self, attn) -> None:
         cfg, ax = self.cfg, self.m_ax
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-        if H % ax.size:
-            raise NotImplementedError(
-                f"{H} q heads do not split over model={ax.size}")
-        # the k/v projections' rows are gathered where the axis splits
-        # them below a whole head (it divides the rows, not the heads)
+        # the projections' rows are gathered where the axis splits them
+        # below a whole head (it divides the rows, not the heads)
         attn.tp = HeadShard(ax, ax.range(H), ax.range(Hkv),
                             kv_gather=Hkv % ax.size != 0
-                            and (Hkv * hd) % ax.size == 0)
+                            and (Hkv * hd) % ax.size == 0,
+                            q_gather=H % ax.size != 0
+                            and (H * hd) % ax.size == 0)
 
     def mla(self, name: str, attn) -> None:
         """This rank's heads of ``wk_b`` and ``wv_b`` (the spec splits

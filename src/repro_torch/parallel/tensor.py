@@ -17,6 +17,10 @@ plain local tensors (the kernels take raw pointers, so no DTensor):
   * ``HeadShard`` on a ``GQAttention``: this rank's q heads, and the kv
     heads its cache holds (its own where the "model" axis divides the kv
     heads, else all of them, gathered from the k/v projections' rows).
+    Where the axis does not divide the q heads (gemma3-4b's 8 and
+    musicgen-medium's 24 over 16), every rank runs all of them: wq's rows
+    are gathered (``q_gather``, where the axis divides the rows), and wo
+    takes this rank's columns of the whole output.
   * ``LatentShard`` on an ``MLAttention``: this rank's heads (wq_b's rows,
     wk_b, wv_b, wo's columns); the latent is whole on every rank, wq_a's
     and wkv_a's outputs gathered (``whole_output``).
@@ -24,6 +28,14 @@ plain local tensors (the kernels take raw pointers, so no DTensor):
   * ``VocabShard`` on an ``Embedding`` and on the LM head: this rank's
     vocabulary rows [lo, hi); lookups outside them give zeros, summed over
     the ranks, and the head's logits are gathered.
+
+Gradients (``comm.py``): a whole, replicated activation that enters a
+rank's share of the work goes through ``to_ranks`` first (the input of a
+column-parallel product, the slice of a whole product a rank keeps, the
+gathered X of a compact row-parallel product), so its gradient is the
+sum of the ranks' partials; everything after a ``gather_sum`` or a
+``gather_cat`` is replicated compute, whose gradients are the same on
+every rank.
 """
 from __future__ import annotations
 
@@ -32,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from .comm import MeshAxis, gather_cat, gather_sum
+from .comm import MeshAxis, gather_cat, gather_sum, to_ranks
 
 __all__ = ["LinearShard", "HeadShard", "LatentShard", "ExpertShard",
            "VocabShard", "linear_forward", "whole_output"]
@@ -61,6 +73,7 @@ class HeadShard:
     q: tuple[int, int]          # q heads [lo, hi)
     cache: tuple[int, int]      # kv heads the cache holds [lo, hi)
     kv_gather: bool             # k/v projections' rows gathered to whole
+    q_gather: bool = False      # wq's rows gathered to whole
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -91,11 +104,16 @@ def linear_forward(layer, x: torch.Tensor, *, fuse: Optional[str] = None,
     tp: LinearShard = layer.tp
     w = layer.weight()
     if tp.role == "col":
+        part = (tp.lo, tp.hi) != (0, tp.full)
+        if tp.sliced:
+            x = to_ranks(x, tp.axis)
         y = sparse_linear(w, x, fuse=fuse)
-        if not tp.sliced and (tp.lo, tp.hi) != (0, tp.full):
-            y = y[..., tp.lo:tp.hi]
+        if not tp.sliced and part:
+            y = to_ranks(y, tp.axis)[..., tp.lo:tp.hi]
         if residual is not None:
-            y = y + residual[..., tp.lo:tp.hi].to(y.dtype)
+            if part:
+                residual = to_ranks(residual, tp.axis)[..., tp.lo:tp.hi]
+            y = y + residual.to(y.dtype)
         return y
     # the activation arrives as this rank's columns where the axis divides
     # them (a group of one included), else whole
@@ -105,7 +123,7 @@ def linear_forward(layer, x: torch.Tensor, *, fuse: Optional[str] = None,
             x = gather_cat(x, tp.axis)
         return sparse_linear(w, x, fuse=fuse, residual=residual)
     if tp.whole_input and split_input:
-        x = gather_cat(x, tp.axis)
+        x = to_ranks(gather_cat(x, tp.axis), tp.axis)
     y = gather_sum(sparse_linear(dataclasses.replace(w, b=None), x),
                    tp.axis)
     if w.b is not None:

@@ -63,10 +63,13 @@ class SparseLinear(nn.Module):
     ``device`` defaults to the card; without CUDA that raises, naming
     ``device="cpu"``.  ``tp`` is the layer's ``parallel.LinearShard``
     once ``parallel.shard_module`` cut it to a rank's share (None
-    otherwise), and ``mask_window`` the part of a masked layer's mask its
-    share stands under."""
+    otherwise), ``share`` the ``RankSlice`` of a compact or chain layer
+    it cut (whose dX runs on ``share.transpose`` of the full layout's
+    transposed tables), and ``mask_window`` the part of a masked layer's
+    mask its share stands under."""
 
     tp = None
+    share = None
     mask_window = None
 
     def __init__(self, in_features: int, out_features: int,
@@ -165,16 +168,14 @@ class SparseLinear(nn.Module):
                                         ChainTransposeTables]:
         """The transposed layout's tables on the layer's device (built at
         the first call, then kept)."""
-        if self.tp is not None:
-            raise NotImplementedError(
-                f"{self.name!r} holds a rank's share of its layout; sharded "
-                f"models serve only (train on one device)")
         if self._tables_t is None:
             device = self.tables.col0.device
             self._tables_t = (
                 get_op(self.layout, device).transpose_tables()
                 if self.mode == "compact"
                 else chain_transpose_tables(self.chain_layout, device))
+            if self.share is not None:
+                self._tables_t = self.share.transpose(self._tables_t)
         return self._tables_t
 
     @property

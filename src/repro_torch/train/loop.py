@@ -24,6 +24,17 @@ Trainable are all floating-point parameters of the model (embedding,
 head, norm scales, compact ``w_data``, dense and masked ``w``, biases), as
 the reference's ``split_trainable``; weight decay applies to all of them.
 The masks of masked storage are integer buffers, never trained.
+
+A sharded model (``parallel.shard_module(model, mesh)`` before
+``make_train_step``) trains its rank's shares: each rank feeds its data
+rank's rows of the global batch, the collectives' backwards give every
+rank the gradient of its shares (``parallel/comm.py``), and the step then
+takes each gradient's mean over the data axes (pod and data), added in
+rank order (``gather_sum``), and the global norm with every split
+tensor's squares summed over the model ranks, so every rank clips by the
+unsharded norm and the replicated tensors stay equal on every rank.  The
+weights are whole on the data ranks (no FSDP), and int8 gradient
+compression is not sharded.
 """
 from __future__ import annotations
 
@@ -102,6 +113,7 @@ def make_train_step(model: torch.nn.Module, tcfg: TrainConfig,
     sched = make_schedule(tcfg)
     live = trainable(model)
     loss_fn = loss_fn or lm_loss_fn
+    sharded = _Sharded.of(model, live, tcfg)
 
     def grads_of(batch):
         for p in live.values():
@@ -136,11 +148,15 @@ def make_train_step(model: torch.nn.Module, tcfg: TrainConfig,
         else:
             loss, metrics, grads = grads_of(batch)
 
+        if sharded is not None:
+            grads = sharded.data_mean(grads)
         if tcfg.grad_compression == "int8":
             grads, state.ef_error = compress_decompress(grads,
                                                         state.ef_error)
         if tcfg.grad_clip:
-            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+            norm = sharded.global_norm(grads) if sharded is not None \
+                else None
+            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm)
         else:
             gnorm = torch.zeros(())
         lr = sched(state.step)
@@ -154,6 +170,54 @@ def make_train_step(model: torch.nn.Module, tcfg: TrainConfig,
         return state, {"loss": loss, "grad_norm": gnorm, "lr": lr, **metrics}
 
     return step_fn
+
+
+@dataclasses.dataclass
+class _Sharded:
+    """A sharded model's step: its data axes (pod and data, flattened),
+    its model axis and the names of the trainable tensors the spec splits
+    over "model"."""
+
+    dp: object
+    model_axis: object
+    split: list
+
+    @classmethod
+    def of(cls, model, live: dict, tcfg: TrainConfig):
+        mesh = getattr(model, "mesh", None)
+        if mesh is None:
+            return None
+        from repro_torch.parallel.comm import MeshAxis
+        from repro_torch.parallel.sharding import data_axis
+
+        if tcfg.grad_compression != "none":
+            raise NotImplementedError(
+                "int8 gradient compression of a sharded model")
+        split = [n for n, p in model.placements.items()
+                 if p.model_split and n in live]
+        return cls(data_axis(mesh), MeshAxis.of(mesh, "model"), split)
+
+    def data_mean(self, grads: dict) -> dict:
+        """Each gradient's mean over the data ranks, added in rank
+        order."""
+        from repro_torch.parallel.comm import gather_sum
+
+        return {n: gather_sum(g, self.dp).div_(self.dp.size)
+                for n, g in grads.items()}
+
+    def global_norm(self, grads: dict) -> torch.Tensor:
+        """The unsharded model's global norm: the split tensors' sums of
+        squares summed over the model ranks, then every tensor's in the
+        tree's order (the order ``optim.global_norm`` adds them in)."""
+        from repro_torch.parallel.comm import gather_sum
+
+        sq = {n: torch.sum(torch.square(g.float()))
+              for n, g in grads.items()}
+        if self.split:
+            tot = gather_sum(torch.stack([sq[n] for n in self.split]),
+                             self.model_axis)
+            sq.update(zip(self.split, tot))
+        return torch.sqrt(sum(sq.values()))
 
 
 class Trainer:

@@ -29,11 +29,13 @@ def global_norm(tree: dict) -> torch.Tensor:
                           for g in tree.values()))
 
 
-def clip_by_global_norm(tree: dict, max_norm: float):
-    """Scales the gradients in place so their global norm is at most
-    ``max_norm`` (``+1e-9`` in the denominator, as the reference); returns
-    (tree, norm before clipping)."""
-    norm = global_norm(tree)
+def clip_by_global_norm(tree: dict, max_norm: float, norm=None):
+    """Scales the gradients in place so their global norm (``norm`` where
+    given, else ``global_norm(tree)``) is at most ``max_norm`` (``+1e-9``
+    in the denominator, as the reference); returns (tree, norm before
+    clipping)."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in tree.values():
         g.mul_(scale.to(g.dtype))

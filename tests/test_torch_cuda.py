@@ -2092,3 +2092,42 @@ def test_cuda_chain_rank_shares_match_plain_versions(kind, n_model, dtype):
             for p in outs[1:]:
                 acc = acc + p.float()
             assert_close(acc, want, x.dtype, (kind, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b"])
+def test_cuda_sharded_step_bit_equals_the_unsharded_step(arch):
+    """Phase 56 in small: a reduced model (compact, bf16) trained 3 steps
+    through ``make_train_step`` unsharded and after ``shard_module`` at
+    model 1 on an NCCL group of world size 1, from the same weights: the
+    losses and every first-step gradient within ``chip_smoke``'s
+    ``sharded_tolerance`` (one bf16 rounding a row-parallel site; the
+    sharded model runs the code of any model axis), the same launches of
+    the compact kernels (the stacked pair for the MoE)."""
+    import sys
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+
+    needs_card()
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    started = not dist.is_initialized()
+    init_distributed("cuda")
+    try:
+        cfg = reduce_config(get_config(arch)).with_(compute_dtype="bfloat16")
+        runs = [chip_smoke.sharded_train_run(cfg, mesh, "cuda", 3, 2, 64)
+                for mesh in (None, make_serve_mesh(1, 1))]
+    finally:
+        if started:
+            dist.destroy_process_group()
+    a, b = runs
+    got = chip_smoke.compare_sharded_runs(a, b)
+    assert got["sites"] > 0 and got["n_grads"] > 0
+    assert a["launches"]["forward"] > 0 and a["launches"]["dw"] > 0
+    if cfg.moe is not None:
+        assert a["launches"]["stacked_dw"] > 0
