@@ -427,8 +427,12 @@ exits non-zero without the result line:
      bf16, f32 KV cache) through ``ContinuousEngine``, then
      ``ShardedContinuousEngine`` and ``DisaggregatedEngine`` on the same
      model: the streams equal token for token, each pass launching every
-     sparse projection once; collectives a pass, host us a collective,
-     decode ms/step and peak GB of each engine;
+     sparse projection once and, on the sharded engines, gathering every
+     weight the spec cuts over the data axes once (FSDP at world size 1:
+     each cut the whole, each gather over a group of one); collectives
+     and FSDP gathers a pass, host us a collective (the gather on use and
+     the ordered reduce-scatter included), decode ms/step and peak GB of
+     each engine;
  54. serve-sharded-archs: the same for deepseek-v2 (MLA, 4 of 60 layers),
      pixtral-12b (40 layers; text prompts), musicgen-medium (48 layers, 4
      codebooks) and tinyllama under the chain plan (22 layers).
@@ -456,7 +460,9 @@ exits non-zero without the result line:
      rounding a row-parallel site (``sharded_tolerance``), the same
      launches of ``rbgp4mm_rhs`` (forward, dX), ``rbgp4_sddmm_rhs``,
      ``rbgp4mm_rhs_stacked`` and ``rbgp4_sddmm_rhs_stacked``, ms/step of
-     both.
+     both; the sharded step gathers its FSDP'd weights on use (again in
+     remat's recompute) and reduce-scatters each one's gradient once a
+     step, the counts printed.
 
 ``python3 chip_smoke.py --autotune-only`` runs phases 1, 4, 33 and 45-47
 alone (a quicker check of the autotuner; no result line);
@@ -6819,6 +6825,20 @@ def phase_check_shard() -> dict:
             "launches": n_launch}
 
 
+def data_cut(model) -> int:
+    """The weights ``shard_module`` cut over the data axes (FSDP; at world
+    size 1 the cut is the whole and the gathers run over a group of one):
+    each gathered once a serving pass (``gather_on_use``), and its
+    gradient reduce-scattered once a training step (a tied table twice:
+    it is read by the embedding and by the head)."""
+    n = sum(len(m.fsdp.dims) for m in model.modules()
+            if getattr(m, "fsdp", None) is not None)
+    emb = model.embed[0].fsdp
+    tied = model.cfg.tie_embeddings and emb is not None \
+        and "embedding" in emb.dims
+    return n + int(tied)
+
+
 def serve_sharded(cfg, label: str, decode_mesh, prefill_mesh, smi: str,
                   phase: str) -> list:
     """``cfg`` (bf16 weights, f32 KV cache, 8 slots, 16-token pages,
@@ -6829,8 +6849,10 @@ def serve_sharded(cfg, label: str, decode_mesh, prefill_mesh, smi: str,
     engines' streams must equal the continuous engine's token for token,
     every prefill call and decode step launch each sparse projection once
     (``sparse_per_pass``), the collective counters move and the
-    disaggregated engine hand off once a request.  Returns the runs
-    (launch counts from 0 just before each drive, read just after)."""
+    disaggregated engine hand off once a request; the sharded engines
+    gather each FSDP'd weight once a pass (``data_cut``), the continuous
+    engine none.  Returns the runs (launch and collective counts from 0
+    just before each drive, read just after)."""
     from repro_torch.data import RequestStream
     from repro_torch.parallel import COLLECTIVES, reset_collectives
     from repro_torch.serve import ContinuousEngine
@@ -6896,12 +6918,20 @@ def serve_sharded(cfg, label: str, decode_mesh, prefill_mesh, smi: str,
         if kind != "continuous" and coll["all_gather"] == 0:
             raise AssertionError(f"{label} {kind}: no collective ran: "
                                  f"{coll}")
+        gathers = passes * data_cut(model) if kind != "continuous" else 0
+        if coll["gather_on_use"] != gathers or (kind != "continuous"
+                                                and not gathers):
+            raise AssertionError(
+                f"{label} {kind}: {coll['gather_on_use']} gathers on use "
+                f"in {passes} passes, want {gathers}")
         handoffs = st.get("handoffs")
         if kind == "disagg" and handoffs != len(reqs):
             raise AssertionError(f"{handoffs} handoffs, want {len(reqs)}")
         run = dict(arch=label, engine=kind, launches=counts,
                    mma_launches=mma, collectives=coll,
                    collectives_a_pass=sum(coll.values()) / max(passes, 1),
+                   gathers_on_use_a_pass=coll["gather_on_use"]
+                   / max(passes, 1),
                    wall_s=wall, prefill_calls=st["prefill_calls"],
                    decode_steps=st["decode_steps"],
                    prefill_time_s=st["prefill_time_s"],
@@ -6915,7 +6945,9 @@ def serve_sharded(cfg, label: str, decode_mesh, prefill_mesh, smi: str,
             f"{st['decode_steps']} steps at {run['decode_ms_per_step']:.2f} "
             f"ms/step; prefill {st['prefill_calls']} calls in "
             f"{st['prefill_time_s']:.3f}s; collectives {coll} "
-            f"({run['collectives_a_pass']:.1f} a pass); handoffs "
+            f"({run['collectives_a_pass']:.1f} a pass, of them "
+            f"{run['gathers_on_use_a_pass']:.1f} FSDP gathers on use); "
+            f"handoffs "
             f"{handoffs}; peak {run['peak_mem_gb']:.2f} GB; {smi}")
         print(f"{phase} " + json.dumps(run), flush=True)
         del engine
@@ -6965,18 +6997,26 @@ def time_collectives(mesh, cfg, n_iter: int = 200) -> dict:
     """Host microseconds a call (fenced once after ``n_iter`` calls) of
     each collective a decode step issues, at its decode shape (8 rows,
     bf16): ``gather_sum`` of a row-parallel output (8, d_model),
-    ``gather_cat`` of its input (8, d_model) and a ``broadcast`` of the
-    logits (8, vocab)."""
-    from repro_torch.parallel import MeshAxis, broadcast, gather_cat, \
-        gather_sum
+    ``gather_cat`` of its input (8, d_model), a ``broadcast`` of the
+    logits (8, vocab), and a weight's (d_model, d_model) FSDP gather on
+    use and its gradient's ordered reduce-scatter over the data axes."""
+    from repro_torch.parallel import (MeshAxis, broadcast, gather_cat,
+                                      gather_on_use, gather_sum,
+                                      reduce_scatter_ordered)
+    from repro_torch.parallel.sharding import data_axis
 
     axis = MeshAxis.of(mesh, "model")
+    dax = data_axis(mesh)
     x = torch.randn(8, cfg.d_model, device="cuda").to(torch.bfloat16)
+    w = torch.randn(cfg.d_model, cfg.d_model, device="cuda").to(
+        torch.bfloat16)
     logits = torch.randn(8, cfg.vocab_size, device="cuda").to(
         torch.bfloat16)
     calls = {"gather_sum": lambda: gather_sum(x, axis),
              "gather_cat": lambda: gather_cat(x, axis),
-             "broadcast": lambda: broadcast(logits, 0)}
+             "broadcast": lambda: broadcast(logits, 0),
+             "gather_on_use": lambda: gather_on_use(w, dax, 1),
+             "reduce_scatter": lambda: reduce_scatter_ordered(w, dax, 1)}
     out = {}
     for name, fn in calls.items():
         fn()
@@ -7182,12 +7222,15 @@ def sharded_train_run(cfg, mesh, device, n_steps: int, batch: int,
     ``TokenStream(seed=0)`` batches, the model cut by ``shard_module``
     over ``mesh`` first where one is given: each step's loss, a sample of
     every gradient of the first step as autograd leaves it
-    (``grad_sample``), the kernels' launches, the fenced ms of each step
-    but the first and the row-parallel sites."""
+    (``grad_sample``), the kernels' launches, the collectives a step
+    (a sharded run must gather its FSDP'd weights on use and
+    reduce-scatter each one's gradient once a step, ``data_cut``), the
+    fenced ms of each step but the first and the row-parallel sites."""
     from repro_torch.configs import TrainConfig
     from repro_torch.data import TokenStream
     from repro_torch.models import LMModel
-    from repro_torch.parallel import shard_module
+    from repro_torch.parallel import (COLLECTIVES, reset_collectives,
+                                      shard_module)
     from repro_torch.train import init_train_state, make_train_step
 
     model = LMModel(cfg, device=device, seed=0)
@@ -7210,6 +7253,7 @@ def sharded_train_run(cfg, mesh, device, n_steps: int, batch: int,
                             n_codebooks=cfg.n_codebooks, seed=0))
     losses, ms = [], []
     before = launch_counts()
+    reset_collectives()
     for i in range(n_steps):
         b = {k: torch.as_tensor(v, device=device)
              for k, v in next(data).items()}
@@ -7224,10 +7268,17 @@ def sharded_train_run(cfg, mesh, device, n_steps: int, batch: int,
             for h in hooks:
                 h.remove()
     launches = counts_since(before)
+    coll = {k: v / n_steps for k, v in COLLECTIVES.items()}
     sites = row_parallel_sites(model)
+    cut = data_cut(model) if mesh is not None else 0
+    if coll["reduce_scatter"] != cut or (mesh is not None and not (
+            cut and coll["gather_on_use"] >= cut)):
+        raise AssertionError(f"{n_steps} steps: collectives a step {coll}, "
+                             f"want {cut} reduce-scatters and at least as "
+                             f"many gathers on use")
     del model, state, step
     return {"losses": losses, "grads": {n: g.cpu() for n, g in first.items()},
-            "launches": launches, "sites": sites,
+            "launches": launches, "sites": sites, "collectives": coll,
             "ms": statistics.mean(ms) if ms else None}
 
 
@@ -7303,11 +7354,14 @@ def phase_train_sharded(smi: str, mesh) -> dict:
             f"{got['grad_elem_rel']:.3e}; tolerance {got['tol']:.4f} "
             f"({got['sites']} row-parallel sites x 2^-9); launches "
             f"{got['launches']} equal; ms/step unsharded {a['ms']:.1f} "
-            f"sharded {b['ms']:.1f}; on {smi}")
+            f"sharded {b['ms']:.1f}; sharded collectives a step "
+            f"{b['collectives']} (FSDP: gathers on use, ordered "
+            f"reduce-scatters); on {smi}")
         # both runs' launches (the kernels' record counts them)
         out[cfg.name] = {"launches": {k: a["launches"][k]
                                       + b["launches"][k] for k in COUNTERS},
                          "ms": [a["ms"], b["ms"]], "losses": a["losses"],
+                         "collectives_a_step": b["collectives"],
                          "readings": got}
     free_card()
     log("train-sharded", f"phase 56 in {time.perf_counter() - t_phase:.1f}s")

@@ -124,13 +124,14 @@ def _load_flat(model, flat: dict) -> None:
     """Load {state_dict name: array} into ``model``: names and shapes must
     match; a mask leaf must equal the port's own and is not loaded.  On a
     model ``parallel.shard_module`` sharded, each array is first cut to
-    the rank's share (``model.rank_slices``), and the shape is checked
-    against the share."""
+    the rank's share (``model.rank_slices``: one cut a mesh axis that
+    splits it), and the shape is checked against the share."""
     target = model.state_dict()
     cuts = getattr(model, "rank_slices", None) or {}
-    for name, (dim, index) in cuts.items():
+    for name, along in cuts.items():
         if name in flat:
-            flat[name] = np.take(flat[name], index, axis=dim)
+            for dim, index in along:
+                flat[name] = np.take(flat[name], index, axis=dim)
     missing = sorted(set(target) - set(flat))
     unexpected = sorted(set(flat) - set(target))
     if missing or unexpected:

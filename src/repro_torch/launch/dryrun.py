@@ -27,9 +27,14 @@ port's attention holds whole (the cache length over "model" where the kv
 heads do not divide it, as tinyllama's 4 over 16), the program gathers
 that leaf whole as its layer reads it and keeps its own share of what
 the layer writes: the arguments are the spec's, the gathers show in the
-collectives and one layer's whole leaves in the peak.  The weights are whole on the data ranks (no FSDP: the spec's data
-entries replicate), so ``argument_gb`` matches the reference's only
-where the data axes have size 1.
+collectives and one layer's whole leaves in the peak.  The weights, and
+a train cell's float32 masters and momentum, are cut over the data axes
+where the spec says (FSDP, as the reference's ``param_sharding_tree``
+places them), so ``argument_gb`` is the spec's bytes a device; each
+weight is gathered whole where it is read (an all-gather, in the forward
+and again in remat's recompute) and its gradient reduce-scattered in
+rank order (the port's ``reduce_scatter_ordered``: an all-to-all, which
+the op counter records as one).
 
 The roofline constants are the NVIDIA H100 80GB HBM3's at 700.00 W
 (``kernels.perf_model``: bf16 dense tensor-core peak and HBM3 rate, data

@@ -49,9 +49,12 @@ class Embedding(nn.Module):
     ``parallel.VocabShard``, set by ``parallel.shard_module``) keeps rows
     [lo, hi) of the table: a lookup outside them gives zeros, summed over
     the ranks in rank order (one rank's row and zeros: exact); a tied
-    head reads the same rows (``LMModel._logits``)."""
+    head reads the same rows (``LMModel._logits``).  ``fsdp`` (a
+    ``parallel.DataShard``) holds a data rank's share of the table's
+    columns, gathered whole at each read (``parallel.on_use``)."""
 
     tp = None
+    fsdp = None
 
     def __init__(self, vocab: int, dim: int, *, dtype=torch.float32,
                  param_dtype=torch.float32, device=None, generator=None):
@@ -65,14 +68,17 @@ class Embedding(nn.Module):
                                       requires_grad=False)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        from repro_torch.parallel.tensor import on_use
+
+        table = on_use(self, "embedding")
         if self.tp is None:
-            return F.embedding(tokens, self.embedding)
+            return F.embedding(tokens, table)
         from repro_torch.parallel.comm import gather_sum
 
         lo, hi = self.tp.lo, self.tp.hi
         local = tokens - lo
         inside = (local >= 0) & (local < hi - lo)
-        e = F.embedding(torch.where(inside, local, 0), self.embedding)
+        e = F.embedding(torch.where(inside, local, 0), table)
         return gather_sum(e * inside[..., None].to(e.dtype), self.tp.axis)
 
 

@@ -96,10 +96,15 @@ class LMModel(nn.Module):
     head's vocabulary rows, whose logits are gathered, and ``dp`` (the
     mesh's data axis) splits a paged decode step's rows over the data
     ranks, whose logits are gathered, so every rank's host loop sees the
-    same logits."""
+    same logits.  ``fsdp`` (a ``parallel.DataShard``) holds a data rank's
+    share of the head's columns, gathered whole where the logits read it,
+    and ``data_axis`` the data axes (pod and data, flattened) that every
+    such share is cut over."""
 
     head_tp = None
     dp = None
+    fsdp = None
+    data_axis = None
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
@@ -162,8 +167,10 @@ class LMModel(nn.Module):
         ``VocabShard`` ``tp`` this rank's rows [tp.lo, tp.hi) of them, not
         gathered."""
         from repro_torch.parallel.comm import to_ranks
+        from repro_torch.parallel.tensor import on_use
 
-        w = self.embed[0].embedding if self.cfg.tie_embeddings else self.head
+        w = (on_use(self.embed[0], "embedding") if self.cfg.tie_embeddings
+             else on_use(self, "head"))
         if tp is not None:
             x = to_ranks(x, tp.axis)
         logits = x @ w.to(x.dtype).T

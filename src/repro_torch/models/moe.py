@@ -35,6 +35,7 @@ from torch import nn
 from repro_torch.configs.base import MoEConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import EPILOGUE_ACTS, TransposeTables, get_op
+from repro_torch.parallel.tensor import on_use
 from repro_torch.sparsity import (CompactWeight, DenseWeight, MaskedWeight,
                                   QuantizedWeight, SparsityConfig,
                                   SparsityPlan, make_pattern, record_shape,
@@ -210,14 +211,17 @@ class StackedExperts(nn.Module):
                 {"w_data": nn.Parameter(w, requires_grad=False)}))
 
     def weight(self, proj: str):
-        """The stacked storage container of projection ``proj``."""
+        """The stacked storage container of projection ``proj``; values
+        ``shard_module`` cut over the data axes (``d``, as the reference's
+        expert-parallel path gathers it) are gathered whole
+        (``parallel.on_use``)."""
         if self.masked:
             h = getattr(self, proj)
-            return MaskedWeight(w=h.w, ba_o=h.ba_o, ba_i=h.ba_i,
+            return MaskedWeight(w=on_use(h, "w"), ba_o=h.ba_o, ba_i=h.ba_i,
                                 group_rows=h.group_rows,
                                 chunk_cols=h.chunk_cols)
         if not self.compact:
-            return DenseWeight(w=getattr(self, proj))
+            return DenseWeight(w=on_use(self, proj))
         side = self._side(proj)
         if self.quantized:
             holder = getattr(self, proj)
@@ -226,7 +230,8 @@ class StackedExperts(nn.Module):
                                    tables=self.tables[side],
                                    orig_dtype=self.orig_dtype)
         return CompactWeight(
-            w_data=getattr(self, proj)["w_data"], tables=self.tables[side],
+            w_data=on_use(getattr(self, proj), "w_data"),
+            tables=self.tables[side],
             tables_t=lambda: self._transpose_tables(side))
 
     def forward(self, xe: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,12 @@ gives:
   * ``gather_sum``: the backward gives the partial the whole gradient;
   * ``to_ranks``: the identity, put where a whole, replicated tensor
     enters a rank's share of the work; its backward sums the ranks'
-    partial gradients, in rank order (``gather_sum``).
+    partial gradients, in rank order (``gather_sum``);
+  * ``gather_on_use``: a weight whole from each data rank's share (FSDP,
+    ZeRO-3: gathered where it is read); its backward is
+    ``reduce_scatter_ordered``, this rank's chunk of the ranks' summed
+    gradients, each element added in the order and rounding of
+    ``gather_sum`` at a reduce-scatter's traffic.
 
 Every call goes through its ``torch.autograd.Function``, with or without
 autograd recording (under ``no_grad`` the function records nothing); the
@@ -41,10 +46,13 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["COLLECTIVES", "reset_collectives", "MeshAxis", "gather_cat",
-           "gather_sum", "to_ranks", "broadcast", "all_reduce_sum"]
+           "gather_sum", "to_ranks", "gather_on_use",
+           "reduce_scatter_ordered", "broadcast", "all_reduce_sum"]
 
-#: calls by kind, moved on every call (a group of one included)
-COLLECTIVES = {"all_gather": 0, "broadcast": 0, "all_reduce": 0}
+#: calls by kind, moved on every call (a group of one included); a
+#: weight's gather on use counts apart from the activations' all-gathers
+COLLECTIVES = {"all_gather": 0, "broadcast": 0, "all_reduce": 0,
+               "gather_on_use": 0, "reduce_scatter": 0}
 
 
 def reset_collectives() -> None:
@@ -81,20 +89,22 @@ _GATHER_ONE = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
 
 
-def _all_gather(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+def _all_gather(t: torch.Tensor, axis: MeshAxis,
+                kind: str = "all_gather") -> torch.Tensor:
     """(axis.size, *t.shape): every rank's ``t``, in rank order."""
     t = t.contiguous()
     out = torch.empty((axis.size * t.shape[0], *t.shape[1:]),
                       dtype=t.dtype, device=t.device)
     _GATHER_ONE(out, t, group=axis.group)
-    COLLECTIVES["all_gather"] += 1
+    COLLECTIVES[kind] += 1
     return out.view(axis.size, *t.shape)
 
 
-def _gather_cat(t: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
+def _gather_cat(t: torch.Tensor, axis: MeshAxis, dim: int,
+                kind: str = "all_gather") -> torch.Tensor:
     shape = list(t.shape)
     shape[dim] *= axis.size
-    return _all_gather(t, axis).movedim(0, dim).reshape(shape)
+    return _all_gather(t, axis, kind).movedim(0, dim).reshape(shape)
 
 
 def _gather_sum(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
@@ -103,6 +113,28 @@ def _gather_sum(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     for i in range(1, axis.size):
         acc = acc + parts[i]
     return acc.to(t.dtype)
+
+
+def reduce_scatter_ordered(t: torch.Tensor, axis: MeshAxis,
+                           dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` (the axis's size divides it, chunks
+    in rank order) of the sum over the axis's ranks of ``t``: one
+    ``all_to_all_single`` of the chunks, then the ranks' chunks added in
+    rank order in float32 and cast back once -- each element the bits of
+    ``gather_sum(t, axis)``'s, whatever ``t``'s length (never NCCL's
+    reduce-scatter, whose order follows the buffer's length)."""
+    dim = dim % t.ndim
+    n = axis.size
+    parts = t.movedim(dim, 0)
+    w = parts.shape[0] // n
+    parts = parts.reshape(n, w, *parts.shape[1:]).contiguous()
+    got = torch.empty_like(parts)
+    dist.all_to_all_single(got, parts, group=axis.group)
+    COLLECTIVES["reduce_scatter"] += 1
+    acc = got[0].float()
+    for i in range(1, n):
+        acc = acc + got[i]
+    return acc.to(t.dtype).movedim(0, dim).contiguous()
 
 
 class _GatherCat(torch.autograd.Function):
@@ -139,6 +171,17 @@ class _ToRanks(torch.autograd.Function):
         return _gather_sum(g.contiguous(), ctx.axis), None
 
 
+class _GatherOnUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _gather_cat(t, axis, dim, "gather_on_use")
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_ordered(g, ctx.axis, ctx.dim), None, None
+
+
 def gather_cat(t: torch.Tensor, axis: MeshAxis, dim: int = -1
                ) -> torch.Tensor:
     """Every rank's ``t`` concatenated along ``dim`` in rank order; the
@@ -158,6 +201,14 @@ def to_ranks(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     this rank's share of the work: the identity, whose backward sums the
     ranks' partial gradients in rank order."""
     return _ToRanks.apply(t, axis)
+
+
+def gather_on_use(shard: torch.Tensor, axis: MeshAxis, dim: int
+                  ) -> torch.Tensor:
+    """A weight whole from the data ranks' shares along ``dim`` (in rank
+    order: exact); the backward gives this rank's share the sum over the
+    ranks of the whole weight's gradient (``reduce_scatter_ordered``)."""
+    return _GatherOnUse.apply(shard, axis, dim % shard.ndim)
 
 
 def broadcast(t: torch.Tensor, src: int,

@@ -18,21 +18,28 @@ layer's leading period dim dropped).
 ``shard_module(model, mesh)`` is the counterpart of
 ``param_sharding_tree`` + ``device_put`` (``repro/parallel/sharding.py:
 107-118``): on every rank of ``mesh`` it keeps, in place, the rank's
-share of each parameter the spec splits over "model" and sets the
-modules' descriptors (``parallel/tensor.py``) their forwards read.  The
-share follows the spec but for:
+share of each parameter along every dim the spec splits, and sets the
+modules' descriptors (``parallel/tensor.py``) their forwards read.  Over
+"model" that is tensor and expert parallelism; over the data axes (the
+spec's ``("pod", "data")`` entries, flattened pod-major as ``data_axis``
+orders them) it is FSDP, ZeRO-3 style: each weight, and so its master and
+momentum in training, is held as a data rank's share, gathered whole
+where it is read (``tensor.on_use``) and its gradient reduce-scattered
+in rank order.  A dim is cut only where the axis divides the full dim
+(the reference's rule), and the data axes never cut the dim the model
+axis cuts, so a gathered weight is the model share the kernels take.
+The share follows the spec but for:
 
-  * the data axes: serving holds every weight whole on each data rank
-    (the spec's FSDP entries replicate here: no ZeRO-3 gather on use);
-  * compact storage: a share is rows (column-parallel) or compact slots
-    (row-parallel) that the kernels take as they are
+  * compact storage: a model share is rows (column-parallel) or compact
+    slots (row-parallel) that the kernels take as they are
     (``KernelTables.rank_slice``, in sub-groups and sub-slots where the
-    share cuts a row group or a slot);
+    share cuts a row group or a slot); the data axes cut the other dim
+    (slots, or rows);
   * chain storage, cut as compact storage is (``ChainTables.rank_slice``:
     rows, or stored chunks);
   * int8 storage, which the reference's rules replicate (no rule names
-    ``q_data``): it is cut as the ``w_data`` it stands for, its scales
-    with it.
+    ``q_data``): it is cut over "model" as the ``w_data`` it stands for,
+    its scales with it, and held whole on the data ranks.
 
 MLA splits by head as the reference's rules do (``wq_b``'s rows, ``wk_b``
 and ``wv_b``, ``wo``'s columns), with the latent whole on every rank:
@@ -56,8 +63,8 @@ import torch
 from torch import nn
 
 from .comm import MeshAxis
-from .tensor import (ExpertShard, HeadShard, LatentShard, LinearShard,
-                     VocabShard)
+from .tensor import (DataShard, ExpertShard, HeadShard, LatentShard,
+                     LinearShard, VocabShard)
 
 __all__ = ["dp_axes", "dp_size", "data_axis", "mesh_axes", "param_spec",
            "batch_specs", "cache_specs", "port_cache_specs", "page_pool_specs",
@@ -299,20 +306,38 @@ def port_cache_specs(cfg, cache: list, mesh, *, long_context: bool) -> list:
     return out
 
 
+def _names(ax) -> tuple:
+    return () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+
+
+def _is_data(ax) -> bool:
+    return any(a in ("pod", "data") for a in _names(ax))
+
+
+def _model_only(spec: tuple) -> tuple:
+    """``spec`` with its data entries dropped (what a tensor held whole on
+    the data ranks follows)."""
+    return tuple(None if _is_data(ax) else ax for ax in spec)
+
+
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """Where a rank's share of a tensor lies: ``spec`` (the reference's,
-    over the port tensor's dims, that the port follows) and ``cut`` (dim,
-    lo, hi), the range of the full tensor this rank's share reads along
-    dim, or None for the whole."""
+    over the port tensor's dims, that the port follows) and ``cut``, one
+    (dim, lo, hi) a mesh axis that splits the tensor -- the range of the
+    full tensor this rank's share reads along dim -- or None for the
+    whole."""
 
     spec: tuple
-    cut: Optional[tuple[int, int, int]] = None
+    cut: Optional[tuple[tuple[int, int, int], ...]] = None
 
     @property
     def model_split(self) -> bool:
-        return any(ax == "model" or (isinstance(ax, tuple) and "model" in ax)
-                   for ax in self.spec)
+        return any("model" in _names(ax) for ax in self.spec)
+
+    @property
+    def data_split(self) -> bool:
+        return any(_is_data(ax) for ax in self.spec)
 
 
 def _check_supported(model) -> None:
@@ -346,8 +371,9 @@ class _Sharder:
         self.cfg = model.cfg
         self.split = jax_stack_split(self.cfg)
         self.m_ax = MeshAxis.of(mesh, "model")
+        self.d_ax = data_axis(mesh)
         self.placements: dict[str, Placement] = {}
-        self.cuts: dict[str, tuple] = {}
+        self.cuts: dict[str, list] = {}
 
     def spec(self, name: str, shape) -> tuple:
         return port_spec(self.cfg, name, tuple(shape), self.mesh,
@@ -357,7 +383,7 @@ class _Sharder:
              index, spec: tuple) -> None:
         """Cut ``owner.<attr>`` (a parameter or buffer named ``name`` in
         the state_dict) to ``index`` (a range, or the full tensor's
-        indices) along ``dim`` and record it."""
+        indices) along ``dim`` and record it beside its earlier cuts."""
         t = getattr(owner, attr)
         dim = dim % t.ndim
         new = _cut(t.data if isinstance(t, nn.Parameter) else t, dim, index)
@@ -366,9 +392,11 @@ class _Sharder:
                                               requires_grad=t.requires_grad))
         else:
             setattr(owner, attr, new)
-        self.cuts[name] = (dim, index)
+        self.cuts.setdefault(name, []).append((dim, index))
+        had = self.placements.get(name)
+        cuts = (had.cut or ()) if had is not None else ()
         self.placements[name] = Placement(
-            spec, (dim, min(index), max(index) + 1))
+            spec, cuts + ((dim, min(index), max(index) + 1),))
 
     def whole(self, name: str, spec: tuple) -> None:
         self.placements[name] = Placement(spec)
@@ -384,6 +412,8 @@ class _Sharder:
         dim = 0 if role == "col" else 1
         held = lin.q_data if quant else getattr(lin, wkey)
         spec = self.spec(f"{name}.{wkey}", held.shape)
+        if quant:
+            spec = _model_only(spec)
         full = lin.out_features if role == "col" else lin.in_features
         lo, hi = ax.range(full)
         vkeys = ("q_data",) if quant else (wkey,)
@@ -445,6 +475,8 @@ class _Sharder:
                 owner, keys, spec_name = ex, (proj,), f"{base}.{proj}"
             values = getattr(owner, keys[0])
             spec = self.spec(spec_name, values.shape)
+            if ex.quantized:
+                spec = _model_only(spec)
             split = spec[0] == "model"
             for key in keys:
                 leaf = f"{base}.{proj}" + (f".{key}" if owner is not ex
@@ -495,15 +527,33 @@ class _Sharder:
         self.keep(owner, attr, name, 0, range(lo, hi), spec)
         return VocabShard(self.m_ax, lo, hi)
 
+    def data(self) -> dict:
+        """Cut every tensor whose spec has a data entry to this data
+        rank's share along that dim (the model pass kept that dim whole)
+        and return {module: DataShard} for the reads to gather by."""
+        dims: dict = {}
+        for name, p in list(self.placements.items()):
+            if not p.data_split:
+                continue
+            (dim,) = [d for d, ax in enumerate(p.spec) if _is_data(ax)]
+            owner_name, _, attr = name.rpartition(".")
+            owner = self.model.get_submodule(owner_name)
+            lo, hi = self.d_ax.range(getattr(owner, attr).shape[dim])
+            self.keep(owner, attr, name, dim, range(lo, hi), p.spec)
+            dims.setdefault(owner, {})[attr] = dim
+        return {owner: DataShard(self.d_ax, d) for owner, d in dims.items()}
+
 
 def shard_module(model, mesh):
     """Keep this rank's share of ``model`` (an ``LMModel``) over ``mesh``,
     in place, and return it.  ``model.placements`` maps every
     ``state_dict`` name to its ``Placement``; ``model.rank_slices`` the
-    cut ones to their (dim, index), the full tensor's entries along dim
-    the share holds, which ``bridge.load_jax_params`` applies to the
-    reference's full tree.  Every rank of the mesh calls
-    it on the same model (the same seed or the same loaded weights)."""
+    cut ones to their cuts, one (dim, index) a mesh axis that splits the
+    tensor, each the entries along dim the share holds (the model cut's
+    of the full tensor, the data cut's of what the model cut left; the
+    two never share a dim), which ``bridge.load_jax_params`` applies to
+    the reference's full tree.  Every rank of the mesh calls it on the
+    same model (the same seed or the same loaded weights)."""
     from repro_torch.models.attention import GQAttention, MLAttention
     from repro_torch.models.moe import MoELayer
     from repro_torch.sparsity import SparseLinear
@@ -530,10 +580,13 @@ def shard_module(model, mesh):
     for name, t in model.state_dict().items():
         if name not in s.placements:
             s.whole(name, s.spec(name, t.shape))
+    for owner, ds in s.data().items():
+        owner.fsdp = ds
     for name, p in s.placements.items():
-        if p.model_split and p.cut is None:
+        if (p.model_split or p.data_split) and p.cut is None:
             raise AssertionError(f"{name}: split by the spec, kept whole")
     model.dp = MeshAxis.of(mesh, "data")
+    model.data_axis = s.d_ax
     model.mesh = mesh
     model.placements = s.placements
     model.rank_slices = s.cuts

@@ -28,6 +28,14 @@ plain local tensors (the kernels take raw pointers, so no DTensor):
   * ``VocabShard`` on an ``Embedding`` and on the LM head: this rank's
     vocabulary rows [lo, hi); lookups outside them give zeros, summed over
     the ranks, and the head's logits are gathered.
+  * ``DataShard`` on each module that holds a data rank's share of a
+    weight (FSDP over the data axes, the spec's ``("pod", "data")``
+    entries): the dim each such attribute was cut along.  Every read goes
+    through ``on_use``, which gathers the weight whole over the data axes
+    just before the kernel or op takes it (``gather_on_use``), so the
+    model-axis code above sees the share it saw before; under
+    ``cfg.remat`` the gather is recomputed in the backward, and only one
+    layer's whole weights are alive at a time.
 
 Gradients (``comm.py``): a whole, replicated activation that enters a
 rank's share of the work goes through ``to_ranks`` first (the input of a
@@ -44,10 +52,11 @@ from typing import Optional
 
 import torch
 
-from .comm import MeshAxis, gather_cat, gather_sum, to_ranks
+from .comm import MeshAxis, gather_cat, gather_on_use, gather_sum, to_ranks
 
 __all__ = ["LinearShard", "HeadShard", "LatentShard", "ExpertShard",
-           "VocabShard", "linear_forward", "whole_output"]
+           "VocabShard", "DataShard", "on_use", "linear_forward",
+           "whole_output"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -94,6 +103,22 @@ class VocabShard:
     axis: MeshAxis
     lo: int
     hi: int
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DataShard:
+    axis: MeshAxis              # the data axes, flattened pod-major
+    dims: dict                  # attribute -> the dim its share is cut on
+
+
+def on_use(owner, attr: str) -> torch.Tensor:
+    """``owner.<attr>`` whole over the data axes: gathered where the
+    module's ``DataShard`` names it, else as it is held."""
+    t = getattr(owner, attr)
+    ds: Optional[DataShard] = getattr(owner, "fsdp", None)
+    if ds is None or attr not in ds.dims:
+        return t
+    return gather_on_use(t, ds.axis, ds.dims[attr])
 
 
 def linear_forward(layer, x: torch.Tensor, *, fuse: Optional[str] = None,

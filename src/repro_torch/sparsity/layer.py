@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.tensor import on_use
 from repro_torch.kernels import (ChainTransposeTables, TransposeTables,
                                  chain_tables, chain_transpose_tables,
                                  get_op)
@@ -65,12 +66,14 @@ class SparseLinear(nn.Module):
     once ``parallel.shard_module`` cut it to a rank's share (None
     otherwise), ``share`` the ``RankSlice`` of a compact or chain layer
     it cut (whose dX runs on ``share.transpose`` of the full layout's
-    transposed tables), and ``mask_window`` the part of a masked layer's
-    mask its share stands under."""
+    transposed tables), ``mask_window`` the part of a masked layer's
+    mask its share stands under, and ``fsdp`` the ``parallel.DataShard``
+    of values held as a data rank's share."""
 
     tp = None
     share = None
     mask_window = None
+    fsdp = None
 
     def __init__(self, in_features: int, out_features: int,
                  cfg: Optional[Union[SparsityConfig, SparsityPlan]] = None,
@@ -214,27 +217,32 @@ class SparseLinear(nn.Module):
         self.w_data = nn.Parameter(w, requires_grad=False)
 
     def weight(self):
-        """The storage container handed to ``sparse_linear``."""
+        """The storage container handed to ``sparse_linear``; values that
+        ``shard_module`` cut over the data axes are gathered whole
+        (``parallel.on_use``)."""
         if self.quantized:
             return QuantizedWeight(q_data=self.q_data, scales=self.scales,
                                    tables=self.tables, b=self.b,
                                    kind=self.mode,
                                    orig_dtype=self.orig_dtype)
         if self.mode == "compact":
-            return CompactWeight(w_data=self.w_data, tables=self.tables,
-                                 b=self.b, tables_t=self.transpose_tables)
+            return CompactWeight(w_data=on_use(self, "w_data"),
+                                 tables=self.tables, b=self.b,
+                                 tables_t=self.transpose_tables)
         if self.mode == "chain":
-            return ChainWeight(w_data=self.w_data, tables=self.tables,
-                               b=self.b, tables_t=self.transpose_tables)
+            return ChainWeight(w_data=on_use(self, "w_data"),
+                               tables=self.tables, b=self.b,
+                               tables_t=self.transpose_tables)
+        w = on_use(self, "w")
         if self.mode == "masked":
             if self.layout is not None:
-                return MaskedWeight(w=self.w, ba_o=self.ba_o, ba_i=self.ba_i,
+                return MaskedWeight(w=w, ba_o=self.ba_o, ba_i=self.ba_i,
                                     b=self.b, group_rows=self.group_rows,
                                     chunk_cols=self.chunk_cols,
                                     window=self.mask_window)
-            return MaskedWeight(w=self.w, mask=self.mask, b=self.b,
+            return MaskedWeight(w=w, mask=self.mask, b=self.b,
                                 window=self.mask_window)
-        return DenseWeight(w=self.w, b=self.b)
+        return DenseWeight(w=w, b=self.b)
 
     def forward(self, x: torch.Tensor, *, fuse: Optional[str] = None,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -29,12 +29,16 @@ A sharded model (``parallel.shard_module(model, mesh)`` before
 ``make_train_step``) trains its rank's shares: each rank feeds its data
 rank's rows of the global batch, the collectives' backwards give every
 rank the gradient of its shares (``parallel/comm.py``), and the step then
-takes each gradient's mean over the data axes (pod and data), added in
-rank order (``gather_sum``), and the global norm with every split
-tensor's squares summed over the model ranks, so every rank clips by the
-unsharded norm and the replicated tensors stay equal on every rank.  The
-weights are whole on the data ranks (no FSDP), and int8 gradient
-compression is not sharded.
+takes each gradient's mean over the data axes (pod and data).  A weight
+the spec cuts over the data axes (FSDP) is held, with its master and
+momentum, as this rank's share; its gradient arrives summed over the data
+ranks by ``gather_on_use``'s backward (a reduce-scatter in rank order)
+and is divided; every other gradient is summed in rank order
+(``gather_sum``) and divided.  The global norm sums every cut tensor's
+squares over the ranks that hold its other shares (data, then model),
+so every rank clips by the unsharded norm and the tensors held whole
+stay equal on every rank.  The update is elementwise and runs on the
+shares as they are.  int8 gradient compression is not sharded.
 """
 from __future__ import annotations
 
@@ -176,11 +180,12 @@ def make_train_step(model: torch.nn.Module, tcfg: TrainConfig,
 class _Sharded:
     """A sharded model's step: its data axes (pod and data, flattened),
     its model axis and the names of the trainable tensors the spec splits
-    over "model"."""
+    over "model" (``split``) and over the data axes (``fsdp``)."""
 
     dp: object
     model_axis: object
     split: list
+    fsdp: list
 
     @classmethod
     def of(cls, model, live: dict, tcfg: TrainConfig):
@@ -188,35 +193,41 @@ class _Sharded:
         if mesh is None:
             return None
         from repro_torch.parallel.comm import MeshAxis
-        from repro_torch.parallel.sharding import data_axis
 
         if tcfg.grad_compression != "none":
             raise NotImplementedError(
                 "int8 gradient compression of a sharded model")
         split = [n for n, p in model.placements.items()
                  if p.model_split and n in live]
-        return cls(data_axis(mesh), MeshAxis.of(mesh, "model"), split)
+        fsdp = [n for n, p in model.placements.items()
+                if p.data_split and n in live]
+        return cls(model.data_axis, MeshAxis.of(mesh, "model"), split, fsdp)
 
     def data_mean(self, grads: dict) -> dict:
-        """Each gradient's mean over the data ranks, added in rank
-        order."""
+        """Each gradient's mean over the data ranks: an FSDP share's
+        arrives summed (in rank order), the others are added in rank
+        order here."""
         from repro_torch.parallel.comm import gather_sum
 
-        return {n: gather_sum(g, self.dp).div_(self.dp.size)
-                for n, g in grads.items()}
+        summed = set(self.fsdp)
+        return {n: (g if n in summed else gather_sum(g, self.dp)
+                    ).div_(self.dp.size) for n, g in grads.items()}
 
     def global_norm(self, grads: dict) -> torch.Tensor:
-        """The unsharded model's global norm: the split tensors' sums of
-        squares summed over the model ranks, then every tensor's in the
-        tree's order (the order ``optim.global_norm`` adds them in)."""
+        """The unsharded model's global norm: the FSDP shares' sums of
+        squares summed over the data ranks, then the model-split tensors'
+        over the model ranks (each in rank order), then every tensor's in
+        the tree's order (the order ``optim.global_norm`` adds them
+        in)."""
         from repro_torch.parallel.comm import gather_sum
 
         sq = {n: torch.sum(torch.square(g.float()))
               for n, g in grads.items()}
-        if self.split:
-            tot = gather_sum(torch.stack([sq[n] for n in self.split]),
-                             self.model_axis)
-            sq.update(zip(self.split, tot))
+        for names, axis in ((self.fsdp, self.dp),
+                            (self.split, self.model_axis)):
+            if names:
+                tot = gather_sum(torch.stack([sq[n] for n in names]), axis)
+                sq.update(zip(names, tot))
         return torch.sqrt(sum(sq.values()))
 
 

@@ -7,7 +7,10 @@
     rwkv6-7b cell (``shard_module``'s refusal as the reason), and a cell
     whose trace meets an op without a ``meta`` kernel, an error;
   * reduced tinyllama and qwen2-moe on a (1, 4) data/model mesh, one small
-    cell of each kind, against the reference's ``build_cell``,
+    cell of each kind (and at (2, 2) and (2, 4), where FSDP cuts the
+    weights over "data": the prefill and decode argument bytes equal the
+    reference's, and a train cell's keep their (1, 4) ratio to the
+    reference's within 1%), against the reference's ``build_cell``,
     ``memory_analysis``, ``analyze_hlo``, ``active_param_count`` and
     ``attention_flops`` on 8 forced host devices (a subprocess each side:
     the reference's device count and the port's fake group are
@@ -32,6 +35,9 @@ ARCHS = ["tinyllama-1.1b", "qwen2-moe-a2.7b"]
 # (name, kind, global batch, seq)
 CELLS = [("train_s", "train", 4, 32), ("prefill_s", "prefill", 4, 32),
          ("decode_s", "decode", 4, 32)]
+# (data, model): the first is the one every check runs at; the others cut
+# the weights over "data" too (FSDP)
+MESHES = [(1, 4), (2, 2), (2, 4)]
 DOT_TOL = {"train": 0.10, "prefill": 0.05, "decode": 0.05}
 
 CONFIG = r"""
@@ -59,10 +65,10 @@ from repro.models import LMModel
 from repro.parallel.constrain import activation_mesh
 """ + CONFIG + r"""
 req = json.loads(sys.argv[1])
-mesh = make_serve_mesh(1, 4)
 tcfg = TrainConfig(optimizer="sgdm", grad_clip=1.0, microbatches=1)
 out = {}
-for arch in req["archs"]:
+for arch, (dp, tp) in [(a, m) for m in req["meshes"] for a in req["archs"]]:
+    mesh = make_serve_mesh(dp, tp)
     cfg = config(arch, reduce_config, get_config, apply_sparsity)
     _, active = D.active_param_count(cfg, LMModel(cfg))
     for name, kind, b, s in req["cells"]:
@@ -88,13 +94,13 @@ for arch in req["archs"]:
         mult = 6 if kind == "train" else 2
         mf = mult * active * tokens + (mult / 2) * D.attention_flops(
             cfg, shape)
-        out[f"{arch}|{name}"] = {
+        out[f"{arch}|{name}|{dp}x{tp}"] = {
             "argument_bytes":
                 compiled.memory_analysis().argument_size_in_bytes,
             "leaf_bytes": leaf_bytes, "dropped": dropped,
             "dot_flops": ana.dot_flops,
             "dot_breakdown": ana.top_dots(40),
-            "model_flops_per_device": mf / 4}
+            "model_flops_per_device": mf / (dp * tp)}
 print("DRY-JSON", json.dumps(out))
 """
 
@@ -107,15 +113,15 @@ from repro_torch.launch import dryrun as D
 """ + CONFIG + r"""
 req = json.loads(sys.argv[1])
 torch.set_num_threads(2)
-D.start_fake_group(4)
-mesh = D.make_mesh((1, 4), ("data", "model"))
 out = {}
-for arch in req["archs"]:
+for arch, (dp, tp) in [(a, m) for m in req["meshes"] for a in req["archs"]]:
+    D.start_fake_group(dp * tp)
+    mesh = D.make_mesh((dp, tp), ("data", "model"))
     cfg = config(arch, reduce_config, get_config, apply_sparsity)
     for name, kind, b, s in req["cells"]:
         rec = D.reckon(cfg, ShapeConfig(name, s, b, kind), mesh)
         mem = rec["memory"]
-        out[f"{arch}|{name}"] = {
+        out[f"{arch}|{name}|{dp}x{tp}"] = {
             "argument_bytes": round((mem["argument_gb"]
                                      - mem["constants_gb"]) * 1e9),
             "dot_flops": rec["hlo_flops_per_device"],
@@ -217,7 +223,7 @@ def test_an_op_without_a_meta_kernel_is_an_error(tmp_path):
 
 @pytest.fixture(scope="module")
 def both():
-    req = json.dumps({"archs": ARCHS, "cells": CELLS})
+    req = json.dumps({"archs": ARCHS, "cells": CELLS, "meshes": MESHES})
     ref = parse(child(["-c", REF_CHILD], [req], timeout=900), "DRY-JSON")
     port = parse(child(["-c", PORT_CHILD], [req]), "DRY-JSON")
     return ref, port
@@ -230,7 +236,7 @@ KEYS = [(a, c) for a in ARCHS for c in CELLS]
                          ids=[f"{a}-{c[0]}" for a, c in KEYS])
 def test_reduced_cells_against_the_reference(both, arch, cell):
     ref, port = both
-    key = f"{arch}|{cell[0]}"
+    key = f"{arch}|{cell[0]}|1x4"
     want, got = ref[key], port[key]
     assert abs(got["model_flops_per_device"]
                - want["model_flops_per_device"]) \
@@ -247,3 +253,27 @@ def test_reduced_cells_against_the_reference(both, arch, cell):
                                      want["dot_flops"],
                                      got["dot_breakdown"][:8],
                                      want["dot_breakdown"][:8])
+
+
+FSDP_KEYS = [(a, c, m) for a in ARCHS for c in CELLS for m in MESHES[1:]]
+
+
+@pytest.mark.parametrize("arch,cell,mesh", FSDP_KEYS,
+                         ids=[f"{a}-{c[0]}-{m[0]}x{m[1]}"
+                              for a, c, m in FSDP_KEYS])
+def test_fsdp_argument_bytes_against_the_reference(both, arch, cell, mesh):
+    """With the data axes cutting the weights (FSDP), a prefill or decode
+    cell's argument bytes are the reference's leaves' per-device bytes;
+    a train cell's (bf16 weights beside float32 masters and momentum,
+    each cut alike) keep the ratio to the reference's they have at
+    (1, 4), within 1%."""
+    ref, port = both
+    key = f"{arch}|{cell[0]}|{mesh[0]}x{mesh[1]}"
+    want, got = ref[key], port[key]
+    if cell[1] != "train":
+        assert got["argument_bytes"] == want["leaf_bytes"], key
+        return
+    base = f"{arch}|{cell[0]}|1x4"
+    at_1x4 = port[base]["argument_bytes"] / ref[base]["leaf_bytes"]
+    ratio = got["argument_bytes"] / want["leaf_bytes"]
+    assert abs(ratio / at_1x4 - 1) <= 0.01, (key, ratio, at_1x4)

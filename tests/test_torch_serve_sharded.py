@@ -23,15 +23,21 @@ reference's five cases of ``tests/test_serve_sharded.py``, and int8:
   * the recurrent kinds (rwkv6-7b, jamba), refused with the reference's
     message.
 
+  * FSDP (the weights cut over "data" as well, gathered on use):
+    qwen2-moe at dp 2 x tp 2 on the sharded engine, and tinyllama on the
+    disaggregated engine with both roles at dp 2 x tp 2 on all four
+    ranks, and with each role at dp 2 on two ranks of its own.
+
 Every engine's greedy streams equal ``run_sequential`` over the same
 sharded model, token for token.  And for nine archs in the storages
 (dense, masked, compact, chain, int8), the sharded model's first prefill
 (pixtral-12b's with patch embeddings) and 4 decode logits are within
 1e-5 * max|ref| of the reference's single-device ``LMModel`` on the same
 bridged parameters (``load_jax_params`` loading each rank's share), and
-every rank holds 1/n of the elements of each tensor the spec splits over
-"model".  The reference runs here, in the test process; the ranks import
-only torch and the port.
+every rank holds 1/n of the elements of each tensor the spec splits, n
+the product of the sizes of the axes its spec names (over "model", and
+over "data" where FSDP cuts it).  The reference runs here, in the test
+process; the ranks import only torch and the port.
 """
 import json
 import os
@@ -93,7 +99,7 @@ LOGIT_CASES = [
 ]
 ENGINE_CASES = ["tp-compact", "tp-masked", "moe-ep", "preempt", "disagg",
                 "prefix", "faults-snapshot", "int8", "mla", "codebooks",
-                "chain", "recurrent"]
+                "chain", "recurrent", "fsdp"]
 # the deep-chain plan of tests/test_torch_chain_model.py (a 4 x 4 leaf)
 CHAIN = dict(pattern="rbgp", sparsity=0.875, backend="auto",
              factors=(("complete", 2, 2, 0.0), ("ramanujan", 0, 0, -1.0),
@@ -188,13 +194,18 @@ def rank_main(rank, world, store, work):
         want = c["logits"]
         err = float(np.abs(got - want).max() / np.abs(want).max())
         full = flatten_jax_tree(model.cfg, c["tree"])
-        n = model.mesh.size(1)
+        sizes = dict(zip(model.mesh.mesh_dim_names, model.mesh.mesh.shape))
         state = model.state_dict()
-        split = {k: p for k, p in model.placements.items() if p.model_split}
-        share = {k: [state[k].numel(), int(np.prod(full[k].shape))]
-                 for k in split}
+        split = {k: p for k, p in model.placements.items()
+                 if p.model_split or p.data_split}
+        share = {k: [state[k].numel(), int(np.prod(full[k].shape)),
+                     int(np.prod([sizes[a] for ax in p.spec if ax
+                                  for a in ([ax] if isinstance(ax, str)
+                                            else ax)]))]
+                 for k, p in split.items()}
         return {"err": err, "collectives": dict(COLLECTIVES),
-                "n_model": n, "share": share,
+                "share": share,
+                "n_fsdp": sum(p.data_split for p in split.values()),
                 "kept_whole": [k for k, p in split.items() if p.cut is None],
                 "cut": sum(p.cut is not None for p in split.values())}
 
@@ -365,6 +376,32 @@ def rank_main(rank, world, store, work):
             out["pools"] = {k: list(v.shape)
                             for k, v in eng.kv.pools[0].items()} \
                 if eng.kv.pools else None
+        elif name == "fsdp":
+            model, _ = build("qwen2-moe-compact", (2, 2))
+            eng = ShardedContinuousEngine(model, model.mesh, page_size=4,
+                                          max_slots=3, max_request_len=40)
+            reset_collectives()
+            out["moe"] = streams(eng, workload(
+                [(4, 3), (12, 6), (8, 2), (16, 4)], model.cfg.vocab_size,
+                seed=6), model)
+            out["moe_collectives"] = dict(COLLECTIVES)
+            c = cases["tinyllama-compact"]
+            cfg = config(c["arch"], c["storage"], c["fields"])
+            wl = workload([(4, 3), (12, 6), (8, 2), (16, 4)],
+                          cfg.vocab_size, seed=7)
+            for tag, dm, pm in (
+                    ("both", lambda: make_serve_mesh(2, 2),
+                     lambda: make_serve_mesh(2, 2)),
+                    ("apart", lambda: make_serve_mesh(2, 1, ranks=[2, 3]),
+                     lambda: make_serve_mesh(2, 1, ranks=[0, 1]))):
+                m2 = LMModel(cfg, device="cpu", seed=0)
+                eng = DisaggregatedEngine(m2, dm(), pm(), page_size=4,
+                                          max_slots=3, max_request_len=40,
+                                          prefill_chunk=5)
+                load_jax_params(m2, c["tree"])
+                reset_collectives()
+                out[tag] = [streams(eng, wl, m2), eng.stats["handoffs"],
+                            COLLECTIVES["gather_on_use"]]
         elif name == "recurrent":
             from repro_torch.parallel import shard_module
             for arch in cases["__recurrent__"]:
@@ -521,14 +558,16 @@ def test_sharded_logits_match_the_reference_single_device_model(ranks,
 
 @pytest.mark.parametrize("name", [c[0] for c in LOGIT_CASES])
 def test_every_rank_holds_its_share_of_each_split_tensor(ranks, name):
-    """1/n of the elements of every tensor the spec splits over "model":
-    the sharding is real, and nothing it splits stays whole."""
+    """1/n of the elements of every tensor the spec splits, n the product
+    of the sizes of the axes it names (over "model", and over the data
+    axes where FSDP cuts it): the sharding is real, and nothing it splits
+    stays whole."""
     for r, res in enumerate(case(ranks, name)):
-        n = res["n_model"]
         assert res["cut"] > 0 and not res["kept_whole"], (r,
                                                          res["kept_whole"])
-        for k, (local, full) in res["share"].items():
-            assert local * n == full, (r, k, local, full)
+        assert res["n_fsdp"] > 0, r
+        for k, (local, full, n) in res["share"].items():
+            assert local * n == full, (r, k, local, full, n)
 
 
 def test_tp_engine_streams_compact_and_masked_single_and_chunked(ranks):
@@ -617,6 +656,23 @@ def test_mla_codebook_and_chain_streams_on_both_engines(ranks, name):
             n_blocks = p["pos"][0]
             assert p == {"ckv": [n_blocks, 4, 32], "krope": [n_blocks, 4, 8],
                          "pos": [n_blocks, 4]}, p
+
+
+@pytest.mark.parametrize("tag", ["moe", "both", "apart"])
+def test_fsdp_streams_on_both_engines_at_data_2(ranks, tag):
+    """The weights cut over "data" (FSDP) and gathered on use: qwen2-moe's
+    sharded engine at (2, 2), and the disaggregated engine with both roles
+    at (2, 2) on all four ranks ("both") and each role at (2, 1) on two
+    ranks of its own ("apart"), keep the sequential streams; every rank
+    gathers, so the roles' gathers run in lockstep."""
+    for r, res in enumerate(case(ranks, "fsdp")):
+        if tag == "moe":
+            assert res["moe"], r
+            assert res["moe_collectives"]["gather_on_use"] > 0, r
+            continue
+        ok, handoffs, gathers = res[tag]
+        assert ok and handoffs == 4, (tag, r, handoffs)
+        assert gathers > 0, (tag, r)
 
 
 @pytest.mark.parametrize("arch", RECURRENT)

@@ -11,7 +11,10 @@ rows), and gemma3-4b at 2 q heads, which model 4 does not divide -- and
 on
 the meshes (data, model) = (1, 4) and (2, 2), each rank runs the port's
 ``make_train_step`` on ``shard_module``'s share of a reduced model, fed
-its data rank's rows of the global batch (``host_shard``):
+its data rank's rows of the global batch (``host_shard``).  At (2, 2) the
+weights the spec cuts over "data" are FSDP'd: each rank holds its data
+share of them (and of their masters and momentum), gathered whole where
+they are read, their gradients reduce-scattered in rank order:
 
   * after one step of sgdm (momentum buffer = the step's gradient: no
     clip, no weight decay), every rank's gradient of each share equals
@@ -20,7 +23,12 @@ its data rank's rows of the global batch (``host_shard``):
     data rank (``microbatches``): its gradient is the mean of the data
     shards' gradients, which is the global batch's for the models without
     MoE, and what the reference's expert-parallel path takes for a MoE
-    (one routing group and one load-balance loss a data shard, averaged);
+    (one routing group and one load-balance loss a data shard,
+    averaged).  gemma-7b's tied table is read twice (the embedding and
+    the head), so under FSDP its share's gradient is two ordered
+    reduce-scatters added together, which round differently from the
+    unsharded model's one sum of the two reads: it is held to the same
+    1e-5 * max|ref|, not to the bit;
   * for tinyllama in masked and compact storage, qwen2-moe's
     expert-parallel experts, deepseek-v2's MLA and musicgen's codebooks
     (the compact shares' dX on ``RankSlice.transpose``, ``to_ranks`` in
@@ -33,7 +41,8 @@ its data rank's rows of the global batch (``host_shard``):
     share without a gradient (``.grad`` None would mean a collective
     without a backward);
   * two steps with clip 1.0 give the unsharded run's losses within 1e-5
-    relative, and every tensor the spec does not split is equal on all
+    relative, and every tensor the spec does not split over "model",
+    gathered whole over the data ranks where FSDP cut it, is equal on all
     four ranks after them.
 
 The reference runs here, in the test process; the ranks import only torch
@@ -113,10 +122,9 @@ def config(arch, storage, fields, chain):
 
 
 def cut(full, where):
-    if where is None:
-        return full
-    dim, index = where
-    return full.index_select(dim, torch.as_tensor(list(index)))
+    for dim, index in where or ():
+        full = full.index_select(dim, torch.as_tensor(list(index)))
+    return full
 
 
 def rank_main(rank, world, store, work):
@@ -129,7 +137,7 @@ def rank_main(rank, world, store, work):
     from repro_torch.data import host_shard
     from repro_torch.launch.mesh import make_serve_mesh
     from repro_torch.models import LMModel
-    from repro_torch.parallel import gather_sum, shard_module
+    from repro_torch.parallel import gather_cat, gather_sum, shard_module
     from repro_torch.parallel.sharding import data_axis
     from repro_torch.train import init_train_state, make_train_step
 
@@ -207,12 +215,22 @@ def rank_main(rank, world, store, work):
             losses.append(float(gather_sum(l, dax)[0]) / dax.size)
         out["loss_err"] = max(abs(a - b) / abs(b)
                               for a, b in zip(losses, want_losses))
-        out["replicated"] = {
-            k: hashlib.sha1(t.detach().contiguous().numpy().tobytes()
-                            ).hexdigest()
-            for k, t in m.state_dict().items()
-            if k in m.placements and not m.placements[k].model_split
-            and t.is_floating_point()}
+
+        def whole(k, t):
+            # a tensor not split over "model" is cut, if at all, over the
+            # data axes only
+            for dim, _, _ in m.placements[k].cut or ():
+                t = gather_cat(t.contiguous(), m.data_axis, dim)
+            return t
+
+        with torch.no_grad():
+            out["replicated"] = {
+                k: hashlib.sha1(whole(k, t.detach()).contiguous().numpy()
+                                .tobytes()).hexdigest()
+                for k, t in m.state_dict().items()
+                if k in m.placements and not m.placements[k].model_split
+                and t.is_floating_point()}
+        out["n_fsdp"] = sum(p.data_split for p in m.placements.values())
         return out
 
     for c in cases["__cases__"]:
@@ -316,6 +334,9 @@ def test_every_share_gets_the_unsharded_models_gradient(ranks, key):
         assert got["n_split"] > 0, (r, key)
         assert got["none_grads"] == [], (r, got["none_grads"])
         assert got["grad_err"] <= RTOL, (r, got["worst"], got["grad_err"])
+        # the spec's data entries cut weights (FSDP; at data 1 the cut is
+        # the whole and the gathers run over a group of one)
+        assert got["n_fsdp"] > 0, (r, key)
 
 
 @pytest.mark.parametrize("dims", MESHES)
