@@ -449,7 +449,10 @@ exits non-zero without the result line:
      the reckoned argument GB against the card's allocated bytes the
      program adds (within 1%), the reckoned peak against the card's
      (printed, within ``DRYRUN_PEAK_BAND``), the fenced ms of a second
-     call beside max(compute_s, memory_s);
+     call beside max(compute_s, memory_s); and one recurrent cell the
+     same way, rwkv6-7b's decode of 8 rows cut to 8 layers
+     (``DRYRUN_RECURRENT``: its mixers sharded by channel at model 1, its
+     states read through the spec's cut);
  56. train-sharded: the same group; full-width tinyllama-1.1b (compact,
      rbgp4 0.75, min_dim 64, bf16) and qwen2-moe-a2.7b, 3 steps of 4 x 512
      through ``make_train_step``, once unsharded and once after
@@ -462,13 +465,22 @@ exits non-zero without the result line:
      ``rbgp4mm_rhs_stacked`` and ``rbgp4_sddmm_rhs_stacked``, ms/step of
      both; the sharded step gathers its FSDP'd weights on use (again in
      remat's recompute) and reduce-scatters each one's gradient once a
-     step, the counts printed.
+     step, the counts printed; then a second sharded run of 2 steps from
+     the same seed, every loss and every step's gradient sample
+     bit-equal to the first run's (the vocabulary-parallel loss sums
+     each codebook's exponentials by one ordered reduction, not by a
+     ``scatter_add``, whose atomics add in another order each run);
+ 57. train-sharded-recurrent: the same for rwkv6-7b (4 of 32 layers, for
+     time) and jamba-1.5-large-398b (3 of 72, for memory), full width,
+     2 steps each run: the Mamba and RWKV mixers under ``shard_module``
+     (``RecurrentShard``) within ``sharded_tolerance`` of the unsharded
+     step, launches equal, the sharded rerun bit-equal.
 
 ``python3 chip_smoke.py --autotune-only`` runs phases 1, 4, 33 and 45-47
 alone (a quicker check of the autotuner; no result line);
 ``python3 chip_smoke.py --archs-only`` runs phases 1 and 48-51 alone;
 ``python3 chip_smoke.py --shard-only`` phases 1 and 52-54;
-``python3 chip_smoke.py --dryrun-only`` phases 1, 55 and 56, and first
+``python3 chip_smoke.py --dryrun-only`` phases 1 and 55-57, and first
 times tinyllama's decode step alone, beside a second run of the
 reckoning and alone again (``reckoning_beside_decode``).
 
@@ -7053,10 +7065,20 @@ def shard_phases(smi: str) -> tuple[dict, list]:
 # one training step of 4 x 512
 DRYRUN_CELLS = (("decode", 8, 32768), ("prefill", 2, 4096),
                 ("train", 4, 512))
+# and one recurrent cell: rwkv6-7b's decode of 8 rows (its state is O(1)
+# whatever the cache length), cut to 8 of its 32 layers for time
+DRYRUN_RECURRENT = ("rwkv6-7b", 8, ("decode", 8, 32768))
 # the reckoned peak against the card's, the band phase 55 holds it in
 DRYRUN_PEAK_BAND = (0.5, 2.0)
-# phase 56: steps, rows and tokens a row of each sharded training run
-SHARDED_STEPS, SHARDED_BATCH, SHARDED_SEQ = 3, 4, 512
+# phase 56: steps, rows and tokens a row of each sharded training run;
+# the first SHARDED_RERUN_STEPS steps of a run have their gradients
+# sampled (all the sharded rerun's steps, held bit-equal to the first
+# run's), the steps after them are timed
+SHARDED_STEPS, SHARDED_BATCH, SHARDED_SEQ = 4, 4, 512
+SHARDED_RERUN_STEPS = 2
+# phase 57: the recurrent archs and the steps of each of their runs
+SHARDED_RECURRENT = ("rwkv6-7b", "jamba-1.5-large-398b")
+SHARDED_RECURRENT_STEPS = 3
 # entries of each gradient phase 56 compares (``grad_sample``)
 SHARDED_SAMPLE = 1 << 16
 # the launch counters phase 56 holds equal between its two runs
@@ -7065,29 +7087,34 @@ SHARDED_COUNTERS = ("forward", "dx", "dw", "stacked_forward", "stacked_dx",
 
 
 def start_dryrun_reckoning(out: Path) -> subprocess.Popen:
-    """The dry-run's reckoning of ``DRYRUN_CELLS`` for tinyllama-1.1b at a
-    1 x 1 mesh, in a process of its own (a fake group of one rank, every
-    tensor on ``meta``; its output in ``out`` and ``out``.log)."""
+    """The dry-run's reckoning of ``DRYRUN_CELLS`` for tinyllama-1.1b and
+    of ``DRYRUN_RECURRENT`` at a 1 x 1 mesh, one after the other in a
+    process of their own (a fake group of one rank, every tensor on
+    ``meta``; the output in ``out`` and ``out``.log)."""
+    dry = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+           "1x1", "--out", str(out)]
     cells = [a for kind, b, sq in DRYRUN_CELLS
              for a in ("--cell", f"{kind},{b},{sq}")]
+    arch, layers, (kind, b, sq) = DRYRUN_RECURRENT
+    script = ("import subprocess, sys\n"
+              f"for cmd in {[dry + ['--arch', 'tinyllama-1.1b', *cells], dry + ['--arch', arch, '--layers', str(layers), '--cell', f'{kind},{b},{sq}']]!r}:\n"
+              "    subprocess.run(cmd, check=True)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
     out.unlink(missing_ok=True)
     with open(out.with_suffix(".log"), "w") as f:
-        return subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "tinyllama-1.1b", "--mesh", "1x1", *cells, "--out", str(out)],
-            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+        return subprocess.Popen([sys.executable, "-c", script], cwd=ROOT,
+                                env=env, stdout=f, stderr=subprocess.STDOUT)
 
 
 def finish_dryrun_reckoning(proc: subprocess.Popen, out: Path) -> dict:
-    """Waits for the reckoning; its records by shape name."""
+    """Waits for the reckoning; its records by (arch, shape name)."""
     rc = proc.wait(timeout=600)
     if rc != 0:
         raise AssertionError(f"the dry-run's reckoning failed: "
                              f"{out.with_suffix('.log').read_text()[-4000:]}")
-    return {r["shape"]: r for r in map(json.loads,
-                                       out.read_text().splitlines())}
+    return {(r["arch"], r["shape"]): r
+            for r in map(json.loads, out.read_text().splitlines())}
 
 
 def reckoning_beside_decode(smi: str) -> dict:
@@ -7130,7 +7157,8 @@ def reckoning_beside_decode(smi: str) -> dict:
 
 
 def phase_dryrun_vs_card(smi: str, recs: dict) -> dict:
-    """Phase 55: each of the dry-run's programs (``DRYRUN_CELLS``, its own
+    """Phase 55: each of the dry-run's programs (``DRYRUN_CELLS`` of
+    tinyllama-1.1b and ``DRYRUN_RECURRENT``'s rwkv6-7b decode, its own
     config: rbgp4 0.75 masked, min_dim 1024, bf16) run on the card at a
     1 x 1 mesh of the NCCL group, against the dry-run's reckoning of the
     same program (``recs``, reckoned beside the kernels' build): the
@@ -7143,12 +7171,14 @@ def phase_dryrun_vs_card(smi: str, recs: dict) -> dict:
     from repro_torch.launch.mesh import make_serve_mesh
 
     t_phase = time.perf_counter()
-    cfg = dryrun.cell_config("tinyllama-1.1b", "rbgp4", 0.75)
     mesh = make_serve_mesh(1, 1)
     rows = {}
-    for kind, b, sq in DRYRUN_CELLS:
+    for arch, layers, (kind, b, sq) in (
+            [("tinyllama-1.1b", None, c) for c in DRYRUN_CELLS]
+            + [DRYRUN_RECURRENT]):
+        cfg = dryrun.cell_config(arch, "rbgp4", 0.75, layers)
         shape = ShapeConfig(f"{kind}_{b}x{sq}", sq, b, kind)
-        rec = recs[shape.name]
+        rec = recs[arch, shape.name]
         if rec["status"] != "ok":
             raise AssertionError(f"dry-run {shape.name}: {rec}")
         if kind == "prefill":
@@ -7176,21 +7206,23 @@ def phase_dryrun_vs_card(smi: str, recs: dict) -> dict:
                "peak_ratio": mem["peak_per_device_gb"] / peak_gb,
                "ms": ms, "bound_ms": 1e3 * bound_s,
                "collectives": rec["collectives"]["counts"]}
+        name = shape.name if arch == "tinyllama-1.1b" else \
+            f"{arch} ({layers} layers) {shape.name}"
         log("dryrun-vs-card",
-            f"{shape.name}: argument GB reckoned {mem['argument_gb']:.4f} "
+            f"{name}: argument GB reckoned {mem['argument_gb']:.4f} "
             f"card {arg_gb:.4f}; peak GB reckoned "
             f"{mem['peak_per_device_gb']:.4f} card {peak_gb:.4f} (ratio "
             f"{row['peak_ratio']:.3f}); {ms:.2f} ms fenced against "
             f"max(compute, memory) {row['bound_ms']:.3f} ms "
             f"({rec['bottleneck']}); on {smi}")
         if abs(mem["argument_gb"] - arg_gb) > 0.01 * arg_gb:
-            raise AssertionError(f"{shape.name}: reckoned arguments "
+            raise AssertionError(f"{name}: reckoned arguments "
                                  f"{mem['argument_gb']} GB, card {arg_gb}")
         lo, hi = DRYRUN_PEAK_BAND
         if not lo <= row["peak_ratio"] <= hi:
-            raise AssertionError(f"{shape.name}: reckoned peak over the "
+            raise AssertionError(f"{name}: reckoned peak over the "
                                  f"card's {row['peak_ratio']}")
-        rows[shape.name] = row
+        rows[name] = row
         del program
     free_card()
     log("dryrun-vs-card", f"phase 55 in {time.perf_counter() - t_phase:.1f}s")
@@ -7221,11 +7253,14 @@ def sharded_train_run(cfg, mesh, device, n_steps: int, batch: int,
     """``n_steps`` of ``make_train_step`` (sgdm, lr 3e-2, clip 1.0) on
     ``TokenStream(seed=0)`` batches, the model cut by ``shard_module``
     over ``mesh`` first where one is given: each step's loss, a sample of
-    every gradient of the first step as autograd leaves it
-    (``grad_sample``), the kernels' launches, the collectives a step
-    (a sharded run must gather its FSDP'd weights on use and
-    reduce-scatter each one's gradient once a step, ``data_cut``), the
-    fenced ms of each step but the first and the row-parallel sites."""
+    every gradient of each of the first ``SHARDED_RERUN_STEPS`` steps as
+    autograd leaves it (``grad_sample``; ``grads`` the first step's,
+    ``step_grads`` each sampled step's), the kernels' launches, the
+    collectives a step (a sharded run must gather its FSDP'd weights on
+    use and reduce-scatter each one's gradient once a step,
+    ``data_cut``), the fenced ms of each step after the sampled ones (the
+    sampling hooks removed; None where there is none) and the
+    row-parallel sites."""
     from repro_torch.configs import TrainConfig
     from repro_torch.data import TokenStream
     from repro_torch.models import LMModel
@@ -7240,11 +7275,11 @@ def sharded_train_run(cfg, mesh, device, n_steps: int, batch: int,
                        grad_clip=1.0)
     state = init_train_state(model, tcfg)
     step = make_train_step(model, tcfg)
-    first: dict = {}
+    grads: list = []
 
     def keep(name):
         def hook(p):
-            first[name] = grad_sample(p.grad)
+            grads[-1][name] = grad_sample(p.grad)
         return hook
 
     hooks = [p.register_post_accumulate_grad_hook(keep(name))
@@ -7254,19 +7289,24 @@ def sharded_train_run(cfg, mesh, device, n_steps: int, batch: int,
     losses, ms = [], []
     before = launch_counts()
     reset_collectives()
+    n_sampled = SHARDED_RERUN_STEPS
     for i in range(n_steps):
+        if i == n_sampled:
+            for h in hooks:
+                h.remove()
         b = {k: torch.as_tensor(v, device=device)
              for k, v in next(data).items()}
+        if i < n_sampled:
+            grads.append({})
         if device != "cpu":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, metrics = step(state, b)
         losses.append(float(metrics["loss"]))
-        if i:
+        if i >= n_sampled:
             ms.append(1e3 * (time.perf_counter() - t0))
-        else:
-            for h in hooks:
-                h.remove()
+    for h in hooks:
+        h.remove()
     launches = counts_since(before)
     coll = {k: v / n_steps for k, v in COLLECTIVES.items()}
     sites = row_parallel_sites(model)
@@ -7277,27 +7317,33 @@ def sharded_train_run(cfg, mesh, device, n_steps: int, batch: int,
                              f"want {cut} reduce-scatters and at least as "
                              f"many gathers on use")
     del model, state, step
-    return {"losses": losses, "grads": {n: g.cpu() for n, g in first.items()},
-            "launches": launches, "sites": sites, "collectives": coll,
-            "ms": statistics.mean(ms) if ms else None}
+    step_grads = [{n: g.cpu() for n, g in gs.items()} for gs in grads]
+    return {"losses": losses, "grads": step_grads[0],
+            "step_grads": step_grads, "launches": launches, "sites": sites,
+            "collectives": coll, "ms": statistics.mean(ms) if ms else None}
 
 
 def sharded_tolerance(sites: int) -> float:
-    """Phase 56's bound on the sharded step's relative difference from the
-    unsharded one (each loss; each first-step gradient's sample in L2):
-    one bf16 rounding (2^-9 relative) at each of ``sites`` row-parallel
-    sites, added up (PERF.md §6)."""
+    """The bound on a sharded step's relative difference from the
+    unsharded one over more than one rank (each loss; each first-step
+    gradient's sample in L2): one bf16 rounding (2^-9 relative) at each
+    of ``sites`` row-parallel sites, added up (PERF.md §6).  A mesh of
+    one rank rounds nowhere else: there the bound is 0 (bit-equal)."""
     return sites * 2.0 ** -9
 
 
-def compare_sharded_runs(a: dict, b: dict) -> dict:
-    """The sharded run ``b`` against the unsharded ``a``: the worst
-    relative loss difference over the steps, each first-step gradient's
-    relative L2 difference on its sample (and the worst entry's over
-    the sample's max), the tolerance, the launches held equal.  Raises
-    where a reading passes the tolerance, a gradient is missing or the
-    launches differ."""
-    tol = sharded_tolerance(b["sites"])
+def compare_sharded_runs(a: dict, b: dict, ranks: int) -> dict:
+    """The sharded run ``b`` (over a mesh of ``ranks`` ranks) against the
+    unsharded ``a``: the worst relative loss difference over the steps,
+    each first-step gradient's relative L2 difference on its sample (and
+    the worst entry's over the sample's max), the tolerance, the
+    launches held equal.  Raises where a reading passes the tolerance, a
+    gradient is missing or the launches differ; at one rank, where any
+    loss or any sampled step's gradient differs in a bit
+    (``compare_reruns``)."""
+    tol = sharded_tolerance(b["sites"]) if ranks > 1 else 0.0
+    if ranks == 1:
+        compare_reruns(a, b)
     loss = max(abs(x - y) / abs(x) for x, y in zip(a["losses"],
                                                    b["losses"]))
     if sorted(a["grads"]) != sorted(b["grads"]) or not a["grads"]:
@@ -7325,6 +7371,76 @@ def compare_sharded_runs(a: dict, b: dict) -> dict:
     return out
 
 
+def compare_reruns(a: dict, b: dict) -> dict:
+    """Two runs of ``sharded_train_run`` from one seed, ``b`` the shorter
+    (or as long): every loss of ``b`` and every gradient sample of each of
+    its sampled steps bit-equal to ``a``'s, and the same launches a step.
+    Raises where one differs."""
+    n = len(b["losses"])
+    bad = [i for i in range(n) if a["losses"][i] != b["losses"][i]]
+    differ = {i: sorted(k for k, g in gs.items()
+                        if k not in a["step_grads"][i]
+                        or not torch.equal(g, a["step_grads"][i][k]))
+              for i, gs in enumerate(b["step_grads"])}
+    out = {"steps": n, "losses": b["losses"],
+           "n_grads": sum(len(g) for g in b["step_grads"]),
+           "losses_differ": bad,
+           "grads_differ": {i: len(v) for i, v in differ.items()}}
+    if bad or any(differ.values()) or not out["n_grads"]:
+        raise AssertionError(f"the rerun is not bit-equal: {out}; first "
+                             f"gradients that differ "
+                             f"{ {i: v[:4] for i, v in differ.items()} }")
+    per_step = {k: a["launches"][k] / len(a["losses"]) for k in
+                SHARDED_COUNTERS}
+    if {k: b["launches"][k] / n for k in SHARDED_COUNTERS} != per_step:
+        raise AssertionError(f"rerun launches {b['launches']} against "
+                             f"{a['launches']}")
+    return out
+
+
+def sharded_step_runs(cfg, mesh, n_steps: int, tag: str, smi: str) -> dict:
+    """``cfg`` trained ``n_steps`` steps of ``SHARDED_BATCH`` x
+    ``SHARDED_SEQ`` tokens unsharded, then after ``shard_module`` over
+    ``mesh``, then sharded again for ``SHARDED_RERUN_STEPS`` steps, the
+    first ``SHARDED_RERUN_STEPS`` of each run sampled and the rest timed:
+    the sharded run against the unsharded one (``compare_sharded_runs``:
+    bit-equal on a mesh of one rank, else within ``sharded_tolerance``),
+    the rerun bit-equal to it (``compare_reruns``); the three runs'
+    launches."""
+    runs = {}
+    for label, m, n in (("unsharded", None, n_steps),
+                        ("sharded", mesh, n_steps),
+                        ("rerun", mesh, SHARDED_RERUN_STEPS)):
+        free_card()
+        runs[label] = sharded_train_run(cfg, m, "cuda", n, SHARDED_BATCH,
+                                        SHARDED_SEQ)
+    a, b, c = runs["unsharded"], runs["sharded"], runs["rerun"]
+    got = compare_sharded_runs(a, b, mesh.size())
+    rerun = compare_reruns(b, c)
+    log(tag,
+        f"{cfg.name} ({cfg.n_layers} layers): {n_steps} steps of "
+        f"{SHARDED_BATCH} x {SHARDED_SEQ}: losses {a['losses']} unsharded, "
+        f"{b['losses']} sharded (worst relative {got['loss_rel']:.3e}); "
+        f"{got['n_grads']} first-step gradients, relative L2 worst "
+        f"{got['grad_l2_rel']:.3e} ({got['grad_l2_worst']}) median "
+        f"{got['grad_l2_median']:.3e}, worst entry over max "
+        f"{got['grad_elem_rel']:.3e}; tolerance {got['tol']:.4f} "
+        f"({got['sites']} row-parallel sites; {mesh.size()} rank(s)); "
+        f"launches {got['launches']} equal; ms/step unsharded {a['ms']:.1f} "
+        f"sharded {b['ms']:.1f}; sharded collectives a step "
+        f"{b['collectives']} (FSDP: gathers on use, ordered "
+        f"reduce-scatters); the sharded rerun of {rerun['steps']} steps "
+        f"bit-equal: losses {rerun['losses']}, {rerun['n_grads']} gradient "
+        f"samples over its steps; on {smi}")
+    # every run's launches (the kernels' record counts them)
+    return {"launches": {k: sum(r["launches"][k] for r in runs.values())
+                         for k in COUNTERS},
+            "ms": [a["ms"], b["ms"]], "losses": a["losses"],
+            "sharded_losses": b["losses"],
+            "collectives_a_step": b["collectives"], "readings": got,
+            "rerun": rerun}
+
+
 def phase_train_sharded(smi: str, mesh) -> dict:
     """Phase 56: full-width tinyllama-1.1b (compact, rbgp4 0.75, min_dim
     64, bf16) and qwen2-moe-a2.7b, ``SHARDED_STEPS`` steps of 4 x 512
@@ -7333,51 +7449,52 @@ def phase_train_sharded(smi: str, mesh) -> dict:
     weights: the losses and the first step's gradients within
     ``sharded_tolerance`` (``compare_sharded_runs``), the same launches
     of ``rbgp4mm_rhs`` (forward, dX), ``rbgp4_sddmm_rhs`` and the stacked
-    pair, ms/step of both."""
+    pair, ms/step of both; then a second sharded run, bit-equal to the
+    first (``sharded_step_runs``)."""
     t_phase = time.perf_counter()
-    out = {}
-    for cfg in (main_config("bfloat16"), moe_config("bfloat16")):
-        runs = {}
-        for label, m in (("unsharded", None), ("sharded", mesh)):
-            free_card()
-            runs[label] = sharded_train_run(cfg, m, "cuda", SHARDED_STEPS,
-                                            SHARDED_BATCH, SHARDED_SEQ)
-        a, b = runs["unsharded"], runs["sharded"]
-        got = compare_sharded_runs(a, b)
-        log("train-sharded",
-            f"{cfg.name}: {SHARDED_STEPS} steps of {SHARDED_BATCH} x "
-            f"{SHARDED_SEQ}: losses {a['losses']} unsharded, {b['losses']} "
-            f"sharded (worst relative {got['loss_rel']:.3e}); "
-            f"{got['n_grads']} first-step gradients, relative L2 worst "
-            f"{got['grad_l2_rel']:.3e} ({got['grad_l2_worst']}) median "
-            f"{got['grad_l2_median']:.3e}, worst entry over max "
-            f"{got['grad_elem_rel']:.3e}; tolerance {got['tol']:.4f} "
-            f"({got['sites']} row-parallel sites x 2^-9); launches "
-            f"{got['launches']} equal; ms/step unsharded {a['ms']:.1f} "
-            f"sharded {b['ms']:.1f}; sharded collectives a step "
-            f"{b['collectives']} (FSDP: gathers on use, ordered "
-            f"reduce-scatters); on {smi}")
-        # both runs' launches (the kernels' record counts them)
-        out[cfg.name] = {"launches": {k: a["launches"][k]
-                                      + b["launches"][k] for k in COUNTERS},
-                         "ms": [a["ms"], b["ms"]], "losses": a["losses"],
-                         "collectives_a_step": b["collectives"],
-                         "readings": got}
+    out = {cfg.name: sharded_step_runs(cfg, mesh, SHARDED_STEPS,
+                                       "train-sharded", smi)
+           for cfg in (main_config("bfloat16"), moe_config("bfloat16"))}
     free_card()
     log("train-sharded", f"phase 56 in {time.perf_counter() - t_phase:.1f}s")
     return out
 
 
+def phase_train_sharded_recurrent(smi: str, mesh) -> dict:
+    """Phase 57: rwkv6-7b and jamba-1.5-large-398b at full width (rbgp4
+    0.75 compact, bf16), cut in depth as phase 50 cuts them
+    (``arch_train_config``: rwkv6-7b's 4 layers for time, jamba's 3 for
+    memory), through ``sharded_step_runs``: ``SHARDED_RECURRENT_STEPS``
+    steps unsharded and after ``shard_module`` at world size 1 (each
+    mixer a ``RecurrentShard`` of all its channels; its projections'
+    outputs gathered, its per-channel tensors read through
+    ``to_ranks``), within ``sharded_tolerance`` and with equal launches,
+    and a sharded rerun bit-equal to the first."""
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in SHARDED_RECURRENT:
+        cfg = arch_train_config(arch, ARCH_TRAIN_TIME_CUT.get(arch))
+        out[arch] = sharded_step_runs(cfg, mesh, SHARDED_RECURRENT_STEPS,
+                                      "train-sharded-recurrent", smi)
+    free_card()
+    log("train-sharded-recurrent",
+        f"phase 57 in {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def dryrun_phases(smi: str, recs: dict) -> tuple:
-    """Phases 55-56 (``--dryrun-only`` runs phases 1, 55 and 56 alone),
-    on one NCCL group of world size 1."""
+    """Phases 55-57 (``--dryrun-only`` runs phases 1 and 55-57 alone),
+    on one NCCL group of world size 1; the sharded training runs of
+    phases 56 and 57 by model."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_distributed, make_serve_mesh
 
     init_distributed("cuda")
     card = phase_dryrun_vs_card(smi, recs)
-    train = phase_train_sharded(smi, make_serve_mesh(1, 1))
+    mesh = make_serve_mesh(1, 1)
+    train = phase_train_sharded(smi, mesh)
+    train.update(phase_train_sharded_recurrent(smi, mesh))
     dist.destroy_process_group()
     return card, train
 
@@ -7406,11 +7523,11 @@ def main() -> int:
                      f"{time.perf_counter() - t0:.1f}s after the build")
     if "--dryrun-only" in sys.argv[1:]:
         # the quick check of the dry-run against the card and the sharded
-        # training step: phases 55-56, and what the reckoning costs a
+        # training steps: phases 55-57, and what the reckoning costs a
         # host-bound phase beside it
         reckoning_beside_decode(smi)
         dryrun_phases(smi, dry_recs)
-        log("done", f"phases 1, 55 and 56 passed in "
+        log("done", f"phases 1 and 55-57 passed in "
                     f"{time.perf_counter() - t_start:.1f}s on {smi}")
         return 0
     if "--shard-only" in sys.argv[1:]:
@@ -7615,7 +7732,8 @@ def main() -> int:
     t_shard = time.perf_counter() - t_shard
 
     # the dry-run's reckoning against the card at 1 x 1 (phase 55), and
-    # the sharded training step against the unsharded one (phase 56)
+    # the sharded training step against the unsharded one and against a
+    # rerun of itself (phase 56; the recurrent archs, phase 57)
     t_dry = time.perf_counter()
     dry_card, dry_train = dryrun_phases(smi, dry_recs)
     t_dry = time.perf_counter() - t_dry
@@ -7962,7 +8080,7 @@ def main() -> int:
                 f"{t_tune:.1f}s, the other archs' phases 48-51 "
                 f"{t_arch:.1f}s, the distribution phases 52-54 "
                 f"{t_shard:.1f}s, the dry-run and sharded-training phases "
-                f"55-56 {t_dry:.1f}s")
+                f"55-57 {t_dry:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

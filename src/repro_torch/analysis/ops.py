@@ -3,10 +3,17 @@
 The reference parses a compiled XLA module's text; the port's program is
 eager torch, so ``count_ops`` runs it under a ``TorchDispatchMode`` that
 sees every aten op as it executes, backward and recomputation (remat)
-included.  Loops are counted as they run: nothing is multiplied by a trip
-count, so ``unknown_trip_counts`` is always 0 and ``loops`` lists
-nothing.  It runs on any device; the dry-run runs it on ``meta`` tensors,
-which have shapes and no values.  Per op:
+included.  Loops are counted as they run, with one exception: under
+``scan_trips`` (the dry-run's) a recurrent scan over ``meta`` tensors
+(``models.common.run_chunks``, whose ``scan_runner`` the counter sets
+while it runs) runs its first full chunk once inside
+``OpCounter.repeated`` and it counts for every full chunk, as
+``hlo.py`` multiplies a scan's ``while`` body by its trip count: its
+counts, the live bytes of what it leaves alive and, in the backward, the
+ops of the autograd nodes it made, each times the trip count (``loops``
+lists each such body).  ``unknown_trip_counts`` is always 0.  It runs on
+any device; the dry-run runs it on ``meta`` tensors, which have shapes
+and no values.  Per op:
 
   * dot FLOPs: exact for ``mm``, ``bmm``, ``addmm``, ``baddbmm`` and
     convolution (``torch.utils.flop_counter``'s formulas, which also
@@ -33,6 +40,7 @@ rank's program.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 from collections import defaultdict
@@ -44,6 +52,12 @@ from torch.utils._pytree import tree_flatten
 
 __all__ = ["OpAnalysis", "OpCounter", "count_ops", "storage_bytes",
            "COLLECTIVES"]
+
+
+@dataclasses.dataclass
+class _Loop:
+    carry: object = None
+
 
 #: the reference's collective kinds, and the broadcast the port's serving
 #: issues
@@ -190,8 +204,18 @@ class OpCounter(TorchDispatchMode):
 
     def __init__(self, arguments: Iterable[torch.Tensor] = (),
                  module: Optional[torch.nn.Module] = None,
-                 keep_records: bool = True):
+                 keep_records: bool = True, scan_trips: bool = False):
         super().__init__()
+        self.scan_trips = scan_trips
+        # ops dispatched while it is above 0 are run and not counted
+        self._quiet = 0
+        self._outer_runner = None
+        # (first, end) sequence numbers of a repeated body's autograd
+        # nodes, and its trip count; the extra live bytes a storage the
+        # body left alive stands for
+        self._ranges: list = []
+        self._phantom: dict = {}
+        self.loops: list = []
         args = [t for t in arguments if t is not None]
         self.argument_bytes = storage_bytes(args)
         self._known: dict = {}
@@ -232,18 +256,123 @@ class OpCounter(TorchDispatchMode):
         n = self._known.pop(key, None)
         if n:
             self.live -= n
+        self.live -= self._phantom.pop(key, 0)
 
     def __enter__(self):
+        from repro_torch.models import common
+
         self.scopes.__enter__()
+        self._outer_runner = common.scan_runner
+        common.scan_runner = self._run_scan if self.scan_trips else None
         return super().__enter__()
 
     def __exit__(self, *exc):
+        from repro_torch.models import common
+
+        common.scan_runner = self._outer_runner
         self.scopes.__exit__(*exc)
         return super().__exit__(*exc)
+
+    @contextlib.contextmanager
+    def _unseen(self):
+        """Runs what is dispatched inside without counting or tracking it."""
+        self._quiet += 1
+        try:
+            yield
+        finally:
+            self._quiet -= 1
+
+    def _sequence_nr(self) -> int:
+        """The sequence number the next autograd node of this thread gets
+        (a probe's, which the counter does not see)."""
+        with self._unseen(), torch.enable_grad():
+            probe = torch.zeros((), requires_grad=True).view(())
+            return probe.grad_fn._sequence_nr() + 1
+
+    def _run_scan(self, body, n_steps: int, chunk: int, state):
+        """``models.common.scan_runner`` under ``scan_trips``: a scan over
+        ``meta`` tensors of at least 2 full chunks before its last runs its
+        first chunk once, counted for each of them (``repeated``), and its
+        last as it is; the other chunks' ys are a placeholder the counter
+        does not see.  Each chunk's backward is the first one's, so the
+        counts are the full scan's.  None (the plain loop) elsewhere."""
+        last = (n_steps - 1) // chunk * chunk      # the last chunk's start
+        trips = last // chunk
+        if state.device.type != "meta" or trips < 2:
+            return None
+        with self.repeated(trips) as loop:
+            ys, state = body(0, chunk, state)
+            loop.carry = state
+        with self._unseen():
+            rest = torch.empty((ys.shape[0], last - chunk, *ys.shape[2:]),
+                               dtype=ys.dtype, device=ys.device)
+        tail, state = body(last, n_steps - last, state)
+        return torch.cat([ys, rest, tail], 1), state
+
+    def _totals(self) -> tuple:
+        return (self.flops, self.dot_flops, self.bytes, dict(self.dot_bd),
+                dict(self.bytes_bd), dict(self.coll_bd),
+                dict(self.coll_bytes), dict(self.coll_counts))
+
+    @contextlib.contextmanager
+    def repeated(self, n: int, what: str = "scan"):
+        """Count what runs inside as ``n`` runs of it (a loop body of trip
+        count ``n`` run once): its counts; the live bytes of the storages
+        it made and left alive (each stands for ``n`` until it dies), but
+        the loop's carried state, which the body sets as ``carry`` on what
+        this yields (one alive at a time), and its peak as the last
+        trip's, beside what the earlier trips left; and in the backward
+        the ops of the autograd nodes it made (outside a remat recompute,
+        which runs forward code)."""
+        before, known = self._totals(), set(self._known)
+        seq0 = self._sequence_nr() if torch.is_grad_enabled() else None
+        outer_peak, self.peak_live = self.peak_live, self.live
+        loop = _Loop()
+        yield loop
+        k = n - 1
+        known |= {self._key(t) for t in _tensors(loop.carry)}
+        (f, d, b, dbd, bbd, cbd, cby, ccn) = before
+        self.flops += k * (self.flops - f)
+        self.dot_flops += k * (self.dot_flops - d)
+        self.bytes += k * (self.bytes - b)
+        for now, was in ((self.dot_bd, dbd), (self.bytes_bd, bbd),
+                         (self.coll_bd, cbd), (self.coll_bytes, cby),
+                         (self.coll_counts, ccn)):
+            for key in list(now):
+                now[key] += k * (now[key] - was.get(key, 0))
+        # the last trip's peak stands beside the earlier trips' leavings
+        left = sum(nbytes for key, nbytes in self._known.items()
+                   if key not in known)
+        for key, nbytes in self._known.items():
+            if key not in known and nbytes:
+                self._phantom[key] = self._phantom.get(key, 0) + k * nbytes
+        self.live += k * left
+        self.peak_live = max(outer_peak, self.peak_live + k * left)
+        if seq0 is not None:
+            self._ranges.append((seq0, self._sequence_nr(), n))
+        self.loops.append((what, n))
+
+    def _trip_count(self) -> int:
+        """The trip count of the repeated body whose autograd node runs
+        this op in the backward (1 elsewhere)."""
+        if not self._ranges or torch.is_grad_enabled():
+            return 1
+        # the node the autograd engine runs on this thread (None outside
+        # a backward)
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return 1
+        seq = node._sequence_nr()
+        for lo, hi, n in self._ranges:
+            if lo <= seq < hi:
+                return n
+        return 1
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self._quiet:
+            return out
         name = func._schema.name.split("::")[-1]
         ns = func.namespace
         ins = _tensors((args, kwargs))
@@ -251,6 +380,7 @@ class OpCounter(TorchDispatchMode):
         scope = self.scopes.scope()
         tag = f"{scope}|{func._overloadpacket.__name__}"
         dot = b = 0.0
+        trips = self._trip_count()
         if ns == "c10d":
             kind = _COLL_OPS.get(name)
             if kind is not None:
@@ -260,14 +390,14 @@ class OpCounter(TorchDispatchMode):
             from torch.utils.flop_counter import flop_registry
 
             if packet in flop_registry:
-                dot = float(flop_registry[packet](*args, **kwargs,
-                                                  out_val=out))
+                dot = trips * float(flop_registry[packet](*args, **kwargs,
+                                                          out_val=out))
                 self.dot_flops += dot
                 self.flops += dot
                 self.dot_bd[tag] += dot
             elif torch.Tag.pointwise in func.tags and name not in _NOT_MATH:
-                self.flops += sum(t.numel() for t in outs[:1])
-            b = self._bytes(func, name, ins, outs)
+                self.flops += trips * sum(t.numel() for t in outs[:1])
+            b = trips * self._bytes(func, name, ins, outs)
             self.bytes += b
             self.bytes_bd[tag] += b
         for t in outs:
@@ -323,7 +453,7 @@ class OpCounter(TorchDispatchMode):
             collective_bytes=dict(self.coll_bytes),
             collective_counts=dict(self.coll_counts),
             total_collective_bytes=float(sum(self.coll_bytes.values())),
-            loops=[], unknown_trip_counts=0,
+            loops=list(self.loops), unknown_trip_counts=0,
             dot_breakdown=dict(self.dot_bd),
             bytes_breakdown=dict(self.bytes_bd),
             coll_breakdown=dict(self.coll_bd),
@@ -334,12 +464,15 @@ class OpCounter(TorchDispatchMode):
 
 def count_ops(fn: Callable, *args, arguments: Iterable = (),
               module: Optional[torch.nn.Module] = None,
-              keep_records: bool = True, **kwargs):
+              keep_records: bool = True, scan_trips: bool = False,
+              **kwargs):
     """(fn(*args, **kwargs), OpAnalysis) of one run of ``fn`` under the
     counter; ``arguments`` are the tensors live before and after it (the
     program's parameters, state and inputs), ``module`` names the scopes
-    of the breakdowns."""
-    counter = OpCounter(arguments, module, keep_records)
+    of the breakdowns; ``scan_trips`` reckons a scan over ``meta``
+    tensors by one chunk and its trip count (``records`` then hold that
+    chunk's ops once)."""
+    counter = OpCounter(arguments, module, keep_records, scan_trips)
     with counter:
         out = fn(*args, **kwargs)
     return out, counter.result()

@@ -22,11 +22,16 @@ forward and backward (with remat) and the sgdm update with clip 1.0
 (``make_train_step``) for ``train``; ``model.prefill`` for ``prefill``;
 ``model.decode_step`` for ``decode``.  Batches are cut by
 ``batch_specs`` and caches by ``port_cache_specs`` (``long_context``
-where ``seq_len > 100_000``).  Where the cache spec cuts a dim that the
-port's attention holds whole (the cache length over "model" where the kv
-heads do not divide it, as tinyllama's 4 over 16), the program gathers
-that leaf whole as its layer reads it and keeps its own share of what
-the layer writes: the arguments are the spec's, the gathers show in the
+where ``seq_len > 100_000``).  Where the cache spec cuts a leaf otherwise
+than the port's layer holds it (the cache length over "model" where the
+kv heads do not divide it, as tinyllama's 4 over 16, which attention
+holds whole; Mamba's ``h`` over d_state, or in a long-context cell its
+d_inner over "data", and RWKV's ``state`` over the key index, where the
+layer holds its channels or heads; RWKV's ``x_tm`` and ``x_cm`` over
+d_model, which it holds whole), the program reads that leaf as its layer
+holds it (gathered along the spec's cut dims, then narrowed to the
+layer's own cut) and keeps the spec's share of what the layer writes
+(the reverse): the arguments are the spec's, the gathers show in the
 collectives and one layer's whole leaves in the peak.  The weights, and
 a train cell's float32 masters and momentum, are cut over the data axes
 where the spec says (FSDP, as the reference's ``param_sharding_tree``
@@ -39,8 +44,9 @@ the op counter records as one).
 The roofline constants are the NVIDIA H100 80GB HBM3's at 700.00 W
 (``kernels.perf_model``: bf16 dense tensor-core peak and HBM3 rate, data
 sheet) and one link rate, ``LINK_BW``.  A cell ``shard_module`` refuses
-(the recurrent mixers) is written ``status: "skipped"`` with its reason
-(``Refused``, raised around that call alone); any other exception, a
+(a model axis that does not divide MLA's heads or a recurrent mixer's
+channels) is written ``status: "skipped"`` with its reason (``Refused``,
+raised around that call alone); any other exception, a
 ``NotImplementedError`` from an op without a ``meta`` kernel included,
 is ``status: "error"`` and the exit code is 1.
 
@@ -48,10 +54,14 @@ Usage:
   python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --all --mesh both --out results/dryrun.jsonl
 
-``--mesh DxM`` (for example ``1x1``) and ``--cell KIND,BATCH,SEQ`` trace
-one program at another mesh and shape (the card's check of the
-reckoning, ``chip_smoke.py``); ``--save-hlo PATH`` writes the op records
-(JSON lines) in place of the reference's HLO text.
+``--mesh DxM`` (for example ``1x1``), ``--cell KIND,BATCH,SEQ`` and
+``--layers N`` trace one program at another mesh, shape and depth (the
+card's check of the reckoning, ``chip_smoke.py``); ``--save-hlo PATH``
+writes the op records (JSON lines) in place of the reference's HLO text.
+A recurrent scan is reckoned by one chunk of ``SCAN_CHUNK`` steps and its
+trip count (``analysis.count_ops``'s ``scan_trips``), which keeps a
+prefill_32k or train_4k cell of rwkv6-7b or jamba to about a minute on
+the CPU.
 """
 import argparse
 import json
@@ -205,9 +215,12 @@ def _check_backend(cfg, model) -> None:
 
 
 def _axis(mesh, ax):
+    """The ``MeshAxis`` of a spec entry (None for None)."""
     from repro_torch.parallel.comm import MeshAxis
     from repro_torch.parallel.sharding import data_axis
 
+    if ax is None:
+        return None
     if isinstance(ax, tuple):
         return data_axis(mesh)
     return MeshAxis.of(mesh, ax)
@@ -248,7 +261,7 @@ def build_program(cfg, shape: ShapeConfig, mesh, device="meta"):
     _check_backend(cfg, model)
     try:
         shard_module(model, mesh)
-    except NotImplementedError as e:   # the recurrent mixers, for one
+    except NotImplementedError as e:   # heads or channels the axis splits
         raise Refused(str(e)) from e
     sizes = mesh_axes(mesh)
     B, S = shape.global_batch, shape.seq_len
@@ -278,29 +291,35 @@ def build_program(cfg, shape: ShapeConfig, mesh, device="meta"):
         return (lambda: step(state, batch)), args, model
 
     # the cache: the spec's share of the global cache's leaves (a leaf
-    # the spec cuts where the model holds the dim whole is gathered as
-    # its layer reads it, _SpecCache)
+    # the spec cuts otherwise than its layer holds it is read through,
+    # _SpecCache)
     whole = LMModel(cfg, device="meta").init_cache(B, S, torch.bfloat16)
     specs = port_cache_specs(cfg, whole, mesh, long_context=long_ctx)
-    rows = _cut_shape((B,), (batch_specs({"t": (B,)}, mesh,
-                                         batch_sharded=not long_ctx)["t"][0],),
-                      sizes)[0]
-    held = model.stack.init_cache(rows, S, torch.bfloat16, device="meta")
-    shares, gathers = [], {}
+    rows_ax = batch_specs({"t": (B,)}, mesh,
+                          batch_sharded=not long_ctx)["t"][0]
+    held = model.stack.init_cache(_cut_shape((B,), (rows_ax,), sizes)[0], S,
+                                  torch.bfloat16, device="meta")
+    shares, through = [], {}
     for i, (layer, lspec) in enumerate(zip(whole, specs)):
         leaves = {}
         for name, t in layer.items():
-            shp = _cut_shape(t.shape, lspec[name], sizes)
+            spec = lspec[name]
+            shp = _cut_shape(t.shape, spec, sizes)
             leaves[name] = (torch.full(shp, -1, dtype=t.dtype, device=device)
                             if name == "pos" else
                             torch.zeros(shp, dtype=t.dtype, device=device))
-            for d, (a, w) in enumerate(zip(shp, held[i][name].shape)):
-                if a != w:
-                    gathers.setdefault(i, []).append(
-                        (name, d, _axis(mesh, lspec[name][d])))
+            # the layer's own cut: the rows on the batch axes, a dim it
+            # holds a share of on "model"
+            cut = tuple((rows_ax if d == 0 else "model") if h < w else None
+                        for d, (h, w) in enumerate(zip(held[i][name].shape,
+                                                       t.shape)))
+            if cut != spec:
+                through.setdefault(i, []).append((name, [
+                    (d, _axis(mesh, a), _axis(mesh, b))
+                    for d, (a, b) in enumerate(zip(spec, cut)) if a != b]))
         shares.append(leaves)
     del whole, held
-    cache = _SpecCache(shares, gathers)
+    cache = _SpecCache(shares, through)
 
     args = own + _tree_leaves(shares)
     if shape.kind == "prefill":
@@ -315,42 +334,57 @@ def build_program(cfg, shape: ShapeConfig, mesh, device="meta"):
     return (lambda: model.decode_step(tok, cache, S - 1)), args, model
 
 
+def _recut(t: torch.Tensor, dims: list, src: int, dst: int):
+    """``t`` cut as ``dims``' axes at ``src`` (0 or 1 of each (dim,
+    axis, axis)) recut as those at ``dst``: gathered whole along every
+    dim its cut names an axis, then narrowed to this rank's share along
+    every dim the new cut names one."""
+    from repro_torch.parallel.comm import gather_cat
+
+    for d, *axes in dims:
+        if axes[src] is not None:
+            t = gather_cat(t, axes[src], d)
+    for d, *axes in dims:
+        if axes[dst] is not None:
+            lo, hi = axes[dst].range(t.shape[d])
+            t = t.narrow(d, lo, hi - lo)
+    return t
+
+
 class _SpecCache(list):
     """A cache held as the spec cuts it: the stack reads layer ``i``'s
-    dict (``cache[i]``) with its ``gathers[i]`` leaves gathered whole along
-    their cut dims, and writes it back (``cache[i] = c``) as this rank's
-    share, so one layer's whole leaves live at a time."""
+    dict (``cache[i]``) with its ``through[i]`` leaves recut to what the
+    layer holds (``(name, [(dim, spec's axis, layer's axis)])``, an axis
+    None where that side keeps the dim whole), and writes it back
+    (``cache[i] = c``) as this rank's share of the spec's cut, so one
+    layer's whole leaves live at a time."""
 
-    def __init__(self, shares: list, gathers: dict):
+    def __init__(self, shares: list, through: dict):
         super().__init__(shares)
-        self.gathers = gathers
+        self.through = through
 
     def __getitem__(self, i):
         layer = super().__getitem__(i)
-        if i not in self.gathers:
+        if i not in self.through:
             return layer
-        from repro_torch.parallel.comm import gather_cat
-
         out = dict(layer)
-        for name, d, ax in self.gathers[i]:
-            out[name] = gather_cat(out[name], ax, d)
+        for name, dims in self.through[i]:
+            out[name] = _recut(out[name], dims, 0, 1)
         return out
 
     def __setitem__(self, i, c):
-        if i not in self.gathers:
+        if i not in self.through:
             return super().__setitem__(i, c)
         share = super().__getitem__(i)
-        cut = dict(c)
-        for name, d, ax in self.gathers[i]:
-            w = share[name].shape[d]
-            cut[name] = cut[name].narrow(d, ax.rank * w, w)
-        for name, _, _ in self.gathers[i]:
-            share[name].copy_(cut[name])
+        for name, dims in self.through[i]:
+            share[name].copy_(_recut(c[name], dims, 1, 0))
 
 
 def reckon(cfg, shape: ShapeConfig, mesh, save_hlo: str = "") -> dict:
     """The record fields of one traced cell: trace_s, memory, op counts,
-    collectives, model FLOPs and the roofline."""
+    collectives, model FLOPs and the roofline.  A recurrent scan is
+    reckoned by one chunk of ``SCAN_CHUNK`` steps and its trip count
+    (``analysis.OpCounter.repeated``)."""
     from repro_torch.analysis import count_ops, storage_bytes
     from repro_torch.models import LMModel
     from repro_torch.parallel import reset_collectives
@@ -360,7 +394,7 @@ def reckon(cfg, shape: ShapeConfig, mesh, save_hlo: str = "") -> dict:
     program, args, model = build_program(cfg, shape, mesh)
     reset_collectives()
     _, ana = count_ops(program, arguments=args, module=model,
-                       keep_records=bool(save_hlo))
+                       keep_records=bool(save_hlo), scan_trips=True)
     rec["trace_s"] = round(time.time() - t0, 1)
     rec["memory"] = {
         "argument_gb": ana.argument_bytes / 1e9,
@@ -413,11 +447,15 @@ def reckon(cfg, shape: ShapeConfig, mesh, save_hlo: str = "") -> dict:
     return rec
 
 
-def cell_config(arch: str, pattern: str, sparsity: float):
+def cell_config(arch: str, pattern: str, sparsity: float,
+                layers: int = None):
+    """The dry-run's config of ``arch`` (``layers`` cuts its depth)."""
     cfg = get_config(arch)
     if pattern != "dense":
         cfg = apply_sparsity(cfg, pattern=pattern, sparsity=sparsity,
                              backend="xla_masked", min_dim=1024)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
     return cfg.with_(param_dtype="bfloat16")
 
 
@@ -434,13 +472,15 @@ def mesh_of(name: str):
 
 def run_cell(arch: str, shape_name: str, mesh_name: str, pattern: str,
              sparsity: float, save_hlo: str = "",
-             shape: ShapeConfig = None) -> dict:
+             shape: ShapeConfig = None, layers: int = None) -> dict:
     mshape, names = mesh_of(mesh_name)
     rec = {
         "arch": arch, "shape": shape_name,
         "mesh": "x".join(map(str, mshape)),
         "pattern": pattern, "sparsity": sparsity,
     }
+    if layers:
+        rec["layers"] = layers
     cfg = get_config(arch)
     cells = {s.name: (s, skip) for s, skip in shape_cells(cfg)}
     if shape is None:
@@ -448,7 +488,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, pattern: str,
         if skip:
             rec.update(status="skipped", reason=skip)
             return rec
-    cfg = cell_config(arch, pattern, sparsity)
+    cfg = cell_config(arch, pattern, sparsity, layers)
     rec["note"] = _mask_overhead_note(cfg)
     start_fake_group(int(np.prod(mshape)))
     mesh = make_mesh(mshape, names)
@@ -476,6 +516,8 @@ def main():
     ap.add_argument("--cell", type=str, action="append", default=None,
                     help="KIND,BATCH,SEQ: a program of another shape "
                          "(repeatable)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut each arch to this many layers")
     ap.add_argument("--pattern", type=str, default="rbgp4")
     ap.add_argument("--sparsity", type=float, default=0.75)
     ap.add_argument("--all", action="store_true")
@@ -518,7 +560,7 @@ def main():
                 try:
                     rec = run_cell(arch, shape, mesh, args.pattern,
                                    args.sparsity, args.save_hlo,
-                                   cells.get(shape))
+                                   cells.get(shape), args.layers)
                 except Exception as e:  # a cell failure is a bug — record it
                     rec = {
                         "arch": arch, "shape": shape, "mesh": tag,

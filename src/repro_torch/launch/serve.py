@@ -374,8 +374,9 @@ def main(argv=None):
                                      **mesh_kw(args, print), **eng_kw)
         except NotImplementedError as e:
             # a recurrent layer (mamba, rwkv) has no paged cache: the
-            # reference's message, and no fallback to the static engine;
-            # so for what the sharded engines do not serve yet
+            # continuous and sharded engines refuse it with the
+            # reference's message, and there is no fallback to the static
+            # engine
             raise SystemExit(f"error: {e}") from None
         if args.max_live_tokens and cfg.plan is not None:
             print(f"plan-aware admission: max_live_tokens "

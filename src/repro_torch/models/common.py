@@ -12,12 +12,37 @@ from torch import nn
 from repro_torch.device import resolve_device
 
 __all__ = ["RMSNorm", "Embedding", "rope_frequencies", "apply_rope",
-           "SCAN_CHUNK"]
+           "SCAN_CHUNK", "run_chunks"]
 
 #: time steps whose per-step products the recurrent scans form at once
 #: (``rwkv.wkv_scan``, ``ssm.selective_scan``): a prefill's memory for
 #: them is bounded by this many steps, not by the prompt's length
 SCAN_CHUNK = 64
+
+
+#: where set, ``run_chunks`` hands its scan to it first:
+#: ``scan_runner(body, n_steps, chunk, state)`` returns what ``run_chunks``
+#: would, or None to leave the scan to the plain loop (the dry-run's op
+#: counter sets it while it reckons a scan by its trip count,
+#: ``analysis.OpCounter``)
+scan_runner = None
+
+
+def run_chunks(body, n_steps: int, chunk: int, state):
+    """A scan over steps [0, n_steps) in chunks of ``chunk``: ``body(t0,
+    n, state) -> (ys (B, n, ...), state)`` for each, in order; returns
+    (the chunks' ys concatenated along dim 1, the last state).  A body
+    reads its steps at ``t0``, whichever chunks ran before it
+    (``scan_runner`` may run only some of them)."""
+    if scan_runner is not None:
+        out = scan_runner(body, n_steps, chunk, state)
+        if out is not None:
+            return out
+    outs = []
+    for t0 in range(0, n_steps, chunk):
+        ys, state = body(t0, min(chunk, n_steps - t0), state)
+        outs.append(ys)
+    return (outs[0] if len(outs) == 1 else torch.cat(outs, 1)), state
 
 
 class RMSNorm(nn.Module):

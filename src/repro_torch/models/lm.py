@@ -47,14 +47,11 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross-entropy in f32; logits (..., V), labels (...) int.
 
-    logsumexp - <one_hot, logits>, as the reference; the inner product
-    with the one-hot row is taken as a gather of the label's logit (the
-    other V-1 terms are exact zeros), which spares a (..., V) f32 one-hot.
-    """
-    logits32 = logits.float()
-    lse = torch.logsumexp(logits32, dim=-1)
-    picked = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
-    return mean_nll(picked - lse, mask)
+    logsumexp - <one_hot, logits>, as the reference: the log-likelihoods
+    of ``vocab_parallel_ll`` over whole rows (the same reductions in the
+    same order as a share of the whole vocabulary takes)."""
+    return mean_nll(vocab_parallel_ll(logits, labels, None,
+                                      logits.shape[-1]), mask)
 
 
 def vocab_parallel_ll(share: torch.Tensor, labels: torch.Tensor, tp,
@@ -65,28 +62,42 @@ def vocab_parallel_ll(share: torch.Tensor, labels: torch.Tensor, tp,
     vocabulary-parallel cross-entropy: each codebook's max over the
     ranks (a gather), its sum of exponentials and the labels' logits
     summed over the ranks in rank order (``gather_sum``).  A share may
-    cross a codebook's boundary."""
+    cross a codebook's boundary.  ``tp`` None: the whole rows, and no
+    collective.
+
+    logsumexp is taken as max + log(sum(exp(z - max))), each codebook's
+    run of columns reduced on its own, so every sum's order is fixed (a
+    ``scatter_add`` into the codebooks adds by atomics on the card, in
+    another order each run); the label's logit is a gather (the one-hot
+    row's other V-1 terms are exact zeros), which spares a (..., V) f32
+    one-hot."""
     from repro_torch.parallel.comm import gather_cat, gather_sum
 
-    axis = tp.axis
     lab = labels.long()
     if lab.ndim == share.ndim - 1:
         lab = lab[..., None]
     n_cb = lab.shape[-1]
+    lo, hi = (0, share.shape[-1]) if tp is None else (tp.lo, tp.hi)
     z = share.float()
-    cb = (torch.arange(tp.lo, tp.hi, device=z.device) // vocab).expand(
-        z.shape)
     lead = z.shape[:-1]
-    m = torch.full((*lead, n_cb), float("-inf"), device=z.device)
-    m = m.scatter_reduce(-1, cb, z.detach(), "amax")
-    m = gather_cat(m[None], axis, dim=0).amax(0)
-    e = torch.exp(z - torch.gather(m, -1, cb))
-    sumexp = gather_sum(torch.zeros((*lead, n_cb), device=z.device)
-                        .scatter_add(-1, cb, e), axis)
-    flat = lab + torch.arange(n_cb, device=z.device) * vocab - tp.lo
-    inside = (flat >= 0) & (flat < tp.hi - tp.lo)
-    picked = torch.gather(z, -1, flat.clamp(0, tp.hi - tp.lo - 1))
-    picked = gather_sum(torch.where(inside, picked, 0.0), axis)
+    # each codebook's columns [a, b) of the share (None: none of them)
+    runs = [(max(lo, c * vocab) - lo, min(hi, (c + 1) * vocab) - lo)
+            for c in range(n_cb)]
+    runs = [(a, b) if a < b else None for a, b in runs]
+    m = torch.stack([z[..., r[0]:r[1]].detach().amax(-1) if r else
+                     z.new_full(lead, float("-inf")) for r in runs], -1)
+    if tp is not None:
+        m = gather_cat(m[None], tp.axis, dim=0).amax(0)
+    sumexp = torch.stack(
+        [torch.exp(z[..., r[0]:r[1]] - m[..., c, None]).sum(-1) if r else
+         z.new_zeros(lead) for c, r in enumerate(runs)], -1)
+    flat = lab + torch.arange(n_cb, device=z.device) * vocab - lo
+    inside = (flat >= 0) & (flat < hi - lo)
+    picked = torch.where(inside, torch.gather(
+        z, -1, flat.clamp(0, hi - lo - 1)), 0.0)
+    if tp is not None:
+        sumexp = gather_sum(sumexp, tp.axis)
+        picked = gather_sum(picked, tp.axis)
     return (picked - (torch.log(sumexp) + m)).reshape(labels.shape)
 
 
@@ -99,8 +110,10 @@ class LMModel(nn.Module):
     same logits.  ``fsdp`` (a ``parallel.DataShard``) holds a data rank's
     share of the head's columns, gathered whole where the logits read it,
     and ``data_axis`` the data axes (pod and data, flattened) that every
-    such share is cut over."""
+    such share is cut over.  ``mesh`` is the mesh the model is cut over
+    (None: whole)."""
 
+    mesh = None
     head_tp = None
     dp = None
     fsdp = None
@@ -214,18 +227,16 @@ class LMModel(nn.Module):
         (B, S) and ``batch['patch_embeds']`` are optional.  A head that
         splits the vocabulary over ranks keeps its logits split: the
         log-likelihoods are taken from each rank's share
-        (``vocab_parallel_ll``), never gathered whole."""
+        (``vocab_parallel_ll``), never gathered whole.  Sharded or not,
+        the head takes every position and the loss the same reductions,
+        so a sharded model of one rank computes the unsharded loss and
+        gradients to the bit."""
         tokens = self._tokens(batch["tokens"])
         labels = tokens[:, 1:]
         tp = self._head_shard()
-        if tp is None:
-            logits, aux = self.forward(tokens, train=train,
-                                       patch_embeds=batch.get("patch_embeds"))
-            lg = logits[:, :-1]
-        else:
-            x, aux = self._trunk(tokens, train, batch.get("patch_embeds"))
-            ll = vocab_parallel_ll(self._logits(x[:, :-1], tp), labels, tp,
-                                   self.cfg.vocab_size)
+        x, aux = self._trunk(tokens, train, batch.get("patch_embeds"))
+        ll = vocab_parallel_ll(self._logits(x, tp)[:, :-1], labels, tp,
+                               self.cfg.vocab_size)
         mask = batch.get("loss_mask")
         if mask is not None:
             mask = torch.as_tensor(mask, device=self.device)[:, 1:]
@@ -233,7 +244,7 @@ class LMModel(nn.Module):
                 mask = mask[..., None] * torch.ones(labels.shape,
                                                     dtype=mask.dtype,
                                                     device=self.device)
-        ce = lm_loss(lg, labels, mask) if tp is None else mean_nll(ll, mask)
+        ce = mean_nll(ll, mask)
         return ce + aux, (ce, aux)
 
     # -- serving -------------------------------------------------------------

@@ -6,7 +6,8 @@ data-dependent decay ``w = exp(-exp(w_base + lora(x)))``, the per-head WKV
 recurrence with bonus ``u`` in float32, a per-head group norm of the
 read-out and the squared-ReLU channel mix.  The large projections
 (r/k/v/g/o and the channel mix) are SparseLinear; the LoRA and mix vectors
-are small and dense, kept in float32 and cast where the reference casts
+are small and dense, kept in the parameter dtype (float32 unless the
+config names another, as the reference's) and cast where the reference casts
 them.  Both norms use the biased variance, as ``jnp.var`` does
 (``torch.var`` defaults to the unbiased one).
 
@@ -18,6 +19,15 @@ the prompt's length, as the reference's scan holds O(B * H * hs^2).
 Decode carries ``x_tm`` / ``x_cm`` (the last normed input of each mix)
 and ``state`` (B, H, hs, hs) in float32; each call replaces them with
 new tensors.
+
+Under ``tp`` (a ``parallel.RecurrentShard``, set by
+``parallel.shard_module``) a rank runs the WKV recurrence, the decay, the
+bonus and the group norm on its heads, and its ``state`` holds them.  The
+token shift and the ddlerp read the whole normed input on every rank;
+``r``, ``k``, ``v``, ``g`` and ``cmk`` are column-parallel (the rank's
+heads, or its channels of d_ff), ``o`` is column-parallel too (the spec's
+rule) and reads the whole read-out, gathered, its output gathered whole,
+``cmv`` is row-parallel and ``cmr``'s output is gathered whole.
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.sparsity import SparseLinear
-from .common import SCAN_CHUNK
+from .common import SCAN_CHUNK, run_chunks
 
 __all__ = ["RWKVBlock", "init_cache_rwkv", "wkv_scan"]
 
@@ -50,7 +60,8 @@ def wkv_scan(r, k, v, wdec, u, s, chunk: int = SCAN_CHUNK):
     s = w_t s + k_t v_t^T.  r, k, v, wdec (B, S, H, hs) and s (B, H, hs,
     hs) in float32, u (H, hs); returns (y (B, S, H, hs), the last s).
     ``chunk`` steps' outer products are formed at once (1: every step
-    its own; the products are the same either way).  Steps are taken
+    its own; the products are the same either way), each chunk's outputs
+    stacked (``run_chunks``).  Steps are taken
     with ``unbind``, not by indexing: under autograd an index's backward
     writes a zero-filled gradient the size of the whole indexed tensor
     (a chunk's outer products, the whole prompt's r and w) every step,
@@ -58,14 +69,17 @@ def wkv_scan(r, k, v, wdec, u, s, chunk: int = SCAN_CHUNK):
     values."""
     u = u[None, :, :, None]
     r_t, w_t = r.unbind(1), wdec.unbind(1)
-    ys = []
-    for t0 in range(0, k.shape[1], chunk):
-        kv = k[:, t0:t0 + chunk, :, :, None] * v[:, t0:t0 + chunk, :, None, :]
+
+    def body(t0, n, s):
+        kv = k[:, t0:t0 + n, :, :, None] * v[:, t0:t0 + n, :, None, :]
+        ys = []
         for i, (kv_i, ukv_i) in enumerate(zip(kv.unbind(1),
                                               (u * kv).unbind(1))):
             ys.append(torch.einsum("bhk,bhkv->bhv", r_t[t0 + i], s + ukv_i))
             s = w_t[t0 + i][..., None] * s + kv_i
-    return torch.stack(ys, dim=1), s
+        return torch.stack(ys, dim=1), s
+
+    return run_chunks(body, k.shape[1], chunk, s)
 
 
 def _shift(x: torch.Tensor, last: Optional[torch.Tensor]) -> torch.Tensor:
@@ -81,6 +95,7 @@ class RWKVBlock(nn.Module):
     card."""
 
     MIX = ("r", "k", "v", "w", "g")
+    tp = None
 
     def __init__(self, cfg: ModelConfig, *, name: str = "rwkv", device=None,
                  dtype=torch.float32, param_dtype=torch.float32,
@@ -105,7 +120,8 @@ class RWKVBlock(nn.Module):
         self.cmr = SparseLinear(d, d, sp, name=f"{name}.cmr", **kw)
 
         def param(t):
-            return nn.Parameter(t.float(), requires_grad=False)
+            return nn.Parameter(t.float().to(param_dtype),
+                                requires_grad=False)
 
         def randn(*shape):
             return torch.randn(shape, generator=generator, device=device)
@@ -141,17 +157,25 @@ class RWKVBlock(nn.Module):
         y = (x32 - m) * torch.rsqrt(v + 1e-5)
         return (y * scale + bias).to(x.dtype)
 
+    def _mine(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """A per-channel tensor at this rank's channels (whole unsharded)."""
+        return t if self.tp is None else self.tp.read(t, dim)
+
     def _group_norm(self, x: torch.Tensor) -> torch.Tensor:
         """Per-head normalization of the WKV read-out; x: (B, S, H, hs)."""
         m = torch.mean(x, dim=-1, keepdim=True)
         v = torch.var(x, dim=-1, keepdim=True, correction=0)
         y = (x - m) * torch.rsqrt(v + 64e-5)
         B, S = x.shape[:2]
-        return y.reshape(B, S, -1) * self.gn_scale + self.gn_bias
+        return (y.reshape(B, S, -1) * self._mine(self.gn_scale)
+                + self._mine(self.gn_bias))
 
     def _time_mix(self, x, cache):
+        from repro_torch.parallel.tensor import whole_output
+
         B, S, D = x.shape
-        H, hs = self.h, self.hs
+        tp, hs = self.tp, self.hs
+        H = self.h if tp is None else (tp.hi - tp.lo) // hs
         dt_ = x.dtype
         xs = _shift(x, cache["x_tm"] if cache is not None else None)
         dx = xs - x
@@ -166,18 +190,31 @@ class RWKVBlock(nn.Module):
         k = self.k(feeds["k"]).reshape(B, S, H, hs).float()
         v = self.v(feeds["v"]).reshape(B, S, H, hs).float()
         g = F.silu(self.g(feeds["g"]))
-        # data-dependent decay in (0, 1)
-        wdec = self.w_base + (torch.tanh(feeds["w"].float() @ self.decay_w1)
-                              @ self.decay_w2)
+        # data-dependent decay in (0, 1); the LoRA's inner product is
+        # whole on every rank, its output read at the rank's channels
+        lora = torch.tanh(feeds["w"].float() @ self.decay_w1.float())
+        if tp is not None:
+            from repro_torch.parallel.comm import to_ranks
+
+            lora = to_ranks(lora, tp.axis)
+        wdec = (self._mine(self.w_base).float()
+                + lora @ self._mine(self.decay_w2).float())
         wdec = torch.exp(-torch.exp(wdec)).reshape(B, S, H, hs)
         s = (cache["state"] if cache is not None else
              torch.zeros((B, H, hs, hs), dtype=torch.float32,
                          device=x.device))
-        y, s = wkv_scan(r, k, v, wdec, self.u.reshape(H, hs), s)
+        y, s = wkv_scan(r, k, v, wdec,
+                        self._mine(self.u).float().reshape(H, hs), s)
         y = self._group_norm(y).to(dt_) * g
-        return self.o(y), x[:, -1:], s
+        if tp is not None:
+            from repro_torch.parallel.comm import gather_cat
+
+            y = gather_cat(y, tp.axis)
+        return whole_output(self.o, self.o(y)), x[:, -1:], s
 
     def _channel_mix(self, x, cache):
+        from repro_torch.parallel.tensor import whole_output
+
         dt_ = x.dtype
         xs = _shift(x, cache["x_cm"] if cache is not None else None)
         dx = xs - x
@@ -185,7 +222,7 @@ class RWKVBlock(nn.Module):
         xr = x + dx * self.mu_cm_r.to(dt_)
         k = torch.relu(self.cmk(xk)) ** 2
         v = self.cmv(k)
-        r = torch.sigmoid(self.cmr(xr))
+        r = torch.sigmoid(whole_output(self.cmr, self.cmr(xr)))
         return r * v, x[:, -1:]
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,

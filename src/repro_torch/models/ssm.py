@@ -3,7 +3,8 @@
 The port of ``repro/models/ssm.py``.  The big in/out projections (and the
 ``x`` projection to dt, B and C) are SparseLinear; the depthwise causal
 conv (``d_conv`` taps) and the SSM parameters are small and dense, kept in
-float32 and cast where the reference casts them.  The selective scan is a
+the parameter dtype (float32 unless the config names another, as the
+reference's) and cast where the reference casts them.  The selective scan is a
 Python loop over time in plain torch with a float32 state, as the
 reference's is a ``lax.scan`` in plain JAX: no Pallas kernel stands behind
 it, so none stands behind it here.  The per-step decay ``exp(delta * A)``
@@ -16,6 +17,15 @@ Decode carries a (conv window, ssm state) cache of O(1) size: ``conv`` the
 last ``d_conv - 1`` pre-activation inputs, ``h`` (B, d_inner, d_state) in
 float32.  Each call replaces both with new tensors: nothing the next step
 writes aliases them.
+
+Under ``tp`` (a ``parallel.RecurrentShard``, set by
+``parallel.shard_module``) a rank runs the conv, the scan, ``D`` and the
+gate on its channels [lo, hi) of d_inner, and its cache holds them.
+``in``'s rows are the spec's contiguous cut of [x; z], so its output is
+gathered whole and x and z read at the rank's channels; ``x`` reads the
+whole d_inner (gathered) and its dt | B | C are gathered whole; ``out``
+is row-parallel over the rank's channels.  A channel's sums and their
+order do not change.
 """
 from __future__ import annotations
 
@@ -29,7 +39,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.sparsity import SparseLinear
-from .common import SCAN_CHUNK
+from .common import SCAN_CHUNK, run_chunks
 
 __all__ = ["MambaMixer", "init_cache_mamba", "selective_scan", "softplus"]
 
@@ -56,19 +66,23 @@ def selective_scan(delta, a, xb, b, c, h, chunk: int = SCAN_CHUNK):
     d_state), all float32, a (d_inner, d_state); returns (y (B, S,
     d_inner), the last h).  ``chunk`` steps' decays and inputs are formed
     at once (1: every step its own; the products are the same either
-    way).  Steps are taken with ``unbind``, not by indexing, whose
-    backward would write a zero-filled gradient of the whole indexed
-    tensor every step (``wkv_scan``)."""
-    ys = []
+    way), each chunk's outputs stacked (``run_chunks``).  Steps are taken
+    with ``unbind``, not by indexing, whose backward would write a
+    zero-filled gradient of the whole indexed tensor every step
+    (``wkv_scan``)."""
     c_t = c.unbind(1)
-    for t0 in range(0, delta.shape[1], chunk):
-        sl = slice(t0, t0 + chunk)
-        da = torch.exp(delta[:, sl, :, None] * a)     # (B, chunk, di, ds)
+
+    def body(t0, n, h):
+        sl = slice(t0, t0 + n)
+        da = torch.exp(delta[:, sl, :, None] * a)     # (B, n, di, ds)
         dbx = (delta[:, sl] * xb[:, sl])[..., None] * b[:, sl, None, :]
+        ys = []
         for i, (da_i, dbx_i) in enumerate(zip(da.unbind(1), dbx.unbind(1))):
             h = da_i * h + dbx_i
             ys.append(torch.einsum("bds,bs->bd", h, c_t[t0 + i]))
-    return torch.stack(ys, dim=1), h
+        return torch.stack(ys, dim=1), h
+
+    return run_chunks(body, delta.shape[1], chunk, h)
 
 
 class MambaMixer(nn.Module):
@@ -76,6 +90,8 @@ class MambaMixer(nn.Module):
     out.  The parameter names are the reference's: ``in``, ``x``, ``out``
     (SparseLinear), ``conv_w``, ``conv_b``, ``dt_w``, ``dt_bias``,
     ``a_log``, ``d``.  ``device`` defaults to the card."""
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig, *, name: str = "mamba", device=None,
                  dtype=torch.float32, param_dtype=torch.float32,
@@ -101,7 +117,8 @@ class MambaMixer(nn.Module):
         self.out = SparseLinear(di, d, sp, name=f"{name}.out", **kw)
 
         def param(t):
-            return nn.Parameter(t.float(), requires_grad=False)
+            return nn.Parameter(t.float().to(param_dtype),
+                                requires_grad=False)
 
         def randn(*shape):
             return torch.randn(shape, generator=generator, device=device)
@@ -126,31 +143,48 @@ class MambaMixer(nn.Module):
         mc, ds = self.mc, self.mc.d_state
         B, S, _ = x.shape
         dt_ = x.dtype
-        xb, z = getattr(self, "in")(x).chunk(2, dim=-1)
+        tp, di = self.tp, self.d_inner
+        proj = getattr(self, "in")
+        if tp is None:
+            xb, z = proj(x).chunk(2, dim=-1)
+            mine = lambda t, dim=-1: t
+        else:
+            from repro_torch.parallel.comm import gather_cat, to_ranks
+            from repro_torch.parallel.tensor import whole_output
+
+            xz = to_ranks(whole_output(proj, proj(x)), tp.axis)
+            xb = xz[..., tp.lo:tp.hi]
+            z = xz[..., di + tp.lo:di + tp.hi]
+            mine = tp.read
 
         # depthwise causal conv over time
         if cache is not None:
             ctx = torch.cat([cache["conv"].to(dt_), xb], dim=1)
         else:
             ctx = F.pad(xb, (0, 0, mc.d_conv - 1, 0))
-        w = self.conv_w.to(dt_)
+        w = mine(self.conv_w).to(dt_)
         conv = 0
         for j in range(mc.d_conv):
             conv = conv + ctx[:, j:j + S, :] * w[j]
-        xb = F.silu(conv + self.conv_b.to(dt_))
+        xb = F.silu(conv + mine(self.conv_b).to(dt_))
 
-        dbc = self.x(xb)
+        if tp is None:
+            dbc = self.x(xb)
+        else:
+            dbc = to_ranks(whole_output(self.x, self.x(gather_cat(
+                xb, tp.axis))), tp.axis)
         dt_r = dbc[..., :self.dt_rank]
         b_ssm = dbc[..., self.dt_rank:self.dt_rank + ds].float()
         c_ssm = dbc[..., self.dt_rank + ds:].float()
-        delta = softplus(dt_r.float() @ self.dt_w.T + self.dt_bias)
-        a = -torch.exp(self.a_log)                    # (di, ds)
+        delta = softplus(dt_r.float() @ mine(self.dt_w, 0).float().T
+                         + mine(self.dt_bias))
+        a = -torch.exp(mine(self.a_log, 0))           # (di, ds)
         h = (cache["h"] if cache is not None else
-             torch.zeros((B, self.d_inner, ds), dtype=torch.float32,
+             torch.zeros((B, xb.shape[-1], ds), dtype=torch.float32,
                          device=x.device))
         y, h = selective_scan(delta, a, xb.float(), b_ssm, c_ssm, h)
         y = y.to(dt_)                                 # (B, S, di)
-        y = y + xb * self.d.to(dt_)
+        y = y + xb * mine(self.d).to(dt_)
         y = y * F.silu(z)
         out = self.out(y)
         if cache is not None:

@@ -165,18 +165,21 @@ class DecoderLayer(nn.Module):
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
                    *, full_length: bool = False, device=None) -> dict:
         """``full_length`` skips the sliding-window cap on 'swa' caches (the
-        paged prefill's temp cache slots are absolute positions)."""
+        paged prefill's temp cache slots are absolute positions).  A
+        sharded recurrent layer's cache holds its rank's channels: Mamba's
+        ``conv`` and ``h`` its d_inner channels, RWKV's ``state`` its
+        heads (``x_tm`` and ``x_cm`` whole)."""
         cfg = self.cfg
         if self.kind == "mamba":
-            mc = cfg.mamba
-            return init_cache_mamba(batch, mc.expand * cfg.d_model,
-                                    mc.d_conv, mc.d_state, dtype,
+            mc, tp = cfg.mamba, self.mixer.tp
+            di = mc.expand * cfg.d_model if tp is None else tp.hi - tp.lo
+            return init_cache_mamba(batch, di, mc.d_conv, mc.d_state, dtype,
                                     device=device)
         if self.kind == "rwkv":
-            rc = cfg.rwkv
-            return init_cache_rwkv(batch, cfg.d_model,
-                                   cfg.d_model // rc.head_size, rc.head_size,
-                                   dtype, device=device)
+            hs, tp = cfg.rwkv.head_size, self.rwkv.tp
+            d = cfg.d_model if tp is None else tp.hi - tp.lo
+            return init_cache_rwkv(batch, cfg.d_model, d // hs, hs, dtype,
+                                   device=device)
         L = cache_len
         if self.kind == "swa" and not full_length:
             L = min(cache_len, cfg.sliding_window)

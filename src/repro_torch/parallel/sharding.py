@@ -47,10 +47,20 @@ and ``wv_b``, ``wo``'s columns), with the latent whole on every rank:
 whole rank dimension) and the compressed pools replicate.  Every
 codebook's embedding is vocabulary-parallel, and so is the one head of
 ``n_codebooks * V`` rows over its flat rows.  The patch frontend has no
-parameters of its own.  The recurrent layer kinds raise the reference's
-message (they have no paged cache).  Sharded models serve and train
-(``train.make_train_step``; a compact or chain share's dX runs on
-``RankSlice.transpose``); int8 storage serves only, as unsharded.
+parameters of its own.  The recurrent mixers split by channel
+(``RecurrentShard``): Mamba's d_inner and RWKV's heads, their
+projections cut by the rules (Mamba's ``in`` and ``x`` and RWKV's
+``r``, ``k``, ``v``, ``g``, ``o``, ``cmk``, ``cmr`` column-parallel,
+``out`` and ``cmv`` row-parallel) and their per-channel tensors held
+whole, as the rules replicate them; a model axis that does not divide
+d_inner or the heads is refused, as MLA's heads are.  Their caches'
+held cut (a rank's channels) is not the cut ``cache_specs`` names
+(Mamba's ``h`` on d_state, RWKV's ``state`` on the key index, ``x_tm``
+and ``x_cm`` on d_model), which the dry-run reads through.  The sharded
+engines, paged only, refuse them with the reference's message.  Sharded
+models serve and train (``train.make_train_step``; a compact or chain
+share's dX runs on ``RankSlice.transpose``); int8 storage serves only,
+as unsharded.
 """
 from __future__ import annotations
 
@@ -64,7 +74,7 @@ from torch import nn
 
 from .comm import MeshAxis
 from .tensor import (DataShard, ExpertShard, HeadShard, LatentShard,
-                     LinearShard, VocabShard)
+                     LinearShard, RecurrentShard, VocabShard)
 
 __all__ = ["dp_axes", "dp_size", "data_axis", "mesh_axes", "param_spec",
            "batch_specs", "cache_specs", "port_cache_specs", "page_pool_specs",
@@ -340,15 +350,6 @@ class Placement:
         return any(_is_data(ax) for ax in self.spec)
 
 
-def _check_supported(model) -> None:
-    """The recurrent kinds have no paged cache: the first of them in the
-    reference's order names the refusal, as its engine's does."""
-    for i in model.stack.reference_order():
-        layer = model.stack.layers[i]
-        if layer.kind in ("mamba", "rwkv"):
-            raise NotImplementedError(layer._no_paged())
-
-
 def _cut(t: torch.Tensor, dim: int, index) -> torch.Tensor:
     """``t``'s entries ``index`` (a range, or a sequence) along ``dim`` in
     storage of their own (the whole tensor where they are all of it)."""
@@ -505,17 +506,33 @@ class _Sharder:
         """This rank's heads of ``wk_b`` and ``wv_b`` (the spec splits
         their heads dim, which the axis divides); the projections are cut
         by ``linear`` (wq_b's rows and wo's columns by head)."""
-        ax = self.m_ax
-        H = self.cfg.n_heads
-        if H % ax.size:
-            raise NotImplementedError(
-                f"{H} heads do not split over model={ax.size}")
-        lo, hi = ax.range(H)
+        lo, hi = self._share_of(name, self.cfg.n_heads, "heads")
         for attr in ("wk_b", "wv_b"):
             leaf = f"{name}.{attr}"
             self.keep(attn, attr, leaf, 0, range(lo, hi),
                       self.spec(leaf, getattr(attn, attr).shape))
-        attn.tp = LatentShard(ax, (lo, hi))
+        attn.tp = LatentShard(self.m_ax, (lo, hi))
+
+    def _share_of(self, name: str, n: int, what: str) -> tuple[int, int]:
+        """This rank's contiguous share of ``n`` heads or channels that a
+        module splits over "model"; refused where the axis does not
+        divide them."""
+        ax = self.m_ax
+        if n % ax.size:
+            raise NotImplementedError(
+                f"{name}: {n} {what} do not split over model={ax.size}")
+        return ax.range(n)
+
+    def mamba(self, name: str, mixer) -> None:
+        """This rank's channels of d_inner; the projections are cut by
+        ``linear`` and the per-channel tensors held whole."""
+        lo, hi = self._share_of(name, mixer.d_inner, "d_inner channels")
+        mixer.tp = RecurrentShard(self.m_ax, lo, hi)
+
+    def rwkv(self, name: str, block) -> None:
+        """This rank's heads, as channels of d_model."""
+        lo, hi = self._share_of(name, block.h, "heads")
+        block.tp = RecurrentShard(self.m_ax, lo * block.hs, hi * block.hs)
 
     def vocab(self, owner, attr: str, name: str):
         t = getattr(owner, attr)
@@ -556,13 +573,14 @@ def shard_module(model, mesh):
     same model (the same seed or the same loaded weights)."""
     from repro_torch.models.attention import GQAttention, MLAttention
     from repro_torch.models.moe import MoELayer
+    from repro_torch.models.rwkv import RWKVBlock
+    from repro_torch.models.ssm import MambaMixer
     from repro_torch.sparsity import SparseLinear
 
     if mesh.get_coordinate() is None:
         raise ValueError("this rank is not in the mesh")
     if getattr(model, "mesh", None) is not None:
         raise ValueError("the model is sharded already")
-    _check_supported(model)
     s = _Sharder(model, mesh)
     for name, mod in model.named_modules():
         if isinstance(mod, SparseLinear):
@@ -573,6 +591,10 @@ def shard_module(model, mesh):
             s.mla(name, mod)
         elif isinstance(mod, MoELayer):
             s.experts(name, mod)
+        elif isinstance(mod, MambaMixer):
+            s.mamba(name, mod)
+        elif isinstance(mod, RWKVBlock):
+            s.rwkv(name, mod)
     for i, emb in enumerate(model.embed):
         emb.tp = s.vocab(emb, "embedding", f"embed.{i}.embedding")
     if model.head is not None:

@@ -24,6 +24,18 @@ plain local tensors (the kernels take raw pointers, so no DTensor):
   * ``LatentShard`` on an ``MLAttention``: this rank's heads (wq_b's rows,
     wk_b, wv_b, wo's columns); the latent is whole on every rank, wq_a's
     and wkv_a's outputs gathered (``whole_output``).
+  * ``RecurrentShard`` on a ``MambaMixer`` or an ``RWKVBlock``: this
+    rank's channels [lo, hi) of the recurrence (Mamba's d_inner; RWKV's
+    d_model, whole heads), which its conv, scan, state and gate run on.
+    The projections keep the spec's cuts, which are not these channels
+    where they read or write the whole vector (Mamba's ``in`` rows of
+    [x; z], its ``x`` rows of dt | B | C, RWKV's column-parallel ``o``):
+    their outputs are gathered whole (``whole_output``) and this rank's
+    channels read from them, their inputs gathered whole (``gather_cat``).
+    The per-channel tensors the spec replicates (Mamba's conv, dt, A and
+    D; RWKV's decay base and LoRA output, bonus and group norm) are held
+    whole and read at this rank's channels through ``to_ranks``
+    (``RecurrentShard.read``).
   * ``ExpertShard`` on a ``MoELayer``: this rank's experts [lo, hi).
   * ``VocabShard`` on an ``Embedding`` and on the LM head: this rank's
     vocabulary rows [lo, hi); lookups outside them give zeros, summed over
@@ -54,9 +66,9 @@ import torch
 
 from .comm import MeshAxis, gather_cat, gather_on_use, gather_sum, to_ranks
 
-__all__ = ["LinearShard", "HeadShard", "LatentShard", "ExpertShard",
-           "VocabShard", "DataShard", "on_use", "linear_forward",
-           "whole_output"]
+__all__ = ["LinearShard", "HeadShard", "LatentShard", "RecurrentShard",
+           "ExpertShard", "VocabShard", "DataShard", "on_use",
+           "linear_forward", "whole_output"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -89,6 +101,19 @@ class HeadShard:
 class LatentShard:
     axis: MeshAxis
     heads: tuple[int, int]      # heads [lo, hi)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RecurrentShard:
+    axis: MeshAxis
+    lo: int                     # channels [lo, hi) of the recurrence
+    hi: int
+
+    def read(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """A whole, replicated per-channel tensor at this rank's channels
+        along ``dim``: its gradient is summed over the model ranks, so
+        every rank holds the whole tensor's."""
+        return to_ranks(t, self.axis).narrow(dim, self.lo, self.hi - self.lo)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

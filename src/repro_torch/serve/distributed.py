@@ -24,6 +24,12 @@ logits, so every rank makes the same decisions.
     of the weights, which would hold the same bits, and the handoff is a
     copy.
 
+Both engines are paged, as the reference's are: a model with a recurrent
+layer kind (mamba, rwkv), whose O(1) state has nothing to page, is
+refused with the reference's message before anything is cut, so the
+model is left whole (``shard_module`` itself takes those layers: the
+sharded step, ``prefill`` and ``decode_step`` and the dry-run run them).
+
 Parity: the engines' greedy streams equal ``run_sequential`` over the
 same sharded model, token for token.  Every sum over ranks is taken in
 rank order (``parallel.gather_sum``), so a row's bits do not depend on
@@ -43,6 +49,15 @@ from .cache import PagedKVCache
 from .engine import ContinuousEngine
 
 __all__ = ["ShardedContinuousEngine", "DisaggregatedEngine"]
+
+
+def _check_paged(model) -> None:
+    """The engines are paged: the first recurrent layer in the
+    reference's order names the refusal, as its engine's does."""
+    for i in model.stack.reference_order():
+        layer = model.stack.layers[i]
+        if layer.kind in ("mamba", "rwkv"):
+            raise NotImplementedError(layer._no_paged())
 
 
 def _shard(model, mesh):
@@ -69,6 +84,7 @@ class ShardedContinuousEngine(ContinuousEngine):
     kind = "sharded"
 
     def __init__(self, model, mesh, **kw):
+        _check_paged(model)
         self.mesh = mesh
         super().__init__(_shard(model, mesh), **kw)
 
@@ -121,6 +137,7 @@ class DisaggregatedEngine(ShardedContinuousEngine):
     kind = "disagg"
 
     def __init__(self, model, decode_mesh, prefill_mesh, **kw):
+        _check_paged(model)
         self.mesh = decode_mesh
         self.prefill_mesh = prefill_mesh
         self.in_decode = decode_mesh.get_coordinate() is not None

@@ -2099,11 +2099,12 @@ def test_cuda_chain_rank_shares_match_plain_versions(kind, n_model, dtype):
 def test_cuda_sharded_step_bit_equals_the_unsharded_step(arch):
     """Phase 56 in small: a reduced model (compact, bf16) trained 3 steps
     through ``make_train_step`` unsharded and after ``shard_module`` at
-    model 1 on an NCCL group of world size 1, from the same weights: the
-    losses and every first-step gradient within ``chip_smoke``'s
-    ``sharded_tolerance`` (one bf16 rounding a row-parallel site; the
-    sharded model runs the code of any model axis), the same launches of
-    the compact kernels (the stacked pair for the MoE)."""
+    model 1 on an NCCL group of world size 1, from the same weights: every
+    loss and every sampled step's gradient bit-equal
+    (``chip_smoke.compare_sharded_runs`` at one rank: the sharded model
+    runs the code of any model axis, and one rank rounds nowhere the
+    unsharded model does not), the same launches of the compact kernels
+    (the stacked pair for the MoE)."""
     import sys
     from pathlib import Path
 
@@ -2126,8 +2127,48 @@ def test_cuda_sharded_step_bit_equals_the_unsharded_step(arch):
         if started:
             dist.destroy_process_group()
     a, b = runs
-    got = chip_smoke.compare_sharded_runs(a, b)
+    got = chip_smoke.compare_sharded_runs(a, b, 1)
     assert got["sites"] > 0 and got["n_grads"] > 0
+    assert got["loss_rel"] == 0 and got["grad_l2_rel"] == 0
     assert a["launches"]["forward"] > 0 and a["launches"]["dw"] > 0
     if cfg.moe is not None:
         assert a["launches"]["stacked_dw"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharded", [False, True],
+                         ids=["unsharded", "sharded"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b",
+                                  "rwkv6-7b", "jamba-1.5-large-398b"])
+def test_cuda_train_steps_rerun_bit_equal(arch, sharded):
+    """Two runs of 2 training steps from one seed (a reduced model,
+    compact, bf16; sharded: after ``shard_module`` at model 1 on an NCCL
+    group of world size 1) give every loss and every step's gradient
+    sample to the bit (``chip_smoke.compare_reruns``).  The sharded
+    step's vocabulary-parallel loss sums each codebook's exponentials by
+    one ordered reduction: a ``scatter_add`` there added by atomics, in
+    another order each run."""
+    import sys
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+
+    needs_card()
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    started = not dist.is_initialized()
+    init_distributed("cuda")
+    try:
+        cfg = reduce_config(get_config(arch)).with_(compute_dtype="bfloat16")
+        mesh = make_serve_mesh(1, 1) if sharded else None
+        runs = [chip_smoke.sharded_train_run(cfg, mesh, "cuda", 2, 2, 64)
+                for _ in range(2)]
+    finally:
+        if started:
+            dist.destroy_process_group()
+    got = chip_smoke.compare_reruns(*runs)
+    assert got["steps"] == 2 and got["n_grads"] > 0

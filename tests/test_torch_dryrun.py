@@ -3,9 +3,11 @@
   * the CLI on ``tinyllama-1.1b --shape decode_32k --mesh single``, in a
     subprocess: status ok, mesh 16x16, the peak a device under 80 GB (one
     NVIDIA H100 80GB HBM3), the three roofline terms;
-  * a skipped ``long_500k`` cell (the reference's skip text) and a refused
-    rwkv6-7b cell (``shard_module``'s refusal as the reason), and a cell
-    whose trace meets an op without a ``meta`` kernel, an error;
+  * a skipped ``long_500k`` cell (the reference's skip text), an rwkv6-7b
+    cell traced ``ok`` (its mixers sharded by channel), a deepseek-v2 cell
+    at model 3, which does not divide its 128 MLA heads (``shard_module``'s
+    refusal as the reason), and a cell whose trace meets an op without a
+    ``meta`` kernel, an error;
   * reduced tinyllama and qwen2-moe on a (1, 4) data/model mesh, one small
     cell of each kind (and at (2, 2) and (2, 4), where FSDP cuts the
     weights over "data": the prefill and decode argument bytes equal the
@@ -20,7 +22,13 @@
     folds into its program, set apart; against the reference's argument
     leaves, of which its compiled program drops the one it never reads);
     the dot FLOPs are within 5% for prefill and decode and 10% for
-    train.
+    train;
+  * reduced rwkv6-7b and jamba (cut to 4 layers: three Mamba layers and
+    the attention layer) at (1, 4) and (2, 2), the same way: the model
+    FLOPs a device equal, the prefill and decode argument bytes equal the
+    reference's leaves' (the recurrent caches cut as ``cache_specs``
+    cuts them, not as a rank's layer holds them), and a train cell's keep
+    their (1, 4) ratio to the reference's at (2, 2) within 1%.
 """
 import json
 import os
@@ -40,13 +48,21 @@ CELLS = [("train_s", "train", 4, 32), ("prefill_s", "prefill", 4, 32),
 MESHES = [(1, 4), (2, 2), (2, 4)]
 DOT_TOL = {"train": 0.10, "prefill": 0.05, "decode": 0.05}
 
+# the recurrent archs and their meshes; jamba cut to 4 layers for time
+RECURRENT = ["rwkv6-7b", "jamba-1.5-large-398b"]
+RECURRENT_MESHES = [(1, 4), (2, 2)]
+
 CONFIG = r"""
+FIELDS = {"jamba-1.5-large-398b": {"n_layers": 4}}
+
+
 def config(arch, reduce_config, get_config, apply_sparsity):
     cfg = reduce_config(get_config(arch))
     cfg = apply_sparsity(cfg, pattern="rbgp4", sparsity=0.5,
                          backend="xla_masked", min_dim=64)
     # the full-width configs' dtypes (reduce_config computes in float32)
-    return cfg.with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    return cfg.with_(param_dtype="bfloat16", compute_dtype="bfloat16",
+                     **FIELDS.get(arch, {}))
 """
 
 REF_CHILD = r"""
@@ -168,11 +184,15 @@ SKIP_CHILD = r"""
 import json
 from repro.configs import get_config as j_get_config
 from repro.configs import shape_cells as j_shape_cells
+from repro_torch.configs import ShapeConfig
 from repro_torch.launch import dryrun as D
 out = {"long": D.run_cell("tinyllama-1.1b", "long_500k", "single",
                           "rbgp4", 0.75),
        "rwkv": D.run_cell("rwkv6-7b", "decode_32k", "single", "rbgp4",
                           0.75),
+       "mla": D.run_cell("deepseek-v2-236b", "decode_3x32", "1x3", "rbgp4",
+                         0.75, shape=ShapeConfig("decode_3x32", 32, 3,
+                                                 "decode")),
        "want_long": dict((s.name, k) for s, k in
                          j_shape_cells(j_get_config("tinyllama-1.1b")))[
                              "long_500k"]}
@@ -181,12 +201,21 @@ print("DRY-JSON", json.dumps(out))
 
 
 def test_skipped_and_refused_cells():
+    """A skip (the reference's text), a recurrent cell traced ``ok`` at
+    16 x 16 (its caches read through their spec's cut), and a refusal:
+    model 3 does not divide deepseek-v2's 128 MLA heads."""
     out = parse(child(["-c", SKIP_CHILD]), "DRY-JSON")
     assert out["long"]["status"] == "skipped"
     assert out["long"]["reason"] == out["want_long"]
-    assert out["rwkv"]["status"] == "skipped"
-    assert "paged decode supports attention layer kinds" in \
-        out["rwkv"]["reason"]
+    rwkv = out["rwkv"]
+    assert rwkv["status"] == "ok" and rwkv["mesh"] == "16x16", rwkv
+    assert 0 < rwkv["memory"]["argument_gb"] \
+        <= rwkv["memory"]["peak_per_device_gb"] < 80
+    # the RWKV states' spec cut (the key index) is not the layer's (its
+    # heads): read through, gathered over "model" a layer
+    assert rwkv["collectives"]["counts"]["all-gather"] > 0
+    assert out["mla"]["status"] == "skipped", out["mla"]
+    assert "128 heads do not split over model=3" in out["mla"]["reason"]
 
 
 NO_META_CHILD = r"""
@@ -277,3 +306,41 @@ def test_fsdp_argument_bytes_against_the_reference(both, arch, cell, mesh):
     at_1x4 = port[base]["argument_bytes"] / ref[base]["leaf_bytes"]
     ratio = got["argument_bytes"] / want["leaf_bytes"]
     assert abs(ratio / at_1x4 - 1) <= 0.01, (key, ratio, at_1x4)
+
+
+@pytest.fixture(scope="module")
+def recurrent():
+    req = json.dumps({"archs": RECURRENT, "cells": CELLS,
+                      "meshes": RECURRENT_MESHES})
+    ref = parse(child(["-c", REF_CHILD], [req], timeout=900), "DRY-JSON")
+    port = parse(child(["-c", PORT_CHILD], [req]), "DRY-JSON")
+    return ref, port
+
+
+REC_KEYS = [(a, c, m) for a in RECURRENT for c in CELLS
+            for m in RECURRENT_MESHES]
+
+
+@pytest.mark.parametrize("arch,cell,mesh", REC_KEYS,
+                         ids=[f"{a}-{c[0]}-{m[0]}x{m[1]}"
+                              for a, c, m in REC_KEYS])
+def test_recurrent_cells_against_the_reference(recurrent, arch, cell,
+                                                mesh):
+    ref, port = recurrent
+    key = f"{arch}|{cell[0]}|{mesh[0]}x{mesh[1]}"
+    want, got = ref[key], port[key]
+    assert abs(got["model_flops_per_device"]
+               - want["model_flops_per_device"]) \
+        <= 1e-9 * want["model_flops_per_device"]
+    if cell[1] != "train":
+        assert got["argument_bytes"] == want["leaf_bytes"], \
+            (key, got["argument_bytes"], want["leaf_bytes"])
+        # XLA drops the masks, and rwkv6-7b's decode index, which no
+        # layer of an all-recurrent model reads
+        assert all("ba_" in d or "mask" in d or d == "[3]"
+                   for d in want["dropped"]), want["dropped"]
+    elif mesh != RECURRENT_MESHES[0]:
+        base = f"{arch}|{cell[0]}|1x4"
+        at_1x4 = port[base]["argument_bytes"] / ref[base]["leaf_bytes"]
+        ratio = got["argument_bytes"] / want["leaf_bytes"]
+        assert abs(ratio / at_1x4 - 1) <= 0.01, (key, ratio, at_1x4)

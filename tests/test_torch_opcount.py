@@ -252,3 +252,59 @@ def test_collectives_counted_with_the_references_factors():
             assert got[name]["bytes"][kind] == b, (name, kind)
             assert got[name]["counts"][kind] == want[name]["counts"][kind]
         assert got[name]["bytes"]["broadcast"] == 0
+
+
+# a scan of 4 chunks (the last one full) and of 3 and a ragged tail
+SCAN_STEPS = (256, 202)
+
+
+@pytest.mark.parametrize("steps", SCAN_STEPS)
+@pytest.mark.parametrize("train", [False, True], ids=["prefill", "train"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
+def test_a_scan_reckoned_by_its_trip_count_equals_every_step_traced(
+        arch, train, steps):
+    """The dry-run's ``scan_trips``: a recurrent scan over ``meta``
+    tensors runs one chunk of ``SCAN_CHUNK`` steps for all but its last,
+    which runs as it is (``models.common.run_chunks``).  Against the trace
+    of every step of the same program (a reduced model's prefill, or its
+    loss and backward under remat): the dot FLOPs equal, the other FLOPs
+    and the bytes within 0.1% (a chunk's gradient sums and zero-filled
+    slices of the inputs, the ones its neighbours add to, differ by a few
+    kB a chunk), the peak within 1%."""
+    from repro_torch.configs import apply_sparsity, get_config, reduce_config
+    from repro_torch.models import LMModel
+    from repro_torch.models.common import SCAN_CHUNK
+
+    assert steps // SCAN_CHUNK >= 3
+    # the dry-run's storage (compact storage runs the card's kernels)
+    cfg = apply_sparsity(reduce_config(get_config(arch)), pattern="rbgp4",
+                         sparsity=0.5, backend="xla_masked", min_dim=64)
+    if cfg.mamba is not None:
+        cfg = cfg.with_(n_layers=4)
+    model = LMModel(cfg, device="meta")
+    tokens = torch.zeros((2, steps), dtype=torch.long, device="meta")
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(train)
+
+    def program():
+        if train:
+            model.loss({"tokens": tokens}, train=True)[0].backward()
+            for p in params:
+                p.grad = None
+        else:
+            model.prefill(tokens, model.init_cache(2, steps, torch.float32))
+
+    _, full = count_ops(program, arguments=[tokens, *params])
+    _, scaled = count_ops(program, arguments=[tokens, *params],
+                          scan_trips=True)
+    n_scans = sum(l.kind in ("mamba", "rwkv") for l in model.stack.layers)
+    assert not full.loops
+    assert len(scaled.loops) == n_scans * (2 if train else 1)
+    assert all(n == (steps - 1) // SCAN_CHUNK for _, n in scaled.loops)
+    assert scaled.dot_flops == full.dot_flops
+    for got, want in ((scaled.flops, full.flops),
+                      (scaled.bytes_accessed, full.bytes_accessed)):
+        assert abs(got / want - 1) <= 1e-3, (got, want)
+    assert abs(scaled.peak_bytes / full.peak_bytes - 1) <= 1e-2, \
+        (scaled.peak_bytes, full.peak_bytes)

@@ -20,8 +20,9 @@ reference's five cases of ``tests/test_serve_sharded.py``, and int8:
     rank's head rows cross a codebook boundary) and chain storage
     (tinyllama under the deep-chain plan at tp 4, sub-chunks of its
     slots), on the sharded and the disaggregated engine;
-  * the recurrent kinds (rwkv6-7b, jamba), refused with the reference's
-    message.
+  * the recurrent kinds (rwkv6-7b, jamba), refused by both engines with
+    the reference's message before anything is cut (the model left
+    whole; ``shard_module`` takes them, tests/test_torch_shard_recurrent.py).
 
   * FSDP (the weights cut over "data" as well, gathered on use):
     qwen2-moe at dp 2 x tp 2 on the sharded engine, and tinyllama on the
@@ -403,19 +404,25 @@ def rank_main(rank, world, store, work):
                 out[tag] = [streams(eng, wl, m2), eng.stats["handoffs"],
                             COLLECTIVES["gather_on_use"]]
         elif name == "recurrent":
-            from repro_torch.parallel import shard_module
+            # both engines refuse before they cut anything: the model is
+            # left whole (model.mesh unset)
             for arch in cases["__recurrent__"]:
                 cfg = config(arch, "auto", {})
                 got = []
-                for make in (lambda m: shard_module(m, make_serve_mesh(2, 2)),
-                             lambda m: ShardedContinuousEngine(
+                for make in (lambda m: ShardedContinuousEngine(
                                  m, make_serve_mesh(2, 2), page_size=4,
-                                 max_slots=2, max_request_len=16)):
+                                 max_slots=2, max_request_len=16),
+                             lambda m: DisaggregatedEngine(
+                                 m, make_serve_mesh(1, 2, ranks=[0, 1]),
+                                 make_serve_mesh(1, 2, ranks=[2, 3]),
+                                 page_size=4, max_slots=2,
+                                 max_request_len=16)):
+                    m = LMModel(cfg, device="cpu", seed=0)
                     try:
-                        make(LMModel(cfg, device="cpu", seed=0))
-                        got.append(None)
+                        make(m)
+                        got.append([None, m.mesh is None])
                     except NotImplementedError as e:
-                        got.append(str(e))
+                        got.append([str(e), m.mesh is None])
                 out[arch] = got
         return out
 
@@ -677,7 +684,11 @@ def test_fsdp_streams_on_both_engines_at_data_2(ranks, tag):
 
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_recurrent_kinds_keep_the_reference_refusal(ranks, arch):
+    """The sharded and the disaggregated engine refuse a recurrent model
+    with the reference's message, and leave it uncut (``shard_module``
+    itself takes the recurrent mixers)."""
     want = reference_refusal(arch)
     assert "static engine" in want
     for r, res in enumerate(case(ranks, "recurrent")):
-        assert res[arch] == [want, want], (r, res[arch], want)
+        assert res[arch] == [[want, True], [want, True]], (r, res[arch],
+                                                           want)
