@@ -351,9 +351,10 @@ exits non-zero without the result line:
      trained 3 steps of 8 x 512 tokens each way (no timed search: phase 45
      covered every launch) and one VGG19-CIFAR pass each way, fenced; the
      host µs of a memoized resolution; phase 4's decode cell with
-     ``obs.kernelstats`` off and on, three runs each in turns, whose mean
-     ms/step stays within the host's spread (the range of the off runs
-     and phase 4's, at least 5% of their mean);
+     ``obs.kernelstats`` off and on, three runs each in turns after one
+     uncounted warm-up run of the new model, whose mean ms/step stays
+     within the host's spread (the range of the off runs and phase 4's,
+     at least 5% of their mean);
  47. kernelstats: ``measure_op`` (CUDA events) on one layout of each of
      the eight autotuner kinds under phase 45's tiles, and the serve
      driver with ``--kernel-stats --autotune-cache`` at full width on
@@ -390,7 +391,7 @@ exits non-zero without the result line:
      model's form) against every step's own: ms, peak memory, outputs;
  50. train-archs: each of them trained at full width in bf16
      (``ARCH_TRAIN``: deepseek-v2 cut to 4 layers, jamba to 3, Mamba,
-     Mamba + MoE, Mamba; ``ARCH_TRAIN_TIME_CUT``: rwkv6-7b to 4 of 32 for
+     Mamba + MoE, Mamba; ``ARCH_TRAIN_TIME_CUT``: rwkv6-7b to 2 of 32 for
      the script's time; the others at full depth), 2 steps of 4 x 512
      ``TokenStream(seed=0)`` tokens (4 codebooks for musicgen, text only
      for pixtral) as phase 10, the first untimed: the trainer's state
@@ -470,16 +471,40 @@ exits non-zero without the result line:
      bit-equal to the first run's (the vocabulary-parallel loss sums
      each codebook's exponentials by one ordered reduction, not by a
      ``scatter_add``, whose atomics add in another order each run);
- 57. train-sharded-recurrent: the same for rwkv6-7b (4 of 32 layers, for
+ 57. train-sharded-recurrent: the same for rwkv6-7b (2 of 32 layers, for
      time) and jamba-1.5-large-398b (3 of 72, for memory), full width,
      2 steps each run: the Mamba and RWKV mixers under ``shard_module``
      (``RecurrentShard``) within ``sharded_tolerance`` of the unsharded
-     step, launches equal, the sharded rerun bit-equal.
+     step, launches equal, the sharded rerun bit-equal;
+ 58. backends: the sparse-backend registry routes per layer.
+     tinyllama-1.1b at full width (d_model 2048, bf16, RBGP4 0.75
+     compact) cut to 2 layers, under a plan that sends the attention
+     projections to ``xla_compact`` (the plain-torch gather) and the MLP
+     to ``pallas`` (the kernels), and from the same weights under
+     ``auto``: 4 requests of 128 prompt tokens, 8 greedy tokens (a
+     prefill and 7 decode steps), the routed run teacher-forced on the
+     auto run's tokens; logits within ``ROUTED_TOL`` x max|ref|, greedy
+     tokens equal but at a near tie (a top-2 gap at most twice the
+     position's max |diff|); the routed run launches ``rbgp4mm_rhs`` 3
+     times a layer and call (gate, up, down), the auto run 7, both counts
+     derived from the plan and the registry; decode
+     ms/step of both; then ``quantize_weights`` under the routed plan:
+     every projection launches the int8 path through the ``quant``
+     reroute, none in full precision; last, quickstart's step 4: one
+     float32 512 x 512 compact layer under every backend that accepts it,
+     within 1e-3 x max|ref|;
+ 59. examples: ``python -m repro_torch.examples.<name>`` on the card,
+     each a process of its own, all started together: ``quickstart``,
+     ``train_sparse_lm --size paper --steps 6 --simulate-failure 3`` (exit
+     code 42; rerun without the failure, it resumes at step 3 and exits
+     0), ``serve_lm`` and ``cifar_vgg_rbgp4 --steps 4``; each one's last
+     line and seconds printed.
 
 ``python3 chip_smoke.py --autotune-only`` runs phases 1, 4, 33 and 45-47
 alone (a quicker check of the autotuner; no result line);
 ``python3 chip_smoke.py --archs-only`` runs phases 1 and 48-51 alone;
 ``python3 chip_smoke.py --shard-only`` phases 1 and 52-54;
+``python3 chip_smoke.py --backends-only`` phases 1 and 58-59;
 ``python3 chip_smoke.py --dryrun-only`` phases 1 and 55-57, and first
 times tinyllama's decode step alone, beside a second run of the
 reckoning and alone again (``reckoning_beside_decode``).
@@ -5572,6 +5597,14 @@ def phase_tuned_steps(tiny, fm, serve: dict, cache: str) -> dict:
 
     model = build_model(tiny, False)
     reqs = serve_requests(tiny.vocab_size, 16, seed=0)
+    # warm-up of the new model, not counted, as phase 4 warms its own up
+    # before the run this list starts with; timed with kernelstats on, as
+    # the first run of the list would be without it
+    kernelstats.reset()
+    kernelstats.enable()
+    autotune.clear_memory_cache()
+    cold = decode_run(model, reqs)
+    kernelstats.disable()
     decode = {"off": [serve["decode_ms_per_step"]], "on": []}
     for stats in TUNE_DECODE_RUNS:
         kernelstats.reset()
@@ -5593,12 +5626,15 @@ def phase_tuned_steps(tiny, fm, serve: dict, cache: str) -> dict:
     on = statistics.mean(decode["on"])
     log("tuned-steps", f"decode ms/step with kernelstats off "
                        f"{decode['off']} (phase 4 first), on "
-                       f"{decode['on']}; the off runs' spread {spread:.2f}")
+                       f"{decode['on']} after an uncounted warm-up run "
+                       f"with it on ({cold:.2f}); the off runs' spread "
+                       f"{spread:.2f}")
     if abs(on - off) > spread:
         raise AssertionError(f"decode {on:.2f} ms/step with kernelstats on, "
                              f"{off:.2f} off: outside the host's spread "
                              f"{spread:.2f}")
     res.update(decode_ms_per_step=decode, decode_spread_ms=spread,
+               decode_warmup_ms_per_step=cold,
                seconds=time.perf_counter() - t0)
     fmt = lambda xs: ", ".join(f"{x:.1f}" for x in xs)
     log("tuned-steps", f"tinyllama 8 x 512: rule {fmt(steps['rule'])} "
@@ -5730,8 +5766,9 @@ ARCH_TRAIN = {
 }
 #: phase 50's depths where the script's time limit, not the card, cuts
 #: one: rwkv6-7b's sequential scans take about 16 s a step at its 32
-#: layers on an H100, an eighth of that at 4
-ARCH_TRAIN_TIME_CUT = {"rwkv6-7b": 4}
+#: layers on an H100, an eighth of that at 4; cut to 2 to pay for phases
+#: 58-59
+ARCH_TRAIN_TIME_CUT = {"rwkv6-7b": 2}
 #: phase 50's batch (4 x 512 tokens, as qwen2-moe's training phase) and
 #: steps (the first untimed; 2 for the script's time limit)
 ARCH_TRAIN_BATCH, ARCH_TRAIN_SEQ, ARCH_TRAIN_STEPS = 4, 512, 2
@@ -7463,7 +7500,7 @@ def phase_train_sharded(smi: str, mesh) -> dict:
 def phase_train_sharded_recurrent(smi: str, mesh) -> dict:
     """Phase 57: rwkv6-7b and jamba-1.5-large-398b at full width (rbgp4
     0.75 compact, bf16), cut in depth as phase 50 cuts them
-    (``arch_train_config``: rwkv6-7b's 4 layers for time, jamba's 3 for
+    (``arch_train_config``: rwkv6-7b's 2 layers for time, jamba's 3 for
     memory), through ``sharded_step_runs``: ``SHARDED_RECURRENT_STEPS``
     steps unsharded and after ``shard_module`` at world size 1 (each
     mixer a ``RecurrentShard`` of all its channels; its projections'
@@ -7499,13 +7536,333 @@ def dryrun_phases(smi: str, recs: dict) -> tuple:
     return card, train
 
 
+# -- the sparse-backend registry and the examples (phases 58-59) -------------
+
+#: phase 58: tinyllama-1.1b at full width cut to 2 layers, 4 requests of
+#: 128 prompt tokens, 8 greedy tokens each (a prefill and 7 decode steps)
+ROUTED_LAYERS = 2
+ROUTED_REQUESTS = 4
+ROUTED_PROMPT = 128
+ROUTED_TOKENS = 8
+#: the routed plan: attention on the plain-torch gather, the MLP on the
+#: kernels
+ROUTES = {"attn": "xla_compact", "mlp": "pallas"}
+#: bf16 logits of the routed run against the auto run, both on the card:
+#: the attention projections' output rounding differs (the gather's bmm
+#: against the kernel's accumulator), |diff| <= ROUTED_TOL * max|ref|, just
+#: above the 8.07e-3 an H100 reads (PERF.md, phase 58).  A
+#: greedy token may differ only where the auto run's top-2 gap at that
+#: position is at most twice the position's max |diff| (the least gap a
+#: flip needs)
+ROUTED_TOL = 1e-2
+#: quickstart step 4 on the card: float32, |y - x W^T| <= 1e-3 * max|ref|
+BACKEND_TOL = 1e-3
+#: phase 59: each example's time limit
+EXAMPLE_TIMEOUT_S = 300
+
+
+def routed_plan(routes: dict):
+    """One rule a part of the layer ('attn', 'mlp'), RBGP4 0.75 compact,
+    each naming its backend."""
+    from repro_torch.sparsity import PatternSpec, PlanRule, SparsityPlan
+
+    return SparsityPlan(rules=tuple(
+        PlanRule(rf"l\d+\.{part}\..*",
+                 PatternSpec(pattern="rbgp4", sparsity=0.75, backend=b,
+                             min_dim=64), note=f"{part} on {b}")
+        for part, b in routes.items()))
+
+
+def routed_config(routes: dict):
+    from repro_torch.configs import apply_sparsity, get_config
+
+    cfg = get_config("tinyllama-1.1b").with_(n_layers=ROUTED_LAYERS,
+                                             compute_dtype="bfloat16")
+    return apply_sparsity(cfg, plan=routed_plan(routes))
+
+
+def kernel_layers_per_call(cfg, weight, launcher: str) -> int:
+    """The compact projections whose plan rule's backend name the registry
+    resolves, for a container of ``weight``'s type, to the backend named
+    ``launcher``: derived from the plan, the shapes and the registry
+    alone.  Of the built-ins only ``pallas`` launches ``rbgp4mm_rhs`` in
+    full precision and only ``quant`` its int8 path, each once a forward
+    call of such a projection."""
+    from repro_torch.sparsity import (get_backend, model_matmul_shapes,
+                                      resolve_backend)
+
+    plan = cfg.sparsity_rules
+    n = 0
+    for path, (m, k, count) in model_matmul_shapes(cfg).items():
+        spec = plan.resolve(path, m, k)
+        if spec.is_sparse and spec.applies_to(m, k) \
+                and spec.storage() == "compact" \
+                and resolve_backend(weight, spec.backend) \
+                is get_backend(launcher):
+            n += count
+    return n
+
+
+def routed_containers() -> dict:
+    """Empty containers of the two types a compact projection holds, for
+    ``kernel_layers_per_call``'s resolution: full precision and int8."""
+    from repro_torch.sparsity import CompactWeight, QuantizedWeight
+
+    return {"compact": CompactWeight(torch.empty(0), None),
+            "int8": QuantizedWeight(torch.empty(0), torch.empty(0), None)}
+
+
+def routed_decode(model, prompts: np.ndarray, feed: np.ndarray = None
+                  ) -> dict:
+    """A prefill of ``prompts`` and ``ROUTED_TOKENS - 1`` decode steps,
+    greedy (or decoding ``feed``'s tokens, teacher-forced); the launches
+    of the whole run, counted from 0, its logits (float32) and tokens,
+    and the fenced ms a decode step."""
+    b, s = prompts.shape
+    cache = model.init_cache(b, s + ROUTED_TOKENS, torch.float32)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    logits, cache = model.prefill(prompts, cache)
+    steps, toks = [logits.float()], []
+    t_dec = 0.0
+    for i in range(ROUTED_TOKENS - 1):
+        toks.append(logits.argmax(-1).cpu().numpy())
+        tok = toks[-1] if feed is None else feed[:, i]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(tok[:, None], cache, s + i)
+        torch.cuda.synchronize()
+        t_dec += time.perf_counter() - t0
+        steps.append(logits.float())
+    toks.append(logits.argmax(-1).cpu().numpy())
+    counts = launch_counts()
+    return {"launches": counts, "calls": ROUTED_TOKENS,
+            "logits": torch.stack(steps, 1), "tokens": np.stack(toks, 1),
+            "decode_ms_per_step": 1e3 * t_dec / (ROUTED_TOKENS - 1)}
+
+
+def phase_backends(smi: str) -> list:
+    """Phase 58: a plan's per-layer backend names pick what runs, at full
+    width.  tinyllama-1.1b (d_model 2048, bf16, RBGP4 0.75 compact), 2
+    layers, under a plan that sends the attention projections to
+    ``xla_compact`` and the MLP to ``pallas``, and from the same weights
+    under ``auto``: 4 requests of 128 prompt tokens, 8 greedy tokens.
+    The routed run's logits are held against the auto run's (teacher
+    forced on its tokens), its greedy tokens equal but at near ties; the
+    routed run launches ``rbgp4mm_rhs`` only for gate, up and down (3 of
+    the layer's 7), the auto run for all 7, each count derived from the
+    plan and the forward calls.  Then ``quantize_weights`` under the
+    routed plan: every compact layer launches the int8 path, through the
+    ``quant`` reroute.  Last, quickstart's step 4 on the card: one
+    float32 compact layer under every backend that accepts it.  Returns
+    the three runs (launches from 0 each)."""
+    from repro_torch.data import TokenStream
+    from repro_torch.examples import quickstart
+    from repro_torch.models import LMModel
+    from repro_torch.sparsity import SparseLinear, quantize_weights
+
+    phase = "backends"
+    t_phase = time.perf_counter()
+    cfg_r = routed_config(ROUTES)
+    cfg_a = routed_config({part: "auto" for part in ROUTES})
+    model_r = LMModel(cfg_r, device="cuda", seed=0)
+    model_a = LMModel(cfg_a, device="cuda", seed=0)
+    model_a.load_state_dict(model_r.state_dict())
+    names = {m.name: m.backend_name for m in model_r.modules()
+             if isinstance(m, SparseLinear)}
+    log(phase, f"{cfg_r.name}: {cfg_r.n_layers} layers, d_model "
+               f"{cfg_r.d_model}, plan {cfg_r.sparsity_rules.fingerprint()} "
+               f"(auto's {cfg_a.sparsity_rules.fingerprint()}); layer "
+               f"backends {names}")
+    prompts = TokenStream(cfg_r.vocab_size, ROUTED_REQUESTS, ROUTED_PROMPT,
+                          seed=1).batch_at(0)
+    routed_decode(model_a, prompts)              # warm-up, not counted
+    auto = routed_decode(model_a, prompts)
+    routed = routed_decode(model_r, prompts, feed=auto["tokens"])
+    held = routed_containers()
+    per_call = {"routed": kernel_layers_per_call(cfg_r, held["compact"],
+                                                 "pallas"),
+                "auto": kernel_layers_per_call(cfg_a, held["compact"],
+                                               "pallas")}
+    if per_call != {"routed": 3 * ROUTED_LAYERS,
+                    "auto": 7 * ROUTED_LAYERS}:
+        raise AssertionError(f"the plans give {per_call} kernel "
+                             f"projections a call")
+    for run, res in (("routed", routed), ("auto", auto)):
+        want = launches_of(forward=per_call[run] * res["calls"])
+        if res["launches"] != want:
+            raise AssertionError(f"{run} run: launches {res['launches']}, "
+                                 f"want {want} ({per_call[run]} a call x "
+                                 f"{res['calls']} calls)")
+    ref, got = auto["logits"], routed["logits"]
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise AssertionError("non-finite logits")
+    if got.shape != (ROUTED_REQUESTS, ROUTED_TOKENS, cfg_r.vocab_size):
+        raise AssertionError(f"logits {tuple(got.shape)}")
+    scale = float(ref.abs().max())
+    diff = (got - ref).abs().amax(-1)
+    err = float(diff.max())
+    if err > ROUTED_TOL * scale:
+        raise AssertionError(f"routed logits differ by {err:.3e} > "
+                             f"{ROUTED_TOL} x {scale:.3e}")
+    top = torch.topk(ref, 2, dim=-1).values
+    gap = top[..., 0] - top[..., 1]
+    differ = routed["tokens"] != auto["tokens"]
+    near = (gap <= 2 * diff).cpu().numpy()
+    if (differ & ~near).any():
+        raise AssertionError(f"greedy tokens differ away from a near tie "
+                             f"at {np.argwhere(differ & ~near).tolist()}")
+    log(phase, f"routed vs auto, {ROUTED_REQUESTS} requests x "
+               f"{ROUTED_TOKENS} tokens: max|logit diff| {err:.3e}, "
+               f"{err / scale:.3e} x max|ref| {scale:.3e} (<= "
+               f"{ROUTED_TOL}); greedy tokens "
+               f"{'equal' if not differ.any() else 'equal but'} "
+               f"{int(differ.sum())} near-tie flips; rbgp4mm_rhs launches "
+               f"{routed['launches']['forward']} routed ({per_call['routed']}"
+               f" a call) vs {auto['launches']['forward']} auto "
+               f"({per_call['auto']} a call) over {auto['calls']} calls; "
+               f"decode {routed['decode_ms_per_step']:.3f} ms/step routed vs "
+               f"{auto['decode_ms_per_step']:.3f} ms/step auto on {smi}")
+    del model_a
+    quantize_weights(model_r)
+    routed_decode(model_r, prompts)              # warm-up, not counted
+    quant = routed_decode(model_r, prompts)
+    n_compact = kernel_layers_per_call(cfg_r, held["int8"], "quant")
+    if n_compact != 7 * ROUTED_LAYERS:
+        raise AssertionError(f"the plan gives {n_compact} compact "
+                             f"projections")
+    want = launches_of(forward_q=n_compact * quant["calls"])
+    if quant["launches"] != want:
+        raise AssertionError(f"int8 under the routed plan: launches "
+                             f"{quant['launches']}, want {want}")
+    if not torch.isfinite(quant["logits"]).all():
+        raise AssertionError("non-finite int8 logits")
+    log(phase, f"after quantize_weights under the routed plan: every "
+               f"compact layer reroutes to quant, rbgp4mm_rhs int8 "
+               f"launches {quant['launches']['forward_q']}, none in full "
+               f"precision; decode {quant['decode_ms_per_step']:.3f} "
+               f"ms/step")
+    del model_r
+    free_card()
+    # quickstart's step 4 on the card: one float32 compact layer, every
+    # backend that accepts its container (launches made here are
+    # comparisons)
+    errs, y_max = quickstart.backends_check("cuda")
+    for name, e in errs.items():
+        if e > BACKEND_TOL * y_max:
+            raise AssertionError(f"backend {name}: {e:.3e} > "
+                                 f"{BACKEND_TOL} x {y_max:.3e}")
+    log(phase, f"quickstart step 4, every backend accepting a 512 x 512 "
+               f"float32 compact layer within {BACKEND_TOL} x max|ref| "
+               f"{y_max:.3e}")
+    res = {"routed": routed, "auto": auto, "quant": quant}
+    print(f"{phase} " + json.dumps({
+        run: {k: v for k, v in r.items() if k not in ("logits", "tokens")}
+        for run, r in res.items()} | {"max_abs_logit_diff": err,
+                                      "max_abs_logit": scale,
+                                      "backend_errs": errs}), flush=True)
+    log(phase, f"phase 58 took {time.perf_counter() - t_phase:.1f}s")
+    return list(res.values())
+
+
+def phase_examples(smi: str) -> dict:
+    """Phase 59: the four examples on the card, each a process of its own,
+    all started together: ``quickstart`` as written, ``train_sparse_lm
+    --size paper --steps 6 --simulate-failure 3`` (exit code 42) and the
+    same without the failure (it resumes at step 3, exit code 0),
+    ``serve_lm`` as written, ``cifar_vgg_rbgp4 --steps 4``.  Prints each
+    one's last line and seconds; any other exit code, or a rerun that
+    does not resume at step 3, fails the phase.  Returns {name:
+    seconds}."""
+    import shutil
+    import tempfile
+
+    phase = "examples"
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    # four processes share the host's cores: two threads each
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="2")
+    ckpt = ["--checkpoint-dir", str(work / "ckpt")]
+    train = ["train_sparse_lm", "--size", "paper", "--steps", "6", *ckpt]
+    drill, resume = "train_sparse_lm (failure drill)", \
+        "train_sparse_lm (resume)"
+    runs = {"quickstart": (["quickstart"], 0),
+            drill: (train + ["--simulate-failure", "3"], 42),
+            "serve_lm": (["serve_lm"], 0),
+            "cifar_vgg_rbgp4": (["cifar_vgg_rbgp4", "--steps", "4"], 0)}
+    want = {name: rc for name, (_, rc) in runs.items()} | {resume: 0}
+    procs, secs, texts = {}, {}, {}
+
+    def start(name, argv):
+        out = open(work / f"{len(procs)}.log", "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", f"repro_torch.examples.{argv[0]}",
+             *argv[1:]], cwd=work, env=env, stdout=out,
+            stderr=subprocess.STDOUT), out, time.perf_counter())
+
+    def finish(name):
+        """Called as ``name``'s process ends: its seconds, exit code and
+        last line."""
+        proc, out, t0 = procs[name]
+        secs[name] = time.perf_counter() - t0
+        out.seek(0)
+        texts[name] = text = out.read()
+        if proc.returncode != want[name]:
+            raise AssertionError(f"example {name}: exit code "
+                                 f"{proc.returncode}, want {want[name]}:\n"
+                                 f"{text[-4000:]}")
+        last = text.strip().splitlines()[-1] if text.strip() else ""
+        log(phase, f"{name}: exit code {proc.returncode} in "
+                   f"{secs[name]:.1f}s; last line: {last}")
+
+    try:
+        for name, (argv, _) in runs.items():
+            start(name, argv)
+        # each one's seconds end at its own exit; the resume starts as
+        # the drill ends
+        while len(secs) < len(want):
+            for name, (proc, _, t0) in list(procs.items()):
+                if name in secs:
+                    continue
+                if proc.poll() is not None:
+                    finish(name)
+                    if name == drill:
+                        start(resume, train)
+                elif time.perf_counter() - t0 > EXAMPLE_TIMEOUT_S:
+                    raise AssertionError(f"example {name}: over "
+                                         f"{EXAMPLE_TIMEOUT_S}s")
+            time.sleep(0.05)
+        if "auto-resumed from step 3" not in texts[resume]:
+            raise AssertionError(f"the rerun did not resume at step 3:\n"
+                                 f"{texts[resume][-4000:]}")
+    finally:
+        for proc, out, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+        shutil.rmtree(work, ignore_errors=True)
+    log(phase, f"phase 59 took {time.perf_counter() - t_phase:.1f}s (the "
+               f"examples side by side) on {smi}")
+    return secs
+
+
+def backends_phases(smi: str) -> tuple[list, dict]:
+    """Phases 58-59."""
+    free_card()
+    runs = phase_backends(smi)
+    return runs, phase_examples(smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
               "card only", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    quick = {"--shard-only", "--archs-only", "--autotune-only"}
+    quick = {"--shard-only", "--archs-only", "--autotune-only",
+             "--backends-only"}
     dry_recs = None
     if not quick & set(sys.argv[1:]):
         # phase 55's reckoning runs beside the kernels' build, and beside
@@ -7528,6 +7885,13 @@ def main() -> int:
         reckoning_beside_decode(smi)
         dryrun_phases(smi, dry_recs)
         log("done", f"phases 1 and 55-57 passed in "
+                    f"{time.perf_counter() - t_start:.1f}s on {smi}")
+        return 0
+    if "--backends-only" in sys.argv[1:]:
+        # the quick check of the registry's routing and the examples:
+        # phases 58-59
+        backends_phases(smi)
+        log("done", f"phases 1 and 58-59 passed in "
                     f"{time.perf_counter() - t_start:.1f}s on {smi}")
         return 0
     if "--shard-only" in sys.argv[1:]:
@@ -7737,6 +8101,12 @@ def main() -> int:
     t_dry = time.perf_counter()
     dry_card, dry_train = dryrun_phases(smi, dry_recs)
     t_dry = time.perf_counter() - t_dry
+
+    # the sparse-backend registry: a plan's per-layer backend names pick
+    # what runs (phase 58), and the four examples on the card (phase 59)
+    t_back = time.perf_counter()
+    backend_runs, _ = backends_phases(smi)
+    t_back = time.perf_counter() - t_back
     # phase 50's checks of each training layout against its plain version
     max_abs_archs = {role: max(r["layout_checks"]["max_abs"][role]
                                for r in train_archs.values())
@@ -7804,7 +8174,7 @@ def main() -> int:
                  static, obs) + tuple(vision.values()) \
         + tuple(train_plan.values()) + tuple(serve_archs.values()) \
         + tuple(train_archs.values()) + tuple(shard_runs) \
-        + tuple(dry_train.values())
+        + tuple(dry_train.values()) + tuple(backend_runs)
     train_runs = (train, train_moe, *train_archs.values())
     vision_launches = lambda role: sum(r["launches"][role]
                                        for r in vision.values())
@@ -8080,7 +8450,8 @@ def main() -> int:
                 f"{t_tune:.1f}s, the other archs' phases 48-51 "
                 f"{t_arch:.1f}s, the distribution phases 52-54 "
                 f"{t_shard:.1f}s, the dry-run and sharded-training phases "
-                f"55-57 {t_dry:.1f}s")
+                f"55-57 {t_dry:.1f}s, the registry and example phases "
+                f"58-59 {t_back:.1f}s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

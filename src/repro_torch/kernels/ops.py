@@ -38,8 +38,8 @@ transposed) are built once by the owning module and passed in.
 
 ``compact_linear``, ``compact_linear_stacked``, ``compact_matmul`` and
 ``chain_linear`` are the one dispatch of compact and chain storage that
-``sparse_linear``, ``sparse_linear_batched``, ``sparse_matmul`` and
-``RBGP4Op`` share: the autograd function where a gradient is asked for,
+the ``pallas`` and ``chain`` backends of ``sparsity.api`` and ``RBGP4Op``
+share: the autograd function where a gradient is asked for,
 else the kernel directly, so that serving stores no pre-activation and
 never builds the transposed tables.
 """

@@ -31,10 +31,11 @@ with its measured time in measured mode.
 
 ``--plan plan.json`` (a ``SparsityPlan`` written by ``SparsityPlan.save``,
 by either package, or by ``repro_torch.launch.plan``) overrides
-``--pattern``/``--sparsity``; the engine is given the plan, so with
-``--max-live-tokens`` its admission budget grows by the weight bytes the
-plan frees (plan-aware admission), and the autotuner's entries are scoped
-to the plan's fingerprint.
+``--pattern``/``--sparsity``/``--backend`` (the registered sparse
+backend every sparsified projection runs on, ``auto`` by default); the
+engine is given the plan, so with ``--max-live-tokens`` its admission
+budget grows by the weight bytes the plan frees (plan-aware admission),
+and the autotuner's entries are scoped to the plan's fingerprint.
 
 ``--quant int8`` serves weight-only int8 storage (post-training
 quantization): the plan's compact and chain rules are stamped with
@@ -75,6 +76,8 @@ from repro_torch.configs import apply_sparsity, get_config, reduce_config
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from repro_torch.sparsity import available_backends
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
@@ -119,9 +122,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "running requests (0: pool capacity)")
     ap.add_argument("--pattern", default="rbgp4")
     ap.add_argument("--sparsity", type=float, default=0.75)
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto"] + available_backends(),
+                    help="execution backend from the sparsity registry "
+                         "('auto': compact storage on the hand-written "
+                         "kernels)")
     ap.add_argument("--plan", default="",
-                    help="SparsityPlan JSON; overrides --pattern/--sparsity "
-                         "and is matched per module path")
+                    help="SparsityPlan JSON; overrides --pattern/--sparsity/"
+                         "--backend and is matched per module path")
     ap.add_argument("--quant", default="", choices=["", "int8"],
                     help="weight-only PTQ of the served weights: compact "
                          "and chain values as int8 leaf blocks + one f32 "
@@ -304,7 +312,8 @@ def main(argv=None):
         autotune.set_plan_fingerprint(cfg.plan.fingerprint())
     elif args.sparsity > 0:
         cfg = apply_sparsity(cfg, pattern=args.pattern,
-                             sparsity=args.sparsity, min_dim=64)
+                             sparsity=args.sparsity, backend=args.backend,
+                             min_dim=64)
     if args.quant:
         # stamp quant on the succinct rules before the model resolves the
         # plan: the fingerprint must describe the storage served

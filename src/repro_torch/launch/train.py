@@ -11,10 +11,13 @@ fault-tolerance contract:
     42 (a drill); rerunning the same command resumes and completes;
   * ``--global-batch`` keeps that global batch through gradient
     accumulation over microbatches of ``--batch``;
+  * ``--backend`` names the registered sparse backend every sparsified
+    projection runs on (``auto``: compact storage on the kernels;
+    ``xla_masked``: masked storage, the paper-faithful training path);
   * ``--plan plan.json`` (a ``SparsityPlan``) overrides ``--pattern``/
-    ``--sparsity``; its fingerprint is stamped into every checkpoint, and
-    a resume under another plan is refused; the autotuner's entries are
-    scoped to it;
+    ``--sparsity``/``--backend``/``--min-dim``; its fingerprint is
+    stamped into every checkpoint, and a resume under another plan is
+    refused; the autotuner's entries are scoped to it;
   * ``--grad-compression int8`` runs every gradient through the int8
     quantize / dequantize round trip with error feedback (the residual is
     carried in the trainer state and its checkpoints);
@@ -53,7 +56,8 @@ from repro_torch.data import Prefetcher, TokenStream
 from repro_torch.kernels import autotune
 from repro_torch.models import LMModel
 from repro_torch.obs import kernelstats
-from repro_torch.sparsity import SparsityPlan, quantize_weights
+from repro_torch.sparsity import (SparsityPlan, available_backends,
+                                  quantize_weights)
 from repro_torch.train import CheckpointManager, Trainer
 
 
@@ -68,7 +72,8 @@ def build(args):
         autotune.set_plan_fingerprint(cfg.plan.fingerprint())
     elif args.sparsity > 0:
         cfg = apply_sparsity(cfg, pattern=args.pattern,
-                             sparsity=args.sparsity, min_dim=args.min_dim)
+                             sparsity=args.sparsity, backend=args.backend,
+                             min_dim=args.min_dim)
     model = LMModel(cfg, device=args.device, seed=args.seed)
     # one device: the global batch is kept by gradient accumulation
     micro = max(1, args.global_batch // max(args.batch, 1))
@@ -109,9 +114,17 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["cosine", "step", "constant"])
     ap.add_argument("--pattern", default="rbgp4")
     ap.add_argument("--sparsity", type=float, default=0.75)
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto"] + available_backends(),
+                    help="execution backend from the sparsity registry "
+                         "('auto', the blessed entry point: compact "
+                         "storage on the hand-written kernels; "
+                         "'xla_masked' trains dense values under the "
+                         "fixed mask, the paper-faithful path)")
     ap.add_argument("--min-dim", type=int, default=64)
     ap.add_argument("--plan", default="",
-                    help="SparsityPlan JSON; overrides --pattern/--sparsity. "
+                    help="SparsityPlan JSON; overrides --pattern/--sparsity/"
+                         "--backend/--min-dim with per-layer path rules. "
                          "Its fingerprint is stamped into checkpoints and a "
                          "restore under another plan is refused")
     ap.add_argument("--quant", default="", choices=["", "int8"],

@@ -9,12 +9,14 @@ rank's experts.
 Expert weights are stacked over the experts and share one RBGP4 layout
 per projection shape (cloned-mask EP), in one of two storages:
 ``StackedExperts`` keeps compact (E, M, nnz_row) values (backend
-``auto``) and runs each projection as ONE launch of the stacked kernel for
-all experts (``sparse_linear_batched``), with the gate activation fused
-into the kernel's epilogue; or, under a masked backend (``xla_masked``,
-``ref``), dense (E, M, K) values under the one broadcast mask, E dense
-masked products (the reference's default).  Where the pattern does not
-apply to the expert shapes, the values are dense (E, M, K).
+``auto``, ``pallas`` or ``xla_compact``) and runs each projection as ONE
+call of ``sparse_linear_batched`` for all experts on its backend
+(``pallas``: one launch of the stacked kernel, with the gate activation
+fused into the kernel's epilogue); or, under a masked backend
+(``xla_masked``, ``ref``), dense (E, M, K) values under the one broadcast
+mask, E dense masked products (the reference's default).  Where the
+pattern does not apply to the expert shapes, the values are dense (E, M,
+K).
 
 Routing is discrete: a near tie between the k-th and (k+1)-th router
 probability decides which expert a token goes to.  The router weight is
@@ -89,6 +91,7 @@ class StackedExperts(nn.Module):
         if recording_active():
             # shape-recording pass: no pattern, storage or device
             self.storage = "dense"
+            self.backend = "auto"
             self.compact = self.masked = False
             return
         device = resolve_device(device)
@@ -119,6 +122,9 @@ class StackedExperts(nn.Module):
                         if applies else "dense")
         self.compact = self.storage == "compact"
         self.masked = self.storage == "masked"
+        # the backend the three projections run on ('auto' for dense
+        # experts, which run on 'ref')
+        self.backend = sparsity.backend if applies else "auto"
 
         def draw(shape, scale):
             w = torch.randn((n_experts, *shape), generator=generator,
@@ -236,11 +242,13 @@ class StackedExperts(nn.Module):
 
     def forward(self, xe: torch.Tensor) -> torch.Tensor:
         """xe (E, C, D) -> (E, C, D): one stacked launch per projection."""
-        g = sparse_linear_batched(self.weight("gate"), xe, fuse=self.fuse)
+        be = self.backend
+        g = sparse_linear_batched(self.weight("gate"), xe, backend=be,
+                                  fuse=self.fuse)
         if self.fuse is None:
             g = self.act(g)
-        h = g * sparse_linear_batched(self.weight("up"), xe)
-        return sparse_linear_batched(self.weight("down"), h)
+        h = g * sparse_linear_batched(self.weight("up"), xe, backend=be)
+        return sparse_linear_batched(self.weight("down"), h, backend=be)
 
 
 class MoELayer(nn.Module):

@@ -148,16 +148,19 @@ def on_use(owner, attr: str) -> torch.Tensor:
 
 def linear_forward(layer, x: torch.Tensor, *, fuse: Optional[str] = None,
                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """A ``SparseLinear``'s forward under its ``LinearShard``."""
+    """A ``SparseLinear``'s forward under its ``LinearShard``, on the
+    layer's backend (``backend_name``): a compact share under
+    ``xla_compact`` gathers through its cut ``col0``."""
     from repro_torch.sparsity.api import EPILOGUE_ACTS, sparse_linear
 
     tp: LinearShard = layer.tp
     w = layer.weight()
+    be = layer.backend_name
     if tp.role == "col":
         part = (tp.lo, tp.hi) != (0, tp.full)
         if tp.sliced:
             x = to_ranks(x, tp.axis)
-        y = sparse_linear(w, x, fuse=fuse)
+        y = sparse_linear(w, x, backend=be, fuse=fuse)
         if not tp.sliced and part:
             y = to_ranks(y, tp.axis)[..., tp.lo:tp.hi]
         if residual is not None:
@@ -171,11 +174,11 @@ def linear_forward(layer, x: torch.Tensor, *, fuse: Optional[str] = None,
     if not tp.sliced:
         if split_input:
             x = gather_cat(x, tp.axis)
-        return sparse_linear(w, x, fuse=fuse, residual=residual)
+        return sparse_linear(w, x, backend=be, fuse=fuse, residual=residual)
     if tp.whole_input and split_input:
         x = to_ranks(gather_cat(x, tp.axis), tp.axis)
-    y = gather_sum(sparse_linear(dataclasses.replace(w, b=None), x),
-                   tp.axis)
+    y = gather_sum(sparse_linear(dataclasses.replace(w, b=None), x,
+                                 backend=be), tp.axis)
     if w.b is not None:
         y = y + w.b.to(y.dtype)
     if fuse is not None:

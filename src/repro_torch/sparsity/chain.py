@@ -10,9 +10,9 @@ two sparse Ramanujan factors has no RBGP4 layout; its weight is stored as
     the layer's device) in place of the reference's static ``ChainLayout``
     aux: it is what the kernels read, and nothing a checkpoint stores.
 
-``sparse_linear`` runs it on ``chainmm_rhs`` (and ``ChainLinear`` where a
-gradient is asked for).  Chains have no stacked-expert storage, as in the
-reference: MoE experts stay on RBGP4.
+``sparse_linear``'s ``chain`` backend runs it on ``chainmm_rhs`` (and
+``ChainLinear`` where a gradient is asked for).  Chains have no
+stacked-expert storage, as in the reference: MoE experts stay on RBGP4.
 """
 from __future__ import annotations
 

@@ -4,12 +4,16 @@ The port of ``repro/sparsity/layer.py``.  ``cfg`` is a ``SparsityConfig``
 (applied by value) or a ``SparsityPlan``, in which case the layer resolves
 its pattern by module path: ``name`` is matched against the plan's
 ordered rules.  The storage is decided at construction
-(``storage_kind``): ``dense`` when the pattern does not apply to the
-shape, ``compact`` RBGP4 storage, ``chain`` storage for a product chain
+(``api.storage_kind``, from the capabilities of the backend the config
+names): ``dense`` when the pattern does not apply to the shape,
+``compact`` RBGP4 storage, ``chain`` storage for a product chain
 of more than two Ramanujan factors, or ``masked`` storage: dense values
 ``w`` under a fixed mask, held as the integer buffers ``ba_o``/``ba_i``
 (an RBGP4 layout's base-graph factors, expanded at each call) or ``mask``
-(unstructured, block and deep chains), which no optimizer takes.  Masked
+(unstructured, block and deep chains), which no optimizer takes.
+``backend_name`` is the registered backend every product of the layer
+runs on (``sparse_linear(..., backend=)``): the config's, or 'auto' for
+dense storage and in the recording pass, as in the reference.  Masked
 values are drawn Kaiming over the fan-in each row keeps, as the
 reference's; weight decay still moves their off-mask entries, as it does
 there.  The layout's kernel tables are built once on the layer's device
@@ -48,10 +52,9 @@ from repro_torch.kernels import (ChainTransposeTables, TransposeTables,
                                  get_op)
 
 from .api import (ChainWeight, CompactWeight, DenseWeight, MaskedWeight,
-                  QuantizedWeight, sparse_linear)
+                  QuantizedWeight, sparse_linear, storage_kind)
 from .patterns import PatternInstance, SparsityConfig, make_pattern
-from .plan import (SparsityPlan, record_shape, recording_active,
-                   storage_kind)
+from .plan import SparsityPlan, record_shape, recording_active
 from .quant import (dequantize_block_values, leaf_block_dims,
                     quantize_block_values)
 
@@ -93,6 +96,7 @@ class SparseLinear(nn.Module):
             self.cfg = SparsityConfig()
             self.pattern = None
             self.mode = "dense"
+            self.backend_name = "auto"
             return
         device = resolve_device(device)
         if isinstance(cfg, SparsityPlan):
@@ -102,9 +106,15 @@ class SparseLinear(nn.Module):
         self.mode = "dense"
         if self.cfg.applies_to(m, k):
             self.pattern = make_pattern(self.cfg, m, k)
+            # checks the backend name against the registry and takes the
+            # storage from its declared capabilities
             self.mode = storage_kind(
                 self.cfg.backend, has_layout=self.pattern.layout is not None,
                 chain=self.pattern.chain_layout is not None)
+        # the backend every product of the layer runs on ('auto' picks by
+        # the container's type: dense storage runs on 'ref')
+        self.backend_name = ("auto" if self.mode == "dense"
+                             else self.cfg.backend)
         # Kaiming init over the fan-in each row actually has (layer.py:139)
         if self.mode == "dense":
             shape, fan_in = (m, k), k
@@ -248,11 +258,13 @@ class SparseLinear(nn.Module):
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (..., in_features) -> (..., out_features); ``fuse``/``residual``
         request ``y = act(x W^T + b) + residual`` (in the kernel's epilogue
-        for compact storage, in torch after it otherwise).  A sharded layer
+        on a backend that declares one, in torch after it otherwise), on
+        the backend ``backend_name``.  A sharded layer
         runs ``parallel.tensor.linear_forward``: its input and output are
         its rank's share of the activation."""
         if self.tp is not None:
             from repro_torch.parallel.tensor import linear_forward
 
             return linear_forward(self, x, fuse=fuse, residual=residual)
-        return sparse_linear(self.weight(), x, fuse=fuse, residual=residual)
+        return sparse_linear(self.weight(), x, backend=self.backend_name,
+                             fuse=fuse, residual=residual)

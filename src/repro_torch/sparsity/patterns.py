@@ -36,10 +36,12 @@ class SparsityConfig:
     backend:  'auto' — compact storage for a pattern with an RBGP4 layout,
               chain storage for a deeper ``rbgp`` chain, each executed by
               its hand-written kernels (on the card) or their plain
-              versions (on the CPU), masked storage otherwise; or a
-              reference backend name (``plan.storage_kind``):
-              'xla_masked' and 'ref' store any pattern masked (dense
-              values under a fixed mask, one dense product).
+              versions (on the CPU), masked storage otherwise; or any
+              name registered in ``repro_torch.sparsity.api``, whose
+              declared capabilities decide the storage
+              (``api.storage_kind``) and which runs every product of the
+              layer: 'xla_masked' and 'ref' store any pattern masked
+              (dense values under a fixed mask, one dense product).
     block:    (bh, bw) of the 'block' pattern (the paper's Table 1 uses
               (4, 4)).
     min_dim:  skip sparsification for matrices with any dim below this.

@@ -38,58 +38,13 @@ from typing import Callable, Optional, Union
 from repro_torch.core import canonicalize_factors, design_rbgp, design_rbgp4
 from repro_torch.core.graphs import ramanujan_bound, second_singular_value
 
+from .api import storage_kind
 from .patterns import PatternInstance, SparsityConfig, make_pattern
 
 __all__ = ["PatternSpec", "PlanRule", "SparsityPlan", "DENSE",
-           "lower_config", "storage_kind", "solve_budget", "plan_density",
-           "certify", "model_matmul_shapes", "recording_shapes",
-           "record_shape", "recording_active"]
-
-# storage capability of every backend name of the reference's registry
-# (``repro/sparsity/api.py``): what a spec naming it stores.  None is
-# masked storage (dense values under a fixed mask, one dense product).
-# The port runs compact and chain storage on its kernels whatever the
-# name.
-_BACKEND_STORAGE = {
-    "ref": None,
-    "xla_masked": None,
-    "xla_compact": "compact",
-    "pallas": "compact",
-    "chain": "chain",
-    "quant": None,
-}
-
-
-def storage_kind(backend: str, *, has_layout: bool,
-                 chain: bool = False) -> str:
-    """'compact', 'chain' or 'masked' storage for a sparsified layer given
-    the backend name (the reference's ``api.storage_kind``).
-
-    ``auto`` prefers compact storage whenever the pattern has an RBGP4
-    layout, then chain storage for a deeper product chain, then masked.
-    A backend declaring compact or chain storage requires the matching
-    pattern and raises ValueError otherwise.
-    """
-    if backend == "auto":
-        if has_layout:
-            return "compact"
-        return "chain" if chain else "masked"
-    if backend not in _BACKEND_STORAGE:
-        raise KeyError(f"unknown sparse backend {backend!r}; available: "
-                       f"{sorted(_BACKEND_STORAGE)}")
-    kind = _BACKEND_STORAGE[backend]
-    if kind == "chain":
-        if not chain:
-            raise ValueError(
-                f"backend {backend!r} requires a >2-sparse-factor rbgp "
-                f"chain (RBGP4-expressible patterns use compact storage)")
-        return "chain"
-    if kind == "compact":
-        if not has_layout:
-            raise ValueError(f"backend {backend!r} requires pattern=rbgp4 "
-                             f"(compact storage is an RBGP property)")
-        return "compact"
-    return "masked"
+           "lower_config", "solve_budget", "plan_density", "certify",
+           "model_matmul_shapes", "recording_shapes", "record_shape",
+           "recording_active"]
 
 
 def _config_kwargs(cfg: SparsityConfig) -> dict:

@@ -57,7 +57,10 @@ card against CPU: MLA's paged decode (deepseek-v2), a Mamba step (jamba)
 and an RWKV-6 step (``-k arch_mixer``).  And every rank's share of a
 full-width layout at 2 and 4 ranks (rows, slots, experts, int8) against
 its plain version and the unsharded launch, and of a full-width chain
-layout (``ChainTables.rank_slice``) alike (``-k rank_shares``).
+layout (``ChainTables.rank_slice``) alike (``-k rank_shares``).  And a
+plan's per-layer backend names at a reduced tinyllama: the launches of
+phase 58's routed plan and of ``auto``, and the int8 reroute (``-k
+routed``).
 
 Needs a CUDA card (and nvcc): the kernels have no CPU mode, so these tests
 skip elsewhere.  They import only torch and the port, so they run where
@@ -2172,3 +2175,58 @@ def test_cuda_train_steps_rerun_bit_equal(arch, sharded):
             dist.destroy_process_group()
     got = chip_smoke.compare_reruns(*runs)
     assert got["steps"] == 2 and got["n_grads"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_routed_plan_launches_as_phase_58_states():
+    """A 2-layer reduced tinyllama (bf16) under phase 58's routed plan
+    (attention -> ``xla_compact``, MLP -> ``pallas``) and from the same
+    weights under ``auto``: ``rbgp4mm_rhs`` launches once a call for each
+    projection the plan sends to the kernels (gate, up, down routed; every
+    compact one under ``auto``: wk and wv stay dense at this width), the
+    routed logits within phase 58's tolerance; after
+    ``quantize_weights`` every compact projection launches the int8 path
+    through the ``quant`` reroute."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs import apply_sparsity, get_config, reduce_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import LMModel
+    from repro_torch.sparsity import quantize_weights
+
+    needs_card()
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    base = reduce_config(get_config("tinyllama-1.1b")).with_(
+        n_layers=2, compute_dtype="bfloat16")
+    cfgs = {"routed": chip_smoke.routed_plan(chip_smoke.ROUTES),
+            "auto": chip_smoke.routed_plan(
+                {part: "auto" for part in chip_smoke.ROUTES})}
+    cfgs = {run: apply_sparsity(base, plan=plan)
+            for run, plan in cfgs.items()}
+    held = chip_smoke.routed_containers()
+    per_call = {run: chip_smoke.kernel_layers_per_call(cfg, held["compact"],
+                                                       "pallas")
+                for run, cfg in cfgs.items()}
+    assert per_call == {"routed": 6, "auto": 10}
+    models = {run: LMModel(cfg, device="cuda", seed=0)
+              for run, cfg in cfgs.items()}
+    models["auto"].load_state_dict(models["routed"].state_dict())
+    prompts = TokenStream(base.vocab_size, 2, 16, seed=1).batch_at(0)
+    auto = chip_smoke.routed_decode(models["auto"], prompts)
+    routed = chip_smoke.routed_decode(models["routed"], prompts,
+                                      feed=auto["tokens"])
+    for run, res in (("routed", routed), ("auto", auto)):
+        assert res["launches"] == chip_smoke.launches_of(
+            forward=per_call[run] * res["calls"]), run
+    ref = auto["logits"]
+    err = float((routed["logits"] - ref).abs().max())
+    assert err <= chip_smoke.ROUTED_TOL * float(ref.abs().max())
+    quantize_weights(models["routed"])
+    quant = chip_smoke.routed_decode(models["routed"], prompts)
+    n_compact = chip_smoke.kernel_layers_per_call(cfgs["routed"],
+                                                  held["int8"], "quant")
+    assert quant["launches"] == chip_smoke.launches_of(
+        forward_q=n_compact * quant["calls"])

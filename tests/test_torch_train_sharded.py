@@ -2,7 +2,9 @@
 
 One child run spawns four ranks on a ``file://`` store.  For every
 architecture and storage that ``shard_module`` takes -- tinyllama in
-compact, masked and chain storage, qwen2-moe's expert-parallel experts,
+compact, masked and chain storage and under a plan that routes the
+attention to the ``xla_compact`` backend and the MLP to ``pallas`` (the
+shares keep their layers' backends), qwen2-moe's expert-parallel experts,
 deepseek-v2's MLA, pixtral-12b with patch embeddings, musicgen-medium's
 codebooks, a vocabulary of 1024 (tinyllama dense, gemma-7b's tied head)
 so that the vocabulary-parallel embedding, head and cross-entropy train
@@ -77,6 +79,9 @@ CASES = [
     ("tinyllama-compact", "tinyllama-1.1b", "auto", {}),
     ("tinyllama-masked", "tinyllama-1.1b", "xla_masked", {}),
     ("tinyllama-chain", "tinyllama-1.1b", "chain", {}),
+    # a plan's per-layer backends: attention on the plain-torch gather of
+    # the shares' cut tables, the MLP on the kernels' plain versions
+    ("tinyllama-routed", "tinyllama-1.1b", "routed", {}),
     ("tinyllama-dense-vocab", "tinyllama-1.1b", "dense",
      {"vocab_size": 1024}),
     ("gemma-7b-tied", "gemma-7b", "auto", {"vocab_size": 1024}),
@@ -115,6 +120,11 @@ def config(arch, storage, fields, chain):
     elif storage == "chain":
         cfg = apply_sparsity(cfg, plan=SparsityPlan(
             rules=(PlanRule(".*", PatternSpec(**chain)),)))
+    elif storage == "routed":
+        cfg = apply_sparsity(cfg, plan=SparsityPlan(rules=tuple(
+            PlanRule(rf"l\d+\.{part}\..*", PatternSpec(
+                pattern="rbgp4", sparsity=0.5, backend=b, min_dim=64))
+            for part, b in (("attn", "xla_compact"), ("mlp", "pallas")))))
     else:
         cfg = apply_sparsity(cfg, pattern="rbgp4", sparsity=0.5,
                              backend=storage, min_dim=64)
@@ -139,6 +149,7 @@ def rank_main(rank, world, store, work):
     from repro_torch.models import LMModel
     from repro_torch.parallel import gather_cat, gather_sum, shard_module
     from repro_torch.parallel.sharding import data_axis
+    from repro_torch.sparsity import get_backend
     from repro_torch.train import init_train_state, make_train_step
 
     with open(os.path.join(work, "cases.pkl"), "rb") as f:
@@ -176,8 +187,19 @@ def rank_main(rank, world, store, work):
         m = shard_module(model_of(c, cfg), mesh)
         tcfg = TrainConfig(grad_clip=0.0, **tc)
         st = init_train_state(m, tcfg)
+        # the backend each compact share runs on, and the calls of
+        # xla_compact in one forward and backward
+        xc = get_backend("xla_compact")
+        calls = []
+        xc.linear = lambda w, x: (calls.append(1),
+                                  type(xc).linear(xc, w, x))[1]
         loss, _ = m.loss(local, train=True)
         loss.backward()
+        del xc.linear
+        out["xla_compact_calls"] = len(calls)
+        out["share_backends"] = sorted({
+            (lin.name.split(".")[1], lin.backend_name)
+            for lin in m.modules() if getattr(lin, "share", None) is not None})
         out["none_grads"] = [k for k, p in m.named_parameters()
                              if p.requires_grad and p.grad is None]
         for p in m.parameters():
@@ -358,6 +380,21 @@ def test_shares_match_the_references_jax_grad(ranks, key):
     for r, res in enumerate(ranks):
         assert res[key]["jax_names"], r
         assert res[key]["jax_err"] <= JAX_RTOL, (r, res[key]["jax_err"])
+
+
+@pytest.mark.parametrize("dims", MESHES)
+def test_routed_shares_run_their_layers_backends(ranks, dims):
+    """Under the attention -> xla_compact, MLP -> pallas plan every compact
+    share keeps its layer's backend, and the attention shares' products
+    run on the plain-torch gather of their cut tables (their gradients
+    are held by the tests above)."""
+    key = f"tinyllama-routed|{dims[0]}x{dims[1]}"
+    for r, res in enumerate(ranks):
+        assert res[key]["share_backends"] == [["attn", "xla_compact"],
+                                              ["mlp", "pallas"]], r
+        assert res[key]["xla_compact_calls"] > 0, r
+        plain = f"tinyllama-compact|{dims[0]}x{dims[1]}"
+        assert res[plain]["xla_compact_calls"] == 0, r
 
 
 @pytest.mark.parametrize("key", KEYS)
